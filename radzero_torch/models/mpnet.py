@@ -1,0 +1,151 @@
+"""MPNet text encoder (port of radzero_tpu/models/mpnet.py), plain PyTorch.
+
+- RoBERTa-style position ids: ``cumsum(ids != pad) * (ids != pad) + pad``;
+- one relative-attention-bias table shared by all layers (T5-style
+  bidirectional buckets, 32 buckets, max distance 128);
+- post-LN layers LN(x + attn(x)), LN(y + ffn(y)), eps 1e-12;
+- additive key mask of ``finfo(dtype).min`` on padded keys.
+
+Only the ``fuse_post=False`` layer body is ported. ``fuse_post=True``
+selects the fused post-attention kernel K4 on the card, which is not
+ported yet: on a CUDA tensor it raises; on the CPU the plain chain below
+is that kernel's twin and runs.
+"""
+
+from __future__ import annotations
+
+import functools
+import math
+from typing import List
+
+import numpy as np
+import torch
+
+from radzero_torch.models.configuration import TextConfig
+from radzero_torch.ops.layers import (
+    attention,
+    gelu,
+    layer_norm,
+    linear,
+    merge_heads,
+    split_heads,
+)
+
+
+@functools.lru_cache(maxsize=64)
+def relative_position_bucket_table(
+    seq_len: int, num_buckets: int = 32, max_distance: int = 128
+) -> np.ndarray:
+    """(L, L) int32 bucket ids; mirrors MPNetEncoder.relative_position_bucket."""
+    context = np.arange(seq_len)[:, None]
+    memory = np.arange(seq_len)[None, :]
+    relative_position = memory - context
+    n = -relative_position
+
+    nb = num_buckets // 2
+    ret = (n < 0).astype(np.int64) * nb
+    n = np.abs(n)
+
+    max_exact = nb // 2
+    is_small = n < max_exact
+    with np.errstate(divide="ignore"):
+        val_if_large = max_exact + (
+            np.log(np.maximum(n, 1).astype(np.float64) / max_exact)
+            / math.log(max_distance / max_exact)
+            * (nb - max_exact)
+        ).astype(np.int64)
+    val_if_large = np.minimum(val_if_large, nb - 1)
+    ret = ret + np.where(is_small, n, val_if_large)
+    return ret.astype(np.int32)
+
+
+@functools.lru_cache(maxsize=64)
+def _bucket_ids(seq_len: int, num_buckets: int, device: torch.device) -> torch.Tensor:
+    """The bucket table as int64 on ``device``, uploaded once: a fresh
+    upload per forward would be a blocking copy that waits for the stream."""
+    table = relative_position_bucket_table(seq_len, num_buckets)
+    return torch.from_numpy(table).long().to(device)
+
+
+def _init_linear(g, d_in, d_out, std=0.02):
+    return {"kernel": torch.randn((d_in, d_out), generator=g, device=g.device) * std,
+            "bias": torch.zeros(d_out, device=g.device)}
+
+
+def _init_ln(g, d):
+    return {"scale": torch.ones(d, device=g.device), "bias": torch.zeros(d, device=g.device)}
+
+
+def init_mpnet(g: torch.Generator, cfg: TextConfig) -> dict:
+    d, f = cfg.hidden_size, cfg.intermediate_size
+    layers: List[dict] = [
+        {
+            "attn": {name: _init_linear(g, d, d) for name in ("q", "k", "v", "o")},
+            "ln_attn": _init_ln(g, d),
+            "mlp": {"fc1": _init_linear(g, d, f), "fc2": _init_linear(g, f, d)},
+            "ln_out": _init_ln(g, d),
+        }
+        for _ in range(cfg.num_hidden_layers)
+    ]
+    randn = functools.partial(torch.randn, generator=g, device=g.device)
+    return {
+        "embeddings": {
+            "word": randn((cfg.vocab_size, d)) * 0.02,
+            "position": randn((cfg.max_position_embeddings, d)) * 0.02,
+            "ln": _init_ln(g, d),
+        },
+        "rel_bias": randn((cfg.relative_attention_num_buckets, cfg.num_attention_heads)) * 0.02,
+        "layers": layers,
+    }
+
+
+def create_position_ids(input_ids: torch.Tensor, padding_idx: int) -> torch.Tensor:
+    mask = (input_ids != padding_idx).long()
+    return torch.cumsum(mask, dim=1) * mask + padding_idx
+
+
+def mpnet_layer(x, p, rel, neg, cfg: TextConfig):
+    """``rel``: (H, L, L) fp32 relative-position bias shared by the batch;
+    ``neg``: (S, L) additive key mask (0 real / -big pad)."""
+    if cfg.fuse_post and x.device.type == "cuda":
+        raise NotImplementedError(
+            "TextConfig.fuse_post=True needs kernel K4, not ported yet (first "
+            "in the ROADMAP.md port queue); use fuse_post=False"
+        )
+    h = cfg.num_attention_heads
+    q, k, v = (split_heads(linear(x, p["attn"][n]), h) for n in ("q", "k", "v"))
+    bias = rel[None].to(x.dtype) + neg[:, None, None, :].to(x.dtype)
+    a = linear(merge_heads(attention(q, k, v, bias=bias, scale=cfg.head_dim**-0.5)),
+               p["attn"]["o"])
+    x = layer_norm(x + a, p["ln_attn"], cfg.layer_norm_eps)
+    m = linear(gelu(linear(x, p["mlp"]["fc1"])), p["mlp"]["fc2"])
+    return layer_norm(x + m, p["ln_out"], cfg.layer_norm_eps)
+
+
+def mpnet_forward(params: dict, cfg: TextConfig, input_ids, attention_mask, *,
+                  dtype=torch.float32) -> torch.Tensor:
+    """(S, L) int ids + (S, L) mask -> (S, L, D) last hidden state."""
+    emb = params["embeddings"]
+    pos_ids = create_position_ids(input_ids, cfg.pad_token_id)
+    x = emb["word"][input_ids] + emb["position"][pos_ids]
+    x = layer_norm(x.to(dtype), emb["ln"], cfg.layer_norm_eps)
+
+    buckets = _bucket_ids(input_ids.shape[1], cfg.relative_attention_num_buckets,
+                          input_ids.device)
+    rel = params["rel_bias"].float()[buckets].permute(2, 0, 1)  # (H, L, L)
+    if dtype != torch.float32:
+        rel = rel.to(dtype).float()
+
+    neg_v = torch.finfo(torch.float32 if dtype == torch.float32 else dtype).min
+    neg = (1.0 - attention_mask.float()) * neg_v
+
+    for p in params["layers"]:
+        x = mpnet_layer(x, p, rel, neg, cfg)
+    return x
+
+
+def masked_mean_pool(hidden: torch.Tensor, attention_mask: torch.Tensor) -> torch.Tensor:
+    mask = attention_mask.to(hidden.dtype)[..., None]
+    summed = (hidden * mask).sum(dim=1)
+    counts = mask.sum(dim=1).clamp_min(1e-9)
+    return summed / counts

@@ -1,0 +1,137 @@
+"""Build and load the hand-written CUDA kernels.
+
+``nvcc`` compiles every ``csrc/*.cu`` into one shared library with a
+plain C interface for ``sm_90a`` (Hopper), into ``radzero_torch/build/``
+(listed in ``.gitignore``), at first use; the library is loaded with
+``ctypes``. The library name carries a hash of the sources, so an edit
+rebuilds and an unchanged tree reuses the last build.
+
+Every C entry point returns ``cudaGetLastError()`` after its launches;
+:func:`check` turns a non-zero code into a ``RuntimeError``. There is no
+fallback: without ``nvcc`` or a card, :func:`load` raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Optional
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "ops" / "csrc"
+BUILD_DIR = _PKG / "build"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+# C signatures: every pointer and the stream are c_void_p (a bare int
+# would be cut to 32 bits), then ints / floats as declared in csrc.
+SIGNATURES = {
+    # x, ln_s, ln_b, w, b, out, M, K, N, eps, dtype, stream
+    "rz_fused_preattn": [_P] * 6 + [_I, _I, _I, _F, _I, _P],
+    # qkv, out, B, L, H, hd, scale_log2e, dtype, stream
+    "rz_packed_attention": [_P, _P, _I, _I, _I, _I, _F, _I, _P],
+    # x, a, wo, bo, ls1, ln_s, ln_b, w1, b1, w2, b2, ls2, y32, h, out,
+    # M, D, F, eps, dtype, stream
+    "rz_fused_postattn": [_P] * 15 + [_I, _I, _I, _F, _I, _P],
+    # qn, t, tau, scores, logits, N, B, L, D, dtype, stream
+    "rz_vlcabs_fused": [_P] * 5 + [_I, _I, _I, _I, _I, _P],
+}
+
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+build_seconds: Optional[float] = None
+build_log: str = ""
+
+
+def find_nvcc() -> Optional[str]:
+    """``nvcc`` on PATH, else under ``$CUDA_HOME`` or /usr/local/cuda."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if root and (Path(root) / "bin" / "nvcc").is_file():
+            return str(Path(root) / "bin" / "nvcc")
+    return None
+
+
+def _sources() -> list:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _digest() -> str:
+    h = hashlib.sha256()
+    for p in sorted(CSRC.glob("*.cu*")):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def build() -> Path:
+    """Compile the kernels if the current sources have no library yet;
+    return the library path. Raises when ``nvcc`` is missing or fails."""
+    global build_seconds, build_log
+    nvcc = find_nvcc()
+    if nvcc is None:
+        raise RuntimeError(
+            "nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin): the "
+            "radzero_torch CUDA kernels cannot be built on this host"
+        )
+    out = BUILD_DIR / f"libradzero_kernels_{_digest()}.so"
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+           *map(str, _sources())]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    build_seconds = time.perf_counter() - t0
+    build_log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{build_log}"
+        )
+    os.replace(tmp, out)
+    return out
+
+
+def load() -> ctypes.CDLL:
+    """Build (first use) and load the kernel library, with argtypes set."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, argtypes in SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            lib.rz_error_string.argtypes = [ctypes.c_int]
+            lib.rz_error_string.restype = ctypes.c_char_p
+            _lib = lib
+    return _lib
+
+
+def check(code: int, name: str) -> None:
+    """Raise if a C entry point reported a CUDA error for its launch."""
+    if code != 0:
+        msg = load().rz_error_string(code).decode()
+        raise RuntimeError(f"{name}: CUDA error {code} ({msg})")
+
+
+def stream_ptr(t) -> int:
+    """The current CUDA stream of ``t``'s device, as a raw pointer."""
+    import torch
+
+    return torch.cuda.current_stream(t.device).cuda_stream

@@ -1,0 +1,42 @@
+"""The PyTorch port imports neither jax nor radzero_tpu.
+
+The machine with the card has no JAX, so every module of radzero_torch
+must import without it. Checked in a fresh interpreter: this pytest
+process already has jax loaded by tests/conftest.py.
+"""
+
+import os
+import subprocess
+import sys
+
+import pytest
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+# one fresh interpreter per group (a cold torch import takes seconds)
+GROUPS = {
+    "package": ["radzero_torch"],
+    "models": ["radzero_torch.models." + m for m in
+               ("configuration", "from_jax", "vit", "align", "mpnet", "radzero")],
+    "ops": ["radzero_torch.ops." + m for m in
+            ("_build", "_checks", "layers", "resize", "fused_layer", "vlcabs", "vlcabs_fused")],
+    "serving": ["radzero_torch.losses.radzero_loss", "radzero_torch.eval.geometry",
+                "radzero_torch.eval.serving", "radzero_torch.data.tokenizer"],
+}
+
+
+@pytest.mark.parametrize("group", sorted(GROUPS))
+def test_port_imports_without_jax(group):
+    code = (
+        "import importlib, sys\n"
+        f"for m in {GROUPS[group]!r}: importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'radzero_tpu', 'PIL', 'triton'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
