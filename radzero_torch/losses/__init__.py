@@ -1,1 +1,1 @@
-"""Loss heads (forward parts used by zero-shot scoring)."""
+"""Loss heads: RadZeroLoss (VL-CABS + MP-NCE) and the CLIP / SigLIP auxiliaries."""

@@ -1,22 +1,23 @@
-"""RadZeroLoss head, forward part (port of radzero_tpu/losses/radzero_loss.py).
+"""RadZeroLoss head (port of radzero_tpu/losses/radzero_loss.py).
 
-What zero-shot scoring uses: the shared modality LayerNorm (eps 1e-5, the
-same parameters on vision tokens and text features), the 2*hidden text
-slice, the log-parameterised temperatures, and VL-CABS. The MP-NCE loss
-itself comes with the training slice.
+The shared modality LayerNorm (eps 1e-5, the same parameters on vision
+tokens and text features), the 2*hidden text slice, the log-parameterised
+temperatures, VL-CABS, and the MP-NCE loss over its t2i logits.
+:func:`radzero_loss` is the whole head; :func:`radzero_similarity` is what
+zero-shot scoring takes from it (logits and score maps, no loss).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
+from radzero_torch.losses.mpnce import multi_positive_nce_loss
 from radzero_torch.models.configuration import LossConfig
-from radzero_torch.ops.layers import l2_normalize, layer_norm
+from radzero_torch.ops.layers import layer_norm
 from radzero_torch.ops.vlcabs import vlcabs_similarity
-from radzero_torch.ops.vlcabs_fused import vlcabs_fused
 
 _SHARED_LN_EPS = 1e-5  # torch nn.LayerNorm default
 
@@ -50,30 +51,55 @@ def temperatures(params: dict):
     return loss_temp, loss_temp
 
 
-def radzero_similarity(
+def radzero_loss(
     params: dict,
     cfg: LossConfig,
     text_features_raw: torch.Tensor,     # (S, D) without l2 norm
     text_features_normed: torch.Tensor,  # (S, D) l2-normed
+    group_map: Optional[torch.Tensor],   # (S,) image index per sentence
+    row_mask: Optional[torch.Tensor],    # (S,) 1.0 real / 0.0 padding
     vision_tokens: torch.Tensor,         # (B, 1+L, D)
     *,
-    eager: bool = False,
+    need_scores: bool = False,
+    compute_loss: bool = True,
+    impl: str = "xla",
 ) -> Dict[str, torch.Tensor]:
-    """-> {"t2i_logits": (S, B), "similarity_scores": (B, S, L_attn)}.
-
-    ``cos`` runs the fused kernel K5 unless ``eager``; ``dot`` runs the
-    eager path (the JAX package has no kernel for it either)."""
+    """-> {"t2i_logits": (S, B), "similarity_scores": (B, S, L_attn) when
+    asked for, "losses": {"t2i_loss", "loss"} when ``compute_loss``}.
+    ``impl`` is :func:`radzero_torch.ops.vlcabs.vlcabs_similarity`'s."""
     text = _select_text_features(cfg, text_features_raw, text_features_normed)
     if cfg.use_layer_norm:
         vision_tokens = layer_norm(vision_tokens, params["layer_norm"], _SHARED_LN_EPS)
         text = layer_norm(text, params["layer_norm"], _SHARED_LN_EPS)
     attn_tokens = vision_tokens if cfg.use_vision_cls_token else vision_tokens[:, 1:]
-    _, attn_temp = temperatures(params)
+    loss_temp, attn_temp = temperatures(params)
 
-    if cfg.sim_op == "cos" and not eager:
-        qn = l2_normalize(text.to(attn_tokens.dtype))
-        logits, scores = vlcabs_fused(qn, attn_tokens.contiguous(), attn_temp.float())
-    else:
-        logits, scores = vlcabs_similarity(
-            text, attn_tokens, sim_op=cfg.sim_op, temperature=attn_temp)
-    return {"t2i_logits": logits, "similarity_scores": scores}
+    logits, scores = vlcabs_similarity(
+        text, attn_tokens, sim_op=cfg.sim_op, temperature=attn_temp,
+        need_scores=need_scores, impl=impl)
+    outputs = {"t2i_logits": logits}
+    if scores is not None:
+        outputs["similarity_scores"] = scores
+    if compute_loss:
+        t2i_loss = multi_positive_nce_loss(
+            logits, group_map, temperature=loss_temp, row_sum=cfg.mpnce_row_sum,
+            col_sum=cfg.mpnce_col_sum, row_mask=row_mask)
+        outputs["losses"] = {"t2i_loss": t2i_loss, "loss": t2i_loss}
+    return outputs
+
+
+def radzero_similarity(
+    params: dict,
+    cfg: LossConfig,
+    text_features_raw: torch.Tensor,
+    text_features_normed: torch.Tensor,
+    vision_tokens: torch.Tensor,
+    *,
+    eager: bool = False,
+) -> Dict[str, torch.Tensor]:
+    """Zero-shot scoring's share of the head -> {"t2i_logits": (S, B),
+    "similarity_scores": (B, S, L_attn)}. ``cos`` runs the fused kernel K5
+    unless ``eager``; ``dot`` runs the eager chain."""
+    return radzero_loss(
+        params, cfg, text_features_raw, text_features_normed, None, None, vision_tokens,
+        need_scores=True, compute_loss=False, impl="xla" if eager else "fused")

@@ -3,8 +3,13 @@
 Same frozen dataclasses, fields and defaults as the JAX package, so the
 YAML presets load unchanged through :func:`radzero_config_from_dict`.
 ``with_fused_towers`` and ``resolve_backend_impls`` have no counterpart:
-the port picks kernel or plain twin by the tensor's device, so the
-``attn_impl`` / ``train_impl`` fields are accepted and not read.
+the port picks kernel or plain twin by the tensor's device. Serving reads
+none of the ``attn_impl`` / ``train_impl`` fields. ``forward_train`` reads
+``AlignConfig.attn_impl`` ("xla": the eager layers that autograd
+differentiates; anything else: the fused K1-K3 layer, forward-only until
+K6-K8 are ported) and ``LossConfig.train_impl`` ("fused": the VL-CABS
+training kernels K10-K12; else eager ops). The tower always runs the fused
+layer, so it trains only once K6-K8 exist.
 """
 
 from __future__ import annotations
@@ -81,7 +86,10 @@ class AlignConfig:
     layerscale_value: float = 1.0
     use_layer_norm: bool = False
     remat: Optional[bool] = None       # training only; not read yet
-    attn_impl: str = "fused_vjp"       # not read by the port (device decides)
+    # forward_train: "xla" = eager layers under autograd; others = the
+    # fused layer, which raises under gradients until K6-K8 are ported.
+    # Serving does not read it (always the fused layer)
+    attn_impl: str = "fused_vjp"
     remat_policy: Optional[str] = "save_attn"
 
     def __post_init__(self):
@@ -119,8 +127,8 @@ class TextConfig:
     use_text_projection: bool = False  # optional Linear(text_dim -> 2*hidden)
     pack_qkv: bool = False             # same math either way in the port
     attn_impl: str = "xla"             # not read by the port
-    # True selects the fused post-attention kernel K4 on the card, which
-    # is not ported yet: a CUDA run raises; the CPU runs the plain chain
+    # True runs the post-attention chain through kernel K4 (forward-only:
+    # under gradients it raises until its backward K9 is ported)
     fuse_post: bool = True
     remat: Optional[bool] = None
 
@@ -142,7 +150,9 @@ class LossConfig:
     mpnce_col_sum: bool = False
     sim_op: str = "cos"                       # cos | dot
     use_layer_norm: bool = True               # shared modality LN
-    train_impl: str = "fused"                 # not read by the port
+    # forward_train: "fused" = kernels K10-K12 (cos only), else eager ops;
+    # serving does not read it
+    train_impl: str = "fused"
 
 
 @dataclass(frozen=True)

@@ -65,3 +65,15 @@ def _convert(tree):
     if isinstance(tree, dict):
         return {k: _convert(v) for k, v in tree.items()}
     return torch.from_numpy(np.array(tree, copy=True))
+
+
+def params_to_numpy(tree):
+    """The port's tree (or any subtree) as nested dicts / lists of numpy
+    arrays, fp32 for floating leaves: what the tests compare with the JAX
+    trees after :func:`params_from_jax` of those."""
+    if isinstance(tree, list):
+        return [params_to_numpy(v) for v in tree]
+    if isinstance(tree, dict):
+        return {k: params_to_numpy(v) for k, v in tree.items()}
+    t = tree.detach().cpu()
+    return (t.float() if t.is_floating_point() else t).numpy()

@@ -6,10 +6,11 @@
 - post-LN layers LN(x + attn(x)), LN(y + ffn(y)), eps 1e-12;
 - additive key mask of ``finfo(dtype).min`` on padded keys.
 
-Only the ``fuse_post=False`` layer body is ported. ``fuse_post=True``
-selects the fused post-attention kernel K4 on the card, which is not
-ported yet: on a CUDA tensor it raises; on the CPU the plain chain below
-is that kernel's twin and runs.
+``fuse_post=True`` (the default) runs the whole non-attention chain of a
+layer through kernel K4 (:func:`radzero_torch.ops.fused_layer.
+fused_mpnet_post`; its plain twin for CPU tensors). K4 is forward-only
+until its backward K9 is ported: under gradients it raises, and training
+takes ``fuse_post=False``, the eager chain that autograd differentiates.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ import numpy as np
 import torch
 
 from radzero_torch.models.configuration import TextConfig
+from radzero_torch.ops.fused_layer import fused_mpnet_post
 from radzero_torch.ops.layers import (
     attention,
     gelu,
@@ -107,16 +109,24 @@ def create_position_ids(input_ids: torch.Tensor, padding_idx: int) -> torch.Tens
 def mpnet_layer(x, p, rel, neg, cfg: TextConfig):
     """``rel``: (H, L, L) fp32 relative-position bias shared by the batch;
     ``neg``: (S, L) additive key mask (0 real / -big pad)."""
-    if cfg.fuse_post and x.device.type == "cuda":
-        raise NotImplementedError(
-            "TextConfig.fuse_post=True needs kernel K4, not ported yet (first "
-            "in the ROADMAP.md port queue); use fuse_post=False"
-        )
     h = cfg.num_attention_heads
     q, k, v = (split_heads(linear(x, p["attn"][n]), h) for n in ("q", "k", "v"))
     bias = rel[None].to(x.dtype) + neg[:, None, None, :].to(x.dtype)
-    a = linear(merge_heads(attention(q, k, v, bias=bias, scale=cfg.head_dim**-0.5)),
-               p["attn"]["o"])
+    a = merge_heads(attention(q, k, v, bias=bias, scale=cfg.head_dim**-0.5))
+    if cfg.fuse_post:
+        s, l, d = x.shape
+        cdt = x.dtype
+        out = fused_mpnet_post(
+            x.reshape(s * l, d).contiguous(), a.reshape(s * l, d).contiguous(),
+            p["attn"]["o"]["kernel"].to(cdt), p["attn"]["o"]["bias"].to(cdt),
+            p["ln_attn"]["scale"].to(cdt), p["ln_attn"]["bias"].to(cdt),
+            p["mlp"]["fc1"]["kernel"].to(cdt), p["mlp"]["fc1"]["bias"].to(cdt),
+            p["mlp"]["fc2"]["kernel"].to(cdt), p["mlp"]["fc2"]["bias"].to(cdt),
+            p["ln_out"]["scale"].to(cdt), p["ln_out"]["bias"].to(cdt),
+            eps=cfg.layer_norm_eps,
+        )
+        return out.reshape(s, l, d)
+    a = linear(a, p["attn"]["o"])
     x = layer_norm(x + a, p["ln_attn"], cfg.layer_norm_eps)
     m = linear(gelu(linear(x, p["mlp"]["fc1"])), p["mlp"]["fc2"])
     return layer_norm(x + m, p["ln_out"], cfg.layer_norm_eps)

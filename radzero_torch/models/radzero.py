@@ -2,19 +2,34 @@
 DINOv2 tower -> align adapter -> VL-CABS head, plus the MPNet tower, under
 one dict of parameters whose top-level keys mirror the JAX tree.
 
-Only the zero-shot ``radzero`` scoring path is ported; the
-``cls_alignment`` / ``global_alignment`` logits types and the training
-forward come later (ROADMAP.md).
+Two entry points: :func:`compute_logits`, zero-shot scoring (the
+``radzero`` logits type; ``cls_alignment`` / ``global_alignment`` are not
+ported yet, ROADMAP.md), and :func:`forward_train`, the training forward
+over one flattened global batch.
+
+What training runs on today: the frozen tower on the forward kernels K1-K3
+without a tape, the loss on the VL-CABS training kernels K10-K12, and the
+trainable align layers and the MPNet tower on eager torch ops that autograd
+differentiates (``AlignConfig.attn_impl="xla"``, ``TextConfig.
+fuse_post=False``). The fused layers have no backward kernels yet (K6-K9):
+asking for them under gradients raises.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional, Sequence
 
 import torch
 
+from radzero_torch.losses.clip import (
+    clip_loss,
+    init_clip_loss,
+    init_siglip_loss,
+    siglip_loss,
+)
 from radzero_torch.losses.radzero_loss import (
     init_radzero_loss,
+    radzero_loss,
     radzero_similarity,
     temperatures,
 )
@@ -25,7 +40,8 @@ from radzero_torch.models.vit import init_vit, vit_forward
 from radzero_torch.ops.layers import l2_normalize, linear
 
 
-def init_radzero(g: torch.Generator, cfg: RadZeroConfig) -> dict:
+def init_radzero(g: torch.Generator, cfg: RadZeroConfig,
+                 loss_apply: Sequence[str] = ("RadZeroLoss",)) -> dict:
     """Weights at the real shapes from ``g`` (fp32, on ``g.device``), in
     the layout :func:`radzero_torch.models.from_jax.params_from_jax`
     produces."""
@@ -45,19 +61,54 @@ def init_radzero(g: torch.Generator, cfg: RadZeroConfig) -> dict:
             "kernel": torch.randn((d_in, d_out), generator=g, device=g.device) * 0.02,
             "bias": torch.zeros(d_out, device=g.device),
         }
-    params["loss_fns"] = {"RadZeroLoss": init_radzero_loss(cfg.loss, device=g.device)}
+    inits = {
+        "RadZeroLoss": lambda: init_radzero_loss(cfg.loss, device=g.device),
+        "OpenClipLoss": lambda: init_clip_loss(device=g.device),
+        "OpenSigLipLoss": lambda: init_siglip_loss(device=g.device),
+    }
+    for name in loss_apply:
+        if name not in inits:
+            raise NotImplementedError(name)
+    params["loss_fns"] = {name: inits[name]() for name in loss_apply}
     return params
 
 
-def forward_vision(params: dict, cfg: RadZeroConfig, pixel_values: torch.Tensor, *,
-                   dtype=torch.float32, eager: bool = False) -> Dict[str, torch.Tensor]:
-    """Tower + align adapter + pooled image features, (B, H, W, 3) NHWC."""
+def _tracked(tree) -> bool:
+    """Whether autograd would record ops on any leaf of ``tree`` now."""
+    if isinstance(tree, dict):
+        return any(_tracked(v) for v in tree.values())
+    if isinstance(tree, list):
+        return any(_tracked(v) for v in tree)
+    return torch.is_grad_enabled() and tree.requires_grad
+
+
+def forward_vision(params: dict, cfg: RadZeroConfig, pixel_values: Optional[torch.Tensor], *,
+                   dtype=torch.float32, eager: bool = False,
+                   align_eager: Optional[bool] = None,
+                   stop_tower_gradient: bool = False,
+                   tower_tokens: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+    """Tower + align adapter + pooled image features, (B, H, W, 3) NHWC.
+
+    ``eager`` runs the eager reference layers in the tower, and in the
+    align adapter unless ``align_eager`` says otherwise. ``stop_tower_
+    gradient`` runs the tower under ``torch.no_grad()``, so a frozen tower
+    keeps no tape and may run on the forward kernels. ``tower_tokens``
+    (B, L, D), a precomputed tower output at the real length L, skips the
+    tower."""
     if getattr(cfg.vision, "model_type", "dinov2") not in ("dinov2", "raddino"):
         raise NotImplementedError(f"vision model_type {cfg.vision.model_type!r}")
-    tokens = vit_forward(params["vision_model"], cfg.vision, pixel_values,
-                         dtype=dtype, eager=eager)
+    if tower_tokens is not None:
+        tokens = tower_tokens.to(dtype)
+    elif stop_tower_gradient:
+        with torch.no_grad():
+            tokens = vit_forward(params["vision_model"], cfg.vision, pixel_values,
+                                 dtype=dtype, eager=eager)
+    else:
+        tokens = vit_forward(params["vision_model"], cfg.vision, pixel_values,
+                             dtype=dtype, eager=eager)
     _, align_apply = build_align_adapter(cfg.align.model_type)
-    tokens = align_apply(params["align_transformer"], cfg.align, tokens, eager=eager)
+    tokens = align_apply(params["align_transformer"], cfg.align, tokens,
+                         eager=eager if align_eager is None else align_eager)
     cls_token, patch_tokens = tokens[:, 0], tokens[:, 1:]
     image_features = l2_normalize(torch.cat([cls_token, patch_tokens.mean(dim=1)], dim=-1))
     return {
@@ -85,6 +136,83 @@ def forward_text(params: dict, cfg: RadZeroConfig, input_ids, attention_mask, *,
         "text_features_wo_l2_norm": text_features,
         "text_features": l2_normalize(text_features),
     }
+
+
+def forward_train(
+    params: dict,
+    cfg: RadZeroConfig,
+    batch: Dict[str, torch.Tensor],
+    *,
+    loss_ratio: Optional[Dict[str, float]] = None,
+    dtype=torch.float32,
+    stop_vision_gradient: bool = False,
+) -> Dict[str, torch.Tensor]:
+    """One training forward over the flattened global batch.
+
+    batch keys:
+        pixel_values          (B, H, W, 3), or ``tower_tokens`` (B, L, D), a
+                              precomputed frozen-tower output at the real
+                              length L, which skips the vision tower
+        input_ids             (S, L)  flattened sentences
+        attention_mask        (S, L)
+        group_map             (S,)    image index per sentence
+        row_mask              (S,)    1.0 real sentence / 0.0 padding
+        row_gather            (S,)    optional: input_ids holds U unique
+                              sentences and this gathers their features back
+                              to the S loss rows (autograd adds the
+                              gradients of duplicated rows up)
+        random_input_ids      (B, L)  one random positive per image (only
+        random_attention_mask (B, L)  with the CLIP / SigLIP losses)
+
+    Reads ``cfg.align.attn_impl`` ("xla": eager layers that autograd
+    differentiates; "fused_vjp" / "packed" / "fused": the K1-K3 layer,
+    forward-only), ``cfg.text.fuse_post`` and ``cfg.loss.train_impl``
+    ("fused" with ``sim_op="cos"``: kernels K10-K12, else eager ops).
+    -> {"losses": {...}, **forward_vision outputs}."""
+    loss_ratio = loss_ratio or {name: 1.0 for name in params["loss_fns"]}
+    align_eager = cfg.align.attn_impl == "xla"
+    if (not align_eager and cfg.align.model_type == "align_transformer"
+            and _tracked(params["align_transformer"])):
+        raise NotImplementedError(
+            f"AlignConfig.attn_impl={cfg.align.attn_impl!r} trains through the backward "
+            'kernels K6, K7 and K8, which are not ported yet; use attn_impl="xla"')
+    if cfg.text.fuse_post and _tracked(params["text_model"]):
+        raise NotImplementedError(
+            "TextConfig.fuse_post=True trains through the backward kernel K9, which "
+            "is not ported yet; use fuse_post=False")
+    # the tower runs on K1-K3: frozen (no tape) it is served; trainable, its
+    # wrappers raise and name K6-K8
+    vision = forward_vision(
+        params, cfg, batch.get("pixel_values"), dtype=dtype, align_eager=align_eager,
+        stop_tower_gradient=stop_vision_gradient, tower_tokens=batch.get("tower_tokens"))
+
+    losses: Dict[str, torch.Tensor] = {}
+    total = torch.zeros((), dtype=torch.float32, device=vision["vision_tokens"].device)
+    for name, lparams in params["loss_fns"].items():
+        if name == "RadZeroLoss":
+            text = forward_text(params, cfg, batch["input_ids"], batch["attention_mask"],
+                                dtype=dtype)
+            if "row_gather" in batch:
+                text = {k: v[batch["row_gather"]] for k, v in text.items()}
+            fused = cfg.loss.train_impl == "fused" and cfg.loss.sim_op == "cos"
+            out = radzero_loss(
+                lparams, cfg.loss, text["text_features_wo_l2_norm"], text["text_features"],
+                batch["group_map"], batch["row_mask"], vision["vision_tokens"],
+                impl="fused_train" if fused else "xla")
+            losses["t2i_loss"] = out["losses"]["t2i_loss"]
+            losses["radzero_loss"] = loop_loss = out["losses"]["loss"]
+        elif name in ("OpenClipLoss", "OpenSigLipLoss"):
+            text = forward_text(params, cfg, batch["random_input_ids"],
+                                batch["random_attention_mask"], dtype=dtype)
+            fn, key = ((clip_loss, "clip_loss") if name == "OpenClipLoss"
+                       else (siglip_loss, "siglip_loss"))
+            losses[key] = loop_loss = fn(lparams, vision["image_features"],
+                                         text["text_features"])
+        else:
+            raise NotImplementedError(name)
+        total = total + loop_loss.float() * loss_ratio.get(name, 1.0)
+    losses["loss"] = total
+    return {"losses": losses, **vision}
 
 
 def compute_logits(

@@ -1,10 +1,11 @@
 """Build and load the hand-written CUDA kernels.
 
-``nvcc`` compiles every ``csrc/*.cu`` into one shared library with a
-plain C interface for ``sm_90a`` (Hopper), into ``radzero_torch/build/``
-(listed in ``.gitignore``), at first use; the library is loaded with
-``ctypes``. The library name carries a hash of the sources, so an edit
-rebuilds and an unchanged tree reuses the last build.
+``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a`` (Hopper), one process
+per source and all of them at once, and links the objects into one shared
+library with a plain C interface, in ``radzero_torch/build/`` (listed in
+``.gitignore``), at first use; the library is loaded with ``ctypes``. The
+library name carries a hash of the sources, so an edit rebuilds and an
+unchanged tree reuses the last build.
 
 Every C entry point returns ``cudaGetLastError()`` after its launches;
 :func:`check` turns a non-zero code into a ``RuntimeError``. There is no
@@ -28,7 +29,7 @@ CSRC = _PKG / "ops" / "csrc"
 BUILD_DIR = _PKG / "build"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 _P = ctypes.c_void_p
@@ -46,6 +47,16 @@ SIGNATURES = {
     "rz_fused_postattn": [_P] * 15 + [_I, _I, _I, _F, _I, _P],
     # qn, t, tau, scores, logits, N, B, L, D, dtype, stream
     "rz_vlcabs_fused": [_P] * 5 + [_I, _I, _I, _I, _I, _P],
+    # x, a, wo, bo, lnsa, lnba, w1, b1, w2, b2, lnso, lnbo, u32, y32, h, out,
+    # M, D, F, eps, dtype, stream
+    "rz_fused_mpnet_post": [_P] * 16 + [_I, _I, _I, _F, _I, _P],
+    # qn, t, tau, tn, logits, N, B, L, D, dtype, stream
+    "rz_vlcabs_train_fwd": [_P] * 5 + [_I, _I, _I, _I, _I, _P],
+    # qn, t, tau, dz, tn, dg, rowmax, dq_part, dtau_part, dq, dtau,
+    # N, B, L, D, dtype, stream
+    "rz_vlcabs_train_bwd_dq": [_P] * 11 + [_I, _I, _I, _I, _I, _P],
+    # qn, t, tau, dz, tn, dg, rowmax, dtn, N, B, L, D, dtype, stream
+    "rz_vlcabs_train_bwd_dtn": [_P] * 8 + [_I, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()
@@ -92,18 +103,35 @@ def build() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-           *map(str, _sources())]
+    tag = f"{out.stem}.{os.getpid()}"
+    objects = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in _sources()]
+    compiles = [[nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", str(obj), str(src)]
+                for src, obj in zip(_sources(), objects)]
+    tmp = BUILD_DIR / f"{tag}.tmp"
+    link = [nvcc, "-shared", "-o", str(tmp), *map(str, objects)]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    build_seconds = time.perf_counter() - t0
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{build_log}"
-        )
-    os.replace(tmp, out)
+    build_log = ""
+    try:
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                  text=True) for cmd in compiles]
+        failed = None
+        for cmd, proc in zip(compiles, procs):  # every process is waited for
+            build_log += proc.communicate()[0]
+            if proc.returncode != 0 and failed is None:
+                failed = (proc.returncode, cmd)
+        if failed is None:
+            proc = subprocess.run(link, capture_output=True, text=True)
+            build_log += proc.stdout + proc.stderr
+            if proc.returncode != 0:
+                failed = (proc.returncode, link)
+        build_seconds = time.perf_counter() - t0
+        if failed is not None:
+            raise RuntimeError(
+                f"nvcc failed ({failed[0]}):\n{' '.join(failed[1])}\n{build_log}")
+        os.replace(tmp, out)
+    finally:
+        for obj in objects:
+            obj.unlink(missing_ok=True)
     return out
 
 

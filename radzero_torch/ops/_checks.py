@@ -18,6 +18,22 @@ def on_cuda(t: torch.Tensor) -> bool:
     raise ValueError(f"no kernel or plain twin for device {t.device}")
 
 
+def forbid_grad(name: str, missing: str, *tensors) -> None:
+    """Raise when a forward-only kernel wrapper is handed an operand that
+    autograd tracks. The wrappers write into fresh outputs outside the
+    tape, so the result would carry no ``grad_fn`` and the gradient would
+    stop there in silence. ``missing`` names what provides the backward.
+    There is no fallback to the eager ops or the plain twin."""
+    if torch.is_grad_enabled() and any(
+        isinstance(t, torch.Tensor) and t.requires_grad for t in tensors
+    ):
+        raise RuntimeError(
+            f"{name} is forward-only and an operand requires a gradient: {missing}. "
+            "Call it under torch.no_grad() for a frozen module, or take the "
+            "differentiable eager path."
+        )
+
+
 def check_operands(name: str, x: torch.Tensor, **named) -> int:
     """Validate the kernel operands and return the dtype code.
 

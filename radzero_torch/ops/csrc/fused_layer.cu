@@ -1,9 +1,11 @@
-// K1 fused_preattn, K2 packed attention, K3 fused_postattn for Hopper.
+// K1 fused_preattn, K2 packed attention, K3 fused_postattn, K4
+// fused_mpnet_post for Hopper.
 //
 // Replace the TPU kernels of radzero_tpu/ops/fused_layer.py:
 //   K1 fused_preattn           (_preattn_kernel)
 //   K2 flash_attention_packed  (_packed_attn_kernel)
 //   K3 fused_postattn          (_postattn_kernel)
+//   K4 _mpnet_post_call        (_mpnet_post_kernel)
 // with the same contracts: fp32 LayerNorm, softmax and accumulation on
 // fp32 or bf16 operands, rounded to the operand type where the JAX code
 // rounds (LN output before a GEMM, GELU output before fc2, softmax
@@ -25,6 +27,15 @@
 //   kept in fp32 in device memory (as the TPU kernel keeps y32); LN2
 //   prologue + fc1 + GELU, rounded to the operand type; fc2 with
 //   out = y + ls2*(m + b2).
+// - K4 is K3's post-LN sibling (MPNet): y = LN(x + a Wo + bo),
+//   out = LN(y + gelu(y W1 + b1) W2 + b2), eps 1e-12. A LayerNorm over a
+//   768-wide row cannot be the epilogue of a 128-wide column tile, so it
+//   is a chain of five launches around the same GEMMs: o-proj + bias +
+//   residual into fp32 u; a row pass LN(u) into fp32 y (one warp per row),
+//   which stays fp32 in device memory as both the fc1 operand (rounded to
+//   the operand type while it is staged) and the second residual
+//   (unrounded); fc1 + GELU; fc2 + bias + y into fp32; a row pass into the
+//   output. Rows are masked, never padded (M = sentences x length).
 // - K2: the TPU kernel holds one head's whole (L x L) fp32 score matrix
 //   in VMEM; K plus V alone exceed an SM's shared memory at L = 1370. The
 //   port is FA2-style: one block per (image, head, 128-query tile), each
@@ -48,6 +59,8 @@ enum Epilogue {
   EPI_RESID_F32 = 1,  // out_f32 = x_T + ls * (acc + b)           (K3 o-proj)
   EPI_GELU = 2,       // out_T   = gelu(acc + b)                  (K3 fc1)
   EPI_RESID_OUT = 3,  // out_T   = y_f32 + ls * (acc + b)         (K3 fc2)
+  EPI_ADD_F32 = 4,    // out_f32 = x_T + (acc + b)                (K4 o-proj)
+  EPI_ADDF_F32 = 5,   // out_f32 = y_f32 + (acc + b)              (K4 fc2)
 };
 
 struct GemmArgs {
@@ -115,9 +128,13 @@ __device__ __forceinline__ void epilogue(const GemmArgs& g, int gm, int gn, floa
   } else if (EPI == EPI_GELU) {
     const float ge = v * 0.5f * (1.0f + erff(v * 0.70710678118654752f));
     static_cast<T*>(g.out)[o] = from_f32<T>(ge);
-  } else {  // EPI_RESID_OUT
+  } else if (EPI == EPI_RESID_OUT) {
     const float y = static_cast<const float*>(g.resid)[o];
     static_cast<T*>(g.out)[o] = from_f32<T>(y + to_f32(ls[gn]) * v);
+  } else if (EPI == EPI_ADD_F32) {
+    static_cast<float*>(g.out)[o] = to_f32(static_cast<const T*>(g.resid)[o]) + v;
+  } else {  // EPI_ADDF_F32
+    static_cast<float*>(g.out)[o] = static_cast<const float*>(g.resid)[o] + v;
   }
 }
 
@@ -332,6 +349,44 @@ cudaError_t launch_gemm(const GemmArgs& g, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// K4's row pass: out[m, :] = LN(in[m, :]) * scale + bias for fp32 rows of
+// width D, one warp per row, two-pass statistics in fp32 (biased variance,
+// eps inside the rsqrt). TO is float (y, kept for the residual) or the
+// operand type (the layer output).
+constexpr int LN_ROWS = 8;  // rows (warps) per block
+
+template <typename T, typename TO>
+__global__ void __launch_bounds__(LN_ROWS * 32)
+row_layernorm_kernel(const float* __restrict__ in, const T* __restrict__ scale,
+                     const T* __restrict__ bias, TO* __restrict__ out, int M, int D,
+                     float eps) {
+  const int lane = threadIdx.x % 32, m = blockIdx.x * LN_ROWS + threadIdx.x / 32;
+  if (m >= M) return;
+  const float* row = in + (size_t)m * D;
+  float s = 0.f, v = 0.f;
+  for (int k = lane; k < D; k += 32) s += row[k];
+  for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+  const float mean = s / D;
+  for (int k = lane; k < D; k += 32) {
+    const float d = row[k] - mean;
+    v += d * d;
+  }
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  const float rstd = rsqrtf(v / D + eps);
+  for (int k = lane; k < D; k += 32)
+    out[(size_t)m * D + k] =
+        from_f32<TO>((row[k] - mean) * rstd * to_f32(scale[k]) + to_f32(bias[k]));
+}
+
+template <typename T, typename TO>
+cudaError_t launch_row_layernorm(const void* in, const void* scale, const void* bias,
+                                 void* out, int M, int D, float eps, cudaStream_t stream) {
+  row_layernorm_kernel<T, TO><<<(M + LN_ROWS - 1) / LN_ROWS, LN_ROWS * 32, 0, stream>>>(
+      static_cast<const float*>(in), static_cast<const T*>(scale),
+      static_cast<const T*>(bias), static_cast<TO*>(out), M, D, eps);
+  return cudaGetLastError();
+}
+
 // ---------------------------------------------------------------------------
 // K2: packed-layout attention, online softmax, head_dim 64
 // ---------------------------------------------------------------------------
@@ -536,5 +591,42 @@ extern "C" int rz_fused_postattn(const void* x, const void* a, const void* wo,
     if (err == cudaSuccess) err = rz::launch_gemm<float, float, true, rz::EPI_GELU>(fc1, s);
     if (err == cudaSuccess) err = rz::launch_gemm<float, float, false, rz::EPI_RESID_OUT>(fc2, s);
   }
+  return static_cast<int>(err);
+}
+
+// K4: u32 = x + (a Wo + bo); y32 = LN(u32); h = gelu(y32 W1 + b1);
+//     u32 = y32 + (h W2 + b2); out = LN(u32). u32, y32 (M, D) fp32 and
+//     h (M, F) are scratch buffers the caller allocates.
+template <typename T>
+static cudaError_t mpnet_post(const void* x, const void* a, const void* wo, const void* bo,
+                              const void* lnsa, const void* lnba, const void* w1,
+                              const void* b1, const void* w2, const void* b2,
+                              const void* lnso, const void* lnbo, void* u32, void* y32,
+                              void* h, void* out, int M, int D, int F, float eps,
+                              cudaStream_t s) {
+  GemmArgs proj{a, wo, bo, nullptr, nullptr, 0.f, x, nullptr, u32, M, D, D};
+  GemmArgs fc1{y32, w1, b1, nullptr, nullptr, 0.f, nullptr, nullptr, h, M, F, D};
+  GemmArgs fc2{h, w2, b2, nullptr, nullptr, 0.f, y32, nullptr, u32, M, D, F};
+  cudaError_t err = rz::launch_gemm<T, T, false, rz::EPI_ADD_F32>(proj, s);
+  if (err == cudaSuccess) err = rz::launch_row_layernorm<T, float>(u32, lnsa, lnba, y32, M, D, eps, s);
+  if (err == cudaSuccess) err = rz::launch_gemm<T, float, false, rz::EPI_GELU>(fc1, s);
+  if (err == cudaSuccess) err = rz::launch_gemm<T, T, false, rz::EPI_ADDF_F32>(fc2, s);
+  if (err == cudaSuccess) err = rz::launch_row_layernorm<T, T>(u32, lnso, lnbo, out, M, D, eps, s);
+  return err;
+}
+
+extern "C" int rz_fused_mpnet_post(const void* x, const void* a, const void* wo,
+                                   const void* bo, const void* lnsa, const void* lnba,
+                                   const void* w1, const void* b1, const void* w2,
+                                   const void* b2, const void* lnso, const void* lnbo,
+                                   void* u32, void* y32, void* h, void* out, int M, int D,
+                                   int F, float eps, int dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err =
+      dtype == RZ_DTYPE_BF16
+          ? mpnet_post<bf16>(x, a, wo, bo, lnsa, lnba, w1, b1, w2, b2, lnso, lnbo, u32, y32, h,
+                             out, M, D, F, eps, s)
+          : mpnet_post<float>(x, a, wo, bo, lnsa, lnba, w1, b1, w2, b2, lnso, lnbo, u32, y32,
+                              h, out, M, D, F, eps, s);
   return static_cast<int>(err);
 }

@@ -1,10 +1,13 @@
-"""K1-K3: the fused DINOv2 layer (port of radzero_tpu/ops/fused_layer.py).
+"""K1-K4: the fused DINOv2 layer and the fused MPNet post-attention chain
+(port of radzero_tpu/ops/fused_layer.py).
 
 - :func:`fused_preattn`  (K1): qkv = ln1(x) @ Wqkv + b
 - :func:`flash_attention_packed` (K2): attention over the packed
   (B, L, 3D) [q | k | v] buffer -> merged heads (B, L, D)
 - :func:`fused_postattn` (K3): y = x + ls1 * (a @ Wo + bo);
   out = y + ls2 * (gelu(ln2(y) @ W1 + b1) @ W2 + b2)
+- :func:`fused_mpnet_post` (K4): y = ln(x + a @ Wo + bo);
+  out = ln(y + gelu(y @ W1 + b1) @ W2 + b2)   (post-LN, eps 1e-12)
 
 Each wrapper runs its plain twin (``*_plain``, same module) when handed a
 CPU tensor and launches its CUDA kernel (``csrc/fused_layer.cu``) when
@@ -12,6 +15,11 @@ handed a CUDA tensor; anything else raises. ``<wrapper>.launches`` counts
 kernel launches. Numerics are the TPU kernels' contract: fp32 LayerNorm,
 softmax and accumulation; the LN output, the GELU output and the softmax
 weights are rounded to the operand type before the next product.
+
+The kernels are forward-only: their backward kernels (K6, K7, K8, K9) are
+not ported yet. A wrapper handed an operand that requires a gradient,
+with gradients enabled, raises and names the missing kernel; it never
+takes the eager layer or the plain twin in the kernel's place.
 
 Two differences from the TPU forward, both in the kernel and its twin:
 GELU uses the exact erf (the TPU kernel's rational erf approximation,
@@ -26,7 +34,7 @@ from __future__ import annotations
 import torch
 
 from radzero_torch.ops import _build
-from radzero_torch.ops._checks import check_operands, on_cuda
+from radzero_torch.ops._checks import check_operands, forbid_grad, on_cuda
 
 _LOG2E = 1.4426950408889634
 
@@ -49,6 +57,8 @@ def fused_preattn_plain(x, ln_scale, ln_bias, w_qkv, b_qkv, *, eps=1e-6):
 
 def fused_preattn(x, ln_scale, ln_bias, w_qkv, b_qkv, *, eps=1e-6):
     """(N, D) x -> (N, 3D) packed qkv = ln1(x) @ w_qkv + b_qkv."""
+    forbid_grad("fused_preattn (K1)", "its backward kernel K6 is not ported yet",
+                x, ln_scale, ln_bias, w_qkv, b_qkv)
     if not on_cuda(x):
         return fused_preattn_plain(x, ln_scale, ln_bias, w_qkv, b_qkv, eps=eps)
     n, d = x.shape
@@ -102,6 +112,8 @@ def flash_attention_packed(qkv, n_heads: int):
     """(B, L, 3D) packed [q | k | v] -> (B, L, D) merged heads, softmax
     scale head_dim ** -0.5. No lane padding: the kernel masks keys >= L
     in its last tile itself."""
+    forbid_grad("flash_attention_packed (K2)", "its backward kernel K7 is not ported yet",
+                qkv)
     if not on_cuda(qkv):
         return flash_attention_packed_plain(qkv, n_heads)
     b, l, d3 = qkv.shape
@@ -144,6 +156,8 @@ def fused_postattn(x, attn_out, wo, bo, ls1, ln_scale, ln_bias,
     """(N, D) residual stream + merged-head attention output -> next
     residual stream. On the card: three launches (o-proj with the fp32
     residual y, LN2 + fc1 + GELU, fc2 + residual), one count."""
+    forbid_grad("fused_postattn (K3)", "its backward kernel K8 is not ported yet",
+                x, attn_out, wo, bo, ls1, ln_scale, ln_bias, w1, b1, w2, b2, ls2)
     if not on_cuda(x):
         return fused_postattn_plain(x, attn_out, wo, bo, ls1, ln_scale, ln_bias,
                                     w1, b1, w2, b2, ls2, eps=eps)
@@ -173,3 +187,58 @@ def fused_postattn(x, attn_out, wo, bo, ls1, ln_scale, ln_bias,
 
 
 fused_postattn.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K4: MPNet post-attention chain, post-LN
+# ---------------------------------------------------------------------------
+
+def fused_mpnet_post_plain(x, attn_out, wo, bo, lnsa, lnba, w1, b1, w2, b2,
+                           lnso, lnbo, *, eps=1e-12):
+    cdt = x.dtype
+    u = x.float() + attn_out.float() @ wo.float() + bo.float()
+    y32 = _ln32(u, lnsa, lnba, eps)  # stays fp32: fc1 operand (rounded) and residual
+    h = torch.nn.functional.gelu(y32.to(cdt).float() @ w1.float() + b1.float()).to(cdt)
+    m = h.float() @ w2.float() + b2.float()
+    return _ln32(y32 + m, lnso, lnbo, eps).to(cdt)
+
+
+def fused_mpnet_post(x, attn_out, wo, bo, lnsa, lnba, w1, b1, w2, b2,
+                     lnso, lnbo, *, eps=1e-12):
+    """(M, D) layer input + merged-head attention output -> layer output:
+    y = ln(x + attn_out @ wo + bo); out = ln(y + gelu(y @ w1 + b1) @ w2 + b2).
+    On the card: five launches (o-proj + residual into fp32 u, row LN into
+    fp32 y, fc1 + GELU, fc2 + y into fp32, row LN into the output), one
+    count. Rows need not be a multiple of any tile."""
+    forbid_grad("fused_mpnet_post (K4)", "its backward kernel K9 is not ported yet",
+                x, attn_out, wo, bo, lnsa, lnba, w1, b1, w2, b2, lnso, lnbo)
+    if not on_cuda(x):
+        return fused_mpnet_post_plain(x, attn_out, wo, bo, lnsa, lnba, w1, b1, w2, b2,
+                                      lnso, lnbo, eps=eps)
+    m, d = x.shape
+    f = w1.shape[1]
+    code = check_operands(
+        "fused_mpnet_post", x,
+        attn_out=((m, d), attn_out), wo=((d, d), wo), bo=((d,), bo),
+        lnsa=((d,), lnsa), lnba=((d,), lnba), w1=((d, f), w1), b1=((f,), b1),
+        w2=((f, d), w2), b2=((d,), b2), lnso=((d,), lnso), lnbo=((d,), lnbo),
+    )
+    if d % 64 or f % 64:
+        raise ValueError(f"fused_mpnet_post: needs D % 64 == 0 and F % 64 == 0, got {d}, {f}")
+    u32 = torch.empty((m, d), dtype=torch.float32, device=x.device)
+    y32 = torch.empty((m, d), dtype=torch.float32, device=x.device)
+    h = torch.empty((m, f), dtype=x.dtype, device=x.device)
+    out = torch.empty((m, d), dtype=x.dtype, device=x.device)
+    lib = _build.load()
+    err = lib.rz_fused_mpnet_post(
+        x.data_ptr(), attn_out.data_ptr(), wo.data_ptr(), bo.data_ptr(), lnsa.data_ptr(),
+        lnba.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
+        lnso.data_ptr(), lnbo.data_ptr(), u32.data_ptr(), y32.data_ptr(), h.data_ptr(),
+        out.data_ptr(), m, d, f, float(eps), code, _build.stream_ptr(x),
+    )
+    _build.check(err, "fused_mpnet_post")
+    fused_mpnet_post.launches += 1
+    return out
+
+
+fused_mpnet_post.launches = 0

@@ -1,5 +1,6 @@
-"""VL-CABS, eager (port of radzero_tpu/ops/vlcabs.py): the reference for
-the fused kernel K5 and the path for ``sim_op="dot"``.
+"""VL-CABS (port of radzero_tpu/ops/vlcabs.py): the eager chain, which is
+the reference for the fused kernels, the autograd path of ``impl="xla"``
+and the path for ``sim_op="dot"``, and the switch to the fused kernels.
 
 Per (image b, query n), tokens t_b (L x D), query q_n:
 
@@ -8,7 +9,10 @@ Per (image b, query n), tokens t_b (L x D), query q_n:
     a     = softmax(s)   (fp32)
     logit = l2(q_n) . l2(a @ tokens)
 
-Returns logits (N, B) and the scores (B, N, L).
+Returns logits (N, B) and the scores (B, N, L) or None.
+
+The JAX function's ``mesh`` / ``shard_map`` branch belongs to the
+distribution slice and is not ported.
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ from typing import Optional, Tuple
 import torch
 
 from radzero_torch.ops.layers import l2_normalize
+from radzero_torch.ops.vlcabs_fused import vlcabs_fused, vlcabs_fused_train
 
 
 def vlcabs_similarity(
@@ -26,8 +31,31 @@ def vlcabs_similarity(
     *,
     sim_op: str = "cos",
     temperature: Optional[torch.Tensor] = None,
-) -> Tuple[torch.Tensor, torch.Tensor]:
+    need_scores: bool = False,
+    impl: str = "xla",
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """``impl``:
+        xla          eager torch ops: differentiable by autograd, any sim_op
+        fused        kernel K5, logits and score maps, forward-only (serving)
+        fused_train  kernels K10-K12 behind an autograd function:
+                     differentiable, the (B, N, L) scores never reach device
+                     memory (cos only; no score maps on this path)
+
+    ``dot`` always takes the eager chain: there is no kernel for it."""
+    if impl not in ("xla", "fused", "fused_train"):
+        raise ValueError(f"unknown VL-CABS impl {impl!r}")
     cdt = tokens.dtype
+    if impl != "xla" and sim_op == "cos":
+        if temperature is None:
+            raise ValueError("cos sim_op requires a temperature")
+        qn = l2_normalize(queries.to(cdt))
+        if impl == "fused_train":
+            if need_scores:
+                raise ValueError("fused_train does not emit score maps")
+            return vlcabs_fused_train(qn, tokens.contiguous(), temperature), None
+        logits, scores = vlcabs_fused(qn, tokens.contiguous(), temperature.float())
+        return logits, (scores if need_scores else None)
+
     if sim_op == "cos":
         if temperature is None:
             raise ValueError("cos sim_op requires a temperature")
@@ -45,4 +73,4 @@ def vlcabs_similarity(
     aggregated = torch.einsum("bnl,bld->bnd", attn, agg_tokens)
     qn2 = l2_normalize(queries.to(cdt).expand_as(aggregated))
     logits = torch.einsum("bnd,bnd->bn", qn2, l2_normalize(aggregated)).T
-    return logits, scores
+    return logits, (scores if need_scores else None)

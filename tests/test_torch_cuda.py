@@ -1,4 +1,4 @@
-"""Kernels K1-K3 and K5 against their plain twins on an NVIDIA card.
+"""Kernels K1-K5 and K10-K12 against their plain twins on an NVIDIA card.
 
 Marked ``cuda``: without a card (or nvcc) every test skips. On a machine
 with one, and without JAX, run them with
@@ -90,6 +90,69 @@ def test_vlcabs_fused_kernel(dtype, n, l, d):
     ref_logits, ref_scores = vf.vlcabs_fused_plain(q, t, tau)
     _check(logits, ref_logits, dtype)
     _check(scores, ref_scores, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("m", [37, 200])
+def test_fused_mpnet_post_kernel(dtype, m):
+    g = torch.Generator(device="cuda").manual_seed(m)
+    d, f = 128, 256
+    args = (_rn(g, dtype, m, d), _rn(g, dtype, m, d), _rn(g, dtype, d, d, std=0.05),
+            _rn(g, dtype, d, std=0.05), _rn(g, dtype, d, std=0.1, mean=1.0),
+            _rn(g, dtype, d, std=0.1), _rn(g, dtype, d, f, std=0.05), _rn(g, dtype, f, std=0.05),
+            _rn(g, dtype, f, d, std=0.05), _rn(g, dtype, d, std=0.05),
+            _rn(g, dtype, d, std=0.1, mean=1.3), _rn(g, dtype, d, std=0.1))
+    n0 = fl.fused_mpnet_post.launches
+    out = fl.fused_mpnet_post(*args)
+    assert fl.fused_mpnet_post.launches == n0 + 1
+    # outputs of a LayerNorm reach ~4: bf16 allows two ulps of that
+    _check(out, fl.fused_mpnet_post_plain(*args), dtype)
+
+
+# queries across two 32-row blocks, L short of / past one 64-token tile, D of
+# one and of three 256-column chunks; tau 0.008 is the JAX suite's tiny one
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n,b,l,d,tau", [(5, 2, 37, 64, 0.07), (40, 3, 130, 128, 0.008),
+                                         (33, 2, 100, 768, 0.07)])
+def test_vlcabs_train_kernels(dtype, n, b, l, d, tau):
+    g = torch.Generator(device="cuda").manual_seed(n * l)
+    q = torch.randn((n, d), generator=g, device="cuda")
+    q = (q / q.norm(dim=-1, keepdim=True)).to(dtype).requires_grad_(True)
+    t = _rn(g, dtype, b, l, d).requires_grad_(True)
+    tau_t = torch.tensor(tau, device="cuda", requires_grad=True)
+    w = torch.randn((n, b), generator=g, device="cuda")
+    counters = (vf.vlcabs_train_forward, vf.vlcabs_train_bwd_dq, vf.vlcabs_train_bwd_dtn)
+    before = [c.launches for c in counters]
+    logits = vf.vlcabs_fused_train(q, t, tau_t)
+    (logits * w).sum().backward()
+    assert [c.launches for c in counters] == [n0 + 1 for n0 in before]
+    with torch.no_grad():
+        ref = vf.vlcabs_train_forward_plain(q, t, tau_t.reshape(1))
+        rdq, rdt, rdtau = vf.vlcabs_train_backward_plain(q, t, tau_t, w)
+    _check(logits, ref, dtype)
+    # gradients: the tolerance scales with the largest entry of each (the
+    # sums run in another order; dtau adds N * B * L terms of both signs)
+    for got, want in ((q.grad, rdq), (t.grad, rdt), (tau_t.grad, rdtau)):
+        atol, rtol = TOL[dtype]
+        scale = want.float().abs().max().item()
+        torch.testing.assert_close(got.float(), want.float(), atol=atol * max(scale, 1.0),
+                                   rtol=rtol)
+    assert q.grad.dtype == dtype and t.grad.dtype == dtype and tau_t.grad.shape == ()
+    # fixed-order sums, no atomics: a second backward gives the same bits
+    first = [x.grad.clone() for x in (q, t, tau_t)]
+    for x in (q, t, tau_t):
+        x.grad = None
+    (vf.vlcabs_fused_train(q, t, tau_t) * w).sum().backward()
+    for a, x in zip(first, (q, t, tau_t)):
+        assert torch.equal(a, x.grad)
+
+
+def test_forward_only_kernel_raises_under_gradients_on_the_card():
+    x = torch.zeros((4, 64), device="cuda", requires_grad=True)
+    v = torch.ones(64, device="cuda")
+    with pytest.raises(RuntimeError, match="K6"):
+        fl.fused_preattn(x, v, v, torch.zeros((64, 192), device="cuda"),
+                         torch.zeros(192, device="cuda"))
 
 
 def test_wrapper_rejects_mixed_dtypes():

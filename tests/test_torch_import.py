@@ -22,6 +22,8 @@ GROUPS = {
             ("_build", "_checks", "layers", "resize", "fused_layer", "vlcabs", "vlcabs_fused")],
     "serving": ["radzero_torch.losses.radzero_loss", "radzero_torch.eval.geometry",
                 "radzero_torch.eval.serving", "radzero_torch.data.tokenizer"],
+    "training": ["radzero_torch.train", "radzero_torch.train.optim", "radzero_torch.train.step",
+                 "radzero_torch.losses.mpnce", "radzero_torch.losses.clip"],
 }
 
 

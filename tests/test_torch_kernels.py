@@ -1,4 +1,4 @@
-"""Plain twins of K1-K3 and K5 against the JAX kernels, fp32 on the CPU.
+"""Plain twins of K1-K5 against the JAX kernels, fp32 on the CPU.
 
 The JAX side runs its Pallas kernels in interpret mode (as the JAX suite
 does on CPU); the port side runs the wrappers on CPU tensors, which take
@@ -73,6 +73,28 @@ def test_fused_postattn_twin_matches_jax(n):
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=2e-5, atol=2e-5)
 
 
+# rows: not a multiple of the JAX row block (256) nor of any CUDA tile
+@pytest.mark.parametrize("n", [256, 74, 3])
+def test_fused_mpnet_post_twin_matches_jax(n):
+    """K4: the forward of the JAX fused_mpnet_post_vjp (interpreted on the
+    CPU) against fused_mpnet_post, 2e-5 as tests/test_fused_layer.py; the
+    JAX kernel's rational erf is <= 1.5e-7 from the exact erf used here."""
+    rng = np.random.default_rng(200 + n)
+    d, f = 64, 128
+    arrays = (
+        _rand(rng, n, d), _rand(rng, n, d), _rand(rng, d, d, std=0.1), _rand(rng, d, std=0.1),
+        _rand(rng, d, std=0.1, mean=1.0), _rand(rng, d, std=0.1), _rand(rng, d, f, std=0.1),
+        _rand(rng, f, std=0.1), _rand(rng, f, d, std=0.1), _rand(rng, d, std=0.1),
+        _rand(rng, d, std=0.1, mean=1.3), _rand(rng, d, std=0.1),
+    )
+    jp, tp = _both(*arrays)
+    ref = jfl.fused_mpnet_post_vjp(*jp, 1e-12)
+    launches = tfl.fused_mpnet_post.launches
+    out = tfl.fused_mpnet_post(*tp, eps=1e-12)
+    assert tfl.fused_mpnet_post.launches == launches  # CPU tensor: plain twin, no kernel
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=2e-5, atol=2e-5)
+
+
 @pytest.mark.parametrize("n,l", [(5, 37), (3, 130), (16, 128)])
 def test_vlcabs_fused_twin_matches_jax(n, l):
     rng = np.random.default_rng(1000 + l)
@@ -105,6 +127,11 @@ def test_wrappers_reject_other_devices():
         tfl.fused_preattn(x, x[0], x[0], x.new_empty((64, 192)), x.new_empty(192))
     with pytest.raises(ValueError, match="device"):
         tvl.vlcabs_fused(x, x.new_empty((2, 5, 64)), torch.tensor(0.07))
+    with pytest.raises(ValueError, match="device"):
+        tfl.fused_mpnet_post(x, x, *[x[0]] * 10)
+    for fn in (tvl.vlcabs_train_forward, tvl.vlcabs_train_bwd_dq, tvl.vlcabs_train_bwd_dtn):
+        with pytest.raises(ValueError, match="device"):
+            fn(x, x.new_empty((2, 5, 64)), torch.tensor(0.07), *([x] if "bwd" in fn.__name__ else []))
 
 
 def test_build_raises_without_nvcc(monkeypatch):

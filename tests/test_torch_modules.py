@@ -7,7 +7,6 @@ The JAX fused layers run their Pallas kernels in interpret mode.
 """
 
 import dataclasses
-from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -143,12 +142,28 @@ def test_relative_position_buckets_match_jax():
 
 
 def test_mpnet_fuse_post_on_cuda_raises():
-    """K4 is not ported: a CUDA tensor must not quietly take plain code.
-    Checked without a card through the layer's device test."""
+    """fuse_post=True never quietly takes plain code in K4's place: only a
+    CPU tensor runs the plain twin. Checked without a card: a tensor on
+    another device raises, and so does a tensor that requires a gradient
+    (K4's backward K9 is not ported)."""
     cfg = TextConfig(**TEXT, fuse_post=True)
-    on_card = SimpleNamespace(device=torch.device("cuda"))
-    with pytest.raises(NotImplementedError, match="K4"):
-        tmpnet.mpnet_layer(on_card, {}, None, None, cfg)
+    params = tmpnet.init_mpnet(torch.Generator().manual_seed(0), cfg)
+    rel = torch.zeros(4, 12, 12)
+    neg = torch.zeros(4, 12)
+    with pytest.raises(ValueError, match="device"):
+        tmpnet.mpnet_layer(torch.zeros((4, 12, D), device="meta"),
+                           _to_meta(params["layers"][0]), rel.to("meta"), neg.to("meta"), cfg)
+    x = torch.zeros((4, 12, D), requires_grad=True)
+    with pytest.raises(RuntimeError, match="K9"):
+        tmpnet.mpnet_layer(x, params["layers"][0], rel, neg, cfg)
+    with torch.no_grad():  # the same call without a tape runs the twin
+        assert tmpnet.mpnet_layer(x, params["layers"][0], rel, neg, cfg).shape == (4, 12, D)
+
+
+def _to_meta(tree):
+    if isinstance(tree, dict):
+        return {k: _to_meta(v) for k, v in tree.items()}
+    return tree.to("meta")
 
 
 @pytest.mark.parametrize("geometry", ["resize", "aspect_pad", "center_crop", "m3ae"])
