@@ -159,8 +159,10 @@ def forward_train(
         row_mask              (S,)    1.0 real sentence / 0.0 padding
         row_gather            (S,)    optional: input_ids holds U unique
                               sentences and this gathers their features back
-                              to the S loss rows (autograd adds the
-                              gradients of duplicated rows up)
+                              to the S loss rows. Autograd adds the
+                              gradients of duplicated rows up; on CUDA that
+                              ``index_add`` uses atomics, so such a gradient
+                              may differ in the last bit from run to run
         random_input_ids      (B, L)  one random positive per image (only
         random_attention_mask (B, L)  with the CLIP / SigLIP losses)
 

@@ -30,19 +30,26 @@ def make_train_step(
     loss_ratio: Optional[Dict[str, float]] = None,
     dtype=torch.bfloat16,
     stop_vision_gradient: Optional[bool] = None,
+    device="cuda",
 ) -> Callable:
     """Build ``train_step(trainable, frozen, opt_state, batch) ->
     (trainable, opt_state, losses)``. ``trainable`` is updated in place
-    and returned; its leaves and the batch fix the device.
+    and returned. The step runs on ``device`` (the card unless the caller
+    asks for the CPU): the batch is moved there, and parameters that lie
+    elsewhere raise.
 
     ``stop_vision_gradient=None`` resolves at call time: when the vision
     tower sits in the frozen subtree it runs without a tape."""
+
+    dev = torch.device(device)
 
     def train_step(trainable, frozen, opt_state, batch):
         stop = stop_vision_gradient
         if stop is None:
             stop = "vision_model" not in trainable
         leaves = tree_leaves(trainable)
+        _check_device(leaves + tree_leaves(frozen), dev)
+        batch = {k: v.to(dev, non_blocking=True) for k, v in batch.items()}
         for p in leaves:
             p.requires_grad_(True)
         try:
@@ -70,13 +77,23 @@ def make_eval_step(
     *,
     loss_ratio: Optional[Dict[str, float]] = None,
     dtype=torch.bfloat16,
+    device="cuda",
 ) -> Callable:
     """Build ``eval_step(params, batch) -> losses``: the training forward
-    without a tape."""
+    without a tape, on ``device``."""
+    dev = torch.device(device)
 
     @torch.no_grad()
     def eval_step(params, batch):
+        _check_device(tree_leaves(params), dev)
+        batch = {k: v.to(dev, non_blocking=True) for k, v in batch.items()}
         out = forward_train(params, cfg, batch, loss_ratio=loss_ratio, dtype=dtype)
         return out["losses"]
 
     return eval_step
+
+
+def _check_device(leaves, dev: torch.device) -> None:
+    for p in leaves:
+        if p.device.type != dev.type or (dev.index is not None and p.device.index != dev.index):
+            raise ValueError(f"a parameter lies on {p.device}, the step runs on {dev}")

@@ -363,7 +363,9 @@ def test_forward_train_raises_for_missing_backward_kernels(weights):
         vision=TCFG.vision, loss=TCFG.loss, text=tconf.TextConfig(**TEXT),
         align=dataclasses.replace(TCFG.align, attn_impl="fused_vjp"))
     ref = forward_train(params, TCFG, batch, stop_vision_gradient=True)["losses"]["loss"]
-    losses = make_eval_step(default, dtype=torch.float32)(params, batch)
+    losses = make_eval_step(default, dtype=torch.float32, device="cpu")(params, batch)
+    with pytest.raises(ValueError, match="lies on"):  # the card is the default
+        make_eval_step(default, dtype=torch.float32)(params, batch)
     np.testing.assert_allclose(losses["loss"].item(), ref.item(), rtol=1e-5, atol=1e-6)
 
 
@@ -462,7 +464,7 @@ def test_train_step_trajectory_matches_jax(weights):
     trainable, frozen = toptim.partition_params(params_from_jax(weights), TRAINABLE)
     opt, _ = toptim.build_optimizer(**kw)
     tstate = opt.init(trainable)
-    tstep = make_train_step(TCFG, opt, dtype=torch.float32)
+    tstep = make_train_step(TCFG, opt, dtype=torch.float32, device="cpu")
     tbatch = _to_torch(batch)
     history = []
     for _ in range(steps):
