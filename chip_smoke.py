@@ -65,12 +65,16 @@ CHEXPERT = [
 # rounding boundary may round either way: up to 2 bf16 ulps (2^-7) relative at
 # the output, plus such flips in the operands (LN output, softmax weights,
 # normalised tokens) carried through the next product, < 2e-3 absolute here.
-# K1's output is one product away from such a flip: an LN output h of
-# magnitude up to 8 that rounds the other way is off by one bf16 ulp, 2^-5,
-# and meets a weight of up to 0.1, so one flip moves a qkv entry by up to
-# 3e-3 whatever its own size, and a row may hold more than one. Its bf16 atol
-# is therefore 2^-8 of the largest |reference| entry (about 0.012 where
-# |qkv| <= 3, a fiftieth of the entries' spread; flag "scaled").
+# K1, K3 and K4 end in a product whose left operand the kernel itself rounded
+# (K1 the LN output, K3 and K4 the GELU output), over many rows: a rounded
+# operand of size up to 8 (K1) or 4 (K3, K4) that falls the other way is off
+# by one bf16 ulp, 2^-5 or 2^-6, and meets a weight of up to 0.1 (times ls2
+# <= 1.4 in K3), so one flip moves an output entry by up to 3e-3 (K1) or
+# 2e-3 (K3, K4) whatever the entry's own size, and a row of 768 or 3072
+# operands may hold a few. Their bf16 atol is stated as a share of the
+# largest |reference| entry (flag "scaled"): 2^-9 for K1 (|qkv| <= 3.4) and
+# 2^-10 for K3 and K4 (|out| <= 7.5), each about 6e-3, two to three of the
+# largest flips; the smoke passes with any --seed, not with one draw.
 # K4 in fp32: the JAX suite's 2e-5; its twin and kernel use the exact erf,
 # the TPU kernel a rational erf <= 1.5e-7 away. K10 value and K11/K12
 # gradients in fp32: the JAX suite's rtol 1e-5 / atol 1e-6 and rtol 1e-4 /
@@ -88,11 +92,12 @@ TOL = {
     ("K10 logits", "fp32"): (1e-6, 1e-5), ("K11 dq", "fp32"): (1e-5, 1e-4),
     ("K11 dtau", "fp32"): (1e-5, 1e-4), ("K12 dt", "fp32"): (1e-5, 1e-4),
 }
-for _k in ("K2", "K2 train", "K3", "K3 train", "K5 logits", "K5 maps", "K4", "K4 16384",
-           "K10 logits"):
+for _k in ("K2", "K2 train", "K5 logits", "K5 maps", "K10 logits"):
     TOL[(_k, "bf16")] = (2e-3, 2.0**-7)
 for _k in ("K1", "K1 train"):
-    TOL[(_k, "bf16")] = (2.0**-8, 2.0**-7, "scaled")
+    TOL[(_k, "bf16")] = (2.0**-9, 2.0**-7, "scaled")
+for _k in ("K3", "K3 train", "K4", "K4 16384"):
+    TOL[(_k, "bf16")] = (2.0**-10, 2.0**-7, "scaled")
 for _k in ("K11 dq", "K11 dtau", "K12 dt"):
     TOL[(_k, "bf16")] = (2.0**-7, 2.0**-7, "scaled")
 
@@ -120,10 +125,11 @@ def compare(name, dtype_name, out, ref):
     atol, rtol, *scaled = TOL[(name, dtype_name)]
     if scaled:
         atol *= ref.abs().max().item()
-    ok = bool((err <= atol + rtol * ref.abs()).all())
+    used = (err / (atol + rtol * ref.abs())).max().item()  # worst share of the tolerance
+    ok = used <= 1.0
     print(f"  {name:10s} {dtype_name}: max_abs_err {err.max().item():.3e}  max_rel_err "
-          f"{rel:.3e}  (atol {atol:.3g}, rtol {rtol:.3g}; |ref| <= {ref.abs().max().item():.3g}) "
-          f"{'ok' if ok else 'FAIL'}")
+          f"{rel:.3e}  (atol {atol:.3g}, rtol {rtol:.3g}; |ref| <= {ref.abs().max().item():.3g}; "
+          f"worst entry at {100 * used:.0f}% of its tolerance) {'ok' if ok else 'FAIL'}")
     if not ok:
         fail(f"{name} {dtype_name} kernel disagrees with its plain twin")
     return err.max().item()
