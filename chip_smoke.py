@@ -15,7 +15,11 @@ Phases, in order; any failure exits non-zero:
    K1-K3 again at the training step's 64 images (87 680 rows); K4
    fused_mpnet_post at 896 rows (14 prompts x 64 tokens) and at 16 384 (512
    sentences x 32); K10-K12, the VL-CABS training kernels, at 512 sentences
-   x 64 images x 1370 tokens x 768 (value, dq, dt, dtau);
+   x 64 images x 1370 tokens x 768 (value, dq, dt, dtau); K6
+   fused_preattn_bwd, K7 flash_attention_packed_bwd and K8
+   fused_postattn_bwd at 64 images and at 2 (2740 rows, no multiple of a
+   tile), K9 fused_mpnet_post_bwd at 16 384 rows and at 1370, every
+   gradient they return;
 4. serving: full-width RadZero (ViT-B/14 at 518, 2 align layers, MPNet
    12 x 768 with the default fuse_post=True) from seeded random weights in
    bf16 behind ServingEngine(max_batch=8, channels=1); 20 grayscale
@@ -23,12 +27,15 @@ Phases, in order; any failure exits non-zero:
    kernel path against the eager reference path, and requests/s with
    p50/p99 latency of that burst and of five repeats on the warm engine;
 5. training: the same weights as fp32 masters, tower frozen (K1-K3 without
-   a tape), align layers and MPNet on eager ops under autograd, the loss on
-   K10-K12; 6 AdamW steps in bf16 on one seeded batch of 64 images x 512
-   sentences, with checks
-   of the losses, the gradient norm and the launch counts per step, then
-   loss and gradients of the kernel path against the eager loss path on an
-   fp32 batch of 2 images, and images/s of the warm steps.
+   a tape), at the defaults AlignConfig() / TextConfig() /
+   LossConfig(train_impl="fused"): align layers on K1-K3 with the backward
+   kernels K6-K8, every MPNet layer on K4 with K9, the loss on K10-K12; 6
+   AdamW steps in bf16 on one seeded batch of 64 images x 512 sentences,
+   with checks of the losses, the gradient norm and the launch counts per
+   step, and images/s of the warm steps; then 3 steps of the eager-layer
+   configuration (attn_impl="xla", fuse_post=False) beside it, step time
+   and peak memory of both; then loss and every gradient leaf of both
+   against the all-eager path on an fp32 batch of 2 images.
 
 --profile also prints the kernels of one training step by device time
 (torch.profiler). A line with {"kernels": [...]} reports every kernel; the
@@ -52,6 +59,7 @@ REPO = Path(__file__).resolve().parent
 B, L, D, H, F, N = 8, 1370, 768, 12, 3072, 14
 M_TEXT = N * 64                       # K4 in serving: 14 prompts x 64 tokens
 TB, TN, T_LEN = 64, 512, 32           # training: images, sentences, tokens per sentence
+M_RAGGED = 1370                       # K9 at a row count that is no multiple of any tile
 PEAK_FLOPS = {"bf16": 989e12}         # H100 SXM dense bf16, operations per second
 PEAK_BYTES = 3.35e12                  # H100 SXM device memory, bytes per second
 CHEXPERT = [
@@ -82,7 +90,29 @@ CHEXPERT = [
 # or 512 sentences (dt) of products of rounded factors, so in bf16 a rounding
 # flip moves an entry by a share of the largest entry, not of itself: their
 # bf16 atol is 2^-7 of the largest |reference| entry (flag "scaled").
+# K6-K9 return gradients. fp32: the JAX suite's gradient tolerance, 2e-4 (5e-4
+# for the MPNet chain), taken of the largest |reference| entry of each output.
+# bf16: kernel and twin round the same factors (LN output, GELU output, dm,
+# dh1, dproj; p, dO, dS) at the same points, but their fp32 sums run in
+# another order, so a factor near a rounding boundary falls either way: one
+# bf16 ulp, 2^-8 of that factor. Every output entry is a sum over hundreds to
+# tens of thousands of such products (rows for the parameter gradients,
+# columns or keys for dx, da and d qkv), so one flipped factor moves an entry
+# by a share of the output's largest entry whatever the entry's own size, a
+# row or column holds a few of them, and the entry's own final rounding may
+# flip too (2^-8 of itself): 2^-7 of the largest |reference| entry plus 2^-7
+# relative, as for K11 / K12.
+BWD_OUTPUTS = {
+    "K6": ("dx", "dln_s", "dln_b", "dw", "db"),
+    "K7": ("dq", "dk", "dv"),
+    "K8": ("dx", "da", "dwo", "dbo", "dls1", "dln_s", "dln_b", "dw1", "db1", "dw2", "db2",
+           "dls2"),
+    "K9": ("dx", "da", "dwo", "dbo", "dlnsa", "dlnba", "dw1", "db1", "dw2", "db2", "dlnso",
+           "dlnbo"),
+}
 TOL = {
+    ("K6", "fp32"): (2e-4, 0.0, "scaled"), ("K7", "fp32"): (2e-4, 0.0, "scaled"),
+    ("K8", "fp32"): (2e-4, 0.0, "scaled"), ("K9", "fp32"): (5e-4, 0.0, "scaled"),
     ("K1", "fp32"): (2e-5, 2e-5), ("K2", "fp32"): (1e-4, 1e-4),
     ("K3", "fp32"): (2e-5, 2e-5), ("K5 logits", "fp32"): (1e-5, 1e-4),
     ("K5 maps", "fp32"): (1e-4, 1e-4),
@@ -98,7 +128,7 @@ for _k in ("K1", "K1 train"):
     TOL[(_k, "bf16")] = (2.0**-9, 2.0**-7, "scaled")
 for _k in ("K3", "K3 train", "K4", "K4 16384"):
     TOL[(_k, "bf16")] = (2.0**-10, 2.0**-7, "scaled")
-for _k in ("K11 dq", "K11 dtau", "K12 dt"):
+for _k in ("K11 dq", "K11 dtau", "K12 dt", "K6", "K7", "K8", "K9"):
     TOL[(_k, "bf16")] = (2.0**-7, 2.0**-7, "scaled")
 
 
@@ -114,7 +144,9 @@ def card_line() -> str:
     ).stdout.strip().splitlines()[0]
 
 
-def compare(name, dtype_name, out, ref):
+def compare(name, dtype_name, out, ref, tol=None, quiet=False):
+    """``tol`` names the TOL entry when it is not ``name``; ``quiet`` prints
+    nothing and returns (max_abs_err, worst share of the tolerance)."""
     import torch
 
     out, ref = out.float(), ref.float()
@@ -122,11 +154,13 @@ def compare(name, dtype_name, out, ref):
         fail(f"{name} {dtype_name}: shape {tuple(out.shape)} vs {tuple(ref.shape)} or non-finite")
     err = (out - ref).abs()
     rel = (err / ref.abs().clamp_min(1e-6)).max().item()
-    atol, rtol, *scaled = TOL[(name, dtype_name)]
+    atol, rtol, *scaled = TOL[(tol or name, dtype_name)]
     if scaled:
         atol *= ref.abs().max().item()
     used = (err / (atol + rtol * ref.abs())).max().item()  # worst share of the tolerance
     ok = used <= 1.0
+    if quiet and ok:
+        return err.max().item(), used
     print(f"  {name:10s} {dtype_name}: max_abs_err {err.max().item():.3e}  max_rel_err "
           f"{rel:.3e}  (atol {atol:.3g}, rtol {rtol:.3g}; |ref| <= {ref.abs().max().item():.3g}; "
           f"worst entry at {100 * used:.0f}% of its tolerance) {'ok' if ok else 'FAIL'}")
@@ -217,6 +251,20 @@ def bounds(dtype_bytes=2):
         "K11": (8 * vl, (TB * L * D + 2 * TN * D) * e + TN * TB * 4 + 4),
         "K12": (10 * vl, (2 * TB * L * D + TN * D) * e + TN * TB * 4),
     }
+    for tag, b in (("", TB), (" 2img", 2)):  # K6-K8 at b images: operations, bytes
+        m = b * L
+        work |= {
+            # dh = g W^T and dW = h^T g; reads x, g, W, writes dx, dW, db, dln
+            "K6" + tag: (4 * m * D * 3 * D, (2 * m * D + m * 3 * D + 2 * D * 3 * D + 3 * D + 4 * D) * e),
+            # S, dP, dV, dQ, dK per head
+            "K7" + tag: (10 * b * H * L * L * (D // H), (2 * b * L * 3 * D + b * L * D) * e),
+            # the three forward products again and two backward products for each
+            "K8" + tag: (6 * m * D * (D + 2 * F),
+                         (5 * m * D + 2 * (D * D + 2 * D * F) + 2 * (6 * D + F)) * e),
+        }
+    for tag, m in (("", TN * T_LEN), (" 1370", M_RAGGED)):
+        work["K9" + tag] = (6 * m * D * (D + 2 * F),
+                            (5 * m * D + 2 * (D * D + 2 * D * F) + 2 * (6 * D + F)) * e)
     out = {}
     for k, (ops, nbytes) in work.items():
         t_ops, t_bytes = ops / PEAK_FLOPS["bf16"] * 1e3, nbytes / PEAK_BYTES * 1e3
@@ -309,8 +357,12 @@ def phase_kernels(seed):
                   " ms (median of 20)")
         del inputs, qn, tokens, dz
         torch.cuda.empty_cache()
+        backward_kernels(dtype, dname, gen, rows)
     for k, (bound_ms, bound_by) in bounds().items():
-        if k.endswith(" train"):
+        if k.endswith((" 2img", " 1370")):
+            rows[k[:2]].update(bound_ms_small=bound_ms)
+            ms = rows[k[:2]]["ms_small"]
+        elif k.endswith(" train"):
             rows[k[:2]].update(bound_ms_training=bound_ms)
             ms = rows[k[:2]]["ms_training"]
         else:
@@ -319,6 +371,79 @@ def phase_kernels(seed):
         print(f"  {k:8s} bound {bound_ms:.4f} ms by {bound_by}: kernel at "
               f"{100 * bound_ms / ms:.1f}% of it (bf16)")
     return rows
+
+
+def backward_kernels(dtype, dname, gen, rows):
+    """K6-K9 against their plain twins at the training step's shapes (64
+    images, 16 384 text rows) and at 2 images / 1370 rows; fills ``rows``
+    from the bf16 run."""
+    import torch
+    from radzero_torch.ops import fused_layer as fl
+
+    def rn(*shape, std=1.0, mean=0.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * std + mean).to(dtype)
+
+    def k6(m):
+        return (rn(m, D), rn(D, std=0.1, mean=1.0), rn(D, std=0.1), rn(D, 3 * D, std=0.02),
+                rn(3 * D, std=0.02), rn(m, 3 * D))
+
+    def k8(m):
+        return (rn(m, D), rn(m, D), rn(D, D, std=0.02), rn(D, std=0.02), rn(D, std=0.1, mean=1.0),
+                rn(D, std=0.1, mean=1.0), rn(D, std=0.1), rn(D, F, std=0.02), rn(F, std=0.02),
+                rn(F, D, std=0.02), rn(D, std=0.02), rn(D, std=0.1, mean=1.0), rn(m, D))
+
+    def k9(m):
+        return (rn(m, D), rn(m, D), rn(D, D, std=0.02), rn(D, std=0.02),
+                rn(D, std=0.1, mean=1.0), rn(D, std=0.1), rn(D, F, std=0.02), rn(F, std=0.02),
+                rn(F, D, std=0.02), rn(D, std=0.02), rn(D, std=0.1, mean=1.0), rn(D, std=0.1),
+                rn(m, D))
+
+    def k7_plain(qkv, dout):  # the twin holds (images, 12, 1370, 1370) fp32: 8 images at a time
+        return torch.cat([fl.flash_attention_packed_bwd_plain(qkv[i:i + 8], H, dout[i:i + 8])
+                          for i in range(0, qkv.shape[0], 8)])
+
+    def thirds(t):
+        return tuple(t[..., i * D:(i + 1) * D] for i in range(3))
+
+    cases = {  # key: (make inputs, kernel, plain twin, outputs as a tuple)
+        "K6": (lambda: k6(TB * L), fl.fused_preattn_bwd, fl.fused_preattn_bwd_plain, tuple),
+        "K6 2img": (lambda: k6(2 * L), fl.fused_preattn_bwd, fl.fused_preattn_bwd_plain, tuple),
+        "K7": (lambda: (rn(TB, L, 3 * D), rn(TB, L, D)),
+               lambda q, g: fl.flash_attention_packed_bwd(q, H, g), k7_plain, thirds),
+        "K7 2img": (lambda: (rn(2, L, 3 * D), rn(2, L, D)),
+                    lambda q, g: fl.flash_attention_packed_bwd(q, H, g), k7_plain, thirds),
+        "K8": (lambda: k8(TB * L), fl.fused_postattn_bwd, fl.fused_postattn_bwd_plain, tuple),
+        "K8 2img": (lambda: k8(2 * L), fl.fused_postattn_bwd, fl.fused_postattn_bwd_plain, tuple),
+        "K9": (lambda: k9(TN * T_LEN), fl.fused_mpnet_post_bwd, fl.fused_mpnet_post_bwd_plain,
+               tuple),
+        "K9 1370": (lambda: k9(M_RAGGED), fl.fused_mpnet_post_bwd,
+                    fl.fused_mpnet_post_bwd_plain, tuple),
+    }
+    for k, (make, kern, plain, split) in cases.items():
+        args = make()
+        out, ref = split(kern(*args)), split(plain(*args))
+        torch.cuda.synchronize()
+        worst = [compare(f"{k} {name}", dname, a, b, tol=k[:2], quiet=True)
+                 for name, a, b in zip(BWD_OUTPUTS[k[:2]], out, ref)]
+        scale = max(b.float().abs().max().item() for b in ref)
+        i = max(range(len(worst)), key=lambda j: worst[j][1])
+        del out, ref
+        small = " " in k
+        reps = 10 if small else 5
+        ms = median_ms(lambda: kern(*args), reps=reps, warmup=1)
+        plain_ms = median_ms(lambda: plain(*args), reps=3, warmup=1)
+        err = max(w[0] for w in worst)
+        print(f"  {k:10s} {dname}: {len(worst)} gradients, max_abs_err {err:.3e} (largest "
+              f"|ref| {scale:.3g}); worst {BWD_OUTPUTS[k[:2]][i]} at {100 * worst[i][1]:.0f}% "
+              f"of its tolerance; kernel {ms:.4f} ms  plain {plain_ms:.4f} ms ok")
+        if dname == "bf16":
+            if small:
+                rows[k[:2]].update(max_abs_err_small=err, ms_small=ms, plain_ms_small=plain_ms)
+            else:
+                rows[k] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                           "library_ms": None}
+        del args
+        torch.cuda.empty_cache()
 
 
 def phase_slice(seed, card):
@@ -399,6 +524,8 @@ def phase_slice(seed, card):
     expect = {"fused_preattn": n_layers * nb, "flash_attention_packed": n_layers * nb,
               "fused_postattn": n_layers * nb,
               "fused_mpnet_post": cfg.text.num_hidden_layers * nb, "vlcabs_fused": nb,
+              "fused_preattn_bwd": 0, "flash_attention_packed_bwd": 0, "fused_postattn_bwd": 0,
+              "fused_mpnet_post_bwd": 0,
               "vlcabs_train_forward": 0, "vlcabs_train_bwd_dq": 0, "vlcabs_train_bwd_dtn": 0}
     print(f"  20 requests answered in batches {batches}; launches {launches}")
     if batches != [8, 8, 4] or launches != expect:
@@ -455,8 +582,9 @@ def _counters():
     from radzero_torch.ops import vlcabs_fused as vf
 
     return (fl.fused_preattn, fl.flash_attention_packed, fl.fused_postattn, fl.fused_mpnet_post,
-            vf.vlcabs_fused, vf.vlcabs_train_forward, vf.vlcabs_train_bwd_dq,
-            vf.vlcabs_train_bwd_dtn)
+            vf.vlcabs_fused, fl.fused_preattn_bwd, fl.flash_attention_packed_bwd,
+            fl.fused_postattn_bwd, fl.fused_mpnet_post_bwd, vf.vlcabs_train_forward,
+            vf.vlcabs_train_bwd_dq, vf.vlcabs_train_bwd_dtn)
 
 
 def reset_counters():
@@ -498,8 +626,9 @@ def train_batch(seed, n_images, n_sentences, vocab_size, pixel_dtype):
 
 
 def phase_training(seed, card, params, profile):
-    """6 AdamW steps at full width through make_train_step; returns the
-    launches of one step."""
+    """AdamW steps at full width through make_train_step: 6 at the default
+    configuration (every layer on its kernels), 3 at the eager-layer one;
+    returns the launches of one default step."""
     import torch
     from radzero_torch.models.configuration import (
         AlignConfig, LossConfig, RadZeroConfig, TextConfig, ViTConfig,
@@ -510,19 +639,24 @@ def phase_training(seed, card, params, profile):
     )
     from radzero_torch.train.step import make_train_step
 
-    cfg = RadZeroConfig(vision=ViTConfig(), align=AlignConfig(attn_impl="xla"),
-                        text=TextConfig(fuse_post=False), loss=LossConfig(train_impl="fused"))
+    # the JAX package's own defaults: attn_impl="fused_vjp", fuse_post=True
+    cfg = RadZeroConfig(vision=ViTConfig(), align=AlignConfig(), text=TextConfig(),
+                        loss=LossConfig(train_impl="fused"))
+    # eager align layers and eager MPNet chain under autograd, the loss on K10-K12
+    cfg_eager_layers = dataclasses.replace(cfg, align=AlignConfig(attn_impl="xla"),
+                                           text=TextConfig(fuse_post=False))
     modules = ("align_transformer", "text_model", "loss_fns")
-    steps = 6
+    n_images, n_sentences = TB, TN
 
-    def run(n_images, n_sentences):
+    def run(c, steps, profile_it=False):
         # fresh fp32 masters each time: the step updates them in place
         trainable, frozen = partition_params(params, modules)
         trainable = _clone(trainable)
-        opt, _ = build_optimizer(learning_rate=1e-4, warmup_steps=1, total_steps=steps)
+        opt, _ = build_optimizer(learning_rate=1e-4, warmup_steps=1, total_steps=6)
         state = opt.init(trainable)
-        step = make_train_step(cfg, opt, dtype=torch.bfloat16)
-        batch = train_batch(seed, n_images, n_sentences, cfg.text.vocab_size, torch.bfloat16)
+        step = make_train_step(c, opt, dtype=torch.bfloat16)
+        batch = train_batch(seed, n_images, n_sentences, c.text.vocab_size, torch.bfloat16)
+        torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         history, seconds, per_step = [], [], []
         for _ in range(steps):
@@ -534,44 +668,70 @@ def phase_training(seed, card, params, profile):
             seconds.append(time.perf_counter() - t0)
             per_step.append(read_counters())
             history.append({k: v.item() for k, v in losses.items()})
-        if profile:
+        peak = torch.cuda.max_memory_allocated()
+        if profile_it:
             profile_step(lambda: step(trainable, frozen, state, batch))
-        return history, seconds, per_step, torch.cuda.max_memory_allocated()
+        return history, seconds, per_step, peak
 
-    # the eager align layers keep their (images, 12, 1370, 1370) attention
-    # weights for the backward: about half of an 80 GB card at 64 images
-    n_images, n_sentences = TB, TN
-    history, seconds, per_step, peak = run(n_images, n_sentences)
+    def report(label, history, seconds, per_step, peak, expect):
+        print(f"  {label}: peak memory {peak / 2**30:.2f} GiB")
+        for i, (h, sec) in enumerate(zip(history, seconds)):
+            print(f"    step {i}: loss {h['loss']:.5f}  grad_norm {h['grad_norm']:.4f}  {sec:.3f} s")
+        print(f"    launches per step {per_step[-1]}")
+        if any(c != expect for c in per_step):
+            fail(f"{label}: expected launches per step {expect}, got {per_step}")
+        for h in history:
+            if not all(math.isfinite(v) for v in h.values()) or h["grad_norm"] <= 0.0:
+                fail(f"{label}: non-finite loss or a dead gradient: {h}")
+        warm = sorted(seconds[1:])
+        med = warm[len(warm) // 2]
+        print(f"    {n_images / med:.2f} images/s ({n_sentences / med:.1f} sentences/s), median "
+              f"step {med:.4f} s of steps 1-{len(seconds) - 1} (step 0 {seconds[0]:.3f} s) "
+              f"on {card}")
+        return med
 
     n_train = sum(t.numel() for t in tree_leaves(partition_params(params, modules)[0]))
     print(f"training: {n_images} images x {n_sentences} sentences x {T_LEN} tokens, bf16 compute, "
           f"fp32 masters, {n_train / 1e6:.1f} M trainable parameters (align, text, loss; tower "
-          f"frozen), lr 1e-4 after 1 warmup step; peak memory {peak / 2**30:.2f} GiB")
-    for i, (h, sec) in enumerate(zip(history, seconds)):
-        print(f"  step {i}: loss {h['loss']:.5f}  grad_norm {h['grad_norm']:.4f}  {sec:.3f} s")
-    expect = {"fused_preattn": 12, "flash_attention_packed": 12, "fused_postattn": 12,
-              "fused_mpnet_post": 0, "vlcabs_fused": 0, "vlcabs_train_forward": 1,
-              "vlcabs_train_bwd_dq": 1, "vlcabs_train_bwd_dtn": 1}
-    print(f"  launches per step {per_step[-1]}")
-    if any(c != expect for c in per_step):
-        fail(f"expected launches per step {expect}, got {per_step}")
-    for h in history:
-        if not all(math.isfinite(v) for v in h.values()) or h["grad_norm"] <= 0.0:
-            fail(f"training: non-finite loss or a dead gradient: {h}")
+          f"frozen), lr 1e-4 after 1 warmup step")
+    n_tower, n_align = cfg.vision.num_hidden_layers, cfg.align.num_hidden_layers
+    n_text = cfg.text.num_hidden_layers
+    loss_kernels = {"vlcabs_fused": 0, "vlcabs_train_forward": 1, "vlcabs_train_bwd_dq": 1,
+                    "vlcabs_train_bwd_dtn": 1}
+    expect = {"fused_preattn": n_tower + n_align, "flash_attention_packed": n_tower + n_align,
+              "fused_postattn": n_tower + n_align, "fused_mpnet_post": n_text,
+              "fused_preattn_bwd": n_align, "flash_attention_packed_bwd": n_align,
+              "fused_postattn_bwd": n_align, "fused_mpnet_post_bwd": n_text, **loss_kernels}
+    history, seconds, per_step, peak = run(cfg, 6, profile_it=profile)
+    med = report('defaults (attn_impl="fused_vjp", fuse_post=True: K1-K4, K6-K12)', history,
+                 seconds, per_step, peak, expect)
     if not history[-1]["loss"] < history[1]["loss"]:
         fail(f"training: loss did not fall: {[h['loss'] for h in history]}")
-    warm = sorted(seconds[1:])
-    med = warm[len(warm) // 2]
-    print(f"  training: {n_images / med:.2f} images/s ({n_sentences / med:.1f} sentences/s), "
-          f"median step {med:.4f} s of steps 1-{steps - 1} (step 0 {seconds[0]:.3f} s) on {card}")
+    training = per_step[-1]
 
-    # kernel loss path against the eager loss path: fp32, 2 images x 16 sentences
+    expect_eager = {"fused_preattn": n_tower, "flash_attention_packed": n_tower,
+                    "fused_postattn": n_tower, "fused_mpnet_post": 0, "fused_preattn_bwd": 0,
+                    "flash_attention_packed_bwd": 0, "fused_postattn_bwd": 0,
+                    "fused_mpnet_post_bwd": 0, **loss_kernels}
+    h2, s2, p2, peak2 = run(cfg_eager_layers, 3)
+    med2 = report('eager layers (attn_impl="xla", fuse_post=False: K1-K3, K10-K12)', h2, s2, p2,
+                  peak2, expect_eager)
+    print(f"  training: {n_images / med:.2f} images/s, median step {med:.4f} s, peak "
+          f"{peak / 2**30:.2f} GiB at the defaults; {n_images / med2:.2f} images/s, {med2:.4f} s, "
+          f"{peak2 / 2**30:.2f} GiB with eager layers, on {card}")
+    if abs(h2[0]["loss"] - history[0]["loss"]) > 0.02 * abs(history[0]["loss"]):
+        fail(f"training: step-0 losses of the two configurations differ: "
+             f"{history[0]['loss']} vs {h2[0]['loss']}")
+
+    # fp32, 2 images x 16 sentences: the all-kernel path and the eager-layer
+    # path against the all-eager path (eager layers, eager chain, eager VL-CABS)
     batch = train_batch(seed + 7, 2, 16, cfg.text.vocab_size, torch.float32)
     trainable, frozen = partition_params(params, modules)
     leaves = tree_leaves(trainable)
+    legs = {"kernels": cfg, "eager layers": cfg_eager_layers,
+            "eager": dataclasses.replace(cfg_eager_layers, loss=LossConfig(train_impl="xla"))}
     got = {}
-    for impl in ("fused", "xla"):
-        c = dataclasses.replace(cfg, loss=LossConfig(train_impl=impl))
+    for name, c in legs.items():
         for p in leaves:
             p.requires_grad_(True)
         out = forward_train(merge_params(trainable, frozen), c, batch, dtype=torch.float32,
@@ -579,22 +739,24 @@ def phase_training(seed, card, params, profile):
         grads = torch.autograd.grad(out["losses"]["loss"], leaves, allow_unused=True)
         for p in leaves:
             p.requires_grad_(False)
-        got[impl] = (out["losses"]["loss"].item(),
+        got[name] = (out["losses"]["loss"].item(),
                      [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)])
-    (lf, gf), (lx, gx) = got["fused"], got["xla"]
-    # per leaf: |fused - xla| <= 2e-4 of the leaf's largest |gradient| + 1e-7:
-    # the JAX suite holds this pair to rtol 1e-4 at D = 32; here the fp32 sums
-    # run over 1370 tokens x 768 in another order on the two sides
-    worst = max(((a - b).abs().max() / (b.abs().max() + 1e-30)).item()
-                for a, b in zip(gf, gx) if b.abs().max() > 1e-7)
-    print(f"  fp32, 2 images: loss fused {lf:.7f} vs eager VL-CABS {lx:.7f}; worst gradient "
-          f"leaf error {worst:.3e} of its largest entry, over {len(gf)} leaves")
-    if abs(lf - lx) > 1e-5 * abs(lx) + 1e-6:
-        fail("training: fused loss disagrees with the eager loss")
-    for a, b in zip(gf, gx):
-        if not bool(((a - b).abs() <= 2e-4 * b.abs().max() + 1e-7).all()):
-            fail("training: a gradient of the kernel path disagrees with the eager path")
-    return per_step[-1]
+    lx, gx = got["eager"]
+    for name in ("kernels", "eager layers"):
+        lf, gf = got[name]
+        # per leaf: |path - eager| <= 2e-4 of the leaf's largest |gradient| + 1e-7:
+        # the JAX suite holds the fused layers' gradients to 2e-4; here the fp32
+        # sums run over 1370 tokens x 768 in another order on the two sides
+        worst = max(((a - b).abs().max() / (b.abs().max() + 1e-30)).item()
+                    for a, b in zip(gf, gx) if b.abs().max() > 1e-7)
+        print(f"  fp32, 2 images: loss {name} {lf:.7f} vs eager {lx:.7f}; worst gradient "
+              f"leaf error {worst:.3e} of its largest entry, over {len(gf)} leaves")
+        if abs(lf - lx) > 1e-5 * abs(lx) + 1e-6:
+            fail(f"training: the loss of the {name} path disagrees with the eager loss")
+        for a, b in zip(gf, gx):
+            if not bool(((a - b).abs() <= 2e-4 * b.abs().max() + 1e-7).all()):
+                fail(f"training: a gradient of the {name} path disagrees with the eager path")
+    return training
 
 
 def profile_step(fn):
@@ -610,19 +772,22 @@ def profile_step(fn):
                for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     kernels.sort(key=lambda k: -k[1])
     total = sum(k[1] for k in kernels)
-    groups = {"tower kernels K1-K3 (rz::gemm_*, rz::packed_attention, rz::row_layernorm)": 0.0,
-              "VL-CABS kernels K10-K12 (rz::vt::*)": 0.0, "torch ops (everything else)": 0.0}
+    names = {"vt": "VL-CABS kernels K10-K12 (rz::vt::*)",
+             "bw": "backward-only kernels of K6-K9 (rz::bw::*: K7, dW products, row passes)",
+             "rz": "K1-K4 forward and the products of K6, K8, K9 (rz::gemm_*, "
+                   "rz::packed_attention, rz::row_layernorm)",
+             "torch": "torch ops (everything else)"}
+    groups = {v: 0.0 for v in names.values()}
     for name, ms, _ in kernels:
-        key = ("VL-CABS kernels K10-K12 (rz::vt::*)" if "rz::vt::" in name
-               else "tower kernels K1-K3 (rz::gemm_*, rz::packed_attention, rz::row_layernorm)"
-               if "rz::" in name else "torch ops (everything else)")
-        groups[key] += ms
+        key = ("vt" if "rz::vt::" in name else "bw" if "rz::bw::" in name
+               else "rz" if "rz::" in name else "torch")
+        groups[names[key]] += ms
     print(f"  profile of one training step: {total:.1f} ms of device time in "
           f"{sum(k[2] for k in kernels)} kernel launches")
     for key, ms in groups.items():
         print(f"    {ms:8.2f} ms {100 * ms / total:5.1f}%  {key}")
-    for name, ms, count in kernels[:24]:
-        print(f"    {ms:8.2f} ms {100 * ms / total:5.1f}%  x{count:<4d} {name[:110]}")
+    for name, ms, count in kernels[:40]:
+        print(f"    {ms:8.2f} ms {100 * ms / total:5.1f}%  x{count:<4d} {name[:150]}")
 
 
 def _clone(tree):
@@ -696,6 +861,14 @@ def main() -> int:
                "radzero_tpu/ops/fused_layer.py:760"),
         "K5": ("vlcabs_fused", "radzero_torch/ops/csrc/vlcabs_fused.cu",
                "radzero_tpu/ops/pallas_vlcabs.py:115"),
+        "K6": ("fused_preattn_bwd", "radzero_torch/ops/csrc/fused_layer_bwd.cu",
+               "radzero_tpu/ops/fused_layer.py:390"),
+        "K7": ("flash_attention_packed_bwd", "radzero_torch/ops/csrc/fused_layer_bwd.cu",
+               "radzero_tpu/ops/fused_layer.py:281"),
+        "K8": ("fused_postattn_bwd", "radzero_torch/ops/csrc/fused_layer_bwd.cu",
+               "radzero_tpu/ops/fused_layer.py:568"),
+        "K9": ("fused_mpnet_post_bwd", "radzero_torch/ops/csrc/fused_layer_bwd.cu",
+               "radzero_tpu/ops/fused_layer.py:820"),
         "K10": ("vlcabs_train_forward", "radzero_torch/ops/csrc/vlcabs_train.cu",
                 "radzero_tpu/ops/pallas_vlcabs.py:310"),
         "K11": ("vlcabs_train_bwd_dq", "radzero_torch/ops/csrc/vlcabs_train.cu",

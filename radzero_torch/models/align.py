@@ -1,7 +1,8 @@
 """Align adapters (port of radzero_tpu/models/align.py).
 
-``align_transformer``: N DINOv2 layers on the fused K1-K3 layer (eager
-reference layers with ``eager=True``) plus an optional trailing LN;
+``align_transformer``: N DINOv2 layers, on the fused K1-K3 layer unless
+``impl`` names another ("packed", "eager": see ``models/vit.py``), plus an
+optional trailing LN;
 ``identity``: tokens pass through. The ``linear`` and ``mlp`` baselines
 are not ported yet (ROADMAP.md item 4).
 """
@@ -23,8 +24,8 @@ def _align_transformer_init(g: torch.Generator, cfg: AlignConfig) -> dict:
     return params
 
 
-def _align_transformer_apply(params, cfg: AlignConfig, tokens, *, eager=False):
-    tokens = vit_encoder(params["layers"], cfg.as_vit(), tokens, eager=eager)
+def _align_transformer_apply(params, cfg: AlignConfig, tokens, *, impl="fused"):
+    tokens = vit_encoder(params["layers"], cfg.as_vit(), tokens, impl=impl)
     if cfg.use_layer_norm:
         tokens = layer_norm(tokens, params["layer_norm"], cfg.layer_norm_eps)
     return tokens
@@ -34,7 +35,7 @@ def _identity_init(g, cfg) -> dict:
     return {}
 
 
-def _identity_apply(params, cfg, tokens, *, eager=False):
+def _identity_apply(params, cfg, tokens, *, impl="fused"):
     return tokens
 
 
@@ -45,7 +46,7 @@ _ADAPTERS = {
 
 
 def build_align_adapter(model_type: str):
-    """-> (init(generator, cfg), apply(params, cfg, tokens, *, eager))."""
+    """-> (init(generator, cfg), apply(params, cfg, tokens, *, impl))."""
     if model_type not in _ADAPTERS:
         raise NotImplementedError(
             f"align adapter {model_type!r} is not ported yet (ROADMAP.md item 4)"

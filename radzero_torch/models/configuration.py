@@ -5,11 +5,12 @@ YAML presets load unchanged through :func:`radzero_config_from_dict`.
 ``with_fused_towers`` and ``resolve_backend_impls`` have no counterpart:
 the port picks kernel or plain twin by the tensor's device. Serving reads
 none of the ``attn_impl`` / ``train_impl`` fields. ``forward_train`` reads
-``AlignConfig.attn_impl`` ("xla": the eager layers that autograd
-differentiates; anything else: the fused K1-K3 layer, forward-only until
-K6-K8 are ported) and ``LossConfig.train_impl`` ("fused": the VL-CABS
-training kernels K10-K12; else eager ops). The tower always runs the fused
-layer, so it trains only once K6-K8 exist.
+``AlignConfig.attn_impl`` ("fused_vjp", the default: the fused K1-K3 layer
+with the backward kernels K6-K8; "packed": eager ops around K2 / K7; "xla":
+the eager layers that autograd differentiates), ``TextConfig.fuse_post``
+(K4 with its backward K9) and ``LossConfig.train_impl`` ("fused": the
+VL-CABS training kernels K10-K12; else eager ops). The tower always runs
+the fused layer; trainable, it differentiates through K6-K8.
 """
 
 from __future__ import annotations

@@ -8,9 +8,10 @@
 
 ``fuse_post=True`` (the default) runs the whole non-attention chain of a
 layer through kernel K4 (:func:`radzero_torch.ops.fused_layer.
-fused_mpnet_post`; its plain twin for CPU tensors). K4 is forward-only
-until its backward K9 is ported: under gradients it raises, and training
-takes ``fuse_post=False``, the eager chain that autograd differentiates.
+fused_mpnet_post`; its plain twin for CPU tensors). Under gradients the
+same call differentiates through the backward kernel K9 and keeps only the
+layer input and the attention output; ``fuse_post=False`` is the eager
+chain that autograd differentiates op by op.
 """
 
 from __future__ import annotations

@@ -7,12 +7,14 @@ Two entry points: :func:`compute_logits`, zero-shot scoring (the
 ported yet, ROADMAP.md), and :func:`forward_train`, the training forward
 over one flattened global batch.
 
-What training runs on today: the frozen tower on the forward kernels K1-K3
-without a tape, the loss on the VL-CABS training kernels K10-K12, and the
-trainable align layers and the MPNet tower on eager torch ops that autograd
-differentiates (``AlignConfig.attn_impl="xla"``, ``TextConfig.
-fuse_post=False``). The fused layers have no backward kernels yet (K6-K9):
-asking for them under gradients raises.
+What training runs on at the defaults (``AlignConfig.attn_impl=
+"fused_vjp"``, ``TextConfig.fuse_post=True``, ``LossConfig.train_impl=
+"fused"``): the frozen tower on the forward kernels K1-K3 without a tape,
+the trainable align layers on K1-K3 with the backward kernels K6-K8, every
+MPNet layer's post-attention chain on K4 with the backward K9, and the loss
+on the VL-CABS training kernels K10-K12. A trainable vision tower runs
+through the same K1-K3 / K6-K8 Functions. ``attn_impl="xla"`` and
+``fuse_post=False`` are the eager paths that autograd differentiates.
 """
 
 from __future__ import annotations
@@ -36,7 +38,7 @@ from radzero_torch.losses.radzero_loss import (
 from radzero_torch.models.align import build_align_adapter
 from radzero_torch.models.configuration import RadZeroConfig
 from radzero_torch.models.mpnet import init_mpnet, masked_mean_pool, mpnet_forward
-from radzero_torch.models.vit import init_vit, vit_forward
+from radzero_torch.models.vit import init_vit, layer_impl, vit_forward
 from radzero_torch.ops.layers import l2_normalize, linear
 
 
@@ -73,24 +75,16 @@ def init_radzero(g: torch.Generator, cfg: RadZeroConfig,
     return params
 
 
-def _tracked(tree) -> bool:
-    """Whether autograd would record ops on any leaf of ``tree`` now."""
-    if isinstance(tree, dict):
-        return any(_tracked(v) for v in tree.values())
-    if isinstance(tree, list):
-        return any(_tracked(v) for v in tree)
-    return torch.is_grad_enabled() and tree.requires_grad
-
-
 def forward_vision(params: dict, cfg: RadZeroConfig, pixel_values: Optional[torch.Tensor], *,
                    dtype=torch.float32, eager: bool = False,
-                   align_eager: Optional[bool] = None,
+                   align_impl: Optional[str] = None,
                    stop_tower_gradient: bool = False,
                    tower_tokens: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
     """Tower + align adapter + pooled image features, (B, H, W, 3) NHWC.
 
     ``eager`` runs the eager reference layers in the tower, and in the
-    align adapter unless ``align_eager`` says otherwise. ``stop_tower_
+    align adapter unless ``align_impl`` names its layer ("fused", "packed"
+    or "eager", see :func:`radzero_torch.models.vit.layer_impl`). ``stop_tower_
     gradient`` runs the tower under ``torch.no_grad()``, so a frozen tower
     keeps no tape and may run on the forward kernels. ``tower_tokens``
     (B, L, D), a precomputed tower output at the real length L, skips the
@@ -108,7 +102,7 @@ def forward_vision(params: dict, cfg: RadZeroConfig, pixel_values: Optional[torc
                              dtype=dtype, eager=eager)
     _, align_apply = build_align_adapter(cfg.align.model_type)
     tokens = align_apply(params["align_transformer"], cfg.align, tokens,
-                         eager=eager if align_eager is None else align_eager)
+                         impl=align_impl or ("eager" if eager else "fused"))
     cls_token, patch_tokens = tokens[:, 0], tokens[:, 1:]
     image_features = l2_normalize(torch.cat([cls_token, patch_tokens.mean(dim=1)], dim=-1))
     return {
@@ -166,26 +160,19 @@ def forward_train(
         random_input_ids      (B, L)  one random positive per image (only
         random_attention_mask (B, L)  with the CLIP / SigLIP losses)
 
-    Reads ``cfg.align.attn_impl`` ("xla": eager layers that autograd
-    differentiates; "fused_vjp" / "packed" / "fused": the K1-K3 layer,
-    forward-only), ``cfg.text.fuse_post`` and ``cfg.loss.train_impl``
-    ("fused" with ``sim_op="cos"``: kernels K10-K12, else eager ops).
+    Reads ``cfg.align.attn_impl`` ("fused_vjp", the default: the K1-K3
+    layer with the K6-K8 backward; "packed": eager ops around K2 / K7;
+    "xla": eager layers that autograd differentiates), ``cfg.text.
+    fuse_post`` (K4 with the K9 backward, or the eager chain) and
+    ``cfg.loss.train_impl`` ("fused" with ``sim_op="cos"``: kernels
+    K10-K12, else eager ops).
     -> {"losses": {...}, **forward_vision outputs}."""
     loss_ratio = loss_ratio or {name: 1.0 for name in params["loss_fns"]}
-    align_eager = cfg.align.attn_impl == "xla"
-    if (not align_eager and cfg.align.model_type == "align_transformer"
-            and _tracked(params["align_transformer"])):
-        raise NotImplementedError(
-            f"AlignConfig.attn_impl={cfg.align.attn_impl!r} trains through the backward "
-            'kernels K6, K7 and K8, which are not ported yet; use attn_impl="xla"')
-    if cfg.text.fuse_post and _tracked(params["text_model"]):
-        raise NotImplementedError(
-            "TextConfig.fuse_post=True trains through the backward kernel K9, which "
-            "is not ported yet; use fuse_post=False")
-    # the tower runs on K1-K3: frozen (no tape) it is served; trainable, its
-    # wrappers raise and name K6-K8
+    # the tower runs on K1-K3: frozen it keeps no tape; trainable, it
+    # differentiates through K6-K8 like the align layers
     vision = forward_vision(
-        params, cfg, batch.get("pixel_values"), dtype=dtype, align_eager=align_eager,
+        params, cfg, batch.get("pixel_values"), dtype=dtype,
+        align_impl=layer_impl(cfg.align.attn_impl),
         stop_tower_gradient=stop_vision_gradient, tower_tokens=batch.get("tower_tokens"))
 
     losses: Dict[str, torch.Tensor] = {}

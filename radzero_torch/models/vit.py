@@ -12,8 +12,11 @@ Layer math (HF Dinov2Layer, pre-LN with LayerScale):
     x = x + ls2 * mlp(ln2(x))
 
 :func:`dinov2_layer_fused` runs a layer through the kernels K1-K3
-(plain twins on CPU); :func:`dinov2_layer` is the eager reference. The
-port runs the real sequence length (1370 at 518 px): no lane padding.
+(plain twins on CPU) and, under gradients, their backward kernels K6-K8
+(the JAX ``attn_impl="fused_vjp"``); :func:`dinov2_layer_packed` runs only
+the attention through K2 / K7 (``"packed"``); :func:`dinov2_layer` is the
+eager reference (``"xla"``). The port runs the real sequence length (1370
+at 518 px): no lane padding.
 """
 
 from __future__ import annotations
@@ -125,7 +128,10 @@ def vit_embed(params: dict, cfg: ViTConfig, pixel_values: torch.Tensor, dtype) -
 def dinov2_layer_fused(x: torch.Tensor, p: dict, cfg: ViTConfig) -> torch.Tensor:
     """One layer through K1 (LN1 + packed QKV), K2 (attention) and K3
     (o-proj + residual + LN2 + MLP + residual). Weights are cast to the
-    activation dtype (a no-op for a tree already in that dtype)."""
+    activation dtype (a no-op for a tree already in that dtype); under
+    gradients the kernels' Functions keep only (x, qkv, attn_out) and the
+    cast weights, and autograd carries the weight gradients back through
+    the cast."""
     b, l, d = x.shape
     cdt = x.dtype
     x2 = x.reshape(b * l, d)
@@ -146,22 +152,48 @@ def dinov2_layer_fused(x: torch.Tensor, p: dict, cfg: ViTConfig) -> torch.Tensor
     return out.reshape(b, l, d)
 
 
-def dinov2_layer(x: torch.Tensor, p: dict, cfg: ViTConfig) -> torch.Tensor:
-    """Eager reference layer (the JAX ``attn_impl="xla"`` path)."""
-    d = cfg.hidden_size
+def _eager_layer(x, p, cfg: ViTConfig, attn_fn) -> torch.Tensor:
+    """Eager LN1, packed QKV linear, ``attn_fn(qkv) -> (B, L, D)``, eager rest."""
     h = layer_norm(x, p["ln1"], cfg.layer_norm_eps)
-    qkv = linear(h, p["attn"]["qkv"])
-    q, k, v = (split_heads(qkv[..., i * d : (i + 1) * d], cfg.num_attention_heads)
-               for i in range(3))
-    a = linear(merge_heads(attention(q, k, v)), p["attn"]["o"])
+    a = linear(attn_fn(linear(h, p["attn"]["qkv"])), p["attn"]["o"])
     x = x + a * p["ls1"].to(x.dtype)
     m = layer_norm(x, p["ln2"], cfg.layer_norm_eps)
     m = linear(gelu(linear(m, p["mlp"]["fc1"])), p["mlp"]["fc2"])
     return x + m * p["ls2"].to(x.dtype)
 
 
-def vit_encoder(layers: List[dict], cfg: ViTConfig, x: torch.Tensor, *, eager=False):
-    layer = dinov2_layer if eager else dinov2_layer_fused
+def dinov2_layer(x: torch.Tensor, p: dict, cfg: ViTConfig) -> torch.Tensor:
+    """Eager reference layer (the JAX ``attn_impl="xla"`` path)."""
+    d = cfg.hidden_size
+
+    def attn_fn(qkv):
+        q, k, v = (split_heads(qkv[..., i * d : (i + 1) * d], cfg.num_attention_heads)
+                   for i in range(3))
+        return merge_heads(attention(q, k, v))
+
+    return _eager_layer(x, p, cfg, attn_fn)
+
+
+def dinov2_layer_packed(x: torch.Tensor, p: dict, cfg: ViTConfig) -> torch.Tensor:
+    """The JAX ``attn_impl="packed"`` layer: eager ops around the packed
+    attention kernel K2, whose backward is K7."""
+    return _eager_layer(x, p, cfg,
+                        lambda qkv: flash_attention_packed(qkv, cfg.num_attention_heads))
+
+
+_LAYERS = {"fused": dinov2_layer_fused, "packed": dinov2_layer_packed, "eager": dinov2_layer}
+
+
+def layer_impl(attn_impl: str) -> str:
+    """The layer a training forward runs for a JAX ``attn_impl`` name:
+    "xla" -> "eager", "packed" -> "packed", anything else ("fused_vjp",
+    "fused", "flash") -> "fused", the K1-K3 layer with the K6-K8 backward."""
+    return {"xla": "eager", "packed": "packed"}.get(attn_impl, "fused")
+
+
+def vit_encoder(layers: List[dict], cfg: ViTConfig, x: torch.Tensor, *, impl: str = "fused"):
+    """``impl`` names the layer: "fused", "packed" or "eager"."""
+    layer = _LAYERS[impl]
     for p in layers:
         x = layer(x, p, cfg)
     return x
@@ -182,7 +214,7 @@ def vit_forward(
             "token_filter_ratio > 0 is not ported yet (ROADMAP.md, port queue)"
         )
     x = vit_embed(params, cfg, pixel_values, dtype)
-    x = vit_encoder(params["layers"], cfg, x, eager=eager)
+    x = vit_encoder(params["layers"], cfg, x, impl="eager" if eager else "fused")
     if cfg.use_final_layernorm:
         x = layer_norm(x, params["final_ln"], cfg.layer_norm_eps)
     return x

@@ -57,6 +57,26 @@ SIGNATURES = {
     "rz_vlcabs_train_bwd_dq": [_P] * 11 + [_I, _I, _I, _I, _I, _P],
     # qn, t, tau, dz, tn, dg, rowmax, dtn, N, B, L, D, dtype, stream
     "rz_vlcabs_train_bwd_dtn": [_P] * 8 + [_I, _I, _I, _I, _I, _P],
+    # a, w, bias, resid, ls, aux, out, out2, colpart, M, N, K, epi, dtype, stream
+    "rz_bwd_gemm": [_P] * 9 + [_I, _I, _I, _I, _I, _P],
+    # a, g, part, M, Ka, Nb, splits, dtype, stream
+    "rz_wgrad": [_P] * 3 + [_I, _I, _I, _I, _I, _P],
+    # part, out, S, n, dtype, stream
+    "rz_reduce_parts": [_P, _P, _I, ctypes.c_longlong, _I, _P],
+    # w, wt, K, N, dtype, stream
+    "rz_transpose": [_P, _P, _I, _I, _I, _P],
+    # u, u_f32, scale, bias, out_t, out_f, M, D, eps, dtype, stream
+    "rz_ln_rows": [_P, _I, _P, _P, _P, _P, _I, _I, _F, _I, _P],
+    # u, u_f32, dh, dh_f32, scale, add, ls, proj, out1, out2, out32, cpart,
+    # M, D, eps, dtype, stream
+    "rz_ln_bwd_rows": [_P, _I, _P, _I] + [_P] * 8 + [_I, _I, _F, _I, _P],
+    # g, m, ls, out, cpart, M, D, dtype, stream
+    "rz_scale_colsum": [_P] * 5 + [_I, _I, _I, _P],
+    # qkv, dout, row_m, row_il, row_delta, dqkv, B, L, H, hd, scale, dtype, stream
+    "rz_packed_attention_bwd": [_P] * 6 + [_I, _I, _I, _I, _F, _I, _P],
+    "rz_bwd_row_block": [],
+    # dtype
+    "rz_bwd_gemm_row_tile": [_I],
 }
 
 _lock = threading.Lock()

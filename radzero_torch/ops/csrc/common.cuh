@@ -70,6 +70,22 @@ struct TileAccF32 {
     }
   }
 
+  // the same with A given transposed: At is (k x 64) row-major
+  __device__ void mma_at(const float* At, int lda, const float* B, int ldb, int k) {
+    const int r0 = (threadIdx.x / 8) * 4, c0 = (threadIdx.x % 8) * 8;
+    for (int kk = 0; kk < k; ++kk) {
+      float a[4], b[8];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = At[kk * lda + r0 + i];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) b[j] = B[kk * ldb + c0 + j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) c[i][j] = fmaf(a[i], b[j], c[i][j]);
+    }
+  }
+
   __device__ void store(float* C, int ldc) {
     const int r0 = (threadIdx.x / 8) * 4, c0 = (threadIdx.x % 8) * 8;
 #pragma unroll

@@ -16,10 +16,28 @@ kernel launches. Numerics are the TPU kernels' contract: fp32 LayerNorm,
 softmax and accumulation; the LN output, the GELU output and the softmax
 weights are rounded to the operand type before the next product.
 
-The kernels are forward-only: their backward kernels (K6, K7, K8, K9) are
-not ported yet. A wrapper handed an operand that requires a gradient,
-with gradients enabled, raises and names the missing kernel; it never
-takes the eager layer or the plain twin in the kernel's place.
+Each of the four is differentiable: handed an operand that requires a
+gradient, with gradients enabled, it goes through a
+``torch.autograd.Function`` whose forward is the same kernel and whose
+backward is the matching backward kernel (port of the JAX ``*_vjp``
+functions), otherwise straight to the forward (a frozen tower and serving
+keep no tape):
+
+- :func:`fused_preattn_bwd` (K6), :func:`flash_attention_packed_bwd` (K7),
+  :func:`fused_postattn_bwd` (K8), :func:`fused_mpnet_post_bwd` (K9), each
+  with its plain twin ``*_bwd_plain`` and a ``.launches`` counter.
+
+The Functions keep the inputs only. The backward recomputes the forward
+chain (LN, fc1, GELU, fc2; in K7 the fp32 softmax, with no row statistics
+saved by the forward) and rounds to the operand type where the TPU
+kernels do: the LN output, the GELU output, dm, dh1 and dproj, and in K7
+p, dO and dS. Everything else is fp32. Gradients come back in the
+operand's type after fp32 accumulation. On the card K6, K8 and K9 are
+chains of launches composed here from the entry points of
+``csrc/fused_layer_bwd.cu`` (products, row passes, fixed-order reduces: no
+atomics, so every gradient has the same bits from run to run), with their
+scratch allocated for the call and freed with it; no product of a chain
+goes through ``torch.matmul``.
 
 Two differences from the TPU forward, both in the kernel and its twin:
 GELU uses the exact erf (the TPU kernel's rational erf approximation,
@@ -34,9 +52,19 @@ from __future__ import annotations
 import torch
 
 from radzero_torch.ops import _build
-from radzero_torch.ops._checks import check_operands, forbid_grad, on_cuda
+from radzero_torch.ops._checks import check_operands, on_cuda
 
 _LOG2E = 1.4426950408889634
+_INV_SQRT_2PI = 0.3989422804014327
+# epilogue codes of csrc/gemm.cuh
+_EPI_BIAS, _EPI_ADD_F32, _EPI_ADDF_F32, _EPI_PROJ2, _EPI_GELU_H1, _EPI_F32, _EPI_DGELU = (
+    0, 4, 5, 6, 7, 8, 9)
+_SPLIT_BLOCKS = 4 * 132  # blocks a row-split weight-gradient product aims at
+
+
+def _tracked(*tensors) -> bool:
+    """Whether autograd would record an op on any of ``tensors`` now."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
 def _ln32(x32, scale, bias, eps):
@@ -56,9 +84,14 @@ def fused_preattn_plain(x, ln_scale, ln_bias, w_qkv, b_qkv, *, eps=1e-6):
 
 
 def fused_preattn(x, ln_scale, ln_bias, w_qkv, b_qkv, *, eps=1e-6):
-    """(N, D) x -> (N, 3D) packed qkv = ln1(x) @ w_qkv + b_qkv."""
-    forbid_grad("fused_preattn (K1)", "its backward kernel K6 is not ported yet",
-                x, ln_scale, ln_bias, w_qkv, b_qkv)
+    """(N, D) x -> (N, 3D) packed qkv = ln1(x) @ w_qkv + b_qkv.
+    Differentiable: the backward is :func:`fused_preattn_bwd` (K6)."""
+    if _tracked(x, ln_scale, ln_bias, w_qkv, b_qkv):
+        return _FusedPreattn.apply(x, ln_scale, ln_bias, w_qkv, b_qkv, eps)
+    return _fused_preattn_fwd(x, ln_scale, ln_bias, w_qkv, b_qkv, eps=eps)
+
+
+def _fused_preattn_fwd(x, ln_scale, ln_bias, w_qkv, b_qkv, *, eps):
     if not on_cuda(x):
         return fused_preattn_plain(x, ln_scale, ln_bias, w_qkv, b_qkv, eps=eps)
     n, d = x.shape
@@ -111,9 +144,14 @@ def flash_attention_packed_plain(qkv, n_heads: int):
 def flash_attention_packed(qkv, n_heads: int):
     """(B, L, 3D) packed [q | k | v] -> (B, L, D) merged heads, softmax
     scale head_dim ** -0.5. No lane padding: the kernel masks keys >= L
-    in its last tile itself."""
-    forbid_grad("flash_attention_packed (K2)", "its backward kernel K7 is not ported yet",
-                qkv)
+    in its last tile itself. Differentiable: the backward is
+    :func:`flash_attention_packed_bwd` (K7)."""
+    if _tracked(qkv):
+        return _FlashAttentionPacked.apply(qkv, n_heads)
+    return _flash_attention_packed_fwd(qkv, n_heads)
+
+
+def _flash_attention_packed_fwd(qkv, n_heads: int):
     if not on_cuda(qkv):
         return flash_attention_packed_plain(qkv, n_heads)
     b, l, d3 = qkv.shape
@@ -155,9 +193,16 @@ def fused_postattn(x, attn_out, wo, bo, ls1, ln_scale, ln_bias,
                    w1, b1, w2, b2, ls2, *, eps=1e-6):
     """(N, D) residual stream + merged-head attention output -> next
     residual stream. On the card: three launches (o-proj with the fp32
-    residual y, LN2 + fc1 + GELU, fc2 + residual), one count."""
-    forbid_grad("fused_postattn (K3)", "its backward kernel K8 is not ported yet",
-                x, attn_out, wo, bo, ls1, ln_scale, ln_bias, w1, b1, w2, b2, ls2)
+    residual y, LN2 + fc1 + GELU, fc2 + residual), one count.
+    Differentiable: the backward is :func:`fused_postattn_bwd` (K8)."""
+    ops = (x, attn_out, wo, bo, ls1, ln_scale, ln_bias, w1, b1, w2, b2, ls2)
+    if _tracked(*ops):
+        return _FusedPostattn.apply(*ops, eps)
+    return _fused_postattn_fwd(*ops, eps=eps)
+
+
+def _fused_postattn_fwd(x, attn_out, wo, bo, ls1, ln_scale, ln_bias,
+                        w1, b1, w2, b2, ls2, *, eps):
     if not on_cuda(x):
         return fused_postattn_plain(x, attn_out, wo, bo, ls1, ln_scale, ln_bias,
                                     w1, b1, w2, b2, ls2, eps=eps)
@@ -209,9 +254,16 @@ def fused_mpnet_post(x, attn_out, wo, bo, lnsa, lnba, w1, b1, w2, b2,
     y = ln(x + attn_out @ wo + bo); out = ln(y + gelu(y @ w1 + b1) @ w2 + b2).
     On the card: five launches (o-proj + residual into fp32 u, row LN into
     fp32 y, fc1 + GELU, fc2 + y into fp32, row LN into the output), one
-    count. Rows need not be a multiple of any tile."""
-    forbid_grad("fused_mpnet_post (K4)", "its backward kernel K9 is not ported yet",
-                x, attn_out, wo, bo, lnsa, lnba, w1, b1, w2, b2, lnso, lnbo)
+    count. Rows need not be a multiple of any tile. Differentiable: the
+    backward is :func:`fused_mpnet_post_bwd` (K9)."""
+    ops = (x, attn_out, wo, bo, lnsa, lnba, w1, b1, w2, b2, lnso, lnbo)
+    if _tracked(*ops):
+        return _FusedMpnetPost.apply(*ops, eps)
+    return _fused_mpnet_post_fwd(*ops, eps=eps)
+
+
+def _fused_mpnet_post_fwd(x, attn_out, wo, bo, lnsa, lnba, w1, b1, w2, b2,
+                          lnso, lnbo, *, eps):
     if not on_cuda(x):
         return fused_mpnet_post_plain(x, attn_out, wo, bo, lnsa, lnba, w1, b1, w2, b2,
                                       lnso, lnbo, eps=eps)
@@ -242,3 +294,469 @@ def fused_mpnet_post(x, attn_out, wo, bo, lnsa, lnba, w1, b1, w2, b2,
 
 
 fused_mpnet_post.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The backward kernels: plain twins
+# ---------------------------------------------------------------------------
+
+def _ln_parts(u32, eps):
+    """-> (xn, rstd) of fp32 rows: the normalised rows and 1 / std."""
+    xc = u32 - u32.mean(dim=-1, keepdim=True)
+    rstd = torch.rsqrt((xc * xc).mean(dim=-1, keepdim=True) + eps)
+    return xc * rstd, rstd
+
+
+def _ln_input_grad(dh, xn, rstd, scale32):
+    """Gradient of LN's input from the gradient ``dh`` of its output."""
+    dxn = dh * scale32
+    m1 = dxn.mean(dim=-1, keepdim=True)
+    m2 = (dxn * xn).mean(dim=-1, keepdim=True)
+    return rstd * (dxn - m1 - xn * m2)
+
+
+def _gelu_parts(h1):
+    """-> (Phi(h1), gelu'(h1)) with the exact erf and the exp2 density."""
+    phi = 0.5 * (1.0 + torch.erf(h1 * 2.0**-0.5))
+    pdf = _INV_SQRT_2PI * torch.exp2(-(h1 * h1) * (0.5 * _LOG2E))
+    return phi, phi + h1 * pdf
+
+
+def fused_preattn_bwd_plain(x, ln_scale, ln_bias, w_qkv, b_qkv, g, *, eps=1e-6):
+    cdt = x.dtype
+    scale = ln_scale.float()
+    xn, rstd = _ln_parts(x.float(), eps)
+    h = xn * scale + ln_bias.float()
+    g32 = g.float()
+    dh = g32 @ w_qkv.float().T
+    dw = h.to(cdt).float().T @ g32
+    dx = _ln_input_grad(dh, xn, rstd, scale)
+    return (dx.to(cdt), (dh * xn).sum(0).to(ln_scale.dtype), dh.sum(0).to(ln_bias.dtype),
+            dw.to(w_qkv.dtype), g32.sum(0).to(b_qkv.dtype))
+
+
+def flash_attention_packed_bwd_plain(qkv, n_heads: int, dout):
+    b, l, d3 = qkv.shape
+    d = d3 // 3
+    hd = d // n_heads
+    scale = hd**-0.5
+    cdt = qkv.dtype
+
+    def heads(t, i=0):  # (B, H, L, hd) fp32
+        return t[..., i * d : (i + 1) * d].reshape(b, l, n_heads, hd).transpose(1, 2).float()
+
+    q, k, v, do = heads(qkv, 0), heads(qkv, 1), heads(qkv, 2), heads(dout.to(cdt))
+    s = (q @ k.transpose(-1, -2)) * (scale * _LOG2E)
+    e = torch.exp2(s - s.amax(dim=-1, keepdim=True))
+    p = e / e.sum(dim=-1, keepdim=True)
+    pc = p.to(cdt).float()
+    dv = pc.transpose(-1, -2) @ do
+    dp = do @ v.transpose(-1, -2)
+    ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True)) * scale
+    dsc = ds.to(cdt).float()
+    dq = dsc @ k
+    dk = dsc.transpose(-1, -2) @ q
+    merged = [t.transpose(1, 2).reshape(b, l, d) for t in (dq, dk, dv)]
+    return torch.cat(merged, dim=-1).to(cdt)
+
+
+def fused_postattn_bwd_plain(x, attn_out, wo, bo, ls1, ln_scale, ln_bias,
+                             w1, b1, w2, b2, ls2, g, *, eps=1e-6):
+    cdt = x.dtype
+    a32, wo32, w1_32, w2_32 = attn_out.float(), wo.float(), w1.float(), w2.float()
+    ls1_32, ls2_32, lnscale = ls1.float(), ls2.float(), ln_scale.float()
+    # forward recompute
+    proj = a32 @ wo32 + bo.float()
+    y32 = x.float() + ls1_32 * proj
+    yn, rstd = _ln_parts(y32, eps)
+    hlnc = (yn * lnscale + ln_bias.float()).to(cdt).float()
+    h1 = hlnc @ w1_32 + b1.float()
+    phi, dgelu = _gelu_parts(h1)
+    glc = (h1 * phi).to(cdt).float()
+    m = glc @ w2_32 + b2.float()
+    # backward
+    g32 = g.float()
+    dls2 = (g32 * m).sum(0)
+    dm = g32 * ls2_32
+    dmc = dm.to(cdt).float()
+    dw2 = glc.T @ dmc
+    dh1 = (dmc @ w2_32.T) * dgelu
+    dh1c = dh1.to(cdt).float()
+    dw1 = hlnc.T @ dh1c
+    dhln = dh1c @ w1_32.T
+    dy = g32 + _ln_input_grad(dhln, yn, rstd, lnscale)
+    dproj = dy * ls1_32
+    dprojc = dproj.to(cdt).float()
+    da = dprojc @ wo32.T
+    dwo = a32.T @ dprojc
+    return (dy.to(cdt), da.to(cdt), dwo.to(wo.dtype), dproj.sum(0).to(bo.dtype),
+            (dy * proj).sum(0).to(ls1.dtype), (dhln * yn).sum(0).to(ln_scale.dtype),
+            dhln.sum(0).to(ln_bias.dtype), dw1.to(w1.dtype), dh1.sum(0).to(b1.dtype),
+            dw2.to(w2.dtype), dm.sum(0).to(b2.dtype), dls2.to(ls2.dtype))
+
+
+def fused_mpnet_post_bwd_plain(x, attn_out, wo, bo, lnsa, lnba, w1, b1, w2, b2,
+                               lnso, lnbo, g, *, eps=1e-12):
+    cdt = x.dtype
+    a32, wo32, w1_32, w2_32 = attn_out.float(), wo.float(), w1.float(), w2.float()
+    lnsa32, lnso32 = lnsa.float(), lnso.float()
+    # forward recompute
+    u = x.float() + a32 @ wo32 + bo.float()
+    un, rstd1 = _ln_parts(u, eps)
+    yln = un * lnsa32 + lnba.float()
+    ylnc = yln.to(cdt).float()
+    h1 = ylnc @ w1_32 + b1.float()
+    phi, dgelu = _gelu_parts(h1)
+    glc = (h1 * phi).to(cdt).float()
+    v = yln + glc @ w2_32 + b2.float()
+    vn, rstd2 = _ln_parts(v, eps)
+    # backward
+    g32 = g.float()
+    dv = _ln_input_grad(g32, vn, rstd2, lnso32)
+    dmc = dv.to(cdt).float()
+    dw2 = glc.T @ dmc
+    dh1 = (dmc @ w2_32.T) * dgelu
+    dh1c = dh1.to(cdt).float()
+    dw1 = ylnc.T @ dh1c
+    dyln = dv + dh1c @ w1_32.T
+    du = _ln_input_grad(dyln, un, rstd1, lnsa32)
+    dprojc = du.to(cdt).float()
+    da = dprojc @ wo32.T
+    dwo = a32.T @ dprojc
+    return (du.to(cdt), da.to(cdt), dwo.to(wo.dtype), du.sum(0).to(bo.dtype),
+            (dyln * un).sum(0).to(lnsa.dtype), dyln.sum(0).to(lnba.dtype),
+            dw1.to(w1.dtype), dh1.sum(0).to(b1.dtype), dw2.to(w2.dtype),
+            dv.sum(0).to(b2.dtype), (g32 * vn).sum(0).to(lnso.dtype),
+            g32.sum(0).to(lnbo.dtype))
+
+
+# ---------------------------------------------------------------------------
+# The backward kernels on the card
+# ---------------------------------------------------------------------------
+
+class _Chain:
+    """One backward chain on the card: the entry points of
+    csrc/fused_layer_bwd.cu on ``like``'s device, dtype and current stream.
+    Every buffer is a torch tensor that lives as long as the caller holds it;
+    the launches are stream-ordered, so a buffer may be dropped right after
+    the last launch that reads it."""
+
+    def __init__(self, name, like, code):
+        self.name, self.code, self.dev, self.dtype = name, code, like.device, like.dtype
+        self.lib = _build.load()
+        self.stream = _build.stream_ptr(like)
+        self.row_block = self.lib.rz_bwd_row_block()
+        self.gemm_tile = self.lib.rz_bwd_gemm_row_tile(code)
+
+    def f32(self, *shape):
+        return torch.empty(shape, dtype=torch.float32, device=self.dev)
+
+    def t(self, *shape):
+        return torch.empty(shape, dtype=self.dtype, device=self.dev)
+
+    def _ok(self, err):
+        _build.check(err, self.name)
+
+    @staticmethod
+    def _ptr(t):
+        return None if t is None else t.data_ptr()
+
+    def gemm(self, a, w, epi, out, *, bias=None, resid=None, ls=None, aux=None, out2=None,
+             colpart=None):
+        """out (M, N) = a (M, K) @ w (K, N) through epilogue ``epi``."""
+        (m, k), n = a.shape, w.shape[1]
+        p = self._ptr
+        self._ok(self.lib.rz_bwd_gemm(p(a), p(w), p(bias), p(resid), p(ls), p(aux), p(out),
+                                      p(out2), p(colpart), m, n, k, epi, self.code, self.stream))
+        return out
+
+    def dgelu_gemm(self, dm, w2t, h1):
+        """dh1 = (dm @ w2t) * gelu'(h1) rounded, and db1 = colsum(dh1)."""
+        m, f = h1.shape
+        tiles = -(-m // self.gemm_tile)
+        colpart = self.f32(tiles, f)
+        dh1 = self.gemm(dm, w2t, _EPI_DGELU, self.t(m, f), aux=h1, colpart=colpart)
+        return dh1, self.reduce(colpart, tiles, (f,))
+
+    def transpose(self, w):
+        k, n = w.shape
+        wt = self.t(n, k)
+        self._ok(self.lib.rz_transpose(w.data_ptr(), wt.data_ptr(), k, n, self.code, self.stream))
+        return wt
+
+    def reduce(self, part, s, shape):
+        """Sum ``part`` (s, *shape) fp32 over s in order -> operand type."""
+        out = self.t(*shape)
+        self._ok(self.lib.rz_reduce_parts(part.data_ptr(), out.data_ptr(), s, out.numel(),
+                                          self.code, self.stream))
+        return out
+
+    def wgrad(self, a, g):
+        """a (M, Ka)^T @ g (M, Nb) -> (Ka, Nb), split over row chunks."""
+        (m, ka), nb = a.shape, g.shape[1]
+        tile = self.gemm_tile
+        tiles = -(-ka // tile) * -(-nb // tile)
+        splits = max(1, min(-(-_SPLIT_BLOCKS // tiles), -(-m // 256)))
+        part = self.f32(splits, ka, nb)
+        self._ok(self.lib.rz_wgrad(a.data_ptr(), g.data_ptr(), part.data_ptr(), m, ka, nb,
+                                   splits, self.code, self.stream))
+        return self.reduce(part, splits, (ka, nb))
+
+    def ln_rows(self, u, scale, bias, eps, *, want_f32=False):
+        """LN(u) per row -> (rounded, fp32 or None)."""
+        m, d = u.shape
+        out_t, out_f = self.t(m, d), self.f32(m, d) if want_f32 else None
+        self._ok(self.lib.rz_ln_rows(u.data_ptr(), int(u.dtype == torch.float32),
+                                     scale.data_ptr(), bias.data_ptr(), out_t.data_ptr(),
+                                     self._ptr(out_f), m, d, float(eps), self.code, self.stream))
+        return out_t, out_f
+
+    def ln_bwd(self, u, dh, scale, eps, *, add=None, ls=None, proj=None, want_out2=False,
+               want_f32=False):
+        """LayerNorm backward per row: d = ln_input_grad(dh) [+ add] ->
+        (d rounded, d * ls rounded or None, d fp32 or None, column sums
+        [dh * xn, dh, d * ls, d * proj] in the operand type)."""
+        m, d = u.shape
+        blocks = -(-m // self.row_block)
+        out1 = self.t(m, d)
+        out2 = self.t(m, d) if want_out2 else None
+        out32 = self.f32(m, d) if want_f32 else None
+        cpart = self.f32(4, blocks, d)
+        p = self._ptr
+        self._ok(self.lib.rz_ln_bwd_rows(
+            p(u), int(u.dtype == torch.float32), p(dh), int(dh.dtype == torch.float32),
+            p(scale), p(add), p(ls), p(proj), p(out1), p(out2), p(out32), p(cpart), m, d,
+            float(eps), self.code, self.stream))
+        return out1, out2, out32, [self.reduce(cpart[i], blocks, (d,)) for i in range(4)]
+
+    def scale_colsum(self, g, m32, ls, *, want_out=True):
+        """-> (g * ls rounded or None, colsum(g * m32), colsum(g * ls))."""
+        m, d = g.shape
+        blocks = -(-m // self.row_block)
+        out = self.t(m, d) if want_out else None
+        cpart = self.f32(2, blocks, d)
+        p = self._ptr
+        self._ok(self.lib.rz_scale_colsum(p(g), p(m32), p(ls), p(out), p(cpart), m, d,
+                                          self.code, self.stream))
+        return out, self.reduce(cpart[0], blocks, (d,)), self.reduce(cpart[1], blocks, (d,))
+
+
+def fused_preattn_bwd(x, ln_scale, ln_bias, w_qkv, b_qkv, g, *, eps=1e-6):
+    """K6: cotangent g (N, 3D) of :func:`fused_preattn` -> (dx, d ln_scale,
+    d ln_bias, d w_qkv, d b_qkv), each in its operand's type. On the card:
+    LN rows, dh = g @ w_qkv^T (through a transposed copy), the row-split
+    product dw = ln(x)^T @ g, column sums of g, the LN backward rows, and
+    their fixed-order reduces; one count."""
+    if not on_cuda(x):
+        return fused_preattn_bwd_plain(x, ln_scale, ln_bias, w_qkv, b_qkv, g, eps=eps)
+    n, d = x.shape
+    d3 = w_qkv.shape[1]
+    code = check_operands(
+        "fused_preattn_bwd", x, ln_scale=((d,), ln_scale), ln_bias=((d,), ln_bias),
+        w_qkv=((d, d3), w_qkv), b_qkv=((d3,), b_qkv), g=((n, d3), g))
+    if d % 64 or d3 % 64:
+        raise ValueError(f"fused_preattn_bwd: needs D % 64 == 0 and 3D % 64 == 0, got {d}, {d3}")
+    k = _Chain("fused_preattn_bwd", x, code)
+    hc, _ = k.ln_rows(x, ln_scale, ln_bias, eps)
+    dw = k.wgrad(hc, g)
+    del hc
+    dh = k.gemm(g, k.transpose(w_qkv), _EPI_F32, k.f32(n, d))
+    _, _, db = k.scale_colsum(g, None, None, want_out=False)
+    dx, _, _, (dls, dlb, _, _) = k.ln_bwd(x, dh, ln_scale, eps)
+    fused_preattn_bwd.launches += 1
+    return dx, dls, dlb, dw, db
+
+
+fused_preattn_bwd.launches = 0
+
+
+def flash_attention_packed_bwd(qkv, n_heads: int, dout):
+    """K7: cotangent dout (B, L, D) of :func:`flash_attention_packed` ->
+    d qkv (B, L, 3D). The fp32 softmax is recomputed per 64 x 64 tile; the
+    row statistics (max, 1 / sum, delta) come from a first kernel, dK and dV
+    from a second that walks the query tiles, dQ from a third that walks the
+    key tiles; one count."""
+    if not on_cuda(qkv):
+        return flash_attention_packed_bwd_plain(qkv, n_heads, dout)
+    b, l, d3 = qkv.shape
+    d = d3 // 3
+    hd = d // n_heads
+    code = check_operands("flash_attention_packed_bwd", qkv, dout=((b, l, d), dout))
+    if hd != 64 or d3 != 3 * n_heads * hd:
+        raise ValueError(f"flash_attention_packed_bwd: the kernel takes head_dim 64, got {hd}")
+    stats = torch.empty((3, b, n_heads, l), dtype=torch.float32, device=qkv.device)
+    dqkv = torch.empty_like(qkv)
+    lib = _build.load()
+    err = lib.rz_packed_attention_bwd(
+        qkv.data_ptr(), dout.data_ptr(), stats[0].data_ptr(), stats[1].data_ptr(),
+        stats[2].data_ptr(), dqkv.data_ptr(), b, l, n_heads, hd, float(hd**-0.5), code,
+        _build.stream_ptr(qkv),
+    )
+    _build.check(err, "flash_attention_packed_bwd")
+    flash_attention_packed_bwd.launches += 1
+    return dqkv
+
+
+flash_attention_packed_bwd.launches = 0
+
+
+def fused_postattn_bwd(x, attn_out, wo, bo, ls1, ln_scale, ln_bias,
+                       w1, b1, w2, b2, ls2, g, *, eps=1e-6):
+    """K8: cotangent g (N, D) of :func:`fused_postattn` -> gradients of its
+    twelve operands, in their order and types. On the card: the forward
+    chain again (o-proj keeping proj and y in fp32, LN2 rows, fc1 keeping the
+    pre-GELU h1 in fp32, fc2), then dm and its column sums, dw2, dgl with the
+    GELU derivative and db1 in its epilogue, dw1, dhln, the LN backward rows
+    with the column sums of d LN2, d ls1 and d bo, da and dwo; one count."""
+    ops = (x, attn_out, wo, bo, ls1, ln_scale, ln_bias, w1, b1, w2, b2, ls2)
+    if not on_cuda(x):
+        return fused_postattn_bwd_plain(*ops, g, eps=eps)
+    n, d = x.shape
+    f = w1.shape[1]
+    code = check_operands(
+        "fused_postattn_bwd", x,
+        attn_out=((n, d), attn_out), wo=((d, d), wo), bo=((d,), bo), ls1=((d,), ls1),
+        ln_scale=((d,), ln_scale), ln_bias=((d,), ln_bias), w1=((d, f), w1),
+        b1=((f,), b1), w2=((f, d), w2), b2=((d,), b2), ls2=((d,), ls2), g=((n, d), g),
+    )
+    if d % 64 or f % 64:
+        raise ValueError(f"fused_postattn_bwd: needs D % 64 == 0 and F % 64 == 0, got {d}, {f}")
+    k = _Chain("fused_postattn_bwd", x, code)
+    y32, proj32 = k.f32(n, d), k.f32(n, d)
+    k.gemm(attn_out, wo, _EPI_PROJ2, y32, bias=bo, resid=x, ls=ls1, out2=proj32)
+    hln, _ = k.ln_rows(y32, ln_scale, ln_bias, eps)
+    h1 = k.f32(n, f)
+    gl = k.gemm(hln, w1, _EPI_GELU_H1, k.t(n, f), bias=b1, out2=h1)
+    m32 = k.gemm(gl, w2, _EPI_F32, k.f32(n, d), bias=b2)
+    dm, dls2, db2 = k.scale_colsum(g, m32, ls2)
+    dw2 = k.wgrad(gl, dm)
+    del gl
+    dh1, db1 = k.dgelu_gemm(dm, k.transpose(w2), h1)
+    del h1, dm
+    dw1 = k.wgrad(hln, dh1)
+    del hln
+    dhln = k.gemm(dh1, k.transpose(w1), _EPI_F32, m32)  # m32's buffer: m is spent
+    del dh1
+    dx, dproj, _, (dlns, dlnb, dbo, dls1) = k.ln_bwd(
+        y32, dhln, ln_scale, eps, add=g, ls=ls1, proj=proj32, want_out2=True)
+    da = k.gemm(dproj, k.transpose(wo), _EPI_BIAS, k.t(n, d))
+    dwo = k.wgrad(attn_out, dproj)
+    fused_postattn_bwd.launches += 1
+    return dx, da, dwo, dbo, dls1, dlns, dlnb, dw1, db1, dw2, db2, dls2
+
+
+fused_postattn_bwd.launches = 0
+
+
+def fused_mpnet_post_bwd(x, attn_out, wo, bo, lnsa, lnba, w1, b1, w2, b2,
+                         lnso, lnbo, g, *, eps=1e-12):
+    """K9: cotangent g (M, D) of :func:`fused_mpnet_post` -> gradients of its
+    twelve operands, in their order and types. On the card: K4's chain again
+    (keeping u, y, the pre-GELU h1 and v in fp32), the backward rows of the
+    output LN, dw2, dgl with the GELU derivative and db1, dw1, dyln = dv +
+    dh1 @ w1^T, the backward rows of the first LN, da and dwo; one count."""
+    ops = (x, attn_out, wo, bo, lnsa, lnba, w1, b1, w2, b2, lnso, lnbo)
+    if not on_cuda(x):
+        return fused_mpnet_post_bwd_plain(*ops, g, eps=eps)
+    m, d = x.shape
+    f = w1.shape[1]
+    code = check_operands(
+        "fused_mpnet_post_bwd", x,
+        attn_out=((m, d), attn_out), wo=((d, d), wo), bo=((d,), bo),
+        lnsa=((d,), lnsa), lnba=((d,), lnba), w1=((d, f), w1), b1=((f,), b1),
+        w2=((f, d), w2), b2=((d,), b2), lnso=((d,), lnso), lnbo=((d,), lnbo), g=((m, d), g),
+    )
+    if d % 64 or f % 64:
+        raise ValueError(f"fused_mpnet_post_bwd: needs D % 64 == 0 and F % 64 == 0, got {d}, {f}")
+    k = _Chain("fused_mpnet_post_bwd", x, code)
+    u32 = k.gemm(attn_out, wo, _EPI_ADD_F32, k.f32(m, d), bias=bo, resid=x)
+    yln, y32 = k.ln_rows(u32, lnsa, lnba, eps, want_f32=True)
+    h1 = k.f32(m, f)
+    gl = k.gemm(yln, w1, _EPI_GELU_H1, k.t(m, f), bias=b1, out2=h1)
+    v32 = k.gemm(gl, w2, _EPI_ADDF_F32, k.f32(m, d), bias=b2, resid=y32)
+    dm, _, dv32, (dlnso, dlnbo, db2, _) = k.ln_bwd(v32, g, lnso, eps, want_f32=True)
+    dw2 = k.wgrad(gl, dm)
+    del gl
+    dh1, db1 = k.dgelu_gemm(dm, k.transpose(w2), h1)
+    del h1, dm
+    dw1 = k.wgrad(yln, dh1)
+    dyln = k.gemm(dh1, k.transpose(w1), _EPI_ADDF_F32, y32, resid=dv32)  # y's buffer: y is spent
+    du, _, _, (dlnsa, dlnba, dbo, _) = k.ln_bwd(u32, dyln, lnsa, eps)
+    da = k.gemm(du, k.transpose(wo), _EPI_BIAS, k.t(m, d))
+    dwo = k.wgrad(attn_out, du)
+    fused_mpnet_post_bwd.launches += 1
+    return du, da, dwo, dbo, dlnsa, dlnba, dw1, db1, dw2, db2, dlnso, dlnbo
+
+
+fused_mpnet_post_bwd.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# autograd: forward K1-K4, backward K6-K9; the inputs are the only residuals
+# ---------------------------------------------------------------------------
+
+def _needed(ctx, grads):
+    """``grads`` with None where autograd asked for no gradient."""
+    return tuple(g if need else None for g, need in zip(grads, ctx.needs_input_grad))
+
+
+class _FusedPreattn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ln_scale, ln_bias, w_qkv, b_qkv, eps):
+        ops = tuple(t.contiguous() for t in (x, ln_scale, ln_bias, w_qkv, b_qkv))
+        ctx.save_for_backward(*ops)
+        ctx.eps = eps
+        return _fused_preattn_fwd(*ops, eps=eps)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        grads = fused_preattn_bwd(*ctx.saved_tensors, g.contiguous(), eps=ctx.eps)
+        return _needed(ctx, grads) + (None,)
+
+
+class _FlashAttentionPacked(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, qkv, n_heads):
+        qkv = qkv.contiguous()
+        ctx.save_for_backward(qkv)
+        ctx.n_heads = n_heads
+        return _flash_attention_packed_fwd(qkv, n_heads)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        (qkv,) = ctx.saved_tensors
+        return flash_attention_packed_bwd(qkv, ctx.n_heads, g.contiguous()), None
+
+
+class _FusedPostattn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, *args):
+        *ops, eps = args
+        ops = tuple(t.contiguous() for t in ops)
+        ctx.save_for_backward(*ops)
+        ctx.eps = eps
+        return _fused_postattn_fwd(*ops, eps=eps)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        grads = fused_postattn_bwd(*ctx.saved_tensors, g.contiguous(), eps=ctx.eps)
+        return _needed(ctx, grads) + (None,)
+
+
+class _FusedMpnetPost(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, *args):
+        *ops, eps = args
+        ops = tuple(t.contiguous() for t in ops)
+        ctx.save_for_backward(*ops)
+        ctx.eps = eps
+        return _fused_mpnet_post_fwd(*ops, eps=eps)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        grads = fused_mpnet_post_bwd(*ctx.saved_tensors, g.contiguous(), eps=ctx.eps)
+        return _needed(ctx, grads) + (None,)

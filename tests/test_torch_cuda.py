@@ -1,4 +1,4 @@
-"""Kernels K1-K5 and K10-K12 against their plain twins on an NVIDIA card.
+"""Kernels K1-K12 against their plain twins on an NVIDIA card.
 
 Marked ``cuda``: without a card (or nvcc) every test skips. On a machine
 with one, and without JAX, run them with
@@ -147,12 +147,106 @@ def test_vlcabs_train_kernels(dtype, n, b, l, d, tau):
         assert torch.equal(a, x.grad)
 
 
-def test_forward_only_kernel_raises_under_gradients_on_the_card():
-    x = torch.zeros((4, 64), device="cuda", requires_grad=True)
-    v = torch.ones(64, device="cuda")
-    with pytest.raises(RuntimeError, match="K6"):
-        fl.fused_preattn(x, v, v, torch.zeros((64, 192), device="cuda"),
-                         torch.zeros(192, device="cuda"))
+def _k1_args(g, dtype, m, d):
+    return (_rn(g, dtype, m, d), _rn(g, dtype, d, std=0.1, mean=1.0), _rn(g, dtype, d, std=0.1),
+            _rn(g, dtype, d, 3 * d, std=0.05), _rn(g, dtype, 3 * d, std=0.05))
+
+
+def _k3_args(g, dtype, m, d, f):
+    return (_rn(g, dtype, m, d), _rn(g, dtype, m, d), _rn(g, dtype, d, d, std=0.05),
+            _rn(g, dtype, d, std=0.05), _rn(g, dtype, d, std=0.1, mean=0.7),
+            _rn(g, dtype, d, std=0.1, mean=1.0), _rn(g, dtype, d, std=0.1),
+            _rn(g, dtype, d, f, std=0.05), _rn(g, dtype, f, std=0.05),
+            _rn(g, dtype, f, d, std=0.05), _rn(g, dtype, d, std=0.05),
+            _rn(g, dtype, d, std=0.1, mean=1.3))
+
+
+def _k4_args(g, dtype, m, d, f):
+    return (_rn(g, dtype, m, d), _rn(g, dtype, m, d), _rn(g, dtype, d, d, std=0.05),
+            _rn(g, dtype, d, std=0.05), _rn(g, dtype, d, std=0.1, mean=1.0),
+            _rn(g, dtype, d, std=0.1), _rn(g, dtype, d, f, std=0.05), _rn(g, dtype, f, std=0.05),
+            _rn(g, dtype, f, d, std=0.05), _rn(g, dtype, d, std=0.05),
+            _rn(g, dtype, d, std=0.1, mean=1.3), _rn(g, dtype, d, std=0.1))
+
+
+def _check_grads(got, want, dtype, names):
+    """Each gradient within 2e-4 (fp32: the JAX suite's gradient tolerance) or
+    2^-7 (bf16: rounding flips move an entry by a share of the largest one,
+    the sums run over many rows) of the twin's largest entry."""
+    share = 2e-4 if dtype == torch.float32 else 2.0**-7
+    for a, b, name in zip(got, want, names):
+        assert a.dtype == dtype and a.shape == b.shape, name
+        a, b = a.float(), b.float()
+        assert torch.isfinite(a).all(), name
+        err, top = (a - b).abs().max().item(), b.abs().max().item()
+        assert err <= share * top + 1e-7, f"{name}: {err:.3e} against {top:.3e}"
+
+
+def _backward_twice(fn, args, cot, counter):
+    """Gradients of ``fn`` at ``args`` through autograd on the card, twice:
+    -> (first, second), with one launch of ``counter`` per backward."""
+    runs = []
+    for _ in range(2):
+        leaves = [a.clone().requires_grad_(True) for a in args]
+        out = fn(*leaves)
+        n0 = counter.launches
+        runs.append(torch.autograd.grad(out, leaves, cot))
+        assert counter.launches == n0 + 1
+    return runs
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("m,d", [(96, 128), (257, 128), (130, 768)])
+def test_fused_preattn_bwd_kernel(dtype, m, d):
+    """K6 through the autograd Function against its twin; fixed-order sums
+    give the same bits on a second backward."""
+    g = torch.Generator(device="cuda").manual_seed(m)
+    args, cot = _k1_args(g, dtype, m, d), _rn(g, dtype, m, 3 * d)
+    first, second = _backward_twice(fl.fused_preattn, args, cot, fl.fused_preattn_bwd)
+    want = fl.fused_preattn_bwd_plain(*args, cot)
+    _check_grads(first, want, dtype, ("dx", "dln_scale", "dln_bias", "dw", "db"))
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("l", [17, 37, 64, 128, 130])
+def test_packed_attention_bwd_kernel(dtype, l):
+    g = torch.Generator(device="cuda").manual_seed(l)
+    qkv, cot = _rn(g, dtype, 2, l, 3 * 128), _rn(g, dtype, 2, l, 128)
+    first, second = _backward_twice(lambda t: fl.flash_attention_packed(t, 2), (qkv,), cot,
+                                    fl.flash_attention_packed_bwd)
+    want = fl.flash_attention_packed_bwd_plain(qkv, 2, cot)
+    d = 128
+    for i, name in enumerate(("dq", "dk", "dv")):  # each third against its own largest entry
+        _check_grads((first[0][..., i * d:(i + 1) * d],), (want[..., i * d:(i + 1) * d],),
+                     dtype, (name,))
+    assert torch.equal(first[0], second[0])
+
+
+_K8_NAMES = ("dx", "da", "dwo", "dbo", "dls1", "dln_scale", "dln_bias", "dw1", "db1", "dw2",
+             "db2", "dls2")
+_K9_NAMES = ("dx", "da", "dwo", "dbo", "dlnsa", "dlnba", "dw1", "db1", "dw2", "db2", "dlnso",
+             "dlnbo")
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("m", [96, 257])
+def test_fused_postattn_bwd_kernel(dtype, m):
+    g = torch.Generator(device="cuda").manual_seed(m)
+    args, cot = _k3_args(g, dtype, m, 128, 256), _rn(g, dtype, m, 128)
+    first, second = _backward_twice(fl.fused_postattn, args, cot, fl.fused_postattn_bwd)
+    _check_grads(first, fl.fused_postattn_bwd_plain(*args, cot), dtype, _K8_NAMES)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("m", [96, 257])
+def test_fused_mpnet_post_bwd_kernel(dtype, m):
+    g = torch.Generator(device="cuda").manual_seed(m)
+    args, cot = _k4_args(g, dtype, m, 128, 256), _rn(g, dtype, m, 128)
+    first, second = _backward_twice(fl.fused_mpnet_post, args, cot, fl.fused_mpnet_post_bwd)
+    _check_grads(first, fl.fused_mpnet_post_bwd_plain(*args, cot), dtype, _K9_NAMES)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 def test_wrapper_rejects_mixed_dtypes():

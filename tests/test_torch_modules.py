@@ -144,8 +144,9 @@ def test_relative_position_buckets_match_jax():
 def test_mpnet_fuse_post_on_cuda_raises():
     """fuse_post=True never quietly takes plain code in K4's place: only a
     CPU tensor runs the plain twin. Checked without a card: a tensor on
-    another device raises, and so does a tensor that requires a gradient
-    (K4's backward K9 is not ported)."""
+    another device raises. A tensor that requires a gradient goes through
+    K4's autograd Function (backward K9) and gives the gradients of the eager
+    chain; without a tape the same call stays off it."""
     cfg = TextConfig(**TEXT, fuse_post=True)
     params = tmpnet.init_mpnet(torch.Generator().manual_seed(0), cfg)
     rel = torch.zeros(4, 12, 12)
@@ -153,11 +154,19 @@ def test_mpnet_fuse_post_on_cuda_raises():
     with pytest.raises(ValueError, match="device"):
         tmpnet.mpnet_layer(torch.zeros((4, 12, D), device="meta"),
                            _to_meta(params["layers"][0]), rel.to("meta"), neg.to("meta"), cfg)
-    x = torch.zeros((4, 12, D), requires_grad=True)
-    with pytest.raises(RuntimeError, match="K9"):
-        tmpnet.mpnet_layer(x, params["layers"][0], rel, neg, cfg)
-    with torch.no_grad():  # the same call without a tape runs the twin
-        assert tmpnet.mpnet_layer(x, params["layers"][0], rel, neg, cfg).shape == (4, 12, D)
+    grads = {}
+    for fuse_post in (True, False):
+        x = torch.randn((4, 12, D), generator=torch.Generator().manual_seed(1),
+                        requires_grad=True)
+        out = tmpnet.mpnet_layer(x, params["layers"][0], rel, neg,
+                                 dataclasses.replace(cfg, fuse_post=fuse_post))
+        assert out.grad_fn is not None
+        out.square().sum().backward()
+        grads[fuse_post] = x.grad
+    np.testing.assert_allclose(grads[True].numpy(), grads[False].numpy(), rtol=5e-4, atol=5e-4)
+    with torch.no_grad():  # the same call without a tape runs the twin, off the tape
+        out = tmpnet.mpnet_layer(x, params["layers"][0], rel, neg, cfg)
+        assert out.shape == (4, 12, D) and out.grad_fn is None
 
 
 def _to_meta(tree):

@@ -169,28 +169,42 @@ def test_vlcabs_impl_switch():
 # ---------------------------------------------------------------------------
 
 def test_forward_only_wrappers_raise_under_gradients():
-    """A forward-only kernel handed a tensor that requires a gradient raises
-    and names the missing backward; it never cuts the tape in silence."""
+    """The kernels without a backward of their own (K5, K10) raise when handed
+    a tensor that requires a gradient and name what provides it; they never
+    cut the tape in silence. K1-K4 have backward kernels (K6-K9): the same
+    call returns a tensor on the tape, and gradients for every operand."""
     d, f = 64, 128
-    x = torch.zeros((4, d))
-    xg = x.clone().requires_grad_(True)
-    v, w3, b3 = torch.ones(d), torch.zeros((d, 3 * d)), torch.zeros(3 * d)
-    wdd, w1, b1, w2 = torch.zeros((d, d)), torch.zeros((d, f)), torch.zeros(f), torch.zeros((f, d))
-    with pytest.raises(RuntimeError, match="K6"):
-        tfl.fused_preattn(xg, v, v, w3, b3)
-    with pytest.raises(RuntimeError, match="K6"):  # a weight that requires a gradient
-        tfl.fused_preattn(x, v, v, w3.clone().requires_grad_(True), b3)
-    with pytest.raises(RuntimeError, match="K7"):
-        tfl.flash_attention_packed(torch.zeros((1, 4, 3 * d), requires_grad=True), 1)
-    with pytest.raises(RuntimeError, match="K8"):
-        tfl.fused_postattn(xg, x, wdd, v, v, v, v, w1, b1, w2, v, v)
-    with pytest.raises(RuntimeError, match="K9"):
-        tfl.fused_mpnet_post(xg, x, wdd, v, v, v, w1, b1, w2, v, v, v)
+    rng = np.random.default_rng(0)
+
+    def t(*shape, grad=False):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32) * 0.1
+                                ).requires_grad_(grad)
+
+    x, xg = t(4, d), t(4, d, grad=True)
+    v, w3, b3 = t(d), t(d, 3 * d), t(3 * d)
+    wdd, w1, b1, w2 = t(d, d), t(d, f), t(f), t(f, d)
+    out = tfl.fused_preattn(xg, v, v, w3, b3)
+    assert out.grad_fn is not None
+    out.sum().backward()
+    assert xg.grad is not None and torch.isfinite(xg.grad).all()
+    w3g = w3.clone().requires_grad_(True)  # only a weight requires a gradient
+    tfl.fused_preattn(x, v, v, w3g, b3).sum().backward()
+    assert w3g.grad.shape == w3.shape and x.grad is None
+    qkv = t(1, 4, 3 * d, grad=True)
+    tfl.flash_attention_packed(qkv, 1).sum().backward()
+    assert qkv.grad.shape == qkv.shape
+    for fn, args in ((tfl.fused_postattn, (x, wdd, v, v, v, v, w1, b1, w2, v, v)),
+                     (tfl.fused_mpnet_post, (x, wdd, v, v, v, w1, b1, w2, v, v, v))):
+        leaf = t(4, d, grad=True)
+        fn(leaf, *args).square().sum().backward()
+        assert leaf.grad is not None and torch.isfinite(leaf.grad).all(), fn.__name__
     q = torch.zeros((2, d), requires_grad=True)
     with pytest.raises(RuntimeError, match="vlcabs_fused_train"):
         tvl.vlcabs_fused(q, torch.zeros((1, 4, d)), torch.tensor(0.07))
-    with torch.no_grad():  # the same operands without a tape are served
-        assert tfl.fused_preattn(xg, v, v, w3, b3).shape == (4, 3 * d)
+    with pytest.raises(RuntimeError, match="vlcabs_fused_train"):
+        tvl.vlcabs_train_forward(q, torch.zeros((1, 4, d)), torch.tensor([0.07]))
+    with torch.no_grad():  # the same operands without a tape are served, off the tape
+        assert tfl.fused_preattn(xg, v, v, w3, b3).grad_fn is None
         assert tvl.vlcabs_fused(q, torch.zeros((1, 4, d)), torch.tensor(0.07))[0].shape == (2, 1)
 
 
@@ -345,28 +359,67 @@ def test_forward_train_handles_tower_tokens_and_clip_losses():
                                    atol=1e-5)
 
 
+def _with_impls(cfg, attn_impl, fuse_post):
+    return dataclasses.replace(
+        cfg, align=dataclasses.replace(cfg.align, attn_impl=attn_impl),
+        text=dataclasses.replace(cfg.text, fuse_post=fuse_post))
+
+
 def test_forward_train_raises_for_missing_backward_kernels(weights):
-    """fused_vjp / packed align layers and fuse_post=True under gradients
-    name the kernels that are not ported; without a tape they run."""
-    params = params_from_jax(weights)
+    """No backward kernel is missing any more: fused_vjp / packed align layers
+    and fuse_post=True train, and loss and every gradient match the eager
+    configuration (2e-4 on the align leaves, 5e-4 on the text leaves, the JAX
+    suite's tolerances for these layers). Without a tape the default runs too."""
     batch = _to_torch(_batch(seed=7))
-    for p in toptim.tree_leaves({k: params[k] for k in TRAINABLE}):
-        p.requires_grad_(True)
-    for impl in ("fused_vjp", "packed"):
-        cfg = dataclasses.replace(TCFG, align=dataclasses.replace(TCFG.align, attn_impl=impl))
-        with pytest.raises(NotImplementedError, match="K6, K7 and K8"):
-            forward_train(params, cfg, batch, stop_vision_gradient=True)
-    cfg = dataclasses.replace(TCFG, text=dataclasses.replace(TCFG.text, fuse_post=True))
-    with pytest.raises(NotImplementedError, match="K9"):
-        forward_train(params, cfg, batch, stop_vision_gradient=True)
-    default = tconf.RadZeroConfig(
-        vision=TCFG.vision, loss=TCFG.loss, text=tconf.TextConfig(**TEXT),
-        align=dataclasses.replace(TCFG.align, attn_impl="fused_vjp"))
-    ref = forward_train(params, TCFG, batch, stop_vision_gradient=True)["losses"]["loss"]
+    ref_out, ref_tr = _port_value_and_grads(params_from_jax(weights), TCFG, batch)
+    ref = {path: p.grad.numpy() for path, p in _leaves(ref_tr)}
+    for impl, fuse_post in (("fused_vjp", True), ("packed", False)):
+        out, tr = _port_value_and_grads(params_from_jax(weights),
+                                        _with_impls(TCFG, impl, fuse_post), batch)
+        np.testing.assert_allclose(out["losses"]["loss"].item(),
+                                   ref_out["losses"]["loss"].item(), rtol=1e-5, atol=1e-6)
+        for path, p in _leaves(tr):
+            tol = 5e-4 if path.startswith("/text_model") else 2e-4
+            np.testing.assert_allclose(p.grad.numpy(), ref[path], rtol=tol, atol=tol,
+                                       err_msg=f"{impl} {path}")
+    params = params_from_jax(weights)
+    default = _with_impls(TCFG, "fused_vjp", True)
     losses = make_eval_step(default, dtype=torch.float32, device="cpu")(params, batch)
     with pytest.raises(ValueError, match="lies on"):  # the card is the default
         make_eval_step(default, dtype=torch.float32)(params, batch)
-    np.testing.assert_allclose(losses["loss"].item(), ref.item(), rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(losses["loss"].item(), ref_out["losses"]["loss"].item(),
+                               rtol=1e-5, atol=1e-6)
+
+
+def test_forward_train_trainable_tower_matches_jax(weights):
+    """The vision tower in the trainable subtree (2 layers): its gradients
+    flow through the K1-K3 / K6-K8 Functions (the JAX side: attn_impl=
+    "fused_vjp" in the tower and the align layers, fuse_post=True), every
+    leaf against jax.grad at 2e-4 (5e-4 for the text tower)."""
+    batch = _batch(seed=9)
+    jcfg = dataclasses.replace(_with_impls(JCFG, "fused_vjp", True),
+                               vision=dataclasses.replace(JCFG.vision, attn_impl="fused_vjp"))
+    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+
+    def loss_fn(params):
+        return jax_forward_train(params, jcfg, jbatch)["losses"]["loss"]
+
+    ref_loss, ref_grads = jax.value_and_grad(loss_fn)(jax.tree_util.tree_map(jnp.asarray, weights))
+    params = params_from_jax(weights)
+    leaves = toptim.tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    out = forward_train(params, _with_impls(TCFG, "fused_vjp", True), _to_torch(batch))
+    out["losses"]["loss"].backward()
+    np.testing.assert_allclose(out["losses"]["loss"].item(), np.asarray(ref_loss), rtol=1e-5,
+                               atol=1e-6)
+    ref = dict(_leaves(params_to_numpy(params_from_jax(jax.tree_util.tree_map(np.asarray,
+                                                                              ref_grads)))))
+    got = {path: p.grad.numpy() for path, p in _leaves(params) if p.grad is not None}
+    assert any(path.startswith("/vision_model/layers") for path in got)
+    for path, g in got.items():
+        tol = 5e-4 if path.startswith("/text_model") else 2e-4
+        np.testing.assert_allclose(g, ref[path], rtol=tol, atol=tol, err_msg=path)
 
 
 # ---------------------------------------------------------------------------
@@ -444,9 +497,13 @@ def test_warmup_cosine_schedule_matches_optax():
 # train step trajectory
 # ---------------------------------------------------------------------------
 
-def test_train_step_trajectory_matches_jax(weights):
+@pytest.mark.parametrize("attn_impl,fuse_post", [("xla", False), ("fused_vjp", True)],
+                         ids=["eager", "defaults"])
+def test_train_step_trajectory_matches_jax(weights, attn_impl, fuse_post):
     """4 steps on one batch against the JAX make_train_step (fp32, no
-    donation): losses and grad_norm rtol 1e-4. Parameters are held to a
+    donation), with eager layers and at the defaults (fused_vjp align layers,
+    fuse_post=True: the backward kernels' twins against the JAX kernels):
+    losses and grad_norm rtol 1e-4. Parameters are held to a
     tolerance scaled by the learning rate: an early Adam update is about
     lr * sign(g) whatever |g| is, so an element whose gradient is near zero
     may step the other way in the two frameworks and then differ by 2 lr
@@ -457,14 +514,15 @@ def test_train_step_trajectory_matches_jax(weights):
     batch = _batch(seed=8)
     jtrain, jfrozen = _split(jax.tree_util.tree_map(jnp.asarray, weights))
     tx, _ = joptim.build_optimizer(jtrain, **kw)
-    jstep = jax_make_train_step(JCFG, tx, dtype=jnp.float32, donate=False)
+    jcfg, tcfg = (_with_impls(c, attn_impl, fuse_post) for c in (JCFG, TCFG))
+    jstep = jax_make_train_step(jcfg, tx, dtype=jnp.float32, donate=False)
     jstate = tx.init(jtrain)
     jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
 
     trainable, frozen = toptim.partition_params(params_from_jax(weights), TRAINABLE)
     opt, _ = toptim.build_optimizer(**kw)
     tstate = opt.init(trainable)
-    tstep = make_train_step(TCFG, opt, dtype=torch.float32, device="cpu")
+    tstep = make_train_step(tcfg, opt, dtype=torch.float32, device="cpu")
     tbatch = _to_torch(batch)
     history = []
     for _ in range(steps):
