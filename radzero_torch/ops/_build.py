@@ -35,6 +35,7 @@ NVCC_FLAGS = [
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # C signatures: every pointer and the stream are c_void_p (a bare int
 # would be cut to 32 bits), then ints / floats as declared in csrc.
 SIGNATURES = {
@@ -62,7 +63,7 @@ SIGNATURES = {
     # a, g, part, M, Ka, Nb, splits, dtype, stream
     "rz_wgrad": [_P] * 3 + [_I, _I, _I, _I, _I, _P],
     # part, out, S, n, dtype, stream
-    "rz_reduce_parts": [_P, _P, _I, ctypes.c_longlong, _I, _P],
+    "rz_reduce_parts": [_P, _P, _I, _L, _I, _P],
     # w, wt, K, N, dtype, stream
     "rz_transpose": [_P, _P, _I, _I, _I, _P],
     # u, u_f32, scale, bias, out_t, out_f, M, D, eps, dtype, stream
@@ -74,6 +75,16 @@ SIGNATURES = {
     "rz_scale_colsum": [_P] * 5 + [_I, _I, _I, _P],
     # qkv, dout, row_m, row_il, row_delta, dqkv, B, L, H, hd, scale, dtype, stream
     "rz_packed_attention_bwd": [_P] * 6 + [_I, _I, _I, _I, _F, _I, _P],
+    # q, k, v, out, q_bs, q_rs, k_bs, k_rs, v_bs, v_rs, B, L, H, hd, kv_len, scale,
+    # dtype, stream
+    "rz_flash_attention": [_P] * 4 + [_L] * 6 + [_I] * 5 + [_F, _I, _P],
+    # q, k, v, bias, neg, out, then as rz_flash_attention from q_bs on
+    "rz_flash_attention_bias": [_P] * 6 + [_L] * 6 + [_I] * 5 + [_F, _I, _P],
+    # q, k, v, dout, stats, dq, dk, dv, then as rz_flash_attention from q_bs on
+    "rz_flash_attention_bwd": [_P] * 8 + [_L] * 6 + [_I] * 5 + [_F, _I, _P],
+    # q, k, v, bias, neg, dout, stats, dq, dk, dv, dbias_part, chunks, then as
+    # rz_flash_attention from q_bs on
+    "rz_flash_attention_bias_bwd": [_P] * 11 + [_I] + [_L] * 6 + [_I] * 5 + [_F, _I, _P],
     "rz_bwd_row_block": [],
     # dtype
     "rz_bwd_gemm_row_tile": [_I],
