@@ -19,14 +19,25 @@ Phases, in order; any failure exits non-zero:
    fused_preattn_bwd, K7 flash_attention_packed_bwd and K8
    fused_postattn_bwd at 64 images and at 2 (2740 rows, no multiple of a
    tile), K9 fused_mpnet_post_bwd at 16 384 rows and at 1370, every
-   gradient they return;
+   gradient they return; K13 flash_attention at 8 and 64 images x 1370 x 12 x
+   64, at L = 1408 with kv_len = 1370 and at 1 x 4097 tokens, K14
+   flash_attention_bwd at 64 images, at 2 and at 4097 tokens, K15
+   flash_attention_bias and K16 flash_attention_bias_bwd at 512 sentences x
+   32 tokens, 14 x 64, 64 x 256 and 8 x 37 with real lengths drawn per
+   sentence (dq, dk, dv, d bias; a second backward gives the same bits);
 4. serving: full-width RadZero (ViT-B/14 at 518, 2 align layers, MPNet
    12 x 768 with the default fuse_post=True) from seeded random weights in
    bf16 behind ServingEngine(max_batch=8, channels=1); 20 grayscale
    requests; checks of the answers and of the kernel launch counts, the
    kernel path against the eager reference path, and requests/s with
    p50/p99 latency of that burst and of five repeats on the warm engine;
-5. training: the same weights as fp32 masters, tower frozen (K1-K3 without
+5. scoring through ZeroShotScorer(fused_tower=False) with
+   TextConfig(attn_impl="flash"): 16 seeded images at batch 8 x the 14
+   prompts in bf16 with maps (the tower on K13, the align layers on K1-K3,
+   MPNet on K15 and K4, K5), launch counts per batch and images/s; the same
+   in fp32 against compute_logits(eager=True) with the repo's gate; and
+   model_inference on one PNG in a temporary directory;
+6. training: the same weights as fp32 masters, tower frozen (K1-K3 without
    a tape), at the defaults AlignConfig() / TextConfig() /
    LossConfig(train_impl="fused"): align layers on K1-K3 with the backward
    kernels K6-K8, every MPNet layer on K4 with K9, the loss on K10-K12; 6
@@ -34,8 +45,10 @@ Phases, in order; any failure exits non-zero:
    with checks of the losses, the gradient norm and the launch counts per
    step, and images/s of the warm steps; then 3 steps of the eager-layer
    configuration (attn_impl="xla", fuse_post=False) beside it, step time
-   and peak memory of both; then loss and every gradient leaf of both
-   against the all-eager path on an fp32 batch of 2 images.
+   and peak memory of both; then 3 steps with attn_impl="flash" in the align
+   layers (K13 / K14) and the text tower (K15 / K16); then loss and every
+   gradient leaf of all three against the all-eager path on an fp32 batch of
+   2 images.
 
 --profile also prints the kernels of one training step by device time
 (torch.profiler). A line with {"kernels": [...]} reports every kernel; the
@@ -60,6 +73,7 @@ B, L, D, H, F, N = 8, 1370, 768, 12, 3072, 14
 M_TEXT = N * 64                       # K4 in serving: 14 prompts x 64 tokens
 TB, TN, T_LEN = 64, 512, 32           # training: images, sentences, tokens per sentence
 M_RAGGED = 1370                       # K9 at a row count that is no multiple of any tile
+L_PAD, L_LONG = 1408, 4097            # K13 / K14: a lane-padded tower (kv_len 1370), a long one
 PEAK_FLOPS = {"bf16": 989e12}         # H100 SXM dense bf16, operations per second
 PEAK_BYTES = 3.35e12                  # H100 SXM device memory, bytes per second
 CHEXPERT = [
@@ -102,7 +116,21 @@ CHEXPERT = [
 # row or column holds a few of them, and the entry's own final rounding may
 # flip too (2^-8 of itself): 2^-7 of the largest |reference| entry plus 2^-7
 # relative, as for K11 / K12.
+# K13-K16. fp32: the JAX suite's (tests/test_flash_attention.py): rtol 1e-4 /
+# atol 1e-5 for the forward, 2e-5 with the bias, rtol 1e-4 / atol 1e-4 for the
+# gradients; a 1370- or 4097-key sum in another order stays a decade inside
+# them. bf16: K13 rounds the softmax weights before P.V as K2 does, so K2's
+# tolerance. K15 runs over 2 to 256 real keys of unit variance, where one
+# softmax weight p can be near 1: a weight that rounds the other way in kernel
+# and twin is off by one bf16 ulp of itself, 2^-8 p, and moves the output by
+# 2^-8 p |v| whatever the output's own size, so its atol is 2^-9 of the largest
+# |reference| entry (flag "scaled"; about 9e-3 at |ref| <= 4.5), about one such
+# flip at p = 1/2. K14 and K16 round P, dO and dS as K7 does, so K7's (a share
+# of the largest |reference| entry of each gradient). d(bias) is an fp32 sum of
+# unrounded dS on both sides and only its order differs.
 BWD_OUTPUTS = {
+    "K14": ("dq", "dk", "dv"),
+    "K16": ("dq", "dk", "dv", "dbias"),
     "K6": ("dx", "dln_s", "dln_b", "dw", "db"),
     "K7": ("dq", "dk", "dv"),
     "K8": ("dx", "da", "dwo", "dbo", "dls1", "dln_s", "dln_b", "dw1", "db1", "dw2", "db2",
@@ -121,14 +149,17 @@ TOL = {
     ("K3 train", "fp32"): (2e-5, 2e-5),
     ("K10 logits", "fp32"): (1e-6, 1e-5), ("K11 dq", "fp32"): (1e-5, 1e-4),
     ("K11 dtau", "fp32"): (1e-5, 1e-4), ("K12 dt", "fp32"): (1e-5, 1e-4),
+    ("K13", "fp32"): (1e-5, 1e-4), ("K15", "fp32"): (2e-5, 1e-4),
+    ("K14", "fp32"): (1e-4, 1e-4), ("K16", "fp32"): (1e-4, 1e-4),
 }
-for _k in ("K2", "K2 train", "K5 logits", "K5 maps", "K10 logits"):
+for _k in ("K2", "K2 train", "K5 logits", "K5 maps", "K10 logits", "K13"):
     TOL[(_k, "bf16")] = (2e-3, 2.0**-7)
+TOL[("K15", "bf16")] = (2.0**-9, 2.0**-7, "scaled")
 for _k in ("K1", "K1 train"):
     TOL[(_k, "bf16")] = (2.0**-9, 2.0**-7, "scaled")
 for _k in ("K3", "K3 train", "K4", "K4 16384"):
     TOL[(_k, "bf16")] = (2.0**-10, 2.0**-7, "scaled")
-for _k in ("K11 dq", "K11 dtau", "K12 dt", "K6", "K7", "K8", "K9"):
+for _k in ("K11 dq", "K11 dtau", "K12 dt", "K6", "K7", "K8", "K9", "K14", "K16"):
     TOL[(_k, "bf16")] = (2.0**-7, 2.0**-7, "scaled")
 
 
@@ -358,6 +389,7 @@ def phase_kernels(seed):
         del inputs, qn, tokens, dz
         torch.cuda.empty_cache()
         backward_kernels(dtype, dname, gen, rows)
+        attention_kernels(dtype, dname, gen, rows)
     for k, (bound_ms, bound_by) in bounds().items():
         if k.endswith((" 2img", " 1370")):
             rows[k[:2]].update(bound_ms_small=bound_ms)
@@ -446,6 +478,129 @@ def backward_kernels(dtype, dname, gen, rows):
         torch.cuda.empty_cache()
 
 
+def attention_kernels(dtype, dname, gen, rows):
+    """K13-K16 against their plain twins: K13 / K14 at the tower's shapes (8
+    images as the scorer batches them, 64 and 2 as the flash training step
+    and its fp32 check do), at a lane-padded length with kv_len and at 4097
+    tokens; K15 / K16 at the text shapes, real lengths drawn per sentence.
+    Fills ``rows`` from the bf16 run, the bound of each case beside its time."""
+    import torch
+    import torch.nn.functional as Fn
+    from radzero_torch.ops import flash_attention as fa
+
+    hd, e = D // H, 2  # the bounds are the bf16 run's: 2 bytes an element
+
+    def rn(*shape, std=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * std).to(dtype)
+
+    def by_images(fn):  # the twins hold (images, 12, L, L) fp32: 8 images at a time
+        def run(*ops, **kw):
+            parts = [fn(*(t[i:i + 8] for t in ops), **kw) for i in range(0, ops[0].shape[0], 8)]
+            if isinstance(parts[0], tuple):
+                return tuple(torch.cat(col) for col in zip(*parts))
+            return torch.cat(parts)
+        return run
+
+    def record(k, tag, worst, ms, plain_ms, ops, nbytes, library_ms=None):
+        err, used = worst  # the largest error, the worst share of the tolerance
+        t_ops, t_bytes = ops / PEAK_FLOPS["bf16"] * 1e3, nbytes / PEAK_BYTES * 1e3
+        bound_ms, by = max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+        lib = "" if library_ms is None else f"  library {library_ms:.4f} ms"
+        print(f"  {k + ' ' + tag:14s} {dname}: max_abs_err {err:.3e} (worst entry at "
+              f"{100 * used:.0f}% of its tolerance)  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms"
+              f"{lib}  bound {bound_ms:.4f} ms by {by} ok")
+        if dname != "bf16":
+            return
+        if not tag:
+            rows[k] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                       "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": by}
+        else:
+            rows[k].update({f"max_abs_err_{tag}": err, f"ms_{tag}": ms,
+                            f"plain_ms_{tag}": plain_ms, f"bound_ms_{tag}": bound_ms})
+
+    def gradients(k, kern, plain, args, kw):
+        """The backward kernel twice against its twin -> (largest error, worst share)."""
+        out, again, ref = kern(*args, **kw), kern(*args, **kw), plain(*args, **kw)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(out, again)):
+            fail(f"{k} {dname}: a second backward gives other bits")
+        worst = [compare(f"{k} {name}", dname, a, b, tol=k, quiet=True)
+                 for name, a, b in zip(BWD_OUTPUTS[k], out, ref)]
+        return max(w[0] for w in worst), max(w[1] for w in worst)
+
+    def timed(kern, plain, args, kw, big):
+        reps, warm = (5, 1) if big else (20, 3)
+        return (median_ms(lambda: kern(*args, **kw), reps=reps, warmup=warm),
+                median_ms(lambda: plain(*args, **kw), reps=3 if big else reps, warmup=1))
+
+    # images, tokens, kv_len, q / k / v as views of one packed product, the tags of K13 and K14
+    for b, l, kv, packed, tag13, tag14 in (
+            (B, L, None, True, "", None), (TB, L, None, True, "64img", ""),
+            (2, L, None, True, None, "2img"), (B, L_PAD, L, False, "kv_len", "kv_len"),
+            (1, L_LONG, None, False, "4097", "4097")):
+        if packed:
+            qkv = rn(b, l, 3 * D)
+            q, k_, v = (qkv[..., i * D:(i + 1) * D].reshape(b, l, H, hd) for i in range(3))
+        else:
+            q, k_, v = (rn(b, l, H, hd) for _ in range(3))
+        kw, big = {"kv_len": kv}, b * l * l > 5e7
+        score_ops, tensor = b * H * l * (kv or l) * hd, b * l * D * e
+        if tag13 is not None:
+            plain = by_images(fa.flash_attention_plain)
+            out, ref = fa.flash_attention(q, k_, v, **kw), plain(q, k_, v, **kw)
+            torch.cuda.synchronize()
+            err = compare(f"K13 {tag13}", dname, out, ref, tol="K13", quiet=True)
+            del out, ref
+            ms, plain_ms = timed(fa.flash_attention, plain, (q, k_, v), kw, big)
+            lib = None
+            if not tag13 and dname == "bf16":  # the yardstick, called nowhere in the port
+                qh, kh, vh = (t.transpose(1, 2) for t in (q, k_, v))
+                lib = median_ms(lambda: Fn.scaled_dot_product_attention(qh, kh, vh))
+            record("K13", tag13, err, ms, plain_ms, 4 * score_ops, 4 * tensor, lib)
+        if tag14 is not None:
+            g = rn(b, l, H, hd)
+            plain = by_images(fa.flash_attention_bwd_plain)
+            err = gradients("K14", fa.flash_attention_bwd, plain, (q, k_, v, g), kw)
+            ms, plain_ms = timed(fa.flash_attention_bwd, plain, (q, k_, v, g), kw, big)
+            record("K14", tag14, err, ms, plain_ms, 10 * score_ops, 7 * tensor)
+            del g
+        del q, k_, v
+        torch.cuda.empty_cache()
+
+    # sentences x tokens: the training step's, the serving prompts', a long text, a ragged one
+    for s_, l, tag in ((TN, T_LEN, ""), (N, 64, "14x64"), (64, 256, "64x256"), (8, 37, "8x37")):
+        q, k_, v, g = (rn(s_, l, H, hd) for _ in range(4))
+        bias = (torch.randn((H, l, l), generator=gen, device="cuda") * 0.5)
+        lengths = torch.randint(2, l + 1, (s_,), generator=gen, device="cuda")
+        mask = (torch.arange(l, device="cuda")[None] < lengths[:, None]).float()
+        neg = (1.0 - mask) * torch.finfo(dtype).min
+        score_ops, tensor = s_ * H * l * l * hd, s_ * l * D * e
+        extra = H * l * l * 4 + s_ * l * 4  # bias and mask, fp32
+        args = (q, k_, v, bias, neg)
+        out, ref = fa.flash_attention_bias(*args), fa.flash_attention_bias_plain(*args)
+        torch.cuda.synchronize()
+        err = compare(f"K15 {tag}", dname, out, ref, tol="K15", quiet=True)
+        del out, ref
+        ms, plain_ms = timed(fa.flash_attention_bias, fa.flash_attention_bias_plain, args, {},
+                             False)
+        lib = None
+        if not tag and dname == "bf16":  # the mask is summed before the timed call
+            qh, kh, vh = (t.transpose(1, 2) for t in (q, k_, v))
+            both = (bias[None] + neg[:, None, None, :]).to(dtype)
+            lib = median_ms(lambda: Fn.scaled_dot_product_attention(qh, kh, vh, attn_mask=both))
+            del both
+        record("K15", tag, err, ms, plain_ms, 4 * score_ops, 4 * tensor + extra, lib)
+        args = (q, k_, v, bias, neg, g)
+        err = gradients("K16", fa.flash_attention_bias_bwd, fa.flash_attention_bias_bwd_plain,
+                        args, {})
+        ms, plain_ms = timed(fa.flash_attention_bias_bwd, fa.flash_attention_bias_bwd_plain,
+                             args, {}, False)
+        record("K16", tag, err, ms, plain_ms, 10 * score_ops,
+               7 * tensor + extra + H * l * l * 4)
+        del q, k_, v, g, args
+        torch.cuda.empty_cache()
+
+
 def phase_slice(seed, card):
     import numpy as np
     import torch
@@ -521,12 +676,9 @@ def phase_slice(seed, card):
     nb = len(batches)
     # per batch: 14 DINOv2-style layers, one text-tower forward of 12 MPNet
     # layers (K4 once per layer), one VL-CABS; no training kernel
-    expect = {"fused_preattn": n_layers * nb, "flash_attention_packed": n_layers * nb,
-              "fused_postattn": n_layers * nb,
-              "fused_mpnet_post": cfg.text.num_hidden_layers * nb, "vlcabs_fused": nb,
-              "fused_preattn_bwd": 0, "flash_attention_packed_bwd": 0, "fused_postattn_bwd": 0,
-              "fused_mpnet_post_bwd": 0,
-              "vlcabs_train_forward": 0, "vlcabs_train_bwd_dq": 0, "vlcabs_train_bwd_dtn": 0}
+    expect = expected(fused_preattn=n_layers * nb, flash_attention_packed=n_layers * nb,
+                      fused_postattn=n_layers * nb,
+                      fused_mpnet_post=cfg.text.num_hidden_layers * nb, vlcabs_fused=nb)
     print(f"  20 requests answered in batches {batches}; launches {launches}")
     if batches != [8, 8, 4] or launches != expect:
         fail(f"expected batches [8, 8, 4] and launches {expect}")
@@ -577,14 +729,125 @@ def phase_slice(seed, card):
     return launches, params
 
 
+def phase_scorer(seed, card, params):
+    """The attn_impl="flash" serving path through ZeroShotScorer and
+    model_inference; returns the launches of the bf16 scoring run."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from PIL import Image
+    from radzero_torch.data.processing import BlipStyleImageProcessor
+    from radzero_torch.data.tokenizer import WhitespaceHashTokenizer
+    from radzero_torch.eval.api import model_inference
+    from radzero_torch.eval.scorer import ZeroShotScorer
+    from radzero_torch.models.configuration import RadZeroConfig, TextConfig
+    from radzero_torch.models.radzero import compute_logits
+
+    cfg = RadZeroConfig(text=TextConfig(attn_impl="flash"))
+    # the reference path: eager layers, eager attention and chain, eager VL-CABS
+    cfg_eager = RadZeroConfig(text=TextConfig(fuse_post=False))
+    tok = WhitespaceHashTokenizer(vocab_size=cfg.text.vocab_size, max_length=64)
+    proc = BlipStyleImageProcessor(size=cfg.vision.img_size)
+    prompts = [f"There is {c}" for c in CHEXPERT]
+    rng = np.random.default_rng(seed + 3)
+    # 16 grayscale studies at other sizes than the model's: the host resize does real work
+    images = [rng.integers(0, 256, (640 + 16 * i, 600), dtype=np.uint8) for i in range(16)]
+    n_tower, n_align = cfg.vision.num_hidden_layers, cfg.align.num_hidden_layers
+    n_text = cfg.text.num_hidden_layers
+
+    def load(im):
+        return im
+
+    print('scorer: ZeroShotScorer(fused_tower=False), ViTConfig.attn_impl="flash", '
+          'TextConfig(attn_impl="flash"), 16 images at batch 8 x 14 prompts with maps')
+    scorer = ZeroShotScorer(params, cfg, proc, tok, batch_size=8, dtype=torch.bfloat16,
+                            fused_tower=False)
+    scorer.score(images[:8], load, prompts, need_scores=True)  # warm: allocators, cuBLAS
+    runs = []
+    for _ in range(3):
+        reset_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, maps = scorer.score(images, load, prompts, need_scores=True)
+        runs.append(time.perf_counter() - t0)
+        launches = read_counters()
+    n_patches = (cfg.vision.img_size // cfg.vision.patch_size) ** 2
+    if logits.shape != (16, N) or maps.shape != (16, N, n_patches):
+        fail(f"scorer: shapes {logits.shape}, {maps.shape}")
+    if not (np.isfinite(logits).all() and np.isfinite(maps).all()):
+        fail("scorer: non-finite logits or maps")
+    nb = 2
+    expect = expected(flash_attention=n_tower * nb, fused_preattn=n_align * nb,
+                      flash_attention_packed=n_align * nb, fused_postattn=n_align * nb,
+                      flash_attention_bias=n_text * nb, fused_mpnet_post=n_text * nb,
+                      vlcabs_fused=nb)
+    print(f"  launches of one run (2 batches) {launches}")
+    if launches != expect:
+        fail(f"scorer: expected launches {expect}")
+    # the card's share of a batch: the flash path and the fused K1-K3 path in turns
+    pv = torch.as_tensor(proc(images[:8])["pixel_values"]).to("cuda", torch.bfloat16)
+    ids, mask = scorer.encode_prompts(prompts)
+    with torch.inference_mode():
+        device_ms = [median_ms(lambda: compute_logits(scorer.params, cfg, pv, ids, mask,
+                                                      dtype=torch.bfloat16, fused_towers=fused),
+                               reps=10) for fused in (False, True, True, False)]
+    print(f"  one batch of 8 x 14 on the card: {device_ms[0]:.2f} / {device_ms[3]:.2f} ms with "
+          f"fused_towers=False (K13, cuBLAS products), {device_ms[1]:.2f} / {device_ms[2]:.2f} "
+          f"ms with fused_towers=True (K1-K3)")
+    del pv
+    med = sorted(runs)[1]
+    print(f"  scorer: {16 / med:.2f} images/s, median {med:.4f} s of 3 runs of 16 images "
+          f"({[round(r, 4) for r in runs]} s; bf16, batch 8, host resize on 8 threads) on {card}")
+    del scorer
+
+    # fp32 (the scorer turns TF32 off itself) against the eager path, the repo's gate
+    scorer = ZeroShotScorer(params, cfg, proc, tok, batch_size=2, dtype=torch.float32,
+                            fused_tower=False)
+    logits, maps = scorer.score(images[:2], load, prompts, need_scores=True)
+    pv = torch.as_tensor(proc(images[:2])["pixel_values"], device="cuda")
+    ids, mask = (torch.as_tensor(a, dtype=torch.long, device="cuda") for a in tok(prompts))
+    with torch.inference_mode():
+        ref = compute_logits(params, cfg_eager, pv, ids, mask, dtype=torch.float32, eager=True)
+    lr, sr = ref["logits"].cpu(), ref["similarity_scores"].cpu()
+    lk, sk = torch.from_numpy(logits), torch.from_numpy(maps)
+    mae = (sk - sr).abs().mean().item()
+    print(f"  scorer vs eager path, fp32, 2 images: logits max_abs_err "
+          f"{(lk - lr).abs().max().item():.3e} (|logit| <= {lr.abs().max().item():.3f}), map MAE "
+          f"{mae:.3e}, map max_abs_err {(sk - sr).abs().max().item():.3e}")
+    if not torch.allclose(lk, lr, rtol=1e-3, atol=2e-4) or mae >= 1e-3:
+        fail("scorer: the fp32 flash path disagrees with the eager path")
+    del scorer
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "study.png")
+        Image.fromarray(images[0]).save(path)  # one 8-bit grayscale PNG
+        t0 = time.perf_counter()
+        prob, smap = model_inference(path, prompts[:3], tok, proc, (params, cfg))
+        seconds = time.perf_counter() - t0
+    h, w = images[0].shape[:2]
+    if prob.shape != (3,) or smap.shape != (3, h, w):
+        fail(f"model_inference: shapes {prob.shape}, {smap.shape}")
+    if not (np.all((prob > 0) & (prob < 1)) and np.all((smap >= 0) & (smap <= 1))):
+        fail("model_inference: probabilities or maps outside [0, 1]")
+    close = np.abs(prob - 1.0 / (1.0 + np.exp(-logits[0, :3]))).max()
+    print(f"  model_inference on one {w} x {h} PNG, 3 texts, fp32: probs {np.round(prob, 4)}, "
+          f"map {smap.shape}, {seconds:.3f} s; against the scorer's logits {close:.3e}")
+    if close > 1e-4:
+        fail("model_inference disagrees with the scorer on the same image")
+    return launches
+
+
 def _counters():
+    from radzero_torch.ops import flash_attention as fa
     from radzero_torch.ops import fused_layer as fl
     from radzero_torch.ops import vlcabs_fused as vf
 
     return (fl.fused_preattn, fl.flash_attention_packed, fl.fused_postattn, fl.fused_mpnet_post,
             vf.vlcabs_fused, fl.fused_preattn_bwd, fl.flash_attention_packed_bwd,
             fl.fused_postattn_bwd, fl.fused_mpnet_post_bwd, vf.vlcabs_train_forward,
-            vf.vlcabs_train_bwd_dq, vf.vlcabs_train_bwd_dtn)
+            vf.vlcabs_train_bwd_dq, vf.vlcabs_train_bwd_dtn, fa.flash_attention,
+            fa.flash_attention_bwd, fa.flash_attention_bias, fa.flash_attention_bias_bwd)
 
 
 def reset_counters():
@@ -594,6 +857,11 @@ def reset_counters():
 
 def read_counters():
     return {c.__name__: c.launches for c in _counters()}
+
+
+def expected(**launches):
+    """The launch counts a path must show: 0 for every kernel but those named."""
+    return {c.__name__: 0 for c in _counters()} | launches
 
 
 def train_batch(seed, n_images, n_sentences, vocab_size, pixel_dtype):
@@ -627,8 +895,9 @@ def train_batch(seed, n_images, n_sentences, vocab_size, pixel_dtype):
 
 def phase_training(seed, card, params, profile):
     """AdamW steps at full width through make_train_step: 6 at the default
-    configuration (every layer on its kernels), 3 at the eager-layer one;
-    returns the launches of one default step."""
+    configuration (every layer on its kernels), 3 at the eager-layer one, 3
+    with attn_impl="flash"; returns the launches of one default step and of
+    one flash step."""
     import torch
     from radzero_torch.models.configuration import (
         AlignConfig, LossConfig, RadZeroConfig, TextConfig, ViTConfig,
@@ -645,6 +914,8 @@ def phase_training(seed, card, params, profile):
     # eager align layers and eager MPNet chain under autograd, the loss on K10-K12
     cfg_eager_layers = dataclasses.replace(cfg, align=AlignConfig(attn_impl="xla"),
                                            text=TextConfig(fuse_post=False))
+    cfg_flash = dataclasses.replace(cfg, align=AlignConfig(attn_impl="flash"),
+                                    text=TextConfig(attn_impl="flash"))
     modules = ("align_transformer", "text_model", "loss_fns")
     n_images, n_sentences = TB, TN
 
@@ -696,12 +967,12 @@ def phase_training(seed, card, params, profile):
           f"frozen), lr 1e-4 after 1 warmup step")
     n_tower, n_align = cfg.vision.num_hidden_layers, cfg.align.num_hidden_layers
     n_text = cfg.text.num_hidden_layers
-    loss_kernels = {"vlcabs_fused": 0, "vlcabs_train_forward": 1, "vlcabs_train_bwd_dq": 1,
+    loss_kernels = {"vlcabs_train_forward": 1, "vlcabs_train_bwd_dq": 1,
                     "vlcabs_train_bwd_dtn": 1}
-    expect = {"fused_preattn": n_tower + n_align, "flash_attention_packed": n_tower + n_align,
-              "fused_postattn": n_tower + n_align, "fused_mpnet_post": n_text,
-              "fused_preattn_bwd": n_align, "flash_attention_packed_bwd": n_align,
-              "fused_postattn_bwd": n_align, "fused_mpnet_post_bwd": n_text, **loss_kernels}
+    expect = expected(fused_preattn=n_tower + n_align, flash_attention_packed=n_tower + n_align,
+                      fused_postattn=n_tower + n_align, fused_mpnet_post=n_text,
+                      fused_preattn_bwd=n_align, flash_attention_packed_bwd=n_align,
+                      fused_postattn_bwd=n_align, fused_mpnet_post_bwd=n_text, **loss_kernels)
     history, seconds, per_step, peak = run(cfg, 6, profile_it=profile)
     med = report('defaults (attn_impl="fused_vjp", fuse_post=True: K1-K4, K6-K12)', history,
                  seconds, per_step, peak, expect)
@@ -709,26 +980,37 @@ def phase_training(seed, card, params, profile):
         fail(f"training: loss did not fall: {[h['loss'] for h in history]}")
     training = per_step[-1]
 
-    expect_eager = {"fused_preattn": n_tower, "flash_attention_packed": n_tower,
-                    "fused_postattn": n_tower, "fused_mpnet_post": 0, "fused_preattn_bwd": 0,
-                    "flash_attention_packed_bwd": 0, "fused_postattn_bwd": 0,
-                    "fused_mpnet_post_bwd": 0, **loss_kernels}
+    expect_eager = expected(fused_preattn=n_tower, flash_attention_packed=n_tower,
+                            fused_postattn=n_tower, **loss_kernels)
     h2, s2, p2, peak2 = run(cfg_eager_layers, 3)
     med2 = report('eager layers (attn_impl="xla", fuse_post=False: K1-K3, K10-K12)', h2, s2, p2,
                   peak2, expect_eager)
     print(f"  training: {n_images / med:.2f} images/s, median step {med:.4f} s, peak "
           f"{peak / 2**30:.2f} GiB at the defaults; {n_images / med2:.2f} images/s, {med2:.4f} s, "
           f"{peak2 / 2**30:.2f} GiB with eager layers, on {card}")
-    if abs(h2[0]["loss"] - history[0]["loss"]) > 0.02 * abs(history[0]["loss"]):
-        fail(f"training: step-0 losses of the two configurations differ: "
-             f"{history[0]['loss']} vs {h2[0]['loss']}")
+    # attn_impl="flash": the align layers' attention on K13 / K14 between eager
+    # ops, MPNet's on K15 / K16; the frozen tower stays on K1-K3
+    expect_flash = expected(fused_preattn=n_tower, flash_attention_packed=n_tower,
+                            fused_postattn=n_tower, flash_attention=n_align,
+                            flash_attention_bwd=n_align, flash_attention_bias=n_text,
+                            flash_attention_bias_bwd=n_text, fused_mpnet_post=n_text,
+                            fused_mpnet_post_bwd=n_text, **loss_kernels)
+    h3, s3, p3, peak3 = run(cfg_flash, 3, profile_it=profile)
+    med3 = report('flash (attn_impl="flash" in align and text: K1-K4, K9-K16)', h3, s3, p3, peak3,
+                  expect_flash)
+    print(f"  training, attn_impl=\"flash\": {n_images / med3:.2f} images/s, median step "
+          f"{med3:.4f} s, peak {peak3 / 2**30:.2f} GiB, on {card}")
+    for name, h in (("eager-layer", h2), ("flash", h3)):
+        if abs(h[0]["loss"] - history[0]["loss"]) > 0.02 * abs(history[0]["loss"]):
+            fail(f"training: step-0 losses of the default and the {name} configuration "
+                 f"differ: {history[0]['loss']} vs {h[0]['loss']}")
 
-    # fp32, 2 images x 16 sentences: the all-kernel path and the eager-layer
-    # path against the all-eager path (eager layers, eager chain, eager VL-CABS)
+    # fp32, 2 images x 16 sentences: the all-kernel path, the eager-layer path and
+    # the flash path against the all-eager path (eager layers, chain and VL-CABS)
     batch = train_batch(seed + 7, 2, 16, cfg.text.vocab_size, torch.float32)
     trainable, frozen = partition_params(params, modules)
     leaves = tree_leaves(trainable)
-    legs = {"kernels": cfg, "eager layers": cfg_eager_layers,
+    legs = {"kernels": cfg, "eager layers": cfg_eager_layers, "flash": cfg_flash,
             "eager": dataclasses.replace(cfg_eager_layers, loss=LossConfig(train_impl="xla"))}
     got = {}
     for name, c in legs.items():
@@ -742,7 +1024,7 @@ def phase_training(seed, card, params, profile):
         got[name] = (out["losses"]["loss"].item(),
                      [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)])
     lx, gx = got["eager"]
-    for name in ("kernels", "eager layers"):
+    for name in ("kernels", "eager layers", "flash"):
         lf, gf = got[name]
         # per leaf: |path - eager| <= 2e-4 of the leaf's largest |gradient| + 1e-7:
         # the JAX suite holds the fused layers' gradients to 2e-4; here the fp32
@@ -756,7 +1038,7 @@ def phase_training(seed, card, params, profile):
         for a, b in zip(gf, gx):
             if not bool(((a - b).abs() <= 2e-4 * b.abs().max() + 1e-7).all()):
                 fail(f"training: a gradient of the {name} path disagrees with the eager path")
-    return training
+    return training, p3[-1]
 
 
 def profile_step(fn):
@@ -773,13 +1055,15 @@ def profile_step(fn):
     kernels.sort(key=lambda k: -k[1])
     total = sum(k[1] for k in kernels)
     names = {"vt": "VL-CABS kernels K10-K12 (rz::vt::*)",
-             "bw": "backward-only kernels of K6-K9 (rz::bw::*: K7, dW products, row passes)",
-             "rz": "K1-K4 forward and the products of K6, K8, K9 (rz::gemm_*, "
-                   "rz::packed_attention, rz::row_layernorm)",
+             "fa": "attention kernels K2, K7, K13-K16 (rz::fa::*)",
+             "bw": "backward-only kernels of K6, K8, K9 (rz::bw::*: dW products, row passes)",
+             "rz": "K1, K3, K4 forward and the products of K6, K8, K9 (rz::gemm_*, "
+                   "rz::row_layernorm)",
              "torch": "torch ops (everything else)"}
     groups = {v: 0.0 for v in names.values()}
     for name, ms, _ in kernels:
-        key = ("vt" if "rz::vt::" in name else "bw" if "rz::bw::" in name
+        key = ("vt" if "rz::vt::" in name else "fa" if "rz::fa::" in name
+               else "bw" if "rz::bw::" in name
                else "rz" if "rz::" in name else "torch")
         groups[names[key]] += ms
     print(f"  profile of one training step: {total:.1f} ms of device time in "
@@ -848,12 +1132,13 @@ def main() -> int:
 
     rows = phase_kernels(args.seed)
     serving, params = phase_slice(args.seed, card)
-    training = phase_training(args.seed, card, params, args.profile)
+    scoring = phase_scorer(args.seed, card, params)
+    training, flash_step = phase_training(args.seed, card, params, args.profile)
 
     meta = {
         "K1": ("fused_preattn", "radzero_torch/ops/csrc/fused_layer.cu",
                "radzero_tpu/ops/fused_layer.py:92"),
-        "K2": ("flash_attention_packed", "radzero_torch/ops/csrc/fused_layer.cu",
+        "K2": ("flash_attention_packed", "radzero_torch/ops/csrc/flash_attention.cu",
                "radzero_tpu/ops/fused_layer.py:175"),
         "K3": ("fused_postattn", "radzero_torch/ops/csrc/fused_layer.cu",
                "radzero_tpu/ops/fused_layer.py:913"),
@@ -863,7 +1148,7 @@ def main() -> int:
                "radzero_tpu/ops/pallas_vlcabs.py:115"),
         "K6": ("fused_preattn_bwd", "radzero_torch/ops/csrc/fused_layer_bwd.cu",
                "radzero_tpu/ops/fused_layer.py:390"),
-        "K7": ("flash_attention_packed_bwd", "radzero_torch/ops/csrc/fused_layer_bwd.cu",
+        "K7": ("flash_attention_packed_bwd", "radzero_torch/ops/csrc/flash_attention.cu",
                "radzero_tpu/ops/fused_layer.py:281"),
         "K8": ("fused_postattn_bwd", "radzero_torch/ops/csrc/fused_layer_bwd.cu",
                "radzero_tpu/ops/fused_layer.py:568"),
@@ -875,13 +1160,24 @@ def main() -> int:
                 "radzero_tpu/ops/pallas_vlcabs.py:381"),
         "K12": ("vlcabs_train_bwd_dtn", "radzero_torch/ops/csrc/vlcabs_train.cu",
                 "radzero_tpu/ops/pallas_vlcabs.py:403"),
+        "K13": ("flash_attention", "radzero_torch/ops/csrc/flash_attention.cu",
+                "radzero_tpu/ops/flash_attention.py:122"),
+        "K14": ("flash_attention_bwd", "radzero_torch/ops/csrc/flash_attention.cu",
+                "radzero_tpu/ops/flash_attention.py:214"),
+        "K15": ("flash_attention_bias", "radzero_torch/ops/csrc/flash_attention.cu",
+                "radzero_tpu/ops/flash_attention.py:333"),
+        "K16": ("flash_attention_bias_bwd", "radzero_torch/ops/csrc/flash_attention.cu",
+                "radzero_tpu/ops/flash_attention.py:470"),
     }
-    # launches: the serving burst's count plus one training step's; each path
-    # was driven with every count at 0 and read right after
+    # launches: the serving burst's count, the scorer run's, one default training
+    # step's and one flash training step's; each path was driven with every count
+    # at 0 and read right after
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": serving[name] + training[name], "launches_serving": serving[name],
-         "launches_training_step": training[name], **rows[k]}
+         "launches": serving[name] + scoring[name] + training[name] + flash_step[name],
+         "launches_serving": serving[name], "launches_scorer": scoring[name],
+         "launches_training_step": training[name],
+         "launches_flash_training_step": flash_step[name], **rows[k]}
         for k, (name, src, rep) in meta.items()
     ]
     idle = [k["name"] for k in kernels if k["launches"] == 0]

@@ -67,11 +67,11 @@ class _Request:
     future: cf.Future
 
 
-def _cast_params(tree, dtype, device):
+def cast_params(tree, dtype, device):
     if isinstance(tree, dict):
-        return {k: _cast_params(v, dtype, device) for k, v in tree.items()}
+        return {k: cast_params(v, dtype, device) for k, v in tree.items()}
     if isinstance(tree, list):
-        return [_cast_params(v, dtype, device) for v in tree]
+        return [cast_params(v, dtype, device) for v in tree]
     if tree.is_floating_point():
         return tree.to(device=device, dtype=dtype).contiguous()
     return tree.to(device)
@@ -105,7 +105,7 @@ class ServingEngine:
         self.dtype = dtype
         self.channels = channels
         self.image_spec = image_spec or ImageSpec(size=cfg.vision.img_size)
-        self.params = _cast_params(params, dtype, self.device)
+        self.params = cast_params(params, dtype, self.device)
         # resample the position embeddings to the serving grid once (the
         # same fp32 bicubic on the cast weights that every forward would
         # run; the tower passes an embedding already at its grid through)

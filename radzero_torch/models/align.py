@@ -1,7 +1,7 @@
 """Align adapters (port of radzero_tpu/models/align.py).
 
 ``align_transformer``: N DINOv2 layers, on the fused K1-K3 layer unless
-``impl`` names another ("packed", "eager": see ``models/vit.py``), plus an
+``impl`` names another ("packed", "flash", "eager": see ``models/vit.py``), plus an
 optional trailing LN;
 ``identity``: tokens pass through. The ``linear`` and ``mlp`` baselines
 are not ported yet (ROADMAP.md item 4).

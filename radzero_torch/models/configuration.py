@@ -3,14 +3,21 @@
 Same frozen dataclasses, fields and defaults as the JAX package, so the
 YAML presets load unchanged through :func:`radzero_config_from_dict`.
 ``with_fused_towers`` and ``resolve_backend_impls`` have no counterpart:
-the port picks kernel or plain twin by the tensor's device. Serving reads
-none of the ``attn_impl`` / ``train_impl`` fields. ``forward_train`` reads
+the port picks kernel or plain twin by the tensor's device, and
+``fused_towers=True`` (the default of ``compute_logits``, ``ServingEngine``
+and ``ZeroShotScorer``) takes the place of ``with_fused_towers``: tower and
+align layers on the fused K1-K3 layer. With ``fused_towers=False`` scoring
+reads ``ViTConfig.attn_impl`` and ``AlignConfig.attn_impl`` as the JAX
+package does ("flash": eager ops around K13; "packed": around K2;
+"fused" / "fused_vjp": K1-K3; "xla": eager). ``forward_train`` reads
 ``AlignConfig.attn_impl`` ("fused_vjp", the default: the fused K1-K3 layer
-with the backward kernels K6-K8; "packed": eager ops around K2 / K7; "xla":
-the eager layers that autograd differentiates), ``TextConfig.fuse_post``
-(K4 with its backward K9) and ``LossConfig.train_impl`` ("fused": the
-VL-CABS training kernels K10-K12; else eager ops). The tower always runs
-the fused layer; trainable, it differentiates through K6-K8.
+with the backward kernels K6-K8; "packed": K2 / K7; "flash": K13 / K14;
+"xla": the eager layers that autograd differentiates), and its tower
+always runs the fused layer (trainable, it differentiates through K6-K8).
+``TextConfig.attn_impl`` ("flash": K15 / K16, else eager attention) and
+``TextConfig.fuse_post`` (K4 with its backward K9) are read in scoring and
+in training alike, ``LossConfig.train_impl`` ("fused": the VL-CABS training
+kernels K10-K12; else eager ops) in training.
 """
 
 from __future__ import annotations
@@ -45,7 +52,7 @@ class ViTConfig:
     pretrain_img_size: int = 224  # grid the stored pos-embeds correspond to
     img_size: int = 518           # runtime resolution
     use_final_layernorm: bool = True
-    attn_impl: str = "flash"      # not read by the port (device decides)
+    attn_impl: str = "flash"      # read when fused_towers=False: "flash" = K13 / K14
     token_filter_ratio: float = 0.0  # > 0 not ported yet (raises)
     token_filter_layer: int = 6
     remat_policy: Optional[str] = None  # training only; not read yet
@@ -87,9 +94,9 @@ class AlignConfig:
     layerscale_value: float = 1.0
     use_layer_norm: bool = False
     remat: Optional[bool] = None       # training only; not read yet
-    # forward_train: "xla" = eager layers under autograd; others = the
-    # fused layer, which raises under gradients until K6-K8 are ported.
-    # Serving does not read it (always the fused layer)
+    # forward_train, and scoring with fused_towers=False: "fused_vjp" = K1-K3
+    # with the K6-K8 backward, "packed" = K2 / K7, "flash" = K13 / K14,
+    # "xla" = eager layers under autograd
     attn_impl: str = "fused_vjp"
     remat_policy: Optional[str] = "save_attn"
 
@@ -127,9 +134,9 @@ class TextConfig:
     use_cls_token: bool = False        # False -> masked mean pooling
     use_text_projection: bool = False  # optional Linear(text_dim -> 2*hidden)
     pack_qkv: bool = False             # same math either way in the port
-    attn_impl: str = "xla"             # not read by the port
-    # True runs the post-attention chain through kernel K4 (forward-only:
-    # under gradients it raises until its backward K9 is ported)
+    attn_impl: str = "xla"             # "flash" = K15 / K16, else eager attention
+    # True runs the post-attention chain through kernel K4, whose backward
+    # under gradients is K9
     fuse_post: bool = True
     remat: Optional[bool] = None
 

@@ -6,6 +6,13 @@
 - post-LN layers LN(x + attn(x)), LN(y + ffn(y)), eps 1e-12;
 - additive key mask of ``finfo(dtype).min`` on padded keys.
 
+``attn_impl="flash"`` runs the attention of every layer through kernel K15
+(:func:`radzero_torch.ops.flash_attention.flash_attention_bias`: the bias
+and the key mask enter as two operands, no (S, H, L, L) sum is made), in
+serving and in training alike; under gradients its backward is K16, whose
+d(bias) flows on to ``rel_bias`` through the bucket gather. Anything else
+is the eager attention.
+
 ``fuse_post=True`` (the default) runs the whole non-attention chain of a
 layer through kernel K4 (:func:`radzero_torch.ops.fused_layer.
 fused_mpnet_post`; its plain twin for CPU tensors). Under gradients the
@@ -24,6 +31,7 @@ import numpy as np
 import torch
 
 from radzero_torch.models.configuration import TextConfig
+from radzero_torch.ops.flash_attention import flash_attention_bias
 from radzero_torch.ops.fused_layer import fused_mpnet_post
 from radzero_torch.ops.layers import (
     attention,
@@ -112,8 +120,11 @@ def mpnet_layer(x, p, rel, neg, cfg: TextConfig):
     ``neg``: (S, L) additive key mask (0 real / -big pad)."""
     h = cfg.num_attention_heads
     q, k, v = (split_heads(linear(x, p["attn"][n]), h) for n in ("q", "k", "v"))
-    bias = rel[None].to(x.dtype) + neg[:, None, None, :].to(x.dtype)
-    a = merge_heads(attention(q, k, v, bias=bias, scale=cfg.head_dim**-0.5))
+    if cfg.attn_impl == "flash":
+        a = merge_heads(flash_attention_bias(q, k, v, rel, neg, cfg.head_dim**-0.5))
+    else:
+        bias = rel[None].to(x.dtype) + neg[:, None, None, :].to(x.dtype)
+        a = merge_heads(attention(q, k, v, bias=bias, scale=cfg.head_dim**-0.5))
     if cfg.fuse_post:
         s, l, d = x.shape
         cdt = x.dtype

@@ -77,32 +77,39 @@ def init_radzero(g: torch.Generator, cfg: RadZeroConfig,
 
 def forward_vision(params: dict, cfg: RadZeroConfig, pixel_values: Optional[torch.Tensor], *,
                    dtype=torch.float32, eager: bool = False,
+                   fused_towers: bool = True,
                    align_impl: Optional[str] = None,
                    stop_tower_gradient: bool = False,
                    tower_tokens: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
     """Tower + align adapter + pooled image features, (B, H, W, 3) NHWC.
 
-    ``eager`` runs the eager reference layers in the tower, and in the
-    align adapter unless ``align_impl`` names its layer ("fused", "packed"
-    or "eager", see :func:`radzero_torch.models.vit.layer_impl`). ``stop_tower_
+    ``fused_towers`` (the default, the counterpart of the JAX package's
+    ``with_fused_towers``) runs the tower and the align adapter on the fused
+    K1-K3 layer whatever the config says; False runs the layers that
+    ``cfg.vision.attn_impl`` and ``cfg.align.attn_impl`` name ("flash", the
+    ``ViTConfig`` default, is K13; see :func:`radzero_torch.models.vit.
+    layer_impl`). ``eager`` runs the eager reference layers in both instead.
+    ``align_impl`` names the align adapter's layer over all of these
+    ("fused", "packed", "flash" or "eager"). ``stop_tower_
     gradient`` runs the tower under ``torch.no_grad()``, so a frozen tower
     keeps no tape and may run on the forward kernels. ``tower_tokens``
     (B, L, D), a precomputed tower output at the real length L, skips the
     tower."""
     if getattr(cfg.vision, "model_type", "dinov2") not in ("dinov2", "raddino"):
         raise NotImplementedError(f"vision model_type {cfg.vision.model_type!r}")
+
+    def impl_of(attn_impl):
+        return "eager" if eager else "fused" if fused_towers else layer_impl(attn_impl)
+
     if tower_tokens is not None:
         tokens = tower_tokens.to(dtype)
-    elif stop_tower_gradient:
-        with torch.no_grad():
-            tokens = vit_forward(params["vision_model"], cfg.vision, pixel_values,
-                                 dtype=dtype, eager=eager)
     else:
-        tokens = vit_forward(params["vision_model"], cfg.vision, pixel_values,
-                             dtype=dtype, eager=eager)
+        with torch.set_grad_enabled(torch.is_grad_enabled() and not stop_tower_gradient):
+            tokens = vit_forward(params["vision_model"], cfg.vision, pixel_values,
+                                 dtype=dtype, impl=impl_of(cfg.vision.attn_impl))
     _, align_apply = build_align_adapter(cfg.align.model_type)
     tokens = align_apply(params["align_transformer"], cfg.align, tokens,
-                         impl=align_impl or ("eager" if eager else "fused"))
+                         impl=align_impl or impl_of(cfg.align.attn_impl))
     cls_token, patch_tokens = tokens[:, 0], tokens[:, 1:]
     image_features = l2_normalize(torch.cat([cls_token, patch_tokens.mean(dim=1)], dim=-1))
     return {
@@ -162,8 +169,10 @@ def forward_train(
 
     Reads ``cfg.align.attn_impl`` ("fused_vjp", the default: the K1-K3
     layer with the K6-K8 backward; "packed": eager ops around K2 / K7;
-    "xla": eager layers that autograd differentiates), ``cfg.text.
-    fuse_post`` (K4 with the K9 backward, or the eager chain) and
+    "flash": eager ops around K13 / K14; "xla": eager layers that autograd
+    differentiates), ``cfg.text.attn_impl`` ("flash": K15 / K16, else the
+    eager attention), ``cfg.text.fuse_post`` (K4 with the K9 backward, or
+    the eager chain) and
     ``cfg.loss.train_impl`` ("fused" with ``sim_op="cos"``: kernels
     K10-K12, else eager ops).
     -> {"losses": {...}, **forward_vision outputs}."""
@@ -213,6 +222,7 @@ def compute_logits(
     *,
     dtype=torch.float32,
     eager: bool = False,
+    fused_towers: bool = True,
 ) -> Dict[str, torch.Tensor]:
     """Zero-shot scoring, ``radzero`` branch:
 
@@ -220,14 +230,18 @@ def compute_logits(
         similarity_scores  (B, N, L-1)  pre-softmax maps, CLS column removed
 
     The vision layers and VL-CABS run through the kernels K1-K3 and K5
-    (their plain twins for CPU tensors); ``eager=True`` runs the eager
-    reference ops instead, for checking the kernels on the card."""
+    (their plain twins for CPU tensors); ``fused_towers=False`` runs the
+    layers the config names instead of K1-K3 (``attn_impl="flash"``: K13);
+    the text tower reads ``cfg.text.attn_impl`` ("flash": K15) and
+    ``fuse_post`` (K4) either way. ``eager=True`` runs the eager reference
+    layers and VL-CABS, for checking the kernels on the card."""
     if cfg.compute_logits_type != "radzero":
         raise NotImplementedError(
             f"compute_logits_type {cfg.compute_logits_type!r} is not ported yet "
             "(ROADMAP.md item 6)"
         )
-    vision = forward_vision(params, cfg, pixel_values, dtype=dtype, eager=eager)
+    vision = forward_vision(params, cfg, pixel_values, dtype=dtype, eager=eager,
+                            fused_towers=fused_towers)
     text = forward_text(params, cfg, input_ids, attention_mask, dtype=dtype)
     lparams = params["loss_fns"]["RadZeroLoss"]
     out = radzero_similarity(

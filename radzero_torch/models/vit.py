@@ -14,18 +14,21 @@ Layer math (HF Dinov2Layer, pre-LN with LayerScale):
 :func:`dinov2_layer_fused` runs a layer through the kernels K1-K3
 (plain twins on CPU) and, under gradients, their backward kernels K6-K8
 (the JAX ``attn_impl="fused_vjp"``); :func:`dinov2_layer_packed` runs only
-the attention through K2 / K7 (``"packed"``); :func:`dinov2_layer` is the
-eager reference (``"xla"``). The port runs the real sequence length (1370
-at 518 px): no lane padding.
+the attention through K2 / K7 (``"packed"``); :func:`dinov2_layer_flash`
+runs it through K13 / K14 over the unpacked heads (``"flash"``, the
+``ViTConfig`` default); :func:`dinov2_layer` is the eager reference
+(``"xla"``). The port runs the real sequence length (1370 at 518 px): no
+lane padding, and no fallback past any length.
 """
 
 from __future__ import annotations
 
-from typing import List
+from typing import List, Optional
 
 import torch
 
 from radzero_torch.models.configuration import ViTConfig
+from radzero_torch.ops.flash_attention import flash_attention
 from radzero_torch.ops.fused_layer import (
     flash_attention_packed,
     fused_postattn,
@@ -162,16 +165,21 @@ def _eager_layer(x, p, cfg: ViTConfig, attn_fn) -> torch.Tensor:
     return x + m * p["ls2"].to(x.dtype)
 
 
-def dinov2_layer(x: torch.Tensor, p: dict, cfg: ViTConfig) -> torch.Tensor:
-    """Eager reference layer (the JAX ``attn_impl="xla"`` path)."""
-    d = cfg.hidden_size
+def _over_heads(cfg: ViTConfig, attn):
+    """``attn_fn`` for :func:`_eager_layer`: ``attn(q, k, v)`` over the (B, L, H,
+    hd) thirds of the packed projection (views, no copy), heads merged."""
+    d, h = cfg.hidden_size, cfg.num_attention_heads
 
     def attn_fn(qkv):
-        q, k, v = (split_heads(qkv[..., i * d : (i + 1) * d], cfg.num_attention_heads)
-                   for i in range(3))
-        return merge_heads(attention(q, k, v))
+        return merge_heads(attn(*(split_heads(qkv[..., i * d : (i + 1) * d], h)
+                                  for i in range(3))))
 
-    return _eager_layer(x, p, cfg, attn_fn)
+    return attn_fn
+
+
+def dinov2_layer(x: torch.Tensor, p: dict, cfg: ViTConfig) -> torch.Tensor:
+    """Eager reference layer (the JAX ``attn_impl="xla"`` path)."""
+    return _eager_layer(x, p, cfg, _over_heads(cfg, attention))
 
 
 def dinov2_layer_packed(x: torch.Tensor, p: dict, cfg: ViTConfig) -> torch.Tensor:
@@ -181,18 +189,30 @@ def dinov2_layer_packed(x: torch.Tensor, p: dict, cfg: ViTConfig) -> torch.Tenso
                         lambda qkv: flash_attention_packed(qkv, cfg.num_attention_heads))
 
 
-_LAYERS = {"fused": dinov2_layer_fused, "packed": dinov2_layer_packed, "eager": dinov2_layer}
+def dinov2_layer_flash(x: torch.Tensor, p: dict, cfg: ViTConfig) -> torch.Tensor:
+    """The JAX ``attn_impl="flash"`` layer: eager ops around the attention
+    kernel K13 over (B, L, H, hd) heads, whose backward is K14; the kernel
+    reads q, k and v by stride."""
+    return _eager_layer(x, p, cfg, _over_heads(cfg, flash_attention))
+
+
+_LAYERS = {"fused": dinov2_layer_fused, "packed": dinov2_layer_packed,
+           "flash": dinov2_layer_flash, "eager": dinov2_layer}
+_IMPL_OF = {"xla": "eager", "packed": "packed", "flash": "flash", "fused": "fused",
+            "fused_vjp": "fused"}
 
 
 def layer_impl(attn_impl: str) -> str:
-    """The layer a training forward runs for a JAX ``attn_impl`` name:
-    "xla" -> "eager", "packed" -> "packed", anything else ("fused_vjp",
-    "fused", "flash") -> "fused", the K1-K3 layer with the K6-K8 backward."""
-    return {"xla": "eager", "packed": "packed"}.get(attn_impl, "fused")
+    """The layer the port runs for a JAX ``attn_impl`` name: "xla" ->
+    "eager", "packed" -> "packed" (K2 / K7), "flash" -> "flash" (K13 / K14),
+    "fused" and "fused_vjp" -> "fused" (K1-K3 with the K6-K8 backward)."""
+    if attn_impl not in _IMPL_OF:
+        raise ValueError(f"unknown attn_impl {attn_impl!r}; expected one of {sorted(_IMPL_OF)}")
+    return _IMPL_OF[attn_impl]
 
 
 def vit_encoder(layers: List[dict], cfg: ViTConfig, x: torch.Tensor, *, impl: str = "fused"):
-    """``impl`` names the layer: "fused", "packed" or "eager"."""
+    """``impl`` names the layer: "fused", "packed", "flash" or "eager"."""
     layer = _LAYERS[impl]
     for p in layers:
         x = layer(x, p, cfg)
@@ -206,15 +226,18 @@ def vit_forward(
     *,
     dtype=torch.float32,
     eager: bool = False,
+    impl: Optional[str] = None,
 ) -> torch.Tensor:
     """(B, H, W, C) NHWC -> (B, 1 + h*w, D) tokens, final LN applied when
-    ``cfg.use_final_layernorm``. ``eager`` runs the reference layers."""
+    ``cfg.use_final_layernorm``. ``impl`` names the layer (see
+    :func:`vit_encoder`); without it ``eager`` picks the reference layers,
+    else the fused ones."""
     if cfg.token_filter_ratio > 0.0:
         raise NotImplementedError(
             "token_filter_ratio > 0 is not ported yet (ROADMAP.md, port queue)"
         )
     x = vit_embed(params, cfg, pixel_values, dtype)
-    x = vit_encoder(params["layers"], cfg, x, impl="eager" if eager else "fused")
+    x = vit_encoder(params["layers"], cfg, x, impl=impl or ("eager" if eager else "fused"))
     if cfg.use_final_layernorm:
         x = layer_norm(x, params["final_ln"], cfg.layer_norm_eps)
     return x

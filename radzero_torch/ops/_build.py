@@ -41,7 +41,7 @@ _L = ctypes.c_longlong
 SIGNATURES = {
     # x, ln_s, ln_b, w, b, out, M, K, N, eps, dtype, stream
     "rz_fused_preattn": [_P] * 6 + [_I, _I, _I, _F, _I, _P],
-    # qkv, out, B, L, H, hd, scale_log2e, dtype, stream
+    # qkv, out, B, L, H, hd, scale, dtype, stream
     "rz_packed_attention": [_P, _P, _I, _I, _I, _I, _F, _I, _P],
     # x, a, wo, bo, ls1, ln_s, ln_b, w1, b1, w2, b2, ls2, y32, h, out,
     # M, D, F, eps, dtype, stream

@@ -18,6 +18,16 @@ def on_cuda(t: torch.Tensor) -> bool:
     raise ValueError(f"no kernel or plain twin for device {t.device}")
 
 
+def tracked(*tensors) -> bool:
+    """Whether autograd would record an op on any of ``tensors`` now."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def needed(ctx, grads) -> tuple:
+    """``grads`` with None where autograd asked for no gradient."""
+    return tuple(g if need else None for g, need in zip(grads, ctx.needs_input_grad))
+
+
 def forbid_grad(name: str, missing: str, *tensors) -> None:
     """Raise when a forward-only kernel wrapper is handed an operand that
     autograd tracks. The wrappers write into fresh outputs outside the

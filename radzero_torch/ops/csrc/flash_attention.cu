@@ -1,11 +1,16 @@
-// K13 flash_attention, K14 its backward, K15 flash_attention_bias, K16 its
-// backward, for Hopper.
+// The attention kernels for Hopper: K13 flash_attention, K14 its backward,
+// K15 flash_attention_bias, K16 its backward, and the packed-layout pair K2
+// flash_attention_packed / K7 its backward, which are K13 / K14 over three
+// strided views of one (B, L, 3D) buffer.
 //
 // Replace the TPU kernels of radzero_tpu/ops/flash_attention.py:
 //   K13 _forward       (_kernel)        softmax(q k^T scale) v
 //   K14 _unbiased_bwd  (_bwd_kernel)    dq, dk, dv
 //   K15 _forward_b     (_kernel_b)      softmax(q k^T scale + bias[h] + neg[b]) v
 //   K16 _bwd_b         (_bwd_kernel_b)  dq, dk, dv and d(bias) summed over the batch
+// and of radzero_tpu/ops/fused_layer.py:
+//   K2 flash_attention_packed (_packed_attn_kernel)      merged heads (B, L, D)
+//   K7 _packed_vjp_bwd        (_packed_attn_bwd_kernel)  packed d(qkv)
 // with the same contracts: fp32 scores and softmax on fp32 or bf16 operands,
 // exp2 with log2(e) folded into the score, the division deferred to the
 // (query, 64) output, keys >= kv_len masked; the softmax weights are rounded
@@ -14,13 +19,17 @@
 //
 // What differs from the TPU kernels, and why:
 // - Layout. q, k and v are (B, L, H, 64) read by stride (a batch and a row
-//   stride each), so three slices of one packed (B, L, 3D) product need no
-//   copy and no (B * H, L, 64) transposes or lane padding exist.
+//   stride each), and the outputs are written by stride, so three slices of
+//   one packed (B, L, 3D) product need no copy, K2 / K7 are the same device
+//   code, and no (B * H, L, 64) transposes or lane padding exist.
 // - One head's K and V do not fit an SM's shared memory, so the forward is
 //   an online softmax over 64-key tiles with a running max (always
 //   subtracted: the TPU's bf16 shortcut stable=False is not mirrored), and
 //   the backward recomputes the row statistics (max, 1 / sum, delta =
-//   rowsum(dP P)) in a first kernel, as the packed kernels K2 / K7 do.
+//   rowsum(dP P)) in a first kernel: ten score-sized products where five
+//   would do with statistics saved by the forward. S and P.V pass through
+//   warp-private shared memory, because WMMA leaves its accumulator layout
+//   unspecified.
 // - No sequence-length limit and no eager fallback: every loop walks tiles.
 // - dK / dV: the TPU adds them up across sequential grid steps. Here one
 //   block per key tile walks the query tiles with fp32 accumulators in
@@ -59,6 +68,16 @@ struct Op {
   long long bs, rs;
   __device__ __forceinline__ const T* head(int b, int h) const {
     return p + (size_t)b * bs + h * HD;
+  }
+};
+
+// One (B, L, H, 64) result written by stride, the same addressing.
+template <typename T>
+struct Out {
+  T* p;
+  long long bs, rs;
+  __device__ __forceinline__ T* row(int b, int l, int h) const {
+    return p + (size_t)b * bs + (size_t)l * rs + h * HD;
   }
 };
 
@@ -133,10 +152,12 @@ size_t fwd_smem() {
          NW * (16 * SP * sizeof(float) + 16 * AP * sizeof(T));
 }
 
+// two blocks an SM, but one for the 8-warp fp32 kernel, whose 145 KB of shared
+// memory admit no second block: it may keep its registers
 template <typename T, int NW, bool BIAS>
-__global__ void __launch_bounds__(NW * 32, 2)
+__global__ void __launch_bounds__(NW * 32, (sizeof(T) == 4 && NW == 8) ? 1 : 2)
 fwd_kernel(Op<T> q, Op<T> k, Op<T> v, const float* __restrict__ bias,
-           const float* __restrict__ neg, T* __restrict__ out, int L, int Lk, int H, float scale,
+           const float* __restrict__ neg, Out<T> out, int L, int Lk, int H, float scale,
            float sl2) {
   constexpr int TQ = NW * 16, NT = NW * 32;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -222,7 +243,7 @@ fwd_kernel(Op<T> q, Op<T> k, Op<T> v, const float* __restrict__ bias,
   }
 
   if (qrow < L) {
-    T* dst = out + (((size_t)b * L + qrow) * H + h) * HD + half * 32;
+    T* dst = out.row(b, qrow, h) + half * 32;
 #pragma unroll
     for (int j = 0; j < 32; ++j) dst[j] = from_f32<T>(o[j] / l);
   }
@@ -351,8 +372,7 @@ __global__ void __launch_bounds__(128)
 bwd_dkdv_kernel(Op<T> q, Op<T> k, Op<T> v, const float* __restrict__ bias,
                 const float* __restrict__ neg, Op<T> dout, const float* __restrict__ row_m,
                 const float* __restrict__ row_il, const float* __restrict__ row_delta,
-                T* __restrict__ dk_out, T* __restrict__ dv_out, int L, int Lk, int H, float scale,
-                float sl2) {
+                Out<T> dk_out, Out<T> dv_out, int L, int Lk, int H, float scale, float sl2) {
   constexpr int NT = 128;
   extern __shared__ __align__(128) unsigned char smem[];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -403,19 +423,20 @@ bwd_dkdv_kernel(Op<T> q, Op<T> k, Op<T> v, const float* __restrict__ bias,
   }
 
   const int key = k0 + warp * 16 + r;
-  const size_t orow = (((size_t)b * L + key) * H + h) * HD + half * 32;
   dv.store(Sw, SP);
   __syncwarp();
   if (key < L) {
+    T* drow = dv_out.row(b, key, h) + half * 32;
 #pragma unroll
-    for (int j = 0; j < 32; ++j) dv_out[orow + j] = from_f32<T>(Sw[r * SP + half * 32 + j]);
+    for (int j = 0; j < 32; ++j) drow[j] = from_f32<T>(Sw[r * SP + half * 32 + j]);
   }
   __syncwarp();
   dk.store(Sw, SP);
   __syncwarp();
   if (key < L) {
+    T* drow = dk_out.row(b, key, h) + half * 32;
 #pragma unroll
-    for (int j = 0; j < 32; ++j) dk_out[orow + j] = from_f32<T>(Sw[r * SP + half * 32 + j]);
+    for (int j = 0; j < 32; ++j) drow[j] = from_f32<T>(Sw[r * SP + half * 32 + j]);
   }
 }
 
@@ -426,7 +447,7 @@ __global__ void __launch_bounds__(NW * 32)
 bwd_dq_kernel(Op<T> q, Op<T> k, Op<T> v, const float* __restrict__ bias,
               const float* __restrict__ neg, Op<T> dout, const float* __restrict__ row_m,
               const float* __restrict__ row_il, const float* __restrict__ row_delta,
-              T* __restrict__ dq_out, int L, int Lk, int H, float scale, float sl2) {
+              Out<T> dq_out, int L, int Lk, int H, float scale, float sl2) {
   constexpr int TQ = NW * 16, NT = NW * 32;
   extern __shared__ __align__(128) unsigned char smem[];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -475,7 +496,7 @@ bwd_dq_kernel(Op<T> q, Op<T> k, Op<T> v, const float* __restrict__ bias,
   dq.store(Sw, SP);
   __syncwarp();
   if (q_ok) {
-    T* drow = dq_out + (((size_t)b * L + qrow) * H + h) * HD + half * 32;
+    T* drow = dq_out.row(b, qrow, h) + half * 32;
 #pragma unroll
     for (int j = 0; j < 32; ++j) drow[j] = from_f32<T>(Sw[r * SP + half * 32 + j]);
   }
@@ -553,11 +574,31 @@ struct Args {  // the operands of one call, as the C entry points receive them
   const float *bias, *neg;  // null without a bias
   int B, L, H, Lk;
   float scale;
+  long long o_bs, o_rs;  // strides of the results: out, or dq, dk and dv
+
+  void packed(const void* qkv, int dtype) {  // q, k, v: the thirds of a (B, L, 3D) buffer
+    const long long d = (long long)H * HD;
+    const size_t third = (size_t)d * (dtype == RZ_DTYPE_BF16 ? 2 : 4);
+    q = qkv;
+    k = static_cast<const char*>(qkv) + third;
+    v = static_cast<const char*>(qkv) + 2 * third;
+    q_rs = k_rs = v_rs = 3 * d;
+    q_bs = k_bs = v_bs = 3 * d * L;
+  }
+  void contiguous_results() {
+    o_rs = (long long)H * HD;
+    o_bs = o_rs * L;
+  }
 };
 
 template <typename T>
 Op<T> op(const void* p, long long bs, long long rs) {
   return Op<T>{static_cast<const T*>(p), bs, rs};
+}
+
+template <typename T>
+Out<T> result(void* p, const Args& a) {
+  return Out<T>{static_cast<T*>(p), a.o_bs, a.o_rs};
 }
 
 template <typename T, int NW, bool BIAS>
@@ -568,7 +609,7 @@ cudaError_t launch_fwd(const Args& a, void* out, cudaStream_t s) {
   dim3 grid((a.L + NW * 16 - 1) / (NW * 16), a.H, a.B);
   fwd_kernel<T, NW, BIAS><<<grid, NW * 32, smem, s>>>(
       op<T>(a.q, a.q_bs, a.q_rs), op<T>(a.k, a.k_bs, a.k_rs), op<T>(a.v, a.v_bs, a.v_rs), a.bias,
-      a.neg, static_cast<T*>(out), a.L, a.Lk, a.H, a.scale, a.scale * kLog2e);
+      a.neg, result<T>(out, a), a.L, a.Lk, a.H, a.scale, a.scale * kLog2e);
   return cudaGetLastError();
 }
 
@@ -584,7 +625,7 @@ cudaError_t forward(const Args& a, void* out, cudaStream_t s) {
 struct BwdArgs {
   const void* dout;  // (B, L, H, 64) contiguous
   float *row_m, *row_il, *row_delta;  // (B, H, L) scratch
-  void *dq, *dk, *dv;                 // (B, L, H, 64) contiguous
+  void *dq, *dk, *dv;                 // (B, L, H, 64) by the strides of Args
   float* dbias_part;                  // (chunks, H, L, L), K16 only
   int chunks;
 };
@@ -609,14 +650,14 @@ cudaError_t launch_bwd(const Args& a, const BwdArgs& g, cudaStream_t s) {
   smem = dkdv_smem<T>();
   if ((err = allow_smem(bwd_dkdv_kernel<T, BIAS>, smem)) != cudaSuccess) return err;
   bwd_dkdv_kernel<T, BIAS><<<kgrid, 128, smem, s>>>(
-      q, k, v, a.bias, a.neg, dout, g.row_m, g.row_il, g.row_delta, static_cast<T*>(g.dk),
-      static_cast<T*>(g.dv), a.L, a.Lk, a.H, a.scale, sl2);
+      q, k, v, a.bias, a.neg, dout, g.row_m, g.row_il, g.row_delta, result<T>(g.dk, a),
+      result<T>(g.dv, a), a.L, a.Lk, a.H, a.scale, sl2);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
   smem = rows_smem<T, NW>(true);
   if ((err = allow_smem(bwd_dq_kernel<T, NW, BIAS>, smem)) != cudaSuccess) return err;
   bwd_dq_kernel<T, NW, BIAS><<<qgrid, NW * 32, smem, s>>>(
-      q, k, v, a.bias, a.neg, dout, g.row_m, g.row_il, g.row_delta, static_cast<T*>(g.dq), a.L,
+      q, k, v, a.bias, a.neg, dout, g.row_m, g.row_il, g.row_delta, result<T>(g.dq, a), a.L,
       a.Lk, a.H, a.scale, sl2);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
@@ -649,17 +690,42 @@ inline bool bad(const Args& a, int hd) {
 using bf16 = __nv_bfloat16;
 namespace fa = rz::fa;
 
+static fa::Args make_args(const void* q, const void* k, const void* v, long long q_bs,
+                          long long q_rs, long long k_bs, long long k_rs, long long v_bs,
+                          long long v_rs, const void* bias, const void* neg, int B, int L, int H,
+                          int kv_len, float scale) {
+  fa::Args a{q, k, v, q_bs, q_rs, k_bs, k_rs, v_bs, v_rs, static_cast<const float*>(bias),
+             static_cast<const float*>(neg), B, L, H, kv_len, scale, 0, 0};
+  a.contiguous_results();
+  return a;
+}
+
+template <bool BIAS>
+static int run_forward(const fa::Args& a, int hd, void* out, int dtype, void* stream) {
+  if (fa::bad(a, hd)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(dtype == RZ_DTYPE_BF16 ? fa::forward<bf16, BIAS>(a, out, s)
+                                                 : fa::forward<float, BIAS>(a, out, s));
+}
+
+template <bool BIAS>
+static int run_backward(const fa::Args& a, int hd, const fa::BwdArgs& g, int dtype,
+                        void* stream) {
+  if (fa::bad(a, hd)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(dtype == RZ_DTYPE_BF16 ? fa::backward<bf16, BIAS>(a, g, s)
+                                                 : fa::backward<float, BIAS>(a, g, s));
+}
+
 // K13: q, k, v (B, L, H, 64) by stride -> out (B, L, H, 64) contiguous; keys
 // >= kv_len are masked
 extern "C" int rz_flash_attention(const void* q, const void* k, const void* v, void* out,
                                   long long q_bs, long long q_rs, long long k_bs, long long k_rs,
                                   long long v_bs, long long v_rs, int B, int L, int H, int hd,
                                   int kv_len, float scale, int dtype, void* stream) {
-  fa::Args a{q, k, v, q_bs, q_rs, k_bs, k_rs, v_bs, v_rs, nullptr, nullptr, B, L, H, kv_len, scale};
-  if (fa::bad(a, hd)) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(dtype == RZ_DTYPE_BF16 ? fa::forward<bf16, false>(a, out, s)
-                                                 : fa::forward<float, false>(a, out, s));
+  const fa::Args a = make_args(q, k, v, q_bs, q_rs, k_bs, k_rs, v_bs, v_rs, nullptr, nullptr, B,
+                               L, H, kv_len, scale);
+  return run_forward<false>(a, hd, out, dtype, stream);
 }
 
 // K15: the same with bias (H, L, L) fp32 and neg (B, L) fp32 added to the score
@@ -669,12 +735,9 @@ extern "C" int rz_flash_attention_bias(const void* q, const void* k, const void*
                                        long long k_rs, long long v_bs, long long v_rs, int B,
                                        int L, int H, int hd, int kv_len, float scale, int dtype,
                                        void* stream) {
-  fa::Args a{q, k, v, q_bs, q_rs, k_bs, k_rs, v_bs, v_rs, static_cast<const float*>(bias),
-             static_cast<const float*>(neg), B, L, H, kv_len, scale};
-  if (fa::bad(a, hd)) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(dtype == RZ_DTYPE_BF16 ? fa::forward<bf16, true>(a, out, s)
-                                                 : fa::forward<float, true>(a, out, s));
+  const fa::Args a = make_args(q, k, v, q_bs, q_rs, k_bs, k_rs, v_bs, v_rs, bias, neg, B, L, H,
+                               kv_len, scale);
+  return run_forward<true>(a, hd, out, dtype, stream);
 }
 
 // K14: cotangent dout (B, L, H, 64) contiguous -> dq, dk, dv (B, L, H, 64)
@@ -685,14 +748,12 @@ extern "C" int rz_flash_attention_bwd(const void* q, const void* k, const void* 
                                       long long k_rs, long long v_bs, long long v_rs, int B, int L,
                                       int H, int hd, int kv_len, float scale, int dtype,
                                       void* stream) {
-  fa::Args a{q, k, v, q_bs, q_rs, k_bs, k_rs, v_bs, v_rs, nullptr, nullptr, B, L, H, kv_len, scale};
-  if (fa::bad(a, hd)) return static_cast<int>(cudaErrorInvalidValue);
+  const fa::Args a = make_args(q, k, v, q_bs, q_rs, k_bs, k_rs, v_bs, v_rs, nullptr, nullptr, B,
+                               L, H, kv_len, scale);
   float* st = static_cast<float*>(stats);
   const size_t n = (size_t)B * H * L;
-  fa::BwdArgs g{dout, st, st + n, st + 2 * n, dq, dk, dv, nullptr, 0};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(dtype == RZ_DTYPE_BF16 ? fa::backward<bf16, false>(a, g, s)
-                                                 : fa::backward<float, false>(a, g, s));
+  return run_backward<false>(a, hd, {dout, st, st + n, st + 2 * n, dq, dk, dv, nullptr, 0}, dtype,
+                             stream);
 }
 
 // K16: as K14 with the bias and the key mask, plus dbias_part (chunks, H, L, L)
@@ -706,13 +767,41 @@ extern "C" int rz_flash_attention_bias_bwd(const void* q, const void* k, const v
                                            long long v_bs, long long v_rs, int B, int L, int H,
                                            int hd, int kv_len, float scale, int dtype,
                                            void* stream) {
-  fa::Args a{q, k, v, q_bs, q_rs, k_bs, k_rs, v_bs, v_rs, static_cast<const float*>(bias),
-             static_cast<const float*>(neg), B, L, H, kv_len, scale};
-  if (fa::bad(a, hd) || chunks < 1 || chunks > B) return static_cast<int>(cudaErrorInvalidValue);
+  if (chunks < 1 || chunks > B) return static_cast<int>(cudaErrorInvalidValue);
+  const fa::Args a = make_args(q, k, v, q_bs, q_rs, k_bs, k_rs, v_bs, v_rs, bias, neg, B, L, H,
+                               kv_len, scale);
   float* st = static_cast<float*>(stats);
   const size_t n = (size_t)B * H * L;
-  fa::BwdArgs g{dout, st, st + n, st + 2 * n, dq, dk, dv, static_cast<float*>(dbias_part), chunks};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(dtype == RZ_DTYPE_BF16 ? fa::backward<bf16, true>(a, g, s)
-                                                 : fa::backward<float, true>(a, g, s));
+  return run_backward<true>(
+      a, hd, {dout, st, st + n, st + 2 * n, dq, dk, dv, static_cast<float*>(dbias_part), chunks},
+      dtype, stream);
+}
+
+// K2: qkv (B, L, 3D) packed [q | k | v] -> out (B, L, D) merged heads, D = H * 64:
+// K13 over the three thirds, no key masked
+extern "C" int rz_packed_attention(const void* qkv, void* out, int B, int L, int H, int hd,
+                                   float scale, int dtype, void* stream) {
+  fa::Args a = make_args(nullptr, nullptr, nullptr, 0, 0, 0, 0, 0, 0, nullptr, nullptr, B, L, H,
+                         L, scale);
+  a.packed(qkv, dtype);
+  return run_forward<false>(a, hd, out, dtype, stream);
+}
+
+// K7: qkv (B, L, 3D), dout (B, L, D) -> dqkv (B, L, 3D): K14 writing dq, dk and
+// dv into the thirds of dqkv; row_m, row_il and row_delta are (B, H, L) fp32 scratch
+extern "C" int rz_packed_attention_bwd(const void* qkv, const void* dout, void* row_m,
+                                       void* row_il, void* row_delta, void* dqkv, int B, int L,
+                                       int H, int hd, float scale, int dtype, void* stream) {
+  fa::Args a = make_args(nullptr, nullptr, nullptr, 0, 0, 0, 0, 0, 0, nullptr, nullptr, B, L, H,
+                         L, scale);
+  a.packed(qkv, dtype);
+  a.o_bs = a.q_bs;
+  a.o_rs = a.q_rs;
+  const size_t third = static_cast<const char*>(a.k) - static_cast<const char*>(a.q);
+  char* d = static_cast<char*>(dqkv);
+  return run_backward<false>(a, hd,
+                             {dout, static_cast<float*>(row_m), static_cast<float*>(row_il),
+                              static_cast<float*>(row_delta), d, d + third, d + 2 * third, nullptr,
+                              0},
+                             dtype, stream);
 }

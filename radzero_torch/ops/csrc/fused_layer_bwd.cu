@@ -1,23 +1,22 @@
-// K6, K7, K8, K9: the backward kernels of the fused layers for Hopper.
+// K6, K8, K9: the backward kernels of the fused layers for Hopper (K7, the
+// backward of the packed attention K2, is in flash_attention.cu).
 //
 // Replace the TPU kernels of radzero_tpu/ops/fused_layer.py:
 //   K6 _preattn_vjp_bwd     (_preattn_bwd_kernel)     backward of K1
-//   K7 _packed_vjp_bwd      (_packed_attn_bwd_kernel) backward of K2
 //   K8 _postattn_vjp_bwd    (_postattn_bwd_kernel)    backward of K3
 //   K9 _mpnet_post_vjp_bwd  (_mpnet_post_bwd_kernel)  backward of K4
 // with the same contracts: only the layer's inputs are kept from the
 // forward; the backward recomputes the forward chain in fp32 and rounds to
 // the operand type where the TPU kernels do (LN output, GELU output, dm,
-// dh1, dproj; p, dO and dS in K7); every sum is fp32; gradients come back
-// in the operand type.
+// dh1, dproj); every sum is fp32; gradients come back in the operand type.
 //
 // What bounds them on the H100, and what the design does about it. All
-// four are chains of matrix products (K6 4 N D 3D operations, K7
-// 10 B H L^2 hd, K8 and K9 6 N D (D + 2F)), so the math units bound them.
+// three are chains of matrix products (K6 4 N D 3D operations, K8 and K9
+// 6 N D (D + 2F)), so the math units bound them.
 // - The TPU kernels hold a row block's whole chain in VMEM and add weight,
 //   bias, LN and LayerScale gradients into one block across sequential
 //   grid steps. Here blocks run concurrently and W1 / W2 do not fit an SM,
-//   so K6, K8 and K9 are chains of launches that the Python wrapper
+//   so they are chains of launches that the Python wrapper
 //   composes from the entry points below, with the intermediates (LN
 //   output, pre-GELU h1, GELU output, the rounded gradients) in scratch
 //   that the wrapper allocates for the call:
@@ -37,20 +36,10 @@
 //                      order and rounds once.
 //   No sum crosses blocks through atomics or `+=`: every gradient has the
 //   same bits from run to run.
-// - K7: the TPU kernel holds one head's (L x L) probabilities in VMEM.
-//   Here three kernels of 64x64 tiles, nothing of (L, L) outside shared
-//   memory: statistics (row max, 1 / row sum, delta = rowsum(dP * P): one
-//   sweep over the keys for the first two, one for delta); dK and dV with
-//   one block per (64 keys, head, image) that walks the query tiles, P and
-//   dS written transposed to shared memory so that P^T dO and dS^T Q are
-//   plain products; dQ with one block per (64 queries, head, image) that
-//   walks the key tiles. Keys >= L get P = 0, query rows >= L load as 0.
 // bf16 products run on the tensor cores (WMMA, fp32 accumulators), fp32
 // products on the CUDA cores in true fp32.
 // Not yet done (later work): fusing the chain's row passes into GEMM
-// prologues, walking rows in chunks to bound the scratch, sharing the
-// recompute between K7's kernels or saving the forward's row statistics,
-// wgmma / TMA.
+// prologues, walking rows in chunks to bound the scratch, wgmma / TMA.
 #include "gemm.cuh"
 
 namespace rz {
@@ -349,284 +338,6 @@ scale_colsum_kernel(const T* __restrict__ g, const float* __restrict__ m,
 }
 
 // ---------------------------------------------------------------------------
-// K7: packed attention backward, head_dim 64, 64 x 64 tiles, 4 warps
-// ---------------------------------------------------------------------------
-
-constexpr int HD = 64, TQ = 64, TK = 64, AT = 128;
-constexpr int AP = HD + 8;  // operand pitch (elements)
-constexpr int SP = TK + 4;  // fp32 score pitch
-constexpr int PP = TQ + 8;  // pitch of the transposed P / dS tiles
-
-// rows [r0, r0 + 64) x 64 columns from src (row stride ld) -> dst (64 x AP); rows >= L are zero
-template <typename T>
-__device__ __forceinline__ void load_tile(T* dst, const T* __restrict__ src, int ld, int r0,
-                                          int L) {
-  constexpr int VEC = 16 / sizeof(T), PER_ROW = HD / VEC;
-  for (int i = threadIdx.x; i < 64 * PER_ROW; i += AT) {
-    const int r = i / PER_ROW, c = (i % PER_ROW) * VEC, row = r0 + r;
-    uint4 v = make_uint4(0, 0, 0, 0);
-    if (row < L) v = *reinterpret_cast<const uint4*>(src + (size_t)row * ld + c);
-    *reinterpret_cast<uint4*>(dst + r * AP + c) = v;
-  }
-}
-
-// this warp's 16 x 64 tiles S = Q K^T and dP = dO V^T -> Sw, Dw (fp32, pitch SP)
-template <typename T>
-__device__ __forceinline__ void score_tiles(const T* Qw, const T* dOw, const T* Ks, const T* Vs,
-                                            float* Sw, float* Dw) {
-  WarpAcc<T, true> s;
-  s.zero();
-  s.mma(Qw, AP, Ks, AP, HD);
-  s.store(Sw, SP);
-  WarpAcc<T, true> d;
-  d.zero();
-  d.mma(dOw, AP, Vs, AP, HD);
-  d.store(Dw, SP);
-  __syncwarp();
-}
-
-template <typename T>
-size_t attn_bwd_smem(int tiles, bool transposed, bool pw) {
-  return (size_t)tiles * 64 * AP * sizeof(T) + (transposed ? 2 * (size_t)TK * PP * sizeof(T) : 0) +
-         (AT / 32) * (2 * (size_t)16 * SP * sizeof(float) + (pw ? (size_t)16 * AP * sizeof(T) : 0));
-}
-
-// grid (ceil(L / 64), H, B): per query row the max m of s * scale * log2e,
-// 1 / sum exp2(s - m) and delta = sum_k dP * P  -> three (B, H, L) arrays
-template <typename T>
-__global__ void __launch_bounds__(AT)
-attn_bwd_stats_kernel(const T* __restrict__ qkv, const T* __restrict__ dout,
-                      float* __restrict__ row_m, float* __restrict__ row_il,
-                      float* __restrict__ row_delta, int L, int H, float scale_log2e) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  T* Qs = reinterpret_cast<T*>(smem);
-  T* dOs = Qs + 64 * AP;
-  T* Ks = dOs + 64 * AP;
-  T* Vs = Ks + 64 * AP;
-  float* Sw = reinterpret_cast<float*>(Vs + 64 * AP) + warp * 2 * 16 * SP;
-  float* Dw = Sw + 16 * SP;
-  const int q0 = blockIdx.x * TQ, h = blockIdx.y, b = blockIdx.z;
-  const int D = H * HD, D3 = 3 * D;
-  const T* base = qkv + (size_t)b * L * D3 + h * HD;
-  load_tile<T>(Qs, base, D3, q0, L);
-  load_tile<T>(dOs, dout + (size_t)b * L * D + h * HD, D, q0, L);
-  const T* Qw = Qs + warp * 16 * AP;
-  const T* dOw = dOs + warp * 16 * AP;
-  const int r = lane / 2, half = lane % 2;
-
-  float m = -INFINITY, l = 0.f;
-  for (int k0 = 0; k0 < L; k0 += TK) {  // sweep 1: row max and row sum
-    __syncthreads();
-    load_tile<T>(Ks, base + D, D3, k0, L);
-    __syncthreads();
-    WarpAcc<T, true> s;
-    s.zero();
-    s.mma(Qw, AP, Ks, AP, HD);
-    s.store(Sw, SP);
-    __syncwarp();
-    float tmax = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < 32; ++j) {
-      const int col = half * 32 + j;
-      const float v = (k0 + col < L) ? Sw[r * SP + col] * scale_log2e : -INFINITY;
-      Sw[r * SP + col] = v;
-      tmax = fmaxf(tmax, v);
-    }
-    tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 1));
-    const float m_new = fmaxf(m, tmax);
-    float psum = 0.f;
-#pragma unroll
-    for (int j = 0; j < 32; ++j) psum += exp2f(Sw[r * SP + half * 32 + j] - m_new);
-    psum += __shfl_xor_sync(0xffffffffu, psum, 1);
-    l = l * exp2f(m - m_new) + psum;
-    m = m_new;
-    __syncwarp();
-  }
-  const float il = 1.0f / l;
-  float delta = 0.f;
-  for (int k0 = 0; k0 < L; k0 += TK) {  // sweep 2: delta
-    __syncthreads();
-    load_tile<T>(Ks, base + D, D3, k0, L);
-    load_tile<T>(Vs, base + 2 * D, D3, k0, L);
-    __syncthreads();
-    score_tiles<T>(Qw, dOw, Ks, Vs, Sw, Dw);
-#pragma unroll
-    for (int j = 0; j < 32; ++j) {
-      const int col = half * 32 + j;
-      if (k0 + col < L)
-        delta += exp2f(Sw[r * SP + col] * scale_log2e - m) * il * Dw[r * SP + col];
-    }
-    __syncwarp();
-  }
-  delta += __shfl_xor_sync(0xffffffffu, delta, 1);
-  const int q = q0 + warp * 16 + r;
-  if (half == 0 && q < L) {
-    const size_t o = ((size_t)b * H + h) * L + q;
-    row_m[o] = m;
-    row_il[o] = il;
-    row_delta[o] = delta;
-  }
-}
-
-// grid (ceil(L / 64), H, B) over key tiles: dK and dV of one key tile, every
-// query tile walked in order; written into the k and v thirds of dqkv
-template <typename T>
-__global__ void __launch_bounds__(AT)
-attn_bwd_dkdv_kernel(const T* __restrict__ qkv, const T* __restrict__ dout,
-                     const float* __restrict__ row_m, const float* __restrict__ row_il,
-                     const float* __restrict__ row_delta, T* __restrict__ dqkv, int L, int H,
-                     float scale, float scale_log2e) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  T* Ks = reinterpret_cast<T*>(smem);
-  T* Vs = Ks + 64 * AP;
-  T* Qs = Vs + 64 * AP;
-  T* dOs = Qs + 64 * AP;
-  T* Pt = dOs + 64 * AP;   // (keys x queries), pitch PP
-  T* dSt = Pt + TK * PP;
-  float* Sw = reinterpret_cast<float*>(dSt + TK * PP) + warp * 2 * 16 * SP;
-  float* Dw = Sw + 16 * SP;
-  const int k0 = blockIdx.x * TK, h = blockIdx.y, b = blockIdx.z;
-  const int D = H * HD, D3 = 3 * D;
-  const T* base = qkv + (size_t)b * L * D3 + h * HD;
-  const T* dob = dout + (size_t)b * L * D + h * HD;
-  const size_t srow = ((size_t)b * H + h) * L;
-  load_tile<T>(Ks, base + D, D3, k0, L);
-  load_tile<T>(Vs, base + 2 * D, D3, k0, L);
-  const int r = lane / 2, half = lane % 2;
-
-  WarpAcc<T, false> dv, dk;
-  dv.zero();
-  dk.zero();
-  for (int q0 = 0; q0 < L; q0 += TQ) {
-    __syncthreads();  // the last products have read Qs, dOs, Pt and dSt
-    load_tile<T>(Qs, base, D3, q0, L);
-    load_tile<T>(dOs, dob, D, q0, L);
-    __syncthreads();
-    score_tiles<T>(Qs + warp * 16 * AP, dOs + warp * 16 * AP, Ks, Vs, Sw, Dw);
-    const int q = q0 + warp * 16 + r;
-    const bool q_ok = q < L;
-    const float mq = q_ok ? row_m[srow + q] : 0.f, il = q_ok ? row_il[srow + q] : 0.f;
-    const float dl = q_ok ? row_delta[srow + q] : 0.f;
-#pragma unroll
-    for (int j = 0; j < 32; ++j) {
-      const int col = half * 32 + j;
-      float p = 0.f;
-      if (q_ok && k0 + col < L) p = exp2f(Sw[r * SP + col] * scale_log2e - mq) * il;
-      const float ds = p * (Dw[r * SP + col] - dl) * scale;
-      Pt[col * PP + warp * 16 + r] = from_f32<T>(p);
-      dSt[col * PP + warp * 16 + r] = from_f32<T>(ds);
-    }
-    __syncthreads();
-    dv.mma(Pt + warp * 16 * PP, PP, dOs, AP, TQ);  // P^T dO
-    dk.mma(dSt + warp * 16 * PP, PP, Qs, AP, TQ);  // dS^T Q
-  }
-
-  const int key = k0 + warp * 16 + r;
-  T* drow = dqkv + ((size_t)b * L + key) * D3 + h * HD + half * 32;
-  dv.store(Sw, SP);
-  __syncwarp();
-  if (key < L) {
-#pragma unroll
-    for (int j = 0; j < 32; ++j) drow[2 * D + j] = from_f32<T>(Sw[r * SP + half * 32 + j]);
-  }
-  __syncwarp();
-  dk.store(Sw, SP);
-  __syncwarp();
-  if (key < L) {
-#pragma unroll
-    for (int j = 0; j < 32; ++j) drow[D + j] = from_f32<T>(Sw[r * SP + half * 32 + j]);
-  }
-}
-
-// grid (ceil(L / 64), H, B) over query tiles: dQ, every key tile walked in
-// order; each warp owns 16 query rows end to end
-template <typename T>
-__global__ void __launch_bounds__(AT)
-attn_bwd_dq_kernel(const T* __restrict__ qkv, const T* __restrict__ dout,
-                   const float* __restrict__ row_m, const float* __restrict__ row_il,
-                   const float* __restrict__ row_delta, T* __restrict__ dqkv, int L, int H,
-                   float scale, float scale_log2e) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  T* Qs = reinterpret_cast<T*>(smem);
-  T* dOs = Qs + 64 * AP;
-  T* Ks = dOs + 64 * AP;
-  T* Vs = Ks + 64 * AP;
-  unsigned char* wbase = reinterpret_cast<unsigned char*>(Vs + 64 * AP) +
-                         warp * (2 * 16 * SP * sizeof(float) + 16 * AP * sizeof(T));
-  float* Sw = reinterpret_cast<float*>(wbase);
-  float* Dw = Sw + 16 * SP;
-  T* Pw = reinterpret_cast<T*>(Dw + 16 * SP);  // dS, rounded: 16 x AP
-  const int q0 = blockIdx.x * TQ, h = blockIdx.y, b = blockIdx.z;
-  const int D = H * HD, D3 = 3 * D;
-  const T* base = qkv + (size_t)b * L * D3 + h * HD;
-  load_tile<T>(Qs, base, D3, q0, L);
-  load_tile<T>(dOs, dout + (size_t)b * L * D + h * HD, D, q0, L);
-  const int r = lane / 2, half = lane % 2;
-  const int q = q0 + warp * 16 + r;
-  const bool q_ok = q < L;
-  const size_t srow = ((size_t)b * H + h) * L;
-  const float mq = q_ok ? row_m[srow + q] : 0.f, il = q_ok ? row_il[srow + q] : 0.f;
-  const float dl = q_ok ? row_delta[srow + q] : 0.f;
-
-  WarpAcc<T, false> dq;
-  dq.zero();
-  for (int k0 = 0; k0 < L; k0 += TK) {
-    __syncthreads();
-    load_tile<T>(Ks, base + D, D3, k0, L);
-    load_tile<T>(Vs, base + 2 * D, D3, k0, L);
-    __syncthreads();
-    score_tiles<T>(Qs + warp * 16 * AP, dOs + warp * 16 * AP, Ks, Vs, Sw, Dw);
-#pragma unroll
-    for (int j = 0; j < 32; ++j) {
-      const int col = half * 32 + j;
-      float p = 0.f;
-      if (q_ok && k0 + col < L) p = exp2f(Sw[r * SP + col] * scale_log2e - mq) * il;
-      Pw[r * AP + col] = from_f32<T>(p * (Dw[r * SP + col] - dl) * scale);
-    }
-    __syncwarp();
-    dq.mma(Pw, AP, Ks, AP, TK);  // dS K
-  }
-  dq.store(Sw, SP);
-  __syncwarp();
-  if (q_ok) {
-    T* drow = dqkv + ((size_t)b * L + q) * D3 + h * HD + half * 32;
-#pragma unroll
-    for (int j = 0; j < 32; ++j) drow[j] = from_f32<T>(Sw[r * SP + half * 32 + j]);
-  }
-}
-
-template <typename T>
-cudaError_t attention_bwd(const void* qkv, const void* dout, void* row_m, void* row_il,
-                          void* row_delta, void* dqkv, int B, int L, int H, float scale,
-                          cudaStream_t s) {
-  const T* q = static_cast<const T*>(qkv);
-  const T* d = static_cast<const T*>(dout);
-  float* rm = static_cast<float*>(row_m);
-  float* ri = static_cast<float*>(row_il);
-  float* rd = static_cast<float*>(row_delta);
-  const float sl = scale * kLog2e;
-  dim3 grid((L + 63) / 64, H, B);
-  size_t smem = attn_bwd_smem<T>(4, false, false);
-  cudaError_t err = allow_smem(attn_bwd_stats_kernel<T>, smem);
-  if (err != cudaSuccess) return err;
-  attn_bwd_stats_kernel<T><<<grid, AT, smem, s>>>(q, d, rm, ri, rd, L, H, sl);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  smem = attn_bwd_smem<T>(4, true, false);
-  if ((err = allow_smem(attn_bwd_dkdv_kernel<T>, smem)) != cudaSuccess) return err;
-  attn_bwd_dkdv_kernel<T><<<grid, AT, smem, s>>>(q, d, rm, ri, rd, static_cast<T*>(dqkv), L, H,
-                                                 scale, sl);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  smem = attn_bwd_smem<T>(4, false, true);
-  if ((err = allow_smem(attn_bwd_dq_kernel<T>, smem)) != cudaSuccess) return err;
-  attn_bwd_dq_kernel<T><<<grid, AT, smem, s>>>(q, d, rm, ri, rd, static_cast<T*>(dqkv), L, H,
-                                               scale, sl);
-  return cudaGetLastError();
-}
-
-// ---------------------------------------------------------------------------
 // launchers
 // ---------------------------------------------------------------------------
 
@@ -786,19 +497,4 @@ extern "C" int rz_scale_colsum(const void* g, const void* m, const void* ls, voi
         static_cast<const float*>(ls), static_cast<float*>(out), static_cast<float*>(cpart), M,
         D);
   return static_cast<int>(cudaGetLastError());
-}
-
-// K7: qkv (B, L, 3D), dout (B, L, D) -> dqkv (B, L, 3D); row_m, row_il and
-// row_delta are (B, H, L) fp32 scratch
-extern "C" int rz_packed_attention_bwd(const void* qkv, const void* dout, void* row_m,
-                                       void* row_il, void* row_delta, void* dqkv, int B, int L,
-                                       int H, int hd, float scale, int dtype, void* stream) {
-  if (hd != bw::HD) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err =
-      dtype == RZ_DTYPE_BF16
-          ? bw::attention_bwd<bf16>(qkv, dout, row_m, row_il, row_delta, dqkv, B, L, H, scale, s)
-          : bw::attention_bwd<float>(qkv, dout, row_m, row_il, row_delta, dqkv, B, L, H, scale,
-                                     s);
-  return static_cast<int>(err);
 }

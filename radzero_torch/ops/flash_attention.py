@@ -41,14 +41,10 @@ from typing import Optional
 import torch
 
 from radzero_torch.ops import _build
-from radzero_torch.ops._checks import DTYPE_CODES, on_cuda
+from radzero_torch.ops._checks import DTYPE_CODES, needed, on_cuda, tracked
 
 _LOG2E = 1.4426950408889634
 _SPLIT_BLOCKS = 4 * 132  # blocks the d(bias) kernel aims at when it splits the batch
-
-
-def _tracked(*tensors) -> bool:
-    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
 def _resolve(q, scale, kv_len):
@@ -176,7 +172,7 @@ def flash_attention(q, k, v, scale: Optional[float] = None, stable: Optional[boo
     caller padded the sequence (keys beyond it are masked, every query row
     is computed); ``stable`` is ignored, the row maximum is always
     subtracted. Differentiable: the backward is :func:`flash_attention_bwd`."""
-    if _tracked(q, k, v):
+    if tracked(q, k, v):
         return _FlashAttention.apply(q, k, v, scale, kv_len)
     return _flash_attention_fwd(q, k, v, scale, kv_len)
 
@@ -239,7 +235,7 @@ def flash_attention_bias(q, k, v, bias, neg_mask, scale: Optional[float] = None,
     gradient. Padded query rows of a real sentence are computed, not
     skipped. Differentiable: the backward is
     :func:`flash_attention_bias_bwd`."""
-    if _tracked(q, k, v, bias):
+    if tracked(q, k, v, bias):
         return _FlashAttentionBias.apply(q, k, v, bias, neg_mask, scale, kv_len)
     return _flash_attention_bias_fwd(q, k, v, bias, neg_mask, scale, kv_len)
 
@@ -309,10 +305,6 @@ flash_attention_bias_bwd.launches = 0
 # autograd: forward K13 / K15, backward K14 / K16; the inputs are the only residuals
 # ---------------------------------------------------------------------------
 
-def _needed(ctx, grads):
-    return tuple(g if need else None for g, need in zip(grads, ctx.needs_input_grad))
-
-
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, scale, kv_len):
@@ -324,7 +316,7 @@ class _FlashAttention(torch.autograd.Function):
     @torch.autograd.function.once_differentiable
     def backward(ctx, g):
         grads = flash_attention_bwd(*ctx.saved_tensors, g, ctx.scale, ctx.kv_len)
-        return _needed(ctx, grads) + (None, None)
+        return needed(ctx, grads) + (None, None)
 
 
 class _FlashAttentionBias(torch.autograd.Function):
@@ -338,4 +330,4 @@ class _FlashAttentionBias(torch.autograd.Function):
     @torch.autograd.function.once_differentiable
     def backward(ctx, g):
         grads = flash_attention_bias_bwd(*ctx.saved_tensors, g, ctx.scale, ctx.kv_len)
-        return _needed(ctx, grads) + (None, None, None)
+        return needed(ctx, grads) + (None, None, None)

@@ -10,8 +10,9 @@
   out = ln(y + gelu(y @ W1 + b1) @ W2 + b2)   (post-LN, eps 1e-12)
 
 Each wrapper runs its plain twin (``*_plain``, same module) when handed a
-CPU tensor and launches its CUDA kernel (``csrc/fused_layer.cu``) when
-handed a CUDA tensor; anything else raises. ``<wrapper>.launches`` counts
+CPU tensor and launches its CUDA kernel (``csrc/fused_layer.cu``; K2 and K7
+are in ``csrc/flash_attention.cu``, the strided attention kernels K13 /
+K14 over the thirds of the packed buffer) when handed a CUDA tensor; anything else raises. ``<wrapper>.launches`` counts
 kernel launches. Numerics are the TPU kernels' contract: fp32 LayerNorm,
 softmax and accumulation; the LN output, the GELU output and the softmax
 weights are rounded to the operand type before the next product.
@@ -52,7 +53,8 @@ from __future__ import annotations
 import torch
 
 from radzero_torch.ops import _build
-from radzero_torch.ops._checks import check_operands, on_cuda
+from radzero_torch.ops._checks import check_operands, needed, on_cuda, tracked
+from radzero_torch.ops.flash_attention import flash_attention_bwd_plain, flash_attention_plain
 
 _LOG2E = 1.4426950408889634
 _INV_SQRT_2PI = 0.3989422804014327
@@ -60,11 +62,6 @@ _INV_SQRT_2PI = 0.3989422804014327
 _EPI_BIAS, _EPI_ADD_F32, _EPI_ADDF_F32, _EPI_PROJ2, _EPI_GELU_H1, _EPI_F32, _EPI_DGELU = (
     0, 4, 5, 6, 7, 8, 9)
 _SPLIT_BLOCKS = 4 * 132  # blocks a row-split weight-gradient product aims at
-
-
-def _tracked(*tensors) -> bool:
-    """Whether autograd would record an op on any of ``tensors`` now."""
-    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
 def _ln32(x32, scale, bias, eps):
@@ -86,7 +83,7 @@ def fused_preattn_plain(x, ln_scale, ln_bias, w_qkv, b_qkv, *, eps=1e-6):
 def fused_preattn(x, ln_scale, ln_bias, w_qkv, b_qkv, *, eps=1e-6):
     """(N, D) x -> (N, 3D) packed qkv = ln1(x) @ w_qkv + b_qkv.
     Differentiable: the backward is :func:`fused_preattn_bwd` (K6)."""
-    if _tracked(x, ln_scale, ln_bias, w_qkv, b_qkv):
+    if tracked(x, ln_scale, ln_bias, w_qkv, b_qkv):
         return _FusedPreattn.apply(x, ln_scale, ln_bias, w_qkv, b_qkv, eps)
     return _fused_preattn_fwd(x, ln_scale, ln_bias, w_qkv, b_qkv, eps=eps)
 
@@ -122,23 +119,16 @@ fused_preattn.launches = 0
 # K2: packed-layout attention
 # ---------------------------------------------------------------------------
 
-def flash_attention_packed_plain(qkv, n_heads: int):
+def _thirds(qkv, n_heads: int):
+    """The q, k and v thirds of a packed (B, L, 3D) buffer as (B, L, H, hd) views."""
     b, l, d3 = qkv.shape
     d = d3 // 3
-    hd = d // n_heads
-    scale = hd**-0.5
+    return [qkv[..., i * d : (i + 1) * d].reshape(b, l, n_heads, d // n_heads) for i in range(3)]
 
-    def heads(i):  # (B, H, L, hd)
-        return qkv[..., i * d : (i + 1) * d].reshape(b, l, n_heads, hd).transpose(1, 2)
 
-    q, k, v = heads(0), heads(1), heads(2)
-    s = (q.float() @ k.float().transpose(-1, -2)) * (scale * _LOG2E)
-    s = s - s.amax(dim=-1, keepdim=True)
-    e = torch.exp2(s)
-    den = e.sum(dim=-1, keepdim=True)
-    num = e.to(qkv.dtype).float() @ v.float()
-    out = (num / den).to(qkv.dtype)
-    return out.transpose(1, 2).reshape(b, l, d)
+def flash_attention_packed_plain(qkv, n_heads: int):
+    b, l, d3 = qkv.shape
+    return flash_attention_plain(*_thirds(qkv, n_heads)).reshape(b, l, d3 // 3)
 
 
 def flash_attention_packed(qkv, n_heads: int):
@@ -146,7 +136,7 @@ def flash_attention_packed(qkv, n_heads: int):
     scale head_dim ** -0.5. No lane padding: the kernel masks keys >= L
     in its last tile itself. Differentiable: the backward is
     :func:`flash_attention_packed_bwd` (K7)."""
-    if _tracked(qkv):
+    if tracked(qkv):
         return _FlashAttentionPacked.apply(qkv, n_heads)
     return _flash_attention_packed_fwd(qkv, n_heads)
 
@@ -163,8 +153,8 @@ def _flash_attention_packed_fwd(qkv, n_heads: int):
     out = torch.empty((b, l, d), dtype=qkv.dtype, device=qkv.device)
     lib = _build.load()
     err = lib.rz_packed_attention(
-        qkv.data_ptr(), out.data_ptr(), b, l, n_heads, hd, float(hd**-0.5 * _LOG2E),
-        code, _build.stream_ptr(qkv),
+        qkv.data_ptr(), out.data_ptr(), b, l, n_heads, hd, float(hd**-0.5), code,
+        _build.stream_ptr(qkv),
     )
     _build.check(err, "flash_attention_packed")
     flash_attention_packed.launches += 1
@@ -196,7 +186,7 @@ def fused_postattn(x, attn_out, wo, bo, ls1, ln_scale, ln_bias,
     residual y, LN2 + fc1 + GELU, fc2 + residual), one count.
     Differentiable: the backward is :func:`fused_postattn_bwd` (K8)."""
     ops = (x, attn_out, wo, bo, ls1, ln_scale, ln_bias, w1, b1, w2, b2, ls2)
-    if _tracked(*ops):
+    if tracked(*ops):
         return _FusedPostattn.apply(*ops, eps)
     return _fused_postattn_fwd(*ops, eps=eps)
 
@@ -257,7 +247,7 @@ def fused_mpnet_post(x, attn_out, wo, bo, lnsa, lnba, w1, b1, w2, b2,
     count. Rows need not be a multiple of any tile. Differentiable: the
     backward is :func:`fused_mpnet_post_bwd` (K9)."""
     ops = (x, attn_out, wo, bo, lnsa, lnba, w1, b1, w2, b2, lnso, lnbo)
-    if _tracked(*ops):
+    if tracked(*ops):
         return _FusedMpnetPost.apply(*ops, eps)
     return _fused_mpnet_post_fwd(*ops, eps=eps)
 
@@ -336,28 +326,9 @@ def fused_preattn_bwd_plain(x, ln_scale, ln_bias, w_qkv, b_qkv, g, *, eps=1e-6):
 
 
 def flash_attention_packed_bwd_plain(qkv, n_heads: int, dout):
-    b, l, d3 = qkv.shape
-    d = d3 // 3
-    hd = d // n_heads
-    scale = hd**-0.5
-    cdt = qkv.dtype
-
-    def heads(t, i=0):  # (B, H, L, hd) fp32
-        return t[..., i * d : (i + 1) * d].reshape(b, l, n_heads, hd).transpose(1, 2).float()
-
-    q, k, v, do = heads(qkv, 0), heads(qkv, 1), heads(qkv, 2), heads(dout.to(cdt))
-    s = (q @ k.transpose(-1, -2)) * (scale * _LOG2E)
-    e = torch.exp2(s - s.amax(dim=-1, keepdim=True))
-    p = e / e.sum(dim=-1, keepdim=True)
-    pc = p.to(cdt).float()
-    dv = pc.transpose(-1, -2) @ do
-    dp = do @ v.transpose(-1, -2)
-    ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True)) * scale
-    dsc = ds.to(cdt).float()
-    dq = dsc @ k
-    dk = dsc.transpose(-1, -2) @ q
-    merged = [t.transpose(1, 2).reshape(b, l, d) for t in (dq, dk, dv)]
-    return torch.cat(merged, dim=-1).to(cdt)
+    q, k, v = _thirds(qkv, n_heads)
+    grads = flash_attention_bwd_plain(q, k, v, dout.to(qkv.dtype).reshape(q.shape))
+    return torch.cat([g.reshape(dout.shape) for g in grads], dim=-1)
 
 
 def fused_postattn_bwd_plain(x, attn_out, wo, bo, ls1, ln_scale, ln_bias,
@@ -695,11 +666,6 @@ fused_mpnet_post_bwd.launches = 0
 # autograd: forward K1-K4, backward K6-K9; the inputs are the only residuals
 # ---------------------------------------------------------------------------
 
-def _needed(ctx, grads):
-    """``grads`` with None where autograd asked for no gradient."""
-    return tuple(g if need else None for g, need in zip(grads, ctx.needs_input_grad))
-
-
 class _FusedPreattn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, ln_scale, ln_bias, w_qkv, b_qkv, eps):
@@ -712,7 +678,7 @@ class _FusedPreattn(torch.autograd.Function):
     @torch.autograd.function.once_differentiable
     def backward(ctx, g):
         grads = fused_preattn_bwd(*ctx.saved_tensors, g.contiguous(), eps=ctx.eps)
-        return _needed(ctx, grads) + (None,)
+        return needed(ctx, grads) + (None,)
 
 
 class _FlashAttentionPacked(torch.autograd.Function):
@@ -743,7 +709,7 @@ class _FusedPostattn(torch.autograd.Function):
     @torch.autograd.function.once_differentiable
     def backward(ctx, g):
         grads = fused_postattn_bwd(*ctx.saved_tensors, g.contiguous(), eps=ctx.eps)
-        return _needed(ctx, grads) + (None,)
+        return needed(ctx, grads) + (None,)
 
 
 class _FusedMpnetPost(torch.autograd.Function):
@@ -759,4 +725,4 @@ class _FusedMpnetPost(torch.autograd.Function):
     @torch.autograd.function.once_differentiable
     def backward(ctx, g):
         grads = fused_mpnet_post_bwd(*ctx.saved_tensors, g.contiguous(), eps=ctx.eps)
-        return _needed(ctx, grads) + (None,)
+        return needed(ctx, grads) + (None,)

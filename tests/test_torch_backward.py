@@ -280,4 +280,6 @@ def test_mpnet_fuse_post_matches_jax_values_and_gradients():
 
 def test_layer_impl_names():
     assert [layer_impl(n) for n in ("fused_vjp", "fused", "flash", "packed", "xla")] == [
-        "fused", "fused", "fused", "packed", "eager"]
+        "fused", "fused", "flash", "packed", "eager"]
+    with pytest.raises(ValueError, match="attn_impl"):
+        layer_impl("flsh")

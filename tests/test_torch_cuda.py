@@ -1,4 +1,4 @@
-"""Kernels K1-K12 against their plain twins on an NVIDIA card.
+"""Kernels K1-K16 against their plain twins on an NVIDIA card.
 
 Marked ``cuda``: without a card (or nvcc) every test skips. On a machine
 with one, and without JAX, run them with
@@ -13,6 +13,7 @@ one key tile, query counts across two query blocks.
 import pytest
 import torch
 
+from radzero_torch.ops import flash_attention as fa
 from radzero_torch.ops import fused_layer as fl
 from radzero_torch.ops import vlcabs_fused as vf
 
@@ -39,9 +40,10 @@ def _rn(gen, dtype, *shape, std=1.0, mean=0.0):
     return (torch.randn(shape, generator=gen, device="cuda") * std + mean).to(dtype)
 
 
-def _check(out, ref, dtype):
-    atol, rtol = TOL[dtype]
-    torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=rtol)
+def _check(out, ref, dtype, atol=None):
+    default_atol, rtol = TOL[dtype]
+    torch.testing.assert_close(out.float(), ref.float(), rtol=rtol,
+                               atol=default_atol if atol is None else atol)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -247,6 +249,83 @@ def test_fused_mpnet_post_bwd_kernel(dtype, m):
     first, second = _backward_twice(fl.fused_mpnet_post, args, cot, fl.fused_mpnet_post_bwd)
     _check_grads(first, fl.fused_mpnet_post_bwd_plain(*args, cot), dtype, _K9_NAMES)
     assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def _bias_and_mask(g, dtype, b, l, h):
+    bias = _rn(g, torch.float32, h, l, l, std=0.5)
+    lengths = torch.randint(1, l + 1, (b,), generator=g, device="cuda")
+    lengths[0] = l
+    mask = (torch.arange(l, device="cuda")[None] < lengths[:, None]).float()
+    return bias, (1.0 - mask) * torch.finfo(dtype).min
+
+
+# lengths below one key tile, at the small tiles' edges (32, 64), ragged, and
+# across several query blocks; kv_len masks the padded tail
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("l,kv_len", [(17, None), (32, None), (37, None), (64, 50), (130, None),
+                                      (256, 200)])
+def test_flash_attention_kernels(dtype, l, kv_len):
+    """K13 against its twin on views of one packed product, and K14 through
+    the autograd Function: dq, dk, dv, the same bits on a second backward."""
+    g = torch.Generator(device="cuda").manual_seed(l)
+    qkv, cot = _rn(g, dtype, 2, l, 3 * 192), _rn(g, dtype, 2, l, 3, 64)
+    q, k, v = (qkv[..., i * 192:(i + 1) * 192].reshape(2, l, 3, 64) for i in range(3))
+    n0 = fa.flash_attention.launches
+    out = fa.flash_attention(q, k, v, kv_len=kv_len)
+    assert fa.flash_attention.launches == n0 + 1
+    _check(out, fa.flash_attention_plain(q, k, v, kv_len=kv_len), dtype)
+    first, second = _backward_twice(lambda *t: fa.flash_attention(*t, kv_len=kv_len), (q, k, v),
+                                    cot, fa.flash_attention_bwd)
+    _check_grads(first, fa.flash_attention_bwd_plain(q, k, v, cot, kv_len=kv_len), dtype,
+                 ("dq", "dk", "dv"))
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,l,kv_len", [(5, 17, None), (40, 32, None), (3, 37, None), (6, 64, 50),
+                                        (3, 130, None)])
+def test_flash_attention_bias_kernels(dtype, b, l, kv_len):
+    """K15 against its twin, and K16 through the autograd Function: dq, dk,
+    dv and d(bias) summed over the batch in a fixed order (the same bits on a
+    second backward); the key mask gets no gradient."""
+    g = torch.Generator(device="cuda").manual_seed(l)
+    q, k, v, cot = (_rn(g, dtype, b, l, 3, 64) for _ in range(4))
+    bias, neg = _bias_and_mask(g, dtype, b, l, 3)
+    n0 = fa.flash_attention_bias.launches
+    out = fa.flash_attention_bias(q, k, v, bias, neg, kv_len=kv_len)
+    assert fa.flash_attention_bias.launches == n0 + 1
+    ref = fa.flash_attention_bias_plain(q, k, v, bias, neg, kv_len=kv_len)
+    # bf16, few keys: a softmax weight near 1 that rounds the other way moves an entry
+    # by one bf16 ulp of the weight times |v|, whatever the entry's own size
+    _check(out, ref, dtype,
+           atol=2.0**-9 * ref.float().abs().max().item() if dtype == torch.bfloat16 else None)
+    first, second = _backward_twice(
+        lambda q, k, v, bias: fa.flash_attention_bias(q, k, v, bias, neg, kv_len=kv_len),
+        (q, k, v, bias), cot, fa.flash_attention_bias_bwd)
+    want = fa.flash_attention_bias_bwd_plain(q, k, v, bias, neg, cot, kv_len=kv_len)
+    _check_grads(first[:3], want[:3], dtype, ("dq", "dk", "dv"))
+    _check_grads(first[3:], want[3:], torch.float32, ("dbias",))
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_flash_attention_fully_padded_sentence_is_nan_like_the_twin():
+    g = torch.Generator(device="cuda").manual_seed(0)
+    q, k, v = (_rn(g, torch.float32, 3, 37, 2, 64) for _ in range(3))
+    bias, neg = _bias_and_mask(g, torch.float32, 3, 37, 2)
+    neg[1] = torch.finfo(torch.float32).min
+    out = fa.flash_attention_bias(q, k, v, bias, neg)
+    ref = fa.flash_attention_bias_plain(q, k, v, bias, neg)
+    assert torch.isnan(out[1]).all() and torch.isnan(ref[1]).all()
+    _check(out[[0, 2]], ref[[0, 2]], torch.float32)
+
+
+def test_flash_attention_rejects_other_head_dims():
+    q = torch.zeros((1, 8, 2, 32), device="cuda")
+    with pytest.raises(ValueError, match="head_dim 64"):
+        fa.flash_attention(q, q, q)
+    with pytest.raises(ValueError, match="head_dim 64"):
+        fa.flash_attention_bias(q, q, q, torch.zeros((2, 8, 8), device="cuda"),
+                                torch.zeros((1, 8), device="cuda"))
 
 
 def test_wrapper_rejects_mixed_dtypes():

@@ -359,10 +359,10 @@ def test_forward_train_handles_tower_tokens_and_clip_losses():
                                    atol=1e-5)
 
 
-def _with_impls(cfg, attn_impl, fuse_post):
+def _with_impls(cfg, attn_impl, fuse_post, text_attn_impl="xla"):
     return dataclasses.replace(
         cfg, align=dataclasses.replace(cfg.align, attn_impl=attn_impl),
-        text=dataclasses.replace(cfg.text, fuse_post=fuse_post))
+        text=dataclasses.replace(cfg.text, fuse_post=fuse_post, attn_impl=text_attn_impl))
 
 
 def test_forward_train_raises_for_missing_backward_kernels(weights):
@@ -497,13 +497,15 @@ def test_warmup_cosine_schedule_matches_optax():
 # train step trajectory
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("attn_impl,fuse_post", [("xla", False), ("fused_vjp", True)],
-                         ids=["eager", "defaults"])
+@pytest.mark.parametrize("attn_impl,fuse_post", [("xla", False), ("fused_vjp", True),
+                                                 ("flash", True)],
+                         ids=["eager", "defaults", "flash"])
 def test_train_step_trajectory_matches_jax(weights, attn_impl, fuse_post):
     """4 steps on one batch against the JAX make_train_step (fp32, no
-    donation), with eager layers and at the defaults (fused_vjp align layers,
-    fuse_post=True: the backward kernels' twins against the JAX kernels):
-    losses and grad_norm rtol 1e-4. Parameters are held to a
+    donation), with eager layers, at the defaults (fused_vjp align layers,
+    fuse_post=True: the backward kernels' twins against the JAX kernels) and
+    with attn_impl="flash" in the align layers and the text tower (K13-K16
+    twins against the JAX kernels): losses and grad_norm rtol 1e-4. Parameters are held to a
     tolerance scaled by the learning rate: an early Adam update is about
     lr * sign(g) whatever |g| is, so an element whose gradient is near zero
     may step the other way in the two frameworks and then differ by 2 lr
@@ -514,7 +516,8 @@ def test_train_step_trajectory_matches_jax(weights, attn_impl, fuse_post):
     batch = _batch(seed=8)
     jtrain, jfrozen = _split(jax.tree_util.tree_map(jnp.asarray, weights))
     tx, _ = joptim.build_optimizer(jtrain, **kw)
-    jcfg, tcfg = (_with_impls(c, attn_impl, fuse_post) for c in (JCFG, TCFG))
+    text_attn = "flash" if attn_impl == "flash" else "xla"
+    jcfg, tcfg = (_with_impls(c, attn_impl, fuse_post, text_attn) for c in (JCFG, TCFG))
     jstep = jax_make_train_step(jcfg, tx, dtype=jnp.float32, donate=False)
     jstate = tx.init(jtrain)
     jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
