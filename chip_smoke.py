@@ -125,7 +125,12 @@ CHEXPERT = [
 # and twin is off by one bf16 ulp of itself, 2^-8 p, and moves the output by
 # 2^-8 p |v| whatever the output's own size, so its atol is 2^-9 of the largest
 # |reference| entry (flag "scaled"; about 9e-3 at |ref| <= 4.5), about one such
-# flip at p = 1/2. K14 and K16 round P, dO and dS as K7 does, so K7's (a share
+# flip at p = 1/2. K2's fixed atol of 2e-3 was K15's at first and does not hold
+# for every draw: with --seed 1 one entry of 12.6 M at 512 x 32 is 2.1e-3 off at
+# |ref| 0.004, with --seed 2 one at 64 x 256 is 2.4e-3 off at |ref| 0.05 (103-104%
+# of that tolerance), each a sum of cancelling terms that holds such a flip; the
+# kernel was not changed for it (fp32 errors <= 1.4e-6). The share of K2's
+# tolerance that each run's worst entry takes is printed beside. K14 and K16 round P, dO and dS as K7 does, so K7's (a share
 # of the largest |reference| entry of each gradient). d(bias) is an fp32 sum of
 # unrounded dS on both sides and only its order differs.
 BWD_OUTPUTS = {
@@ -580,6 +585,11 @@ def attention_kernels(dtype, dname, gen, rows):
         out, ref = fa.flash_attention_bias(*args), fa.flash_attention_bias_plain(*args)
         torch.cuda.synchronize()
         err = compare(f"K15 {tag}", dname, out, ref, tol="K15", quiet=True)
+        if dname == "bf16":  # the same errors under K2's fixed atol, which K15 is not held to
+            a2, r2 = TOL[("K2", "bf16")]
+            share = ((out.float() - ref.float()).abs() / (a2 + r2 * ref.float().abs())).max()
+            print(f"  K15 {tag:10s} bf16: under K2's atol {a2:g} the worst entry is at "
+                  f"{100 * share.item():.0f}% of its tolerance (not held to it)")
         del out, ref
         ms, plain_ms = timed(fa.flash_attention_bias, fa.flash_attention_bias_plain, args, {},
                              False)

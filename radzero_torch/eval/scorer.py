@@ -132,8 +132,8 @@ class ZeroShotScorer:
             return self.image_processor.resize_u8(loader(item))
         return self.image_processor(loader(item))["pixel_values"][0]
 
-    def _precision(self, on: bool = True):
-        return _tf32_off() if on and self.dtype == torch.float32 else contextlib.nullcontext()
+    def _precision(self):
+        return _tf32_off() if self.dtype == torch.float32 else contextlib.nullcontext()
 
     # ------------------------------------------------------------------
     def score(
@@ -143,7 +143,6 @@ class ZeroShotScorer:
         prompts: List[str],
         *,
         need_scores: bool = False,
-        precision_context: bool = True,
     ) -> Tuple[np.ndarray, Optional[np.ndarray]]:
         """Score every item x prompt.
 
@@ -152,7 +151,7 @@ class ZeroShotScorer:
         """
         ids, mask = self.encode_prompts(prompts)
         parts: List[List[np.ndarray]] = []
-        with self._precision(precision_context), cf.ThreadPoolExecutor(self.num_threads) as pool:
+        with self._precision(), cf.ThreadPoolExecutor(self.num_threads) as pool:
             # software pipeline: dispatch chunk i, then prepare chunk i+1 on
             # host threads while the card runs; results are fetched one step
             # behind
