@@ -45,11 +45,16 @@
 // - A row whose keys are all masked (a fully padded sentence: neg is the
 //   type's most negative number and overflows to -inf times log2 e) comes
 //   out as NaN, as from the TPU kernel.
+// - bf16 without a bias (K13, and K2 over its thirds) runs the Hopper kernel
+//   of flash_fwd_sm90.cu (wgmma, TMA, the softmax in registers); fwd_kernel
+//   below is the forward of fp32 and of K15.
 // What bounds them on the H100: K13 / K14 at 1370 tokens are bound by the
 // math units (4 and 10 B H L^2 64 operations), K15 / K16 at 32 to 64 tokens
 // by bytes. Not yet done (later work): saving the row statistics in the
-// forward, wgmma, TMA, one block per (sentence, head) at small L.
+// forward, wgmma and TMA in the backward and in K15, one block per
+// (sentence, head) at small L.
 #include "common.cuh"
+#include "flash_fwd_sm90.cuh"
 
 namespace rz {
 namespace fa {
@@ -142,8 +147,8 @@ __device__ __forceinline__ float score(float acc, int key, int Lk, float scale, 
 }
 
 // ---------------------------------------------------------------------------
-// K13 / K15 forward: grid (ceil(L / (16 NW)), H, B); each warp owns 16 query
-// rows from scores to output
+// K13 / K2 in fp32 and K15 forward: grid (ceil(L / (16 NW)), H, B); each warp
+// owns 16 query rows from scores to output
 // ---------------------------------------------------------------------------
 
 template <typename T, int NW>
@@ -613,13 +618,19 @@ cudaError_t launch_fwd(const Args& a, void* out, cudaStream_t s) {
   return cudaGetLastError();
 }
 
-// the forward's tile by length: 2 warps (32 queries) up to 32 tokens, 4 up to
-// 64, else 8 (128 queries) with the next K/V tile in flight
+// bf16 without a bias: the Hopper kernel of flash_fwd_sm90.cu at every length.
+// Else the forward's tile by length: 2 warps (32 queries) up to 32 tokens, 4
+// up to 64, else 8 (128 queries) with the next K/V tile in flight
 template <typename T, bool BIAS>
 cudaError_t forward(const Args& a, void* out, cudaStream_t s) {
-  if (a.L <= 32) return launch_fwd<T, 2, BIAS>(a, out, s);
-  if (a.L <= 64) return launch_fwd<T, 4, BIAS>(a, out, s);
-  return launch_fwd<T, 8, BIAS>(a, out, s);
+  if constexpr (std::is_same<T, __nv_bfloat16>::value && !BIAS) {
+    return forward_sm90(a.q, a.k, a.v, a.q_bs, a.q_rs, a.k_bs, a.k_rs, a.v_bs, a.v_rs, out,
+                        a.o_bs, a.o_rs, a.B, a.L, a.H, a.Lk, a.scale, s);
+  } else {
+    if (a.L <= 32) return launch_fwd<T, 2, BIAS>(a, out, s);
+    if (a.L <= 64) return launch_fwd<T, 4, BIAS>(a, out, s);
+    return launch_fwd<T, 8, BIAS>(a, out, s);
+  }
 }
 
 struct BwdArgs {

@@ -125,10 +125,12 @@ def flash_attention_bias_bwd_plain(q, k, v, bias, neg_mask, g, scale=None, kv_le
 
 def _by_stride(t: torch.Tensor) -> torch.Tensor:
     """``t`` (B, L, H, hd) as the kernels read it: unit stride over hd, heads
-    side by side, 16-byte aligned rows; a copy only when ``t`` is no such view."""
+    side by side, 16-byte aligned rows (TMA's rule for the bf16 forward) and
+    no zero stride over images or rows; a copy only when ``t`` is no such view."""
     vec = 16 // t.element_size()
     ok = (t.stride(3) == 1 and t.stride(2) == t.shape[3] and t.stride(1) % vec == 0
-          and t.stride(0) % vec == 0 and t.data_ptr() % 16 == 0)
+          and t.stride(0) % vec == 0 and t.data_ptr() % 16 == 0
+          and all(t.stride(i) > 0 or t.shape[i] == 1 for i in (0, 1)))
     return t if ok else t.contiguous()
 
 

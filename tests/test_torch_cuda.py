@@ -58,12 +58,48 @@ def test_fused_preattn_kernel(dtype, m, d):
     _check(out, fl.fused_preattn_plain(*args), dtype)
 
 
-@pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("l", [17, 64, 130])
-def test_packed_attention_kernel(dtype, l):
+# bf16 runs the Hopper forward of csrc/flash_fwd_sm90.cu, 128 query rows and 128
+# keys a tile: lengths on both sides of its tile edges, a ragged 1370, an odd batch.
+# fp32 runs the warp-tiled forward of csrc/flash_attention.cu at its old cases.
+PACKED_CASES = ([(dtype, 2, l) for dtype in DTYPES for l in (17, 64, 130)]
+                + [(torch.bfloat16, 2, l) for l in (63, 65, 127, 128, 129, 257, 1370)]
+                + [(torch.bfloat16, 3, 129)])
+
+
+@pytest.mark.parametrize("dtype,b,l", PACKED_CASES)
+def test_packed_attention_kernel(dtype, b, l):
     g = torch.Generator(device="cuda").manual_seed(l)
-    qkv = _rn(g, dtype, 2, l, 3 * 128)
-    _check(fl.flash_attention_packed(qkv, 2), fl.flash_attention_packed_plain(qkv, 2), dtype)
+    qkv = _rn(g, dtype, b, l, 3 * 128)
+    n0 = fl.flash_attention_packed.launches
+    out = fl.flash_attention_packed(qkv, 2)
+    assert fl.flash_attention_packed.launches == n0 + 1
+    _check(out, fl.flash_attention_packed_plain(qkv, 2), dtype)
+
+
+def _device_kernels(fn):
+    """The names of the device kernels that one call of ``fn`` ran."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.key for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_attention_forward_runs_the_hopper_kernel_in_bf16(dtype):
+    """K2 and K13 in bf16 run fwd_sm90_kernel (csrc/flash_fwd_sm90.cu) and
+    nothing else; in fp32 they run fwd_kernel<float, ...> of flash_attention.cu."""
+    g = torch.Generator(device="cuda").manual_seed(5)
+    qkv = _rn(g, dtype, 2, 130, 3 * 128)
+    q, k, v = (qkv[..., i * 128:(i + 1) * 128].reshape(2, 130, 2, 64) for i in range(3))
+    for fn in (lambda: fl.flash_attention_packed(qkv, 2), lambda: fa.flash_attention(q, k, v)):
+        names = _device_kernels(fn)
+        if dtype == torch.bfloat16:
+            assert len(names) == 1 and "fwd_sm90_kernel" in names[0], names
+        else:
+            assert len(names) == 1 and "fwd_kernel<float" in names[0], names
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -260,16 +296,29 @@ def _bias_and_mask(g, dtype, b, l, h):
 
 
 # lengths below one key tile, at the small tiles' edges (32, 64), ragged, and
-# across several query blocks; kv_len masks the padded tail
-@pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("l,kv_len", [(17, None), (32, None), (37, None), (64, 50), (130, None),
-                                      (256, 200)])
-def test_flash_attention_kernels(dtype, l, kv_len):
-    """K13 against its twin on views of one packed product, and K14 through
-    the autograd Function: dq, dk, dv, the same bits on a second backward."""
+# across several query blocks; kv_len masks the padded tail. bf16 adds the edges
+# of the Hopper forward's 128-row tiles, kv_len inside one tile (90 of 128) and
+# over a lane-padded tower (1370 of 1408), and an odd batch
+FLASH_CASES = ([(dtype, 2, l, kv) for dtype in DTYPES
+                for l, kv in ((17, None), (32, None), (37, None), (64, 50), (130, None),
+                              (256, 200))]
+               + [(torch.bfloat16, 2, l, kv)
+                  for l, kv in ((63, None), (65, None), (127, None), (128, None), (129, None),
+                                (257, None), (128, 90), (1408, 1370))]
+               + [(torch.bfloat16, 3, 129, None)])
+
+
+@pytest.mark.parametrize("layout", ["packed", "contiguous"])
+@pytest.mark.parametrize("dtype,b,l,kv_len", FLASH_CASES)
+def test_flash_attention_kernels(dtype, b, l, kv_len, layout):
+    """K13 against its twin on views of one packed product or on contiguous
+    (B, L, H, 64) tensors, and K14 through the autograd Function: dq, dk, dv,
+    the same bits on a second backward."""
     g = torch.Generator(device="cuda").manual_seed(l)
-    qkv, cot = _rn(g, dtype, 2, l, 3 * 192), _rn(g, dtype, 2, l, 3, 64)
-    q, k, v = (qkv[..., i * 192:(i + 1) * 192].reshape(2, l, 3, 64) for i in range(3))
+    qkv, cot = _rn(g, dtype, b, l, 3 * 192), _rn(g, dtype, b, l, 3, 64)
+    q, k, v = (qkv[..., i * 192:(i + 1) * 192].reshape(b, l, 3, 64) for i in range(3))
+    if layout == "contiguous":
+        q, k, v = (t.contiguous() for t in (q, k, v))
     n0 = fa.flash_attention.launches
     out = fa.flash_attention(q, k, v, kv_len=kv_len)
     assert fa.flash_attention.launches == n0 + 1

@@ -59,7 +59,7 @@ def _t(*arrays, grad=False):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("stable", [None, True, False])
-@pytest.mark.parametrize("l", [19, 37, 130, 257])
+@pytest.mark.parametrize("l", [19, 37, 127, 129, 130, 257])
 def test_flash_attention_twin_matches_jax(l, stable):
     """The port always subtracts the row maximum; at these magnitudes the
     JAX kernel's ``stable=False`` shortcut agrees within the same tolerance."""
@@ -71,7 +71,7 @@ def test_flash_attention_twin_matches_jax(l, stable):
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-4, atol=1e-5)
 
 
-@pytest.mark.parametrize("l,kv_len", [(128, 100), (256, 130), (37, None)])
+@pytest.mark.parametrize("l,kv_len", [(128, 100), (256, 130), (37, None), (129, 90)])
 def test_flash_attention_function_matches_jax_vjp(l, kv_len):
     """Forward and dq, dk, dv through the port's Function against jax.vjp,
     with ``kv_len < L`` (the persistent-padding contract: padded keys are

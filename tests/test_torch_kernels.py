@@ -43,7 +43,7 @@ def test_fused_preattn_twin_matches_jax(n):
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=2e-5, atol=2e-5)
 
 
-@pytest.mark.parametrize("l", [128, 17, 130])
+@pytest.mark.parametrize("l", [128, 17, 130, 129, 255])
 def test_flash_attention_packed_twin_matches_jax(l):
     """The port runs the real length; the JAX kernel runs the sequence
     lane-padded to a multiple of 128 with ``kv_len`` masking the tail."""
