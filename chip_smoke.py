@@ -7,10 +7,16 @@ Run from the root of a checkout on a machine with a CUDA card and nvcc.
 Phases, in order; any failure exits non-zero:
 
 1. device: require CUDA; print the card (nvidia-smi), CUDA and nvcc versions;
-2. build the kernels from radzero_torch/ops/csrc with nvcc (sm_90a);
+2. build the kernels from radzero_torch/ops/csrc with nvcc (sm_90a); ptxas
+   must report no spills for the Hopper forward of K2 / K13;
 3. each kernel against its plain PyTorch twin, in fp32 with TF32 off and in
-   bf16, with CUDA-event timings: K1 fused_preattn, K2
-   flash_attention_packed, K3 fused_postattn and K5 vlcabs_fused at the
+   bf16, with CUDA-event timings (one call a sample, the host's launch
+   included; K2 and K13 also by torch.profiler, which asserts the device
+   kernel by name: fwd_sm90_kernel in bf16, fwd_kernel<float, ...> in fp32,
+   and gives its device time alone), library yardsticks where one PyTorch
+   call computes the same function (K2 / K13 at 8 and 64 images, the
+   backward alone of K7 / K14 and of K16 with its bias a leaf): K1
+   fused_preattn, K2 flash_attention_packed, K3 fused_postattn and K5 vlcabs_fused at the
    serving shapes (8 images x 1370 tokens x 768, 12 heads, 14 prompts);
    K1-K3 again at the training step's 64 images (87 680 rows); K4
    fused_mpnet_post at 896 rows (14 prompts x 64 tokens) and at 16 384 (512
@@ -76,6 +82,8 @@ M_RAGGED = 1370                       # K9 at a row count that is no multiple of
 L_PAD, L_LONG = 1408, 4097            # K13 / K14: a lane-padded tower (kv_len 1370), a long one
 PEAK_FLOPS = {"bf16": 989e12}         # H100 SXM dense bf16, operations per second
 PEAK_BYTES = 3.35e12                  # H100 SXM device memory, bytes per second
+HOPPER_FWD = "fwd_sm90_kernel"        # K2 / K13 in bf16 (csrc/flash_fwd_sm90.cu)
+FP32_FWD = "fwd_kernel<float"         # K2 / K13 in fp32 (csrc/flash_attention.cu)
 CHEXPERT = [
     "No Finding", "Enlarged Cardiomediastinum", "Cardiomegaly", "Lung Opacity",
     "Lung Lesion", "Edema", "Consolidation", "Pneumonia", "Atelectasis",
@@ -205,6 +213,72 @@ def compare(name, dtype_name, out, ref, tol=None, quiet=False):
     return err.max().item()
 
 
+def device_kernels(fn, calls=5):
+    """{device kernel name: its device ms a call} over ``calls`` calls of ``fn``
+    under torch.profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: e.self_device_time_total / 1e3 / calls
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+
+
+def check_route(k, dname, fn):
+    """A call of K2 / K13 runs one device kernel, fwd_sm90_kernel in bf16 and
+    fwd_kernel<float, ...> in fp32 -> its device ms a call (no host time)."""
+    ran = device_kernels(fn)
+    want = HOPPER_FWD if dname == "bf16" else FP32_FWD
+    if len(ran) != 1 or want not in next(iter(ran)):
+        fail(f"{k} {dname}: expected one device kernel named {want}, ran {list(ran)}")
+    (name, ms), = ran.items()
+    print(f"  {k:10s} {dname}: torch.profiler: {name[:60]}..., {ms:.4f} ms a call on the "
+          "device")
+    return ms
+
+
+def host_us(fn, n=200):
+    """Host microseconds a call of ``fn`` (the enqueue; the card runs behind)."""
+    import torch
+
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    us = (time.perf_counter() - t0) / n * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def sdpa_backward_ms(q, k, v, g, bias=None, neg=None):
+    """The yardstick of an attention backward: F.scaled_dot_product_attention's
+    backward alone on (B, H, L, 64) operands, its forward run once outside the
+    timed call; with ``bias`` (H, L, L) a leaf broadcast over the batch beside
+    the key mask ``neg`` (B, L), so the time includes autograd's sum of the
+    broadcast. None, with the reason printed, where no backend computes it."""
+    import torch
+    import torch.nn.functional as Fn
+
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    mask = None
+    if bias is not None:
+        leaves.append(bias.detach().requires_grad_(True))
+        mask = (leaves[3][None] + neg[:, None, None, :]).to(q.dtype)
+    try:
+        out = Fn.scaled_dot_product_attention(*leaves[:3], attn_mask=mask)
+        return median_ms(lambda: torch.autograd.grad(out, leaves, g, retain_graph=True), reps=5,
+                         warmup=1)
+    except RuntimeError as err:
+        print(f"  no library backward: {str(err).splitlines()[0][:200]}")
+        return None
+
+
 def median_ms(fn, reps=20, warmup=3):
     import torch
 
@@ -308,6 +382,21 @@ def bounds(dtype_bytes=2):
     return out
 
 
+def check_no_spills(log):
+    """ptxas must report no spills for the Hopper forward."""
+    if not log:
+        print("  ptxas: no report in this process (the library was built before)")
+        return
+    lines = log.splitlines()
+    at = [i for i, line in enumerate(lines) if "Compiling entry" in line and HOPPER_FWD in line]
+    if not at:
+        fail(f"ptxas reported no {HOPPER_FWD}")
+    report = " ".join(lines[at[0] + 1:at[0] + 4])
+    if "0 bytes spill stores, 0 bytes spill loads" not in report:
+        fail(f"{HOPPER_FWD} spills: {report}")
+    print(f"  {HOPPER_FWD} (K2 / K13 in bf16): no spills")
+
+
 def phase_kernels(seed):
     """Kernel vs plain twin at the main paths' shapes; returns rows for the JSON."""
     import torch
@@ -351,6 +440,8 @@ def phase_kernels(seed):
             plain_ms = median_ms(lambda: plain(*args, **kw), reps=reps)
             print(f"  {k:10s} {dname}: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms "
                   f"(median of {reps})")
+            if k in ("K2", "K2 train"):  # the device kernel that ran, by name
+                dev_ms = check_route(k, dname, lambda: kern(*args, **kw))
             if dname != "bf16":
                 continue
             if k.endswith(" train"):  # beside the serving shape's numbers of the same kernel
@@ -359,6 +450,10 @@ def phase_kernels(seed):
             else:
                 rows[k] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                            "library_ms": None}
+            if k == "K2":
+                rows[k]["device_ms"] = dev_ms
+            elif k == "K2 train":
+                rows["K2"]["device_ms_training"] = dev_ms
 
         # K10-K12 through the autograd function, as the training step runs them
         qn, tokens, tau, dz = inputs["train"]
@@ -384,13 +479,28 @@ def phase_kernels(seed):
         if dname == "bf16":
             rows["K11"]["max_abs_err_dtau"] = dtau_err
             # K2's yardstick, timed here and called nowhere in the port: one
-            # library attention call on the unpacked heads of the same input
-            q, k_, v = (inputs["K2"][0][..., i * D:(i + 1) * D].reshape(B, L, H, D // H)
-                        .transpose(1, 2) for i in range(3))
-            rows["K2"]["library_ms"] = median_ms(
-                lambda: Fn.scaled_dot_product_attention(q, k_, v))
-            print(f"  K2 yardstick: F.scaled_dot_product_attention {rows['K2']['library_ms']:.4f}"
-                  " ms (median of 20)")
+            # library attention call on the unpacked heads of the same input,
+            # at 8 images and at the training step's 64
+            for key, tag, b in (("K2", "", B), ("K2 train", "_training", TB)):
+                q, k_, v = (inputs[key][0][..., i * D:(i + 1) * D].reshape(b, L, H, D // H)
+                            .transpose(1, 2) for i in range(3))
+                lib = median_ms(lambda: Fn.scaled_dot_product_attention(q, k_, v))
+                lib_dev = sum(device_kernels(
+                    lambda: Fn.scaled_dot_product_attention(q, k_, v)).values())
+                rows["K2"].update({f"library_ms{tag}": lib, f"library_device_ms{tag}": lib_dev})
+                print(f"  {key:10s} yardstick: F.scaled_dot_product_attention {lib:.4f} ms "
+                      f"(median of 20), {lib_dev:.4f} ms a call on the device")
+                del q, k_, v
+            # the host's share of a call at 1 x 128 tokens: the bf16 wrapper encodes three
+            # TMA tensor maps, the fp32 one none
+            small = torch.randn((1, 128, 3 * D), generator=gen, device="cuda")
+            small16 = small.to(torch.bfloat16)
+            us = {name: host_us(lambda: fl.flash_attention_packed(t, H))
+                  for name, t in (("bf16", small16), ("fp32", small))}
+            rows["K2"].update(host_us_bf16=us["bf16"], host_us_fp32=us["fp32"])
+            print(f"  K2 host time a call at 1 x 128: bf16 {us['bf16']:.1f} us (three tensor maps "
+                  f"encoded), fp32 {us['fp32']:.1f} us")
+            del small, small16
         del inputs, qn, tokens, dz
         torch.cuda.empty_cache()
         backward_kernels(dtype, dname, gen, rows)
@@ -470,15 +580,22 @@ def backward_kernels(dtype, dname, gen, rows):
         ms = median_ms(lambda: kern(*args), reps=reps, warmup=1)
         plain_ms = median_ms(lambda: plain(*args), reps=3, warmup=1)
         err = max(w[0] for w in worst)
+        lib = None
+        if k == "K7" and dname == "bf16":  # the yardstick, called nowhere in the port
+            heads = [t.reshape(TB, L, H, D // H).transpose(1, 2) for t in (*thirds(args[0]),
+                                                                           args[1])]
+            lib = sdpa_backward_ms(*heads)
+            del heads
         print(f"  {k:10s} {dname}: {len(worst)} gradients, max_abs_err {err:.3e} (largest "
               f"|ref| {scale:.3g}); worst {BWD_OUTPUTS[k[:2]][i]} at {100 * worst[i][1]:.0f}% "
-              f"of its tolerance; kernel {ms:.4f} ms  plain {plain_ms:.4f} ms ok")
+              f"of its tolerance; kernel {ms:.4f} ms  plain {plain_ms:.4f} ms"
+              f"{'' if lib is None else f'  library backward {lib:.4f} ms'} ok")
         if dname == "bf16":
             if small:
                 rows[k[:2]].update(max_abs_err_small=err, ms_small=ms, plain_ms_small=plain_ms)
             else:
                 rows[k] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                           "library_ms": None}
+                           "library_ms": lib}
         del args
         torch.cuda.empty_cache()
 
@@ -522,6 +639,8 @@ def attention_kernels(dtype, dname, gen, rows):
         else:
             rows[k].update({f"max_abs_err_{tag}": err, f"ms_{tag}": ms,
                             f"plain_ms_{tag}": plain_ms, f"bound_ms_{tag}": bound_ms})
+            if library_ms is not None:
+                rows[k][f"library_ms_{tag}"] = library_ms
 
     def gradients(k, kern, plain, args, kw):
         """The backward kernel twice against its twin -> (largest error, worst share)."""
@@ -558,16 +677,29 @@ def attention_kernels(dtype, dname, gen, rows):
             del out, ref
             ms, plain_ms = timed(fa.flash_attention, plain, (q, k_, v), kw, big)
             lib = None
-            if not tag13 and dname == "bf16":  # the yardstick, called nowhere in the port
-                qh, kh, vh = (t.transpose(1, 2) for t in (q, k_, v))
-                lib = median_ms(lambda: Fn.scaled_dot_product_attention(qh, kh, vh))
+            if tag13 in ("", "64img"):  # the device kernel that ran, by name
+                dev_ms = check_route(f"K13 {tag13}", dname, lambda: fa.flash_attention(q, k_, v))
+                if dname == "bf16":  # the yardstick, called nowhere in the port
+                    qh, kh, vh = (t.transpose(1, 2) for t in (q, k_, v))
+                    lib = median_ms(lambda: Fn.scaled_dot_product_attention(qh, kh, vh))
+                    lib_dev = sum(device_kernels(
+                        lambda: Fn.scaled_dot_product_attention(qh, kh, vh)).values())
+                    print(f"  K13 {tag13:9s} yardstick: F.scaled_dot_product_attention "
+                          f"{lib:.4f} ms, {lib_dev:.4f} ms a call on the device")
+                    del qh, kh, vh
             record("K13", tag13, err, ms, plain_ms, 4 * score_ops, 4 * tensor, lib)
+            if tag13 in ("", "64img") and dname == "bf16":
+                sfx = f"_{tag13}" if tag13 else ""
+                rows["K13"].update({f"device_ms{sfx}": dev_ms, f"library_device_ms{sfx}": lib_dev})
         if tag14 is not None:
             g = rn(b, l, H, hd)
             plain = by_images(fa.flash_attention_bwd_plain)
             err = gradients("K14", fa.flash_attention_bwd, plain, (q, k_, v, g), kw)
             ms, plain_ms = timed(fa.flash_attention_bwd, plain, (q, k_, v, g), kw, big)
-            record("K14", tag14, err, ms, plain_ms, 10 * score_ops, 7 * tensor)
+            lib = None
+            if not tag14 and dname == "bf16":  # the yardstick, called nowhere in the port
+                lib = sdpa_backward_ms(*(t.transpose(1, 2) for t in (q, k_, v, g)))
+            record("K14", tag14, err, ms, plain_ms, 10 * score_ops, 7 * tensor, lib)
             del g
         del q, k_, v
         torch.cuda.empty_cache()
@@ -605,8 +737,12 @@ def attention_kernels(dtype, dname, gen, rows):
                         args, {})
         ms, plain_ms = timed(fa.flash_attention_bias_bwd, fa.flash_attention_bias_bwd_plain,
                              args, {}, False)
+        lib = None
+        if not tag and dname == "bf16":  # the yardstick: d(bias) includes the batch sum
+            lib = sdpa_backward_ms(*(t.transpose(1, 2) for t in (q, k_, v, g)), bias=bias,
+                                   neg=neg)
         record("K16", tag, err, ms, plain_ms, 10 * score_ops,
-               7 * tensor + extra + H * l * l * 4)
+               7 * tensor + extra + H * l * l * 4, lib)
         del q, k_, v, g, args
         torch.cuda.empty_cache()
 
@@ -1139,6 +1275,7 @@ def main() -> int:
     for line in _build.build_log.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print(f"  ptxas {line.strip()}")
+    check_no_spills(_build.build_log)
 
     rows = phase_kernels(args.seed)
     serving, params = phase_slice(args.seed, card)
