@@ -103,6 +103,19 @@ def test_flash_attention_takes_views_of_a_packed_product():
     np.testing.assert_allclose(out.numpy(), attention(*views).numpy(), rtol=1e-4, atol=1e-5)
 
 
+def test_kernels_read_packed_views_in_place_and_copy_what_tma_cannot_read():
+    """The thirds of a packed product go to the kernels as they are; a batch
+    broadcast (zero stride) or a head-major transpose is copied first."""
+    qkv = torch.zeros((3, 19, 3 * D), dtype=torch.bfloat16)
+    view = qkv[..., D:2 * D].reshape(3, 19, HEADS, D // HEADS)
+    assert tfa._by_stride(view) is view
+    broadcast = torch.zeros((1, 19, HEADS, D // HEADS)).expand(3, -1, -1, -1)
+    heads_first = torch.zeros((3, HEADS, 19, D // HEADS)).transpose(1, 2)
+    for t in (broadcast, heads_first):
+        copy = tfa._by_stride(t)
+        assert copy.is_contiguous() and copy.data_ptr() != t.data_ptr()
+
+
 # ---------------------------------------------------------------------------
 # K15 / K16
 # ---------------------------------------------------------------------------

@@ -21,7 +21,7 @@ GROUPS = {
                ("configuration", "from_jax", "vit", "align", "mpnet", "radzero")],
     "ops": ["radzero_torch.ops." + m for m in
             ("_build", "_checks", "layers", "resize", "fused_layer", "flash_attention", "vlcabs",
-             "vlcabs_fused")],
+             "vlcabs_fused", "ablate_sm90")],
     "serving": ["radzero_torch.losses.radzero_loss", "radzero_torch.eval.geometry",
                 "radzero_torch.eval.serving", "radzero_torch.data.tokenizer"],
     "training": ["radzero_torch.train", "radzero_torch.train.optim", "radzero_torch.train.step",
