@@ -41,8 +41,8 @@ _L = ctypes.c_longlong
 SIGNATURES = {
     # x, ln_s, ln_b, w, b, out, M, K, N, eps, dtype, stream
     "rz_fused_preattn": [_P] * 6 + [_I, _I, _I, _F, _I, _P],
-    # qkv, out, B, L, H, hd, scale, dtype, stream
-    "rz_packed_attention": [_P, _P, _I, _I, _I, _I, _F, _I, _P],
+    # qkv, out, lse, B, L, H, hd, scale, dtype, stream
+    "rz_packed_attention": [_P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
     # x, a, wo, bo, ls1, ln_s, ln_b, w1, b1, w2, b2, ls2, y32, h, out,
     # M, D, F, eps, dtype, stream
     "rz_fused_postattn": [_P] * 15 + [_I, _I, _I, _F, _I, _P],
@@ -73,15 +73,17 @@ SIGNATURES = {
     "rz_ln_bwd_rows": [_P, _I, _P, _I] + [_P] * 8 + [_I, _I, _F, _I, _P],
     # g, m, ls, out, cpart, M, D, dtype, stream
     "rz_scale_colsum": [_P] * 5 + [_I, _I, _I, _P],
-    # qkv, dout, row_m, row_il, row_delta, dqkv, B, L, H, hd, scale, dtype, stream
-    "rz_packed_attention_bwd": [_P] * 6 + [_I, _I, _I, _I, _F, _I, _P],
-    # q, k, v, out, q_bs, q_rs, k_bs, k_rs, v_bs, v_rs, B, L, H, hd, kv_len, scale,
-    # dtype, stream
-    "rz_flash_attention": [_P] * 4 + [_L] * 6 + [_I] * 5 + [_F, _I, _P],
+    # qkv, dout, out, lse, row_m, row_il, row_delta, dqkv, B, L, H, hd, scale, dtype,
+    # stream
+    "rz_packed_attention_bwd": [_P] * 8 + [_I, _I, _I, _I, _F, _I, _P],
+    # q, k, v, out, lse, q_bs, q_rs, k_bs, k_rs, v_bs, v_rs, B, L, H, hd, kv_len,
+    # scale, dtype, stream
+    "rz_flash_attention": [_P] * 5 + [_L] * 6 + [_I] * 5 + [_F, _I, _P],
     # q, k, v, bias, neg, out, then as rz_flash_attention from q_bs on
     "rz_flash_attention_bias": [_P] * 6 + [_L] * 6 + [_I] * 5 + [_F, _I, _P],
-    # q, k, v, dout, stats, dq, dk, dv, then as rz_flash_attention from q_bs on
-    "rz_flash_attention_bwd": [_P] * 8 + [_L] * 6 + [_I] * 5 + [_F, _I, _P],
+    # q, k, v, dout, out, lse, stats, dq, dk, dv, then as rz_flash_attention from
+    # q_bs on
+    "rz_flash_attention_bwd": [_P] * 10 + [_L] * 6 + [_I] * 5 + [_F, _I, _P],
     # q, k, v, bias, neg, dout, stats, dq, dk, dv, dbias_part, chunks, then as
     # rz_flash_attention from q_bs on
     "rz_flash_attention_bias_bwd": [_P] * 11 + [_I] + [_L] * 6 + [_I] * 5 + [_F, _I, _P],

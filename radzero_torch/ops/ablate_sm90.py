@@ -3,8 +3,9 @@
 
     python3 -m radzero_torch.ops.ablate_sm90
 
-Each variant is the source with a text replacement (the results of every
-variant but ``base`` are wrong on purpose); each is compiled by nvcc into its
+Each variant is the source, with ``csrc/sm90.cuh`` written into it, under a
+text replacement (the results of every variant but ``base`` are wrong on
+purpose); each is compiled by nvcc into its
 own library in ``radzero_torch/build/ablate/`` and called through ctypes on
 packed (B, L, 3 x 768) bf16 operands, 12 heads, at the serving shape (8 x
 1370), the training step's (64 x 1370) and a long one (1 x 4097). Printed per
@@ -53,8 +54,8 @@ SHIM = """
 extern "C" int shim(const void* q, const void* k, const void* v, long long bs, long long rs,
                     void* out, long long obs, long long ors, int B, int L, int H, int Lk,
                     float scale) {
-  return (int)rz::fa::forward_sm90(q, k, v, bs, rs, bs, rs, bs, rs, out, obs, ors, B, L, H, Lk,
-                                   scale, 0);
+  return (int)rz::fa::forward_sm90(q, k, v, bs, rs, bs, rs, bs, rs, out, obs, ors, nullptr, B, L,
+                                   H, Lk, scale, 0);
 }
 """
 
@@ -64,7 +65,8 @@ def build_variants(out_dir: Path) -> dict:
     nvcc = _build.find_nvcc()
     if nvcc is None:
         raise RuntimeError("nvcc not found")
-    src = (_build.CSRC / "flash_fwd_sm90.cu").read_text()
+    header = (_build.CSRC / "sm90.cuh").read_text().replace("#pragma once\n", "")
+    src = (_build.CSRC / "flash_fwd_sm90.cu").read_text().replace('#include "sm90.cuh"\n', header)
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name, (_, pairs) in VARIANTS.items():

@@ -25,11 +25,11 @@
 // - One head's K and V do not fit an SM's shared memory, so the forward is
 //   an online softmax over 64-key tiles with a running max (always
 //   subtracted: the TPU's bf16 shortcut stable=False is not mirrored), and
-//   the backward recomputes the row statistics (max, 1 / sum, delta =
-//   rowsum(dP P)) in a first kernel: ten score-sized products where five
-//   would do with statistics saved by the forward. S and P.V pass through
-//   warp-private shared memory, because WMMA leaves its accumulator layout
-//   unspecified.
+//   the backward of fp32 and of K16 recomputes the row statistics (max,
+//   1 / sum, delta = rowsum(dP P)) in a first kernel: ten score-sized
+//   products where five would do with statistics saved by the forward. S and
+//   P.V pass through warp-private shared memory, because WMMA leaves its
+//   accumulator layout unspecified.
 // - No sequence-length limit and no eager fallback: every loop walks tiles.
 // - dK / dV: the TPU adds them up across sequential grid steps. Here one
 //   block per key tile walks the query tiles with fp32 accumulators in
@@ -45,14 +45,15 @@
 // - A row whose keys are all masked (a fully padded sentence: neg is the
 //   type's most negative number and overflows to -inf times log2 e) comes
 //   out as NaN, as from the TPU kernel.
-// - bf16 without a bias (K13, and K2 over its thirds) runs the Hopper kernel
-//   of flash_fwd_sm90.cu (wgmma, TMA, the softmax in registers); fwd_kernel
-//   below is the forward of fp32 and of K15.
+// - bf16 without a bias (K13 / K14, and K2 / K7 over their thirds) runs the
+//   Hopper kernels of flash_fwd_sm90.cu and flash_bwd_sm90.cu (wgmma, TMA,
+//   the softmax in registers; the forward writes the row statistic lse, the
+//   backward reads it and the forward's output); fwd_kernel and the bwd_*
+//   kernels below are the forward and backward of fp32 and of K15 / K16.
 // What bounds them on the H100: K13 / K14 at 1370 tokens are bound by the
 // math units (4 and 10 B H L^2 64 operations), K15 / K16 at 32 to 64 tokens
-// by bytes. Not yet done (later work): saving the row statistics in the
-// forward, wgmma and TMA in the backward and in K15, one block per
-// (sentence, head) at small L.
+// by bytes. Not yet done (later work): wgmma and TMA in K15 / K16, one block
+// per (sentence, head) at small L.
 #include "common.cuh"
 #include "flash_fwd_sm90.cuh"
 
@@ -618,15 +619,17 @@ cudaError_t launch_fwd(const Args& a, void* out, cudaStream_t s) {
   return cudaGetLastError();
 }
 
-// bf16 without a bias: the Hopper kernel of flash_fwd_sm90.cu at every length.
-// Else the forward's tile by length: 2 warps (32 queries) up to 32 tokens, 4
-// up to 64, else 8 (128 queries) with the next K/V tile in flight
+// bf16 without a bias: the Hopper kernel of flash_fwd_sm90.cu at every length,
+// which also writes lse (B, H, L) when it is not null. Else (no lse) the
+// forward's tile by length: 2 warps (32 queries) up to 32 tokens, 4 up to 64,
+// else 8 (128 queries) with the next K/V tile in flight
 template <typename T, bool BIAS>
-cudaError_t forward(const Args& a, void* out, cudaStream_t s) {
+cudaError_t forward(const Args& a, void* out, float* lse, cudaStream_t s) {
   if constexpr (std::is_same<T, __nv_bfloat16>::value && !BIAS) {
     return forward_sm90(a.q, a.k, a.v, a.q_bs, a.q_rs, a.k_bs, a.k_rs, a.v_bs, a.v_rs, out,
-                        a.o_bs, a.o_rs, a.B, a.L, a.H, a.Lk, a.scale, s);
+                        a.o_bs, a.o_rs, lse, a.B, a.L, a.H, a.Lk, a.scale, s);
   } else {
+    if (lse != nullptr) return cudaErrorInvalidValue;
     if (a.L <= 32) return launch_fwd<T, 2, BIAS>(a, out, s);
     if (a.L <= 64) return launch_fwd<T, 4, BIAS>(a, out, s);
     return launch_fwd<T, 8, BIAS>(a, out, s);
@@ -635,7 +638,9 @@ cudaError_t forward(const Args& a, void* out, cudaStream_t s) {
 
 struct BwdArgs {
   const void* dout;  // (B, L, H, 64) contiguous
-  float *row_m, *row_il, *row_delta;  // (B, H, L) scratch
+  const void* out;   // the forward's output, (B, L, H, 64) contiguous: bf16 without a bias only
+  const float* lse;  // the forward's row statistic (B, H, L): bf16 without a bias only
+  float *row_m, *row_il, *row_delta;  // (B, H, L) scratch; bf16 without a bias: row_delta only
   void *dq, *dk, *dv;                 // (B, L, H, 64) by the strides of Args
   float* dbias_part;                  // (chunks, H, L, L), K16 only
   int chunks;
@@ -685,10 +690,21 @@ cudaError_t launch_bwd(const Args& a, const BwdArgs& g, cudaStream_t s) {
   return err;
 }
 
+// bf16 without a bias: the Hopper kernels of flash_bwd_sm90.cu, which read the
+// forward's out and lse (an error without them). Else the statistics, dK/dV
+// and dQ kernels above, by length
 template <typename T, bool BIAS>
 cudaError_t backward(const Args& a, const BwdArgs& g, cudaStream_t s) {
-  if (a.L <= 32) return launch_bwd<T, 2, BIAS>(a, g, s);
-  return launch_bwd<T, 4, BIAS>(a, g, s);
+  if constexpr (std::is_same<T, __nv_bfloat16>::value && !BIAS) {
+    if (g.out == nullptr || g.lse == nullptr || g.row_delta == nullptr)
+      return cudaErrorInvalidValue;
+    return backward_sm90(a.q, a.k, a.v, a.q_bs, a.q_rs, a.k_bs, a.k_rs, a.v_bs, a.v_rs, g.out,
+                         g.dout, g.lse, g.row_delta, g.dq, g.dk, g.dv, a.o_bs, a.o_rs, a.B, a.L,
+                         a.H, a.Lk, a.scale, s);
+  } else {
+    if (a.L <= 32) return launch_bwd<T, 2, BIAS>(a, g, s);
+    return launch_bwd<T, 4, BIAS>(a, g, s);
+  }
 }
 
 inline bool bad(const Args& a, int hd) {
@@ -712,11 +728,21 @@ static fa::Args make_args(const void* q, const void* k, const void* v, long long
 }
 
 template <bool BIAS>
-static int run_forward(const fa::Args& a, int hd, void* out, int dtype, void* stream) {
+static int run_forward(const fa::Args& a, int hd, void* out, float* lse, int dtype,
+                       void* stream) {
   if (fa::bad(a, hd)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(dtype == RZ_DTYPE_BF16 ? fa::forward<bf16, BIAS>(a, out, s)
-                                                 : fa::forward<float, BIAS>(a, out, s));
+  return static_cast<int>(dtype == RZ_DTYPE_BF16 ? fa::forward<bf16, BIAS>(a, out, lse, s)
+                                                 : fa::forward<float, BIAS>(a, out, lse, s));
+}
+
+// the scratch of a backward: (3, B, H, L) fp32 for the statistics kernel, or,
+// in bf16 without a bias, (1, B, H, L) for delta alone
+static fa::BwdArgs bwd_args(const void* dout, const void* out, const void* lse, float* st,
+                            size_t n, void* dq, void* dk, void* dv, int dtype, bool bias) {
+  const bool sm90 = dtype == RZ_DTYPE_BF16 && !bias;
+  return {dout, out, static_cast<const float*>(lse), sm90 ? nullptr : st,
+          sm90 ? nullptr : st + n, sm90 ? st : st + 2 * n, dq, dk, dv, nullptr, 0};
 }
 
 template <bool BIAS>
@@ -729,14 +755,16 @@ static int run_backward(const fa::Args& a, int hd, const fa::BwdArgs& g, int dty
 }
 
 // K13: q, k, v (B, L, H, 64) by stride -> out (B, L, H, 64) contiguous; keys
-// >= kv_len are masked
+// >= kv_len are masked. lse (B, H, L) fp32 or null: the row statistic the bf16
+// backward reads (bf16 only)
 extern "C" int rz_flash_attention(const void* q, const void* k, const void* v, void* out,
-                                  long long q_bs, long long q_rs, long long k_bs, long long k_rs,
-                                  long long v_bs, long long v_rs, int B, int L, int H, int hd,
-                                  int kv_len, float scale, int dtype, void* stream) {
+                                  void* lse, long long q_bs, long long q_rs, long long k_bs,
+                                  long long k_rs, long long v_bs, long long v_rs, int B, int L,
+                                  int H, int hd, int kv_len, float scale, int dtype,
+                                  void* stream) {
   const fa::Args a = make_args(q, k, v, q_bs, q_rs, k_bs, k_rs, v_bs, v_rs, nullptr, nullptr, B,
                                L, H, kv_len, scale);
-  return run_forward<false>(a, hd, out, dtype, stream);
+  return run_forward<false>(a, hd, out, static_cast<float*>(lse), dtype, stream);
 }
 
 // K15: the same with bias (H, L, L) fp32 and neg (B, L) fp32 added to the score
@@ -748,23 +776,25 @@ extern "C" int rz_flash_attention_bias(const void* q, const void* k, const void*
                                        void* stream) {
   const fa::Args a = make_args(q, k, v, q_bs, q_rs, k_bs, k_rs, v_bs, v_rs, bias, neg, B, L, H,
                                kv_len, scale);
-  return run_forward<true>(a, hd, out, dtype, stream);
+  return run_forward<true>(a, hd, out, nullptr, dtype, stream);
 }
 
 // K14: cotangent dout (B, L, H, 64) contiguous -> dq, dk, dv (B, L, H, 64)
-// contiguous; stats is (3, B, H, L) fp32 scratch
+// contiguous. bf16: out (the forward's output, contiguous) and lse (its row
+// statistic) are required and stats is (1, B, H, L) fp32 scratch; fp32: out
+// and lse are ignored and stats is (3, B, H, L)
 extern "C" int rz_flash_attention_bwd(const void* q, const void* k, const void* v,
-                                      const void* dout, void* stats, void* dq, void* dk, void* dv,
-                                      long long q_bs, long long q_rs, long long k_bs,
-                                      long long k_rs, long long v_bs, long long v_rs, int B, int L,
-                                      int H, int hd, int kv_len, float scale, int dtype,
-                                      void* stream) {
+                                      const void* dout, const void* out, const void* lse,
+                                      void* stats, void* dq, void* dk, void* dv, long long q_bs,
+                                      long long q_rs, long long k_bs, long long k_rs,
+                                      long long v_bs, long long v_rs, int B, int L, int H, int hd,
+                                      int kv_len, float scale, int dtype, void* stream) {
   const fa::Args a = make_args(q, k, v, q_bs, q_rs, k_bs, k_rs, v_bs, v_rs, nullptr, nullptr, B,
                                L, H, kv_len, scale);
-  float* st = static_cast<float*>(stats);
-  const size_t n = (size_t)B * H * L;
-  return run_backward<false>(a, hd, {dout, st, st + n, st + 2 * n, dq, dk, dv, nullptr, 0}, dtype,
-                             stream);
+  return run_backward<false>(a, hd,
+                             bwd_args(dout, out, lse, static_cast<float*>(stats),
+                                      (size_t)B * H * L, dq, dk, dv, dtype, false),
+                             dtype, stream);
 }
 
 // K16: as K14 with the bias and the key mask, plus dbias_part (chunks, H, L, L)
@@ -781,28 +811,31 @@ extern "C" int rz_flash_attention_bias_bwd(const void* q, const void* k, const v
   if (chunks < 1 || chunks > B) return static_cast<int>(cudaErrorInvalidValue);
   const fa::Args a = make_args(q, k, v, q_bs, q_rs, k_bs, k_rs, v_bs, v_rs, bias, neg, B, L, H,
                                kv_len, scale);
-  float* st = static_cast<float*>(stats);
-  const size_t n = (size_t)B * H * L;
-  return run_backward<true>(
-      a, hd, {dout, st, st + n, st + 2 * n, dq, dk, dv, static_cast<float*>(dbias_part), chunks},
-      dtype, stream);
+  fa::BwdArgs g = bwd_args(dout, nullptr, nullptr, static_cast<float*>(stats),
+                           (size_t)B * H * L, dq, dk, dv, dtype, true);
+  g.dbias_part = static_cast<float*>(dbias_part);
+  g.chunks = chunks;
+  return run_backward<true>(a, hd, g, dtype, stream);
 }
 
 // K2: qkv (B, L, 3D) packed [q | k | v] -> out (B, L, D) merged heads, D = H * 64:
-// K13 over the three thirds, no key masked
-extern "C" int rz_packed_attention(const void* qkv, void* out, int B, int L, int H, int hd,
-                                   float scale, int dtype, void* stream) {
+// K13 over the three thirds, no key masked; lse as for K13
+extern "C" int rz_packed_attention(const void* qkv, void* out, void* lse, int B, int L, int H,
+                                   int hd, float scale, int dtype, void* stream) {
   fa::Args a = make_args(nullptr, nullptr, nullptr, 0, 0, 0, 0, 0, 0, nullptr, nullptr, B, L, H,
                          L, scale);
   a.packed(qkv, dtype);
-  return run_forward<false>(a, hd, out, dtype, stream);
+  return run_forward<false>(a, hd, out, static_cast<float*>(lse), dtype, stream);
 }
 
 // K7: qkv (B, L, 3D), dout (B, L, D) -> dqkv (B, L, 3D): K14 writing dq, dk and
-// dv into the thirds of dqkv; row_m, row_il and row_delta are (B, H, L) fp32 scratch
-extern "C" int rz_packed_attention_bwd(const void* qkv, const void* dout, void* row_m,
-                                       void* row_il, void* row_delta, void* dqkv, int B, int L,
-                                       int H, int hd, float scale, int dtype, void* stream) {
+// dv into the thirds of dqkv; out (B, L, D) and lse as for K14. row_m, row_il
+// and row_delta are (B, H, L) fp32 scratch (bf16: row_delta only, the others
+// may be null)
+extern "C" int rz_packed_attention_bwd(const void* qkv, const void* dout, const void* out,
+                                       const void* lse, void* row_m, void* row_il,
+                                       void* row_delta, void* dqkv, int B, int L, int H, int hd,
+                                       float scale, int dtype, void* stream) {
   fa::Args a = make_args(nullptr, nullptr, nullptr, 0, 0, 0, 0, 0, 0, nullptr, nullptr, B, L, H,
                          L, scale);
   a.packed(qkv, dtype);
@@ -811,7 +844,8 @@ extern "C" int rz_packed_attention_bwd(const void* qkv, const void* dout, void* 
   const size_t third = static_cast<const char*>(a.k) - static_cast<const char*>(a.q);
   char* d = static_cast<char*>(dqkv);
   return run_backward<false>(a, hd,
-                             {dout, static_cast<float*>(row_m), static_cast<float*>(row_il),
+                             {dout, out, static_cast<const float*>(lse),
+                              static_cast<float*>(row_m), static_cast<float*>(row_il),
                               static_cast<float*>(row_delta), d, d + third, d + 2 * third, nullptr,
                               0},
                              dtype, stream);

@@ -44,151 +44,25 @@
 //   products. ptxas holds the consumers to the launch bound's 168 registers
 //   (S 64, O 32, P 32 live at once): a second S accumulator, to issue S of
 //   t + 1 before the softmax of t, spills.
-// - The epilogue divides by the row sum, rounds to bf16 and writes by stride.
-#include <cuda.h>  // CUtensorMap and its enums only: the encoder comes through the runtime
-
-#include "common.cuh"
+// - The epilogue divides by the row sum, rounds to bf16 and writes by stride;
+//   with a non-null lse it also writes m + log2(l) per real row, the row
+//   statistic the Hopper backward (flash_bwd_sm90.cu) reads instead of
+//   recomputing it: P = exp2(s sl2 - lse).
 #include "flash_fwd_sm90.cuh"
+#include "sm90.cuh"
 
 namespace rz {
 namespace fa {
 namespace {
 
-constexpr int HD = 64;           // head dim: one 128-byte bf16 row, the 128-byte swizzle's width
+using namespace sm90;
+
 constexpr int BM = 128;          // query rows of a block, two consumer warpgroups of 64
-constexpr int BN = 128;          // keys of a tile
+constexpr int BN = BOX;          // keys of a tile
 constexpr int STAGES = 4;        // K / V tiles in flight
-constexpr int TILE = BN * HD * 2;  // bytes of one 128-row tile (Q, K or V)
 constexpr int THREADS = 384;     // producer warpgroup + two consumer warpgroups
-constexpr int CONSUMERS = 256;
 constexpr int BAR_OFF = TILE * (1 + 2 * STAGES);  // Q, then K and V of each stage
 constexpr size_t SMEM = BAR_OFF + 8 * (1 + 2 * STAGES) + 1024;  // + room to align to 1024
-constexpr long long kWatchdogCycles = 1ll << 35;  // ~19 s at 1.8 GHz: a lost barrier phase traps
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void bar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void bar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void bar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
-}
-
-// wait for the completion of the barrier's phase of this parity; a phase that
-// never completes (a broken ring) traps instead of hanging the card
-__device__ __forceinline__ void bar_wait(uint32_t bar, uint32_t parity) {
-  long long t0 = -1;
-  while (true) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    const long long now = clock64();
-    if (t0 < 0) t0 = now;
-    else if (now - t0 > kWatchdogCycles) __trap();
-  }
-}
-
-// one (64, 1, 128, 1) box of a 4-D (64, H, L, B) map at (0, h, row, b) -> dst
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                         int h, int row, int b) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(0), "r"(h), "r"(row), "r"(b)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor, 128-byte swizzle; offsets in 16-byte units:
-// K-major Q / K tiles take lbo 1 (unused) and sbo 64 (1024 bytes between
-// 8-row groups); the MN-major V tile takes 64 for both (one swizzle atom
-// spans the 64 columns, 8-key groups 1024 bytes apart)
-__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return (uint64_t)((addr >> 4) & 0x3FFF) | ((uint64_t)lbo << 16) | ((uint64_t)sbo << 32) |
-         (1ull << 62);
-}
-
-__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;" ::: "memory"); }
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wg_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-}
-
-// keep the compiler from touching accumulator registers across the
-// asynchronous wgmma: reads stay after the wait, writes before the fence
-template <int N>
-__device__ __forceinline__ void pin(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-#define RZ_ACC8(d, i)                                                                       \
-  "+f"(d[i + 0]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]),           \
-      "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
-
-// d (64 x 128 fp32) (+)= A (64 x 16, smem, K-major) . B (16 x 128, smem, K-major)
-__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint64_t db,
-                                              int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n}\n"
-      : RZ_ACC8(d, 0), RZ_ACC8(d, 8), RZ_ACC8(d, 16), RZ_ACC8(d, 24), RZ_ACC8(d, 32),
-        RZ_ACC8(d, 40), RZ_ACC8(d, 48), RZ_ACC8(d, 56)
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// d (64 x 64 fp32) += A (64 x 16 bf16, registers) . B (16 x 64, smem, MN-major)
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t* a, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : RZ_ACC8(d, 0), RZ_ACC8(d, 8), RZ_ACC8(d, 16), RZ_ACC8(d, 24)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-#undef RZ_ACC8
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // round to nearest even
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// named barriers 1 and 2 order the two consumer warpgroups' issue of products
-__device__ __forceinline__ void named_sync(int id) {
-  asm volatile("bar.sync %0, %1;" ::"r"(id), "n"(CONSUMERS) : "memory");
-}
-__device__ __forceinline__ void named_arrive(int id) {
-  asm volatile("bar.arrive %0, %1;" ::"r"(id), "n"(CONSUMERS) : "memory");
-}
 
 // issue S = Q K^T of one tile (async): four m64n128k16 over the head dim
 __device__ __forceinline__ void issue_scores(float (&acc)[64], uint64_t dq, uint32_t sK) {
@@ -283,7 +157,8 @@ __device__ __forceinline__ void pack_p(const float (&acc)[64], uint32_t (&pa)[32
 __global__ void __launch_bounds__(THREADS, 1)
 fwd_sm90_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mk,
                 const __grid_constant__ CUtensorMap mv, __nv_bfloat16* __restrict__ out,
-                long long o_bs, long long o_rs, int L, int Lk, float sl2) {
+                long long o_bs, long long o_rs, float* __restrict__ lse, int L, int Lk,
+                float sl2) {
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
   const uint32_t sQ = base;
@@ -352,13 +227,12 @@ fwd_sm90_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant__ 
     issue_scores(acc, dq, sK(t));
     issue_pv(o, pa, alpha, sK(t - 1) + TILE);
     named_arrive(pass);
-    asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");  // S of t is in
+    wg_wait_one();  // S of t is in
     pin(acc);
     softmax(acc, t * BN, Lk, quad, sl2, m, l, alpha);
     wg_wait_all();  // P.V of t - 1 is in: its P registers and stage are free
     pin(o);
-#pragma unroll
-    for (int i = 0; i < 32; ++i) asm volatile("" ::"r"(pa[i]) : "memory");
+    hold(pa);
     bar_arrive(empty(t - 1));
     pack_p(acc, pa);
   }
@@ -375,6 +249,8 @@ fwd_sm90_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant__ 
     li += __shfl_xor_sync(0xffffffffu, li, 2);
     const int row = q0 + wg * 64 + warp * 16 + lane / 4 + 8 * i;
     if (row >= L) continue;
+    if (lse != nullptr && quad == 0)  // the backward's row statistic, in the log2 domain
+      lse[((size_t)b * gridDim.y + h) * L + row] = m[i] + log2f(li);
     __nv_bfloat16* dst = out + (size_t)b * o_bs + (size_t)row * o_rs + h * HD + 2 * quad;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
@@ -384,53 +260,12 @@ fwd_sm90_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant__ 
   }
 }
 
-using EncodeFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                              const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                              const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                              CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver, found once through the runtime (no -lcuda)
-EncodeFn encoder() {
-  static const EncodeFn fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                             cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeFn>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// a (B, L, H, 64) bf16 operand with batch / row strides bs, rs (elements) as a
-// 4-D map (64, H, L, B) read in (64, 1, 128, 1) boxes under the 128-byte swizzle
-bool make_map(CUtensorMap* map, const void* p, long long bs, long long rs, int B, int L, int H) {
-  const EncodeFn encode = encoder();
-  if (encode == nullptr) return false;
-  if (L == 1) rs = (long long)H * HD;  // a stride of a dimension of one is never stepped
-  if (B == 1) bs = rs * L;
-  const cuuint64_t dims[4] = {(cuuint64_t)HD, (cuuint64_t)H, (cuuint64_t)L, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {HD * 2, (cuuint64_t)rs * 2, (cuuint64_t)bs * 2};
-  const cuuint32_t box[4] = {HD, 1, BN, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(p), dims, strides, box,
-                unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 }  // namespace
 
 cudaError_t forward_sm90(const void* q, const void* k, const void* v, long long q_bs,
                          long long q_rs, long long k_bs, long long k_rs, long long v_bs,
-                         long long v_rs, void* out, long long o_bs, long long o_rs, int B, int L,
-                         int H, int Lk, float scale, cudaStream_t stream) {
+                         long long v_rs, void* out, long long o_bs, long long o_rs, float* lse,
+                         int B, int L, int H, int Lk, float scale, cudaStream_t stream) {
   CUtensorMap mq, mk, mv;
   if (!make_map(&mq, q, q_bs, q_rs, B, L, H) || !make_map(&mk, k, k_bs, k_rs, B, L, H) ||
       !make_map(&mv, v, v_bs, v_rs, B, L, H))
@@ -439,7 +274,7 @@ cudaError_t forward_sm90(const void* q, const void* k, const void* v, long long 
   if (err != cudaSuccess) return err;
   const dim3 grid((L + BM - 1) / BM, H, B);
   fwd_sm90_kernel<<<grid, THREADS, SMEM, stream>>>(mq, mk, mv, static_cast<__nv_bfloat16*>(out),
-                                                   o_bs, o_rs, L, Lk, scale * kLog2e);
+                                                   o_bs, o_rs, lse, L, Lk, scale * kLog2e);
   return cudaGetLastError();
 }
 

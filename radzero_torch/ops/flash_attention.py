@@ -11,11 +11,18 @@ batch-shared bias (port of radzero_tpu/ops/flash_attention.py).
   ``neg_mask`` is a structural mask and gets no gradient (``None``).
 
 Each wrapper runs its plain twin (``*_plain``, same module) when handed CPU
-tensors and launches its CUDA kernel (``csrc/flash_attention.cu``) when
-handed CUDA tensors; anything else raises. ``<wrapper>.launches`` counts
-kernel launches. Handed an operand that requires a gradient, with
-gradients enabled, the forward goes through a ``torch.autograd.Function``
-that keeps its inputs only; the backward recomputes the fp32 softmax.
+tensors and launches its CUDA kernel (``csrc/flash_attention.cu``; bf16
+K13 / K14 on the Hopper kernels of ``csrc/flash_fwd_sm90.cu`` and
+``csrc/flash_bwd_sm90.cu``) when handed CUDA tensors; anything else raises.
+``<wrapper>.launches`` counts kernel launches. Handed an operand that
+requires a gradient, with gradients enabled, the forward goes through a
+``torch.autograd.Function``. In bf16 on the card, K13's Function keeps its
+inputs, its output and the row statistic ``lse`` (B, H, L) fp32 that the
+forward writes (m + log2 l per query row, in the log2 domain of the
+scores): the Hopper backward reads P = exp2(s - lse) and delta =
+rowsum(dO O) from them (:func:`flash_attention_lse` returns both). In fp32,
+on the CPU and for K15, the Functions keep their inputs only and the
+backward recomputes the fp32 softmax.
 
 Numerics are the TPU kernels' contract: fp32 scores, exp2 with log2(e)
 folded into the score, the division deferred to the (L, hd) output; the
@@ -41,7 +48,7 @@ from typing import Optional
 import torch
 
 from radzero_torch.ops import _build
-from radzero_torch.ops._checks import DTYPE_CODES, needed, on_cuda, tracked
+from radzero_torch.ops._checks import DTYPE_CODES, forbid_grad, needed, on_cuda, tracked
 
 _LOG2E = 1.4426950408889634
 _SPLIT_BLOCKS = 4 * 132  # blocks the d(bias) kernel aims at when it splits the batch
@@ -85,16 +92,29 @@ def _fwd_plain(q, k, v, bias, neg_mask, scale, kv_len):
     return (num / den).to(q.dtype).transpose(1, 2).contiguous()
 
 
-def _bwd_plain(q, k, v, bias, neg_mask, g, scale, kv_len):
+def _lse_plain(s):
+    """(B, H, L) fp32 m + log2(sum exp2(s - m)) of log2-domain scores s."""
+    m = s.amax(dim=-1, keepdim=True)
+    return (m + torch.log2(torch.exp2(s - m).sum(dim=-1, keepdim=True))).squeeze(-1)
+
+
+def _bwd_plain(q, k, v, bias, neg_mask, g, scale, kv_len, out=None, lse=None):
+    """The contract's backward; with the forward's ``out`` and ``lse`` the
+    Hopper kernel's arithmetic instead: P = exp2(s - lse), delta = rowsum(dO O)."""
     scale, kv_len = _resolve(q, scale, kv_len)
     cdt = q.dtype
     s = _scores_log2(q, k, bias, neg_mask, scale, kv_len)
-    e = torch.exp2(s - s.amax(dim=-1, keepdim=True))
-    p = e / e.sum(dim=-1, keepdim=True)
     do = _heads32(g.to(cdt))
-    dv = p.to(cdt).float().transpose(-1, -2) @ do
     dp = do @ _heads32(v).transpose(-1, -2)
-    ds0 = p * (dp - (dp * p).sum(dim=-1, keepdim=True))  # d(raw scores)
+    if lse is None:
+        e = torch.exp2(s - s.amax(dim=-1, keepdim=True))
+        p = e / e.sum(dim=-1, keepdim=True)
+        delta = (dp * p).sum(dim=-1, keepdim=True)
+    else:
+        p = torch.exp2(s - lse.float()[..., None])
+        delta = (do * _heads32(out.to(cdt))).sum(dim=-1, keepdim=True)
+    dv = p.to(cdt).float().transpose(-1, -2) @ do
+    ds0 = p * (dp - delta)  # d(raw scores)
     dsc = (ds0 * scale).to(cdt).float()
     dq = dsc @ _heads32(k)
     dk = dsc.transpose(-1, -2) @ _heads32(q)
@@ -106,8 +126,24 @@ def flash_attention_plain(q, k, v, scale=None, stable=None, kv_len=None):
     return _fwd_plain(q, k, v, None, None, scale, kv_len)
 
 
-def flash_attention_bwd_plain(q, k, v, g, scale=None, kv_len=None):
+def flash_attention_lse_plain(q, k, v, scale=None, kv_len=None):
+    scale, kv_len = _resolve(q, scale, kv_len)
+    return (_fwd_plain(q, k, v, None, None, scale, kv_len),
+            _lse_plain(_scores_log2(q, k, None, None, scale, kv_len)))
+
+
+def flash_attention_bwd_plain(q, k, v, g, scale=None, kv_len=None, *, out=None, lse=None):
+    """The contract (P from the scores, delta = rowsum(dP P)); ``out`` and
+    ``lse`` are accepted and ignored, as the fp32 kernels ignore them."""
     return _bwd_plain(q, k, v, None, None, g, scale, kv_len)[:3]
+
+
+def flash_attention_bwd_stats_plain(q, k, v, g, out, lse, scale=None, kv_len=None):
+    """The bf16 Hopper backward's arithmetic (csrc/flash_bwd_sm90.cu): P =
+    exp2(s - lse) from the forward's row statistic, delta = rowsum(dO O) over
+    its output, the contract's roundings otherwise. The CPU tests hold it to
+    the JAX kernels; the card holds the kernel to the contract twin."""
+    return _bwd_plain(q, k, v, None, None, g, scale, kv_len, out, lse)[:3]
 
 
 def flash_attention_bias_plain(q, k, v, bias, neg_mask, scale=None, stable=None, kv_len=None):
@@ -179,43 +215,85 @@ def flash_attention(q, k, v, scale: Optional[float] = None, stable: Optional[boo
     return _flash_attention_fwd(q, k, v, scale, kv_len)
 
 
-def _flash_attention_fwd(q, k, v, scale, kv_len):
+def flash_attention_lse(q, k, v, scale: Optional[float] = None, kv_len: Optional[int] = None):
+    """:func:`flash_attention` that also returns the row statistic its
+    backward reads: (out, lse), ``lse`` (B, H, L) fp32 = m + log2(l) of every
+    query row in the log2 domain of the scores (scale * log2 e folded in).
+    Forward only: an operand that requires a gradient raises (the
+    differentiable :func:`flash_attention` keeps ``lse`` itself). On the
+    card bf16 only (the Hopper kernel writes it); on the CPU the twin."""
+    forbid_grad("flash_attention_lse", "call flash_attention", q, k, v)
+    return _flash_attention_fwd(q, k, v, scale, kv_len, with_lse=True)
+
+
+def _flash_attention_fwd(q, k, v, scale, kv_len, with_lse=False):
     if not on_cuda(q):
+        if with_lse:
+            return flash_attention_lse_plain(q, k, v, scale, kv_len)
         return flash_attention_plain(q, k, v, scale, None, kv_len)
     code = _check_qkv("flash_attention", q, k, v)
+    if with_lse and q.dtype != torch.bfloat16:
+        raise ValueError("flash_attention: only the bf16 kernel writes lse")
     scale, kv_len = _resolve(q, scale, kv_len)
     q, k, v = _by_stride(q), _by_stride(k), _by_stride(v)
     b, l, h, hd = q.shape
     out = torch.empty((b, l, h, hd), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, l), dtype=torch.float32, device=q.device) if with_lse else None
     err = _build.load().rz_flash_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *_strides(q, k, v),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(), *_strides(q, k, v),
         b, l, h, hd, kv_len, scale, code, _build.stream_ptr(q))
     _build.check(err, "flash_attention")
     flash_attention.launches += 1
-    return out
+    return (out, lse) if with_lse else out
 
 
 flash_attention.launches = 0
 
 
-def flash_attention_bwd(q, k, v, g, scale=None, kv_len=None):
+def stats_operands(name, want, out, lse):
+    """The forward's ``out`` (``want`` = (B, L, H, hd) bf16, read by TMA:
+    contiguous) and ``lse`` (B, H, L) fp32 for the bf16 Hopper backward,
+    checked; missing ones raise: that kernel has no path without them."""
+    b, l, h, hd = want.shape
+    if out is None or lse is None:
+        raise ValueError(f"{name}: the bf16 kernel reads the forward's out and lse; pass out= "
+                         "and lse= (flash_attention_lse / flash_attention_packed_lse give them)")
+    if out.numel() != want.numel() or out.dtype != want.dtype or out.device != want.device:
+        raise ValueError(f"{name}: out is {tuple(out.shape)} {out.dtype} on {out.device}, "
+                         f"expected {tuple(want.shape)} {want.dtype} on {want.device}")
+    if tuple(lse.shape) != (b, h, l) or lse.dtype != torch.float32 or lse.device != want.device:
+        raise ValueError(f"{name}: lse is {tuple(lse.shape)} {lse.dtype} on {lse.device}, "
+                         f"expected {(b, h, l)} float32 on {want.device}")
+    return out.contiguous(), lse.contiguous()
+
+
+def flash_attention_bwd(q, k, v, g, scale=None, kv_len=None, *, out=None, lse=None):
     """K14: cotangent g (B, L, H, hd) of :func:`flash_attention` -> (dq, dk,
-    dv) in the operands' type. On the card three kernels over 64-key tiles:
-    the row statistics (max, 1 / sum, delta), dK and dV per key tile walking
-    the query tiles with fp32 accumulators, dQ per query tile walking the key
-    tiles; one count."""
+    dv) in the operands' type; one count. In bf16 on the card two Hopper
+    kernels (csrc/flash_bwd_sm90.cu) that read the forward's ``out`` and
+    ``lse`` (required, see :func:`flash_attention_lse`): dQ per 128 query
+    rows walking the key tiles, which also writes delta = rowsum(dO O), then
+    dK and dV per 128 keys walking the query tiles. In fp32 three kernels over
+    64-key tiles, the first recomputing the row statistics (max, 1 / sum,
+    delta = rowsum(dP P)); ``out`` and ``lse`` are ignored there and on the
+    CPU."""
     if not on_cuda(q):
         return flash_attention_bwd_plain(q, k, v, g, scale, kv_len)
     code = _check_qkv("flash_attention_bwd", q, k, v)
     scale, kv_len = _resolve(q, scale, kv_len)
+    sm90 = q.dtype == torch.bfloat16
+    if sm90:
+        out, lse = stats_operands("flash_attention_bwd", q, out, lse)
     q, k, v = _by_stride(q), _by_stride(k), _by_stride(v)
     g = g.to(q.dtype).contiguous()
     b, l, h, hd = q.shape
-    stats = torch.empty((3, b, h, l), dtype=torch.float32, device=q.device)
+    stats = torch.empty((1 if sm90 else 3, b, h, l), dtype=torch.float32, device=q.device)
     dq, dk, dv = (torch.empty((b, l, h, hd), dtype=q.dtype, device=q.device) for _ in range(3))
     err = _build.load().rz_flash_attention_bwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), stats.data_ptr(),
-        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), *_strides(q, k, v),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+        out.data_ptr() if sm90 else None, lse.data_ptr() if sm90 else None,
+        stats.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), *_strides(q, k, v),
         b, l, h, hd, kv_len, scale, code, _build.stream_ptr(q))
     _build.check(err, "flash_attention_bwd")
     flash_attention_bwd.launches += 1
@@ -304,20 +382,33 @@ flash_attention_bias_bwd.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# autograd: forward K13 / K15, backward K14 / K16; the inputs are the only residuals
+# autograd: forward K13 / K15, backward K14 / K16. The residuals are the
+# inputs, and in bf16 on the card K13's output and lse as well
 # ---------------------------------------------------------------------------
+
+def hopper(t) -> bool:
+    """Whether the attention of ``t`` runs the bf16 Hopper kernels, whose
+    backward reads the forward's output and lse."""
+    return on_cuda(t) and t.dtype == torch.bfloat16
+
 
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, scale, kv_len):
-        ctx.save_for_backward(q, k, v)
         ctx.scale, ctx.kv_len = scale, kv_len
+        if hopper(q):
+            out, lse = _flash_attention_fwd(q, k, v, scale, kv_len, with_lse=True)
+            ctx.save_for_backward(q, k, v, out, lse)
+            return out
+        ctx.save_for_backward(q, k, v)
         return _flash_attention_fwd(q, k, v, scale, kv_len)
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, g):
-        grads = flash_attention_bwd(*ctx.saved_tensors, g, ctx.scale, ctx.kv_len)
+        q, k, v, *stats = ctx.saved_tensors
+        grads = flash_attention_bwd(q, k, v, g, ctx.scale, ctx.kv_len,
+                                    **dict(zip(("out", "lse"), stats)))
         return needed(ctx, grads) + (None, None)
 
 

@@ -28,11 +28,13 @@ keep no tape):
   :func:`fused_postattn_bwd` (K8), :func:`fused_mpnet_post_bwd` (K9), each
   with its plain twin ``*_bwd_plain`` and a ``.launches`` counter.
 
-The Functions keep the inputs only. The backward recomputes the forward
-chain (LN, fc1, GELU, fc2; in K7 the fp32 softmax, with no row statistics
-saved by the forward) and rounds to the operand type where the TPU
-kernels do: the LN output, the GELU output, dm, dh1 and dproj, and in K7
-p, dO and dS. Everything else is fp32. Gradients come back in the
+The Functions keep the inputs only, but for K2 in bf16 on the card, which
+also keeps its output and the row statistic ``lse`` its Hopper forward
+writes (the Hopper backward of K7 reads P and delta = rowsum(dO O) from
+them, :func:`flash_attention_packed_lse`). The backward recomputes the
+forward chain (LN, fc1, GELU, fc2; in K7 otherwise the fp32 softmax) and
+rounds to the operand type where the TPU kernels do: the LN output, the
+GELU output, dm, dh1 and dproj, and in K7 p, dO and dS. Everything else is fp32. Gradients come back in the
 operand's type after fp32 accumulation. On the card K6, K8 and K9 are
 chains of launches composed here from the entry points of
 ``csrc/fused_layer_bwd.cu`` (products, row passes, fixed-order reduces: no
@@ -53,8 +55,11 @@ from __future__ import annotations
 import torch
 
 from radzero_torch.ops import _build
-from radzero_torch.ops._checks import check_operands, needed, on_cuda, tracked
-from radzero_torch.ops.flash_attention import flash_attention_bwd_plain, flash_attention_plain
+from radzero_torch.ops._checks import check_operands, forbid_grad, needed, on_cuda, tracked
+from radzero_torch.ops.flash_attention import (
+    flash_attention_bwd_plain, flash_attention_bwd_stats_plain, flash_attention_lse_plain,
+    flash_attention_plain, hopper, stats_operands,
+)
 
 _LOG2E = 1.4426950408889634
 _INV_SQRT_2PI = 0.3989422804014327
@@ -131,6 +136,12 @@ def flash_attention_packed_plain(qkv, n_heads: int):
     return flash_attention_plain(*_thirds(qkv, n_heads)).reshape(b, l, d3 // 3)
 
 
+def flash_attention_packed_lse_plain(qkv, n_heads: int):
+    b, l, d3 = qkv.shape
+    out, lse = flash_attention_lse_plain(*_thirds(qkv, n_heads))
+    return out.reshape(b, l, d3 // 3), lse
+
+
 def flash_attention_packed(qkv, n_heads: int):
     """(B, L, 3D) packed [q | k | v] -> (B, L, D) merged heads, softmax
     scale head_dim ** -0.5. No lane padding: the kernel masks keys >= L
@@ -141,8 +152,19 @@ def flash_attention_packed(qkv, n_heads: int):
     return _flash_attention_packed_fwd(qkv, n_heads)
 
 
-def _flash_attention_packed_fwd(qkv, n_heads: int):
+def flash_attention_packed_lse(qkv, n_heads: int):
+    """:func:`flash_attention_packed` that also returns the row statistic
+    its backward reads: (out, lse), ``lse`` (B, H, L) fp32 as
+    :func:`radzero_torch.ops.flash_attention.flash_attention_lse` gives it.
+    Forward only; on the card bf16 only; on the CPU the twin."""
+    forbid_grad("flash_attention_packed_lse", "call flash_attention_packed", qkv)
+    return _flash_attention_packed_fwd(qkv, n_heads, with_lse=True)
+
+
+def _flash_attention_packed_fwd(qkv, n_heads: int, with_lse=False):
     if not on_cuda(qkv):
+        if with_lse:
+            return flash_attention_packed_lse_plain(qkv, n_heads)
         return flash_attention_packed_plain(qkv, n_heads)
     b, l, d3 = qkv.shape
     d = d3 // 3
@@ -150,15 +172,19 @@ def _flash_attention_packed_fwd(qkv, n_heads: int):
     code = check_operands("flash_attention_packed", qkv)
     if hd != 64 or d3 != 3 * n_heads * hd:
         raise ValueError(f"flash_attention_packed: the kernel takes head_dim 64, got {hd}")
+    if with_lse and qkv.dtype != torch.bfloat16:
+        raise ValueError("flash_attention_packed: only the bf16 kernel writes lse")
     out = torch.empty((b, l, d), dtype=qkv.dtype, device=qkv.device)
+    lse = (torch.empty((b, n_heads, l), dtype=torch.float32, device=qkv.device) if with_lse
+           else None)
     lib = _build.load()
     err = lib.rz_packed_attention(
-        qkv.data_ptr(), out.data_ptr(), b, l, n_heads, hd, float(hd**-0.5), code,
-        _build.stream_ptr(qkv),
+        qkv.data_ptr(), out.data_ptr(), None if lse is None else lse.data_ptr(), b, l, n_heads,
+        hd, float(hd**-0.5), code, _build.stream_ptr(qkv),
     )
     _build.check(err, "flash_attention_packed")
     flash_attention_packed.launches += 1
-    return out
+    return (out, lse) if with_lse else out
 
 
 flash_attention_packed.launches = 0
@@ -325,9 +351,19 @@ def fused_preattn_bwd_plain(x, ln_scale, ln_bias, w_qkv, b_qkv, g, *, eps=1e-6):
             dw.to(w_qkv.dtype), g32.sum(0).to(b_qkv.dtype))
 
 
-def flash_attention_packed_bwd_plain(qkv, n_heads: int, dout):
+def flash_attention_packed_bwd_plain(qkv, n_heads: int, dout, *, out=None, lse=None):
+    """The contract; ``out`` and ``lse`` are accepted and ignored."""
     q, k, v = _thirds(qkv, n_heads)
     grads = flash_attention_bwd_plain(q, k, v, dout.to(qkv.dtype).reshape(q.shape))
+    return torch.cat([g.reshape(dout.shape) for g in grads], dim=-1)
+
+
+def flash_attention_packed_bwd_stats_plain(qkv, n_heads: int, dout, out, lse):
+    """The bf16 Hopper backward's arithmetic (P from ``lse``, delta =
+    rowsum(dO O)) over the packed layout."""
+    q, k, v = _thirds(qkv, n_heads)
+    grads = flash_attention_bwd_stats_plain(q, k, v, dout.to(qkv.dtype).reshape(q.shape),
+                                            out.reshape(q.shape), lse)
     return torch.cat([g.reshape(dout.shape) for g in grads], dim=-1)
 
 
@@ -541,12 +577,13 @@ def fused_preattn_bwd(x, ln_scale, ln_bias, w_qkv, b_qkv, g, *, eps=1e-6):
 fused_preattn_bwd.launches = 0
 
 
-def flash_attention_packed_bwd(qkv, n_heads: int, dout):
+def flash_attention_packed_bwd(qkv, n_heads: int, dout, *, out=None, lse=None):
     """K7: cotangent dout (B, L, D) of :func:`flash_attention_packed` ->
-    d qkv (B, L, 3D). The fp32 softmax is recomputed per 64 x 64 tile; the
-    row statistics (max, 1 / sum, delta) come from a first kernel, dK and dV
-    from a second that walks the query tiles, dQ from a third that walks the
-    key tiles; one count."""
+    d qkv (B, L, 3D); one count. K14's kernels over the thirds of the packed
+    buffer: in bf16 the two Hopper kernels, which read the forward's ``out``
+    (B, L, D) and ``lse`` (required, see :func:`flash_attention_packed_lse`);
+    in fp32 the statistics, dK/dV and dQ kernels over 64 x 64 tiles, with
+    ``out`` and ``lse`` ignored, as on the CPU."""
     if not on_cuda(qkv):
         return flash_attention_packed_bwd_plain(qkv, n_heads, dout)
     b, l, d3 = qkv.shape
@@ -555,13 +592,19 @@ def flash_attention_packed_bwd(qkv, n_heads: int, dout):
     code = check_operands("flash_attention_packed_bwd", qkv, dout=((b, l, d), dout))
     if hd != 64 or d3 != 3 * n_heads * hd:
         raise ValueError(f"flash_attention_packed_bwd: the kernel takes head_dim 64, got {hd}")
-    stats = torch.empty((3, b, n_heads, l), dtype=torch.float32, device=qkv.device)
+    sm90 = qkv.dtype == torch.bfloat16
+    if sm90:
+        out, lse = stats_operands("flash_attention_packed_bwd", _thirds(qkv, n_heads)[0],
+                                  out, lse)
+    stats = torch.empty((1 if sm90 else 3, b, n_heads, l), dtype=torch.float32,
+                        device=qkv.device)
     dqkv = torch.empty_like(qkv)
     lib = _build.load()
+    row = [None, None, stats[0].data_ptr()] if sm90 else [t.data_ptr() for t in stats]
     err = lib.rz_packed_attention_bwd(
-        qkv.data_ptr(), dout.data_ptr(), stats[0].data_ptr(), stats[1].data_ptr(),
-        stats[2].data_ptr(), dqkv.data_ptr(), b, l, n_heads, hd, float(hd**-0.5), code,
-        _build.stream_ptr(qkv),
+        qkv.data_ptr(), dout.data_ptr(), out.data_ptr() if sm90 else None,
+        lse.data_ptr() if sm90 else None, *row, dqkv.data_ptr(), b, l, n_heads, hd,
+        float(hd**-0.5), code, _build.stream_ptr(qkv),
     )
     _build.check(err, "flash_attention_packed_bwd")
     flash_attention_packed_bwd.launches += 1
@@ -685,15 +728,20 @@ class _FlashAttentionPacked(torch.autograd.Function):
     @staticmethod
     def forward(ctx, qkv, n_heads):
         qkv = qkv.contiguous()
-        ctx.save_for_backward(qkv)
         ctx.n_heads = n_heads
+        if hopper(qkv):
+            out, lse = _flash_attention_packed_fwd(qkv, n_heads, with_lse=True)
+            ctx.save_for_backward(qkv, out, lse)
+            return out
+        ctx.save_for_backward(qkv)
         return _flash_attention_packed_fwd(qkv, n_heads)
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, g):
-        (qkv,) = ctx.saved_tensors
-        return flash_attention_packed_bwd(qkv, ctx.n_heads, g.contiguous()), None
+        qkv, *stats = ctx.saved_tensors
+        return flash_attention_packed_bwd(qkv, ctx.n_heads, g.contiguous(),
+                                          **dict(zip(("out", "lse"), stats))), None
 
 
 class _FusedPostattn(torch.autograd.Function):

@@ -246,11 +246,17 @@ def test_fused_preattn_bwd_kernel(dtype, m, d):
     assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
-@pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("l", [17, 37, 64, 128, 130])
-def test_packed_attention_bwd_kernel(dtype, l):
+# bf16 runs the Hopper backward of csrc/flash_bwd_sm90.cu, 128-row blocks and 64-row
+# inner steps: lengths on both sides of their edges, a ragged 1370, an odd batch
+PACKED_BWD_CASES = ([(dtype, 2, l) for dtype in DTYPES for l in (17, 37, 64, 128, 130)]
+                    + [(torch.bfloat16, 2, l) for l in (63, 65, 127, 129, 257, 1370)]
+                    + [(torch.bfloat16, 3, 129)])
+
+
+@pytest.mark.parametrize("dtype,b,l", PACKED_BWD_CASES)
+def test_packed_attention_bwd_kernel(dtype, b, l):
     g = torch.Generator(device="cuda").manual_seed(l)
-    qkv, cot = _rn(g, dtype, 2, l, 3 * 128), _rn(g, dtype, 2, l, 128)
+    qkv, cot = _rn(g, dtype, b, l, 3 * 128), _rn(g, dtype, b, l, 128)
     first, second = _backward_twice(lambda t: fl.flash_attention_packed(t, 2), (qkv,), cot,
                                     fl.flash_attention_packed_bwd)
     want = fl.flash_attention_packed_bwd_plain(qkv, 2, cot)
@@ -328,6 +334,53 @@ def test_flash_attention_kernels(dtype, b, l, kv_len, layout):
     _check_grads(first, fa.flash_attention_bwd_plain(q, k, v, cot, kv_len=kv_len), dtype,
                  ("dq", "dk", "dv"))
     assert all(torch.equal(a, b) for a, b in zip(first, second))
+    if dtype == torch.bfloat16:  # the row statistic the Hopper forward writes for its backward
+        out2, lse = fa.flash_attention_lse(q, k, v, kv_len=kv_len)
+        assert torch.equal(out2, out)
+        torch.testing.assert_close(lse, fa.flash_attention_lse_plain(q, k, v, kv_len=kv_len)[1],
+                                   rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_attention_backward_runs_the_hopper_kernels_in_bf16(dtype):
+    """K7 and K14 in bf16 run bwd_dq_sm90_kernel and bwd_dkdv_sm90_kernel
+    (csrc/flash_bwd_sm90.cu) and nothing else, never bwd_stats_kernel; in
+    fp32 the statistics, dK/dV and dQ kernels of flash_attention.cu. The
+    bf16 Functions keep the forward's output and lse."""
+    g = torch.Generator(device="cuda").manual_seed(6)
+    qkv, cot = _rn(g, dtype, 2, 130, 3 * 128), _rn(g, dtype, 2, 130, 128)
+    q, k, v = (qkv[..., i * 128:(i + 1) * 128].reshape(2, 130, 2, 64) for i in range(3))
+    kw = {}
+    if dtype == torch.bfloat16:
+        out, lse = fa.flash_attention_lse(q, k, v)
+        kw = {"out": out, "lse": lse}
+        leaf = q.clone().requires_grad_(True)
+        saved = fa.flash_attention(leaf, k, v).grad_fn.saved_tensors
+        assert [tuple(t.shape) for t in saved[3:]] == [(2, 130, 2, 64), (2, 2, 130)]
+    for fn in (lambda: fl.flash_attention_packed_bwd(qkv, 2, cot, **kw),
+               lambda: fa.flash_attention_bwd(q, k, v, cot.reshape(q.shape), **kw)):
+        names = _device_kernels(fn)
+        if dtype == torch.bfloat16:
+            assert len(names) == 2, names
+            assert all(any(want in n for n in names)
+                       for want in ("bwd_dq_sm90_kernel", "bwd_dkdv_sm90_kernel")), names
+        else:
+            assert len(names) == 3 and any("bwd_stats_kernel<float" in n for n in names), names
+        assert not (dtype == torch.bfloat16 and any("bwd_stats_kernel" in n for n in names))
+
+
+def test_bf16_backward_requires_the_forward_statistics():
+    """No route back to the recomputing kernels: without out and lse the
+    bf16 backward raises; lse exists in bf16 only."""
+    g = torch.Generator(device="cuda").manual_seed(7)
+    qkv, cot = _rn(g, torch.bfloat16, 1, 70, 3 * 128), _rn(g, torch.bfloat16, 1, 70, 128)
+    q, k, v = (qkv[..., i * 128:(i + 1) * 128].reshape(1, 70, 2, 64) for i in range(3))
+    with pytest.raises(ValueError, match="out and lse"):
+        fl.flash_attention_packed_bwd(qkv, 2, cot)
+    with pytest.raises(ValueError, match="out and lse"):
+        fa.flash_attention_bwd(q, k, v, cot.reshape(q.shape))
+    with pytest.raises(ValueError, match="bf16"):
+        fa.flash_attention_lse(q.float(), k.float(), v.float())
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
