@@ -8,14 +8,19 @@ Phases, in order; any failure exits non-zero:
 
 1. device: require CUDA; print the card (nvidia-smi), CUDA and nvcc versions;
 2. build the kernels from radzero_torch/ops/csrc with nvcc (sm_90a); ptxas
-   must report no spills for the Hopper forward of K2 / K13;
+   must report no spills for the Hopper kernels of K2 / K13 (forward) and
+   K7 / K14 (backward);
 3. each kernel against its plain PyTorch twin, in fp32 with TF32 off and in
    bf16, with CUDA-event timings (one call a sample, the host's launch
-   included; K2 and K13 also by torch.profiler, which asserts the device
-   kernel by name: fwd_sm90_kernel in bf16, fwd_kernel<float, ...> in fp32,
-   and gives its device time alone), library yardsticks where one PyTorch
+   included; K2, K7, K13 and K14 also by torch.profiler, which asserts the
+   device kernels by name: fwd_sm90_kernel, and bwd_dq_sm90_kernel with
+   bwd_dkdv_sm90_kernel, in bf16, the kernels of flash_attention.cu in fp32,
+   and gives their device time alone; the lse the bf16 forward writes for
+   the backward against its twin), library yardsticks where one PyTorch
    call computes the same function (K2 / K13 at 8 and 64 images, the
-   backward alone of K7 / K14 and of K16 with its bias a leaf): K1
+   backward alone of K7 / K14 and of K16 with its bias a leaf; for the GEMM
+   kernels K1, K3, K4, K6, K8 and K9 the cuBLAS products alone, which no
+   one call fuses with their LN, GELU or residual): K1
    fused_preattn, K2 flash_attention_packed, K3 fused_postattn and K5 vlcabs_fused at the
    serving shapes (8 images x 1370 tokens x 768, 12 heads, 14 prompts);
    K1-K3 again at the training step's 64 images (87 680 rows); K4
@@ -30,7 +35,8 @@ Phases, in order; any failure exits non-zero:
    flash_attention_bwd at 64 images, at 2 and at 4097 tokens, K15
    flash_attention_bias and K16 flash_attention_bias_bwd at 512 sentences x
    32 tokens, 14 x 64, 64 x 256 and 8 x 37 with real lengths drawn per
-   sentence (dq, dk, dv, d bias; a second backward gives the same bits);
+   sentence (dq, dk, dv, d bias; a second backward of K7, K14 and K16 gives
+   the same bits);
 4. serving: full-width RadZero (ViT-B/14 at 518, 2 align layers, MPNet
    12 x 768 with the default fuse_post=True) from seeded random weights in
    bf16 behind ServingEngine(max_batch=8, channels=1); 20 grayscale
@@ -83,7 +89,12 @@ L_PAD, L_LONG = 1408, 4097            # K13 / K14: a lane-padded tower (kv_len 1
 PEAK_FLOPS = {"bf16": 989e12}         # H100 SXM dense bf16, operations per second
 PEAK_BYTES = 3.35e12                  # H100 SXM device memory, bytes per second
 HOPPER_FWD = "fwd_sm90_kernel"        # K2 / K13 in bf16 (csrc/flash_fwd_sm90.cu)
-FP32_FWD = "fwd_kernel<float"         # K2 / K13 in fp32 (csrc/flash_attention.cu)
+HOPPER_BWD = ("bwd_dq_sm90_kernel", "bwd_dkdv_sm90_kernel")  # K7 / K14 in bf16 (flash_bwd_sm90.cu)
+# the device kernels of one call, by dtype (csrc/flash_attention.cu in fp32)
+ROUTES = {"fwd": {"bf16": (HOPPER_FWD,), "fp32": ("fwd_kernel<float",)},
+          "bwd": {"bf16": HOPPER_BWD,
+                  "fp32": ("bwd_stats_kernel<float", "bwd_dkdv_kernel<float",
+                           "bwd_dq_kernel<float")}}
 CHEXPERT = [
     "No Finding", "Enlarged Cardiomediastinum", "Cardiomegaly", "Lung Opacity",
     "Lung Lesion", "Edema", "Consolidation", "Pneumonia", "Atelectasis",
@@ -140,7 +151,15 @@ CHEXPERT = [
 # kernel was not changed for it (fp32 errors <= 1.4e-6). The share of K2's
 # tolerance that each run's worst entry takes is printed beside. K14 and K16 round P, dO and dS as K7 does, so K7's (a share
 # of the largest |reference| entry of each gradient). d(bias) is an fp32 sum of
-# unrounded dS on both sides and only its order differs.
+# unrounded dS on both sides and only its order differs. K7 / K14 in bf16 run
+# the Hopper kernels, which take delta as rowsum(dO O) over the forward's bf16
+# output (FlashAttention-2's identity) where the TPU kernel and the twin take
+# rowsum(dP P) with P unrounded: the same sum reassociated, off by the
+# rounding of P before P.V and of O, ~2^-9 of |delta|, far below dS's own
+# bf16 rounding; the tolerance is unchanged. The lse the bf16 forward writes
+# (m + log2 l, fp32 from the same bf16 operands, sums in another order, ex2 to
+# 2 ulp) is held to 1e-4 + 1e-5 relative: the order of 64 fp32 products moves
+# a score by <= 64 2^-24 sum|q k| sl2, under 4e-5 at |q k| sums <= 50.
 BWD_OUTPUTS = {
     "K14": ("dq", "dk", "dv"),
     "K16": ("dq", "dk", "dv", "dbias"),
@@ -174,6 +193,7 @@ for _k in ("K3", "K3 train", "K4", "K4 16384"):
     TOL[(_k, "bf16")] = (2.0**-10, 2.0**-7, "scaled")
 for _k in ("K11 dq", "K11 dtau", "K12 dt", "K6", "K7", "K8", "K9", "K14", "K16"):
     TOL[(_k, "bf16")] = (2.0**-7, 2.0**-7, "scaled")
+TOL[("lse", "bf16")] = (1e-4, 1e-5)
 
 
 def fail(msg: str) -> None:
@@ -228,16 +248,18 @@ def device_kernels(fn, calls=5):
             for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
 
 
-def check_route(k, dname, fn):
-    """A call of K2 / K13 runs one device kernel, fwd_sm90_kernel in bf16 and
-    fwd_kernel<float, ...> in fp32 -> its device ms a call (no host time)."""
+def check_route(k, dname, fn, way="fwd"):
+    """A call of K2 / K13 (way "fwd") or K7 / K14 ("bwd") runs exactly the
+    device kernels of ROUTES: fwd_sm90_kernel, or bwd_dq_sm90_kernel and
+    bwd_dkdv_sm90_kernel, in bf16 (never bwd_stats_kernel) -> their device ms
+    a call (no host time)."""
     ran = device_kernels(fn)
-    want = HOPPER_FWD if dname == "bf16" else FP32_FWD
-    if len(ran) != 1 or want not in next(iter(ran)):
-        fail(f"{k} {dname}: expected one device kernel named {want}, ran {list(ran)}")
-    (name, ms), = ran.items()
-    print(f"  {k:10s} {dname}: torch.profiler: {name[:60]}..., {ms:.4f} ms a call on the "
-          "device")
+    want = ROUTES[way][dname]
+    if len(ran) != len(want) or not all(any(w in name for name in ran) for w in want):
+        fail(f"{k} {dname}: expected the device kernels {want}, ran {list(ran)}")
+    ms = sum(ran.values())
+    names = ", ".join(f"{name[:48]}... {t:.4f}" for name, t in ran.items())
+    print(f"  {k:10s} {dname}: torch.profiler: {names}; {ms:.4f} ms a call on the device")
     return ms
 
 
@@ -261,7 +283,8 @@ def sdpa_backward_ms(q, k, v, g, bias=None, neg=None):
     backward alone on (B, H, L, 64) operands, its forward run once outside the
     timed call; with ``bias`` (H, L, L) a leaf broadcast over the batch beside
     the key mask ``neg`` (B, L), so the time includes autograd's sum of the
-    broadcast. None, with the reason printed, where no backend computes it."""
+    broadcast. -> (CUDA-event ms, device ms by torch.profiler); (None, None),
+    with the reason printed, where no backend computes it."""
     import torch
     import torch.nn.functional as Fn
 
@@ -272,11 +295,11 @@ def sdpa_backward_ms(q, k, v, g, bias=None, neg=None):
         mask = (leaves[3][None] + neg[:, None, None, :]).to(q.dtype)
     try:
         out = Fn.scaled_dot_product_attention(*leaves[:3], attn_mask=mask)
-        return median_ms(lambda: torch.autograd.grad(out, leaves, g, retain_graph=True), reps=5,
-                         warmup=1)
+        call = lambda: torch.autograd.grad(out, leaves, g, retain_graph=True)  # noqa: E731
+        return median_ms(call, reps=5, warmup=1), sum(device_kernels(call, calls=3).values())
     except RuntimeError as err:
         print(f"  no library backward: {str(err).splitlines()[0][:200]}")
-        return None
+        return None, None
 
 
 def median_ms(fn, reps=20, warmup=3):
@@ -366,8 +389,9 @@ def bounds(dtype_bytes=2):
         work |= {
             # dh = g W^T and dW = h^T g; reads x, g, W, writes dx, dW, db, dln
             "K6" + tag: (4 * m * D * 3 * D, (2 * m * D + m * 3 * D + 2 * D * 3 * D + 3 * D + 4 * D) * e),
-            # S, dP, dV, dQ, dK per head
-            "K7" + tag: (10 * b * H * L * L * (D // H), (2 * b * L * 3 * D + b * L * D) * e),
+            # S, dP, dV, dQ, dK per head; reads qkv, dout, out and lse, writes d qkv
+            "K7" + tag: (10 * b * H * L * L * (D // H),
+                         (2 * b * L * 3 * D + 2 * b * L * D) * e + b * H * L * 4),
             # the three forward products again and two backward products for each
             "K8" + tag: (6 * m * D * (D + 2 * F),
                          (5 * m * D + 2 * (D * D + 2 * D * F) + 2 * (6 * D + F)) * e),
@@ -383,18 +407,20 @@ def bounds(dtype_bytes=2):
 
 
 def check_no_spills(log):
-    """ptxas must report no spills for the Hopper forward."""
+    """ptxas must report no spills for the Hopper kernels: the forward of
+    K2 / K13 and the two of the K7 / K14 backward."""
     if not log:
         print("  ptxas: no report in this process (the library was built before)")
         return
     lines = log.splitlines()
-    at = [i for i, line in enumerate(lines) if "Compiling entry" in line and HOPPER_FWD in line]
-    if not at:
-        fail(f"ptxas reported no {HOPPER_FWD}")
-    report = " ".join(lines[at[0] + 1:at[0] + 4])
-    if "0 bytes spill stores, 0 bytes spill loads" not in report:
-        fail(f"{HOPPER_FWD} spills: {report}")
-    print(f"  {HOPPER_FWD} (K2 / K13 in bf16): no spills")
+    for name in (HOPPER_FWD, *HOPPER_BWD):
+        at = [i for i, line in enumerate(lines) if "Compiling entry" in line and name in line]
+        if not at:
+            fail(f"ptxas reported no {name}")
+        report = " ".join(lines[at[0] + 1:at[0] + 4])
+        if "0 bytes spill stores, 0 bytes spill loads" not in report:
+            fail(f"{name} spills: {report}")
+    print(f"  {', '.join((HOPPER_FWD, *HOPPER_BWD))} (K2 / K13, K7 / K14 in bf16): no spills")
 
 
 def phase_kernels(seed):
@@ -442,6 +468,12 @@ def phase_kernels(seed):
                   f"(median of {reps})")
             if k in ("K2", "K2 train"):  # the device kernel that ran, by name
                 dev_ms = check_route(k, dname, lambda: kern(*args, **kw))
+            if k == "K2 train" and dname == "bf16":  # the row statistic K7 reads, against its twin
+                _, lse = fl.flash_attention_packed_lse(args[0], H)
+                ref_lse = torch.cat([fl.flash_attention_packed_lse_plain(args[0][i:i + 8], H)[1]
+                                     for i in range(0, TB, 8)])
+                lse_err = compare("K2 lse", dname, lse, ref_lse, tol="lse")
+                del lse, ref_lse
             if dname != "bf16":
                 continue
             if k.endswith(" train"):  # beside the serving shape's numbers of the same kernel
@@ -453,7 +485,7 @@ def phase_kernels(seed):
             if k == "K2":
                 rows[k]["device_ms"] = dev_ms
             elif k == "K2 train":
-                rows["K2"]["device_ms_training"] = dev_ms
+                rows["K2"].update(device_ms_training=dev_ms, max_abs_err_lse_training=lse_err)
 
         # K10-K12 through the autograd function, as the training step runs them
         qn, tokens, tau, dz = inputs["train"]
@@ -505,6 +537,7 @@ def phase_kernels(seed):
         torch.cuda.empty_cache()
         backward_kernels(dtype, dname, gen, rows)
         attention_kernels(dtype, dname, gen, rows)
+    cublas_products(rows)
     for k, (bound_ms, bound_by) in bounds().items():
         if k.endswith((" 2img", " 1370")):
             rows[k[:2]].update(bound_ms_small=bound_ms)
@@ -518,6 +551,58 @@ def phase_kernels(seed):
         print(f"  {k:8s} bound {bound_ms:.4f} ms by {bound_by}: kernel at "
               f"{100 * bound_ms / ms:.1f}% of it (bf16)")
     return rows
+
+
+def cublas_products(rows):
+    """The yardsticks of the GEMM kernels, for which no one PyTorch call
+    computes the fused function: each bf16 product of K1 (qkv), K3 and K4
+    (o-proj, fc1, fc2) and the dX / dW products of K6, K8 and K9, as one
+    cuBLAS call on operands of the same shapes (F.linear, or torch.mm of a^T g
+    for a dW), timed alone, without the LN, GELU, residual or column sums the
+    kernels fuse; called nowhere in the port -> rows[k]["cublas_products_ms.."]."""
+    import torch
+    import torch.nn.functional as Fn
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def rn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda", dtype=torch.bfloat16)
+
+    def dx(m, k, n):  # (m, k) @ (k, n): a forward product or a dX = g W^T
+        a, w = rn(m, k), rn(n, k)
+        return median_ms(lambda: Fn.linear(a, w), reps=10)
+
+    def dw(m, k, n):  # (k, m) @ (m, n): a dW = a^T g over m rows
+        a, g = rn(m, k), rn(m, n)
+        return median_ms(lambda: torch.mm(a.t(), g), reps=10)
+
+    def post(m):  # o-proj, fc1, fc2
+        return {"o-proj": dx(m, D, D), "fc1": dx(m, D, F), "fc2": dx(m, F, D)}
+
+    def post_bwd(m):  # the dX and dW of fc2, fc1 and o-proj
+        return {"dX fc2": dx(m, D, F), "dX fc1": dx(m, F, D), "dX o-proj": dx(m, D, D),
+                "dW fc2": dw(m, F, D), "dW fc1": dw(m, D, F), "dW o-proj": dw(m, D, D)}
+
+    cases = {  # (kernel, suffix of its row's keys, the kernel's row): the products
+        ("K1", "", "K1"): lambda: {"qkv": dx(B * L, D, 3 * D)},
+        ("K1", "_training", "K1"): lambda: {"qkv": dx(TB * L, D, 3 * D)},
+        ("K3", "", "K3"): lambda: post(B * L),
+        ("K3", "_training", "K3"): lambda: post(TB * L),
+        ("K4", "", "K4"): lambda: post(M_TEXT),
+        ("K4", "_16384", "K4 16384"): lambda: post(TN * T_LEN),
+        ("K6", "", "K6"): lambda: {"dX": dx(TB * L, 3 * D, D), "dW": dw(TB * L, D, 3 * D)},
+        ("K8", "", "K8"): lambda: post_bwd(TB * L),
+        ("K9", "", "K9"): lambda: post_bwd(TN * T_LEN),
+    }
+    print("cuBLAS products alone (no LN, GELU or residual), bf16, one call each, median of 10:")
+    for (k, sfx, row), make in cases.items():
+        times = make()
+        total = sum(times.values())
+        rows[k][f"cublas_products_ms{sfx}"] = total
+        kernel = rows[row]["ms" + ("" if row != k else sfx)]
+        parts = ", ".join(f"{name} {ms:.4f}" for name, ms in times.items())
+        print(f"  {k + sfx:12s} {parts}: {total:.4f} ms in all; the kernel {kernel:.4f} ms")
+        torch.cuda.empty_cache()
 
 
 def backward_kernels(dtype, dname, gen, rows):
@@ -545,7 +630,15 @@ def backward_kernels(dtype, dname, gen, rows):
                 rn(F, D, std=0.02), rn(D, std=0.02), rn(D, std=0.1, mean=1.0), rn(D, std=0.1),
                 rn(m, D))
 
-    def k7_plain(qkv, dout):  # the twin holds (images, 12, 1370, 1370) fp32: 8 images at a time
+    def k7_inputs(b):  # qkv, dout, and in bf16 the forward's out and lse, which K7 reads
+        qkv = rn(b, L, 3 * D)
+        stats = fl.flash_attention_packed_lse(qkv, H) if dname == "bf16" else (None, None)
+        return (qkv, rn(b, L, D), *stats)
+
+    def k7(qkv, dout, out, lse):
+        return fl.flash_attention_packed_bwd(qkv, H, dout, out=out, lse=lse)
+
+    def k7_plain(qkv, dout, out, lse):  # the twin holds (images, 12, 1370, 1370) fp32: 8 at a time
         return torch.cat([fl.flash_attention_packed_bwd_plain(qkv[i:i + 8], H, dout[i:i + 8])
                           for i in range(0, qkv.shape[0], 8)])
 
@@ -555,10 +648,8 @@ def backward_kernels(dtype, dname, gen, rows):
     cases = {  # key: (make inputs, kernel, plain twin, outputs as a tuple)
         "K6": (lambda: k6(TB * L), fl.fused_preattn_bwd, fl.fused_preattn_bwd_plain, tuple),
         "K6 2img": (lambda: k6(2 * L), fl.fused_preattn_bwd, fl.fused_preattn_bwd_plain, tuple),
-        "K7": (lambda: (rn(TB, L, 3 * D), rn(TB, L, D)),
-               lambda q, g: fl.flash_attention_packed_bwd(q, H, g), k7_plain, thirds),
-        "K7 2img": (lambda: (rn(2, L, 3 * D), rn(2, L, D)),
-                    lambda q, g: fl.flash_attention_packed_bwd(q, H, g), k7_plain, thirds),
+        "K7": (lambda: k7_inputs(TB), k7, k7_plain, thirds),
+        "K7 2img": (lambda: k7_inputs(2), k7, k7_plain, thirds),
         "K8": (lambda: k8(TB * L), fl.fused_postattn_bwd, fl.fused_postattn_bwd_plain, tuple),
         "K8 2img": (lambda: k8(2 * L), fl.fused_postattn_bwd, fl.fused_postattn_bwd_plain, tuple),
         "K9": (lambda: k9(TN * T_LEN), fl.fused_mpnet_post_bwd, fl.fused_mpnet_post_bwd_plain,
@@ -570,6 +661,9 @@ def backward_kernels(dtype, dname, gen, rows):
         args = make()
         out, ref = split(kern(*args)), split(plain(*args))
         torch.cuda.synchronize()
+        if k.startswith("K7") and not all(torch.equal(a, b)
+                                          for a, b in zip(out, split(kern(*args)))):
+            fail(f"{k} {dname}: a second backward gives other bits")
         worst = [compare(f"{k} {name}", dname, a, b, tol=k[:2], quiet=True)
                  for name, a, b in zip(BWD_OUTPUTS[k[:2]], out, ref)]
         scale = max(b.float().abs().max().item() for b in ref)
@@ -580,22 +674,27 @@ def backward_kernels(dtype, dname, gen, rows):
         ms = median_ms(lambda: kern(*args), reps=reps, warmup=1)
         plain_ms = median_ms(lambda: plain(*args), reps=3, warmup=1)
         err = max(w[0] for w in worst)
-        lib = None
+        lib = lib_dev = dev_ms = None
+        if k == "K7":  # the device kernels that ran, by name
+            dev_ms = check_route(k, dname, lambda: kern(*args), "bwd")
         if k == "K7" and dname == "bf16":  # the yardstick, called nowhere in the port
             heads = [t.reshape(TB, L, H, D // H).transpose(1, 2) for t in (*thirds(args[0]),
                                                                            args[1])]
-            lib = sdpa_backward_ms(*heads)
+            lib, lib_dev = sdpa_backward_ms(*heads)
             del heads
         print(f"  {k:10s} {dname}: {len(worst)} gradients, max_abs_err {err:.3e} (largest "
               f"|ref| {scale:.3g}); worst {BWD_OUTPUTS[k[:2]][i]} at {100 * worst[i][1]:.0f}% "
               f"of its tolerance; kernel {ms:.4f} ms  plain {plain_ms:.4f} ms"
-              f"{'' if lib is None else f'  library backward {lib:.4f} ms'} ok")
+              f"{'' if lib is None else f'  library backward {lib:.4f} ms'}"
+              f"{'' if lib_dev is None else f' ({lib_dev:.4f} ms on the device)'} ok")
         if dname == "bf16":
             if small:
                 rows[k[:2]].update(max_abs_err_small=err, ms_small=ms, plain_ms_small=plain_ms)
             else:
                 rows[k] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                            "library_ms": lib}
+                if k == "K7":
+                    rows[k].update(device_ms=dev_ms, library_device_ms=lib_dev)
         del args
         torch.cuda.empty_cache()
 
@@ -688,19 +787,38 @@ def attention_kernels(dtype, dname, gen, rows):
                           f"{lib:.4f} ms, {lib_dev:.4f} ms a call on the device")
                     del qh, kh, vh
             record("K13", tag13, err, ms, plain_ms, 4 * score_ops, 4 * tensor, lib)
+            sfx = f"_{tag13}" if tag13 else ""
             if tag13 in ("", "64img") and dname == "bf16":
-                sfx = f"_{tag13}" if tag13 else ""
                 rows["K13"].update({f"device_ms{sfx}": dev_ms, f"library_device_ms{sfx}": lib_dev})
+            if dname == "bf16":  # the row statistic the bf16 backward reads, against its twin
+                _, lse = fa.flash_attention_lse(q, k_, v, **kw)
+                ref_lse = by_images(lambda *t, **a: fa.flash_attention_lse_plain(*t, **a)[1])(
+                    q, k_, v, **kw)
+                lse_err, used = compare(f"K13 lse {tag13}", dname, lse, ref_lse, tol="lse",
+                                        quiet=True)
+                print(f"  K13 lse {tag13:6s} bf16: max_abs_err {lse_err:.3e} (worst entry at "
+                      f"{100 * used:.0f}% of its tolerance) ok")
+                rows["K13"][f"max_abs_err_lse{sfx}"] = lse_err
+                del lse, ref_lse
         if tag14 is not None:
             g = rn(b, l, H, hd)
+            if dname == "bf16":  # the forward's output and row statistic, which K14 reads
+                kw = {**kw, **dict(zip(("out", "lse"), fa.flash_attention_lse(q, k_, v, **kw)))}
             plain = by_images(fa.flash_attention_bwd_plain)
             err = gradients("K14", fa.flash_attention_bwd, plain, (q, k_, v, g), kw)
             ms, plain_ms = timed(fa.flash_attention_bwd, plain, (q, k_, v, g), kw, big)
-            lib = None
+            lib = lib_dev = dev_ms = None
+            if not tag14:  # the device kernels that ran, by name
+                dev_ms = check_route("K14", dname, lambda: fa.flash_attention_bwd(q, k_, v, g, **kw),
+                                     "bwd")
             if not tag14 and dname == "bf16":  # the yardstick, called nowhere in the port
-                lib = sdpa_backward_ms(*(t.transpose(1, 2) for t in (q, k_, v, g)))
-            record("K14", tag14, err, ms, plain_ms, 10 * score_ops, 7 * tensor, lib)
-            del g
+                lib, lib_dev = sdpa_backward_ms(*(t.transpose(1, 2) for t in (q, k_, v, g)))
+            # reads q, k, v, g, the forward's out and lse; writes dq, dk, dv
+            record("K14", tag14, err, ms, plain_ms, 10 * score_ops,
+                   8 * tensor + b * H * l * 4, lib)
+            if not tag14 and dname == "bf16":
+                rows["K14"].update(device_ms=dev_ms, library_device_ms=lib_dev)
+            del g, kw
         del q, k_, v
         torch.cuda.empty_cache()
 
@@ -739,8 +857,8 @@ def attention_kernels(dtype, dname, gen, rows):
                              args, {}, False)
         lib = None
         if not tag and dname == "bf16":  # the yardstick: d(bias) includes the batch sum
-            lib = sdpa_backward_ms(*(t.transpose(1, 2) for t in (q, k_, v, g)), bias=bias,
-                                   neg=neg)
+            lib, _ = sdpa_backward_ms(*(t.transpose(1, 2) for t in (q, k_, v, g)), bias=bias,
+                                      neg=neg)
         record("K16", tag, err, ms, plain_ms, 10 * score_ops,
                7 * tensor + extra + H * l * l * 4, lib)
         del q, k_, v, g, args
@@ -1285,7 +1403,7 @@ def main() -> int:
     meta = {
         "K1": ("fused_preattn", "radzero_torch/ops/csrc/fused_layer.cu",
                "radzero_tpu/ops/fused_layer.py:92"),
-        "K2": ("flash_attention_packed", "radzero_torch/ops/csrc/flash_attention.cu",
+        "K2": ("flash_attention_packed", "radzero_torch/ops/csrc/flash_fwd_sm90.cu",
                "radzero_tpu/ops/fused_layer.py:175"),
         "K3": ("fused_postattn", "radzero_torch/ops/csrc/fused_layer.cu",
                "radzero_tpu/ops/fused_layer.py:913"),
@@ -1295,7 +1413,7 @@ def main() -> int:
                "radzero_tpu/ops/pallas_vlcabs.py:115"),
         "K6": ("fused_preattn_bwd", "radzero_torch/ops/csrc/fused_layer_bwd.cu",
                "radzero_tpu/ops/fused_layer.py:390"),
-        "K7": ("flash_attention_packed_bwd", "radzero_torch/ops/csrc/flash_attention.cu",
+        "K7": ("flash_attention_packed_bwd", "radzero_torch/ops/csrc/flash_bwd_sm90.cu",
                "radzero_tpu/ops/fused_layer.py:281"),
         "K8": ("fused_postattn_bwd", "radzero_torch/ops/csrc/fused_layer_bwd.cu",
                "radzero_tpu/ops/fused_layer.py:568"),
@@ -1307,9 +1425,9 @@ def main() -> int:
                 "radzero_tpu/ops/pallas_vlcabs.py:381"),
         "K12": ("vlcabs_train_bwd_dtn", "radzero_torch/ops/csrc/vlcabs_train.cu",
                 "radzero_tpu/ops/pallas_vlcabs.py:403"),
-        "K13": ("flash_attention", "radzero_torch/ops/csrc/flash_attention.cu",
+        "K13": ("flash_attention", "radzero_torch/ops/csrc/flash_fwd_sm90.cu",
                 "radzero_tpu/ops/flash_attention.py:122"),
-        "K14": ("flash_attention_bwd", "radzero_torch/ops/csrc/flash_attention.cu",
+        "K14": ("flash_attention_bwd", "radzero_torch/ops/csrc/flash_bwd_sm90.cu",
                 "radzero_tpu/ops/flash_attention.py:214"),
         "K15": ("flash_attention_bias", "radzero_torch/ops/csrc/flash_attention.cu",
                 "radzero_tpu/ops/flash_attention.py:333"),

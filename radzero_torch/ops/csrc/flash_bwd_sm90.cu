@@ -19,16 +19,16 @@
 // contract take 10 B H L^2 64 operations; these kernels do seven (S and dP
 // in both), with L^2 exp2 in each. The row statistics come from the forward
 // (lse = m + log2 l per query row, written by fwd_sm90_kernel), so no kernel
-// recomputes them: ten score-sized products went to seven.
+// recomputes them.
 //
 // Design: two kernels on one stream, grid (ceil(L / 128), H, B), 384
 // threads: a producer warpgroup (setmaxnreg.dec; one thread issues TMA loads
 // through the 4-D maps of sm90.cuh, so K7's thirds are read in place) and two
-// consumer warpgroups of 64 rows each, taking turns to issue their products
-// (named barriers) as in the forward. Each block owns the rows it writes: no
+// consumer warpgroups of 64 rows each. Each block owns the rows it writes: no
 // atomics, sums in a fixed order, the same bits from run to run. Inner steps
 // are 64 wide so that S and dP (32 fp32 registers each) fit beside the
-// accumulators under the launch bound's 168 registers.
+// accumulators under the launch bound's 168 registers (ptxas gave a
+// 288-thread block with one producer warp no more: it spilled).
 // - bwd_dq_sm90_kernel, one block per 128 query rows: Q, dO and O by TMA
 //   once, then a ring of STAGES 128-key K / V tiles. delta = rowsum(dO O) in
 //   fp32 from the swizzled O and dO tiles, written to a (B, H, L) scratch for
@@ -36,14 +36,18 @@
 //   m64n64k16, both operands in shared memory), P = exp2(S sl2 - lse) and dS
 //   on the accumulator registers, dS rounded to bf16 as the register A
 //   operand of dQ += dS K (K as an MN-major B operand), issued beside S and dP
-//   of the next half-tile. Keys >= Lk are masked by column index; query rows
-//   >= L (zeros from TMA) take lse = +inf, so P = 0.
+//   of the next half-tile; the warpgroups take turns to issue (named
+//   barriers), as in the forward. Keys >= Lk are masked by column index;
+//   query rows >= L (zeros from TMA) take lse = +inf, so P = 0.
 // - bwd_dkdv_sm90_kernel, one block per 128 keys: K and V by TMA once, then a
 //   ring of 128-query Q / dO tiles; a second producer warp copies the tiles'
 //   lse and delta rows into the ring (+inf and 0 past L). Per 64-query
 //   half-tile: S^T = K Q^T and dP^T = V dO^T, P^T and dS^T on the registers,
-//   dV += bf16(P^T) dO and dK += bf16(dS^T) Q with register A operands. Keys
-//   >= Lk get P^T = 0, so zero dK / dV rows, written for every key < L.
+//   dV += bf16(P^T) dO and dK += bf16(dS^T) Q with register A operands, all
+//   four products waited for in turn: the products of the next half-tile
+//   beside these spill at 168 registers. Without turn-taking it runs 5%
+//   faster than with it (ops/ablate_sm90.py). Keys >= Lk get P^T = 0, so zero
+//   dK / dV rows, written for every key < L.
 // Every mbarrier wait traps after ~19 s instead of hanging the card.
 #include "flash_fwd_sm90.cuh"
 #include "sm90.cuh"
@@ -355,8 +359,6 @@ bwd_dkdv_sm90_kernel(const __grid_constant__ CUtensorMap mq,
   const int r0 = wg * 64 + warp * 16 + lane / 4;  // this thread's keys k0 + r0 (+ 8)
   const bool dead[2] = {k0 + r0 >= Lk, k0 + r0 + 8 >= Lk};
   const uint32_t ka = sK + wg * 64 * ROW_BYTES, va = sV + wg * 64 * ROW_BYTES;
-  const int turn = 1 + wg, pass = 2 - wg;
-  if (wg == 1) named_arrive(pass);
 
   float dka[32], dva[32];  // dK, dV: rows keys, columns 8 j + 2 quad (+ 1) of the head dim
 #pragma unroll
@@ -369,24 +371,20 @@ bwd_dkdv_sm90_kernel(const __grid_constant__ CUtensorMap mq,
     const int t = j / 2;
     if (j % 2 == 0) bar_wait(full(t), (t / STAGES) & 1);
     const uint32_t qb = sQ(t) + (j % 2) * SUB * ROW_BYTES, gb = qb + TILE;
-    named_sync(turn);
     wg_fence();
     issue_ss(s, ka, qb);
     issue_ss(dp, va, gb);
     wg_commit();
-    named_arrive(pass);
     wg_wait_all();
     pin(s);
     pin(dp);
     ds_cols(s, dp, stats(t) + (j % 2) * SUB, dead, quad, sl2, scale);
     pack_a(s, pa);
     pack_a(dp, da);
-    named_sync(turn);
     wg_fence();
     issue_rs(dva, pa, gb);
     issue_rs(dka, da, qb);
     wg_commit();
-    if (j + 1 < nsub || wg == 0) named_arrive(pass);  // warpgroup 1's last turn ends it
     wg_wait_all();
     pin(dva);
     pin(dka);

@@ -282,7 +282,7 @@ def flash_attention_bwd(q, k, v, g, scale=None, kv_len=None, *, out=None, lse=No
         return flash_attention_bwd_plain(q, k, v, g, scale, kv_len)
     code = _check_qkv("flash_attention_bwd", q, k, v)
     scale, kv_len = _resolve(q, scale, kv_len)
-    sm90 = q.dtype == torch.bfloat16
+    sm90 = hopper(q)
     if sm90:
         out, lse = stats_operands("flash_attention_bwd", q, out, lse)
     q, k, v = _by_stride(q), _by_stride(k), _by_stride(v)

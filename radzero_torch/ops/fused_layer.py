@@ -592,7 +592,7 @@ def flash_attention_packed_bwd(qkv, n_heads: int, dout, *, out=None, lse=None):
     code = check_operands("flash_attention_packed_bwd", qkv, dout=((b, l, d), dout))
     if hd != 64 or d3 != 3 * n_heads * hd:
         raise ValueError(f"flash_attention_packed_bwd: the kernel takes head_dim 64, got {hd}")
-    sm90 = qkv.dtype == torch.bfloat16
+    sm90 = hopper(qkv)
     if sm90:
         out, lse = stats_operands("flash_attention_packed_bwd", _thirds(qkv, n_heads)[0],
                                   out, lse)

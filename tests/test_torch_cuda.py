@@ -355,8 +355,9 @@ def test_attention_backward_runs_the_hopper_kernels_in_bf16(dtype):
         out, lse = fa.flash_attention_lse(q, k, v)
         kw = {"out": out, "lse": lse}
         leaf = q.clone().requires_grad_(True)
-        saved = fa.flash_attention(leaf, k, v).grad_fn.saved_tensors
-        assert [tuple(t.shape) for t in saved[3:]] == [(2, 130, 2, 64), (2, 2, 130)]
+        y = fa.flash_attention(leaf, k, v)  # kept alive: its Function saved it
+        assert [tuple(t.shape) for t in y.grad_fn.saved_tensors[3:]] == [(2, 130, 2, 64),
+                                                                         (2, 2, 130)]
     for fn in (lambda: fl.flash_attention_packed_bwd(qkv, 2, cot, **kw),
                lambda: fa.flash_attention_bwd(q, k, v, cot.reshape(q.shape), **kw)):
         names = _device_kernels(fn)
