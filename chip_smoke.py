@@ -413,13 +413,14 @@ def check_no_spills(log):
         print("  ptxas: no report in this process (the library was built before)")
         return
     lines = log.splitlines()
-    for name in (HOPPER_FWD, *HOPPER_BWD):
+    for name in (HOPPER_FWD, *HOPPER_BWD):  # every instantiation of each
         at = [i for i, line in enumerate(lines) if "Compiling entry" in line and name in line]
         if not at:
             fail(f"ptxas reported no {name}")
-        report = " ".join(lines[at[0] + 1:at[0] + 4])
-        if "0 bytes spill stores, 0 bytes spill loads" not in report:
-            fail(f"{name} spills: {report}")
+        for i in at:
+            report = " ".join(lines[i + 1:i + 4])
+            if "0 bytes spill stores, 0 bytes spill loads" not in report:
+                fail(f"{name} spills: {report}")
     print(f"  {', '.join((HOPPER_FWD, *HOPPER_BWD))} (K2 / K13, K7 / K14 in bf16): no spills")
 
 

@@ -45,7 +45,8 @@
 //   (S 64, O 32, P 32 live at once): a second S accumulator, to issue S of
 //   t + 1 before the softmax of t, spills.
 // - The epilogue divides by the row sum, rounds to bf16 and writes by stride;
-//   with a non-null lse it also writes m + log2(l) per real row, the row
+//   with a non-null lse (an instantiation of its own, so that the forward
+//   without it keeps its code) it also writes m + log2(l) per real row, the row
 //   statistic the Hopper backward (flash_bwd_sm90.cu) reads instead of
 //   recomputing it: P = exp2(s sl2 - lse).
 #include "flash_fwd_sm90.cuh"
@@ -154,6 +155,8 @@ __device__ __forceinline__ void pack_p(const float (&acc)[64], uint32_t (&pa)[32
       pa[4 * (j / 2) + 2 * (j % 2) + i] = pack_bf16(acc[4 * j + 2 * i], acc[4 * j + 2 * i + 1]);
 }
 
+// LSE: also write lse (serving and the scorer run the instantiation without it)
+template <bool LSE>
 __global__ void __launch_bounds__(THREADS, 1)
 fwd_sm90_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mk,
                 const __grid_constant__ CUtensorMap mv, __nv_bfloat16* __restrict__ out,
@@ -249,7 +252,7 @@ fwd_sm90_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant__ 
     li += __shfl_xor_sync(0xffffffffu, li, 2);
     const int row = q0 + wg * 64 + warp * 16 + lane / 4 + 8 * i;
     if (row >= L) continue;
-    if (lse != nullptr && quad == 0)  // the backward's row statistic, in the log2 domain
+    if (LSE && quad == 0)  // the backward's row statistic, in the log2 domain
       lse[((size_t)b * gridDim.y + h) * L + row] = m[i] + log2f(li);
     __nv_bfloat16* dst = out + (size_t)b * o_bs + (size_t)row * o_rs + h * HD + 2 * quad;
 #pragma unroll
@@ -270,11 +273,12 @@ cudaError_t forward_sm90(const void* q, const void* k, const void* v, long long 
   if (!make_map(&mq, q, q_bs, q_rs, B, L, H) || !make_map(&mk, k, k_bs, k_rs, B, L, H) ||
       !make_map(&mv, v, v_bs, v_rs, B, L, H))
     return cudaErrorInvalidValue;
-  cudaError_t err = allow_smem(fwd_sm90_kernel, SMEM);
+  const auto kernel = lse != nullptr ? fwd_sm90_kernel<true> : fwd_sm90_kernel<false>;
+  cudaError_t err = allow_smem(kernel, SMEM);
   if (err != cudaSuccess) return err;
   const dim3 grid((L + BM - 1) / BM, H, B);
-  fwd_sm90_kernel<<<grid, THREADS, SMEM, stream>>>(mq, mk, mv, static_cast<__nv_bfloat16*>(out),
-                                                   o_bs, o_rs, lse, L, Lk, scale * kLog2e);
+  kernel<<<grid, THREADS, SMEM, stream>>>(mq, mk, mv, static_cast<__nv_bfloat16*>(out), o_bs, o_rs,
+                                          lse, L, Lk, scale * kLog2e);
   return cudaGetLastError();
 }
 
