@@ -177,7 +177,7 @@ using EncodeFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, voi
                               const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
                               CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 
-// cuTensorMapEncodeTiled from the driver, found once through the runtime (no -lcuda)
+// cuTensorMapEncodeTiled, looked up once through the runtime's entry-point query (no -lcuda)
 inline EncodeFn encoder() {
   static const EncodeFn fn = [] {
     void* p = nullptr;
