@@ -9,16 +9,20 @@ Phases, in order; any failure exits non-zero:
 1. device: require CUDA; print the card (nvidia-smi), CUDA and nvcc versions;
 2. build the kernels from radzero_torch/ops/csrc with nvcc (sm_90a); ptxas
    must report no spills for the Hopper kernels of K2 / K13 (forward) and
-   K7 / K14 (backward);
+   K7 / K14 (backward), nor for the short-sentence K15 / K16 kernels;
 3. each kernel against its plain PyTorch twin, in fp32 with TF32 off and in
    bf16, with CUDA-event timings (one call a sample, the host's launch
-   included; K2, K7, K13 and K14 also by torch.profiler, which asserts the
+   included; K2, K7, K13-K16 also by torch.profiler, which asserts the
    device kernels by name: fwd_sm90_kernel, and bwd_dq_sm90_kernel with
-   bwd_dkdv_sm90_kernel, in bf16, the kernels of flash_attention.cu in fp32,
-   and gives their device time alone; the lse the bf16 forward writes for
-   the backward against its twin), library yardsticks where one PyTorch
-   call computes the same function (K2 / K13 at 8 and 64 images, the
-   backward alone of K7 / K14 and of K16 with its bias a leaf; for the GEMM
+   bwd_dkdv_sm90_kernel, in bf16, flash_bias_fwd_small_kernel and
+   flash_bias_bwd_small_kernel with the reduce for K15 / K16 in bf16 at 512
+   x 32 (the grid is printed), the kernels of flash_attention.cu in fp32 and
+   for K15 / K16 in bf16 at 64 x 256, and gives their device time alone, and
+   for K15 / K16 in bf16 at every text shape also the host's time a call; the
+   lse the bf16 forward writes for the backward against its twin), library
+   yardsticks where one PyTorch call computes the same function (K2 / K13 at
+   8 and 64 images, K15 with bias + mask as attn_mask, the backward alone of
+   K7 / K14 and of K16 with its bias a leaf, with their device times; for the GEMM
    kernels K1, K3, K4, K6, K8 and K9 the cuBLAS products alone, which no
    one call fuses with their LN, GELU or residual): K1
    fused_preattn, K2 flash_attention_packed, K3 fused_postattn and K5 vlcabs_fused at the
@@ -63,7 +67,7 @@ Phases, in order; any failure exits non-zero:
    2 images.
 
 --profile also prints the kernels of one training step by device time
-(torch.profiler). A line with {"kernels": [...]} reports every kernel; the
+(torch.profiler; the 40 longest, and K15 / K16's by name). A line with {"kernels": [...]} reports every kernel; the
 line before the last is the card's name and power limit; the last is
 {"ok": true, "device": {...}}.
 """
@@ -90,11 +94,22 @@ PEAK_FLOPS = {"bf16": 989e12}         # H100 SXM dense bf16, operations per seco
 PEAK_BYTES = 3.35e12                  # H100 SXM device memory, bytes per second
 HOPPER_FWD = "fwd_sm90_kernel"        # K2 / K13 in bf16 (csrc/flash_fwd_sm90.cu)
 HOPPER_BWD = ("bwd_dq_sm90_kernel", "bwd_dkdv_sm90_kernel")  # K7 / K14 in bf16 (flash_bwd_sm90.cu)
-# the device kernels of one call, by dtype (csrc/flash_attention.cu in fp32)
+# K15 / K16 in bf16 at L <= 64 (flash_bias_small.cu)
+SMALL_BIAS = ("flash_bias_fwd_small_kernel", "flash_bias_bwd_small_kernel")
+REDUCE = "reduce_parts_kernel"        # the fixed-order d(bias) reduce (fused_layer_bwd.cu)
+# the device kernels of one call, by dtype (csrc/flash_attention.cu in fp32); K15 /
+# K16 by dtype and length: "bf16" at L <= 64, "bf16 L>64" on the tiled kernels
 ROUTES = {"fwd": {"bf16": (HOPPER_FWD,), "fp32": ("fwd_kernel<float",)},
           "bwd": {"bf16": HOPPER_BWD,
                   "fp32": ("bwd_stats_kernel<float", "bwd_dkdv_kernel<float",
-                           "bwd_dq_kernel<float")}}
+                           "bwd_dq_kernel<float")},
+          "bias_fwd": {"bf16": SMALL_BIAS[:1], "bf16 L>64": ("fwd_kernel<__nv_bfloat16",),
+                       "fp32": ("fwd_kernel<float",)},
+          "bias_bwd": {"bf16": (SMALL_BIAS[1], REDUCE),
+                       "bf16 L>64": ("bwd_stats_kernel<__nv_bfloat16", "bwd_dkdv_kernel<__nv",
+                                     "bwd_dq_kernel<__nv", "bwd_dbias_kernel<__nv", REDUCE),
+                       "fp32": ("bwd_stats_kernel<float", "bwd_dkdv_kernel<float",
+                                "bwd_dq_kernel<float", "bwd_dbias_kernel<float", REDUCE)}}
 CHEXPERT = [
     "No Finding", "Enlarged Cardiomediastinum", "Cardiomegaly", "Lung Opacity",
     "Lung Lesion", "Edema", "Consolidation", "Pneumonia", "Atelectasis",
@@ -249,10 +264,11 @@ def device_kernels(fn, calls=5):
 
 
 def check_route(k, dname, fn, way="fwd"):
-    """A call of K2 / K13 (way "fwd") or K7 / K14 ("bwd") runs exactly the
-    device kernels of ROUTES: fwd_sm90_kernel, or bwd_dq_sm90_kernel and
-    bwd_dkdv_sm90_kernel, in bf16 (never bwd_stats_kernel) -> their device ms
-    a call (no host time)."""
+    """A call of K2 / K13 (way "fwd"), K7 / K14 ("bwd"), K15 ("bias_fwd") or
+    K16 ("bias_bwd") runs exactly the device kernels of ROUTES: in bf16
+    fwd_sm90_kernel, or bwd_dq_sm90_kernel and bwd_dkdv_sm90_kernel (never
+    bwd_stats_kernel), or the kernels of flash_bias_small.cu at L <= 64 ->
+    their device ms a call (no host time)."""
     ran = device_kernels(fn)
     want = ROUTES[way][dname]
     if len(ran) != len(want) or not all(any(w in name for name in ran) for w in want):
@@ -407,13 +423,14 @@ def bounds(dtype_bytes=2):
 
 
 def check_no_spills(log):
-    """ptxas must report no spills for the Hopper kernels: the forward of
-    K2 / K13 and the two of the K7 / K14 backward."""
+    """ptxas must report no spills for the Hopper kernels (the forward of
+    K2 / K13 and the two of the K7 / K14 backward) and the short-sentence
+    K15 / K16 kernels."""
     if not log:
         print("  ptxas: no report in this process (the library was built before)")
         return
     lines = log.splitlines()
-    for name in (HOPPER_FWD, *HOPPER_BWD):  # every instantiation of each
+    for name in (HOPPER_FWD, *HOPPER_BWD, *SMALL_BIAS):  # every instantiation of each
         at = [i for i, line in enumerate(lines) if "Compiling entry" in line and name in line]
         if not at:
             fail(f"ptxas reported no {name}")
@@ -421,7 +438,8 @@ def check_no_spills(log):
             report = " ".join(lines[i + 1:i + 4])
             if "0 bytes spill stores, 0 bytes spill loads" not in report:
                 fail(f"{name} spills: {report}")
-    print(f"  {', '.join((HOPPER_FWD, *HOPPER_BWD))} (K2 / K13, K7 / K14 in bf16): no spills")
+    print(f"  {', '.join((HOPPER_FWD, *HOPPER_BWD))} (K2 / K13, K7 / K14 in bf16), "
+          f"{', '.join(SMALL_BIAS)} (K15 / K16 in bf16 at L <= 64): no spills")
 
 
 def phase_kernels(seed):
@@ -833,6 +851,11 @@ def attention_kernels(dtype, dname, gen, rows):
         score_ops, tensor = s_ * H * l * l * hd, s_ * l * D * e
         extra = H * l * l * 4 + s_ * l * 4  # bias and mask, fp32
         args = (q, k_, v, bias, neg)
+        if not tag and dname == "bf16":
+            h_, chunks = fa.bias_grid(q)
+            print(f"  K15 / K16 {s_} x {l} bf16: flash_bias_small.cu grid ({h_}, {chunks}), "
+                  f"{h_ * chunks} blocks of {2 if l <= 32 else 4} warps, "
+                  f"{-(-s_ // chunks)} sentences a block")
         out, ref = fa.flash_attention_bias(*args), fa.flash_attention_bias_plain(*args)
         torch.cuda.synchronize()
         err = compare(f"K15 {tag}", dname, out, ref, tol="K15", quiet=True)
@@ -844,24 +867,54 @@ def attention_kernels(dtype, dname, gen, rows):
         del out, ref
         ms, plain_ms = timed(fa.flash_attention_bias, fa.flash_attention_bias_plain, args, {},
                              False)
-        lib = None
+        # the device kernels that ran, by name: at 512 x 32, and at 64 x 256 in bf16
+        # (the tiled kernels past 64 tokens); in bf16 the device time and the host's
+        # time (the wrapper's enqueue) a call at every shape
+        route = dname if not tag else "bf16 L>64" if tag == "64x256" and dname == "bf16" else None
+        sfx = f"_{tag}" if tag else ""
+
+        def on_device(k, fn, way):
+            if route is not None:
+                dev_ms = check_route(f"{k} {tag}", route, fn, way)
+            else:
+                dev_ms = sum(device_kernels(fn).values())
+                print(f"  {k + ' ' + tag:14s} {dname}: {dev_ms:.4f} ms a call on the device")
+            if dname == "bf16":
+                us = host_us(fn)
+                print(f"  {k + ' ' + tag:14s} {dname}: host time a call {us:.1f} us")
+                rows[k].update({f"device_ms{sfx}": dev_ms, f"host_us{sfx}": us})
+
+        lib = lib_dev = None
         if not tag and dname == "bf16":  # the mask is summed before the timed call
             qh, kh, vh = (t.transpose(1, 2) for t in (q, k_, v))
             both = (bias[None] + neg[:, None, None, :]).to(dtype)
-            lib = median_ms(lambda: Fn.scaled_dot_product_attention(qh, kh, vh, attn_mask=both))
-            del both
+            call = lambda: Fn.scaled_dot_product_attention(qh, kh, vh, attn_mask=both)  # noqa: E731
+            lib, lib_dev = median_ms(call), sum(device_kernels(call).values())
+            print(f"  K15 {tag:10s} yardstick: F.scaled_dot_product_attention with attn_mask "
+                  f"{lib:.4f} ms, {lib_dev:.4f} ms a call on the device")
+            del both, call
         record("K15", tag, err, ms, plain_ms, 4 * score_ops, 4 * tensor + extra, lib)
+        if route is not None or dname == "bf16":
+            on_device("K15", lambda: fa.flash_attention_bias(*args), "bias_fwd")
+        if not tag and dname == "bf16":
+            rows["K15"]["library_device_ms"] = lib_dev
         args = (q, k_, v, bias, neg, g)
         err = gradients("K16", fa.flash_attention_bias_bwd, fa.flash_attention_bias_bwd_plain,
                         args, {})
         ms, plain_ms = timed(fa.flash_attention_bias_bwd, fa.flash_attention_bias_bwd_plain,
                              args, {}, False)
-        lib = None
+        lib = lib_dev = None
         if not tag and dname == "bf16":  # the yardstick: d(bias) includes the batch sum
-            lib, _ = sdpa_backward_ms(*(t.transpose(1, 2) for t in (q, k_, v, g)), bias=bias,
-                                      neg=neg)
+            lib, lib_dev = sdpa_backward_ms(*(t.transpose(1, 2) for t in (q, k_, v, g)),
+                                            bias=bias, neg=neg)
+            print(f"  K16 {tag:10s} yardstick: the backward alone of that call "
+                  f"{'none' if lib is None else f'{lib:.4f} ms, {lib_dev:.4f} ms on the device'}")
         record("K16", tag, err, ms, plain_ms, 10 * score_ops,
                7 * tensor + extra + H * l * l * 4, lib)
+        if route is not None or dname == "bf16":
+            on_device("K16", lambda: fa.flash_attention_bias_bwd(*args), "bias_bwd")
+        if not tag and dname == "bf16":
+            rows["K16"]["library_device_ms"] = lib_dev
         del q, k_, v, g, args
         torch.cuda.empty_cache()
 
@@ -1335,7 +1388,9 @@ def profile_step(fn):
           f"{sum(k[2] for k in kernels)} kernel launches")
     for key, ms in groups.items():
         print(f"    {ms:8.2f} ms {100 * ms / total:5.1f}%  {key}")
-    for name, ms, count in kernels[:40]:
+    # the 40 longest, and K15 / K16's kernels by name wherever they rank
+    named = [k for k in kernels[40:] if any(n in k[0] for n in SMALL_BIAS)]
+    for name, ms, count in kernels[:40] + named:
         print(f"    {ms:8.2f} ms {100 * ms / total:5.1f}%  x{count:<4d} {name[:150]}")
 
 
@@ -1430,9 +1485,9 @@ def main() -> int:
                 "radzero_tpu/ops/flash_attention.py:122"),
         "K14": ("flash_attention_bwd", "radzero_torch/ops/csrc/flash_bwd_sm90.cu",
                 "radzero_tpu/ops/flash_attention.py:214"),
-        "K15": ("flash_attention_bias", "radzero_torch/ops/csrc/flash_attention.cu",
+        "K15": ("flash_attention_bias", "radzero_torch/ops/csrc/flash_bias_small.cu",
                 "radzero_tpu/ops/flash_attention.py:333"),
-        "K16": ("flash_attention_bias_bwd", "radzero_torch/ops/csrc/flash_attention.cu",
+        "K16": ("flash_attention_bias_bwd", "radzero_torch/ops/csrc/flash_bias_small.cu",
                 "radzero_tpu/ops/flash_attention.py:470"),
     }
     # launches: the serving burst's count, the scorer run's, one default training

@@ -79,14 +79,14 @@ SIGNATURES = {
     # q, k, v, out, lse, q_bs, q_rs, k_bs, k_rs, v_bs, v_rs, B, L, H, hd, kv_len,
     # scale, dtype, stream
     "rz_flash_attention": [_P] * 5 + [_L] * 6 + [_I] * 5 + [_F, _I, _P],
-    # q, k, v, bias, neg, out, then as rz_flash_attention from q_bs on
-    "rz_flash_attention_bias": [_P] * 6 + [_L] * 6 + [_I] * 5 + [_F, _I, _P],
+    # q, k, v, bias, neg, out, chunks, then as rz_flash_attention from q_bs on
+    "rz_flash_attention_bias": [_P] * 6 + [_I] + [_L] * 6 + [_I] * 5 + [_F, _I, _P],
     # q, k, v, dout, out, lse, stats, dq, dk, dv, then as rz_flash_attention from
     # q_bs on
     "rz_flash_attention_bwd": [_P] * 10 + [_L] * 6 + [_I] * 5 + [_F, _I, _P],
-    # q, k, v, bias, neg, dout, stats, dq, dk, dv, dbias_part, chunks, then as
-    # rz_flash_attention from q_bs on
-    "rz_flash_attention_bias_bwd": [_P] * 11 + [_I] + [_L] * 6 + [_I] * 5 + [_F, _I, _P],
+    # q, k, v, bias, neg, dout, stats, dq, dk, dv, dbias_part, dbias, chunks,
+    # then as rz_flash_attention from q_bs on
+    "rz_flash_attention_bias_bwd": [_P] * 12 + [_I] + [_L] * 6 + [_I] * 5 + [_F, _I, _P],
     "rz_bwd_row_block": [],
     # dtype
     "rz_bwd_gemm_row_tile": [_I],

@@ -39,22 +39,27 @@
 //   order with the 16 x 64 dS tile of each warp in registers, and writes one
 //   fp32 partial per chunk; the fixed-order reduce of fused_layer_bwd.cu adds
 //   the chunks. A gradient has the same bits from run to run.
-// - Small L: a (sentence, head) of 32 tokens is one 32 x 32 score tile, so
-//   the kernels whose warps own query rows take 2 warps for L <= 32 and 4 for
-//   L <= 64 (forward) instead of 8; the dK/dV kernel keeps 64 x 64 tiles.
+// - Small L in fp32: a (sentence, head) of 32 tokens is one 32 x 32 score
+//   tile, so the kernels whose warps own query rows take 2 warps for L <= 32
+//   and 4 for L <= 64 (forward) instead of 8; the dK/dV kernel keeps 64 x 64
+//   tiles.
 // - A row whose keys are all masked (a fully padded sentence: neg is the
 //   type's most negative number and overflows to -inf times log2 e) comes
 //   out as NaN, as from the TPU kernel.
 // - bf16 without a bias (K13 / K14, and K2 / K7 over their thirds) runs the
 //   Hopper kernels of flash_fwd_sm90.cu and flash_bwd_sm90.cu (wgmma, TMA,
 //   the softmax in registers; the forward writes the row statistic lse, the
-//   backward reads it and the forward's output); fwd_kernel and the bwd_*
-//   kernels below are the forward and backward of fp32 and of K15 / K16.
+//   backward reads it and the forward's output). K15 / K16 in bf16 at L <= 64
+//   run flash_bias_small.cu (one block per head and chunk of sentences, one
+//   pass per sentence on mma.sync, d(bias) in registers). fwd_kernel and the
+//   bwd_* kernels below are the forward and backward of fp32 (K13-K16) and
+//   of K15 / K16 in bf16 at L > 64.
 // What bounds them on the H100: K13 / K14 at 1370 tokens are bound by the
 // math units (4 and 10 B H L^2 64 operations), K15 / K16 at 32 to 64 tokens
-// by bytes. Not yet done (later work): wgmma and TMA in K15 / K16, one block
-// per (sentence, head) at small L.
+// by bytes. Not yet done (later work): wgmma and TMA in K15 / K16 at L > 64,
+// whose 8-warp bf16 forward spills.
 #include "common.cuh"
+#include "flash_bias_small.cuh"
 #include "flash_fwd_sm90.cuh"
 
 namespace rz {
@@ -581,6 +586,7 @@ struct Args {  // the operands of one call, as the C entry points receive them
   int B, L, H, Lk;
   float scale;
   long long o_bs, o_rs;  // strides of the results: out, or dq, dk and dv
+  int chunks;            // K15 / K16: the batch in chunks of ceil(B / chunks) sentences
 
   void packed(const void* qkv, int dtype) {  // q, k, v: the thirds of a (B, L, 3D) buffer
     const long long d = (long long)H * HD;
@@ -620,14 +626,22 @@ cudaError_t launch_fwd(const Args& a, void* out, cudaStream_t s) {
 }
 
 // bf16 without a bias: the Hopper kernel of flash_fwd_sm90.cu at every length,
-// which also writes lse (B, H, L) when it is not null. Else (no lse) the
-// forward's tile by length: 2 warps (32 queries) up to 32 tokens, 4 up to 64,
-// else 8 (128 queries) with the next K/V tile in flight
+// which also writes lse (B, H, L) when it is not null; bf16 with a bias: the
+// kernel of flash_bias_small.cu up to 64 tokens, else the 8-warp fwd_kernel.
+// fp32 (no lse): the forward's tile by length: 2 warps (32 queries) up to 32
+// tokens, 4 up to 64, else 8 (128 queries) with the next K/V tile in flight
 template <typename T, bool BIAS>
 cudaError_t forward(const Args& a, void* out, float* lse, cudaStream_t s) {
   if constexpr (std::is_same<T, __nv_bfloat16>::value && !BIAS) {
     return forward_sm90(a.q, a.k, a.v, a.q_bs, a.q_rs, a.k_bs, a.k_rs, a.v_bs, a.v_rs, out,
                         a.o_bs, a.o_rs, lse, a.B, a.L, a.H, a.Lk, a.scale, s);
+  } else if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    if (lse != nullptr) return cudaErrorInvalidValue;
+    if (a.L <= kSmallL)
+      return forward_bias_small(a.q, a.k, a.v, a.q_bs, a.q_rs, a.k_bs, a.k_rs, a.v_bs, a.v_rs,
+                                a.bias, a.neg, out, a.o_bs, a.o_rs, a.B, a.L, a.H, a.Lk, a.scale,
+                                a.chunks, s);
+    return launch_fwd<T, 8, BIAS>(a, out, s);
   } else {
     if (lse != nullptr) return cudaErrorInvalidValue;
     if (a.L <= 32) return launch_fwd<T, 2, BIAS>(a, out, s);
@@ -640,15 +654,17 @@ struct BwdArgs {
   const void* dout;  // (B, L, H, 64) contiguous
   const void* out;   // the forward's output, (B, L, H, 64) contiguous: bf16 without a bias only
   const float* lse;  // the forward's row statistic (B, H, L): bf16 without a bias only
-  float *row_m, *row_il, *row_delta;  // (B, H, L) scratch; bf16 without a bias: row_delta only
+  float *row_m, *row_il, *row_delta;  // (B, H, L) scratch; bf16 without a bias: row_delta only,
+                                      // bf16 with a bias at L <= 64: none
   void *dq, *dk, *dv;                 // (B, L, H, 64) by the strides of Args
   float* dbias_part;                  // (chunks, H, L, L), K16 only
-  int chunks;
 };
 
 // NW: warps of the kernels whose warps own query rows (statistics, dQ, d(bias))
 template <typename T, int NW, bool BIAS>
 cudaError_t launch_bwd(const Args& a, const BwdArgs& g, cudaStream_t s) {
+  if (g.row_m == nullptr || g.row_il == nullptr || g.row_delta == nullptr)
+    return cudaErrorInvalidValue;
   const Op<T> q = op<T>(a.q, a.q_bs, a.q_rs), k = op<T>(a.k, a.k_bs, a.k_rs);
   const Op<T> v = op<T>(a.v, a.v_bs, a.v_rs);
   const Op<T> dout = op<T>(g.dout, (long long)a.L * a.H * HD, (long long)a.H * HD);
@@ -680,8 +696,8 @@ cudaError_t launch_bwd(const Args& a, const BwdArgs& g, cudaStream_t s) {
   if constexpr (BIAS) {
     smem = rows_smem<T, NW>(false);
     if ((err = allow_smem(bwd_dbias_kernel<T, NW>, smem)) != cudaSuccess) return err;
-    const int per = (a.B + g.chunks - 1) / g.chunks;
-    dim3 bgrid(nq * nk, a.H, g.chunks);
+    const int per = (a.B + a.chunks - 1) / a.chunks;
+    dim3 bgrid(nq * nk, a.H, a.chunks);
     bwd_dbias_kernel<T, NW><<<bgrid, NW * 32, smem, s>>>(
         q, k, v, a.bias, a.neg, dout, g.row_m, g.row_il, g.row_delta, g.dbias_part, a.B, a.L,
         a.Lk, a.H, per, a.scale, sl2);
@@ -691,8 +707,9 @@ cudaError_t launch_bwd(const Args& a, const BwdArgs& g, cudaStream_t s) {
 }
 
 // bf16 without a bias: the Hopper kernels of flash_bwd_sm90.cu, which read the
-// forward's out and lse (an error without them). Else the statistics, dK/dV
-// and dQ kernels above, by length
+// forward's out and lse (an error without them); bf16 with a bias: the kernel
+// of flash_bias_small.cu up to 64 tokens. Else the statistics, dK/dV and dQ
+// kernels above, by length
 template <typename T, bool BIAS>
 cudaError_t backward(const Args& a, const BwdArgs& g, cudaStream_t s) {
   if constexpr (std::is_same<T, __nv_bfloat16>::value && !BIAS) {
@@ -701,6 +718,12 @@ cudaError_t backward(const Args& a, const BwdArgs& g, cudaStream_t s) {
     return backward_sm90(a.q, a.k, a.v, a.q_bs, a.q_rs, a.k_bs, a.k_rs, a.v_bs, a.v_rs, g.out,
                          g.dout, g.lse, g.row_delta, g.dq, g.dk, g.dv, a.o_bs, a.o_rs, a.B, a.L,
                          a.H, a.Lk, a.scale, s);
+  } else if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    if (a.L <= kSmallL)
+      return backward_bias_small(a.q, a.k, a.v, a.q_bs, a.q_rs, a.k_bs, a.k_rs, a.v_bs, a.v_rs,
+                                 a.bias, a.neg, g.dout, g.dq, g.dk, g.dv, a.o_bs, a.o_rs,
+                                 g.dbias_part, a.B, a.L, a.H, a.Lk, a.scale, a.chunks, s);
+    return launch_bwd<T, 4, BIAS>(a, g, s);
   } else {
     if (a.L <= 32) return launch_bwd<T, 2, BIAS>(a, g, s);
     return launch_bwd<T, 4, BIAS>(a, g, s);
@@ -708,7 +731,8 @@ cudaError_t backward(const Args& a, const BwdArgs& g, cudaStream_t s) {
 }
 
 inline bool bad(const Args& a, int hd) {
-  return hd != HD || a.B < 1 || a.L < 1 || a.H < 1 || a.Lk < 1 || a.Lk > a.L;
+  return hd != HD || a.B < 1 || a.L < 1 || a.H < 1 || a.Lk < 1 || a.Lk > a.L || a.chunks < 1 ||
+         a.chunks > a.B;
 }
 
 }  // namespace fa
@@ -722,7 +746,7 @@ static fa::Args make_args(const void* q, const void* k, const void* v, long long
                           long long v_rs, const void* bias, const void* neg, int B, int L, int H,
                           int kv_len, float scale) {
   fa::Args a{q, k, v, q_bs, q_rs, k_bs, k_rs, v_bs, v_rs, static_cast<const float*>(bias),
-             static_cast<const float*>(neg), B, L, H, kv_len, scale, 0, 0};
+             static_cast<const float*>(neg), B, L, H, kv_len, scale, 0, 0, 1};
   a.contiguous_results();
   return a;
 }
@@ -737,12 +761,14 @@ static int run_forward(const fa::Args& a, int hd, void* out, float* lse, int dty
 }
 
 // the scratch of a backward: (3, B, H, L) fp32 for the statistics kernel, or,
-// in bf16 without a bias, (1, B, H, L) for delta alone
+// in bf16 without a bias, (1, B, H, L) for delta alone (null: none)
 static fa::BwdArgs bwd_args(const void* dout, const void* out, const void* lse, float* st,
                             size_t n, void* dq, void* dk, void* dv, int dtype, bool bias) {
   const bool sm90 = dtype == RZ_DTYPE_BF16 && !bias;
+  if (st == nullptr) return {dout, out, static_cast<const float*>(lse), nullptr, nullptr,
+                             nullptr, dq, dk, dv, nullptr};
   return {dout, out, static_cast<const float*>(lse), sm90 ? nullptr : st,
-          sm90 ? nullptr : st + n, sm90 ? st : st + 2 * n, dq, dk, dv, nullptr, 0};
+          sm90 ? nullptr : st + n, sm90 ? st : st + 2 * n, dq, dk, dv, nullptr};
 }
 
 template <bool BIAS>
@@ -767,15 +793,18 @@ extern "C" int rz_flash_attention(const void* q, const void* k, const void* v, v
   return run_forward<false>(a, hd, out, static_cast<float*>(lse), dtype, stream);
 }
 
-// K15: the same with bias (H, L, L) fp32 and neg (B, L) fp32 added to the score
+// K15: the same with bias (H, L, L) fp32 and neg (B, L) fp32 added to the score;
+// chunks (1..B): in bf16 at L <= 64 one block per head and chunk of
+// ceil(B / chunks) sentences (ignored elsewhere)
 extern "C" int rz_flash_attention_bias(const void* q, const void* k, const void* v,
-                                       const void* bias, const void* neg, void* out,
+                                       const void* bias, const void* neg, void* out, int chunks,
                                        long long q_bs, long long q_rs, long long k_bs,
                                        long long k_rs, long long v_bs, long long v_rs, int B,
                                        int L, int H, int hd, int kv_len, float scale, int dtype,
                                        void* stream) {
-  const fa::Args a = make_args(q, k, v, q_bs, q_rs, k_bs, k_rs, v_bs, v_rs, bias, neg, B, L, H,
-                               kv_len, scale);
+  fa::Args a = make_args(q, k, v, q_bs, q_rs, k_bs, k_rs, v_bs, v_rs, bias, neg, B, L, H, kv_len,
+                         scale);
+  a.chunks = chunks;
   return run_forward<true>(a, hd, out, nullptr, dtype, stream);
 }
 
@@ -797,25 +826,31 @@ extern "C" int rz_flash_attention_bwd(const void* q, const void* k, const void* 
                              dtype, stream);
 }
 
-// K16: as K14 with the bias and the key mask, plus dbias_part (chunks, H, L, L)
-// fp32: the sum of dS before the scale over each chunk of ceil(B / chunks)
-// sentences, to be added up over the chunks by rz_reduce_parts
+extern "C" int rz_reduce_parts(const void* part, void* out, int S, long long n, int dtype,
+                               void* stream);  // fused_layer_bwd.cu
+
+// K16: as K14 with the bias and the key mask -> dq, dk, dv and dbias (H, L, L)
+// fp32, the sum over the batch of dS before the scale: dbias_part (chunks, H,
+// L, L) fp32 receives its sum over each chunk of ceil(B / chunks) sentences,
+// which rz_reduce_parts then adds up in chunk order. stats is (3, B, H, L)
+// fp32 scratch, except in bf16 at L <= 64, which needs none (may be null)
 extern "C" int rz_flash_attention_bias_bwd(const void* q, const void* k, const void* v,
                                            const void* bias, const void* neg, const void* dout,
                                            void* stats, void* dq, void* dk, void* dv,
-                                           void* dbias_part, int chunks, long long q_bs,
-                                           long long q_rs, long long k_bs, long long k_rs,
-                                           long long v_bs, long long v_rs, int B, int L, int H,
-                                           int hd, int kv_len, float scale, int dtype,
-                                           void* stream) {
-  if (chunks < 1 || chunks > B) return static_cast<int>(cudaErrorInvalidValue);
-  const fa::Args a = make_args(q, k, v, q_bs, q_rs, k_bs, k_rs, v_bs, v_rs, bias, neg, B, L, H,
-                               kv_len, scale);
+                                           void* dbias_part, void* dbias, int chunks,
+                                           long long q_bs, long long q_rs, long long k_bs,
+                                           long long k_rs, long long v_bs, long long v_rs, int B,
+                                           int L, int H, int hd, int kv_len, float scale,
+                                           int dtype, void* stream) {
+  fa::Args a = make_args(q, k, v, q_bs, q_rs, k_bs, k_rs, v_bs, v_rs, bias, neg, B, L, H, kv_len,
+                         scale);
+  a.chunks = chunks;
   fa::BwdArgs g = bwd_args(dout, nullptr, nullptr, static_cast<float*>(stats),
                            (size_t)B * H * L, dq, dk, dv, dtype, true);
   g.dbias_part = static_cast<float*>(dbias_part);
-  g.chunks = chunks;
-  return run_backward<true>(a, hd, g, dtype, stream);
+  const int err = run_backward<true>(a, hd, g, dtype, stream);
+  if (err != 0) return err;
+  return rz_reduce_parts(dbias_part, dbias, chunks, (long long)H * L * L, RZ_DTYPE_F32, stream);
 }
 
 // K2: qkv (B, L, 3D) packed [q | k | v] -> out (B, L, D) merged heads, D = H * 64:
@@ -846,7 +881,6 @@ extern "C" int rz_packed_attention_bwd(const void* qkv, const void* dout, const 
   return run_backward<false>(a, hd,
                              {dout, out, static_cast<const float*>(lse),
                               static_cast<float*>(row_m), static_cast<float*>(row_il),
-                              static_cast<float*>(row_delta), d, d + third, d + 2 * third, nullptr,
-                              0},
+                              static_cast<float*>(row_delta), d, d + third, d + 2 * third, nullptr},
                              dtype, stream);
 }

@@ -13,7 +13,8 @@ batch-shared bias (port of radzero_tpu/ops/flash_attention.py).
 Each wrapper runs its plain twin (``*_plain``, same module) when handed CPU
 tensors and launches its CUDA kernel (``csrc/flash_attention.cu``; bf16
 K13 / K14 on the Hopper kernels of ``csrc/flash_fwd_sm90.cu`` and
-``csrc/flash_bwd_sm90.cu``) when handed CUDA tensors; anything else raises.
+``csrc/flash_bwd_sm90.cu``, bf16 K15 / K16 at L <= 64 on those of
+``csrc/flash_bias_small.cu``) when handed CUDA tensors; anything else raises.
 ``<wrapper>.launches`` counts kernel launches. Handed an operand that
 requires a gradient, with gradients enabled, the forward goes through a
 ``torch.autograd.Function``. In bf16 on the card, K13's Function keeps its
@@ -51,7 +52,8 @@ from radzero_torch.ops import _build
 from radzero_torch.ops._checks import DTYPE_CODES, forbid_grad, needed, on_cuda, tracked
 
 _LOG2E = 1.4426950408889634
-_SPLIT_BLOCKS = 4 * 132  # blocks the d(bias) kernel aims at when it splits the batch
+_SPLIT_BLOCKS = 4 * 132  # blocks K15 / K16 aim at when they split the batch into chunks
+_SMALL_L = 64  # K15 / K16 in bf16 up to this length run csrc/flash_bias_small.cu
 
 
 def _resolve(q, scale, kv_len):
@@ -198,6 +200,27 @@ def _strides(*ops):
     return [s for t in ops for s in (t.stride(0), t.stride(1))]
 
 
+def small_bias(q) -> bool:
+    """Whether K15 / K16 of ``q`` run the short-sentence kernels of
+    ``csrc/flash_bias_small.cu`` (one block per head and chunk of
+    sentences): bf16 on the card at L <= 64."""
+    return on_cuda(q) and q.dtype == torch.bfloat16 and q.shape[1] <= _SMALL_L
+
+
+def _chunks(b: int, tiles: int) -> int:
+    """The batch of ``b`` in chunks (none empty) so that the blocks of
+    ``tiles`` each, one chunk a block, number about _SPLIT_BLOCKS."""
+    per = -(-b // max(1, min(b, -(-_SPLIT_BLOCKS // tiles))))  # sentences a chunk
+    return -(-b // per)
+
+
+def bias_grid(q) -> tuple:
+    """The grid (H, chunks) of the K15 / K16 kernels of
+    ``csrc/flash_bias_small.cu`` for (B, L, H, hd) ``q``."""
+    b, _, h, _ = q.shape
+    return h, _chunks(b, h)
+
+
 # ---------------------------------------------------------------------------
 # K13 / K14
 # ---------------------------------------------------------------------------
@@ -329,9 +352,10 @@ def _flash_attention_bias_fwd(q, k, v, bias, neg_mask, scale, kv_len):
     q, k, v = _by_stride(q), _by_stride(k), _by_stride(v)
     b, l, h, hd = q.shape
     out = torch.empty((b, l, h, hd), dtype=q.dtype, device=q.device)
+    chunks = bias_grid(q)[1] if small_bias(q) else 1
     err = _build.load().rz_flash_attention_bias(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), bias32.data_ptr(), neg32.data_ptr(),
-        out.data_ptr(), *_strides(q, k, v), b, l, h, hd, kv_len, scale, code,
+        out.data_ptr(), chunks, *_strides(q, k, v), b, l, h, hd, kv_len, scale, code,
         _build.stream_ptr(q))
     _build.check(err, "flash_attention_bias")
     flash_attention_bias.launches += 1
@@ -344,10 +368,12 @@ flash_attention_bias.launches = 0
 def flash_attention_bias_bwd(q, k, v, bias, neg_mask, g, scale=None, kv_len=None):
     """K16: cotangent g of :func:`flash_attention_bias` -> (dq, dk, dv,
     d bias), d bias (H, L, L) in ``bias``'s type: the sum over the batch of
-    dS before the scale. On the card K14's three kernels with the bias and
-    the mask in the score, a fourth whose blocks walk a chunk of the batch in
-    order with the dS tile in registers, and the fixed-order reduce over the
-    chunks; one count."""
+    dS before the scale; one count, one call into the library. On the card
+    in bf16 at L <= 64 one kernel (``csrc/flash_bias_small.cu``) whose blocks
+    walk a chunk of the batch, one pass per sentence, with d(bias) in
+    registers; else K14's three kernels with the bias and the mask in the
+    score and a fourth whose blocks walk a chunk of the batch with the dS
+    tile in registers. Then the fixed-order reduce over the chunks."""
     if not on_cuda(q):
         return flash_attention_bias_bwd_plain(q, k, v, bias, neg_mask, g, scale, kv_len)
     code = _check_qkv("flash_attention_bias_bwd", q, k, v)
@@ -356,23 +382,21 @@ def flash_attention_bias_bwd(q, k, v, bias, neg_mask, g, scale=None, kv_len=None
     q, k, v = _by_stride(q), _by_stride(k), _by_stride(v)
     g = g.to(q.dtype).contiguous()
     b, l, h, hd = q.shape
-    q_rows = 32 if l <= 32 else 64  # query rows of a block of the d(bias) kernel
-    tiles = -(-l // q_rows) * -(-l // 64) * h
-    per = -(-b // max(1, min(b, -(-_SPLIT_BLOCKS // tiles))))  # sentences a chunk
-    chunks = -(-b // per)
-    stats = torch.empty((3, b, h, l), dtype=torch.float32, device=q.device)
+    stats = None
+    if small_bias(q):
+        chunks = bias_grid(q)[1]
+    else:  # the d(bias) kernel's blocks: (query rows, 64 keys) tiles of every head
+        q_rows = 32 if l <= 32 else 64
+        chunks = _chunks(b, -(-l // q_rows) * -(-l // 64) * h)
+        stats = torch.empty((3, b, h, l), dtype=torch.float32, device=q.device)
     dq, dk, dv = (torch.empty((b, l, h, hd), dtype=q.dtype, device=q.device) for _ in range(3))
     part = torch.empty((chunks, h, l, l), dtype=torch.float32, device=q.device)
     dbias = torch.empty((h, l, l), dtype=torch.float32, device=q.device)
-    lib = _build.load()
-    stream = _build.stream_ptr(q)
-    err = lib.rz_flash_attention_bias_bwd(
+    err = _build.load().rz_flash_attention_bias_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), bias32.data_ptr(), neg32.data_ptr(),
-        g.data_ptr(), stats.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        part.data_ptr(), chunks, *_strides(q, k, v), b, l, h, hd, kv_len, scale, code, stream)
-    _build.check(err, "flash_attention_bias_bwd")
-    err = lib.rz_reduce_parts(part.data_ptr(), dbias.data_ptr(), chunks, dbias.numel(),
-                              DTYPE_CODES[torch.float32], stream)
+        g.data_ptr(), None if stats is None else stats.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), part.data_ptr(), dbias.data_ptr(), chunks,
+        *_strides(q, k, v), b, l, h, hd, kv_len, scale, code, _build.stream_ptr(q))
     _build.check(err, "flash_attention_bias_bwd")
     flash_attention_bias_bwd.launches += 1
     return dq, dk, dv, dbias.to(bias.dtype)

@@ -384,9 +384,15 @@ def test_bf16_backward_requires_the_forward_statistics():
         fa.flash_attention_lse(q.float(), k.float(), v.float())
 
 
+# bf16 at L <= 64 runs csrc/flash_bias_small.cu (tiles of 32 or 64 tokens): lengths
+# of one token, no multiple of 16 or 8, at and across 32 and 64, kv_len < L, odd
+# batches, 512 sentences in chunks that do not divide it evenly (d(bias) summed
+# within and across chunks); 130 runs the tiled kernels of flash_attention.cu
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("b,l,kv_len", [(5, 17, None), (40, 32, None), (3, 37, None), (6, 64, 50),
-                                        (3, 130, None)])
+                                        (3, 130, None), (1, 1, None), (7, 17, 12), (7, 31, None),
+                                        (512, 32, None), (3, 33, 20), (13, 64, 50), (7, 63, 61),
+                                        (1, 32, 17)])
 def test_flash_attention_bias_kernels(dtype, b, l, kv_len):
     """K15 against its twin, and K16 through the autograd Function: dq, dk,
     dv and d(bias) summed over the batch in a fixed order (the same bits on a
@@ -420,6 +426,47 @@ def test_flash_attention_fully_padded_sentence_is_nan_like_the_twin():
     ref = fa.flash_attention_bias_plain(q, k, v, bias, neg)
     assert torch.isnan(out[1]).all() and torch.isnan(ref[1]).all()
     _check(out[[0, 2]], ref[[0, 2]], torch.float32)
+
+
+def test_flash_attention_bf16_fully_padded_sentence_is_nan_like_the_twin():
+    """The short-sentence kernels at L = 32: a sentence whose mask is all
+    padding is NaN in the output and in dq, dk, dv, and d(bias), which sums
+    over it, is NaN everywhere, as from the twin; the other sentences match."""
+    g = torch.Generator(device="cuda").manual_seed(1)
+    q, k, v, cot = (_rn(g, torch.bfloat16, 3, 32, 2, 64) for _ in range(4))
+    bias, neg = _bias_and_mask(g, torch.bfloat16, 3, 32, 2)
+    neg[1] = torch.finfo(torch.bfloat16).min
+    out = fa.flash_attention_bias(q, k, v, bias, neg)
+    ref = fa.flash_attention_bias_plain(q, k, v, bias, neg)
+    assert torch.isnan(out[1]).all() and torch.isnan(ref[1]).all()
+    _check(out[[0, 2]], ref[[0, 2]], torch.bfloat16, atol=2.0**-9 * ref[[0, 2]].float().abs().max().item())
+    got = fa.flash_attention_bias_bwd(q, k, v, bias, neg, cot)
+    want = fa.flash_attention_bias_bwd_plain(q, k, v, bias, neg, cot)
+    for a, b in zip(got[:3], want[:3]):
+        assert torch.isnan(a[1]).all() and torch.isnan(b[1]).all()
+    _check_grads([t[[0, 2]] for t in got[:3]], [t[[0, 2]] for t in want[:3]], torch.bfloat16,
+                 ("dq", "dk", "dv"))
+    assert torch.isnan(got[3]).all() and torch.isnan(want[3]).all()
+
+
+def test_bias_attention_runs_the_short_sentence_kernels_in_bf16():
+    """K15 / K16 in bf16 at L <= 64 run flash_bias_fwd_small_kernel, and
+    flash_bias_bwd_small_kernel with the fixed-order reduce, and nothing
+    else (no statistics kernel); at L = 130 the tiled kernels of
+    flash_attention.cu."""
+    g = torch.Generator(device="cuda").manual_seed(8)
+    for l, small in ((32, True), (64, True), (130, False)):
+        q, k, v, cot = (_rn(g, torch.bfloat16, 3, l, 2, 64) for _ in range(4))
+        bias, neg = _bias_and_mask(g, torch.bfloat16, 3, l, 2)
+        assert fa.small_bias(q) == small
+        names = _device_kernels(lambda: fa.flash_attention_bias(q, k, v, bias, neg))
+        want = ["flash_bias_fwd_small_kernel"] if small else ["fwd_kernel<"]
+        assert len(names) == 1 and want[0] in names[0], names
+        names = _device_kernels(lambda: fa.flash_attention_bias_bwd(q, k, v, bias, neg, cot))
+        want = (["flash_bias_bwd_small_kernel", "reduce_parts_kernel"] if small else
+                ["bwd_stats_kernel<", "bwd_dkdv_kernel<", "bwd_dq_kernel<", "bwd_dbias_kernel<",
+                 "reduce_parts_kernel"])
+        assert len(names) == len(want) and all(any(w in n for n in names) for w in want), names
 
 
 def test_flash_attention_rejects_other_head_dims():

@@ -1,5 +1,5 @@
 """K13-K16 and the layers that run them, against the JAX package, fp32 on
-the CPU.
+the CPU (and K15's twin once in bf16).
 
 The JAX side runs ``flash_attention`` / ``flash_attention_bias`` with its
 Pallas kernels in interpret mode (as tests/test_flash_attention.py does);
@@ -133,13 +133,17 @@ def test_flash_attention_bias_twin_matches_jax(l, stable):
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-4, atol=2e-5)
 
 
-@pytest.mark.parametrize("l,kv_len", [(19, None), (37, None), (130, None), (128, 100)])
-def test_flash_attention_bias_function_matches_jax_vjp(l, kv_len):
+@pytest.mark.parametrize("b,l,kv_len", [(3, 19, None), (3, 37, None), (3, 130, None),
+                                        (3, 128, 100), (3, 32, None), (3, 64, 50), (7, 32, None)])
+def test_flash_attention_bias_function_matches_jax_vjp(b, l, kv_len):
     """Forward, dq, dk, dv and d(bias) (the sum over the batch of dS before
-    the scale) against jax.vjp; the mask gets no gradient."""
-    rng = np.random.default_rng(200 + l)
-    q, k, v, g = _qkv(rng, 3, l, n=4)
-    bias, neg = _bias_and_mask(rng, 3, l, 4, lengths=[l, max(2, l // 3), l - 1])
+    the scale) against jax.vjp; the mask gets no gradient. 32 and 64 tokens
+    are the short-sentence kernels' tiles; 7 ragged sentences are more than
+    one of their chunks."""
+    rng = np.random.default_rng(200 + l + b)
+    q, k, v, g = _qkv(rng, b, l, n=4)
+    lengths = [l, max(2, l // 3), l - 1] if b == 3 else None  # else drawn from 2..l
+    bias, neg = _bias_and_mask(rng, b, l, 4, lengths=lengths)
     ref, vjp = jax.vjp(
         lambda q, k, v, b: jax_flash_bias(q, k, v, b, jnp.asarray(neg), 0.3, None, kv_len),
         *map(jnp.asarray, (q, k, v, bias)))
@@ -153,6 +157,62 @@ def test_flash_attention_bias_function_matches_jax_vjp(l, kv_len):
     assert grads[4] is None  # d(neg_mask): a structural mask, by contract
     for name, a, b in zip(("dq", "dk", "dv", "dbias"), grads, ref_g):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-4, atol=1e-4, err_msg=name)
+
+
+def test_bias_twin_in_bf16_matches_the_jax_kernel():
+    """K15's twin on bf16 operands against the JAX kernel (interpret mode)
+    with ``stable=True``, the port's always-subtracted maximum: both round
+    the unnormalised softmax weights to bf16 before P.V and sum in fp32 in
+    another order, so a weight near a rounding boundary may fall either way:
+    one bf16 ulp of a weight p <= 1 moves an entry by 2^-8 p |v|, whatever
+    the entry's own size: atol 2^-9 of the largest |reference| entry and
+    rtol 2^-7, chip_smoke.py's TOL for K15 in bf16."""
+    rng = np.random.default_rng(11)
+    q, k, v = _qkv(rng, 5, 32, hd=64)
+    bias, neg = _bias_and_mask(rng, 5, 32, 4)
+    ref = jax_flash_bias(*(jnp.asarray(t, jnp.bfloat16) for t in (q, k, v)), jnp.asarray(bias),
+                         jnp.asarray(neg), None, True)
+    ref = np.asarray(ref.astype(jnp.float32))
+    out = tfa.flash_attention_bias(*(torch.from_numpy(t).bfloat16() for t in (q, k, v)),
+                                   *_t(bias, neg))
+    assert out.dtype == torch.bfloat16
+    np.testing.assert_allclose(out.float().numpy(), ref, rtol=2.0**-7,
+                               atol=2.0**-9 * np.abs(ref).max())
+
+
+def test_fully_padded_sentence_at_32_tokens_gradients_are_nan_as_in_jax():
+    """At the training step's 32 tokens, through jax.vjp: a fully padded
+    sentence is NaN in the output and in dq, dk, dv; d(bias), which sums
+    over it, is NaN everywhere in both; the other sentences agree."""
+    rng = np.random.default_rng(12)
+    q, k, v, g = _qkv(rng, 3, 32, n=4)
+    bias, neg = _bias_and_mask(rng, 3, 32, 4, lengths=[32, 0, 9])
+    ref, vjp = jax.vjp(lambda q, k, v, b: jax_flash_bias(q, k, v, b, jnp.asarray(neg)),
+                       *map(jnp.asarray, (q, k, v, bias)))
+    ref_g = [np.asarray(t) for t in vjp(jnp.asarray(g))]
+    tq, tk, tv, tb = _t(q, k, v, bias, grad=True)
+    out = tfa.flash_attention_bias(tq, tk, tv, tb, torch.from_numpy(neg))
+    grads = [t.numpy() for t in torch.autograd.grad(out, (tq, tk, tv, tb), torch.from_numpy(g))]
+    out, ref = out.detach().numpy(), np.asarray(ref)
+    assert np.isnan(ref[1]).all() and np.isnan(out[1]).all()
+    np.testing.assert_allclose(out[[0, 2]], ref[[0, 2]], rtol=1e-4, atol=2e-5)
+    for name, a, b in zip(("dq", "dk", "dv"), grads, ref_g):
+        assert np.isnan(b[1]).all() and np.isnan(a[1]).all(), name
+        np.testing.assert_allclose(a[[0, 2]], b[[0, 2]], rtol=1e-4, atol=1e-4, err_msg=name)
+    assert np.isnan(ref_g[3]).all() and np.isnan(grads[3]).all()
+
+
+def test_short_sentence_grid_splits_the_batch_into_even_chunks():
+    """The grid of the short-sentence kernels: one block per head and chunk,
+    about _SPLIT_BLOCKS blocks, no chunk empty; CPU tensors take no kernel."""
+    for b, h in ((512, 12), (14, 12), (7, 3), (1, 4), (1000, 1)):
+        q = torch.zeros((b, 32, h, 64), dtype=torch.bfloat16)
+        assert not tfa.small_bias(q)
+        heads, chunks = tfa.bias_grid(q)
+        per = -(-b // chunks)
+        assert heads == h and 1 <= chunks <= b and (chunks - 1) * per < b <= chunks * per
+        assert heads * chunks <= max(tfa._SPLIT_BLOCKS, h)
+    assert tfa.bias_grid(torch.zeros((512, 32, 12, 64))) == (12, 43)
 
 
 def test_fully_padded_sentence_is_nan_as_in_jax():
