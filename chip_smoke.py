@@ -8,13 +8,17 @@ Phases, in order; any failure exits non-zero:
 
 1. device: require CUDA; print the card (nvidia-smi), CUDA and nvcc versions;
 2. build the kernels from radzero_torch/ops/csrc with nvcc (sm_90a); ptxas
-   must report no spills for the Hopper kernels of K2 / K13 (forward) and
-   K7 / K14 (backward), nor for the short-sentence K15 / K16 kernels;
+   must report no spills for the Hopper kernels of K2 / K13 (forward), K7 /
+   K14 (backward) and K1 / K3 (gemm_sm90_kernel, every epilogue), nor for the
+   short-sentence K15 / K16 kernels;
 3. each kernel against its plain PyTorch twin, in fp32 with TF32 off and in
    bf16, with CUDA-event timings (one call a sample, the host's launch
-   included; K2, K7, K13-K16 also by torch.profiler, which asserts the
-   device kernels by name: fwd_sm90_kernel, and bwd_dq_sm90_kernel with
-   bwd_dkdv_sm90_kernel, in bf16, flash_bias_fwd_small_kernel and
+   included; K1-K3, K7, K13-K16 also by torch.profiler, which asserts the
+   device kernels by name: in bf16 row_layernorm_kernel with one (K1) or
+   three (K3) gemm_sm90_kernel, gemm_f32_kernel in fp32, and the host's
+   microseconds a call of K1 / K3 at 128 rows; fwd_sm90_kernel, and
+   bwd_dq_sm90_kernel with bwd_dkdv_sm90_kernel, in bf16,
+   flash_bias_fwd_small_kernel and
    flash_bias_bwd_small_kernel with the reduce for K15 / K16 in bf16 at 512
    x 32 (the grid is printed), the kernels of flash_attention.cu in fp32 and
    for K15 / K16 in bf16 at 64 x 256, and gives their device time alone, and
@@ -24,7 +28,8 @@ Phases, in order; any failure exits non-zero:
    8 and 64 images, K15 with bias + mask as attn_mask, the backward alone of
    K7 / K14 and of K16 with its bias a leaf, with their device times; for the GEMM
    kernels K1, K3, K4, K6, K8 and K9 the cuBLAS products alone, which no
-   one call fuses with their LN, GELU or residual): K1
+   one call fuses with their LN, GELU or residual, for K1 / K3 also by
+   device time beside the kernels'): K1
    fused_preattn, K2 flash_attention_packed, K3 fused_postattn and K5 vlcabs_fused at the
    serving shapes (8 images x 1370 tokens x 768, 12 heads, 14 prompts);
    K1-K3 again at the training step's 64 images (87 680 rows); K4
@@ -94,12 +99,20 @@ PEAK_FLOPS = {"bf16": 989e12}         # H100 SXM dense bf16, operations per seco
 PEAK_BYTES = 3.35e12                  # H100 SXM device memory, bytes per second
 HOPPER_FWD = "fwd_sm90_kernel"        # K2 / K13 in bf16 (csrc/flash_fwd_sm90.cu)
 HOPPER_BWD = ("bwd_dq_sm90_kernel", "bwd_dkdv_sm90_kernel")  # K7 / K14 in bf16 (flash_bwd_sm90.cu)
+GEMM_SM90 = "gemm_sm90_kernel"        # K1 / K3's products in bf16 (csrc/gemm_sm90.cu)
+LN_PASS = "row_layernorm_kernel"      # K1 / K3's LayerNorm in bf16, once per row (fused_layer.cu)
 # K15 / K16 in bf16 at L <= 64 (flash_bias_small.cu)
 SMALL_BIAS = ("flash_bias_fwd_small_kernel", "flash_bias_bwd_small_kernel")
 REDUCE = "reduce_parts_kernel"        # the fixed-order d(bias) reduce (fused_layer_bwd.cu)
 # the device kernels of one call, by dtype (csrc/flash_attention.cu in fp32); K15 /
-# K16 by dtype and length: "bf16" at L <= 64, "bf16 L>64" on the tiled kernels
-ROUTES = {"fwd": {"bf16": (HOPPER_FWD,), "fp32": ("fwd_kernel<float",)},
+# K16 by dtype and length: "bf16" at L <= 64, "bf16 L>64" on the tiled kernels; K1 /
+# K3 by dtype (the template argument is the epilogue of gemm.cuh: 0 bias, 1 o-proj,
+# 2 fc1, 3 fc2; fp32 on gemm_f32_kernel<LN prologue, epilogue>)
+ROUTES = {"K1": {"bf16": (LN_PASS, GEMM_SM90 + "<0>"), "fp32": ("gemm_f32_kernel<true, 0>",)},
+          "K3": {"bf16": (GEMM_SM90 + "<1>", LN_PASS, GEMM_SM90 + "<2>", GEMM_SM90 + "<3>"),
+                 "fp32": ("gemm_f32_kernel<false, 1>", "gemm_f32_kernel<true, 2>",
+                          "gemm_f32_kernel<false, 3>")},
+          "fwd": {"bf16": (HOPPER_FWD,), "fp32": ("fwd_kernel<float",)},
           "bwd": {"bf16": HOPPER_BWD,
                   "fp32": ("bwd_stats_kernel<float", "bwd_dkdv_kernel<float",
                            "bwd_dq_kernel<float")},
@@ -272,8 +285,9 @@ def device_kernels(fn, calls=5, tries=3):
 
 
 def check_route(k, dname, fn, way="fwd"):
-    """A call of K2 / K13 (way "fwd"), K7 / K14 ("bwd"), K15 ("bias_fwd") or
-    K16 ("bias_bwd") runs exactly the device kernels of ROUTES: in bf16
+    """A call of K1 (way "K1"), K3 ("K3"), K2 / K13 ("fwd"), K7 / K14 ("bwd"),
+    K15 ("bias_fwd") or K16 ("bias_bwd") runs exactly the device kernels of
+    ROUTES: in bf16 row_layernorm_kernel and gemm_sm90_kernel,
     fwd_sm90_kernel, or bwd_dq_sm90_kernel and bwd_dkdv_sm90_kernel (never
     bwd_stats_kernel), or the kernels of flash_bias_small.cu at L <= 64 ->
     their device ms a call (no host time)."""
@@ -343,6 +357,21 @@ def median_ms(fn, reps=20, warmup=3):
     return times[len(times) // 2]
 
 
+def layer_inputs(k, dtype, gen, m):
+    """The operands of K1 or K3 (``k``) at m rows."""
+    import torch
+
+    def rn(*shape, std=1.0, mean=0.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * std + mean).to(dtype)
+
+    if k == "K1":
+        return (rn(m, D), rn(D, std=0.1, mean=1.0), rn(D, std=0.1), rn(D, 3 * D, std=0.02),
+                rn(3 * D, std=0.02))
+    return (rn(m, D), rn(m, D), rn(D, D, std=0.02), rn(D, std=0.02), rn(D, std=0.1, mean=1.0),
+            rn(D, std=0.1, mean=1.0), rn(D, std=0.1), rn(D, F, std=0.02), rn(F, std=0.02),
+            rn(F, D, std=0.02), rn(D, std=0.02), rn(D, std=0.1, mean=1.0))
+
+
 def kernel_inputs(dtype, gen):
     import torch
 
@@ -358,24 +387,15 @@ def kernel_inputs(dtype, gen):
                 rn(D, std=0.1, mean=1.0), rn(D, std=0.1), rn(D, F, std=0.02), rn(F, std=0.02),
                 rn(F, D, std=0.02), rn(D, std=0.02), rn(D, std=0.1, mean=1.0), rn(D, std=0.1))
 
-    def k1(m):
-        return (rn(m, D), rn(D, std=0.1, mean=1.0), rn(D, std=0.1), rn(D, 3 * D, std=0.02),
-                rn(3 * D, std=0.02))
-
-    def k3(m):
-        return (rn(m, D), rn(m, D), rn(D, D, std=0.02), rn(D, std=0.02), rn(D, std=0.1, mean=1.0),
-                rn(D, std=0.1, mean=1.0), rn(D, std=0.1), rn(D, F, std=0.02), rn(F, std=0.02),
-                rn(F, D, std=0.02), rn(D, std=0.02), rn(D, std=0.1, mean=1.0))
-
     return {
-        "K1": k1(B * L),
+        "K1": layer_inputs("K1", dtype, gen, B * L),
         "K2": (rn(B, L, 3 * D),),
-        "K3": k3(B * L),
+        "K3": layer_inputs("K3", dtype, gen, B * L),
         "K5": (unit(N), rn(B, L, D), torch.tensor(0.07, device="cuda")),
         # the frozen tower of the training step: the same kernels at 64 images
-        "K1 train": k1(TB * L),
+        "K1 train": layer_inputs("K1", dtype, gen, TB * L),
         "K2 train": (rn(TB, L, 3 * D),),
-        "K3 train": k3(TB * L),
+        "K3 train": layer_inputs("K3", dtype, gen, TB * L),
         "K4": k4(M_TEXT),
         "K4 16384": k4(TN * T_LEN),
         # qn, tokens, tau, cotangent: the training step's VL-CABS operands
@@ -432,13 +452,13 @@ def bounds(dtype_bytes=2):
 
 def check_no_spills(log):
     """ptxas must report no spills for the Hopper kernels (the forward of
-    K2 / K13 and the two of the K7 / K14 backward) and the short-sentence
-    K15 / K16 kernels."""
+    K2 / K13, the two of the K7 / K14 backward, the GEMM of K1 / K3) and the
+    short-sentence K15 / K16 kernels."""
     if not log:
         print("  ptxas: no report in this process (the library was built before)")
         return
     lines = log.splitlines()
-    for name in (HOPPER_FWD, *HOPPER_BWD, *SMALL_BIAS):  # every instantiation of each
+    for name in (HOPPER_FWD, *HOPPER_BWD, GEMM_SM90, *SMALL_BIAS):  # every instantiation
         at = [i for i, line in enumerate(lines) if "Compiling entry" in line and name in line]
         if not at:
             fail(f"ptxas reported no {name}")
@@ -447,6 +467,7 @@ def check_no_spills(log):
             if "0 bytes spill stores, 0 bytes spill loads" not in report:
                 fail(f"{name} spills: {report}")
     print(f"  {', '.join((HOPPER_FWD, *HOPPER_BWD))} (K2 / K13, K7 / K14 in bf16), "
+          f"{GEMM_SM90} (K1 / K3 in bf16, four epilogues), "
           f"{', '.join(SMALL_BIAS)} (K15 / K16 in bf16 at L <= 64): no spills")
 
 
@@ -493,8 +514,9 @@ def phase_kernels(seed):
             plain_ms = median_ms(lambda: plain(*args, **kw), reps=reps)
             print(f"  {k:10s} {dname}: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms "
                   f"(median of {reps})")
-            if k in ("K2", "K2 train"):  # the device kernel that ran, by name
-                dev_ms = check_route(k, dname, lambda: kern(*args, **kw))
+            if k[:2] in ("K1", "K2", "K3"):  # the device kernels that ran, by name
+                dev_ms = check_route(k, dname, lambda: kern(*args, **kw),
+                                     "fwd" if k[:2] == "K2" else k[:2])
             if k == "K2 train" and dname == "bf16":  # the row statistic K7 reads, against its twin
                 _, lse = fl.flash_attention_packed_lse(args[0], H)
                 ref_lse = torch.cat([fl.flash_attention_packed_lse_plain(args[0][i:i + 8], H)[1]
@@ -509,10 +531,12 @@ def phase_kernels(seed):
             else:
                 rows[k] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                            "library_ms": None}
-            if k == "K2":
+            if k in ("K1", "K2", "K3"):
                 rows[k]["device_ms"] = dev_ms
-            elif k == "K2 train":
-                rows["K2"].update(device_ms_training=dev_ms, max_abs_err_lse_training=lse_err)
+            elif k in ("K1 train", "K2 train", "K3 train"):
+                rows[k[:2]]["device_ms_training"] = dev_ms
+            if k == "K2 train":
+                rows["K2"]["max_abs_err_lse_training"] = lse_err
 
         # K10-K12 through the autograd function, as the training step runs them
         qn, tokens, tau, dz = inputs["train"]
@@ -560,6 +584,19 @@ def phase_kernels(seed):
             print(f"  K2 host time a call at 1 x 128: bf16 {us['bf16']:.1f} us (three tensor maps "
                   f"encoded), fp32 {us['fp32']:.1f} us")
             del small, small16
+            # K1 / K3 at 128 rows: in bf16 each product encodes tensor maps of A, W and
+            # the output (and of the residual in K3's o-proj and fc2) and the wrapper
+            # allocates the LN scratch
+            small_gen = torch.Generator(device="cuda").manual_seed(seed)
+            for k, maps in (("K1", 3), ("K3", 11)):
+                kern = pairs[k][0]
+                small = {name: layer_inputs(k, dt, small_gen, 128)
+                         for name, dt in (("bf16", torch.bfloat16), ("fp32", torch.float32))}
+                us = {name: host_us(lambda: kern(*ops)) for name, ops in small.items()}
+                rows[k].update(host_us_bf16=us["bf16"], host_us_fp32=us["fp32"])
+                print(f"  {k} host time a call at 128 rows: bf16 {us['bf16']:.1f} us ({maps} "
+                      f"tensor maps encoded), fp32 {us['fp32']:.1f} us")
+                del small
         del inputs, qn, tokens, dz
         torch.cuda.empty_cache()
         backward_kernels(dtype, dname, gen, rows)
@@ -586,7 +623,9 @@ def cublas_products(rows):
     (o-proj, fc1, fc2) and the dX / dW products of K6, K8 and K9, as one
     cuBLAS call on operands of the same shapes (F.linear, or torch.mm of a^T g
     for a dW), timed alone, without the LN, GELU, residual or column sums the
-    kernels fuse; called nowhere in the port -> rows[k]["cublas_products_ms.."]."""
+    kernels fuse; called nowhere in the port -> rows[k]["cublas_products_ms.."];
+    for K1 and K3 also their device time by torch.profiler beside the kernel's
+    -> rows[k]["cublas_products_device_ms.."]."""
     import torch
     import torch.nn.functional as Fn
 
@@ -595,26 +634,31 @@ def cublas_products(rows):
     def rn(*shape):
         return torch.randn(shape, generator=gen, device="cuda", dtype=torch.bfloat16)
 
-    def dx(m, k, n):  # (m, k) @ (k, n): a forward product or a dX = g W^T
+    device = {}  # product name: its device ms a call, for K1 and K3
+
+    def dx(m, k, n, name=None):  # (m, k) @ (k, n): a forward product or a dX = g W^T
         a, w = rn(m, k), rn(n, k)
+        if name is not None:
+            device[name] = sum(device_kernels(lambda: Fn.linear(a, w)).values())
         return median_ms(lambda: Fn.linear(a, w), reps=10)
 
     def dw(m, k, n):  # (k, m) @ (m, n): a dW = a^T g over m rows
         a, g = rn(m, k), rn(m, n)
         return median_ms(lambda: torch.mm(a.t(), g), reps=10)
 
-    def post(m):  # o-proj, fc1, fc2
-        return {"o-proj": dx(m, D, D), "fc1": dx(m, D, F), "fc2": dx(m, F, D)}
+    def post(m, timed=False):  # o-proj, fc1, fc2
+        return {name: dx(m, k, n, name if timed else None)
+                for name, k, n in (("o-proj", D, D), ("fc1", D, F), ("fc2", F, D))}
 
     def post_bwd(m):  # the dX and dW of fc2, fc1 and o-proj
         return {"dX fc2": dx(m, D, F), "dX fc1": dx(m, F, D), "dX o-proj": dx(m, D, D),
                 "dW fc2": dw(m, F, D), "dW fc1": dw(m, D, F), "dW o-proj": dw(m, D, D)}
 
     cases = {  # (kernel, suffix of its row's keys, the kernel's row): the products
-        ("K1", "", "K1"): lambda: {"qkv": dx(B * L, D, 3 * D)},
-        ("K1", "_training", "K1"): lambda: {"qkv": dx(TB * L, D, 3 * D)},
-        ("K3", "", "K3"): lambda: post(B * L),
-        ("K3", "_training", "K3"): lambda: post(TB * L),
+        ("K1", "", "K1"): lambda: {"qkv": dx(B * L, D, 3 * D, "qkv")},
+        ("K1", "_training", "K1"): lambda: {"qkv": dx(TB * L, D, 3 * D, "qkv")},
+        ("K3", "", "K3"): lambda: post(B * L, timed=True),
+        ("K3", "_training", "K3"): lambda: post(TB * L, timed=True),
         ("K4", "", "K4"): lambda: post(M_TEXT),
         ("K4", "_16384", "K4 16384"): lambda: post(TN * T_LEN),
         ("K6", "", "K6"): lambda: {"dX": dx(TB * L, 3 * D, D), "dW": dw(TB * L, D, 3 * D)},
@@ -623,12 +667,19 @@ def cublas_products(rows):
     }
     print("cuBLAS products alone (no LN, GELU or residual), bf16, one call each, median of 10:")
     for (k, sfx, row), make in cases.items():
+        device.clear()
         times = make()
         total = sum(times.values())
         rows[k][f"cublas_products_ms{sfx}"] = total
         kernel = rows[row]["ms" + ("" if row != k else sfx)]
         parts = ", ".join(f"{name} {ms:.4f}" for name, ms in times.items())
         print(f"  {k + sfx:12s} {parts}: {total:.4f} ms in all; the kernel {kernel:.4f} ms")
+        if device:  # K1 / K3: device time, products against the kernel's chain
+            dev = sum(device.values())
+            rows[k][f"cublas_products_device_ms{sfx}"] = dev
+            kernel_dev = rows[k]["device_ms" + sfx]
+            print(f"  {'':12s} on the device: products {dev:.4f} ms, the kernel {kernel_dev:.4f} "
+                  f"ms ({kernel_dev / dev:.2f}x)")
         torch.cuda.empty_cache()
 
 
@@ -1465,11 +1516,11 @@ def main() -> int:
     training, flash_step = phase_training(args.seed, card, params, args.profile)
 
     meta = {
-        "K1": ("fused_preattn", "radzero_torch/ops/csrc/fused_layer.cu",
+        "K1": ("fused_preattn", "radzero_torch/ops/csrc/gemm_sm90.cu",
                "radzero_tpu/ops/fused_layer.py:92"),
         "K2": ("flash_attention_packed", "radzero_torch/ops/csrc/flash_fwd_sm90.cu",
                "radzero_tpu/ops/fused_layer.py:175"),
-        "K3": ("fused_postattn", "radzero_torch/ops/csrc/fused_layer.cu",
+        "K3": ("fused_postattn", "radzero_torch/ops/csrc/gemm_sm90.cu",
                "radzero_tpu/ops/fused_layer.py:913"),
         "K4": ("fused_mpnet_post", "radzero_torch/ops/csrc/fused_layer.cu",
                "radzero_tpu/ops/fused_layer.py:760"),

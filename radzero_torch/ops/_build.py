@@ -39,13 +39,13 @@ _L = ctypes.c_longlong
 # C signatures: every pointer and the stream are c_void_p (a bare int
 # would be cut to 32 bits), then ints / floats as declared in csrc.
 SIGNATURES = {
-    # x, ln_s, ln_b, w, b, out, M, K, N, eps, dtype, stream
-    "rz_fused_preattn": [_P] * 6 + [_I, _I, _I, _F, _I, _P],
+    # x, ln_s, ln_b, w, b, ln, out, M, K, N, eps, dtype, stream
+    "rz_fused_preattn": [_P] * 7 + [_I, _I, _I, _F, _I, _P],
     # qkv, out, lse, B, L, H, hd, scale, dtype, stream
     "rz_packed_attention": [_P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
-    # x, a, wo, bo, ls1, ln_s, ln_b, w1, b1, w2, b2, ls2, y32, h, out,
+    # x, a, wo, bo, ls1, ln_s, ln_b, w1, b1, w2, b2, ls2, y32, ln, h, out,
     # M, D, F, eps, dtype, stream
-    "rz_fused_postattn": [_P] * 15 + [_I, _I, _I, _F, _I, _P],
+    "rz_fused_postattn": [_P] * 16 + [_I, _I, _I, _F, _I, _P],
     # qn, t, tau, scores, logits, N, B, L, D, dtype, stream
     "rz_vlcabs_fused": [_P] * 5 + [_I, _I, _I, _I, _I, _P],
     # x, a, wo, bo, lnsa, lnba, w1, b1, w2, b2, lnso, lnbo, u32, y32, h, out,

@@ -1,9 +1,10 @@
-"""Where the time of the Hopper attention kernels goes: time copies of
-``csrc/flash_fwd_sm90.cu`` (the bf16 forward of K2 / K13) or of
-``csrc/flash_bwd_sm90.cu`` (the bf16 backward of K7 / K14) with one part cut
-out, side by side on one card.
+"""Where the time of the Hopper kernels goes: time copies of
+``csrc/flash_fwd_sm90.cu`` (the bf16 forward of K2 / K13), of
+``csrc/flash_bwd_sm90.cu`` (the bf16 backward of K7 / K14) or of
+``csrc/gemm_sm90.cu`` (the bf16 products of K1 / K3) with one part cut out,
+side by side on one card.
 
-    python3 -m radzero_torch.ops.ablate_sm90 [fwd | bwd]
+    python3 -m radzero_torch.ops.ablate_sm90 [fwd | bwd | gemm]
 
 Each variant is the source, with ``csrc/sm90.cuh`` written into it, under a
 text replacement (the results of every variant but ``base`` are wrong on
@@ -11,11 +12,14 @@ purpose); each is compiled by nvcc into its own library in
 ``radzero_torch/build/ablate/`` and called through ctypes on packed (B, L,
 3 x 768) bf16 operands, 12 heads, at the serving shape (8 x 1370, forward
 only), the training step's (64 x 1370), two images (backward only) and a long
-one (1 x 4097). Printed per shape and variant: the CUDA-event median of
+one (1 x 4097); the GEMM's on (B x 1370, 768) bf16 operands at 8 and 64
+images: K1's product (N 2304, bias) and K3's o-proj, fc1 and fc2 with their
+epilogues. Printed per shape and variant: the CUDA-event median of
 single calls (the host's launch included) and the device time a call by
 torch.profiler (per device kernel for the backward), beside
-F.scaled_dot_product_attention (forward, or its backward alone) on the same
-operands. The backward's out and lse come from the built library's forward.
+F.scaled_dot_product_attention (forward, or its backward alone), or for the
+GEMM F.linear, on the same operands. The backward's out and lse come from the
+built library's forward.
 Needs a card and nvcc.
 """
 
@@ -84,7 +88,33 @@ extern "C" int shim(const void* q, const void* k, const void* v, long long bs, l
         "stages2": ("two of the four ring stages", [
             ("constexpr int STAGES = 4;", "constexpr int STAGES = 2;")]),
     }),
+    "gemm": ("gemm_sm90.cu", (8, 64), """
+extern "C" int shim(const void* a, const void* w, const void* bias, const void* resid,
+                    const void* ls, void* out, int M, int N, int K, int epi) {
+  rz::GemmArgs g{a, w, bias, nullptr, nullptr, 0.f, resid, ls, out, M, N, K};
+  return (int)rz::gemm_sm90(g, epi, 0);
 }
+""", [_P] * 6 + [_I] * 4, {
+        "base": ("nothing", []),
+        "nomma": ("the products", [
+            ("        wgmma_ss_n128_mn(acc, da + 2 * kk, dw + 128 * kk, ks > 0 || kk > 0);",
+             "        if (ks < 0) wgmma_ss_n128_mn(acc, da + 2 * kk, dw + 128 * kk, 0);")]),
+        "nostore": ("the TMA stores of the output", [
+            ("    if (leader && m0 + wg * 64 < g.M) {", "    if (leader && m0 + wg * 64 < 0) {")]),
+        "noloada": ("the loads of A (W alone by TMA)", [
+            ("          tma_load_2d(stage(it), &ma, full(it), ks * BK, m0);\n", ""),
+            ("bar_expect_tx(full(it), A_BYTES + (right ? 2 : 1) * W_BOX);",
+             "bar_expect_tx(full(it), (right ? 2 : 1) * W_BOX);")]),
+        "stages3": ("one or two of the ring's four or five stages", [
+            ("static constexpr int STAGES = RESID ? 4 : 5;", "static constexpr int STAGES = 3;")]),
+        "stages6": ("nothing; six stages where there is no residual", [
+            ("static constexpr int STAGES = RESID ? 4 : 5;",
+             "static constexpr int STAGES = RESID ? 4 : 6;")]),
+    }),
+}
+
+# the GEMM's products: (name, K, N, epilogue code of csrc/gemm.cuh)
+GEMMS = (("qkv", D, 3 * D, 0), ("o-proj", D, D, 1), ("fc1", D, 4 * D, 2), ("fc2", 4 * D, D, 3))
 
 
 def build_variants(kernel: str, out_dir: Path) -> dict:
@@ -175,6 +205,10 @@ def main() -> int:
     print(card)
     libs = build_variants(kernel, _build.BUILD_DIR / "ablate")
     gen = torch.Generator(device="cuda").manual_seed(0)
+    if kernel == "gemm":
+        gemm_main(libs, gen)
+        print(card)
+        return 0
     for b, l in KERNELS[kernel][1]:
         qkv = torch.randn((b, l, 3 * D), generator=gen, device="cuda").to(torch.bfloat16)
         q, k, v = (qkv[..., i * D:(i + 1) * D] for i in range(3))
@@ -217,6 +251,39 @@ def main() -> int:
         torch.cuda.empty_cache()
     print(card)
     return 0
+
+
+def gemm_main(libs, gen):
+    import torch
+    import torch.nn.functional as Fn
+
+    def rn(*shape, std=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * std).to(torch.bfloat16)
+
+    for b in KERNELS["gemm"][1]:
+        m = b * 1370
+        x = rn(m, D)
+        for name, k, n, epi in GEMMS:
+            a, w, bias, ls = rn(m, k), rn(k, n, std=0.02), rn(n, std=0.02), rn(n)
+            resid = x if epi == 1 else torch.randn((m, n), generator=gen, device="cuda")
+            out = torch.empty((m, n), device="cuda",
+                              dtype=torch.float32 if epi == 1 else torch.bfloat16)
+
+            def call(lib):
+                _checked(lib.shim(a.data_ptr(), w.data_ptr(), bias.data_ptr(), resid.data_ptr(),
+                                  ls.data_ptr(), out.data_ptr(), m, n, k, epi))
+
+            wt = w.t().contiguous()
+            lib_call = lambda: Fn.linear(a, wt)  # noqa: E731
+            print(f"{b} images, {name} ({m} x {k} x {n}): variant  events ms  device ms")
+            for vname, lib in libs.items():
+                print(f"  {vname:10s} {event_ms(lambda lib=lib: call(lib)):.4f} "
+                      f"{sum(device_ms(lambda lib=lib: call(lib)).values()):.4f}")
+            print(f"  {'library':10s} {event_ms(lib_call):.4f} "
+                  f"{sum(device_ms(lib_call).values()):.4f}", flush=True)
+            del a, w, bias, ls, resid, out, wt
+        del x
+        torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

@@ -1,5 +1,6 @@
 // K1 fused_preattn, K3 fused_postattn, K4 fused_mpnet_post for Hopper (K2,
-// the packed attention between K1 and K3, is in flash_attention.cu).
+// the packed attention between K1 and K3, is in flash_attention.cu and
+// flash_fwd_sm90.cu).
 //
 // Replace the TPU kernels of radzero_tpu/ops/fused_layer.py:
 //   K1 fused_preattn           (_preattn_kernel)
@@ -11,71 +12,98 @@
 //
 // What bounds them on the H100, and what the design does about it:
 // - K1 and K3 are GEMMs (ViT-B/14 at 518: M = B * 1370 rows, K and N of
-//   768 / 2304 / 3072) and so bound by the math units; the GEMM itself is
-//   in gemm.cuh, shared with the backward chains. bf16: one 128x128
-//   output tile per 256-thread block, 32-deep k-steps staged in shared
-//   memory from 16-byte loads that are issued one k-step ahead, WMMA
-//   tensor-core products with fp32 accumulators (8 warps of 64x32).
-//   fp32: 64x64 tiles of true fp32 FMAs on the CUDA cores (no TF32), the
-//   verification path. LayerNorm is a prologue: each block computes fp32
-//   mean/rstd of its rows, then normalises A while staging it, so the LN
-//   output never reaches device memory. Bias, LayerScale, residual and
-//   exact-erf GELU run in the epilogue on the fp32 accumulators.
+//   768 / 2304 / 3072) and so bound by the math units. In bf16 they run
+//   gemm_sm90_kernel (gemm_sm90.cu: a TMA ring fed by a producer
+//   warpgroup, wgmma m64n128k16 in two consumer warpgroups, the epilogue on
+//   the accumulator registers). Its A is a plain bf16 matrix, so LayerNorm
+//   is a row pass in front of it (row_layernorm_kernel below: fp32
+//   statistics once per row, the normalised row rounded to bf16 into a
+//   scratch the wrapper allocates), where the old prologue recomputed the
+//   statistics in every column block. fp32 runs gemm_f32_kernel (gemm.cuh:
+//   64x64 tiles of true fp32 FMAs on the CUDA cores, no TF32), the
+//   verification path, with the LN prologue: each block computes fp32
+//   mean/rstd of its rows, then normalises A while staging it. Bias,
+//   LayerScale, residual and exact-erf GELU run in the epilogue on the
+//   fp32 accumulators.
 // - W1 and W2 (4.7 MB each in bf16) cannot stay in one SM's 227 KB, so
-//   K3 is a chain of three launches: o-proj with y = x + ls1*(a Wo + bo)
-//   kept in fp32 in device memory (as the TPU kernel keeps y32); LN2
-//   prologue + fc1 + GELU, rounded to the operand type; fc2 with
-//   out = y + ls2*(m + b2).
+//   K3 is a chain of launches: o-proj with y = x + ls1*(a Wo + bo) kept
+//   in fp32 in device memory (as the TPU kernel keeps y32); LN2 (bf16: the
+//   row pass into a bf16 scratch; fp32: the prologue) + fc1 + GELU,
+//   rounded to the operand type; fc2 with out = y + ls2*(m + b2).
 // - K4 is K3's post-LN sibling (MPNet): y = LN(x + a Wo + bo),
 //   out = LN(y + gelu(y W1 + b1) W2 + b2), eps 1e-12. A LayerNorm over a
 //   768-wide row cannot be the epilogue of a 128-wide column tile, so it
-//   is a chain of five launches around the same GEMMs: o-proj + bias +
-//   residual into fp32 u; a row pass LN(u) into fp32 y (one warp per row),
+//   is a chain of five launches around gemm_bf16_kernel (gemm.cuh: WMMA,
+//   128x128 tiles, loads staged one k-step ahead) or gemm_f32_kernel:
+//   o-proj + bias + residual into fp32 u; a row pass LN(u) into fp32 y,
 //   which stays fp32 in device memory as both the fc1 operand (rounded to
 //   the operand type while it is staged) and the second residual
 //   (unrounded); fc1 + GELU; fc2 + bias + y into fp32; a row pass into the
 //   output. Rows are masked, never padded (M = sentences x length).
-// Not yet done (later work): wgmma, TMA, multi-stage pipelines,
-// warp specialisation.
 #include "gemm.cuh"
+#include "gemm_sm90.cuh"
 
 namespace rz {
 
-// K4's row pass: out[m, :] = LN(in[m, :]) * scale + bias for fp32 rows of
-// width D, one warp per row, two-pass statistics in fp32 (biased variance,
-// eps inside the rsqrt). TO is float (y, kept for the residual) or the
-// operand type (the layer output).
+// The row pass of K1 and K3 (bf16) and of K4: out[m, :] = LN(in[m, :]) *
+// scale + bias for rows of width D, one warp per row, two-pass statistics in
+// fp32 (biased variance, eps inside the rsqrt) from 16-byte loads (D a
+// multiple of 16 / sizeof(TI)). TI is the row's type: bf16 (K1's x), fp32
+// (K3's y32, K4's u). TO is bf16 (the next GEMM's operand, K4's output) or
+// float (K4's y, kept for the residual).
 constexpr int LN_ROWS = 8;  // rows (warps) per block
 
-template <typename T, typename TO>
+template <typename T, typename TI, typename TO>
 __global__ void __launch_bounds__(LN_ROWS * 32)
-row_layernorm_kernel(const float* __restrict__ in, const T* __restrict__ scale,
+row_layernorm_kernel(const TI* __restrict__ in, const T* __restrict__ scale,
                      const T* __restrict__ bias, TO* __restrict__ out, int M, int D,
                      float eps) {
+  constexpr int VEC = 16 / sizeof(TI);
+  static_assert(VEC * sizeof(TO) == 16 || VEC * sizeof(TO) == 8, "one 16- or 8-byte store");
   const int lane = threadIdx.x % 32, m = blockIdx.x * LN_ROWS + threadIdx.x / 32;
   if (m >= M) return;
-  const float* row = in + (size_t)m * D;
-  float s = 0.f, v = 0.f;
-  for (int k = lane; k < D; k += 32) s += row[k];
+  const TI* row = in + (size_t)m * D;
+  auto load = [&](int k, float (&x)[VEC]) {
+    const uint4 u = *reinterpret_cast<const uint4*>(row + k);
+    const TI* v = reinterpret_cast<const TI*>(&u);
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) x[e] = to_f32(v[e]);
+  };
+  float x[VEC], s = 0.f, v = 0.f;
+  for (int k = lane * VEC; k < D; k += 32 * VEC) {
+    load(k, x);
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) s += x[e];
+  }
   for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
   const float mean = s / D;
-  for (int k = lane; k < D; k += 32) {
-    const float d = row[k] - mean;
-    v += d * d;
+  for (int k = lane * VEC; k < D; k += 32 * VEC) {
+    load(k, x);
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) v += (x[e] - mean) * (x[e] - mean);
   }
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   const float rstd = rsqrtf(v / D + eps);
-  for (int k = lane; k < D; k += 32)
-    out[(size_t)m * D + k] =
-        from_f32<TO>((row[k] - mean) * rstd * to_f32(scale[k]) + to_f32(bias[k]));
+  for (int k = lane * VEC; k < D; k += 32 * VEC) {
+    load(k, x);
+    __align__(16) TO y[VEC];
+#pragma unroll
+    for (int e = 0; e < VEC; ++e)
+      y[e] = from_f32<TO>((x[e] - mean) * rstd * to_f32(scale[k + e]) + to_f32(bias[k + e]));
+    if constexpr (VEC * sizeof(TO) == 16)
+      *reinterpret_cast<uint4*>(out + (size_t)m * D + k) = *reinterpret_cast<const uint4*>(y);
+    else
+      *reinterpret_cast<uint2*>(out + (size_t)m * D + k) = *reinterpret_cast<const uint2*>(y);
+  }
 }
 
-template <typename T, typename TO>
+template <typename T, typename TI, typename TO>
 cudaError_t launch_row_layernorm(const void* in, const void* scale, const void* bias,
                                  void* out, int M, int D, float eps, cudaStream_t stream) {
-  row_layernorm_kernel<T, TO><<<(M + LN_ROWS - 1) / LN_ROWS, LN_ROWS * 32, 0, stream>>>(
-      static_cast<const float*>(in), static_cast<const T*>(scale),
-      static_cast<const T*>(bias), static_cast<TO*>(out), M, D, eps);
+  if (M == 0) return cudaSuccess;
+  row_layernorm_kernel<T, TI, TO><<<(M + LN_ROWS - 1) / LN_ROWS, LN_ROWS * 32, 0, stream>>>(
+      static_cast<const TI*>(in), static_cast<const T*>(scale), static_cast<const T*>(bias),
+      static_cast<TO*>(out), M, D, eps);
   return cudaGetLastError();
 }
 
@@ -88,37 +116,49 @@ extern "C" const char* rz_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// K1: out (M, N) = LN(x) (M, K) . w (K, N) + b
+// K1: out (M, N) = LN(x) (M, K) . w (K, N) + b. bf16: the row pass writes
+//     LN(x) into ln (M, K), a scratch the caller allocates, then
+//     gemm_sm90_kernel; fp32: the LN prologue of gemm_f32_kernel (ln unused).
 extern "C" int rz_fused_preattn(const void* x, const void* ln_s, const void* ln_b,
-                                const void* w, const void* b, void* out, int M, int K,
-                                int N, float eps, int dtype, void* stream) {
-  GemmArgs g{x, w, b, ln_s, ln_b, eps, nullptr, nullptr, out, M, N, K};
+                                const void* w, const void* b, void* ln, void* out, int M,
+                                int K, int N, float eps, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = dtype == RZ_DTYPE_BF16
-                        ? rz::launch_gemm<bf16, bf16, true, rz::EPI_BIAS>(g, s)
-                        : rz::launch_gemm<float, float, true, rz::EPI_BIAS>(g, s);
+  cudaError_t err;
+  if (dtype == RZ_DTYPE_BF16) {
+    err = rz::launch_row_layernorm<bf16, bf16, bf16>(x, ln_s, ln_b, ln, M, K, eps, s);
+    GemmArgs g{ln, w, b, nullptr, nullptr, 0.f, nullptr, nullptr, out, M, N, K};
+    if (err == cudaSuccess) err = rz::gemm_sm90(g, rz::EPI_BIAS, s);
+  } else {
+    GemmArgs g{x, w, b, ln_s, ln_b, eps, nullptr, nullptr, out, M, N, K};
+    err = rz::launch_gemm<float, float, true, rz::EPI_BIAS>(g, s);
+  }
   return static_cast<int>(err);
 }
 
 // K3: y32 = x + ls1 (a Wo + bo); h = gelu(LN2(y32) W1 + b1);
-//     out = y32 + ls2 (h W2 + b2). y32 (M, D) fp32 and h (M, F) are
-//     scratch buffers the caller allocates.
+//     out = y32 + ls2 (h W2 + b2). y32 (M, D) fp32, ln (M, D) (bf16 only:
+//     LN2(y32) from the row pass) and h (M, F) are scratch buffers the
+//     caller allocates. bf16: o-proj, the row pass, fc1, fc2 on
+//     gemm_sm90_kernel; fp32: three gemm_f32_kernel, LN2 as fc1's prologue.
 extern "C" int rz_fused_postattn(const void* x, const void* a, const void* wo,
                                  const void* bo, const void* ls1, const void* ln_s,
                                  const void* ln_b, const void* w1, const void* b1,
                                  const void* w2, const void* b2, const void* ls2,
-                                 void* y32, void* h, void* out, int M, int D, int F,
+                                 void* y32, void* ln, void* h, void* out, int M, int D, int F,
                                  float eps, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   GemmArgs proj{a, wo, bo, nullptr, nullptr, 0.f, x, ls1, y32, M, D, D};
-  GemmArgs fc1{y32, w1, b1, ln_s, ln_b, eps, nullptr, nullptr, h, M, F, D};
   GemmArgs fc2{h, w2, b2, nullptr, nullptr, 0.f, y32, ls2, out, M, D, F};
   cudaError_t err;
   if (dtype == RZ_DTYPE_BF16) {
-    err = rz::launch_gemm<bf16, bf16, false, rz::EPI_RESID_F32>(proj, s);
-    if (err == cudaSuccess) err = rz::launch_gemm<bf16, float, true, rz::EPI_GELU>(fc1, s);
-    if (err == cudaSuccess) err = rz::launch_gemm<bf16, bf16, false, rz::EPI_RESID_OUT>(fc2, s);
+    GemmArgs fc1{ln, w1, b1, nullptr, nullptr, 0.f, nullptr, nullptr, h, M, F, D};
+    err = rz::gemm_sm90(proj, rz::EPI_RESID_F32, s);
+    if (err == cudaSuccess)
+      err = rz::launch_row_layernorm<bf16, float, bf16>(y32, ln_s, ln_b, ln, M, D, eps, s);
+    if (err == cudaSuccess) err = rz::gemm_sm90(fc1, rz::EPI_GELU, s);
+    if (err == cudaSuccess) err = rz::gemm_sm90(fc2, rz::EPI_RESID_OUT, s);
   } else {
+    GemmArgs fc1{y32, w1, b1, ln_s, ln_b, eps, nullptr, nullptr, h, M, F, D};
     err = rz::launch_gemm<float, float, false, rz::EPI_RESID_F32>(proj, s);
     if (err == cudaSuccess) err = rz::launch_gemm<float, float, true, rz::EPI_GELU>(fc1, s);
     if (err == cudaSuccess) err = rz::launch_gemm<float, float, false, rz::EPI_RESID_OUT>(fc2, s);
@@ -140,10 +180,10 @@ static cudaError_t mpnet_post(const void* x, const void* a, const void* wo, cons
   GemmArgs fc1{y32, w1, b1, nullptr, nullptr, 0.f, nullptr, nullptr, h, M, F, D};
   GemmArgs fc2{h, w2, b2, nullptr, nullptr, 0.f, y32, nullptr, u32, M, D, F};
   cudaError_t err = rz::launch_gemm<T, T, false, rz::EPI_ADD_F32>(proj, s);
-  if (err == cudaSuccess) err = rz::launch_row_layernorm<T, float>(u32, lnsa, lnba, y32, M, D, eps, s);
+  if (err == cudaSuccess) err = rz::launch_row_layernorm<T, float, float>(u32, lnsa, lnba, y32, M, D, eps, s);
   if (err == cudaSuccess) err = rz::launch_gemm<T, float, false, rz::EPI_GELU>(fc1, s);
   if (err == cudaSuccess) err = rz::launch_gemm<T, T, false, rz::EPI_ADDF_F32>(fc2, s);
-  if (err == cudaSuccess) err = rz::launch_row_layernorm<T, T>(u32, lnso, lnbo, out, M, D, eps, s);
+  if (err == cudaSuccess) err = rz::launch_row_layernorm<T, float, T>(u32, lnso, lnbo, out, M, D, eps, s);
   return err;
 }
 

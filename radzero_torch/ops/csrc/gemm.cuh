@@ -1,13 +1,17 @@
-// The GEMM of the fused-layer kernels (K1, K3, K4 and the chains of K6, K8,
-// K9): C[M, N] = prologue(A)[M, K] . W[K, N] with a fused epilogue.
-//
-// bf16 operands: one 128x128 output tile per 256-thread block, 32-deep
-// k-steps staged in shared memory from 16-byte loads issued one k-step
-// ahead, WMMA tensor-core products with fp32 accumulators (8 warps of
-// 64x32). fp32 operands: 64x64 tiles of true fp32 FMAs on the CUDA cores
-// (no TF32), the verification path. The LayerNorm prologue computes fp32
-// mean/rstd of the block's rows, then normalises A while staging it, so
-// the LN output never reaches device memory. Rows are masked, never padded.
+// The GEMM of the fused-layer kernels: C[M, N] = prologue(A)[M, K] . W[K, N]
+// with a fused epilogue. Which kernel runs where:
+// - gemm_f32_kernel: every fp32 product (K1, K3, K4 and the chains of K6, K8,
+//   K9), the verification path: 64x64 tiles of true fp32 FMAs on the CUDA
+//   cores (no TF32), with the LayerNorm prologue for K1 and K3's fc1;
+// - gemm_bf16_kernel: the bf16 products of K4 and of the chains of K6, K8
+//   and K9: one 128x128 output tile per 256-thread block, 32-deep k-steps
+//   staged in shared memory from 16-byte loads issued one k-step ahead, WMMA
+//   tensor-core products with fp32 accumulators (8 warps of 64x32);
+// - the bf16 products of K1 and K3 run gemm_sm90_kernel (gemm_sm90.cu: TMA
+//   and wgmma) on the epilogues defined here, after a LayerNorm row pass.
+// The fp32 LN prologue computes mean/rstd of the block's rows, then
+// normalises A while staging it, so the LN output never reaches device
+// memory. Rows are masked, never padded.
 //
 // An epilogue may also return a value whose column sum over the block's
 // rows the kernel writes to colpart[blockIdx.y, column] (EPI_DGELU: the
@@ -197,8 +201,8 @@ __global__ void __launch_bounds__(kThreads) gemm_f32_kernel(GemmArgs g) {
 // bf16 operands: 128x128 block tile, 256 threads = 8 warps (2 x 4), each
 // warp a 64x32 tile of 4x2 WMMA fragments; 16-byte global loads, held in
 // registers one k-step ahead so that they overlap the tensor-core work.
-// A is bf16, or fp32 (K3's fc1 reads y32) with the LN prologue; the LN
-// output is rounded to bf16 as it is staged. The epilogue runs per 16x16
+// A is bf16, or fp32 (K4's fc1 reads y32), rounded to bf16 as it is staged;
+// no LN prologue (bf16 LayerNorm is a row pass). The epilogue runs per 16x16
 // fragment through a warp-private fp32 scratch tile.
 // N % 8 == 0 (masked at 128), K % 32 == 0.
 namespace wm {
@@ -223,11 +227,7 @@ struct ALoader {  // one thread's share of a BM x BK tile of A, 16-byte vectors
     }
   }
 
-  template <bool LN>
-  __device__ void store(__nv_bfloat16 (*As)[wm::LDA], const GemmArgs& g, int m0, int k0,
-                        const float* mu, const float* rs) {
-    const __nv_bfloat16* lns = static_cast<const __nv_bfloat16*>(g.ln_s);
-    const __nv_bfloat16* lnb = static_cast<const __nv_bfloat16*>(g.ln_b);
+  __device__ void store(__nv_bfloat16 (*As)[wm::LDA]) {
 #pragma unroll
     for (int i = 0; i < N; ++i) {
       const int idx = threadIdx.x + i * wm::THREADS;
@@ -235,12 +235,7 @@ struct ALoader {  // one thread's share of a BM x BK tile of A, 16-byte vectors
       const TA* x = reinterpret_cast<const TA*>(&v[i]);
       __align__(16) __nv_bfloat16 out[8];
 #pragma unroll
-      for (int e = 0; e < VEC; ++e) {
-        float f = to_f32(x[e]);
-        if (LN && m0 + r < g.M)
-          f = (f - mu[r]) * rs[r] * to_f32(lns[k0 + c + e]) + to_f32(lnb[k0 + c + e]);
-        out[e] = __float2bfloat16(f);
-      }
+      for (int e = 0; e < VEC; ++e) out[e] = __float2bfloat16(to_f32(x[e]));
       if (VEC == 8)
         *reinterpret_cast<uint4*>(&As[r][c]) = *reinterpret_cast<const uint4*>(out);
       else
@@ -273,22 +268,17 @@ struct BLoader {  // one thread's share of a BK x BN tile of W (bf16)
   }
 };
 
-template <typename TA, bool LN, int EPI>
+template <typename TA, int EPI>
 __global__ void __launch_bounds__(wm::THREADS, 2) gemm_bf16_kernel(GemmArgs g) {
   using namespace wm;
   using namespace nvcuda;
   __shared__ __align__(128) __nv_bfloat16 As[BM][LDA];
   __shared__ __align__(128) __nv_bfloat16 Bs[BK][LDB];
   __shared__ __align__(128) float scratch[THREADS / 32][16 * 16];
-  __shared__ float mu[BM], rs[BM];
 
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   const int wr = (warp / 4) * 64, wc = (warp % 4) * 32;
-  if (LN) {
-    row_stats<TA>(g, m0, mu, rs);
-    __syncthreads();
-  }
 
   wmma::fragment<wmma::accumulator, 16, 16, 16, float> c[4][2];
 #pragma unroll
@@ -301,7 +291,7 @@ __global__ void __launch_bounds__(wm::THREADS, 2) gemm_bf16_kernel(GemmArgs g) {
   a_next.load(g, m0, 0);
   b_next.load(g, n0, 0);
   for (int k0 = 0; k0 < g.K; k0 += BK) {
-    a_next.template store<LN>(As, g, m0, k0, mu, rs);
+    a_next.store(As);
     b_next.store(Bs);
     __syncthreads();
     if (k0 + BK < g.K) {  // next k-step's loads fly during this one's MMAs
@@ -371,7 +361,8 @@ cudaError_t launch_gemm(const GemmArgs& g, cudaStream_t stream) {
     gemm_f32_kernel<LN, EPI><<<grid, kThreads, 0, stream>>>(g);
   } else {
     dim3 grid((g.N + wm::BN - 1) / wm::BN, (g.M + wm::BM - 1) / wm::BM);
-    gemm_bf16_kernel<TA, LN, EPI><<<grid, wm::THREADS, 0, stream>>>(g);
+    static_assert(!LN, "bf16 LayerNorm is a row pass, not a prologue");
+    gemm_bf16_kernel<TA, EPI><<<grid, wm::THREADS, 0, stream>>>(g);
   }
   return cudaGetLastError();
 }

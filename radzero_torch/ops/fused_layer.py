@@ -10,9 +10,11 @@
   out = ln(y + gelu(y @ W1 + b1) @ W2 + b2)   (post-LN, eps 1e-12)
 
 Each wrapper runs its plain twin (``*_plain``, same module) when handed a
-CPU tensor and launches its CUDA kernel (``csrc/fused_layer.cu``; K2 and K7
-are in ``csrc/flash_attention.cu``, the strided attention kernels K13 /
-K14 over the thirds of the packed buffer) when handed a CUDA tensor; anything else raises. ``<wrapper>.launches`` counts
+CPU tensor and launches its CUDA kernel (``csrc/fused_layer.cu``, whose K1
+and K3 run their bf16 products on ``csrc/gemm_sm90.cu``; K2 and K7 are in
+``csrc/flash_attention.cu`` and its Hopper sources, the strided attention
+kernels K13 / K14 over the thirds of the packed buffer) when handed a CUDA
+tensor; anything else raises. ``<wrapper>.launches`` counts
 kernel launches. Numerics are the TPU kernels' contract: fp32 LayerNorm,
 softmax and accumulation; the LN output, the GELU output and the softmax
 weights are rounded to the operand type before the next product.
@@ -76,6 +78,15 @@ def _ln32(x32, scale, bias, eps):
     return xc * torch.rsqrt(var + eps) * scale.float() + bias.float()
 
 
+def _ln_scratch(x, n, d):
+    """The (n, d) bf16 buffer into which the bf16 kernels of K1 and K3 write
+    each row's LayerNorm once, the A operand of gemm_sm90_kernel; None in
+    fp32, where the LN is the prologue of gemm_f32_kernel."""
+    if x.dtype != torch.bfloat16:
+        return None
+    return torch.empty((n, d), dtype=x.dtype, device=x.device)
+
+
 # ---------------------------------------------------------------------------
 # K1: pre-attention LN -> packed qkv projection
 # ---------------------------------------------------------------------------
@@ -86,7 +97,9 @@ def fused_preattn_plain(x, ln_scale, ln_bias, w_qkv, b_qkv, *, eps=1e-6):
 
 
 def fused_preattn(x, ln_scale, ln_bias, w_qkv, b_qkv, *, eps=1e-6):
-    """(N, D) x -> (N, 3D) packed qkv = ln1(x) @ w_qkv + b_qkv.
+    """(N, D) x -> (N, 3D) packed qkv = ln1(x) @ w_qkv + b_qkv. On the card,
+    one count: in bf16 two launches (the LN row pass, the product on
+    gemm_sm90_kernel), in fp32 one (LN as the product's prologue).
     Differentiable: the backward is :func:`fused_preattn_bwd` (K6)."""
     if tracked(x, ln_scale, ln_bias, w_qkv, b_qkv):
         return _FusedPreattn.apply(x, ln_scale, ln_bias, w_qkv, b_qkv, eps)
@@ -106,11 +119,12 @@ def _fused_preattn_fwd(x, ln_scale, ln_bias, w_qkv, b_qkv, *, eps):
     if d % 32 or d3 % 64:
         raise ValueError(f"fused_preattn: needs D % 32 == 0 and 3D % 64 == 0, got {d}, {d3}")
     out = torch.empty((n, d3), dtype=x.dtype, device=x.device)
+    ln = _ln_scratch(x, n, d)
     lib = _build.load()
     err = lib.rz_fused_preattn(
         x.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(), w_qkv.data_ptr(),
-        b_qkv.data_ptr(), out.data_ptr(), n, d, d3, float(eps), code,
-        _build.stream_ptr(x),
+        b_qkv.data_ptr(), None if ln is None else ln.data_ptr(), out.data_ptr(), n, d, d3,
+        float(eps), code, _build.stream_ptr(x),
     )
     _build.check(err, "fused_preattn")
     fused_preattn.launches += 1
@@ -208,8 +222,9 @@ def fused_postattn_plain(x, attn_out, wo, bo, ls1, ln_scale, ln_bias,
 def fused_postattn(x, attn_out, wo, bo, ls1, ln_scale, ln_bias,
                    w1, b1, w2, b2, ls2, *, eps=1e-6):
     """(N, D) residual stream + merged-head attention output -> next
-    residual stream. On the card: three launches (o-proj with the fp32
-    residual y, LN2 + fc1 + GELU, fc2 + residual), one count.
+    residual stream. On the card, one count: in bf16 four launches (o-proj
+    with the fp32 residual y, the LN2 row pass, fc1 + GELU, fc2 + residual,
+    the products on gemm_sm90_kernel), in fp32 three (LN2 as fc1's prologue).
     Differentiable: the backward is :func:`fused_postattn_bwd` (K8)."""
     ops = (x, attn_out, wo, bo, ls1, ln_scale, ln_bias, w1, b1, w2, b2, ls2)
     if tracked(*ops):
@@ -233,14 +248,16 @@ def _fused_postattn_fwd(x, attn_out, wo, bo, ls1, ln_scale, ln_bias,
     if d % 64 or f % 64:
         raise ValueError(f"fused_postattn: needs D % 64 == 0 and F % 64 == 0, got {d}, {f}")
     y32 = torch.empty((n, d), dtype=torch.float32, device=x.device)
+    ln = _ln_scratch(x, n, d)
     h = torch.empty((n, f), dtype=x.dtype, device=x.device)
     out = torch.empty((n, d), dtype=x.dtype, device=x.device)
     lib = _build.load()
     err = lib.rz_fused_postattn(
         x.data_ptr(), attn_out.data_ptr(), wo.data_ptr(), bo.data_ptr(), ls1.data_ptr(),
         ln_scale.data_ptr(), ln_bias.data_ptr(), w1.data_ptr(), b1.data_ptr(),
-        w2.data_ptr(), b2.data_ptr(), ls2.data_ptr(), y32.data_ptr(), h.data_ptr(),
-        out.data_ptr(), n, d, f, float(eps), code, _build.stream_ptr(x),
+        w2.data_ptr(), b2.data_ptr(), ls2.data_ptr(), y32.data_ptr(),
+        None if ln is None else ln.data_ptr(), h.data_ptr(), out.data_ptr(), n, d, f,
+        float(eps), code, _build.stream_ptr(x),
     )
     _build.check(err, "fused_postattn")
     fused_postattn.launches += 1

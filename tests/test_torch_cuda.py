@@ -58,6 +58,74 @@ def test_fused_preattn_kernel(dtype, m, d):
     _check(out, fl.fused_preattn_plain(*args), dtype)
 
 
+# bf16 K1 and K3 run their products on gemm_sm90_kernel (csrc/gemm_sm90.cu): 128 x 128
+# output tiles of two 64-row warpgroups, 64-deep k-steps. Rows on both sides of those
+# edges and the tower's 1370 and 2 x 1370; widths of one tile and of the model. Inputs
+# at chip_smoke.py's scales, held to its K1 / K3 bf16 tolerance: atol a share of the
+# largest |reference| entry (2^-9 for K1, 2^-10 for K3) and rtol 2^-7, because at
+# width 768 / 3072 a rounded operand (the LN or GELU output) that falls the other way
+# in kernel and twin moves an entry by a share of the largest whatever its own size.
+EDGE_ROWS = (1, 63, 64, 65, 127, 128, 129, 1370, 2 * 1370)
+
+
+def _check_share(out, ref, share):
+    ref = ref.float()
+    torch.testing.assert_close(out.float(), ref, rtol=2.0**-7,
+                               atol=share * ref.abs().max().item())
+
+
+def _k1_edge_args(g, m, d):
+    dt = torch.bfloat16
+    return (_rn(g, dt, m, d), _rn(g, dt, d, std=0.1, mean=1.0), _rn(g, dt, d, std=0.1),
+            _rn(g, dt, d, 3 * d, std=0.02), _rn(g, dt, 3 * d, std=0.02))
+
+
+def _k3_edge_args(g, m, d, f):
+    dt = torch.bfloat16
+    return (_rn(g, dt, m, d), _rn(g, dt, m, d), _rn(g, dt, d, d, std=0.02), _rn(g, dt, d, std=0.02),
+            _rn(g, dt, d, std=0.1, mean=1.0), _rn(g, dt, d, std=0.1, mean=1.0),
+            _rn(g, dt, d, std=0.1), _rn(g, dt, d, f, std=0.02), _rn(g, dt, f, std=0.02),
+            _rn(g, dt, f, d, std=0.02), _rn(g, dt, d, std=0.02), _rn(g, dt, d, std=0.1, mean=1.0))
+
+
+@pytest.mark.parametrize("d", [64, 768])
+@pytest.mark.parametrize("m", EDGE_ROWS)
+def test_fused_preattn_bf16_tile_edges(m, d):
+    g = torch.Generator(device="cuda").manual_seed(m + d)
+    args = _k1_edge_args(g, m, d)
+    n0 = fl.fused_preattn.launches
+    out = fl.fused_preattn(*args)
+    assert fl.fused_preattn.launches == n0 + 1
+    _check_share(out, fl.fused_preattn_plain(*args), 2.0**-9)
+
+
+@pytest.mark.parametrize("d,f", [(128, 256), (768, 3072)])
+@pytest.mark.parametrize("m", EDGE_ROWS)
+def test_fused_postattn_bf16_tile_edges(m, d, f):
+    g = torch.Generator(device="cuda").manual_seed(m + f)
+    args = _k3_edge_args(g, m, d, f)
+    n0 = fl.fused_postattn.launches
+    out = fl.fused_postattn(*args)
+    assert fl.fused_postattn.launches == n0 + 1
+    _check_share(out, fl.fused_postattn_plain(*args), 2.0**-10)
+
+
+def test_fused_forwards_under_autograd_take_the_kernels():
+    """K1 and K3 handed leaves that require a gradient run their forward through
+    _FusedPreattn / _FusedPostattn, on the same kernels (one launch each) and
+    against the same twins."""
+    g = torch.Generator(device="cuda").manual_seed(11)
+    for fn, plain, args, share in (
+            (fl.fused_preattn, fl.fused_preattn_plain, _k1_edge_args(g, 1370, 768), 2.0**-9),
+            (fl.fused_postattn, fl.fused_postattn_plain, _k3_edge_args(g, 1370, 768, 3072),
+             2.0**-10)):
+        leaves = [a.clone().requires_grad_(True) for a in args]
+        n0 = fn.launches
+        out = fn(*leaves)
+        assert out.grad_fn is not None and fn.launches == n0 + 1
+        _check_share(out.detach(), plain(*args), share)
+
+
 # bf16 runs the Hopper forward of csrc/flash_fwd_sm90.cu, 128 query rows and 128
 # keys a tile: lengths on both sides of its tile edges, a ragged 1370, an odd batch.
 # fp32 runs the warp-tiled forward of csrc/flash_attention.cu at its old cases.
@@ -106,6 +174,31 @@ def test_attention_forward_runs_the_hopper_kernel_in_bf16(dtype):
             assert len(names) == 1 and "fwd_sm90_kernel" in names[0], names
         else:
             assert len(names) == 1 and "fwd_kernel<float" in names[0], names
+
+
+def _kernel_kinds(names, kinds):
+    """Each device kernel name as the first of ``kinds`` it contains, sorted."""
+    return sorted(next((k for k in kinds if k in name), name) for name in names)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_fused_gemm_routes_by_name(dtype):
+    """bf16 K1 runs the LN row pass and one gemm_sm90_kernel (csrc/gemm_sm90.cu),
+    K3 three gemm_sm90_kernel (o-proj, fc1, fc2) and the row pass, with or without
+    a tape; fp32 runs gemm_f32_kernel alone (once for K1, three times for K3)."""
+    g = torch.Generator(device="cuda").manual_seed(3)
+    k1, k3 = _k1_args(g, dtype, 130, 128), _k3_args(g, dtype, 130, 128, 256)
+    leaves1, leaves3 = ([a.clone().requires_grad_(True) for a in args] for args in (k1, k3))
+    kinds = ("gemm_sm90_kernel", "row_layernorm_kernel", "gemm_f32_kernel", "gemm_bf16_kernel")
+    for call, want in ((lambda: fl.fused_preattn(*k1), 1), (lambda: fl.fused_preattn(*leaves1), 1),
+                       (lambda: fl.fused_postattn(*k3), 3),
+                       (lambda: fl.fused_postattn(*leaves3), 3)):
+        names = _device_kernels(call)
+        if dtype == torch.bfloat16:
+            expect = ["gemm_sm90_kernel"] * want + ["row_layernorm_kernel"]
+        else:
+            expect = ["gemm_f32_kernel"] * want
+        assert _kernel_kinds(names, kinds) == expect, names
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
