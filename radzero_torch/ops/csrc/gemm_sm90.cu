@@ -14,7 +14,11 @@
 //
 // What bounds it on the H100: the tensor cores. At 8 images (M = 10 960) K1
 // does 2 M 768 2304 operations and K3 2 M 768 (768 + 2 3072), 39 and 118 us at
-// 989 TFLOP/s, against 3.35 TB/s for their operands and outputs.
+// 989 TFLOP/s, against 3.35 TB/s for their operands and outputs. What holds
+// it at 1.5-1.8x its cuBLAS products (ops/ablate_sm90.py gemm) is not the
+// products, whose removal leaves the qkv and fc2 times as they were, but the
+// ring, which turns a 32 KB stage round in ~0.4 us an SM at any depth, and
+// fc1's exact-erf epilogue, which no product overlaps.
 //
 // Design (C = A . W, 128 x 128 output tiles, column tiles fastest so that the
 // blocks in flight share an A row tile in L2; a persistent grid of one
