@@ -50,8 +50,9 @@ Phases, in order; any failure exits non-zero:
    12 x 768 with the default fuse_post=True) from seeded random weights in
    bf16 behind ServingEngine(max_batch=8, channels=1); 20 grayscale
    requests; checks of the answers and of the kernel launch counts, the
-   kernel path against the eager reference path, and requests/s with
-   p50/p99 latency of that burst and of five repeats on the warm engine;
+   kernel path against the eager reference path, requests/s with p50/p99
+   latency of that burst and of five repeats on the warm engine, and the
+   card's idle share over one more burst (torch.profiler);
 5. scoring through ZeroShotScorer(fused_tower=False) with
    TextConfig(attn_impl="flash"): 16 seeded images at batch 8 x the 14
    prompts in bf16 with maps (the tower on K13, the align layers on K1-K3,
@@ -299,6 +300,24 @@ def check_route(k, dname, fn, way="fwd"):
     names = ", ".join(f"{name[:48]}... {t:.4f}" for name, t in ran.items())
     print(f"  {k:10s} {dname}: torch.profiler: {names}; {ms:.4f} ms a call on the device")
     return ms
+
+
+def device_idle(fn):
+    """One call of ``fn`` under torch.profiler (device activity only) -> (the
+    card's busy ms: the sum of its kernels' times, the wall ms of the call up to
+    a synchronize), or None when the session recorded no device kernel."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e3
+    return (busy, wall) if busy > 0 else None
 
 
 def host_us(fn, n=200):
@@ -1038,6 +1057,7 @@ def phase_slice(seed, card):
         batches = list(engine.batch_sizes)
         # the same burst again on the warm engine: the spread of the metric
         repeats = [burst()[1] for _ in range(5)]
+        idle = device_idle(burst)
     finally:
         engine.close()
 
@@ -1071,6 +1091,12 @@ def phase_slice(seed, card):
     med = [sorted(col)[len(col) // 2] for col in zip(*rep)]
     print(f"  serving, the burst 5 times more: requests/s {[round(r[0], 1) for r in rep]}; "
           f"median {med[0]:.3f} requests/s, p50 {med[1]:.1f} ms, p99 {med[2]:.1f} ms")
+    if idle is None:
+        print("  serving, one more burst under torch.profiler: no device kernel recorded")
+    else:
+        print(f"  serving, one more burst under torch.profiler: the card busy {idle[0]:.2f} of "
+              f"{idle[1]:.2f} ms, idle share {100 * (1 - idle[0] / idle[1]):.1f}% (the "
+              f"profiler's own cost on the host included)")
 
     # the kernel path against the eager reference path on the first batch
     ids, mask = (torch.as_tensor(a, dtype=torch.long, device="cuda") for a in tok(prompts))
