@@ -9,14 +9,18 @@ Phases, in order; any failure exits non-zero:
 1. device: require CUDA; print the card (nvidia-smi), CUDA and nvcc versions;
 2. build the kernels from radzero_torch/ops/csrc with nvcc (sm_90a); ptxas
    must report no spills for the Hopper kernels of K2 / K13 (forward), K7 /
-   K14 (backward) and K1 / K3 (gemm_sm90_kernel, every epilogue), nor for the
-   short-sentence K15 / K16 kernels;
+   K14 (backward) and the GEMM of K1 / K3 / K6 / K8 / K9 (gemm_sm90_kernel, all
+   14 instantiations: K1 / K3's epilogues, the chains' on W and on W^T read
+   K-major, the dW product), nor for the short-sentence K15 / K16 kernels;
 3. each kernel against its plain PyTorch twin, in fp32 with TF32 off and in
    bf16, with CUDA-event timings (one call a sample, the host's launch
    included; K1-K3, K7, K13-K16 also by torch.profiler, which asserts the
    device kernels by name: in bf16 row_layernorm_kernel with one (K1) or
    three (K3) gemm_sm90_kernel, gemm_f32_kernel in fp32, and the host's
-   microseconds a call of K1 / K3 at 128 rows; fwd_sm90_kernel, and
+   microseconds a call of K1 / K3 at 128 rows; K6 / K8 / K9 in bf16 on their
+   gemm_sm90_kernel instantiations, row passes and reduces alone (no
+   gemm_bf16_kernel, wgrad_bf16_kernel or transpose_kernel), with their
+   device time; fwd_sm90_kernel, and
    bwd_dq_sm90_kernel with bwd_dkdv_sm90_kernel, in bf16,
    flash_bias_fwd_small_kernel and
    flash_bias_bwd_small_kernel with the reduce for K15 / K16 in bf16 at 512
@@ -27,9 +31,10 @@ Phases, in order; any failure exits non-zero:
    yardsticks where one PyTorch call computes the same function (K2 / K13 at
    8 and 64 images, K15 with bias + mask as attn_mask, the backward alone of
    K7 / K14 and of K16 with its bias a leaf, with their device times; for the GEMM
-   kernels K1, K3, K4, K6, K8 and K9 the cuBLAS products alone, which no
-   one call fuses with their LN, GELU or residual, for K1 / K3 also by
-   device time beside the kernels'): K1
+   kernels K1, K3, K4, K6, K8 and K9 the cuBLAS products alone (K8 / K9 all
+   nine of the chain), which no one call fuses with their LN, GELU or
+   residual, for K1, K3, K6, K8, K9 also by device time beside the
+   kernels'): K1
    fused_preattn, K2 flash_attention_packed, K3 fused_postattn and K5 vlcabs_fused at the
    serving shapes (8 images x 1370 tokens x 768, 12 heads, 14 prompts);
    K1-K3 again at the training step's 64 images (87 680 rows); K4
@@ -44,8 +49,8 @@ Phases, in order; any failure exits non-zero:
    flash_attention_bwd at 64 images, at 2 and at 4097 tokens, K15
    flash_attention_bias and K16 flash_attention_bias_bwd at 512 sentences x
    32 tokens, 14 x 64, 64 x 256 and 8 x 37 with real lengths drawn per
-   sentence (dq, dk, dv, d bias; a second backward of K7, K14 and K16 gives
-   the same bits);
+   sentence (dq, dk, dv, d bias; a second backward of K6-K9, K14 and K16
+   gives the same bits);
 4. serving: full-width RadZero (ViT-B/14 at 518, 2 align layers, MPNet
    12 x 768 with the default fuse_post=True) from seeded random weights in
    bf16 behind ServingEngine(max_batch=8, channels=1); 20 grayscale
@@ -100,17 +105,30 @@ PEAK_FLOPS = {"bf16": 989e12}         # H100 SXM dense bf16, operations per seco
 PEAK_BYTES = 3.35e12                  # H100 SXM device memory, bytes per second
 HOPPER_FWD = "fwd_sm90_kernel"        # K2 / K13 in bf16 (csrc/flash_fwd_sm90.cu)
 HOPPER_BWD = ("bwd_dq_sm90_kernel", "bwd_dkdv_sm90_kernel")  # K7 / K14 in bf16 (flash_bwd_sm90.cu)
-GEMM_SM90 = "gemm_sm90_kernel"        # K1 / K3's products in bf16 (csrc/gemm_sm90.cu)
+GEMM_SM90 = "gemm_sm90_kernel"        # bf16 products of K1, K3, K6, K8, K9 (csrc/gemm_sm90.cu)
+GEMM_SM90_INSTANCES = 14              # its <epilogue, operand layout> pairs (gemm_sm90.cu)
 LN_PASS = "row_layernorm_kernel"      # K1 / K3's LayerNorm in bf16, once per row (fused_layer.cu)
 # K15 / K16 in bf16 at L <= 64 (flash_bias_small.cu)
 SMALL_BIAS = ("flash_bias_fwd_small_kernel", "flash_bias_bwd_small_kernel")
-REDUCE = "reduce_parts_kernel"        # the fixed-order d(bias) reduce (fused_layer_bwd.cu)
+REDUCE = "reduce_parts_kernel"        # the fixed-order reduces (fused_layer_bwd.cu)
+LN_ROWS, LN_BWD = "ln_rows_kernel<__nv_bfloat16, ", "ln_bwd_rows_kernel<__nv_bfloat16, "
+COLSUM = "scale_colsum_kernel<__nv_bfloat16>"
+
+
+def _sm90(epi, mode):  # an instantiation of gemm_sm90_kernel<epilogue of gemm.cuh, layout>
+    return f"{GEMM_SM90}<{epi}, {mode}>"
+
+
 # the device kernels of one call, by dtype (csrc/flash_attention.cu in fp32); K15 /
 # K16 by dtype and length: "bf16" at L <= 64, "bf16 L>64" on the tiled kernels; K1 /
-# K3 by dtype (the template argument is the epilogue of gemm.cuh: 0 bias, 1 o-proj,
-# 2 fc1, 3 fc2; fp32 on gemm_f32_kernel<LN prologue, epilogue>)
-ROUTES = {"K1": {"bf16": (LN_PASS, GEMM_SM90 + "<0>"), "fp32": ("gemm_f32_kernel<true, 0>",)},
-          "K3": {"bf16": (GEMM_SM90 + "<1>", LN_PASS, GEMM_SM90 + "<2>", GEMM_SM90 + "<3>"),
+# K3 by dtype (fp32 on gemm_f32_kernel<LN prologue, epilogue>); K6 / K8 / K9 in bf16
+# (their order in the chain; fused_layer_bwd.cu's row passes and reduces). A
+# gemm_sm90_kernel's arguments are the epilogue of gemm.cuh (0 bias, 1 o-proj, 2 fc1,
+# 3 fc2; 4 u = x + ., 5 v = y32 + ., 6 proj and y, 7 h1 and gelu(h1), 8 fp32, 9 the
+# GELU derivative) and the operand layout (0 A . W, 1 G . W^T with W read as stored,
+# 2 the row-split dW = A^T . G)
+ROUTES = {"K1": {"bf16": (LN_PASS, _sm90(0, 0)), "fp32": ("gemm_f32_kernel<true, 0>",)},
+          "K3": {"bf16": (_sm90(1, 0), LN_PASS, _sm90(2, 0), _sm90(3, 0)),
                  "fp32": ("gemm_f32_kernel<false, 1>", "gemm_f32_kernel<true, 2>",
                           "gemm_f32_kernel<false, 3>")},
           "fwd": {"bf16": (HOPPER_FWD,), "fp32": ("fwd_kernel<float",)},
@@ -123,7 +141,15 @@ ROUTES = {"K1": {"bf16": (LN_PASS, GEMM_SM90 + "<0>"), "fp32": ("gemm_f32_kernel
                        "bf16 L>64": ("bwd_stats_kernel<__nv_bfloat16", "bwd_dkdv_kernel<__nv",
                                      "bwd_dq_kernel<__nv", "bwd_dbias_kernel<__nv", REDUCE),
                        "fp32": ("bwd_stats_kernel<float", "bwd_dkdv_kernel<float",
-                                "bwd_dq_kernel<float", "bwd_dbias_kernel<float", REDUCE)}}
+                                "bwd_dq_kernel<float", "bwd_dbias_kernel<float", REDUCE)},
+          "K6": {"bf16": (LN_ROWS + "__nv_bfloat16>", _sm90(8, 2), _sm90(8, 1), COLSUM,
+                          LN_BWD + "__nv_bfloat16, float>", REDUCE)},
+          "K8": {"bf16": (_sm90(6, 0), LN_ROWS + "float>", _sm90(7, 0), _sm90(8, 0), COLSUM,
+                          _sm90(8, 2), _sm90(9, 1), _sm90(8, 1), LN_BWD + "float, float>",
+                          _sm90(0, 1), REDUCE)},
+          "K9": {"bf16": (_sm90(4, 0), LN_ROWS + "float>", _sm90(7, 0), _sm90(5, 0),
+                          LN_BWD + "float, __nv_bfloat16>", _sm90(8, 2), _sm90(9, 1),
+                          _sm90(5, 1), LN_BWD + "float, float>", _sm90(0, 1), REDUCE)}}
 CHEXPERT = [
     "No Finding", "Enlarged Cardiomediastinum", "Cardiomegaly", "Lung Opacity",
     "Lung Lesion", "Edema", "Consolidation", "Pneumonia", "Atelectasis",
@@ -287,11 +313,14 @@ def device_kernels(fn, calls=5, tries=3):
 
 def check_route(k, dname, fn, way="fwd"):
     """A call of K1 (way "K1"), K3 ("K3"), K2 / K13 ("fwd"), K7 / K14 ("bwd"),
-    K15 ("bias_fwd") or K16 ("bias_bwd") runs exactly the device kernels of
-    ROUTES: in bf16 row_layernorm_kernel and gemm_sm90_kernel,
-    fwd_sm90_kernel, or bwd_dq_sm90_kernel and bwd_dkdv_sm90_kernel (never
-    bwd_stats_kernel), or the kernels of flash_bias_small.cu at L <= 64 ->
-    their device ms a call (no host time)."""
+    K15 ("bias_fwd"), K16 ("bias_bwd") or K6 / K8 / K9 ("K6", "K8", "K9")
+    runs exactly the device kernels of ROUTES: in bf16 row_layernorm_kernel
+    and gemm_sm90_kernel, fwd_sm90_kernel, or bwd_dq_sm90_kernel and
+    bwd_dkdv_sm90_kernel (never bwd_stats_kernel), the kernels of
+    flash_bias_small.cu at L <= 64, or the chains' gemm_sm90_kernel
+    instantiations with their row passes and reduces (never gemm_bf16_kernel,
+    wgrad_bf16_kernel or transpose_kernel) -> their device ms a call (no host
+    time)."""
     ran = device_kernels(fn)
     want = ROUTES[way][dname]
     if len(ran) != len(want) or not all(any(w in name for name in ran) for w in want):
@@ -471,8 +500,8 @@ def bounds(dtype_bytes=2):
 
 def check_no_spills(log):
     """ptxas must report no spills for the Hopper kernels (the forward of
-    K2 / K13, the two of the K7 / K14 backward, the GEMM of K1 / K3) and the
-    short-sentence K15 / K16 kernels."""
+    K2 / K13, the two of the K7 / K14 backward, every instantiation of the
+    GEMM of K1 / K3 / K6 / K8 / K9) and the short-sentence K15 / K16 kernels."""
     if not log:
         print("  ptxas: no report in this process (the library was built before)")
         return
@@ -481,12 +510,15 @@ def check_no_spills(log):
         at = [i for i, line in enumerate(lines) if "Compiling entry" in line and name in line]
         if not at:
             fail(f"ptxas reported no {name}")
+        if name == GEMM_SM90 and len(at) != GEMM_SM90_INSTANCES:
+            fail(f"ptxas reported {len(at)} instantiations of {name}, not {GEMM_SM90_INSTANCES}")
         for i in at:
             report = " ".join(lines[i + 1:i + 4])
             if "0 bytes spill stores, 0 bytes spill loads" not in report:
                 fail(f"{name} spills: {report}")
     print(f"  {', '.join((HOPPER_FWD, *HOPPER_BWD))} (K2 / K13, K7 / K14 in bf16), "
-          f"{GEMM_SM90} (K1 / K3 in bf16, four epilogues), "
+          f"{GEMM_SM90} (bf16: {GEMM_SM90_INSTANCES} instantiations; K1 / K3's four "
+          f"epilogues, the chains' seven on W and on W^T read K-major, the dW product), "
           f"{', '.join(SMALL_BIAS)} (K15 / K16 in bf16 at L <= 64): no spills")
 
 
@@ -639,12 +671,13 @@ def phase_kernels(seed):
 def cublas_products(rows):
     """The yardsticks of the GEMM kernels, for which no one PyTorch call
     computes the fused function: each bf16 product of K1 (qkv), K3 and K4
-    (o-proj, fc1, fc2) and the dX / dW products of K6, K8 and K9, as one
-    cuBLAS call on operands of the same shapes (F.linear, or torch.mm of a^T g
-    for a dW), timed alone, without the LN, GELU, residual or column sums the
-    kernels fuse; called nowhere in the port -> rows[k]["cublas_products_ms.."];
-    for K1 and K3 also their device time by torch.profiler beside the kernel's
-    -> rows[k]["cublas_products_device_ms.."]."""
+    (o-proj, fc1, fc2), of K6 (dX, dW) and of K8 and K9 (all nine: the
+    forward recompute, dX and dW of o-proj, fc1 and fc2), as one cuBLAS call
+    on operands of the same shapes (F.linear, or torch.mm of a^T g for a dW),
+    timed alone, without the LN, GELU, residual or column sums the kernels
+    fuse; called nowhere in the port -> rows[k]["cublas_products_ms.."]; for
+    K1, K3, K6, K8 and K9 also their device time by torch.profiler beside the
+    kernel's -> rows[k]["cublas_products_device_ms.."]."""
     import torch
     import torch.nn.functional as Fn
 
@@ -661,17 +694,21 @@ def cublas_products(rows):
             device[name] = sum(device_kernels(lambda: Fn.linear(a, w)).values())
         return median_ms(lambda: Fn.linear(a, w), reps=10)
 
-    def dw(m, k, n):  # (k, m) @ (m, n): a dW = a^T g over m rows
+    def dw(m, k, n, name=None):  # (k, m) @ (m, n): a dW = a^T g over m rows
         a, g = rn(m, k), rn(m, n)
+        if name is not None:
+            device[name] = sum(device_kernels(lambda: torch.mm(a.t(), g)).values())
         return median_ms(lambda: torch.mm(a.t(), g), reps=10)
 
     def post(m, timed=False):  # o-proj, fc1, fc2
         return {name: dx(m, k, n, name if timed else None)
                 for name, k, n in (("o-proj", D, D), ("fc1", D, F), ("fc2", F, D))}
 
-    def post_bwd(m):  # the dX and dW of fc2, fc1 and o-proj
-        return {"dX fc2": dx(m, D, F), "dX fc1": dx(m, F, D), "dX o-proj": dx(m, D, D),
-                "dW fc2": dw(m, F, D), "dW fc1": dw(m, D, F), "dW o-proj": dw(m, D, D)}
+    def chain(m):  # o-proj, fc1, fc2 again, then the dX and dW of fc2, fc1 and o-proj
+        return post(m, timed=True) | {
+            name: fn(m, k, n, name) for name, fn, k, n in (
+                ("dX fc2", dx, D, F), ("dX fc1", dx, F, D), ("dX o-proj", dx, D, D),
+                ("dW fc2", dw, F, D), ("dW fc1", dw, D, F), ("dW o-proj", dw, D, D))}
 
     cases = {  # (kernel, suffix of its row's keys, the kernel's row): the products
         ("K1", "", "K1"): lambda: {"qkv": dx(B * L, D, 3 * D, "qkv")},
@@ -680,9 +717,10 @@ def cublas_products(rows):
         ("K3", "_training", "K3"): lambda: post(TB * L, timed=True),
         ("K4", "", "K4"): lambda: post(M_TEXT),
         ("K4", "_16384", "K4 16384"): lambda: post(TN * T_LEN),
-        ("K6", "", "K6"): lambda: {"dX": dx(TB * L, 3 * D, D), "dW": dw(TB * L, D, 3 * D)},
-        ("K8", "", "K8"): lambda: post_bwd(TB * L),
-        ("K9", "", "K9"): lambda: post_bwd(TN * T_LEN),
+        ("K6", "", "K6"): lambda: {"dX": dx(TB * L, 3 * D, D, "dX"),
+                                   "dW": dw(TB * L, D, 3 * D, "dW")},
+        ("K8", "", "K8"): lambda: chain(TB * L),
+        ("K9", "", "K9"): lambda: chain(TN * T_LEN),
     }
     print("cuBLAS products alone (no LN, GELU or residual), bf16, one call each, median of 10:")
     for (k, sfx, row), make in cases.items():
@@ -693,7 +731,7 @@ def cublas_products(rows):
         kernel = rows[row]["ms" + ("" if row != k else sfx)]
         parts = ", ".join(f"{name} {ms:.4f}" for name, ms in times.items())
         print(f"  {k + sfx:12s} {parts}: {total:.4f} ms in all; the kernel {kernel:.4f} ms")
-        if device:  # K1 / K3: device time, products against the kernel's chain
+        if device:  # device time, products against the kernel's chain
             dev = sum(device.values())
             rows[k][f"cublas_products_device_ms{sfx}"] = dev
             kernel_dev = rows[k]["device_ms" + sfx]
@@ -758,8 +796,7 @@ def backward_kernels(dtype, dname, gen, rows):
         args = make()
         out, ref = split(kern(*args)), split(plain(*args))
         torch.cuda.synchronize()
-        if k.startswith("K7") and not all(torch.equal(a, b)
-                                          for a, b in zip(out, split(kern(*args)))):
+        if not all(torch.equal(a, b) for a, b in zip(out, split(kern(*args)))):
             fail(f"{k} {dname}: a second backward gives other bits")
         worst = [compare(f"{k} {name}", dname, a, b, tol=k[:2], quiet=True)
                  for name, a, b in zip(BWD_OUTPUTS[k[:2]], out, ref)]
@@ -774,6 +811,8 @@ def backward_kernels(dtype, dname, gen, rows):
         lib = lib_dev = dev_ms = None
         if k == "K7":  # the device kernels that ran, by name
             dev_ms = check_route(k, dname, lambda: kern(*args), "bwd")
+        if k in ("K6", "K8", "K9") and dname == "bf16":  # gemm_sm90_kernel alone
+            dev_ms = check_route(k, dname, lambda: kern(*args), k)
         if k == "K7" and dname == "bf16":  # the yardstick, called nowhere in the port
             heads = [t.reshape(TB, L, H, D // H).transpose(1, 2) for t in (*thirds(args[0]),
                                                                            args[1])]
@@ -783,7 +822,9 @@ def backward_kernels(dtype, dname, gen, rows):
               f"|ref| {scale:.3g}); worst {BWD_OUTPUTS[k[:2]][i]} at {100 * worst[i][1]:.0f}% "
               f"of its tolerance; kernel {ms:.4f} ms  plain {plain_ms:.4f} ms"
               f"{'' if lib is None else f'  library backward {lib:.4f} ms'}"
-              f"{'' if lib_dev is None else f' ({lib_dev:.4f} ms on the device)'} ok")
+              f"{'' if lib_dev is None else f' ({lib_dev:.4f} ms on the device)'}"
+              f"{'' if dev_ms is None else f'; {dev_ms:.4f} ms of device time'}; a second "
+              f"backward gave the same bits ok")
         if dname == "bf16":
             if small:
                 rows[k[:2]].update(max_abs_err_small=err, ms_small=ms, plain_ms_small=plain_ms)
@@ -792,6 +833,8 @@ def backward_kernels(dtype, dname, gen, rows):
                            "library_ms": lib}
                 if k == "K7":
                     rows[k].update(device_ms=dev_ms, library_device_ms=lib_dev)
+                elif dev_ms is not None:
+                    rows[k]["device_ms"] = dev_ms
         del args
         torch.cuda.empty_cache()
 
@@ -1459,9 +1502,9 @@ def profile_step(fn):
     total = sum(k[1] for k in kernels)
     names = {"vt": "VL-CABS kernels K10-K12 (rz::vt::*)",
              "fa": "attention kernels K2, K7, K13-K16 (rz::fa::*)",
-             "bw": "backward-only kernels of K6, K8, K9 (rz::bw::*: dW products, row passes)",
-             "rz": "K1, K3, K4 forward and the products of K6, K8, K9 (rz::gemm_*, "
-                   "rz::row_layernorm)",
+             "bw": "row passes and reduces of K6, K8, K9 (rz::bw::*)",
+             "rz": "the GEMMs: K1, K3, K4 forward and every product of K6, K8, K9 "
+                   "(rz::gemm_*, rz::row_layernorm)",
              "torch": "torch ops (everything else)"}
     groups = {v: 0.0 for v in names.values()}
     for name, ms, _ in kernels:
@@ -1552,13 +1595,13 @@ def main() -> int:
                "radzero_tpu/ops/fused_layer.py:760"),
         "K5": ("vlcabs_fused", "radzero_torch/ops/csrc/vlcabs_fused.cu",
                "radzero_tpu/ops/pallas_vlcabs.py:115"),
-        "K6": ("fused_preattn_bwd", "radzero_torch/ops/csrc/fused_layer_bwd.cu",
+        "K6": ("fused_preattn_bwd", "radzero_torch/ops/csrc/gemm_sm90.cu",
                "radzero_tpu/ops/fused_layer.py:390"),
         "K7": ("flash_attention_packed_bwd", "radzero_torch/ops/csrc/flash_bwd_sm90.cu",
                "radzero_tpu/ops/fused_layer.py:281"),
-        "K8": ("fused_postattn_bwd", "radzero_torch/ops/csrc/fused_layer_bwd.cu",
+        "K8": ("fused_postattn_bwd", "radzero_torch/ops/csrc/gemm_sm90.cu",
                "radzero_tpu/ops/fused_layer.py:568"),
-        "K9": ("fused_mpnet_post_bwd", "radzero_torch/ops/csrc/fused_layer_bwd.cu",
+        "K9": ("fused_mpnet_post_bwd", "radzero_torch/ops/csrc/gemm_sm90.cu",
                "radzero_tpu/ops/fused_layer.py:820"),
         "K10": ("vlcabs_train_forward", "radzero_torch/ops/csrc/vlcabs_train.cu",
                 "radzero_tpu/ops/pallas_vlcabs.py:310"),

@@ -58,8 +58,8 @@ SIGNATURES = {
     "rz_vlcabs_train_bwd_dq": [_P] * 11 + [_I, _I, _I, _I, _I, _P],
     # qn, t, tau, dz, tn, dg, rowmax, dtn, N, B, L, D, dtype, stream
     "rz_vlcabs_train_bwd_dtn": [_P] * 8 + [_I, _I, _I, _I, _I, _P],
-    # a, w, bias, resid, ls, aux, out, out2, colpart, M, N, K, epi, dtype, stream
-    "rz_bwd_gemm": [_P] * 9 + [_I, _I, _I, _I, _I, _P],
+    # a, w, bias, resid, ls, aux, out, out2, colpart, M, N, K, epi, w_t, dtype, stream
+    "rz_bwd_gemm": [_P] * 9 + [_I, _I, _I, _I, _I, _I, _P],
     # a, g, part, M, Ka, Nb, splits, dtype, stream
     "rz_wgrad": [_P] * 3 + [_I, _I, _I, _I, _I, _P],
     # part, out, S, n, dtype, stream

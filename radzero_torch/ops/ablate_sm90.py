@@ -97,19 +97,21 @@ extern "C" int shim(const void* a, const void* w, const void* bias, const void* 
 """, [_P] * 6 + [_I] * 4, {
         "base": ("nothing", []),
         "nomma": ("the products", [
-            ("        wgmma_ss_n128_mn(acc, da + 2 * kk, dw + 128 * kk, ks > 0 || kk > 0);",
-             "        if (ks < 0) wgmma_ss_n128_mn(acc, da + 2 * kk, dw + 128 * kk, 0);")]),
+            ("        wgmma_n128<MODE == GEMM_DW, MODE != GEMM_DX>(acc, da + SA * kk, db + SB * kk,",
+             "        if (ks < 0) wgmma_n128<MODE == GEMM_DW, MODE != GEMM_DX>(acc, da + SA * kk,"
+             " db + SB * kk,")]),
         "nostore": ("the TMA stores of the output", [
-            ("    if (leader && m0 + wg * 64 < g.M) {", "    if (leader && m0 + wg * 64 < 0) {")]),
+            ("    const bool rows = w.m0 + wg * 64 < g.M;", "    const bool rows = w.m0 + wg * 64 < 0;")]),
         "noloada": ("the loads of A (W alone by TMA)", [
-            ("          tma_load_2d(stage(it), &ma, full(it), ks * BK, m0);\n", ""),
-            ("bar_expect_tx(full(it), A_BYTES + (right ? 2 : 1) * W_BOX);",
-             "bar_expect_tx(full(it), (right ? 2 : 1) * W_BOX);")]),
+            ("            tma_load_2d(st, &ma, full(it), k, w.m0);\n", ""),
+            ("A_BYTES + (MODE == GEMM_DX ? A_BYTES : (right ? 2 : 1) * BOX64));",
+             "(MODE == GEMM_DX ? A_BYTES : (right ? 2 : 1) * BOX64));")]),
         "stages3": ("one or two of the ring's four or five stages", [
-            ("static constexpr int STAGES = RESID ? 4 : 5;", "static constexpr int STAGES = 3;")]),
-        "stages6": ("nothing; six stages where there is no residual", [
-            ("static constexpr int STAGES = RESID ? 4 : 5;",
-             "static constexpr int STAGES = RESID ? 4 : 6;")]),
+            ("static constexpr int STAGES = EXTRA <= 65536 ? 5 : 4;",
+             "static constexpr int STAGES = 3;")]),
+        "stages6": ("nothing; six stages where the output is bf16 and nothing comes in", [
+            ("static constexpr int STAGES = EXTRA <= 65536 ? 5 : 4;",
+             "static constexpr int STAGES = EXTRA <= 32768 ? 6 : EXTRA <= 65536 ? 5 : 4;")]),
     }),
 }
 

@@ -21,11 +21,11 @@
 //   output, pre-GELU h1, GELU output, the rounded gradients) in scratch
 //   that the wrapper allocates for the call:
 //     rz_bwd_gemm      C = A . W with the epilogues of gemm.cuh; a product
-//                      with a transposed weight (dh = g . W^T) reads a copy
-//                      that rz_transpose made;
-//     rz_wgrad         dW = A^T . G, contracted over the rows: each block
-//                      owns one 128x128 (fp32: 64x64) tile of dW and one
-//                      chunk of rows, and writes a partial tile;
+//                      with a transposed weight (dh = g . W^T) reads W as
+//                      it is stored in bf16 and a copy that rz_transpose
+//                      made in fp32;
+//     rz_wgrad         dW = A^T . G, contracted over the rows, split into
+//                      chunks of rows that each write a partial tile;
 //     rz_ln_rows       LN of each row (one warp per row), fp32 and / or
 //                      rounded;
 //     rz_ln_bwd_rows   the LayerNorm backward per row with the column sums
@@ -36,11 +36,15 @@
 //                      order and rounds once.
 //   No sum crosses blocks through atomics or `+=`: every gradient has the
 //   same bits from run to run.
-// bf16 products run on the tensor cores (WMMA, fp32 accumulators), fp32
-// products on the CUDA cores in true fp32.
+// bf16 products run on the Hopper GEMM of gemm_sm90.cu (TMA and wgmma: the
+// forward recompute and the dX products with their epilogues, W read K-major
+// for dh = g . W^T, and dW with A read MN-major, one work item per tile and
+// chunk of rows); fp32 products on the CUDA cores in true fp32
+// (gemm_f32_kernel of gemm.cuh, wgrad_f32_kernel here).
 // Not yet done (later work): fusing the chain's row passes into GEMM
-// prologues, walking rows in chunks to bound the scratch, wgmma / TMA.
+// prologues, walking rows in chunks to bound the scratch.
 #include "gemm.cuh"
+#include "gemm_sm90.cuh"
 
 namespace rz {
 namespace bw {
@@ -49,98 +53,8 @@ constexpr int RB = 32;   // rows per block of the row kernels (column partial su
 constexpr int RT = 256;  // their threads
 
 // ---------------------------------------------------------------------------
-// dW = A^T . G over a chunk of rows
+// dW = A^T . G over a chunk of rows, fp32 (bf16: gemm_sm90_wgrad)
 // ---------------------------------------------------------------------------
-
-struct RowTile {  // one thread's share of a 32-row x 128-column bf16 tile
-  static constexpr int PER_ROW = wm::BN / 8, N = wm::BK * wm::BN / 8 / wm::THREADS;
-  uint4 v[N];
-
-  __device__ void load(const __nv_bfloat16* src, int ld, int c0, int r0, int r_end) {
-#pragma unroll
-    for (int i = 0; i < N; ++i) {
-      const int idx = threadIdx.x + i * wm::THREADS;
-      const int r = r0 + idx / PER_ROW, c = c0 + (idx % PER_ROW) * 8;
-      v[i] = (r < r_end && c < ld) ? *reinterpret_cast<const uint4*>(src + (size_t)r * ld + c)
-                                   : make_uint4(0, 0, 0, 0);
-    }
-  }
-
-  __device__ void store(__nv_bfloat16 (*dst)[wm::LDB]) {
-#pragma unroll
-    for (int i = 0; i < N; ++i) {
-      const int idx = threadIdx.x + i * wm::THREADS;
-      *reinterpret_cast<uint4*>(&dst[idx / PER_ROW][(idx % PER_ROW) * 8]) = v[i];
-    }
-  }
-};
-
-// grid (ceil(Nb / 128), ceil(Ka / 128), splits); part (splits, Ka, Nb) fp32
-__global__ void __launch_bounds__(wm::THREADS, 2)
-wgrad_bf16_kernel(const __nv_bfloat16* __restrict__ A, const __nv_bfloat16* __restrict__ G,
-                  float* __restrict__ part, int M, int Ka, int Nb, int chunk) {
-  using namespace wm;
-  using namespace nvcuda;
-  __shared__ __align__(128) __nv_bfloat16 As[BK][LDB];  // rows x 128 columns of A
-  __shared__ __align__(128) __nv_bfloat16 Bs[BK][LDB];  // rows x 128 columns of G
-  __shared__ __align__(128) float scratch[THREADS / 32][16 * 16];
-
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int r_begin = blockIdx.z * chunk, r_end = min(M, r_begin + chunk);
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int wr = (warp / 4) * 64, wc = (warp % 4) * 32;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> c[4][2];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(c[i][j], 0.0f);
-
-  RowTile a_next, b_next;
-  a_next.load(A, Ka, m0, r_begin, r_end);
-  b_next.load(G, Nb, n0, r_begin, r_end);
-  for (int r0 = r_begin; r0 < r_end; r0 += BK) {
-    a_next.store(As);
-    b_next.store(Bs);
-    __syncthreads();
-    if (r0 + BK < r_end) {
-      a_next.load(A, Ka, m0, r0 + BK, r_end);
-      b_next.load(G, Nb, n0, r0 + BK, r_end);
-    }
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      // A^T: element (i, k) of the operand is As[kk + k][wr + i], column-major
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::col_major> a[4];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> b[2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) wmma::load_matrix_sync(a[i], &As[kk][wr + 16 * i], LDB);
-#pragma unroll
-      for (int j = 0; j < 2; ++j) wmma::load_matrix_sync(b[j], &Bs[kk][wc + 16 * j], LDB);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(c[i][j], a[i], b[j], c[i][j]);
-    }
-    __syncthreads();
-  }
-
-  float* tile = scratch[warp];
-  float* dst = part + (size_t)blockIdx.z * Ka * Nb;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      wmma::store_matrix_sync(tile, c[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        const int idx = lane * 8 + e;
-        const int gm = m0 + wr + 16 * i + idx / 16, gn = n0 + wc + 16 * j + idx % 16;
-        if (gm < Ka && gn < Nb) dst[(size_t)gm * Nb + gn] = tile[idx];
-      }
-      __syncwarp();
-    }
-}
 
 // grid (ceil(Nb / 64), ceil(Ka / 64), splits)
 __global__ void __launch_bounds__(kThreads)
@@ -185,11 +99,10 @@ reduce_parts_kernel(const float* __restrict__ part, T* __restrict__ out, int S, 
   out[i] = from_f32<T>(s);
 }
 
-// wt (N, K) = w (K, N)^T; T is any type of the element's size (bits are moved)
-template <typename T>
+// wt (N, K) = w (K, N)^T, fp32 (bf16 products read W K-major instead)
 __global__ void __launch_bounds__(256)
-transpose_kernel(const T* __restrict__ w, T* __restrict__ wt, int K, int N) {
-  __shared__ T tile[32][33];
+transpose_kernel(const float* __restrict__ w, float* __restrict__ wt, int K, int N) {
+  __shared__ float tile[32][33];
   const int k0 = blockIdx.y * 32, n0 = blockIdx.x * 32;
   const int tx = threadIdx.x % 32, ty = threadIdx.x / 32;
   for (int r = ty; r < 32; r += 8)
@@ -341,16 +254,16 @@ scale_colsum_kernel(const T* __restrict__ g, const float* __restrict__ m,
 // launchers
 // ---------------------------------------------------------------------------
 
-template <typename T>
-cudaError_t bwd_gemm(const GemmArgs& g, int epi, cudaStream_t s) {
+// the fp32 products of the chains (bf16: gemm_sm90)
+cudaError_t bwd_gemm_f32(const GemmArgs& g, int epi, cudaStream_t s) {
   switch (epi) {
-    case EPI_BIAS: return launch_gemm<T, T, false, EPI_BIAS>(g, s);
-    case EPI_ADD_F32: return launch_gemm<T, T, false, EPI_ADD_F32>(g, s);
-    case EPI_ADDF_F32: return launch_gemm<T, T, false, EPI_ADDF_F32>(g, s);
-    case EPI_PROJ2: return launch_gemm<T, T, false, EPI_PROJ2>(g, s);
-    case EPI_GELU_H1: return launch_gemm<T, T, false, EPI_GELU_H1>(g, s);
-    case EPI_F32: return launch_gemm<T, T, false, EPI_F32>(g, s);
-    case EPI_DGELU: return launch_gemm<T, T, false, EPI_DGELU>(g, s);
+    case EPI_BIAS: return launch_gemm<float, float, false, EPI_BIAS>(g, s);
+    case EPI_ADD_F32: return launch_gemm<float, float, false, EPI_ADD_F32>(g, s);
+    case EPI_ADDF_F32: return launch_gemm<float, float, false, EPI_ADDF_F32>(g, s);
+    case EPI_PROJ2: return launch_gemm<float, float, false, EPI_PROJ2>(g, s);
+    case EPI_GELU_H1: return launch_gemm<float, float, false, EPI_GELU_H1>(g, s);
+    case EPI_F32: return launch_gemm<float, float, false, EPI_F32>(g, s);
+    case EPI_DGELU: return launch_gemm<float, float, false, EPI_DGELU>(g, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -376,42 +289,41 @@ extern "C" int rz_bwd_row_block() { return bw::RB; }
 
 // rows per block of the GEMM whose epilogue sums columns (colpart is (ceil(M / this), N))
 extern "C" int rz_bwd_gemm_row_tile(int dtype) {
-  return dtype == RZ_DTYPE_BF16 ? rz::wm::BM : rz::f32::BM;
+  return dtype == RZ_DTYPE_BF16 ? rz::kSm90RowTile : rz::f32::BM;
 }
 
-// out (M, N) = a (M, K) . w (K, N) with the epilogue `epi` of gemm.cuh; bias,
+// out (M, N) = a (M, K) . w (K, N) with the epilogue `epi` of gemm.cuh, or a . w^T
+// with w (N, K) when w_t (bf16 only: fp32 takes a copy from rz_transpose); bias,
 // resid, ls, aux, out2 and colpart as that epilogue reads them, else null
 extern "C" int rz_bwd_gemm(const void* a, const void* w, const void* bias, const void* resid,
                            const void* ls, const void* aux, void* out, void* out2,
-                           void* colpart, int M, int N, int K, int epi, int dtype,
+                           void* colpart, int M, int N, int K, int epi, int w_t, int dtype,
                            void* stream) {
-  if (N % 64 || K % 32) return static_cast<int>(cudaErrorInvalidValue);
+  if (N % 64 || K % 32 || (w_t && dtype != RZ_DTYPE_BF16))
+    return static_cast<int>(cudaErrorInvalidValue);
   rz::GemmArgs g{a, w, bias, nullptr, nullptr, 0.f, resid, ls, out, M, N, K};
   g.out2 = out2;
   g.aux = static_cast<const float*>(aux);
   g.colpart = static_cast<float*>(colpart);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(dtype == RZ_DTYPE_BF16 ? bw::bwd_gemm<bf16>(g, epi, s)
-                                                 : bw::bwd_gemm<float>(g, epi, s));
+  return static_cast<int>(dtype == RZ_DTYPE_BF16 ? rz::gemm_sm90(g, epi, s, w_t != 0)
+                                                 : bw::bwd_gemm_f32(g, epi, s));
 }
 
-// part (splits, Ka, Nb) fp32: part[z] = a[rows of chunk z]^T . g[rows of chunk z]
+// part (splits, Ka, Nb) fp32: part[z] = a[rows of chunk z]^T . g[rows of chunk z];
+// a chunk is ceil(M / splits) rows rounded up to 64 (bf16, Ka % 64 == 0) or 32 (fp32)
 extern "C" int rz_wgrad(const void* a, const void* g, void* part, int M, int Ka, int Nb,
                         int splits, int dtype, void* stream) {
   if (splits < 1 || Ka % 8 || Nb % 8) return static_cast<int>(cudaErrorInvalidValue);
-  const int chunk = ((M + splits - 1) / splits + 31) / 32 * 32;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == RZ_DTYPE_BF16) {
-    dim3 grid((Nb + 127) / 128, (Ka + 127) / 128, splits);
-    bw::wgrad_bf16_kernel<<<grid, rz::wm::THREADS, 0, s>>>(
-        static_cast<const bf16*>(a), static_cast<const bf16*>(g), static_cast<float*>(part), M,
-        Ka, Nb, chunk);
-  } else {
-    dim3 grid((Nb + 63) / 64, (Ka + 63) / 64, splits);
-    bw::wgrad_f32_kernel<<<grid, rz::kThreads, 0, s>>>(
-        static_cast<const float*>(a), static_cast<const float*>(g), static_cast<float*>(part),
-        M, Ka, Nb, chunk);
-  }
+  if (dtype == RZ_DTYPE_BF16)
+    return static_cast<int>(
+        rz::gemm_sm90_wgrad(a, g, static_cast<float*>(part), M, Ka, Nb, splits, s));
+  const int chunk = ((M + splits - 1) / splits + 31) / 32 * 32;
+  dim3 grid((Nb + 63) / 64, (Ka + 63) / 64, splits);
+  bw::wgrad_f32_kernel<<<grid, rz::kThreads, 0, s>>>(
+      static_cast<const float*>(a), static_cast<const float*>(g), static_cast<float*>(part), M,
+      Ka, Nb, chunk);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -429,16 +341,12 @@ extern "C" int rz_reduce_parts(const void* part, void* out, int S, long long n, 
   return static_cast<int>(cudaGetLastError());
 }
 
-// wt (N, K) = w (K, N)^T
+// wt (N, K) = w (K, N)^T, fp32 only
 extern "C" int rz_transpose(const void* w, void* wt, int K, int N, int dtype, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == RZ_DTYPE_BF16) return static_cast<int>(cudaErrorInvalidValue);
   dim3 grid((N + 31) / 32, (K + 31) / 32);
-  if (dtype == RZ_DTYPE_BF16)
-    bw::transpose_kernel<unsigned short><<<grid, 256, 0, s>>>(
-        static_cast<const unsigned short*>(w), static_cast<unsigned short*>(wt), K, N);
-  else
-    bw::transpose_kernel<float><<<grid, 256, 0, s>>>(static_cast<const float*>(w),
-                                                     static_cast<float*>(wt), K, N);
+  bw::transpose_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(w), static_cast<float*>(wt), K, N);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -3,18 +3,20 @@
 // - gemm_f32_kernel: every fp32 product (K1, K3, K4 and the chains of K6, K8,
 //   K9), the verification path: 64x64 tiles of true fp32 FMAs on the CUDA
 //   cores (no TF32), with the LayerNorm prologue for K1 and K3's fc1;
-// - gemm_bf16_kernel: the bf16 products of K4 and of the chains of K6, K8
-//   and K9: one 128x128 output tile per 256-thread block, 32-deep k-steps
-//   staged in shared memory from 16-byte loads issued one k-step ahead, WMMA
-//   tensor-core products with fp32 accumulators (8 warps of 64x32);
-// - the bf16 products of K1 and K3 run gemm_sm90_kernel (gemm_sm90.cu: TMA
-//   and wgmma) on the epilogues defined here, after a LayerNorm row pass.
+// - gemm_bf16_kernel: the bf16 products of K4's forward alone (its fc1 reads
+//   the fp32 y32 and rounds it while staging, which TMA cannot): one 128x128
+//   output tile per 256-thread block, 32-deep k-steps staged in shared
+//   memory from 16-byte loads issued one k-step ahead, WMMA tensor-core
+//   products with fp32 accumulators (8 warps of 64x32);
+// - every other bf16 product (K1, K3 and the chains of K6, K8 and K9) runs
+//   gemm_sm90_kernel (gemm_sm90.cu: TMA and wgmma) on the epilogues defined
+//   here.
 // The fp32 LN prologue computes mean/rstd of the block's rows, then
 // normalises A while staging it, so the LN output never reaches device
 // memory. Rows are masked, never padded.
 //
 // An epilogue may also return a value whose column sum over the block's
-// rows the kernel writes to colpart[blockIdx.y, column] (EPI_DGELU: the
+// rows gemm_f32_kernel writes to colpart[blockIdx.y, column] (EPI_DGELU: the
 // bias gradient): summed in a fixed order inside the block, no atomics; a
 // reduce kernel adds the row tiles up afterwards.
 #pragma once
@@ -24,7 +26,7 @@
 namespace rz {
 
 enum Epilogue {
-  EPI_BIAS = 0,       // out_T   = acc + b                        (K1; K8/K9 da)
+  EPI_BIAS = 0,       // out_T   = acc + b                        (K1; K6/K8/K9 da)
   EPI_RESID_F32 = 1,  // out_f32 = x_T + ls * (acc + b)           (K3 o-proj)
   EPI_GELU = 2,       // out_T   = gelu(acc + b)                  (K3 fc1)
   EPI_RESID_OUT = 3,  // out_T   = y_f32 + ls * (acc + b)         (K3 fc2)
@@ -50,6 +52,8 @@ struct GemmArgs {
   void* out2 = nullptr;           // (M, N) fp32 second output
   const float* aux = nullptr;     // (M, N) fp32 extra input (EPI_DGELU: pre-GELU h1)
   float* colpart = nullptr;       // (row tiles, N) fp32 column sums per row tile
+  int splits = 1;                 // gemm_sm90_wgrad: chunks of the rows (the reduction)
+  int chunk_steps = 0;            // and the 64-row k-steps of one
 };
 
 constexpr float kInvSqrt2 = 0.70710678118654752f;
@@ -198,13 +202,13 @@ __global__ void __launch_bounds__(kThreads) gemm_f32_kernel(GemmArgs g) {
   }
 }
 
-// bf16 operands: 128x128 block tile, 256 threads = 8 warps (2 x 4), each
-// warp a 64x32 tile of 4x2 WMMA fragments; 16-byte global loads, held in
-// registers one k-step ahead so that they overlap the tensor-core work.
-// A is bf16, or fp32 (K4's fc1 reads y32), rounded to bf16 as it is staged;
-// no LN prologue (bf16 LayerNorm is a row pass). The epilogue runs per 16x16
-// fragment through a warp-private fp32 scratch tile.
-// N % 8 == 0 (masked at 128), K % 32 == 0.
+// bf16 operands (K4's forward): 128x128 block tile, 256 threads = 8 warps
+// (2 x 4), each warp a 64x32 tile of 4x2 WMMA fragments; 16-byte global
+// loads, held in registers one k-step ahead so that they overlap the
+// tensor-core work. A is bf16, or fp32 (K4's fc1 reads y32), rounded to bf16
+// as it is staged; no LN prologue (bf16 LayerNorm is a row pass). The
+// epilogue runs per 16x16 fragment through a warp-private fp32 scratch tile,
+// and has no column sums. N % 8 == 0 (masked at 128), K % 32 == 0.
 namespace wm {
 constexpr int BM = 128, BN = 128, BK = 32, THREADS = 256;
 constexpr int LDA = BK + 8, LDB = BN + 8;
@@ -315,12 +319,8 @@ __global__ void __launch_bounds__(wm::THREADS, 2) gemm_bf16_kernel(GemmArgs g) {
   }
 
   // lane owns row lane / 2 and columns (lane % 2) * 8 .. + 8 of each fragment
+  static_assert(EPI != EPI_DGELU, "no column sums here");
   float* tile = scratch[warp];
-  float csum[2][8];
-#pragma unroll
-  for (int j = 0; j < 2; ++j)
-#pragma unroll
-    for (int e = 0; e < 8; ++e) csum[j][e] = 0.f;
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -331,27 +331,10 @@ __global__ void __launch_bounds__(wm::THREADS, 2) gemm_bf16_kernel(GemmArgs g) {
       for (int e = 0; e < 8; ++e) {
         const int idx = lane * 8 + e;
         const int gm = m0 + wr + 16 * i + idx / 16, gn = n0 + wc + 16 * j + idx % 16;
-        if (gm < g.M && gn < g.N) csum[j][e] += epilogue<__nv_bfloat16, EPI>(g, gm, gn, tile[idx]);
+        if (gm < g.M && gn < g.N) epilogue<__nv_bfloat16, EPI>(g, gm, gn, tile[idx]);
       }
       __syncwarp();
     }
-  if (EPI == EPI_DGELU) {
-    // column sums of the block's 128 rows: over the 16 row lanes by shuffles,
-    // then the two warp rows through shared memory, all in a fixed order
-    float* cp = reinterpret_cast<float*>(&As[0][0]);  // 2 x BN floats; the tiles are dead
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        float s = csum[j][e];
-        for (int o = 2; o < 32; o <<= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-        if (lane < 2) cp[(warp / 4) * BN + wc + 16 * j + lane * 8 + e] = s;
-      }
-    __syncthreads();
-    const int t = threadIdx.x;
-    if (t < BN && n0 + t < g.N)
-      g.colpart[(size_t)blockIdx.y * g.N + n0 + t] = cp[t] + cp[BN + t];
-  }
 }
 
 template <typename T, typename TA, bool LN, int EPI>

@@ -1,39 +1,56 @@
-// The bf16 GEMM of K1 fused_preattn and K3 fused_postattn for Hopper:
-// rz_fused_preattn and rz_fused_postattn (fused_layer.cu) call it for every
-// bf16 operand, after a row pass that writes each row's LayerNorm once as a
-// bf16 operand (row_layernorm_kernel). fp32 stays on gemm_f32_kernel and K4
-// and the backward chains K6, K8 and K9 on gemm_bf16_kernel (gemm.cuh).
+// The bf16 GEMM for Hopper, gemm_sm90_kernel<EPI, MODE>: every bf16 product
+// of K1 fused_preattn and K3 fused_postattn (rz_fused_preattn /
+// rz_fused_postattn of fused_layer.cu call it after a row pass that writes
+// each row's LayerNorm once as a bf16 operand, row_layernorm_kernel) and of
+// the backward chains K6, K8 and K9 (rz_bwd_gemm and rz_wgrad of
+// fused_layer_bwd.cu): their forward recompute, their dX products and their
+// dW products. fp32 stays on gemm_f32_kernel / wgrad_f32_kernel and K4's
+// forward on gemm_bf16_kernel (gemm.cuh).
 //
 // Replaces the products of the TPU kernels radzero_tpu/ops/fused_layer.py
-// fused_preattn (_preattn_kernel, the pallas_call at :92) and fused_postattn
-// (_postattn_kernel, :913), with their contract: bf16 operands, fp32
+// fused_preattn (_preattn_kernel, the pallas_call at :92), fused_postattn
+// (_postattn_kernel, :913), _preattn_vjp_bwd (:390), _postattn_vjp_bwd (:568)
+// and _mpnet_post_vjp_bwd (:820), with their contract: bf16 operands, fp32
 // accumulation, the epilogue in fp32 on the accumulators (bias, LayerScale,
-// residual, exact-erf GELU), rounded to bf16 where the JAX code rounds (qkv,
-// the GELU output, the layer output; K3's y stays fp32). Rows are masked,
-// never padded.
+// residual, exact-erf GELU and its derivative), rounded to bf16 where the JAX
+// code rounds (qkv, the GELU output, the layer output, dh1; K3's y and the
+// chains' h1, proj, y, u, v, m and dX sums stay fp32). Rows are masked, never
+// padded; every sum runs in a fixed order, without atomics.
 //
 // What bounds it on the H100: the tensor cores. At 8 images (M = 10 960) K1
 // does 2 M 768 2304 operations and K3 2 M 768 (768 + 2 3072), 39 and 118 us at
-// 989 TFLOP/s, against 3.35 TB/s for their operands and outputs. What holds
-// it at 1.5-1.8x its cuBLAS products (ops/ablate_sm90.py gemm) is not the
+// 989 TFLOP/s, against 3.35 TB/s for their operands and outputs; K9's chain at
+// 16 384 rows does three times K3's products, 0.53 ms. What held the forward
+// at 1.5-1.8x its cuBLAS products (ops/ablate_sm90.py gemm) is not the
 // products, whose removal leaves the qkv and fc2 times as they were, but the
 // ring, which turns a 32 KB stage round in ~0.4 us an SM at any depth, and
 // fc1's exact-erf epilogue, which no product overlaps.
 //
-// Design (C = A . W, 128 x 128 output tiles, column tiles fastest so that the
+// Design (C = A . B, 128 x 128 output tiles, column tiles fastest so that the
 // blocks in flight share an A row tile in L2; a persistent grid of one
-// 288-thread block per SM walks the tiles with a stride of the grid):
+// 288-thread block per SM walks the work items with a stride of the grid):
 // - A ninth warp is the producer: one thread keeps a ring of STAGES 64-deep
 //   k-steps in flight by TMA, each stage with a full and an empty mbarrier,
-//   running on into the next tile while the consumers finish the last. A is
-//   (M, K) row-major, a K-major operand: one 128 x 64 box. W is (K, N)
-//   row-major, an MN-major B operand (the descriptor's transpose bit): two
-//   64 x 64 boxes side by side, the two 64-column swizzle atoms of the tile,
-//   8 KB apart (the descriptor's leading byte offset). Rows past M, columns
-//   past N and k past K come in as zeros, so K needs no multiple of 64; a box
-//   wholly past N is not loaded. Under a 384-thread block (a producer
-//   warpgroup) ptxas held the kernel to 168 registers and the GELU epilogue
-//   spilled; under 288 threads it takes 163 and spills nothing.
+//   running on into the next item while the consumers finish the last. Three
+//   operand layouts (MODE), one 32 KB stage each:
+//   GEMM_FWD, C = A . W: A (M, K) row-major is a K-major operand, one 128 x 64
+//     box; W (K, N) row-major an MN-major B operand (the descriptor's
+//     transpose bit): two 64 x 64 boxes side by side, the two 64-column
+//     swizzle atoms of the tile, 8 KB apart (the descriptor's leading byte
+//     offset); a box wholly past N is not loaded.
+//   GEMM_DX, C = G . W^T with W (N, K) row-major as stored: a K-major B
+//     operand, one 128 x 64 box like A's, transpose bit off, so no transposed
+//     copy of W is written.
+//   GEMM_DW, part[chunk] = A^T . G over a chunk of rows (the reduction): A
+//     (rows, Ka) row-major is an MN-major A operand (A's transpose bit), two
+//     64-row x 64-column boxes, one a warpgroup; G (rows, Nb) an MN-major B
+//     as W above. Chunks are whole multiples of the k-step, so only the last
+//     reads past the rows (zeros); each (tile, chunk) is one work item, chunk
+//     slowest, and rz_reduce_parts adds the chunks in order afterwards.
+//   Rows past M, columns past N and k past K come in as zeros, so K needs no
+//   multiple of 64. Under a 384-thread block (a producer warpgroup) ptxas held
+//   the kernel to 168 registers and the GELU epilogue spilled; under 288
+//   threads it takes 163 and spills nothing.
 // - Warpgroups 0 and 1 are consumers, 64 rows each: per k-step four wgmma
 //   m64n128k16 from shared memory into 64 fp32 registers a thread; the stage
 //   is released once the next k-step's products are issued and the last are in.
@@ -44,10 +61,25 @@
 //   xor of the 16-byte chunk with the row keeps the warp's stores free of
 //   bank conflicts); one thread then stores the tile by TMA, which clips rows
 //   >= M and columns >= N, and the warpgroup goes on to its next tile while
-//   the store drains. The residual (x for K3's o-proj, y32 for its fc2) comes
-//   by TMA into shared memory too, loaded by the producer while the tile's
-//   products run. Without this, scattered 4- and 8-byte stores and loads of
-//   the epilogue took 40% of the kernel's time (ops/ablate_sm90.py gemm).
+//   the store drains. An epilogue's input tile (x in bf16 for the
+//   o-projections, y32 for K3's fc2, h1 for the GELU derivative) comes by TMA
+//   into shared memory too, loaded by the producer while the tile's products
+//   run. Without this, scattered 4- and 8-byte stores and loads of the
+//   epilogue took 40% of the kernel's time (ops/ablate_sm90.py gemm).
+// - Shared memory (227 KB a block; a stage is 32 KB, the fp32 staging of a
+//   tile or an fp32 input tile 64 KB) sets the ring's depth per epilogue
+//   (Layout): five stages where the extra tiles take at most 64 KB, else
+//   four. EPI_ADDF_F32 (fp32 in, fp32 out) loads its residual straight into
+//   the output staging tile, in the store's box layout, and adds in place,
+//   so it keeps five; each warpgroup's leader lets the residual in once the
+//   last tile's stores have read the staging tile, a few k-steps into the
+//   next tile. EPI_PROJ2's two fp32 outputs share one staging tile: proj is
+//   stored first and x + ls proj staged once that store has read it.
+//   EPI_DGELU's column sums: each column pair is summed over the thread's
+//   two rows, then over the warp's 8 row lanes by shuffles; one partial per
+//   warp goes into the h1 tile at the warp's first row (read by that same
+//   lane and dead after), and after a barrier of both warpgroups one thread
+//   a column adds the 8 partials in order into colpart[row tile, column].
 // Every mbarrier wait traps after ~19 s instead of hanging the card.
 #include "gemm_sm90.cuh"
 #include "sm90.cuh"
@@ -59,7 +91,7 @@ using namespace fa::sm90;
 using bf16 = __nv_bfloat16;
 
 // The GEMM's own Hopper helpers (2-D tensor maps, TMA stores, the product with
-// an MN-major B), beside the attention kernels' in sm90.cuh.
+// either operand MN-major), beside the attention kernels' in sm90.cuh.
 
 // one (128-byte, rows) box of a 2-D (cols, rows) map at column c, row r -> dst
 __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
@@ -96,13 +128,16 @@ __device__ __forceinline__ void fence_async_smem() {
   "+f"(d[i + 0]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]),           \
       "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
 
-// d (64 x 128 fp32) (+)= A (64 x 16, smem, K-major) . B (16 x 128, smem, MN-major: the
-// transpose bit). The descriptor of an MN-major B takes sbo 64 (8-row groups along K
-// 1024 bytes apart) and as lbo the distance between its 64-column swizzle atoms along
-// N: 512 here, two 8 KB boxes of 64 rows side by side. A k-step of 16 advances it by
-// 128 (16 rows), a K-major A by 2 (32 bytes).
-__device__ __forceinline__ void wgmma_ss_n128_mn(float (&d)[64], uint64_t da, uint64_t db,
-                                                 int accumulate) {
+// d (64 x 128 fp32) (+)= A (64 x 16, smem) . B (16 x 128, smem); TA / TB are the
+// transpose bits, 1 for an MN-major operand. A K-major tile takes the descriptor's
+// lbo 1 (unused) and sbo 64 (8-row groups 1024 bytes apart) and advances by 2 (32
+// bytes) a k-step of 16. An MN-major tile takes sbo 64 (8-row groups along K 1024
+// bytes apart) and as lbo the distance between its 64-column swizzle atoms (512 for
+// a B of two 8 KB boxes side by side; a 64-row A is one atom) and advances by 128
+// (16 rows).
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t da, uint64_t db,
+                                           int accumulate) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
@@ -110,10 +145,10 @@ __device__ __forceinline__ void wgmma_ss_n128_mn(float (&d)[64], uint64_t da, ui
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
       "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 1;\n}\n"
+      "%64, %65, p, 1, 1, %67, %68;\n}\n"
       : RZ_ACC8(d, 0), RZ_ACC8(d, 8), RZ_ACC8(d, 16), RZ_ACC8(d, 24), RZ_ACC8(d, 32),
         RZ_ACC8(d, 40), RZ_ACC8(d, 48), RZ_ACC8(d, 56)
-      : "l"(da), "l"(db), "r"(accumulate));
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TA), "n"(TB));
 }
 
 #undef RZ_ACC8
@@ -138,25 +173,40 @@ bool make_map_2d(CUtensorMap* map, const void* p, int rows, int cols, int box_ro
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-constexpr int BM = 128, BN = 128, BK = 64;  // output tile, k-step
+enum Mode { GEMM_FWD = 0, GEMM_DX = 1, GEMM_DW = 2 };  // the operand layouts, see above
+
+constexpr int BM = kSm90RowTile, BN = 128, BK = 64;  // output tile, k-step
 constexpr int THREADS = 288;                 // two consumer warpgroups + one producer warp
 constexpr int A_BYTES = BM * BK * 2;         // one 128 x 64 box
-constexpr int W_BOX = BK * 64 * 2;           // one 64 x 64 box: half the W tile
-constexpr int STAGE_BYTES = A_BYTES + 2 * W_BOX;
+constexpr int BOX64 = 64 * 64 * 2;           // one 64 x 64 box: half a 128-wide operand tile
+constexpr int STAGE_BYTES = A_BYTES + 2 * BOX64;
 
 // shared memory of one epilogue: the ring, the output tile staged for the TMA
-// store (fp32 for K3's y32, else bf16), the residual tile (x in bf16, y32 in
-// fp32) where the epilogue has one, then the barriers
+// store (fp32 or bf16), a second fp32 output's (EPI_GELU_H1's h1), the input
+// tile (x in bf16; y32 or h1 in fp32) where the epilogue has one, then the
+// barriers. EPI_ADDF_F32's fp32 residual comes into the output staging tile.
 template <int EPI>
 struct Layout {
-  static constexpr bool RESID = EPI == EPI_RESID_F32 || EPI == EPI_RESID_OUT;
-  static constexpr int OUT_ES = EPI == EPI_RESID_F32 ? 4 : 2;  // bytes an output value
-  static constexpr int RES_ES = EPI == EPI_RESID_OUT ? 4 : 2;  // bytes a residual value
-  static constexpr int STAGES = RESID ? 4 : 5;                 // k-steps in flight
+  static constexpr int IN_ES =  // bytes an input value
+      EPI == EPI_RESID_F32 || EPI == EPI_ADD_F32 || EPI == EPI_PROJ2             ? 2
+      : EPI == EPI_RESID_OUT || EPI == EPI_DGELU || EPI == EPI_ADDF_F32 ? 4
+                                                                          : 0;
+  static constexpr bool IN = IN_ES != 0;
+  static constexpr bool INPLACE = EPI == EPI_ADDF_F32;
+  static constexpr bool LS = EPI == EPI_RESID_F32 || EPI == EPI_RESID_OUT || EPI == EPI_PROJ2;
+  static constexpr int OUT_ES = EPI == EPI_RESID_F32 || EPI == EPI_ADD_F32 ||
+                                        EPI == EPI_ADDF_F32 || EPI == EPI_PROJ2 || EPI == EPI_F32
+                                    ? 4
+                                    : 2;  // bytes an output value
+  static constexpr int OUT_WG = 64 * BN * OUT_ES;                       // one warpgroup's 64 rows
+  static constexpr int OUT2_WG = EPI == EPI_GELU_H1 ? 64 * BN * 4 : 0;  // its h1 rows
+  static constexpr int IN_BYTES = IN && !INPLACE ? BM * BN * IN_ES : 0;
+  static constexpr int EXTRA = 2 * (OUT_WG + OUT2_WG) + IN_BYTES;
+  static constexpr int STAGES = EXTRA <= 65536 ? 5 : 4;  // k-steps in flight
   static constexpr int OUT_OFF = STAGES * STAGE_BYTES;
-  static constexpr int OUT_WG = 64 * BN * OUT_ES;              // one warpgroup's 64 rows
-  static constexpr int RES_OFF = OUT_OFF + 2 * OUT_WG;
-  static constexpr int BAR_OFF = RES_OFF + (RESID ? BM * BN * RES_ES : 0);
+  static constexpr int OUT2_OFF = OUT_OFF + 2 * OUT_WG;
+  static constexpr int IN_OFF = OUT2_OFF + 2 * OUT2_WG;
+  static constexpr int BAR_OFF = IN_OFF + IN_BYTES;
   static constexpr size_t SMEM = BAR_OFF + 8 * (2 * STAGES + 2) + 1024;  // + room to align
   static_assert(SMEM <= 232448, "over the 227 KB a block can have");
 };
@@ -175,62 +225,143 @@ __device__ __forceinline__ float2 pair(const void* p, int n) {
                             *reinterpret_cast<const __nv_bfloat162*>(static_cast<const bf16*>(p) + n));
 }
 
+__device__ __forceinline__ float2 lds_f2(uint32_t a) {
+  float2 v;
+  asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];" : "=f"(v.x), "=f"(v.y) : "r"(a));
+  return v;
+}
+__device__ __forceinline__ float2 lds_bf2(uint32_t a) {
+  uint32_t u;
+  asm volatile("ld.shared.b32 %0, [%1];" : "=r"(u) : "r"(a));
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u));
+}
+__device__ __forceinline__ void sts_f2(uint32_t a, float x, float y) {
+  asm volatile("st.shared.v2.f32 [%0], {%1, %2};" ::"r"(a), "f"(x), "f"(y));
+}
+__device__ __forceinline__ void sts_bf2(uint32_t a, float x, float y) {
+  asm volatile("st.shared.b32 [%0], %1;" ::"r"(a), "r"(pack_bf16(x, y)));
+}
+
+// gelu'(h) = Phi(h) + h * pdf(h), as epilogue() of gemm.cuh computes it
+__device__ __forceinline__ float dgelu(float h) {
+  return gelu_phi(h) + h * (kInvSqrt2Pi * exp2f(-(h * h) * (0.5f * kLog2e)));
+}
+
 // the 128 threads of consumer warpgroup wg (named barriers 1 and 2)
 __device__ __forceinline__ void wg_sync(int wg) {
   asm volatile("bar.sync %0, 128;" ::"r"(1 + wg) : "memory");
 }
+// both consumer warpgroups (named barrier 3)
+__device__ __forceinline__ void consumers_sync() { asm volatile("bar.sync 3, 256;" ::: "memory"); }
 
-template <int EPI>
+// one work item: an output tile and, for GEMM_DW, a chunk of the reduction
+struct Item {
+  int m0, n0;  // the tile's first row and column
+  int k0;      // its first k (GEMM_DW: the chunk's first row)
+  int ksteps;  // its k-steps (GEMM_DW: 0 for a chunk wholly past the rows)
+  int orow;    // the output row of its first row (GEMM_DW: in part[chunk])
+};
+
+template <int MODE>
+__device__ __forceinline__ Item item_of(const GemmArgs& g, int t, int tiles, int tiles_n) {
+  const int tile = t % tiles;
+  Item w{tile / tiles_n * BM, tile % tiles_n * BN, 0, (g.K + BK - 1) / BK, tile / tiles_n * BM};
+  if (MODE == GEMM_DW) {
+    const int chunk = t / tiles;
+    w.k0 = chunk * g.chunk_steps * BK;
+    const int left = w.k0 < g.K ? (g.K - w.k0 + BK - 1) / BK : 0;
+    w.ksteps = left < g.chunk_steps ? left : g.chunk_steps;
+    w.orow = chunk * g.M + w.m0;
+  }
+  return w;
+}
+
+// the TMA stores of one warpgroup's staged rows: `src` (ES-byte values) -> map
+template <int ES>
+__device__ __forceinline__ void store_rows(const CUtensorMap* map, uint32_t src, const Item& w,
+                                           int wg, int N) {
+  constexpr int COLS = 128 / ES;
+#pragma unroll
+  for (int b = 0; b < BN / COLS; ++b)
+    if (w.n0 + b * COLS < N) tma_store_2d(map, src + b * 64 * 128, w.n0 + b * COLS, w.orow + wg * 64);
+}
+
+template <int EPI, int MODE>
 __global__ void __launch_bounds__(THREADS, 1)
 gemm_sm90_kernel(const __grid_constant__ CUtensorMap ma, const __grid_constant__ CUtensorMap mw,
-                 const __grid_constant__ CUtensorMap mo, const __grid_constant__ CUtensorMap mr,
-                 const GemmArgs g) {
+                 const __grid_constant__ CUtensorMap mo, const __grid_constant__ CUtensorMap mo2,
+                 const __grid_constant__ CUtensorMap mi, const GemmArgs g) {
   using Lay = Layout<EPI>;
   constexpr int STAGES = Lay::STAGES;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
-  const uint32_t bars = base + Lay::BAR_OFF;  // full[STAGES], empty[STAGES], rfull, rempty
-  const uint32_t rfull = bars + 16 * STAGES, rempty = rfull + 8;
+  const uint32_t bars = base + Lay::BAR_OFF;  // full[STAGES], empty[STAGES], ifull, iempty
+  const uint32_t ifull = bars + 16 * STAGES, iempty = ifull + 8;
   auto full = [&](int it) { return bars + 8 * (it % STAGES); };
   auto empty = [&](int it) { return bars + 8 * (STAGES + it % STAGES); };
   auto stage = [&](int it) { return base + STAGE_BYTES * (it % STAGES); };
   const int tiles_n = (g.N + BN - 1) / BN;
   const int tiles = tiles_n * ((g.M + BM - 1) / BM);
-  const int ksteps = (g.K + BK - 1) / BK;
+  const int items = tiles * (MODE == GEMM_DW ? g.splits : 1);
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < STAGES; ++s) {
       bar_init(full(s), 1);
       bar_init(empty(s), CONSUMERS);
     }
-    bar_init(rfull, 1);
-    bar_init(rempty, CONSUMERS);
+    bar_init(ifull, 1);
+    bar_init(iempty, Lay::INPLACE ? 2 : CONSUMERS);  // in place: the two leaders
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
 
   if (threadIdx.x >= CONSUMERS) {  // the producer warp: one thread keeps the ring full
     if (threadIdx.x == CONSUMERS) {
-      int it = 0;  // position in the ring over every k-step of every tile
-      for (int t = blockIdx.x, lt = 0; t < tiles; t += gridDim.x, ++lt) {
-        const int m0 = (t / tiles_n) * BM, n0 = (t % tiles_n) * BN;
-        const bool right = n0 + 64 < g.N;  // the tile's second 64 columns hold any of W
-        for (int ks = 0; ks < ksteps; ++ks, ++it) {
+      int it = 0;  // position in the ring over every k-step of every item
+      for (int t = blockIdx.x, lt = 0; t < items; t += gridDim.x, ++lt) {
+        const Item w = item_of<MODE>(g, t, tiles, tiles_n);
+        const bool right = w.n0 + 64 < g.N;  // the tile's second 64 columns hold any of B
+        const bool lower = w.m0 + 64 < g.M;  // its second 64 rows hold any of C
+        for (int ks = 0; ks < w.ksteps; ++ks, ++it) {
+          const int k = w.k0 + ks * BK;
+          const uint32_t st = stage(it);
           bar_wait(empty(it), ((it / STAGES) & 1) ^ 1);  // stage released by both consumers
-          bar_expect_tx(full(it), A_BYTES + (right ? 2 : 1) * W_BOX);
-          tma_load_2d(stage(it), &ma, full(it), ks * BK, m0);
-          tma_load_2d(stage(it) + A_BYTES, &mw, full(it), n0, ks * BK);
-          if (right) tma_load_2d(stage(it) + A_BYTES + W_BOX, &mw, full(it), n0 + 64, ks * BK);
-          // the residual tile, once the consumers are past the last tile's epilogue
+          if (MODE == GEMM_DW) {  // A^T: a 64 x 64 box of A's columns per warpgroup
+            bar_expect_tx(full(it), (lower ? 2 : 1) * BOX64 + (right ? 2 : 1) * BOX64);
+            tma_load_2d(st, &ma, full(it), w.m0, k);
+            if (lower) tma_load_2d(st + BOX64, &ma, full(it), w.m0 + 64, k);
+          } else {
+            bar_expect_tx(full(it),
+                          A_BYTES + (MODE == GEMM_DX ? A_BYTES : (right ? 2 : 1) * BOX64));
+            tma_load_2d(st, &ma, full(it), k, w.m0);
+          }
+          if (MODE == GEMM_DX) {  // W as stored: 128 rows of it, K-major
+            tma_load_2d(st + A_BYTES, &mw, full(it), k, w.n0);
+          } else {
+            tma_load_2d(st + A_BYTES, &mw, full(it), w.n0, k);
+            if (right) tma_load_2d(st + A_BYTES + BOX64, &mw, full(it), w.n0 + 64, k);
+          }
+          // the input tile, once the consumers are past the last tile's epilogue
           // (they have released this tile's first stage), in time for this one's
-          if (Lay::RESID && ks == (ksteps - 1 < STAGES ? ksteps - 1 : STAGES)) {
-            constexpr int COLS = 128 / Lay::RES_ES, BOX = BM * 128;
+          if (Lay::IN && ks == (w.ksteps - 1 < STAGES ? w.ksteps - 1 : STAGES)) {
+            constexpr int COLS = 128 / Lay::IN_ES;
             int boxes = 0;
-            for (int b = 0; b < BN / COLS; ++b) boxes += n0 + b * COLS < g.N;
-            bar_wait(rempty, (lt & 1) ^ 1);
-            bar_expect_tx(rfull, boxes * BOX);
-            for (int b = 0; b < boxes; ++b)
-              tma_load_2d(base + Lay::RES_OFF + b * BOX, &mr, rfull, n0 + b * COLS, m0);
+            for (int b = 0; b < BN / COLS; ++b) boxes += w.n0 + b * COLS < g.N;
+            if (Lay::INPLACE) {  // into each warpgroup's staging tile, in the store's boxes
+              constexpr int BOX = 64 * 128;
+              bar_wait(iempty, lt & 1);  // both leaders saw the last stores read them
+              bar_expect_tx(ifull, (lower ? 2 : 1) * boxes * BOX);
+              for (int h = 0; h < (lower ? 2 : 1); ++h)
+                for (int b = 0; b < boxes; ++b)
+                  tma_load_2d(base + Lay::OUT_OFF + h * Lay::OUT_WG + b * BOX, &mi, ifull,
+                              w.n0 + b * COLS, w.m0 + h * 64);
+            } else {
+              constexpr int BOX = BM * 128;
+              bar_wait(iempty, (lt & 1) ^ 1);
+              bar_expect_tx(ifull, boxes * BOX);
+              for (int b = 0; b < boxes; ++b)
+                tma_load_2d(base + Lay::IN_OFF + b * BOX, &mi, ifull, w.n0 + b * COLS, w.m0);
+            }
           }
         }
       }
@@ -241,116 +372,227 @@ gemm_sm90_kernel(const __grid_constant__ CUtensorMap ma, const __grid_constant__
   const int ct = threadIdx.x;
   const int wg = ct / 128, warp = (ct % 128) / 32, lane = ct % 32, quad = lane % 4;
   const bool leader = ct % 128 == 0;  // issues its warpgroup's TMA stores
-  const uint32_t stg = base + Lay::OUT_OFF + wg * Lay::OUT_WG;  // its 64 rows, staged
+  const uint32_t stg = base + Lay::OUT_OFF + wg * Lay::OUT_WG;     // its 64 rows, staged
+  const uint32_t stg2 = base + Lay::OUT2_OFF + wg * Lay::OUT2_WG;  // their h1 (EPI_GELU_H1)
+  const uint32_t in = base + Lay::IN_OFF;
   const int rl = warp * 16 + lane / 4;  // its first row in the warpgroup's 64
+  // A descriptor per warpgroup and the advance of both per k-step of 16
+  constexpr int SA = MODE == GEMM_DW ? 128 : 2, SB = MODE == GEMM_DX ? 2 : 128;
   float acc[64];  // rows rl (+ 8), columns 8 j + 2 quad (+ 1): acc[4 j + 2 i + e]
   int it = 0;
-  for (int t = blockIdx.x, lt = 0; t < tiles; t += gridDim.x, ++lt) {
-    const int m0 = (t / tiles_n) * BM, n0 = (t % tiles_n) * BN;
-    for (int ks = 0; ks < ksteps; ++ks, ++it) {
+  for (int t = blockIdx.x, lt = 0; t < items; t += gridDim.x, ++lt) {
+    const Item w = item_of<MODE>(g, t, tiles, tiles_n);
+    if (w.ksteps == 0) {  // a dW chunk past the rows: its partial tile is zeros
+#pragma unroll
+      for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+    }
+    for (int ks = 0; ks < w.ksteps; ++ks, ++it) {
       bar_wait(full(it), (it / STAGES) & 1);
-      const uint64_t da = desc(stage(it) + wg * 64 * 128, 1, 64);  // this warpgroup's 64 rows
-      const uint64_t dw = desc(stage(it) + A_BYTES, W_BOX / 16, 64);
+      const uint32_t st = stage(it);
+      const uint64_t da = MODE == GEMM_DW ? desc(st + wg * BOX64, 64, 64)  // this warpgroup's
+                                          : desc(st + wg * 64 * 128, 1, 64);  // 64 rows of C
+      const uint64_t db = MODE == GEMM_DX ? desc(st + A_BYTES, 1, 64)
+                                          : desc(st + A_BYTES, BOX64 / 16, 64);
       wg_fence();
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk)
-        wgmma_ss_n128_mn(acc, da + 2 * kk, dw + 128 * kk, ks > 0 || kk > 0);
+        wgmma_n128<MODE == GEMM_DW, MODE != GEMM_DX>(acc, da + SA * kk, db + SB * kk,
+                                                      ks > 0 || kk > 0);
       wg_commit();
       if (ks > 0) {  // the last k-step's products are in: its stage is free
         wg_wait_one();
         bar_arrive(empty(it - 1));
       }
-    }
-    wg_wait_all();
-    pin(acc);
-    bar_arrive(empty(it - 1));
-
-    // epilogue: the values into the staging tile, then one TMA store per box
-    if (Lay::RESID) bar_wait(rfull, lt & 1);
-    if (leader) bulk_wait_read();  // the last tile's stores have read the staging tile
-    wg_sync(wg);
-    const uint32_t res = base + Lay::RES_OFF;
-#pragma unroll
-    for (int j = 0; j < BN / 8; ++j) {
-      const int c = 8 * j + 2 * quad, gn = n0 + c;
-      const bool in = gn < g.N;  // N % 8 == 0: an 8-column group is wholly in or out
-      const float2 b = in ? pair(g.bias, gn) : make_float2(0.f, 0.f);
-      const float2 ls = Lay::RESID && in ? pair(g.ls, gn) : make_float2(0.f, 0.f);
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int r = rl + 8 * i;
-        const float v0 = acc[4 * j + 2 * i] + b.x, v1 = acc[4 * j + 2 * i + 1] + b.y;
-        if (EPI == EPI_RESID_F32) {  // y32 = x + ls (acc + b)
-          uint32_t xb;
-          asm volatile("ld.shared.b32 %0, [%1];" : "=r"(xb) : "r"(res + swz<2>(BM, wg * 64 + r, c)));
-          const float2 x = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&xb));
-          asm volatile("st.shared.v2.f32 [%0], {%1, %2};" ::"r"(stg + swz<4>(64, r, c)),
-                       "f"(x.x + ls.x * v0), "f"(x.y + ls.y * v1));
-        } else {
-          float o0 = v0, o1 = v1;
-          if (EPI == EPI_GELU) {
-            o0 = v0 * gelu_phi(v0);
-            o1 = v1 * gelu_phi(v1);
-          } else if (EPI == EPI_RESID_OUT) {  // out = y32 + ls (acc + b)
-            float y0, y1;
-            asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];"
-                         : "=f"(y0), "=f"(y1) : "r"(res + swz<4>(BM, wg * 64 + r, c)));
-            o0 = y0 + ls.x * v0;
-            o1 = y1 + ls.y * v1;
-          }
-          asm volatile("st.shared.b32 [%0], %1;" ::"r"(stg + swz<2>(64, r, c)),
-                       "r"(pack_bf16(o0, o1)));
-        }
+      // in place: let the residual into the staging tile once the last tile's
+      // stores have read it, a few k-steps into this tile
+      if (Lay::INPLACE && leader && ks == (w.ksteps - 1 < STAGES - 1 ? w.ksteps - 1 : STAGES - 1)) {
+        bulk_wait_read();
+        bar_arrive(iempty);
       }
     }
-    if (Lay::RESID) bar_arrive(rempty);  // this thread has read its share of the residual
+    if (w.ksteps > 0) {
+      wg_wait_all();
+      pin(acc);
+      bar_arrive(empty(it - 1));
+    }
+
+    // epilogue: the values into the staging tile, then one TMA store per box
+    if (Lay::IN) bar_wait(ifull, lt & 1);
+    if (leader) bulk_wait_read();  // the last tile's stores have read the staging tile
+    wg_sync(wg);
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int c = 8 * j + 2 * quad, gn = w.n0 + c;
+      const bool inb = gn < g.N;  // N % 8 == 0: an 8-column group is wholly in or out
+      const float2 b = inb ? pair(g.bias, gn) : make_float2(0.f, 0.f);
+      const float2 ls = Lay::LS && inb ? pair(g.ls, gn) : make_float2(0.f, 0.f);
+      float s0 = 0.f, s1 = 0.f;  // EPI_DGELU: the pair's sums over the thread's rows
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int r = rl + 8 * i, rt = wg * 64 + r;  // row in the warpgroup's 64, in the tile
+        const float v0 = acc[4 * j + 2 * i] + b.x, v1 = acc[4 * j + 2 * i + 1] + b.y;
+        const uint32_t o4 = stg + swz<4>(64, r, c), o2 = stg + swz<2>(64, r, c);
+        if (EPI == EPI_RESID_F32) {  // y32 = x + ls (acc + b)
+          const float2 x = lds_bf2(in + swz<2>(BM, rt, c));
+          sts_f2(o4, x.x + ls.x * v0, x.y + ls.y * v1);
+        } else if (EPI == EPI_ADD_F32) {  // u = x + (acc + b)
+          const float2 x = lds_bf2(in + swz<2>(BM, rt, c));
+          sts_f2(o4, x.x + v0, x.y + v1);
+        } else if (EPI == EPI_ADDF_F32) {  // y32 + (acc + b), in place
+          const float2 y = lds_f2(o4);
+          sts_f2(o4, y.x + v0, y.y + v1);
+        } else if (EPI == EPI_F32 || EPI == EPI_PROJ2) {  // EPI_PROJ2: proj first
+          sts_f2(o4, v0, v1);
+        } else if (EPI == EPI_GELU_H1) {  // h1 in fp32, gelu(h1) rounded
+          sts_f2(stg2 + swz<4>(64, r, c), v0, v1);
+          sts_bf2(o2, v0 * gelu_phi(v0), v1 * gelu_phi(v1));
+        } else if (EPI == EPI_GELU) {
+          sts_bf2(o2, v0 * gelu_phi(v0), v1 * gelu_phi(v1));
+        } else if (EPI == EPI_RESID_OUT) {  // out = y32 + ls (acc + b)
+          const float2 y = lds_f2(in + swz<4>(BM, rt, c));
+          sts_bf2(o2, y.x + ls.x * v0, y.y + ls.y * v1);
+        } else if (EPI == EPI_DGELU) {  // acc gelu'(h1), rounded; its unrounded sums
+          const float2 h = lds_f2(in + swz<4>(BM, rt, c));
+          const float d0 = v0 * dgelu(h.x), d1 = v1 * dgelu(h.y);
+          sts_bf2(o2, d0, d1);
+          s0 += d0;
+          s1 += d1;
+        } else {  // EPI_BIAS
+          sts_bf2(o2, v0, v1);
+        }
+      }
+      if (EPI == EPI_DGELU) {  // over the warp's 8 row lanes; one partial per warp
+#pragma unroll
+        for (int o = 4; o < 32; o <<= 1) {
+          s0 += __shfl_xor_sync(0xffffffffu, s0, o);
+          s1 += __shfl_xor_sync(0xffffffffu, s1, o);
+        }
+        if (lane < 4) sts_f2(in + swz<4>(BM, wg * 64 + warp * 16, c), s0, s1);
+      }
+    }
+    if (EPI == EPI_DGELU) {  // the 8 warps' partials of each column, in order
+      consumers_sync();
+      if (ct < BN) {
+        float s = 0.f;
+#pragma unroll
+        for (int p = 0; p < 8; ++p) {
+          float v;
+          asm volatile("ld.shared.f32 %0, [%1];"
+                       : "=f"(v) : "r"(in + swz<4>(BM, (p / 4) * 64 + (p % 4) * 16, ct)));
+          s += v;
+        }
+        if (w.n0 + ct < g.N) g.colpart[(size_t)(w.m0 / BM) * g.N + w.n0 + ct] = s;
+      }
+    }
     fence_async_smem();
     wg_sync(wg);
-    if (leader && m0 + wg * 64 < g.M) {
-      constexpr int COLS = 128 / Lay::OUT_ES;
-#pragma unroll
-      for (int b = 0; b < BN / COLS; ++b)
-        if (n0 + b * COLS < g.N) tma_store_2d(&mo, stg + b * 64 * 128, n0 + b * COLS, m0 + wg * 64);
+    const bool rows = w.m0 + wg * 64 < g.M;  // the warpgroup's rows hold any of C
+    if (leader && rows) {
+      if (EPI == EPI_GELU_H1) store_rows<4>(&mo2, stg2, w, wg, g.N);
+      store_rows<Lay::OUT_ES>(EPI == EPI_PROJ2 ? &mo2 : &mo, stg, w, wg, g.N);
       bulk_commit();
     }
+    if (EPI == EPI_PROJ2) {  // then out = x + ls proj through the same staging tile
+      if (leader) bulk_wait_read();
+      wg_sync(wg);
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const int c = 8 * j + 2 * quad, gn = w.n0 + c;
+        const bool inb = gn < g.N;
+        const float2 b = inb ? pair(g.bias, gn) : make_float2(0.f, 0.f);
+        const float2 ls = inb ? pair(g.ls, gn) : make_float2(0.f, 0.f);
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int r = rl + 8 * i;
+          const float2 x = lds_bf2(in + swz<2>(BM, wg * 64 + r, c));
+          sts_f2(stg + swz<4>(64, r, c), x.x + ls.x * (acc[4 * j + 2 * i] + b.x),
+                 x.y + ls.y * (acc[4 * j + 2 * i + 1] + b.y));
+        }
+      }
+      fence_async_smem();
+      wg_sync(wg);
+      if (leader && rows) {
+        store_rows<4>(&mo, stg, w, wg, g.N);
+        bulk_commit();
+      }
+    }
+    if (Lay::IN && !Lay::INPLACE) bar_arrive(iempty);  // this thread is done with the input
   }
   if (leader) bulk_wait_read();  // the shared memory outlives the last stores' reads
 }
 
-template <int EPI>
+template <int EPI, int MODE>
 cudaError_t launch(const GemmArgs& g, cudaStream_t stream) {
   using Lay = Layout<EPI>;
-  CUtensorMap ma, mw, mo, mr;  // A, W, the output, the residual (A's map where there is none)
-  if (!make_map_2d(&ma, g.a, g.M, g.K, BM) || !make_map_2d(&mw, g.w, g.K, g.N, BK) ||
-      !make_map_2d(&mo, g.out, g.M, g.N, 64, Lay::OUT_ES == 4))
-    return cudaErrorInvalidValue;
-  mr = ma;
-  if (Lay::RESID && !make_map_2d(&mr, g.resid, g.M, g.N, BM, Lay::RES_ES == 4))
-    return cudaErrorInvalidValue;
-  cudaError_t err = allow_smem(gemm_sm90_kernel<EPI>, Lay::SMEM);
+  // A, B, the output, the second output (EPI_GELU_H1's h1, EPI_PROJ2's proj) and
+  // the input tile's matrix; a map that is not read is a copy of another
+  CUtensorMap ma, mw, mo, mo2, mi;
+  bool ok;
+  if (MODE == GEMM_DW)  // A (K rows, M columns) in 64 x 64 boxes; part as (splits M, N)
+    ok = make_map_2d(&ma, g.a, g.K, g.M, 64) && make_map_2d(&mw, g.w, g.K, g.N, BK) &&
+         make_map_2d(&mo, g.out, g.splits * g.M, g.N, 64, true);
+  else
+    ok = make_map_2d(&ma, g.a, g.M, g.K, BM) &&
+         (MODE == GEMM_DX ? make_map_2d(&mw, g.w, g.N, g.K, BN)
+                          : make_map_2d(&mw, g.w, g.K, g.N, BK)) &&
+         make_map_2d(&mo, g.out, g.M, g.N, 64, Lay::OUT_ES == 4);
+  mo2 = mo;
+  mi = ma;
+  if (ok && (EPI == EPI_GELU_H1 || EPI == EPI_PROJ2))
+    ok = make_map_2d(&mo2, g.out2, g.M, g.N, 64, true);
+  if (ok && Lay::IN)
+    ok = make_map_2d(&mi, EPI == EPI_DGELU ? static_cast<const void*>(g.aux) : g.resid, g.M, g.N,
+                     Lay::INPLACE ? 64 : BM, Lay::IN_ES == 4);
+  if (!ok) return cudaErrorInvalidValue;
+  cudaError_t err = allow_smem(gemm_sm90_kernel<EPI, MODE>, Lay::SMEM);
   if (err != cudaSuccess) return err;
   int dev = 0, sms = 0;
   if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
       (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
     return err;
-  const int tiles = ((g.M + BM - 1) / BM) * ((g.N + BN - 1) / BN);
-  gemm_sm90_kernel<EPI><<<tiles < sms ? tiles : sms, THREADS, Lay::SMEM, stream>>>(ma, mw, mo, mr,
-                                                                                   g);
+  const int items = ((g.M + BM - 1) / BM) * ((g.N + BN - 1) / BN) *
+                    (MODE == GEMM_DW ? g.splits : 1);
+  gemm_sm90_kernel<EPI, MODE><<<items < sms ? items : sms, THREADS, Lay::SMEM, stream>>>(
+      ma, mw, mo, mo2, mi, g);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-cudaError_t gemm_sm90(const GemmArgs& g, int epi, cudaStream_t stream) {
+cudaError_t gemm_sm90(const GemmArgs& g, int epi, cudaStream_t stream, bool w_t) {
   if (g.K % 8 || g.N % 8) return cudaErrorInvalidValue;
   if (g.M == 0) return cudaSuccess;
+  if (w_t) {
+    switch (epi) {
+      case EPI_BIAS: return launch<EPI_BIAS, GEMM_DX>(g, stream);
+      case EPI_ADDF_F32: return launch<EPI_ADDF_F32, GEMM_DX>(g, stream);
+      case EPI_F32: return launch<EPI_F32, GEMM_DX>(g, stream);
+      case EPI_DGELU: return launch<EPI_DGELU, GEMM_DX>(g, stream);
+      default: return cudaErrorInvalidValue;
+    }
+  }
   switch (epi) {
-    case EPI_BIAS: return launch<EPI_BIAS>(g, stream);
-    case EPI_RESID_F32: return launch<EPI_RESID_F32>(g, stream);
-    case EPI_GELU: return launch<EPI_GELU>(g, stream);
-    case EPI_RESID_OUT: return launch<EPI_RESID_OUT>(g, stream);
+    case EPI_BIAS: return launch<EPI_BIAS, GEMM_FWD>(g, stream);
+    case EPI_RESID_F32: return launch<EPI_RESID_F32, GEMM_FWD>(g, stream);
+    case EPI_GELU: return launch<EPI_GELU, GEMM_FWD>(g, stream);
+    case EPI_RESID_OUT: return launch<EPI_RESID_OUT, GEMM_FWD>(g, stream);
+    case EPI_ADD_F32: return launch<EPI_ADD_F32, GEMM_FWD>(g, stream);
+    case EPI_ADDF_F32: return launch<EPI_ADDF_F32, GEMM_FWD>(g, stream);
+    case EPI_PROJ2: return launch<EPI_PROJ2, GEMM_FWD>(g, stream);
+    case EPI_GELU_H1: return launch<EPI_GELU_H1, GEMM_FWD>(g, stream);
+    case EPI_F32: return launch<EPI_F32, GEMM_FWD>(g, stream);
     default: return cudaErrorInvalidValue;
   }
+}
+
+cudaError_t gemm_sm90_wgrad(const void* a, const void* gr, float* part, int rows, int Ka, int Nb,
+                            int splits, cudaStream_t stream) {
+  if (splits < 1 || Ka % 64 || Nb % 8) return cudaErrorInvalidValue;
+  if (rows == 0) return cudaMemsetAsync(part, 0, sizeof(float) * splits * Ka * Nb, stream);
+  GemmArgs g{a, gr, nullptr, nullptr, nullptr, 0.f, nullptr, nullptr, part, Ka, Nb, rows};
+  g.splits = splits;
+  g.chunk_steps = ((rows + splits - 1) / splits + BK - 1) / BK;
+  return launch<EPI_F32, GEMM_DW>(g, stream);
 }
 
 }  // namespace rz

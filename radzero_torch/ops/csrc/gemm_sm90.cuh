@@ -1,5 +1,6 @@
 // The bf16 GEMM for Hopper (gemm_sm90.cu), as the entry points of
-// fused_layer.cu call it for K1 and K3.
+// fused_layer.cu call it for K1 and K3 and those of fused_layer_bwd.cu for
+// the chains of K6, K8 and K9.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -8,12 +9,25 @@
 
 namespace rz {
 
-// C = A . W with the fused epilogue `epi` (EPI_BIAS, EPI_RESID_F32, EPI_GELU or
-// EPI_RESID_OUT of gemm.cuh) over bf16 operands: g.a (M, K) and g.w (K, N),
-// both row-major, with K % 8 == 0, N % 8 == 0 and 16-byte aligned bases (TMA's
-// rules); any M >= 0. No LN prologue: g.ln_s / g.ln_b are not read (the caller
-// normalises A first). Returns cudaErrorInvalidValue for another epilogue or
-// operands that do not suit TMA, else the launch's cudaGetLastError().
-cudaError_t gemm_sm90(const GemmArgs& g, int epi, cudaStream_t stream);
+constexpr int kSm90RowTile = 128;  // rows of an output tile (colpart is (ceil(M / this), N))
+
+// C = A . W (or A . W^T when w_t) with the fused epilogue `epi` of gemm.cuh over
+// bf16 operands: g.a (M, K) row-major, and g.w (K, N) row-major, or (N, K)
+// row-major when w_t (a dX = G . W^T reads the weight W as it is stored);
+// K % 8 == 0, N % 8 == 0 and 16-byte aligned bases (TMA's rules); any M >= 0.
+// The epilogues: EPI_BIAS, EPI_RESID_F32, EPI_GELU, EPI_RESID_OUT, EPI_ADD_F32,
+// EPI_ADDF_F32, EPI_PROJ2, EPI_GELU_H1, EPI_F32 with W (K, N); EPI_BIAS,
+// EPI_ADDF_F32, EPI_F32, EPI_DGELU with W^T. No LN prologue: g.ln_s / g.ln_b
+// are not read (the caller normalises A first). Returns cudaErrorInvalidValue
+// for another pair or operands that do not suit TMA, else the launch's
+// cudaGetLastError().
+cudaError_t gemm_sm90(const GemmArgs& g, int epi, cudaStream_t stream, bool w_t = false);
+
+// part (splits, Ka, Nb) fp32: part[z] = a[rows of chunk z]^T . g[rows of chunk z],
+// a (rows, Ka) and g (rows, Nb) bf16 row-major; the chunks are whole multiples of
+// 64 rows, ceil(rows / splits) rounded up, and a chunk past the rows gets zeros.
+// Ka % 64 == 0, Nb % 8 == 0.
+cudaError_t gemm_sm90_wgrad(const void* a, const void* g, float* part, int rows, int Ka, int Nb,
+                            int splits, cudaStream_t stream);
 
 }  // namespace rz

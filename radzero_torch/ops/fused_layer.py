@@ -42,7 +42,11 @@ chains of launches composed here from the entry points of
 ``csrc/fused_layer_bwd.cu`` (products, row passes, fixed-order reduces: no
 atomics, so every gradient has the same bits from run to run), with their
 scratch allocated for the call and freed with it; no product of a chain
-goes through ``torch.matmul``.
+goes through ``torch.matmul``. In bf16 every product of a chain runs the
+Hopper GEMM of ``csrc/gemm_sm90.cu`` (TMA and wgmma): the forward recompute
+and the dX products with their epilogues, a dX = g W^T reading W as it is
+stored (K-major), and the row-split dW products; fp32 runs ``gemm_f32_kernel``
+/ ``wgrad_f32_kernel`` on the CUDA cores, its dX through a transposed copy.
 
 Two differences from the TPU forward, both in the kernel and its twin:
 GELU uses the exact erf (the TPU kernel's rational erf approximation,
@@ -68,7 +72,12 @@ _INV_SQRT_2PI = 0.3989422804014327
 # epilogue codes of csrc/gemm.cuh
 _EPI_BIAS, _EPI_ADD_F32, _EPI_ADDF_F32, _EPI_PROJ2, _EPI_GELU_H1, _EPI_F32, _EPI_DGELU = (
     0, 4, 5, 6, 7, 8, 9)
-_SPLIT_BLOCKS = 4 * 132  # blocks a row-split weight-gradient product aims at
+_SPLIT_BLOCKS = 4 * 132  # blocks a row-split fp32 weight-gradient product aims at
+# the bf16 dW product's cost model (_Chain.wgrad): a 128 x 128 tile's k-step of 64
+# rows at ~600 TFLOP/s shared by the card's SMs (about what K1's product reaches on
+# an H100), and the partial tiles written once and read once at 3.35 TB/s
+_TILE_STEP_S = 2 * 128 * 128 * 64 / 600e12
+_PART_BYTE_S = 2 / 3.35e12
 
 
 def _ln32(x32, scale, bias, eps):
@@ -471,6 +480,7 @@ class _Chain:
         self.stream = _build.stream_ptr(like)
         self.row_block = self.lib.rz_bwd_row_block()
         self.gemm_tile = self.lib.rz_bwd_gemm_row_tile(code)
+        self.sms = torch.cuda.get_device_properties(like.device).multi_processor_count
 
     def f32(self, *shape):
         return torch.empty(shape, dtype=torch.float32, device=self.dev)
@@ -485,28 +495,34 @@ class _Chain:
     def _ptr(t):
         return None if t is None else t.data_ptr()
 
-    def gemm(self, a, w, epi, out, *, bias=None, resid=None, ls=None, aux=None, out2=None,
-             colpart=None):
-        """out (M, N) = a (M, K) @ w (K, N) through epilogue ``epi``."""
-        (m, k), n = a.shape, w.shape[1]
+    def gemm(self, a, w, epi, out, *, w_t=False, bias=None, resid=None, ls=None, aux=None,
+             out2=None, colpart=None):
+        """out (M, N) = a (M, K) @ w (K, N) through epilogue ``epi``; with
+        ``w_t``, a @ w.T for w (N, K) (bf16 only)."""
+        (m, k), n = a.shape, w.shape[0 if w_t else 1]
         p = self._ptr
         self._ok(self.lib.rz_bwd_gemm(p(a), p(w), p(bias), p(resid), p(ls), p(aux), p(out),
-                                      p(out2), p(colpart), m, n, k, epi, self.code, self.stream))
+                                      p(out2), p(colpart), m, n, k, epi, int(w_t), self.code,
+                                      self.stream))
         return out
 
-    def dgelu_gemm(self, dm, w2t, h1):
-        """dh1 = (dm @ w2t) * gelu'(h1) rounded, and db1 = colsum(dh1)."""
-        m, f = h1.shape
-        tiles = -(-m // self.gemm_tile)
-        colpart = self.f32(tiles, f)
-        dh1 = self.gemm(dm, w2t, _EPI_DGELU, self.t(m, f), aux=h1, colpart=colpart)
-        return dh1, self.reduce(colpart, tiles, (f,))
-
-    def transpose(self, w):
+    def gemm_t(self, a, w, epi, out, **kw):
+        """out (M, K_w) = a (M, N_w) @ w.T for a weight w (K_w, N_w): in bf16 the
+        product reads w as it is stored; fp32 reads a transposed copy."""
+        if self.dtype == torch.bfloat16:
+            return self.gemm(a, w, epi, out, w_t=True, **kw)
         k, n = w.shape
         wt = self.t(n, k)
         self._ok(self.lib.rz_transpose(w.data_ptr(), wt.data_ptr(), k, n, self.code, self.stream))
-        return wt
+        return self.gemm(a, wt, epi, out, **kw)
+
+    def dgelu_gemm(self, dm, w2, h1):
+        """dh1 = (dm @ w2.T) * gelu'(h1) rounded, and db1 = colsum(dh1)."""
+        m, f = h1.shape
+        tiles = -(-m // self.gemm_tile)
+        colpart = self.f32(tiles, f)
+        dh1 = self.gemm_t(dm, w2, _EPI_DGELU, self.t(m, f), aux=h1, colpart=colpart)
+        return dh1, self.reduce(colpart, tiles, (f,))
 
     def reduce(self, part, s, shape):
         """Sum ``part`` (s, *shape) fp32 over s in order -> operand type."""
@@ -520,11 +536,34 @@ class _Chain:
         (m, ka), nb = a.shape, g.shape[1]
         tile = self.gemm_tile
         tiles = -(-ka // tile) * -(-nb // tile)
-        splits = max(1, min(-(-_SPLIT_BLOCKS // tiles), -(-m // 256)))
+        if self.dtype == torch.bfloat16:
+            splits = self._bf16_splits(m, tiles, ka * nb)
+        else:
+            splits = max(1, min(-(-_SPLIT_BLOCKS // tiles), -(-m // 256)))
         part = self.f32(splits, ka, nb)
         self._ok(self.lib.rz_wgrad(a.data_ptr(), g.data_ptr(), part.data_ptr(), m, ka, nb,
                                    splits, self.code, self.stream))
         return self.reduce(part, splits, (ka, nb))
+
+    def _bf16_splits(self, m, tiles, n):
+        """Row chunks of a bf16 dW product over m rows, ``tiles`` output tiles
+        and n entries: the persistent kernel runs tiles x splits work items of
+        ceil(m / splits) rows (whole 64-row k-steps) in waves of one item an
+        SM, and each chunk adds a partial tile written and read once; the
+        count that the cost model puts lowest, every chunk holding rows."""
+        steps = -(-m // 64)
+        if steps <= 1:
+            return 1
+        best = None
+        for s in range(1, min(steps, 64) + 1):
+            chunk = -(-steps // s)
+            if -(-steps // chunk) != s:  # fewer chunks of this size cover the rows
+                continue
+            waves = -(-tiles * s // self.sms)
+            cost = waves * chunk * _TILE_STEP_S * self.sms + s * n * 4 * _PART_BYTE_S
+            if best is None or cost < best[0]:
+                best = (cost, s)
+        return best[1]
 
     def ln_rows(self, u, scale, bias, eps, *, want_f32=False):
         """LN(u) per row -> (rounded, fp32 or None)."""
@@ -568,7 +607,7 @@ class _Chain:
 def fused_preattn_bwd(x, ln_scale, ln_bias, w_qkv, b_qkv, g, *, eps=1e-6):
     """K6: cotangent g (N, 3D) of :func:`fused_preattn` -> (dx, d ln_scale,
     d ln_bias, d w_qkv, d b_qkv), each in its operand's type. On the card:
-    LN rows, dh = g @ w_qkv^T (through a transposed copy), the row-split
+    LN rows, dh = g @ w_qkv^T (bf16 reads w_qkv K-major), the row-split
     product dw = ln(x)^T @ g, column sums of g, the LN backward rows, and
     their fixed-order reduces; one count."""
     if not on_cuda(x):
@@ -584,7 +623,7 @@ def fused_preattn_bwd(x, ln_scale, ln_bias, w_qkv, b_qkv, g, *, eps=1e-6):
     hc, _ = k.ln_rows(x, ln_scale, ln_bias, eps)
     dw = k.wgrad(hc, g)
     del hc
-    dh = k.gemm(g, k.transpose(w_qkv), _EPI_F32, k.f32(n, d))
+    dh = k.gemm_t(g, w_qkv, _EPI_F32, k.f32(n, d))
     _, _, db = k.scale_colsum(g, None, None, want_out=False)
     dx, _, _, (dls, dlb, _, _) = k.ln_bwd(x, dh, ln_scale, eps)
     fused_preattn_bwd.launches += 1
@@ -662,15 +701,15 @@ def fused_postattn_bwd(x, attn_out, wo, bo, ls1, ln_scale, ln_bias,
     dm, dls2, db2 = k.scale_colsum(g, m32, ls2)
     dw2 = k.wgrad(gl, dm)
     del gl
-    dh1, db1 = k.dgelu_gemm(dm, k.transpose(w2), h1)
+    dh1, db1 = k.dgelu_gemm(dm, w2, h1)
     del h1, dm
     dw1 = k.wgrad(hln, dh1)
     del hln
-    dhln = k.gemm(dh1, k.transpose(w1), _EPI_F32, m32)  # m32's buffer: m is spent
+    dhln = k.gemm_t(dh1, w1, _EPI_F32, m32)  # m32's buffer: m is spent
     del dh1
     dx, dproj, _, (dlns, dlnb, dbo, dls1) = k.ln_bwd(
         y32, dhln, ln_scale, eps, add=g, ls=ls1, proj=proj32, want_out2=True)
-    da = k.gemm(dproj, k.transpose(wo), _EPI_BIAS, k.t(n, d))
+    da = k.gemm_t(dproj, wo, _EPI_BIAS, k.t(n, d))
     dwo = k.wgrad(attn_out, dproj)
     fused_postattn_bwd.launches += 1
     return dx, da, dwo, dbo, dls1, dlns, dlnb, dw1, db1, dw2, db2, dls2
@@ -708,12 +747,12 @@ def fused_mpnet_post_bwd(x, attn_out, wo, bo, lnsa, lnba, w1, b1, w2, b2,
     dm, _, dv32, (dlnso, dlnbo, db2, _) = k.ln_bwd(v32, g, lnso, eps, want_f32=True)
     dw2 = k.wgrad(gl, dm)
     del gl
-    dh1, db1 = k.dgelu_gemm(dm, k.transpose(w2), h1)
+    dh1, db1 = k.dgelu_gemm(dm, w2, h1)
     del h1, dm
     dw1 = k.wgrad(yln, dh1)
-    dyln = k.gemm(dh1, k.transpose(w1), _EPI_ADDF_F32, y32, resid=dv32)  # y's buffer: y is spent
+    dyln = k.gemm_t(dh1, w1, _EPI_ADDF_F32, y32, resid=dv32)  # y's buffer: y is spent
     du, _, _, (dlnsa, dlnba, dbo, _) = k.ln_bwd(u32, dyln, lnsa, eps)
-    da = k.gemm(du, k.transpose(wo), _EPI_BIAS, k.t(m, d))
+    da = k.gemm_t(du, wo, _EPI_BIAS, k.t(m, d))
     dwo = k.wgrad(attn_out, du)
     fused_mpnet_post_bwd.launches += 1
     return du, da, dwo, dbo, dlnsa, dlnba, dw1, db1, dw2, db2, dlnso, dlnbo

@@ -392,6 +392,160 @@ def test_fused_mpnet_post_bwd_kernel(dtype, m):
     assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
+# bf16 K6, K8 and K9 run every product on gemm_sm90_kernel<EPI, MODE>
+# (csrc/gemm_sm90.cu; MODE 0: A . W, 1: G . W^T with W read as stored, 2: the
+# row-split dW = A^T . G) between the row passes and the fixed-order reduces
+CHAIN_ROUTES = {
+    "K6": {"<8, 2>", "<8, 1>"},
+    "K8": {"<6, 0>", "<7, 0>", "<8, 0>", "<8, 2>", "<9, 1>", "<8, 1>", "<0, 1>"},
+    "K9": {"<4, 0>", "<7, 0>", "<5, 0>", "<8, 2>", "<9, 1>", "<5, 1>", "<0, 1>"},
+}
+CHAIN_KINDS = ("gemm_sm90_kernel", "ln_rows_kernel", "ln_bwd_rows_kernel",
+               "scale_colsum_kernel", "reduce_parts_kernel")
+
+
+def _chain_call(k, g, dtype, m, d, f):
+    """One call of the backward wrapper of ``k`` at (m, d, f) -> (fn, twin's grads, names)."""
+    if k == "K6":
+        args, cot = _k1_args(g, dtype, m, d), _rn(g, dtype, m, 3 * d)
+        return (lambda: fl.fused_preattn_bwd(*args, cot), lambda: fl.fused_preattn_bwd_plain(
+            *args, cot), ("dx", "dln_scale", "dln_bias", "dw", "db"))
+    if k == "K8":
+        args, cot = _k3_args(g, dtype, m, d, f), _rn(g, dtype, m, d)
+        return (lambda: fl.fused_postattn_bwd(*args, cot),
+                lambda: fl.fused_postattn_bwd_plain(*args, cot), _K8_NAMES)
+    args, cot = _k4_args(g, dtype, m, d, f), _rn(g, dtype, m, d)
+    return (lambda: fl.fused_mpnet_post_bwd(*args, cot),
+            lambda: fl.fused_mpnet_post_bwd_plain(*args, cot), _K9_NAMES)
+
+
+@pytest.mark.parametrize("k", sorted(CHAIN_ROUTES))
+def test_backward_chains_run_the_hopper_gemm_in_bf16(k):
+    """bf16 K6, K8 and K9 run exactly their gemm_sm90_kernel instantiations,
+    row passes and reduces: no gemm_bf16_kernel, wgrad_bf16_kernel or
+    transpose_kernel."""
+    g = torch.Generator(device="cuda").manual_seed(13)
+    call, _, _ = _chain_call(k, g, torch.bfloat16, 200, 128, 256)
+    names = _device_kernels(call)
+    assert set(_kernel_kinds(names, CHAIN_KINDS)) <= set(CHAIN_KINDS), names
+    gemms = {n[n.index("gemm_sm90_kernel") + 16:].split(">")[0] + ">"
+             for n in names if "gemm_sm90_kernel" in n}
+    assert gemms == CHAIN_ROUTES[k], names
+
+
+def _close_share(out, ref, share, rtol):
+    ref = ref.float()
+    torch.testing.assert_close(out.float(), ref, rtol=rtol, atol=share * ref.abs().max().item())
+
+
+def _close32(out, ref):  # fp32 sums of the same bf16 products in another order
+    assert out.dtype == torch.float32
+    _close_share(out, ref, 1e-4, 1e-4)
+
+
+def _close16(out, ref):  # the same, rounded once: up to one bf16 ulp either way
+    assert out.dtype == torch.bfloat16
+    _close_share(out, ref, 2.0**-8, 2.0**-7)
+
+
+# the epilogues of the chains on gemm_sm90_kernel: (name, W read as stored, W^T)
+CHAIN_EPIS = [("bias", True), ("add_f32", False), ("addf_f32", False), ("addf_f32", True),
+              ("proj2", False), ("gelu_h1", False), ("f32", False), ("f32", True),
+              ("dgelu", True)]
+CHAIN_ROWS = (1, 127, 128, 129, 1370)
+CHAIN_NK = ((128, 128), (768, 3072), (3072, 768))
+
+
+@pytest.mark.parametrize("n,k", CHAIN_NK)
+@pytest.mark.parametrize("m", CHAIN_ROWS)
+@pytest.mark.parametrize("epi,w_t", CHAIN_EPIS)
+def test_chain_epilogue_bf16_tile_edges(epi, w_t, m, n, k):
+    """Each epilogue of the chains on gemm_sm90_kernel against the same product
+    in fp32 on torch (TF32 off), across the 64- and 128-row tile edges, at one
+    tile and at the model's widths; W (k, n), or (n, k) read as stored for
+    out = a . W^T."""
+    bf = torch.bfloat16
+    g = torch.Generator(device="cuda").manual_seed(m + n + k)
+    a = _rn(g, bf, m, k)
+    w = _rn(g, bf, n, k, std=0.02) if w_t else _rn(g, bf, k, n, std=0.02)
+    acc = a.float() @ (w.float().t() if w_t else w.float())
+    bias, ls = _rn(g, bf, n, std=0.02), _rn(g, bf, n, std=0.1, mean=1.0)
+    ch = fl._Chain("test", a, 1)
+    f32 = ch.f32(m, n)
+    kw = {"w_t": w_t}
+    if epi == "bias":  # da: no bias
+        _close16(ch.gemm(a, w, fl._EPI_BIAS, ch.t(m, n), **kw), acc)
+    elif epi == "add_f32":  # u = x + a Wo + bo
+        x = _rn(g, bf, m, n)
+        _close32(ch.gemm(a, w, fl._EPI_ADD_F32, f32, bias=bias, resid=x, **kw),
+                 x.float() + acc + bias.float())
+    elif epi in ("addf_f32", "f32"):  # v = y + gl W2 (+ b2), dyln = dv + dh1 W1^T; m, dh
+        b = None if w_t else bias
+        y = torch.randn((m, n), generator=g, device="cuda") if epi == "addf_f32" else None
+        ref = acc + (0.0 if b is None else b.float()) + (0.0 if y is None else y)
+        code = fl._EPI_ADDF_F32 if y is not None else fl._EPI_F32
+        _close32(ch.gemm(a, w, code, f32, bias=b, resid=y, **kw), ref)
+    elif epi == "proj2":  # proj = a Wo + bo and y = x + ls1 proj, both fp32
+        x, proj = _rn(g, bf, m, n), ch.f32(m, n)
+        out = ch.gemm(a, w, fl._EPI_PROJ2, f32, bias=bias, resid=x, ls=ls, out2=proj, **kw)
+        _close32(proj, acc + bias.float())
+        _close32(out, x.float() + ls.float() * (acc + bias.float()))
+    elif epi == "gelu_h1":  # h1 fp32 and gelu(h1) rounded
+        h1 = ch.f32(m, n)
+        gl = ch.gemm(a, w, fl._EPI_GELU_H1, ch.t(m, n), bias=bias, out2=h1, **kw)
+        ref = acc + bias.float()
+        _close32(h1, ref)
+        _close16(gl, ref * fl._gelu_parts(ref)[0])
+    else:  # dh1 = (dm W2^T) gelu'(h1) rounded and db1, its unrounded column sums
+        h1 = torch.randn((m, n), generator=g, device="cuda")
+        dh1, db1 = ch.dgelu_gemm(a, w, h1)
+        ref = acc * fl._gelu_parts(h1)[1]
+        _close16(dh1, ref)
+        _close16(db1, ref.sum(0))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("nb,ka", CHAIN_NK)
+@pytest.mark.parametrize("m", CHAIN_ROWS)
+def test_wgrad_bf16_tile_edges(m, ka, nb):
+    """dW = a^T g over m rows on gemm_sm90_kernel's row-split product: the
+    partial tiles of 1, 3 and 7 chunks (whole 64-row k-steps; at m <= 128
+    some chunks lie past the rows and come back as zeros) add up to the fp32
+    product, and the wrapper's own split rounds it once."""
+    bf = torch.bfloat16
+    g = torch.Generator(device="cuda").manual_seed(m + ka + 2 * nb)
+    a, gr = _rn(g, bf, m, ka), _rn(g, bf, m, nb)
+    ref = a.float().t() @ gr.float()
+    ch = fl._Chain("test", a, 1)
+    for splits in (1, 3, 7):
+        part = torch.full((splits, ka, nb), float("nan"), device="cuda")
+        ch._ok(ch.lib.rz_wgrad(a.data_ptr(), gr.data_ptr(), part.data_ptr(), m, ka, nb, splits,
+                               1, ch.stream))
+        chunk = -(-m // (64 * splits)) * 64  # ceil(m / splits) in whole 64-row k-steps
+        for z in range(splits):
+            rows = slice(z * chunk, min(m, (z + 1) * chunk))
+            want = a[rows].float().t() @ gr[rows].float()
+            _close_share(part[z], want, 1e-4, 1e-4)
+        _close32(part.sum(0), ref)
+    _close16(ch.wgrad(a, gr), ref)
+
+
+@pytest.mark.parametrize("m", [1370, 2740])
+@pytest.mark.parametrize("k", sorted(CHAIN_ROUTES))
+def test_backward_chain_bf16_full_width_repeats_its_bits(k, m):
+    """K6, K8 and K9 in bf16 at the model's widths (D 768, F 3072): a second
+    backward gives the same bits (fixed-order sums, no atomics), and both meet
+    chip_smoke.py's bf16 tolerance against the twin (2^-7 of the largest
+    |reference| entry plus 2^-7 relative)."""
+    g = torch.Generator(device="cuda").manual_seed(m)
+    call, plain, names = _chain_call(k, g, torch.bfloat16, m, 768, 3072)
+    first, second = call(), call()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    for got, want, name in zip(first, plain(), names):
+        assert got.dtype == torch.bfloat16 and got.shape == want.shape, name
+        _close_share(got, want, 2.0**-7, 2.0**-7)
+
+
 def _bias_and_mask(g, dtype, b, l, h):
     bias = _rn(g, torch.float32, h, l, l, std=0.5)
     lengths = torch.randint(1, l + 1, (b,), generator=g, device="cuda")
