@@ -470,6 +470,8 @@ def bounds(dtype_bytes=2):
     work |= {  # key: (operations, bytes)
         "K4": (2 * M_TEXT * D * (D + 2 * F),
                (3 * M_TEXT * D + D * D + 2 * D * F + 6 * D + F) * e),
+        "K4 16384": (2 * TN * T_LEN * D * (D + 2 * F),
+                     (3 * TN * T_LEN * D + D * D + 2 * D * F + 6 * D + F) * e),
         "K5": (4 * B * N * L * D, (B * L * D + N * D) * e + (B * N * L + N * B) * 4),
         # K10: s and g; K11: s, g, de, dc.tn; K12: s, g, de, dc^T.qn, e^T.dg
         "K10": (4 * vl, (TB * L * D + TN * D) * e + TN * TB * 4),
@@ -660,6 +662,9 @@ def phase_kernels(seed):
         elif k.endswith(" train"):
             rows[k[:2]].update(bound_ms_training=bound_ms)
             ms = rows[k[:2]]["ms_training"]
+        elif k == "K4 16384":  # the training step's text rows, beside K4's serving shape
+            ms = rows[k]["ms"]
+            rows["K4"].update(bound_ms_16384=bound_ms, ms_16384=ms)
         else:
             rows[k].update(bound_ms=bound_ms, bound_by=bound_by)
             ms = rows[k]["ms"]

@@ -344,7 +344,7 @@ gemm_sm90_kernel(const __grid_constant__ CUtensorMap ma, const __grid_constant__
           // the input tile, once the consumers are past the last tile's epilogue
           // (they have released this tile's first stage), in time for this one's
           if (Lay::IN && ks == (w.ksteps - 1 < STAGES ? w.ksteps - 1 : STAGES)) {
-            constexpr int COLS = 128 / Lay::IN_ES;
+            constexpr int COLS = 128 / (Lay::IN ? Lay::IN_ES : 4);
             int boxes = 0;
             for (int b = 0; b < BN / COLS; ++b) boxes += w.n0 + b * COLS < g.N;
             if (Lay::INPLACE) {  // into each warpgroup's staging tile, in the store's boxes
