@@ -9,15 +9,20 @@ Phases, in order; any failure exits non-zero:
 1. device: require CUDA; print the card (nvidia-smi), CUDA and nvcc versions;
 2. build the kernels from radzero_torch/ops/csrc with nvcc (sm_90a); ptxas
    must report no spills for the Hopper kernels of K2 / K13 (forward), K7 /
-   K14 (backward) and the GEMM of K1 / K3 / K6 / K8 / K9 (gemm_sm90_kernel, all
-   14 instantiations: K1 / K3's epilogues, the chains' on W and on W^T read
-   K-major, the dW product), nor for the short-sentence K15 / K16 kernels;
+   K14 (backward), the GEMM of K1 / K3 / K4 / K6 / K8 / K9 / K12
+   (gemm_sm90_kernel, all 15 instantiations: K1 / K3 / K4's epilogues, the
+   chains' on W and on W^T read K-major, the dW product, K12's second phase)
+   and K12's first phase (vlc_dtn_phase1_sm90_kernel), nor for the
+   short-sentence K15 / K16 kernels;
 3. each kernel against its plain PyTorch twin, in fp32 with TF32 off and in
    bf16, with CUDA-event timings (one call a sample, the host's launch
    included; K1-K3, K7, K13-K16 also by torch.profiler, which asserts the
    device kernels by name: in bf16 row_layernorm_kernel with one (K1) or
    three (K3) gemm_sm90_kernel, gemm_f32_kernel in fp32, and the host's
-   microseconds a call of K1 / K3 at 128 rows; K6 / K8 / K9 in bf16 on their
+   microseconds a call of K1 / K3 at 128 rows; bf16 K4 on three
+   gemm_sm90_kernel and two row passes; K11 and K12 from the statistics of a
+   K10 call, never vlc_pass1_kernel, bf16 K12 on its two Hopper phases with a
+   yardstick of its four products on cuBLAS; K6 / K8 / K9 in bf16 on their
    gemm_sm90_kernel instantiations, row passes and reduces alone (no
    gemm_bf16_kernel, wgrad_bf16_kernel or transpose_kernel), with their
    device time; fwd_sm90_kernel, and
@@ -40,7 +45,8 @@ Phases, in order; any failure exits non-zero:
    K1-K3 again at the training step's 64 images (87 680 rows); K4
    fused_mpnet_post at 896 rows (14 prompts x 64 tokens) and at 16 384 (512
    sentences x 32); K10-K12, the VL-CABS training kernels, at 512 sentences
-   x 64 images x 1370 tokens x 768 (value, dq, dt, dtau); K6
+   x 64 images x 1370 tokens x 768 (value, dq, dt, dtau; K10 also with the
+   statistics it writes under autograd); K6
    fused_preattn_bwd, K7 flash_attention_packed_bwd and K8
    fused_postattn_bwd at 64 images and at 2 (2740 rows, no multiple of a
    tile), K9 fused_mpnet_post_bwd at 16 384 rows and at 1370, every
@@ -105,8 +111,9 @@ PEAK_FLOPS = {"bf16": 989e12}         # H100 SXM dense bf16, operations per seco
 PEAK_BYTES = 3.35e12                  # H100 SXM device memory, bytes per second
 HOPPER_FWD = "fwd_sm90_kernel"        # K2 / K13 in bf16 (csrc/flash_fwd_sm90.cu)
 HOPPER_BWD = ("bwd_dq_sm90_kernel", "bwd_dkdv_sm90_kernel")  # K7 / K14 in bf16 (flash_bwd_sm90.cu)
-GEMM_SM90 = "gemm_sm90_kernel"        # bf16 products of K1, K3, K6, K8, K9 (csrc/gemm_sm90.cu)
-GEMM_SM90_INSTANCES = 14              # its <epilogue, operand layout> pairs (gemm_sm90.cu)
+GEMM_SM90 = "gemm_sm90_kernel"        # bf16 products of K1, K3, K4, K6, K8, K9, K12 (gemm_sm90.cu)
+GEMM_SM90_INSTANCES = 15              # its <epilogue, operand layout> pairs (gemm_sm90.cu)
+VLC_PHASE1 = "vlc_dtn_phase1_sm90_kernel"  # K12's first phase in bf16 (csrc/vlcabs_sm90.cu)
 LN_PASS = "row_layernorm_kernel"      # K1 / K3's LayerNorm in bf16, once per row (fused_layer.cu)
 # K15 / K16 in bf16 at L <= 64 (flash_bias_small.cu)
 SMALL_BIAS = ("flash_bias_fwd_small_kernel", "flash_bias_bwd_small_kernel")
@@ -126,8 +133,15 @@ def _sm90(epi, mode):  # an instantiation of gemm_sm90_kernel<epilogue of gemm.c
 # gemm_sm90_kernel's arguments are the epilogue of gemm.cuh (0 bias, 1 o-proj, 2 fc1,
 # 3 fc2; 4 u = x + ., 5 v = y32 + ., 6 proj and y, 7 h1 and gelu(h1), 8 fp32, 9 the
 # GELU derivative) and the operand layout (0 A . W, 1 G . W^T with W read as stored,
-# 2 the row-split dW = A^T . G)
+# 2 the row-split dW = A^T . G, 3 K12's dtn[b] = [dc; e]^T [qn; dg]); K4 in bf16 (K9's
+# forward chain); K11 / K12 after the forward's statistics (csrc/vlcabs_train.cu's
+# row passes, then K11's dq kernel and reduce, K12's two Hopper phases in bf16)
+VT_ROWS = ("rownorm_kernel", "vlc_bwd_rows_kernel")
 ROUTES = {"K1": {"bf16": (LN_PASS, _sm90(0, 0)), "fp32": ("gemm_f32_kernel<true, 0>",)},
+          "K4": {"bf16": (_sm90(4, 0), LN_ROWS + "float>", _sm90(2, 0), _sm90(5, 0), LN_PASS)},
+          "K11": {d: VT_ROWS + ("vlc_dq_kernel", "vlc_reduce_kernel") for d in ("bf16", "fp32")},
+          "K12": {"bf16": VT_ROWS + (VLC_PHASE1, _sm90(0, 3)),
+                  "fp32": VT_ROWS + ("vlc_dtn_kernel<float>",)},
           "K3": {"bf16": (_sm90(1, 0), LN_PASS, _sm90(2, 0), _sm90(3, 0)),
                  "fp32": ("gemm_f32_kernel<false, 1>", "gemm_f32_kernel<true, 2>",
                           "gemm_f32_kernel<false, 3>")},
@@ -312,15 +326,16 @@ def device_kernels(fn, calls=5, tries=3):
 
 
 def check_route(k, dname, fn, way="fwd"):
-    """A call of K1 (way "K1"), K3 ("K3"), K2 / K13 ("fwd"), K7 / K14 ("bwd"),
-    K15 ("bias_fwd"), K16 ("bias_bwd") or K6 / K8 / K9 ("K6", "K8", "K9")
-    runs exactly the device kernels of ROUTES: in bf16 row_layernorm_kernel
-    and gemm_sm90_kernel, fwd_sm90_kernel, or bwd_dq_sm90_kernel and
-    bwd_dkdv_sm90_kernel (never bwd_stats_kernel), the kernels of
-    flash_bias_small.cu at L <= 64, or the chains' gemm_sm90_kernel
-    instantiations with their row passes and reduces (never gemm_bf16_kernel,
-    wgrad_bf16_kernel or transpose_kernel) -> their device ms a call (no host
-    time)."""
+    """A call of K1 (way "K1"), K3 ("K3"), K4 ("K4"), K2 / K13 ("fwd"), K7 /
+    K14 ("bwd"), K15 ("bias_fwd"), K16 ("bias_bwd"), K6 / K8 / K9 ("K6",
+    "K8", "K9") or K11 / K12 ("K11", "K12") runs exactly the device kernels
+    of ROUTES: in bf16 row_layernorm_kernel and gemm_sm90_kernel,
+    fwd_sm90_kernel, or bwd_dq_sm90_kernel and bwd_dkdv_sm90_kernel (never
+    bwd_stats_kernel), the kernels of flash_bias_small.cu at L <= 64, the
+    chains' gemm_sm90_kernel instantiations with their row passes and reduces
+    (never wgrad_bf16_kernel or transpose_kernel), or the VL-CABS backward's
+    row passes with K11's dq kernel or K12's phases (never vlc_pass1_kernel)
+    -> their device ms a call (no host time)."""
     ran = device_kernels(fn)
     want = ROUTES[way][dname]
     if len(ran) != len(want) or not all(any(w in name for name in ran) for w in want):
@@ -458,6 +473,7 @@ def bounds(dtype_bytes=2):
     once) and operations / peak bf16 rate -> {key: (bound_ms, bound_by)}."""
     e = dtype_bytes
     vl = TB * TN * L * D  # one VL-CABS product is 2 * vl operations
+    stat = TB * TN * (D + 1) * 4  # the forward's g and row max, fp32
 
     def tower(b):  # K1-K3 at b images -> (operations, bytes) each
         m = b * L
@@ -473,10 +489,14 @@ def bounds(dtype_bytes=2):
         "K4 16384": (2 * TN * T_LEN * D * (D + 2 * F),
                      (3 * TN * T_LEN * D + D * D + 2 * D * F + 6 * D + F) * e),
         "K5": (4 * B * N * L * D, (B * L * D + N * D) * e + (B * N * L + N * B) * 4),
-        # K10: s and g; K11: s, g, de, dc.tn; K12: s, g, de, dc^T.qn, e^T.dg
+        # K10: s and g. K11 and K12 read the forward's statistics, g (B, N, D) and the
+        # row max (B, N) in fp32: K11 s, de, dc.tn; K12 s, de, dc^T.qn, e^T.dg
         "K10": (4 * vl, (TB * L * D + TN * D) * e + TN * TB * 4),
-        "K11": (8 * vl, (TB * L * D + 2 * TN * D) * e + TN * TB * 4 + 4),
-        "K12": (10 * vl, (2 * TB * L * D + TN * D) * e + TN * TB * 4),
+        "K11": (6 * vl, (TB * L * D + 2 * TN * D) * e + TN * TB * 4 + stat + 4),
+        "K12": (8 * vl, (2 * TB * L * D + TN * D) * e + TN * TB * 4 + stat),
+        # the contract before the statistics: pass 1 (s, g) again in each
+        "K11 old": (8 * vl, (TB * L * D + 2 * TN * D) * e + TN * TB * 4 + 4),
+        "K12 old": (10 * vl, (2 * TB * L * D + TN * D) * e + TN * TB * 4),
     }
     for tag, b in (("", TB), (" 2img", 2)):  # K6-K8 at b images: operations, bytes
         m = b * L
@@ -503,12 +523,13 @@ def bounds(dtype_bytes=2):
 def check_no_spills(log):
     """ptxas must report no spills for the Hopper kernels (the forward of
     K2 / K13, the two of the K7 / K14 backward, every instantiation of the
-    GEMM of K1 / K3 / K6 / K8 / K9) and the short-sentence K15 / K16 kernels."""
+    GEMM of K1 / K3 / K4 / K6 / K8 / K9 / K12, K12's first phase) and the
+    short-sentence K15 / K16 kernels."""
     if not log:
         print("  ptxas: no report in this process (the library was built before)")
         return
     lines = log.splitlines()
-    for name in (HOPPER_FWD, *HOPPER_BWD, GEMM_SM90, *SMALL_BIAS):  # every instantiation
+    for name in (HOPPER_FWD, *HOPPER_BWD, GEMM_SM90, VLC_PHASE1, *SMALL_BIAS):  # every one
         at = [i for i, line in enumerate(lines) if "Compiling entry" in line and name in line]
         if not at:
             fail(f"ptxas reported no {name}")
@@ -519,8 +540,9 @@ def check_no_spills(log):
             if "0 bytes spill stores, 0 bytes spill loads" not in report:
                 fail(f"{name} spills: {report}")
     print(f"  {', '.join((HOPPER_FWD, *HOPPER_BWD))} (K2 / K13, K7 / K14 in bf16), "
-          f"{GEMM_SM90} (bf16: {GEMM_SM90_INSTANCES} instantiations; K1 / K3's four "
-          f"epilogues, the chains' seven on W and on W^T read K-major, the dW product), "
+          f"{GEMM_SM90} (bf16: {GEMM_SM90_INSTANCES} instantiations; K1 / K3 / K4's four "
+          f"epilogues, the chains' seven on W and on W^T read K-major, the dW product, "
+          f"K12's second phase), {VLC_PHASE1} (K12's first phase), "
           f"{', '.join(SMALL_BIAS)} (K15 / K16 in bf16 at L <= 64): no spills")
 
 
@@ -567,8 +589,8 @@ def phase_kernels(seed):
             plain_ms = median_ms(lambda: plain(*args, **kw), reps=reps)
             print(f"  {k:10s} {dname}: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms "
                   f"(median of {reps})")
-            if k[:2] in ("K1", "K2", "K3"):  # the device kernels that ran, by name
-                dev_ms = check_route(k, dname, lambda: kern(*args, **kw),
+            if k[:2] in ("K1", "K2", "K3") or (k[:2] == "K4" and dname == "bf16"):
+                dev_ms = check_route(k, dname, lambda: kern(*args, **kw),  # kernels by name
                                      "fwd" if k[:2] == "K2" else k[:2])
             if k == "K2 train" and dname == "bf16":  # the row statistic K7 reads, against its twin
                 _, lse = fl.flash_attention_packed_lse(args[0], H)
@@ -584,8 +606,10 @@ def phase_kernels(seed):
             else:
                 rows[k] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                            "library_ms": None}
-            if k in ("K1", "K2", "K3"):
+            if k in ("K1", "K2", "K3", "K4"):
                 rows[k]["device_ms"] = dev_ms
+            elif k == "K4 16384":
+                rows["K4"]["device_ms_16384"] = dev_ms
             elif k in ("K1 train", "K2 train", "K3 train"):
                 rows[k[:2]]["device_ms_training"] = dev_ms
             if k == "K2 train":
@@ -604,15 +628,33 @@ def phase_kernels(seed):
                 "K12": compare("K12 dt", dname, grads[1], ref_grads[1])}
         dtau_err = compare("K11 dtau", dname, grads[2], ref_grads[2])
         del leaves, logits, grads, ref_logits, ref_grads
+        # K11 and K12 alone read the statistics that a K10 call writes under autograd
+        _, stats = vf.vlcabs_train_forward(qn, tokens, tau, with_stats=True)
+        stats_ms = median_ms(lambda: vf.vlcabs_train_forward(qn, tokens, tau, with_stats=True),
+                             reps=10)
+        print(f"  K10        {dname}: with the statistics (row max, g) {stats_ms:.4f} ms "
+              f"(median of 10)")
         for k, (kern, plain) in train_pairs.items():
             args = (qn, tokens, tau) + ((dz,) if k != "K10" else ())
-            ms = median_ms(lambda: kern(*args), reps=10)
+            kw = {"stats": stats} if k != "K10" else {}
+            ms = median_ms(lambda: kern(*args, **kw), reps=10)
             plain_ms = median_ms(lambda: plain(*args), reps=10)
             print(f"  {k:10s} {dname}: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms (median of 10)")
+            dev_ms = None
+            if k != "K10":  # the device kernels that ran, by name
+                dev_ms = check_route(k, dname, lambda: kern(*args, **kw), k)
+                if k == "K12":  # a second backward, the same bits
+                    first, again = kern(*args, **kw), kern(*args, **kw)
+                    if not torch.equal(first, again):
+                        fail(f"K12 {dname}: a second backward gives other bits")
+                    del first, again
             if dname == "bf16":
                 rows[k] = {"max_abs_err": errs[k], "ms": ms, "plain_ms": plain_ms,
                            "library_ms": None}
+                if dev_ms is not None:
+                    rows[k]["device_ms"] = dev_ms
         if dname == "bf16":
+            rows["K10"]["ms_with_stats"] = stats_ms
             rows["K11"]["max_abs_err_dtau"] = dtau_err
             # K2's yardstick, timed here and called nowhere in the port: one
             # library attention call on the unpacked heads of the same input,
@@ -650,7 +692,7 @@ def phase_kernels(seed):
                 print(f"  {k} host time a call at 128 rows: bf16 {us['bf16']:.1f} us ({maps} "
                       f"tensor maps encoded), fp32 {us['fp32']:.1f} us")
                 del small
-        del inputs, qn, tokens, dz
+        del inputs, qn, tokens, dz, stats
         torch.cuda.empty_cache()
         backward_kernels(dtype, dname, gen, rows)
         attention_kernels(dtype, dname, gen, rows)
@@ -662,6 +704,9 @@ def phase_kernels(seed):
         elif k.endswith(" train"):
             rows[k[:2]].update(bound_ms_training=bound_ms)
             ms = rows[k[:2]]["ms_training"]
+        elif k.endswith(" old"):  # K11 / K12's bound before the forward's statistics
+            rows[k[:3]].update(bound_ms_old_contract=bound_ms)
+            ms = rows[k[:3]]["ms"]
         elif k == "K4 16384":  # the training step's text rows, beside K4's serving shape
             ms = rows[k]["ms"]
             rows["K4"].update(bound_ms_16384=bound_ms, ms_16384=ms)
@@ -676,12 +721,14 @@ def phase_kernels(seed):
 def cublas_products(rows):
     """The yardsticks of the GEMM kernels, for which no one PyTorch call
     computes the fused function: each bf16 product of K1 (qkv), K3 and K4
-    (o-proj, fc1, fc2), of K6 (dX, dW) and of K8 and K9 (all nine: the
-    forward recompute, dX and dW of o-proj, fc1 and fc2), as one cuBLAS call
-    on operands of the same shapes (F.linear, or torch.mm of a^T g for a dW),
-    timed alone, without the LN, GELU, residual or column sums the kernels
-    fuse; called nowhere in the port -> rows[k]["cublas_products_ms.."]; for
-    K1, K3, K6, K8 and K9 also their device time by torch.profiler beside the
+    (o-proj, fc1, fc2), of K6 (dX, dW), of K8 and K9 (all nine: the forward
+    recompute, dX and dW of o-proj, fc1 and fc2) and of K12 (s, dE, dc^T qn
+    and e^T dg over 64 images), as one cuBLAS call on operands of the same
+    shapes (F.linear, torch.mm of a^T g for a dW, torch.matmul / torch.bmm
+    for K12), timed alone, without the LN, GELU, residual, column sums,
+    exponentials or row passes the kernels fuse; called nowhere in the port
+    -> rows[k]["cublas_products_ms.."]; for K1, K3, K4 at 16 384 rows, K6,
+    K8, K9 and K12 also their device time by torch.profiler beside the
     kernel's -> rows[k]["cublas_products_device_ms.."]."""
     import torch
     import torch.nn.functional as Fn
@@ -709,6 +756,19 @@ def cublas_products(rows):
         return {name: dx(m, k, n, name if timed else None)
                 for name, k, n in (("o-proj", D, D), ("fc1", D, F), ("fc2", F, D))}
 
+    def vl_products():  # K12's four per-image products: s, dE, dc^T qn, e^T dg
+        qn, tn, dg = rn(TN, D), rn(TB, L, D), rn(TB, TN, D)
+        sc = rn(TB, TN, L)  # dc or e, bf16
+        calls = {"s": lambda: torch.matmul(qn, tn.transpose(1, 2)),
+                 "dE": lambda: torch.bmm(dg, tn.transpose(1, 2)),
+                 "dc^T qn": lambda: torch.matmul(sc.transpose(1, 2), qn),
+                 "e^T dg": lambda: torch.bmm(sc.transpose(1, 2), dg)}
+        times = {}
+        for name, call in calls.items():
+            device[name] = sum(device_kernels(call).values())
+            times[name] = median_ms(call, reps=10)
+        return times
+
     def chain(m):  # o-proj, fc1, fc2 again, then the dX and dW of fc2, fc1 and o-proj
         return post(m, timed=True) | {
             name: fn(m, k, n, name) for name, fn, k, n in (
@@ -721,11 +781,12 @@ def cublas_products(rows):
         ("K3", "", "K3"): lambda: post(B * L, timed=True),
         ("K3", "_training", "K3"): lambda: post(TB * L, timed=True),
         ("K4", "", "K4"): lambda: post(M_TEXT),
-        ("K4", "_16384", "K4 16384"): lambda: post(TN * T_LEN),
+        ("K4", "_16384", "K4 16384"): lambda: post(TN * T_LEN, timed=True),
         ("K6", "", "K6"): lambda: {"dX": dx(TB * L, 3 * D, D, "dX"),
                                    "dW": dw(TB * L, D, 3 * D, "dW")},
         ("K8", "", "K8"): lambda: chain(TB * L),
         ("K9", "", "K9"): lambda: chain(TN * T_LEN),
+        ("K12", "", "K12"): vl_products,
     }
     print("cuBLAS products alone (no LN, GELU or residual), bf16, one call each, median of 10:")
     for (k, sfx, row), make in cases.items():
@@ -1505,10 +1566,10 @@ def profile_step(fn):
                for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     kernels.sort(key=lambda k: -k[1])
     total = sum(k[1] for k in kernels)
-    names = {"vt": "VL-CABS kernels K10-K12 (rz::vt::*)",
+    names = {"vt": "VL-CABS kernels K10-K12 but K12's phase 2 (rz::vt::*)",
              "fa": "attention kernels K2, K7, K13-K16 (rz::fa::*)",
              "bw": "row passes and reduces of K6, K8, K9 (rz::bw::*)",
-             "rz": "the GEMMs: K1, K3, K4 forward and every product of K6, K8, K9 "
+             "rz": "the GEMMs: K1, K3, K4 and every product of K6, K8, K9, K12's phase 2 "
                    "(rz::gemm_*, rz::row_layernorm)",
              "torch": "torch ops (everything else)"}
     groups = {v: 0.0 for v in names.values()}
@@ -1596,7 +1657,7 @@ def main() -> int:
                "radzero_tpu/ops/fused_layer.py:175"),
         "K3": ("fused_postattn", "radzero_torch/ops/csrc/gemm_sm90.cu",
                "radzero_tpu/ops/fused_layer.py:913"),
-        "K4": ("fused_mpnet_post", "radzero_torch/ops/csrc/fused_layer.cu",
+        "K4": ("fused_mpnet_post", "radzero_torch/ops/csrc/gemm_sm90.cu",
                "radzero_tpu/ops/fused_layer.py:760"),
         "K5": ("vlcabs_fused", "radzero_torch/ops/csrc/vlcabs_fused.cu",
                "radzero_tpu/ops/pallas_vlcabs.py:115"),
@@ -1612,7 +1673,7 @@ def main() -> int:
                 "radzero_tpu/ops/pallas_vlcabs.py:310"),
         "K11": ("vlcabs_train_bwd_dq", "radzero_torch/ops/csrc/vlcabs_train.cu",
                 "radzero_tpu/ops/pallas_vlcabs.py:381"),
-        "K12": ("vlcabs_train_bwd_dtn", "radzero_torch/ops/csrc/vlcabs_train.cu",
+        "K12": ("vlcabs_train_bwd_dtn", "radzero_torch/ops/csrc/vlcabs_sm90.cu",
                 "radzero_tpu/ops/pallas_vlcabs.py:403"),
         "K13": ("flash_attention", "radzero_torch/ops/csrc/flash_fwd_sm90.cu",
                 "radzero_tpu/ops/flash_attention.py:122"),

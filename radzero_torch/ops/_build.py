@@ -48,16 +48,23 @@ SIGNATURES = {
     "rz_fused_postattn": [_P] * 16 + [_I, _I, _I, _F, _I, _P],
     # qn, t, tau, scores, logits, N, B, L, D, dtype, stream
     "rz_vlcabs_fused": [_P] * 5 + [_I, _I, _I, _I, _I, _P],
-    # x, a, wo, bo, lnsa, lnba, w1, b1, w2, b2, lnso, lnbo, u32, y32, h, out,
+    # x, a, wo, bo, lnsa, lnba, w1, b1, w2, b2, lnso, lnbo, u32, y32, yln, h, out,
     # M, D, F, eps, dtype, stream
-    "rz_fused_mpnet_post": [_P] * 16 + [_I, _I, _I, _F, _I, _P],
-    # qn, t, tau, tn, logits, N, B, L, D, dtype, stream
-    "rz_vlcabs_train_fwd": [_P] * 5 + [_I, _I, _I, _I, _I, _P],
-    # qn, t, tau, dz, tn, dg, rowmax, dq_part, dtau_part, dq, dtau,
-    # N, B, L, D, dtype, stream
-    "rz_vlcabs_train_bwd_dq": [_P] * 11 + [_I, _I, _I, _I, _I, _P],
-    # qn, t, tau, dz, tn, dg, rowmax, dtn, N, B, L, D, dtype, stream
-    "rz_vlcabs_train_bwd_dtn": [_P] * 8 + [_I, _I, _I, _I, _I, _P],
+    "rz_fused_mpnet_post": [_P] * 17 + [_I, _I, _I, _F, _I, _P],
+    # qn, t, tau, tn, logits, rowmax, g, N, B, L, D, dtype, stream
+    "rz_vlcabs_train_fwd": [_P] * 7 + [_I, _I, _I, _I, _I, _P],
+    # t, tn, rows, D, dtype, stream
+    "rz_vlcabs_rownorm": [_P, _P, _I, _I, _I, _P],
+    # qn, g, dz, dg, dq_part, N, B, D, dtype, stream
+    "rz_vlcabs_bwd_rows": [_P] * 5 + [_I, _I, _I, _I, _P],
+    # qn, tn, tau, dg, rowmax, dq_part, dtau_part, dq, dtau, N, B, L, D, dtype, stream
+    "rz_vlcabs_dq": [_P] * 9 + [_I, _I, _I, _I, _I, _P],
+    # qn, tn, tau, dg, rowmax, dtn, N, B, L, D, dtype, stream
+    "rz_vlcabs_dtn_tiles": [_P] * 6 + [_I, _I, _I, _I, _I, _P],
+    # qn, tn, dg, rowmax, tau, ce, N, Np, B, L, Lp, D, stream
+    "rz_vlcabs_dtn_phase1": [_P] * 6 + [_I] * 6 + [_P],
+    # ce, qn, dg, dtn, N, Np, B, L, Lp, D, stream
+    "rz_vlcabs_dtn_phase2": [_P] * 4 + [_I] * 6 + [_P],
     # a, w, bias, resid, ls, aux, out, out2, colpart, M, N, K, epi, w_t, dtype, stream
     "rz_bwd_gemm": [_P] * 9 + [_I, _I, _I, _I, _I, _I, _P],
     # a, g, part, M, Ka, Nb, splits, dtype, stream

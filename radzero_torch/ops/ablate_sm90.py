@@ -97,9 +97,8 @@ extern "C" int shim(const void* a, const void* w, const void* bias, const void* 
 """, [_P] * 6 + [_I] * 4, {
         "base": ("nothing", []),
         "nomma": ("the products", [
-            ("        wgmma_n128<MODE == GEMM_DW, MODE != GEMM_DX>(acc, da + SA * kk, db + SB * kk,",
-             "        if (ks < 0) wgmma_n128<MODE == GEMM_DW, MODE != GEMM_DX>(acc, da + SA * kk,"
-             " db + SB * kk,")]),
+            ("        wgmma_n128<AT, MODE != GEMM_DX>(acc, da + SA * kk,",
+             "        if (ks < 0) wgmma_n128<AT, MODE != GEMM_DX>(acc, da + SA * kk,")]),
         "nostore": ("the TMA stores of the output", [
             ("    const bool rows = w.m0 + wg * 64 < g.M;", "    const bool rows = w.m0 + wg * 64 < 0;")]),
         "noloada": ("the loads of A (W alone by TMA)", [

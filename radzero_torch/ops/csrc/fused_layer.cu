@@ -33,24 +33,26 @@
 // - K4 is K3's post-LN sibling (MPNet): y = LN(x + a Wo + bo),
 //   out = LN(y + gelu(y W1 + b1) W2 + b2), eps 1e-12. A LayerNorm over a
 //   768-wide row cannot be the epilogue of a 128-wide column tile, so it
-//   is a chain of five launches around gemm_bf16_kernel (gemm.cuh: WMMA,
-//   128x128 tiles, loads staged one k-step ahead) or gemm_f32_kernel:
-//   o-proj + bias + residual into fp32 u; a row pass LN(u) into fp32 y,
-//   which stays fp32 in device memory as both the fc1 operand (rounded to
-//   the operand type while it is staged) and the second residual
-//   (unrounded); fc1 + GELU; fc2 + bias + y into fp32; a row pass into the
-//   output. Rows are masked, never padded (M = sentences x length).
+//   is a chain of five launches, in bf16 the chain that K9 recomputes:
+//   o-proj + bias + residual into fp32 u (gemm_sm90_kernel, EPI_ADD_F32);
+//   a row pass LN(u) (ln_rows_kernel of fused_layer_bwd.cu, rz_ln_rows)
+//   that writes y twice from one fp32 value, rounded to bf16 (yln, fc1's
+//   operand, which TMA reads) and in fp32 (y32, the second residual);
+//   fc1 + GELU on yln (EPI_GELU); fc2 + bias + y32 (EPI_ADDF_F32, in place
+//   in y32); a row pass into the output (row_layernorm_kernel). fp32 runs
+//   gemm_f32_kernel, fc1 reading y32 itself. Rows are masked, never padded
+//   (M = sentences x length).
 #include "gemm.cuh"
 #include "gemm_sm90.cuh"
 
 namespace rz {
 
-// The row pass of K1 and K3 (bf16) and of K4: out[m, :] = LN(in[m, :]) *
-// scale + bias for rows of width D, one warp per row, two-pass statistics in
-// fp32 (biased variance, eps inside the rsqrt) from 16-byte loads (D a
-// multiple of 16 / sizeof(TI)). TI is the row's type: bf16 (K1's x), fp32
-// (K3's y32, K4's u). TO is bf16 (the next GEMM's operand, K4's output) or
-// float (K4's y, kept for the residual).
+// The row pass of K1 and K3 (bf16), of K4's output and of both of K4's in
+// fp32: out[m, :] = LN(in[m, :]) * scale + bias for rows of width D, one warp
+// per row, two-pass statistics in fp32 (biased variance, eps inside the
+// rsqrt) from 16-byte loads (D a multiple of 16 / sizeof(TI)). TI is the
+// row's type: bf16 (K1's x), fp32 (K3's y32, K4's u and v). TO is bf16 (the
+// next GEMM's operand, K4's output) or float (K4's y in fp32).
 constexpr int LN_ROWS = 8;  // rows (warps) per block
 
 template <typename T, typename TI, typename TO>
@@ -130,7 +132,7 @@ extern "C" int rz_fused_preattn(const void* x, const void* ln_s, const void* ln_
     if (err == cudaSuccess) err = rz::gemm_sm90(g, rz::EPI_BIAS, s);
   } else {
     GemmArgs g{x, w, b, ln_s, ln_b, eps, nullptr, nullptr, out, M, N, K};
-    err = rz::launch_gemm<float, float, true, rz::EPI_BIAS>(g, s);
+    err = rz::launch_gemm<true, rz::EPI_BIAS>(g, s);
   }
   return static_cast<int>(err);
 }
@@ -159,46 +161,52 @@ extern "C" int rz_fused_postattn(const void* x, const void* a, const void* wo,
     if (err == cudaSuccess) err = rz::gemm_sm90(fc2, rz::EPI_RESID_OUT, s);
   } else {
     GemmArgs fc1{y32, w1, b1, ln_s, ln_b, eps, nullptr, nullptr, h, M, F, D};
-    err = rz::launch_gemm<float, float, false, rz::EPI_RESID_F32>(proj, s);
-    if (err == cudaSuccess) err = rz::launch_gemm<float, float, true, rz::EPI_GELU>(fc1, s);
-    if (err == cudaSuccess) err = rz::launch_gemm<float, float, false, rz::EPI_RESID_OUT>(fc2, s);
+    err = rz::launch_gemm<false, rz::EPI_RESID_F32>(proj, s);
+    if (err == cudaSuccess) err = rz::launch_gemm<true, rz::EPI_GELU>(fc1, s);
+    if (err == cudaSuccess) err = rz::launch_gemm<false, rz::EPI_RESID_OUT>(fc2, s);
   }
   return static_cast<int>(err);
 }
 
-// K4: u32 = x + (a Wo + bo); y32 = LN(u32); h = gelu(y32 W1 + b1);
-//     u32 = y32 + (h W2 + b2); out = LN(u32). u32, y32 (M, D) fp32 and
-//     h (M, F) are scratch buffers the caller allocates.
-template <typename T>
-static cudaError_t mpnet_post(const void* x, const void* a, const void* wo, const void* bo,
-                              const void* lnsa, const void* lnba, const void* w1,
-                              const void* b1, const void* w2, const void* b2,
-                              const void* lnso, const void* lnbo, void* u32, void* y32,
-                              void* h, void* out, int M, int D, int F, float eps,
-                              cudaStream_t s) {
-  GemmArgs proj{a, wo, bo, nullptr, nullptr, 0.f, x, nullptr, u32, M, D, D};
-  GemmArgs fc1{y32, w1, b1, nullptr, nullptr, 0.f, nullptr, nullptr, h, M, F, D};
-  GemmArgs fc2{h, w2, b2, nullptr, nullptr, 0.f, y32, nullptr, u32, M, D, F};
-  cudaError_t err = rz::launch_gemm<T, T, false, rz::EPI_ADD_F32>(proj, s);
-  if (err == cudaSuccess) err = rz::launch_row_layernorm<T, float, float>(u32, lnsa, lnba, y32, M, D, eps, s);
-  if (err == cudaSuccess) err = rz::launch_gemm<T, float, false, rz::EPI_GELU>(fc1, s);
-  if (err == cudaSuccess) err = rz::launch_gemm<T, T, false, rz::EPI_ADDF_F32>(fc2, s);
-  if (err == cudaSuccess) err = rz::launch_row_layernorm<T, float, T>(u32, lnso, lnbo, out, M, D, eps, s);
-  return err;
-}
+// LN(u) per row -> out_t (operand type) and / or out_f (fp32): fused_layer_bwd.cu
+extern "C" int rz_ln_rows(const void* u, int u_f32, const void* scale, const void* bias,
+                          void* out_t, void* out_f, int M, int D, float eps, int dtype,
+                          void* stream);
 
+// K4: u32 = x + (a Wo + bo); y = LN(u32); h = gelu(y W1 + b1);
+//     v = y32 + (h W2 + b2); out = LN(v). u32, y32 (M, D) fp32, h (M, F) and, in
+//     bf16, yln (M, D) (y rounded, fc1's operand) are scratch buffers the caller
+//     allocates; bf16 keeps v in y32's buffer, fp32 in u32's.
 extern "C" int rz_fused_mpnet_post(const void* x, const void* a, const void* wo,
                                    const void* bo, const void* lnsa, const void* lnba,
                                    const void* w1, const void* b1, const void* w2,
                                    const void* b2, const void* lnso, const void* lnbo,
-                                   void* u32, void* y32, void* h, void* out, int M, int D,
-                                   int F, float eps, int dtype, void* stream) {
+                                   void* u32, void* y32, void* yln, void* h, void* out, int M,
+                                   int D, int F, float eps, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err =
-      dtype == RZ_DTYPE_BF16
-          ? mpnet_post<bf16>(x, a, wo, bo, lnsa, lnba, w1, b1, w2, b2, lnso, lnbo, u32, y32, h,
-                             out, M, D, F, eps, s)
-          : mpnet_post<float>(x, a, wo, bo, lnsa, lnba, w1, b1, w2, b2, lnso, lnbo, u32, y32,
-                              h, out, M, D, F, eps, s);
+  GemmArgs proj{a, wo, bo, nullptr, nullptr, 0.f, x, nullptr, u32, M, D, D};
+  cudaError_t err;
+  if (dtype == RZ_DTYPE_BF16) {
+    GemmArgs fc1{yln, w1, b1, nullptr, nullptr, 0.f, nullptr, nullptr, h, M, F, D};
+    GemmArgs fc2{h, w2, b2, nullptr, nullptr, 0.f, y32, nullptr, y32, M, D, F};
+    err = rz::gemm_sm90(proj, rz::EPI_ADD_F32, s);
+    if (err == cudaSuccess)
+      err = static_cast<cudaError_t>(
+          rz_ln_rows(u32, 1, lnsa, lnba, yln, y32, M, D, eps, RZ_DTYPE_BF16, stream));
+    if (err == cudaSuccess) err = rz::gemm_sm90(fc1, rz::EPI_GELU, s);
+    if (err == cudaSuccess) err = rz::gemm_sm90(fc2, rz::EPI_ADDF_F32, s);
+    if (err == cudaSuccess)
+      err = rz::launch_row_layernorm<bf16, float, bf16>(y32, lnso, lnbo, out, M, D, eps, s);
+  } else {
+    GemmArgs fc1{y32, w1, b1, nullptr, nullptr, 0.f, nullptr, nullptr, h, M, F, D};
+    GemmArgs fc2{h, w2, b2, nullptr, nullptr, 0.f, y32, nullptr, u32, M, D, F};
+    err = rz::launch_gemm<false, rz::EPI_ADD_F32>(proj, s);
+    if (err == cudaSuccess)
+      err = rz::launch_row_layernorm<float, float, float>(u32, lnsa, lnba, y32, M, D, eps, s);
+    if (err == cudaSuccess) err = rz::launch_gemm<false, rz::EPI_GELU>(fc1, s);
+    if (err == cudaSuccess) err = rz::launch_gemm<false, rz::EPI_ADDF_F32>(fc2, s);
+    if (err == cudaSuccess)
+      err = rz::launch_row_layernorm<float, float, float>(u32, lnso, lnbo, out, M, D, eps, s);
+  }
   return static_cast<int>(err);
 }

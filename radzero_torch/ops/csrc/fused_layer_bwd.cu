@@ -257,13 +257,13 @@ scale_colsum_kernel(const T* __restrict__ g, const float* __restrict__ m,
 // the fp32 products of the chains (bf16: gemm_sm90)
 cudaError_t bwd_gemm_f32(const GemmArgs& g, int epi, cudaStream_t s) {
   switch (epi) {
-    case EPI_BIAS: return launch_gemm<float, float, false, EPI_BIAS>(g, s);
-    case EPI_ADD_F32: return launch_gemm<float, float, false, EPI_ADD_F32>(g, s);
-    case EPI_ADDF_F32: return launch_gemm<float, float, false, EPI_ADDF_F32>(g, s);
-    case EPI_PROJ2: return launch_gemm<float, float, false, EPI_PROJ2>(g, s);
-    case EPI_GELU_H1: return launch_gemm<float, float, false, EPI_GELU_H1>(g, s);
-    case EPI_F32: return launch_gemm<float, float, false, EPI_F32>(g, s);
-    case EPI_DGELU: return launch_gemm<float, float, false, EPI_DGELU>(g, s);
+    case EPI_BIAS: return launch_gemm<false, EPI_BIAS>(g, s);
+    case EPI_ADD_F32: return launch_gemm<false, EPI_ADD_F32>(g, s);
+    case EPI_ADDF_F32: return launch_gemm<false, EPI_ADDF_F32>(g, s);
+    case EPI_PROJ2: return launch_gemm<false, EPI_PROJ2>(g, s);
+    case EPI_GELU_H1: return launch_gemm<false, EPI_GELU_H1>(g, s);
+    case EPI_F32: return launch_gemm<false, EPI_F32>(g, s);
+    case EPI_DGELU: return launch_gemm<false, EPI_DGELU>(g, s);
     default: return cudaErrorInvalidValue;
   }
 }

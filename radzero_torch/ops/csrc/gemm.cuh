@@ -3,12 +3,7 @@
 // - gemm_f32_kernel: every fp32 product (K1, K3, K4 and the chains of K6, K8,
 //   K9), the verification path: 64x64 tiles of true fp32 FMAs on the CUDA
 //   cores (no TF32), with the LayerNorm prologue for K1 and K3's fc1;
-// - gemm_bf16_kernel: the bf16 products of K4's forward alone (its fc1 reads
-//   the fp32 y32 and rounds it while staging, which TMA cannot): one 128x128
-//   output tile per 256-thread block, 32-deep k-steps staged in shared
-//   memory from 16-byte loads issued one k-step ahead, WMMA tensor-core
-//   products with fp32 accumulators (8 warps of 64x32);
-// - every other bf16 product (K1, K3 and the chains of K6, K8 and K9) runs
+// - every bf16 product (K1, K3, K4 and the chains of K6, K8 and K9) runs
 //   gemm_sm90_kernel (gemm_sm90.cu: TMA and wgmma) on the epilogues defined
 //   here.
 // The fp32 LN prologue computes mean/rstd of the block's rows, then
@@ -54,6 +49,8 @@ struct GemmArgs {
   float* colpart = nullptr;       // (row tiles, N) fp32 column sums per row tile
   int splits = 1;                 // gemm_sm90_wgrad: chunks of the rows (the reduction)
   int chunk_steps = 0;            // and the 64-row k-steps of one
+  int batch = 1;                  // gemm_sm90_dtn: images, each its own product
+  int k_split = 0;                // and the first k that its second B operand holds
 };
 
 constexpr float kInvSqrt2 = 0.70710678118654752f;
@@ -202,151 +199,10 @@ __global__ void __launch_bounds__(kThreads) gemm_f32_kernel(GemmArgs g) {
   }
 }
 
-// bf16 operands (K4's forward): 128x128 block tile, 256 threads = 8 warps
-// (2 x 4), each warp a 64x32 tile of 4x2 WMMA fragments; 16-byte global
-// loads, held in registers one k-step ahead so that they overlap the
-// tensor-core work. A is bf16, or fp32 (K4's fc1 reads y32), rounded to bf16
-// as it is staged; no LN prologue (bf16 LayerNorm is a row pass). The
-// epilogue runs per 16x16 fragment through a warp-private fp32 scratch tile,
-// and has no column sums. N % 8 == 0 (masked at 128), K % 32 == 0.
-namespace wm {
-constexpr int BM = 128, BN = 128, BK = 32, THREADS = 256;
-constexpr int LDA = BK + 8, LDB = BN + 8;
-}
-
-template <typename TA>
-struct ALoader {  // one thread's share of a BM x BK tile of A, 16-byte vectors
-  static constexpr int VEC = 16 / sizeof(TA), PER_ROW = wm::BK / VEC;
-  static constexpr int N = wm::BM * wm::BK / VEC / wm::THREADS;
-  uint4 v[N];
-
-  __device__ void load(const GemmArgs& g, int m0, int k0) {
-    const TA* A = static_cast<const TA*>(g.a);
-#pragma unroll
-    for (int i = 0; i < N; ++i) {
-      const int idx = threadIdx.x + i * wm::THREADS;
-      const int r = idx / PER_ROW, c = (idx % PER_ROW) * VEC, gm = m0 + r;
-      v[i] = gm < g.M ? *reinterpret_cast<const uint4*>(A + (size_t)gm * g.K + k0 + c)
-                      : make_uint4(0, 0, 0, 0);
-    }
-  }
-
-  __device__ void store(__nv_bfloat16 (*As)[wm::LDA]) {
-#pragma unroll
-    for (int i = 0; i < N; ++i) {
-      const int idx = threadIdx.x + i * wm::THREADS;
-      const int r = idx / PER_ROW, c = (idx % PER_ROW) * VEC;
-      const TA* x = reinterpret_cast<const TA*>(&v[i]);
-      __align__(16) __nv_bfloat16 out[8];
-#pragma unroll
-      for (int e = 0; e < VEC; ++e) out[e] = __float2bfloat16(to_f32(x[e]));
-      if (VEC == 8)
-        *reinterpret_cast<uint4*>(&As[r][c]) = *reinterpret_cast<const uint4*>(out);
-      else
-        *reinterpret_cast<uint2*>(&As[r][c]) = *reinterpret_cast<const uint2*>(out);
-    }
-  }
-};
-
-struct BLoader {  // one thread's share of a BK x BN tile of W (bf16)
-  static constexpr int PER_ROW = wm::BN / 8, N = wm::BK * wm::BN / 8 / wm::THREADS;
-  uint4 v[N];
-
-  __device__ void load(const GemmArgs& g, int n0, int k0) {
-    const __nv_bfloat16* W = static_cast<const __nv_bfloat16*>(g.w);
-#pragma unroll
-    for (int i = 0; i < N; ++i) {
-      const int idx = threadIdx.x + i * wm::THREADS;
-      const int r = idx / PER_ROW, c = (idx % PER_ROW) * 8;
-      v[i] = n0 + c < g.N ? *reinterpret_cast<const uint4*>(W + (size_t)(k0 + r) * g.N + n0 + c)
-                          : make_uint4(0, 0, 0, 0);
-    }
-  }
-
-  __device__ void store(__nv_bfloat16 (*Bs)[wm::LDB]) {
-#pragma unroll
-    for (int i = 0; i < N; ++i) {
-      const int idx = threadIdx.x + i * wm::THREADS;
-      *reinterpret_cast<uint4*>(&Bs[idx / PER_ROW][(idx % PER_ROW) * 8]) = v[i];
-    }
-  }
-};
-
-template <typename TA, int EPI>
-__global__ void __launch_bounds__(wm::THREADS, 2) gemm_bf16_kernel(GemmArgs g) {
-  using namespace wm;
-  using namespace nvcuda;
-  __shared__ __align__(128) __nv_bfloat16 As[BM][LDA];
-  __shared__ __align__(128) __nv_bfloat16 Bs[BK][LDB];
-  __shared__ __align__(128) float scratch[THREADS / 32][16 * 16];
-
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int wr = (warp / 4) * 64, wc = (warp % 4) * 32;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> c[4][2];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(c[i][j], 0.0f);
-
-  ALoader<TA> a_next;
-  BLoader b_next;
-  a_next.load(g, m0, 0);
-  b_next.load(g, n0, 0);
-  for (int k0 = 0; k0 < g.K; k0 += BK) {
-    a_next.store(As);
-    b_next.store(Bs);
-    __syncthreads();
-    if (k0 + BK < g.K) {  // next k-step's loads fly during this one's MMAs
-      a_next.load(g, m0, k0 + BK);
-      b_next.load(g, n0, k0 + BK);
-    }
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a[4];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> b[2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) wmma::load_matrix_sync(a[i], &As[wr + 16 * i][kk], LDA);
-#pragma unroll
-      for (int j = 0; j < 2; ++j) wmma::load_matrix_sync(b[j], &Bs[kk][wc + 16 * j], LDB);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(c[i][j], a[i], b[j], c[i][j]);
-    }
-    __syncthreads();
-  }
-
-  // lane owns row lane / 2 and columns (lane % 2) * 8 .. + 8 of each fragment
-  static_assert(EPI != EPI_DGELU, "no column sums here");
-  float* tile = scratch[warp];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      wmma::store_matrix_sync(tile, c[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        const int idx = lane * 8 + e;
-        const int gm = m0 + wr + 16 * i + idx / 16, gn = n0 + wc + 16 * j + idx % 16;
-        if (gm < g.M && gn < g.N) epilogue<__nv_bfloat16, EPI>(g, gm, gn, tile[idx]);
-      }
-      __syncwarp();
-    }
-}
-
-template <typename T, typename TA, bool LN, int EPI>
+template <bool LN, int EPI>
 cudaError_t launch_gemm(const GemmArgs& g, cudaStream_t stream) {
-  if constexpr (std::is_same<T, float>::value) {
-    dim3 grid(g.N / f32::BN, (g.M + f32::BM - 1) / f32::BM);
-    gemm_f32_kernel<LN, EPI><<<grid, kThreads, 0, stream>>>(g);
-  } else {
-    dim3 grid((g.N + wm::BN - 1) / wm::BN, (g.M + wm::BM - 1) / wm::BM);
-    static_assert(!LN, "bf16 LayerNorm is a row pass, not a prologue");
-    gemm_bf16_kernel<TA, EPI><<<grid, wm::THREADS, 0, stream>>>(g);
-  }
+  dim3 grid(g.N / f32::BN, (g.M + f32::BM - 1) / f32::BM);
+  gemm_f32_kernel<LN, EPI><<<grid, kThreads, 0, stream>>>(g);
   return cudaGetLastError();
 }
 

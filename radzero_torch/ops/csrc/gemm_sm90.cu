@@ -1,16 +1,18 @@
 // The bf16 GEMM for Hopper, gemm_sm90_kernel<EPI, MODE>: every bf16 product
-// of K1 fused_preattn and K3 fused_postattn (rz_fused_preattn /
-// rz_fused_postattn of fused_layer.cu call it after a row pass that writes
-// each row's LayerNorm once as a bf16 operand, row_layernorm_kernel) and of
-// the backward chains K6, K8 and K9 (rz_bwd_gemm and rz_wgrad of
-// fused_layer_bwd.cu): their forward recompute, their dX products and their
-// dW products. fp32 stays on gemm_f32_kernel / wgrad_f32_kernel and K4's
-// forward on gemm_bf16_kernel (gemm.cuh).
+// of K1 fused_preattn, K3 fused_postattn and K4 fused_mpnet_post
+// (rz_fused_preattn, rz_fused_postattn and rz_fused_mpnet_post of
+// fused_layer.cu call it after a row pass that writes each row's LayerNorm
+// once as a bf16 operand), of the backward chains K6, K8 and K9 (rz_bwd_gemm
+// and rz_wgrad of fused_layer_bwd.cu: their forward recompute, their dX
+// products and their dW products) and K12's second phase (vlcabs_sm90.cu).
+// fp32 stays on gemm_f32_kernel / wgrad_f32_kernel (gemm.cuh).
 //
 // Replaces the products of the TPU kernels radzero_tpu/ops/fused_layer.py
 // fused_preattn (_preattn_kernel, the pallas_call at :92), fused_postattn
-// (_postattn_kernel, :913), _preattn_vjp_bwd (:390), _postattn_vjp_bwd (:568)
-// and _mpnet_post_vjp_bwd (:820), with their contract: bf16 operands, fp32
+// (_postattn_kernel, :913), _mpnet_post_call (:760), _preattn_vjp_bwd (:390),
+// _postattn_vjp_bwd (:568) and _mpnet_post_vjp_bwd (:820), and of
+// radzero_tpu/ops/pallas_vlcabs.py _train_bwd's _kernel_bwd_dtn (:403), with
+// their contract: bf16 operands, fp32
 // accumulation, the epilogue in fp32 on the accumulators (bias, LayerScale,
 // residual, exact-erf GELU and its derivative), rounded to bf16 where the JAX
 // code rounds (qkv, the GELU output, the layer output, dh1; K3's y and the
@@ -47,6 +49,11 @@
 //     as W above. Chunks are whole multiples of the k-step, so only the last
 //     reads past the rows (zeros); each (tile, chunk) is one work item, chunk
 //     slowest, and rz_reduce_parts adds the chunks in order afterwards.
+//   GEMM_DTN, K12's dtn[b] = [dc[b]; e[b]]^T . [qn; dg[b]] per image b
+//     (gemm_sm90_dtn): GEMM_DW's layout with an image coordinate (3-D maps)
+//     and one chunk, the whole contraction, so the epilogue writes bf16 once;
+//     the B rows come from qn for k < k_split and from dg[b] after, through
+//     two maps rather than a copy.
 //   Rows past M, columns past N and k past K come in as zeros, so K needs no
 //   multiple of 64. Under a 384-thread block (a producer warpgroup) ptxas held
 //   the kernel to 168 registers and the GELU epilogue spilled; under 288
@@ -90,90 +97,7 @@ namespace {
 using namespace fa::sm90;
 using bf16 = __nv_bfloat16;
 
-// The GEMM's own Hopper helpers (2-D tensor maps, TMA stores, the product with
-// either operand MN-major), beside the attention kernels' in sm90.cuh.
-
-// one (128-byte, rows) box of a 2-D (cols, rows) map at column c, row r -> dst
-__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                            int c, int r) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4}], [%2];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c), "r"(r)
-      : "memory");
-}
-
-// one box of shared memory at src -> a 2-D map at column c, row r (asynchronous:
-// bulk_commit, then bulk_wait_read before src is written again); rows and
-// columns past the map's ends are not written
-__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, uint32_t src, int c, int r) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];" ::"l"(
-          reinterpret_cast<uint64_t>(map)),
-      "r"(src), "r"(c), "r"(r)
-      : "memory");
-}
-__device__ __forceinline__ void bulk_commit() {
-  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
-}
-__device__ __forceinline__ void bulk_wait_read() {  // the stores have read their shared memory
-  asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
-}
-// this thread's writes to shared memory, visible to the TMA unit (the async proxy)
-__device__ __forceinline__ void fence_async_smem() {
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-}
-
-#define RZ_ACC8(d, i)                                                                       \
-  "+f"(d[i + 0]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]),           \
-      "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
-
-// d (64 x 128 fp32) (+)= A (64 x 16, smem) . B (16 x 128, smem); TA / TB are the
-// transpose bits, 1 for an MN-major operand. A K-major tile takes the descriptor's
-// lbo 1 (unused) and sbo 64 (8-row groups 1024 bytes apart) and advances by 2 (32
-// bytes) a k-step of 16. An MN-major tile takes sbo 64 (8-row groups along K 1024
-// bytes apart) and as lbo the distance between its 64-column swizzle atoms (512 for
-// a B of two 8 KB boxes side by side; a 64-row A is one atom) and advances by 128
-// (16 rows).
-template <int TA, int TB>
-__device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t da, uint64_t db,
-                                           int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, %67, %68;\n}\n"
-      : RZ_ACC8(d, 0), RZ_ACC8(d, 8), RZ_ACC8(d, 16), RZ_ACC8(d, 24), RZ_ACC8(d, 32),
-        RZ_ACC8(d, 40), RZ_ACC8(d, 48), RZ_ACC8(d, 56)
-      : "l"(da), "l"(db), "r"(accumulate), "n"(TA), "n"(TB));
-}
-
-#undef RZ_ACC8
-
-// a row-major (rows, cols) bf16 or fp32 matrix as a 2-D map (cols, rows) read
-// or written in boxes of 128 bytes of a row (64 bf16 or 32 fp32 values) by
-// box_rows rows under the 128-byte swizzle; rows and columns past the ends
-// come in as zeros and are not written. cols * esize % 16 == 0 and a 16-byte
-// aligned base (TMA's stride and address rules).
-bool make_map_2d(CUtensorMap* map, const void* p, int rows, int cols, int box_rows,
-                 bool fp32 = false) {
-  const EncodeFn encode = encoder();
-  if (encode == nullptr) return false;
-  const cuuint64_t esize = fp32 ? 4 : 2;
-  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols * esize};
-  const cuuint32_t box[2] = {(cuuint32_t)(128 / esize), (cuuint32_t)box_rows};
-  const cuuint32_t unit[2] = {1, 1};
-  return encode(map, fp32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-                const_cast<void*>(p), dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-enum Mode { GEMM_FWD = 0, GEMM_DX = 1, GEMM_DW = 2 };  // the operand layouts, see above
+enum Mode { GEMM_FWD = 0, GEMM_DX = 1, GEMM_DW = 2, GEMM_DTN = 3 };  // operand layouts, above
 
 constexpr int BM = kSm90RowTile, BN = 128, BK = 64;  // output tile, k-step
 constexpr int THREADS = 288;                 // two consumer warpgroups + one producer warp
@@ -211,35 +135,10 @@ struct Layout {
   static_assert(SMEM <= 232448, "over the 227 KB a block can have");
 };
 
-// byte offset of value (r, c) in a tile of ES-byte values kept as boxes of
-// `rows` rows x 128 bytes under the 128-byte swizzle (as TMA reads and writes them)
-template <int ES>
-__device__ __forceinline__ uint32_t swz(int rows, int r, int c) {
-  const int byte = c * ES, cb = byte & 127;
-  return (byte >> 7) * rows * 128 + r * 128 + ((((cb >> 4) ^ (r & 7)) << 4) | (cb & 15));
-}
-
 __device__ __forceinline__ float2 pair(const void* p, int n) {
   return p == nullptr ? make_float2(0.f, 0.f)
                       : __bfloat1622float2(
                             *reinterpret_cast<const __nv_bfloat162*>(static_cast<const bf16*>(p) + n));
-}
-
-__device__ __forceinline__ float2 lds_f2(uint32_t a) {
-  float2 v;
-  asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];" : "=f"(v.x), "=f"(v.y) : "r"(a));
-  return v;
-}
-__device__ __forceinline__ float2 lds_bf2(uint32_t a) {
-  uint32_t u;
-  asm volatile("ld.shared.b32 %0, [%1];" : "=r"(u) : "r"(a));
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u));
-}
-__device__ __forceinline__ void sts_f2(uint32_t a, float x, float y) {
-  asm volatile("st.shared.v2.f32 [%0], {%1, %2};" ::"r"(a), "f"(x), "f"(y));
-}
-__device__ __forceinline__ void sts_bf2(uint32_t a, float x, float y) {
-  asm volatile("st.shared.b32 [%0], %1;" ::"r"(a), "r"(pack_bf16(x, y)));
 }
 
 // gelu'(h) = Phi(h) + h * pdf(h), as epilogue() of gemm.cuh computes it
@@ -247,25 +146,20 @@ __device__ __forceinline__ float dgelu(float h) {
   return gelu_phi(h) + h * (kInvSqrt2Pi * exp2f(-(h * h) * (0.5f * kLog2e)));
 }
 
-// the 128 threads of consumer warpgroup wg (named barriers 1 and 2)
-__device__ __forceinline__ void wg_sync(int wg) {
-  asm volatile("bar.sync %0, 128;" ::"r"(1 + wg) : "memory");
-}
-// both consumer warpgroups (named barrier 3)
-__device__ __forceinline__ void consumers_sync() { asm volatile("bar.sync 3, 256;" ::: "memory"); }
-
 // one work item: an output tile and, for GEMM_DW, a chunk of the reduction
 struct Item {
   int m0, n0;  // the tile's first row and column
   int k0;      // its first k (GEMM_DW: the chunk's first row)
   int ksteps;  // its k-steps (GEMM_DW: 0 for a chunk wholly past the rows)
   int orow;    // the output row of its first row (GEMM_DW: in part[chunk])
+  int b;       // GEMM_DTN: its image
 };
 
 template <int MODE>
 __device__ __forceinline__ Item item_of(const GemmArgs& g, int t, int tiles, int tiles_n) {
   const int tile = t % tiles;
-  Item w{tile / tiles_n * BM, tile % tiles_n * BN, 0, (g.K + BK - 1) / BK, tile / tiles_n * BM};
+  Item w{tile / tiles_n * BM, tile % tiles_n * BN, 0, (g.K + BK - 1) / BK, tile / tiles_n * BM,
+         t / tiles};
   if (MODE == GEMM_DW) {
     const int chunk = t / tiles;
     w.k0 = chunk * g.chunk_steps * BK;
@@ -277,13 +171,18 @@ __device__ __forceinline__ Item item_of(const GemmArgs& g, int t, int tiles, int
 }
 
 // the TMA stores of one warpgroup's staged rows: `src` (ES-byte values) -> map
-template <int ES>
+template <int ES, int MODE>
 __device__ __forceinline__ void store_rows(const CUtensorMap* map, uint32_t src, const Item& w,
                                            int wg, int N) {
   constexpr int COLS = 128 / ES;
 #pragma unroll
-  for (int b = 0; b < BN / COLS; ++b)
-    if (w.n0 + b * COLS < N) tma_store_2d(map, src + b * 64 * 128, w.n0 + b * COLS, w.orow + wg * 64);
+  for (int b = 0; b < BN / COLS; ++b) {
+    if (w.n0 + b * COLS >= N) continue;
+    if (MODE == GEMM_DTN)
+      tma_store_3d(map, src + b * 64 * 128, w.n0 + b * COLS, w.orow + wg * 64, w.b);
+    else
+      tma_store_2d(map, src + b * 64 * 128, w.n0 + b * COLS, w.orow + wg * 64);
+  }
 }
 
 template <int EPI, int MODE>
@@ -302,7 +201,7 @@ gemm_sm90_kernel(const __grid_constant__ CUtensorMap ma, const __grid_constant__
   auto stage = [&](int it) { return base + STAGE_BYTES * (it % STAGES); };
   const int tiles_n = (g.N + BN - 1) / BN;
   const int tiles = tiles_n * ((g.M + BM - 1) / BM);
-  const int items = tiles * (MODE == GEMM_DW ? g.splits : 1);
+  const int items = tiles * (MODE == GEMM_DW ? g.splits : MODE == GEMM_DTN ? g.batch : 1);
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < STAGES; ++s) {
@@ -330,6 +229,10 @@ gemm_sm90_kernel(const __grid_constant__ CUtensorMap ma, const __grid_constant__
             bar_expect_tx(full(it), (lower ? 2 : 1) * BOX64 + (right ? 2 : 1) * BOX64);
             tma_load_2d(st, &ma, full(it), w.m0, k);
             if (lower) tma_load_2d(st + BOX64, &ma, full(it), w.m0 + 64, k);
+          } else if (MODE == GEMM_DTN) {  // the same from image w.b
+            bar_expect_tx(full(it), (lower ? 2 : 1) * BOX64 + (right ? 2 : 1) * BOX64);
+            tma_load_3d(st, &ma, full(it), w.m0, k, w.b);
+            if (lower) tma_load_3d(st + BOX64, &ma, full(it), w.m0 + 64, k, w.b);
           } else {
             bar_expect_tx(full(it),
                           A_BYTES + (MODE == GEMM_DX ? A_BYTES : (right ? 2 : 1) * BOX64));
@@ -337,6 +240,10 @@ gemm_sm90_kernel(const __grid_constant__ CUtensorMap ma, const __grid_constant__
           }
           if (MODE == GEMM_DX) {  // W as stored: 128 rows of it, K-major
             tma_load_2d(st + A_BYTES, &mw, full(it), k, w.n0);
+          } else if (MODE == GEMM_DTN && k >= g.k_split) {  // the second B: image w.b's rows
+            tma_load_3d(st + A_BYTES, &mi, full(it), w.n0, k - g.k_split, w.b);
+            if (right)
+              tma_load_3d(st + A_BYTES + BOX64, &mi, full(it), w.n0 + 64, k - g.k_split, w.b);
           } else {
             tma_load_2d(st + A_BYTES, &mw, full(it), w.n0, k);
             if (right) tma_load_2d(st + A_BYTES + BOX64, &mw, full(it), w.n0 + 64, k);
@@ -377,7 +284,8 @@ gemm_sm90_kernel(const __grid_constant__ CUtensorMap ma, const __grid_constant__
   const uint32_t in = base + Lay::IN_OFF;
   const int rl = warp * 16 + lane / 4;  // its first row in the warpgroup's 64
   // A descriptor per warpgroup and the advance of both per k-step of 16
-  constexpr int SA = MODE == GEMM_DW ? 128 : 2, SB = MODE == GEMM_DX ? 2 : 128;
+  constexpr bool AT = MODE == GEMM_DW || MODE == GEMM_DTN;  // A read MN-major
+  constexpr int SA = AT ? 128 : 2, SB = MODE == GEMM_DX ? 2 : 128;
   float acc[64];  // rows rl (+ 8), columns 8 j + 2 quad (+ 1): acc[4 j + 2 i + e]
   int it = 0;
   for (int t = blockIdx.x, lt = 0; t < items; t += gridDim.x, ++lt) {
@@ -389,15 +297,14 @@ gemm_sm90_kernel(const __grid_constant__ CUtensorMap ma, const __grid_constant__
     for (int ks = 0; ks < w.ksteps; ++ks, ++it) {
       bar_wait(full(it), (it / STAGES) & 1);
       const uint32_t st = stage(it);
-      const uint64_t da = MODE == GEMM_DW ? desc(st + wg * BOX64, 64, 64)  // this warpgroup's
-                                          : desc(st + wg * 64 * 128, 1, 64);  // 64 rows of C
+      const uint64_t da = AT ? desc(st + wg * BOX64, 64, 64)        // this warpgroup's
+                             : desc(st + wg * 64 * 128, 1, 64);  // 64 rows of C
       const uint64_t db = MODE == GEMM_DX ? desc(st + A_BYTES, 1, 64)
                                           : desc(st + A_BYTES, BOX64 / 16, 64);
       wg_fence();
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk)
-        wgmma_n128<MODE == GEMM_DW, MODE != GEMM_DX>(acc, da + SA * kk, db + SB * kk,
-                                                      ks > 0 || kk > 0);
+        wgmma_n128<AT, MODE != GEMM_DX>(acc, da + SA * kk, db + SB * kk, ks > 0 || kk > 0);
       wg_commit();
       if (ks > 0) {  // the last k-step's products are in: its stage is free
         wg_wait_one();
@@ -488,8 +395,8 @@ gemm_sm90_kernel(const __grid_constant__ CUtensorMap ma, const __grid_constant__
     wg_sync(wg);
     const bool rows = w.m0 + wg * 64 < g.M;  // the warpgroup's rows hold any of C
     if (leader && rows) {
-      if (EPI == EPI_GELU_H1) store_rows<4>(&mo2, stg2, w, wg, g.N);
-      store_rows<Lay::OUT_ES>(EPI == EPI_PROJ2 ? &mo2 : &mo, stg, w, wg, g.N);
+      if (EPI == EPI_GELU_H1) store_rows<4, MODE>(&mo2, stg2, w, wg, g.N);
+      store_rows<Lay::OUT_ES, MODE>(EPI == EPI_PROJ2 ? &mo2 : &mo, stg, w, wg, g.N);
       bulk_commit();
     }
     if (EPI == EPI_PROJ2) {  // then out = x + ls proj through the same staging tile
@@ -512,13 +419,32 @@ gemm_sm90_kernel(const __grid_constant__ CUtensorMap ma, const __grid_constant__
       fence_async_smem();
       wg_sync(wg);
       if (leader && rows) {
-        store_rows<4>(&mo, stg, w, wg, g.N);
+        store_rows<4, MODE>(&mo, stg, w, wg, g.N);
         bulk_commit();
       }
     }
     if (Lay::IN && !Lay::INPLACE) bar_arrive(iempty);  // this thread is done with the input
   }
   if (leader) bulk_wait_read();  // the shared memory outlives the last stores' reads
+}
+
+// a persistent grid of one block an SM, or one a work item where they are fewer
+template <int EPI, int MODE>
+cudaError_t run(const CUtensorMap& ma, const CUtensorMap& mw, const CUtensorMap& mo,
+                const CUtensorMap& mo2, const CUtensorMap& mi, const GemmArgs& g,
+                cudaStream_t stream) {
+  using Lay = Layout<EPI>;
+  cudaError_t err = allow_smem(gemm_sm90_kernel<EPI, MODE>, Lay::SMEM);
+  if (err != cudaSuccess) return err;
+  int dev = 0, sms = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return err;
+  const int items = ((g.M + BM - 1) / BM) * ((g.N + BN - 1) / BN) *
+                    (MODE == GEMM_DW ? g.splits : MODE == GEMM_DTN ? g.batch : 1);
+  gemm_sm90_kernel<EPI, MODE><<<items < sms ? items : sms, THREADS, Lay::SMEM, stream>>>(
+      ma, mw, mo, mo2, mi, g);
+  return cudaGetLastError();
 }
 
 template <int EPI, int MODE>
@@ -544,17 +470,7 @@ cudaError_t launch(const GemmArgs& g, cudaStream_t stream) {
     ok = make_map_2d(&mi, EPI == EPI_DGELU ? static_cast<const void*>(g.aux) : g.resid, g.M, g.N,
                      Lay::INPLACE ? 64 : BM, Lay::IN_ES == 4);
   if (!ok) return cudaErrorInvalidValue;
-  cudaError_t err = allow_smem(gemm_sm90_kernel<EPI, MODE>, Lay::SMEM);
-  if (err != cudaSuccess) return err;
-  int dev = 0, sms = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
-      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
-    return err;
-  const int items = ((g.M + BM - 1) / BM) * ((g.N + BN - 1) / BN) *
-                    (MODE == GEMM_DW ? g.splits : 1);
-  gemm_sm90_kernel<EPI, MODE><<<items < sms ? items : sms, THREADS, Lay::SMEM, stream>>>(
-      ma, mw, mo, mo2, mi, g);
-  return cudaGetLastError();
+  return run<EPI, MODE>(ma, mw, mo, mo2, mi, g, stream);
 }
 
 }  // namespace
@@ -593,6 +509,22 @@ cudaError_t gemm_sm90_wgrad(const void* a, const void* gr, float* part, int rows
   g.splits = splits;
   g.chunk_steps = ((rows + splits - 1) / splits + BK - 1) / BK;
   return launch<EPI_F32, GEMM_DW>(g, stream);
+}
+
+cudaError_t gemm_sm90_dtn(const void* ce, const void* qn, const void* dg, void* dtn, int N,
+                          int Np, int B, int L, int Lp, int D, cudaStream_t stream) {
+  if (D % 64 || Np % 64 || Lp % 64 || N > Np || L > Lp) return cudaErrorInvalidValue;
+  if (B == 0 || L == 0) return cudaSuccess;
+  GemmArgs g{ce, qn, nullptr, nullptr, nullptr, 0.f, dg, nullptr, dtn, L, D, 2 * Np};
+  g.batch = B;
+  g.k_split = Np;
+  // A: image b's (2 Np, Lp) block of ce, read MN-major in 64 x 64 boxes; B: qn (N, D)
+  // for k < Np, then dg[b] (N, D) through the input tile's map; dtn (B, L, D)
+  CUtensorMap ma, mw, mo, mi;
+  if (!make_map_3d(&ma, ce, B, 2 * Np, Lp, 64) || !make_map_2d(&mw, qn, N, D, BK) ||
+      !make_map_3d(&mi, dg, B, N, D, BK) || !make_map_3d(&mo, dtn, B, L, D, 64))
+    return cudaErrorInvalidValue;
+  return run<EPI_BIAS, GEMM_DTN>(ma, mw, mo, mo, mi, g, stream);
 }
 
 }  // namespace rz

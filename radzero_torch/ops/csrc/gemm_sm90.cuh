@@ -1,6 +1,6 @@
 // The bf16 GEMM for Hopper (gemm_sm90.cu), as the entry points of
-// fused_layer.cu call it for K1 and K3 and those of fused_layer_bwd.cu for
-// the chains of K6, K8 and K9.
+// fused_layer.cu call it for K1, K3 and K4, those of fused_layer_bwd.cu for
+// the chains of K6, K8 and K9 and vlcabs_sm90.cu for K12's second phase.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -29,5 +29,14 @@ cudaError_t gemm_sm90(const GemmArgs& g, int epi, cudaStream_t stream, bool w_t 
 // Ka % 64 == 0, Nb % 8 == 0.
 cudaError_t gemm_sm90_wgrad(const void* a, const void* g, float* part, int rows, int Ka, int Nb,
                             int splits, cudaStream_t stream);
+
+// K12's second phase, dtn[b] = [dc[b]; e[b]]^T . [qn; dg[b]] for each of B images:
+// ce (B, 2 Np, Lp) bf16 holds image b's dc in rows [0, Np) and its e in rows
+// [Np, 2 Np), zeros in the rows past N of each half and the columns past L;
+// qn (N, D), dg (B, N, D), dtn (B, L, D) bf16. One product contracted over 2 Np
+// a (128-token, 128-column) tile, rounded once; no partial sums. D, Np, Lp % 64
+// == 0.
+cudaError_t gemm_sm90_dtn(const void* ce, const void* qn, const void* dg, void* dtn, int N,
+                          int Np, int B, int L, int Lp, int D, cudaStream_t stream);
 
 }  // namespace rz

@@ -1,11 +1,12 @@
-// Hopper building blocks of the sm_90a attention kernels (flash_fwd_sm90.cu,
-// flash_bwd_sm90.cu): mbarriers whose waits trap instead of hanging, TMA
-// loads through 4-D tensor maps, wgmma shared-memory descriptors and the
-// products the kernels issue, exp2, bf16 packing, and the named barriers by
-// which two consumer warpgroups take turns.
-//
-// Every operand tile is BOX rows of one 64-wide bf16 head (128 bytes a row)
-// under the 128-byte swizzle, 1024-byte aligned in shared memory.
+// Hopper building blocks of the sm_90a kernels: mbarriers whose waits trap
+// instead of hanging, TMA loads through 4-D tensor maps, wgmma shared-memory
+// descriptors and the products the kernels issue, exp2, bf16 packing, and
+// the named barriers by which two consumer warpgroups take turns (the
+// attention kernels, flash_fwd_sm90.cu and flash_bwd_sm90.cu: every operand
+// tile is BOX rows of one 64-wide bf16 head, 128 bytes a row, under the
+// 128-byte swizzle, 1024-byte aligned in shared memory); then the GEMM's
+// (gemm_sm90.cu, vlcabs_sm90.cu): 2-D and 3-D maps, TMA stores, products
+// with either operand MN-major, the staging of an epilogue.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums only: the encoder comes through the runtime
@@ -214,6 +215,159 @@ inline bool make_map(CUtensorMap* map, const void* p, long long bs, long long rs
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
+
+// ---------------------------------------------------------------------------
+// The GEMM's helpers (gemm_sm90.cu; vlcabs_sm90.cu takes them too): 2-D and
+// 3-D tensor maps, TMA stores, the product with either operand MN-major, the
+// swizzled staging of an epilogue and the consumer warpgroups' barriers.
+// ---------------------------------------------------------------------------
+
+// one (128-byte, rows) box of a 2-D (cols, rows) map at column c, row r -> dst
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c, int r) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c), "r"(r)
+      : "memory");
+}
+
+// one box of shared memory at src -> a 2-D map at column c, row r (asynchronous:
+// bulk_commit, then bulk_wait_read before src is written again); rows and
+// columns past the map's ends are not written
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, uint32_t src, int c, int r) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c), "r"(r)
+      : "memory");
+}
+// the same with an image coordinate b: a 3-D (cols, rows, images) map
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c, int r, int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c), "r"(r), "r"(b)
+      : "memory");
+}
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, uint32_t src, int c, int r,
+                                             int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c), "r"(r), "r"(b)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+__device__ __forceinline__ void bulk_wait_read() {  // the stores have read their shared memory
+  asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+}
+// this thread's writes to shared memory, visible to the TMA unit (the async proxy)
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+#define RZ_ACC8(d, i)                                                                       \
+  "+f"(d[i + 0]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]),           \
+      "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+
+// d (64 x 128 fp32) (+)= A (64 x 16, smem) . B (16 x 128, smem); TA / TB are the
+// transpose bits, 1 for an MN-major operand. A K-major tile takes the descriptor's
+// lbo 1 (unused) and sbo 64 (8-row groups 1024 bytes apart) and advances by 2 (32
+// bytes) a k-step of 16. An MN-major tile takes sbo 64 (8-row groups along K 1024
+// bytes apart) and as lbo the distance between its 64-column swizzle atoms (512 for
+// a B of two 8 KB boxes side by side; a 64-row A is one atom) and advances by 128
+// (16 rows).
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t da, uint64_t db,
+                                           int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, %67, %68;\n}\n"
+      : RZ_ACC8(d, 0), RZ_ACC8(d, 8), RZ_ACC8(d, 16), RZ_ACC8(d, 24), RZ_ACC8(d, 32),
+        RZ_ACC8(d, 40), RZ_ACC8(d, 48), RZ_ACC8(d, 56)
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TA), "n"(TB));
+}
+
+#undef RZ_ACC8
+
+// a row-major (rows, cols) bf16 or fp32 matrix as a 2-D map (cols, rows) read
+// or written in boxes of 128 bytes of a row (64 bf16 or 32 fp32 values) by
+// box_rows rows under the 128-byte swizzle; rows and columns past the ends
+// come in as zeros and are not written. cols * esize % 16 == 0 and a 16-byte
+// aligned base (TMA's stride and address rules).
+inline bool make_map_2d(CUtensorMap* map, const void* p, int rows, int cols, int box_rows,
+                 bool fp32 = false) {
+  const EncodeFn encode = encoder();
+  if (encode == nullptr) return false;
+  const cuuint64_t esize = fp32 ? 4 : 2;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * esize};
+  const cuuint32_t box[2] = {(cuuint32_t)(128 / esize), (cuuint32_t)box_rows};
+  const cuuint32_t unit[2] = {1, 1};
+  return encode(map, fp32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                const_cast<void*>(p), dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// `images` row-major (rows, cols) bf16 matrices, one after another, as a 3-D map
+// (cols, rows, images) read or written in boxes of 64 values by box_rows rows of
+// one image under the 128-byte swizzle: rows past an image's end come in as
+// zeros and are not written, whatever follows them in memory
+inline bool make_map_3d(CUtensorMap* map, const void* p, int images, int rows, int cols,
+                        int box_rows) {
+  const EncodeFn encode = encoder();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows, (cuuint64_t)images};
+  const cuuint64_t strides[2] = {(cuuint64_t)cols * 2, (cuuint64_t)rows * cols * 2};
+  const cuuint32_t box[3] = {64, (cuuint32_t)box_rows, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(p), dims, strides, box,
+                unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// byte offset of value (r, c) in a tile of ES-byte values kept as boxes of
+// `rows` rows x 128 bytes under the 128-byte swizzle (as TMA reads and writes them)
+template <int ES>
+__device__ __forceinline__ uint32_t swz(int rows, int r, int c) {
+  const int byte = c * ES, cb = byte & 127;
+  return (byte >> 7) * rows * 128 + r * 128 + ((((cb >> 4) ^ (r & 7)) << 4) | (cb & 15));
+}
+
+__device__ __forceinline__ float2 lds_f2(uint32_t a) {
+  float2 v;
+  asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];" : "=f"(v.x), "=f"(v.y) : "r"(a));
+  return v;
+}
+__device__ __forceinline__ float2 lds_bf2(uint32_t a) {
+  uint32_t u;
+  asm volatile("ld.shared.b32 %0, [%1];" : "=r"(u) : "r"(a));
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u));
+}
+__device__ __forceinline__ void sts_f2(uint32_t a, float x, float y) {
+  asm volatile("st.shared.v2.f32 [%0], {%1, %2};" ::"r"(a), "f"(x), "f"(y));
+}
+__device__ __forceinline__ void sts_bf2(uint32_t a, float x, float y) {
+  asm volatile("st.shared.b32 [%0], %1;" ::"r"(a), "r"(pack_bf16(x, y)));
+}
+
+// the 128 threads of consumer warpgroup wg (named barriers 1 and 2)
+__device__ __forceinline__ void wg_sync(int wg) {
+  asm volatile("bar.sync %0, 128;" ::"r"(1 + wg) : "memory");
+}
+// both consumer warpgroups (named barrier 3)
+__device__ __forceinline__ void consumers_sync() { asm volatile("bar.sync 3, 256;" ::: "memory"); }
 
 }  // namespace sm90
 }  // namespace fa

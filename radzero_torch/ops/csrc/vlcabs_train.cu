@@ -3,7 +3,9 @@
 // Replace the TPU kernels of radzero_tpu/ops/pallas_vlcabs.py:
 //   K10 _train_forward            (_kernel_fwd_logits)
 //   K11 _train_bwd, first call    (_kernel_bwd_dq:  dq, dtau)
-//   K12 _train_bwd, second call   (_kernel_bwd_dtn: d(normalised tokens))
+//   K12 _train_bwd, second call   (_kernel_bwd_dtn: d(normalised tokens); in
+//                                  bf16 its products run vlcabs_sm90.cu's
+//                                  phase 1 and gemm_sm90.cu's GEMM_DTN)
 // With qn (N, D) l2-normalised, t (B, L, D), tau, and the cotangent dz (N, B):
 //   tn = t * rsqrt(sum(t^2) + 1e-24)          rounded to the operand type
 //   s  = (qn . tn) / tau                      fp32
@@ -33,25 +35,31 @@
 //   one pass. The forward kernel (pass 1) takes the row max in a first
 //   sweep over L and g in a second, with g (32 x D) held in accumulator
 //   registers, spread over the block's 8 warps by (16-row group, 64-column
-//   slice). K10 ends there with the logit. For the backward the same
-//   kernel ends by writing dg (B, N, D; operand type), the row max (B, N)
-//   and dz ghat; the second pass then knows the max, so its accumulators
-//   (dq in K11, dtn in K12) stay in registers with no rescaling.
+//   slice), and ends with the logit. Under autograd (MODE_STATS) it also
+//   writes the row max (B, N) and g (B, N, D) in fp32, which it holds anyway
+//   (as the attention forward keeps lse): the backward's statistics, so that
+//   neither K11 nor K12 runs pass 1 again. The backward starts with a row
+//   pass (vlc_bwd_rows_kernel, a warp per (image, query)) that turns g and
+//   dz into dg (B, N, D; operand type) and, for K11, dz ghat (fp32), the
+//   arithmetic and order of pass 1's end; the second passes know the max,
+//   so their accumulators (dq in K11, dtn in K12) stay in registers with no
+//   rescaling.
 // - Sums across blocks have a fixed order and use no atomics. K11 runs one
 //   block per (32 queries, image), writes its dq into a (B, N, D) fp32
 //   buffer and its share of dtau into one slot per block; a reduce kernel
-//   adds the images up in order. K12 runs one block per (32 tokens, image)
-//   that walks every 64-query block itself, so dtn is summed in registers
-//   and written once, rounded once (the TPU kernel rounds the running sum
-//   to the tokens' dtype once per 128-query block).
-// - bf16 products run on the tensor cores (WMMA, fp32 accumulators), fp32
-//   products on the CUDA cores in true fp32 (WarpAcc in common.cuh). The
-//   k dimension of a score tile is split over four warps whose partial
-//   tiles are added in shared memory, because WMMA leaves the accumulator
-//   layout unspecified.
-// Not yet done (later work): overlap of the chunk loads with the products,
-// keeping the query chunk resident, wgmma/TMA, and saving the row max in
-// the forward so that the backward's first sweep goes.
+//   adds the images up in order. K12 in fp32 (vlc_dtn_kernel) runs one
+//   block per (32 tokens, image) that walks every 64-query block itself, so
+//   dtn is summed in registers and written once, rounded once (the TPU
+//   kernel rounds the running sum to the tokens' dtype once per 128-query
+//   block). K12 in bf16 runs two Hopper phases instead (vlcabs_sm90.cu).
+// - The products here run on the tensor cores in bf16 (WMMA, fp32
+//   accumulators) and on the CUDA cores in true fp32 (WarpAcc in
+//   common.cuh). The k dimension of a score tile is split over four warps
+//   whose partial tiles are added in shared memory, because WMMA leaves the
+//   accumulator layout unspecified.
+// Not yet done (later work): K10 and K11's dq kernel on wgmma / TMA (K11's dq
+// can become one product over phase 1's dc, contracted over the images'
+// tokens), overlap of the chunk loads with the products in K10.
 #include "common.cuh"
 
 namespace rz {
@@ -109,10 +117,10 @@ rownorm_kernel(const T* __restrict__ t, T* __restrict__ tn, int rows, int D) {
 }
 
 // ---------------------------------------------------------------------------
-// pass 1: row max, g, then the logit (K10) or dg / row max / dz ghat (backward)
+// pass 1: row max, g, then the logit (K10) and under autograd the statistics
 // ---------------------------------------------------------------------------
 
-enum { MODE_LOGITS = 0, MODE_BWD = 1 };
+enum { MODE_LOGITS = 0, MODE_STATS = 1 };  // MODE_STATS: + row max and g
 
 template <typename T>
 __host__ __device__ constexpr size_t pass1_smem(int D) {
@@ -125,10 +133,9 @@ __host__ __device__ constexpr size_t pass1_smem(int D) {
 template <typename T, int MODE>
 __global__ void __launch_bounds__(THREADS)
 vlc_pass1_kernel(const T* __restrict__ qn, const T* __restrict__ tn,
-                 const float* __restrict__ tau, const float* __restrict__ dz,
-                 float* __restrict__ logits, T* __restrict__ dg_out,
-                 float* __restrict__ rowmax_out, float* __restrict__ dq_part, int N, int B,
-                 int L, int D) {
+                 const float* __restrict__ tau, float* __restrict__ logits,
+                 float* __restrict__ rowmax_out, float* __restrict__ g_out, int N, int B, int L,
+                 int D) {
   extern __shared__ __align__(128) unsigned char smem[];
   constexpr int PB = pitch_b<T>(), PE = pitch_e<T>();
   float* row_m = reinterpret_cast<float*>(smem);
@@ -215,19 +222,50 @@ vlc_pass1_kernel(const T* __restrict__ qn, const T* __restrict__ tn,
       num += __shfl_xor_sync(0xffffffffu, num, o);
       sq += __shfl_xor_sync(0xffffffffu, sq, o);
     }
-    const float norm = fmaxf(sqrtf(sq), 1e-12f), z = num / norm;
-    if (MODE == MODE_LOGITS) {
-      if (lane == 0) logits[(size_t)n * B + b] = z;
-    } else {
-      const float dzv = dz[(size_t)n * B + b];
+    const float norm = fmaxf(sqrtf(sq), 1e-12f);
+    if (lane == 0) logits[(size_t)n * B + b] = num / norm;
+    if (MODE == MODE_STATS) {
       const size_t o = ((size_t)b * N + n) * D;
-      for (int c = lane; c < D; c += 32) {
-        const float ghat = Gs[rr * GP + c] / norm;
-        dg_out[o + c] = from_f32<T>(dzv * (to_f32(qrow[c]) - z * ghat) / norm);
-        if (dq_part != nullptr) dq_part[o + c] = dzv * ghat;
-      }
+      for (int c = lane; c < D; c += 32) g_out[o + c] = Gs[rr * GP + c];
       if (lane == 0) rowmax_out[(size_t)b * N + n] = row_m[rr];
     }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// the backward's row pass: dg and dz ghat from the forward's g
+// ---------------------------------------------------------------------------
+
+// one warp per (image, query) row of g (B, N, D) fp32: z = qn . g / |g|, then
+// dg = dz (qn - z ghat) / |g| rounded to T, and dq_part = dz ghat in fp32 when
+// asked (K11); the sums and their order are pass 1's end, so dg has the bits it
+// had when pass 1 wrote it
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+vlc_bwd_rows_kernel(const T* __restrict__ qn, const float* __restrict__ g,
+                    const float* __restrict__ dz, T* __restrict__ dg,
+                    float* __restrict__ dq_part, int N, int B, int D) {
+  const int lane = threadIdx.x % 32, row = blockIdx.x * (THREADS / 32) + threadIdx.x / 32;
+  if (row >= B * N) return;
+  const int b = row / N, n = row % N;
+  const T* qrow = qn + (size_t)n * D;
+  const float* grow = g + (size_t)row * D;
+  float num = 0.f, sq = 0.f;
+  for (int c = lane; c < D; c += 32) {
+    const float gv = grow[c];
+    num = fmaf(to_f32(qrow[c]), gv, num);
+    sq = fmaf(gv, gv, sq);
+  }
+  for (int o = 16; o > 0; o >>= 1) {
+    num += __shfl_xor_sync(0xffffffffu, num, o);
+    sq += __shfl_xor_sync(0xffffffffu, sq, o);
+  }
+  const float norm = fmaxf(sqrtf(sq), 1e-12f), z = num / norm;
+  const float dzv = dz[(size_t)n * B + b];
+  for (int c = lane; c < D; c += 32) {
+    const float ghat = grow[c] / norm;
+    dg[(size_t)row * D + c] = from_f32<T>(dzv * (to_f32(qrow[c]) - z * ghat) / norm);
+    if (dq_part != nullptr) dq_part[(size_t)row * D + c] = dzv * ghat;
   }
 }
 
@@ -242,7 +280,7 @@ __host__ __device__ constexpr size_t dq_smem(int D) {
                      g_bytes(D));
 }
 
-// grid (ceil(N / 32), B); dq_part (B, N, D) holds dz ghat on entry
+// grid (ceil(N / 32), B); dq_part (B, N, D) holds dz ghat on entry (the row pass)
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
 vlc_dq_kernel(const T* __restrict__ qn, const T* __restrict__ tn, const float* __restrict__ tau,
@@ -359,7 +397,7 @@ vlc_reduce_kernel(const float* __restrict__ dq_part, const float* __restrict__ d
 }
 
 // ---------------------------------------------------------------------------
-// K12, pass 2: dtn per (token tile, image), every query block walked in order
+// K12 in fp32, pass 2: dtn per (token tile, image), every query block walked in order
 // ---------------------------------------------------------------------------
 
 template <typename T>
@@ -478,39 +516,45 @@ cudaError_t launch_rownorm(const void* t, void* tn, int rows, int D, cudaStream_
 }
 
 template <typename T, int MODE>
-cudaError_t launch_pass1(const void* qn, const void* tn, const void* tau, const void* dz,
-                         void* logits, void* dg, void* rowmax, void* dq_part, int N, int B,
-                         int L, int D, cudaStream_t stream) {
+cudaError_t launch_pass1(const void* qn, const void* tn, const void* tau, void* logits,
+                         void* rowmax, void* g, int N, int B, int L, int D, cudaStream_t stream) {
   const size_t smem = pass1_smem<T>(D);
   cudaError_t err = allow_smem(vlc_pass1_kernel<T, MODE>, smem);
   if (err != cudaSuccess) return err;
   dim3 grid((N + QB - 1) / QB, B);
   vlc_pass1_kernel<T, MODE><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(qn), static_cast<const T*>(tn), static_cast<const float*>(tau),
-      static_cast<const float*>(dz), static_cast<float*>(logits), static_cast<T*>(dg),
-      static_cast<float*>(rowmax), static_cast<float*>(dq_part), N, B, L, D);
+      static_cast<float*>(logits), static_cast<float*>(rowmax), static_cast<float*>(g), N, B,
+      L, D);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t train_fwd(const void* qn, const void* t, const void* tau, void* tn, void* logits,
-                      int N, int B, int L, int D, cudaStream_t s) {
+                      void* rowmax, void* g, int N, int B, int L, int D, cudaStream_t s) {
   cudaError_t err = launch_rownorm<T>(t, tn, B * L, D, s);
   if (err != cudaSuccess) return err;
-  return launch_pass1<T, MODE_LOGITS>(qn, tn, tau, nullptr, logits, nullptr, nullptr, nullptr,
-                                      N, B, L, D, s);
+  return g == nullptr
+             ? launch_pass1<T, MODE_LOGITS>(qn, tn, tau, logits, nullptr, nullptr, N, B, L, D, s)
+             : launch_pass1<T, MODE_STATS>(qn, tn, tau, logits, rowmax, g, N, B, L, D, s);
 }
 
 template <typename T>
-cudaError_t train_bwd_dq(const void* qn, const void* t, const void* tau, const void* dz,
-                         void* tn, void* dg, void* rowmax, void* dq_part, void* dtau_part,
-                         void* dq, void* dtau, int N, int B, int L, int D, cudaStream_t s) {
-  cudaError_t err = launch_rownorm<T>(t, tn, B * L, D, s);
-  if (err != cudaSuccess) return err;
-  err = launch_pass1<T, MODE_BWD>(qn, tn, tau, dz, nullptr, dg, rowmax, dq_part, N, B, L, D, s);
-  if (err != cudaSuccess) return err;
+cudaError_t bwd_rows(const void* qn, const void* g, const void* dz, void* dg, void* dq_part,
+                     int N, int B, int D, cudaStream_t s) {
+  constexpr int PER = THREADS / 32;
+  vlc_bwd_rows_kernel<T><<<(B * N + PER - 1) / PER, THREADS, 0, s>>>(
+      static_cast<const T*>(qn), static_cast<const float*>(g), static_cast<const float*>(dz),
+      static_cast<T*>(dg), static_cast<float*>(dq_part), N, B, D);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dq_pass(const void* qn, const void* tn, const void* tau, const void* dg,
+                    const void* rowmax, void* dq_part, void* dtau_part, void* dq, void* dtau,
+                    int N, int B, int L, int D, cudaStream_t s) {
   const size_t smem = dq_smem<T>(D);
-  err = allow_smem(vlc_dq_kernel<T>, smem);
+  cudaError_t err = allow_smem(vlc_dq_kernel<T>, smem);
   if (err != cudaSuccess) return err;
   dim3 grid((N + QB - 1) / QB, B);
   vlc_dq_kernel<T><<<grid, THREADS, smem, s>>>(
@@ -526,15 +570,11 @@ cudaError_t train_bwd_dq(const void* qn, const void* t, const void* tau, const v
 }
 
 template <typename T>
-cudaError_t train_bwd_dtn(const void* qn, const void* t, const void* tau, const void* dz,
-                          void* tn, void* dg, void* rowmax, void* dtn, int N, int B, int L,
-                          int D, cudaStream_t s) {
-  cudaError_t err = launch_rownorm<T>(t, tn, B * L, D, s);
-  if (err != cudaSuccess) return err;
-  err = launch_pass1<T, MODE_BWD>(qn, tn, tau, dz, nullptr, dg, rowmax, nullptr, N, B, L, D, s);
-  if (err != cudaSuccess) return err;
+cudaError_t dtn_tiles(const void* qn, const void* tn, const void* tau, const void* dg,
+                      const void* rowmax, void* dtn, int N, int B, int L, int D,
+                      cudaStream_t s) {
   const size_t smem = dtn_smem<T>(D);
-  err = allow_smem(vlc_dtn_kernel<T>, smem);
+  cudaError_t err = allow_smem(vlc_dtn_kernel<T>, smem);
   if (err != cudaSuccess) return err;
   dim3 grid((L + QB - 1) / QB, B);
   vlc_dtn_kernel<T><<<grid, THREADS, smem, s>>>(
@@ -549,49 +589,55 @@ cudaError_t train_bwd_dtn(const void* qn, const void* t, const void* tau, const 
 
 static bool vt_shape_ok(int D) { return D % 64 == 0 && D <= rz::vt::CW * rz::vt::MAXC; }
 
-// K10: qn (N, D), t (B, L, D), tau (1,) fp32 -> logits (N, B) fp32.
-//      tn (B, L, D), operand type, is scratch the caller allocates.
+// the instantiation of a launcher for the operand type
+#define RZ_VT_PICK(dtype, fn) \
+  ((dtype) == RZ_DTYPE_BF16 ? rz::vt::fn<__nv_bfloat16> : rz::vt::fn<float>)
+
+// K10: qn (N, D), t (B, L, D), tau (1,) fp32 -> logits (N, B) fp32; with g
+//      non-null (autograd) also the statistics rowmax (B, N) and g (B, N, D),
+//      fp32. tn (B, L, D), operand type, is scratch the caller allocates.
 extern "C" int rz_vlcabs_train_fwd(const void* qn, const void* t, const void* tau, void* tn,
-                                   void* logits, int N, int B, int L, int D, int dtype,
-                                   void* stream) {
+                                   void* logits, void* rowmax, void* g, int N, int B, int L,
+                                   int D, int dtype, void* stream) {
   if (!vt_shape_ok(D)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err =
-      dtype == RZ_DTYPE_BF16
-          ? rz::vt::train_fwd<__nv_bfloat16>(qn, t, tau, tn, logits, N, B, L, D, s)
-          : rz::vt::train_fwd<float>(qn, t, tau, tn, logits, N, B, L, D, s);
-  return static_cast<int>(err);
+  return static_cast<int>(
+      RZ_VT_PICK(dtype, train_fwd)(qn, t, tau, tn, logits, rowmax, g, N, B, L, D, s));
 }
 
-// K11: + dz (N, B) fp32 -> dq (N, D) operand type, dtau (1,) fp32. Scratch:
-//      tn (B, L, D) and dg (B, N, D), operand type; rowmax (B, N), dq_part
-//      (B, N, D) and dtau_part (B * ceil(N / 32)), fp32.
-extern "C" int rz_vlcabs_train_bwd_dq(const void* qn, const void* t, const void* tau,
-                                      const void* dz, void* tn, void* dg, void* rowmax,
-                                      void* dq_part, void* dtau_part, void* dq, void* dtau,
-                                      int N, int B, int L, int D, int dtype, void* stream) {
-  if (!vt_shape_ok(D)) return static_cast<int>(cudaErrorInvalidValue);
+// tn (rows, D) = t * rsqrt(sum(t^2) + 1e-24), rounded to the operand type
+extern "C" int rz_vlcabs_rownorm(const void* t, void* tn, int rows, int D, int dtype,
+                                 void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err =
-      dtype == RZ_DTYPE_BF16
-          ? rz::vt::train_bwd_dq<__nv_bfloat16>(qn, t, tau, dz, tn, dg, rowmax, dq_part,
-                                                dtau_part, dq, dtau, N, B, L, D, s)
-          : rz::vt::train_bwd_dq<float>(qn, t, tau, dz, tn, dg, rowmax, dq_part, dtau_part, dq,
-                                        dtau, N, B, L, D, s);
-  return static_cast<int>(err);
+  return static_cast<int>(RZ_VT_PICK(dtype, launch_rownorm)(t, tn, rows, D, s));
 }
 
-// K12: + dz (N, B) fp32 -> dtn (B, L, D) operand type. Scratch: tn, dg, rowmax.
-extern "C" int rz_vlcabs_train_bwd_dtn(const void* qn, const void* t, const void* tau,
-                                       const void* dz, void* tn, void* dg, void* rowmax,
-                                       void* dtn, int N, int B, int L, int D, int dtype,
-                                       void* stream) {
+// the backward's row pass: qn (N, D), g (B, N, D) fp32 and dz (N, B) fp32 ->
+// dg (B, N, D) operand type and, unless null, dq_part (B, N, D) fp32 = dz ghat
+extern "C" int rz_vlcabs_bwd_rows(const void* qn, const void* g, const void* dz, void* dg,
+                                  void* dq_part, int N, int B, int D, int dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(RZ_VT_PICK(dtype, bwd_rows)(qn, g, dz, dg, dq_part, N, B, D, s));
+}
+
+// K11 after the row pass: dq (N, D) operand type and dtau (1,) fp32 from tn, dg,
+// rowmax and dq_part (dz ghat on entry, the per-image sums on exit); dtau_part
+// (B * ceil(N / 32)) fp32 scratch
+extern "C" int rz_vlcabs_dq(const void* qn, const void* tn, const void* tau, const void* dg,
+                            const void* rowmax, void* dq_part, void* dtau_part, void* dq,
+                            void* dtau, int N, int B, int L, int D, int dtype, void* stream) {
   if (!vt_shape_ok(D)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err =
-      dtype == RZ_DTYPE_BF16
-          ? rz::vt::train_bwd_dtn<__nv_bfloat16>(qn, t, tau, dz, tn, dg, rowmax, dtn, N, B, L,
-                                                 D, s)
-          : rz::vt::train_bwd_dtn<float>(qn, t, tau, dz, tn, dg, rowmax, dtn, N, B, L, D, s);
-  return static_cast<int>(err);
+  return static_cast<int>(RZ_VT_PICK(dtype, dq_pass)(qn, tn, tau, dg, rowmax, dq_part, dtau_part,
+                                                     dq, dtau, N, B, L, D, s));
+}
+
+// K12 in fp32 after the row pass: dtn (B, L, D) from tn, dg and rowmax
+extern "C" int rz_vlcabs_dtn_tiles(const void* qn, const void* tn, const void* tau,
+                                   const void* dg, const void* rowmax, void* dtn, int N, int B,
+                                   int L, int D, int dtype, void* stream) {
+  if (!vt_shape_ok(D)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(
+      RZ_VT_PICK(dtype, dtn_tiles)(qn, tn, tau, dg, rowmax, dtn, N, B, L, D, s));
 }

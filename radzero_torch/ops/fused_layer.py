@@ -10,8 +10,8 @@
   out = ln(y + gelu(y @ W1 + b1) @ W2 + b2)   (post-LN, eps 1e-12)
 
 Each wrapper runs its plain twin (``*_plain``, same module) when handed a
-CPU tensor and launches its CUDA kernel (``csrc/fused_layer.cu``, whose K1
-and K3 run their bf16 products on ``csrc/gemm_sm90.cu``; K2 and K7 are in
+CPU tensor and launches its CUDA kernel (``csrc/fused_layer.cu``, whose K1,
+K3 and K4 run their bf16 products on ``csrc/gemm_sm90.cu``; K2 and K7 are in
 ``csrc/flash_attention.cu`` and its Hopper sources, the strided attention
 kernels K13 / K14 over the thirds of the packed buffer) when handed a CUDA
 tensor; anything else raises. ``<wrapper>.launches`` counts
@@ -88,9 +88,10 @@ def _ln32(x32, scale, bias, eps):
 
 
 def _ln_scratch(x, n, d):
-    """The (n, d) bf16 buffer into which the bf16 kernels of K1 and K3 write
-    each row's LayerNorm once, the A operand of gemm_sm90_kernel; None in
-    fp32, where the LN is the prologue of gemm_f32_kernel."""
+    """The (n, d) bf16 buffer into which the bf16 kernels of K1, K3 and K4
+    write each row's LayerNorm once, the A operand of gemm_sm90_kernel; None
+    in fp32, where gemm_f32_kernel reads the LN from its prologue (K1, K3) or
+    from K4's fp32 y."""
     if x.dtype != torch.bfloat16:
         return None
     return torch.empty((n, d), dtype=x.dtype, device=x.device)
@@ -294,10 +295,13 @@ def fused_mpnet_post(x, attn_out, wo, bo, lnsa, lnba, w1, b1, w2, b2,
                      lnso, lnbo, *, eps=1e-12):
     """(M, D) layer input + merged-head attention output -> layer output:
     y = ln(x + attn_out @ wo + bo); out = ln(y + gelu(y @ w1 + b1) @ w2 + b2).
-    On the card: five launches (o-proj + residual into fp32 u, row LN into
-    fp32 y, fc1 + GELU, fc2 + y into fp32, row LN into the output), one
-    count. Rows need not be a multiple of any tile. Differentiable: the
-    backward is :func:`fused_mpnet_post_bwd` (K9)."""
+    On the card: five launches, one count: o-proj + residual into fp32 u, row
+    LN of u, fc1 + GELU, fc2 + y into fp32, row LN into the output. In bf16
+    the three products run gemm_sm90_kernel and the first row pass writes y
+    twice from one fp32 value, rounded (fc1's operand) and in fp32 (the
+    residual), as K9's recompute does; fp32 runs gemm_f32_kernel. Rows need
+    not be a multiple of any tile. Differentiable: the backward is
+    :func:`fused_mpnet_post_bwd` (K9)."""
     ops = (x, attn_out, wo, bo, lnsa, lnba, w1, b1, w2, b2, lnso, lnbo)
     if tracked(*ops):
         return _FusedMpnetPost.apply(*ops, eps)
@@ -321,14 +325,16 @@ def _fused_mpnet_post_fwd(x, attn_out, wo, bo, lnsa, lnba, w1, b1, w2, b2,
         raise ValueError(f"fused_mpnet_post: needs D % 64 == 0 and F % 64 == 0, got {d}, {f}")
     u32 = torch.empty((m, d), dtype=torch.float32, device=x.device)
     y32 = torch.empty((m, d), dtype=torch.float32, device=x.device)
+    yln = _ln_scratch(x, m, d)
     h = torch.empty((m, f), dtype=x.dtype, device=x.device)
     out = torch.empty((m, d), dtype=x.dtype, device=x.device)
     lib = _build.load()
     err = lib.rz_fused_mpnet_post(
         x.data_ptr(), attn_out.data_ptr(), wo.data_ptr(), bo.data_ptr(), lnsa.data_ptr(),
         lnba.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-        lnso.data_ptr(), lnbo.data_ptr(), u32.data_ptr(), y32.data_ptr(), h.data_ptr(),
-        out.data_ptr(), m, d, f, float(eps), code, _build.stream_ptr(x),
+        lnso.data_ptr(), lnbo.data_ptr(), u32.data_ptr(), y32.data_ptr(),
+        None if yln is None else yln.data_ptr(), h.data_ptr(), out.data_ptr(), m, d, f,
+        float(eps), code, _build.stream_ptr(x),
     )
     _build.check(err, "fused_mpnet_post")
     fused_mpnet_post.launches += 1

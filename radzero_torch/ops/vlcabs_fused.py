@@ -14,13 +14,15 @@ Per image, with queries already l2-normalised:
   :func:`vlcabs_fused_train`.
 - :func:`vlcabs_fused_train` (training): logits only, a
   ``torch.autograd.Function``. Its forward launches K10
-  (:func:`vlcabs_train_forward`); its backward launches K11
-  (:func:`vlcabs_train_bwd_dq`: dq and dtau) and K12
-  (:func:`vlcabs_train_bwd_dtn`: the gradient of the normalised tokens) and
-  then applies the row-normalise VJP dt = (dtn - (dtn.tn) tn) / |t| in
-  plain torch, as the JAX package leaves it to XLA. The (B, N, L) score
-  tensor never reaches device memory in either pass: the backward
-  recomputes it per (query block, image).
+  (:func:`vlcabs_train_forward`), which on the card also writes the
+  statistics the backward reads: the row max of s (B, N) and g (B, N, D),
+  fp32. Its backward launches K11 (:func:`vlcabs_train_bwd_dq`: dq and
+  dtau) and K12 (:func:`vlcabs_train_bwd_dtn`: the gradient of the
+  normalised tokens) and then applies the row-normalise VJP dt = (dtn -
+  (dtn.tn) tn) / |t| in plain torch, as the JAX package leaves it to XLA.
+  The fp32 (B, N, L) score tensor never reaches device memory: K11 and
+  K12 recompute s from the tokens; bf16 K12 keeps e and dc once, rounded,
+  between its two phases (:func:`vlcabs_dtn_phase1`).
 
 The backward formulas, with g = e @ tn (the softmax denominator cancels in
 the cosine) and the cotangent dz (N, B):
@@ -40,10 +42,17 @@ per 128-query block; here dtn is accumulated in fp32 over all queries and
 rounded to the tokens' dtype once.
 
 Each wrapper runs its plain twin (``*_plain``) on a CPU tensor and its CUDA
-kernel (``csrc/vlcabs_fused.cu``, ``csrc/vlcabs_train.cu``) on a CUDA
-tensor; ``<wrapper>.launches`` counts kernel launches. The kernels walk L
-in tiles; K5 keeps a running max (the cosine is invariant to scaling agg,
-so that is exact), K10-K12 take the row max in a first sweep.
+kernel (``csrc/vlcabs_fused.cu``, ``csrc/vlcabs_train.cu``,
+``csrc/vlcabs_sm90.cu``) on a CUDA tensor; ``<wrapper>.launches`` counts
+kernel launches. The kernels walk L in tiles; K5 keeps a running max (the
+cosine is invariant to scaling agg, so that is exact), K10 takes the row
+max in a first sweep and hands it, with g, to K11 and K12. On the card K11
+and K12 compose stages that can each be held against a twin: the tokens'
+row pass (:func:`vlcabs_rownorm`), the backward's row pass
+(:func:`vlcabs_bwd_rows`: dg and dz ghat from g), then K11's dq kernel and
+reduce, and K12's two Hopper phases in bf16 (:func:`vlcabs_dtn_phase1`,
+:func:`vlcabs_dtn_phase2`) or its tiled kernel in fp32;
+:func:`vlcabs_train_backward_stats_plain` runs that route twin by twin.
 """
 
 from __future__ import annotations
@@ -121,29 +130,57 @@ def _normalized_tokens(tokens):
     return t32 * inv_t, inv_t
 
 
-def vlcabs_train_forward_plain(queries_normed, tokens, tau):
-    return vlcabs_fused_plain(queries_normed, tokens, tau)[0]
+def _pad64(n):
+    return -(-n // 64) * 64
 
 
-def vlcabs_train_forward(queries_normed, tokens, tau):
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def vlcabs_train_stats_plain(queries_normed, tokens, tau):
+    """K10's statistics for the backward: (row max of s (B, N), g = e @ tn
+    (B, N, D)), fp32."""
+    cdt = tokens.dtype
+    tn = _normalized_tokens(tokens)[0].to(cdt).float()
+    s = torch.einsum("nd,bld->bnl", queries_normed.float(), tn) * (1.0 / tau.float().reshape(()))
+    m = s.amax(-1)
+    e = torch.exp2((s - m[..., None]) * _LOG2E)
+    return m, e.to(cdt).float() @ tn
+
+
+def vlcabs_train_forward_plain(queries_normed, tokens, tau, *, with_stats=False):
+    logits = vlcabs_fused_plain(queries_normed, tokens, tau)[0]
+    if not with_stats:
+        return logits
+    return logits, vlcabs_train_stats_plain(queries_normed, tokens, tau)
+
+
+def vlcabs_train_forward(queries_normed, tokens, tau, *, with_stats=False):
     """K10: (N, D) l2-normalised queries, (B, L, D) tokens, fp32 tau ->
-    logits (N, B) fp32. No map is written. No tape: differentiate through
-    :func:`vlcabs_fused_train`."""
+    logits (N, B) fp32. No map is written. With ``with_stats`` -> (logits,
+    (row max (B, N), g (B, N, D))), the fp32 statistics that the backward
+    kernels read (:func:`vlcabs_fused_train` keeps them). No tape:
+    differentiate through :func:`vlcabs_fused_train`."""
     forbid_grad("vlcabs_train_forward (K10)", "call vlcabs_fused_train, the autograd function",
                 queries_normed, tokens, tau)
     if not on_cuda(tokens):
-        return vlcabs_train_forward_plain(queries_normed, tokens, tau)
+        return vlcabs_train_forward_plain(queries_normed, tokens, tau, with_stats=with_stats)
     n, b, l, d, code = _check_train_operands("vlcabs_train_forward", queries_normed, tokens, tau)
     tn = torch.empty_like(tokens)
     logits = torch.empty((n, b), dtype=torch.float32, device=tokens.device)
+    rowmax = g = None
+    if with_stats:
+        rowmax = torch.empty((b, n), dtype=torch.float32, device=tokens.device)
+        g = torch.empty((b, n, d), dtype=torch.float32, device=tokens.device)
     lib = _build.load()
     err = lib.rz_vlcabs_train_fwd(
         queries_normed.data_ptr(), tokens.data_ptr(), tau.data_ptr(), tn.data_ptr(),
-        logits.data_ptr(), n, b, l, d, code, _build.stream_ptr(tokens),
+        logits.data_ptr(), _ptr(rowmax), _ptr(g), n, b, l, d, code, _build.stream_ptr(tokens),
     )
     _build.check(err, "vlcabs_train_forward")
     vlcabs_train_forward.launches += 1
-    return logits
+    return (logits, (rowmax, g)) if with_stats else logits
 
 
 vlcabs_train_forward.launches = 0
@@ -186,35 +223,196 @@ def vlcabs_train_bwd_dtn_plain(queries_normed, tokens, tau, dz):
     return dtn.to(cdt)
 
 
-def _bwd_scratch(queries_normed, tokens):
+# ---------------------------------------------------------------------------
+# The stages of the card's backward (csrc/vlcabs_train.cu, csrc/vlcabs_sm90.cu)
+# and their plain twins. Each stage wrapper runs its twin on a CPU tensor and
+# its kernel on a CUDA tensor; the stages count no launches of their own (K11
+# and K12, which compose them, do).
+# ---------------------------------------------------------------------------
+
+def vlcabs_rownorm(tokens):
+    """tn = tokens * rsqrt(sum(tokens^2) + 1e-24), rounded to the tokens' dtype."""
+    if not on_cuda(tokens):
+        return _normalized_tokens(tokens)[0].to(tokens.dtype)
+    code = check_operands("vlcabs_rownorm", tokens)
+    tn = torch.empty_like(tokens)
+    _build.check(_build.load().rz_vlcabs_rownorm(
+        tokens.data_ptr(), tn.data_ptr(), tokens.numel() // tokens.shape[-1], tokens.shape[-1],
+        code, _build.stream_ptr(tokens)), "vlcabs_rownorm")
+    return tn
+
+
+def vlcabs_bwd_rows_plain(queries_normed, g, dz):
+    q32 = queries_normed.float()
+    norm = g.square().sum(-1, keepdim=True).sqrt().clamp_min(1e-12)
+    ghat = g / norm
+    z = (q32 * ghat).sum(-1, keepdim=True)
+    dzc = dz.float().T[..., None]                               # (B, N, 1)
+    dg = dzc * (q32 - z * ghat) / norm
+    return dg.to(queries_normed.dtype), dzc * ghat
+
+
+def vlcabs_bwd_rows(queries_normed, g, dz, *, want_dq_part=False):
+    """The backward's row pass, from K10's g (B, N, D) fp32 and the cotangent
+    dz (N, B) -> (dg (B, N, D) in the queries' dtype, dz ghat (B, N, D) fp32
+    or None), ghat = g / |g|: one warp per (image, query) row."""
+    if not on_cuda(g):
+        dg, dq_part = vlcabs_bwd_rows_plain(queries_normed, g, dz)
+        return dg, dq_part if want_dq_part else None
+    (b, n, d), dev = g.shape, g.device
+    code = check_operands("vlcabs_bwd_rows", queries_normed)
+    _check_f32("vlcabs_bwd_rows", dev, g=((b, n, d), g), dz=((n, b), dz))
+    dg = torch.empty((b, n, d), dtype=queries_normed.dtype, device=dev)
+    dq_part = torch.empty((b, n, d), dtype=torch.float32, device=dev) if want_dq_part else None
+    _build.check(_build.load().rz_vlcabs_bwd_rows(
+        queries_normed.data_ptr(), g.data_ptr(), dz.data_ptr(), dg.data_ptr(), _ptr(dq_part),
+        n, b, d, code, _build.stream_ptr(g)), "vlcabs_bwd_rows")
+    return dg, dq_part
+
+
+def vlcabs_dtn_phase1_plain(queries_normed, tn, dg, rowmax, tau):
+    cdt = tn.dtype
+    n = queries_normed.shape[0]
+    b, l, _ = tn.shape
+    inv_tau = 1.0 / tau.float().reshape(())
+    tn32 = tn.float()
+    s = torch.einsum("nd,bld->bnl", queries_normed.float(), tn32) * inv_tau
+    e = torch.exp2((s - rowmax[..., None]) * _LOG2E)
+    dc = (dg.float() @ tn32.transpose(1, 2)) * e * inv_tau
+    np_ = _pad64(n)
+    ce = torch.zeros((b, 2 * np_, _pad64(l)), dtype=cdt, device=tn.device)
+    ce[:, :n, :l] = dc.to(cdt)
+    ce[:, np_:np_ + n, :l] = e.to(cdt)
+    return ce
+
+
+def vlcabs_dtn_phase1(queries_normed, tn, dg, rowmax, tau):
+    """K12's first phase: (N, D) queries, the normalised tokens tn (B, L, D),
+    dg (B, N, D), the forward's row max (B, N) and tau -> ce (B, 2 Np, Lp)
+    in the tokens' dtype, Np and Lp N and L rounded up to 64: per image, dc =
+    (dg tn^T) e / tau in rows [0, Np) and e = exp(qn tn^T / tau - rowmax) in
+    rows [Np, 2 Np), both rounded (e unrounded inside dc), zeros past N and
+    L. On the card bf16 only (one Hopper kernel, csrc/vlcabs_sm90.cu)."""
+    if not on_cuda(tn):
+        return vlcabs_dtn_phase1_plain(queries_normed, tn, dg, rowmax, tau)
     n, d = queries_normed.shape
-    b = tokens.shape[0]
-    dev = tokens.device
-    return (torch.empty_like(tokens),                                  # tn
-            torch.empty((b, n, d), dtype=tokens.dtype, device=dev),    # dg
-            torch.empty((b, n), dtype=torch.float32, device=dev))      # row max
+    b, l, _ = tn.shape
+    _check_bf16("vlcabs_dtn_phase1", tn, queries_normed=((n, d), queries_normed),
+                dg=((b, n, d), dg))
+    _check_f32("vlcabs_dtn_phase1", tn.device, rowmax=((b, n), rowmax), tau=((1,), tau))
+    np_, lp = _pad64(n), _pad64(l)
+    ce = torch.empty((b, 2 * np_, lp), dtype=tn.dtype, device=tn.device)
+    _build.check(_build.load().rz_vlcabs_dtn_phase1(
+        queries_normed.data_ptr(), tn.data_ptr(), dg.data_ptr(), rowmax.data_ptr(),
+        tau.data_ptr(), ce.data_ptr(), n, np_, b, l, lp, d, _build.stream_ptr(tn)),
+        "vlcabs_dtn_phase1")
+    return ce
 
 
-def vlcabs_train_bwd_dq(queries_normed, tokens, tau, dz):
+def vlcabs_dtn_phase2_plain(ce, queries_normed, dg, l):
+    n = queries_normed.shape[0]
+    np_ = ce.shape[1] // 2
+    dc, e = ce[:, :n, :l].float(), ce[:, np_:np_ + n, :l].float()
+    dtn = (torch.einsum("bnl,nd->bld", dc, queries_normed.float())
+           + torch.einsum("bnl,bnd->bld", e, dg.float()))
+    return dtn.to(dg.dtype)
+
+
+def vlcabs_dtn_phase2(ce, queries_normed, dg, l):
+    """K12's second phase: dtn[b] = [dc[b]; e[b]]^T @ [qn; dg[b]] from
+    :func:`vlcabs_dtn_phase1`'s ce -> (B, L, D) in dg's dtype, summed in fp32
+    over the 2 Np rows and rounded once. On the card bf16 only: one product a
+    (128-token, 128-column) tile on gemm_sm90_kernel (csrc/gemm_sm90.cu)."""
+    if not on_cuda(ce):
+        return vlcabs_dtn_phase2_plain(ce, queries_normed, dg, l)
+    n, d = queries_normed.shape
+    b = dg.shape[0]
+    np_, lp = _pad64(n), _pad64(l)
+    _check_bf16("vlcabs_dtn_phase2", ce, queries_normed=((n, d), queries_normed),
+                dg=((b, n, d), dg))
+    if tuple(ce.shape) != (b, 2 * np_, lp):
+        raise ValueError(f"vlcabs_dtn_phase2: ce is {tuple(ce.shape)}, expected {(b, 2 * np_, lp)}")
+    dtn = torch.empty((b, l, d), dtype=dg.dtype, device=dg.device)
+    _build.check(_build.load().rz_vlcabs_dtn_phase2(
+        ce.data_ptr(), queries_normed.data_ptr(), dg.data_ptr(), dtn.data_ptr(), n, np_, b, l, lp,
+        d, _build.stream_ptr(ce)), "vlcabs_dtn_phase2")
+    return dtn
+
+
+def vlcabs_dq_plain(queries_normed, tn, tau, dg, rowmax, dq_part):
+    """K11 after the row pass: (dq (N, D) in the queries' dtype, dtau (1,))."""
+    tn32 = tn.float()
+    inv_tau = 1.0 / tau.float().reshape(())
+    s = torch.einsum("nd,bld->bnl", queries_normed.float(), tn32) * inv_tau
+    s_shift = s - rowmax[..., None]
+    e = torch.exp2(s_shift * _LOG2E)
+    dc = (dg.float() @ tn32.transpose(1, 2)) * e * inv_tau
+    dq = (dc.to(tn.dtype).float() @ tn32 + dq_part).sum(0)
+    return dq.to(queries_normed.dtype), (-(dc * s_shift).sum()).reshape(1)
+
+
+def vlcabs_train_backward_stats_plain(queries_normed, tokens, tau, dz, stats):
+    """The card's backward route from the forward's statistics, stage twin by
+    stage twin (row pass; K11's dq; in K12 phase 1 and phase 2, which in fp32
+    compute what vlc_dtn_kernel does) -> (dq, dt, dtau) as
+    :func:`vlcabs_train_backward_plain` returns them."""
+    rowmax, g = stats
+    l = tokens.shape[1]
+    tn = vlcabs_rownorm(tokens)
+    dg, dq_part = vlcabs_bwd_rows_plain(queries_normed, g, dz)
+    dq, dtau = vlcabs_dq_plain(queries_normed, tn, tau, dg, rowmax, dq_part)
+    ce = vlcabs_dtn_phase1_plain(queries_normed, tn, dg, rowmax, tau)
+    dtn = vlcabs_dtn_phase2_plain(ce, queries_normed, dg, l)
+    return dq, _rownorm_vjp(dtn, tokens), dtau.to(tau.dtype).reshape(tau.shape)
+
+
+def _check_f32(name, device, **named):
+    for arg, (shape, t) in named.items():
+        if tuple(t.shape) != tuple(shape) or t.dtype != torch.float32 or t.device != device:
+            raise ValueError(f"{name}: {arg} is {tuple(t.shape)} {t.dtype} on {t.device}, "
+                             f"expected {tuple(shape)} float32 on {device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {arg} must be contiguous")
+
+
+def _check_bf16(name, x, **named):
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"{name}: the Hopper kernel takes bfloat16, got {x.dtype}")
+    check_operands(name, x, **named)
+
+
+def _stats_operands(name, stats, n, b, d, device):
+    """The forward's (row max (B, N), g (B, N, D)), checked; missing ones
+    raise: the backward kernels have no path without them."""
+    if stats is None:
+        raise ValueError(f"{name}: the kernel reads the forward's statistics; pass stats= "
+                         "(vlcabs_train_forward(..., with_stats=True) gives them)")
+    rowmax, g = stats
+    _check_f32(name, device, rowmax=((b, n), rowmax), g=((b, n, d), g))
+    return rowmax, g
+
+
+def vlcabs_train_bwd_dq(queries_normed, tokens, tau, dz, *, stats=None):
     """K11: cotangent dz (N, B) fp32 -> (dq (N, D) in the queries' dtype,
-    dtau (1,) fp32). Per (query block, image) partial sums in fp32, then a
-    reduce over images in a fixed order: no atomics, the same bits each run."""
+    dtau (1,) fp32). On the card ``stats``, the forward's (row max, g), is
+    required: the tokens' row pass, the backward's row pass (dg and dz ghat
+    from g), per (query block, image) partial sums in fp32, then a reduce
+    over images in a fixed order: no atomics, the same bits each run."""
     if not on_cuda(tokens):
         return vlcabs_train_bwd_dq_plain(queries_normed, tokens, tau, dz)
     n, b, l, d, code = _check_train_operands("vlcabs_train_bwd_dq", queries_normed, tokens, tau)
     dz = _check_cotangent("vlcabs_train_bwd_dq", dz, n, b, tokens.device)
-    tn, dg, rowmax = _bwd_scratch(queries_normed, tokens)
+    rowmax, g = _stats_operands("vlcabs_train_bwd_dq", stats, n, b, d, tokens.device)
+    tn = vlcabs_rownorm(tokens)
+    dg, dq_part = vlcabs_bwd_rows(queries_normed, g, dz, want_dq_part=True)
     dev = tokens.device
-    dq_part = torch.empty((b, n, d), dtype=torch.float32, device=dev)
     dtau_part = torch.empty((b * ((n + 31) // 32),), dtype=torch.float32, device=dev)
     dq = torch.empty_like(queries_normed)
     dtau = torch.empty((1,), dtype=torch.float32, device=dev)
-    lib = _build.load()
-    err = lib.rz_vlcabs_train_bwd_dq(
-        queries_normed.data_ptr(), tokens.data_ptr(), tau.data_ptr(), dz.data_ptr(),
-        tn.data_ptr(), dg.data_ptr(), rowmax.data_ptr(), dq_part.data_ptr(),
-        dtau_part.data_ptr(), dq.data_ptr(), dtau.data_ptr(), n, b, l, d, code,
-        _build.stream_ptr(tokens),
+    err = _build.load().rz_vlcabs_dq(
+        queries_normed.data_ptr(), tn.data_ptr(), tau.data_ptr(), dg.data_ptr(),
+        rowmax.data_ptr(), dq_part.data_ptr(), dtau_part.data_ptr(), dq.data_ptr(),
+        dtau.data_ptr(), n, b, l, d, code, _build.stream_ptr(tokens),
     )
     _build.check(err, "vlcabs_train_bwd_dq")
     vlcabs_train_bwd_dq.launches += 1
@@ -224,24 +422,30 @@ def vlcabs_train_bwd_dq(queries_normed, tokens, tau, dz):
 vlcabs_train_bwd_dq.launches = 0
 
 
-def vlcabs_train_bwd_dtn(queries_normed, tokens, tau, dz):
+def vlcabs_train_bwd_dtn(queries_normed, tokens, tau, dz, *, stats=None):
     """K12: cotangent dz (N, B) fp32 -> dtn (B, L, D), the gradient of the
-    row-normalised tokens, in the tokens' dtype. One block owns a token
-    tile of one image and walks every query block itself, so the sum over
-    queries has a fixed order and is rounded once."""
+    row-normalised tokens, in the tokens' dtype. On the card ``stats``, the
+    forward's (row max, g), is required: the tokens' row pass, the
+    backward's row pass (dg from g), then in bf16 :func:`vlcabs_dtn_phase1`
+    and :func:`vlcabs_dtn_phase2` (TMA and wgmma), in fp32 one kernel whose
+    block owns a token tile of one image and walks every query block itself.
+    Either way the sum over queries has a fixed order and is rounded once."""
     if not on_cuda(tokens):
         return vlcabs_train_bwd_dtn_plain(queries_normed, tokens, tau, dz)
     n, b, l, d, code = _check_train_operands("vlcabs_train_bwd_dtn", queries_normed, tokens, tau)
     dz = _check_cotangent("vlcabs_train_bwd_dtn", dz, n, b, tokens.device)
-    tn, dg, rowmax = _bwd_scratch(queries_normed, tokens)
-    dtn = torch.empty_like(tokens)
-    lib = _build.load()
-    err = lib.rz_vlcabs_train_bwd_dtn(
-        queries_normed.data_ptr(), tokens.data_ptr(), tau.data_ptr(), dz.data_ptr(),
-        tn.data_ptr(), dg.data_ptr(), rowmax.data_ptr(), dtn.data_ptr(), n, b, l, d, code,
-        _build.stream_ptr(tokens),
-    )
-    _build.check(err, "vlcabs_train_bwd_dtn")
+    rowmax, g = _stats_operands("vlcabs_train_bwd_dtn", stats, n, b, d, tokens.device)
+    tn = vlcabs_rownorm(tokens)
+    dg, _ = vlcabs_bwd_rows(queries_normed, g, dz)
+    if tokens.dtype == torch.bfloat16:
+        ce = vlcabs_dtn_phase1(queries_normed, tn, dg, rowmax, tau)
+        dtn = vlcabs_dtn_phase2(ce, queries_normed, dg, l)
+    else:
+        dtn = torch.empty_like(tokens)
+        _build.check(_build.load().rz_vlcabs_dtn_tiles(
+            queries_normed.data_ptr(), tn.data_ptr(), tau.data_ptr(), dg.data_ptr(),
+            rowmax.data_ptr(), dtn.data_ptr(), n, b, l, d, code, _build.stream_ptr(tokens)),
+            "vlcabs_train_bwd_dtn")
     vlcabs_train_bwd_dtn.launches += 1
     return dtn
 
@@ -276,16 +480,21 @@ class _VlcabsFusedTrain(torch.autograd.Function):
     def forward(ctx, queries_normed, tokens, tau):
         queries_normed, tokens = queries_normed.contiguous(), tokens.contiguous()
         tau32 = tau.detach().float().reshape(1)
-        ctx.save_for_backward(queries_normed, tokens, tau32)
         ctx.tau_like = (tau.dtype, tau.shape)
+        if on_cuda(tokens):  # the backward kernels read the forward's statistics
+            logits, stats = vlcabs_train_forward(queries_normed, tokens, tau32, with_stats=True)
+            ctx.save_for_backward(queries_normed, tokens, tau32, *stats)
+            return logits
+        ctx.save_for_backward(queries_normed, tokens, tau32)
         return vlcabs_train_forward(queries_normed, tokens, tau32)
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, dz):
-        queries_normed, tokens, tau32 = ctx.saved_tensors
-        dq, dtau = vlcabs_train_bwd_dq(queries_normed, tokens, tau32, dz)
-        dtn = vlcabs_train_bwd_dtn(queries_normed, tokens, tau32, dz)
+        queries_normed, tokens, tau32, *stats = ctx.saved_tensors
+        stats = tuple(stats) or None
+        dq, dtau = vlcabs_train_bwd_dq(queries_normed, tokens, tau32, dz, stats=stats)
+        dtn = vlcabs_train_bwd_dtn(queries_normed, tokens, tau32, dz, stats=stats)
         dtype, shape = ctx.tau_like
         return dq, _rownorm_vjp(dtn, tokens), dtau.to(dtype).reshape(shape)
 

@@ -189,7 +189,7 @@ def test_fused_gemm_routes_by_name(dtype):
     g = torch.Generator(device="cuda").manual_seed(3)
     k1, k3 = _k1_args(g, dtype, 130, 128), _k3_args(g, dtype, 130, 128, 256)
     leaves1, leaves3 = ([a.clone().requires_grad_(True) for a in args] for args in (k1, k3))
-    kinds = ("gemm_sm90_kernel", "row_layernorm_kernel", "gemm_f32_kernel", "gemm_bf16_kernel")
+    kinds = ("gemm_sm90_kernel", "row_layernorm_kernel", "gemm_f32_kernel")
     for call, want in ((lambda: fl.fused_preattn(*k1), 1), (lambda: fl.fused_preattn(*leaves1), 1),
                        (lambda: fl.fused_postattn(*k3), 3),
                        (lambda: fl.fused_postattn(*leaves3), 3)):
@@ -282,6 +282,127 @@ def test_vlcabs_train_kernels(dtype, n, b, l, d, tau):
     (vf.vlcabs_fused_train(q, t, tau_t) * w).sum().backward()
     for a, x in zip(first, (q, t, tau_t)):
         assert torch.equal(a, x.grad)
+
+
+# bf16 K4 runs K9's forward chain: o-proj (gemm_sm90_kernel<4, 0>, u = x + .), the
+# LN rows pass that writes y rounded and in fp32 from one value (ln_rows_kernel),
+# fc1 + GELU (<2, 0>), fc2 + y in place (<5, 0>) and row_layernorm_kernel. Rows on
+# both sides of the 64- and 128-row edges, serving's 896, the tower's 1370 and the
+# training step's 16 384, at the model's widths; chip_smoke.py's K4 tolerance.
+@pytest.mark.parametrize("m", [1, 127, 128, 896, 1370, 16384])
+def test_fused_mpnet_post_bf16_rows(m):
+    g = torch.Generator(device="cuda").manual_seed(m)
+    args = _k4_args(g, torch.bfloat16, m, 768, 3072)
+    out = fl.fused_mpnet_post(*args)
+    _check_share(out, fl.fused_mpnet_post_plain(*args), 2.0**-10)
+
+
+K4_ROUTE = ["gemm_sm90_kernel<2, 0>", "gemm_sm90_kernel<4, 0>", "gemm_sm90_kernel<5, 0>",
+            "ln_rows_kernel<__nv_bfloat16, float>", "row_layernorm_kernel"]
+
+
+def test_fused_mpnet_post_runs_the_hopper_gemm_in_bf16():
+    """bf16 K4 runs exactly its five launches, with or without a tape: three
+    gemm_sm90_kernel instantiations and two row passes (gemm_bf16_kernel is
+    gone from the build)."""
+    g = torch.Generator(device="cuda").manual_seed(11)
+    args = _k4_args(g, torch.bfloat16, 200, 128, 256)
+    leaves = [a.clone().requires_grad_(True) for a in args]
+    for call in (lambda: fl.fused_mpnet_post(*args), lambda: fl.fused_mpnet_post(*leaves)):
+        names = _device_kernels(call)
+        assert _kernel_kinds(names, K4_ROUTE) == K4_ROUTE, names
+
+
+def _vlcabs_case(g, dtype, n, b, l, d, tau=0.07):
+    q = torch.randn((n, d), generator=g, device="cuda")
+    q = (q / q.norm(dim=-1, keepdim=True)).to(dtype)
+    t = _rn(g, dtype, b, l, d)
+    return q, t, torch.tensor([tau], device="cuda"), torch.randn((n, b), generator=g, device="cuda")
+
+
+# K12's phases at one image short of a 64-token tile and at the tower's 1370
+# tokens, N not a multiple of the 64-query tile: phase 1 against its twin on the
+# same tn, dg and row max (e and dc rounded to bf16 from fp32 values whose sums
+# run in another order: a flip of one bf16 ulp, 2^-7 relative, or a share of the
+# largest dc where dE cancels), zeros where the twin has them; phase 2 against its
+# twin on the kernel's own ce (one fp32 sum rounded once: one bf16 ulp)
+@pytest.mark.parametrize("l", [37, 1370])
+def test_vlcabs_dtn_phases_bf16(l):
+    g = torch.Generator(device="cuda").manual_seed(l)
+    n, b, d = 100, 2, 768
+    q, t, tau, dz = _vlcabs_case(g, torch.bfloat16, n, b, l, d)
+    _, (rowmax, gs) = vf.vlcabs_train_forward(q, t, tau, with_stats=True)
+    tn = vf.vlcabs_rownorm(t)
+    dg, _ = vf.vlcabs_bwd_rows(q, gs, dz)
+    ce = vf.vlcabs_dtn_phase1(q, tn, dg, rowmax, tau)
+    ref = vf.vlcabs_dtn_phase1_plain(q, tn, dg, rowmax, tau)
+    assert ce.shape == ref.shape == (b, 256, -(-l // 64) * 64)
+    assert not ce[:, n:128].any() and not ce[:, 128 + n:].any() and not ce[:, :, l:].any()
+    _check_share(ce[:, :n, :l], ref[:, :n, :l], 2.0**-9)              # dc
+    _check_share(ce[:, 128:128 + n, :l], ref[:, 128:128 + n, :l], 2.0**-9)  # e
+    dtn = vf.vlcabs_dtn_phase2(ce, q, dg, l)
+    _check_share(dtn, vf.vlcabs_dtn_phase2_plain(ce, q, dg, l), 2.0**-10)
+    want = vf.vlcabs_train_bwd_dtn_plain(q, t, tau, dz)
+    got = vf.vlcabs_train_bwd_dtn(q, t, tau, dz, stats=(rowmax, gs))
+    _check_share(got, want, 2.0**-7)
+    assert torch.equal(got, vf.vlcabs_train_bwd_dtn(q, t, tau, dz, stats=(rowmax, gs)))
+
+
+VLCABS_ROUTES = {  # the backward's device kernels: never pass 1 again
+    ("K11", torch.bfloat16): ["rownorm_kernel", "vlc_bwd_rows_kernel", "vlc_dq_kernel",
+                              "vlc_reduce_kernel"],
+    ("K11", torch.float32): ["rownorm_kernel", "vlc_bwd_rows_kernel", "vlc_dq_kernel",
+                             "vlc_reduce_kernel"],
+    ("K12", torch.bfloat16): ["gemm_sm90_kernel<0, 3>", "rownorm_kernel", "vlc_bwd_rows_kernel",
+                              "vlc_dtn_phase1_sm90_kernel"],
+    ("K12", torch.float32): ["rownorm_kernel", "vlc_bwd_rows_kernel", "vlc_dtn_kernel"],
+}
+
+
+@pytest.mark.parametrize("k,dtype", sorted(VLCABS_ROUTES, key=str))
+def test_vlcabs_backward_routes_by_name(k, dtype):
+    """K11 and K12 start from the forward's statistics: no vlc_pass1_kernel;
+    bf16 K12 runs its two Hopper phases and no vlc_dtn_kernel; the forward
+    under autograd runs pass 1 once, writing the statistics."""
+    g = torch.Generator(device="cuda").manual_seed(17)
+    q, t, tau, dz = _vlcabs_case(g, dtype, 70, 2, 130, 128)
+    _, stats = vf.vlcabs_train_forward(q, t, tau, with_stats=True)
+    fn = vf.vlcabs_train_bwd_dq if k == "K11" else vf.vlcabs_train_bwd_dtn
+    names = _device_kernels(lambda: fn(q, t, tau, dz, stats=stats))
+    want = VLCABS_ROUTES[(k, dtype)]
+    assert _kernel_kinds(names, want) == want, names
+    names = _device_kernels(lambda: vf.vlcabs_train_forward(q, t, tau, with_stats=True))
+    assert _kernel_kinds(names, ["rownorm_kernel", "vlc_pass1_kernel"]) == [
+        "rownorm_kernel", "vlc_pass1_kernel"], names
+
+
+def test_vlcabs_backward_requires_the_forward_statistics():
+    """On the card K11 and K12 raise without the forward's statistics or with
+    ones of another shape."""
+    g = torch.Generator(device="cuda").manual_seed(19)
+    q, t, tau, dz = _vlcabs_case(g, torch.bfloat16, 20, 2, 40, 128)
+    for fn in (vf.vlcabs_train_bwd_dq, vf.vlcabs_train_bwd_dtn):
+        with pytest.raises(ValueError, match="statistics"):
+            fn(q, t, tau, dz)
+        _, (rowmax, gs) = vf.vlcabs_train_forward(q, t, tau, with_stats=True)
+        with pytest.raises(ValueError, match="rowmax"):
+            fn(q, t, tau, dz, stats=(rowmax[:1], gs))
+
+
+def test_vlcabs_bf16_full_width_backward_repeats_its_bits():
+    """At the training step's widths (512 queries, 1370 tokens, D 768; two
+    images) a second backward through the autograd function gives the same
+    bits: fixed-order sums, no atomics."""
+    g = torch.Generator(device="cuda").manual_seed(23)
+    q, t, tau, dz = _vlcabs_case(g, torch.bfloat16, 512, 2, 1370, 768)
+    runs = []
+    for _ in range(2):
+        leaves = [x.clone().requires_grad_(True) for x in (q, t, tau)]
+        runs.append(torch.autograd.grad(vf.vlcabs_fused_train(*leaves), leaves, dz))
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    for got, want in zip(runs[0], vf.vlcabs_train_backward_plain(q, t, tau, dz)):
+        _check_share(got.reshape(want.shape), want, 2.0**-7)
 
 
 def _k1_args(g, dtype, m, d):
