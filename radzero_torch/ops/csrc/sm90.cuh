@@ -10,6 +10,7 @@
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums only: the encoder comes through the runtime
+#include <string.h>
 
 #include "common.cuh"
 
@@ -197,23 +198,59 @@ inline EncodeFn encoder() {
   return fn;
 }
 
+// cuTensorMapEncodeTiled as every map here takes it (unit element strides, no
+// interleave, the 128-byte swizzle, 256-byte L2 promotion, zeros out of bounds),
+// with this thread's last encodings kept: a map is a function of its arguments
+// alone, and the wrappers hand the same weights and, through PyTorch's caching
+// allocator, mostly the same activation buffers from call to call, so a map is
+// encoded once and then copied (1024 slots a thread, the slot by a hash of the
+// arguments; a slot that another map takes is encoded again when it returns)
+inline bool encode_tiled(CUtensorMap* map, CUtensorMapDataType dtype, int rank, const void* p,
+                         const cuuint64_t* dims, const cuuint64_t* strides,
+                         const cuuint32_t* box) {
+  constexpr int KEY = 2 + 4 + 3 + 4, SLOTS = 1024;
+  struct Slot {
+    uint64_t key[KEY];
+    CUtensorMap map;
+  };
+  thread_local Slot slots[SLOTS] = {};
+  uint64_t key[KEY] = {reinterpret_cast<uint64_t>(p), (uint64_t)dtype << 8 | (uint64_t)rank};
+  for (int r = 0; r < rank; ++r) {
+    key[2 + r] = dims[r];
+    key[9 + r] = box[r];
+    if (r + 1 < rank) key[6 + r] = strides[r];
+  }
+  uint64_t h = 1469598103934665603ull;  // FNV-1a, a word at a time
+  for (int i = 0; i < KEY; ++i) h = (h ^ key[i]) * 1099511628211ull;
+  Slot& slot = slots[(h >> 40) % SLOTS];
+  if (key[0] != 0 && memcmp(slot.key, key, sizeof key) == 0) {
+    *map = slot.map;
+    return true;
+  }
+  const EncodeFn encode = encoder();
+  if (encode == nullptr) return false;
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  if (encode(map, dtype, rank, const_cast<void*>(p), dims, strides, box, unit,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return false;
+  memcpy(slot.key, key, sizeof key);
+  slot.map = *map;
+  return true;
+}
+
 // a (B, L, H, 64) bf16 operand with batch / row strides bs, rs (elements) as a
 // 4-D map (64, H, L, B) read in (64, 1, BOX, 1) boxes under the 128-byte
 // swizzle; rows past L come in as zeros
 inline bool make_map(CUtensorMap* map, const void* p, long long bs, long long rs, int B, int L,
                      int H) {
-  const EncodeFn encode = encoder();
-  if (encode == nullptr) return false;
   if (L == 1) rs = (long long)H * HD;  // a stride of a dimension of one is never stepped
   if (B == 1) bs = rs * L;
   const cuuint64_t dims[4] = {(cuuint64_t)HD, (cuuint64_t)H, (cuuint64_t)L, (cuuint64_t)B};
   const cuuint64_t strides[3] = {HD * 2, (cuuint64_t)rs * 2, (cuuint64_t)bs * 2};
   const cuuint32_t box[4] = {HD, 1, BOX, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(p), dims, strides, box,
-                unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return encode_tiled(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, p, dims, strides, box);
 }
 
 // ---------------------------------------------------------------------------
@@ -305,18 +342,14 @@ __device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t da, uint64_t
 // come in as zeros and are not written. cols * esize % 16 == 0 and a 16-byte
 // aligned base (TMA's stride and address rules).
 inline bool make_map_2d(CUtensorMap* map, const void* p, int rows, int cols, int box_rows,
-                 bool fp32 = false) {
-  const EncodeFn encode = encoder();
-  if (encode == nullptr) return false;
+                        bool fp32 = false) {
   const cuuint64_t esize = fp32 ? 4 : 2;
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
   const cuuint64_t strides[1] = {(cuuint64_t)cols * esize};
   const cuuint32_t box[2] = {(cuuint32_t)(128 / esize), (cuuint32_t)box_rows};
-  const cuuint32_t unit[2] = {1, 1};
-  return encode(map, fp32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-                const_cast<void*>(p), dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  const CUtensorMapDataType dtype =
+      fp32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  return encode_tiled(map, dtype, 2, p, dims, strides, box);
 }
 
 // `images` row-major (rows, cols) bf16 matrices, one after another, as a 3-D map
@@ -325,16 +358,10 @@ inline bool make_map_2d(CUtensorMap* map, const void* p, int rows, int cols, int
 // zeros and are not written, whatever follows them in memory
 inline bool make_map_3d(CUtensorMap* map, const void* p, int images, int rows, int cols,
                         int box_rows) {
-  const EncodeFn encode = encoder();
-  if (encode == nullptr) return false;
   const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows, (cuuint64_t)images};
   const cuuint64_t strides[2] = {(cuuint64_t)cols * 2, (cuuint64_t)rows * cols * 2};
   const cuuint32_t box[3] = {64, (cuuint32_t)box_rows, 1};
-  const cuuint32_t unit[3] = {1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(p), dims, strides, box,
-                unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return encode_tiled(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, p, dims, strides, box);
 }
 
 // byte offset of value (r, c) in a tile of ES-byte values kept as boxes of

@@ -362,8 +362,7 @@ VLCABS_ROUTES = {  # the backward's device kernels: never pass 1 again
 @pytest.mark.parametrize("k,dtype", sorted(VLCABS_ROUTES, key=str))
 def test_vlcabs_backward_routes_by_name(k, dtype):
     """K11 and K12 start from the forward's statistics: no vlc_pass1_kernel;
-    bf16 K12 runs its two Hopper phases and no vlc_dtn_kernel; the forward
-    under autograd runs pass 1 once, writing the statistics."""
+    bf16 K12 runs its two Hopper phases and no vlc_dtn_kernel."""
     g = torch.Generator(device="cuda").manual_seed(17)
     q, t, tau, dz = _vlcabs_case(g, dtype, 70, 2, 130, 128)
     _, stats = vf.vlcabs_train_forward(q, t, tau, with_stats=True)
@@ -371,9 +370,24 @@ def test_vlcabs_backward_routes_by_name(k, dtype):
     names = _device_kernels(lambda: fn(q, t, tau, dz, stats=stats))
     want = VLCABS_ROUTES[(k, dtype)]
     assert _kernel_kinds(names, want) == want, names
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_vlcabs_forward_with_statistics_runs_pass1_once(dtype):
+    """Under autograd K10 runs the token row pass and pass 1 once, which
+    writes the statistics beside the logits; the logits are those of the
+    forward without them, bit for bit."""
+    g = torch.Generator(device="cuda").manual_seed(21)
+    q, t, tau, _ = _vlcabs_case(g, dtype, 70, 2, 130, 128)
     names = _device_kernels(lambda: vf.vlcabs_train_forward(q, t, tau, with_stats=True))
     assert _kernel_kinds(names, ["rownorm_kernel", "vlc_pass1_kernel"]) == [
         "rownorm_kernel", "vlc_pass1_kernel"], names
+    logits, (rowmax, gs) = vf.vlcabs_train_forward(q, t, tau, with_stats=True)
+    assert torch.equal(logits, vf.vlcabs_train_forward(q, t, tau))
+    ref_m, ref_g = vf.vlcabs_train_stats_plain(q, t, tau)
+    atol, rtol = TOL[dtype]
+    torch.testing.assert_close(rowmax, ref_m, atol=atol, rtol=rtol)
+    torch.testing.assert_close(gs, ref_g, atol=atol * ref_g.abs().max().item(), rtol=rtol)
 
 
 def test_vlcabs_backward_requires_the_forward_statistics():
