@@ -65,6 +65,14 @@ SIGNATURES = {
     "rz_vlcabs_dtn_phase1": [_P] * 6 + [_I] * 6 + [_P],
     # ce, qn, dg, dtn, N, Np, B, L, Lp, D, stream
     "rz_vlcabs_dtn_phase2": [_P] * 4 + [_I] * 6 + [_P],
+    # qn, tn, tau, s, tmax, N, B, L, D, stream
+    "rz_vlcabs_fwd_scores": [_P] * 5 + [_I] * 4 + [_P],
+    # s, tmax, e, rowmax, N, Np, B, L, Lp, stream
+    "rz_vlcabs_fwd_rows": [_P] * 4 + [_I] * 5 + [_P],
+    # e, tn, g, N, Np, B, L, Lp, D, stream
+    "rz_vlcabs_fwd_g": [_P] * 3 + [_I] * 6 + [_P],
+    # qn, g, logits, N, B, D, dtype, stream
+    "rz_vlcabs_logits": [_P] * 3 + [_I] * 4 + [_P],
     # a, w, bias, resid, ls, aux, out, out2, colpart, M, N, K, epi, w_t, dtype, stream
     "rz_bwd_gemm": [_P] * 9 + [_I, _I, _I, _I, _I, _I, _P],
     # a, g, part, M, Ka, Nb, splits, dtype, stream

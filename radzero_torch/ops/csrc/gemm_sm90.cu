@@ -4,15 +4,17 @@
 // fused_layer.cu call it after a row pass that writes each row's LayerNorm
 // once as a bf16 operand), of the backward chains K6, K8 and K9 (rz_bwd_gemm
 // and rz_wgrad of fused_layer_bwd.cu: their forward recompute, their dX
-// products and their dW products) and K12's second phase (vlcabs_sm90.cu).
+// products and their dW products), K12's second phase and K5 / K10's second
+// phase in bf16 (vlcabs_sm90.cu).
 // fp32 stays on gemm_f32_kernel / wgrad_f32_kernel (gemm.cuh).
 //
 // Replaces the products of the TPU kernels radzero_tpu/ops/fused_layer.py
 // fused_preattn (_preattn_kernel, the pallas_call at :92), fused_postattn
 // (_postattn_kernel, :913), _mpnet_post_call (:760), _preattn_vjp_bwd (:390),
 // _postattn_vjp_bwd (:568) and _mpnet_post_vjp_bwd (:820), and of
-// radzero_tpu/ops/pallas_vlcabs.py _train_bwd's _kernel_bwd_dtn (:403), with
-// their contract: bf16 operands, fp32
+// radzero_tpu/ops/pallas_vlcabs.py _train_bwd's _kernel_bwd_dtn (:403) and
+// vlcabs_fused / _train_forward's e . tn (:115, :310), with their contract:
+// bf16 operands, fp32
 // accumulation, the epilogue in fp32 on the accumulators (bias, LayerScale,
 // residual, exact-erf GELU and its derivative), rounded to bf16 where the JAX
 // code rounds (qkv, the GELU output, the layer output, dh1; K3's y and the
@@ -54,6 +56,9 @@
 //     and one chunk, the whole contraction, so the epilogue writes bf16 once;
 //     the B rows come from qn for k < k_split and from dg[b] after, through
 //     two maps rather than a copy.
+//   GEMM_BFWD, K5 / K10's g[b] = e[b] . tn[b] per image b (gemm_sm90_vlc_g):
+//     GEMM_FWD's layout with an image coordinate on A, B and the output (3-D
+//     maps), so an image's rows past its end come in as zeros.
 //   Rows past M, columns past N and k past K come in as zeros, so K needs no
 //   multiple of 64. Under a 384-thread block (a producer warpgroup) ptxas held
 //   the kernel to 168 registers and the GELU epilogue spilled; under 288
@@ -97,7 +102,12 @@ namespace {
 using namespace fa::sm90;
 using bf16 = __nv_bfloat16;
 
-enum Mode { GEMM_FWD = 0, GEMM_DX = 1, GEMM_DW = 2, GEMM_DTN = 3 };  // operand layouts, above
+enum Mode { GEMM_FWD = 0, GEMM_DX = 1, GEMM_DW = 2, GEMM_DTN = 3, GEMM_BFWD = 4 };  // above
+
+// a product per image: the work items run over the images, the maps are 3-D
+__host__ __device__ constexpr bool batched(int mode) {
+  return mode == GEMM_DTN || mode == GEMM_BFWD;
+}
 
 constexpr int BM = kSm90RowTile, BN = 128, BK = 64;  // output tile, k-step
 constexpr int THREADS = 288;                 // two consumer warpgroups + one producer warp
@@ -152,7 +162,7 @@ struct Item {
   int k0;      // its first k (GEMM_DW: the chunk's first row)
   int ksteps;  // its k-steps (GEMM_DW: 0 for a chunk wholly past the rows)
   int orow;    // the output row of its first row (GEMM_DW: in part[chunk])
-  int b;       // GEMM_DTN: its image
+  int b;       // GEMM_DTN, GEMM_BFWD: its image
 };
 
 template <int MODE>
@@ -178,7 +188,7 @@ __device__ __forceinline__ void store_rows(const CUtensorMap* map, uint32_t src,
 #pragma unroll
   for (int b = 0; b < BN / COLS; ++b) {
     if (w.n0 + b * COLS >= N) continue;
-    if (MODE == GEMM_DTN)
+    if (batched(MODE))
       tma_store_3d(map, src + b * 64 * 128, w.n0 + b * COLS, w.orow + wg * 64, w.b);
     else
       tma_store_2d(map, src + b * 64 * 128, w.n0 + b * COLS, w.orow + wg * 64);
@@ -201,7 +211,7 @@ gemm_sm90_kernel(const __grid_constant__ CUtensorMap ma, const __grid_constant__
   auto stage = [&](int it) { return base + STAGE_BYTES * (it % STAGES); };
   const int tiles_n = (g.N + BN - 1) / BN;
   const int tiles = tiles_n * ((g.M + BM - 1) / BM);
-  const int items = tiles * (MODE == GEMM_DW ? g.splits : MODE == GEMM_DTN ? g.batch : 1);
+  const int items = tiles * (MODE == GEMM_DW ? g.splits : batched(MODE) ? g.batch : 1);
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < STAGES; ++s) {
@@ -236,7 +246,10 @@ gemm_sm90_kernel(const __grid_constant__ CUtensorMap ma, const __grid_constant__
           } else {
             bar_expect_tx(full(it),
                           A_BYTES + (MODE == GEMM_DX ? A_BYTES : (right ? 2 : 1) * BOX64));
-            tma_load_2d(st, &ma, full(it), k, w.m0);
+            if (MODE == GEMM_BFWD)
+              tma_load_3d(st, &ma, full(it), k, w.m0, w.b);
+            else
+              tma_load_2d(st, &ma, full(it), k, w.m0);
           }
           if (MODE == GEMM_DX) {  // W as stored: 128 rows of it, K-major
             tma_load_2d(st + A_BYTES, &mw, full(it), k, w.n0);
@@ -244,6 +257,9 @@ gemm_sm90_kernel(const __grid_constant__ CUtensorMap ma, const __grid_constant__
             tma_load_3d(st + A_BYTES, &mi, full(it), w.n0, k - g.k_split, w.b);
             if (right)
               tma_load_3d(st + A_BYTES + BOX64, &mi, full(it), w.n0 + 64, k - g.k_split, w.b);
+          } else if (MODE == GEMM_BFWD) {  // image w.b's (K, N) block, MN-major as GEMM_FWD's W
+            tma_load_3d(st + A_BYTES, &mw, full(it), w.n0, k, w.b);
+            if (right) tma_load_3d(st + A_BYTES + BOX64, &mw, full(it), w.n0 + 64, k, w.b);
           } else {
             tma_load_2d(st + A_BYTES, &mw, full(it), w.n0, k);
             if (right) tma_load_2d(st + A_BYTES + BOX64, &mw, full(it), w.n0 + 64, k);
@@ -441,7 +457,7 @@ cudaError_t run(const CUtensorMap& ma, const CUtensorMap& mw, const CUtensorMap&
       (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
     return err;
   const int items = ((g.M + BM - 1) / BM) * ((g.N + BN - 1) / BN) *
-                    (MODE == GEMM_DW ? g.splits : MODE == GEMM_DTN ? g.batch : 1);
+                    (MODE == GEMM_DW ? g.splits : batched(MODE) ? g.batch : 1);
   gemm_sm90_kernel<EPI, MODE><<<items < sms ? items : sms, THREADS, Lay::SMEM, stream>>>(
       ma, mw, mo, mo2, mi, g);
   return cudaGetLastError();
@@ -525,6 +541,21 @@ cudaError_t gemm_sm90_dtn(const void* ce, const void* qn, const void* dg, void* 
       !make_map_3d(&mi, dg, B, N, D, BK) || !make_map_3d(&mo, dtn, B, L, D, 64))
     return cudaErrorInvalidValue;
   return run<EPI_BIAS, GEMM_DTN>(ma, mw, mo, mo, mi, g, stream);
+}
+
+cudaError_t gemm_sm90_vlc_g(const void* e, const void* tn, float* g, int N, int Np, int B, int L,
+                            int Lp, int D, cudaStream_t stream) {
+  if (D % 8 || Np % 64 || Lp % 64 || N > Np || L > Lp) return cudaErrorInvalidValue;
+  if (B == 0 || N == 0) return cudaSuccess;
+  GemmArgs a{e, tn, nullptr, nullptr, nullptr, 0.f, nullptr, nullptr, g, N, D, Lp};
+  a.batch = B;
+  // A: image b's (Np, Lp) block of e, K-major; B: tn[b] (L, D), MN-major, its rows
+  // past L zeros; g (B, N, D) fp32, its rows past N not written
+  CUtensorMap ma, mw, mo;
+  if (!make_map_3d(&ma, e, B, Np, Lp, BM) || !make_map_3d(&mw, tn, B, L, D, BK) ||
+      !make_map_3d(&mo, g, B, N, D, 64, true))
+    return cudaErrorInvalidValue;
+  return run<EPI_F32, GEMM_BFWD>(ma, mw, mo, mo, ma, a, stream);
 }
 
 }  // namespace rz

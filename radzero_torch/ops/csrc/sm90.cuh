@@ -352,16 +352,20 @@ inline bool make_map_2d(CUtensorMap* map, const void* p, int rows, int cols, int
   return encode_tiled(map, dtype, 2, p, dims, strides, box);
 }
 
-// `images` row-major (rows, cols) bf16 matrices, one after another, as a 3-D map
-// (cols, rows, images) read or written in boxes of 64 values by box_rows rows of
-// one image under the 128-byte swizzle: rows past an image's end come in as
-// zeros and are not written, whatever follows them in memory
+// `images` row-major (rows, cols) bf16 or fp32 matrices, one after another, as a
+// 3-D map (cols, rows, images) read or written in boxes of 128 bytes of a row (64
+// bf16 or 32 fp32 values) by box_rows rows of one image under the 128-byte
+// swizzle: rows past an image's end come in as zeros and are not written,
+// whatever follows them in memory
 inline bool make_map_3d(CUtensorMap* map, const void* p, int images, int rows, int cols,
-                        int box_rows) {
+                        int box_rows, bool fp32 = false) {
+  const cuuint64_t esize = fp32 ? 4 : 2;
   const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows, (cuuint64_t)images};
-  const cuuint64_t strides[2] = {(cuuint64_t)cols * 2, (cuuint64_t)rows * cols * 2};
-  const cuuint32_t box[3] = {64, (cuuint32_t)box_rows, 1};
-  return encode_tiled(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, p, dims, strides, box);
+  const cuuint64_t strides[2] = {(cuuint64_t)cols * esize, (cuuint64_t)rows * cols * esize};
+  const cuuint32_t box[3] = {(cuuint32_t)(128 / esize), (cuuint32_t)box_rows, 1};
+  const CUtensorMapDataType dtype =
+      fp32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  return encode_tiled(map, dtype, 3, p, dims, strides, box);
 }
 
 // byte offset of value (r, c) in a tile of ES-byte values kept as boxes of

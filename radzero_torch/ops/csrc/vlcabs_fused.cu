@@ -1,4 +1,6 @@
-// K5 vlcabs_fused for Hopper: zero-shot logits and pre-softmax maps.
+// K5 vlcabs_fused in fp32: zero-shot logits and pre-softmax maps. bf16 K5
+// runs the forward of vlcabs_sm90.cu instead (split over tokens, S and g on
+// wgmma).
 //
 // Replaces the TPU kernel radzero_tpu/ops/pallas_vlcabs.py:vlcabs_fused
 // (_kernel). Per image b and query n, with q pre-normalised:
@@ -15,10 +17,9 @@
 // normalises each tile into shared memory, and keeps a running row max;
 // when the max grows the fp32 aggregate is rescaled. The logit does not
 // change when agg is scaled, so the rescale is exact up to rounding. At
-// the serving shapes (14 prompts, 8 images) the work is tiny next to the
-// towers and there are only B blocks: it is bound by one block's latency
-// walking 1370 tokens, and the products run on CUDA cores in fp32. A
-// split over L with a combine pass is later work.
+// the serving shapes (14 prompts, 8 images) there are only B blocks: it is
+// bound by one block's latency walking 1370 tokens, and the products run on
+// CUDA cores in true fp32.
 #include "common.cuh"
 
 namespace rz {
@@ -181,16 +182,13 @@ cudaError_t launch_vlcabs(const void* qn, const void* t, const void* tau, void* 
 
 }  // namespace rz
 
-// K5: qn (N, D), t (B, L, D), tau (1,) fp32 on the device ->
+// K5 in fp32: qn (N, D), t (B, L, D), tau (1,) fp32 on the device ->
 //     scores (B, N, L) fp32, logits (N, B) fp32
 extern "C" int rz_vlcabs_fused(const void* qn, const void* t, const void* tau, void* scores,
                                void* logits, int N, int B, int L, int D, int dtype,
                                void* stream) {
-  if (D > rz::VT * rz::VMAXC) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err =
-      dtype == RZ_DTYPE_BF16
-          ? rz::launch_vlcabs<__nv_bfloat16>(qn, t, tau, scores, logits, N, B, L, D, s)
-          : rz::launch_vlcabs<float>(qn, t, tau, scores, logits, N, B, L, D, s);
-  return static_cast<int>(err);
+  if (D > rz::VT * rz::VMAXC || dtype != RZ_DTYPE_F32)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(rz::launch_vlcabs<float>(qn, t, tau, scores, logits, N, B, L, D,
+                                                   static_cast<cudaStream_t>(stream)));
 }

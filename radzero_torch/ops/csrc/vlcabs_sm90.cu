@@ -1,8 +1,48 @@
-// K12 vlcabs_train_bwd_dtn in bf16 for Hopper: the gradient of the
-// normalised tokens in two phases, after the backward's row pass of
-// vlcabs_train.cu (dg from the forward's g) and with the forward's row max.
+// The bf16 VL-CABS kernels for Hopper: the forward of K5 vlcabs_fused and
+// K10 vlcabs_train_forward (below), and K12 vlcabs_train_bwd_dtn.
 //
-// Replaces the TPU kernel radzero_tpu/ops/pallas_vlcabs.py _train_bwd's
+// K5 / K10 replace the TPU kernels radzero_tpu/ops/pallas_vlcabs.py
+// vlcabs_fused (_kernel, the pallas_call at :115) and _train_forward
+// (_kernel_fwd_logits, :310), with their contract: per image b, tn =
+// t rsqrt(sum t^2 + 1e-24) rounded, s = qn . tn^T / tau in fp32 (columns past
+// L out of the row max), e = exp(s - rowmax(s)) rounded to bf16, g = e . tn
+// summed in fp32, logit = qn . g / max(|g|, 1e-12); K5 also returns s as the
+// map, K10 under autograd the row max and g, which K11 and K12 read.
+//
+// What bounds them on the H100: at the training step (N 512, B 64, L 1370,
+// D 768) the two products, 4 N L D B = 138 GFLOP, 0.14 ms at 989 TFLOP/s; at
+// serving's 14 prompts x 8 images the bytes, s (0.6 MB) and the tokens (17
+// MB), 0.005 ms. The TPU kernels hold an image's whole token set and its
+// (N, L) scores in VMEM, one grid step an image; here that is 8 blocks at
+// serving's shape, each walking 1370 tokens. So the forward is split over
+// tokens into five launches, each with work for every SM:
+// - rownorm_kernel (vlcabs_train.cu) writes tn once, bf16 (B, L, D);
+// - phase 1 (vlc_scores_sm90_kernel, here) runs over (image, 128-query,
+//   128-token) work items, a persistent block an SM: a producer warp keeps a
+//   ring of five 32 KB stages in flight by TMA (qn and tn as stored, K-major,
+//   tn through a 3-D map with an image coordinate so that rows past an image
+//   come in as zeros), each consumer warpgroup accumulates its 64 queries'
+//   S = qn . tn^T on wgmma m64n128k16 (a warpgroup whose queries all lie past
+//   N issues none) and, on the accumulators, takes s = S / tau, writes s in
+//   fp32 into (B, N, L) (K5's map itself; TMA cannot store it, since a row of
+//   1370 fp32 values is no multiple of 16 bytes) and the maximum of each row
+//   over the item's 128 tokens into tmax (B, N, ceil(L / 128));
+// - the row pass (vlc_exp_rows_kernel, here), a warp a row of e (B, Np, Lp),
+//   Np and Lp N and L rounded up to 64: the row max from the tile maxima,
+//   e = exp2((s - m) log2 e) rounded to bf16, zeros past L and in the rows
+//   past N, so phase 2 reads nothing uninitialised, and the row max (B, N);
+// - phase 2, g[b] = e[b] . tn[b] on gemm_sm90_kernel<EPI_F32, GEMM_BFWD>
+//   (gemm_sm90.cu), written once in fp32;
+// - vlc_logits_kernel (vlcabs_train.cu), a warp an (image, query): z = qn . g
+//   / max(|g|, 1e-12) with the backward's row pass's arithmetic and order, so
+//   the forward's logit and the backward's z have the same bits.
+// Nothing is summed across blocks: a second call gives the same bits.
+//
+// K12 computes the gradient of the normalised tokens in two phases, after the
+// backward's row pass of vlcabs_train.cu (dg from the forward's g) and with
+// the forward's row max.
+//
+// K12 replaces the TPU kernel radzero_tpu/ops/pallas_vlcabs.py _train_bwd's
 // second pallas_call (_kernel_bwd_dtn, :403), with its contract: per image
 // b, s = qn . tn^T / tau and de = dg . tn^T in fp32, e = exp(s - rowmax(s)),
 // dc = de e / tau, dtn = dc^T . qn + e^T . dg, e and dc rounded to bf16
@@ -200,11 +240,174 @@ vlc_dtn_phase1_sm90_kernel(const __grid_constant__ CUtensorMap mq,
   if (leader) bulk_wait_read();  // the shared memory outlives the last stores' reads
 }
 
+// ---------------------------------------------------------------------------
+// K5 / K10 in bf16: phase 1 (s and the tile maxima) and the row pass (e)
+// ---------------------------------------------------------------------------
+
+namespace fw {
+constexpr int QT = 128;                   // queries of a work item: 64 a consumer warpgroup
+constexpr int LT = 128;                   // tokens of a work item: the span of a tile maximum
+constexpr int KS = 64;                    // k-step: 64 columns of D
+constexpr int THREADS = 288;              // two consumer warpgroups + the producer warp
+constexpr int Q_BYTES = QT * KS * 2;      // 16 KB: 128 queries x 64
+constexpr int TN_BYTES = LT * KS * 2;     // 16 KB: 128 tokens x 64
+constexpr int STAGE = Q_BYTES + TN_BYTES;
+constexpr int STAGES = 5;
+constexpr int BAR_OFF = STAGES * STAGE;
+constexpr size_t SMEM = BAR_OFF + 8 * 2 * STAGES + 1024;  // + room to align
+constexpr int ROW_WARPS = 8;              // the row pass: warps (rows) a block
+}  // namespace fw
+
+// grid: min(work items, SMs); work items (image, 128 queries, 128 tokens), tokens fastest
+__global__ void __launch_bounds__(fw::THREADS, 1)
+vlc_scores_sm90_kernel(const __grid_constant__ CUtensorMap mq,
+                       const __grid_constant__ CUtensorMap mt, const float* __restrict__ tau,
+                       float* __restrict__ s, float* __restrict__ tmax, int N, int B, int L,
+                       int D) {
+  using namespace fw;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  const uint32_t bars = base + BAR_OFF;  // full[STAGES], empty[STAGES]
+  auto full = [&](int it) { return bars + 8 * (it % STAGES); };
+  auto empty = [&](int it) { return bars + 8 * (STAGES + it % STAGES); };
+  auto stage = [&](int it) { return base + STAGE * (it % STAGES); };
+  const int tiles_l = (L + LT - 1) / LT, per_image = (N + QT - 1) / QT * tiles_l;
+  const int items = per_image * B, ksteps = (D + KS - 1) / KS;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < STAGES; ++i) {
+      bar_init(full(i), 1);
+      bar_init(empty(i), CONSUMERS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= CONSUMERS) {  // the producer warp: one thread keeps the ring full
+    if (threadIdx.x == CONSUMERS) {
+      int it = 0;
+      for (int t = blockIdx.x; t < items; t += gridDim.x) {
+        const int b = t / per_image, r = t % per_image;
+        const int n0 = r / tiles_l * QT, l0 = r % tiles_l * LT;
+        for (int ks = 0; ks < ksteps; ++ks, ++it) {
+          const uint32_t st = stage(it);
+          bar_wait(empty(it), ((it / STAGES) & 1) ^ 1);  // released by both warpgroups
+          bar_expect_tx(full(it), STAGE);  // boxes past N, L or D count, as zeros
+          tma_load_2d(st, &mq, full(it), ks * KS, n0);
+          tma_load_3d(st + Q_BYTES, &mt, full(it), ks * KS, l0, b);
+        }
+      }
+    }
+    return;
+  }
+
+  const int ct = threadIdx.x;
+  const int wg = ct / 128, warp = (ct % 128) / 32, lane = ct % 32, quad = lane % 4;
+  const int rl = warp * 16 + lane / 4;  // its first row in the warpgroup's 64
+  const float inv_tau = 1.0f / tau[0];
+  const bool pairs = (L & 1) == 0;  // a row's column pairs are 8-byte aligned
+  float acc[64];  // rows rl (+ 8), columns 8 j + 2 quad (+ 1): acc[4 j + 2 i + e]
+  int it = 0;
+  for (int t = blockIdx.x; t < items; t += gridDim.x) {
+    const int b = t / per_image, r = t % per_image;
+    const int n0 = r / tiles_l * QT + wg * 64, l0 = r % tiles_l * LT;  // this warpgroup's
+    const bool live = n0 < N;  // any of its 64 queries is real
+    for (int ks = 0; ks < ksteps; ++ks, ++it) {
+      bar_wait(full(it), (it / STAGES) & 1);
+      if (!live) {
+        bar_arrive(empty(it));
+        continue;
+      }
+      const uint32_t st = stage(it);
+      const uint64_t da = desc(st + wg * 64 * 128, 1, 64);  // its 64 queries, K-major
+      const uint64_t db = desc(st + Q_BYTES, 1, 64);        // 128 tokens, K-major
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < KS / 16; ++kk)
+        wgmma_n128<0, 0>(acc, da + 2 * kk, db + 2 * kk, ks > 0 || kk > 0);
+      wg_commit();
+      if (ks > 0) {  // the last k-step's products are in: its stage is free
+        wg_wait_one();
+        bar_arrive(empty(it - 1));
+      }
+    }
+    if (!live) continue;
+    wg_wait_all();
+    pin(acc);
+    bar_arrive(empty(it - 1));
+
+    // epilogue on the accumulators: s = S / tau into (B, N, L), the row's
+    // maximum over the item's real tokens into tmax
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int n = n0 + rl + 8 * i;
+      float* srow = s + ((size_t)b * N + n) * L;
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < LT / 8; ++j) {
+        const int l = l0 + 8 * j + 2 * quad;
+        const float v0 = acc[4 * j + 2 * i] * inv_tau, v1 = acc[4 * j + 2 * i + 1] * inv_tau;
+        if (l < L) mx = fmaxf(mx, v0);
+        if (l + 1 < L) mx = fmaxf(mx, v1);
+        if (n < N) {
+          if (pairs && l + 1 < L) {
+            *reinterpret_cast<float2*>(srow + l) = make_float2(v0, v1);
+          } else {
+            if (l < L) srow[l] = v0;
+            if (l + 1 < L) srow[l + 1] = v1;
+          }
+        }
+      }
+      // the row's four quad lanes hold its 128 columns
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      if (quad == 0 && n < N) tmax[((size_t)b * N + n) * tiles_l + l0 / LT] = mx;
+    }
+  }
+}
+
+// one warp a row of e (B, Np, Lp): m = the maximum of the row's tile maxima,
+// then e = exp2((s - m) log2 e) rounded to bf16, zeros past L; the rows past N
+// are zeros; rowmax (B, N) gets m
+__global__ void __launch_bounds__(fw::ROW_WARPS * 32)
+vlc_exp_rows_kernel(const float* __restrict__ s, const float* __restrict__ tmax,
+                    __nv_bfloat16* __restrict__ e, float* __restrict__ rowmax, int N, int Np,
+                    int B, int L, int Lp) {
+  const int lane = threadIdx.x % 32, row = blockIdx.x * fw::ROW_WARPS + threadIdx.x / 32;
+  if (row >= B * Np) return;
+  const int b = row / Np, n = row % Np, tiles = (L + fw::LT - 1) / fw::LT;
+  __nv_bfloat162* erow = reinterpret_cast<__nv_bfloat162*>(e + (size_t)row * Lp);
+  if (n >= N) {
+    for (int c = lane; c < Lp / 2; c += 32) erow[c] = __floats2bfloat162_rn(0.f, 0.f);
+    return;
+  }
+  const size_t r = (size_t)b * N + n;
+  float m = -INFINITY;
+  for (int k = lane; k < tiles; k += 32) m = fmaxf(m, tmax[r * tiles + k]);
+  for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+  if (lane == 0) rowmax[r] = m;
+  const float* srow = s + r * L;
+  for (int c = lane; c < Lp / 2; c += 32) {
+    const int l = 2 * c;
+    const float e0 = l < L ? exp2f((srow[l] - m) * kLog2e) : 0.f;
+    const float e1 = l + 1 < L ? exp2f((srow[l + 1] - m) * kLog2e) : 0.f;
+    erow[c] = __floats2bfloat162_rn(e0, e1);
+  }
+}
+
 }  // namespace vt
 }  // namespace rz
 
 static bool vt_sm90_ok(int N, int Np, int L, int Lp, int D) {
   return D % 64 == 0 && Np % 64 == 0 && Lp % 64 == 0 && N <= Np && L <= Lp && N > 0 && L > 0;
+}
+
+// the card's SMs: a persistent grid's size
+static int vt_sms(int* sms) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  return static_cast<int>(err);
 }
 
 // K12 phase 1 (bf16): qn (N, D), tn (B, L, D), dg (B, N, D), rowmax (B, N) fp32 and
@@ -221,10 +424,8 @@ extern "C" int rz_vlcabs_dtn_phase1(const void* qn, const void* tn, const void* 
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = rz::allow_smem(vlc_dtn_phase1_sm90_kernel, p1::SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
-  int dev = 0, sms = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
-      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
-    return static_cast<int>(err);
+  int sms = 0;
+  if (const int e = vt_sms(&sms)) return e;
   const int items = B * (Np / p1::QT) * ((L + p1::LT - 1) / p1::LT);
   vlc_dtn_phase1_sm90_kernel<<<items < sms ? items : sms, p1::THREADS, p1::SMEM,
                                static_cast<cudaStream_t>(stream)>>>(
@@ -239,4 +440,51 @@ extern "C" int rz_vlcabs_dtn_phase2(const void* ce, const void* qn, const void* 
   if (!vt_sm90_ok(N, Np, L, Lp, D)) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(
       rz::gemm_sm90_dtn(ce, qn, dg, dtn, N, Np, B, L, Lp, D, static_cast<cudaStream_t>(stream)));
+}
+
+// K5 / K10 phase 1 (bf16): qn (N, D), tn (B, L, D), tau (1,) fp32 -> s (B, N, L) fp32
+// = qn . tn^T / tau and tmax (B, N, ceil(L / 128)) fp32, each row's maximum over
+// each 128-token tile
+extern "C" int rz_vlcabs_fwd_scores(const void* qn, const void* tn, const void* tau, void* s,
+                                    void* tmax, int N, int B, int L, int D, void* stream) {
+  using namespace rz::vt;
+  if (D % 8 || N <= 0 || L <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (B == 0) return 0;
+  CUtensorMap mq, mt;
+  if (!make_map_2d(&mq, qn, N, D, fw::QT) || !make_map_3d(&mt, tn, B, L, D, fw::LT))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = rz::allow_smem(vlc_scores_sm90_kernel, fw::SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int sms = 0;
+  if (const int e = vt_sms(&sms)) return e;
+  const int items = B * ((N + fw::QT - 1) / fw::QT) * ((L + fw::LT - 1) / fw::LT);
+  vlc_scores_sm90_kernel<<<items < sms ? items : sms, fw::THREADS, fw::SMEM,
+                           static_cast<cudaStream_t>(stream)>>>(
+      mq, mt, static_cast<const float*>(tau), static_cast<float*>(s), static_cast<float*>(tmax),
+      N, B, L, D);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K5 / K10 row pass: s (B, N, L), tmax (B, N, ceil(L / 128)) fp32 -> e (B, Np, Lp)
+// bf16, zeros past N and L, and the row max (B, N) fp32
+extern "C" int rz_vlcabs_fwd_rows(const void* s, const void* tmax, void* e, void* rowmax, int N,
+                                  int Np, int B, int L, int Lp, void* stream) {
+  using namespace rz::vt;
+  if (!vt_sm90_ok(N, Np, L, Lp, 64)) return static_cast<int>(cudaErrorInvalidValue);
+  const int rows = B * Np;
+  if (rows == 0) return 0;
+  vlc_exp_rows_kernel<<<(rows + fw::ROW_WARPS - 1) / fw::ROW_WARPS, fw::ROW_WARPS * 32, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(s), static_cast<const float*>(tmax),
+      static_cast<__nv_bfloat16*>(e), static_cast<float*>(rowmax), N, Np, B, L, Lp);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K5 / K10 phase 2 (bf16): g (B, N, D) fp32 = e[b] . tn[b] per image, from the row
+// pass's e (B, Np, Lp) and tn (B, L, D)
+extern "C" int rz_vlcabs_fwd_g(const void* e, const void* tn, void* g, int N, int Np, int B,
+                               int L, int Lp, int D, void* stream) {
+  if (!vt_sm90_ok(N, Np, L, Lp, 64) || D % 8) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(rz::gemm_sm90_vlc_g(e, tn, static_cast<float*>(g), N, Np, B, L, Lp, D,
+                                              static_cast<cudaStream_t>(stream)));
 }

@@ -1,7 +1,9 @@
 // K10, K11, K12: the differentiable VL-CABS for Hopper (logits only).
 //
 // Replace the TPU kernels of radzero_tpu/ops/pallas_vlcabs.py:
-//   K10 _train_forward            (_kernel_fwd_logits)
+//   K10 _train_forward            (_kernel_fwd_logits; in bf16 the forward of
+//                                  vlcabs_sm90.cu, whose last launch is
+//                                  vlc_logits_kernel here)
 //   K11 _train_bwd, first call    (_kernel_bwd_dq:  dq, dtau)
 //   K12 _train_bwd, second call   (_kernel_bwd_dtn: d(normalised tokens); in
 //                                  bf16 its products run vlcabs_sm90.cu's
@@ -32,13 +34,15 @@
 //   chunk is ever in shared memory. The tokens are normalised once per
 //   call into a (B, L, D) buffer of the operand type (a row kernel).
 // - g needs the whole row of e, and dg needs g, so the backward cannot be
-//   one pass. The forward kernel (pass 1) takes the row max in a first
+//   one pass. The fp32 forward kernel (pass 1) takes the row max in a first
 //   sweep over L and g in a second, with g (32 x D) held in accumulator
 //   registers, spread over the block's 8 warps by (16-row group, 64-column
 //   slice), and ends with the logit. Under autograd (MODE_STATS) it also
 //   writes the row max (B, N) and g (B, N, D) in fp32, which it holds anyway
 //   (as the attention forward keeps lse): the backward's statistics, so that
-//   neither K11 nor K12 runs pass 1 again. The backward starts with a row
+//   neither K11 nor K12 runs pass 1 again (the bf16 forward of vlcabs_sm90.cu
+//   writes the same two from its row pass and its second phase). The backward
+//   starts with a row
 //   pass (vlc_bwd_rows_kernel, a warp per (image, query)) that turns g and
 //   dz into dg (B, N, D; operand type) and, for K11, dz ghat (fp32), the
 //   arithmetic and order of pass 1's end; the second passes know the max,
@@ -57,9 +61,11 @@
 //   common.cuh). The k dimension of a score tile is split over four warps
 //   whose partial tiles are added in shared memory, because WMMA leaves the
 //   accumulator layout unspecified.
-// Not yet done (later work): K10 and K11's dq kernel on wgmma / TMA (K11's dq
-// can become one product over phase 1's dc, contracted over the images'
-// tokens), overlap of the chunk loads with the products in K10.
+// This file's pass 1 is K10 in fp32 only; bf16 K10 runs vlcabs_sm90.cu's
+// forward (rownorm_kernel, two Hopper phases and a row pass between them,
+// then vlc_logits_kernel below).
+// Not yet done (later work): K11's dq kernel on wgmma / TMA (it can become one
+// product over phase 1's dc, contracted over the images' tokens).
 #include "common.cuh"
 
 namespace rz {
@@ -233,8 +239,40 @@ vlc_pass1_kernel(const T* __restrict__ qn, const T* __restrict__ tn,
 }
 
 // ---------------------------------------------------------------------------
-// the backward's row pass: dg and dz ghat from the forward's g
+// rows of g: the bf16 forward's logits, the backward's dg and dz ghat
 // ---------------------------------------------------------------------------
+
+// (|g| clamped at 1e-12, z = qn . g / that) of one (image, query) row, a warp:
+// the sums and their order of pass 1's end, shared by the two kernels below,
+// so the bf16 forward's logit and the backward's z have the same bits
+template <typename T>
+__device__ __forceinline__ float2 row_norm_z(const T* __restrict__ qrow,
+                                             const float* __restrict__ grow, int D, int lane) {
+  float num = 0.f, sq = 0.f;
+  for (int c = lane; c < D; c += 32) {
+    const float gv = grow[c];
+    num = fmaf(to_f32(qrow[c]), gv, num);
+    sq = fmaf(gv, gv, sq);
+  }
+  for (int o = 16; o > 0; o >>= 1) {
+    num += __shfl_xor_sync(0xffffffffu, num, o);
+    sq += __shfl_xor_sync(0xffffffffu, sq, o);
+  }
+  const float norm = fmaxf(sqrtf(sq), 1e-12f);
+  return make_float2(norm, num / norm);
+}
+
+// one warp per (image, query) row of g (B, N, D) fp32: logits (N, B) = z
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+vlc_logits_kernel(const T* __restrict__ qn, const float* __restrict__ g,
+                  float* __restrict__ logits, int N, int B, int D) {
+  const int lane = threadIdx.x % 32, row = blockIdx.x * (THREADS / 32) + threadIdx.x / 32;
+  if (row >= B * N) return;
+  const int b = row / N, n = row % N;
+  const float z = row_norm_z(qn + (size_t)n * D, g + (size_t)row * D, D, lane).y;
+  if (lane == 0) logits[(size_t)n * B + b] = z;
+}
 
 // one warp per (image, query) row of g (B, N, D) fp32: z = qn . g / |g|, then
 // dg = dz (qn - z ghat) / |g| rounded to T, and dq_part = dz ghat in fp32 when
@@ -250,17 +288,8 @@ vlc_bwd_rows_kernel(const T* __restrict__ qn, const float* __restrict__ g,
   const int b = row / N, n = row % N;
   const T* qrow = qn + (size_t)n * D;
   const float* grow = g + (size_t)row * D;
-  float num = 0.f, sq = 0.f;
-  for (int c = lane; c < D; c += 32) {
-    const float gv = grow[c];
-    num = fmaf(to_f32(qrow[c]), gv, num);
-    sq = fmaf(gv, gv, sq);
-  }
-  for (int o = 16; o > 0; o >>= 1) {
-    num += __shfl_xor_sync(0xffffffffu, num, o);
-    sq += __shfl_xor_sync(0xffffffffu, sq, o);
-  }
-  const float norm = fmaxf(sqrtf(sq), 1e-12f), z = num / norm;
+  const float2 nz = row_norm_z(qrow, grow, D, lane);
+  const float norm = nz.x, z = nz.y;
   const float dzv = dz[(size_t)n * B + b];
   for (int c = lane; c < D; c += 32) {
     const float ghat = grow[c] / norm;
@@ -540,6 +569,16 @@ cudaError_t train_fwd(const void* qn, const void* t, const void* tau, void* tn, 
 }
 
 template <typename T>
+cudaError_t logits_rows(const void* qn, const void* g, void* logits, int N, int B, int D,
+                        cudaStream_t s) {
+  constexpr int PER = THREADS / 32;
+  vlc_logits_kernel<T><<<(B * N + PER - 1) / PER, THREADS, 0, s>>>(
+      static_cast<const T*>(qn), static_cast<const float*>(g), static_cast<float*>(logits), N, B,
+      D);
+  return cudaGetLastError();
+}
+
+template <typename T>
 cudaError_t bwd_rows(const void* qn, const void* g, const void* dz, void* dg, void* dq_part,
                      int N, int B, int D, cudaStream_t s) {
   constexpr int PER = THREADS / 32;
@@ -593,16 +632,15 @@ static bool vt_shape_ok(int D) { return D % 64 == 0 && D <= rz::vt::CW * rz::vt:
 #define RZ_VT_PICK(dtype, fn) \
   ((dtype) == RZ_DTYPE_BF16 ? rz::vt::fn<__nv_bfloat16> : rz::vt::fn<float>)
 
-// K10: qn (N, D), t (B, L, D), tau (1,) fp32 -> logits (N, B) fp32; with g
-//      non-null (autograd) also the statistics rowmax (B, N) and g (B, N, D),
-//      fp32. tn (B, L, D), operand type, is scratch the caller allocates.
+// K10 in fp32: qn (N, D), t (B, L, D), tau (1,) fp32 -> logits (N, B) fp32; with
+//      g non-null (autograd) also the statistics rowmax (B, N) and g (B, N, D),
+//      fp32. tn (B, L, D) fp32 is scratch the caller allocates.
 extern "C" int rz_vlcabs_train_fwd(const void* qn, const void* t, const void* tau, void* tn,
                                    void* logits, void* rowmax, void* g, int N, int B, int L,
                                    int D, int dtype, void* stream) {
-  if (!vt_shape_ok(D)) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(
-      RZ_VT_PICK(dtype, train_fwd)(qn, t, tau, tn, logits, rowmax, g, N, B, L, D, s));
+  if (!vt_shape_ok(D) || dtype != RZ_DTYPE_F32) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(rz::vt::train_fwd<float>(qn, t, tau, tn, logits, rowmax, g, N, B, L,
+                                                   D, static_cast<cudaStream_t>(stream)));
 }
 
 // tn (rows, D) = t * rsqrt(sum(t^2) + 1e-24), rounded to the operand type
@@ -610,6 +648,15 @@ extern "C" int rz_vlcabs_rownorm(const void* t, void* tn, int rows, int D, int d
                                  void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return static_cast<int>(RZ_VT_PICK(dtype, launch_rownorm)(t, tn, rows, D, s));
+}
+
+// the bf16 forward's last launch: qn (N, D), g (B, N, D) fp32 -> logits (N, B) fp32,
+// z = qn . g / max(|g|, 1e-12) with the backward row pass's arithmetic
+extern "C" int rz_vlcabs_logits(const void* qn, const void* g, void* logits, int N, int B, int D,
+                                int dtype, void* stream) {
+  if (B * N == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(RZ_VT_PICK(dtype, logits_rows)(qn, g, logits, N, B, D, s));
 }
 
 // the backward's row pass: qn (N, D), g (B, N, D) fp32 and dz (N, B) fp32 ->

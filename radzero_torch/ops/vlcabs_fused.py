@@ -44,9 +44,16 @@ rounded to the tokens' dtype once.
 Each wrapper runs its plain twin (``*_plain``) on a CPU tensor and its CUDA
 kernel (``csrc/vlcabs_fused.cu``, ``csrc/vlcabs_train.cu``,
 ``csrc/vlcabs_sm90.cu``) on a CUDA tensor; ``<wrapper>.launches`` counts
-kernel launches. The kernels walk L in tiles; K5 keeps a running max (the
-cosine is invariant to scaling agg, so that is exact), K10 takes the row
-max in a first sweep and hands it, with g, to K11 and K12. On the card K11
+kernel launches, one a call of an entry point whatever its stages. In bf16
+K5 and K10 are one forward split over tokens (:func:`vlcabs_forward_stages`):
+the tokens' row pass (:func:`vlcabs_rownorm`), s and each row's maximum per
+128-token tile on wgmma (:func:`vlcabs_fwd_scores`; s is K5's map), a row
+pass writing e into a zero-padded (B, Np, Lp) buffer and the row max
+(:func:`vlcabs_fwd_rows`), g = e tn per image on the Hopper GEMM
+(:func:`vlcabs_fwd_g`), and the logits (:func:`vlcabs_logits`); the row max
+and g are K10's statistics. In fp32 K5 is one kernel that walks L in tiles
+with a running max (the cosine is invariant to scaling agg, so that is
+exact) and K10 takes the row max in a first sweep. On the card K11
 and K12 compose stages that can each be held against a twin: the tokens'
 row pass (:func:`vlcabs_rownorm`), the backward's row pass
 (:func:`vlcabs_bwd_rows`: dg and dz ghat from g), then K11's dq kernel and
@@ -81,7 +88,8 @@ def vlcabs_fused_plain(queries_normed, tokens, tau):
 
 def vlcabs_fused(queries_normed, tokens, tau):
     """(N, D) l2-normalised queries, (B, L, D) tokens, scalar fp32 tau ->
-    (logits (N, B) fp32, scores (B, N, L) fp32)."""
+    (logits (N, B) fp32, scores (B, N, L) fp32). On the card bf16 runs
+    :func:`vlcabs_forward_stages` (D % 8 == 0), fp32 one kernel (D <= 1024)."""
     forbid_grad("vlcabs_fused (K5)", "use vlcabs_fused_train, whose backward runs K11 and K12",
                 queries_normed, tokens, tau)
     if not on_cuda(tokens):
@@ -92,6 +100,12 @@ def vlcabs_fused(queries_normed, tokens, tau):
     tau = tau.reshape(1)
     if tau.dtype != torch.float32 or tau.device != tokens.device:
         raise TypeError("vlcabs_fused: tau must be a float32 tensor on the tokens' device")
+    if tokens.dtype == torch.bfloat16:
+        if d % 8:
+            raise ValueError(f"vlcabs_fused: the bf16 kernels take D % 8 == 0, got {d}")
+        logits, scores, _ = vlcabs_forward_stages(queries_normed, tokens, tau)
+        vlcabs_fused.launches += 1
+        return logits, scores
     if d > 1024:
         raise ValueError(f"vlcabs_fused: the kernel takes D <= 1024, got {d}")
     scores = torch.empty((b, n, l), dtype=torch.float32, device=tokens.device)
@@ -107,6 +121,133 @@ def vlcabs_fused(queries_normed, tokens, tau):
 
 
 vlcabs_fused.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The stages of the bf16 forward of K5 and K10 (csrc/vlcabs_sm90.cu) and their
+# plain twins. Each stage wrapper runs its twin on a CPU tensor and its kernel
+# on a CUDA tensor; the stages count no launches of their own (K5 and K10,
+# which compose them, do).
+# ---------------------------------------------------------------------------
+
+_TOKEN_TILE = 128  # tokens of a tile maximum: phase 1's work item
+
+
+def _tiles(l):
+    return -(-l // _TOKEN_TILE)
+
+
+def vlcabs_fwd_scores_plain(queries_normed, tn, tau):
+    n = queries_normed.shape[0]
+    b, l, _ = tn.shape
+    s = torch.einsum("nd,bld->bnl", queries_normed.float(), tn.float())
+    s = s * (1.0 / tau.float().reshape(()))
+    padded = torch.nn.functional.pad(s, (0, _tiles(l) * _TOKEN_TILE - l), value=-torch.inf)
+    return s, padded.reshape(b, n, _tiles(l), _TOKEN_TILE).amax(-1)
+
+
+def vlcabs_fwd_scores(queries_normed, tn, tau):
+    """The forward's first phase: (N, D) queries, the normalised tokens tn
+    (B, L, D) and tau (1,) -> (s = qn tn^T / tau (B, N, L) fp32, tmax (B, N,
+    ceil(L / 128)) fp32: each row's maximum over each 128-token tile). On the
+    card bf16 only: per (image, 128 queries, 128 tokens) item, S on wgmma fed
+    by a TMA ring, s and the maximum from the accumulators."""
+    if not on_cuda(tn):
+        return vlcabs_fwd_scores_plain(queries_normed, tn, tau)
+    n, d = queries_normed.shape
+    b, l, _ = tn.shape
+    _check_bf16("vlcabs_fwd_scores", tn, queries_normed=((n, d), queries_normed))
+    _check_f32("vlcabs_fwd_scores", tn.device, tau=((1,), tau))
+    s = torch.empty((b, n, l), dtype=torch.float32, device=tn.device)
+    tmax = torch.empty((b, n, _tiles(l)), dtype=torch.float32, device=tn.device)
+    _build.check(_build.load().rz_vlcabs_fwd_scores(
+        queries_normed.data_ptr(), tn.data_ptr(), tau.data_ptr(), s.data_ptr(), tmax.data_ptr(),
+        n, b, l, d, _build.stream_ptr(tn)), "vlcabs_fwd_scores")
+    return s, tmax
+
+
+def vlcabs_fwd_rows_plain(s, tmax, dtype):
+    b, n, l = s.shape
+    m = tmax.amax(-1)
+    e = torch.zeros((b, _pad64(n), _pad64(l)), dtype=dtype, device=s.device)
+    e[:, :n, :l] = torch.exp2((s - m[..., None]) * _LOG2E).to(dtype)
+    return e, m
+
+
+def vlcabs_fwd_rows(s, tmax, dtype=torch.bfloat16):
+    """The forward's row pass: s (B, N, L) and tmax from
+    :func:`vlcabs_fwd_scores` -> (e (B, Np, Lp) in ``dtype``, Np and Lp N and L
+    rounded up to 64: e = exp(s - rowmax) rounded, zeros past N and L; the row
+    max (B, N) fp32). On the card bf16 only, a warp a row."""
+    if not on_cuda(s):
+        return vlcabs_fwd_rows_plain(s, tmax, dtype)
+    b, n, l = s.shape
+    if dtype != torch.bfloat16:
+        raise TypeError(f"vlcabs_fwd_rows: the card's row pass writes bfloat16, not {dtype}")
+    _check_f32("vlcabs_fwd_rows", s.device, s=((b, n, l), s), tmax=((b, n, _tiles(l)), tmax))
+    np_, lp = _pad64(n), _pad64(l)
+    e = torch.empty((b, np_, lp), dtype=dtype, device=s.device)
+    rowmax = torch.empty((b, n), dtype=torch.float32, device=s.device)
+    _build.check(_build.load().rz_vlcabs_fwd_rows(
+        s.data_ptr(), tmax.data_ptr(), e.data_ptr(), rowmax.data_ptr(), n, np_, b, l, lp,
+        _build.stream_ptr(s)), "vlcabs_fwd_rows")
+    return e, rowmax
+
+
+def vlcabs_fwd_g_plain(e, tn, n):
+    l = tn.shape[1]
+    return e[:, :n, :l].float().contiguous() @ tn.float()
+
+
+def vlcabs_fwd_g(e, tn, n):
+    """The forward's second phase: g[b] = e[b] tn[b] -> (B, N, D) fp32 from
+    :func:`vlcabs_fwd_rows`' e (B, Np, Lp) and tn (B, L, D), summed in fp32.
+    On the card bf16 only: gemm_sm90_kernel's GEMM_FWD layout with an image
+    coordinate (csrc/gemm_sm90.cu)."""
+    if not on_cuda(e):
+        return vlcabs_fwd_g_plain(e, tn, n)
+    b, l, d = tn.shape
+    np_, lp = _pad64(n), _pad64(l)
+    _check_bf16("vlcabs_fwd_g", tn, e=((b, np_, lp), e))
+    g = torch.empty((b, n, d), dtype=torch.float32, device=tn.device)
+    _build.check(_build.load().rz_vlcabs_fwd_g(
+        e.data_ptr(), tn.data_ptr(), g.data_ptr(), n, np_, b, l, lp, d, _build.stream_ptr(tn)),
+        "vlcabs_fwd_g")
+    return g
+
+
+def vlcabs_logits_plain(queries_normed, g):
+    num = (queries_normed.float() * g).sum(-1)
+    norm = g.square().sum(-1).sqrt()
+    return (num / norm.clamp_min(1e-12)).T
+
+
+def vlcabs_logits(queries_normed, g):
+    """(N, D) queries and g (B, N, D) fp32 -> logits (N, B) fp32, z = qn . g /
+    max(|g|, 1e-12): a warp an (image, query), the arithmetic and order of the
+    backward's row pass (:func:`vlcabs_bwd_rows`), so the two z agree bit for
+    bit."""
+    if not on_cuda(g):
+        return vlcabs_logits_plain(queries_normed, g)
+    (b, n, d), dev = g.shape, g.device
+    code = check_operands("vlcabs_logits", queries_normed)
+    _check_f32("vlcabs_logits", dev, g=((b, n, d), g))
+    logits = torch.empty((n, b), dtype=torch.float32, device=dev)
+    _build.check(_build.load().rz_vlcabs_logits(
+        queries_normed.data_ptr(), g.data_ptr(), logits.data_ptr(), n, b, d, code,
+        _build.stream_ptr(g)), "vlcabs_logits")
+    return logits
+
+
+def vlcabs_forward_stages(queries_normed, tokens, tau):
+    """The forward as the card runs it in bf16, stage by stage -> (logits (N,
+    B), s (B, N, L), (row max (B, N), g (B, N, D))), all fp32; on CPU tensors
+    the stage twins, rounding where the kernels round."""
+    tn = vlcabs_rownorm(tokens)
+    s, tmax = vlcabs_fwd_scores(queries_normed, tn, tau)
+    e, rowmax = vlcabs_fwd_rows(s, tmax, tokens.dtype)
+    g = vlcabs_fwd_g(e, tn, queries_normed.shape[0])
+    return vlcabs_logits(queries_normed, g), s, (rowmax, g)
 
 
 # ---------------------------------------------------------------------------
@@ -158,15 +299,20 @@ def vlcabs_train_forward_plain(queries_normed, tokens, tau, *, with_stats=False)
 
 def vlcabs_train_forward(queries_normed, tokens, tau, *, with_stats=False):
     """K10: (N, D) l2-normalised queries, (B, L, D) tokens, fp32 tau ->
-    logits (N, B) fp32. No map is written. With ``with_stats`` -> (logits,
+    logits (N, B) fp32. No map is returned. With ``with_stats`` -> (logits,
     (row max (B, N), g (B, N, D))), the fp32 statistics that the backward
-    kernels read (:func:`vlcabs_fused_train` keeps them). No tape:
-    differentiate through :func:`vlcabs_fused_train`."""
+    kernels read (:func:`vlcabs_fused_train` keeps them). On the card bf16
+    runs :func:`vlcabs_forward_stages`, fp32 the tokens' row pass and one
+    kernel. No tape: differentiate through :func:`vlcabs_fused_train`."""
     forbid_grad("vlcabs_train_forward (K10)", "call vlcabs_fused_train, the autograd function",
                 queries_normed, tokens, tau)
     if not on_cuda(tokens):
         return vlcabs_train_forward_plain(queries_normed, tokens, tau, with_stats=with_stats)
     n, b, l, d, code = _check_train_operands("vlcabs_train_forward", queries_normed, tokens, tau)
+    if tokens.dtype == torch.bfloat16:  # the statistics come with every call
+        logits, _, stats = vlcabs_forward_stages(queries_normed, tokens, tau.reshape(1))
+        vlcabs_train_forward.launches += 1
+        return (logits, stats) if with_stats else logits
     tn = torch.empty_like(tokens)
     logits = torch.empty((n, b), dtype=torch.float32, device=tokens.device)
     rowmax = g = None

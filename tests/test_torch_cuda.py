@@ -372,22 +372,95 @@ def test_vlcabs_backward_routes_by_name(k, dtype):
     assert _kernel_kinds(names, want) == want, names
 
 
+# bf16 K5 / K10: the tokens' row pass, phase 1 (S on wgmma, s and the tile
+# maxima), the row pass into e, phase 2 (gemm_sm90_kernel<EPI_F32, GEMM_BFWD>) and
+# the logits; fp32 K5 its one kernel, fp32 K10 the row pass and pass 1
+VLCABS_FWD_BF16 = ["gemm_sm90_kernel<8, 4>", "rownorm_kernel", "vlc_exp_rows_kernel",
+                   "vlc_logits_kernel", "vlc_scores_sm90_kernel"]
+VLCABS_FWD_ROUTES = {
+    ("K5", torch.bfloat16): VLCABS_FWD_BF16, ("K10", torch.bfloat16): VLCABS_FWD_BF16,
+    ("K5", torch.float32): ["vlcabs_kernel<float>"],
+    ("K10", torch.float32): ["rownorm_kernel", "vlc_pass1_kernel<float"],
+}
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_vlcabs_forward_with_statistics_runs_pass1_once(dtype):
-    """Under autograd K10 runs the token row pass and pass 1 once, which
-    writes the statistics beside the logits; the logits are those of the
-    forward without them, bit for bit."""
+    """Under autograd K10 runs its forward once, which writes the statistics
+    beside the logits (bf16: the five stages, never vlc_pass1_kernel; fp32:
+    the token row pass and pass 1); the logits are those of the forward
+    without them, bit for bit."""
     g = torch.Generator(device="cuda").manual_seed(21)
     q, t, tau, _ = _vlcabs_case(g, dtype, 70, 2, 130, 128)
     names = _device_kernels(lambda: vf.vlcabs_train_forward(q, t, tau, with_stats=True))
-    assert _kernel_kinds(names, ["rownorm_kernel", "vlc_pass1_kernel"]) == [
-        "rownorm_kernel", "vlc_pass1_kernel"], names
+    want = VLCABS_FWD_ROUTES[("K10", dtype)]
+    assert _kernel_kinds(names, want) == want, names
     logits, (rowmax, gs) = vf.vlcabs_train_forward(q, t, tau, with_stats=True)
     assert torch.equal(logits, vf.vlcabs_train_forward(q, t, tau))
     ref_m, ref_g = vf.vlcabs_train_stats_plain(q, t, tau)
     atol, rtol = TOL[dtype]
     torch.testing.assert_close(rowmax, ref_m, atol=atol, rtol=rtol)
     torch.testing.assert_close(gs, ref_g, atol=atol * ref_g.abs().max().item(), rtol=rtol)
+
+
+@pytest.mark.parametrize("k,dtype", sorted(VLCABS_FWD_ROUTES, key=str))
+def test_vlcabs_forward_routes_by_name(k, dtype):
+    """bf16 K5 and K10 run the five launches of the Hopper forward and neither
+    vlcabs_kernel<__nv_bfloat16> nor vlc_pass1_kernel<__nv_bfloat16, .>; fp32
+    keeps its kernels."""
+    g = torch.Generator(device="cuda").manual_seed(29)
+    q, t, tau, _ = _vlcabs_case(g, dtype, 14, 3, 200, 128)
+    fn = vf.vlcabs_fused if k == "K5" else vf.vlcabs_train_forward
+    names = _device_kernels(lambda: fn(q, t, tau))
+    want = VLCABS_FWD_ROUTES[(k, dtype)]
+    assert _kernel_kinds(names, want) == want, names
+    assert not any("__nv_bfloat16" in name and ("vlcabs_kernel" in name or "vlc_pass1" in name)
+                   for name in names), names
+
+
+# the bf16 forward's stages, each against its twin on the kernel's own inputs:
+# a ragged shape (N, L no multiple of 16, 64 or 128; L short of one token tile),
+# serving's 14 prompts x 8 images and the training step's 512 x 64 at 1370 x 768.
+# s and the tile maxima are fp32 sums of the same bf16 products in another order
+# (the JAX suite's 1e-4 on maps); e is rounded to bf16 from fp32 values on both
+# sides (a flip is one bf16 ulp, 2^-8 relative, plus exp2's few fp32 ulps); g is
+# an fp32 sum of the same products in another order (1e-4 relative and of the
+# largest entry); the logits repeat the twin's fp32 arithmetic on the same g.
+@pytest.mark.parametrize("n,b,l,d", [(14, 3, 37, 64), (70, 2, 200, 128), (14, 8, 1370, 768),
+                                     (512, 64, 1370, 768)])
+def test_vlcabs_forward_stages_bf16(n, b, l, d):
+    g = torch.Generator(device="cuda").manual_seed(n + l)
+    q, t, tau, _ = _vlcabs_case(g, torch.bfloat16, n, b, l, d)
+    tn = vf.vlcabs_rownorm(t)
+    s, tmax = vf.vlcabs_fwd_scores(q, tn, tau)
+    ref_s, ref_tmax = vf.vlcabs_fwd_scores_plain(q, tn, tau)
+    torch.testing.assert_close(s, ref_s, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(tmax, ref_tmax, rtol=1e-4, atol=1e-4)
+    e, rowmax = vf.vlcabs_fwd_rows(s, tmax)
+    ref_e, ref_m = vf.vlcabs_fwd_rows_plain(s, tmax, torch.bfloat16)
+    assert e.shape == ref_e.shape == (b, -(-n // 64) * 64, -(-l // 64) * 64)
+    assert not e[:, n:].any() and not e[:, :, l:].any()
+    torch.testing.assert_close(e.float(), ref_e.float(), rtol=2.0**-7, atol=1e-6)
+    assert torch.equal(rowmax, ref_m)
+    gs = vf.vlcabs_fwd_g(e, tn, n)
+    ref_g = vf.vlcabs_fwd_g_plain(e, tn, n)
+    torch.testing.assert_close(gs, ref_g, rtol=1e-4, atol=1e-4 * ref_g.abs().max().item())
+    logits = vf.vlcabs_logits(q, gs)
+    torch.testing.assert_close(logits, vf.vlcabs_logits_plain(q, gs), rtol=1e-5, atol=1e-6)
+    del s, tmax, ref_s, ref_tmax, e, ref_e
+    # the entry points: K5 against its whole twin at chip_smoke.py's bf16
+    # tolerance, the same bits from a second call, K10's statistics from the
+    # same stages
+    if d % 64 == 0:
+        out = vf.vlcabs_train_forward(q, t, tau, with_stats=True)
+        again = vf.vlcabs_train_forward(q, t, tau, with_stats=True)
+        assert torch.equal(out[0], again[0]) and torch.equal(out[1][1], again[1][1])
+        assert torch.equal(out[1][0], rowmax)
+    k5 = vf.vlcabs_fused(q, t, tau.reshape(()))
+    assert all(torch.equal(a, b_) for a, b_ in zip(k5, vf.vlcabs_fused(q, t, tau.reshape(()))))
+    ref_logits, ref_scores = vf.vlcabs_fused_plain(q, t, tau)
+    _check(k5[0], ref_logits, torch.bfloat16)
+    _check(k5[1], ref_scores, torch.bfloat16)
 
 
 def test_vlcabs_backward_requires_the_forward_statistics():
