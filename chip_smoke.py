@@ -10,17 +10,23 @@ Phases, in order; any failure exits non-zero:
 2. build the kernels from radzero_torch/ops/csrc with nvcc (sm_90a); ptxas
    must report no spills for the Hopper kernels of K2 / K13 (forward), K7 /
    K14 (backward), the GEMM of K1 / K3 / K4 / K6 / K8 / K9 / K12
-   (gemm_sm90_kernel, all 15 instantiations: K1 / K3 / K4's epilogues, the
-   chains' on W and on W^T read K-major, the dW product, K12's second phase)
-   and K12's first phase (vlc_dtn_phase1_sm90_kernel), nor for the
-   short-sentence K15 / K16 kernels;
+   (gemm_sm90_kernel, all 16 instantiations: K1 / K3 / K4's epilogues, the
+   chains' on W and on W^T read K-major, the dW product, K12's second phase,
+   K5 / K10's second phase), K12's first phase (vlc_dtn_phase1_sm90_kernel)
+   and K5 / K10's (vlc_scores_sm90_kernel), nor for the short-sentence K15 /
+   K16 kernels;
 3. each kernel against its plain PyTorch twin, in fp32 with TF32 off and in
    bf16, with CUDA-event timings (one call a sample, the host's launch
    included; K1-K3, K7, K13-K16 also by torch.profiler, which asserts the
    device kernels by name: in bf16 row_layernorm_kernel with one (K1) or
    three (K3) gemm_sm90_kernel, gemm_f32_kernel in fp32, and the host's
    microseconds a call of K1 / K3 / K4 at 128 rows; bf16 K4 on three
-   gemm_sm90_kernel and two row passes; K11 and K12 from the statistics of a
+   gemm_sm90_kernel and two row passes; bf16 K5 and K10 on their five Hopper
+   stages (rownorm_kernel, vlc_scores_sm90_kernel, vlc_exp_rows_kernel,
+   gemm_sm90_kernel<8, 4>, vlc_logits_kernel), each stage's time, a second call's
+   bits, K10's statistics against their twin, and a yardstick of their two
+   products on cuBLAS, fp32 K5 / K10 on vlcabs_kernel<float> / rownorm_kernel
+   and vlc_pass1_kernel<float, .>; K11 and K12 from the statistics of a
    K10 call, never vlc_pass1_kernel, bf16 K12 on its two Hopper phases with a
    yardstick of its four products on cuBLAS; K6 / K8 / K9 in bf16 on their
    gemm_sm90_kernel instantiations, row passes and reduces alone (no other
@@ -110,9 +116,10 @@ PEAK_FLOPS = {"bf16": 989e12}         # H100 SXM dense bf16, operations per seco
 PEAK_BYTES = 3.35e12                  # H100 SXM device memory, bytes per second
 HOPPER_FWD = "fwd_sm90_kernel"        # K2 / K13 in bf16 (csrc/flash_fwd_sm90.cu)
 HOPPER_BWD = ("bwd_dq_sm90_kernel", "bwd_dkdv_sm90_kernel")  # K7 / K14 in bf16 (flash_bwd_sm90.cu)
-GEMM_SM90 = "gemm_sm90_kernel"        # bf16 products of K1, K3, K4, K6, K8, K9, K12 (gemm_sm90.cu)
-GEMM_SM90_INSTANCES = 15              # its <epilogue, operand layout> pairs (gemm_sm90.cu)
+GEMM_SM90 = "gemm_sm90_kernel"        # bf16 products of K1, K3-K6, K8-K10, K12 (gemm_sm90.cu)
+GEMM_SM90_INSTANCES = 16              # its <epilogue, operand layout> pairs (gemm_sm90.cu)
 VLC_PHASE1 = "vlc_dtn_phase1_sm90_kernel"  # K12's first phase in bf16 (csrc/vlcabs_sm90.cu)
+VLC_SCORES = "vlc_scores_sm90_kernel"  # K5 / K10's first phase in bf16 (csrc/vlcabs_sm90.cu)
 LN_PASS = "row_layernorm_kernel"      # K1 / K3's LayerNorm in bf16, once per row (fused_layer.cu)
 # K15 / K16 in bf16 at L <= 64 (flash_bias_small.cu)
 SMALL_BIAS = ("flash_bias_fwd_small_kernel", "flash_bias_bwd_small_kernel")
@@ -132,11 +139,17 @@ def _sm90(epi, mode):  # an instantiation of gemm_sm90_kernel<epilogue of gemm.c
 # gemm_sm90_kernel's arguments are the epilogue of gemm.cuh (0 bias, 1 o-proj, 2 fc1,
 # 3 fc2; 4 u = x + ., 5 v = y32 + ., 6 proj and y, 7 h1 and gelu(h1), 8 fp32, 9 the
 # GELU derivative) and the operand layout (0 A . W, 1 G . W^T with W read as stored,
-# 2 the row-split dW = A^T . G, 3 K12's dtn[b] = [dc; e]^T [qn; dg]); K4 in bf16 (K9's
-# forward chain); K11 / K12 after the forward's statistics (csrc/vlcabs_train.cu's
-# row passes, then K11's dq kernel and reduce, K12's two Hopper phases in bf16)
+# 2 the row-split dW = A^T . G, 3 K12's dtn[b] = [dc; e]^T [qn; dg], 4 K5 / K10's g[b] =
+# e[b] tn[b]); K4 in bf16 (K9's forward chain); K5 / K10 in bf16 (the tokens' row
+# pass, phase 1, the row pass into e, phase 2, the logits; csrc/vlcabs_sm90.cu), in
+# fp32 their kernels of vlcabs_fused.cu / vlcabs_train.cu; K11 / K12 after the
+# forward's statistics (csrc/vlcabs_train.cu's row passes, then K11's dq kernel and
+# reduce, K12's two Hopper phases in bf16)
 VT_ROWS = ("rownorm_kernel", "vlc_bwd_rows_kernel")
+VL_FWD = ("rownorm_kernel", VLC_SCORES, "vlc_exp_rows_kernel", _sm90(8, 4), "vlc_logits_kernel")
 ROUTES = {"K1": {"bf16": (LN_PASS, _sm90(0, 0)), "fp32": ("gemm_f32_kernel<true, 0>",)},
+          "K5": {"bf16": VL_FWD, "fp32": ("vlcabs_kernel<float>",)},
+          "K10": {"bf16": VL_FWD, "fp32": ("rownorm_kernel", "vlc_pass1_kernel<float, ")},
           "K4": {"bf16": (_sm90(4, 0), LN_ROWS + "float>", _sm90(2, 0), _sm90(5, 0), LN_PASS)},
           "K11": {d: VT_ROWS + ("vlc_dq_kernel", "vlc_reduce_kernel") for d in ("bf16", "fp32")},
           "K12": {"bf16": VT_ROWS + (VLC_PHASE1, _sm90(0, 3)),
@@ -262,6 +275,15 @@ for _k in ("K3", "K3 train", "K4", "K4 16384"):
 for _k in ("K11 dq", "K11 dtau", "K12 dt", "K6", "K7", "K8", "K9", "K14", "K16"):
     TOL[(_k, "bf16")] = (2.0**-7, 2.0**-7, "scaled")
 TOL[("lse", "bf16")] = (1e-4, 1e-5)
+# K10's statistics against their twin (vlcabs_train_stats_plain): the row max is
+# the largest s, an fp32 sum of the same products in another order, at |s| up to
+# 1 / tau; g = e . tn sums 1370 products of e rounded, so a flip of e moves an
+# entry by a share of the largest entry (as K11 / K12's sums), which bf16 K10
+# holds to 2^-7 as its gradients; fp32 at the card tests' 1e-4
+TOL[("K10 rowmax", "bf16")] = (2e-3, 2.0**-7)
+TOL[("K10 g", "bf16")] = (2.0**-7, 2.0**-7, "scaled")
+TOL[("K10 rowmax", "fp32")] = (1e-4, 1e-4)
+TOL[("K10 g", "fp32")] = (1e-4, 1e-4, "scaled")
 
 
 def fail(msg: str) -> None:
@@ -312,6 +334,7 @@ def device_kernels(fn, calls=5, tries=3):
     from torch.profiler import ProfilerActivity, profile
 
     for attempt in range(tries):
+        torch.cuda.synchronize()  # no earlier launch still in flight when the session opens
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
                 fn()
@@ -324,17 +347,19 @@ def device_kernels(fn, calls=5, tries=3):
     return ran
 
 
-def check_route(k, dname, fn, way="fwd"):
-    """A call of K1 (way "K1"), K3 ("K3"), K4 ("K4"), K2 / K13 ("fwd"), K7 /
-    K14 ("bwd"), K15 ("bias_fwd"), K16 ("bias_bwd"), K6 / K8 / K9 ("K6",
-    "K8", "K9") or K11 / K12 ("K11", "K12") runs exactly the device kernels
-    of ROUTES: in bf16 row_layernorm_kernel and gemm_sm90_kernel,
-    fwd_sm90_kernel, or bwd_dq_sm90_kernel and bwd_dkdv_sm90_kernel (never
-    bwd_stats_kernel), the kernels of flash_bias_small.cu at L <= 64, the
-    chains' gemm_sm90_kernel instantiations with their row passes and reduces
-    (never wgrad_bf16_kernel or transpose_kernel), or the VL-CABS backward's
-    row passes with K11's dq kernel or K12's phases (never vlc_pass1_kernel)
-    -> their device ms a call (no host time)."""
+def check_route(k, dname, fn, way="fwd", detail=False):
+    """A call of K1 (way "K1"), K3 ("K3"), K4 ("K4"), K5 ("K5"), K10 ("K10"),
+    K2 / K13 ("fwd"), K7 / K14 ("bwd"), K15 ("bias_fwd"), K16 ("bias_bwd"),
+    K6 / K8 / K9 ("K6", "K8", "K9") or K11 / K12 ("K11", "K12") runs exactly
+    the device kernels of ROUTES: in bf16 row_layernorm_kernel and
+    gemm_sm90_kernel, the five stages of the VL-CABS forward (never
+    vlcabs_kernel or vlc_pass1_kernel in bf16), fwd_sm90_kernel, or
+    bwd_dq_sm90_kernel and bwd_dkdv_sm90_kernel (never bwd_stats_kernel), the
+    kernels of flash_bias_small.cu at L <= 64, the chains' gemm_sm90_kernel
+    instantiations with their row passes and reduces (never wgrad_bf16_kernel
+    or transpose_kernel), or the VL-CABS backward's row passes with K11's dq
+    kernel or K12's phases (never vlc_pass1_kernel) -> their device ms a call
+    (no host time), with ``detail`` also {kernel name: its device ms a call}."""
     ran = device_kernels(fn)
     want = ROUTES[way][dname]
     if len(ran) != len(want) or not all(any(w in name for name in ran) for w in want):
@@ -342,7 +367,33 @@ def check_route(k, dname, fn, way="fwd"):
     ms = sum(ran.values())
     names = ", ".join(f"{name[:48]}... {t:.4f}" for name, t in ran.items())
     print(f"  {k:10s} {dname}: torch.profiler: {names}; {ms:.4f} ms a call on the device")
-    return ms
+    return (ms, ran) if detail else ms
+
+
+def vl_stage_times(k, qn, tokens, tau, ran):
+    """Each stage of bf16 K5 / K10 (``k``) alone by CUDA events (a stage
+    wrapper's call a sample, its allocations included) beside its device time
+    in ``ran``, the route's profiler session of the whole call -> {stage:
+    {"ms", "device_ms"}}."""
+    from radzero_torch.ops import vlcabs_fused as vf
+
+    tau, l, maps = tau.reshape(1), tokens.shape[1], k == "K5"
+    tn = vf.vlcabs_rownorm(tokens)
+    s, tmax = vf.vlcabs_fwd_scores(qn, tn, tau)
+    e = vf.vlcabs_fwd_rows(s, tmax, l, maps=maps)[0]
+    g = vf.vlcabs_fwd_g(e, tn, qn.shape[0])
+    calls = {"rownorm": (lambda: vf.vlcabs_rownorm(tokens), "rownorm_kernel"),
+             "phase 1": (lambda: vf.vlcabs_fwd_scores(qn, tn, tau), VLC_SCORES),
+             "row pass": (lambda: vf.vlcabs_fwd_rows(s, tmax, l, maps=maps),
+                          "vlc_exp_rows_kernel"),
+             "phase 2": (lambda: vf.vlcabs_fwd_g(e, tn, qn.shape[0]), _sm90(8, 4)),
+             "logits": (lambda: vf.vlcabs_logits(qn, g), "vlc_logits_kernel")}
+    out = {name: {"ms": median_ms(fn, reps=10),
+                  "device_ms": next(t for n, t in ran.items() if kernel in n)}
+           for name, (fn, kernel) in calls.items()}
+    print(f"  {k:10s} bf16 stages, events (device) ms: " + ", ".join(
+        f"{name} {v['ms']:.4f} ({v['device_ms']:.4f})" for name, v in out.items()))
+    return out
 
 
 def device_idle(fn):
@@ -521,13 +572,13 @@ def bounds(dtype_bytes=2):
 def check_no_spills(log):
     """ptxas must report no spills for the Hopper kernels (the forward of
     K2 / K13, the two of the K7 / K14 backward, every instantiation of the
-    GEMM of K1 / K3 / K4 / K6 / K8 / K9 / K12, K12's first phase) and the
-    short-sentence K15 / K16 kernels."""
+    GEMM of K1 / K3-K6 / K8-K10 / K12, the first phases of K12 and of K5 /
+    K10) and the short-sentence K15 / K16 kernels."""
     if not log:
         print("  ptxas: no report in this process (the library was built before)")
         return
     lines = log.splitlines()
-    for name in (HOPPER_FWD, *HOPPER_BWD, GEMM_SM90, VLC_PHASE1, *SMALL_BIAS):  # every one
+    for name in (HOPPER_FWD, *HOPPER_BWD, GEMM_SM90, VLC_PHASE1, VLC_SCORES, *SMALL_BIAS):
         at = [i for i, line in enumerate(lines) if "Compiling entry" in line and name in line]
         if not at:
             fail(f"ptxas reported no {name}")
@@ -540,7 +591,8 @@ def check_no_spills(log):
     print(f"  {', '.join((HOPPER_FWD, *HOPPER_BWD))} (K2 / K13, K7 / K14 in bf16), "
           f"{GEMM_SM90} (bf16: {GEMM_SM90_INSTANCES} instantiations; K1 / K3 / K4's four "
           f"epilogues, the chains' seven on W and on W^T read K-major, the dW product, "
-          f"K12's second phase), {VLC_PHASE1} (K12's first phase), "
+          f"K12's and K5 / K10's second phases), {VLC_PHASE1} (K12's first phase), "
+          f"{VLC_SCORES} (K5 / K10's first phase), "
           f"{', '.join(SMALL_BIAS)} (K15 / K16 in bf16 at L <= 64): no spills")
 
 
@@ -567,7 +619,7 @@ def phase_kernels(seed):
         "K11": (vf.vlcabs_train_bwd_dq, vf.vlcabs_train_bwd_dq_plain),
         "K12": (vf.vlcabs_train_bwd_dtn, vf.vlcabs_train_bwd_dtn_plain),
     }
-    rows = {}
+    rows, k5_host = {}, {}
     for dtype, dname in ((torch.float32, "fp32"), (torch.bfloat16, "bf16")):
         gen = torch.Generator(device="cuda").manual_seed(seed)
         inputs = kernel_inputs(dtype, gen)
@@ -590,6 +642,14 @@ def phase_kernels(seed):
             if k[:2] in ("K1", "K2", "K3") or (k[:2] == "K4" and dname == "bf16"):
                 dev_ms = check_route(k, dname, lambda: kern(*args, **kw),  # kernels by name
                                      "fwd" if k[:2] == "K2" else k[:2])
+            if k == "K5":  # its kernels by name, each stage's time, a second call's bits
+                dev_ms, ran = check_route(k, dname, lambda: kern(*args), k, detail=True)
+                if not all(torch.equal(a, b) for a, b in zip(kern(*args), kern(*args))):
+                    fail(f"K5 {dname}: a second call gives other bits")
+                k5_host[dname] = host_us(lambda: kern(*args))
+                print(f"  K5         {dname}: host time a call {k5_host[dname]:.1f} us")
+                if dname == "bf16":
+                    k5_stages = vl_stage_times(k, *args, ran)
             if k == "K2 train" and dname == "bf16":  # the row statistic K7 reads, against its twin
                 _, lse = fl.flash_attention_packed_lse(args[0], H)
                 ref_lse = torch.cat([fl.flash_attention_packed_lse_plain(args[0][i:i + 8], H)[1]
@@ -604,8 +664,11 @@ def phase_kernels(seed):
             else:
                 rows[k] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                            "library_ms": None}
-            if k in ("K1", "K2", "K3", "K4"):
+            if k in ("K1", "K2", "K3", "K4", "K5"):
                 rows[k]["device_ms"] = dev_ms
+            if k == "K5":
+                rows[k].update(stages=k5_stages, host_us_bf16=k5_host["bf16"],
+                               host_us_fp32=k5_host["fp32"])
             elif k == "K4 16384":
                 rows["K4"]["device_ms_16384"] = dev_ms
             elif k in ("K1 train", "K2 train", "K3 train"):
@@ -632,13 +695,26 @@ def phase_kernels(seed):
                              reps=10)
         print(f"  K10        {dname}: with the statistics (row max, g) {stats_ms:.4f} ms "
               f"(median of 10)")
+        # K10's kernels by name, its statistics against their twin, a second call's bits
+        fwd = lambda: vf.vlcabs_train_forward(qn, tokens, tau, with_stats=True)  # noqa: E731
+        k10_ms, ran = check_route("K10", dname, fwd, "K10", detail=True)
+        again = fwd()
+        if not (torch.equal(again[0], vf.vlcabs_train_forward(qn, tokens, tau))
+                and all(torch.equal(a, b) for a, b in zip(again[1], stats))):
+            fail(f"K10 {dname}: a second call gives other bits")
+        ref_m, ref_g = vf.vlcabs_train_stats_plain(qn, tokens, tau)
+        stats_err = max(compare("K10 rowmax", dname, stats[0], ref_m),
+                        compare("K10 g", dname, stats[1], ref_g))
+        del again, ref_m, ref_g
+        if dname == "bf16":
+            k10_stages = vl_stage_times("K10", qn, tokens, tau, ran)
         for k, (kern, plain) in train_pairs.items():
             args = (qn, tokens, tau) + ((dz,) if k != "K10" else ())
             kw = {"stats": stats} if k != "K10" else {}
             ms = median_ms(lambda: kern(*args, **kw), reps=10)
             plain_ms = median_ms(lambda: plain(*args), reps=10)
             print(f"  {k:10s} {dname}: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms (median of 10)")
-            dev_ms = None
+            dev_ms = k10_ms if k == "K10" else None
             if k != "K10":  # the device kernels that ran, by name
                 dev_ms = check_route(k, dname, lambda: kern(*args, **kw), k)
                 if k == "K12":  # a second backward, the same bits
@@ -652,7 +728,8 @@ def phase_kernels(seed):
                 if dev_ms is not None:
                     rows[k]["device_ms"] = dev_ms
         if dname == "bf16":
-            rows["K10"]["ms_with_stats"] = stats_ms
+            rows["K10"].update(ms_with_stats=stats_ms, max_abs_err_stats=stats_err,
+                               stages=k10_stages)
             rows["K11"]["max_abs_err_dtau"] = dtau_err
             # K2's yardstick, timed here and called nowhere in the port: one
             # library attention call on the unpacked heads of the same input,
@@ -720,13 +797,14 @@ def cublas_products(rows):
     """The yardsticks of the GEMM kernels, for which no one PyTorch call
     computes the fused function: each bf16 product of K1 (qkv), K3 and K4
     (o-proj, fc1, fc2), of K6 (dX, dW), of K8 and K9 (all nine: the forward
-    recompute, dX and dW of o-proj, fc1 and fc2) and of K12 (s, dE, dc^T qn
-    and e^T dg over 64 images), as one cuBLAS call on operands of the same
-    shapes (F.linear, torch.mm of a^T g for a dW, torch.matmul / torch.bmm
-    for K12), timed alone, without the LN, GELU, residual, column sums,
-    exponentials or row passes the kernels fuse; called nowhere in the port
-    -> rows[k]["cublas_products_ms.."]; for K1, K3, K4 at 16 384 rows, K6,
-    K8, K9 and K12 also their device time by torch.profiler beside the
+    recompute, dX and dW of o-proj, fc1 and fc2), of K12 (s, dE, dc^T qn
+    and e^T dg over 64 images) and of K5 / K10 (s and g, at 8 x 14 and 64 x
+    512), as one cuBLAS call on operands of the same shapes (F.linear,
+    torch.mm of a^T g for a dW, torch.matmul / torch.bmm for K5, K10, K12),
+    timed alone, without the LN, GELU, residual, column sums, exponentials
+    or row passes the kernels fuse; called nowhere in the port ->
+    rows[k]["cublas_products_ms.."]; for K1, K3, K4 at 16 384 rows, K5, K6,
+    K8-K10 and K12 also their device time by torch.profiler beside the
     kernel's -> rows[k]["cublas_products_device_ms.."]."""
     import torch
     import torch.nn.functional as Fn
@@ -754,18 +832,25 @@ def cublas_products(rows):
         return {name: dx(m, k, n, name if timed else None)
                 for name, k, n in (("o-proj", D, D), ("fc1", D, F), ("fc2", F, D))}
 
-    def vl_products():  # K12's four per-image products: s, dE, dc^T qn, e^T dg
-        qn, tn, dg = rn(TN, D), rn(TB, L, D), rn(TB, TN, D)
-        sc = rn(TB, TN, L)  # dc or e, bf16
-        calls = {"s": lambda: torch.matmul(qn, tn.transpose(1, 2)),
-                 "dE": lambda: torch.bmm(dg, tn.transpose(1, 2)),
-                 "dc^T qn": lambda: torch.matmul(sc.transpose(1, 2), qn),
-                 "e^T dg": lambda: torch.bmm(sc.transpose(1, 2), dg)}
+    def timed(calls):  # {name: call} -> {name: events ms}, device ms into `device`
         times = {}
         for name, call in calls.items():
             device[name] = sum(device_kernels(call).values())
             times[name] = median_ms(call, reps=10)
         return times
+
+    def vl_products():  # K12's four per-image products: s, dE, dc^T qn, e^T dg
+        qn, tn, dg = rn(TN, D), rn(TB, L, D), rn(TB, TN, D)
+        sc = rn(TB, TN, L)  # dc or e, bf16
+        return timed({"s": lambda: torch.matmul(qn, tn.transpose(1, 2)),
+                      "dE": lambda: torch.bmm(dg, tn.transpose(1, 2)),
+                      "dc^T qn": lambda: torch.matmul(sc.transpose(1, 2), qn),
+                      "e^T dg": lambda: torch.bmm(sc.transpose(1, 2), dg)})
+
+    def vl_fwd(b, n):  # K5 / K10's two per-image products: s = qn tn^T, g = e tn
+        qn, tn, e = rn(n, D), rn(b, L, D), rn(b, n, L)
+        return timed({"s": lambda: torch.matmul(qn, tn.transpose(1, 2)),
+                      "g": lambda: torch.bmm(e, tn)})
 
     def chain(m):  # o-proj, fc1, fc2 again, then the dX and dW of fc2, fc1 and o-proj
         return post(m, timed=True) | {
@@ -785,6 +870,8 @@ def cublas_products(rows):
         ("K8", "", "K8"): lambda: chain(TB * L),
         ("K9", "", "K9"): lambda: chain(TN * T_LEN),
         ("K12", "", "K12"): vl_products,
+        ("K5", "", "K5"): lambda: vl_fwd(B, N),
+        ("K10", "", "K10"): lambda: vl_fwd(TB, TN),
     }
     print("cuBLAS products alone (no LN, GELU or residual), bf16, one call each, median of 10:")
     for (k, sfx, row), make in cases.items():
@@ -1564,11 +1651,11 @@ def profile_step(fn):
                for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     kernels.sort(key=lambda k: -k[1])
     total = sum(k[1] for k in kernels)
-    names = {"vt": "VL-CABS kernels K10-K12 but K12's phase 2 (rz::vt::*)",
+    names = {"vt": "VL-CABS kernels K10-K12 but their GEMM phases (rz::vt::*)",
              "fa": "attention kernels K2, K7, K13-K16 (rz::fa::*)",
              "bw": "row passes and reduces of K6, K8, K9 (rz::bw::*)",
-             "rz": "the GEMMs: K1, K3, K4 and every product of K6, K8, K9, K12's phase 2 "
-                   "(rz::gemm_*, rz::row_layernorm)",
+             "rz": "the GEMMs: K1, K3, K4 and every product of K6, K8, K9, the second "
+                   "phases of K10 and K12 (rz::gemm_*, rz::row_layernorm)",
              "torch": "torch ops (everything else)"}
     groups = {v: 0.0 for v in names.values()}
     for name, ms, _ in kernels:
@@ -1657,7 +1744,7 @@ def main() -> int:
                "radzero_tpu/ops/fused_layer.py:913"),
         "K4": ("fused_mpnet_post", "radzero_torch/ops/csrc/gemm_sm90.cu",
                "radzero_tpu/ops/fused_layer.py:760"),
-        "K5": ("vlcabs_fused", "radzero_torch/ops/csrc/vlcabs_fused.cu",
+        "K5": ("vlcabs_fused", "radzero_torch/ops/csrc/vlcabs_sm90.cu",
                "radzero_tpu/ops/pallas_vlcabs.py:115"),
         "K6": ("fused_preattn_bwd", "radzero_torch/ops/csrc/gemm_sm90.cu",
                "radzero_tpu/ops/fused_layer.py:390"),
@@ -1667,7 +1754,7 @@ def main() -> int:
                "radzero_tpu/ops/fused_layer.py:568"),
         "K9": ("fused_mpnet_post_bwd", "radzero_torch/ops/csrc/gemm_sm90.cu",
                "radzero_tpu/ops/fused_layer.py:820"),
-        "K10": ("vlcabs_train_forward", "radzero_torch/ops/csrc/vlcabs_train.cu",
+        "K10": ("vlcabs_train_forward", "radzero_torch/ops/csrc/vlcabs_sm90.cu",
                 "radzero_tpu/ops/pallas_vlcabs.py:310"),
         "K11": ("vlcabs_train_bwd_dq", "radzero_torch/ops/csrc/vlcabs_train.cu",
                 "radzero_tpu/ops/pallas_vlcabs.py:381"),

@@ -65,10 +65,10 @@ SIGNATURES = {
     "rz_vlcabs_dtn_phase1": [_P] * 6 + [_I] * 6 + [_P],
     # ce, qn, dg, dtn, N, Np, B, L, Lp, D, stream
     "rz_vlcabs_dtn_phase2": [_P] * 4 + [_I] * 6 + [_P],
-    # qn, tn, tau, s, tmax, N, B, L, D, stream
-    "rz_vlcabs_fwd_scores": [_P] * 5 + [_I] * 4 + [_P],
-    # s, tmax, e, rowmax, N, Np, B, L, Lp, stream
-    "rz_vlcabs_fwd_rows": [_P] * 4 + [_I] * 5 + [_P],
+    # qn, tn, tau, s, tmax, N, B, L, Lp, D, stream
+    "rz_vlcabs_fwd_scores": [_P] * 5 + [_I] * 5 + [_P],
+    # s, tmax, e, rowmax, map, N, Np, B, L, Lp, stream
+    "rz_vlcabs_fwd_rows": [_P] * 5 + [_I] * 5 + [_P],
     # e, tn, g, N, Np, B, L, Lp, D, stream
     "rz_vlcabs_fwd_g": [_P] * 3 + [_I] * 6 + [_P],
     # qn, g, logits, N, B, D, dtype, stream

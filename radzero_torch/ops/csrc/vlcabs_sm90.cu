@@ -23,14 +23,19 @@
 //   tn through a 3-D map with an image coordinate so that rows past an image
 //   come in as zeros), each consumer warpgroup accumulates its 64 queries'
 //   S = qn . tn^T on wgmma m64n128k16 (a warpgroup whose queries all lie past
-//   N issues none) and, on the accumulators, takes s = S / tau, writes s in
-//   fp32 into (B, N, L) (K5's map itself; TMA cannot store it, since a row of
-//   1370 fp32 values is no multiple of 16 bytes) and the maximum of each row
-//   over the item's 128 tokens into tmax (B, N, ceil(L / 128));
+//   N issues none) and, on the accumulators, takes s = S / tau and the
+//   maximum of each row over the item's real tokens into tmax (B, N,
+//   ceil(L / 128)), and stages s in shared memory, whence one thread stores
+//   it by TMA into s (B, N, Lp), Lp L rounded up to 64 (zeros in [L, Lp):
+//   the tokens there come in as zeros), while the warpgroup goes on to its
+//   next item (a row of L = 1370 fp32 values is no multiple of 16 bytes, so
+//   TMA cannot store into an unpadded map; stores from the registers, which
+//   no product overlaps, are timed against this in PERF.md, PR 11);
 // - the row pass (vlc_exp_rows_kernel, here), a warp a row of e (B, Np, Lp),
-//   Np and Lp N and L rounded up to 64: the row max from the tile maxima,
-//   e = exp2((s - m) log2 e) rounded to bf16, zeros past L and in the rows
-//   past N, so phase 2 reads nothing uninitialised, and the row max (B, N);
+//   Np N rounded up to 64: the row max from the tile maxima, e = exp2((s -
+//   m) log2 e) rounded to bf16, zeros past L and in the rows past N, so phase
+//   2 reads nothing uninitialised, and the row max (B, N); for K5 also the
+//   map, s without its padding, (B, N, L) fp32;
 // - phase 2, g[b] = e[b] . tn[b] on gemm_sm90_kernel<EPI_F32, GEMM_BFWD>
 //   (gemm_sm90.cu), written once in fp32;
 // - vlc_logits_kernel (vlcabs_train.cu), a warp an (image, query): z = qn . g
@@ -253,17 +258,21 @@ constexpr int Q_BYTES = QT * KS * 2;      // 16 KB: 128 queries x 64
 constexpr int TN_BYTES = LT * KS * 2;     // 16 KB: 128 tokens x 64
 constexpr int STAGE = Q_BYTES + TN_BYTES;
 constexpr int STAGES = 5;
-constexpr int BAR_OFF = STAGES * STAGE;
+constexpr int OUT_WG = 64 * LT * 4;       // a warpgroup's s in fp32: four 64 x 32 boxes
+constexpr int OUT_OFF = STAGES * STAGE;
+constexpr int BAR_OFF = OUT_OFF + 2 * OUT_WG;
 constexpr size_t SMEM = BAR_OFF + 8 * 2 * STAGES + 1024;  // + room to align
+static_assert(SMEM <= 232448, "over the 227 KB a block can have");
 constexpr int ROW_WARPS = 8;              // the row pass: warps (rows) a block
 }  // namespace fw
 
-// grid: min(work items, SMs); work items (image, 128 queries, 128 tokens), tokens fastest
+// grid: min(work items, SMs); work items (image, 128 queries, 128 tokens), tokens
+// fastest; s as a 3-D fp32 map (Lp, N, B) in 32 x 64 boxes
 __global__ void __launch_bounds__(fw::THREADS, 1)
 vlc_scores_sm90_kernel(const __grid_constant__ CUtensorMap mq,
-                       const __grid_constant__ CUtensorMap mt, const float* __restrict__ tau,
-                       float* __restrict__ s, float* __restrict__ tmax, int N, int B, int L,
-                       int D) {
+                       const __grid_constant__ CUtensorMap mt,
+                       const __grid_constant__ CUtensorMap ms, const float* __restrict__ tau,
+                       float* __restrict__ tmax, int N, int B, int L, int Lp, int D) {
   using namespace fw;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
@@ -303,9 +312,10 @@ vlc_scores_sm90_kernel(const __grid_constant__ CUtensorMap mq,
 
   const int ct = threadIdx.x;
   const int wg = ct / 128, warp = (ct % 128) / 32, lane = ct % 32, quad = lane % 4;
+  const bool leader = ct % 128 == 0;                  // issues its warpgroup's TMA stores
+  const uint32_t stg = base + OUT_OFF + wg * OUT_WG;  // its 64 rows of s, staged
   const int rl = warp * 16 + lane / 4;  // its first row in the warpgroup's 64
   const float inv_tau = 1.0f / tau[0];
-  const bool pairs = (L & 1) == 0;  // a row's column pairs are 8-byte aligned
   float acc[64];  // rows rl (+ 8), columns 8 j + 2 quad (+ 1): acc[4 j + 2 i + e]
   int it = 0;
   for (int t = blockIdx.x; t < items; t += gridDim.x) {
@@ -336,43 +346,47 @@ vlc_scores_sm90_kernel(const __grid_constant__ CUtensorMap mq,
     pin(acc);
     bar_arrive(empty(it - 1));
 
-    // epilogue on the accumulators: s = S / tau into (B, N, L), the row's
-    // maximum over the item's real tokens into tmax
+    // epilogue on the accumulators: s = S / tau staged for the TMA store, the
+    // row's maximum over the item's real tokens into tmax
+    if (leader) bulk_wait_read();  // the last item's stores have read the staging tile
+    wg_sync(wg);
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const int n = n0 + rl + 8 * i;
-      float* srow = s + ((size_t)b * N + n) * L;
       float mx = -INFINITY;
 #pragma unroll
       for (int j = 0; j < LT / 8; ++j) {
-        const int l = l0 + 8 * j + 2 * quad;
+        const int c = 8 * j + 2 * quad, l = l0 + c;
         const float v0 = acc[4 * j + 2 * i] * inv_tau, v1 = acc[4 * j + 2 * i + 1] * inv_tau;
         if (l < L) mx = fmaxf(mx, v0);
         if (l + 1 < L) mx = fmaxf(mx, v1);
-        if (n < N) {
-          if (pairs && l + 1 < L) {
-            *reinterpret_cast<float2*>(srow + l) = make_float2(v0, v1);
-          } else {
-            if (l < L) srow[l] = v0;
-            if (l + 1 < L) srow[l + 1] = v1;
-          }
-        }
+        sts_f2(stg + swz<4>(64, rl + 8 * i, c), v0, v1);
       }
       // the row's four quad lanes hold its 128 columns
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
       if (quad == 0 && n < N) tmax[((size_t)b * N + n) * tiles_l + l0 / LT] = mx;
     }
+    fence_async_smem();
+    wg_sync(wg);
+    if (leader) {  // rows past N and columns past Lp are not written
+#pragma unroll
+      for (int x = 0; x < LT / 32; ++x)
+        if (l0 + 32 * x < Lp) tma_store_3d(&ms, stg + x * 64 * 128, l0 + 32 * x, n0, b);
+      bulk_commit();
+    }
   }
+  if (leader) bulk_wait_read();  // the shared memory outlives the last stores' reads
 }
 
 // one warp a row of e (B, Np, Lp): m = the maximum of the row's tile maxima,
-// then e = exp2((s - m) log2 e) rounded to bf16, zeros past L; the rows past N
-// are zeros; rowmax (B, N) gets m
+// then e = exp2((s - m) log2 e) rounded to bf16 from s (B, N, Lp), zeros past
+// L; the rows past N are zeros; rowmax (B, N) gets m and, unless it is null,
+// map (B, N, L) the row's s
 __global__ void __launch_bounds__(fw::ROW_WARPS * 32)
 vlc_exp_rows_kernel(const float* __restrict__ s, const float* __restrict__ tmax,
-                    __nv_bfloat16* __restrict__ e, float* __restrict__ rowmax, int N, int Np,
-                    int B, int L, int Lp) {
+                    __nv_bfloat16* __restrict__ e, float* __restrict__ rowmax,
+                    float* __restrict__ map, int N, int Np, int B, int L, int Lp) {
   const int lane = threadIdx.x % 32, row = blockIdx.x * fw::ROW_WARPS + threadIdx.x / 32;
   if (row >= B * Np) return;
   const int b = row / Np, n = row % Np, tiles = (L + fw::LT - 1) / fw::LT;
@@ -386,12 +400,18 @@ vlc_exp_rows_kernel(const float* __restrict__ s, const float* __restrict__ tmax,
   for (int k = lane; k < tiles; k += 32) m = fmaxf(m, tmax[r * tiles + k]);
   for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
   if (lane == 0) rowmax[r] = m;
-  const float* srow = s + r * L;
+  const float2* srow = reinterpret_cast<const float2*>(s + r * Lp);
+  float* mrow = map == nullptr ? nullptr : map + r * L;
   for (int c = lane; c < Lp / 2; c += 32) {
     const int l = 2 * c;
-    const float e0 = l < L ? exp2f((srow[l] - m) * kLog2e) : 0.f;
-    const float e1 = l + 1 < L ? exp2f((srow[l + 1] - m) * kLog2e) : 0.f;
+    const float2 v = srow[c];
+    const float e0 = l < L ? exp2f((v.x - m) * kLog2e) : 0.f;
+    const float e1 = l + 1 < L ? exp2f((v.y - m) * kLog2e) : 0.f;
     erow[c] = __floats2bfloat162_rn(e0, e1);
+    if (mrow != nullptr) {
+      if (l < L) mrow[l] = v.x;
+      if (l + 1 < L) mrow[l + 1] = v.y;
+    }
   }
 }
 
@@ -442,16 +462,19 @@ extern "C" int rz_vlcabs_dtn_phase2(const void* ce, const void* qn, const void* 
       rz::gemm_sm90_dtn(ce, qn, dg, dtn, N, Np, B, L, Lp, D, static_cast<cudaStream_t>(stream)));
 }
 
-// K5 / K10 phase 1 (bf16): qn (N, D), tn (B, L, D), tau (1,) fp32 -> s (B, N, L) fp32
-// = qn . tn^T / tau and tmax (B, N, ceil(L / 128)) fp32, each row's maximum over
-// each 128-token tile
+// K5 / K10 phase 1 (bf16): qn (N, D), tn (B, L, D), tau (1,) fp32 -> s (B, N, Lp)
+// fp32 = qn . tn^T / tau, zeros in [L, Lp), and tmax (B, N, ceil(L / 128)) fp32,
+// each row's maximum over each 128-token tile
 extern "C" int rz_vlcabs_fwd_scores(const void* qn, const void* tn, const void* tau, void* s,
-                                    void* tmax, int N, int B, int L, int D, void* stream) {
+                                    void* tmax, int N, int B, int L, int Lp, int D,
+                                    void* stream) {
   using namespace rz::vt;
-  if (D % 8 || N <= 0 || L <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (D % 8 || N <= 0 || L <= 0 || Lp % 64 || L > Lp)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0) return 0;
-  CUtensorMap mq, mt;
-  if (!make_map_2d(&mq, qn, N, D, fw::QT) || !make_map_3d(&mt, tn, B, L, D, fw::LT))
+  CUtensorMap mq, mt, ms;
+  if (!make_map_2d(&mq, qn, N, D, fw::QT) || !make_map_3d(&mt, tn, B, L, D, fw::LT) ||
+      !make_map_3d(&ms, s, B, N, Lp, 64, true))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = rz::allow_smem(vlc_scores_sm90_kernel, fw::SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -460,15 +483,15 @@ extern "C" int rz_vlcabs_fwd_scores(const void* qn, const void* tn, const void* 
   const int items = B * ((N + fw::QT - 1) / fw::QT) * ((L + fw::LT - 1) / fw::LT);
   vlc_scores_sm90_kernel<<<items < sms ? items : sms, fw::THREADS, fw::SMEM,
                            static_cast<cudaStream_t>(stream)>>>(
-      mq, mt, static_cast<const float*>(tau), static_cast<float*>(s), static_cast<float*>(tmax),
-      N, B, L, D);
+      mq, mt, ms, static_cast<const float*>(tau), static_cast<float*>(tmax), N, B, L, Lp, D);
   return static_cast<int>(cudaGetLastError());
 }
 
-// K5 / K10 row pass: s (B, N, L), tmax (B, N, ceil(L / 128)) fp32 -> e (B, Np, Lp)
-// bf16, zeros past N and L, and the row max (B, N) fp32
-extern "C" int rz_vlcabs_fwd_rows(const void* s, const void* tmax, void* e, void* rowmax, int N,
-                                  int Np, int B, int L, int Lp, void* stream) {
+// K5 / K10 row pass: s (B, N, Lp), tmax (B, N, ceil(L / 128)) fp32 -> e (B, Np, Lp)
+// bf16, zeros past N and L, the row max (B, N) fp32 and, unless map is null, the map
+// (B, N, L) fp32 = s without its padding
+extern "C" int rz_vlcabs_fwd_rows(const void* s, const void* tmax, void* e, void* rowmax,
+                                  void* map, int N, int Np, int B, int L, int Lp, void* stream) {
   using namespace rz::vt;
   if (!vt_sm90_ok(N, Np, L, Lp, 64)) return static_cast<int>(cudaErrorInvalidValue);
   const int rows = B * Np;
@@ -476,7 +499,8 @@ extern "C" int rz_vlcabs_fwd_rows(const void* s, const void* tmax, void* e, void
   vlc_exp_rows_kernel<<<(rows + fw::ROW_WARPS - 1) / fw::ROW_WARPS, fw::ROW_WARPS * 32, 0,
                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(s), static_cast<const float*>(tmax),
-      static_cast<__nv_bfloat16*>(e), static_cast<float*>(rowmax), N, Np, B, L, Lp);
+      static_cast<__nv_bfloat16*>(e), static_cast<float*>(rowmax), static_cast<float*>(map), N,
+      Np, B, L, Lp);
   return static_cast<int>(cudaGetLastError());
 }
 

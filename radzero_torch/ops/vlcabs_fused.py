@@ -47,8 +47,8 @@ kernel (``csrc/vlcabs_fused.cu``, ``csrc/vlcabs_train.cu``,
 kernel launches, one a call of an entry point whatever its stages. In bf16
 K5 and K10 are one forward split over tokens (:func:`vlcabs_forward_stages`):
 the tokens' row pass (:func:`vlcabs_rownorm`), s and each row's maximum per
-128-token tile on wgmma (:func:`vlcabs_fwd_scores`; s is K5's map), a row
-pass writing e into a zero-padded (B, Np, Lp) buffer and the row max
+128-token tile on wgmma (:func:`vlcabs_fwd_scores`), a row pass writing e
+into a zero-padded (B, Np, Lp) buffer, the row max and, for K5, the map
 (:func:`vlcabs_fwd_rows`), g = e tn per image on the Hopper GEMM
 (:func:`vlcabs_fwd_g`), and the logits (:func:`vlcabs_logits`); the row max
 and g are K10's statistics. In fp32 K5 is one kernel that walks L in tiles
@@ -72,11 +72,17 @@ from radzero_torch.ops._checks import check_operands, forbid_grad, on_cuda
 _LOG2E = 1.4426950408889634
 
 
+def _scores(queries_normed, tn):
+    """qn tn^T in fp32, (B, N, L) laid out as the kernels write it: einsum's
+    own layout would send exp2 down another vector path on the CPU."""
+    return torch.einsum("nd,bld->bnl", queries_normed.float(), tn.float()).contiguous()
+
+
 def vlcabs_fused_plain(queries_normed, tokens, tau):
     cdt = tokens.dtype
     t32 = tokens.float()
     tn = (t32 * torch.rsqrt(t32.square().sum(-1, keepdim=True) + 1e-24)).to(cdt)
-    s = torch.einsum("nd,bld->bnl", queries_normed.float(), tn.float())
+    s = _scores(queries_normed, tn)
     s = s * (1.0 / tau.float().reshape(()))
     e = torch.exp2((s - s.amax(-1, keepdim=True)) * _LOG2E).to(cdt)
     agg = e.float() @ tn.float()                                # (B, N, D)
@@ -103,7 +109,7 @@ def vlcabs_fused(queries_normed, tokens, tau):
     if tokens.dtype == torch.bfloat16:
         if d % 8:
             raise ValueError(f"vlcabs_fused: the bf16 kernels take D % 8 == 0, got {d}")
-        logits, scores, _ = vlcabs_forward_stages(queries_normed, tokens, tau)
+        logits, scores, _ = vlcabs_forward_stages(queries_normed, tokens, tau, maps=True)
         vlcabs_fused.launches += 1
         return logits, scores
     if d > 1024:
@@ -140,58 +146,63 @@ def _tiles(l):
 def vlcabs_fwd_scores_plain(queries_normed, tn, tau):
     n = queries_normed.shape[0]
     b, l, _ = tn.shape
-    s = torch.einsum("nd,bld->bnl", queries_normed.float(), tn.float())
-    s = s * (1.0 / tau.float().reshape(()))
+    s = _scores(queries_normed, tn) * (1.0 / tau.float().reshape(()))
     padded = torch.nn.functional.pad(s, (0, _tiles(l) * _TOKEN_TILE - l), value=-torch.inf)
-    return s, padded.reshape(b, n, _tiles(l), _TOKEN_TILE).amax(-1)
+    tmax = padded.reshape(b, n, _tiles(l), _TOKEN_TILE).amax(-1)
+    return torch.nn.functional.pad(s, (0, _pad64(l) - l)), tmax
 
 
 def vlcabs_fwd_scores(queries_normed, tn, tau):
     """The forward's first phase: (N, D) queries, the normalised tokens tn
-    (B, L, D) and tau (1,) -> (s = qn tn^T / tau (B, N, L) fp32, tmax (B, N,
-    ceil(L / 128)) fp32: each row's maximum over each 128-token tile). On the
-    card bf16 only: per (image, 128 queries, 128 tokens) item, S on wgmma fed
-    by a TMA ring, s and the maximum from the accumulators."""
+    (B, L, D) and tau (1,) -> (s = qn tn^T / tau (B, N, Lp) fp32, Lp L rounded
+    up to 64, zeros in [L, Lp); tmax (B, N, ceil(L / 128)) fp32: each row's
+    maximum over each 128-token tile of real tokens). On the card bf16 only:
+    per (image, 128 queries, 128 tokens) item, S on wgmma fed by a TMA ring,
+    the maximum from the accumulators, s stored by TMA."""
     if not on_cuda(tn):
         return vlcabs_fwd_scores_plain(queries_normed, tn, tau)
     n, d = queries_normed.shape
     b, l, _ = tn.shape
     _check_bf16("vlcabs_fwd_scores", tn, queries_normed=((n, d), queries_normed))
     _check_f32("vlcabs_fwd_scores", tn.device, tau=((1,), tau))
-    s = torch.empty((b, n, l), dtype=torch.float32, device=tn.device)
+    s = torch.empty((b, n, _pad64(l)), dtype=torch.float32, device=tn.device)
     tmax = torch.empty((b, n, _tiles(l)), dtype=torch.float32, device=tn.device)
     _build.check(_build.load().rz_vlcabs_fwd_scores(
         queries_normed.data_ptr(), tn.data_ptr(), tau.data_ptr(), s.data_ptr(), tmax.data_ptr(),
-        n, b, l, d, _build.stream_ptr(tn)), "vlcabs_fwd_scores")
+        n, b, l, _pad64(l), d, _build.stream_ptr(tn)), "vlcabs_fwd_scores")
     return s, tmax
 
 
-def vlcabs_fwd_rows_plain(s, tmax, dtype):
-    b, n, l = s.shape
+def vlcabs_fwd_rows_plain(s, tmax, l, dtype, maps=False):
+    b, n, lp = s.shape
+    real = s[..., :l].contiguous()
     m = tmax.amax(-1)
-    e = torch.zeros((b, _pad64(n), _pad64(l)), dtype=dtype, device=s.device)
-    e[:, :n, :l] = torch.exp2((s - m[..., None]) * _LOG2E).to(dtype)
-    return e, m
+    e = torch.zeros((b, _pad64(n), lp), dtype=dtype, device=s.device)
+    e[:, :n, :l] = torch.exp2((real - m[..., None]) * _LOG2E).to(dtype)
+    return e, m, real if maps else None
 
 
-def vlcabs_fwd_rows(s, tmax, dtype=torch.bfloat16):
-    """The forward's row pass: s (B, N, L) and tmax from
-    :func:`vlcabs_fwd_scores` -> (e (B, Np, Lp) in ``dtype``, Np and Lp N and L
-    rounded up to 64: e = exp(s - rowmax) rounded, zeros past N and L; the row
-    max (B, N) fp32). On the card bf16 only, a warp a row."""
+def vlcabs_fwd_rows(s, tmax, l, dtype=torch.bfloat16, maps=False):
+    """The forward's row pass: s (B, N, Lp) and tmax from
+    :func:`vlcabs_fwd_scores`, L real tokens -> (e (B, Np, Lp) in ``dtype``,
+    Np N rounded up to 64: e = exp(s - rowmax) rounded, zeros past N and L;
+    the row max (B, N) fp32; with ``maps`` the map (B, N, L) fp32, s without
+    its padding, else None). On the card bf16 only, a warp a row."""
     if not on_cuda(s):
-        return vlcabs_fwd_rows_plain(s, tmax, dtype)
-    b, n, l = s.shape
+        return vlcabs_fwd_rows_plain(s, tmax, l, dtype, maps)
+    b, n, lp = s.shape
     if dtype != torch.bfloat16:
         raise TypeError(f"vlcabs_fwd_rows: the card's row pass writes bfloat16, not {dtype}")
-    _check_f32("vlcabs_fwd_rows", s.device, s=((b, n, l), s), tmax=((b, n, _tiles(l)), tmax))
-    np_, lp = _pad64(n), _pad64(l)
-    e = torch.empty((b, np_, lp), dtype=dtype, device=s.device)
+    if lp != _pad64(l):
+        raise ValueError(f"vlcabs_fwd_rows: s has {lp} columns, expected {_pad64(l)} for L {l}")
+    _check_f32("vlcabs_fwd_rows", s.device, s=((b, n, lp), s), tmax=((b, n, _tiles(l)), tmax))
+    e = torch.empty((b, _pad64(n), lp), dtype=dtype, device=s.device)
     rowmax = torch.empty((b, n), dtype=torch.float32, device=s.device)
+    scores = torch.empty((b, n, l), dtype=torch.float32, device=s.device) if maps else None
     _build.check(_build.load().rz_vlcabs_fwd_rows(
-        s.data_ptr(), tmax.data_ptr(), e.data_ptr(), rowmax.data_ptr(), n, np_, b, l, lp,
-        _build.stream_ptr(s)), "vlcabs_fwd_rows")
-    return e, rowmax
+        s.data_ptr(), tmax.data_ptr(), e.data_ptr(), rowmax.data_ptr(), _ptr(scores), n,
+        _pad64(n), b, l, lp, _build.stream_ptr(s)), "vlcabs_fwd_rows")
+    return e, rowmax, scores
 
 
 def vlcabs_fwd_g_plain(e, tn, n):
@@ -239,15 +250,17 @@ def vlcabs_logits(queries_normed, g):
     return logits
 
 
-def vlcabs_forward_stages(queries_normed, tokens, tau):
+def vlcabs_forward_stages(queries_normed, tokens, tau, maps=False):
     """The forward as the card runs it in bf16, stage by stage -> (logits (N,
-    B), s (B, N, L), (row max (B, N), g (B, N, D))), all fp32; on CPU tensors
-    the stage twins, rounding where the kernels round."""
+    B), with ``maps`` the map s (B, N, L) else None, (row max (B, N), g (B, N,
+    D))), all fp32; on CPU tensors the stage twins, rounding where the kernels
+    round."""
     tn = vlcabs_rownorm(tokens)
     s, tmax = vlcabs_fwd_scores(queries_normed, tn, tau)
-    e, rowmax = vlcabs_fwd_rows(s, tmax, tokens.dtype)
+    e, rowmax, scores = vlcabs_fwd_rows(s, tmax, tokens.shape[1], tokens.dtype, maps)
+    del s
     g = vlcabs_fwd_g(e, tn, queries_normed.shape[0])
-    return vlcabs_logits(queries_normed, g), s, (rowmax, g)
+    return vlcabs_logits(queries_normed, g), scores, (rowmax, g)
 
 
 # ---------------------------------------------------------------------------
@@ -284,7 +297,7 @@ def vlcabs_train_stats_plain(queries_normed, tokens, tau):
     (B, N, D)), fp32."""
     cdt = tokens.dtype
     tn = _normalized_tokens(tokens)[0].to(cdt).float()
-    s = torch.einsum("nd,bld->bnl", queries_normed.float(), tn) * (1.0 / tau.float().reshape(()))
+    s = _scores(queries_normed, tn) * (1.0 / tau.float().reshape(()))
     m = s.amax(-1)
     e = torch.exp2((s - m[..., None]) * _LOG2E)
     return m, e.to(cdt).float() @ tn

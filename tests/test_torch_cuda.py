@@ -152,6 +152,7 @@ def _device_kernels(fn, tries=3):
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(tries):
+        torch.cuda.synchronize()  # no earlier launch still in flight when the session opens
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
@@ -434,14 +435,15 @@ def test_vlcabs_forward_stages_bf16(n, b, l, d):
     tn = vf.vlcabs_rownorm(t)
     s, tmax = vf.vlcabs_fwd_scores(q, tn, tau)
     ref_s, ref_tmax = vf.vlcabs_fwd_scores_plain(q, tn, tau)
+    assert s.shape == ref_s.shape == (b, n, -(-l // 64) * 64) and not s[..., l:].any()
     torch.testing.assert_close(s, ref_s, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(tmax, ref_tmax, rtol=1e-4, atol=1e-4)
-    e, rowmax = vf.vlcabs_fwd_rows(s, tmax)
-    ref_e, ref_m = vf.vlcabs_fwd_rows_plain(s, tmax, torch.bfloat16)
+    e, rowmax, maps = vf.vlcabs_fwd_rows(s, tmax, l, maps=True)
+    ref_e, ref_m, _ = vf.vlcabs_fwd_rows_plain(s, tmax, l, torch.bfloat16)
     assert e.shape == ref_e.shape == (b, -(-n // 64) * 64, -(-l // 64) * 64)
     assert not e[:, n:].any() and not e[:, :, l:].any()
     torch.testing.assert_close(e.float(), ref_e.float(), rtol=2.0**-7, atol=1e-6)
-    assert torch.equal(rowmax, ref_m)
+    assert torch.equal(rowmax, ref_m) and torch.equal(maps, s[..., :l])
     gs = vf.vlcabs_fwd_g(e, tn, n)
     ref_g = vf.vlcabs_fwd_g_plain(e, tn, n)
     torch.testing.assert_close(gs, ref_g, rtol=1e-4, atol=1e-4 * ref_g.abs().max().item())

@@ -1,11 +1,12 @@
 """The bf16 forward of K5 / K10 as the card runs it, stage twin by stage twin, on the CPU.
 
 On the card bf16 K5 (``vlcabs_fused``) and K10 (``vlcabs_train_forward``)
-are one forward split over tokens: the tokens' row pass, s and each row's
-maximum per 128-token tile (phase 1), a row pass that writes e into a (B,
-Np, Lp) buffer padded with zeros and the row max, g = e tn per image (phase
-2), and the logits. ``vlcabs_forward_stages`` composes the stage wrappers,
-which take their plain twins on CPU tensors. Here the composition is held
+are one forward split over tokens: the tokens' row pass, s into a (B, N, Lp)
+buffer and each row's maximum per 128-token tile (phase 1), a row pass that
+writes e into a (B, Np, Lp) buffer padded with zeros, the row max and, for
+K5, the map, g = e tn per image (phase 2), and the logits.
+``vlcabs_forward_stages`` composes the stage wrappers, which take their
+plain twins on CPU tensors. Here the composition is held
 bit for bit against the whole-function twins (``vlcabs_fused_plain``,
 ``vlcabs_train_forward_plain(with_stats=True)``) in fp32 and bf16 (the same
 operations at the same rounding points), and against the JAX package's
@@ -43,7 +44,7 @@ def _case(n, l, dtype=torch.float32, tau=0.07):
 def test_stage_twins_compose_to_the_whole_twins(n, l, tau, dtype):
     """Logits, map, row max and g of the stages equal the whole twins' bits."""
     q, t, tau_t = _case(n, l, dtype, tau)
-    logits, s, (rowmax, g) = tvl.vlcabs_forward_stages(q, t, tau_t)
+    logits, s, (rowmax, g) = tvl.vlcabs_forward_stages(q, t, tau_t, maps=True)
     want_logits, want_s = tvl.vlcabs_fused_plain(q, t, tau_t)
     train_logits, (want_m, want_g) = tvl.vlcabs_train_forward_plain(q, t, tau_t, with_stats=True)
     assert logits.shape == (n, B) and s.shape == (B, n, l)
@@ -57,23 +58,27 @@ def test_stage_twins_compose_to_the_whole_twins(n, l, tau, dtype):
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("l", [37, 130, 200])
 def test_row_pass_pads_e_with_zeros(l, dtype):
-    """Phase 1's tile maxima are the maxima of s over each 128-token tile
-    (one tile at L = 37); the row pass's e is (B, Np, Lp) with zeros past N
-    and L, in (0, 1] with a 1 in every real row, and its row max is s's."""
+    """Phase 1's s is (B, N, Lp) with zeros past L and its tile maxima are the
+    maxima of the real s over each 128-token tile (one tile at L = 37); the row
+    pass's e is (B, Np, Lp) with zeros past N and L, in (0, 1] with a 1 in
+    every real row, its row max is s's and its map s without the padding."""
     n = 14
     q, t, tau = _case(n, l, dtype)
     s, tmax = tvl.vlcabs_fwd_scores(q, tvl.vlcabs_rownorm(t), tau)
-    tiles = -(-l // 128)
-    assert tmax.shape == (B, n, tiles)
+    lp, tiles = -(-l // 64) * 64, -(-l // 128)
+    assert s.shape == (B, n, lp) and tmax.shape == (B, n, tiles)
+    assert not s[..., l:].any()
     for k in range(tiles):
-        assert torch.equal(tmax[..., k], s[..., 128 * k:128 * (k + 1)].amax(-1))
-    e, rowmax = tvl.vlcabs_fwd_rows(s, tmax, dtype)
-    assert e.shape == (B, 64, -(-l // 64) * 64) and e.dtype == dtype
+        assert torch.equal(tmax[..., k], s[..., 128 * k:min(128 * (k + 1), l)].amax(-1))
+    e, rowmax, scores = tvl.vlcabs_fwd_rows(s, tmax, l, dtype, maps=True)
+    assert e.shape == (B, 64, lp) and e.dtype == dtype
     assert not e[:, n:].any() and not e[:, :, l:].any()
     real = e[:, :n, :l].float()
     assert (real >= 0).all() and (real <= 1).all()
     assert torch.equal(real.amax(-1), torch.ones((B, n)))
-    assert torch.equal(rowmax, s.amax(-1))
+    assert torch.equal(rowmax, s[..., :l].amax(-1))
+    assert scores.is_contiguous() and torch.equal(scores, s[..., :l])
+    assert tvl.vlcabs_fwd_rows(s, tmax, l, dtype)[2] is None
 
 
 @pytest.mark.parametrize("tau", [0.07, 0.008])
@@ -82,7 +87,7 @@ def test_stages_match_the_jax_kernels(n, l, tau):
     """fp32: the composition against JAX's vlcabs_fused (logits and maps) and
     the forward of vlcabs_fused_train, at the JAX suite's tolerances."""
     q, t, tau_t = _case(n, l, tau=tau)
-    logits, s, _ = tvl.vlcabs_forward_stages(q, t, tau_t)
+    logits, s, _ = tvl.vlcabs_forward_stages(q, t, tau_t, maps=True)
     jq, jt, jtau = jnp.asarray(q.numpy()), jnp.asarray(t.numpy()), jnp.float32(tau)
     ref_logits, ref_scores = jvl.vlcabs_fused(jq, jt, jtau)
     np.testing.assert_allclose(logits.numpy(), np.asarray(ref_logits), rtol=1e-4, atol=1e-5)
@@ -100,7 +105,7 @@ def test_cpu_entry_points_take_the_whole_twins(dtype):
     logits, s = tvl.vlcabs_fused(q, t, tau.reshape(()))
     train_logits, (rowmax, g) = tvl.vlcabs_train_forward(q, t, tau, with_stats=True)
     assert (tvl.vlcabs_fused.launches, tvl.vlcabs_train_forward.launches) == before
-    stage_logits, stage_s, (stage_m, stage_g) = tvl.vlcabs_forward_stages(q, t, tau)
+    stage_logits, stage_s, (stage_m, stage_g) = tvl.vlcabs_forward_stages(q, t, tau, maps=True)
     for got, want in ((logits, stage_logits), (s, stage_s), (train_logits, stage_logits),
                       (rowmax, stage_m), (g, stage_g)):
         assert torch.equal(got, want)
