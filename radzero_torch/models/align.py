@@ -4,7 +4,7 @@
 ``impl`` names another ("packed", "flash", "eager": see ``models/vit.py``), plus an
 optional trailing LN;
 ``identity``: tokens pass through. The ``linear`` and ``mlp`` baselines
-are not ported yet (ROADMAP.md item 4).
+are not ported yet (ROADMAP.md, modules still to port, item 7).
 """
 
 from __future__ import annotations
@@ -49,6 +49,7 @@ def build_align_adapter(model_type: str):
     """-> (init(generator, cfg), apply(params, cfg, tokens, *, impl))."""
     if model_type not in _ADAPTERS:
         raise NotImplementedError(
-            f"align adapter {model_type!r} is not ported yet (ROADMAP.md item 4)"
+            f"align adapter {model_type!r} is not ported yet (ROADMAP.md, "
+            "modules still to port, item 7)"
         )
     return _ADAPTERS[model_type]

@@ -186,7 +186,7 @@ def _vision_config_from_dict(vc: dict) -> ViTConfig:
         return ViTConfig(**_filter_kwargs(ViTConfig, vc))
     raise NotImplementedError(
         f"vision model_type {mt!r} is not ported yet (alternate encoders "
-        "are ROADMAP item 16)"
+        "are ROADMAP.md, modules still to port, item 9)"
     )
 
 

@@ -238,7 +238,7 @@ def compute_logits(
     if cfg.compute_logits_type != "radzero":
         raise NotImplementedError(
             f"compute_logits_type {cfg.compute_logits_type!r} is not ported yet "
-            "(ROADMAP.md item 6)"
+            "(ROADMAP.md, modules still to port, item 7)"
         )
     vision = forward_vision(params, cfg, pixel_values, dtype=dtype, eager=eager,
                             fused_towers=fused_towers)

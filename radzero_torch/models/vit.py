@@ -234,7 +234,8 @@ def vit_forward(
     else the fused ones."""
     if cfg.token_filter_ratio > 0.0:
         raise NotImplementedError(
-            "token_filter_ratio > 0 is not ported yet (ROADMAP.md, port queue)"
+            "token_filter_ratio > 0 is not ported yet (ROADMAP.md, "
+            "modules still to port, item 7)"
         )
     x = vit_embed(params, cfg, pixel_values, dtype)
     x = vit_encoder(params["layers"], cfg, x, impl=impl or ("eager" if eager else "fused"))

@@ -30,7 +30,8 @@
 //   the tokens there come in as zeros), while the warpgroup goes on to its
 //   next item (a row of L = 1370 fp32 values is no multiple of 16 bytes, so
 //   TMA cannot store into an unpadded map; stores from the registers, which
-//   no product overlaps, are timed against this in PERF.md, PR 11);
+//   no product overlaps, took phase 1 0.237-0.241 ms against 0.169-0.172 at
+//   the training step's shape on an H100 80GB HBM3 at 700 W);
 // - the row pass (vlc_exp_rows_kernel, here), a warp a row of e (B, Np, Lp),
 //   Np N rounded up to 64: the row max from the tile maxima, e = exp2((s -
 //   m) log2 e) rounded to bf16, zeros past L and in the rows past N, so phase

@@ -7,86 +7,32 @@ Times K5 ``vlcabs_fused`` at serving's shape (8 images x 1370 tokens x 768,
 training step's (64 images x 512 sentences) through the entry points that
 every tree of the port has, so one call can time two checkouts side by side
 (``--tree`` puts DIR first on ``sys.path``; by default this file's
-checkout). Device time is the sum of the device kernels of one call under
-torch.profiler (the median of three sessions of five calls), CUDA-event time
-the median of 20 calls, host time the host's microseconds a call over 200
-calls enqueued back to back (the card runs behind). Prints one JSON line with
-the tree, the card and, per kernel, the three times and the device ms of each
-kernel that ran.
+checkout). The timers are ``chip_smoke.py``'s, from this file's checkout:
+device time is the sum of the device kernels of five calls under
+torch.profiler, a call's share; CUDA-event time the median of 20 calls;
+host time the host's microseconds a call over 200 calls enqueued back to
+back (the card runs behind). Prints one JSON line with the tree, the card
+and, per kernel, the three times and the device ms of each kernel that ran.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 import sys
-import time
 from pathlib import Path
 
-B, L, D, N = 8, 1370, 768, 14   # serving: images, tokens, width, prompts
-TB, TN = 64, 512                # the training step: images, sentences
-
-
-def device_ms(fn, calls=5, sessions=3):
-    """-> (the median over sessions of the device ms a call, {kernel: device ms a
-    call} of that session); a session that recorded no device kernel is left out."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    runs = []
-    for _ in range(sessions):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-        ran = {e.key[:80]: e.self_device_time_total / 1e3 / calls
-               for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
-        if ran:
-            runs.append((sum(ran.values()), ran))
-    if not runs:
-        raise RuntimeError("torch.profiler recorded no device kernel in any session")
-    runs.sort(key=lambda r: r[0])
-    return runs[len(runs) // 2]
-
-
-def events_ms(fn, reps=20, warmup=3):
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(reps):
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return sorted(times)[reps // 2]
-
-
-def host_us(fn, n=200):
-    import torch
-
-    for _ in range(5):
-        fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(n):
-        fn()
-    us = (time.perf_counter() - t0) / n * 1e6
-    torch.cuda.synchronize()
-    return us
+REPO = Path(__file__).resolve().parents[2]
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--tree", default=str(Path(__file__).resolve().parents[2]))
+    ap.add_argument("--tree", default=str(REPO))
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
+    sys.path.insert(0, str(REPO))
+    import chip_smoke as cs
+
     sys.path.insert(0, str(Path(args.tree).resolve()))
     import torch
 
@@ -95,26 +41,24 @@ def main() -> int:
         return 1
     from radzero_torch.ops import vlcabs_fused as vf
 
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True, check=True).stdout.strip()
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
 
     def unit(n):
-        q = torch.randn((n, D), generator=gen, device="cuda")
+        q = torch.randn((n, cs.D), generator=gen, device="cuda")
         return (q / q.norm(dim=-1, keepdim=True)).to(torch.bfloat16)
 
     def tokens(b):
-        return torch.randn((b, L, D), generator=gen, device="cuda").to(torch.bfloat16)
+        return torch.randn((b, cs.L, cs.D), generator=gen, device="cuda").to(torch.bfloat16)
 
-    k5 = (unit(N), tokens(B), torch.tensor(0.07, device="cuda"))
-    k10 = (unit(TN), tokens(TB), torch.tensor([0.07], device="cuda"))
+    k5 = (unit(cs.N), tokens(cs.B), torch.tensor(0.07, device="cuda"))
+    k10 = (unit(cs.TN), tokens(cs.TB), torch.tensor([0.07], device="cuda"))
     calls = {"K5": lambda: vf.vlcabs_fused(*k5),
              "K10": lambda: vf.vlcabs_train_forward(*k10, with_stats=True)}
-    out = {"tree": str(Path(args.tree).resolve()), "card": card}
+    out = {"tree": str(Path(args.tree).resolve()), "card": cs.card_line()}
     for name, fn in calls.items():
-        dev, kernels = device_ms(fn)
-        out[name] = {"device_ms": dev, "events_ms": events_ms(fn), "host_us": host_us(fn),
-                     "kernels": kernels}
+        kernels = cs.device_kernels(fn)
+        out[name] = {"device_ms": sum(kernels.values()), "events_ms": cs.median_ms(fn),
+                     "host_us": cs.host_us(fn), "kernels": kernels}
     print(json.dumps(out))
     return 0
 
