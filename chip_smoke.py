@@ -9,10 +9,11 @@ Phases, in order; any failure exits non-zero:
 1. device: require CUDA; print the card (nvidia-smi), CUDA and nvcc versions;
 2. build the kernels from radzero_torch/ops/csrc with nvcc (sm_90a); ptxas
    must report no spills for the Hopper kernels of K2 / K13 (forward), K7 /
-   K14 (backward), the GEMM of K1 / K3 / K4 / K6 / K8 / K9 / K12
-   (gemm_sm90_kernel, all 16 instantiations: K1 / K3 / K4's epilogues, the
+   K14 (backward), the GEMM of K1 / K3 / K4 / K6 / K8 / K9 / K11 / K12
+   (gemm_sm90_kernel, all 17 instantiations: K1 / K3 / K4's epilogues, the
    chains' on W and on W^T read K-major, the dW product, K12's second phase,
-   K5 / K10's second phase), K12's first phase (vlc_dtn_phase1_sm90_kernel)
+   K5 / K10's second phase, K11's dq product), K12's first phase
+   (vlc_dtn_phase1_sm90_kernel, whose epilogue also writes K11's dtau)
    and K5 / K10's (vlc_scores_sm90_kernel), nor for the short-sentence K15 /
    K16 kernels;
 3. each kernel against its plain PyTorch twin, in fp32 with TF32 off and in
@@ -28,7 +29,12 @@ Phases, in order; any failure exits non-zero:
    products on cuBLAS, fp32 K5 / K10 on vlcabs_kernel<float> / rownorm_kernel
    and vlc_pass1_kernel<float, .>; K11 and K12 from the statistics of a
    K10 call, never vlc_pass1_kernel, bf16 K12 on its two Hopper phases with a
-   yardstick of its four products on cuBLAS; K6 / K8 / K9 in bf16 on their
+   yardstick of its four products on cuBLAS, bf16 K11 on K12's first phase,
+   its product over dc (gemm_sm90_kernel<5, 4>) and the reduce, never
+   vlc_dq_kernel, with a yardstick of its three products on cuBLAS, and the
+   backward as the training step runs it (vlcabs_train_bwd: the shared
+   stages once) by kernel, K11's own launches' device time, a second
+   call's bits; K6 / K8 / K9 in bf16 on their
    gemm_sm90_kernel instantiations, row passes and reduces alone (no other
    GEMM, no transpose_kernel), with their device time; fwd_sm90_kernel, and
    bwd_dq_sm90_kernel with bwd_dkdv_sm90_kernel, in bf16,
@@ -114,11 +120,12 @@ M_RAGGED = 1370                       # K9 at a row count that is no multiple of
 L_PAD, L_LONG = 1408, 4097            # K13 / K14: a lane-padded tower (kv_len 1370), a long one
 PEAK_FLOPS = {"bf16": 989e12}         # H100 SXM dense bf16, operations per second
 PEAK_BYTES = 3.35e12                  # H100 SXM device memory, bytes per second
+K11_SLOTS = TB * TN // 64 * -(-L // 128)  # phase 1's work items: K11's dtau slots
 HOPPER_FWD = "fwd_sm90_kernel"        # K2 / K13 in bf16 (csrc/flash_fwd_sm90.cu)
 HOPPER_BWD = ("bwd_dq_sm90_kernel", "bwd_dkdv_sm90_kernel")  # K7 / K14 in bf16 (flash_bwd_sm90.cu)
-GEMM_SM90 = "gemm_sm90_kernel"        # bf16 products of K1, K3-K6, K8-K10, K12 (gemm_sm90.cu)
-GEMM_SM90_INSTANCES = 16              # its <epilogue, operand layout> pairs (gemm_sm90.cu)
-VLC_PHASE1 = "vlc_dtn_phase1_sm90_kernel"  # K12's first phase in bf16 (csrc/vlcabs_sm90.cu)
+GEMM_SM90 = "gemm_sm90_kernel"        # bf16 products of K1, K3-K6, K8-K12 (gemm_sm90.cu)
+GEMM_SM90_INSTANCES = 17              # its <epilogue, operand layout> pairs (gemm_sm90.cu)
+VLC_PHASE1 = "vlc_dtn_phase1_sm90_kernel"  # K12's first phase in bf16, K11's too (vlcabs_sm90.cu)
 VLC_SCORES = "vlc_scores_sm90_kernel"  # K5 / K10's first phase in bf16 (csrc/vlcabs_sm90.cu)
 LN_PASS = "row_layernorm_kernel"      # K1 / K3's LayerNorm in bf16, once per row (fused_layer.cu)
 # K15 / K16 in bf16 at L <= 64 (flash_bias_small.cu)
@@ -143,17 +150,24 @@ def _sm90(epi, mode):  # an instantiation of gemm_sm90_kernel<epilogue of gemm.c
 # e[b] tn[b]); K4 in bf16 (K9's forward chain); K5 / K10 in bf16 (the tokens' row
 # pass, phase 1, the row pass into e, phase 2, the logits; csrc/vlcabs_sm90.cu), in
 # fp32 their kernels of vlcabs_fused.cu / vlcabs_train.cu; K11 / K12 after the
-# forward's statistics (csrc/vlcabs_train.cu's row passes, then K11's dq kernel and
-# reduce, K12's two Hopper phases in bf16)
+# forward's statistics (csrc/vlcabs_train.cu's row passes, then in bf16 K12's first
+# Hopper phase, K11's product over its dc, <5, 4>, and reduce, K12's second phase; in
+# fp32 K11's dq kernel and reduce, K12's tiled kernel); "K11+K12" the backward as the
+# autograd function runs it, the shared stages once (vlcabs_train_bwd)
 VT_ROWS = ("rownorm_kernel", "vlc_bwd_rows_kernel")
+K11_OWN = (_sm90(5, 4), "vlc_reduce_kernel")  # bf16 K11's own launches after phase 1
 VL_FWD = ("rownorm_kernel", VLC_SCORES, "vlc_exp_rows_kernel", _sm90(8, 4), "vlc_logits_kernel")
 ROUTES = {"K1": {"bf16": (LN_PASS, _sm90(0, 0)), "fp32": ("gemm_f32_kernel<true, 0>",)},
           "K5": {"bf16": VL_FWD, "fp32": ("vlcabs_kernel<float>",)},
           "K10": {"bf16": VL_FWD, "fp32": ("rownorm_kernel", "vlc_pass1_kernel<float, ")},
           "K4": {"bf16": (_sm90(4, 0), LN_ROWS + "float>", _sm90(2, 0), _sm90(5, 0), LN_PASS)},
-          "K11": {d: VT_ROWS + ("vlc_dq_kernel", "vlc_reduce_kernel") for d in ("bf16", "fp32")},
+          "K11": {"bf16": VT_ROWS + (VLC_PHASE1,) + K11_OWN,
+                  "fp32": VT_ROWS + ("vlc_dq_kernel<float>", "vlc_reduce_kernel")},
           "K12": {"bf16": VT_ROWS + (VLC_PHASE1, _sm90(0, 3)),
                   "fp32": VT_ROWS + ("vlc_dtn_kernel<float>",)},
+          "K11+K12": {"bf16": VT_ROWS + (VLC_PHASE1,) + K11_OWN + (_sm90(0, 3),),
+                      "fp32": VT_ROWS + ("vlc_dq_kernel<float>", "vlc_reduce_kernel",
+                                         "vlc_dtn_kernel<float>")},
           "K3": {"bf16": (_sm90(1, 0), LN_PASS, _sm90(2, 0), _sm90(3, 0)),
                  "fp32": ("gemm_f32_kernel<false, 1>", "gemm_f32_kernel<true, 2>",
                           "gemm_f32_kernel<false, 3>")},
@@ -350,15 +364,17 @@ def device_kernels(fn, calls=5, tries=3):
 def check_route(k, dname, fn, way="fwd", detail=False):
     """A call of K1 (way "K1"), K3 ("K3"), K4 ("K4"), K5 ("K5"), K10 ("K10"),
     K2 / K13 ("fwd"), K7 / K14 ("bwd"), K15 ("bias_fwd"), K16 ("bias_bwd"),
-    K6 / K8 / K9 ("K6", "K8", "K9") or K11 / K12 ("K11", "K12") runs exactly
+    K6 / K8 / K9 ("K6", "K8", "K9"), K11 / K12 ("K11", "K12") or the two at
+    once ("K11+K12") runs exactly
     the device kernels of ROUTES: in bf16 row_layernorm_kernel and
     gemm_sm90_kernel, the five stages of the VL-CABS forward (never
     vlcabs_kernel or vlc_pass1_kernel in bf16), fwd_sm90_kernel, or
     bwd_dq_sm90_kernel and bwd_dkdv_sm90_kernel (never bwd_stats_kernel), the
     kernels of flash_bias_small.cu at L <= 64, the chains' gemm_sm90_kernel
     instantiations with their row passes and reduces (never wgrad_bf16_kernel
-    or transpose_kernel), or the VL-CABS backward's row passes with K11's dq
-    kernel or K12's phases (never vlc_pass1_kernel) -> their device ms a call
+    or transpose_kernel), or the VL-CABS backward's row passes with K12's
+    first phase, K11's product and reduce and K12's second phase in bf16
+    (never vlc_pass1_kernel or vlc_dq_kernel) -> their device ms a call
     (no host time), with ``detail`` also {kernel name: its device ms a call}."""
     ran = device_kernels(fn)
     want = ROUTES[way][dname]
@@ -394,6 +410,43 @@ def vl_stage_times(k, qn, tokens, tau, ran):
     print(f"  {k:10s} bf16 stages, events (device) ms: " + ", ".join(
         f"{name} {v['ms']:.4f} ({v['device_ms']:.4f})" for name, v in out.items()))
     return out
+
+
+def _outputs(out):
+    return out if isinstance(out, tuple) else (out,)
+
+
+def shared_backward(dname, qn, tokens, tau, dz, stats):
+    """The VL-CABS backward as the autograd function runs it on the card
+    (vlcabs_train_bwd: the tokens' and the backward's row passes and, in
+    bf16, K12's first phase once for K11 and K12) against the whole twins
+    at K11's and K12's tolerances, its device kernels by name and time
+    (torch.profiler), a second call's bits, CUDA-event and plain times ->
+    the row of "K11+K12", with "own_ms": the device ms of K11's own launches
+    (its product over dc and the reduce; bf16)."""
+    import torch
+    from radzero_torch.ops import vlcabs_fused as vf
+
+    bwd = lambda: vf.vlcabs_train_bwd(qn, tokens, tau, dz, stats=stats)  # noqa: E731
+    plain = lambda: vf.vlcabs_train_backward_plain(qn, tokens, tau, dz)  # noqa: E731
+    dq, dtn, dtau = bwd()
+    ref = plain()
+    torch.cuda.synchronize()
+    err = max(compare("K11+K12 dq", dname, dq, ref[0], tol="K11 dq"),
+              compare("K11+K12 dt", dname, vf._rownorm_vjp(dtn, tokens), ref[1], tol="K12 dt"),
+              compare("K11+K12 dtau", dname, dtau, ref[2], tol="K11 dtau"))
+    again = bwd()
+    if not all(torch.equal(a, b) for a, b in zip((dq, dtn, dtau), again)):
+        fail(f"K11+K12 {dname}: a second backward gives other bits")
+    del dq, dtn, dtau, ref, again
+    dev_ms, ran = check_route("K11+K12", dname, bwd, "K11+K12", detail=True)
+    own = sum(t for name, t in ran.items() if any(k in name for k in K11_OWN))
+    ms, plain_ms = median_ms(bwd, reps=10), median_ms(plain, reps=10)
+    print(f"  K11+K12    {dname}: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms (median of 10); "
+          f"K11's own launches {own:.4f} ms on the device")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "device_ms": dev_ms,
+            "library_ms": None, "own_ms": own,
+            "kernels_device_ms": {name[:60]: t for name, t in ran.items()}}
 
 
 def device_idle(fn):
@@ -538,13 +591,20 @@ def bounds(dtype_bytes=2):
         "K4 16384": (2 * TN * T_LEN * D * (D + 2 * F),
                      (3 * TN * T_LEN * D + D * D + 2 * D * F + 6 * D + F) * e),
         "K5": (4 * B * N * L * D, (B * L * D + N * D) * e + (B * N * L + N * B) * 4),
-        # K10: s and g. K11 and K12 read the forward's statistics, g (B, N, D) and the
-        # row max (B, N) in fp32: K11 s, de, dc.tn; K12 s, de, dc^T.qn, e^T.dg
+        # K10: s and g. K12 reads the forward's statistics, g (B, N, D) and the row
+        # max (B, N) in fp32: s, de, dc^T.qn, e^T.dg
         "K10": (4 * vl, (TB * L * D + TN * D) * e + TN * TB * 4),
-        "K11": (6 * vl, (TB * L * D + 2 * TN * D) * e + TN * TB * 4 + stat + 4),
         "K12": (8 * vl, (2 * TB * L * D + TN * D) * e + TN * TB * 4 + stat),
-        # the contract before the statistics: pass 1 (s, g) again in each
-        "K11 old": (8 * vl, (TB * L * D + 2 * TN * D) * e + TN * TB * 4 + 4),
+        # K11's own launches in bf16, after K12's first phase (which computes its S,
+        # dE and dc and writes its dtau slots): dq = sum_b (dz ghat + dc tn); reads dc
+        # (B, N, L), tn, dz ghat (B, N, D) fp32 and the slots, writes dq and dtau
+        "K11": (2 * vl, (TB * TN * L + TB * L * D + TN * D) * e + TB * TN * D * 4
+                + K11_SLOTS * 4 + 4),
+        # the whole backward from the statistics, K11 and K12 (vlcabs_train_bwd): s,
+        # de, dc.tn, dc^T.qn, e^T.dg; reads tokens, queries, statistics, dz; writes
+        # dq, dtn, dtau
+        "K11+K12": (10 * vl, (2 * TB * L * D + 2 * TN * D) * e + TN * TB * 4 + stat + 4),
+        # K12's contract before the statistics: pass 1 (s, g) again
         "K12 old": (10 * vl, (2 * TB * L * D + TN * D) * e + TN * TB * 4),
     }
     for tag, b in (("", TB), (" 2img", 2)):  # K6-K8 at b images: operations, bytes
@@ -715,22 +775,23 @@ def phase_kernels(seed):
             plain_ms = median_ms(lambda: plain(*args), reps=10)
             print(f"  {k:10s} {dname}: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms (median of 10)")
             dev_ms = k10_ms if k == "K10" else None
-            if k != "K10":  # the device kernels that ran, by name
+            if k != "K10":  # the device kernels that ran, by name; a second call's bits
                 dev_ms = check_route(k, dname, lambda: kern(*args, **kw), k)
-                if k == "K12":  # a second backward, the same bits
-                    first, again = kern(*args, **kw), kern(*args, **kw)
-                    if not torch.equal(first, again):
-                        fail(f"K12 {dname}: a second backward gives other bits")
-                    del first, again
+                first, again = kern(*args, **kw), kern(*args, **kw)
+                if not all(torch.equal(a, b) for a, b in zip(_outputs(first), _outputs(again))):
+                    fail(f"{k} {dname}: a second backward gives other bits")
+                del first, again
             if dname == "bf16":
                 rows[k] = {"max_abs_err": errs[k], "ms": ms, "plain_ms": plain_ms,
                            "library_ms": None}
                 if dev_ms is not None:
                     rows[k]["device_ms"] = dev_ms
+        joint = shared_backward(dname, qn, tokens, tau, dz, stats)
         if dname == "bf16":
             rows["K10"].update(ms_with_stats=stats_ms, max_abs_err_stats=stats_err,
                                stages=k10_stages)
-            rows["K11"]["max_abs_err_dtau"] = dtau_err
+            rows["K11"].update(max_abs_err_dtau=dtau_err, device_ms_own=joint.pop("own_ms"))
+            rows["K11+K12"] = joint
             # K2's yardstick, timed here and called nowhere in the port: one
             # library attention call on the unpacked heads of the same input,
             # at 8 images and at the training step's 64
@@ -779,17 +840,20 @@ def phase_kernels(seed):
         elif k.endswith(" train"):
             rows[k[:2]].update(bound_ms_training=bound_ms)
             ms = rows[k[:2]]["ms_training"]
-        elif k.endswith(" old"):  # K11 / K12's bound before the forward's statistics
+        elif k.endswith(" old"):  # K12's bound before the forward's statistics
             rows[k[:3]].update(bound_ms_old_contract=bound_ms)
             ms = rows[k[:3]]["ms"]
         elif k == "K4 16384":  # the training step's text rows, beside K4's serving shape
             ms = rows[k]["ms"]
             rows["K4"].update(bound_ms_16384=bound_ms, ms_16384=ms)
+        elif k == "K11":  # its own launches, after the phase 1 it shares with K12
+            rows[k].update(bound_ms=bound_ms, bound_by=bound_by)
+            ms = rows[k]["device_ms_own"]
         else:
             rows[k].update(bound_ms=bound_ms, bound_by=bound_by)
             ms = rows[k]["ms"]
         print(f"  {k:8s} bound {bound_ms:.4f} ms by {bound_by}: kernel at "
-              f"{100 * bound_ms / ms:.1f}% of it (bf16)")
+              f"{100 * bound_ms / ms:.1f}% of it (bf16{', own launches, device' if k == 'K11' else ''})")
     return rows
 
 
@@ -798,13 +862,14 @@ def cublas_products(rows):
     computes the fused function: each bf16 product of K1 (qkv), K3 and K4
     (o-proj, fc1, fc2), of K6 (dX, dW), of K8 and K9 (all nine: the forward
     recompute, dX and dW of o-proj, fc1 and fc2), of K12 (s, dE, dc^T qn
-    and e^T dg over 64 images) and of K5 / K10 (s and g, at 8 x 14 and 64 x
-    512), as one cuBLAS call on operands of the same shapes (F.linear,
-    torch.mm of a^T g for a dW, torch.matmul / torch.bmm for K5, K10, K12),
+    and e^T dg over 64 images), of K11 (s, dE, dc tn) and of the two
+    together (the five), and of K5 / K10 (s and g, at 8 x 14 and 64 x 512),
+    as one cuBLAS call on operands of the same shapes (F.linear, torch.mm of
+    a^T g for a dW, torch.matmul / torch.bmm for K5, K10-K12),
     timed alone, without the LN, GELU, residual, column sums, exponentials
     or row passes the kernels fuse; called nowhere in the port ->
     rows[k]["cublas_products_ms.."]; for K1, K3, K4 at 16 384 rows, K5, K6,
-    K8-K10 and K12 also their device time by torch.profiler beside the
+    K8-K12 also their device time by torch.profiler beside the
     kernel's -> rows[k]["cublas_products_device_ms.."]."""
     import torch
     import torch.nn.functional as Fn
@@ -847,6 +912,17 @@ def cublas_products(rows):
                       "dc^T qn": lambda: torch.matmul(sc.transpose(1, 2), qn),
                       "e^T dg": lambda: torch.bmm(sc.transpose(1, 2), dg)})
 
+    def vl_backward(k12=True):  # K11's three per-image products: s, dE, dc tn (and K12's two)
+        qn, tn, dg = rn(TN, D), rn(TB, L, D), rn(TB, TN, D)
+        sc = rn(TB, TN, L)  # dc or e, bf16
+        calls = {"s": lambda: torch.matmul(qn, tn.transpose(1, 2)),
+                 "dE": lambda: torch.bmm(dg, tn.transpose(1, 2)),
+                 "dc tn": lambda: torch.bmm(sc, tn)}
+        if k12:
+            calls |= {"dc^T qn": lambda: torch.matmul(sc.transpose(1, 2), qn),
+                      "e^T dg": lambda: torch.bmm(sc.transpose(1, 2), dg)}
+        return timed(calls)
+
     def vl_fwd(b, n):  # K5 / K10's two per-image products: s = qn tn^T, g = e tn
         qn, tn, e = rn(n, D), rn(b, L, D), rn(b, n, L)
         return timed({"s": lambda: torch.matmul(qn, tn.transpose(1, 2)),
@@ -870,6 +946,8 @@ def cublas_products(rows):
         ("K8", "", "K8"): lambda: chain(TB * L),
         ("K9", "", "K9"): lambda: chain(TN * T_LEN),
         ("K12", "", "K12"): vl_products,
+        ("K11", "", "K11"): lambda: vl_backward(k12=False),
+        ("K11+K12", "", "K11+K12"): vl_backward,
         ("K5", "", "K5"): lambda: vl_fwd(B, N),
         ("K10", "", "K10"): lambda: vl_fwd(TB, TN),
     }
@@ -1655,7 +1733,7 @@ def profile_step(fn):
              "fa": "attention kernels K2, K7, K13-K16 (rz::fa::*)",
              "bw": "row passes and reduces of K6, K8, K9 (rz::bw::*)",
              "rz": "the GEMMs: K1, K3, K4 and every product of K6, K8, K9, the second "
-                   "phases of K10 and K12 (rz::gemm_*, rz::row_layernorm)",
+                   "phases of K10 and K12, K11's dq product (rz::gemm_*, rz::row_layernorm)",
              "torch": "torch ops (everything else)"}
     groups = {v: 0.0 for v in names.values()}
     for name, ms, _ in kernels:
@@ -1780,6 +1858,8 @@ def main() -> int:
          "launches_flash_training_step": flash_step[name], **rows[k]}
         for k, (name, src, rep) in meta.items()
     ]
+    k11 = next(k for k in kernels if k["name"] == "vlcabs_train_bwd_dq")
+    k11["backward_k11_k12"] = rows["K11+K12"]  # vlcabs_train_bwd: K11 and K12 at once
     idle = [k["name"] for k in kernels if k["launches"] == 0]
     if idle:
         fail(f"kernels never launched on a main path: {idle}")

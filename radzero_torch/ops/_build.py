@@ -59,10 +59,12 @@ SIGNATURES = {
     "rz_vlcabs_bwd_rows": [_P] * 5 + [_I, _I, _I, _I, _P],
     # qn, tn, tau, dg, rowmax, dq_part, dtau_part, dq, dtau, N, B, L, D, dtype, stream
     "rz_vlcabs_dq": [_P] * 9 + [_I, _I, _I, _I, _I, _P],
+    # ce, tn, dq_part, dtau_slots, dq, dtau, N, Np, B, L, Lp, D, nslots, stream
+    "rz_vlcabs_dq_sm90": [_P] * 6 + [_I] * 7 + [_P],
     # qn, tn, tau, dg, rowmax, dtn, N, B, L, D, dtype, stream
     "rz_vlcabs_dtn_tiles": [_P] * 6 + [_I, _I, _I, _I, _I, _P],
-    # qn, tn, dg, rowmax, tau, ce, N, Np, B, L, Lp, D, stream
-    "rz_vlcabs_dtn_phase1": [_P] * 6 + [_I] * 6 + [_P],
+    # qn, tn, dg, rowmax, tau, ce, dtau_slots, N, Np, B, L, Lp, D, stream
+    "rz_vlcabs_dtn_phase1": [_P] * 7 + [_I] * 6 + [_P],
     # ce, qn, dg, dtn, N, Np, B, L, Lp, D, stream
     "rz_vlcabs_dtn_phase2": [_P] * 4 + [_I] * 6 + [_P],
     # qn, tn, tau, s, tmax, N, B, L, Lp, D, stream

@@ -5,7 +5,7 @@
 // once as a bf16 operand), of the backward chains K6, K8 and K9 (rz_bwd_gemm
 // and rz_wgrad of fused_layer_bwd.cu: their forward recompute, their dX
 // products and their dW products), K12's second phase and K5 / K10's second
-// phase in bf16 (vlcabs_sm90.cu).
+// phase in bf16 (vlcabs_sm90.cu) and K11's dq product (vlcabs_train.cu).
 // fp32 stays on gemm_f32_kernel / wgrad_f32_kernel (gemm.cuh).
 //
 // Replaces the products of the TPU kernels radzero_tpu/ops/fused_layer.py
@@ -13,7 +13,8 @@
 // (_postattn_kernel, :913), _mpnet_post_call (:760), _preattn_vjp_bwd (:390),
 // _postattn_vjp_bwd (:568) and _mpnet_post_vjp_bwd (:820), and of
 // radzero_tpu/ops/pallas_vlcabs.py _train_bwd's _kernel_bwd_dtn (:403) and
-// vlcabs_fused / _train_forward's e . tn (:115, :310), with their contract:
+// _kernel_bwd_dq's dc . tn (:381), and vlcabs_fused / _train_forward's e . tn
+// (:115, :310), with their contract:
 // bf16 operands, fp32
 // accumulation, the epilogue in fp32 on the accumulators (bias, LayerScale,
 // residual, exact-erf GELU and its derivative), rounded to bf16 where the JAX
@@ -56,9 +57,11 @@
 //     and one chunk, the whole contraction, so the epilogue writes bf16 once;
 //     the B rows come from qn for k < k_split and from dg[b] after, through
 //     two maps rather than a copy.
-//   GEMM_BFWD, K5 / K10's g[b] = e[b] . tn[b] per image b (gemm_sm90_vlc_g):
-//     GEMM_FWD's layout with an image coordinate on A, B and the output (3-D
-//     maps), so an image's rows past its end come in as zeros.
+//   GEMM_BFWD, K5 / K10's g[b] = e[b] . tn[b] and K11's dz ghat[b] + dc[b] . tn[b]
+//     per image b (gemm_sm90_vlc_g): GEMM_FWD's layout with an image coordinate
+//     on A, B, the output and EPI_ADDF_F32's residual (3-D maps), so an image's
+//     rows past its end come in as zeros; A's rows per image may exceed M (K11
+//     reads dc, the first Np of each image's 2 Np rows of K12's ce).
 //   Rows past M, columns past N and k past K come in as zeros, so K needs no
 //   multiple of 64. Under a 384-thread block (a producer warpgroup) ptxas held
 //   the kernel to 168 registers and the GELU epilogue spilled; under 288
@@ -275,9 +278,13 @@ gemm_sm90_kernel(const __grid_constant__ CUtensorMap ma, const __grid_constant__
               bar_wait(iempty, lt & 1);  // both leaders saw the last stores read them
               bar_expect_tx(ifull, (lower ? 2 : 1) * boxes * BOX);
               for (int h = 0; h < (lower ? 2 : 1); ++h)
-                for (int b = 0; b < boxes; ++b)
-                  tma_load_2d(base + Lay::OUT_OFF + h * Lay::OUT_WG + b * BOX, &mi, ifull,
-                              w.n0 + b * COLS, w.m0 + h * 64);
+                for (int b = 0; b < boxes; ++b) {
+                  const uint32_t dst = base + Lay::OUT_OFF + h * Lay::OUT_WG + b * BOX;
+                  if (batched(MODE))  // image w.b's rows: its rows past M come in as zeros
+                    tma_load_3d(dst, &mi, ifull, w.n0 + b * COLS, w.m0 + h * 64, w.b);
+                  else
+                    tma_load_2d(dst, &mi, ifull, w.n0 + b * COLS, w.m0 + h * 64);
+                }
             } else {
               constexpr int BOX = BM * 128;
               bar_wait(iempty, (lt & 1) ^ 1);
@@ -543,19 +550,21 @@ cudaError_t gemm_sm90_dtn(const void* ce, const void* qn, const void* dg, void* 
   return run<EPI_BIAS, GEMM_DTN>(ma, mw, mo, mo, mi, g, stream);
 }
 
-cudaError_t gemm_sm90_vlc_g(const void* e, const void* tn, float* g, int N, int Np, int B, int L,
-                            int Lp, int D, cudaStream_t stream) {
-  if (D % 8 || Np % 64 || Lp % 64 || N > Np || L > Lp) return cudaErrorInvalidValue;
+cudaError_t gemm_sm90_vlc_g(const void* a, const void* tn, float* out, int N, int Ar, int B,
+                            int L, int Lp, int D, bool add, cudaStream_t stream) {
+  if (D % 8 || Ar % 64 || Lp % 64 || N > Ar || L > Lp) return cudaErrorInvalidValue;
   if (B == 0 || N == 0) return cudaSuccess;
-  GemmArgs a{e, tn, nullptr, nullptr, nullptr, 0.f, nullptr, nullptr, g, N, D, Lp};
-  a.batch = B;
-  // A: image b's (Np, Lp) block of e, K-major; B: tn[b] (L, D), MN-major, its rows
-  // past L zeros; g (B, N, D) fp32, its rows past N not written
+  GemmArgs g{a, tn, nullptr, nullptr, nullptr, 0.f, nullptr, nullptr, out, N, D, Lp};
+  g.batch = B;
+  // A: the first N of image b's Ar rows of a (B, Ar, Lp), K-major; B: tn[b] (L, D),
+  // MN-major, its rows past L zeros; out (B, N, D) fp32, its rows past N not written;
+  // with add, out's tile comes into the staging tile first (3-D, 64-row boxes)
   CUtensorMap ma, mw, mo;
-  if (!make_map_3d(&ma, e, B, Np, Lp, BM) || !make_map_3d(&mw, tn, B, L, D, BK) ||
-      !make_map_3d(&mo, g, B, N, D, 64, true))
+  if (!make_map_3d(&ma, a, B, Ar, Lp, BM) || !make_map_3d(&mw, tn, B, L, D, BK) ||
+      !make_map_3d(&mo, out, B, N, D, 64, true))
     return cudaErrorInvalidValue;
-  return run<EPI_F32, GEMM_BFWD>(ma, mw, mo, mo, ma, a, stream);
+  return add ? run<EPI_ADDF_F32, GEMM_BFWD>(ma, mw, mo, mo, mo, g, stream)
+             : run<EPI_F32, GEMM_BFWD>(ma, mw, mo, mo, ma, g, stream);
 }
 
 }  // namespace rz

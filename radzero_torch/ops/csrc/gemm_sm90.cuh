@@ -1,7 +1,7 @@
 // The bf16 GEMM for Hopper (gemm_sm90.cu), as the entry points of
 // fused_layer.cu call it for K1, K3 and K4, those of fused_layer_bwd.cu for
-// the chains of K6, K8 and K9 and vlcabs_sm90.cu for the second phases of K12
-// and of K5 / K10.
+// the chains of K6, K8 and K9, vlcabs_sm90.cu for the second phases of K12
+// and of K5 / K10 and vlcabs_train.cu for K11's dq product.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -40,11 +40,13 @@ cudaError_t gemm_sm90_wgrad(const void* a, const void* g, float* part, int rows,
 cudaError_t gemm_sm90_dtn(const void* ce, const void* qn, const void* dg, void* dtn, int N,
                           int Np, int B, int L, int Lp, int D, cudaStream_t stream);
 
-// K5 / K10's second phase, g[b] = e[b] . tn[b] for each of B images: e (B, Np, Lp)
-// bf16 with zeros in the rows past N and the columns past L, tn (B, L, D) bf16,
-// g (B, N, D) fp32, one fp32 sum over Lp a (128-query, 128-column) tile.
-// D % 8 == 0, Np, Lp % 64 == 0.
-cudaError_t gemm_sm90_vlc_g(const void* e, const void* tn, float* g, int N, int Np, int B, int L,
-                            int Lp, int D, cudaStream_t stream);
+// out[b] (+)= a[b] . tn[b] for each of B images, one fp32 sum over Lp a (128-row,
+// 128-column) tile: a (B, Ar, Lp) bf16, of whose Ar rows per image the first N are
+// read, with zeros in the columns past L; tn (B, L, D) bf16; out (B, N, D) fp32,
+// overwritten, or added to in place with `add`. K5 / K10's second phase, g = e . tn
+// (a = e, Ar = Np), and K11's dq product, dz ghat + dc . tn (a = K12's ce, Ar = 2 Np,
+// the dc rows first). D % 8 == 0, Ar, Lp % 64 == 0.
+cudaError_t gemm_sm90_vlc_g(const void* a, const void* tn, float* out, int N, int Ar, int B,
+                            int L, int Lp, int D, bool add, cudaStream_t stream);
 
 }  // namespace rz

@@ -106,7 +106,8 @@ constexpr int XCH = 128 * 64 * 4;              // e in fp32, 64 values a consume
 constexpr int OUT_OFF = STAGES * STAGE;
 constexpr int XCH_OFF = OUT_OFF + 2 * OUT_WG;
 constexpr int BAR_OFF = XCH_OFF + XCH;
-constexpr size_t SMEM = BAR_OFF + 8 * 2 * STAGES + 1024;  // + room to align
+constexpr int RED_OFF = BAR_OFF + 8 * 2 * STAGES;  // warpgroup 0's four warp sums of dtau
+constexpr size_t SMEM = RED_OFF + 16 + 1024;       // + room to align
 static_assert(SMEM <= 232448, "over the 227 KB a block can have");
 }  // namespace p1
 
@@ -116,8 +117,9 @@ vlc_dtn_phase1_sm90_kernel(const __grid_constant__ CUtensorMap mq,
                            const __grid_constant__ CUtensorMap mt,
                            const __grid_constant__ CUtensorMap mg,
                            const __grid_constant__ CUtensorMap mo,
-                           const float* __restrict__ rowmax, const float* __restrict__ tau, int N,
-                           int Np, int B, int L, int Lp, int D) {
+                           const float* __restrict__ rowmax, const float* __restrict__ tau,
+                           float* __restrict__ dtau_slots, int N, int Np, int B, int L, int Lp,
+                           int D) {
   using namespace p1;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
@@ -190,8 +192,8 @@ vlc_dtn_phase1_sm90_kernel(const __grid_constant__ CUtensorMap mq,
     // epilogue: e (warpgroup 0) and dc (warpgroup 1) into the staging tiles
     if (leader) bulk_wait_read();  // the last tile's stores have read the staging tile
     consumers_sync();              // and warpgroup 1 has read the last tile's e
+    float m[2];                    // warpgroup 0: its rows' maxima, 0 past N
     if (wg == 0) {
-      float m[2];
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
         const int n = n0 + rl + 8 * i;
@@ -228,6 +230,8 @@ vlc_dtn_phase1_sm90_kernel(const __grid_constant__ CUtensorMap mq,
             float e;
             asm volatile("ld.shared.f32 %0, [%1];" : "=f"(e) : "r"(xch + 512 * k));
             dc[h] = acc[k] * e * inv_tau;
+            if (dtau_slots != nullptr)  // dc in fp32 back into e's word, for dtau
+              asm volatile("st.shared.f32 [%0], %1;" ::"r"(xch + 512 * k), "f"(dc[h]));
           }
           sts_bf2(stg + swz<2>(64, rl + 8 * i, c), dc[0], dc[1]);
         }
@@ -241,6 +245,31 @@ vlc_dtn_phase1_sm90_kernel(const __grid_constant__ CUtensorMap mq,
       for (int x = 0; x < LT / 64; ++x)
         if (l0 + 64 * x < Lp) tma_store_3d(&mo, stg + x * 64 * 128, l0 + 64 * x, row, b);
       bulk_commit();
+    }
+    if (dtau_slots != nullptr) {  // the item's share of sum dc (s - rowmax), dc unrounded
+      consumers_sync();           // the exchange holds this tile's dc
+      if (wg == 0) {
+        // past N or L dc is 0 and s - m finite (those rows and tokens came in as
+        // zeros, m = 0 past N), so no 0 * inf arises
+        float part = 0.f;
+#pragma unroll
+        for (int k = 0; k < 64; ++k) {
+          float dc;
+          asm volatile("ld.shared.f32 %0, [%1];" : "=f"(dc) : "r"(xch + 512 * k));
+          part = fmaf(dc, acc[k] * inv_tau - m[(k / 2) % 2], part);
+        }
+        for (int o = 16; o > 0; o >>= 1) part += __shfl_xor_sync(0xffffffffu, part, o);
+        const uint32_t red = base + RED_OFF;
+        if (lane == 0) asm volatile("st.shared.f32 [%0], %1;" ::"r"(red + 4 * warp), "f"(part));
+        wg_sync(0);
+        if (ct == 0) {  // the four warps in order, one store: no atomics
+          float w[4];
+#pragma unroll
+          for (int x = 0; x < 4; ++x)
+            asm volatile("ld.shared.f32 %0, [%1];" : "=f"(w[x]) : "r"(red + 4 * x));
+          dtau_slots[t] = ((w[0] + w[1]) + w[2]) + w[3];
+        }
+      }
     }
   }
   if (leader) bulk_wait_read();  // the shared memory outlives the last stores' reads
@@ -432,10 +461,13 @@ static int vt_sms(int* sms) {
 }
 
 // K12 phase 1 (bf16): qn (N, D), tn (B, L, D), dg (B, N, D), rowmax (B, N) fp32 and
-// tau (1,) fp32 -> ce (B, 2 Np, Lp): dc rows, then e rows, zeros past N and L
+// tau (1,) fp32 -> ce (B, 2 Np, Lp): dc rows, then e rows, zeros past N and L; unless
+// dtau_slots is null also, per work item (image, 64 queries, 128 tokens), its share of
+// sum dc (s - rowmax) into dtau_slots (B * Np / 64 * ceil(L / 128)) fp32
 extern "C" int rz_vlcabs_dtn_phase1(const void* qn, const void* tn, const void* dg,
-                                    const void* rowmax, const void* tau, void* ce, int N, int Np,
-                                    int B, int L, int Lp, int D, void* stream) {
+                                    const void* rowmax, const void* tau, void* ce,
+                                    void* dtau_slots, int N, int Np, int B, int L, int Lp, int D,
+                                    void* stream) {
   using namespace rz::vt;
   if (!vt_sm90_ok(N, Np, L, Lp, D)) return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0) return 0;
@@ -450,8 +482,8 @@ extern "C" int rz_vlcabs_dtn_phase1(const void* qn, const void* tn, const void* 
   const int items = B * (Np / p1::QT) * ((L + p1::LT - 1) / p1::LT);
   vlc_dtn_phase1_sm90_kernel<<<items < sms ? items : sms, p1::THREADS, p1::SMEM,
                                static_cast<cudaStream_t>(stream)>>>(
-      mq, mt, mg, mo, static_cast<const float*>(rowmax), static_cast<const float*>(tau), N, Np, B,
-      L, Lp, D);
+      mq, mt, mg, mo, static_cast<const float*>(rowmax), static_cast<const float*>(tau),
+      static_cast<float*>(dtau_slots), N, Np, B, L, Lp, D);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -511,5 +543,5 @@ extern "C" int rz_vlcabs_fwd_g(const void* e, const void* tn, void* g, int N, in
                                int L, int Lp, int D, void* stream) {
   if (!vt_sm90_ok(N, Np, L, Lp, 64) || D % 8) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(rz::gemm_sm90_vlc_g(e, tn, static_cast<float*>(g), N, Np, B, L, Lp, D,
-                                              static_cast<cudaStream_t>(stream)));
+                                              false, static_cast<cudaStream_t>(stream)));
 }

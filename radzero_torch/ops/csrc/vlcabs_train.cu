@@ -4,7 +4,9 @@
 //   K10 _train_forward            (_kernel_fwd_logits; in bf16 the forward of
 //                                  vlcabs_sm90.cu, whose last launch is
 //                                  vlc_logits_kernel here)
-//   K11 _train_bwd, first call    (_kernel_bwd_dq:  dq, dtau)
+//   K11 _train_bwd, first call    (_kernel_bwd_dq:  dq, dtau; in bf16 its
+//                                  product runs gemm_sm90.cu's GEMM_BFWD over
+//                                  the dc that K12's phase 1 writes)
 //   K12 _train_bwd, second call   (_kernel_bwd_dtn: d(normalised tokens); in
 //                                  bf16 its products run vlcabs_sm90.cu's
 //                                  phase 1 and gemm_sm90.cu's GEMM_DTN)
@@ -28,11 +30,11 @@
 // bound them. The TPU kernels hold one image's whole normalised token set
 // and a (block, L) score block in VMEM and add into one output block
 // across sequential grid steps; neither exists here:
-// - One image's tn (1370 x 768) is ten times an SM's shared memory. Every
-//   kernel walks L in tiles and D in chunks of 256 columns; nothing wider
-//   than a (32 x 64) score tile and a (32 x 256) / (64 x 256) operand
-//   chunk is ever in shared memory. The tokens are normalised once per
-//   call into a (B, L, D) buffer of the operand type (a row kernel).
+// - One image's tn (1370 x 768) is ten times an SM's shared memory. The
+//   fp32 kernels here walk L in tiles and D in chunks of 256 columns;
+//   nothing wider than a (32 x 64) score tile and a (32 x 256) / (64 x 256)
+//   operand chunk is ever in shared memory. The tokens are normalised once
+//   per call into a (B, L, D) buffer of the operand type (a row kernel).
 // - g needs the whole row of e, and dg needs g, so the backward cannot be
 //   one pass. The fp32 forward kernel (pass 1) takes the row max in a first
 //   sweep over L and g in a second, with g (32 x D) held in accumulator
@@ -42,31 +44,37 @@
 //   (as the attention forward keeps lse): the backward's statistics, so that
 //   neither K11 nor K12 runs pass 1 again (the bf16 forward of vlcabs_sm90.cu
 //   writes the same two from its row pass and its second phase). The backward
-//   starts with a row
-//   pass (vlc_bwd_rows_kernel, a warp per (image, query)) that turns g and
-//   dz into dg (B, N, D; operand type) and, for K11, dz ghat (fp32), the
-//   arithmetic and order of pass 1's end; the second passes know the max,
-//   so their accumulators (dq in K11, dtn in K12) stay in registers with no
-//   rescaling.
-// - Sums across blocks have a fixed order and use no atomics. K11 runs one
-//   block per (32 queries, image), writes its dq into a (B, N, D) fp32
-//   buffer and its share of dtau into one slot per block; a reduce kernel
-//   adds the images up in order. K12 in fp32 (vlc_dtn_kernel) runs one
-//   block per (32 tokens, image) that walks every 64-query block itself, so
-//   dtn is summed in registers and written once, rounded once (the TPU
-//   kernel rounds the running sum to the tokens' dtype once per 128-query
-//   block). K12 in bf16 runs two Hopper phases instead (vlcabs_sm90.cu).
-// - The products here run on the tensor cores in bf16 (WMMA, fp32
-//   accumulators) and on the CUDA cores in true fp32 (WarpAcc in
-//   common.cuh). The k dimension of a score tile is split over four warps
-//   whose partial tiles are added in shared memory, because WMMA leaves the
-//   accumulator layout unspecified.
+//   starts with a row pass (vlc_bwd_rows_kernel, a warp per (image, query))
+//   that turns g and dz into dg (B, N, D; operand type) and, for K11, dz ghat
+//   (fp32), the arithmetic and order of pass 1's end.
+// - bf16: S, dE, e and dc are one pass over (query, token) pairs that K11
+//   and K12 share, K12's phase 1 (vlcabs_sm90.cu): it writes dc and e once,
+//   rounded, into ce (B, 2 Np, Lp) and, for K11, each work item's share of
+//   dtau from its epilogue, where dc is still fp32. K11 is then one product
+//   per image over the dc rows, dz ghat + dc[b] . tn[b] added in place into
+//   the row pass's (B, N, D) fp32 buffer (gemm_sm90_kernel<EPI_ADDF_F32,
+//   GEMM_BFWD>), and the reduce below. Under autograd the backward runs the
+//   tokens' row pass, the backward's row pass and phase 1 once for both
+//   (rz_vlcabs_dq_sm90 after rz_vlcabs_dtn_phase1, then K12's phase 2).
+// - fp32: K11 runs one block per (32 queries, image) that recomputes s and
+//   de tile by tile (vlc_dq_kernel), with dq in registers and no rescaling,
+//   writes its dq into the (B, N, D) fp32 buffer and its share of dtau into
+//   one slot per block; K12 (vlc_dtn_kernel) runs one block per (32 tokens,
+//   image) that walks every 64-query block itself, so dtn is summed in
+//   registers and written once, rounded once (the TPU kernel rounds the
+//   running sum to the tokens' dtype once per 128-query block).
+// - Sums across blocks have a fixed order and use no atomics: the reduce
+//   (vlc_reduce_kernel) adds the images up in order and folds the dtau
+//   slots in a fixed order.
+// - The fp32 kernels' products run on the CUDA cores in true fp32
+//   (WarpAcc<float> in common.cuh, whose tiles follow WMMA's interface). The
+//   k dimension of a score tile is split over four warps whose partial tiles
+//   are added in shared memory.
 // This file's pass 1 is K10 in fp32 only; bf16 K10 runs vlcabs_sm90.cu's
 // forward (rownorm_kernel, two Hopper phases and a row pass between them,
 // then vlc_logits_kernel below).
-// Not yet done (later work): K11's dq kernel on wgmma / TMA (it can become one
-// product over phase 1's dc, contracted over the images' tokens).
 #include "common.cuh"
+#include "gemm_sm90.cuh"
 
 namespace rz {
 namespace vt {
@@ -589,6 +597,15 @@ cudaError_t bwd_rows(const void* qn, const void* g, const void* dz, void* dg, vo
 }
 
 template <typename T>
+cudaError_t reduce(const void* dq_part, const void* dtau_part, void* dq, void* dtau, int ND, int B,
+                   int nparts, cudaStream_t s) {
+  vlc_reduce_kernel<T><<<(ND + THREADS - 1) / THREADS, THREADS, 0, s>>>(
+      static_cast<const float*>(dq_part), static_cast<const float*>(dtau_part),
+      static_cast<T*>(dq), static_cast<float*>(dtau), ND, B, nparts);
+  return cudaGetLastError();
+}
+
+template <typename T>
 cudaError_t dq_pass(const void* qn, const void* tn, const void* tau, const void* dg,
                     const void* rowmax, void* dq_part, void* dtau_part, void* dq, void* dtau,
                     int N, int B, int L, int D, cudaStream_t s) {
@@ -602,10 +619,7 @@ cudaError_t dq_pass(const void* qn, const void* tn, const void* tau, const void*
       static_cast<float*>(dq_part), static_cast<float*>(dtau_part), N, B, L, D);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  vlc_reduce_kernel<T><<<(N * D + THREADS - 1) / THREADS, THREADS, 0, s>>>(
-      static_cast<const float*>(dq_part), static_cast<const float*>(dtau_part),
-      static_cast<T*>(dq), static_cast<float*>(dtau), N * D, B, (int)(grid.x * grid.y));
-  return cudaGetLastError();
+  return reduce<T>(dq_part, dtau_part, dq, dtau, N * D, B, (int)(grid.x * grid.y), s);
 }
 
 template <typename T>
@@ -667,24 +681,40 @@ extern "C" int rz_vlcabs_bwd_rows(const void* qn, const void* g, const void* dz,
   return static_cast<int>(RZ_VT_PICK(dtype, bwd_rows)(qn, g, dz, dg, dq_part, N, B, D, s));
 }
 
-// K11 after the row pass: dq (N, D) operand type and dtau (1,) fp32 from tn, dg,
-// rowmax and dq_part (dz ghat on entry, the per-image sums on exit); dtau_part
+// K11 in fp32 after the row pass: dq (N, D) and dtau (1,) fp32 from tn, dg, rowmax
+// and dq_part (dz ghat on entry, the per-image sums on exit); dtau_part
 // (B * ceil(N / 32)) fp32 scratch
 extern "C" int rz_vlcabs_dq(const void* qn, const void* tn, const void* tau, const void* dg,
                             const void* rowmax, void* dq_part, void* dtau_part, void* dq,
                             void* dtau, int N, int B, int L, int D, int dtype, void* stream) {
-  if (!vt_shape_ok(D)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!vt_shape_ok(D) || dtype != RZ_DTYPE_F32) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(rz::vt::dq_pass<float>(qn, tn, tau, dg, rowmax, dq_part, dtau_part, dq,
+                                                 dtau, N, B, L, D,
+                                                 static_cast<cudaStream_t>(stream)));
+}
+
+// K11 in bf16 after K12's phase 1 (rz_vlcabs_dtn_phase1 with its dtau slots): from
+// ce (B, 2 Np, Lp), whose rows [0, Np) of each image hold dc, and tn (B, L, D),
+// dq_part (B, N, D) fp32 += dc[b] . tn[b] in place (dz ghat on entry), then dq (N, D)
+// bf16 = the images' sum in order and dtau (1,) = -(the sum of the nslots slots)
+extern "C" int rz_vlcabs_dq_sm90(const void* ce, const void* tn, void* dq_part,
+                                 const void* dtau_slots, void* dq, void* dtau, int N, int Np,
+                                 int B, int L, int Lp, int D, int nslots, void* stream) {
+  if (D % 64 || Np % 64 || Lp % 64 || N > Np || L > Lp || N <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(RZ_VT_PICK(dtype, dq_pass)(qn, tn, tau, dg, rowmax, dq_part, dtau_part,
-                                                     dq, dtau, N, B, L, D, s));
+  cudaError_t err = rz::gemm_sm90_vlc_g(ce, tn, static_cast<float*>(dq_part), N, 2 * Np, B, L,
+                                        Lp, D, true, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(
+      rz::vt::reduce<__nv_bfloat16>(dq_part, dtau_slots, dq, dtau, N * D, B, nslots, s));
 }
 
 // K12 in fp32 after the row pass: dtn (B, L, D) from tn, dg and rowmax
 extern "C" int rz_vlcabs_dtn_tiles(const void* qn, const void* tn, const void* tau,
                                    const void* dg, const void* rowmax, void* dtn, int N, int B,
                                    int L, int D, int dtype, void* stream) {
-  if (!vt_shape_ok(D)) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(
-      RZ_VT_PICK(dtype, dtn_tiles)(qn, tn, tau, dg, rowmax, dtn, N, B, L, D, s));
+  if (!vt_shape_ok(D) || dtype != RZ_DTYPE_F32) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(rz::vt::dtn_tiles<float>(qn, tn, tau, dg, rowmax, dtn, N, B, L, D,
+                                                   static_cast<cudaStream_t>(stream)));
 }

@@ -16,13 +16,15 @@ Per image, with queries already l2-normalised:
   ``torch.autograd.Function``. Its forward launches K10
   (:func:`vlcabs_train_forward`), which on the card also writes the
   statistics the backward reads: the row max of s (B, N) and g (B, N, D),
-  fp32. Its backward launches K11 (:func:`vlcabs_train_bwd_dq`: dq and
-  dtau) and K12 (:func:`vlcabs_train_bwd_dtn`: the gradient of the
-  normalised tokens) and then applies the row-normalise VJP dt = (dtn -
-  (dtn.tn) tn) / |t| in plain torch, as the JAX package leaves it to XLA.
-  The fp32 (B, N, L) score tensor never reaches device memory: K11 and
-  K12 recompute s from the tokens; bf16 K12 keeps e and dc once, rounded,
-  between its two phases (:func:`vlcabs_dtn_phase1`).
+  fp32. Its backward runs K11 (dq and dtau) and K12 (the gradient of the
+  normalised tokens) in one pass over their shared stages
+  (:func:`vlcabs_train_bwd`; alone they are :func:`vlcabs_train_bwd_dq` and
+  :func:`vlcabs_train_bwd_dtn`) and then applies the row-normalise VJP dt =
+  (dtn - (dtn.tn) tn) / |t| in plain torch, as the JAX package leaves it to
+  XLA. The fp32 (B, N, L) score tensor never reaches device memory: the
+  backward recomputes s from the tokens; in bf16 e and dc are written once,
+  rounded, by K12's first phase (:func:`vlcabs_dtn_phase1`) and read by
+  K11's product and K12's second phase.
 
 The backward formulas, with g = e @ tn (the softmax denominator cancels in
 the cosine) and the cotangent dz (N, B):
@@ -56,10 +58,13 @@ with a running max (the cosine is invariant to scaling agg, so that is
 exact) and K10 takes the row max in a first sweep. On the card K11
 and K12 compose stages that can each be held against a twin: the tokens'
 row pass (:func:`vlcabs_rownorm`), the backward's row pass
-(:func:`vlcabs_bwd_rows`: dg and dz ghat from g), then K11's dq kernel and
-reduce, and K12's two Hopper phases in bf16 (:func:`vlcabs_dtn_phase1`,
-:func:`vlcabs_dtn_phase2`) or its tiled kernel in fp32;
-:func:`vlcabs_train_backward_stats_plain` runs that route twin by twin.
+(:func:`vlcabs_bwd_rows`: dg and dz ghat from g), then in bf16 K12's first
+Hopper phase (:func:`vlcabs_dtn_phase1`: e and dc, and for K11 each work
+item's share of dtau), K11's product over its dc with the reduce
+(:func:`vlcabs_dq_from_ce`) and K12's second phase
+(:func:`vlcabs_dtn_phase2`), in fp32 K11's dq kernel and reduce and K12's
+tiled kernel; :func:`vlcabs_train_backward_stats_plain` runs the bf16 route
+twin by twin.
 """
 
 from __future__ import annotations
@@ -429,7 +434,7 @@ def vlcabs_bwd_rows(queries_normed, g, dz, *, want_dq_part=False):
     return dg, dq_part
 
 
-def vlcabs_dtn_phase1_plain(queries_normed, tn, dg, rowmax, tau):
+def vlcabs_dtn_phase1_plain(queries_normed, tn, dg, rowmax, tau, with_dtau=False):
     cdt = tn.dtype
     n = queries_normed.shape[0]
     b, l, _ = tn.shape
@@ -442,18 +447,28 @@ def vlcabs_dtn_phase1_plain(queries_normed, tn, dg, rowmax, tau):
     ce = torch.zeros((b, 2 * np_, _pad64(l)), dtype=cdt, device=tn.device)
     ce[:, :n, :l] = dc.to(cdt)
     ce[:, np_:np_ + n, :l] = e.to(cdt)
-    return ce
+    if not with_dtau:
+        return ce
+    # one slot per work item (image, 64 queries, 128 tokens), images slowest:
+    # its sum of dc (s - rowmax), dc unrounded
+    terms = torch.zeros((b, np_, _tiles(l) * _TOKEN_TILE), device=tn.device)
+    terms[:, :n, :l] = dc * (s - rowmax[..., None])
+    slots = terms.reshape(b, np_ // 64, 64, _tiles(l), _TOKEN_TILE).sum((2, 4))
+    return ce, slots.reshape(-1)
 
 
-def vlcabs_dtn_phase1(queries_normed, tn, dg, rowmax, tau):
+def vlcabs_dtn_phase1(queries_normed, tn, dg, rowmax, tau, *, with_dtau=False):
     """K12's first phase: (N, D) queries, the normalised tokens tn (B, L, D),
     dg (B, N, D), the forward's row max (B, N) and tau -> ce (B, 2 Np, Lp)
     in the tokens' dtype, Np and Lp N and L rounded up to 64: per image, dc =
     (dg tn^T) e / tau in rows [0, Np) and e = exp(qn tn^T / tau - rowmax) in
     rows [Np, 2 Np), both rounded (e unrounded inside dc), zeros past N and
-    L. On the card bf16 only (one Hopper kernel, csrc/vlcabs_sm90.cu)."""
+    L. With ``with_dtau`` -> (ce, slots): K11's dtau in parts, slots (B * Np
+    / 64 * ceil(L / 128),) fp32, each (image, 64-query, 128-token) work
+    item's sum of dc (s - rowmax) with dc unrounded, from the epilogue. On
+    the card bf16 only (one Hopper kernel, csrc/vlcabs_sm90.cu)."""
     if not on_cuda(tn):
-        return vlcabs_dtn_phase1_plain(queries_normed, tn, dg, rowmax, tau)
+        return vlcabs_dtn_phase1_plain(queries_normed, tn, dg, rowmax, tau, with_dtau)
     n, d = queries_normed.shape
     b, l, _ = tn.shape
     _check_bf16("vlcabs_dtn_phase1", tn, queries_normed=((n, d), queries_normed),
@@ -461,11 +476,13 @@ def vlcabs_dtn_phase1(queries_normed, tn, dg, rowmax, tau):
     _check_f32("vlcabs_dtn_phase1", tn.device, rowmax=((b, n), rowmax), tau=((1,), tau))
     np_, lp = _pad64(n), _pad64(l)
     ce = torch.empty((b, 2 * np_, lp), dtype=tn.dtype, device=tn.device)
+    slots = (torch.empty((b * np_ // 64 * _tiles(l),), dtype=torch.float32, device=tn.device)
+             if with_dtau else None)
     _build.check(_build.load().rz_vlcabs_dtn_phase1(
         queries_normed.data_ptr(), tn.data_ptr(), dg.data_ptr(), rowmax.data_ptr(),
-        tau.data_ptr(), ce.data_ptr(), n, np_, b, l, lp, d, _build.stream_ptr(tn)),
+        tau.data_ptr(), ce.data_ptr(), _ptr(slots), n, np_, b, l, lp, d, _build.stream_ptr(tn)),
         "vlcabs_dtn_phase1")
-    return ce
+    return (ce, slots) if with_dtau else ce
 
 
 def vlcabs_dtn_phase2_plain(ce, queries_normed, dg, l):
@@ -498,29 +515,67 @@ def vlcabs_dtn_phase2(ce, queries_normed, dg, l):
     return dtn
 
 
-def vlcabs_dq_plain(queries_normed, tn, tau, dg, rowmax, dq_part):
-    """K11 after the row pass: (dq (N, D) in the queries' dtype, dtau (1,))."""
-    tn32 = tn.float()
-    inv_tau = 1.0 / tau.float().reshape(())
-    s = torch.einsum("nd,bld->bnl", queries_normed.float(), tn32) * inv_tau
-    s_shift = s - rowmax[..., None]
-    e = torch.exp2(s_shift * _LOG2E)
-    dc = (dg.float() @ tn32.transpose(1, 2)) * e * inv_tau
-    dq = (dc.to(tn.dtype).float() @ tn32 + dq_part).sum(0)
-    return dq.to(queries_normed.dtype), (-(dc * s_shift).sum()).reshape(1)
+def _fold_slots(slots):
+    """-(sum of the slots) in the reduce's order: 32 lanes, lane i adds slots i,
+    i + 32, ... in turn, then a butterfly of shuffles over the lanes."""
+    lanes = torch.zeros(32, dtype=torch.float32, device=slots.device)
+    padded = torch.nn.functional.pad(slots.float(), (0, -slots.numel() % 32)).reshape(-1, 32)
+    for row in padded:
+        lanes = lanes + row
+    idx = torch.arange(32, device=slots.device)
+    for o in (16, 8, 4, 2, 1):
+        lanes = lanes + lanes[idx ^ o]
+    return -lanes[:1]
+
+
+def vlcabs_dq_from_ce_plain(ce, tn, dq_part, slots, n):
+    l = tn.shape[1]
+    parts = dq_part + ce[:, :n, :l].float() @ tn.float()       # (B, N, D)
+    dq = torch.zeros_like(parts[0])
+    for part in parts:  # the images in order, as the reduce adds them
+        dq = dq + part
+    return dq.to(tn.dtype), _fold_slots(slots)
+
+
+def vlcabs_dq_from_ce(ce, tn, dq_part, slots, n):
+    """K11 after K12's first phase: ce (B, 2 Np, Lp) and its dtau ``slots``
+    from :func:`vlcabs_dtn_phase1` (``with_dtau=True``), the normalised
+    tokens tn (B, L, D) and the row pass's dz ghat (B, N, D) fp32 -> (dq =
+    sum_b (dz ghat[b] + dc[b] tn[b]) (N, D) in tn's dtype, dtau = -sum slots
+    (1,) fp32), the images and the slots added in a fixed order. On the card
+    bf16 only: dc[b] tn[b] is one product per image on gemm_sm90_kernel's
+    GEMM_BFWD layout, added into ``dq_part`` in place (its contents are then
+    spent), and a reduce over images (csrc/vlcabs_train.cu)."""
+    if not on_cuda(ce):
+        return vlcabs_dq_from_ce_plain(ce, tn, dq_part, slots, n)
+    b, l, d = tn.shape
+    np_, lp = _pad64(n), _pad64(l)
+    _check_bf16("vlcabs_dq_from_ce", tn, ce=((b, 2 * np_, lp), ce))
+    nslots = b * np_ // 64 * _tiles(l)
+    _check_f32("vlcabs_dq_from_ce", tn.device, dq_part=((b, n, d), dq_part),
+               slots=((nslots,), slots))
+    dq = torch.empty((n, d), dtype=tn.dtype, device=tn.device)
+    dtau = torch.empty((1,), dtype=torch.float32, device=tn.device)
+    _build.check(_build.load().rz_vlcabs_dq_sm90(
+        ce.data_ptr(), tn.data_ptr(), dq_part.data_ptr(), slots.data_ptr(), dq.data_ptr(),
+        dtau.data_ptr(), n, np_, b, l, lp, d, nslots, _build.stream_ptr(tn)),
+        "vlcabs_dq_from_ce")
+    return dq, dtau
 
 
 def vlcabs_train_backward_stats_plain(queries_normed, tokens, tau, dz, stats):
-    """The card's backward route from the forward's statistics, stage twin by
-    stage twin (row pass; K11's dq; in K12 phase 1 and phase 2, which in fp32
-    compute what vlc_dtn_kernel does) -> (dq, dt, dtau) as
-    :func:`vlcabs_train_backward_plain` returns them."""
+    """The card's bf16 backward route from the forward's statistics, stage
+    twin by stage twin (the tokens' row pass; the backward's row pass; K12's
+    phase 1 with K11's dtau slots; K11's product and reduce over its dc; K12's
+    phase 2; in fp32 the same twins compute what vlc_dq_kernel and
+    vlc_dtn_kernel do) -> (dq, dt, dtau) as :func:`vlcabs_train_backward_plain`
+    returns them."""
     rowmax, g = stats
-    l = tokens.shape[1]
-    tn = vlcabs_rownorm(tokens)
+    n, l = queries_normed.shape[0], tokens.shape[1]
+    tn = _normalized_tokens(tokens)[0].to(tokens.dtype)
     dg, dq_part = vlcabs_bwd_rows_plain(queries_normed, g, dz)
-    dq, dtau = vlcabs_dq_plain(queries_normed, tn, tau, dg, rowmax, dq_part)
-    ce = vlcabs_dtn_phase1_plain(queries_normed, tn, dg, rowmax, tau)
+    ce, slots = vlcabs_dtn_phase1_plain(queries_normed, tn, dg, rowmax, tau, with_dtau=True)
+    dq, dtau = vlcabs_dq_from_ce_plain(ce, tn, dq_part, slots, n)
     dtn = vlcabs_dtn_phase2_plain(ce, queries_normed, dg, l)
     return dq, _rownorm_vjp(dtn, tokens), dtau.to(tau.dtype).reshape(tau.shape)
 
@@ -551,29 +606,63 @@ def _stats_operands(name, stats, n, b, d, device):
     return rowmax, g
 
 
+def _bwd_operands(name, queries_normed, tokens, tau, dz, stats):
+    """The card's checks of a backward entry point -> (n, b, l, d, code, dz
+    fp32, row max, g)."""
+    n, b, l, d, code = _check_train_operands(name, queries_normed, tokens, tau)
+    dz = _check_cotangent(name, dz, n, b, tokens.device)
+    rowmax, g = _stats_operands(name, stats, n, b, d, tokens.device)
+    return n, b, l, d, code, dz, rowmax, g
+
+
+def _dq_fp32(queries_normed, tn, tau, dg, rowmax, dq_part, code):
+    """fp32 K11 after the row pass: vlc_dq_kernel, per (32-query block, image)
+    partial sums in fp32, then the reduce over images -> (dq, dtau)."""
+    n, d = queries_normed.shape
+    b, l, _ = tn.shape
+    dev = tn.device
+    dtau_part = torch.empty((b * ((n + 31) // 32),), dtype=torch.float32, device=dev)
+    dq = torch.empty_like(queries_normed)
+    dtau = torch.empty((1,), dtype=torch.float32, device=dev)
+    _build.check(_build.load().rz_vlcabs_dq(
+        queries_normed.data_ptr(), tn.data_ptr(), tau.data_ptr(), dg.data_ptr(),
+        rowmax.data_ptr(), dq_part.data_ptr(), dtau_part.data_ptr(), dq.data_ptr(),
+        dtau.data_ptr(), n, b, l, d, code, _build.stream_ptr(tn)), "vlcabs_train_bwd_dq")
+    return dq, dtau
+
+
+def _dtn_fp32(queries_normed, tn, tau, dg, rowmax, code):
+    """fp32 K12 after the row pass: one kernel whose block owns a token tile
+    of one image and walks every query block itself."""
+    n, d = queries_normed.shape
+    b, l, _ = tn.shape
+    dtn = torch.empty_like(tn)
+    _build.check(_build.load().rz_vlcabs_dtn_tiles(
+        queries_normed.data_ptr(), tn.data_ptr(), tau.data_ptr(), dg.data_ptr(),
+        rowmax.data_ptr(), dtn.data_ptr(), n, b, l, d, code, _build.stream_ptr(tn)),
+        "vlcabs_train_bwd_dtn")
+    return dtn
+
+
 def vlcabs_train_bwd_dq(queries_normed, tokens, tau, dz, *, stats=None):
     """K11: cotangent dz (N, B) fp32 -> (dq (N, D) in the queries' dtype,
     dtau (1,) fp32). On the card ``stats``, the forward's (row max, g), is
     required: the tokens' row pass, the backward's row pass (dg and dz ghat
-    from g), per (query block, image) partial sums in fp32, then a reduce
-    over images in a fixed order: no atomics, the same bits each run."""
+    from g), then in bf16 K12's first phase (:func:`vlcabs_dtn_phase1`,
+    whose e rows go unused here) and :func:`vlcabs_dq_from_ce`, in fp32 per
+    (query block, image) partial sums; either way a reduce over images in a
+    fixed order: no atomics, the same bits each run."""
     if not on_cuda(tokens):
         return vlcabs_train_bwd_dq_plain(queries_normed, tokens, tau, dz)
-    n, b, l, d, code = _check_train_operands("vlcabs_train_bwd_dq", queries_normed, tokens, tau)
-    dz = _check_cotangent("vlcabs_train_bwd_dq", dz, n, b, tokens.device)
-    rowmax, g = _stats_operands("vlcabs_train_bwd_dq", stats, n, b, d, tokens.device)
+    n, _, _, _, code, dz, rowmax, g = _bwd_operands("vlcabs_train_bwd_dq", queries_normed,
+                                                    tokens, tau, dz, stats)
     tn = vlcabs_rownorm(tokens)
     dg, dq_part = vlcabs_bwd_rows(queries_normed, g, dz, want_dq_part=True)
-    dev = tokens.device
-    dtau_part = torch.empty((b * ((n + 31) // 32),), dtype=torch.float32, device=dev)
-    dq = torch.empty_like(queries_normed)
-    dtau = torch.empty((1,), dtype=torch.float32, device=dev)
-    err = _build.load().rz_vlcabs_dq(
-        queries_normed.data_ptr(), tn.data_ptr(), tau.data_ptr(), dg.data_ptr(),
-        rowmax.data_ptr(), dq_part.data_ptr(), dtau_part.data_ptr(), dq.data_ptr(),
-        dtau.data_ptr(), n, b, l, d, code, _build.stream_ptr(tokens),
-    )
-    _build.check(err, "vlcabs_train_bwd_dq")
+    if tokens.dtype == torch.bfloat16:
+        ce, slots = vlcabs_dtn_phase1(queries_normed, tn, dg, rowmax, tau, with_dtau=True)
+        dq, dtau = vlcabs_dq_from_ce(ce, tn, dq_part, slots, n)
+    else:
+        dq, dtau = _dq_fp32(queries_normed, tn, tau, dg, rowmax, dq_part, code)
     vlcabs_train_bwd_dq.launches += 1
     return dq, dtau
 
@@ -591,25 +680,55 @@ def vlcabs_train_bwd_dtn(queries_normed, tokens, tau, dz, *, stats=None):
     Either way the sum over queries has a fixed order and is rounded once."""
     if not on_cuda(tokens):
         return vlcabs_train_bwd_dtn_plain(queries_normed, tokens, tau, dz)
-    n, b, l, d, code = _check_train_operands("vlcabs_train_bwd_dtn", queries_normed, tokens, tau)
-    dz = _check_cotangent("vlcabs_train_bwd_dtn", dz, n, b, tokens.device)
-    rowmax, g = _stats_operands("vlcabs_train_bwd_dtn", stats, n, b, d, tokens.device)
+    _, _, l, _, code, dz, rowmax, g = _bwd_operands("vlcabs_train_bwd_dtn", queries_normed,
+                                                    tokens, tau, dz, stats)
     tn = vlcabs_rownorm(tokens)
     dg, _ = vlcabs_bwd_rows(queries_normed, g, dz)
     if tokens.dtype == torch.bfloat16:
         ce = vlcabs_dtn_phase1(queries_normed, tn, dg, rowmax, tau)
         dtn = vlcabs_dtn_phase2(ce, queries_normed, dg, l)
     else:
-        dtn = torch.empty_like(tokens)
-        _build.check(_build.load().rz_vlcabs_dtn_tiles(
-            queries_normed.data_ptr(), tn.data_ptr(), tau.data_ptr(), dg.data_ptr(),
-            rowmax.data_ptr(), dtn.data_ptr(), n, b, l, d, code, _build.stream_ptr(tokens)),
-            "vlcabs_train_bwd_dtn")
+        dtn = _dtn_fp32(queries_normed, tn, tau, dg, rowmax, code)
     vlcabs_train_bwd_dtn.launches += 1
     return dtn
 
 
 vlcabs_train_bwd_dtn.launches = 0
+
+
+def vlcabs_train_bwd(queries_normed, tokens, tau, dz, *, stats=None):
+    """K11 and K12 in one pass over their shared stages -> (dq (N, D) in the
+    queries' dtype, dtn (B, L, D) in the tokens' dtype, dtau (1,) fp32), as
+    :func:`vlcabs_train_bwd_dq` and :func:`vlcabs_train_bwd_dtn` return them;
+    one launch of each is counted. From the forward's statistics ``stats``
+    (required on the card) the tokens' row pass and the backward's row pass
+    run once, then in bf16 K12's first phase once (e, dc and K11's dtau
+    slots), K11's product and reduce (:func:`vlcabs_dq_from_ce`) and K12's
+    second phase; in fp32 K11's dq kernel and reduce and K12's tiled kernel.
+    On CPU tensors with ``stats`` the stage twins run that bf16 route, and
+    without them the whole-function twins."""
+    if not on_cuda(tokens):
+        if stats is None:
+            dq, dtau = vlcabs_train_bwd_dq_plain(queries_normed, tokens, tau, dz)
+            return dq, vlcabs_train_bwd_dtn_plain(queries_normed, tokens, tau, dz), dtau
+        (rowmax, g), n, l = stats, queries_normed.shape[0], tokens.shape[1]
+        dz, code = dz.float(), None
+    else:
+        n, _, l, _, code, dz, rowmax, g = _bwd_operands("vlcabs_train_bwd", queries_normed,
+                                                        tokens, tau, dz, stats)
+    tn = vlcabs_rownorm(tokens)
+    dg, dq_part = vlcabs_bwd_rows(queries_normed, g, dz, want_dq_part=True)
+    if code is None or tokens.dtype == torch.bfloat16:
+        ce, slots = vlcabs_dtn_phase1(queries_normed, tn, dg, rowmax, tau, with_dtau=True)
+        dq, dtau = vlcabs_dq_from_ce(ce, tn, dq_part, slots, n)
+        dtn = vlcabs_dtn_phase2(ce, queries_normed, dg, l)
+    else:
+        dq, dtau = _dq_fp32(queries_normed, tn, tau, dg, rowmax, dq_part, code)
+        dtn = _dtn_fp32(queries_normed, tn, tau, dg, rowmax, code)
+    if code is not None:
+        vlcabs_train_bwd_dq.launches += 1
+        vlcabs_train_bwd_dtn.launches += 1
+    return dq, dtn, dtau
 
 
 def _check_cotangent(name, dz, n, b, device):
@@ -651,9 +770,8 @@ class _VlcabsFusedTrain(torch.autograd.Function):
     @torch.autograd.function.once_differentiable
     def backward(ctx, dz):
         queries_normed, tokens, tau32, *stats = ctx.saved_tensors
-        stats = tuple(stats) or None
-        dq, dtau = vlcabs_train_bwd_dq(queries_normed, tokens, tau32, dz, stats=stats)
-        dtn = vlcabs_train_bwd_dtn(queries_normed, tokens, tau32, dz, stats=stats)
+        dq, dtn, dtau = vlcabs_train_bwd(queries_normed, tokens, tau32, dz,
+                                         stats=tuple(stats) or None)
         dtype, shape = ctx.tau_like
         return dq, _rownorm_vjp(dtn, tokens), dtau.to(dtype).reshape(shape)
 

@@ -350,27 +350,67 @@ def test_vlcabs_dtn_phases_bf16(l):
 
 
 VLCABS_ROUTES = {  # the backward's device kernels: never pass 1 again
-    ("K11", torch.bfloat16): ["rownorm_kernel", "vlc_bwd_rows_kernel", "vlc_dq_kernel",
-                              "vlc_reduce_kernel"],
-    ("K11", torch.float32): ["rownorm_kernel", "vlc_bwd_rows_kernel", "vlc_dq_kernel",
+    ("K11", torch.bfloat16): ["gemm_sm90_kernel<5, 4>", "rownorm_kernel", "vlc_bwd_rows_kernel",
+                              "vlc_dtn_phase1_sm90_kernel", "vlc_reduce_kernel"],
+    ("K11", torch.float32): ["rownorm_kernel", "vlc_bwd_rows_kernel", "vlc_dq_kernel<float>",
                              "vlc_reduce_kernel"],
     ("K12", torch.bfloat16): ["gemm_sm90_kernel<0, 3>", "rownorm_kernel", "vlc_bwd_rows_kernel",
                               "vlc_dtn_phase1_sm90_kernel"],
-    ("K12", torch.float32): ["rownorm_kernel", "vlc_bwd_rows_kernel", "vlc_dtn_kernel"],
+    ("K12", torch.float32): ["rownorm_kernel", "vlc_bwd_rows_kernel", "vlc_dtn_kernel<float>"],
+    ("K11+K12", torch.bfloat16): ["gemm_sm90_kernel<0, 3>", "gemm_sm90_kernel<5, 4>",
+                                  "rownorm_kernel", "vlc_bwd_rows_kernel",
+                                  "vlc_dtn_phase1_sm90_kernel", "vlc_reduce_kernel"],
+    ("K11+K12", torch.float32): ["rownorm_kernel", "vlc_bwd_rows_kernel", "vlc_dq_kernel<float>",
+                                 "vlc_dtn_kernel<float>", "vlc_reduce_kernel"],
 }
+VLCABS_BACKWARDS = {"K11": lambda: vf.vlcabs_train_bwd_dq, "K12": lambda: vf.vlcabs_train_bwd_dtn,
+                    "K11+K12": lambda: vf.vlcabs_train_bwd}
 
 
 @pytest.mark.parametrize("k,dtype", sorted(VLCABS_ROUTES, key=str))
 def test_vlcabs_backward_routes_by_name(k, dtype):
     """K11 and K12 start from the forward's statistics: no vlc_pass1_kernel;
-    bf16 K12 runs its two Hopper phases and no vlc_dtn_kernel."""
+    bf16 K12 runs its two Hopper phases and no vlc_dtn_kernel, bf16 K11 K12's
+    first phase, its product over dc (gemm_sm90_kernel<EPI_ADDF_F32,
+    GEMM_BFWD>) and the reduce, and no vlc_dq_kernel; the shared backward
+    runs each shared stage once: one device kernel of each kind."""
     g = torch.Generator(device="cuda").manual_seed(17)
     q, t, tau, dz = _vlcabs_case(g, dtype, 70, 2, 130, 128)
     _, stats = vf.vlcabs_train_forward(q, t, tau, with_stats=True)
-    fn = vf.vlcabs_train_bwd_dq if k == "K11" else vf.vlcabs_train_bwd_dtn
+    fn = VLCABS_BACKWARDS[k]()
     names = _device_kernels(lambda: fn(q, t, tau, dz, stats=stats))
     want = VLCABS_ROUTES[(k, dtype)]
     assert _kernel_kinds(names, want) == want, names
+    assert not any("vlc_dq_kernel<__nv_bfloat16>" in name for name in names), names
+
+
+# bf16 K11 from K12's first phase: the dtau slots phase 1 writes from its epilogue
+# against their twin on the same tn, dg and row max (fp32 sums of 64 x 128 terms
+# of fp32 factors in another order: 1e-4 of the largest slot), ce with and without
+# them the same bits; then K11's product and reduce on the kernel's own ce against
+# their twin (fp32 sums of the same bf16 products in another order, rounded once to
+# bf16: one bf16 ulp, 2^-8, of the largest entry; dtau is the same slots folded in
+# another order) at a ragged shape (N and L past a 64-query block and a 128-token
+# tile) and at the training step's 64 images x 512 sentences x 1370 x 768
+@pytest.mark.parametrize("n,b,l", [(70, 3, 150), (512, 64, 1370)])
+def test_vlcabs_dq_stages_bf16(n, b, l):
+    g = torch.Generator(device="cuda").manual_seed(n + l)
+    q, t, tau, dz = _vlcabs_case(g, torch.bfloat16, n, b, l, 768)
+    _, (rowmax, gs) = vf.vlcabs_train_forward(q, t, tau, with_stats=True)
+    tn = vf.vlcabs_rownorm(t)
+    dg, dq_part = vf.vlcabs_bwd_rows(q, gs, dz, want_dq_part=True)
+    ce, slots = vf.vlcabs_dtn_phase1(q, tn, dg, rowmax, tau, with_dtau=True)
+    assert torch.equal(ce, vf.vlcabs_dtn_phase1(q, tn, dg, rowmax, tau))
+    ref_slots = vf.vlcabs_dtn_phase1_plain(q, tn, dg, rowmax, tau, with_dtau=True)[1]
+    assert slots.shape == ref_slots.shape == (b * -(-n // 64) * -(-l // 128),)
+    torch.testing.assert_close(slots, ref_slots, rtol=1e-4,
+                               atol=1e-4 * ref_slots.abs().max().item())
+    ref_dq, ref_dtau = vf.vlcabs_dq_from_ce_plain(ce, tn, dq_part, slots, n)
+    dq, dtau = vf.vlcabs_dq_from_ce(ce, tn, dq_part.clone(), slots, n)
+    _check_share(dq, ref_dq, 2.0**-8)
+    torch.testing.assert_close(dtau, ref_dtau, rtol=1e-5, atol=1e-5 * slots.abs().sum().item())
+    again = vf.vlcabs_dq_from_ce(ce, tn, dq_part.clone(), slots, n)
+    assert torch.equal(dq, again[0]) and torch.equal(dtau, again[1])
 
 
 # bf16 K5 / K10: the tokens' row pass, phase 1 (S on wgmma, s and the tile
@@ -481,7 +521,8 @@ def test_vlcabs_backward_requires_the_forward_statistics():
 def test_vlcabs_bf16_full_width_backward_repeats_its_bits():
     """At the training step's widths (512 queries, 1370 tokens, D 768; two
     images) a second backward through the autograd function gives the same
-    bits: fixed-order sums, no atomics."""
+    bits: fixed-order sums, no atomics; so do the shared backward and K11
+    and K12 alone, which give the autograd function's dq, dtau and dtn."""
     g = torch.Generator(device="cuda").manual_seed(23)
     q, t, tau, dz = _vlcabs_case(g, torch.bfloat16, 512, 2, 1370, 768)
     runs = []
@@ -492,6 +533,15 @@ def test_vlcabs_bf16_full_width_backward_repeats_its_bits():
         assert torch.equal(a, b)
     for got, want in zip(runs[0], vf.vlcabs_train_backward_plain(q, t, tau, dz)):
         _check_share(got.reshape(want.shape), want, 2.0**-7)
+    _, stats = vf.vlcabs_train_forward(q, t, tau, with_stats=True)
+    shared = [vf.vlcabs_train_bwd(q, t, tau, dz, stats=stats) for _ in range(2)]
+    for a, b in zip(*shared):
+        assert torch.equal(a, b)
+    dq, dtn, dtau = shared[0]
+    assert torch.equal(dq, runs[0][0]) and torch.equal(dtau.reshape(runs[0][2].shape), runs[0][2])
+    alone = vf.vlcabs_train_bwd_dq(q, t, tau, dz, stats=stats)
+    assert torch.equal(alone[0], dq) and torch.equal(alone[1], dtau)
+    assert torch.equal(vf.vlcabs_train_bwd_dtn(q, t, tau, dz, stats=stats), dtn)
 
 
 def _k1_args(g, dtype, m, d):

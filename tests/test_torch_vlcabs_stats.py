@@ -1,9 +1,11 @@
 """The VL-CABS backward from the forward's statistics, on the CPU.
 
 On the card K10 writes the row max of s and g = e @ tn under autograd, and
-K11 / K12 start from them: a row pass (dg, dz ghat from g), K11's dq kernel,
-and in bf16 K12's two Hopper phases (e and dc into one (B, 2 Np, Lp)
-buffer, then dtn = [dc; e]^T [qn; dg] as one product). Here every stage's
+K11 / K12 start from them: a row pass (dg, dz ghat from g), then in bf16
+K12's first Hopper phase (e and dc into one (B, 2 Np, Lp) buffer, and
+K11's dtau in one slot per work item), K11's product over dc with a reduce
+over images, and K12's second phase (dtn = [dc; e]^T [qn; dg] as one
+product). Here every stage's
 plain twin is composed and held against the whole-function twins
 (``vlcabs_train_bwd_dq_plain`` / ``vlcabs_train_bwd_dtn_plain``) and the
 whole composed backward against ``jax.vjp`` of the JAX package's custom-VJP
@@ -82,8 +84,9 @@ def test_phase1_buffer_layout(dtype):
 @pytest.mark.parametrize("tau", [0.07, 0.008])
 def test_stage_twins_compose_to_the_whole_twins(dtype, tau):
     """Row pass, phase 1 and phase 2 from the forward's statistics give K12's
-    dtn, and the row pass with K11's dq stage gives dq and dtau, as the
-    whole-function twins that recompute everything: the same operations on
+    dtn, and phase 1's dc and dtau slots with K11's product and reduce give
+    dq and dtau, as the whole-function twins that recompute everything: the
+    same operations on
     the same values, so fp32 within 1e-6 / 1e-5 and bf16 within one bf16 ulp
     of the largest entry plus 2^-8 relative (a sum reassociated by
     einsum may flip a rounding)."""
@@ -92,8 +95,10 @@ def test_stage_twins_compose_to_the_whole_twins(dtype, tau):
     rowmax, g = stats
     tn = tvl.vlcabs_rownorm(t)
     dg, dq_part = tvl.vlcabs_bwd_rows(q, g, dz, want_dq_part=True)
-    dtn = tvl.vlcabs_dtn_phase2(tvl.vlcabs_dtn_phase1(q, tn, dg, rowmax, tau_t), q, dg, L)
-    dq, dtau = tvl.vlcabs_dq_plain(q, tn, tau_t, dg, rowmax, dq_part)
+    ce, slots = tvl.vlcabs_dtn_phase1(q, tn, dg, rowmax, tau_t, with_dtau=True)
+    assert torch.equal(ce, tvl.vlcabs_dtn_phase1(q, tn, dg, rowmax, tau_t))
+    dtn = tvl.vlcabs_dtn_phase2(ce, q, dg, L)
+    dq, dtau = tvl.vlcabs_dq_from_ce(ce, tn, dq_part, slots, N)
     want_dtn = tvl.vlcabs_train_bwd_dtn_plain(q, t, tau_t, dz)
     want_dq, want_dtau = tvl.vlcabs_train_bwd_dq_plain(q, t, tau_t, dz)
     assert dtn.dtype == dtype and dq.dtype == dtype and dtau.shape == (1,)
