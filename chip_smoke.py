@@ -904,24 +904,15 @@ def cublas_products(rows):
             times[name] = median_ms(call, reps=10)
         return times
 
-    def vl_products():  # K12's four per-image products: s, dE, dc^T qn, e^T dg
-        qn, tn, dg = rn(TN, D), rn(TB, L, D), rn(TB, TN, D)
-        sc = rn(TB, TN, L)  # dc or e, bf16
-        return timed({"s": lambda: torch.matmul(qn, tn.transpose(1, 2)),
-                      "dE": lambda: torch.bmm(dg, tn.transpose(1, 2)),
-                      "dc^T qn": lambda: torch.matmul(sc.transpose(1, 2), qn),
-                      "e^T dg": lambda: torch.bmm(sc.transpose(1, 2), dg)})
-
-    def vl_backward(k12=True):  # K11's three per-image products: s, dE, dc tn (and K12's two)
+    def vl_backward(*names):  # the named per-image products of K11 and K12
         qn, tn, dg = rn(TN, D), rn(TB, L, D), rn(TB, TN, D)
         sc = rn(TB, TN, L)  # dc or e, bf16
         calls = {"s": lambda: torch.matmul(qn, tn.transpose(1, 2)),
                  "dE": lambda: torch.bmm(dg, tn.transpose(1, 2)),
-                 "dc tn": lambda: torch.bmm(sc, tn)}
-        if k12:
-            calls |= {"dc^T qn": lambda: torch.matmul(sc.transpose(1, 2), qn),
-                      "e^T dg": lambda: torch.bmm(sc.transpose(1, 2), dg)}
-        return timed(calls)
+                 "dc tn": lambda: torch.bmm(sc, tn),
+                 "dc^T qn": lambda: torch.matmul(sc.transpose(1, 2), qn),
+                 "e^T dg": lambda: torch.bmm(sc.transpose(1, 2), dg)}
+        return timed({name: calls[name] for name in names})
 
     def vl_fwd(b, n):  # K5 / K10's two per-image products: s = qn tn^T, g = e tn
         qn, tn, e = rn(n, D), rn(b, L, D), rn(b, n, L)
@@ -945,9 +936,10 @@ def cublas_products(rows):
                                    "dW": dw(TB * L, D, 3 * D, "dW")},
         ("K8", "", "K8"): lambda: chain(TB * L),
         ("K9", "", "K9"): lambda: chain(TN * T_LEN),
-        ("K12", "", "K12"): vl_products,
-        ("K11", "", "K11"): lambda: vl_backward(k12=False),
-        ("K11+K12", "", "K11+K12"): vl_backward,
+        ("K12", "", "K12"): lambda: vl_backward("s", "dE", "dc^T qn", "e^T dg"),
+        ("K11", "", "K11"): lambda: vl_backward("s", "dE", "dc tn"),
+        ("K11+K12", "", "K11+K12"): lambda: vl_backward("s", "dE", "dc tn", "dc^T qn",
+                                                        "e^T dg"),
         ("K5", "", "K5"): lambda: vl_fwd(B, N),
         ("K10", "", "K10"): lambda: vl_fwd(TB, TN),
     }

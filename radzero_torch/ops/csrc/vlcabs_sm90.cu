@@ -1,5 +1,6 @@
 // The bf16 VL-CABS kernels for Hopper: the forward of K5 vlcabs_fused and
-// K10 vlcabs_train_forward (below), and K12 vlcabs_train_bwd_dtn.
+// K10 vlcabs_train_forward (below), and the first phase of the backward,
+// which K12 vlcabs_train_bwd_dtn and K11 vlcabs_train_bwd_dq share.
 //
 // K5 / K10 replace the TPU kernels radzero_tpu/ops/pallas_vlcabs.py
 // vlcabs_fused (_kernel, the pallas_call at :115) and _train_forward
@@ -46,10 +47,14 @@
 //
 // K12 computes the gradient of the normalised tokens in two phases, after the
 // backward's row pass of vlcabs_train.cu (dg from the forward's g) and with
-// the forward's row max.
+// the forward's row max. Its first phase also serves K11 (dq, dtau): K11's
+// dc is the dc it writes, and its epilogue adds up K11's dtau.
 //
 // K12 replaces the TPU kernel radzero_tpu/ops/pallas_vlcabs.py _train_bwd's
-// second pallas_call (_kernel_bwd_dtn, :403), with its contract: per image
+// second pallas_call (_kernel_bwd_dtn, :403), and phase 1 the S, dE and dtau
+// of its first (_kernel_bwd_dq, :381: dtau = -sum dc (s - rowmax) with dc
+// unrounded; K11's dq = sum_b dc tn + dz ghat is gemm_sm90.cu's, over the dc
+// rows written here), with K12's contract: per image
 // b, s = qn . tn^T / tau and de = dg . tn^T in fp32, e = exp(s - rowmax(s)),
 // dc = de e / tau, dtn = dc^T . qn + e^T . dg, e and dc rounded to bf16
 // before their products (e unrounded inside dc), dtn summed in fp32 and
@@ -79,6 +84,15 @@
 //   so a thread's value i goes to word i of its own column) and stages e in
 //   bf16; warpgroup 1 stages dc = dE e / tau. Each stores its 64 x 128 tile
 //   by TMA, e rows after the dc rows, and goes on while the store drains.
+//   For K11 (dtau_slots non-null) warpgroup 1 also writes its fp32 dc back
+//   into the exchange word it read e from, and after one more barrier
+//   warpgroup 0, which still holds S, adds dc (S / tau - rowmax) over its
+//   values, then the warp's lanes by shuffles, then its four warps in order,
+//   one store a work item into dtau_slots: no atomics. Past N and L dc is 0
+//   and S / tau - rowmax finite (those rows and tokens came in as zeros and
+//   the row max is 0 past N), so no 0 * inf arises. Shared memory holds no
+//   second fp32 exchange (five 32 KB stages, 32 KB of staging and 32 KB of
+//   exchange take ~224 KB of 227): the one exchange serves both ways.
 // - Phase 2 is one product a (128-token, 128-column) tile, contracted over
 //   2 Np: dtn[b] = ce[b]^T . [qn; dg[b]], gemm_sm90_kernel's GEMM_DTN layout
 //   (gemm_sm90.cu), bf16 written once, no partial sums.
@@ -249,8 +263,6 @@ vlc_dtn_phase1_sm90_kernel(const __grid_constant__ CUtensorMap mq,
     if (dtau_slots != nullptr) {  // the item's share of sum dc (s - rowmax), dc unrounded
       consumers_sync();           // the exchange holds this tile's dc
       if (wg == 0) {
-        // past N or L dc is 0 and s - m finite (those rows and tokens came in as
-        // zeros, m = 0 past N), so no 0 * inf arises
         float part = 0.f;
 #pragma unroll
         for (int k = 0; k < 64; ++k) {

@@ -707,25 +707,25 @@ def vlcabs_train_bwd(queries_normed, tokens, tau, dz, *, stats=None):
     second phase; in fp32 K11's dq kernel and reduce and K12's tiled kernel.
     On CPU tensors with ``stats`` the stage twins run that bf16 route, and
     without them the whole-function twins."""
-    if not on_cuda(tokens):
-        if stats is None:
-            dq, dtau = vlcabs_train_bwd_dq_plain(queries_normed, tokens, tau, dz)
-            return dq, vlcabs_train_bwd_dtn_plain(queries_normed, tokens, tau, dz), dtau
-        (rowmax, g), n, l = stats, queries_normed.shape[0], tokens.shape[1]
-        dz, code = dz.float(), None
-    else:
+    card = on_cuda(tokens)
+    if card:
         n, _, l, _, code, dz, rowmax, g = _bwd_operands("vlcabs_train_bwd", queries_normed,
                                                         tokens, tau, dz, stats)
+    elif stats is None:
+        dq, dtau = vlcabs_train_bwd_dq_plain(queries_normed, tokens, tau, dz)
+        return dq, vlcabs_train_bwd_dtn_plain(queries_normed, tokens, tau, dz), dtau
+    else:
+        (rowmax, g), n, l = stats, queries_normed.shape[0], tokens.shape[1]
     tn = vlcabs_rownorm(tokens)
     dg, dq_part = vlcabs_bwd_rows(queries_normed, g, dz, want_dq_part=True)
-    if code is None or tokens.dtype == torch.bfloat16:
+    if not card or tokens.dtype == torch.bfloat16:
         ce, slots = vlcabs_dtn_phase1(queries_normed, tn, dg, rowmax, tau, with_dtau=True)
         dq, dtau = vlcabs_dq_from_ce(ce, tn, dq_part, slots, n)
         dtn = vlcabs_dtn_phase2(ce, queries_normed, dg, l)
     else:
         dq, dtau = _dq_fp32(queries_normed, tn, tau, dg, rowmax, dq_part, code)
         dtn = _dtn_fp32(queries_normed, tn, tau, dg, rowmax, code)
-    if code is not None:
+    if card:
         vlcabs_train_bwd_dq.launches += 1
         vlcabs_train_bwd_dtn.launches += 1
     return dq, dtn, dtau
