@@ -14,8 +14,10 @@ Phases, in order; any failure exits non-zero:
    chains' on W and on W^T read K-major, the dW product, K12's second phase,
    K5 / K10's second phase, K11's dq product), K12's first phase
    (vlc_dtn_phase1_sm90_kernel, whose epilogue also writes K11's dtau)
-   and K5 / K10's (vlc_scores_sm90_kernel), nor for the short-sentence K15 /
-   K16 kernels;
+   and K5 / K10's (vlc_scores_sm90_kernel), the short-sentence K15 /
+   K16 kernels, nor for the chains' row passes and two-level reduce
+   (ln_rows_kernel, ln_bwd_rows_kernel, scale_colsum_kernel,
+   reduce_chunks_kernel);
 3. each kernel against its plain PyTorch twin, in fp32 with TF32 off and in
    bf16, with CUDA-event timings (one call a sample, the host's launch
    included; K1-K3, K7, K13-K16 also by torch.profiler, which asserts the
@@ -36,7 +38,8 @@ Phases, in order; any failure exits non-zero:
    stages once) by kernel, K11's own launches' device time, a second
    call's bits; K6 / K8 / K9 in bf16 on their
    gemm_sm90_kernel instantiations, row passes and reduces alone (no other
-   GEMM, no transpose_kernel), with their device time; fwd_sm90_kernel, and
+   GEMM, no transpose_kernel), with their device time and each stage's;
+   fwd_sm90_kernel, and
    bwd_dq_sm90_kernel with bwd_dkdv_sm90_kernel, in bf16,
    flash_bias_fwd_small_kernel and
    flash_bias_bwd_small_kernel with the reduce for K15 / K16 in bf16 at 512
@@ -95,7 +98,8 @@ Phases, in order; any failure exits non-zero:
    2 images.
 
 --profile also prints the kernels of one training step by device time
-(torch.profiler; the 40 longest, and K15 / K16's by name). A line with {"kernels": [...]} reports every kernel; the
+(torch.profiler; the 40 longest, K15 / K16's by name, and the fixed-order
+reduces' launches and time). A line with {"kernels": [...]} reports every kernel; the
 line before the last is the card's name and power limit; the last is
 {"ok": true, "device": {...}}.
 """
@@ -130,9 +134,13 @@ VLC_SCORES = "vlc_scores_sm90_kernel"  # K5 / K10's first phase in bf16 (csrc/vl
 LN_PASS = "row_layernorm_kernel"      # K1 / K3's LayerNorm in bf16, once per row (fused_layer.cu)
 # K15 / K16 in bf16 at L <= 64 (flash_bias_small.cu)
 SMALL_BIAS = ("flash_bias_fwd_small_kernel", "flash_bias_bwd_small_kernel")
-REDUCE = "reduce_parts_kernel"        # the fixed-order reduces (fused_layer_bwd.cu)
+REDUCE = "reduce_parts_kernel"        # the fixed-order reduce, one level (fused_layer_bwd.cu)
+REDUCE1 = "reduce_chunks_kernel"      # the first level of the two-level reduce (fused_layer_bwd.cu)
+# the chains' row passes in bf16 at D = 768 (fused_layer_bwd.cu): a warp holds a row as 3
+# chunks of 8 columns a lane; the LayerNorm backward holds 2 or 4 column sums
 LN_ROWS, LN_BWD = "ln_rows_kernel<__nv_bfloat16, ", "ln_bwd_rows_kernel<__nv_bfloat16, "
 COLSUM = "scale_colsum_kernel<__nv_bfloat16>"
+ROW_PASSES = ("ln_rows_kernel", "ln_bwd_rows_kernel", "scale_colsum_kernel", REDUCE1)
 
 
 def _sm90(epi, mode):  # an instantiation of gemm_sm90_kernel<epilogue of gemm.cuh, layout>
@@ -160,7 +168,7 @@ VL_FWD = ("rownorm_kernel", VLC_SCORES, "vlc_exp_rows_kernel", _sm90(8, 4), "vlc
 ROUTES = {"K1": {"bf16": (LN_PASS, _sm90(0, 0)), "fp32": ("gemm_f32_kernel<true, 0>",)},
           "K5": {"bf16": VL_FWD, "fp32": ("vlcabs_kernel<float>",)},
           "K10": {"bf16": VL_FWD, "fp32": ("rownorm_kernel", "vlc_pass1_kernel<float, ")},
-          "K4": {"bf16": (_sm90(4, 0), LN_ROWS + "float>", _sm90(2, 0), _sm90(5, 0), LN_PASS)},
+          "K4": {"bf16": (_sm90(4, 0), LN_ROWS + "float, 3>", _sm90(2, 0), _sm90(5, 0), LN_PASS)},
           "K11": {"bf16": VT_ROWS + (VLC_PHASE1,) + K11_OWN,
                   "fp32": VT_ROWS + ("vlc_dq_kernel<float>", "vlc_reduce_kernel")},
           "K12": {"bf16": VT_ROWS + (VLC_PHASE1, _sm90(0, 3)),
@@ -182,14 +190,15 @@ ROUTES = {"K1": {"bf16": (LN_PASS, _sm90(0, 0)), "fp32": ("gemm_f32_kernel<true,
                                      "bwd_dq_kernel<__nv", "bwd_dbias_kernel<__nv", REDUCE),
                        "fp32": ("bwd_stats_kernel<float", "bwd_dkdv_kernel<float",
                                 "bwd_dq_kernel<float", "bwd_dbias_kernel<float", REDUCE)},
-          "K6": {"bf16": (LN_ROWS + "__nv_bfloat16>", _sm90(8, 2), _sm90(8, 1), COLSUM,
-                          LN_BWD + "__nv_bfloat16, float>", REDUCE)},
-          "K8": {"bf16": (_sm90(6, 0), LN_ROWS + "float>", _sm90(7, 0), _sm90(8, 0), COLSUM,
-                          _sm90(8, 2), _sm90(9, 1), _sm90(8, 1), LN_BWD + "float, float>",
-                          _sm90(0, 1), REDUCE)},
-          "K9": {"bf16": (_sm90(4, 0), LN_ROWS + "float>", _sm90(7, 0), _sm90(5, 0),
-                          LN_BWD + "float, __nv_bfloat16>", _sm90(8, 2), _sm90(9, 1),
-                          _sm90(5, 1), LN_BWD + "float, float>", _sm90(0, 1), REDUCE)}}
+          "K6": {"bf16": (LN_ROWS + "__nv_bfloat16, 3>", _sm90(8, 2), _sm90(8, 1), COLSUM,
+                          LN_BWD + "__nv_bfloat16, float, 3, 2>", REDUCE1, REDUCE)},
+          "K8": {"bf16": (_sm90(6, 0), LN_ROWS + "float, 3>", _sm90(7, 0), _sm90(8, 0), COLSUM,
+                          _sm90(8, 2), _sm90(9, 1), _sm90(8, 1), LN_BWD + "float, float, 3, 4>",
+                          _sm90(0, 1), REDUCE1, REDUCE)},
+          "K9": {"bf16": (_sm90(4, 0), LN_ROWS + "float, 3>", _sm90(7, 0), _sm90(5, 0),
+                          LN_BWD + "float, __nv_bfloat16, 3, 4>", _sm90(8, 2), _sm90(9, 1),
+                          _sm90(5, 1), LN_BWD + "float, float, 3, 4>", _sm90(0, 1), REDUCE1,
+                          REDUCE)}}
 CHEXPERT = [
     "No Finding", "Enlarged Cardiomediastinum", "Cardiomegaly", "Lung Opacity",
     "Lung Lesion", "Edema", "Consolidation", "Pneumonia", "Atelectasis",
@@ -633,12 +642,14 @@ def check_no_spills(log):
     """ptxas must report no spills for the Hopper kernels (the forward of
     K2 / K13, the two of the K7 / K14 backward, every instantiation of the
     GEMM of K1 / K3-K6 / K8-K10 / K12, the first phases of K12 and of K5 /
-    K10) and the short-sentence K15 / K16 kernels."""
+    K10), the short-sentence K15 / K16 kernels, and every instantiation of
+    the chains' row passes and of the two-level reduce's first level."""
     if not log:
         print("  ptxas: no report in this process (the library was built before)")
         return
     lines = log.splitlines()
-    for name in (HOPPER_FWD, *HOPPER_BWD, GEMM_SM90, VLC_PHASE1, VLC_SCORES, *SMALL_BIAS):
+    for name in (HOPPER_FWD, *HOPPER_BWD, GEMM_SM90, VLC_PHASE1, VLC_SCORES, *SMALL_BIAS,
+                 *ROW_PASSES):
         at = [i for i, line in enumerate(lines) if "Compiling entry" in line and name in line]
         if not at:
             fail(f"ptxas reported no {name}")
@@ -653,7 +664,8 @@ def check_no_spills(log):
           f"epilogues, the chains' seven on W and on W^T read K-major, the dW product, "
           f"K12's and K5 / K10's second phases), {VLC_PHASE1} (K12's first phase), "
           f"{VLC_SCORES} (K5 / K10's first phase), "
-          f"{', '.join(SMALL_BIAS)} (K15 / K16 in bf16 at L <= 64): no spills")
+          f"{', '.join(SMALL_BIAS)} (K15 / K16 in bf16 at L <= 64), "
+          f"{', '.join(ROW_PASSES)} (the chains' row passes and two-level reduce): no spills")
 
 
 def phase_kernels(seed):
@@ -1029,11 +1041,14 @@ def backward_kernels(dtype, dname, gen, rows):
         ms = median_ms(lambda: kern(*args), reps=reps, warmup=1)
         plain_ms = median_ms(lambda: plain(*args), reps=3, warmup=1)
         err = max(w[0] for w in worst)
-        lib = lib_dev = dev_ms = None
+        lib = lib_dev = dev_ms = stages = None
         if k == "K7":  # the device kernels that ran, by name
             dev_ms = check_route(k, dname, lambda: kern(*args), "bwd")
-        if k in ("K6", "K8", "K9") and dname == "bf16":  # gemm_sm90_kernel alone
-            dev_ms = check_route(k, dname, lambda: kern(*args), k)
+        if k in ("K6", "K8", "K9") and dname == "bf16":  # its kernels by name, each stage's time
+            dev_ms, ran = check_route(k, dname, lambda: kern(*args), k, detail=True)
+            stages = {name.removeprefix("void ").split("(")[0]: t for name, t in ran.items()}
+            print(f"  {k:10s} {dname} stages, device ms a call (all launches of a kernel): "
+                  + ", ".join(f"{name} {t:.4f}" for name, t in stages.items()))
         if k == "K7" and dname == "bf16":  # the yardstick, called nowhere in the port
             heads = [t.reshape(TB, L, H, D // H).transpose(1, 2) for t in (*thirds(args[0]),
                                                                            args[1])]
@@ -1055,7 +1070,7 @@ def backward_kernels(dtype, dname, gen, rows):
                 if k == "K7":
                     rows[k].update(device_ms=dev_ms, library_device_ms=lib_dev)
                 elif dev_ms is not None:
-                    rows[k]["device_ms"] = dev_ms
+                    rows[k].update(device_ms=dev_ms, stages_device_ms=stages)
         del args
         torch.cuda.empty_cache()
 
@@ -1737,6 +1752,9 @@ def profile_step(fn):
           f"{sum(k[2] for k in kernels)} kernel launches")
     for key, ms in groups.items():
         print(f"    {ms:8.2f} ms {100 * ms / total:5.1f}%  {key}")
+    reduces = [(ms, count) for name, ms, count in kernels if REDUCE in name or REDUCE1 in name]
+    print(f"    fixed-order reduces ({REDUCE}, {REDUCE1}): {sum(c for _, c in reduces)} launches, "
+          f"{sum(ms for ms, _ in reduces):.2f} ms")
     # the 40 longest, and K15 / K16's kernels by name wherever they rank
     named = [k for k in kernels[40:] if any(n in k[0] for n in SMALL_BIAS)]
     for name, ms, count in kernels[:40] + named:

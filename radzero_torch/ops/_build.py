@@ -81,15 +81,17 @@ SIGNATURES = {
     "rz_wgrad": [_P] * 3 + [_I, _I, _I, _I, _I, _P],
     # part, out, S, n, dtype, stream
     "rz_reduce_parts": [_P, _P, _I, _L, _I, _P],
+    # part, scratch, out, S, n, per, dtype, stream
+    "rz_reduce_two_level": [_P, _P, _P, _I, _L, _I, _I, _P],
     # w, wt, K, N, dtype, stream
     "rz_transpose": [_P, _P, _I, _I, _I, _P],
-    # u, u_f32, scale, bias, out_t, out_f, M, D, eps, dtype, stream
-    "rz_ln_rows": [_P, _I, _P, _P, _P, _P, _I, _I, _F, _I, _P],
-    # u, u_f32, dh, dh_f32, scale, add, ls, proj, out1, out2, out32, cpart,
-    # M, D, eps, dtype, stream
-    "rz_ln_bwd_rows": [_P, _I, _P, _I] + [_P] * 8 + [_I, _I, _F, _I, _P],
-    # g, m, ls, out, cpart, M, D, dtype, stream
-    "rz_scale_colsum": [_P] * 5 + [_I, _I, _I, _P],
+    # u, u_f32, scale, bias, out_t, out_f, stats, M, D, eps, dtype, stream
+    "rz_ln_rows": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _F, _I, _P],
+    # u, u_f32, dh, dh_f32, scale, add, ls, proj, stats, out1, out2, out32, cpart,
+    # sums, chunk, M, D, eps, dtype, stream
+    "rz_ln_bwd_rows": [_P, _I, _P, _I] + [_P] * 9 + [_I, _I, _I, _I, _F, _I, _P],
+    # g, m, ls, out, cpart, sums, chunk, M, D, dtype, stream
+    "rz_scale_colsum": [_P] * 5 + [_I] * 5 + [_P],
     # qkv, dout, out, lse, row_m, row_il, row_delta, dqkv, B, L, H, hd, scale, dtype,
     # stream
     "rz_packed_attention_bwd": [_P] * 8 + [_I, _I, _I, _I, _F, _I, _P],
@@ -104,7 +106,6 @@ SIGNATURES = {
     # q, k, v, bias, neg, dout, stats, dq, dk, dv, dbias_part, dbias, chunks,
     # then as rz_flash_attention from q_bs on
     "rz_flash_attention_bias_bwd": [_P] * 12 + [_I] + [_L] * 6 + [_I] * 5 + [_F, _I, _P],
-    "rz_bwd_row_block": [],
     # dtype
     "rz_bwd_gemm_row_tile": [_I],
 }

@@ -168,10 +168,11 @@ extern "C" int rz_fused_postattn(const void* x, const void* a, const void* wo,
   return static_cast<int>(err);
 }
 
-// LN(u) per row -> out_t (operand type) and / or out_f (fp32): fused_layer_bwd.cu
+// LN(u) per row -> out_t (operand type) and / or out_f (fp32), and each row's
+// mean and rstd into stats when it is given: fused_layer_bwd.cu
 extern "C" int rz_ln_rows(const void* u, int u_f32, const void* scale, const void* bias,
-                          void* out_t, void* out_f, int M, int D, float eps, int dtype,
-                          void* stream);
+                          void* out_t, void* out_f, void* stats, int M, int D, float eps,
+                          int dtype, void* stream);
 
 // K4: u32 = x + (a Wo + bo); y = LN(u32); h = gelu(y W1 + b1);
 //     v = y32 + (h W2 + b2); out = LN(v). u32, y32 (M, D) fp32, h (M, F) and, in
@@ -192,7 +193,7 @@ extern "C" int rz_fused_mpnet_post(const void* x, const void* a, const void* wo,
     err = rz::gemm_sm90(proj, rz::EPI_ADD_F32, s);
     if (err == cudaSuccess)
       err = static_cast<cudaError_t>(
-          rz_ln_rows(u32, 1, lnsa, lnba, yln, y32, M, D, eps, RZ_DTYPE_BF16, stream));
+          rz_ln_rows(u32, 1, lnsa, lnba, yln, y32, nullptr, M, D, eps, RZ_DTYPE_BF16, stream));
     if (err == cudaSuccess) err = rz::gemm_sm90(fc1, rz::EPI_GELU, s);
     if (err == cudaSuccess) err = rz::gemm_sm90(fc2, rz::EPI_ADDF_F32, s);
     if (err == cudaSuccess)

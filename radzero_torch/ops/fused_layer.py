@@ -78,6 +78,35 @@ _SPLIT_BLOCKS = 4 * 132  # blocks a row-split fp32 weight-gradient product aims 
 # an H100), and the partial tiles written once and read once at 3.35 TB/s
 _TILE_STEP_S = 2 * 128 * 128 * 64 / 600e12
 _PART_BYTE_S = 2 / 3.35e12
+# the row passes that sum columns run a fixed grid of this many blocks an SM,
+# each block over one contiguous range of rows (row_partition)
+_LN_BWD_BLOCKS_PER_SM = 2
+_COLSUM_BLOCKS_PER_SM = 4
+# the column sums a row pass writes (SUM_* of csrc/fused_layer_bwd.cu): the
+# LayerNorm backward's dh * xn, dh, d * ls, d * proj; scale_colsum's g * m, g * ls
+_SUM_DH_XN, _SUM_DH, _SUM_D_LS, _SUM_D_PROJ = 1, 2, 4, 8
+_SUM_G_M, _SUM_G_LS = 1, 2
+_REDUCE_COLS = 256  # columns of a reduce block (csrc/fused_layer_bwd.cu RT)
+_REDUCE_MIN_ROWS = 8  # fewest partial rows a chunk of the two-level reduce adds
+
+
+def row_partition(m, blocks):
+    """The rows of a row pass that sums columns, over at most ``blocks``
+    blocks -> (chunk, parts): block b owns rows [b chunk, min(m, (b + 1)
+    chunk)), and the parts = ceil(m / chunk) blocks that hold rows write one
+    partial row each. It depends only on m and ``blocks``, a multiple of
+    the card's SM count, so the sums' order, and their bits, do too."""
+    chunk = -(-m // blocks)
+    return chunk, -(-m // chunk)
+
+
+def reduce_split(s, n, sms):
+    """Partial rows a chunk of the two-level reduce adds, for s partial rows
+    of n columns on a card of ``sms`` SMs; None where one level suits: the
+    columns alone fill the card twice over, or chunks would hold fewer than
+    _REDUCE_MIN_ROWS rows."""
+    chunks = min(-(-2 * sms // -(-n // _REDUCE_COLS)), s // _REDUCE_MIN_ROWS)
+    return None if chunks < 2 else -(-s // chunks)
 
 
 def _ln32(x32, scale, bias, eps):
@@ -484,7 +513,6 @@ class _Chain:
         self.name, self.code, self.dev, self.dtype = name, code, like.device, like.dtype
         self.lib = _build.load()
         self.stream = _build.stream_ptr(like)
-        self.row_block = self.lib.rz_bwd_row_block()
         self.gemm_tile = self.lib.rz_bwd_gemm_row_tile(code)
         self.sms = torch.cuda.get_device_properties(like.device).multi_processor_count
 
@@ -531,10 +559,21 @@ class _Chain:
         return dh1, self.reduce(colpart, tiles, (f,))
 
     def reduce(self, part, s, shape):
-        """Sum ``part`` (s, *shape) fp32 over s in order -> operand type."""
+        """Sum ``part`` (s, *shape) fp32 over s in a fixed order, rounded once
+        -> operand type: in two levels (chunks of partial rows in order, then
+        the chunks in order; reduce_split) where few columns meet many
+        partial rows, else one thread a column over all s."""
         out = self.t(*shape)
-        self._ok(self.lib.rz_reduce_parts(part.data_ptr(), out.data_ptr(), s, out.numel(),
-                                          self.code, self.stream))
+        n = out.numel()
+        per = reduce_split(s, n, self.sms)
+        if per is None:
+            self._ok(self.lib.rz_reduce_parts(part.data_ptr(), out.data_ptr(), s, n, self.code,
+                                              self.stream))
+        else:
+            scratch = self.f32(-(-s // per), n)
+            self._ok(self.lib.rz_reduce_two_level(part.data_ptr(), scratch.data_ptr(),
+                                                  out.data_ptr(), s, n, per, self.code,
+                                                  self.stream))
         return out
 
     def wgrad(self, a, g):
@@ -571,51 +610,67 @@ class _Chain:
                 best = (cost, s)
         return best[1]
 
-    def ln_rows(self, u, scale, bias, eps, *, want_f32=False):
-        """LN(u) per row -> (rounded, fp32 or None)."""
+    def ln_rows(self, u, scale, bias, eps, *, want_f32=False, want_stats=False):
+        """LN(u) per row, a warp a row -> (rounded, fp32 or None, statistics
+        or None); the statistics (M, 2) fp32 are each row's mean and rstd,
+        which :meth:`ln_bwd` then reads instead of computing them again."""
         m, d = u.shape
         out_t, out_f = self.t(m, d), self.f32(m, d) if want_f32 else None
-        self._ok(self.lib.rz_ln_rows(u.data_ptr(), int(u.dtype == torch.float32),
-                                     scale.data_ptr(), bias.data_ptr(), out_t.data_ptr(),
-                                     self._ptr(out_f), m, d, float(eps), self.code, self.stream))
-        return out_t, out_f
+        stats = self.f32(m, 2) if want_stats else None
+        p = self._ptr
+        self._ok(self.lib.rz_ln_rows(p(u), int(u.dtype == torch.float32), p(scale), p(bias),
+                                     p(out_t), p(out_f), p(stats), m, d, float(eps), self.code,
+                                     self.stream))
+        return out_t, out_f, stats
 
-    def ln_bwd(self, u, dh, scale, eps, *, add=None, ls=None, proj=None, want_out2=False,
-               want_f32=False):
-        """LayerNorm backward per row: d = ln_input_grad(dh) [+ add] ->
-        (d rounded, d * ls rounded or None, d fp32 or None, column sums
-        [dh * xn, dh, d * ls, d * proj] in the operand type)."""
+    def ln_bwd(self, u, dh, scale, eps, *, sums, stats=None, add=None, ls=None, proj=None,
+               want_out2=False, want_f32=False):
+        """LayerNorm backward per row: d = ln_input_grad(dh) [+ add], from the
+        row statistics of :meth:`ln_rows` when given, else computed ->
+        (d rounded, d * ls rounded or None, d fp32 or None, [the column sums
+        that the bits of ``sums`` ask for, in bit order: _SUM_DH_XN dh * xn,
+        _SUM_DH dh, _SUM_D_LS d * ls, _SUM_D_PROJ d * proj], in the operand
+        type). The pass runs _LN_BWD_BLOCKS_PER_SM blocks an SM over ranges
+        of rows (row_partition); each block writes one partial row of each
+        sum asked for, and one reduce adds them all."""
         m, d = u.shape
-        blocks = -(-m // self.row_block)
+        chunk, parts = row_partition(m, _LN_BWD_BLOCKS_PER_SM * self.sms)
+        k = bin(sums).count("1")
         out1 = self.t(m, d)
         out2 = self.t(m, d) if want_out2 else None
         out32 = self.f32(m, d) if want_f32 else None
-        cpart = self.f32(4, blocks, d)
+        cpart = self.f32(parts, k, d)
         p = self._ptr
         self._ok(self.lib.rz_ln_bwd_rows(
             p(u), int(u.dtype == torch.float32), p(dh), int(dh.dtype == torch.float32),
-            p(scale), p(add), p(ls), p(proj), p(out1), p(out2), p(out32), p(cpart), m, d,
-            float(eps), self.code, self.stream))
-        return out1, out2, out32, [self.reduce(cpart[i], blocks, (d,)) for i in range(4)]
+            p(scale), p(add), p(ls), p(proj), p(stats), p(out1), p(out2), p(out32), p(cpart),
+            sums, chunk, m, d, float(eps), self.code, self.stream))
+        return out1, out2, out32, list(self.reduce(cpart, parts, (k, d)).unbind(0))
 
-    def scale_colsum(self, g, m32, ls, *, want_out=True):
-        """-> (g * ls rounded or None, colsum(g * m32), colsum(g * ls))."""
+    def scale_colsum(self, g, m32, ls, *, sums, want_out=True):
+        """-> (g * ls rounded or None, [the column sums that the bits of
+        ``sums`` ask for: _SUM_G_M g * m32, _SUM_G_LS g * ls]); ls None -> 1.
+        A thread holds 8 columns and walks one range of rows
+        (row_partition over _COLSUM_BLOCKS_PER_SM blocks an SM); one reduce
+        adds the blocks' partial rows."""
         m, d = g.shape
-        blocks = -(-m // self.row_block)
+        chunk, parts = row_partition(m, _COLSUM_BLOCKS_PER_SM * self.sms)
+        k = bin(sums).count("1")
         out = self.t(m, d) if want_out else None
-        cpart = self.f32(2, blocks, d)
+        cpart = self.f32(parts, k, d)
         p = self._ptr
-        self._ok(self.lib.rz_scale_colsum(p(g), p(m32), p(ls), p(out), p(cpart), m, d,
-                                          self.code, self.stream))
-        return out, self.reduce(cpart[0], blocks, (d,)), self.reduce(cpart[1], blocks, (d,))
+        self._ok(self.lib.rz_scale_colsum(p(g), p(m32), p(ls), p(out), p(cpart), sums, chunk, m,
+                                          d, self.code, self.stream))
+        return out, list(self.reduce(cpart, parts, (k, d)).unbind(0))
 
 
 def fused_preattn_bwd(x, ln_scale, ln_bias, w_qkv, b_qkv, g, *, eps=1e-6):
     """K6: cotangent g (N, 3D) of :func:`fused_preattn` -> (dx, d ln_scale,
     d ln_bias, d w_qkv, d b_qkv), each in its operand's type. On the card:
-    LN rows, dh = g @ w_qkv^T (bf16 reads w_qkv K-major), the row-split
-    product dw = ln(x)^T @ g, column sums of g, the LN backward rows, and
-    their fixed-order reduces; one count."""
+    LN rows keeping each row's mean and rstd, the row-split product dw =
+    ln(x)^T @ g, dh = g @ w_qkv^T (bf16 reads w_qkv K-major), db = colsum(g),
+    the LN backward rows from the stored statistics with the sums of dh * xn
+    and dh only, each with its fixed-order reduce; one count."""
     if not on_cuda(x):
         return fused_preattn_bwd_plain(x, ln_scale, ln_bias, w_qkv, b_qkv, g, eps=eps)
     n, d = x.shape
@@ -626,12 +681,12 @@ def fused_preattn_bwd(x, ln_scale, ln_bias, w_qkv, b_qkv, g, *, eps=1e-6):
     if d % 64 or d3 % 64:
         raise ValueError(f"fused_preattn_bwd: needs D % 64 == 0 and 3D % 64 == 0, got {d}, {d3}")
     k = _Chain("fused_preattn_bwd", x, code)
-    hc, _ = k.ln_rows(x, ln_scale, ln_bias, eps)
+    hc, _, stats = k.ln_rows(x, ln_scale, ln_bias, eps, want_stats=True)
     dw = k.wgrad(hc, g)
     del hc
     dh = k.gemm_t(g, w_qkv, _EPI_F32, k.f32(n, d))
-    _, _, db = k.scale_colsum(g, None, None, want_out=False)
-    dx, _, _, (dls, dlb, _, _) = k.ln_bwd(x, dh, ln_scale, eps)
+    _, (db,) = k.scale_colsum(g, None, None, sums=_SUM_G_LS, want_out=False)
+    dx, _, _, (dls, dlb) = k.ln_bwd(x, dh, ln_scale, eps, stats=stats, sums=_SUM_DH_XN | _SUM_DH)
     fused_preattn_bwd.launches += 1
     return dx, dls, dlb, dw, db
 
@@ -680,10 +735,11 @@ def fused_postattn_bwd(x, attn_out, wo, bo, ls1, ln_scale, ln_bias,
                        w1, b1, w2, b2, ls2, g, *, eps=1e-6):
     """K8: cotangent g (N, D) of :func:`fused_postattn` -> gradients of its
     twelve operands, in their order and types. On the card: the forward
-    chain again (o-proj keeping proj and y in fp32, LN2 rows, fc1 keeping the
-    pre-GELU h1 in fp32, fc2), then dm and its column sums, dw2, dgl with the
-    GELU derivative and db1 in its epilogue, dw1, dhln, the LN backward rows
-    with the column sums of d LN2, d ls1 and d bo, da and dwo; one count."""
+    chain again (o-proj keeping proj and y in fp32, LN2 rows keeping each
+    row's mean and rstd, fc1 keeping the pre-GELU h1 in fp32, fc2), then dm
+    and its column sums, dw2, dgl with the GELU derivative and db1 in its
+    epilogue, dw1, dhln, the LN backward rows from the stored statistics with
+    the column sums of d LN2, d ls1 and d bo, da and dwo; one count."""
     ops = (x, attn_out, wo, bo, ls1, ln_scale, ln_bias, w1, b1, w2, b2, ls2)
     if not on_cuda(x):
         return fused_postattn_bwd_plain(*ops, g, eps=eps)
@@ -700,11 +756,11 @@ def fused_postattn_bwd(x, attn_out, wo, bo, ls1, ln_scale, ln_bias,
     k = _Chain("fused_postattn_bwd", x, code)
     y32, proj32 = k.f32(n, d), k.f32(n, d)
     k.gemm(attn_out, wo, _EPI_PROJ2, y32, bias=bo, resid=x, ls=ls1, out2=proj32)
-    hln, _ = k.ln_rows(y32, ln_scale, ln_bias, eps)
+    hln, _, stats = k.ln_rows(y32, ln_scale, ln_bias, eps, want_stats=True)
     h1 = k.f32(n, f)
     gl = k.gemm(hln, w1, _EPI_GELU_H1, k.t(n, f), bias=b1, out2=h1)
     m32 = k.gemm(gl, w2, _EPI_F32, k.f32(n, d), bias=b2)
-    dm, dls2, db2 = k.scale_colsum(g, m32, ls2)
+    dm, (dls2, db2) = k.scale_colsum(g, m32, ls2, sums=_SUM_G_M | _SUM_G_LS)
     dw2 = k.wgrad(gl, dm)
     del gl
     dh1, db1 = k.dgelu_gemm(dm, w2, h1)
@@ -714,7 +770,8 @@ def fused_postattn_bwd(x, attn_out, wo, bo, ls1, ln_scale, ln_bias,
     dhln = k.gemm_t(dh1, w1, _EPI_F32, m32)  # m32's buffer: m is spent
     del dh1
     dx, dproj, _, (dlns, dlnb, dbo, dls1) = k.ln_bwd(
-        y32, dhln, ln_scale, eps, add=g, ls=ls1, proj=proj32, want_out2=True)
+        y32, dhln, ln_scale, eps, stats=stats, sums=_SUM_DH_XN | _SUM_DH | _SUM_D_LS | _SUM_D_PROJ,
+        add=g, ls=ls1, proj=proj32, want_out2=True)
     da = k.gemm_t(dproj, wo, _EPI_BIAS, k.t(n, d))
     dwo = k.wgrad(attn_out, dproj)
     fused_postattn_bwd.launches += 1
@@ -728,9 +785,10 @@ def fused_mpnet_post_bwd(x, attn_out, wo, bo, lnsa, lnba, w1, b1, w2, b2,
                          lnso, lnbo, g, *, eps=1e-12):
     """K9: cotangent g (M, D) of :func:`fused_mpnet_post` -> gradients of its
     twelve operands, in their order and types. On the card: K4's chain again
-    (keeping u, y, the pre-GELU h1 and v in fp32), the backward rows of the
-    output LN, dw2, dgl with the GELU derivative and db1, dw1, dyln = dv +
-    dh1 @ w1^T, the backward rows of the first LN, da and dwo; one count."""
+    (keeping u, y, the pre-GELU h1 and v in fp32, and the first LN's row
+    statistics), the backward rows of the output LN, dw2, dgl with the GELU
+    derivative and db1, dw1, dyln = dv + dh1 @ w1^T, the backward rows of
+    the first LN from the stored statistics, da and dwo; one count."""
     ops = (x, attn_out, wo, bo, lnsa, lnba, w1, b1, w2, b2, lnso, lnbo)
     if not on_cuda(x):
         return fused_mpnet_post_bwd_plain(*ops, g, eps=eps)
@@ -746,18 +804,20 @@ def fused_mpnet_post_bwd(x, attn_out, wo, bo, lnsa, lnba, w1, b1, w2, b2,
         raise ValueError(f"fused_mpnet_post_bwd: needs D % 64 == 0 and F % 64 == 0, got {d}, {f}")
     k = _Chain("fused_mpnet_post_bwd", x, code)
     u32 = k.gemm(attn_out, wo, _EPI_ADD_F32, k.f32(m, d), bias=bo, resid=x)
-    yln, y32 = k.ln_rows(u32, lnsa, lnba, eps, want_f32=True)
+    yln, y32, stats = k.ln_rows(u32, lnsa, lnba, eps, want_f32=True, want_stats=True)
     h1 = k.f32(m, f)
     gl = k.gemm(yln, w1, _EPI_GELU_H1, k.t(m, f), bias=b1, out2=h1)
     v32 = k.gemm(gl, w2, _EPI_ADDF_F32, k.f32(m, d), bias=b2, resid=y32)
-    dm, _, dv32, (dlnso, dlnbo, db2, _) = k.ln_bwd(v32, g, lnso, eps, want_f32=True)
+    dm, _, dv32, (dlnso, dlnbo, db2) = k.ln_bwd(v32, g, lnso, eps, want_f32=True,
+                                                sums=_SUM_DH_XN | _SUM_DH | _SUM_D_LS)
     dw2 = k.wgrad(gl, dm)
     del gl
     dh1, db1 = k.dgelu_gemm(dm, w2, h1)
     del h1, dm
     dw1 = k.wgrad(yln, dh1)
     dyln = k.gemm_t(dh1, w1, _EPI_ADDF_F32, y32, resid=dv32)  # y's buffer: y is spent
-    du, _, _, (dlnsa, dlnba, dbo, _) = k.ln_bwd(u32, dyln, lnsa, eps)
+    du, _, _, (dlnsa, dlnba, dbo) = k.ln_bwd(u32, dyln, lnsa, eps, stats=stats,
+                                             sums=_SUM_DH_XN | _SUM_DH | _SUM_D_LS)
     da = k.gemm_t(du, wo, _EPI_BIAS, k.t(m, d))
     dwo = k.wgrad(attn_out, du)
     fused_mpnet_post_bwd.launches += 1

@@ -299,7 +299,7 @@ def test_fused_mpnet_post_bf16_rows(m):
 
 
 K4_ROUTE = ["gemm_sm90_kernel<2, 0>", "gemm_sm90_kernel<4, 0>", "gemm_sm90_kernel<5, 0>",
-            "ln_rows_kernel<__nv_bfloat16, float>", "row_layernorm_kernel"]
+            "ln_rows_kernel<__nv_bfloat16, float, 1>", "row_layernorm_kernel"]
 
 
 def test_fused_mpnet_post_runs_the_hopper_gemm_in_bf16():
@@ -655,13 +655,32 @@ def test_fused_mpnet_post_bwd_kernel(dtype, m):
 # bf16 K6, K8 and K9 run every product on gemm_sm90_kernel<EPI, MODE>
 # (csrc/gemm_sm90.cu; MODE 0: A . W, 1: G . W^T with W read as stored, 2: the
 # row-split dW = A^T . G) between the row passes and the fixed-order reduces
+# (csrc/fused_layer_bwd.cu): at D = 128 a warp holds a row as one 8-column chunk
+# a lane; the LayerNorm backward holds 2 column sums (K6) or 4; reduce_chunks_kernel
+# is the first level of the two-level reduce, reduce_parts_kernel the second and the
+# one-level reduce of the dW partial tiles
 CHAIN_ROUTES = {
     "K6": {"<8, 2>", "<8, 1>"},
     "K8": {"<6, 0>", "<7, 0>", "<8, 0>", "<8, 2>", "<9, 1>", "<8, 1>", "<0, 1>"},
     "K9": {"<4, 0>", "<7, 0>", "<5, 0>", "<8, 2>", "<9, 1>", "<5, 1>", "<0, 1>"},
 }
+_BF, _ROWS, _LNB = "__nv_bfloat16", "ln_rows_kernel<__nv_bfloat16, ", "ln_bwd_rows_kernel<__nv_bfloat16, "
+_REDUCES = {"reduce_chunks_kernel", "reduce_parts_kernel<__nv_bfloat16>"}
+CHAIN_PASSES = {
+    "K6": {_ROWS + _BF + ", 1>", _LNB + _BF + ", float, 1, 2>", f"scale_colsum_kernel<{_BF}>"}
+    | _REDUCES,
+    "K8": {_ROWS + "float, 1>", _LNB + "float, float, 1, 4>", f"scale_colsum_kernel<{_BF}>"}
+    | _REDUCES,
+    "K9": {_ROWS + "float, 1>", _LNB + f"float, {_BF}, 1, 4>", _LNB + "float, float, 1, 4>"}
+    | _REDUCES,
+}
 CHAIN_KINDS = ("gemm_sm90_kernel", "ln_rows_kernel", "ln_bwd_rows_kernel",
-               "scale_colsum_kernel", "reduce_parts_kernel")
+               "scale_colsum_kernel", "reduce_chunks_kernel", "reduce_parts_kernel")
+
+
+def _short_name(name):
+    """A device kernel's name with its template arguments, no namespace or parameters."""
+    return name.removeprefix("void ").split("(")[0].split("::")[-1]
 
 
 def _chain_call(k, g, dtype, m, d, f):
@@ -691,6 +710,8 @@ def test_backward_chains_run_the_hopper_gemm_in_bf16(k):
     gemms = {n[n.index("gemm_sm90_kernel") + 16:].split(">")[0] + ">"
              for n in names if "gemm_sm90_kernel" in n}
     assert gemms == CHAIN_ROUTES[k], names
+    passes = {_short_name(n) for n in names if "gemm_sm90_kernel" not in n}
+    assert passes == CHAIN_PASSES[k], names
 
 
 def _close_share(out, ref, share, rtol):
@@ -804,6 +825,114 @@ def test_backward_chain_bf16_full_width_repeats_its_bits(k, m):
     for got, want, name in zip(first, plain(), names):
         assert got.dtype == torch.bfloat16 and got.shape == want.shape, name
         _close_share(got, want, 2.0**-7, 2.0**-7)
+
+
+# The row passes that sum columns run a grid of a fixed number of blocks an SM
+# (fused_layer.py: 2 for the LayerNorm backward, 4 for scale_colsum), each block
+# over one range of rows (row_partition): row counts on both sides of each edge
+# (one row, fewer rows than blocks, one row a block, the first two-row block),
+# ragged ones, in both dtypes at D 128, F 256 against the twins at
+# _check_grads's tolerance, and a second backward's bits
+def _edge_rows(edge, sms):
+    if isinstance(edge, int):
+        return edge
+    per_sm, offset = edge
+    return per_sm * sms + offset
+
+
+PARTITION_EDGES = [1, 100, (2, -1), (2, 0), (2, 1), (4, 0), (4, 1), 257, 1370]
+
+
+@pytest.mark.parametrize("edge", PARTITION_EDGES)
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("k", sorted(CHAIN_ROUTES))
+def test_backward_chain_partition_edges(k, dtype, edge):
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    m = _edge_rows(edge, sms)
+    g = torch.Generator(device="cuda").manual_seed(m)
+    call, plain, names = _chain_call(k, g, dtype, m, 128, 256)
+    first, second = call(), call()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    _check_grads(first, plain(), dtype, names)
+
+
+def test_preattn_bwd_bf16_at_the_training_rows():
+    """bf16 K6 at the training step's 64 images x 1370 tokens (87 680 rows)
+    and the model's width: chip_smoke.py's tolerance (2^-7 of the largest
+    |reference| entry plus 2^-7 relative), the same bits from a second call."""
+    g = torch.Generator(device="cuda").manual_seed(6)
+    call, plain, names = _chain_call("K6", g, torch.bfloat16, 64 * 1370, 768, 3072)
+    first, second = call(), call()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    for got, want, name in zip(first, plain(), names):
+        assert got.dtype == torch.bfloat16 and got.shape == want.shape, name
+        _close_share(got, want, 2.0**-7, 2.0**-7)
+
+
+# (partial rows, columns): the two-level reduce's shapes (few columns, many
+# partial rows: K6's LayerNorm sums and db at 64 images, the old 32-row
+# partials, K8's dgelu column partials) and the one-level kernel's (K16's batch
+# sum of d(bias), many columns and few rows; a dW partial tile)
+REDUCE_SHAPES = [(263, 2 * 768), (527, 2304), (2740, 768), (685, 3072), (4, 12 * 64 * 64),
+                 (7, 768 * 2304)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("s,n", REDUCE_SHAPES)
+def test_reduce_matches_an_fp64_sum(s, n, dtype):
+    """_Chain.reduce (two levels where fl.reduce_split says so, else one) and
+    the two-level entry point called directly at both kinds of shape, against
+    an fp64 torch.sum: fp32 sums of s terms, off by at most s 2^-23 of the sum
+    of |terms|, then one rounding to the operand type; the same bits again."""
+    g = torch.Generator(device="cuda").manual_seed(s)
+    part = torch.randn((s, n), generator=g, device="cuda")
+    ch = fl._Chain("test", part.to(dtype), 1 if dtype == torch.bfloat16 else 0)
+    ref = part.double().sum(0)
+    bound = s * 2.0**-23 * part.double().abs().sum(0) + ref.abs() * (
+        2.0**-8 if dtype == torch.bfloat16 else 0.0)
+    per = fl.reduce_split(s, n, ch.sms)
+
+    def two_level(p):
+        out = ch.t(n)
+        scratch = ch.f32(-(-s // p), n)
+        ch._ok(ch.lib.rz_reduce_two_level(part.data_ptr(), scratch.data_ptr(), out.data_ptr(), s,
+                                          n, p, ch.code, ch.stream))
+        return out
+
+    calls = [lambda: ch.reduce(part, s, (n,)), lambda: two_level(per or max(1, s // 2))]
+    for call in calls:
+        out = call()
+        assert out.dtype == dtype
+        assert ((out.double() - ref).abs() <= bound).all()
+        assert torch.equal(out, call())
+
+
+@pytest.mark.parametrize("m", [1, 257, 1370])
+@pytest.mark.parametrize("d", [64, 768])
+@pytest.mark.parametrize("dtype,u_f32", [(torch.float32, True), (torch.bfloat16, True),
+                                         (torch.bfloat16, False)])
+def test_ln_rows_statistics_equal_the_recomputed_ones(dtype, u_f32, d, m):
+    """The mean and rstd ln_rows_kernel stores per row are those of the row in
+    fp64 (within fp32 sums of d terms), and the LayerNorm backward that reads
+    them writes the same bits as the one that computes them itself: the
+    stored statistics equal the recomputed ones."""
+    g = torch.Generator(device="cuda").manual_seed(m + d)
+    u = torch.randn((m, d), generator=g, device="cuda") * 2.0 + 0.5
+    u = u if u_f32 else u.to(dtype)
+    scale, bias = _rn(g, dtype, d, std=0.1, mean=1.0), _rn(g, dtype, d, std=0.1)
+    dh = torch.randn((m, d), generator=g, device="cuda")
+    ch = fl._Chain("test", scale, 1 if dtype == torch.bfloat16 else 0)
+    _, _, stats = ch.ln_rows(u, scale, bias, 1e-6, want_stats=True)
+    u64 = u.double()
+    mean = u64.mean(-1)
+    rstd = torch.rsqrt(((u64 - mean[:, None]) ** 2).mean(-1) + 1e-6)
+    torch.testing.assert_close(stats[:, 0].double(), mean, rtol=0, atol=1e-6)
+    torch.testing.assert_close(stats[:, 1].double(), rstd, rtol=2e-6, atol=0)
+    sums = fl._SUM_DH_XN | fl._SUM_DH | fl._SUM_D_LS
+    stored = ch.ln_bwd(u, dh, scale, 1e-6, sums=sums, stats=stats, want_f32=True)
+    recomputed = ch.ln_bwd(u, dh, scale, 1e-6, sums=sums, want_f32=True)
+    assert torch.equal(stored[0], recomputed[0]) and torch.equal(stored[2], recomputed[2])
+    assert all(torch.equal(a, b) for a, b in zip(stored[3], recomputed[3]))
 
 
 def _bias_and_mask(g, dtype, b, l, h):
