@@ -139,7 +139,7 @@ REDUCE1 = "reduce_chunks_kernel"      # the first level of the two-level reduce 
 # the chains' row passes in bf16 at D = 768 (fused_layer_bwd.cu): a warp holds a row as 3
 # chunks of 8 columns a lane; the LayerNorm backward holds 2 or 4 column sums
 LN_ROWS, LN_BWD = "ln_rows_kernel<__nv_bfloat16, ", "ln_bwd_rows_kernel<__nv_bfloat16, "
-COLSUM = "scale_colsum_kernel<__nv_bfloat16>"
+COLSUM = "scale_colsum_kernel<__nv_bfloat16, "  # then whether it sums g * m
 ROW_PASSES = ("ln_rows_kernel", "ln_bwd_rows_kernel", "scale_colsum_kernel", REDUCE1)
 
 
@@ -190,11 +190,12 @@ ROUTES = {"K1": {"bf16": (LN_PASS, _sm90(0, 0)), "fp32": ("gemm_f32_kernel<true,
                                      "bwd_dq_kernel<__nv", "bwd_dbias_kernel<__nv", REDUCE),
                        "fp32": ("bwd_stats_kernel<float", "bwd_dkdv_kernel<float",
                                 "bwd_dq_kernel<float", "bwd_dbias_kernel<float", REDUCE)},
-          "K6": {"bf16": (LN_ROWS + "__nv_bfloat16, 3>", _sm90(8, 2), _sm90(8, 1), COLSUM,
-                          LN_BWD + "__nv_bfloat16, float, 3, 2>", REDUCE1, REDUCE)},
-          "K8": {"bf16": (_sm90(6, 0), LN_ROWS + "float, 3>", _sm90(7, 0), _sm90(8, 0), COLSUM,
-                          _sm90(8, 2), _sm90(9, 1), _sm90(8, 1), LN_BWD + "float, float, 3, 4>",
-                          _sm90(0, 1), REDUCE1, REDUCE)},
+          "K6": {"bf16": (LN_ROWS + "__nv_bfloat16, 3>", _sm90(8, 2), _sm90(8, 1),
+                          COLSUM + "false>", LN_BWD + "__nv_bfloat16, float, 3, 2>", REDUCE1,
+                          REDUCE)},
+          "K8": {"bf16": (_sm90(6, 0), LN_ROWS + "float, 3>", _sm90(7, 0), _sm90(8, 0),
+                          COLSUM + "true>", _sm90(8, 2), _sm90(9, 1), _sm90(8, 1),
+                          LN_BWD + "float, float, 3, 4>", _sm90(0, 1), REDUCE1, REDUCE)},
           "K9": {"bf16": (_sm90(4, 0), LN_ROWS + "float, 3>", _sm90(7, 0), _sm90(5, 0),
                           LN_BWD + "float, __nv_bfloat16, 3, 4>", _sm90(8, 2), _sm90(9, 1),
                           _sm90(5, 1), LN_BWD + "float, float, 3, 4>", _sm90(0, 1), REDUCE1,
@@ -1046,7 +1047,8 @@ def backward_kernels(dtype, dname, gen, rows):
             dev_ms = check_route(k, dname, lambda: kern(*args), "bwd")
         if k in ("K6", "K8", "K9") and dname == "bf16":  # its kernels by name, each stage's time
             dev_ms, ran = check_route(k, dname, lambda: kern(*args), k, detail=True)
-            stages = {name.removeprefix("void ").split("(")[0]: t for name, t in ran.items()}
+            stages = {name.removeprefix("void ").replace("(anonymous namespace)::", "")
+                      .split("(")[0]: t for name, t in ran.items()}
             print(f"  {k:10s} {dname} stages, device ms a call (all launches of a kernel): "
                   + ", ".join(f"{name} {t:.4f}" for name, t in stages.items()))
         if k == "K7" and dname == "bf16":  # the yardstick, called nowhere in the port

@@ -294,7 +294,7 @@ struct LnBwdArgs {
 // a warp a row of the block's range, in turn; NS = 2 holds c0 and c1, NS = 4
 // all four sums in registers across the range
 template <typename T, typename TU, typename TD, int NC, int NS>
-__global__ void __launch_bounds__(RT) ln_bwd_rows_kernel(LnBwdArgs p) {
+__global__ void __launch_bounds__(RT, 1) ln_bwd_rows_kernel(LnBwdArgs p) {
   __shared__ float red[NS][MAX_D];
   const TU* U = static_cast<const TU*>(p.u);
   const TD* DH = static_cast<const TD*>(p.dh);
@@ -312,6 +312,7 @@ __global__ void __launch_bounds__(RT) ln_bwd_rows_kernel(LnBwdArgs p) {
 #pragma unroll
       for (int k = 0; k < VEC; ++k) acc[s][j][k] = 0.f;
 
+#pragma unroll 1
   for (int m = r0 + warp; m < r1; m += RT / 32) {
     const size_t row = (size_t)m * D;
     float xn[NC][VEC], dxn[NC][VEC];  // u, then xn; dh, then dh * scale
@@ -355,7 +356,7 @@ __global__ void __launch_bounds__(RT) ln_bwd_rows_kernel(LnBwdArgs p) {
     for (int j = 0; j < NC; ++j) {
       const int c = chunk_col(j, lane);
       if (c >= D) continue;
-      float lsv[VEC], ad[VEC], pj[VEC], d[VEC], d2[VEC];
+      float lsv[VEC], ad[VEC], pj[VEC], d[VEC];
       if (ls != nullptr) {
         load8(ls + c, lsv);
       } else {
@@ -368,15 +369,20 @@ __global__ void __launch_bounds__(RT) ln_bwd_rows_kernel(LnBwdArgs p) {
       for (int k = 0; k < VEC; ++k) {
         d[k] = rstd * (dxn[j][k] - m1 - xn[j][k] * m2);
         if (add != nullptr) d[k] += ad[k];
-        d2[k] = d[k] * lsv[k];
         if constexpr (NS == 4) {
-          if (p.sums & SUM_D_LS) acc[2][j][k] += d2[k];
           if (p.sums & SUM_D_PROJ) acc[3][j][k] += d[k] * pj[k];
         }
       }
       store8(static_cast<T*>(p.out1) + row + c, d);
-      if (p.out2 != nullptr) store8(static_cast<T*>(p.out2) + row + c, d2);
       if (p.out32 != nullptr) store8(p.out32 + row + c, d);
+#pragma unroll
+      for (int k = 0; k < VEC; ++k) {  // d * ls, in place
+        d[k] *= lsv[k];
+        if constexpr (NS == 4) {
+          if (p.sums & SUM_D_LS) acc[2][j][k] += d[k];
+        }
+      }
+      if (p.out2 != nullptr) store8(static_cast<T*>(p.out2) + row + c, d);
     }
   }
 
@@ -404,31 +410,33 @@ __global__ void __launch_bounds__(RT) ln_bwd_rows_kernel(LnBwdArgs p) {
 }
 
 // out = g * ls rounded (when out is given), and each block's column sums of its
-// rows: c0 = sum g * m (SUM_G_M; m fp32), c1 = sum g * ls (SUM_G_LS); ls null -> 1.
-// A thread holds 8 neighbouring columns and walks the block's rows four at a
-// time; cpart (blocks, popcount(sums), D) in bit order
-template <typename T>
+// rows: c0 = sum g * m (SUM_G_M, WANT_M; m fp32), c1 = sum g * ls (SUM_G_LS); ls
+// null -> 1. A thread holds 8 neighbouring columns and walks the block's rows R
+// at a time (loads first, then the sums in row order): 4 rows of g, or 2 of g and
+// m, so that three blocks of 288 threads (K6's 2304 columns) fit an SM;
+// cpart (blocks, popcount(sums), D) in bit order
+template <typename T, bool WANT_M>
 __device__ __forceinline__ void colsum_row(const float (&gv)[VEC], const float (&mv)[VEC],
-                                           const float (&lsv)[VEC], bool want_m,
-                                           float (&a0)[VEC], float (&a1)[VEC], T* out) {
+                                           const float (&lsv)[VEC], float (&a0)[VEC],
+                                           float (&a1)[VEC], T* out) {
   float dm[VEC];
 #pragma unroll
   for (int k = 0; k < VEC; ++k) {
     dm[k] = gv[k] * lsv[k];
-    if (want_m) a0[k] += gv[k] * mv[k];
+    if constexpr (WANT_M) a0[k] += gv[k] * mv[k];
     a1[k] += dm[k];
   }
   if (out != nullptr) store8(out, dm);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(CT)
+template <typename T, bool WANT_M>
+__global__ void __launch_bounds__(CT, 2)
 scale_colsum_kernel(const T* __restrict__ g, const float* __restrict__ m,
                     const T* __restrict__ ls, T* __restrict__ out, float* __restrict__ cpart,
                     int sums, int M, int D, int chunk) {
-  constexpr int R = 4;  // rows a thread loads before it adds them, in order
+  constexpr int R = WANT_M ? 2 : 4;
   const int r0 = blockIdx.x * chunk, r1 = min(M, r0 + chunk);
-  const bool want_m = sums & SUM_G_M;
+#pragma unroll 1
   for (int c = threadIdx.x * VEC; c < D; c += blockDim.x * VEC) {
     float lsv[VEC], a0[VEC], a1[VEC];
 #pragma unroll
@@ -438,26 +446,29 @@ scale_colsum_kernel(const T* __restrict__ g, const float* __restrict__ m,
     }
     if (ls != nullptr) load8(ls + c, lsv);
     int r = r0;
+#pragma unroll 1
     for (; r + R <= r1; r += R) {
       float gv[R][VEC], mv[R][VEC];
 #pragma unroll
       for (int i = 0; i < R; ++i) {
         load8(g + (size_t)(r + i) * D + c, gv[i]);
-        if (want_m) load8(m + (size_t)(r + i) * D + c, mv[i]);
+        if constexpr (WANT_M) load8(m + (size_t)(r + i) * D + c, mv[i]);
       }
 #pragma unroll
       for (int i = 0; i < R; ++i)
-        colsum_row<T>(gv[i], mv[i], lsv, want_m, a0, a1,
-                      out == nullptr ? nullptr : out + (size_t)(r + i) * D + c);
+        colsum_row<T, WANT_M>(gv[i], mv[i], lsv, a0, a1,
+                              out == nullptr ? nullptr : out + (size_t)(r + i) * D + c);
     }
+#pragma unroll 1
     for (; r < r1; ++r) {
       float gv[VEC], mv[VEC];
       load8(g + (size_t)r * D + c, gv);
-      if (want_m) load8(m + (size_t)r * D + c, mv);
-      colsum_row<T>(gv, mv, lsv, want_m, a0, a1, out == nullptr ? nullptr : out + (size_t)r * D + c);
+      if constexpr (WANT_M) load8(m + (size_t)r * D + c, mv);
+      colsum_row<T, WANT_M>(gv, mv, lsv, a0, a1,
+                            out == nullptr ? nullptr : out + (size_t)r * D + c);
     }
     float* dst = cpart + (size_t)blockIdx.x * __popc(sums) * D + c;
-    if (want_m) {
+    if (WANT_M) {
       store8(dst, a0);
       dst += D;
     }
@@ -528,6 +539,16 @@ cudaError_t ln_bwd_rows(const LnBwdArgs& p, cudaStream_t s) {
     case 4: launch_ln_bwd<T, TU, TD, 4>(p, s); break;
     default: return cudaErrorInvalidValue;
   }
+  return cudaGetLastError();
+}
+
+template <typename T, bool WANT_M>
+cudaError_t scale_colsum(const void* g, const void* m, const void* ls, void* out, void* cpart,
+                         int sums, int chunk, int M, int D, cudaStream_t s) {
+  scale_colsum_kernel<T, WANT_M><<<(M + chunk - 1) / chunk, min(CT, (D / VEC + 31) / 32 * 32), 0,
+                                   s>>>(
+      static_cast<const T*>(g), static_cast<const float*>(m), static_cast<const T*>(ls),
+      static_cast<T*>(out), static_cast<float*>(cpart), sums, M, D, chunk);
   return cudaGetLastError();
 }
 
@@ -641,14 +662,15 @@ extern "C" int rz_ln_rows(const void* u, int u_f32, const void* scale, const voi
 }
 
 // the LayerNorm backward per row, see LnBwdArgs; u / dh are fp32 when flagged;
-// stats from rz_ln_rows or null; the sums `sums` asks for into cpart, block b of
-// ceil(M / chunk) owning rows [b chunk, (b + 1) chunk). D % 8 == 0, D <= 1024
+// stats from rz_ln_rows or null; the sums `sums` asks for into cpart (none: cpart
+// is not written), block b of ceil(M / chunk) owning rows [b chunk, (b + 1) chunk).
+// D % 8 == 0, D <= 1024
 extern "C" int rz_ln_bwd_rows(const void* u, int u_f32, const void* dh, int dh_f32,
                               const void* scale, const void* add, const void* ls,
                               const void* proj, const void* stats, void* out1, void* out2,
                               void* out32, void* cpart, int sums, int chunk, int M, int D,
                               float eps, int dtype, void* stream) {
-  if (M < 1 || chunk < 1 || sums < 1 || sums > 15 || ((sums & bw::SUM_D_PROJ) && !proj))
+  if (M < 1 || chunk < 1 || sums < 0 || sums > 15 || ((sums & bw::SUM_D_PROJ) && !proj))
     return static_cast<int>(cudaErrorInvalidValue);
   bw::LnBwdArgs p{u, dh, scale, add, ls, static_cast<const float*>(proj),
                   static_cast<const float2*>(stats), out1, out2, static_cast<float*>(out32),
@@ -673,16 +695,13 @@ extern "C" int rz_scale_colsum(const void* g, const void* m, const void* ls, voi
       ((sums & bw::SUM_G_M) && !m))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int blocks = (M + chunk - 1) / chunk;
-  const int threads = min(bw::CT, (D / bw::VEC + 31) / 32 * 32);
+  const bool want_m = sums & bw::SUM_G_M;
+  cudaError_t err;
   if (dtype == RZ_DTYPE_BF16)
-    bw::scale_colsum_kernel<bf16><<<blocks, threads, 0, s>>>(
-        static_cast<const bf16*>(g), static_cast<const float*>(m), static_cast<const bf16*>(ls),
-        static_cast<bf16*>(out), static_cast<float*>(cpart), sums, M, D, chunk);
+    err = want_m ? bw::scale_colsum<bf16, true>(g, m, ls, out, cpart, sums, chunk, M, D, s)
+                 : bw::scale_colsum<bf16, false>(g, m, ls, out, cpart, sums, chunk, M, D, s);
   else
-    bw::scale_colsum_kernel<float><<<blocks, threads, 0, s>>>(
-        static_cast<const float*>(g), static_cast<const float*>(m),
-        static_cast<const float*>(ls), static_cast<float*>(out), static_cast<float*>(cpart),
-        sums, M, D, chunk);
-  return static_cast<int>(cudaGetLastError());
+    err = want_m ? bw::scale_colsum<float, true>(g, m, ls, out, cpart, sums, chunk, M, D, s)
+                 : bw::scale_colsum<float, false>(g, m, ls, out, cpart, sums, chunk, M, D, s);
+  return static_cast<int>(err);
 }

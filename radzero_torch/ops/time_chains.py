@@ -14,6 +14,14 @@ launch order with its duration, the median over the calls per launch; the
 whole call's device time is the sum. CUDA-event time: ``chip_smoke.py``'s
 median of 20 calls. Prints a table per chain and, last, one JSON line with
 the tree, the card and, per chain, the times and the launches.
+
+With ``--ablate`` (a tree whose ``_Chain`` has ``ln_bwd(..., sums=, stats=)``)
+also K6's LayerNorm backward row pass alone at its shape, device time of
+three variants on the same x and fp32 dh: as the chain runs it (the stored
+statistics, the sums of dh * xn and dh), computing the statistics itself,
+and from the stored statistics with no column sums at all (the pure row
+pass that moving the sums into dh's GEMM epilogue would leave: that
+design's best case for the pass).
 """
 
 from __future__ import annotations
@@ -73,6 +81,7 @@ def main() -> int:
     ap.add_argument("--tree", default=str(REPO))
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--calls", type=int, default=5)
+    ap.add_argument("--ablate", action="store_true")
     args = ap.parse_args()
     sys.path.insert(0, str(REPO))
     import chip_smoke as cs
@@ -104,8 +113,47 @@ def main() -> int:
                   "launches": [{"kernel": name, "device_ms": t} for name, t in each]}
         del ops
         torch.cuda.empty_cache()
+    if args.ablate:
+        out["K6 ln_bwd"] = ablate_ln_bwd(fl, args.seed, args.calls)
     print(json.dumps(out))
     return 0
+
+
+def ablate_ln_bwd(fl, seed, calls):
+    """K6's LayerNorm backward pass three ways -> {variant: device ms}."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x, scale, bias, *_ = chain_inputs("K6", gen, 64 * 1370, 768, 3072)
+    k = fl._Chain("ablate", x, 1)
+    dh = torch.randn(x.shape, generator=gen, device="cuda")
+    _, _, stats = k.ln_rows(x, scale, bias, 1e-6, want_stats=True)
+    m, d = x.shape
+    chunk, _ = fl.row_partition(m, fl._LN_BWD_BLOCKS_PER_SM * k.sms)
+    out1 = k.t(m, d)
+
+    def pure():  # no column sums: nothing written but dx
+        k._ok(k.lib.rz_ln_bwd_rows(x.data_ptr(), 0, dh.data_ptr(), 1, scale.data_ptr(), None,
+                                   None, None, stats.data_ptr(), out1.data_ptr(), None, None,
+                                   None, 0, chunk, m, d, 1e-6, 1, k.stream))
+
+    sums = fl._SUM_DH_XN | fl._SUM_DH
+    variants = {
+        "stored statistics, two sums (the route)":
+            lambda: k.ln_bwd(x, dh, scale, 1e-6, sums=sums, stats=stats),
+        "statistics computed in the pass, two sums":
+            lambda: k.ln_bwd(x, dh, scale, 1e-6, sums=sums),
+        "stored statistics, no sums (the epilogue design's row pass)": pure,
+    }
+    res = {}
+    for name, fn in variants.items():
+        fn()
+        each = launches(fn, calls)
+        res[name] = {"device_ms": sum(t for _, t in each),
+                     "launches": [{"kernel": n, "device_ms": t} for n, t in each]}
+        print(f"K6 ln_bwd, {name}: {res[name]['device_ms']:.4f} ms of device time in "
+              f"{len(each)} launches")
+    return res
 
 
 if __name__ == "__main__":

@@ -664,13 +664,12 @@ CHAIN_ROUTES = {
     "K8": {"<6, 0>", "<7, 0>", "<8, 0>", "<8, 2>", "<9, 1>", "<8, 1>", "<0, 1>"},
     "K9": {"<4, 0>", "<7, 0>", "<5, 0>", "<8, 2>", "<9, 1>", "<5, 1>", "<0, 1>"},
 }
-_BF, _ROWS, _LNB = "__nv_bfloat16", "ln_rows_kernel<__nv_bfloat16, ", "ln_bwd_rows_kernel<__nv_bfloat16, "
+_BF, _ROWS = "__nv_bfloat16", "ln_rows_kernel<__nv_bfloat16, "
+_LNB, _COLSUM = "ln_bwd_rows_kernel<__nv_bfloat16, ", "scale_colsum_kernel<__nv_bfloat16, "
 _REDUCES = {"reduce_chunks_kernel", "reduce_parts_kernel<__nv_bfloat16>"}
 CHAIN_PASSES = {
-    "K6": {_ROWS + _BF + ", 1>", _LNB + _BF + ", float, 1, 2>", f"scale_colsum_kernel<{_BF}>"}
-    | _REDUCES,
-    "K8": {_ROWS + "float, 1>", _LNB + "float, float, 1, 4>", f"scale_colsum_kernel<{_BF}>"}
-    | _REDUCES,
+    "K6": {_ROWS + _BF + ", 1>", _LNB + _BF + ", float, 1, 2>", _COLSUM + "false>"} | _REDUCES,
+    "K8": {_ROWS + "float, 1>", _LNB + "float, float, 1, 4>", _COLSUM + "true>"} | _REDUCES,
     "K9": {_ROWS + "float, 1>", _LNB + f"float, {_BF}, 1, 4>", _LNB + "float, float, 1, 4>"}
     | _REDUCES,
 }
@@ -856,7 +855,7 @@ def test_backward_chain_partition_edges(k, dtype, edge):
     _check_grads(first, plain(), dtype, names)
 
 
-def test_preattn_bwd_bf16_at_the_training_rows():
+def test_backward_chain_k6_bf16_at_the_training_rows():
     """bf16 K6 at the training step's 64 images x 1370 tokens (87 680 rows)
     and the model's width: chip_smoke.py's tolerance (2^-7 of the largest
     |reference| entry plus 2^-7 relative), the same bits from a second call."""
