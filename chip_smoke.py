@@ -78,12 +78,39 @@ Phases, in order; any failure exits non-zero:
    kernel path against the eager reference path, requests/s with p50/p99
    latency of that burst and of five repeats on the warm engine, and the
    card's idle share over one more burst (torch.profiler);
+4a. the HTTP server: EngineServer on 127.0.0.1 over ServingEngine(
+   max_batch=8, channels=1, host_backend="pil": this card's host has no
+   libjpeg headers, so the native decoder is not built there, printed on a
+   line of its own); 16 client threads post 16 seeded grayscale JPEGs of
+   about 3000 x 2500 (quality 95) at once: every answer bit-equal to the
+   engine's own Future for the same bytes (both in batches [8, 8]),
+   /healthz and /prompt_sets, maps=full on a smaller JPEG at its own size,
+   launch counts per batch; requests/s with p50/p99 over HTTP and four
+   repeats, and the host ms an image of the decode -> grey -> resize by PIL
+   beside the native library's where it is built;
+4b. export: export_zero_shot at 8 images x 14 prompts x 64 tokens,
+   from_uint8, channels=1, bf16 into a temporary directory, loaded by
+   load_zero_shot in a fresh python3 (imports radzero_torch, nothing of this
+   process): logits and maps bit-equal to compute_logits on the same inputs
+   and weights, torch.profiler naming K1-K5's device kernels (ROUTES) with
+   the eager call's softmax launches and no upload from host memory, the
+   launch counters and the registered ops' calls as the eager call's;
+   ServingEngine.from_bundle there answers 16 requests with the live
+   engine's probabilities, bit for bit; export seconds, bundle bytes, cold
+   start to first answer, the host's ms a run beside compute_logits', warm
+   requests/s beside the live engine; then the same for the
+   fused_tower=False / TextConfig(attn_impl="flash") bundle (K13 and K15 from
+   a program; full depth, printed), without the engine;
 5. scoring through ZeroShotScorer(fused_tower=False) with
    TextConfig(attn_impl="flash"): 16 seeded images at batch 8 x the 14
    prompts in bf16 with maps (the tower on K13, the align layers on K1-K3,
-   MPNet on K15 and K4, K5), launch counts per batch and images/s; the same
-   in fp32 against compute_logits(eager=True) with the repo's gate; and
-   model_inference on one PNG in a temporary directory;
+   MPNet on K15 and K4, K5), launch counts per batch and images/s, and the
+   host stages of one batch each alone (the resize and normalise of an image
+   by PIL and with use_native=True where the native library is built, the
+   batch on the scorer's 8 threads, the pinned upload, the card's ms, the
+   readback) beside the scorer's wall time a batch; the same in fp32 against
+   compute_logits(eager=True) with the repo's gate; and model_inference on
+   one PNG in a temporary directory;
 6. training: the same weights as fp32 masters, tower frozen (K1-K3 without
    a tape), at the defaults AlignConfig() / TextConfig() /
    LossConfig(train_impl="fused"): align layers on K1-K3 with the backward
@@ -99,7 +126,9 @@ Phases, in order; any failure exits non-zero:
 
 --profile also prints the kernels of one training step by device time
 (torch.profiler; the 40 longest, K15 / K16's by name, and the fixed-order
-reduces' launches and time). A line with {"kernels": [...]} reports every kernel; the
+reduces' launches and time). A line with {"kernels": [...]} reports every kernel
+(with its launches on each path and, for the serving kernels, the radzero:: op
+it is registered as); the
 line before the last is the card's name and power limit; the last is
 {"ok": true, "device": {...}}.
 """
@@ -1413,6 +1442,475 @@ def phase_slice(seed, card):
     return launches, params
 
 
+# the card's host has no libjpeg headers (/usr/include/jpeglib.h), so the native
+# decoder (native/preproc.cpp) cannot be built there: the server phase decodes
+# with PIL, chosen here and printed (ROADMAP.md); the CPU tests hold the native path
+SERVER_BACKEND = "pil"
+CXR_HW = (3000, 2500)                 # (height, width) of a CXR-archive study
+
+
+def cxr_jpegs(seed, n):
+    """``n`` grayscale JPEGs at CXR-archive sizes (about 3000 x 2500, quality 95):
+    a smooth random field with pixel noise, from ``seed``."""
+    import io
+
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n):
+        h, w = CXR_HW[0] - 8 * i, CXR_HW[1] + 8 * i
+        low = Image.fromarray(rng.integers(0, 256, (48, 40), dtype=np.uint8), "L")
+        arr = np.asarray(low.resize((w, h), Image.Resampling.BICUBIC), np.int16)
+        arr = np.clip(arr + rng.integers(-6, 7, (h, w), dtype=np.int16), 0, 255)
+        buf = io.BytesIO()
+        Image.fromarray(arr.astype(np.uint8), "L").save(buf, "JPEG", quality=95)
+        out.append(buf.getvalue())
+    return out
+
+
+def host_decode_ms(jpegs, size):
+    """Host ms an image of the serving decode -> grey -> bicubic resize to
+    ``size``, one thread: PIL (the engine's "pil" path) and the native
+    library where it is built -> (pil_ms, native_ms or None, why not)."""
+    import io
+
+    import numpy as np
+    from PIL import Image
+    from radzero_torch.data import native
+
+    def pil(data):
+        im = Image.open(io.BytesIO(data)).convert("L")
+        return np.asarray(im.resize((size, size), Image.Resampling.BICUBIC), np.uint8)
+
+    def ms(fn):
+        fn(jpegs[0])
+        t0 = time.perf_counter()
+        for data in jpegs:
+            fn(data)
+        return (time.perf_counter() - t0) / len(jpegs) * 1e3
+
+    if not native.available():
+        why = (native.build_log.strip().splitlines() or ["no compiler"])[0]
+        return ms(pil), None, why[:160]
+    return ms(pil), ms(lambda d: native.decode_resize_gray_u8(d, size, size)), ""
+
+
+def burst_stats(lat, n):  # -> requests/s, p50, p99 of one burst of n
+    return (n * 1e3 / lat[-1], lat[len(lat) // 2],
+            lat[min(len(lat) - 1, math.ceil(0.99 * len(lat)) - 1)])
+
+
+def phase_server(seed, card, params):
+    """4a: EngineServer on 127.0.0.1 over ServingEngine(max_batch=8, channels=1,
+    host_backend=SERVER_BACKEND); 16 client threads post 16 CXR-size grayscale
+    JPEGs at once. Every answer must be the engine's own Future result for the
+    same bytes, bit for bit; returns the launches of the first HTTP burst."""
+    import concurrent.futures as cf
+    import io
+    import urllib.request
+
+    import numpy as np
+    from PIL import Image
+    from radzero_torch.data.tokenizer import WhitespaceHashTokenizer
+    from radzero_torch.eval.server import EngineServer
+    from radzero_torch.eval.serving import ServingEngine
+    from radzero_torch.models.configuration import RadZeroConfig
+
+    cfg = RadZeroConfig()
+    n_layers = cfg.vision.num_hidden_layers + cfg.align.num_hidden_layers
+    tok = WhitespaceHashTokenizer(vocab_size=cfg.text.vocab_size, max_length=64)
+    prompts = [f"There is {c}" for c in CHEXPERT]
+    print(f"server: host_backend={SERVER_BACKEND!r} (chosen: this card's host has no libjpeg "
+          "headers, /usr/include/jpeglib.h, so the native decoder is not built here)")
+    t0 = time.perf_counter()
+    jpegs = cxr_jpegs(seed + 5, 16)
+    rng = np.random.default_rng(seed + 6)
+    buf = io.BytesIO()  # one smaller study for maps=full (a 14 x 3000 x 2500 map is ~1.5 GB of JSON)
+    Image.fromarray(rng.integers(0, 256, (320, 256), dtype=np.uint8), "L").save(buf, "JPEG",
+                                                                              quality=95)
+    small = buf.getvalue()
+    print(f"  16 grayscale JPEGs of about {CXR_HW[0]} x {CXR_HW[1]}, quality 95, "
+          f"{sum(map(len, jpegs)) / 16 / 2**20:.2f} MiB each on average, made in "
+          f"{time.perf_counter() - t0:.2f} s from seed {seed + 5}")
+    pil_ms, native_ms, why = host_decode_ms(jpegs, cfg.vision.img_size)
+    print(f"  host decode -> grey -> resize to 518, one thread: PIL {pil_ms:.2f} ms an image; "
+          + (f"native {native_ms:.2f} ms an image" if native_ms is not None
+             else f"native not available on this host ({why})") + f" on {card}")
+
+    want = ["patch" if i % 2 == 0 else "none" for i in range(16)]
+    engine = ServingEngine(params, cfg, tok, device="cuda", max_batch=8, channels=1,
+                           max_delay_ms=2000.0, host_backend=SERVER_BACKEND)
+    try:
+        with EngineServer(engine, {"chexpert": prompts}) as server:
+            engine.warmup()
+            base = f"http://127.0.0.1:{server.start(host='127.0.0.1')}"
+
+            def get(path):
+                with urllib.request.urlopen(base + path, timeout=60) as resp:
+                    return json.loads(resp.read())
+
+            def post(data, maps):
+                req = urllib.request.Request(
+                    f"{base}/predict?prompt_set=chexpert&maps={maps}", data=data,
+                    headers={"Content-Type": "image/jpeg"})
+                with urllib.request.urlopen(req, timeout=600) as resp:
+                    return json.loads(resp.read())
+
+            health, sets = get("/healthz"), get("/prompt_sets")
+            if health != {"status": "ok", "prompt_sets": ["chexpert"]} or sets != {
+                    "chexpert": prompts}:
+                fail(f"server: /healthz {health}, /prompt_sets {sets}")
+            # the engine's own answers for the same bytes: one burst, batches [8, 8]
+            engine.batch_sizes.clear()
+            futs = [engine.submit(j, "chexpert", want_maps=w) for j, w in zip(jpegs, want)]
+            direct = [f.result(timeout=600) for f in futs]
+            if engine.batch_sizes != [8, 8]:
+                fail(f"server: the direct burst ran batches {engine.batch_sizes}, not [8, 8]")
+
+            def burst():
+                """16 client threads post at once -> (answers, sorted latencies ms)."""
+                gate = threading.Barrier(17)
+
+                def client(i):
+                    gate.wait()
+                    out = post(jpegs[i], want[i])
+                    return out, time.perf_counter()
+
+                with cf.ThreadPoolExecutor(16) as pool:
+                    futs = [pool.submit(client, i) for i in range(16)]
+                    gate.wait()
+                    t_go = time.perf_counter()
+                    res = [f.result(timeout=600) for f in futs]
+                return [r[0] for r in res], sorted((r[1] - t_go) * 1e3 for r in res)
+
+            engine.batch_sizes.clear()
+            reset_counters()
+            answers, lat = burst()
+            launches = read_counters()
+            batches = list(engine.batch_sizes)
+            repeats = [burst()[1] for _ in range(4)]
+            full = post(small, "full")
+            full_direct = engine.submit(small, "chexpert", want_maps="full").result(timeout=600)
+    finally:
+        engine.close()
+
+    if batches != [8, 8]:
+        fail(f"server: the HTTP burst ran batches {batches}, not [8, 8]")
+    for i, (a, d) in enumerate(zip(answers, direct)):
+        if a["prompts"] != prompts or not np.array_equal(np.asarray(a["probs"], np.float32),
+                                                         d["probs"]):
+            fail(f"server: request {i}: HTTP probs differ from the engine's Future")
+        if (a["similarity_maps"] is None) != (d["similarity_maps"] is None) or (
+                d["similarity_maps"] is not None and not np.array_equal(
+                    np.asarray(a["similarity_maps"], np.float32), d["similarity_maps"])):
+            fail(f"server: request {i}: HTTP maps differ from the engine's Future")
+        if want[i] == "patch" and d["similarity_maps"].shape != (N, 37, 37):
+            fail(f"server: request {i}: maps {d['similarity_maps'].shape}")
+    full_maps = np.asarray(full["similarity_maps"], np.float32)
+    if full_maps.shape != (N, 320, 256) or not np.array_equal(full_maps,
+                                                              full_direct["similarity_maps"]):
+        fail(f"server: maps=full {full_maps.shape} against the JPEG's 320 x 256, or not the "
+             "engine's Future")
+    expect = expected(fused_preattn=n_layers * 2, flash_attention_packed=n_layers * 2,
+                      fused_postattn=n_layers * 2,
+                      fused_mpnet_post=cfg.text.num_hidden_layers * 2, vlcabs_fused=2)
+    print(f"  16 HTTP requests answered in batches {batches}, each bit-equal to the engine's "
+          f"Future for the same bytes; maps=full {full_maps.shape} on a 320 x 256 JPEG; "
+          f"launches {launches}")
+    if launches != expect:
+        fail(f"server: expected launches {expect}")
+    rps, p50, p99 = burst_stats(lat, 16)
+    print(f"  HTTP: {rps:.3f} requests/s, latency p50 {p50:.1f} ms p99 {p99:.1f} ms (16 clients "
+          f"at once, {SERVER_BACKEND} decode of {CXR_HW[0]} x {CXR_HW[1]} JPEGs, max_batch 8, "
+          f"bf16) on {card}")
+    rep = [burst_stats(r, 16) for r in repeats]
+    print(f"  HTTP, the burst 4 times more: requests/s {[round(r[0], 2) for r in rep]}, p50 ms "
+          f"{[round(r[1], 1) for r in rep]}, p99 ms {[round(r[2], 1) for r in rep]}")
+    return launches
+
+
+# run by phase_export in a fresh python3: imports radzero_torch and nothing of
+# the exporting process; argv: start time, bundle dir, io dir, whether to serve
+COLD_START = r'''
+import json, sys, time
+t_start, bundle, io_dir, serve = float(sys.argv[1]), sys.argv[2], sys.argv[3], sys.argv[4] == "1"
+sys.path.insert(0, sys.argv[5])
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+from radzero_torch.eval.export import load_zero_shot
+from radzero_torch.ops import flash_attention as fa, fused_layer as fl, registry, vlcabs_fused as vf
+
+WRAPPERS = (fl.fused_preattn, fl.flash_attention_packed, fl.fused_postattn, fl.fused_mpnet_post,
+            vf.vlcabs_fused, fl.fused_preattn_bwd, fl.flash_attention_packed_bwd,
+            fl.fused_postattn_bwd, fl.fused_mpnet_post_bwd, vf.vlcabs_train_forward,
+            vf.vlcabs_train_bwd_dq, vf.vlcabs_train_bwd_dtn, fa.flash_attention,
+            fa.flash_attention_bwd, fa.flash_attention_bias, fa.flash_attention_bias_bwd)
+t0 = time.time()
+runner, meta = load_zero_shot(bundle)
+t_load = time.time() - t0
+inp = torch.load(f"{io_dir}/inputs.pt")
+pv, ids, mask = (inp[k].cuda() for k in ("pixels", "ids", "mask"))
+for w in WRAPPERS:
+    w.launches = 0
+registry.reset_calls()
+logits, scores = runner(pv, ids, mask)
+logits, scores = logits.cpu(), scores.cpu()
+t_first = time.time() - t_start
+launches = {w.__name__: w.launches for w in WRAPPERS}
+calls = dict(registry.calls)
+torch.save({"logits": logits, "scores": scores}, f"{io_dir}/program.pt")
+host_ms, wall_ms = [], []
+for _ in range(10):  # the host's ms to enqueue one run and its wall ms, before any profiler session
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    runner(pv, ids, mask)
+    host_ms.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    wall_ms.append((time.perf_counter() - t0) * 1e3)
+kernels = {}
+for _ in range(3):  # a session now and then records no device kernel
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        runner(pv, ids, mask)
+        torch.cuda.synchronize()
+    kernels = {e.key: e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+    device_ms = sorted(((e.key[:60], e.self_device_time_total / 1e3) for e in prof.key_averages()
+                        if e.device_type == DeviceType.CUDA), key=lambda t: -t[1])
+    if kernels:
+        break
+with profile(activities=[ProfilerActivity.CPU]) as prof:
+    runner(pv, ids, mask)
+    torch.cuda.synchronize()
+top_cpu = sorted(((e.key, e.self_cpu_time_total / 1e3, e.count) for e in prof.key_averages()),
+                 key=lambda t: -t[1])[:12]
+out = {"load_s": t_load, "cold_start_s": t_first, "launches": launches, "calls": calls,
+       "kernels": kernels, "meta": meta, "host_ms": sorted(host_ms)[5],
+       "wall_ms": sorted(wall_ms)[5], "host_all_ms": host_ms, "top_cpu": top_cpu,
+       "device_ms": device_ms[:8], "device_total_ms": sum(t for _, t in device_ms)}
+if serve:
+    from radzero_torch.data.tokenizer import WhitespaceHashTokenizer
+    from radzero_torch.eval.serving import ServingEngine
+    images = inp["images"].numpy()
+    tok = WhitespaceHashTokenizer(vocab_size=meta["vocab_size"], max_length=meta["max_tokens"])
+    with ServingEngine.from_bundle(bundle, tok, max_delay_ms=2000.0, host_backend="pil") as eng:
+        eng.register_prompt_set("chexpert", json.loads(sys.argv[6]))
+        eng.warmup()
+        eng.batch_sizes.clear()
+        seconds, probs = [], None
+        for _ in range(6):
+            t0 = time.perf_counter()
+            futs = [eng.submit(im, "chexpert") for im in images]
+            res = [f.result(timeout=600) for f in futs]
+            seconds.append(time.perf_counter() - t0)
+            probs = probs if probs is not None else [r["probs"].tolist() for r in res]
+        out.update(probs=probs, burst_s=seconds, batches=eng.batch_sizes[:2])
+print("COLD_START " + json.dumps(out))
+'''
+
+
+def program_kernels_check(label, program, eager):
+    """The device kernels of one program run (``program``, {name: launches})
+    against one eager compute_logits (``eager``): every device kernel of K1-K5,
+    K13 and K15 that the eager call runs (their ROUTES names in bf16; the
+    launches themselves are the wrappers' counts, which a session of the
+    profiler now and then undercounts), the same softmax launches (the
+    attention twins' mark) and no upload from host memory. Other library
+    kernels may differ (the graph lays out a few copies and the patch
+    embedding's product otherwise); they are printed."""
+    ours = [n for way in ("K1", "K3", "K4", "K5", "fwd") for n in ROUTES[way]["bf16"]]
+    ours.append(SMALL_BIAS[0])
+    for pat in ours:
+        if any(pat in n for n in eager) and not any(pat in n for n in program):
+            fail(f"export {label}: the program never ran {pat}; eager "
+                 f"{ {n: c for n, c in eager.items() if pat in n} }")
+
+    if any("Memcpy HtoD" in n for n in program):
+        fail(f"export {label}: a program run uploads from host memory: "
+             f"{[n for n in program if 'Memcpy HtoD' in n]}")
+
+    def softmax(kernels):
+        return sum(c for n, c in kernels.items() if "softmax" in n.lower())
+
+    if softmax(program) != softmax(eager):
+        fail(f"export {label}: softmax launches {softmax(program)} in the program, "
+             f"{softmax(eager)} in the eager call")
+    named = {pat: sum(c for n, c in program.items() if pat in n) for pat in ours}
+    print(f"  {label}: torch.profiler, the program's kernels by name (launches a run) "
+          f"{ {k[:32]: v for k, v in named.items() if v} }, softmax x{softmax(program)} as "
+          f"the eager call's; {sum(program.values())} launches in all against "
+          f"{sum(eager.values())}")
+    for name in sorted(set(program) | set(eager)):
+        if program.get(name, 0) != eager.get(name, 0):
+            print(f"    other: program x{program.get(name, 0)}, eager x{eager.get(name, 0)}: "
+                  f"{name[:140]}")
+
+
+def phase_export(seed, card, params, live_probs_fn):
+    """4b: export_zero_shot at 8 x 14 x 64, from_uint8, channels=1, bf16, loaded
+    by load_zero_shot in a fresh python3 (bit-equal to compute_logits, K1-K5 by
+    name, the eager call's launch counts), ServingEngine.from_bundle there
+    against the live engine; then the fused_tower=False / TextConfig(attn_impl=
+    "flash") bundle (K13 and K15 from a program). Returns the launches of one
+    program run of each bundle, summed."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from radzero_torch.eval.export import export_zero_shot
+    from radzero_torch.eval.serving import ImageSpec, serving_params
+    from radzero_torch.models.configuration import RadZeroConfig, TextConfig
+    from radzero_torch.models.radzero import compute_logits
+    from radzero_torch.ops.layers import normalize_pixels
+
+    prompts = [f"There is {c}" for c in CHEXPERT]
+    rng = np.random.default_rng(seed + 7)
+    images = rng.integers(0, 256, (16, 518, 518, 1), dtype=np.uint8)
+    spec = ImageSpec()
+    total = None
+    bundles = (("default bundle (fused_tower=True)", RadZeroConfig(), True, True),
+               ('flash bundle (fused_tower=False, TextConfig(attn_impl="flash"))',
+                RadZeroConfig(text=TextConfig(attn_impl="flash")), False, False))
+    for label, cfg, fused, serve in bundles:
+        from radzero_torch.data.tokenizer import WhitespaceHashTokenizer
+
+        tok = WhitespaceHashTokenizer(vocab_size=cfg.text.vocab_size, max_length=64)
+        ids, mask = (torch.as_tensor(a, dtype=torch.long) for a in tok(prompts))
+        print(f"export: {label}, depth {cfg.vision.num_hidden_layers} tower + "
+              f"{cfg.align.num_hidden_layers} align + {cfg.text.num_hidden_layers} text layers, "
+              "8 x 14 prompts x 64 tokens, from_uint8, channels=1, bf16")
+        with tempfile.TemporaryDirectory() as tmp:
+            bundle, io_dir = os.path.join(tmp, "bundle"), tmp
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            export_zero_shot(params, cfg, bundle, batch_size=8, n_prompts=N, max_tokens=64,
+                             dtype=torch.bfloat16, from_uint8=True, channels=1,
+                             fused_tower=fused, device="cuda")
+            export_s = time.perf_counter() - t0
+            nbytes = sum(os.path.getsize(os.path.join(bundle, f)) for f in os.listdir(bundle))
+            torch.save({"pixels": torch.from_numpy(images[:8]), "ids": ids, "mask": mask,
+                        "images": torch.from_numpy(images)}, os.path.join(io_dir, "inputs.pt"))
+            t_start = time.time()
+            proc = subprocess.run(
+                [sys.executable, "-c", COLD_START, repr(t_start), bundle, io_dir,
+                 "1" if serve else "0", str(REPO), json.dumps(prompts)],
+                capture_output=True, text=True, timeout=300, cwd=str(REPO))
+            lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("COLD_START ")]
+            if proc.returncode != 0 or not lines:
+                fail(f"export {label}: the fresh process failed ({proc.returncode}):\n"
+                     f"{proc.stderr[-3000:]}")
+            child = json.loads(lines[-1][len("COLD_START "):])
+            program = torch.load(os.path.join(io_dir, "program.pt"))
+
+        # the eager call on the same inputs and weights, in this process
+        p = serving_params(params, cfg, torch.bfloat16, torch.device("cuda"), 518)
+        pv8 = torch.from_numpy(images[:8]).cuda()
+        dids, dmask = ids.cuda(), mask.cuda()
+
+        def eager():
+            with torch.inference_mode():
+                pv = normalize_pixels(pv8.expand(8, 518, 518, 3), spec.mean, spec.std,
+                                      dtype=torch.bfloat16)
+                return compute_logits(p, cfg, pv, dids, dmask, dtype=torch.bfloat16,
+                                      fused_towers=fused)
+
+        reset_counters()
+        ref = eager()
+        eager_launches = read_counters()
+        host_ms, wall_ms = [], []
+        for _ in range(10):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eager()
+            host_ms.append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+            wall_ms.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            eager()
+            torch.cuda.synchronize()
+        eager_kernels = {e.key: e.count for e in prof.key_averages()
+                         if e.device_type == DeviceType.CUDA}
+        eager_dev = sorted(((e.key[:60], e.self_device_time_total / 1e3)
+                            for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
+                           key=lambda t: -t[1])
+        print(f"  device ms of one run (torch.profiler): program {child['device_total_ms']:.2f} "
+              f"{[(k, round(t, 2)) for k, t in child['device_ms']]}; eager "
+              f"{sum(t for _, t in eager_dev):.2f} {[(k, round(t, 2)) for k, t in eager_dev[:8]]}")
+        del p
+        same = (torch.equal(program["logits"], ref["logits"].cpu())
+                and torch.equal(program["scores"], ref["similarity_scores"].cpu()))
+        err = (program["logits"].float() - ref["logits"].float().cpu()).abs().max().item()
+        print(f"  export {export_s:.2f} s, bundle {nbytes / 2**20:.1f} MiB; fresh process: "
+              f"load_zero_shot {child['load_s']:.2f} s, cold start to first answer "
+              f"{child['cold_start_s']:.2f} s (process start, imports, load, kernels' library, "
+              f"first run); logits and maps against compute_logits bf16: "
+              f"{'bit-equal' if same else f'DIFFER (logits max_abs_err {err:.3e})'}")
+        if not same:
+            fail(f"export {label}: the loaded program is not bit-equal to compute_logits")
+        print(f"  launches of one program run {child['launches']}; registry op calls "
+              f"{child['calls']}")
+        if child["launches"] != eager_launches:
+            fail(f"export {label}: launches {child['launches']}, eager {eager_launches}")
+        if any(child["calls"][k] != v for k, v in eager_launches.items() if k in child["calls"]):
+            fail(f"export {label}: op calls {child['calls']} against launches {eager_launches}")
+        if not child["kernels"] or not eager_kernels:
+            fail(f"export {label}: torch.profiler recorded no device kernel")
+        program_kernels_check(label.split(" (")[0], child["kernels"], eager_kernels)
+        print(f"  the program's host ms a run, 10 runs: {[round(t, 1) for t in child['host_all_ms']]}; "
+              f"its ops by self CPU ms (torch.profiler): "
+              f"{[(k[:40], round(t, 2), c) for k, t, c in child['top_cpu']]}")
+        print(f"  one run of 8 x 14, median of 10: the host enqueues the program in "
+              f"{child['host_ms']:.2f} ms (wall {child['wall_ms']:.2f} ms), compute_logits in "
+              f"{sorted(host_ms)[5]:.2f} ms (wall {sorted(wall_ms)[5]:.2f} ms) on {card}")
+        if serve:
+            live_probs, live_s = live_probs_fn(images)
+            cold = np.asarray(child["probs"], np.float32)
+            if child["batches"] != [8, 8] or not np.array_equal(cold, live_probs):
+                fail(f"export: from_bundle probs (batches {child['batches']}) differ from the "
+                     f"live engine's: max_abs_err {np.abs(cold - live_probs).max():.3e}")
+            b_s, l_s = sorted(child["burst_s"])[3], sorted(live_s)[3]
+            print(f"  ServingEngine.from_bundle: 16 requests in batches [8, 8] with the live "
+                  f"engine's probabilities, bit for bit; warm {16 / b_s:.2f} requests/s against "
+                  f"the live engine's {16 / l_s:.2f} (median of 6 bursts of 16 518 x 518 grey "
+                  f"arrays each) on {card}")
+        total = child["launches"] if total is None else {
+            k: v + child["launches"][k] for k, v in total.items()}
+    return total
+
+
+def live_engine_probs(params, images):
+    """The live engine's answers to ``images`` at the bundle's settings (max_batch 8,
+    channels=1, bf16) and the seconds of 6 bursts of them."""
+    import numpy as np
+    from radzero_torch.data.tokenizer import WhitespaceHashTokenizer
+    from radzero_torch.eval.serving import ServingEngine
+    from radzero_torch.models.configuration import RadZeroConfig
+
+    cfg = RadZeroConfig()
+    tok = WhitespaceHashTokenizer(vocab_size=cfg.text.vocab_size, max_length=64)
+    with ServingEngine(params, cfg, tok, device="cuda", max_batch=8, channels=1,
+                       max_delay_ms=2000.0, host_backend="pil") as eng:
+        eng.register_prompt_set("chexpert", [f"There is {c}" for c in CHEXPERT])
+        eng.warmup()
+        eng.batch_sizes.clear()
+        seconds, probs = [], None
+        for _ in range(6):
+            t0 = time.perf_counter()
+            res = [f.result(timeout=600) for f in
+                   [eng.submit(im, "chexpert") for im in images]]
+            seconds.append(time.perf_counter() - t0)
+            probs = probs if probs is not None else np.stack([r["probs"] for r in res])
+        if eng.batch_sizes[:2] != [8, 8]:
+            fail(f"export: the live engine ran batches {eng.batch_sizes[:2]}, not [8, 8]")
+    return probs, seconds
+
+
 def phase_scorer(seed, card, params):
     """The attn_impl="flash" serving path through ZeroShotScorer and
     model_inference; returns the launches of the bf16 scoring run."""
@@ -1483,6 +1981,7 @@ def phase_scorer(seed, card, params):
     med = sorted(runs)[1]
     print(f"  scorer: {16 / med:.2f} images/s, median {med:.4f} s of 3 runs of 16 images "
           f"({[round(r, 4) for r in runs]} s; bf16, batch 8, host resize on 8 threads) on {card}")
+    scorer_host_stages(scorer, proc, images, prompts, med / 2, device_ms[0], card)
     del scorer
 
     # fp32 (the scorer turns TF32 off itself) against the eager path, the repo's gate
@@ -1520,6 +2019,71 @@ def phase_scorer(seed, card, params):
     if close > 1e-4:
         fail("model_inference disagrees with the scorer on the same image")
     return launches
+
+
+def scorer_host_stages(scorer, proc, images, prompts, batch_s, card_ms, card):
+    """The host stages of one scorer batch of 8, each alone: the resize and
+    normalise of an image on one thread (PIL, and use_native=True where the
+    native library is built), the same for the batch on the scorer's 8
+    threads, the pinned upload of its pixels, the readback of its logits and
+    maps; beside the card's ms for the batch and the scorer's wall time a
+    batch (``batch_s``). The scorer's images are decoded arrays: it decodes
+    nothing (the server phase times the JPEG decode)."""
+    import concurrent.futures as cf
+
+    import numpy as np
+    import torch
+    from radzero_torch.data import native
+    from radzero_torch.data.processing import BlipStyleImageProcessor
+
+    def per_image_ms(p):
+        p(images[0])
+        t0 = time.perf_counter()
+        for im in images:
+            p(im)
+        return (time.perf_counter() - t0) / len(images) * 1e3
+
+    def median_s(fn, reps=10):
+        fn()
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        return sorted(times)[reps // 2]
+
+    pil_ms = per_image_ms(proc)
+    if native.available():
+        fast = BlipStyleImageProcessor(size=proc.size, use_native=True)
+        nat = f"use_native=True {per_image_ms(fast):.2f} ms an image"
+    else:
+        nat = "use_native=True not measured: the native library is not built on this host"
+    with cf.ThreadPoolExecutor(scorer.num_threads) as pool:
+        resize_s = median_s(lambda: np.stack(list(pool.map(
+            lambda im: proc(im)["pixel_values"][0], images[:8]))), reps=5)
+    pixels = np.stack([proc(im)["pixel_values"][0] for im in images[:8]])
+    upload_s = median_s(lambda: scorer._upload(pixels))
+    ids, mask = scorer.encode_prompts(prompts)
+    with torch.inference_mode():
+        out = scorer._run(pixels, ids, mask, True)[0]
+    dev = [torch.empty(t.shape, device="cuda") for t in out]
+    host = [torch.empty(t.shape, pin_memory=True) for t in out]
+
+    def readback():
+        for h, t in zip(host, dev):
+            h.copy_(t, non_blocking=True)
+
+    read_s = median_s(readback)
+    stages = resize_s * 1e3 + upload_s * 1e3 + card_ms + read_s * 1e3
+    print(f"  scorer host stages, one batch of 8 (fp32 pixels, 14 prompts, maps) on {card}: "
+          f"resize + normalise an image on one thread: PIL {pil_ms:.2f} ms, {nat}; the batch "
+          f"on {scorer.num_threads} threads {resize_s * 1e3:.2f} ms; pinned upload of "
+          f"{pixels.nbytes / 2**20:.1f} MiB {upload_s * 1e3:.2f} ms; the card "
+          f"{card_ms:.2f} ms; readback of {sum(h.numel() * 4 for h in host) / 2**10:.0f} KiB "
+          f"{read_s * 1e3:.3f} ms; sum {stages:.2f} ms against {batch_s * 1e3:.2f} ms a batch "
+          f"of the scorer's run (host share {100 * (1 - card_ms / (batch_s * 1e3)):.1f}%)")
 
 
 def _counters():
@@ -1822,6 +2386,8 @@ def main() -> int:
 
     rows = phase_kernels(args.seed)
     serving, params = phase_slice(args.seed, card)
+    server = phase_server(args.seed, card, params)
+    exported = phase_export(args.seed, card, params, lambda imgs: live_engine_probs(params, imgs))
     scoring = phase_scorer(args.seed, card, params)
     training, flash_step = phase_training(args.seed, card, params, args.profile)
 
@@ -1859,13 +2425,18 @@ def main() -> int:
         "K16": ("flash_attention_bias_bwd", "radzero_torch/ops/csrc/flash_bias_small.cu",
                 "radzero_tpu/ops/flash_attention.py:470"),
     }
-    # launches: the serving burst's count, the scorer run's, one default training
-    # step's and one flash training step's; each path was driven with every count
-    # at 0 and read right after
+    # launches: the serving burst's count, the HTTP burst's, one run of each exported
+    # program, the scorer run's, one default training step's and one flash training
+    # step's; each path was driven with every count at 0 and read right after
+    from radzero_torch.ops import registry
+
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": serving[name] + scoring[name] + training[name] + flash_step[name],
-         "launches_serving": serving[name], "launches_scorer": scoring[name],
+         "registered_op": f"radzero::{name}" if name in registry.calls else None,
+         "launches": serving[name] + server[name] + exported[name] + scoring[name]
+         + training[name] + flash_step[name],
+         "launches_serving": serving[name], "launches_server": server[name],
+         "launches_export": exported[name], "launches_scorer": scoring[name],
          "launches_training_step": training[name],
          "launches_flash_training_step": flash_step[name], **rows[k]}
         for k, (name, src, rep) in meta.items()

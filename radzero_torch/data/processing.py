@@ -1,7 +1,8 @@
 """Host-side image processors (decode -> resize -> normalize): the port's
-copy of radzero_tpu/data/processing.py (numpy + PIL), so that scoring
-imports nothing of the JAX package. The fused C++ resize (``use_native``)
-is not carried over; the registry decorator is a local dict.
+copy of radzero_tpu/data/processing.py (numpy + PIL, and the fused C++
+resize of :mod:`radzero_torch.data.native` under ``use_native``), so that
+scoring imports nothing of the JAX package; the registry decorator is a
+local dict.
 
 Rebuilds the reference's processor zoo (exp/cxr_pt/model/processing.py)
 without HF processor classes, keeping bit-level semantics where the
@@ -58,21 +59,42 @@ def _normalize(arr: np.ndarray, mean: Sequence[float], std: Sequence[float]) -> 
 
 @dataclass
 class BlipStyleImageProcessor:
-    """Bicubic resize to (size, size) + rescale + normalize (NHWC out),
-    on host PIL: the reference-parity eval path."""
+    """Bicubic resize to (size, size) + rescale + normalize (NHWC out).
+
+    ``use_native=True`` routes through the fused C++ resize+normalise
+    (native/preproc.cpp, :mod:`radzero_torch.data.native`) — torch-bicubic
+    resize semantics instead of PIL's antialiased filter, so it is the
+    high-throughput training path; the PIL default is the reference-parity
+    eval path (SURVEY.md §7 hard part #1). Where the library cannot be
+    built, ``use_native`` keeps PIL, as the JAX processor does.
+    """
 
     size: int = 518
     mean: Sequence[float] = CLIP_MEAN
     std: Sequence[float] = CLIP_STD
     geometry: str = "resize"  # inverse: plain bilinear back to (H, W)
+    use_native: bool = False
 
     def __call__(self, images: Union[ImageLike, List[ImageLike]]) -> dict:
         if not isinstance(images, list):
             images = [images]
+        native_mod = None
+        if self.use_native:
+            from radzero_torch.data import native as native_mod_  # lazy
+
+            native_mod = native_mod_ if native_mod_.available() else None
         out = []
         for im in images:
-            im = _to_pil_rgb(im).resize((self.size, self.size), Image.Resampling.BICUBIC)
-            out.append(_normalize(np.asarray(im), self.mean, self.std))
+            im = _to_pil_rgb(im)
+            if native_mod is not None:
+                out.append(
+                    native_mod.resize_normalize(
+                        np.asarray(im), self.size, self.size, self.mean, self.std
+                    )
+                )
+            else:
+                im = im.resize((self.size, self.size), Image.Resampling.BICUBIC)
+                out.append(_normalize(np.asarray(im), self.mean, self.std))
         return {"pixel_values": np.stack(out)}
 
     def resize_u8(self, image: ImageLike) -> np.ndarray:

@@ -15,9 +15,16 @@ own size, and no upload or readback blocks the dispatch thread: pixels
 go up from pinned memory, results come back into pinned buffers behind
 each batch's own kernels, and a resolve waits on that batch's event. A
 request that already is a (size, size[, C]) uint8 array needs no host
-decoder; PIL is imported only for JPEG bytes or an image of another
-size, and resizes as the JAX engine's Blip-style processor does
-(bicubic). The native C++ decoder is not wired in yet.
+decoder. JPEG bytes are decoded and resized by the native C++ library
+(libjpeg, fused decode -> resize; native/preproc.cpp through
+:mod:`radzero_torch.data.native`) where it is built, as the JAX engine
+does; otherwise, and for an array of another size, PIL is imported and
+resizes as the JAX engine's Blip-style processor does (bicubic).
+
+:meth:`ServingEngine.from_bundle` cold-starts from an exported program
+(eval/export.py) instead of live parameters: an exported program has one
+shape, so a short batch is padded to the bundle's batch there and cut
+after readback.
 
 Each :meth:`ServingEngine.submit` returns a Future resolving to
 ``{"probs": (N,), "similarity_maps": (N, g, g) | (N, H, W) | None}``.
@@ -77,11 +84,48 @@ def cast_params(tree, dtype, device):
     return tree.to(device)
 
 
+def serving_params(params: dict, cfg: RadZeroConfig, dtype, device, size: int) -> dict:
+    """``params`` cast to ``dtype`` on ``device``, with the position
+    embeddings resampled to the grid of ``size`` px once (the same fp32
+    bicubic on the cast weights that every forward would run; the tower
+    passes an embedding already at its grid through). The engine and an
+    exported program (eval/export.py) hold the same tree."""
+    params = cast_params(params, dtype, device)
+    vm = params["vision_model"]
+    grid = size // cfg.vision.patch_size
+    vm["pos_embed"] = interpolate_pos_embed(vm["pos_embed"], (grid, grid))
+    return params
+
+
 class ServingEngine:
+    @classmethod
+    def from_bundle(cls, bundle_dir: str, tokenizer, **kw):
+        """Cold-start from an AOT bundle (eval/export.py): no model code is
+        traced, the saved program runs its graph (the kernels are built at
+        first use as always). The bundle pins max_batch, channels, dtype,
+        the device and the image statistics; a short batch is padded to the
+        bundle's batch."""
+        from radzero_torch.eval.export import load_zero_shot
+
+        runner, meta = load_zero_shot(bundle_dir, device=kw.get("device"))
+        kw.setdefault("device", meta["device"])
+        kw.setdefault("max_batch", meta["batch_size"])
+        kw.setdefault("channels", meta["channels"])
+        if kw["max_batch"] != meta["batch_size"]:
+            raise ValueError(
+                f"bundle was exported at batch {meta['batch_size']}, "
+                f"got max_batch={kw['max_batch']}"
+            )
+        kw["dtype"] = getattr(torch, meta["dtype"])
+        kw.setdefault("image_spec", ImageSpec(size=meta["img_size"], mean=tuple(meta["image_mean"]),
+                                              std=tuple(meta["image_std"])))
+        kw["aot_runner"] = (runner, meta)
+        return cls(None, None, tokenizer, **kw)
+
     def __init__(
         self,
-        params: dict,
-        cfg: RadZeroConfig,
+        params: Optional[dict],
+        cfg: Optional[RadZeroConfig],
         tokenizer,
         *,
         device="cuda",
@@ -91,12 +135,36 @@ class ServingEngine:
         preprocess_threads: int = 8,
         channels: int = 3,
         image_spec: Optional[ImageSpec] = None,
+        host_backend: str = "auto",   # "auto" | "native" | "pil"
+        fast_scale: bool = False,
+        aot_runner=None,
     ):
         """``params``: the port's parameter dict (``init_radzero`` or
         ``params_from_jax``), cast once to ``dtype`` on ``device``.
-        ``tokenizer``: texts -> (ids, mask) int arrays."""
+        ``tokenizer``: texts -> (ids, mask) int arrays.
+        ``host_backend``: "native" decodes/resizes JPEG bytes in C++
+        (torch-bicubic resize semantics — the throughput path) and raises
+        when the library cannot be built; "pil" keeps PIL end to end
+        (reference bit-parity); "auto" uses native when the library is
+        built.
+        ``channels=1``: grayscale upload for single-channel sources
+        (CXRs) — 3x fewer host->device bytes; the luma plane is
+        broadcast to RGB on device before normalisation. Exact for
+        grayscale JPEGs (the Y plane IS the pixel data).
+        ``fast_scale``: opt-in libjpeg DCT-domain scaled decode (1/2..1/8)
+        for JPEG-bytes requests whose source is much larger than the
+        model size — cuts host decode cost up to ~8x but box-filters the
+        downscale, so maps/pointing shift slightly; suitable for
+        classification-style serving, keep OFF when similarity maps are
+        consumed (same trade as the training loader's default-on flag,
+        data/native.py:native_jpeg_loader). Native path only.
+        ``aot_runner``: ``(runner, meta)`` of :func:`radzero_torch.eval.
+        export.load_zero_shot`, in place of ``params`` and ``cfg`` (use
+        :meth:`from_bundle`); every batch is padded to the bundle's."""
         if channels not in (1, 3):
             raise ValueError("channels must be 1 or 3")
+        if host_backend not in ("auto", "native", "pil"):
+            raise ValueError(f"host_backend must be auto|native|pil, got {host_backend!r}")
         self.device = torch.device(device)
         self.cfg = cfg
         self.tokenizer = tokenizer
@@ -104,14 +172,25 @@ class ServingEngine:
         self.max_delay = max_delay_ms / 1e3
         self.dtype = dtype
         self.channels = channels
-        self.image_spec = image_spec or ImageSpec(size=cfg.vision.img_size)
-        self.params = cast_params(params, dtype, self.device)
-        # resample the position embeddings to the serving grid once (the
-        # same fp32 bicubic on the cast weights that every forward would
-        # run; the tower passes an embedding already at its grid through)
-        vm = self.params["vision_model"]
-        grid = self.image_spec.size // cfg.vision.patch_size
-        vm["pos_embed"] = interpolate_pos_embed(vm["pos_embed"], (grid, grid))
+        self.fast_scale = bool(fast_scale)
+        self._native = None
+        if host_backend in ("auto", "native"):
+            from radzero_torch.data import native
+
+            if native.available():
+                self._native = native
+            elif host_backend == "native":
+                raise RuntimeError("native preprocessing library unavailable: "
+                                   f"{native.build_log.strip()[-400:]}")
+        self.host_backend = "native" if self._native is not None else "pil"
+        self._aot = aot_runner
+        if aot_runner is not None:
+            meta = aot_runner[1]
+            self.image_spec = image_spec or ImageSpec(size=meta["img_size"])
+            self.params = None
+        else:
+            self.image_spec = image_spec or ImageSpec(size=cfg.vision.img_size)
+            self.params = serving_params(params, cfg, dtype, self.device, self.image_spec.size)
         self._prompt_sets: Dict[str, Tuple[torch.Tensor, torch.Tensor]] = {}
         self.batch_sizes: List[int] = []  # size of every dispatched batch, in order
         self._queue: "queue.Queue[_Request]" = queue.Queue()
@@ -132,6 +211,13 @@ class ServingEngine:
 
     # ------------------------------------------------------------------
     def _fn(self, pixel_values: torch.Tensor, input_ids, attention_mask):
+        if self._aot is not None:
+            runner, meta = self._aot
+            if not meta["from_uint8"]:
+                pixel_values = normalize_pixels(
+                    pixel_values.expand(*pixel_values.shape[:-1], 3), self.image_spec.mean,
+                    self.image_spec.std, dtype=self.dtype)
+            return runner(pixel_values, input_ids, attention_mask)
         if pixel_values.shape[-1] == 1:
             pixel_values = pixel_values.expand(*pixel_values.shape[:-1], 3)
         pixel_values = normalize_pixels(
@@ -143,6 +229,12 @@ class ServingEngine:
 
     def register_prompt_set(self, name: str, prompts: List[str]) -> None:
         ids, mask = self.tokenizer(prompts)
+        if self._aot is not None:
+            meta = self._aot[1]
+            want = (meta["n_prompts"], meta["max_tokens"])
+            if np.shape(ids) != want:
+                raise ValueError(f"bundle was exported for {want} prompt ids, the prompt set "
+                                 f"{name!r} gives {np.shape(ids)}")
         self._prompt_sets[name] = (
             torch.as_tensor(np.asarray(ids), dtype=torch.long, device=self.device),
             torch.as_tensor(np.asarray(mask), dtype=torch.long, device=self.device),
@@ -289,6 +381,13 @@ class ServingEngine:
             if img.shape[2] == 1:
                 return np.repeat(img, 3, axis=2)
             # RGB -> grey needs PIL's luma conversion: fall through
+        if isinstance(img, (bytes, bytearray)) and self._native is not None:
+            data = bytes(img)
+            if req.origin_hw is None and req.want_maps == "full":
+                req.origin_hw = self._native.jpeg_dims(data)  # header only
+            decode = (self._native.decode_resize_gray_u8 if self.channels == 1
+                      else self._native.decode_resize_u8)
+            return decode(data, size, size, fast_scale=self.fast_scale)
         return self._pil_resize_u8(req)
 
     def _pil_resize_u8(self, req: _Request) -> np.ndarray:
@@ -311,6 +410,11 @@ class ServingEngine:
         """Upload, launch and queue the readback; -> (logits, scores, ready
         event or None), host tensors that are valid once ``ready`` is."""
         ids, mask = self._prompt_sets[prompt_set]
+        n = len(imgs)
+        if self._aot is not None and n < self.max_batch:
+            # an exported program has one shape: pad with the last image;
+            # _resolve reads only the first n rows
+            imgs = np.concatenate([imgs, np.repeat(imgs[-1:], self.max_batch - n, axis=0)])
         pv = torch.from_numpy(imgs)
         if self.device.type == "cuda":
             # pinned + non_blocking: a pageable upload would wait for the

@@ -70,12 +70,23 @@ def relative_position_bucket_table(
     return ret.astype(np.int32)
 
 
-@functools.lru_cache(maxsize=64)
-def _bucket_ids(seq_len: int, num_buckets: int, device: torch.device) -> torch.Tensor:
+_BUCKET_IDS: dict = {}
+
+
+def bucket_ids(seq_len: int, num_buckets: int, device: torch.device) -> torch.Tensor:
     """The bucket table as int64 on ``device``, uploaded once: a fresh
-    upload per forward would be a blocking copy that waits for the stream."""
-    table = relative_position_bucket_table(seq_len, num_buckets)
-    return torch.from_numpy(table).long().to(device)
+    upload per forward would be a blocking copy that waits for the stream.
+    While torch.export traces (with fake tensors) a table not uploaded yet
+    is made for the trace alone and not kept; an uploaded one enters the
+    program as a constant on ``device`` (eval/export.py uploads it first)."""
+    key = (seq_len, num_buckets, torch.device(device))
+    ids = _BUCKET_IDS.get(key)
+    if ids is None:
+        table = relative_position_bucket_table(seq_len, num_buckets)
+        ids = torch.from_numpy(table).long().to(device)
+        if not torch.compiler.is_exporting():
+            _BUCKET_IDS[key] = ids
+    return ids
 
 
 def _init_linear(g, d_in, d_out, std=0.02):
@@ -152,8 +163,8 @@ def mpnet_forward(params: dict, cfg: TextConfig, input_ids, attention_mask, *,
     x = emb["word"][input_ids] + emb["position"][pos_ids]
     x = layer_norm(x.to(dtype), emb["ln"], cfg.layer_norm_eps)
 
-    buckets = _bucket_ids(input_ids.shape[1], cfg.relative_attention_num_buckets,
-                          input_ids.device)
+    buckets = bucket_ids(input_ids.shape[1], cfg.relative_attention_num_buckets,
+                         input_ids.device)
     rel = params["rel_bias"].float()[buckets].permute(2, 0, 1)  # (H, L, L)
     if dtype != torch.float32:
         rel = rel.to(dtype).float()

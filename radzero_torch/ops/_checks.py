@@ -66,3 +66,16 @@ def check_operands(name: str, x: torch.Tensor, **named) -> int:
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name}: {arg} must be contiguous and 16-byte aligned")
     return DTYPE_CODES[x.dtype]
+
+
+def exported(name: str):
+    """The registered op ``name`` of :mod:`radzero_torch.ops.registry` while
+    ``torch.export`` traces, else None. A kernel wrapper asks this first:
+    under export it hands its operands to the op, which the trace keeps as
+    one node (the wrappers pass storage pointers to ctypes, which a fake
+    tensor has not); called eagerly it runs on, without the dispatcher."""
+    if not torch.compiler.is_exporting():
+        return None
+    from radzero_torch.ops import registry  # imports the wrappers' modules
+
+    return getattr(registry, name)

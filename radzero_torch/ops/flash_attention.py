@@ -49,7 +49,9 @@ from typing import Optional
 import torch
 
 from radzero_torch.ops import _build
-from radzero_torch.ops._checks import DTYPE_CODES, forbid_grad, needed, on_cuda, tracked
+from radzero_torch.ops._checks import (
+    DTYPE_CODES, exported, forbid_grad, needed, on_cuda, tracked,
+)
 
 _LOG2E = 1.4426950408889634
 _SPLIT_BLOCKS = 4 * 132  # blocks K15 / K16 aim at when they split the batch into chunks
@@ -233,6 +235,8 @@ def flash_attention(q, k, v, scale: Optional[float] = None, stable: Optional[boo
     caller padded the sequence (keys beyond it are masked, every query row
     is computed); ``stable`` is ignored, the row maximum is always
     subtracted. Differentiable: the backward is :func:`flash_attention_bwd`."""
+    if (op := exported("flash_attention")) is not None:
+        return op(q, k, v, scale, kv_len)
     if tracked(q, k, v):
         return _FlashAttention.apply(q, k, v, scale, kv_len)
     return _flash_attention_fwd(q, k, v, scale, kv_len)
@@ -338,6 +342,8 @@ def flash_attention_bias(q, k, v, bias, neg_mask, scale: Optional[float] = None,
     gradient. Padded query rows of a real sentence are computed, not
     skipped. Differentiable: the backward is
     :func:`flash_attention_bias_bwd`."""
+    if (op := exported("flash_attention_bias")) is not None:
+        return op(q, k, v, bias, neg_mask, scale, kv_len)
     if tracked(q, k, v, bias):
         return _FlashAttentionBias.apply(q, k, v, bias, neg_mask, scale, kv_len)
     return _flash_attention_bias_fwd(q, k, v, bias, neg_mask, scale, kv_len)

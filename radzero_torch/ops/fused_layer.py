@@ -61,7 +61,9 @@ from __future__ import annotations
 import torch
 
 from radzero_torch.ops import _build
-from radzero_torch.ops._checks import check_operands, forbid_grad, needed, on_cuda, tracked
+from radzero_torch.ops._checks import (
+    check_operands, exported, forbid_grad, needed, on_cuda, tracked,
+)
 from radzero_torch.ops.flash_attention import (
     flash_attention_bwd_plain, flash_attention_bwd_stats_plain, flash_attention_lse_plain,
     flash_attention_plain, hopper, stats_operands,
@@ -140,6 +142,8 @@ def fused_preattn(x, ln_scale, ln_bias, w_qkv, b_qkv, *, eps=1e-6):
     one count: in bf16 two launches (the LN row pass, the product on
     gemm_sm90_kernel), in fp32 one (LN as the product's prologue).
     Differentiable: the backward is :func:`fused_preattn_bwd` (K6)."""
+    if (op := exported("fused_preattn")) is not None:
+        return op(x, ln_scale, ln_bias, w_qkv, b_qkv, eps)
     if tracked(x, ln_scale, ln_bias, w_qkv, b_qkv):
         return _FusedPreattn.apply(x, ln_scale, ln_bias, w_qkv, b_qkv, eps)
     return _fused_preattn_fwd(x, ln_scale, ln_bias, w_qkv, b_qkv, eps=eps)
@@ -200,6 +204,8 @@ def flash_attention_packed(qkv, n_heads: int):
     scale head_dim ** -0.5. No lane padding: the kernel masks keys >= L
     in its last tile itself. Differentiable: the backward is
     :func:`flash_attention_packed_bwd` (K7)."""
+    if (op := exported("flash_attention_packed")) is not None:
+        return op(qkv, n_heads)
     if tracked(qkv):
         return _FlashAttentionPacked.apply(qkv, n_heads)
     return _flash_attention_packed_fwd(qkv, n_heads)
@@ -266,6 +272,8 @@ def fused_postattn(x, attn_out, wo, bo, ls1, ln_scale, ln_bias,
     the products on gemm_sm90_kernel), in fp32 three (LN2 as fc1's prologue).
     Differentiable: the backward is :func:`fused_postattn_bwd` (K8)."""
     ops = (x, attn_out, wo, bo, ls1, ln_scale, ln_bias, w1, b1, w2, b2, ls2)
+    if (op := exported("fused_postattn")) is not None:
+        return op(*ops, eps)
     if tracked(*ops):
         return _FusedPostattn.apply(*ops, eps)
     return _fused_postattn_fwd(*ops, eps=eps)
@@ -332,6 +340,8 @@ def fused_mpnet_post(x, attn_out, wo, bo, lnsa, lnba, w1, b1, w2, b2,
     not be a multiple of any tile. Differentiable: the backward is
     :func:`fused_mpnet_post_bwd` (K9)."""
     ops = (x, attn_out, wo, bo, lnsa, lnba, w1, b1, w2, b2, lnso, lnbo)
+    if (op := exported("fused_mpnet_post")) is not None:
+        return op(*ops, eps)
     if tracked(*ops):
         return _FusedMpnetPost.apply(*ops, eps)
     return _fused_mpnet_post_fwd(*ops, eps=eps)

@@ -72,7 +72,7 @@ from __future__ import annotations
 import torch
 
 from radzero_torch.ops import _build
-from radzero_torch.ops._checks import check_operands, forbid_grad, on_cuda
+from radzero_torch.ops._checks import check_operands, exported, forbid_grad, on_cuda
 
 _LOG2E = 1.4426950408889634
 
@@ -101,6 +101,8 @@ def vlcabs_fused(queries_normed, tokens, tau):
     """(N, D) l2-normalised queries, (B, L, D) tokens, scalar fp32 tau ->
     (logits (N, B) fp32, scores (B, N, L) fp32). On the card bf16 runs
     :func:`vlcabs_forward_stages` (D % 8 == 0), fp32 one kernel (D <= 1024)."""
+    if (op := exported("vlcabs_fused")) is not None:
+        return op(queries_normed, tokens, tau)
     forbid_grad("vlcabs_fused (K5)", "use vlcabs_fused_train, whose backward runs K11 and K12",
                 queries_normed, tokens, tau)
     if not on_cuda(tokens):

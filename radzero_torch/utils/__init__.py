@@ -1,0 +1,1 @@
+"""Framework-free helpers the port keeps its own copies of."""

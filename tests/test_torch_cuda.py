@@ -1130,3 +1130,70 @@ def test_vlcabs_rejects_query_width_mismatch():
     q = torch.zeros((3, 64), device="cuda")
     with pytest.raises(ValueError, match="queries_normed"):
         vf.vlcabs_fused(q, torch.zeros((2, 5, 128), device="cuda"), torch.tensor(0.07, device="cuda"))
+
+
+@pytest.mark.parametrize("flash", [False, True])
+def test_exported_program_runs_the_kernels_by_name(flash, tmp_path):
+    """A bf16 program of radzero_torch.eval.export, loaded back, runs the
+    serving kernels by name (K1 / K3's row pass and gemm_sm90_kernel, K2's
+    fwd_sm90_kernel, K5's vlc_scores_sm90_kernel; with fused_tower=False and
+    TextConfig(attn_impl="flash") also K13 on fwd_sm90_kernel and K15 on
+    flash_bias_fwd_small_kernel), no upload from host memory and no softmax
+    beyond compute_logits', the eager call's launch counts, and the same bits."""
+    from radzero_torch.eval.export import export_zero_shot, load_zero_shot
+    from radzero_torch.eval.serving import ImageSpec, serving_params
+    from radzero_torch.models import configuration as tconf
+    from radzero_torch.models.radzero import compute_logits, init_radzero
+    from radzero_torch.ops import registry
+    from radzero_torch.ops.layers import normalize_pixels
+
+    d = 128
+    cfg = tconf.RadZeroConfig(
+        vision=tconf.ViTConfig(hidden_size=d, num_hidden_layers=1, num_attention_heads=2,
+                               mlp_ratio=2.0, patch_size=14, pretrain_img_size=56, img_size=56),
+        text=tconf.TextConfig(hidden_size=d, num_hidden_layers=1, num_attention_heads=2,
+                              intermediate_size=256, vocab_size=101, max_position_embeddings=40,
+                              attn_impl="flash" if flash else "xla"),
+        align=tconf.AlignConfig(hidden_size=d, num_hidden_layers=1, num_attention_heads=2,
+                                mlp_ratio=2.0),
+        loss=tconf.LossConfig(hidden_dim=d))
+    params = init_radzero(torch.Generator(device="cuda").manual_seed(0), cfg)
+    export_zero_shot(params, cfg, str(tmp_path), batch_size=2, n_prompts=3, max_tokens=8,
+                     dtype=torch.bfloat16, from_uint8=True, channels=1, fused_tower=not flash)
+    runner, _ = load_zero_shot(str(tmp_path))
+    g = torch.Generator(device="cuda").manual_seed(1)
+    pv = torch.randint(0, 256, (2, 56, 56, 1), generator=g, device="cuda", dtype=torch.uint8)
+    ids = torch.randint(3, 101, (3, 8), generator=g, device="cuda")
+    mask = torch.ones((3, 8), dtype=torch.long, device="cuda")
+    p = serving_params(params, cfg, torch.bfloat16, torch.device("cuda"), 56)
+
+    def eager():
+        with torch.inference_mode():
+            x = normalize_pixels(pv.expand(2, 56, 56, 3), ImageSpec().mean, ImageSpec().std,
+                                 dtype=torch.bfloat16)
+            return compute_logits(p, cfg, x, ids, mask, dtype=torch.bfloat16,
+                                  fused_towers=not flash)
+
+    counters = (fl.fused_preattn, fl.flash_attention_packed, fl.fused_postattn,
+                fl.fused_mpnet_post, vf.vlcabs_fused, fa.flash_attention, fa.flash_attention_bias)
+
+    def launches(fn):
+        before = [c.launches for c in counters]
+        out = fn()
+        return out, [c.launches - b for c, b in zip(counters, before)]
+
+    registry.reset_calls()
+    (logits, scores), program_n = launches(lambda: runner(pv, ids, mask))
+    ref, eager_n = launches(eager)
+    assert program_n == eager_n and sum(registry.calls.values()) == sum(eager_n)
+    assert torch.equal(logits, ref["logits"]) and torch.equal(scores, ref["similarity_scores"])
+    names = _device_kernels(lambda: runner(pv, ids, mask))
+    eager_names = _device_kernels(eager)
+    want = ["row_layernorm_kernel", "gemm_sm90_kernel<0, 0>", "fwd_sm90_kernel",
+            "vlc_scores_sm90_kernel"] + (["flash_bias_fwd_small_kernel"] if flash else [])
+    assert all(any(w in n for n in names) for w in want), names
+    # no upload from host memory on a call, and no twin's softmax in a kernel's place
+    # (other library kernels may differ: the graph lays out a few copies otherwise)
+    assert not any("Memcpy HtoD" in n for n in names), names
+    assert (sum("softmax" in n.lower() for n in names)
+            == sum("softmax" in n.lower() for n in eager_names)), names

@@ -21,12 +21,16 @@ GROUPS = {
                ("configuration", "from_jax", "vit", "align", "mpnet", "radzero")],
     "ops": ["radzero_torch.ops." + m for m in
             ("_build", "_checks", "layers", "resize", "fused_layer", "flash_attention", "vlcabs",
-             "vlcabs_fused", "ablate_sm90")],
+             "vlcabs_fused", "ablate_sm90", "registry")],
     "serving": ["radzero_torch.losses.radzero_loss", "radzero_torch.eval.geometry",
-                "radzero_torch.eval.serving", "radzero_torch.data.tokenizer"],
+                "radzero_torch.eval.serving", "radzero_torch.data.tokenizer",
+                "radzero_torch.eval.export", "radzero_torch.eval.server",
+                "radzero_torch.ops.registry", "radzero_torch.utils.logging",
+                "radzero_torch.utils.json_io", "radzero_torch.eval.time_serving"],
     "training": ["radzero_torch.train", "radzero_torch.train.optim", "radzero_torch.train.step",
                  "radzero_torch.losses.mpnce", "radzero_torch.losses.clip"],
-    "scoring": ["radzero_torch.data.processing", "radzero_torch.data.dicom",
+    "scoring": ["radzero_torch.data.processing", "radzero_torch.data.native",
+                "radzero_torch.data.dicom",
                 "radzero_torch.data.dicom_parse", "radzero_torch.eval.scorer",
                 "radzero_torch.eval.api"],
 }
