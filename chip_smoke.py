@@ -1681,14 +1681,9 @@ for _ in range(3):  # a session now and then records no device kernel
                         if e.device_type == DeviceType.CUDA), key=lambda t: -t[1])
     if kernels:
         break
-with profile(activities=[ProfilerActivity.CPU]) as prof:
-    runner(pv, ids, mask)
-    torch.cuda.synchronize()
-top_cpu = sorted(((e.key, e.self_cpu_time_total / 1e3, e.count) for e in prof.key_averages()),
-                 key=lambda t: -t[1])[:12]
 out = {"load_s": t_load, "cold_start_s": t_first, "launches": launches, "calls": calls,
        "kernels": kernels, "meta": meta, "host_ms": sorted(host_ms)[5],
-       "wall_ms": sorted(wall_ms)[5], "host_all_ms": host_ms, "top_cpu": top_cpu,
+       "wall_ms": sorted(wall_ms)[5], "host_all_ms": host_ms,
        "device_ms": device_ms[:8], "device_total_ms": sum(t for _, t in device_ms)}
 if serve:
     from radzero_torch.data.tokenizer import WhitespaceHashTokenizer
@@ -1862,9 +1857,8 @@ def phase_export(seed, card, params, live_probs_fn):
         if not child["kernels"] or not eager_kernels:
             fail(f"export {label}: torch.profiler recorded no device kernel")
         program_kernels_check(label.split(" (")[0], child["kernels"], eager_kernels)
-        print(f"  the program's host ms a run, 10 runs: {[round(t, 1) for t in child['host_all_ms']]}; "
-              f"its ops by self CPU ms (torch.profiler): "
-              f"{[(k[:40], round(t, 2), c) for k, t, c in child['top_cpu']]}")
+        print(f"  the program's host ms a run, 10 runs: "
+              f"{[round(t, 1) for t in child['host_all_ms']]}")
         print(f"  one run of 8 x 14, median of 10: the host enqueues the program in "
               f"{child['host_ms']:.2f} ms (wall {child['wall_ms']:.2f} ms), compute_logits in "
               f"{sorted(host_ms)[5]:.2f} ms (wall {sorted(wall_ms)[5]:.2f} ms) on {card}")
