@@ -204,7 +204,7 @@ def load_zero_shot(bundle_dir: str, device=None) -> Tuple[Callable, dict]:
 
     def runner(pixel_values, input_ids, attention_mask):
         # a loaded program's calls on the process's main thread took 110-350
-        # ms of host time a run at 8 x 14 on torch 2.11 + CUDA, on any other
+        # ms of host time a run at 8 x 14 (torch 2.11, one H100), on any other
         # thread 12-22 ms (eager compute_logits: ~10 ms on either; PERF.md):
         # called from the main thread, the program runs on a thread of its own
         if threading.current_thread() is threading.main_thread():
