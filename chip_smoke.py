@@ -97,8 +97,10 @@ Phases, in order; any failure exits non-zero:
    launch counters and the registered ops' calls as the eager call's;
    ServingEngine.from_bundle there answers 16 requests with the live
    engine's probabilities, bit for bit; export seconds, bundle bytes, cold
-   start to first answer, the host's ms a run beside compute_logits', warm
-   requests/s beside the live engine; then the same for the
+   start to first answer, the host's ms a run beside compute_logits', the
+   runner's host ms under 0-100 more frames of the caller's stack (none
+   above 3 x the median; the program as torch.export.load gives it printed
+   beside it), warm requests/s beside the live engine; then the same for the
    fused_tower=False / TextConfig(attn_impl="flash") bundle (K13 and K15 from
    a program; full depth, printed), without the engine;
 5. scoring through ZeroShotScorer(fused_tower=False) with
@@ -1670,6 +1672,39 @@ for _ in range(10):  # the host's ms to enqueue one run and its wall ms, before 
     host_ms.append((time.perf_counter() - t0) * 1e3)
     torch.cuda.synchronize()
     wall_ms.append((time.perf_counter() - t0) * 1e3)
+
+
+def at_depth(n, f):
+    """f() under n more frames of ~25 words each: 100 of them span CPython's
+    16 KiB data-stack chunk, so a sweep over 0-100 meets every place where a
+    frame can land in its chunk"""
+    a0 = a1 = a2 = a3 = a4 = a5 = a6 = a7 = a8 = a9 = n  # noqa: F841  the frame's size
+    return f() if n == 0 else at_depth(n - 1, f)
+
+
+def depth_ms(fn):
+    fn(pv, ids, mask)
+    ts = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(pv, ids, mask)
+        ts.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return sorted(ts)[2]
+
+
+depth = None
+if serve:  # the runner, and the program as torch.export.load gives it, by the caller's depth
+    as_loaded = torch.export.load(f"{bundle}/zero_shot.pt2").module()
+
+    def loaded(*a):
+        with torch.inference_mode():
+            return as_loaded(*a)
+
+    depth = {name: [at_depth(n, lambda: depth_ms(fn)) for n in range(101)]
+             for name, fn in (("runner", runner), ("as_loaded", loaded))}
+    del as_loaded
 kernels = {}
 for _ in range(3):  # a session now and then records no device kernel
     torch.cuda.synchronize()
@@ -1684,7 +1719,8 @@ for _ in range(3):  # a session now and then records no device kernel
 out = {"load_s": t_load, "cold_start_s": t_first, "launches": launches, "calls": calls,
        "kernels": kernels, "meta": meta, "host_ms": sorted(host_ms)[5],
        "wall_ms": sorted(wall_ms)[5], "host_all_ms": host_ms,
-       "device_ms": device_ms[:8], "device_total_ms": sum(t for _, t in device_ms)}
+       "device_ms": device_ms[:8], "device_total_ms": sum(t for _, t in device_ms),
+       "depth_ms": depth}
 if serve:
     from radzero_torch.data.tokenizer import WhitespaceHashTokenizer
     from radzero_torch.eval.serving import ServingEngine
@@ -1741,6 +1777,22 @@ def program_kernels_check(label, program, eager):
         if program.get(name, 0) != eager.get(name, 0):
             print(f"    other: program x{program.get(name, 0)}, eager x{eager.get(name, 0)}: "
                   f"{name[:140]}")
+
+
+def stack_depth_check(ms, card):
+    """The loaded program's host ms a run under 0-100 more frames of the
+    caller's stack: load_zero_shot's runner (its forward starts a data-stack
+    chunk of its own) must not depend on the depth; the program as
+    torch.export.load gives it is printed beside it."""
+    for name in ("runner", "as_loaded"):
+        t = sorted(ms[name])
+        slow = [n for n, v in enumerate(ms[name]) if v > 3 * t[50]]
+        print(f"  {name}: host ms a run by the caller's stack depth 0-100: min {t[0]:.2f}, "
+              f"median {t[50]:.2f}, max {t[-1]:.2f}; above 3 x the median at depths {slow} "
+              f"on {card}")
+        if name == "runner" and slow:
+            fail(f"export: the runner's host time depends on the caller's stack depth: "
+                 f"{[round(v, 1) for v in ms[name]]}")
 
 
 def phase_export(seed, card, params, live_probs_fn):
@@ -1859,6 +1911,8 @@ def phase_export(seed, card, params, live_probs_fn):
         program_kernels_check(label.split(" (")[0], child["kernels"], eager_kernels)
         print(f"  the program's host ms a run, 10 runs: "
               f"{[round(t, 1) for t in child['host_all_ms']]}")
+        if child["depth_ms"]:
+            stack_depth_check(child["depth_ms"], card)
         print(f"  one run of 8 x 14, median of 10: the host enqueues the program in "
               f"{child['host_ms']:.2f} ms (wall {child['wall_ms']:.2f} ms), compute_logits in "
               f"{sorted(host_ms)[5]:.2f} ms (wall {sorted(wall_ms)[5]:.2f} ms) on {card}")

@@ -30,10 +30,8 @@ True on every device; the buffers live on the exporting device, and
 
 from __future__ import annotations
 
-import concurrent.futures as cf
 import json
 import os
-import threading
 from typing import Callable, Optional, Tuple
 
 import torch
@@ -180,13 +178,30 @@ def export_zero_shot(
     return out_dir
 
 
+def own_stack_chunk(module: torch.nn.Module) -> torch.nn.Module:
+    """``module`` with its generated ``forward`` given a frame larger than
+    CPython's first data-stack chunk (16 KiB), so that every call of it
+    starts a chunk of its own.
+
+    CPython 3.11+ keeps Python frames in per-thread chunks and frees a chunk
+    as soon as its first frame returns. A program's forward is one frame of
+    ~1850 locals at full depth that makes ~1400 Python calls; where it lands
+    close to the end of a chunk, each of those calls maps a new chunk and
+    unmaps it on return, which took 110-350 ms of host time a run at 8 x 14
+    against 12-22 ms (one H100 host, torch 2.11; PERF.md), depending only on
+    how deep the caller's stack was. A frame that starts its own chunk has
+    1000 words or more after it for its calls. The extra depth of the value
+    stack is never used."""
+    fn = type(module).forward
+    fn.__code__ = fn.__code__.replace(co_stacksize=fn.__code__.co_stacksize + 2048)
+    return module
+
+
 def load_zero_shot(bundle_dir: str, device=None) -> Tuple[Callable, dict]:
     """-> (runner(pixel_values, input_ids, attention_mask) -> (logits,
     similarity_scores), bundle meta). ``device`` defaults to the exporting
-    one; another raises (the buffers and the traced devices are fixed).
-    Called from the main thread, the runner hands the run to a worker thread
-    of its own (see the comment there); from any other thread it runs the
-    program in place."""
+    one; another raises (the buffers and the traced devices are fixed). The
+    runner runs the program on the calling thread, on its current stream."""
     from radzero_torch.ops import registry  # noqa: F401  resolves the radzero:: ops
 
     with open(os.path.join(bundle_dir, META)) as f:
@@ -194,21 +209,10 @@ def load_zero_shot(bundle_dir: str, device=None) -> Tuple[Callable, dict]:
     want = torch.device(device if device is not None else meta["device"]).type
     if want != meta["device"]:
         raise ValueError(f"bundle was exported on {meta['device']}, asked to run on {want}")
-    module = torch.export.load(os.path.join(bundle_dir, PROGRAM)).module()
-
-    def run(pixel_values, input_ids, attention_mask):
-        with torch.inference_mode():
-            return module(pixel_values, input_ids, attention_mask)
-
-    worker = cf.ThreadPoolExecutor(1, thread_name_prefix="zero_shot")
+    module = own_stack_chunk(torch.export.load(os.path.join(bundle_dir, PROGRAM)).module())
 
     def runner(pixel_values, input_ids, attention_mask):
-        # a loaded program's calls on the process's main thread took 110-350
-        # ms of host time a run at 8 x 14 (torch 2.11, one H100), on any other
-        # thread 12-22 ms (eager compute_logits: ~10 ms on either; PERF.md):
-        # called from the main thread, the program runs on a thread of its own
-        if threading.current_thread() is threading.main_thread():
-            return worker.submit(run, pixel_values, input_ids, attention_mask).result()
-        return run(pixel_values, input_ids, attention_mask)
+        with torch.inference_mode():
+            return module(pixel_values, input_ids, attention_mask)
 
     return runner, meta

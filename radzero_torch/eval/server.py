@@ -25,8 +25,9 @@ Usage:
     server.stop()
 
 or end to end on the card, from an exported bundle (eval/export.py) or
-from seeded random weights:
-    python -m radzero_torch.eval.server --bundle BUNDLE_DIR --port 8080
+from random weights (seed 0):
+    python -m radzero_torch.eval.server --bundle BUNDLE_DIR --prompts_json P.json \
+        --port 8080
 """
 
 from __future__ import annotations
@@ -159,7 +160,7 @@ class EngineServer:
         return False
 
 
-def main(argv=None):  # pragma: no cover - manual entry
+def main(argv=None):
     import argparse
 
     import torch
@@ -168,22 +169,21 @@ def main(argv=None):  # pragma: no cover - manual entry
 
     ap = argparse.ArgumentParser(
         description="Serve RadZero zero-shot predictions over HTTP from an exported bundle "
-                    "(--bundle) or, without one, from seeded random weights at the default "
+                    "(--bundle) or, without one, from random weights (seed 0) at the default "
                     "configuration (a smoke server: its answers mean nothing).")
     ap.add_argument("--ckpt", help="converted checkpoint dir: not supported yet, the port has "
                                    "no real-checkpoint loader (ROADMAP.md); use --bundle or the "
-                                   "seeded random weights")
+                                   "random weights")
     ap.add_argument("--bundle", help="AOT bundle dir from radzero_torch.eval.export (cold start)")
     ap.add_argument("--port", type=int, default=8080)
     ap.add_argument("--host", default="0.0.0.0")
-    ap.add_argument("--prompts_json", help='{"set_name": ["There is X", ...]}; with --bundle '
-                                           "each set must hold the bundle's n_prompts")
+    ap.add_argument("--prompts_json", help='{"set_name": ["There is X", ...]}; required with '
+                                           "--bundle, each set holding the bundle's n_prompts")
     ap.add_argument("--device", default="cuda")
-    ap.add_argument("--seed", type=int, default=0, help="seed of the random weights")
     args = ap.parse_args(argv)
     if args.ckpt:
         ap.error("--ckpt: the real-checkpoint loader is not ported yet (ROADMAP.md); "
-                 "pass --bundle, or nothing for seeded random weights")
+                 "pass --bundle, or nothing for random weights")
 
     prompts = {"default": ["There is pneumothorax"]}
     if args.prompts_json:
@@ -193,6 +193,9 @@ def main(argv=None):  # pragma: no cover - manual entry
     if args.bundle:
         with open(f"{args.bundle}/bundle.json") as f:
             meta = json.load(f)
+        if not args.prompts_json:
+            ap.error(f"--bundle needs --prompts_json: the bundle was exported for sets of "
+                     f"{meta['n_prompts']} prompts")
         tok = WhitespaceHashTokenizer(vocab_size=meta["vocab_size"],
                                       max_length=meta["max_tokens"])
         engine = ServingEngine.from_bundle(args.bundle, tok, device=args.device)
@@ -202,7 +205,7 @@ def main(argv=None):  # pragma: no cover - manual entry
 
         cfg = RadZeroConfig()
         tok = WhitespaceHashTokenizer(vocab_size=cfg.text.vocab_size, max_length=64)
-        gen = torch.Generator(device=args.device).manual_seed(args.seed)
+        gen = torch.Generator(device=args.device).manual_seed(0)
         engine = ServingEngine(init_radzero(gen, cfg), cfg, tok, device=args.device,
                                max_batch=32, dtype=torch.bfloat16, channels=1)
 

@@ -32,7 +32,7 @@ from radzero_tpu.models import configuration as jconf
 from radzero_tpu.models.radzero import compute_logits as jax_compute_logits
 from radzero_tpu.models.radzero import init_radzero as jax_init_radzero
 from radzero_torch.data.tokenizer import WhitespaceHashTokenizer
-from radzero_torch.eval.export import export_zero_shot, load_zero_shot
+from radzero_torch.eval.export import export_zero_shot, load_zero_shot, own_stack_chunk
 from radzero_torch.eval.serving import ImageSpec, ServingEngine
 from radzero_torch.models import configuration as tconf
 from radzero_torch.models.from_jax import params_from_jax
@@ -187,6 +187,24 @@ def test_eager_calls_do_not_enter_the_dispatcher(weights):
     compute_logits(params, FLASH, *(torch.from_numpy(a) for a in _inputs()))
     assert registry.calls == {name: 0 for name in registry.calls}
     assert not torch.compiler.is_exporting()
+
+
+def test_forward_starts_a_stack_chunk_of_its_own(bundle_fp32):
+    """own_stack_chunk gives the loaded program's forward a frame larger than
+    CPython's first 16 KiB data-stack chunk (so every call starts a chunk of
+    its own), on that module alone, and the program's answers keep their bits."""
+    def words(module):
+        code = type(module).forward.__code__
+        return (code.co_nlocals + len(code.co_cellvars) + len(code.co_freevars)
+                + code.co_stacksize)
+
+    program = torch.export.load(os.path.join(bundle_fp32, "zero_shot.pt2"))
+    plain, grown = program.module(), own_stack_chunk(program.module())
+    assert words(plain) < 2048 < words(grown)
+    assert words(program.module()) == words(plain)
+    args = tuple(torch.from_numpy(a) for a in _inputs(seed=4))
+    for a, b in zip(plain(*args), grown(*args)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
 def test_load_refuses_another_device(bundle_fp32):

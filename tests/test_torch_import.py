@@ -26,7 +26,7 @@ GROUPS = {
                 "radzero_torch.eval.serving", "radzero_torch.data.tokenizer",
                 "radzero_torch.eval.export", "radzero_torch.eval.server",
                 "radzero_torch.ops.registry", "radzero_torch.utils.logging",
-                "radzero_torch.utils.json_io", "radzero_torch.eval.time_serving"],
+                "radzero_torch.utils.json_io"],
     "training": ["radzero_torch.train", "radzero_torch.train.optim", "radzero_torch.train.step",
                  "radzero_torch.losses.mpnce", "radzero_torch.losses.clip"],
     "scoring": ["radzero_torch.data.processing", "radzero_torch.data.native",

@@ -3,7 +3,8 @@ the CPU: the mirror of tests/test_http_server.py (predict + health,
 concurrent load), the HTTP answers held to the engine's own Futures, and
 JPEG bytes through the port's native decoder held to the JAX engine's
 ``host_backend="native"`` probabilities within the serving tolerance of
-tests/test_torch_slice.py (rtol 1e-5, atol 1e-6).
+tests/test_torch_slice.py (rtol 1e-5, atol 1e-6), and ``python -m
+radzero_torch.eval.server --bundle`` started in a fresh process.
 
 Sizes as tests/test_torch_slice.py: D = 64, 2 tower + 2 align + 2 text
 layers, 4 heads, 56 px.
@@ -12,6 +13,11 @@ layers, 4 heads, 56 px.
 import concurrent.futures as cf
 import io
 import json
+import os
+import socket
+import subprocess
+import sys
+import time
 import urllib.error
 import urllib.request
 
@@ -26,6 +32,7 @@ from radzero_tpu.models import configuration as jconf
 from radzero_tpu.models.radzero import init_radzero as jax_init_radzero
 from radzero_torch.data import native
 from radzero_torch.data.tokenizer import WhitespaceHashTokenizer
+from radzero_torch.eval.export import export_zero_shot
 from radzero_torch.eval.server import EngineServer
 from radzero_torch.eval.serving import ServingEngine
 from radzero_torch.models import configuration as tconf
@@ -33,6 +40,7 @@ from radzero_torch.models.from_jax import params_from_jax
 
 from test_torch_modules import TEXT, VIT, perturbed
 
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 D = 64
 RTOL, ATOL = 1e-5, 1e-6  # tests/test_torch_slice.py's serving tolerance
 
@@ -210,3 +218,64 @@ def test_native_backend_raises_without_the_library(weights, monkeypatch):
         assert engine.host_backend == "pil"
     with pytest.raises(ValueError, match="host_backend"):
         _engine(weights[1], host_backend="opencv")
+
+
+@pytest.fixture(scope="module")
+def bundle(weights, tmp_path_factory):
+    """A uint8 grayscale bundle at batch 2 x the 3 prompts of SETS["b"]."""
+    return export_zero_shot(weights[1], TCFG, str(tmp_path_factory.mktemp("bundle")),
+                            batch_size=2, n_prompts=3, max_tokens=12, dtype=torch.float32,
+                            from_uint8=True, channels=1, device="cpu")
+
+
+def _server_main(*args, **kw):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    return [sys.executable, "-m", "radzero_torch.eval.server", "--device", "cpu", *args], \
+        dict(cwd=REPO, env=env, **kw)
+
+
+def test_main_serves_a_bundle(bundle, tmp_path):
+    """The server's command line over a bundle, in a fresh process: /healthz
+    and /prompt_sets answer, and a JPEG's answer is the one an engine in this
+    process gives from the same bundle."""
+    prompts = tmp_path / "prompts.json"
+    prompts.write_text(json.dumps({"b": SETS["b"]}))
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    base = f"http://127.0.0.1:{port}"
+    cmd, kw = _server_main("--bundle", bundle, "--prompts_json", str(prompts),
+                           "--host", "127.0.0.1", "--port", str(port))
+    with open(tmp_path / "server.log", "w") as log:
+        proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT, **kw)
+    try:
+        deadline = time.monotonic() + 300
+        while True:
+            assert proc.poll() is None, (tmp_path / "server.log").read_text()[-3000:]
+            try:
+                health = _get(f"{base}/healthz")
+                break
+            except (urllib.error.URLError, ConnectionError):
+                assert time.monotonic() < deadline, "the server never answered /healthz"
+                time.sleep(0.5)
+        assert health == {"status": "ok", "prompt_sets": ["b"]}
+        assert _get(f"{base}/prompt_sets") == {"b": SETS["b"]}
+        jpeg = _jpeg(np.random.default_rng(3))
+        out = _post(f"{base}/predict?prompt_set=b&maps=patch", jpeg, "image/jpeg")
+    finally:
+        proc.terminate()
+        proc.wait(timeout=60)
+    with ServingEngine.from_bundle(bundle, _tok(), preprocess_threads=2) as engine:
+        engine.register_prompt_set("b", SETS["b"])
+        _same(out, engine.submit(jpeg, "b", want_maps="patch").result(timeout=120))
+
+
+@pytest.mark.parametrize("flag, says", [("--bundle", "exported for sets of 3 prompts"),
+                                         ("--ckpt", "real-checkpoint loader is not ported")])
+def test_main_refuses(bundle, flag, says):
+    """--bundle without a prompts file (the one-prompt default set cannot fill
+    a bundle's n_prompts) and --ckpt stop at the command line."""
+    cmd, kw = _server_main(flag, bundle, "--port", "0")
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300, **kw)
+    assert proc.returncode == 2 and says in proc.stderr, proc.stderr[-3000:]

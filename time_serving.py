@@ -1,6 +1,6 @@
 """Serving's numbers of several checkouts side by side on one card.
 
-    python3 radzero_torch/eval/time_serving.py [--tree DIR ...] [--seed 0]
+    python3 time_serving.py [--tree DIR ...] [--seed 0]
 
 Runs chip_smoke.py's serving phase (``phase_slice``: the full-width model
 behind ServingEngine(max_batch=8, channels=1) in bf16, a burst of 20
@@ -20,7 +20,7 @@ import subprocess
 import sys
 from pathlib import Path
 
-REPO = Path(__file__).resolve().parent.parent.parent
+REPO = Path(__file__).resolve().parent
 
 RUN = """
 import sys
