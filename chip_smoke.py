@@ -113,6 +113,20 @@ Phases, in order; any failure exits non-zero:
    readback) beside the scorer's wall time a batch; the same in fp32 against
    compute_logits(eager=True) with the repo's gate; and model_inference on
    one PNG in a temporary directory;
+5a. the eval harness: Inference(cls=[OpenI, PadChest, ChestXray14, Chexpert,
+   ChestXDet10], det=[ChestXDet10, MS-CXR], seg=[SIIM, RSNA]) on
+   ZeroShotScorer(batch_size=64, fp32) at the flagship configuration, over a
+   synthetic eval root in a temporary directory (32 studies a dataset:
+   grayscale PNGs of 2000-3000 px, SIIM as 1024 x 1024 8-bit DICOMs); no task
+   None and no logged error, every metric finite and in [0, 1], MS-CXR 1.0,
+   32 x P similarities a CSV, the launches of the 9 batches, a second run's
+   result.json files byte-identical, Chexpert's similarities against
+   compute_logits(eager=True) with the repo's gate, every upsampled map on
+   the card against the CPU within 1e-5 (grounding points equal but for
+   near-ties); seconds and images/s a task with the host's stages outside
+   the scorer, the card's time a batch, and neither pandas nor sklearn
+   loaded (a child process reports whether pandas, sklearn and yaml import
+   on this host);
 6. training: the same weights as fp32 masters, tower frozen (K1-K3 without
    a tape), at the defaults AlignConfig() / TextConfig() /
    LossConfig(train_impl="fused"): align layers on K1-K3 with the backward
@@ -2069,6 +2083,300 @@ def phase_scorer(seed, card, params):
     return launches
 
 
+EVAL_N = 32                       # studies a dataset, one scorer batch (64 doubles the phase)
+EVAL_CLS = ["OpenI", "PadChest", "ChestXray14", "Chexpert", "ChestXDet10"]
+EVAL_DET = ["ChestXDet10", "MS-CXR"]
+EVAL_SEG = ["SIIM", "RSNA"]
+
+
+def host_packages():
+    """Whether pandas, scikit-learn and PyYAML import on this host (the JAX
+    CLI reads them; the port's harness needs none), tried in a child process
+    so that this one never loads them."""
+    code = ("import importlib\n"
+            "for m in ('pandas', 'sklearn', 'yaml'):\n"
+            "    try:\n"
+            "        print(m, getattr(importlib.import_module(m), '__version__', 'yes'))\n"
+            "    except Exception as e:\n"
+            "        print(m, 'no (' + type(e).__name__ + ')')\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=120).stdout.split("\n")
+    return ", ".join(line for line in out if line)
+
+
+class _Timers:
+    """Seconds spent in wrapped functions, by name; ``main_only``: on the
+    main thread only (the scorer's loader threads also open images)."""
+
+    def __init__(self):
+        self.s = {}
+        self.patched = []
+
+    def timed(self, fn, key, main_only=False):
+        def timed(*a, **kw):
+            if main_only and threading.current_thread() is not threading.main_thread():
+                return fn(*a, **kw)
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                self.s[key] = self.s.get(key, 0.0) + time.perf_counter() - t0
+        return timed
+
+    def wrap(self, owner, name, key, main_only=False):
+        self.patched.append((owner, name, getattr(owner, name)))
+        setattr(owner, name, self.timed(getattr(owner, name), key, main_only))
+
+    def restore(self):
+        for owner, name, fn in reversed(self.patched):
+            setattr(owner, name, fn)
+        self.patched = []
+
+
+def run_eval_suite(scorer, root, out_dir, upsample_log):
+    """Inference over every dataset on ``scorer``: (results, seconds by task
+    and stage, logged errors); ``upsample_log`` gathers each upsample's
+    (caller, scores, size, geometry, card output, seconds)."""
+    import logging
+
+    import numpy as np
+    import torch
+    from radzero_torch.eval import geometry, grounding, segmentation
+    from radzero_torch.eval.inference import Inference
+    from radzero_torch.eval.mergers import MERGERS
+
+    timers = _Timers()
+    upsample = geometry.upsample_similarity_map
+
+    def recorder(caller):
+        def recorded(scores, size, geometry_name="resize", *, device="cuda"):
+            t0 = time.perf_counter()
+            out = upsample(scores, size, geometry_name, device=device)
+            seconds = time.perf_counter() - t0
+            if torch.device(device).type != "cuda":
+                fail(f"eval: an upsample ran on {device}, not on the scorer's card")
+            upsample_log.append((caller, np.array(scores), tuple(size), geometry_name, out,
+                                 seconds))
+            timers.s["upsample"] = timers.s.get("upsample", 0.0) + seconds
+            return out
+        return recorded
+
+    errors = []
+    handler = logging.Handler(logging.ERROR)
+    handler.emit = lambda record: errors.append(record.getMessage())
+    log = logging.getLogger("radzero_torch")
+    mergers = dict(MERGERS)
+    for name, (rel, fn) in mergers.items():
+        MERGERS[name] = (rel, timers.timed(fn, "metrics"))
+    for mod in (geometry, segmentation):  # grounding_point calls geometry's
+        timers.patched.append((mod, "upsample_similarity_map", upsample))
+        mod.upsample_similarity_map = recorder(mod.__name__.rsplit(".", 1)[1])
+    timers.wrap(scorer, "score", "score")
+    timers.wrap(scorer, "score_paired", "score")
+    timers.wrap(grounding, "grounding_point", "point")
+    timers.wrap(segmentation, "_finish_metrics", "metrics")
+    for mod in (grounding, segmentation):
+        timers.wrap(mod, "load_eval_image", "probe", main_only=True)
+    log.addHandler(handler)
+    results, stages = {}, {}
+    inf = Inference(EVAL_CLS, EVAL_DET, EVAL_SEG, root, batch_size=scorer.batch_size)
+    try:
+        for task in ("classification", "grounding", "segmentation"):
+            timers.s.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            results[task] = getattr(inf, task)(scorer, str(Path(out_dir) / task))
+            torch.cuda.synchronize()
+            stages[task] = dict(timers.s, total=time.perf_counter() - t0)
+    finally:
+        log.removeHandler(handler)
+        timers.restore()
+        MERGERS.update(mergers)
+    return results, stages, errors
+
+
+def _metric_leaves(tree, path=()):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _metric_leaves(v, path + (k,))
+    else:
+        yield "/".join(path), tree
+
+
+def phase_eval(seed, card, params):
+    """The zero-shot eval harness through Inference on the card, as the JAX
+    CLI's --inference branch runs it (fp32, batch 64); returns the launches
+    of its first run."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from radzero_torch.data.processing import BlipStyleImageProcessor
+    from radzero_torch.data.tokenizer import WhitespaceHashTokenizer
+    from radzero_torch.eval import _table
+    from radzero_torch.eval.classification import _image_loader
+    from radzero_torch.eval.geometry import upsample_similarity_map
+    from radzero_torch.eval.registry import get_infer_dirs
+    from radzero_torch.eval.scorer import ZeroShotScorer
+    from radzero_torch.models.configuration import RadZeroConfig, TextConfig
+    from radzero_torch.models.radzero import compute_logits
+    from radzero_torch.tools import synthetic_eval_data as sd
+
+    t_phase = time.perf_counter()
+    cfg = RadZeroConfig()
+    cfg_eager = RadZeroConfig(text=TextConfig(fuse_post=False))
+    tok = WhitespaceHashTokenizer(vocab_size=cfg.text.vocab_size, max_length=64)
+    proc = BlipStyleImageProcessor(size=cfg.vision.img_size)
+    scorer = ZeroShotScorer(params, cfg, proc, tok, device="cuda", batch_size=64,
+                            dtype=torch.float32)
+    with tempfile.TemporaryDirectory() as tmp:
+        root = str(Path(tmp) / "data")
+        t0 = time.perf_counter()
+        sizes = sd.chest_sizes(EVAL_N, seed)
+        sd.build_all(root, n=EVAL_N, seed=seed, sizes=sizes, siim_size=sd.SIIM_SIZE,
+                     compress_level=1, threads=8)
+        print(f"eval: Inference(cls={EVAL_CLS}, det={EVAL_DET}, seg={EVAL_SEG}) on "
+              f"ZeroShotScorer(batch_size=64, fp32, fused towers), {EVAL_N} studies a "
+              f"dataset: grayscale PNGs of {min(min(s) for s in sizes)}-"
+              f"{max(max(s) for s in sizes)} px, SIIM 1024 x 1024 8-bit DICOMs; data "
+              f"written in {time.perf_counter() - t0:.2f} s")
+        runs = []
+        for k in range(2):
+            log = []
+            reset_counters()
+            results, stages, errors = run_eval_suite(scorer, root, Path(tmp) / f"run{k}", log)
+            launches = read_counters()
+            if k:
+                log.clear()  # the first run's maps are checked below
+            runs.append((results, stages, errors, launches, log))
+            if errors:
+                fail(f"eval: the harness logged errors: {errors}")
+            bad = [t for t, r in results.items() if r is None]
+            if bad:
+                fail(f"eval: tasks returned None: {bad}")
+        results, stages, _, launches, log = runs[0]
+        n_text, n_tower = cfg.text.num_hidden_layers, cfg.vision.num_hidden_layers
+        nb = len(EVAL_CLS) + len(EVAL_DET) + len(EVAL_SEG)  # one batch of 64 a dataset
+        layers = n_tower + cfg.align.num_hidden_layers
+        expect = expected(fused_preattn=layers * nb, flash_attention_packed=layers * nb,
+                          fused_postattn=layers * nb, fused_mpnet_post=n_text * nb,
+                          vlcabs_fused=nb)
+        print(f"  launches of one suite ({nb} batches of {EVAL_N}): {launches}")
+        for _, _, _, lc, _ in runs:
+            if lc != expect:
+                fail(f"eval: expected launches {expect}, got {lc}")
+
+        # metrics: finite, in [0, 1]; MS-CXR's whole-image boxes point right
+        for task, tree in results.items():
+            for key, v in _metric_leaves(tree):
+                if not (isinstance(v, float) and math.isfinite(v) and 0.0 <= v <= 1.0):
+                    fail(f"eval: {task} {key} = {v!r}")
+        if results["grounding"]["MS-CXR"] != 1.0:
+            fail(f"eval: MS-CXR accuracy {results['grounding']['MS-CXR']} with boxes that "
+                 "cover the images")
+        print(f"  results: {json.dumps(results)}")
+        out0, out1 = Path(tmp) / "run0", Path(tmp) / "run1"
+        for task in results:
+            a = (out0 / task / "result.json").read_bytes()
+            if a != (out1 / task / "result.json").read_bytes():
+                fail(f"eval: a second run wrote another {task}/result.json")
+        csv_same = True
+        prompts = {}
+        for name in EVAL_CLS:
+            text = json.loads(Path(get_infer_dirs(root)[name]["text_path"]).read_text())
+            prompts[name] = [text[str(i)][0] for i in range(len(text))]
+            table = _table.read_csv(str(out0 / "classification" / f"{name}.csv"))
+            sims = table.values(table.columns)
+            if sims.shape != (EVAL_N, len(prompts[name])) or not np.isfinite(sims).all():
+                fail(f"eval: {name}.csv holds {sims.shape}, want ({EVAL_N}, "
+                     f"{len(prompts[name])}) finite values")
+            csv_same &= ((out0 / "classification" / f"{name}.csv").read_bytes()
+                         == (out1 / "classification" / f"{name}.csv").read_bytes())
+        print(f"  the second run's result.json files are byte-identical; its similarity "
+              f"CSVs {'too' if csv_same else 'NOT'}")
+
+        # time by task and stage, both runs
+        n_img = {"classification": EVAL_N * len(EVAL_CLS),
+                 "grounding": EVAL_N * len(EVAL_DET), "segmentation": EVAL_N * len(EVAL_SEG)}
+        for k, (_, st, _, _, _) in enumerate(runs):
+            for task, t in st.items():
+                score, probe = t.get("score", 0.0), t.get("probe", 0.0)
+                up = t.get("upsample", 0.0)
+                metrics = t.get("metrics", 0.0) + t.get("point", 0.0) - (
+                    up if task == "grounding" else 0.0)
+                rest = t["total"] - score - probe - up - metrics
+                print(f"  run {k + 1} {task}: {t['total']:.3f} s, {n_img[task]} images, "
+                      f"{n_img[task] / t['total']:.2f} images/s; scorer.score "
+                      f"{score:.3f} s; outside it {t['total'] - score:.3f} s "
+                      f"({100 * (1 - score / t['total']):.1f}%): size probing "
+                      f"{probe:.3f}, upsample + readback {up:.3f}, metrics {metrics:.3f}, "
+                      f"the rest (tables, masks, sigmoid, files) {rest:.3f} on {card}")
+
+        # the kernel path against the eager path, fp32, on Chexpert's images
+        items = _table.read_csv(get_infer_dirs(root)["Chexpert"]["image_path"])["Path"].tolist()
+        logits = _table.read_csv(str(out0 / "classification" / "Chexpert.csv"))
+        logits = torch.from_numpy(logits.values(logits.columns).astype(np.float32))
+        _, maps = scorer.score(items, _image_loader(root), prompts["Chexpert"],
+                               need_scores=True)
+        ids, mask = (torch.as_tensor(a, dtype=torch.long, device="cuda")
+                     for a in tok(prompts["Chexpert"]))
+        load = _image_loader(root)
+        pv = torch.as_tensor(np.stack([proc(load(it))["pixel_values"][0] for it in items]),
+                             device="cuda")
+        ref_l, ref_s = [], []
+        with torch.inference_mode():
+            for start in range(0, len(items), 16):
+                ref = compute_logits(params, cfg_eager, pv[start:start + 16], ids, mask,
+                                     dtype=torch.float32, eager=True)
+                ref_l.append(ref["logits"].cpu())
+                ref_s.append(ref["similarity_scores"].cpu())
+            card_ms = median_ms(lambda: compute_logits(scorer.params, cfg, pv, ids, mask,
+                                                       dtype=torch.float32), reps=3, warmup=1)
+        del pv
+        print(f"  the card's time for one batch of {len(items)} x {len(ids)} prompts, fp32 "
+              f"(K1-K5, CUDA events): {card_ms:.1f} ms on {card}")
+        lr, sr, sk = torch.cat(ref_l), torch.cat(ref_s), torch.from_numpy(maps)
+        mae = (sk - sr).abs().mean().item()
+        print(f"  Chexpert.csv against compute_logits(eager=True), fp32, {len(items)} "
+              f"images: logits max_abs_err {(logits - lr).abs().max().item():.3e} "
+              f"(|logit| <= {lr.abs().max().item():.3f}), map MAE {mae:.3e}")
+        if not torch.allclose(logits, lr, rtol=1e-3, atol=2e-4) or mae >= 1e-3:
+            fail("eval: the harness's similarities disagree with the eager path")
+
+        # every map the first run upsampled on the card, against the CPU
+        worst, near_ties, n_points, card_s, cpu_s = 0.0, 0, 0, [], []
+        for caller, scores, size, geometry_name, out, seconds in log:
+            t0 = time.perf_counter()
+            cpu = upsample_similarity_map(scores, size, geometry_name, device="cpu")
+            cpu_s.append(time.perf_counter() - t0)
+            card_s.append(seconds)
+            worst = max(worst, float(np.abs(out - cpu).max()))
+            if caller == "geometry":  # through grounding_point
+                n_points += 1
+                i_card, i_cpu = int(np.argmax(out)), int(np.argmax(cpu))
+                if i_card != i_cpu:
+                    if cpu.ravel()[i_cpu] - cpu.ravel()[i_card] > 1e-5:
+                        fail(f"eval: a grounding point moved by more than a near-tie "
+                             f"({size})")
+                    near_ties += 1
+        pixels = sum(int(np.prod(entry[2])) for entry in log)
+        print(f"  upsample: {len(log)} maps ({pixels / 1e6:.1f} M pixels), card against "
+              f"CPU max_abs_err {worst:.3e}; {n_points} grounding points, {near_ties} moved "
+              f"within a near-tie (top two values within 1e-5); a map on the card "
+              f"{1e3 * sorted(card_s)[len(card_s) // 2]:.2f} ms median "
+              f"(readback included), on the CPU {1e3 * sorted(cpu_s)[len(cpu_s) // 2]:.2f} "
+              f"ms median ({torch.get_num_threads()} threads) on {card}")
+        if worst > 1e-5:
+            fail("eval: the card's upsample disagrees with the CPU's")
+        del runs, log
+    del scorer
+    for m in ("pandas", "sklearn"):
+        if m in sys.modules:
+            fail(f"eval: the harness imported {m}")
+    print(f"  eval phase {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def scorer_host_stages(scorer, proc, images, prompts, batch_s, card_ms, card):
     """The host stages of one scorer batch of 8, each alone: the resize and
     normalise of an image on one thread (PIL, and use_native=True where the
@@ -2420,6 +2728,7 @@ def main() -> int:
         [nvcc, "--version"], capture_output=True, text=True).stdout.strip().splitlines()[-1]
     print(f"device: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}; "
           f"nvcc {nvcc_v}; {torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
+    print(f"host packages (the JAX CLI reads them; the port needs none): {host_packages()}")
 
     t0 = time.perf_counter()
     lib_path = _build.build()
@@ -2437,6 +2746,7 @@ def main() -> int:
     server = phase_server(args.seed, card, params)
     exported = phase_export(args.seed, card, params, lambda imgs: live_engine_probs(params, imgs))
     scoring = phase_scorer(args.seed, card, params)
+    evaluation = phase_eval(args.seed, card, params)
     training, flash_step = phase_training(args.seed, card, params, args.profile)
 
     meta = {
@@ -2474,17 +2784,19 @@ def main() -> int:
                 "radzero_tpu/ops/flash_attention.py:470"),
     }
     # launches: the serving burst's count, the HTTP burst's, one run of each exported
-    # program, the scorer run's, one default training step's and one flash training
-    # step's; each path was driven with every count at 0 and read right after
+    # program, the scorer run's, the eval suite's, one default training step's and one
+    # flash training step's; each path was driven with every count at 0 and read right
+    # after
     from radzero_torch.ops import registry
 
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "registered_op": f"radzero::{name}" if name in registry.calls else None,
          "launches": serving[name] + server[name] + exported[name] + scoring[name]
-         + training[name] + flash_step[name],
+         + evaluation[name] + training[name] + flash_step[name],
          "launches_serving": serving[name], "launches_server": server[name],
          "launches_export": exported[name], "launches_scorer": scoring[name],
+         "launches_eval": evaluation[name],
          "launches_training_step": training[name],
          "launches_flash_training_step": flash_step[name], **rows[k]}
         for k, (name, src, rep) in meta.items()

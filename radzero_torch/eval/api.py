@@ -49,6 +49,6 @@ def model_inference(
     logits, scores = scorer.score([image_path], load, texts, need_scores=True)
 
     similarity_prob = 1.0 / (1.0 + np.exp(-logits[0]))  # (n_texts,)
-    maps = upsample_similarity_map(scores[0], (h, w), image_processor.geometry)
+    maps = upsample_similarity_map(scores[0], (h, w), image_processor.geometry, device=device)
     similarity_map = 1.0 / (1.0 + np.exp(-maps))  # (n_texts, H, W)
     return similarity_prob, similarity_map

@@ -447,7 +447,7 @@ class ServingEngine:
                     maps = 1.0 / (1.0 + np.exp(-scores[i].reshape(-1, g, g)))
                 elif req.want_maps == "full":
                     maps = upsample_similarity_map(scores[i], req.origin_hw,
-                                                   self.image_spec.geometry)
+                                                   self.image_spec.geometry, device=self.device)
                     maps = 1.0 / (1.0 + np.exp(-maps))
                 req.future.set_result({"probs": probs, "similarity_maps": maps})
         except Exception as e:  # fault containment: fail this batch only

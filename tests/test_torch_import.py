@@ -1,4 +1,5 @@
-"""The PyTorch port imports neither jax nor radzero_tpu.
+"""The PyTorch port imports neither jax nor radzero_tpu, nor pandas or
+scikit-learn.
 
 The machine with the card has no JAX, so every module of radzero_torch
 must import without it. Checked in a fresh interpreter: this pytest
@@ -33,12 +34,18 @@ GROUPS = {
                 "radzero_torch.data.dicom",
                 "radzero_torch.data.dicom_parse", "radzero_torch.eval.scorer",
                 "radzero_torch.eval.api"],
+    "eval": ["radzero_torch.eval." + m for m in
+             ("registry", "metrics", "_table", "mergers", "geometry", "classification",
+              "grounding", "segmentation", "inference")]
+    + ["radzero_torch.tools", "radzero_torch.tools.synthetic_eval_data"],
 }
-PIL_ALLOWED = {"scoring"}
+PIL_ALLOWED = {"scoring", "eval"}
 
 
 def _forbidden(group):
-    names = ("jax", "jaxlib", "radzero_tpu", "triton")
+    """The card's host may lack pandas and scikit-learn: no module of the
+    port imports them (the eval harness computes its metrics in numpy)."""
+    names = ("jax", "jaxlib", "radzero_tpu", "triton", "pandas", "sklearn")
     return names if group in PIL_ALLOWED else names + ("PIL",)
 
 

@@ -179,7 +179,7 @@ def _to_meta(tree):
 @pytest.mark.parametrize("origin", [(40, 30), (23, 57)])
 def test_upsample_similarity_map_matches_jax(geometry, origin):
     scores = np.random.default_rng(8).standard_normal((3, 25)).astype(np.float32)
-    out = upsample_similarity_map(scores, origin, geometry)
+    out = upsample_similarity_map(scores, origin, geometry, device="cpu")
     ref = jax_upsample(scores, origin, geometry)
     assert out.shape == (3, *origin) and out.dtype == np.float32
     np.testing.assert_allclose(out, ref, rtol=1e-5, atol=1e-5)
