@@ -138,7 +138,30 @@ Phases, in order; any failure exits non-zero:
    and peak memory of both; then 3 steps with attn_impl="flash" in the align
    layers (K13 / K14) and the text tower (K15 / K16); then loss and every
    gradient leaf of all three against the all-eager path on an fp32 batch of
-   2 images.
+   2 images;
+7. the trainer: a synthetic MIMIC-CXR split (320 train / 64 eval grayscale
+   PNGs of 1200 x 1000, 1-12 finding sentences each drawn with repeats from
+   a pool) in a temporary directory, read through load_datasets and the
+   threaded TrainLoader (batch 64, PackSpec(8, 64, (16, 32)), PIL on 8
+   threads) into RadZeroTrainer at the defaults in bf16 with the same
+   weights: run A, 3 epochs with save_total_limit=2, early_stopping_
+   patience=2, logging_steps=1 (15 steps, 3 epoch records, finite losses,
+   each step's launches those of phase 6's default step, the surviving
+   checkpoints by the pruning rule, the trainable tree after
+   load_best_model_at_end equal to the best checkpoint's file, predict with
+   a compute_logits step bit-equal to compute_logits on the batch); the
+   same run stopped by a raising callback at the first step record of
+   epoch 3 (its steps bit-equal to run A's) and resumed with True by a
+   fresh trainer (steps 11-15, the last checkpoint and the final weights
+   bit-equal to run A's); TowerCache("device") over the same run (epoch 1
+   misses every batch, later epochs hit every one and run no tower, every
+   loss bit-equal to run A's); and, as a finding, one step of a batch
+   packed with dedup_slots=320 twice from the same state (same bits?) and
+   its time beside the plain layout's; with train_samples_per_second by
+   epoch beside phase 6's bare step, the host stages of an epoch (the
+   loader's queue, pinning and upload, the step's enqueue, the wait for the
+   losses), the card's idle share over one epoch, eval, save and restore
+   seconds and bytes.
 
 --profile also prints the kernels of one training step by device time
 (torch.profiler; the 40 longest, K15 / K16's by name, and the fixed-order
@@ -2642,7 +2665,524 @@ def phase_training(seed, card, params, profile):
         for a, b in zip(gf, gx):
             if not bool(((a - b).abs() <= 2e-4 * b.abs().max() + 1e-7).all()):
                 fail(f"training: a gradient of the {name} path disagrees with the eager path")
-    return training, p3[-1]
+    return training, p3[-1], med
+
+
+MIMIC_POOL = [  # finding sentences of 3-22 words; a few dominate, as in MIMIC-CXR reports
+    "No pleural effusion.", "No pneumothorax.", "The lungs are clear.",
+    "Heart size is normal.", "No focal consolidation.", "Mediastinal contours are normal.",
+    "Mild cardiomegaly is present.", "There is a small left pleural effusion.",
+    "Bibasilar atelectasis is seen.", "No acute osseous abnormality.",
+    "There is mild pulmonary vascular congestion without frank interstitial edema.",
+    "A right internal jugular central venous catheter terminates in the mid superior vena cava.",
+    "Patchy opacity at the left lung base may reflect atelectasis though infection cannot "
+    "be excluded in the appropriate clinical setting.",
+    "Endotracheal tube terminates approximately four centimeters above the carina.",
+    "Degenerative changes of the thoracic spine.", "Calcified granuloma in the right upper lobe.",
+    "Moderate right pleural effusion with adjacent compressive atelectasis.",
+    "Hyperinflated lungs consistent with chronic obstructive pulmonary disease.",
+    "Median sternotomy wires are intact.", "Nasogastric tube courses below the diaphragm.",
+    "There is no evidence of free air beneath the diaphragm.",
+    "Increased interstitial markings bilaterally.", "Stable appearance of the chest.",
+    "Elevation of the right hemidiaphragm.", "Left retrocardiac opacity.",
+    "Small bilateral pleural effusions are present with bibasilar opacities likely "
+    "representing atelectasis although superimposed pneumonia is not excluded.",
+    "Aortic knob calcification.", "Surgical clips in the right upper quadrant.",
+    "The cardiomediastinal silhouette is within normal limits.",
+    "Low lung volumes accentuate the bronchovascular markings.",
+    "Pacemaker leads terminate in the right atrium and right ventricle.",
+    "No displaced rib fractures are identified.", "Pulmonary edema has improved.",
+    "Right upper lobe consolidation concerning for pneumonia.",
+    "Tortuous thoracic aorta.", "Biapical pleural thickening.",
+]
+MIMIC_HW = (1200, 1000)  # (height, width) of a synthetic study: a CXR's proportions
+
+
+def mimic_split(root, seed, n_train, n_eval):
+    """A synthetic MIMIC-CXR split where load_datasets reads one:
+    MIMIC-CXR/{train, eval}.json and MIMIC-CXR/images/<dicom_id>, grayscale
+    PNGs of MIMIC_HW (smooth random fields); each study has 1-12 finding
+    sentences drawn with repeats from MIMIC_POOL (Zipf-like weights), so
+    the packer subsamples (8 a study) and dedup finds repeats. -> the
+    dataset config for load_datasets."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.default_rng(seed + 16)
+    images = Path(root) / "MIMIC-CXR" / "images"
+    images.mkdir(parents=True)
+    weights = 1.0 / np.arange(1, len(MIMIC_POOL) + 1)
+    weights /= weights.sum()
+
+    def rows(prefix, n):
+        return [{"dicom_id": f"{prefix}_{i:04d}.png", "view_position": ("PA", "AP")[i % 2],
+                 "key_phrases": [MIMIC_POOL[j] for j in rng.choice(
+                     len(MIMIC_POOL), int(rng.integers(1, 13)), p=weights)]}
+                for i in range(n)]
+
+    splits = {"train": rows("tr", n_train), "eval": rows("ev", n_eval)}
+    names = [r["dicom_id"] for rs in splits.values() for r in rs]
+    seeds = rng.integers(0, 2**31, len(names))
+    h, w = MIMIC_HW
+
+    def write(job):
+        name, s = job
+        field = np.random.default_rng(int(s)).integers(0, 256, (h // 40, w // 40), dtype=np.uint8)
+        Image.fromarray(field, mode="L").resize((w, h), Image.BILINEAR).save(
+            images / name, compress_level=1)
+
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(write, zip(names, seeds)))
+    for split, rs in splits.items():
+        with open(Path(root) / "MIMIC-CXR" / f"{split}.json", "w") as f:
+            json.dump(rs, f)
+    return {"data_root": str(root), "train": ["mimic_train"], "eval": ["mimic_eval"],
+            "mimic_train": "MIMIC-CXR/train.json", "mimic_eval": "MIMIC-CXR/eval.json",
+            "use_frontal_view_only": True}
+
+
+def ckpt_survivors(saves, bests, limit):
+    """The checkpoints save_total_limit leaves after each save at steps
+    ``saves`` with the best after it ``bests``: the just-saved one and the
+    best always, then the newest others up to ``limit``."""
+    alive = []
+    for s, b in zip(saves, bests):
+        alive.append(s)
+        keep = [s] + ([b] if b is not None and b != s and b in alive else [])
+        for p in reversed(alive):
+            if len(keep) >= limit:
+                break
+            if p not in keep:
+                keep.append(p)
+        alive = [p for p in alive if p in keep]
+    return alive
+
+
+class _Stop(Exception):
+    """Raised by a metrics callback to stop a training run where a kill would."""
+
+
+def phase_trainer(seed, card, params, bare_step_s):
+    """RadZeroTrainer at full width on a synthetic MIMIC-CXR split read
+    through load_datasets and the threaded TrainLoader: run A (3 epochs,
+    eval, best selection, pruning, load_best_model_at_end, predict), a run
+    stopped at epoch 3 and resumed, the device tower cache, and one dedup
+    step twice; returns the launches of one trainer step."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from radzero_torch.data.mimic import load_datasets
+    from radzero_torch.data.pipeline import (
+        PackSpec, TrainLoader, pack_batch, pil_image_loader, to_device,
+    )
+    from radzero_torch.data.processing import build_image_processor
+    from radzero_torch.data.tokenizer import WhitespaceHashTokenizer
+    from radzero_torch.models.configuration import (
+        AlignConfig, LossConfig, RadZeroConfig, TextConfig, ViTConfig,
+    )
+    from radzero_torch.models.radzero import compute_logits
+    from radzero_torch.train import trainer as trainer_mod
+    from radzero_torch.train.checkpoint import STATE_FILE, list_checkpoints, load_trainer_state
+    from radzero_torch.train.optim import tree_leaves
+    from radzero_torch.train.step import make_train_step
+    from radzero_torch.train.tower_cache import TowerCache
+
+    t_phase = time.perf_counter()
+    cfg = RadZeroConfig(vision=ViTConfig(), align=AlignConfig(), text=TextConfig(),
+                        loss=LossConfig(train_impl="fused"))
+    n_tower, n_align = cfg.vision.num_hidden_layers, cfg.align.num_hidden_layers
+    n_text = cfg.text.num_hidden_layers
+    rest = dict(fused_mpnet_post=n_text, fused_preattn_bwd=n_align,
+                flash_attention_packed_bwd=n_align, fused_postattn_bwd=n_align,
+                fused_mpnet_post_bwd=n_text, vlcabs_train_forward=1, vlcabs_train_bwd_dq=1,
+                vlcabs_train_bwd_dtn=1)
+    expect_step = expected(fused_preattn=n_tower + n_align,
+                           flash_attention_packed=n_tower + n_align,
+                           fused_postattn=n_tower + n_align, **rest)
+    expect_cached = expected(fused_preattn=n_align, flash_attention_packed=n_align,
+                             fused_postattn=n_align, **rest)
+    expect_tower = expected(fused_preattn=n_tower, flash_attention_packed=n_tower,
+                            fused_postattn=n_tower)
+    tok = WhitespaceHashTokenizer(cfg.text.vocab_size, 64)
+    image_loader = pil_image_loader(build_image_processor(
+        {"model_type": cfg.vision.model_type, "img_size": cfg.vision.img_size}))
+    spec = PackSpec(max_sentences_per_image=8, max_text_tokens=64, text_length_buckets=(16, 32))
+    batch_size = 64
+
+    # host stages and launches, by (run, epoch): timed around the trainer's own
+    # calls from here, not inside the library
+    stages, now = {}, {"rec": None, "eval": False, "epoch": False}
+    profiled = {}
+
+    class TimedLoader(TrainLoader):
+        label, profile_epoch = None, None
+
+        def __iter__(self):
+            key = (self.label, self.epoch)
+            rec = stages.setdefault(key, {k: [] for k in (
+                "wait", "put", "step", "read", "tower", "counts", "tower_counts")})
+            now["rec"], now["epoch"] = rec, True
+            prof = None
+            if self.epoch == self.profile_epoch:
+                from torch.profiler import ProfilerActivity, profile
+
+                torch.cuda.synchronize()  # no earlier launch in flight when the session opens
+                prof = profile(activities=[ProfilerActivity.CUDA])
+                prof.__enter__()
+                t0 = time.perf_counter()
+            it = super().__iter__()
+            while True:
+                t1 = time.perf_counter()
+                try:
+                    b = next(it)
+                except StopIteration:
+                    break
+                rec["wait"].append(time.perf_counter() - t1)
+                yield b
+            now["epoch"] = False  # later uploads are eval's or predict's
+            if prof is not None:
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                prof.__exit__(None, None, None)
+                ev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+                copy = sum(e.self_device_time_total for e in ev if "Memcpy" in e.key) / 1e6
+                busy = sum(e.self_device_time_total for e in ev if "Memcpy" not in e.key) / 1e6
+                profiled[key] = (busy, copy, wall)
+
+    def loaders(label, records, eval_records, with_indices=False, profile_epoch=None):
+        train = TimedLoader(records, image_loader, tok, batch_size, spec, seed=seed,
+                            num_threads=8, with_indices=with_indices)
+        train.label, train.profile_epoch = label, profile_epoch
+        return train, TrainLoader(eval_records, image_loader, tok, batch_size, spec,
+                                  shuffle=False, num_threads=8)
+
+    def instrument(t):
+        put, step, evaluate, tower = t._put_batch, t.train_step, t.evaluate, t._tower_fn
+
+        def timed_put(b):
+            t0 = time.perf_counter()
+            out = put(b)
+            if now["epoch"]:
+                now["rec"]["put"].append(time.perf_counter() - t0)
+            return out
+
+        def timed_step(*a):
+            reset_counters()
+            t0 = time.perf_counter()
+            out = step(*a)
+            now["rec"]["step"].append(time.perf_counter() - t0)
+            now["rec"]["counts"].append(read_counters())
+            return out
+
+        def timed_eval():
+            now["eval"] = True
+            t0 = time.perf_counter()
+            try:
+                return evaluate()
+            finally:
+                now["eval"] = False
+                evals.append(time.perf_counter() - t0)
+
+        def timed_tower(*a):
+            reset_counters()
+            t0 = time.perf_counter()
+            out = tower(*a)
+            now["rec"]["tower"].append(time.perf_counter() - t0)
+            now["rec"]["tower_counts"].append(read_counters())
+            return out
+
+        t._put_batch, t.train_step, t.evaluate = timed_put, timed_step, timed_eval
+        if tower is not None:
+            t._tower_fn = timed_tower
+        return t
+
+    read, save, restore = trainer_mod._read, trainer_mod.save_checkpoint, trainer_mod.restore_checkpoint
+    saves, restores, evals = [], [], []
+
+    def timed_read(losses):
+        t0 = time.perf_counter()
+        out = read(losses)
+        if not now["eval"]:
+            now["rec"]["read"].append(time.perf_counter() - t0)
+        return out
+
+    def timed_save(output_dir, step, *a, **k):
+        t0 = time.perf_counter()
+        path = save(output_dir, step, *a, **k)
+        saves.append((time.perf_counter() - t0, Path(path, STATE_FILE).stat().st_size))
+        return path
+
+    def timed_restore(path, target):
+        t0 = time.perf_counter()
+        out = restore(path, target)
+        torch.cuda.synchronize()
+        restores.append((time.perf_counter() - t0, Path(path, STATE_FILE).stat().st_size))
+        return out
+
+    def steps_of(history):
+        return [r for r in history if "loss" in r]
+
+    def state_file(path):
+        return torch.load(Path(path, STATE_FILE), map_location="cpu", weights_only=True,
+                          mmap=True)
+
+    def same_leaves(a, b):
+        la, lb = list(tree_leaves(a)), list(tree_leaves(b))
+        return len(la) == len(lb) and all(
+            torch.equal(x.cpu(), y.cpu()) if isinstance(x, torch.Tensor) else x == y
+            for x, y in zip(la, lb))
+
+    trainer_mod._read, trainer_mod.save_checkpoint = timed_read, timed_save
+    trainer_mod.restore_checkpoint = timed_restore
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.perf_counter()
+            data = load_datasets(mimic_split(Path(tmp) / "data", seed, 320, 64))
+            train_recs, eval_recs = data["train"], data["eval"]
+            print(f"trainer: synthetic MIMIC-CXR split ({len(train_recs)} train / "
+                  f"{len(eval_recs)} eval studies, grayscale PNGs of {MIMIC_HW[0]} x "
+                  f"{MIMIC_HW[1]}, 1-12 sentences each from {len(MIMIC_POOL)}) written and "
+                  f"read through load_datasets in {time.perf_counter() - t0:.2f} s; "
+                  f"TrainLoader(batch {batch_size}, {spec}, 8 threads, pil_image_loader)")
+            args = dict(learning_rate=1e-4, num_train_epochs=3, warmup_steps=2,
+                        logging_steps=1, save_total_limit=2, early_stopping_patience=2,
+                        bf16=True, seed=seed)
+            per_epoch = len(train_recs) // batch_size
+
+            # ---- run A: 3 epochs, eval, selection, pruning, best at end, predict
+            out_a = Path(tmp) / "run_a"
+            ta = instrument(trainer_mod.RadZeroTrainer(
+                cfg, trainer_mod.TrainerArgs(output_dir=str(out_a), **args),
+                *loaders("A", train_recs, eval_recs), params=params,
+                device="cuda"))
+            state = ta.train()
+            hist_a = state.log_history
+            steps_a = steps_of(hist_a)
+            epochs_a = [r for r in hist_a if "train_samples_per_second" in r]
+            print(f"  run A: {state.step} steps, {len(epochs_a)} epochs, best "
+                  f"{Path(state.best_checkpoint).name}, eval_loss "
+                  f"{[round(r['eval_loss'], 6) for r in epochs_a]}")
+            for r in steps_a:
+                print(f"    step {r['step']:2d} epoch {r['epoch']}: loss {r['loss']:.6f} t2i "
+                      f"{r['t2i_loss']:.6f} grad_norm {r['grad_norm']:.4f} lr {r['lr']:.3e}")
+            if state.step != 3 * per_epoch or len(steps_a) != 3 * per_epoch or len(epochs_a) != 3:
+                fail(f"trainer: run A took {state.step} steps, logged {len(steps_a)} steps and "
+                     f"{len(epochs_a)} epochs; expected {3 * per_epoch}, {3 * per_epoch}, 3")
+            if not all(math.isfinite(v) for r in hist_a for v in r.values()
+                       if isinstance(v, float)):
+                fail("trainer: a non-finite loss or metric in run A")
+            counts_a = [c for e in range(3) for c in stages[("A", e)]["counts"]]
+            if any(c != expect_step for c in counts_a):
+                fail(f"trainer: run A's launches a step {counts_a} differ from the default "
+                     f"step's {expect_step}")
+            saved_steps = [r["step"] for r in epochs_a]
+            bests, best, best_metric = [], None, None
+            for r in epochs_a:
+                if best_metric is None or r["eval_loss"] < best_metric:
+                    best, best_metric = r["step"], r["eval_loss"]
+                bests.append(best)
+            want = [f"checkpoint-{s}" for s in sorted(ckpt_survivors(saved_steps, bests, 2))]
+            got = [Path(p).name for p in list_checkpoints(str(out_a))]
+            print(f"  run A: checkpoints {got} (the pruning rule: {want}); best "
+                  f"checkpoint-{best}")
+            if got != want or Path(state.best_checkpoint).name != f"checkpoint-{best}":
+                fail("trainer: the surviving or best checkpoints break the save_total_limit rule")
+            if not same_leaves(ta.trainable, state_file(state.best_checkpoint)["trainable"]):
+                fail("trainer: after load_best_model_at_end the trainable tree is not the best "
+                     "checkpoint's")
+            final_a = {k: v for k, v in state_file(Path(out_a, f"checkpoint-{state.step}")).items()}
+
+            def logits_step(p, b):
+                return compute_logits(p, cfg, b["pixel_values"], b["input_ids"],
+                                      b["attention_mask"], dtype=torch.bfloat16)
+
+            reset_counters()
+            pred = ta.predict(ta.eval_loader, logits_step)
+            predict_counts = read_counters()
+            batch = next(iter(ta.eval_loader))
+            with torch.no_grad():
+                ref = logits_step(ta.params, to_device(batch, "cuda"))
+            same = all(np.array_equal(pred[k], ref[k].float().cpu().numpy())
+                       for k in ("logits", "similarity_scores"))
+            print(f"  predict(compute_logits) over the eval loader: logits "
+                  f"{pred['logits'].shape}, maps {pred['similarity_scores'].shape}, bit-equal to "
+                  f"compute_logits on the same batch: {same}; vlcabs_fused launches "
+                  f"{predict_counts['vlcabs_fused']}")
+            if not same or predict_counts["vlcabs_fused"] != len(pred["logits"]) // batch_size:
+                fail("trainer: predict with a compute_logits step disagrees with compute_logits")
+            a_trainable = [x.cpu() for x in tree_leaves(ta.trainable)]
+            del ta, pred, ref
+            torch.cuda.empty_cache()
+
+            # ---- a run stopped at the first step record of epoch 3, then resumed
+            def stop(rec):
+                if "loss" in rec and rec["epoch"] == 2:
+                    raise _Stop
+
+            out_b = Path(tmp) / "run_b"
+            tb = instrument(trainer_mod.RadZeroTrainer(
+                cfg, trainer_mod.TrainerArgs(output_dir=str(out_b), **args),
+                *loaders("B", train_recs, eval_recs, profile_epoch=1), params=params,
+                device="cuda", metrics_callback=stop))
+            try:
+                tb.train()
+                fail("trainer: the stopping callback never fired")
+            except _Stop:
+                pass
+            steps_b = steps_of(tb.state.log_history)
+            del tb
+            torch.cuda.empty_cache()
+            last_b = [Path(p).name for p in list_checkpoints(str(out_b))]
+            tc = instrument(trainer_mod.RadZeroTrainer(
+                cfg, trainer_mod.TrainerArgs(output_dir=str(out_b), **args),
+                *loaders("C", train_recs, eval_recs), params=params, device="cuda"))
+            state_c = tc.train(resume_from_checkpoint=True)
+            steps_c = steps_of(state_c.log_history)
+            k = 2 * per_epoch
+            same_b = steps_b == steps_a[:k + 1]
+            same_c = steps_c == steps_a[k:]
+            final_c = state_file(Path(out_b, f"checkpoint-{state_c.step}"))
+            same_state = same_leaves(final_a, final_c)
+            same_best = same_leaves(a_trainable, tc.trainable)
+            print(f"  stopped at step {steps_b[-1]['step']} by a raising callback (checkpoints "
+                  f"left: {last_b}); resumed with True from {last_b[-1]}: steps "
+                  f"{[r['step'] for r in steps_c]}; two runs' steps 1-{k + 1} bit-equal: "
+                  f"{same_b}; resumed steps {k + 1}-{3 * per_epoch} equal run A's: {same_c}; "
+                  f"checkpoint-{state_c.step} (weights and AdamW state) equal: {same_state}; "
+                  f"the final trainable tree (after load_best_model_at_end) equal: {same_best}")
+            if not (same_b and same_c and same_state and same_best):
+                fail("trainer: a resumed run does not give an uninterrupted run's bits")
+            del tc
+            torch.cuda.empty_cache()
+
+            # ---- the device tower cache: the same run with the tower once per record
+            cache = TowerCache("device", n_records=len(train_recs))
+            td = instrument(trainer_mod.RadZeroTrainer(
+                cfg, trainer_mod.TrainerArgs(output_dir=str(Path(tmp) / "run_cache"), **args),
+                *loaders("cache", train_recs, eval_recs, with_indices=True), params=params,
+                device="cuda", tower_cache=cache))
+            state_d = td.train()
+            hist_d = state_d.log_history
+            counts_d = [c for e in range(3) for c in stages[("cache", e)]["counts"]]
+            towers = [len(stages[("cache", e)]["tower_counts"]) for e in range(3)]
+            same_d = steps_of(hist_d) == steps_a
+            same_eval = ([r["eval_loss"] for r in hist_d if "eval_loss" in r]
+                         == [r["eval_loss"] for r in epochs_a])
+            print(f"  tower cache (device, {cache.nbytes / 2**30:.2f} GiB for {len(train_recs)} "
+                  f"records): {cache.stats()}, tower calls by epoch {towers}; steps and eval "
+                  f"losses bit-equal to run A's: {same_d} / {same_eval}")
+            if (cache.misses, cache.hits) != (per_epoch, 2 * per_epoch) or towers != [per_epoch, 0, 0]:
+                fail("trainer: the tower cache did not miss every batch of epoch 1 and hit every "
+                     "later one")
+            if any(c != expect_tower for c in stages[("cache", 0)]["tower_counts"]):
+                fail("trainer: the cache's tower ran other launches than the step's tower")
+            if any(c != expect_cached for c in counts_d):
+                fail(f"trainer: cached steps launched {counts_d}, expected {expect_cached}")
+            if not (same_d and same_eval):
+                fail("trainer: cached epochs do not compute what uncached ones do")
+
+            # ---- dedup: one step of a row_gather batch, twice from the same state
+            recs = train_recs[:batch_size]
+            imgs = np.stack([image_loader(r) for r in recs])
+            dspec = dataclasses.replace(spec, dedup_slots=320)
+            packed = [pack_batch(recs, imgs, tok, s, np.random.default_rng(seed))
+                      for s in (dspec, dspec, spec)]
+            step = make_train_step(td.cfg, td.optimizer, dtype=torch.bfloat16,
+                                   device=td.device)  # untimed
+            outs, times = [], {"dedup": [], "plain": []}
+            for i, b in enumerate(packed + packed[1:] * 2):
+                kind = "plain" if "row_gather" not in b else "dedup"
+                dev_b = to_device(b, "cuda")
+                tr, opt = _clone(td.trainable), _clone_state(td.opt_state)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                tr, opt, losses = step(tr, td.frozen, opt, dev_b)
+                torch.cuda.synchronize()
+                times[kind].append(time.perf_counter() - t0)
+                if i < 2:
+                    outs.append(([x.clone() for x in tree_leaves(tr)],
+                                 {k: v.item() for k, v in losses.items()}))
+                del tr, opt
+            n_diff = sum(not torch.equal(x, y) for x, y in zip(outs[0][0], outs[1][0]))
+            u = packed[0]["input_ids"].shape[0]
+            med = {k: sorted(v)[len(v) // 2] for k, v in times.items()}
+            print(f"  dedup (finding, not a gate): a batch of {batch_size} x "
+                  f"{len(packed[2]['row_mask'])} slots ({int(packed[2]['row_mask'].sum())} "
+                  f"sentences, {len(np.unique(packed[0]['row_gather']))} unique) as "
+                  f"{u} rows + row_gather; two steps from the same state give the same bits: "
+                  f"{n_diff == 0} (losses {outs[0][1]['loss']!r} / {outs[1][1]['loss']!r}, "
+                  f"{n_diff} of {len(outs[0][0])} updated leaves differ); step "
+                  f"{med['dedup'] * 1e3:.1f} ms (median of {len(times['dedup'])}) against the "
+                  f"plain layout's {med['plain'] * 1e3:.1f} ms, on {card}")
+
+            # the step's host enqueue alone, then beside the loader's decode pool
+            def enqueue_ms(n=3):
+                dev_b, out = to_device(packed[2], "cuda"), []
+                for _ in range(n):
+                    tr, opt = _clone(td.trainable), _clone_state(td.opt_state)
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    step(tr, td.frozen, opt, dev_b)
+                    out.append((time.perf_counter() - t0) * 1e3)
+                    torch.cuda.synchronize()
+                    del tr, opt
+                return out
+
+            alone = enqueue_ms()
+            bg = TrainLoader(train_recs, image_loader, tok, batch_size, spec, seed=seed,
+                             num_threads=8)
+            drain = threading.Thread(target=lambda: [None for _ in bg])
+            drain.start()
+            time.sleep(1.0)  # the pool is decoding
+            beside = enqueue_ms()
+            drain.join()
+            print(f"  the step's host enqueue (plain layout, no loss read): "
+                  f"{[round(v, 1) for v in alone]} ms alone, {[round(v, 1) for v in beside]} ms "
+                  f"while a TrainLoader decodes on its 8 threads, on {card}")
+            del td, cache
+            torch.cuda.empty_cache()
+    finally:
+        trainer_mod._read, trainer_mod.save_checkpoint = read, save
+        trainer_mod.restore_checkpoint = restore
+
+    # ---- what the phase measured
+    def rate(history):
+        return [r["train_samples_per_second"] for r in history if "train_samples_per_second" in r]
+
+    print(f"  train_samples_per_second by epoch: run A {rate(hist_a)}, "
+          f"resumed {rate(state_c.log_history)}, tower cache {rate(hist_d)}; the bare step "
+          f"{batch_size / bare_step_s:.2f} images/s (phase 6, median step {bare_step_s:.4f} s), "
+          f"on {card}")
+    for label, history in (("A", hist_a), ("cache", hist_d)):
+        st = stages[(label, 2)]
+        n = len(st["step"])
+        epoch_s = batch_size * n / rate(history)[2]
+        print(f"  host stages of run {label}'s epoch 3 ({n} steps, {epoch_s:.3f} s): waiting on "
+              f"the loader's queue {sum(st['wait']):.3f} s (max {max(st['wait']):.3f}), pinning and "
+              f"upload {sum(st['put']):.3f} s ({sum(st['put']) / n * 1e3:.1f} ms a batch), the "
+              f"step's enqueue {sum(st['step']):.3f} s ({sum(st['step']) / n * 1e3:.1f} ms), "
+              f"waiting on the card for the losses {sum(st['read']):.3f} s")
+    for key, (busy, copy, wall) in profiled.items():
+        print(f"  the card over run {key[0]}'s epoch {key[1] + 1} (torch.profiler): kernels "
+              f"{busy:.3f} s, copies {copy:.3f} s, of {wall:.3f} s: idle {100 * (1 - busy / wall):.1f}%")
+    step_a = [batch_size / r for r in rate(hist_a)]
+    step_d = [batch_size / r for r in rate(hist_d)]
+    print(f"  seconds a step by epoch ({batch_size} / samples/s): run A {[round(s, 4) for s in step_a]}, "
+          f"tower cache {[round(s, 4) for s in step_d]} (epochs 2-3 cached)")
+    print(f"  eval: {len(evals)} calls of {[round(s, 3) for s in evals]} s "
+          f"({len(eval_recs)} studies each)")
+    print(f"  saves: {len(saves)}, {[(round(s, 3), b) for s, b in saves]} (s, bytes); restores: "
+          f"{[(round(s, 3), b) for s, b in restores]}")
+    print(f"  trainer phase {time.perf_counter() - t_phase:.1f} s, on {card}")
+    return stages[("A", 2)]["counts"][-1]
+
+
+def _clone_state(state):
+    return {k: _clone(v) if isinstance(v, (list, dict)) else v for k, v in state.items()}
 
 
 def profile_step(fn):
@@ -2747,7 +3287,8 @@ def main() -> int:
     exported = phase_export(args.seed, card, params, lambda imgs: live_engine_probs(params, imgs))
     scoring = phase_scorer(args.seed, card, params)
     evaluation = phase_eval(args.seed, card, params)
-    training, flash_step = phase_training(args.seed, card, params, args.profile)
+    training, flash_step, bare_step_s = phase_training(args.seed, card, params, args.profile)
+    trainer_step = phase_trainer(args.seed, card, params, bare_step_s)
 
     meta = {
         "K1": ("fused_preattn", "radzero_torch/ops/csrc/gemm_sm90.cu",
@@ -2784,21 +3325,22 @@ def main() -> int:
                 "radzero_tpu/ops/flash_attention.py:470"),
     }
     # launches: the serving burst's count, the HTTP burst's, one run of each exported
-    # program, the scorer run's, the eval suite's, one default training step's and one
-    # flash training step's; each path was driven with every count at 0 and read right
-    # after
+    # program, the scorer run's, the eval suite's, one default training step's, one
+    # flash training step's and one trainer step's; each path was driven with every
+    # count at 0 and read right after
     from radzero_torch.ops import registry
 
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "registered_op": f"radzero::{name}" if name in registry.calls else None,
          "launches": serving[name] + server[name] + exported[name] + scoring[name]
-         + evaluation[name] + training[name] + flash_step[name],
+         + evaluation[name] + training[name] + flash_step[name] + trainer_step[name],
          "launches_serving": serving[name], "launches_server": server[name],
          "launches_export": exported[name], "launches_scorer": scoring[name],
          "launches_eval": evaluation[name],
          "launches_training_step": training[name],
-         "launches_flash_training_step": flash_step[name], **rows[k]}
+         "launches_flash_training_step": flash_step[name],
+         "launches_trainer_step": trainer_step[name], **rows[k]}
         for k, (name, src, rep) in meta.items()
     ]
     k11 = next(k for k in kernels if k["name"] == "vlcabs_train_bwd_dq")

@@ -161,9 +161,13 @@ def forward_train(
         row_gather            (S,)    optional: input_ids holds U unique
                               sentences and this gathers their features back
                               to the S loss rows. Autograd adds the
-                              gradients of duplicated rows up; on CUDA that
-                              ``index_add`` uses atomics, so such a gradient
-                              may differ in the last bit from run to run
+                              gradients of duplicated rows up: the backward
+                              of ``v[idx]`` is an accumulating index put,
+                              which on CUDA sorts by index first
+                              (``indexing_backward_kernel``, no atomics), so
+                              two steps give the same bits (chip_smoke.py's
+                              trainer phase checks it); on the CPU, above
+                              32768 elements, it accumulates in thread order
         random_input_ids      (B, L)  one random positive per image (only
         random_attention_mask (B, L)  with the CLIP / SigLIP losses)
 

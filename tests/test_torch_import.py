@@ -30,6 +30,9 @@ GROUPS = {
                 "radzero_torch.utils.json_io"],
     "training": ["radzero_torch.train", "radzero_torch.train.optim", "radzero_torch.train.step",
                  "radzero_torch.losses.mpnce", "radzero_torch.losses.clip"],
+    "runtime": ["radzero_torch.data." + m for m in ("mimic", "shards", "pipeline")]
+    + ["radzero_torch.train." + m for m in ("checkpoint", "trainer", "tower_cache")]
+    + ["radzero_torch.utils.profiling"],
     "scoring": ["radzero_torch.data.processing", "radzero_torch.data.native",
                 "radzero_torch.data.dicom",
                 "radzero_torch.data.dicom_parse", "radzero_torch.eval.scorer",
