@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive radzero_torch once on one NVIDIA GPU: zero-shot serving and training.
+"""Drive radzero_torch once on one NVIDIA GPU: zero-shot serving, training, a checkpoint.
 
     python3 chip_smoke.py [--seed 0] [--profile]
 
@@ -161,7 +161,24 @@ Phases, in order; any failure exits non-zero:
    epoch beside phase 6's bare step, the host stages of an epoch (the
    loader's queue, pinning and upload, the step's enqueue, the wait for the
    losses), the card's idle share over one epoch, eval, save and restore
-   seconds and bytes.
+   seconds and bytes;
+8. the real-checkpoint path: a synthetic flagship snapshot from --seed in the
+   exact HF layout (model.safetensors in HF names through to_hf_state_dict, a
+   37 x 37 position table, a 30527-entry vocab.txt in all-mpnet-base-v2's
+   layout holding the words and ## pieces of phase 4's prompts, a
+   preprocessor_config.json) in a temporary directory; python -m
+   radzero_torch.tools.convert_checkpoint on it, load_converted (bit-equal to
+   the written tree, pretrain_img_size 518 from the table), the WordPiece ids
+   of the 14 prompts equal to CHEXPERT_IDS with no unk, python -m
+   radzero_torch.eval.server --ckpt in the background answering 4 CXR-size
+   JPEGs bit-equal to an engine's in this process on the loaded tree (its
+   launches counted), stopped; K1-K3 against their twins at the token
+   filter's 685 tokens in fp32 and bf16; compute_logits on the loaded weights
+   and the branches cls_alignment, global_alignment, the linear and mlp
+   adapters and the token filter (ratio 0.5, layer 6) each against the eager
+   route in fp32 and bf16 (the token filter's bf16 eager route runs the kernel
+   route's kept rows; the share of rows the routes keep alike is printed);
+   write, convert, load and cold-start seconds and the snapshot's bytes.
 
 --profile also prints the kernels of one training step by device time
 (torch.profiler; the 40 longest, K15 / K16's by name, and the fixed-order
@@ -3181,6 +3198,331 @@ def phase_trainer(seed, card, params, bare_step_s):
     return stages[("A", 2)]["counts"][-1]
 
 
+# phase 8, the real-checkpoint path: a synthetic flagship snapshot in the exact HF layout.
+# Its vocab.txt has all-mpnet-base-v2's layout (<s> <pad> </s> <unk>, BERT's [PAD] and
+# [unused0-98], [UNK] at 104, [CLS] [SEP] [MASK], ..., <mask> last: 30527 entries) and holds
+# the words of phase 4's prompts, each of 9 letters or more split into a 5-letter head and a
+# ## tail, so WordPiece splits and shares pieces
+CKPT_VOCAB_SIZE = 30527
+# the WordPiece ids of phase 4's 14 prompts on that vocabulary, pad stripped
+# (tests/test_torch_wordpiece.py holds the port's and the JAX package's tokenizers to them)
+CHEXPERT_IDS = [
+    [0, 132, 121, 124, 119, 2], [0, 132, 121, 118, 110, 111, 2], [0, 132, 121, 110, 112, 2],
+    [0, 132, 121, 123, 125, 2], [0, 132, 121, 123, 122, 2], [0, 132, 121, 116, 2],
+    [0, 132, 121, 113, 114, 2], [0, 132, 121, 128, 129, 2], [0, 132, 121, 108, 109, 2],
+    [0, 132, 121, 128, 130, 2], [0, 132, 121, 127, 117, 2], [0, 132, 121, 127, 126, 2],
+    [0, 132, 121, 120, 2], [0, 132, 121, 131, 115, 2],
+]
+FILTER_RATIO, FILTER_LAYER = 0.5, 6   # the token filter the branch checks run
+
+
+def checkpoint_vocab(prompts):
+    """The lines of the snapshot's vocab.txt (see CKPT_VOCAB_SIZE)."""
+    pieces = []
+    for w in sorted({w for p in prompts for w in p.lower().split()}):
+        for p in ((w[:5], "##" + w[5:]) if len(w) >= 9 else (w,)):
+            if p not in pieces:
+                pieces.append(p)
+    head = (["<s>", "<pad>", "</s>", "<unk>", "[PAD]"] + [f"[unused{i}]" for i in range(99)]
+            + ["[UNK]", "[CLS]", "[SEP]", "[MASK]"])
+    fill = CKPT_VOCAB_SIZE - 1 - len(head) - len(pieces)
+    return head + pieces + [f"[unused{99 + i}]" for i in range(fill)] + ["<mask>"]
+
+
+def logits_gate(label, dname, kern, ref):
+    """compute_logits' kernel route against its eager route. fp32 (TF32 off): the repo's
+    gate (tests/test_radzero_model.py), logits rtol 1e-3 / atol 2e-4 and map MAE < 1e-3.
+    bf16: phase 4's gate, logits within 0.25 and map MAE within 0.05, set at the radzero
+    logits' and maps' scale (|x| <= 1 / 0.07 = 14.3); a bf16 error grows with the values,
+    so where max|ref| exceeds 14.3 (the alignment branches' unscaled dot products) the
+    gate grows with it."""
+    import torch
+
+    lk, lr = kern["logits"].float(), ref["logits"].float()
+    if set(kern) != set(ref) or lk.shape != lr.shape or not torch.isfinite(lk).all():
+        fail(f"{label} {dname}: outputs {sorted(kern)} {tuple(lk.shape)} vs {sorted(ref)}")
+    lerr, lmax = (lk - lr).abs().max().item(), lr.abs().max().item()
+    ok = (torch.allclose(lk, lr, rtol=1e-3, atol=2e-4) if dname == "fp32"
+          else lerr <= 0.25 * max(1.0, lmax / 14.3))
+    line = f"logits max_abs_err {lerr:.3e} (|logit| <= {lmax:.3f})"
+    if "similarity_scores" in ref:
+        sk, sr = kern["similarity_scores"].float(), ref["similarity_scores"].float()
+        mae, smax = (sk - sr).abs().mean().item(), sr.abs().max().item()
+        ok = ok and (mae < 1e-3 if dname == "fp32" else mae <= 0.05 * max(1.0, smax / 14.3))
+        line += f", map MAE {mae:.3e} (|map| <= {smax:.3f})"
+    print(f"  {label:16s} {dname}: {line} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"{label} {dname}: the kernel route disagrees with the eager route")
+
+
+def phase_checkpoint(seed, card):
+    """8: the real-checkpoint path at full width. A flagship snapshot from ``seed`` (LN,
+    LayerScale and bias leaves moved off their init; a 37 x 37 position table) written in
+    HF names through to_hf_state_dict and the port's safetensors writer, with a vocab.txt
+    and a preprocessor_config.json; converted by ``python -m
+    radzero_torch.tools.convert_checkpoint``; loaded by load_converted (bit-equal to the
+    written tree); served by ``python -m radzero_torch.eval.server --ckpt`` in the
+    background, whose answers to 4 CXR-size JPEGs must be bit-equal to an engine's in this
+    process on the loaded tree (with the WordPiece ids pinned in CHEXPERT_IDS). Then K1-K3
+    against their twins at the token filter's length, compute_logits on the loaded weights
+    against the eager route, and the branches (cls_alignment, global_alignment, the linear
+    and mlp adapters, the token filter) each against the eager route in fp32 and bf16.
+    Returns the launches of the in-process engine's 4 requests."""
+    import os
+    import socket
+    import tempfile
+    import urllib.error
+    import urllib.request
+
+    import numpy as np
+    import torch
+    from radzero_torch.data.tokenizer import WordPieceTokenizer, load_tokenizer
+    from radzero_torch.eval.serving import ImageSpec, ServingEngine, cast_params
+    from radzero_torch.models import vit
+    from radzero_torch.models.align import build_align_adapter
+    from radzero_torch.models.configuration import AlignConfig, RadZeroConfig, ViTConfig
+    from radzero_torch.models.convert import to_hf_state_dict
+    from radzero_torch.models.radzero import compute_logits, init_radzero
+    from radzero_torch.ops import fused_layer as fl
+    from radzero_torch.ops.layers import normalize_pixels
+    from radzero_torch.tools.run_real_checkpoint import build_processor, load_converted
+    from radzero_torch.utils.safetensors_io import save_file
+
+    t_phase = time.perf_counter()
+    prompts = [f"There is {c}" for c in CHEXPERT]
+    cfg = RadZeroConfig(vision=ViTConfig(pretrain_img_size=518))
+    gen = torch.Generator(device="cuda").manual_seed(seed + 40)
+    params = init_radzero(gen, cfg)
+    for path, leaf in _keyed_paths(params):
+        if path.rsplit("/", 1)[-1] in ("scale", "bias", "ls1", "ls2"):
+            leaf.add_(0.1 * torch.randn(leaf.shape, generator=gen, device="cuda"))
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(REPO)
+
+    with tempfile.TemporaryDirectory(prefix="rz_ckpt_") as tmp:
+        snap, conv = os.path.join(tmp, "snapshot"), os.path.join(tmp, "converted")
+        os.makedirs(snap)
+        t0 = time.perf_counter()
+        sd = to_hf_state_dict(params, cfg)
+        n_tensors = len(sd)
+        save_file(sd, os.path.join(snap, "model.safetensors"), metadata={"format": "pt"})
+        del sd
+        with open(os.path.join(snap, "vocab.txt"), "w", encoding="utf-8") as f:
+            f.write("\n".join(checkpoint_vocab(prompts)) + "\n")
+        with open(os.path.join(snap, "preprocessor_config.json"), "w") as f:
+            json.dump({"image_mean": [0.48145466, 0.4578275, 0.40821073],
+                       "image_std": [0.26862954, 0.26130258, 0.27577711],
+                       "size": {"height": 518, "width": 518}, "resample": 3}, f)
+        write_s = time.perf_counter() - t0
+        snap_bytes = os.path.getsize(os.path.join(snap, "model.safetensors"))
+
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "radzero_torch.tools.convert_checkpoint", "--src", snap,
+             "--dst", conv, "--kind", "radzero"],
+            cwd=str(REPO), env=env, capture_output=True, text=True, timeout=300)
+        convert_s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            fail(f"convert_checkpoint exited {proc.returncode}: {proc.stderr[-2000:]}")
+        t0 = time.perf_counter()
+        loaded, lcfg = load_converted(conv)
+        load_s = time.perf_counter() - t0
+        print(f"checkpoint: snapshot of {snap_bytes} bytes (model.safetensors, "
+              f"{n_tensors} tensors in HF names) written in {write_s:.2f} s; "
+              f"converted in {convert_s:.2f} s ({proc.stdout.strip()}; a fresh python3), "
+              f"loaded in {load_s:.2f} s on {card}")
+        # the loaded tree is the written one, bit for bit
+        want, got = dict(_keyed_paths(params)), dict(_keyed_paths(loaded))
+        if sorted(want) != sorted(got):
+            fail(f"loaded tree's leaves differ: {sorted(set(want) ^ set(got))[:5]}")
+        bad = [p for p in want if got[p].dtype != torch.float32
+               or not torch.equal(want[p].cpu(), got[p])]
+        if bad or lcfg.vision.pretrain_img_size != 518:
+            fail(f"loaded tree differs from the written one at {bad[:5]} or pretrain_img_size "
+                 f"{lcfg.vision.pretrain_img_size} != 518")
+        print(f"  loaded tree bit-equal to the written one ({len(want)} leaves); "
+              f"pretrain_img_size {lcfg.vision.pretrain_img_size} from the position table")
+
+        tok = load_tokenizer(conv, max_length=64)
+        ids_np, mask_np = tok(prompts)
+        got_ids = [ids_np[i][mask_np[i] == 1].tolist() for i in range(len(prompts))]
+        if not isinstance(tok, WordPieceTokenizer) or got_ids != CHEXPERT_IDS \
+                or (ids_np == tok.unk_id).any():
+            fail(f"WordPiece ids of the 14 prompts: {type(tok).__name__} {got_ids}")
+        print(f"  WordPiece ids of the 14 prompts (vocab.txt of {CKPT_VOCAB_SIZE} entries, "
+              f"unk {tok.unk_id} absent) equal CHEXPERT_IDS")
+
+        # the server in the background, and an engine here on the loaded tree
+        proc_cfg = build_processor(conv)
+        spec = ImageSpec(size=proc_cfg.size, mean=tuple(proc_cfg.mean), std=tuple(proc_cfg.std))
+        with open(os.path.join(tmp, "prompts.json"), "w") as f:
+            json.dump({"chexpert": prompts}, f)
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        base = f"http://127.0.0.1:{port}"
+        jpegs = cxr_jpegs(seed + 41, 4)
+        log_path = os.path.join(tmp, "server.log")
+        t0 = time.perf_counter()
+        with open(log_path, "w") as log:
+            server = subprocess.Popen(
+                [sys.executable, "-m", "radzero_torch.eval.server", "--ckpt", conv,
+                 "--prompts_json", os.path.join(tmp, "prompts.json"), "--host", "127.0.0.1",
+                 "--port", str(port)], cwd=str(REPO), env=env, stdout=log,
+                stderr=subprocess.STDOUT)
+        try:
+            def server_log():
+                with open(log_path) as f:
+                    return f.read()[-3000:]
+
+            while True:
+                if server.poll() is not None:
+                    fail(f"the --ckpt server exited {server.returncode}: {server_log()}")
+                try:
+                    with urllib.request.urlopen(f"{base}/healthz", timeout=10) as resp:
+                        health = json.loads(resp.read())
+                    break
+                except (urllib.error.URLError, ConnectionError):
+                    if time.perf_counter() - t0 > 300:
+                        fail(f"the --ckpt server never answered /healthz: {server_log()}")
+                    time.sleep(0.25)
+            cold_s = time.perf_counter() - t0
+            answers = []
+            for data in jpegs:
+                req = urllib.request.Request(f"{base}/predict?prompt_set=chexpert&maps=patch",
+                                             data=data, headers={"Content-Type": "image/jpeg"})
+                with urllib.request.urlopen(req, timeout=300) as resp:
+                    answers.append(json.loads(resp.read()))
+        finally:
+            server.terminate()
+            try:
+                server.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                server.kill()
+                server.wait(timeout=60)
+        print(f"  python -m radzero_torch.eval.server --ckpt: cold start to /healthz "
+              f"{cold_s:.2f} s (load, kernels, warmup batch of 32), {health}; 4 requests "
+              f"answered, stopped on {card}")
+
+        engine = ServingEngine(loaded, lcfg, tok, device="cuda", max_batch=32,
+                               dtype=torch.bfloat16, channels=1, image_spec=spec)
+        try:
+            engine.register_prompt_set("chexpert", prompts)
+            engine.warmup()
+            reset_counters()
+            local = [engine.submit(d, "chexpert", want_maps="patch").result(timeout=300)
+                     for d in jpegs]
+            launches = read_counters()
+        finally:
+            engine.close()
+    n_layers = cfg.vision.num_hidden_layers + cfg.align.num_hidden_layers
+    expect = expected(fused_preattn=4 * n_layers, flash_attention_packed=4 * n_layers,
+                      fused_postattn=4 * n_layers,
+                      fused_mpnet_post=4 * cfg.text.num_hidden_layers, vlcabs_fused=4)
+    if launches != expect:
+        fail(f"checkpoint engine launches {launches}, expected {expect}")
+    for i, (http, mine) in enumerate(zip(answers, local)):
+        p = np.asarray(http["probs"], np.float32)
+        m = np.asarray(http["similarity_maps"], np.float32)
+        if p.shape != (N,) or m.shape != (N, 37, 37) or not np.isfinite(m).all() \
+                or not np.array_equal(p, mine["probs"]) \
+                or not np.array_equal(m, mine["similarity_maps"]):
+            fail(f"request {i}: the --ckpt server's answer is not the engine's, bit for bit")
+    print(f"  HTTP answers bit-equal to the engine's on the loaded tree (4 requests, probs "
+          f"and 14 x 37 x 37 maps); the engine's launches {launches}")
+
+    # K1-K3 at the token filter's length against their twins: row and tile tails
+    lf = 1 + round((L - 1) * (1 - FILTER_RATIO))
+    for dtype, dname in ((torch.float32, "fp32"), (torch.bfloat16, "bf16")):
+        g = torch.Generator(device="cuda").manual_seed(seed + 42)
+        qkv = (torch.randn((B, lf, 3 * D), generator=g, device="cuda")).to(dtype)
+        for k, kern, plain, args, kw in (
+                ("K1", fl.fused_preattn, fl.fused_preattn_plain,
+                 layer_inputs("K1", dtype, g, B * lf), {}),
+                ("K2", fl.flash_attention_packed, fl.flash_attention_packed_plain, (qkv,),
+                 {"n_heads": H}),
+                ("K3", fl.fused_postattn, fl.fused_postattn_plain,
+                 layer_inputs("K3", dtype, g, B * lf), {})):
+            compare(f"{k} L={lf}", dname, kern(*args, **kw), plain(*args, **kw), tol=k)
+
+    # compute_logits on the loaded tree, and the branches, against the eager route
+    dev = cast_params(loaded, torch.float32, "cuda")
+    ids, mask = (torch.as_tensor(a, dtype=torch.long, device="cuda") for a in (ids_np, mask_np))
+    rng = np.random.default_rng(seed + 43)
+    u8 = torch.as_tensor(rng.integers(0, 256, (4, 518, 518, 1), dtype=np.uint8),
+                         device="cuda").expand(4, 518, 518, 3)
+    g = torch.Generator(device="cuda").manual_seed(seed + 44)
+    proj = {"kernel": torch.randn((D, 2 * D), generator=g, device="cuda") * 0.02,
+            "bias": torch.zeros(2 * D, device="cuda")}
+    filtered = dataclasses.replace(lcfg.vision, token_filter_ratio=FILTER_RATIO,
+                                   token_filter_layer=FILTER_LAYER)
+    branches = {
+        "radzero": (dev, lcfg),
+        "cls_alignment": (dev, dataclasses.replace(lcfg, compute_logits_type="cls_alignment")),
+        "global_alignment": ({**dev, "text_projector": proj}, dataclasses.replace(
+            lcfg, compute_logits_type="global_alignment",
+            text=dataclasses.replace(lcfg.text, use_text_projection=True))),
+        "token_filter": (dev, dataclasses.replace(lcfg, vision=filtered)),
+    }
+    for t in ("linear", "mlp"):
+        acfg = AlignConfig(model_type=t)
+        branches[t] = ({**dev, "align_transformer": build_align_adapter(t)[0](g, acfg)},
+                       dataclasses.replace(lcfg, align=acfg))
+    orig_indices = vit.token_filter_indices
+    agree = []
+    with torch.inference_mode():
+        for name, (tree, bcfg) in branches.items():
+            eager_cfg = dataclasses.replace(bcfg, text=dataclasses.replace(bcfg.text,
+                                                                           fuse_post=False))
+            for dtype, dname, nb in ((torch.float32, "fp32", 2), (torch.bfloat16, "bf16", 4)):
+                ptree = cast_params(tree, dtype, "cuda")
+                pv = normalize_pixels(u8[:nb], spec.mean, spec.std, dtype=dtype)
+                seen = []
+
+                def record(x, p, c):
+                    seen.append(orig_indices(x, p, c))
+                    return seen[-1]
+
+                def forced(x, p, c):  # the kernel route's rows, into the eager route
+                    seen.append(orig_indices(x, p, c))
+                    return seen[0]
+
+                try:
+                    vit.token_filter_indices = record
+                    kern = compute_logits(ptree, bcfg, pv, ids, mask, dtype=dtype)
+                    vit.token_filter_indices = forced if dname == "bf16" else record
+                    ref = compute_logits(ptree, eager_cfg, pv, ids, mask, dtype=dtype,
+                                         eager=True)
+                finally:
+                    vit.token_filter_indices = orig_indices
+                if name == "token_filter":
+                    share = (seen[0][:, 1:, None] == seen[1][:, None, 1:]).any(-1).float()
+                    agree.append(f"{dname} {100 * share.mean().item():.2f}%")
+                    keep = lf - 1
+                    if seen[0].shape != (nb, 1 + keep) or (dname == "fp32" and not torch.equal(
+                            seen[0], seen[1])):
+                        fail(f"token filter {dname}: kept rows {tuple(seen[0].shape)}, or the "
+                             "routes keep other rows in fp32")
+                logits_gate(name, dname, kern, ref)
+    print(f"  token filter (ratio {FILTER_RATIO}, layer {FILTER_LAYER}, {lf} tokens after "
+          f"it): kept rows the routes share {', '.join(agree)} (bf16: the eager route ran "
+          "the kernel route's rows)")
+    print(f"  phase 8 (checkpoint) {time.perf_counter() - t_phase:.1f} s on {card}")
+    return launches
+
+
+def _keyed_paths(tree, prefix=""):
+    """(path, leaf) of a dict / list tree."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _keyed_paths(tree[k], f"{prefix}/{k}")
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from _keyed_paths(v, f"{prefix}/{i}")
+    else:
+        yield prefix, tree
+
+
 def _clone_state(state):
     return {k: _clone(v) if isinstance(v, (list, dict)) else v for k, v in state.items()}
 
@@ -3289,6 +3631,7 @@ def main() -> int:
     evaluation = phase_eval(args.seed, card, params)
     training, flash_step, bare_step_s = phase_training(args.seed, card, params, args.profile)
     trainer_step = phase_trainer(args.seed, card, params, bare_step_s)
+    checkpoint = phase_checkpoint(args.seed, card)
 
     meta = {
         "K1": ("fused_preattn", "radzero_torch/ops/csrc/gemm_sm90.cu",
@@ -3326,21 +3669,23 @@ def main() -> int:
     }
     # launches: the serving burst's count, the HTTP burst's, one run of each exported
     # program, the scorer run's, the eval suite's, one default training step's, one
-    # flash training step's and one trainer step's; each path was driven with every
-    # count at 0 and read right after
+    # flash training step's, one trainer step's and the converted checkpoint's 4
+    # requests; each path was driven with every count at 0 and read right after
     from radzero_torch.ops import registry
 
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "registered_op": f"radzero::{name}" if name in registry.calls else None,
          "launches": serving[name] + server[name] + exported[name] + scoring[name]
-         + evaluation[name] + training[name] + flash_step[name] + trainer_step[name],
+         + evaluation[name] + training[name] + flash_step[name] + trainer_step[name]
+         + checkpoint[name],
          "launches_serving": serving[name], "launches_server": server[name],
          "launches_export": exported[name], "launches_scorer": scoring[name],
          "launches_eval": evaluation[name],
          "launches_training_step": training[name],
          "launches_flash_training_step": flash_step[name],
-         "launches_trainer_step": trainer_step[name], **rows[k]}
+         "launches_trainer_step": trainer_step[name],
+         "launches_checkpoint": checkpoint[name], **rows[k]}
         for k, (name, src, rep) in meta.items()
     ]
     k11 = next(k for k in kernels if k["name"] == "vlcabs_train_bwd_dq")

@@ -24,8 +24,11 @@ Usage:
     ...
     server.stop()
 
-or end to end on the card, from an exported bundle (eval/export.py) or
-from random weights (seed 0):
+or end to end on the card, from a converted checkpoint
+(radzero_torch.tools.convert_checkpoint), from an exported bundle
+(eval/export.py) or from random weights (seed 0):
+    python -m radzero_torch.eval.server --ckpt CONVERTED_DIR --prompts_json P.json \
+        --port 8080
     python -m radzero_torch.eval.server --bundle BUNDLE_DIR --prompts_json P.json \
         --port 8080
 """
@@ -162,28 +165,40 @@ class EngineServer:
 
 def main(argv=None):
     import argparse
+    import os
 
     import torch
 
-    from radzero_torch.data.tokenizer import WhitespaceHashTokenizer
+    from radzero_torch.data.tokenizer import WhitespaceHashTokenizer, load_tokenizer
 
     ap = argparse.ArgumentParser(
-        description="Serve RadZero zero-shot predictions over HTTP from an exported bundle "
-                    "(--bundle) or, without one, from random weights (seed 0) at the default "
-                    "configuration (a smoke server: its answers mean nothing).")
-    ap.add_argument("--ckpt", help="converted checkpoint dir: not supported yet, the port has "
-                                   "no real-checkpoint loader (ROADMAP.md); use --bundle or the "
-                                   "random weights")
+        description="Serve RadZero zero-shot predictions over HTTP from a converted checkpoint "
+                    "(--ckpt), an exported bundle (--bundle) or, with neither, from random "
+                    "weights (seed 0) at the default configuration (a smoke server: its "
+                    "answers mean nothing).")
+    ap.add_argument("--ckpt", help="converted checkpoint dir (radzero_torch.tools."
+                                   "convert_checkpoint): state.pt, and vocab.txt / "
+                                   "processor_config.json where the snapshot had them")
+    ap.add_argument("--config", help="with --ckpt: model_config JSON (the YAML "
+                                     "model.model_config block) for a checkpoint whose dims "
+                                     "are not the flagship's")
     ap.add_argument("--bundle", help="AOT bundle dir from radzero_torch.eval.export (cold start)")
+    ap.add_argument("--tokenizer", help="vocab.txt, a dir holding one, or an HF tokenizer name; "
+                                        "default: the --ckpt dir when it holds vocab.txt, else "
+                                        "the hash tokenizer")
     ap.add_argument("--port", type=int, default=8080)
     ap.add_argument("--host", default="0.0.0.0")
     ap.add_argument("--prompts_json", help='{"set_name": ["There is X", ...]}; required with '
                                            "--bundle, each set holding the bundle's n_prompts")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    if args.ckpt:
-        ap.error("--ckpt: the real-checkpoint loader is not ported yet (ROADMAP.md); "
-                 "pass --bundle, or nothing for random weights")
+    if args.ckpt and args.bundle:
+        ap.error("pass --ckpt or --bundle, not both")
+    if args.ckpt and not os.path.isfile(os.path.join(args.ckpt, "state.pt")):
+        ap.error(f"--ckpt {args.ckpt} holds no state.pt: convert the snapshot with "
+                 "python -m radzero_torch.tools.convert_checkpoint")
+    if args.config and not args.ckpt:
+        ap.error("--config goes with --ckpt")
 
     prompts = {"default": ["There is pneumothorax"]}
     if args.prompts_json:
@@ -196,18 +211,40 @@ def main(argv=None):
         if not args.prompts_json:
             ap.error(f"--bundle needs --prompts_json: the bundle was exported for sets of "
                      f"{meta['n_prompts']} prompts")
-        tok = WhitespaceHashTokenizer(vocab_size=meta["vocab_size"],
-                                      max_length=meta["max_tokens"])
+        tok = (load_tokenizer(args.tokenizer, max_length=meta["max_tokens"]) if args.tokenizer
+               else WhitespaceHashTokenizer(vocab_size=meta["vocab_size"],
+                                            max_length=meta["max_tokens"]))
         engine = ServingEngine.from_bundle(args.bundle, tok, device=args.device)
     else:
-        from radzero_torch.models.configuration import RadZeroConfig
-        from radzero_torch.models.radzero import init_radzero
+        from radzero_torch.eval.serving import ImageSpec
 
-        cfg = RadZeroConfig()
-        tok = WhitespaceHashTokenizer(vocab_size=cfg.text.vocab_size, max_length=64)
-        gen = torch.Generator(device=args.device).manual_seed(0)
-        engine = ServingEngine(init_radzero(gen, cfg), cfg, tok, device=args.device,
-                               max_batch=32, dtype=torch.bfloat16, channels=1)
+        image_spec = None
+        if args.ckpt:
+            from radzero_torch.models.configuration import radzero_config_from_dict
+            from radzero_torch.tools.run_real_checkpoint import (
+                build_processor,
+                checkpoint_tokenizer,
+                load_converted,
+            )
+
+            cfg = None
+            if args.config:
+                with open(args.config) as f:
+                    cfg = radzero_config_from_dict(json.load(f))
+            params, cfg = load_converted(args.ckpt, cfg=cfg)
+            proc = build_processor(args.ckpt)
+            image_spec = ImageSpec(size=proc.size, mean=tuple(proc.mean), std=tuple(proc.std))
+            tok = checkpoint_tokenizer(args.ckpt, args.tokenizer, vocab_size=cfg.text.vocab_size)
+        else:
+            from radzero_torch.models.configuration import RadZeroConfig
+            from radzero_torch.models.radzero import init_radzero
+
+            cfg = RadZeroConfig()
+            params = init_radzero(torch.Generator(device=args.device).manual_seed(0), cfg)
+            tok = (load_tokenizer(args.tokenizer, max_length=64) if args.tokenizer else
+                   WhitespaceHashTokenizer(vocab_size=cfg.text.vocab_size, max_length=64))
+        engine = ServingEngine(params, cfg, tok, device=args.device, max_batch=32,
+                               dtype=torch.bfloat16, channels=1, image_spec=image_spec)
 
     with engine, EngineServer(engine, prompts) as server:
         server.engine.warmup()

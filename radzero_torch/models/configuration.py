@@ -53,8 +53,8 @@ class ViTConfig:
     img_size: int = 518           # runtime resolution
     use_final_layernorm: bool = True
     attn_impl: str = "flash"      # read when fused_towers=False: "flash" = K13 / K14
-    token_filter_ratio: float = 0.0  # > 0 not ported yet (raises)
-    token_filter_layer: int = 6
+    token_filter_ratio: float = 0.0  # > 0: drop this share of the patches (models/vit.py)
+    token_filter_layer: int = 6      # ... before this layer
     remat_policy: Optional[str] = None  # training only; not read yet
 
     def __post_init__(self):

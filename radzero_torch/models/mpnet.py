@@ -78,12 +78,16 @@ def bucket_ids(seq_len: int, num_buckets: int, device: torch.device) -> torch.Te
     upload per forward would be a blocking copy that waits for the stream.
     While torch.export traces (with fake tensors) a table not uploaded yet
     is made for the trace alone and not kept; an uploaded one enters the
-    program as a constant on ``device`` (eval/export.py uploads it first)."""
+    program as a constant on ``device`` (eval/export.py uploads it first).
+    The table is made outside inference mode even when the first caller
+    runs in it (serving), so a forward that autograd records (training)
+    can read the same cached table."""
     key = (seq_len, num_buckets, torch.device(device))
     ids = _BUCKET_IDS.get(key)
     if ids is None:
         table = relative_position_bucket_table(seq_len, num_buckets)
-        ids = torch.from_numpy(table).long().to(device)
+        with torch.inference_mode(False):
+            ids = torch.from_numpy(table).long().to(device)
         if not torch.compiler.is_exporting():
             _BUCKET_IDS[key] = ids
     return ids

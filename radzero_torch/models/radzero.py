@@ -3,9 +3,9 @@ DINOv2 tower -> align adapter -> VL-CABS head, plus the MPNet tower, under
 one dict of parameters whose top-level keys mirror the JAX tree.
 
 Two entry points: :func:`compute_logits`, zero-shot scoring (the
-``radzero`` logits type; ``cls_alignment`` / ``global_alignment`` are not
-ported yet, ROADMAP.md), and :func:`forward_train`, the training forward
-over one flattened global batch.
+``radzero`` logits type, and the ``cls_alignment`` / ``global_alignment``
+alternates), and :func:`forward_train`, the training forward over one
+flattened global batch.
 
 What training runs on at the defaults (``AlignConfig.attn_impl=
 "fused_vjp"``, ``TextConfig.fuse_post=True``, ``LossConfig.train_impl=
@@ -238,12 +238,13 @@ def compute_logits(
     layers the config names instead of K1-K3 (``attn_impl="flash"``: K13);
     the text tower reads ``cfg.text.attn_impl`` ("flash": K15) and
     ``fuse_post`` (K4) either way. ``eager=True`` runs the eager reference
-    layers and VL-CABS, for checking the kernels on the card."""
+    layers and VL-CABS, for checking the kernels on the card.
+
+    ``cfg.compute_logits_type`` "cls_alignment" / "global_alignment" run
+    the same towers and no VL-CABS (:func:`_compute_logits_alignment`)."""
     if cfg.compute_logits_type != "radzero":
-        raise NotImplementedError(
-            f"compute_logits_type {cfg.compute_logits_type!r} is not ported yet "
-            "(ROADMAP.md, modules still to port, item 7)"
-        )
+        return _compute_logits_alignment(params, cfg, pixel_values, input_ids, attention_mask,
+                                         dtype=dtype, eager=eager, fused_towers=fused_towers)
     vision = forward_vision(params, cfg, pixel_values, dtype=dtype, eager=eager,
                             fused_towers=fused_towers)
     text = forward_text(params, cfg, input_ids, attention_mask, dtype=dtype)
@@ -257,3 +258,28 @@ def compute_logits(
         scores = scores[:, :, 1:]
     loss_temp, _ = temperatures(lparams)
     return {"logits": out["t2i_logits"].T / loss_temp, "similarity_scores": scores}
+
+
+def _compute_logits_alignment(params, cfg, pixel_values, input_ids, attention_mask, *,
+                              dtype, eager, fused_towers):
+    """The alternates of modeling.py:330-353, as radzero_tpu's:
+
+    - ``cls_alignment``: logits (B, N) = CLS token . text features, no maps;
+    - ``global_alignment``: logits = image features (CLS and patch mean,
+      l2-normalised, 2 x hidden) . text features, and maps (B, N, L-1) =
+      patch tokens . the text features' second half, so the text tower
+      needs ``use_text_projection`` (width 2 x hidden)."""
+    vision = forward_vision(params, cfg, pixel_values, dtype=dtype, eager=eager,
+                            fused_towers=fused_towers)
+    key_features = forward_text(params, cfg, input_ids, attention_mask,
+                                dtype=dtype)["text_features"]
+    if cfg.compute_logits_type == "cls_alignment":
+        return {"logits": vision["image_cls_token"] @ key_features.T}
+    if cfg.compute_logits_type == "global_alignment":
+        hidden = cfg.align.hidden_size
+        scores = torch.einsum("ind,jd->ijn", vision["image_patch_tokens"],
+                              key_features[:, hidden:])
+        return {"logits": vision["image_features"] @ key_features.T,
+                "similarity_scores": scores}
+    raise ValueError(f"unknown compute_logits_type {cfg.compute_logits_type!r}; expected "
+                     "radzero, cls_alignment or global_alignment")

@@ -19,11 +19,19 @@ runs it through K13 / K14 over the unpacked heads (``"flash"``, the
 ``ViTConfig`` default); :func:`dinov2_layer` is the eager reference
 (``"xla"``). The port runs the real sequence length (1370 at 518 px): no
 lane padding, and no fallback past any length.
+
+``ViTConfig.token_filter_ratio > 0`` turns on the attention-aware token
+filter (PAPERS.md arXiv 2506.01519; radzero_tpu/models/vit.py:365-457):
+after layer ``token_filter_layer``'s predecessors, the patches are ranked
+by the head-mean CLS attention score from that layer's q / k, the top
+``1 - ratio`` are kept (CLS always), the remaining layers run at the
+shorter length on the same layer ``impl``, and the final LayerNorm's
+output is scattered back onto a zero grid of the full length.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import List
 
 import torch
 
@@ -219,26 +227,52 @@ def vit_encoder(layers: List[dict], cfg: ViTConfig, x: torch.Tensor, *, impl: st
     return x
 
 
+def token_filter_indices(x: torch.Tensor, layer_p: dict, cfg: ViTConfig) -> torch.Tensor:
+    """(B, 1 + keep) int64 rows to keep: CLS, then the ``keep = round((L - 1)
+    (1 - ratio))`` patches of highest head-mean CLS.K score under ``layer_p``'s
+    LN1, q and k (times hd^-1/2 / nh), in ascending order."""
+    b, l, d = x.shape
+    nh, hd = cfg.num_attention_heads, cfg.head_dim
+    keep = max(1, int(round((l - 1) * (1.0 - cfg.token_filter_ratio))))
+    h = layer_norm(x, layer_p["ln1"], cfg.layer_norm_eps)
+    qkv = layer_p["attn"]["qkv"]
+    q_cls = linear(h[:, :1], {"kernel": qkv["kernel"][:, :d], "bias": qkv["bias"][:d]})
+    keys = linear(h, {"kernel": qkv["kernel"][:, d:2 * d], "bias": qkv["bias"][d:2 * d]})
+    scores = torch.einsum("bhd,blhd->bl", q_cls.reshape(b, nh, hd), keys.reshape(b, l, nh, hd))
+    scores = scores * (hd**-0.5) / nh
+    idx = torch.topk(scores[:, 1:], keep, dim=1).indices + 1
+    idx = torch.sort(idx, dim=1).values
+    return torch.cat([idx.new_zeros(b, 1), idx], dim=1)
+
+
 def vit_forward(
     params: dict,
     cfg: ViTConfig,
     pixel_values: torch.Tensor,
     *,
     dtype=torch.float32,
-    eager: bool = False,
-    impl: Optional[str] = None,
+    impl: str = "fused",
 ) -> torch.Tensor:
     """(B, H, W, C) NHWC -> (B, 1 + h*w, D) tokens, final LN applied when
     ``cfg.use_final_layernorm``. ``impl`` names the layer (see
-    :func:`vit_encoder`); without it ``eager`` picks the reference layers,
-    else the fused ones."""
-    if cfg.token_filter_ratio > 0.0:
-        raise NotImplementedError(
-            "token_filter_ratio > 0 is not ported yet (ROADMAP.md, "
-            "modules still to port, item 7)"
-        )
+    :func:`vit_encoder`). With ``cfg.token_filter_ratio > 0`` the rows the
+    filter drops come out as zeros."""
     x = vit_embed(params, cfg, pixel_values, dtype)
-    x = vit_encoder(params["layers"], cfg, x, impl=impl or ("eager" if eager else "fused"))
+    if cfg.token_filter_ratio > 0.0:
+        k = cfg.token_filter_layer
+        if not 0 <= k < cfg.num_hidden_layers:
+            raise ValueError(f"token_filter_layer={k} out of range for "
+                             f"num_hidden_layers={cfg.num_hidden_layers}")
+        x = vit_encoder(params["layers"][:k], cfg, x, impl=impl)
+        b, l, d = x.shape
+        rows = token_filter_indices(x, params["layers"][k], cfg)[..., None].expand(-1, -1, d)
+        y = vit_encoder(params["layers"][k:], cfg, torch.gather(x, 1, rows), impl=impl)
+        if cfg.use_final_layernorm:
+            y = layer_norm(y, params["final_ln"], cfg.layer_norm_eps)
+        # after the final LN, so a dropped row is an exact zero (LN of a zero
+        # row would be the LN bias)
+        return y.new_zeros(b, l, d).scatter(1, rows, y)
+    x = vit_encoder(params["layers"], cfg, x, impl=impl)
     if cfg.use_final_layernorm:
         x = layer_norm(x, params["final_ln"], cfg.layer_norm_eps)
     return x

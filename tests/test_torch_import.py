@@ -1,5 +1,5 @@
-"""The PyTorch port imports neither jax nor radzero_tpu, nor pandas or
-scikit-learn.
+"""The PyTorch port imports neither jax nor radzero_tpu, nor pandas,
+scikit-learn, safetensors or transformers.
 
 The machine with the card has no JAX, so every module of radzero_torch
 must import without it. Checked in a fresh interpreter: this pytest
@@ -19,7 +19,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GROUPS = {
     "package": ["radzero_torch"],
     "models": ["radzero_torch.models." + m for m in
-               ("configuration", "from_jax", "vit", "align", "mpnet", "radzero")],
+               ("configuration", "from_jax", "vit", "align", "mpnet", "radzero", "convert")],
     "ops": ["radzero_torch.ops." + m for m in
             ("_build", "_checks", "layers", "resize", "fused_layer", "flash_attention", "vlcabs",
              "vlcabs_fused", "ablate_sm90", "registry")],
@@ -41,14 +41,21 @@ GROUPS = {
              ("registry", "metrics", "_table", "mergers", "geometry", "classification",
               "grounding", "segmentation", "inference")]
     + ["radzero_torch.tools", "radzero_torch.tools.synthetic_eval_data"],
+    "checkpoint": ["radzero_torch.utils.safetensors_io", "radzero_torch.tools.convert_checkpoint",
+                   "radzero_torch.tools.run_real_checkpoint", "radzero_torch.data.tokenizer"],
+    "smoke": ["chip_smoke"],
 }
 PIL_ALLOWED = {"scoring", "eval"}
 
 
 def _forbidden(group):
-    """The card's host may lack pandas and scikit-learn: no module of the
-    port imports them (the eval harness computes its metrics in numpy)."""
-    names = ("jax", "jaxlib", "radzero_tpu", "triton", "pandas", "sklearn")
+    """The card's host may lack pandas and scikit-learn, and lacks safetensors
+    and transformers: no module of the port imports them (the eval harness
+    computes its metrics in numpy, the converter reads safetensors itself,
+    and HFTokenizer imports transformers only when built). Nor does any
+    import the JAX runbook and converter under tools/."""
+    names = ("jax", "jaxlib", "radzero_tpu", "triton", "pandas", "sklearn", "safetensors",
+             "transformers", "tools")
     return names if group in PIL_ALLOWED else names + ("PIL",)
 
 

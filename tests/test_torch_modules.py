@@ -62,7 +62,8 @@ def test_vit_forward_matches_jax(eager):
     pv = np.random.default_rng(1).standard_normal((2, 56, 56, 3)).astype(np.float32)
 
     ref = jvit.vit_forward(tree, jcfg, jnp.asarray(pv))
-    out = tvit.vit_forward(params, ViTConfig(**VIT), torch.from_numpy(pv), eager=eager)
+    out = tvit.vit_forward(params, ViTConfig(**VIT), torch.from_numpy(pv),
+                           impl="eager" if eager else "fused")
     assert out.shape == (2, 17, D)
     _close(out, ref)
 
@@ -102,8 +103,67 @@ def test_identity_adapter_passes_tokens():
     t = torch.randn(2, 5, 8)
     assert init(torch.Generator(), AlignConfig()) == {}
     assert apply({}, AlignConfig(), t) is t
-    with pytest.raises(NotImplementedError):
-        talign.build_align_adapter("mlp")
+    with pytest.raises(ValueError, match="unknown align adapter"):
+        talign.build_align_adapter("nope")
+
+
+@pytest.mark.parametrize("model_type", ["linear", "mlp"])
+def test_dense_adapters_match_jax(model_type):
+    """The linear and mlp (D -> 1024 -> 1024 -> 1024 -> D, ReLU) adapters on the
+    JAX weights through the bridge, and the port's init at the same shapes."""
+    jinit, japply = jalign.build_align_adapter(model_type)
+    tree = perturbed(jinit(jax.random.PRNGKey(5), JAlign(hidden_size=D)),
+                     np.random.default_rng(5))
+    params = params_from_jax({"align_transformer": tree})["align_transformer"]
+    tokens = np.random.default_rng(6).standard_normal((2, 17, D)).astype(np.float32)
+    init, apply = talign.build_align_adapter(model_type)
+    cfg = AlignConfig(hidden_size=D, model_type=model_type)
+    _close(apply(params, cfg, torch.from_numpy(tokens)), japply(tree, JAlign(hidden_size=D),
+                                                               jnp.asarray(tokens)))
+    shapes = jax.tree.map(lambda a: tuple(a.shape), tree)
+    assert jax.tree.map(lambda t: tuple(t.shape), init(torch.Generator().manual_seed(0), cfg)) \
+        == shapes
+
+
+TF_LAYERS = 8  # a tower deep enough for the default token_filter_layer of 6
+
+
+@pytest.fixture(scope="module")
+def filter_tower():
+    jcfg = JViT(**{**VIT, "num_hidden_layers": TF_LAYERS}, attn_impl="xla")
+    tree = perturbed(jvit.init_vit(jax.random.PRNGKey(7), jcfg), np.random.default_rng(7))
+    pv = np.random.default_rng(8).standard_normal((2, 56, 56, 3)).astype(np.float32)
+    return jcfg, tree, params_from_jax({"vision_model": tree})["vision_model"], pv
+
+
+@pytest.mark.parametrize("ratio", [0.25, 0.5])
+@pytest.mark.parametrize("layer", [0, 6, TF_LAYERS - 1])
+def test_token_filter_matches_jax(filter_tower, ratio, layer):
+    """The filtered tower against the JAX one (its xla layers) through the
+    port's eager and fused layers: the same kept rows, exact zeros elsewhere,
+    and the kept rows within the layers' 2e-5."""
+    jcfg, tree, params, pv = filter_tower
+    jcfg = dataclasses.replace(jcfg, token_filter_ratio=ratio, token_filter_layer=layer)
+    cfg = ViTConfig(**{**VIT, "num_hidden_layers": TF_LAYERS}, token_filter_ratio=ratio,
+                    token_filter_layer=layer)
+    ref = np.asarray(jvit.vit_forward(tree, jcfg, jnp.asarray(pv)))
+    keep = round(16 * (1 - ratio))
+    kept = np.abs(ref).sum(-1) > 0
+    assert kept.shape == (2, 17) and (kept.sum(1) == 1 + keep).all() and kept[:, 0].all()
+    for impl in ("eager", "fused"):
+        out = tvit.vit_forward(params, cfg, torch.from_numpy(pv), impl=impl).numpy()
+        np.testing.assert_array_equal(np.abs(out).sum(-1) > 0, kept)
+        np.testing.assert_array_equal(out[~kept], 0.0)
+        _close(torch.from_numpy(out), ref)
+
+
+def test_token_filter_layer_out_of_range_raises(filter_tower):
+    _, _, params, pv = filter_tower
+    for layer in (-1, TF_LAYERS):
+        cfg = ViTConfig(**{**VIT, "num_hidden_layers": TF_LAYERS}, token_filter_ratio=0.5,
+                        token_filter_layer=layer)
+        with pytest.raises(ValueError, match="out of range"):
+            tvit.vit_forward(params, cfg, torch.from_numpy(pv))
 
 
 def _text_inputs(rng, s=4, l=12):
@@ -139,6 +199,26 @@ def test_relative_position_buckets_match_jax():
     for l in (1, 12, 64, 300):
         np.testing.assert_array_equal(tmpnet.relative_position_bucket_table(l),
                                       jmpnet.relative_position_bucket_table(l))
+
+
+def test_bucket_table_cached_in_inference_mode_serves_autograd():
+    """A bucket table first made under torch.inference_mode (serving) is
+    cached; a later forward under autograd at the same length (training, in
+    the same process) reads it and differentiates through the bias gather."""
+    tmpnet._BUCKET_IDS.pop((23, 32, torch.device("cpu")), None)
+    params = params_from_jax({"text_model": perturbed(
+        jmpnet.init_mpnet(jax.random.PRNGKey(9), JText(**TEXT)),
+        np.random.default_rng(9))})["text_model"]
+    ids = torch.full((2, 23), 5, dtype=torch.long)
+    mask = torch.ones((2, 23), dtype=torch.long)
+    with torch.inference_mode():
+        ref = tmpnet.mpnet_forward(params, TextConfig(**TEXT), ids, mask)
+    assert not tmpnet._BUCKET_IDS[(23, 32, torch.device("cpu"))].is_inference()
+    params["rel_bias"].requires_grad_(True)
+    out = tmpnet.mpnet_forward(params, TextConfig(**TEXT), ids, mask)
+    out.sum().backward()
+    assert params["rel_bias"].grad is not None
+    assert torch.equal(out.detach(), ref)
 
 
 def test_mpnet_fuse_post_on_cuda_raises():

@@ -272,10 +272,12 @@ def test_main_serves_a_bundle(bundle, tmp_path):
 
 
 @pytest.mark.parametrize("flag, says", [("--bundle", "exported for sets of 3 prompts"),
-                                         ("--ckpt", "real-checkpoint loader is not ported")])
+                                         ("--ckpt", "holds no state.pt")])
 def test_main_refuses(bundle, flag, says):
     """--bundle without a prompts file (the one-prompt default set cannot fill
-    a bundle's n_prompts) and --ckpt stop at the command line."""
+    a bundle's n_prompts) and --ckpt on a directory that holds no converted
+    checkpoint (here the bundle's) stop at the command line. A converted
+    checkpoint is served in tests/test_torch_checkpoint.py."""
     cmd, kw = _server_main(flag, bundle, "--port", "0")
     proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300, **kw)
     assert proc.returncode == 2 and says in proc.stderr, proc.stderr[-3000:]

@@ -88,14 +88,59 @@ def test_compute_logits_matches_jax(weights, eager):
 
 
 def test_unported_options_raise(weights):
+    """Options neither package knows stop with a ValueError."""
     _, params = weights
     pv, ids, mask = (torch.from_numpy(a) for a in _inputs())
     for cfg in (
-        dataclasses.replace(TCFG, compute_logits_type="cls_alignment"),
-        dataclasses.replace(TCFG, vision=dataclasses.replace(TCFG.vision, token_filter_ratio=0.5)),
+        dataclasses.replace(TCFG, compute_logits_type="patch_alignment"),
+        dataclasses.replace(TCFG, vision=dataclasses.replace(TCFG.vision, token_filter_ratio=0.5,
+                                                             token_filter_layer=2)),
     ):
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(ValueError):
             compute_logits(params, cfg, pv, ids.long(), mask.long())
+
+
+def _branch_cfg(m, branch):
+    cfg = _cfg(m)
+    if branch in ("linear", "mlp"):
+        return dataclasses.replace(cfg, align=m.AlignConfig(hidden_size=D, model_type=branch))
+    if branch == "token_filter":
+        return dataclasses.replace(cfg, vision=dataclasses.replace(
+            cfg.vision, token_filter_ratio=0.5, token_filter_layer=1))
+    if branch == "global_alignment":
+        cfg = dataclasses.replace(cfg, text=dataclasses.replace(cfg.text,
+                                                                use_text_projection=True))
+    return dataclasses.replace(cfg, compute_logits_type=branch)
+
+
+def _xla(jcfg):
+    return dataclasses.replace(
+        jcfg, vision=dataclasses.replace(jcfg.vision, attn_impl="xla"),
+        align=dataclasses.replace(jcfg.align, attn_impl="xla"))
+
+
+@pytest.mark.parametrize("branch", ["cls_alignment", "global_alignment", "linear", "mlp",
+                                    "token_filter"])
+def test_branch_logits_match_jax(branch):
+    """compute_logits of each branch the port used to refuse, through its
+    fused route (the K1-K5 twins) and its eager route, against the JAX
+    package's xla path on the same weights, at this file's 1e-5."""
+    jcfg, tcfg = _xla(_branch_cfg(jconf, branch)), _branch_cfg(tconf, branch)
+    tree = perturbed(jax_init_radzero(jax.random.PRNGKey(2), jcfg), np.random.default_rng(2))
+    params = params_from_jax(tree)
+    pv, ids, mask = _inputs()
+    ref = jax_compute_logits(tree, jcfg, jnp.asarray(pv), jnp.asarray(ids), jnp.asarray(mask))
+    assert set(ref) == ({"logits"} if branch == "cls_alignment"
+                        else {"logits", "similarity_scores"})
+    for eager in (False, True):
+        out = compute_logits(params, tcfg, torch.from_numpy(pv), torch.from_numpy(ids).long(),
+                             torch.from_numpy(mask).long(), eager=eager)
+        assert set(out) == set(ref)
+        for k in ref:
+            np.testing.assert_allclose(out[k].numpy(), np.asarray(ref[k]), rtol=1e-5, atol=1e-5)
+        if "similarity_scores" in ref:
+            mae = np.abs(out["similarity_scores"].numpy() - np.asarray(ref["similarity_scores"]))
+            assert mae.mean() < 1e-6
 
 
 def test_port_init_matches_bridge_layout(weights):

@@ -308,6 +308,32 @@ def test_forward_train_matches_jax(weights, dedup):
         np.testing.assert_allclose(got[path], ref[path], rtol=1e-4, atol=1e-5, err_msg=path)
 
 
+def test_forward_train_mlp_adapter_matches_jax():
+    """The mlp align adapter under training: loss and the gradient tree of the
+    trainable modules against jax.value_and_grad, rtol 2e-4 / atol 1e-5."""
+    jcfg, tcfg = (dataclasses.replace(c, align=m.AlignConfig(hidden_size=D, model_type="mlp"))
+                  for c, m in ((JCFG, jconf), (TCFG, tconf)))
+    tree = perturbed(jax_init_radzero(jax.random.PRNGKey(4), jcfg), np.random.default_rng(4))
+    batch = _batch(seed=5)
+    jtrain, jfrozen = _split(tree)
+    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+
+    def loss_fn(trainable):
+        return jax_forward_train({**trainable, **jfrozen}, jcfg, jbatch,
+                                 stop_vision_gradient=True)["losses"]["loss"]
+
+    ref_loss, ref_grads = jax.value_and_grad(loss_fn)(jax.tree_util.tree_map(jnp.asarray, jtrain))
+    out, trainable = _port_value_and_grads(params_from_jax(tree), tcfg, _to_torch(batch))
+    np.testing.assert_allclose(out["losses"]["loss"].item(), np.asarray(ref_loss), rtol=1e-5,
+                               atol=1e-6)
+    ref = dict(_leaves(params_to_numpy(params_from_jax(jax.tree_util.tree_map(np.asarray,
+                                                                              ref_grads)))))
+    got = {path: p.grad.numpy() for path, p in _leaves(trainable)}
+    assert sorted(got) == sorted(ref) and any("/fc3/" in path for path in got)
+    for path in ref:
+        np.testing.assert_allclose(got[path], ref[path], rtol=2e-4, atol=1e-5, err_msg=path)
+
+
 def test_forward_train_fused_kernels_match_eager_loss(weights):
     """train_impl="fused" (K10-K12 twins) against train_impl="xla" (autograd
     through the eager VL-CABS) inside the port."""
