@@ -138,7 +138,18 @@ Phases, in order; any failure exits non-zero:
    and peak memory of both; then 3 steps with attn_impl="flash" in the align
    layers (K13 / K14) and the text tower (K15 / K16); then loss and every
    gradient leaf of all three against the all-eager path on an fp32 batch of
-   2 images;
+   2 images; the remat legs (phase_remat): the default step under remat with
+   the align layers at remat_policy "save_attn" and at None, its loss and
+   every gradient leaf bit-equal to the step without it in bf16 at 64 x 512
+   and in fp32 at 2 images, its launches (the default step's plus K1 2 and K4
+   12, or K1-K3 2 each and K4 12), peak memory, median step and the card's
+   idle share beside the step without remat; the LoRA leg (phase_lora): r 8,
+   alpha 32 on attn/q and attn/v of the three towers, the merged forward at
+   init bit-equal to the base one, the adapter gradients with the tower
+   trainable through them (its 12 layers on K1-K3 / K6-K8) against the
+   all-eager route in fp32 at 2 images x 16 sentences under the per-leaf
+   gate, a bf16 second backward at 8 x 64 with the same bits, and the adapter
+   file round trip;
 7. the trainer: a synthetic MIMIC-CXR split (320 train / 64 eval grayscale
    PNGs of 1200 x 1000, 1-12 finding sentences each drawn with repeats from
    a pool) in a temporary directory, read through load_datasets and the
@@ -178,7 +189,22 @@ Phases, in order; any failure exits non-zero:
    adapters and the token filter (ratio 0.5, layer 6) each against the eager
    route in fp32 and bf16 (the token filter's bf16 eager route runs the kernel
    route's kept rows; the share of rows the routes keep alike is printed);
-   write, convert, load and cold-start seconds and the snapshot's bytes.
+   write, convert, load and cold-start seconds and the snapshot's bytes;
+9. the training entry point: python -m radzero_torch.cli.run --add_cfg_list
+   radzero <overlay> --train true --inference true --no_report in a fresh
+   process, then radzero_torch.cli.run.main in this one into a second output
+   directory, the flagship preset unchanged (batch 64, bf16,
+   gradient_checkpointing, buckets [16, 32]) but for the overlay: phase 7's
+   synthetic MIMIC split, a Chexpert / MS-CXR / RSNA eval root of 16
+   studies of 2000-3000 px, phase 8's vocab.txt, 1 epoch, logging_steps 1;
+   both exit 0 with output.log, the snapshot, checkpoint-5, log_history
+   steps 1-5 and the three result.json files, log_history's losses and each
+   result.json bit-equal between the runs; samples/s of the epoch, images/s
+   a task, cold start to the first step record and the phase's seconds; and
+   a third fresh process (chip_smoke.py --cold-probe, training only) with
+   timers on its imports, the CUDA context, the kernel library's load, the
+   epoch's first batch and each step, and cProfile over its first step,
+   which take the fresh process's slower epoch apart.
 
 --profile also prints the kernels of one training step by device time
 (torch.profiler; the 40 longest, K15 / K16's by name, and the fixed-order
@@ -2546,10 +2572,7 @@ def phase_training(seed, card, params, profile):
     from radzero_torch.models.configuration import (
         AlignConfig, LossConfig, RadZeroConfig, TextConfig, ViTConfig,
     )
-    from radzero_torch.models.radzero import forward_train
-    from radzero_torch.train.optim import (
-        build_optimizer, merge_params, partition_params, tree_leaves,
-    )
+    from radzero_torch.train.optim import build_optimizer, partition_params, tree_leaves
     from radzero_torch.train.step import make_train_step
 
     # the JAX package's own defaults: attn_impl="fused_vjp", fuse_post=True
@@ -2652,21 +2675,12 @@ def phase_training(seed, card, params, profile):
     # fp32, 2 images x 16 sentences: the all-kernel path, the eager-layer path and
     # the flash path against the all-eager path (eager layers, chain and VL-CABS)
     batch = train_batch(seed + 7, 2, 16, cfg.text.vocab_size, torch.float32)
-    trainable, frozen = partition_params(params, modules)
-    leaves = tree_leaves(trainable)
     legs = {"kernels": cfg, "eager layers": cfg_eager_layers, "flash": cfg_flash,
             "eager": dataclasses.replace(cfg_eager_layers, loss=LossConfig(train_impl="xla"))}
     got = {}
     for name, c in legs.items():
-        for p in leaves:
-            p.requires_grad_(True)
-        out = forward_train(merge_params(trainable, frozen), c, batch, dtype=torch.float32,
-                            stop_vision_gradient=True)
-        grads = torch.autograd.grad(out["losses"]["loss"], leaves, allow_unused=True)
-        for p in leaves:
-            p.requires_grad_(False)
-        got[name] = (out["losses"]["loss"].item(),
-                     [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)])
+        loss, grads = _grads(params, modules, c, batch, torch.float32)
+        got[name] = (loss.item(), grads)
     lx, gx = got["eager"]
     for name in ("kernels", "eager layers", "flash"):
         lf, gf = got[name]
@@ -3511,6 +3525,548 @@ def phase_checkpoint(seed, card):
     return launches
 
 
+def _grads(params, modules, c, batch, dtype, *, remat=False, stop=True):
+    """(loss, every gradient leaf of the ``modules`` subtree) of forward_train."""
+    import torch
+    from radzero_torch.models.radzero import forward_train
+    from radzero_torch.train.optim import merge_params, partition_params, tree_leaves
+
+    trainable, frozen = partition_params(params, modules)
+    leaves = tree_leaves(trainable)
+    for p in leaves:
+        p.requires_grad_(True)
+    try:
+        out = forward_train(merge_params(trainable, frozen), c, batch, dtype=dtype, remat=remat,
+                            stop_vision_gradient=stop)
+        grads = torch.autograd.grad(out["losses"]["loss"], leaves, allow_unused=True)
+    finally:
+        for p in leaves:
+            p.requires_grad_(False)
+    return out["losses"]["loss"].detach(), [torch.zeros_like(p) if g is None else g
+                                            for p, g in zip(leaves, grads)]
+
+
+def _same_bits(label, a, b):
+    import torch
+
+    (la, ga), (lb, gb) = a, b
+    same = torch.equal(la, lb) and len(ga) == len(gb) and all(
+        torch.equal(x, y) for x, y in zip(ga, gb))
+    print(f"  {label}: loss {lb.item():.7f}, {len(gb)} gradient leaves, "
+          f"{'bit-equal' if same else 'DIFFERENT'}")
+    if not same:
+        fail(f"{label}: the loss or a gradient leaf differs from the step without remat")
+
+
+def phase_remat(seed, card, params):
+    """6, remat legs: the default step under remat (TrainerArgs.gradient_checkpointing)
+    with the align layers at remat_policy "save_attn" (the default) and at None, beside the
+    step without it, at 64 images x 512 sentences x 32 tokens in bf16: the loss and every
+    gradient leaf bit-equal, the launches (the default step's plus K1 2 and K4 12 under
+    save_attn; K1-K3 2 each and K4 12 under None), peak memory, the median step and the
+    card's idle share; the same bit check on phase 6's fp32 batch of 2 images. Returns the
+    launches of one save_attn remat step."""
+    import torch
+    from radzero_torch.models.configuration import (
+        AlignConfig, LossConfig, RadZeroConfig, TextConfig, ViTConfig,
+    )
+    from radzero_torch.train.optim import build_optimizer, partition_params
+    from radzero_torch.train.step import make_train_step
+
+    t_phase = time.perf_counter()
+    cfg = RadZeroConfig(vision=ViTConfig(), align=AlignConfig(), text=TextConfig(),
+                        loss=LossConfig(train_impl="fused"))
+    cfg_none = dataclasses.replace(cfg, align=dataclasses.replace(cfg.align, remat_policy=None))
+    modules = ("align_transformer", "text_model", "loss_fns")
+    n_tower, n_align = cfg.vision.num_hidden_layers, cfg.align.num_hidden_layers
+    n_text = cfg.text.num_hidden_layers
+    base = dict(fused_preattn=n_tower + n_align, flash_attention_packed=n_tower + n_align,
+                fused_postattn=n_tower + n_align, fused_mpnet_post=n_text,
+                fused_preattn_bwd=n_align, flash_attention_packed_bwd=n_align,
+                fused_postattn_bwd=n_align, fused_mpnet_post_bwd=n_text,
+                vlcabs_train_forward=1, vlcabs_train_bwd_dq=1, vlcabs_train_bwd_dtn=1)
+
+    def plus(**more):
+        return expected(**{k: v + more.get(k, 0) for k, v in base.items()})
+
+    legs = [("no remat", cfg, False, plus()),
+            ('remat, align "save_attn"', cfg, True,
+             plus(fused_preattn=n_align, fused_mpnet_post=n_text)),
+            ("remat, align None", cfg_none, True,
+             plus(fused_preattn=n_align, flash_attention_packed=n_align,
+                  fused_postattn=n_align, fused_mpnet_post=n_text))]
+    print(f"remat (phase 6): {TB} images x {TN} sentences x {T_LEN} tokens, bf16, the tower "
+          "frozen; the align layers' policy, MPNet's full per-layer recompute")
+
+    batch = train_batch(seed, TB, TN, cfg.text.vocab_size, torch.bfloat16)
+    ref = _grads(params, modules, cfg, batch, torch.bfloat16)
+    for label, c, remat, _ in legs[1:]:
+        _same_bits(f"bf16, {TB} images, {label}", ref,
+                   _grads(params, modules, c, batch, torch.bfloat16, remat=remat))
+    del ref
+    small = train_batch(seed + 7, 2, 16, cfg.text.vocab_size, torch.float32)
+    ref = _grads(params, modules, cfg, small, torch.float32)
+    for label, c, remat, _ in legs[1:]:
+        _same_bits(f"fp32, 2 images, {label}", ref,
+                   _grads(params, modules, c, small, torch.float32, remat=remat))
+    del ref
+
+    rows, remat_step = [], None
+    for label, c, remat, expect in legs:
+        trainable, frozen = partition_params(params, modules)
+        trainable = _clone(trainable)
+        opt, _ = build_optimizer(learning_rate=1e-4, warmup_steps=1, total_steps=6)
+        state = opt.init(trainable)
+        step = make_train_step(c, opt, dtype=torch.bfloat16, remat=remat)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        seconds, per_step = [], []
+        for _ in range(4):
+            reset_counters()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            trainable, state, losses = step(trainable, frozen, state, batch)
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+            per_step.append(read_counters())
+            if not all(math.isfinite(v.item()) for v in losses.values()):
+                fail(f"remat {label}: non-finite losses {losses}")
+        peak = torch.cuda.max_memory_allocated()
+        if any(p != expect for p in per_step):
+            fail(f"remat {label}: expected launches per step {expect}, got {per_step[-1]}")
+        idle = device_idle(lambda: step(trainable, frozen, state, batch))
+        med = sorted(seconds[1:])[len(seconds[1:]) // 2]
+        share = "not recorded" if idle is None else f"{100 * (1 - idle[0] / idle[1]):.1f}%"
+        rows.append((label, peak, med, share))
+        print(f"  {label}: peak {peak / 2**30:.2f} GiB, median step {med:.4f} s of steps 1-3 "
+              f"({TB / med:.2f} images/s), card idle {share} of a step"
+              + ("" if idle is None else f" (busy {idle[0]:.1f} of {idle[1]:.1f} ms)"))
+        if label.startswith('remat, align "save'):
+            remat_step = per_step[-1]
+        del trainable, state, step
+    (_, p0, s0, _), *others = rows
+    for label, p, s, _ in others:
+        print(f"  {label} against no remat: peak {p / 2**30:.2f} vs {p0 / 2**30:.2f} GiB "
+              f"({(p0 - p) / 2**30:+.2f} GiB saved), step {s:.4f} vs {s0:.4f} s "
+              f"({100 * (s / s0 - 1):+.1f}%), on {card}")
+        if p >= p0:
+            fail(f"remat {label}: peak memory {p} not below the step without remat {p0}")
+    print(f"  remat legs {time.perf_counter() - t_phase:.1f} s")
+    return remat_step
+
+
+LORA_TARGETS = ["attn/q", "attn/v"]  # tests/test_lora.py's
+
+
+def phase_lora(seed, card, params):
+    """6, the LoRA leg at full width: r 8, alpha 32 on attn/q and attn/v of the three
+    towers (radzero_torch/train/lora.py). At init the merged forward is bit-equal to the
+    base one (B = 0); with B drawn off zero, the adapter gradients through the kernels (the
+    tower trainable through its adapters: its 12 layers on K1-K3 / K6-K8, the align layers,
+    K4 / K9, K10-K12) against the all-eager route in fp32 at 2 images x 16 sentences, under
+    phase 6's per-leaf gate; in bf16 at 8 images x 64 sentences a finite loss and a second
+    backward with the same bits; save_adapter / load_adapter with the same bits."""
+    import tempfile
+
+    import torch
+    from radzero_torch.models.configuration import (
+        AlignConfig, LossConfig, RadZeroConfig, TextConfig, ViTConfig,
+    )
+    from radzero_torch.models.radzero import forward_train
+    from radzero_torch.models.vit import vit_forward
+    from radzero_torch.train.lora import (
+        init_lora, load_adapter, lora_trainable, merge_lora, save_adapter, with_trainable,
+    )
+
+    t_phase = time.perf_counter()
+    cfg = RadZeroConfig(vision=ViTConfig(), align=AlignConfig(), text=TextConfig(),
+                        loss=LossConfig(train_impl="fused"))
+    cfg_eager = dataclasses.replace(cfg, align=AlignConfig(attn_impl="xla"),
+                                    text=TextConfig(fuse_post=False),
+                                    loss=LossConfig(train_impl="xla"))
+    gen = torch.Generator(device="cuda").manual_seed(seed + 50)
+    lora = init_lora(gen, params, LORA_TARGETS, r=8, alpha=32)
+    n_ad = sum(t.numel() for ab in lora["adapters"].values() for t in ab.values())
+    print(f"lora (phase 6): r 8, alpha 32 on {LORA_TARGETS} of every tower: "
+          f"{len(lora['adapters'])} adapters, {n_ad / 1e6:.2f} M parameters")
+
+    batch8 = train_batch(seed + 9, 8, 64, cfg.text.vocab_size, torch.bfloat16)
+    with torch.no_grad():
+        a = forward_train(params, cfg, batch8, dtype=torch.bfloat16)
+        b = forward_train(merge_lora(params, lora), cfg, batch8, dtype=torch.bfloat16)
+    same = (torch.equal(a["losses"]["loss"], b["losses"]["loss"])
+            and torch.equal(a["vision_tokens"], b["vision_tokens"]))
+    print(f"  at init, bf16, 8 images: merged loss {b['losses']['loss'].item():.7f} vs base "
+          f"{a['losses']['loss'].item():.7f}, vision tokens {'bit-equal' if same else 'DIFFER'}")
+    if not same:
+        fail("lora: the merged forward at init differs from the base forward")
+    del a, b
+    for ab in lora["adapters"].values():  # B off zero: A's gradient is not zero either
+        ab["b"].copy_(0.01 * torch.randn(ab["b"].shape, generator=gen, device="cuda"))
+
+    def adapter_grads(loss_of):
+        tr = lora_trainable(lora)
+        leaves = [t for ab in tr["adapters"].values() for t in (ab["a"], ab["b"])]
+        for t in leaves:
+            t.requires_grad_(True)
+        try:
+            loss = loss_of(merge_lora(params, with_trainable(lora, tr)))
+            grads = torch.autograd.grad(loss, leaves)
+        finally:
+            for t in leaves:
+                t.requires_grad_(False)
+        return loss.detach(), list(grads)
+
+    small = train_batch(seed + 7, 2, 16, cfg.text.vocab_size, torch.float32)
+    reset_counters()
+    lk, gk = adapter_grads(lambda p: forward_train(p, cfg, small)["losses"]["loss"])
+    counts = read_counters()
+    n_tower, n_align = cfg.vision.num_hidden_layers, cfg.align.num_hidden_layers
+    want = {"fused_preattn_bwd": n_tower + n_align,
+            "flash_attention_packed_bwd": n_tower + n_align,
+            "fused_postattn_bwd": n_tower + n_align,
+            "fused_mpnet_post_bwd": cfg.text.num_hidden_layers, "vlcabs_train_bwd_dq": 1,
+            "vlcabs_train_bwd_dtn": 1}
+    print(f"  fp32 kernel route's backward launches: "
+          f"{ {k: counts[k] for k in want} }")
+    if any(counts[k] != v for k, v in want.items()):
+        fail(f"lora: the kernel route's backward launches {counts}, expected {want}")
+
+    def eager_loss(p):
+        tokens = vit_forward(p["vision_model"], cfg.vision, small["pixel_values"], impl="eager")
+        return forward_train(p, cfg_eager, {**small, "tower_tokens": tokens})["losses"]["loss"]
+
+    le, ge = adapter_grads(eager_loss)
+    names = [f"{k.split('/')[0]} {k.split('/')[-2]}.{n}"
+             for k in lora["adapters"] for n in ("a", "b")]
+    worst = {}
+    for name, x, y in zip(names, gk, ge):
+        share = ((x - y).abs().max() / (2e-4 * y.abs().max() + 1e-7)).item()
+        worst[name.split()[0]] = max(worst.get(name.split()[0], 0.0), share)
+        if share > 1.0 or not bool(torch.isfinite(x).all()):
+            fail(f"lora: adapter gradient {name} of the kernel route disagrees with the eager "
+                 f"route ({100 * share:.0f}% of the gate)")
+    print(f"  fp32, 2 images: loss kernels {lk.item():.7f} vs eager {le.item():.7f}; worst "
+          f"adapter gradient entry by tower, share of the gate 2e-4 max|g| + 1e-7: "
+          + ", ".join(f"{k} {100 * v:.1f}%" for k, v in worst.items()))
+    if abs(lk.item() - le.item()) > 1e-5 * abs(le.item()) + 1e-6:
+        fail("lora: the kernel route's loss disagrees with the eager route's")
+
+    def bf16_loss(p):
+        return forward_train(p, cfg, batch8, dtype=torch.bfloat16)["losses"]["loss"]
+
+    first, second = adapter_grads(bf16_loss), adapter_grads(bf16_loss)
+    same = torch.equal(first[0], second[0]) and all(
+        torch.equal(x, y) for x, y in zip(first[1], second[1]))
+    print(f"  bf16, 8 images: loss {first[0].item():.5f}, a second backward "
+          f"{'bit-equal' if same else 'DIFFERENT'}")
+    if not math.isfinite(first[0].item()) or not same:
+        fail("lora: bf16 loss not finite, or a second backward gave other bits")
+    with tempfile.TemporaryDirectory() as tmp:
+        save_adapter(lora, tmp)
+        back = load_adapter(tmp, init_lora(gen, params, LORA_TARGETS, r=8, alpha=32))
+    same = (back["r"], back["alpha"]) == (8, 32) and all(
+        torch.equal(back["adapters"][k][n], ab[n])
+        for k, ab in lora["adapters"].items() for n in ("a", "b"))
+    print(f"  save_adapter / load_adapter: {'bit-equal' if same else 'DIFFERENT'}; lora leg "
+          f"{time.perf_counter() - t_phase:.1f} s on {card}")
+    if not same:
+        fail("lora: the adapter round trip changed a bit")
+
+
+CLI_EVAL_N = 16  # studies of each eval dataset in phase 9 (one scorer batch)
+# K1-K12: the training steps (remat), the epoch's eval and the fp32 scorer's K5
+PATH_CLI = ("fused_preattn", "flash_attention_packed", "fused_postattn", "fused_mpnet_post",
+            "vlcabs_fused", "fused_preattn_bwd", "flash_attention_packed_bwd",
+            "fused_postattn_bwd", "fused_mpnet_post_bwd", "vlcabs_train_forward",
+            "vlcabs_train_bwd_dq", "vlcabs_train_bwd_dtn")
+
+
+def _log_rows(out_dir):
+    """-> (the loss fields of every log_history.jsonl record with a step, in order; the
+    steps of the step records; the epoch record)."""
+    rows = [json.loads(line) for line in (out_dir / "log_history.jsonl").read_text().splitlines()]
+    losses = [{k: v for k, v in r.items() if "loss" in k or k in ("step", "epoch", "grad_norm")}
+              for r in rows if "step" in r]
+    epochs = [r for r in rows if "train_samples_per_second" in r]
+    steps = [r["step"] for r in rows if "loss" in r and "train_samples_per_second" not in r]
+    return losses, steps, epochs[0] if epochs else {}
+
+
+def _first_step_profile(prof, new_modules) -> dict:
+    """cProfile's view of the first training step on the main thread: the seconds inside
+    imports, the modules it imported first, and the 12 functions of most own time (a
+    call into C, a kernel's launch included, counts as its caller's own time; the
+    backward runs on autograd's device thread, so it shows as run_backward's)."""
+    import pstats
+
+    st = pstats.Stats(prof).stats
+    imports = sum(v[3] for k, v in st.items() if k[2] == "_find_and_load")
+    top = sorted(st.items(), key=lambda kv: kv[1][2], reverse=True)[:12]
+    return {
+        "imports_s": imports,
+        "new_modules": len(new_modules),
+        "new_packages": sorted({m.split(".")[0] + ("." + m.split(".")[1] if "." in m else "")
+                                for m in new_modules})[:20],
+        "top_own_s": [[k[2] if k[0] == "~" else f"{Path(k[0]).name}:{k[2]}", v[2]]
+                      for k, v in top],
+    }
+
+
+def cold_probe(argv) -> int:
+    """``chip_smoke.py --cold-probe <cli arguments>``: radzero_torch.cli.run.main in a fresh
+    process, with timers on what such a process pays that the in-process run does not: its
+    imports, the CUDA context (made here before main), the kernel library's load, the
+    epoch's first batch and each training step (synchronized after it). Prints one JSON
+    line of seconds."""
+    import cProfile
+
+    t_start = time.perf_counter()
+    sys.path.insert(0, str(REPO))
+    import torch
+    from radzero_torch.cli import run as cli
+    from radzero_torch.ops import _build
+    from radzero_torch.train import trainer as trainer_mod
+
+    import_s = time.perf_counter() - t_start
+    t0 = time.perf_counter()
+    torch.empty(1, device="cuda")
+    torch.cuda.synchronize()
+    cuda_s = time.perf_counter() - t0
+    spans = {"steps": []}
+    load, train, make = _build.load, trainer_mod.RadZeroTrainer.train, trainer_mod.make_train_step
+
+    def timed_load():
+        if _build._lib is not None:
+            return load()
+        t = time.perf_counter()
+        try:
+            return load()
+        finally:
+            spans["load"] = (t, time.perf_counter())
+
+    def timed_train(self, *a, **kw):
+        spans["train"] = time.perf_counter()
+        return train(self, *a, **kw)
+
+    def timed_make(*a, **kw):
+        step = make(*a, **kw)
+
+        def timed(*sa):
+            first = not spans["steps"]
+            prof, before = cProfile.Profile(), set(sys.modules)
+            t = time.perf_counter()
+            if first:
+                prof.enable()
+            out = step(*sa)
+            torch.cuda.synchronize()
+            if first:
+                prof.disable()
+            spans["steps"].append((t, time.perf_counter()))
+            if first:
+                spans["profile"] = _first_step_profile(prof, set(sys.modules) - before)
+            return out
+        return timed
+
+    _build.load, trainer_mod.RadZeroTrainer.train = timed_load, timed_train
+    trainer_mod.make_train_step = timed_make
+    rc = cli.main(argv)
+    t_train, steps = spans.get("train"), spans["steps"]
+    load_span = spans.get("load")
+    print(json.dumps({
+        "rc": rc, "import_s": import_s, "cuda_init_s": cuda_s, "first_step": spans.get("profile"),
+        "to_train_s": None if t_train is None else t_train - t_start,
+        "kernel_load_s": None if load_span is None else load_span[1] - load_span[0],
+        "kernel_load_in_epoch": bool(load_span and t_train and load_span[0] >= t_train),
+        "first_batch_s": steps[0][0] - t_train if steps and t_train else None,
+        "steps_s": [b - a for a, b in steps],
+        "gaps_s": [b[0] - a[1] for a, b in zip(steps, steps[1:])],
+    }))
+    return 0 if rc == 0 else 1
+
+
+def phase_cli(seed, card):
+    """9, the flagship training entry point: ``python -m radzero_torch.cli.run
+    --add_cfg_list radzero <overlay> --train true --inference true --no_report`` in a fresh
+    process, then radzero_torch.cli.run.main in this one into a second output directory.
+    The overlay points at phase 7's synthetic MIMIC split (320 / 64 PNGs of 1200 x 1000),
+    phase 5a's synthetic eval sets (Chexpert, MS-CXR, RSNA; CLI_EVAL_N studies of
+    2000-3000 px), phase 8's vocab.txt, and sets num_train_epochs 1 and logging_steps 1;
+    the preset is otherwise the flagship's (batch 64, bf16, gradient_checkpointing, buckets
+    [16, 32]). Gates: both exit cleanly; the run files and checkpoint-5; log_history's
+    losses and each result.json bit-equal between the runs. Returns the launches of the
+    in-process run."""
+    import logging
+    import os
+    import tempfile
+
+    import yaml
+    from radzero_torch.cli import run as cli
+    from radzero_torch.eval import inference as inference_mod
+    from radzero_torch.tools import synthetic_eval_data as sd
+
+    t_phase = time.perf_counter()
+    tasks = ("classification", "grounding", "segmentation")
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        root = tmp / "data"
+        t0 = time.perf_counter()
+        dataset = mimic_split(root, seed, 320, 64)
+        sizes = sd.chest_sizes(CLI_EVAL_N, seed)
+        sd.build_images(str(root), n=CLI_EVAL_N, seed=seed, sizes=sizes, compress_level=1,
+                        threads=8)
+        sd.build_chexpert(str(root), n=CLI_EVAL_N)
+        sd.build_mscxr(str(root), n=CLI_EVAL_N, sizes=sizes)
+        sd.build_rsna(str(root), n=CLI_EVAL_N, scale=max(1, min(w for _, w in sizes) // 60))
+        vocab = tmp / "vocab.txt"
+        vocab.write_text("\n".join(checkpoint_vocab([f"There is {c}" for c in CHEXPERT])) + "\n")
+        overlay = tmp / "overlay.yaml"
+        overlay.write_text(yaml.safe_dump({
+            "experiment": {"output_root_dir": str(tmp / "out"), "name": "cli_process"},
+            "dataset": dataset,
+            "train": {"num_train_epochs": 1, "logging_steps": 1},
+            "inference": {"cls_dataset": ["Chexpert"], "det_dataset": ["MS-CXR"],
+                          "seg_dataset": ["RSNA"]},
+            "model": {"model_config": {"text_config": {
+                "pretrained_tokenizer_name_or_path": str(vocab)}}},
+        }))
+        print(f"cli (phase 9): python -m radzero_torch.cli.run --add_cfg_list radzero "
+              f"<overlay> --train true --inference true --no_report; data written in "
+              f"{time.perf_counter() - t0:.1f} s")
+        argv = ["--add_cfg_list", "radzero", str(overlay), "--train", "true",
+                "--inference", "true", "--no_report"]
+        env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+        env["PYTHONPATH"] = str(REPO)
+        out = tmp / "out" / "pt" / "anonymous"
+        history = out / "cli_process" / "log_history.jsonl"
+        t0 = time.perf_counter()
+        with open(tmp / "cli.log", "w") as log:
+            proc = subprocess.Popen([sys.executable, "-m", "radzero_torch.cli.run", *argv],
+                                    cwd=str(REPO), env=env, stdout=log, stderr=subprocess.STDOUT)
+            cold = None
+            try:
+                while proc.poll() is None:
+                    if cold is None and history.exists() and '"step"' in history.read_text():
+                        cold = time.perf_counter() - t0
+                    if time.perf_counter() - t0 > 400:
+                        proc.kill()
+                        break
+                    time.sleep(0.05)
+            finally:
+                if proc.poll() is None:
+                    proc.kill()
+                proc.wait()
+        run1_s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            print((tmp / "cli.log").read_text()[-4000:], file=sys.stderr)
+            fail(f"cli: python -m radzero_torch.cli.run exited with {proc.returncode}")
+        # the fresh process's epoch, taken apart: the same run with timers (cold_probe)
+        probe = subprocess.run(
+            [sys.executable, str(REPO / "chip_smoke.py"), "--cold-probe", *argv, "--name",
+             "cli_probe", "--inference", "false"],
+            cwd=str(REPO), env=env, capture_output=True, text=True, timeout=400)
+        if probe.returncode != 0:
+            print(probe.stdout[-4000:] + probe.stderr[-4000:], file=sys.stderr)
+            fail(f"cli: the cold-start probe exited with {probe.returncode}")
+        cold_parts = json.loads(probe.stdout.strip().splitlines()[-1])
+        probe_epoch = _log_rows(out / "cli_probe")[2]
+
+        timers = {}
+        originals = {t: getattr(inference_mod.Inference, t) for t in tasks}
+
+        def timed(task):
+            def call(*a, **kw):
+                t1 = time.perf_counter()
+                try:
+                    return originals[task](*a, **kw)
+                finally:
+                    timers[task] = time.perf_counter() - t1
+            return call
+
+        logger = logging.getLogger("radzero_torch")
+        handlers, levels = list(logger.handlers), [h.level for h in logger.handlers]
+        for h in handlers:  # the run's log goes to its output.log, not to this output
+            h.setLevel(logging.WARNING)
+        for t in tasks:
+            setattr(inference_mod.Inference, t, timed(t))
+        try:
+            reset_counters()
+            t0 = time.perf_counter()
+            rc = cli.main(argv + ["--name", "cli_in_process"])
+            run2_s = time.perf_counter() - t0
+            launches = read_counters()
+        finally:
+            for t in tasks:
+                setattr(inference_mod.Inference, t, originals[t])
+            for h, lv in zip(handlers, levels):
+                h.setLevel(lv)
+            for h in logger.handlers[len(handlers):]:
+                logger.removeHandler(h)
+                h.close()
+        if rc != 0:
+            fail(f"cli: main returned {rc}")
+        idle = [n for n in PATH_CLI if launches[n] == 0]
+        if idle:
+            fail(f"cli: the in-process run launched no {idle}")
+
+        runs = {}
+        for name in ("cli_process", "cli_in_process"):
+            d = out / name
+            missing = [p for p in ("output.log", "snapshot/git_diff.patch",
+                                   "snapshot/last_commit.json", "snapshot/config.yaml",
+                                   "checkpoint-5", "log_history.jsonl")
+                       + tuple(f"inference/{t}/result.json" for t in tasks)
+                       if not (d / p).exists()]
+            if missing:
+                fail(f"cli: {name} wrote no {missing}")
+            losses, steps, epoch = _log_rows(d)
+            if steps != [1, 2, 3, 4, 5] or "eval_loss" not in epoch:
+                fail(f"cli: {name}'s step records are {steps}, its epoch record {epoch}")
+            runs[name] = (losses, {t: (d / "inference" / t / "result.json").read_bytes()
+                                   for t in tasks}, epoch)
+        (l1, r1, e1), (l2, r2, e2) = runs["cli_process"], runs["cli_in_process"]
+        if l1 != l2:
+            fail(f"cli: the runs' log_history losses differ: {l1} vs {l2}")
+        diff = [t for t in tasks if r1[t] != r2[t]]
+        if diff:
+            fail(f"cli: result.json of {diff} differs between the runs")
+        results = {t: json.loads(r1[t]) for t in tasks}
+    print(f"  both runs exit 0 with output.log, the snapshot, checkpoint-5 and log_history "
+          f"steps 1-5; log_history losses ({len(l1)} records) and the 3 result.json files "
+          f"bit-equal between the runs; step 5 loss "
+          f"{next(r['loss'] for r in l1 if r['step'] == 5 and 'loss' in r):.5f}, "
+          f"eval_loss {e1['eval_loss']:.5f}")
+    print(f"  results: {json.dumps(results)}")
+    print(f"  epoch: {e1['train_samples_per_second']:.2f} samples/s (fresh process), "
+          f"{e2['train_samples_per_second']:.2f} (in process), 5 steps of 64; cold start to "
+          f"the first step record {'not seen' if cold is None else f'{cold:.1f} s'}; run 1 "
+          f"{run1_s:.1f} s, run 2 {run2_s:.1f} s")
+    cp = cold_parts
+    steps = cp["steps_s"]
+    later = sorted(steps[1:])[len(steps[1:]) // 2] if len(steps) > 1 else float("nan")
+    load_s = cp["kernel_load_s"]
+    print(f"  cold-start probe (a third fresh process, each step synchronized): imports "
+          f"{cp['import_s']:.2f} s, CUDA context {cp['cuda_init_s']:.2f} s, main to the "
+          f"epoch {cp['to_train_s'] - cp['import_s'] - cp['cuda_init_s']:.2f} s (before the "
+          f"epoch); kernel library load "
+          f"{'none' if load_s is None else f'{load_s:.3f} s'} "
+          f"({'in' if cp['kernel_load_in_epoch'] else 'before'} the epoch); in the epoch: "
+          f"the first batch {cp['first_batch_s']:.2f} s, the first step {steps[0]:.2f} s "
+          f"against a median {later:.3f} s of steps 2-{len(steps)}, loader waits between "
+          f"steps {sum(cp['gaps_s']):.2f} s; its epoch "
+          f"{probe_epoch['train_samples_per_second']:.2f} samples/s")
+    fs = cp["first_step"]
+    print(f"  the probe's first step on the host's main thread (cProfile on, which slows it): "
+          f"imports {fs['imports_s']:.2f} s, {fs['new_modules']} modules imported first "
+          f"({', '.join(fs['new_packages'])}); own time: "
+          + ", ".join(f"{name} {t:.3f} s" for name, t in fs["top_own_s"]))
+    print("  eval (in process, fp32, batch 64): " + ", ".join(
+        f"{t} {CLI_EVAL_N / timers[t]:.2f} images/s ({timers[t]:.2f} s)" for t in tasks))
+    print(f"  launches of the in-process run: {launches}")
+    print(f"  phase 9 (cli) {time.perf_counter() - t_phase:.1f} s on {card}")
+    return launches
+
+
 def _keyed_paths(tree, prefix=""):
     """(path, leaf) of a dict / list tree."""
     if isinstance(tree, dict):
@@ -3585,6 +4141,8 @@ def _leaves(tree):
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["--cold-probe"]:
+        return cold_probe(sys.argv[2:])
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
@@ -3630,8 +4188,11 @@ def main() -> int:
     scoring = phase_scorer(args.seed, card, params)
     evaluation = phase_eval(args.seed, card, params)
     training, flash_step, bare_step_s = phase_training(args.seed, card, params, args.profile)
+    remat_step = phase_remat(args.seed, card, params)
+    phase_lora(args.seed, card, params)
     trainer_step = phase_trainer(args.seed, card, params, bare_step_s)
     checkpoint = phase_checkpoint(args.seed, card)
+    cli = phase_cli(args.seed, card)
 
     meta = {
         "K1": ("fused_preattn", "radzero_torch/ops/csrc/gemm_sm90.cu",
@@ -3669,23 +4230,25 @@ def main() -> int:
     }
     # launches: the serving burst's count, the HTTP burst's, one run of each exported
     # program, the scorer run's, the eval suite's, one default training step's, one
-    # flash training step's, one trainer step's and the converted checkpoint's 4
-    # requests; each path was driven with every count at 0 and read right after
+    # flash training step's, one remat step's (align "save_attn"), one trainer step's,
+    # the converted checkpoint's 4 requests and the in-process CLI run's; each path was
+    # driven with every count at 0 and read right after
     from radzero_torch.ops import registry
 
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "registered_op": f"radzero::{name}" if name in registry.calls else None,
          "launches": serving[name] + server[name] + exported[name] + scoring[name]
-         + evaluation[name] + training[name] + flash_step[name] + trainer_step[name]
-         + checkpoint[name],
+         + evaluation[name] + training[name] + flash_step[name] + remat_step[name]
+         + trainer_step[name] + checkpoint[name] + cli[name],
          "launches_serving": serving[name], "launches_server": server[name],
          "launches_export": exported[name], "launches_scorer": scoring[name],
          "launches_eval": evaluation[name],
          "launches_training_step": training[name],
          "launches_flash_training_step": flash_step[name],
+         "launches_remat_step": remat_step[name],
          "launches_trainer_step": trainer_step[name],
-         "launches_checkpoint": checkpoint[name], **rows[k]}
+         "launches_checkpoint": checkpoint[name], "launches_cli": cli[name], **rows[k]}
         for k, (name, src, rep) in meta.items()
     ]
     k11 = next(k for k in kernels if k["name"] == "vlcabs_train_bwd_dq")

@@ -2,7 +2,9 @@
 
 ``align_transformer``: N DINOv2 layers, on the fused K1-K3 layer unless
 ``impl`` names another ("packed", "flash", "eager": see ``models/vit.py``), plus an
-optional trailing LN;
+optional trailing LN; under ``remat`` (with ``AlignConfig.remat``, when not
+None, in its place, as radzero_tpu/models/align.py:40-48 does) each layer
+runs under ``AlignConfig.remat_policy`` (``models/vit.py`` ``vit_encoder``);
 ``identity``: tokens pass through; ``linear``: one D -> D product;
 ``mlp``: the reference's 3-hidden-layer ReLU MLP, D -> 1024 -> 1024 -> 1024
 -> D (align_transformers.py:65-83, dropout inactive at eval). The last two
@@ -29,8 +31,10 @@ def _align_transformer_init(g: torch.Generator, cfg: AlignConfig) -> dict:
     return params
 
 
-def _align_transformer_apply(params, cfg: AlignConfig, tokens, *, impl="fused"):
-    tokens = vit_encoder(params["layers"], cfg.as_vit(), tokens, impl=impl)
+def _align_transformer_apply(params, cfg: AlignConfig, tokens, *, impl="fused", remat=False):
+    if cfg.remat is not None:
+        remat = cfg.remat
+    tokens = vit_encoder(params["layers"], cfg.as_vit(), tokens, impl=impl, remat=remat)
     if cfg.use_layer_norm:
         tokens = layer_norm(tokens, params["layer_norm"], cfg.layer_norm_eps)
     return tokens
@@ -40,7 +44,7 @@ def _identity_init(g, cfg) -> dict:
     return {}
 
 
-def _identity_apply(params, cfg, tokens, *, impl="fused"):
+def _identity_apply(params, cfg, tokens, *, impl="fused", remat=False):
     return tokens
 
 
@@ -48,7 +52,7 @@ def _linear_init(g, cfg: AlignConfig) -> dict:
     return {"linear": _init_linear(g, cfg.hidden_size, cfg.hidden_size)}
 
 
-def _linear_apply(params, cfg, tokens, *, impl="fused"):
+def _linear_apply(params, cfg, tokens, *, impl="fused", remat=False):
     return linear(tokens, params["linear"])
 
 
@@ -58,7 +62,7 @@ def _mlp_init(g, cfg: AlignConfig) -> dict:
     return {f"fc{i}": _init_linear(g, dims[i], dims[i + 1]) for i in range(4)}
 
 
-def _mlp_apply(params, cfg, tokens, *, impl="fused"):
+def _mlp_apply(params, cfg, tokens, *, impl="fused", remat=False):
     x = tokens
     for i in range(3):
         x = torch.relu(linear(x, params[f"fc{i}"]))
@@ -74,8 +78,9 @@ _ADAPTERS = {
 
 
 def build_align_adapter(model_type: str):
-    """-> (init(generator, cfg), apply(params, cfg, tokens, *, impl)); ``impl``
-    names the layer of ``align_transformer`` and is ignored by the others."""
+    """-> (init(generator, cfg), apply(params, cfg, tokens, *, impl, remat));
+    ``impl`` and ``remat`` are read by ``align_transformer`` and ignored by
+    the others."""
     if model_type not in _ADAPTERS:
         raise ValueError(f"unknown align adapter {model_type!r}; expected one of "
                          f"{sorted(_ADAPTERS)}")

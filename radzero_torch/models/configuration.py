@@ -18,6 +18,16 @@ always runs the fused layer (trainable, it differentiates through K6-K8).
 ``TextConfig.fuse_post`` (K4 with its backward K9) are read in scoring and
 in training alike, ``LossConfig.train_impl`` ("fused": the VL-CABS training
 kernels K10-K12; else eager ops) in training.
+
+Remat, in training only (``forward_train(..., remat=True)``, which
+``TrainerArgs.gradient_checkpointing`` sets), with the JAX meanings:
+``ViTConfig.remat_policy`` / ``AlignConfig.remat_policy`` pick what a
+rematerialised DINOv2 layer keeps (None: its input only, the whole layer
+recomputed in the backward; "save_attn": its input and the attention
+output, only the pre-attention part recomputed; ``models/vit.py``),
+``AlignConfig.remat`` and ``TextConfig.remat`` override the caller's flag
+for the align layers and the MPNet tower when not None. A frozen tower runs
+without a tape and ignores remat.
 """
 
 from __future__ import annotations
@@ -55,7 +65,9 @@ class ViTConfig:
     attn_impl: str = "flash"      # read when fused_towers=False: "flash" = K13 / K14
     token_filter_ratio: float = 0.0  # > 0: drop this share of the patches (models/vit.py)
     token_filter_layer: int = 6      # ... before this layer
-    remat_policy: Optional[str] = None  # training only; not read yet
+    # under remat: None = full per-layer recompute, "save_attn" = keep the
+    # attention output, recompute only the pre-attention part (models/vit.py)
+    remat_policy: Optional[str] = None
 
     def __post_init__(self):
         _check_remat_policy(self.remat_policy)
@@ -93,11 +105,14 @@ class AlignConfig:
     layer_norm_eps: float = 1e-6
     layerscale_value: float = 1.0
     use_layer_norm: bool = False
-    remat: Optional[bool] = None       # training only; not read yet
+    # None follows the caller's remat flag; True / False forces it for the
+    # align layers alone
+    remat: Optional[bool] = None
     # forward_train, and scoring with fused_towers=False: "fused_vjp" = K1-K3
     # with the K6-K8 backward, "packed" = K2 / K7, "flash" = K13 / K14,
     # "xla" = eager layers under autograd
     attn_impl: str = "fused_vjp"
+    # see ViTConfig.remat_policy; read when the align layers run under remat
     remat_policy: Optional[str] = "save_attn"
 
     def __post_init__(self):
@@ -138,6 +153,8 @@ class TextConfig:
     # True runs the post-attention chain through kernel K4, whose backward
     # under gradients is K9
     fuse_post: bool = True
+    # None follows the caller's remat flag; True / False forces it for the
+    # MPNet tower alone (full per-layer recompute)
     remat: Optional[bool] = None
 
     @property

@@ -14,6 +14,10 @@ Layouts:
   ``attn.qkv`` = [q | k | v] (D, 3D), the operand of kernel K1;
 - MPNet ``rel_bias`` stays (buckets, heads); the loss head keeps
   ``log_loss_temperature`` and the shared LN.
+
+:func:`lora_from_jax` brings over the JAX ``init_lora`` output as it is: the
+port's adapters keep the JAX keys and stacked shapes
+(``radzero_torch/train/lora.py``).
 """
 
 from __future__ import annotations
@@ -57,6 +61,13 @@ def params_from_jax(tree: dict) -> dict:
             sub = {**sub, "layers": _unstack(sub["layers"])}
         out[key] = sub
     return _convert(out)
+
+
+def lora_from_jax(tree: dict) -> dict:
+    """The JAX ``init_lora`` tree ``{"adapters": {path: {"a", "b"}}, "r",
+    "alpha"}`` (arrays as numpy) -> the port's, as CPU tensors."""
+    return {"adapters": _convert(tree["adapters"]), "r": int(tree["r"]),
+            "alpha": int(tree["alpha"])}
 
 
 def _convert(tree):

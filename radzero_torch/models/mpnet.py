@@ -19,6 +19,14 @@ fused_mpnet_post`; its plain twin for CPU tensors). Under gradients the
 same call differentiates through the backward kernel K9 and keeps only the
 layer input and the attention output; ``fuse_post=False`` is the eager
 chain that autograd differentiates op by op.
+
+``mpnet_forward(..., remat=True)`` (with gradients on) reruns each layer in
+the backward, as the JAX ``jax.checkpoint(mpnet_layer)`` does: a
+non-reentrant ``torch.utils.checkpoint`` around :func:`mpnet_layer` keeps
+the layer's input alone, and the backward runs the layer's forward again
+(K4, and K15 under ``attn_impl="flash"``) before its own backward. The
+bucket table, the bias ``rel`` and the key mask are made once, outside the
+checkpointed layers.
 """
 
 from __future__ import annotations
@@ -29,6 +37,7 @@ from typing import List
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from radzero_torch.models.configuration import TextConfig
 from radzero_torch.ops.flash_attention import flash_attention_bias
@@ -160,8 +169,9 @@ def mpnet_layer(x, p, rel, neg, cfg: TextConfig):
 
 
 def mpnet_forward(params: dict, cfg: TextConfig, input_ids, attention_mask, *,
-                  dtype=torch.float32) -> torch.Tensor:
-    """(S, L) int ids + (S, L) mask -> (S, L, D) last hidden state."""
+                  dtype=torch.float32, remat: bool = False) -> torch.Tensor:
+    """(S, L) int ids + (S, L) mask -> (S, L, D) last hidden state; ``remat``
+    reruns each layer in the backward (read only with gradients on)."""
     emb = params["embeddings"]
     pos_ids = create_position_ids(input_ids, cfg.pad_token_id)
     x = emb["word"][input_ids] + emb["position"][pos_ids]
@@ -176,8 +186,13 @@ def mpnet_forward(params: dict, cfg: TextConfig, input_ids, attention_mask, *,
     neg_v = torch.finfo(torch.float32 if dtype == torch.float32 else dtype).min
     neg = (1.0 - attention_mask.float()) * neg_v
 
+    remat = remat and torch.is_grad_enabled()
     for p in params["layers"]:
-        x = mpnet_layer(x, p, rel, neg, cfg)
+        if remat:
+            x = checkpoint(mpnet_layer, x, p, rel, neg, cfg, use_reentrant=False,
+                           preserve_rng_state=False)
+        else:
+            x = mpnet_layer(x, p, rel, neg, cfg)
     return x
 
 

@@ -15,6 +15,11 @@ MPNet layer's post-attention chain on K4 with the backward K9, and the loss
 on the VL-CABS training kernels K10-K12. A trainable vision tower runs
 through the same K1-K3 / K6-K8 Functions. ``attn_impl="xla"`` and
 ``fuse_post=False`` are the eager paths that autograd differentiates.
+``remat=True`` (``TrainerArgs.gradient_checkpointing``) reruns parts of a
+trainable tower, of the align layers and of MPNet in the backward, with
+``AlignConfig.remat`` / ``TextConfig.remat`` overriding it where they are
+not None and the DINOv2 layers under their ``remat_policy``
+(``models/vit.py``); a frozen tower keeps no tape either way.
 """
 
 from __future__ import annotations
@@ -80,7 +85,8 @@ def forward_vision(params: dict, cfg: RadZeroConfig, pixel_values: Optional[torc
                    fused_towers: bool = True,
                    align_impl: Optional[str] = None,
                    stop_tower_gradient: bool = False,
-                   tower_tokens: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+                   tower_tokens: Optional[torch.Tensor] = None,
+                   remat: bool = False) -> Dict[str, torch.Tensor]:
     """Tower + align adapter + pooled image features, (B, H, W, 3) NHWC.
 
     ``fused_towers`` (the default, the counterpart of the JAX package's
@@ -94,7 +100,9 @@ def forward_vision(params: dict, cfg: RadZeroConfig, pixel_values: Optional[torc
     gradient`` runs the tower under ``torch.no_grad()``, so a frozen tower
     keeps no tape and may run on the forward kernels. ``tower_tokens``
     (B, L, D), a precomputed tower output at the real length L, skips the
-    tower."""
+    tower. ``remat`` reruns parts of a trainable tower and of the
+    align layers in the backward (see :func:`radzero_torch.models.vit.
+    vit_encoder`)."""
     if getattr(cfg.vision, "model_type", "dinov2") not in ("dinov2", "raddino"):
         raise NotImplementedError(f"vision model_type {cfg.vision.model_type!r}")
 
@@ -106,10 +114,11 @@ def forward_vision(params: dict, cfg: RadZeroConfig, pixel_values: Optional[torc
     else:
         with torch.set_grad_enabled(torch.is_grad_enabled() and not stop_tower_gradient):
             tokens = vit_forward(params["vision_model"], cfg.vision, pixel_values,
-                                 dtype=dtype, impl=impl_of(cfg.vision.attn_impl))
+                                 dtype=dtype, impl=impl_of(cfg.vision.attn_impl),
+                                 remat=remat)
     _, align_apply = build_align_adapter(cfg.align.model_type)
     tokens = align_apply(params["align_transformer"], cfg.align, tokens,
-                         impl=align_impl or impl_of(cfg.align.attn_impl))
+                         impl=align_impl or impl_of(cfg.align.attn_impl), remat=remat)
     cls_token, patch_tokens = tokens[:, 0], tokens[:, 1:]
     image_features = l2_normalize(torch.cat([cls_token, patch_tokens.mean(dim=1)], dim=-1))
     return {
@@ -121,12 +130,16 @@ def forward_vision(params: dict, cfg: RadZeroConfig, pixel_values: Optional[torc
 
 
 def forward_text(params: dict, cfg: RadZeroConfig, input_ids, attention_mask, *,
-                 dtype=torch.float32) -> Dict[str, torch.Tensor]:
-    """MPNet + optional projector (on token embeddings) + pooling."""
+                 dtype=torch.float32, remat: bool = False) -> Dict[str, torch.Tensor]:
+    """MPNet + optional projector (on token embeddings) + pooling; ``remat``
+    (``cfg.text.remat`` in its place when not None) reruns each MPNet layer
+    in the backward."""
     if cfg.text.model_type != "mpnet":
         raise NotImplementedError(f"text model_type {cfg.text.model_type!r}")
+    if cfg.text.remat is not None:
+        remat = cfg.text.remat
     hidden = mpnet_forward(params["text_model"], cfg.text, input_ids, attention_mask,
-                           dtype=dtype)
+                           dtype=dtype, remat=remat)
     if cfg.text.use_text_projection:
         hidden = linear(hidden, params["text_projector"])
     if cfg.text.use_cls_token:
@@ -146,6 +159,7 @@ def forward_train(
     *,
     loss_ratio: Optional[Dict[str, float]] = None,
     dtype=torch.float32,
+    remat: bool = False,
     stop_vision_gradient: bool = False,
 ) -> Dict[str, torch.Tensor]:
     """One training forward over the flattened global batch.
@@ -178,7 +192,8 @@ def forward_train(
     eager attention), ``cfg.text.fuse_post`` (K4 with the K9 backward, or
     the eager chain) and
     ``cfg.loss.train_impl`` ("fused" with ``sim_op="cos"``: kernels
-    K10-K12, else eager ops).
+    K10-K12, else eager ops). ``remat`` goes to both towers and the align
+    layers (:func:`forward_vision`, :func:`forward_text`).
     -> {"losses": {...}, **forward_vision outputs}."""
     loss_ratio = loss_ratio or {name: 1.0 for name in params["loss_fns"]}
     # the tower runs on K1-K3: frozen it keeps no tape; trainable, it
@@ -186,14 +201,15 @@ def forward_train(
     vision = forward_vision(
         params, cfg, batch.get("pixel_values"), dtype=dtype,
         align_impl=layer_impl(cfg.align.attn_impl),
-        stop_tower_gradient=stop_vision_gradient, tower_tokens=batch.get("tower_tokens"))
+        stop_tower_gradient=stop_vision_gradient, tower_tokens=batch.get("tower_tokens"),
+        remat=remat)
 
     losses: Dict[str, torch.Tensor] = {}
     total = torch.zeros((), dtype=torch.float32, device=vision["vision_tokens"].device)
     for name, lparams in params["loss_fns"].items():
         if name == "RadZeroLoss":
             text = forward_text(params, cfg, batch["input_ids"], batch["attention_mask"],
-                                dtype=dtype)
+                                dtype=dtype, remat=remat)
             if "row_gather" in batch:
                 text = {k: v[batch["row_gather"]] for k, v in text.items()}
             fused = cfg.loss.train_impl == "fused" and cfg.loss.sim_op == "cos"
@@ -205,7 +221,7 @@ def forward_train(
             losses["radzero_loss"] = loop_loss = out["losses"]["loss"]
         elif name in ("OpenClipLoss", "OpenSigLipLoss"):
             text = forward_text(params, cfg, batch["random_input_ids"],
-                                batch["random_attention_mask"], dtype=dtype)
+                                batch["random_attention_mask"], dtype=dtype, remat=remat)
             fn, key = ((clip_loss, "clip_loss") if name == "OpenClipLoss"
                        else (siglip_loss, "siglip_loss"))
             losses[key] = loop_loss = fn(lparams, vision["image_features"],

@@ -30,7 +30,11 @@ keep no tape):
   :func:`fused_postattn_bwd` (K8), :func:`fused_mpnet_post_bwd` (K9), each
   with its plain twin ``*_bwd_plain`` and a ``.launches`` counter.
 
-The Functions keep the inputs only, but for K2 in bf16 on the card, which
+:func:`fused_layer_save_attn` runs K1-K3 as one Function that keeps the
+layer's input and the attention output and reruns K1 in its backward (the
+``save_attn`` remat policy of a trainable tower).
+
+The four kernels' Functions keep the inputs only, but for K2 in bf16 on the card, which
 also keeps its output and the row statistic ``lse`` its Hopper forward
 writes (the Hopper backward of K7 reads P and delta = rowsum(dO O) from
 them, :func:`flash_attention_packed_lse`). The backward recomputes the
@@ -890,6 +894,63 @@ class _FusedPostattn(torch.autograd.Function):
     def backward(ctx, g):
         grads = fused_postattn_bwd(*ctx.saved_tensors, g.contiguous(), eps=ctx.eps)
         return needed(ctx, grads) + (None,)
+
+
+def fused_layer_save_attn(x, n_heads: int, ln1_scale, ln1_bias, w_qkv, b_qkv, wo, bo, ls1,
+                          ln2_scale, ln2_bias, w1, b1, w2, b2, ls2, *, eps=1e-6):
+    """(B, L, D) -> (B, L, D): one DINOv2 layer, K1, K2 and K3 in a row,
+    that keeps for its backward x, the attention output and, in bf16 on the
+    card, K2's ``lse`` (besides the weights), and drops qkv: the layer under
+    the JAX ``save_only_these_names("attn_out")`` remat policy. The backward
+    runs K8, K1 again for qkv, K7 from the kept output (and ``lse``), then
+    K6, and adds x's two gradients in one sum. The same kernels on the same
+    values as :func:`fused_preattn`, :func:`flash_attention_packed` and
+    :func:`fused_postattn` composed, so the same bits."""
+    w = (ln1_scale, ln1_bias, w_qkv, b_qkv, wo, bo, ls1, ln2_scale, ln2_bias, w1, b1, w2, b2,
+         ls2)
+    b, l, d = x.shape
+    if tracked(x, *w):
+        out = _FusedLayerSaveAttn.apply(x.reshape(b * l, d), b, n_heads, eps, *w)
+    else:
+        qkv = _fused_preattn_fwd(x.reshape(b * l, d), *w[:4], eps=eps).reshape(b, l, 3 * d)
+        a = _flash_attention_packed_fwd(qkv, n_heads)
+        out = _fused_postattn_fwd(x.reshape(b * l, d), a.reshape(b * l, d), *w[4:], eps=eps)
+    return out.reshape(b, l, d)
+
+
+class _FusedLayerSaveAttn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x2, b, n_heads, eps, *w):
+        x2, w = x2.contiguous(), tuple(t.contiguous() for t in w)
+        n, d = x2.shape
+        qkv = _fused_preattn_fwd(x2, *w[:4], eps=eps).reshape(b, n // b, 3 * d)
+        if hopper(qkv):
+            a, lse = _flash_attention_packed_fwd(qkv, n_heads, with_lse=True)
+            stats = (lse,)
+        else:
+            a, stats = _flash_attention_packed_fwd(qkv, n_heads), ()
+        del qkv
+        a2 = a.reshape(n, d)
+        ctx.save_for_backward(x2, a2, *w, *stats)
+        ctx.b, ctx.n_heads, ctx.eps = b, n_heads, eps
+        return _fused_postattn_fwd(x2, a2, *w[4:], eps=eps)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        x2, a2, *rest = ctx.saved_tensors
+        w, stats = rest[:14], rest[14:]
+        b, eps = ctx.b, ctx.eps
+        n, d = x2.shape
+        post = fused_postattn_bwd(x2, a2, *w[4:], g.contiguous(), eps=eps)  # K8
+        qkv = _fused_preattn_fwd(x2, *w[:4], eps=eps).reshape(b, n // b, 3 * d)  # K1
+        kept = {"out": a2.reshape(b, n // b, d), "lse": stats[0]} if stats else {}
+        dqkv = flash_attention_packed_bwd(qkv, ctx.n_heads, post[1].reshape(b, n // b, d),
+                                          **kept)  # K7
+        del qkv
+        pre = fused_preattn_bwd(x2, *w[:4], dqkv.reshape(n, 3 * d), eps=eps)  # K6
+        dx = post[0] + pre[0] if ctx.needs_input_grad[0] else None
+        return (dx, None, None, None) + needed(ctx, (None,) * 4 + pre[1:] + post[2:])[4:]
 
 
 class _FusedMpnetPost(torch.autograd.Function):

@@ -29,6 +29,7 @@ def make_train_step(
     *,
     loss_ratio: Optional[Dict[str, float]] = None,
     dtype=torch.bfloat16,
+    remat: bool = False,
     stop_vision_gradient: Optional[bool] = None,
     device="cuda",
 ) -> Callable:
@@ -39,7 +40,10 @@ def make_train_step(
     elsewhere raise.
 
     ``stop_vision_gradient=None`` resolves at call time: when the vision
-    tower sits in the frozen subtree it runs without a tape."""
+    tower sits in the frozen subtree it runs without a tape. ``remat``
+    (``TrainerArgs.gradient_checkpointing``) goes to ``forward_train``: the
+    backward reruns parts of the forward (``models/vit.py``,
+    ``models/mpnet.py``) and gives the same gradients bit for bit."""
 
     dev = torch.device(device)
 
@@ -55,7 +59,7 @@ def make_train_step(
         try:
             with torch.enable_grad():
                 out = forward_train(merge_params(trainable, frozen), cfg, batch,
-                                    loss_ratio=loss_ratio, dtype=dtype,
+                                    loss_ratio=loss_ratio, dtype=dtype, remat=remat,
                                     stop_vision_gradient=stop)
                 losses = out["losses"]
                 grads = torch.autograd.grad(losses["loss"], leaves, allow_unused=True)

@@ -29,8 +29,9 @@ Where it departs from the JAX trainer:
   runs while step i computes, as the JAX loop's deferred loss read
   intends; from pageable memory the copy would block the host.
   ``record_indices`` stays on the host, as in the JAX ``_put_batch``.
-- ``gradient_checkpointing=True`` raises ``NotImplementedError``: the
-  port has no remat yet (ROADMAP.md §1 item 5).
+- ``gradient_checkpointing=True`` is the step's ``remat``
+  (``train/step.py``), as in the JAX trainer; a step with it gives the
+  same losses and gradients bit for bit.
 - ``log_history.jsonl`` write errors raise; the JAX trainer ignores
   them. The one swallowed exception is the JAX package's own guard
   around ``report_to="wandb"``.
@@ -134,11 +135,6 @@ class RadZeroTrainer:
         epochs — the train step then never runs the tower. Requires the
         tower frozen (it is, under the reference policy) and the train
         loader constructed ``with_indices=True``."""
-        if args.gradient_checkpointing:
-            raise NotImplementedError(
-                "gradient_checkpointing (remat) is not ported yet (ROADMAP.md, "
-                "modules still to port, item 5)"
-            )
         self.device = torch.device(device)
         if self.device.type == "cuda" and self.device.index is None:
             self.device = torch.device("cuda", torch.cuda.current_device())
@@ -181,7 +177,7 @@ class RadZeroTrainer:
                 )
             # the JAX trainer's default with the cache on: the tower never
             # enters the step, so the align layers need no remat (only the
-            # None default is overridden; the port reads no remat yet)
+            # None default is overridden; an explicit AlignConfig.remat wins)
             if model_cfg.align.remat is None:
                 model_cfg = dataclasses.replace(
                     model_cfg, align=dataclasses.replace(model_cfg.align, remat=False)
@@ -210,7 +206,7 @@ class RadZeroTrainer:
         dtype = torch.bfloat16 if args.bf16 else torch.float32
         self.train_step = make_train_step(
             model_cfg, self.optimizer, loss_ratio=args.loss_ratio, dtype=dtype,
-            device=self.device,
+            remat=args.gradient_checkpointing, device=self.device,
         )
         self.eval_step = make_eval_step(model_cfg, loss_ratio=args.loss_ratio, dtype=dtype,
                                         device=self.device)

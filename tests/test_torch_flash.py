@@ -392,11 +392,11 @@ def test_attn_impl_selects_the_layers(monkeypatch):
 
     seen = []
 
-    def fake_vit_forward(params, cfg, pv, *, dtype, impl):
+    def fake_vit_forward(params, cfg, pv, *, dtype, impl, remat=False):
         seen.append(("tower", impl))
         return torch.zeros(1, 17, D)
 
-    def fake_align(params, cfg, tokens, *, impl):
+    def fake_align(params, cfg, tokens, *, impl, remat=False):
         seen.append(("align", impl))
         return tokens
 

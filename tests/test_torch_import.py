@@ -44,8 +44,11 @@ GROUPS = {
     "checkpoint": ["radzero_torch.utils.safetensors_io", "radzero_torch.tools.convert_checkpoint",
                    "radzero_torch.tools.run_real_checkpoint", "radzero_torch.data.tokenizer"],
     "smoke": ["chip_smoke"],
+    "config": ["radzero_torch.config", "radzero_torch.config.config",
+               "radzero_torch.utils.experiment", "radzero_torch.train.lora"],
+    "cli": ["radzero_torch.cli", "radzero_torch.cli.run"],
 }
-PIL_ALLOWED = {"scoring", "eval"}
+PIL_ALLOWED = {"scoring", "eval", "cli"}
 
 
 def _forbidden(group):

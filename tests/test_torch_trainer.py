@@ -16,7 +16,9 @@ one layer each), then:
   bit for bit;
 - checkpoints: the state round-trips bit for bit, a mismatched target
   raises, and a save interrupted before its rename leaves the previous
-  checkpoint the last.
+  checkpoint the last;
+- ``gradient_checkpointing=True`` gives the same losses and weights bit for
+  bit over 2 epochs.
 """
 
 import dataclasses
@@ -333,10 +335,24 @@ def test_trainer_rejects_tower_cache_without_stable_sharding():
         RadZeroTrainer(CFG, args, FakeLoader(), tower_cache=TowerCache("ram"), device="cpu")
 
 
-def test_trainer_refuses_gradient_checkpointing(tmp_path):
-    args = TrainerArgs(output_dir=str(tmp_path), gradient_checkpointing=True)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        _trainer(args)
+def test_trainer_gradient_checkpointing_gives_the_same_losses(tmp_path):
+    """gradient_checkpointing=True (the step's remat) trains: over 2 epochs
+    every step and eval record's losses and the final weights equal, bit
+    for bit, those of the same run without it."""
+    runs = []
+    for remat in (False, True):
+        args = TrainerArgs(output_dir=str(tmp_path / str(remat)), num_train_epochs=2,
+                           warmup_steps=1, logging_steps=1, bf16=False, learning_rate=3e-4,
+                           gradient_checkpointing=remat)
+        t = _trainer(args)
+        t.train()
+        losses = [{k: v for k, v in r.items() if "loss" in k or k == "grad_norm"}
+                  for r in t.state.log_history]
+        runs.append((losses, tree_leaves(t.trainable)))
+    (l0, w0), (l1, w1) = runs
+    assert sum("loss" in r for r in l1) >= 4
+    assert l1 == l0
+    assert all(torch.equal(a, b) for a, b in zip(w0, w1))
 
 
 def test_trainer_weights_from_seed_and_given_params_not_mutated(tmp_path):
