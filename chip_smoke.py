@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive radzero_torch once on one NVIDIA GPU: zero-shot serving, training, a checkpoint.
+"""Drive radzero_torch once on one NVIDIA GPU: serving, training, a checkpoint, the tools.
 
     python3 chip_smoke.py [--seed 0] [--profile]
 
@@ -204,7 +204,23 @@ Phases, in order; any failure exits non-zero:
    a third fresh process (chip_smoke.py --cold-probe, training only) with
    timers on its imports, the CUDA context, the kernel library's load, the
    epoch's first batch and each step, and cProfile over its first step,
-   which take the fresh process's slower epoch apart.
+   which take the fresh process's slower epoch apart;
+10. the offline tools: radzero_torch.cli.visualize.main in this process at
+   RadZeroConfig() in bf16 (seed 0) on one seeded 1250 x 1500 grayscale study
+   with all seven --studies, then --dataset ChestXDet10, SIIM and RSNA
+   (--num_samples 2) on a synthetic eval root: every file the JAX CLI
+   writes, decoding with PIL; K1-K5 launched 14 / 14 / 14 / 12 / 1 times a
+   scorer call (17 calls); each call's logits and maps against the eager
+   route in bf16 and, rerun, in fp32; the upsample on the card; no
+   matplotlib, cv2, pandas or sklearn loaded; each study's wall time, the
+   host's ms a map of blur, colormap and blend, the card's busy share; phase
+   9's checkpoint tried as --ckpt (the trainer's state: refused, reported),
+   then a fresh python3 -m radzero_torch.cli.visualize --ckpt on leg A's
+   weights (save_checkpoint), its PNGs byte-equal to leg A's; and python3 -m
+   radzero_torch.cli.preprocess on a synthetic MIMIC-CXR reports tree with
+   the rule extractor and with the LLM extractor against a mock chat server
+   on 127.0.0.1 (a retry, two quarantined records), its files' sha256 those
+   of the JAX CLI.
 
 --profile also prints the kernels of one training step by device time
 (torch.profiler; the 40 longest, K15 / K16's by name, and the fixed-order
@@ -2156,11 +2172,11 @@ EVAL_SEG = ["SIIM", "RSNA"]
 
 
 def host_packages():
-    """Whether pandas, scikit-learn and PyYAML import on this host (the JAX
-    CLI reads them; the port's harness needs none), tried in a child process
-    so that this one never loads them."""
+    """Whether pandas, scikit-learn, PyYAML, matplotlib and OpenCV import on this
+    host (the JAX package reads them; the port needs only PyYAML, for its config
+    files), tried in a child process so that this one never loads them."""
     code = ("import importlib\n"
-            "for m in ('pandas', 'sklearn', 'yaml'):\n"
+            "for m in ('pandas', 'sklearn', 'yaml', 'matplotlib', 'cv2'):\n"
             "    try:\n"
             "        print(m, getattr(importlib.import_module(m), '__version__', 'yes'))\n"
             "    except Exception as e:\n"
@@ -3243,13 +3259,14 @@ def checkpoint_vocab(prompts):
     return head + pieces + [f"[unused{99 + i}]" for i in range(fill)] + ["<mask>"]
 
 
-def logits_gate(label, dname, kern, ref):
+def logits_gate(label, dname, kern, ref, quiet=False):
     """compute_logits' kernel route against its eager route. fp32 (TF32 off): the repo's
     gate (tests/test_radzero_model.py), logits rtol 1e-3 / atol 2e-4 and map MAE < 1e-3.
     bf16: phase 4's gate, logits within 0.25 and map MAE within 0.05, set at the radzero
     logits' and maps' scale (|x| <= 1 / 0.07 = 14.3); a bf16 error grows with the values,
     so where max|ref| exceeds 14.3 (the alignment branches' unscaled dot products) the
-    gate grows with it."""
+    gate grows with it. ``quiet``: print nothing when the gate holds; -> (logits
+    max_abs_err, map MAE or None)."""
     import torch
 
     lk, lr = kern["logits"].float(), ref["logits"].float()
@@ -3258,15 +3275,17 @@ def logits_gate(label, dname, kern, ref):
     lerr, lmax = (lk - lr).abs().max().item(), lr.abs().max().item()
     ok = (torch.allclose(lk, lr, rtol=1e-3, atol=2e-4) if dname == "fp32"
           else lerr <= 0.25 * max(1.0, lmax / 14.3))
-    line = f"logits max_abs_err {lerr:.3e} (|logit| <= {lmax:.3f})"
+    line, mae = f"logits max_abs_err {lerr:.3e} (|logit| <= {lmax:.3f})", None
     if "similarity_scores" in ref:
         sk, sr = kern["similarity_scores"].float(), ref["similarity_scores"].float()
         mae, smax = (sk - sr).abs().mean().item(), sr.abs().max().item()
         ok = ok and (mae < 1e-3 if dname == "fp32" else mae <= 0.05 * max(1.0, smax / 14.3))
         line += f", map MAE {mae:.3e} (|map| <= {smax:.3f})"
-    print(f"  {label:16s} {dname}: {line} {'ok' if ok else 'FAIL'}")
+    if not (quiet and ok):
+        print(f"  {label:16s} {dname}: {line} {'ok' if ok else 'FAIL'}")
     if not ok:
         fail(f"{label} {dname}: the kernel route disagrees with the eager route")
+    return lerr, mae
 
 
 def phase_checkpoint(seed, card):
@@ -3895,9 +3914,11 @@ def phase_cli(seed, card):
     the preset is otherwise the flagship's (batch 64, bf16, gradient_checkpointing, buckets
     [16, 32]). Gates: both exit cleanly; the run files and checkpoint-5; log_history's
     losses and each result.json bit-equal between the runs. Returns the launches of the
-    in-process run."""
+    in-process run and its checkpoint-5, moved out of the phase's temporary directory for
+    phase 10 (which removes it)."""
     import logging
     import os
+    import shutil
     import tempfile
 
     import yaml
@@ -4031,6 +4052,8 @@ def phase_cli(seed, card):
         if diff:
             fail(f"cli: result.json of {diff} differs between the runs")
         results = {t: json.loads(r1[t]) for t in tasks}
+        kept = Path(tempfile.mkdtemp(prefix="rz_cli_ckpt_")) / "checkpoint-5"
+        shutil.move(str(out / "cli_in_process" / "checkpoint-5"), str(kept))
     print(f"  both runs exit 0 with output.log, the snapshot, checkpoint-5 and log_history "
           f"steps 1-5; log_history losses ({len(l1)} records) and the 3 result.json files "
           f"bit-equal between the runs; step 5 loss "
@@ -4064,6 +4087,376 @@ def phase_cli(seed, card):
         f"{t} {CLI_EVAL_N / timers[t]:.2f} images/s ({timers[t]:.2f} s)" for t in tasks))
     print(f"  launches of the in-process run: {launches}")
     print(f"  phase 9 (cli) {time.perf_counter() - t_phase:.1f} s on {card}")
+    return launches, kept
+
+
+VIZ_HW = (1500, 1250)  # (height, width) of leg A's study: a quarter of phase 4a's 3000 x 2500 pixels
+VIZ_N = 4              # studies of each eval dataset (1000-1500 px; SIIM 1024 x 1024 DICOMs)
+VIZ_SAMPLES = 2        # --num_samples of each dataset run
+VIZ_STUDIES = ("open_vocab", "positional", "pos_neg", "anatomy", "disease", "disease_map",
+               "open_vocab_seg")
+# the files the JAX CLI writes for VIZ_STUDIES on an image named study.png
+VIZ_IMAGE_FILES = (
+    "open_vocab.png", "positional_0.png", "positional_1.png", "positional_2.png",
+    "posneg_Pneumothorax.png", "posneg_Pleural_Effusion.png", "posneg_Cardiomegaly.png",
+    "anatomy_segmap.png", "disease_segmap.png", "nobox_There is Pneumothorax_study.png",
+    "orig_study.png", "There is Pneumothorax_study.png", "seg_map_study.png",
+    "only_segmap_study.png")
+# scorer calls of VIZ_STUDIES on one image: open_vocab 1, positional 3, pos_neg 3, anatomy,
+# disease, disease_map, open_vocab_seg 1 each; and one a dataset sample
+VIZ_CALLS = 11 + 3 * VIZ_SAMPLES
+PATH_VIZ = ("fused_preattn", "flash_attention_packed", "fused_postattn", "fused_mpnet_post",
+            "vlcabs_fused")
+PREPROCESS_N = 120  # studies of the synthetic MIMIC-CXR reports tree (seed 0)
+# sha256 of what the JAX CLI (python -m radzero_tpu.cli.preprocess) writes for that tree;
+# tests/test_torch_preprocess.py holds the JAX and the port CLI to them on the CPU
+PREPROCESS_SHA256 = {
+    "rule": {
+        "train.json": "403b8b0d4444bd92a83e9a2f8883bfa7174036259f4178d551bf195d3558153b",
+        "validate.json": "2ce63eb8c232b6734523b75375009e7e1726a168997d11be524adbd9a831e143",
+    },
+    "llm": {
+        "train.json": "a0ffcb974ba05ea7f410c7a55f39d4578c84fbe8fe52c1cb86da4cec05692b43",
+        "validate.json": "0d98c0ad8ff45075ed3d56551ae7b7dd5901fd4f399cdb3121d6fddb3733b75c",
+        "keyphrase_batches_train/failed.json":
+            "de1eac6ac2f8961ec760086914fa7d00ad076ded7606aaad7f969964add8213b",
+        "keyphrase_batches_validate/failed.json":
+            "de1eac6ac2f8961ec760086914fa7d00ad076ded7606aaad7f969964add8213b",
+    },
+}
+PREPROCESS_LLM_REQUESTS = 205  # 196 records, 1 retry of the malformed first reply, 2 x 4 more
+                               # attempts of the two quarantined records
+
+
+def sha256_of(out_dir, names):
+    import hashlib
+
+    return {n: hashlib.sha256((Path(out_dir) / n).read_bytes()).hexdigest() for n in names
+            if (Path(out_dir) / n).exists()}
+
+
+def viz_sample_files(root, num_samples, seed=0):
+    """The files the JAX samplers (radzero_tpu/viz/studies.py) write for --num_samples on
+    the synthetic eval root: their numpy picks, taken here from the dataset files with the
+    csv module."""
+    import csv
+
+    import numpy as np
+
+    root = Path(root)
+    names = []
+    test = json.loads((root / "ChestXDet10" / "test.json").read_text())
+    positives = [i for i, t in enumerate(test) if t["syms"]]
+    picks = np.random.default_rng(seed).choice(positives, min(num_samples, len(positives)),
+                                               replace=False)
+    names.append([f"chestxdet10_{i}.png" for i in picks])
+    rows = list(csv.DictReader(open(root / "SIIM" / "test.csv")))
+    ids = list(dict.fromkeys(r["ImageId"] for r in rows if r[" EncodedPixels"] != " -1"))
+    picks = np.random.default_rng(seed).choice(len(ids), min(num_samples, len(ids)),
+                                               replace=False)
+    names.append([f"siim_{j}.png" for j in picks])
+    pos = [r for r in csv.DictReader(open(root / "RSNA" / "test.csv")) if r["boxes"]]
+    picks = np.random.default_rng(seed).choice(len(pos), min(num_samples, len(pos)),
+                                               replace=False)
+    names.append([f"rsna_{j}.png" for j in picks])
+    return dict(zip(("ChestXDet10", "SIIM", "RSNA"), names))
+
+
+def phase_viz(seed, card, cli_checkpoint):
+    """10, the offline tools. Leg A: radzero_torch.cli.visualize.main in this process at
+    RadZeroConfig() in bf16 (random init, seed 0; phase 8's vocabulary for the studies'
+    prompts) on one seeded VIZ_HW grayscale study with all seven --studies (--top_k_percent
+    10), then --dataset ChestXDet10, SIIM and RSNA (--num_samples VIZ_SAMPLES) on a
+    synthetic eval root. Gates: every file the JAX CLI writes, under its name, decoding
+    with PIL; the launches of K1-K5 those of VIZ_CALLS scorer calls of one batch; each
+    call's logits and maps against the eager route in bf16 (phase 4's gate) and, rerun
+    through the kernel route in fp32, against the fp32 eager route (phase 5's gate); the
+    upsample on the card; no matplotlib, cv2, pandas or sklearn loaded. Leg B: a fresh
+    python3 -m radzero_torch.cli.visualize --ckpt on leg A's weights saved with
+    save_checkpoint (phase 9's trainer checkpoint holds another tree: reported), every PNG
+    byte-equal to leg A's. Leg C: python3 -m radzero_torch.cli.preprocess on a synthetic
+    MIMIC-CXR reports tree with the rule extractor and with the LLM extractor against a
+    mock chat server on 127.0.0.1 (a malformed first reply, two quarantined records):
+    the files' sha256 those the JAX CLI writes (PREPROCESS_SHA256). Returns leg A's
+    launches."""
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from PIL import Image
+    from radzero_torch.cli import visualize as viz_cli
+    from radzero_torch.data.dicom import load_eval_image
+    from radzero_torch.data.processing import BlipStyleImageProcessor
+    from radzero_torch.data.tokenizer import load_tokenizer
+    from radzero_torch.eval.geometry import upsample_similarity_map
+    from radzero_torch.eval.scorer import ZeroShotScorer
+    from radzero_torch.models.configuration import RadZeroConfig, TextConfig
+    from radzero_torch.models.radzero import compute_logits, init_radzero
+    from radzero_torch.tools import synthetic_eval_data as sd
+    from radzero_torch.tools.synthetic_reports import MockChat, build_reports_tree
+    from radzero_torch.train.checkpoint import restore_checkpoint, save_checkpoint
+    from radzero_torch.viz import overlays, qualitative, segmap, studies
+    from radzero_torch.viz.colormaps import get_cmap
+
+    t_phase = time.perf_counter()
+    cfg = RadZeroConfig()
+    per_call = {"fused_preattn": cfg.vision.num_hidden_layers + cfg.align.num_hidden_layers,
+                "fused_mpnet_post": cfg.text.num_hidden_layers, "vlcabs_fused": 1}
+    per_call["flash_attention_packed"] = per_call["fused_postattn"] = per_call["fused_preattn"]
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(REPO)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        h, w = VIZ_HW
+        study = tmp / "study.png"
+        Image.fromarray(np.random.default_rng(seed + 10).integers(0, 256, (h, w), np.uint8)
+                        ).save(study, compress_level=1)
+        root = tmp / "data"
+        sizes = [(a // 2, b // 2) for a, b in sd.chest_sizes(VIZ_N, seed)]
+        sd.build_images(str(root), n=VIZ_N, seed=seed, sizes=sizes, compress_level=1, threads=8)
+        scale = max(1, min(b for _, b in sizes) // 60)
+        sd.build_chestxdet10(str(root), n=VIZ_N, scale=scale)
+        sd.build_siim(str(root), n=VIZ_N, size=1024, seed=seed + 1)
+        sd.build_rsna(str(root), n=VIZ_N, scale=scale)
+        prompts = (list(studies.DEFAULT_OPEN_VOCAB_PROMPTS)
+                   + [p for pair in studies.POSITIONAL_PROMPT_PAIRS for p in pair]
+                   + [f"There is no {c}" for c in segmap.DISEASE_CLASSES]
+                   + [f"There is {c}" for c in segmap.ANATOMY_CLASSES + segmap.DISEASE_CLASSES
+                      + list(sd.XDET10_CLASSES)])
+        vocab = tmp / "vocab.txt"
+        vocab.write_text("\n".join(checkpoint_vocab(prompts)) + "\n")
+        out_a, out_b = tmp / "out_a", tmp / "out_b"
+        samples = viz_sample_files(root, VIZ_SAMPLES)
+        print(f"viz (phase 10): python -m radzero_torch.cli.visualize, RadZeroConfig() in bf16 "
+              f"(seed 0), one {w} x {h} grayscale PNG (VIZ_HW: a quarter of phase 4a's pixels, "
+              f"to keep the phase short) with --studies {' '.join(VIZ_STUDIES)} "
+              f"--top_k_percent 10, then --dataset ChestXDet10 / SIIM / RSNA --num_samples "
+              f"{VIZ_SAMPLES} ({VIZ_N} studies of {min(min(z) for z in sizes)}-"
+              f"{max(max(z) for z in sizes)} px a side, SIIM 1024 x 1024 DICOMs); data written in "
+              f"{time.perf_counter() - t0:.1f} s")
+
+        # leg A, in this process: record each scorer call, each upsample's device and
+        # each study's wall time
+        calls, ups, timers = [], [], {}
+        orig_score, orig_up = ZeroShotScorer.score, overlays.upsample_similarity_map
+
+        def score(self, items, load_image, prompts, *, need_scores=False):
+            out = orig_score(self, items, load_image, prompts, need_scores=need_scores)
+            calls.append((items[0], list(prompts), out[0], out[1]))
+            return out
+
+        def upsample(scores, size, geometry="resize", *, device="cuda"):
+            ups.append(torch.device(device).type)
+            return orig_up(scores, size, geometry, device=device)
+
+        def timed(fn, key):
+            def call(*a, **kw):
+                t1 = time.perf_counter()
+                try:
+                    return fn(*a, **kw)
+                finally:
+                    timers[key] = timers.get(key, 0.0) + time.perf_counter() - t1
+            return call
+
+        wrapped = [(studies, "open_vocab_study", "open_vocab"),
+                   (studies, "positional_prompt_study", "positional"),
+                   (studies, "pos_neg_prompt_study", "pos_neg"),
+                   (segmap, "anatomy_segmentation", "anatomy"),
+                   (segmap, "disease_segmentation", "disease"),
+                   (qualitative, "process_and_visualize_map", "disease_map"),
+                   (qualitative, "process_and_visualize_segmentation", "open_vocab_seg"),
+                   (studies, "visualize_chestxdet10_samples", "ChestXDet10"),
+                   (studies, "visualize_siim_samples", "SIIM"),
+                   (studies, "visualize_rsna_samples", "RSNA")]
+        saved = [(mod, name, getattr(mod, name)) for mod, name, _ in wrapped]
+        base = ["--tokenizer", str(vocab), "--save_dir", str(out_a)]
+        image_argv = ["--image", str(study), "--studies", *VIZ_STUDIES, "--top_k_percent", "10"]
+        ZeroShotScorer.score, overlays.upsample_similarity_map = score, upsample
+        for mod, name, key in wrapped:
+            setattr(mod, name, timed(getattr(mod, name), key))
+        try:
+            reset_counters()
+            t0 = time.perf_counter()
+            busy = device_idle(lambda: viz_cli.main(base + image_argv))
+            image_s = time.perf_counter() - t0
+            for ds in ("ChestXDet10", "SIIM", "RSNA"):
+                viz_cli.main(base + ["--dataset", ds, "--data_root", str(root),
+                                     "--num_samples", str(VIZ_SAMPLES)])
+            torch.cuda.synchronize()
+            leg_a_s = time.perf_counter() - t0
+            launches = read_counters()
+        finally:
+            ZeroShotScorer.score, overlays.upsample_similarity_map = orig_score, orig_up
+            for mod, name, fn in saved:
+                setattr(mod, name, fn)
+
+        want = set(VIZ_IMAGE_FILES) | {f for names in samples.values() for f in names}
+        got = set(os.listdir(out_a))
+        if got != want:
+            fail(f"viz: leg A wrote {sorted(got - want)} and not {sorted(want - got)}")
+        pixels = {}
+        for name in sorted(got):
+            with Image.open(out_a / name) as im:
+                im.load()
+                pixels[name] = im.size
+        if len(calls) != VIZ_CALLS:
+            fail(f"viz: {len(calls)} scorer calls, {VIZ_CALLS} expected")
+        expect = expected(**{k: n * len(calls) for k, n in per_call.items()})
+        print(f"  leg A: {len(got)} files, each decoded by PIL ({', '.join(f'{n} {a}x{b}' for n, (a, b) in sorted(pixels.items())[:6])}, ...); "
+              f"{len(calls)} scorer calls of one batch; launches {launches}")
+        if launches != expect:
+            fail(f"viz: expected launches {expect}")
+        if ups != ["cuda"] * len(calls):
+            fail(f"viz: the upsample ran on {ups}")
+        loaded = [m for m in ("matplotlib", "cv2", "pandas", "sklearn") if m in sys.modules]
+        if loaded:
+            fail(f"viz: {loaded} loaded")
+        print("  every upsample ran on the card; neither matplotlib, cv2, pandas nor sklearn "
+              "loaded")
+        print("  each study's wall time (leg A, with its scorer calls): " + ", ".join(
+            f"{k} {v:.2f} s" for k, v in timers.items()))
+        if busy is None:
+            print("  the card's busy share of the image run: not measured (no device kernel "
+                  "in the profiler session)")
+        else:
+            print(f"  the card's busy share of the image run (11 scorer calls, 7 studies): "
+                  f"{busy[0]:.1f} ms of {busy[1]:.1f} ms, {100 * busy[0] / busy[1]:.2f}% "
+                  f"(idle {100 - 100 * busy[0] / busy[1]:.2f}%); leg A {leg_a_s:.1f} s, the "
+                  f"image run {image_s:.1f} s")
+
+        # each call against the eager route: bf16 as leg A ran it, then fp32
+        params = init_radzero(torch.Generator("cuda").manual_seed(0), cfg)
+        cfg_eager = RadZeroConfig(text=TextConfig(fuse_post=False))
+        proc = BlipStyleImageProcessor(size=cfg.vision.img_size)
+        tok = load_tokenizer(str(vocab))
+        worst = {}
+        for dtype, dname in ((torch.bfloat16, "bf16"), (torch.float32, "fp32")):
+            scorer = ZeroShotScorer(params, cfg, proc, tok, batch_size=16, dtype=dtype)
+            errs, map_err = [], 0.0
+            for i, (path, prompts, logits, scores) in enumerate(calls):
+                if dname == "fp32":
+                    logits, scores = scorer.score([path], load_eval_image, prompts,
+                                                  need_scores=True)
+                pv = torch.as_tensor(scorer._process_image(load_eval_image, path)[None],
+                                     device="cuda").to(dtype)
+                ids, mask = scorer.encode_prompts(prompts)
+                with torch.inference_mode():
+                    ref = compute_logits(scorer.params, cfg_eager, pv, ids, mask, dtype=dtype,
+                                         eager=True)
+                ref = {k: ref[k].float().cpu() for k in ("logits", "similarity_scores")}
+                kern = {"logits": torch.from_numpy(logits),
+                        "similarity_scores": torch.from_numpy(scores)}
+                errs.append(logits_gate(f"viz call {i}", dname, kern, ref, quiet=True))
+                with load_eval_image(path) as im:
+                    size = im.size[::-1]
+                up = [1 / (1 + np.exp(-upsample_similarity_map(s[0].numpy(), size,
+                                                               device="cuda")))
+                      for s in (kern["similarity_scores"], ref["similarity_scores"])]
+                map_err = max(map_err, float(np.abs(up[0] - up[1]).mean()))
+            worst[dname] = (max(e[0] for e in errs), max(e[1] for e in errs), map_err)
+            del scorer
+        print("  each call's logits and maps against the eager route (the same weights): "
+              + "; ".join(f"{d} worst logits max_abs_err {a:.3e}, map MAE {b:.3e}, upsampled "
+                          f"sigmoid map MAE {c:.3e}" for d, (a, b, c) in worst.items())
+              + f" ({len(calls)} calls each; bf16: leg A's own outputs under phase 4's gate, "
+              f"fp32: rerun through the kernel route under phase 5's)")
+
+        # the host's share of one map at the study's size: blur (sigma 8), colormap, blend
+        heat = np.random.default_rng(seed + 11).random((h, w)).astype(np.float32)
+        rgb = np.asarray(Image.open(study).convert("RGB"))
+
+        def host_ms(fn):
+            t = []
+            for _ in range(3):
+                t1 = time.perf_counter()
+                fn()
+                t.append((time.perf_counter() - t1) * 1e3)
+            return sorted(t)[1]
+
+        blurred = overlays._gaussian_blur(heat, 8.0)
+        colored = (get_cmap("inferno")(blurred)[..., :3] * 255).astype(np.uint8)
+        ms = {"blur (sigma 8)": host_ms(lambda: overlays._gaussian_blur(heat, 8.0)),
+              "blur (sigma 1)": host_ms(lambda: overlays._gaussian_blur(heat, 1.0)),
+              "colormap": host_ms(lambda: (get_cmap("inferno")(blurred)[..., :3] * 255
+                                           ).astype(np.uint8)),
+              "blend": host_ms(lambda: (0.5 * colored + 0.5 * rgb.astype(np.float32)
+                                        ).astype(np.uint8))}
+        print(f"  host ms a map at {w} x {h} (median of 3): "
+              + ", ".join(f"{k} {v:.1f}" for k, v in ms.items()))
+
+        # leg B: a fresh process on leg A's weights through --ckpt
+        try:
+            restore_checkpoint(str(cli_checkpoint), params)
+            print(f"  phase 9's {cli_checkpoint.name} restores onto RadZeroConfig()'s tree")
+        except ValueError as e:
+            print(f"  phase 9's {cli_checkpoint.name} is the trainer's state, not the parameter "
+                  f"tree --ckpt reads (as in the JAX CLI): {str(e)[:120]}...")
+        finally:
+            shutil.rmtree(cli_checkpoint.parent, ignore_errors=True)
+        t0 = time.perf_counter()
+        ckpt = save_checkpoint(str(tmp / "ckpt"), 0, params, {"step": 0})
+        save_s = time.perf_counter() - t0
+        del params
+        argv = ["--ckpt", ckpt, "--tokenizer", str(vocab), "--save_dir", str(out_b),
+                *image_argv, "--dataset", "SIIM", "--data_root", str(root),
+                "--num_samples", str(VIZ_SAMPLES)]
+        t0 = time.perf_counter()
+        proc_b = subprocess.run([sys.executable, "-m", "radzero_torch.cli.visualize", *argv],
+                                cwd=str(REPO), env=env, capture_output=True, text=True,
+                                timeout=400)
+        leg_b_s = time.perf_counter() - t0
+        if proc_b.returncode != 0:
+            print(proc_b.stdout[-3000:] + proc_b.stderr[-3000:], file=sys.stderr)
+            fail(f"viz: python -m radzero_torch.cli.visualize --ckpt exited with "
+                 f"{proc_b.returncode}")
+        got_b = sorted(os.listdir(out_b))
+        if set(got_b) != set(VIZ_IMAGE_FILES) | set(samples["SIIM"]):
+            fail(f"viz: leg B wrote {got_b}")
+        differ = [n for n in got_b if (out_b / n).read_bytes() != (out_a / n).read_bytes()]
+        if differ:
+            fail(f"viz: leg B's {differ} differ from leg A's")
+        print(f"  leg B: python -m radzero_torch.cli.visualize --ckpt (save_checkpoint of leg "
+              f"A's weights, {save_s:.1f} s) --image ... --dataset SIIM in a fresh process, "
+              f"{leg_b_s:.1f} s: its {len(got_b)} PNGs byte-equal to leg A's")
+
+        # leg C: the preprocessing CLI, host only
+        tree = build_reports_tree(str(tmp / "mimic"), PREPROCESS_N, 0)
+        flags = [a for k, v in tree.items() for a in (f"--{k}", v)]
+        legs = {}
+        for mode in ("rule", "llm"):
+            out = tmp / f"pre_{mode}"
+            with MockChat() as chat:
+                extra = ["--extractor", "llm", "--llm_endpoint", chat.url] if mode == "llm" else []
+                t0 = time.perf_counter()
+                res = subprocess.run([sys.executable, "-m", "radzero_torch.cli.preprocess",
+                                      *flags, "--output_dir", str(out), *extra],
+                                     cwd=str(REPO), env=env, capture_output=True, text=True,
+                                     timeout=300)
+                seconds, requests = time.perf_counter() - t0, len(chat.requests)
+            if res.returncode != 0:
+                print(res.stdout[-3000:] + res.stderr[-3000:], file=sys.stderr)
+                fail(f"preprocess ({mode}): exited with {res.returncode}")
+            digests = sha256_of(out, PREPROCESS_SHA256[mode])
+            if digests != PREPROCESS_SHA256[mode]:
+                fail(f"preprocess ({mode}): {digests} differ from the JAX CLI's files")
+            counts = [len(json.loads((out / f"{s}.json").read_text()))
+                      for s in ("train", "validate")]
+            legs[mode] = (seconds, counts, requests)
+        if legs["llm"][2] != PREPROCESS_LLM_REQUESTS:
+            fail(f"preprocess (llm): {legs['llm'][2]} requests, {PREPROCESS_LLM_REQUESTS} "
+                 f"expected")
+        failed = len(json.loads((tmp / "pre_llm" / "keyphrase_batches_train" / "failed.json"
+                                 ).read_text()))
+    print(f"  leg C: python -m radzero_torch.cli.preprocess on {PREPROCESS_N} synthetic "
+          f"MIMIC-CXR studies: rule {legs['rule'][1][0]} train / {legs['rule'][1][1]} validate "
+          f"records in {legs['rule'][0]:.2f} s, llm (mock server on 127.0.0.1) "
+          f"{legs['llm'][1][0]} / {legs['llm'][1][1]} in {legs['llm'][0]:.2f} s with "
+          f"{legs['llm'][2]} requests (one retry, {failed} records quarantined in "
+          f"failed.json); every file's sha256 the JAX CLI's")
+    print(f"  phase 10 (viz) {time.perf_counter() - t_phase:.1f} s on {card}")
     return launches
 
 
@@ -4168,7 +4561,8 @@ def main() -> int:
         [nvcc, "--version"], capture_output=True, text=True).stdout.strip().splitlines()[-1]
     print(f"device: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}; "
           f"nvcc {nvcc_v}; {torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
-    print(f"host packages (the JAX CLI reads them; the port needs none): {host_packages()}")
+    print(f"host packages (the JAX package reads them; the port needs PyYAML alone): "
+          f"{host_packages()}")
 
     t0 = time.perf_counter()
     lib_path = _build.build()
@@ -4192,7 +4586,8 @@ def main() -> int:
     phase_lora(args.seed, card, params)
     trainer_step = phase_trainer(args.seed, card, params, bare_step_s)
     checkpoint = phase_checkpoint(args.seed, card)
-    cli = phase_cli(args.seed, card)
+    cli, cli_checkpoint = phase_cli(args.seed, card)
+    viz = phase_viz(args.seed, card, cli_checkpoint)
 
     meta = {
         "K1": ("fused_preattn", "radzero_torch/ops/csrc/gemm_sm90.cu",
@@ -4231,7 +4626,8 @@ def main() -> int:
     # launches: the serving burst's count, the HTTP burst's, one run of each exported
     # program, the scorer run's, the eval suite's, one default training step's, one
     # flash training step's, one remat step's (align "save_attn"), one trainer step's,
-    # the converted checkpoint's 4 requests and the in-process CLI run's; each path was
+    # the converted checkpoint's 4 requests, the in-process training CLI run's and the
+    # in-process visualization CLI runs'; each path was
     # driven with every count at 0 and read right after
     from radzero_torch.ops import registry
 
@@ -4240,7 +4636,7 @@ def main() -> int:
          "registered_op": f"radzero::{name}" if name in registry.calls else None,
          "launches": serving[name] + server[name] + exported[name] + scoring[name]
          + evaluation[name] + training[name] + flash_step[name] + remat_step[name]
-         + trainer_step[name] + checkpoint[name] + cli[name],
+         + trainer_step[name] + checkpoint[name] + cli[name] + viz[name],
          "launches_serving": serving[name], "launches_server": server[name],
          "launches_export": exported[name], "launches_scorer": scoring[name],
          "launches_eval": evaluation[name],
@@ -4248,7 +4644,8 @@ def main() -> int:
          "launches_flash_training_step": flash_step[name],
          "launches_remat_step": remat_step[name],
          "launches_trainer_step": trainer_step[name],
-         "launches_checkpoint": checkpoint[name], "launches_cli": cli[name], **rows[k]}
+         "launches_checkpoint": checkpoint[name], "launches_cli": cli[name],
+         "launches_viz": viz[name], **rows[k]}
         for k, (name, src, rep) in meta.items()
     ]
     k11 = next(k for k in kernels if k["name"] == "vlcabs_train_bwd_dq")

@@ -32,6 +32,7 @@ from typing import Optional, Sequence
 
 import torch
 
+from radzero_torch.cli import resolve_device
 from radzero_torch.config.config import Config, str2bool
 from radzero_torch.data.mimic import load_datasets
 from radzero_torch.data.pipeline import PackSpec, TrainLoader, pil_image_loader
@@ -62,16 +63,6 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--device", default="cuda",
                    help="cuda (the default; raises without a card) or cpu")
     return p.parse_args(argv)
-
-
-def resolve_device(name: str) -> torch.device:
-    device = torch.device(name)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("--device cuda: no CUDA device is available (pass --device cpu to "
-                           "run on the CPU)")
-    if device.type not in ("cuda", "cpu"):
-        raise ValueError(f"--device must be cuda or cpu, got {name!r}")
-    return device
 
 
 def check_mesh(mesh: dict) -> None:

@@ -4,7 +4,9 @@ scikit-learn, safetensors or transformers.
 The machine with the card has no JAX, so every module of radzero_torch
 must import without it. Checked in a fresh interpreter: this pytest
 process already has jax loaded by tests/conftest.py. Only the host image
-modules (and the scorer and API built on them) may load PIL.
+modules (and the scorer, API, CLIs and visualization suite built on them)
+may load PIL; the preprocessing modules may not (check_image_integrity
+imports it when called).
 """
 
 import os
@@ -46,19 +48,26 @@ GROUPS = {
     "smoke": ["chip_smoke"],
     "config": ["radzero_torch.config", "radzero_torch.config.config",
                "radzero_torch.utils.experiment", "radzero_torch.train.lora"],
-    "cli": ["radzero_torch.cli", "radzero_torch.cli.run"],
+    "cli": ["radzero_torch.cli", "radzero_torch.cli.run", "radzero_torch.cli.preprocess",
+            "radzero_torch.cli.visualize"],
+    "preprocess": ["radzero_torch.preprocess." + m for m in
+                   ("sections", "findings", "llm_client", "keyphrases", "dicom_map", "mscxr")]
+    + ["radzero_torch.preprocess", "radzero_torch.utils.multiproc"],
+    "viz": ["radzero_torch.viz"] + ["radzero_torch.viz." + m for m in
+                                    ("colormaps", "overlays", "segmap", "qualitative", "studies")],
 }
-PIL_ALLOWED = {"scoring", "eval", "cli"}
+PIL_ALLOWED = {"scoring", "eval", "cli", "viz"}
 
 
 def _forbidden(group):
-    """The card's host may lack pandas and scikit-learn, and lacks safetensors
-    and transformers: no module of the port imports them (the eval harness
-    computes its metrics in numpy, the converter reads safetensors itself,
+    """The card's host may lack pandas, scikit-learn, matplotlib and OpenCV,
+    and lacks safetensors and transformers: no module of the port imports
+    them (the eval harness computes its metrics in numpy, the converter reads
+    safetensors itself, the visualization suite renders with numpy and PIL,
     and HFTokenizer imports transformers only when built). Nor does any
     import the JAX runbook and converter under tools/."""
     names = ("jax", "jaxlib", "radzero_tpu", "triton", "pandas", "sklearn", "safetensors",
-             "transformers", "tools")
+             "transformers", "tools", "matplotlib", "cv2")
     return names if group in PIL_ALLOWED else names + ("PIL",)
 
 
