@@ -220,7 +220,32 @@ Phases, in order; any failure exits non-zero:
    radzero_torch.cli.preprocess on a synthetic MIMIC-CXR reports tree with
    the rule extractor and with the LLM extractor against a mock chat server
    on 127.0.0.1 (a retry, two quarantined records), its files' sha256 those
-   of the JAX CLI.
+   of the JAX CLI;
+11. distribution (radzero_torch/parallel): leg A, NCCL as a world of one in
+   this process (a real communicator; NCCL takes one rank a card, and the
+   machine has one), 3 default training steps at 64 x 512 in bf16 with
+   group= beside 3 without: losses, every gradient leaf and the parameters
+   bit-equal, the losses phase 6's, the launches phase 6's step's; leg B,
+   two processes on the card under gloo (chip_smoke.py --dist-rank), each
+   with half of phase 6's batch (32 images x 256 sentences), 3 steps of the
+   plain layout and 3 of the dedup layout (128 unique sentences a rank):
+   the ranks' losses and parameters (sha256) bit-equal after every step,
+   each rank's launches phase 6's step's, and rank 0 holding the averaged
+   gradient against the one-process gradient on the whole batch at the same
+   parameters under the bf16 gate (BF16_FACTOR, BF16_SLACK: no farther from
+   the one-process fp32 gradient than 3 times the one-process bf16 gradient,
+   plus 2^-8 of the leaf; PERF.md §6),
+   then one fp32 gradient of each layout at 2 images x 16 sentences (one
+   image a rank) under phase 6's per-leaf gate; leg C, the same two ranks
+   running DistributedInference (fp32, batch 64; Chexpert, ChestXDet10 and
+   MS-CXR, RSNA, 16 synthetic studies each), every merged result.json
+   byte-identical to a serial Inference run in this process; leg D (run on
+   phase 9's data before phase 9 removes it), python -m
+   torch.distributed.run --standalone --nproc_per_node 1 -m
+   radzero_torch.cli.run with phase 9's arguments and --inference false
+   (NCCL, a world of one), its log_history losses equal to phase 9's
+   in-process run's. Wall times beside the card line; leg B's step on one
+   shared card measures no interconnect.
 
 --profile also prints the kernels of one training step by device time
 (torch.profiler; the 40 longest, K15 / K16's by name, and the fixed-order
@@ -2579,11 +2604,23 @@ def train_batch(seed, n_images, n_sentences, vocab_size, pixel_dtype):
     }
 
 
+def default_step_launches(cfg):
+    """The launches of one default training step (tower frozen): K1-K3 in the tower and
+    the align layers, K6-K8 in the align layers, K4 / K9 in MPNet, K10-K12 once."""
+    n_tower, n_align = cfg.vision.num_hidden_layers, cfg.align.num_hidden_layers
+    n_text = cfg.text.num_hidden_layers
+    return expected(fused_preattn=n_tower + n_align, flash_attention_packed=n_tower + n_align,
+                    fused_postattn=n_tower + n_align, fused_mpnet_post=n_text,
+                    fused_preattn_bwd=n_align, flash_attention_packed_bwd=n_align,
+                    fused_postattn_bwd=n_align, fused_mpnet_post_bwd=n_text,
+                    vlcabs_train_forward=1, vlcabs_train_bwd_dq=1, vlcabs_train_bwd_dtn=1)
+
+
 def phase_training(seed, card, params, profile):
     """AdamW steps at full width through make_train_step: 6 at the default
     configuration (every layer on its kernels), 3 at the eager-layer one, 3
     with attn_impl="flash"; returns the launches of one default step and of
-    one flash step."""
+    one flash step, the median default step and the default steps' losses."""
     import torch
     from radzero_torch.models.configuration import (
         AlignConfig, LossConfig, RadZeroConfig, TextConfig, ViTConfig,
@@ -2652,10 +2689,7 @@ def phase_training(seed, card, params, profile):
     n_text = cfg.text.num_hidden_layers
     loss_kernels = {"vlcabs_train_forward": 1, "vlcabs_train_bwd_dq": 1,
                     "vlcabs_train_bwd_dtn": 1}
-    expect = expected(fused_preattn=n_tower + n_align, flash_attention_packed=n_tower + n_align,
-                      fused_postattn=n_tower + n_align, fused_mpnet_post=n_text,
-                      fused_preattn_bwd=n_align, flash_attention_packed_bwd=n_align,
-                      fused_postattn_bwd=n_align, fused_mpnet_post_bwd=n_text, **loss_kernels)
+    expect = default_step_launches(cfg)
     history, seconds, per_step, peak = run(cfg, 6, profile_it=profile)
     med = report('defaults (attn_impl="fused_vjp", fuse_post=True: K1-K4, K6-K12)', history,
                  seconds, per_step, peak, expect)
@@ -2712,7 +2746,7 @@ def phase_training(seed, card, params, profile):
         for a, b in zip(gf, gx):
             if not bool(((a - b).abs() <= 2e-4 * b.abs().max() + 1e-7).all()):
                 fail(f"training: a gradient of the {name} path disagrees with the eager path")
-    return training, p3[-1], med
+    return training, p3[-1], med, history
 
 
 MIMIC_POOL = [  # finding sentences of 3-22 words; a few dominate, as in MIMIC-CXR reports
@@ -3544,10 +3578,12 @@ def phase_checkpoint(seed, card):
     return launches
 
 
-def _grads(params, modules, c, batch, dtype, *, remat=False, stop=True):
-    """(loss, every gradient leaf of the ``modules`` subtree) of forward_train."""
+def _grads(params, modules, c, batch, dtype, *, remat=False, stop=True, group=None):
+    """(loss, every gradient leaf of the ``modules`` subtree) of forward_train; with
+    ``group`` this rank's share of the batch, the leaves averaged over the ranks."""
     import torch
     from radzero_torch.models.radzero import forward_train
+    from radzero_torch.parallel import average_gradients
     from radzero_torch.train.optim import merge_params, partition_params, tree_leaves
 
     trainable, frozen = partition_params(params, modules)
@@ -3556,13 +3592,14 @@ def _grads(params, modules, c, batch, dtype, *, remat=False, stop=True):
         p.requires_grad_(True)
     try:
         out = forward_train(merge_params(trainable, frozen), c, batch, dtype=dtype, remat=remat,
-                            stop_vision_gradient=stop)
+                            stop_vision_gradient=stop, group=group)
         grads = torch.autograd.grad(out["losses"]["loss"], leaves, allow_unused=True)
     finally:
         for p in leaves:
             p.requires_grad_(False)
-    return out["losses"]["loss"].detach(), [torch.zeros_like(p) if g is None else g
-                                            for p, g in zip(leaves, grads)]
+    grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
+    return out["losses"]["loss"].detach(), (grads if group is None
+                                            else average_gradients(grads, group))
 
 
 def _same_bits(label, a, b):
@@ -3904,7 +3941,7 @@ def cold_probe(argv) -> int:
     return 0 if rc == 0 else 1
 
 
-def phase_cli(seed, card):
+def phase_cli(seed, card, after=None):
     """9, the flagship training entry point: ``python -m radzero_torch.cli.run
     --add_cfg_list radzero <overlay> --train true --inference true --no_report`` in a fresh
     process, then radzero_torch.cli.run.main in this one into a second output directory.
@@ -3914,8 +3951,9 @@ def phase_cli(seed, card):
     the preset is otherwise the flagship's (batch 64, bf16, gradient_checkpointing, buckets
     [16, 32]). Gates: both exit cleanly; the run files and checkpoint-5; log_history's
     losses and each result.json bit-equal between the runs. Returns the launches of the
-    in-process run and its checkpoint-5, moved out of the phase's temporary directory for
-    phase 10 (which removes it)."""
+    in-process run, its checkpoint-5, moved out of the phase's temporary directory for
+    phase 10 (which removes it), and what ``after(tmp, argv, env, losses)`` returns, run
+    on the phase's data before it is removed (phase 11's leg D), or None."""
     import logging
     import os
     import shutil
@@ -4054,6 +4092,7 @@ def phase_cli(seed, card):
         results = {t: json.loads(r1[t]) for t in tasks}
         kept = Path(tempfile.mkdtemp(prefix="rz_cli_ckpt_")) / "checkpoint-5"
         shutil.move(str(out / "cli_in_process" / "checkpoint-5"), str(kept))
+        extra = None if after is None else after(tmp, argv, env, l2)
     print(f"  both runs exit 0 with output.log, the snapshot, checkpoint-5 and log_history "
           f"steps 1-5; log_history losses ({len(l1)} records) and the 3 result.json files "
           f"bit-equal between the runs; step 5 loss "
@@ -4087,7 +4126,7 @@ def phase_cli(seed, card):
         f"{t} {CLI_EVAL_N / timers[t]:.2f} images/s ({timers[t]:.2f} s)" for t in tasks))
     print(f"  launches of the in-process run: {launches}")
     print(f"  phase 9 (cli) {time.perf_counter() - t_phase:.1f} s on {card}")
-    return launches, kept
+    return launches, kept, extra
 
 
 VIZ_HW = (1500, 1250)  # (height, width) of leg A's study: a quarter of phase 4a's 3000 x 2500 pixels
@@ -4460,6 +4499,484 @@ def phase_viz(seed, card, cli_checkpoint):
     return launches
 
 
+DIST_WORLD = 2      # legs B and C: processes sharing the one card under gloo
+DIST_STEPS = 3      # AdamW steps of each training leg
+DIST_EVAL_N = 16    # studies a dataset in leg C
+DIST_CLS, DIST_DET, DIST_SEG = ["Chexpert"], ["ChestXDet10", "MS-CXR"], ["RSNA"]
+DIST_TASKS = ("classification", "grounding", "segmentation")
+DIST_MODULES = ("align_transformer", "text_model", "loss_fns")
+# leg B's bf16 gate (PERF.md §6): against the one-process fp32 gradient r at the
+# same parameters, a leaf of the two ranks' bf16 average d may miss by at most BF16_FACTOR
+# times what the one-process bf16 gradient o misses by, plus BF16_SLACK of the leaf, in
+# max and in rms: |d - r| <= 3 |o - r| + 2^-8 |r| + 1e-7. The two-rank step's rounding
+# noise is another draw of o's (its split sums round in another order) plus one more
+# rounding of each half sum and of K11's dq: ~1-2x o's in rms, and the largest of a few
+# hundred draws spreads further. A share counted P times, or lost, moves d by ~|r|.
+BF16_FACTOR, BF16_SLACK = 3.0, 2.0 ** -8
+
+
+class _Recording:
+    """An optimizer that keeps the gradients it is handed (the train step's,
+    after the ranks' average) and passes them on."""
+
+    def __init__(self, opt):
+        self.opt, self.grads = opt, []
+
+    def update(self, grads, state, trainable):
+        self.grads.append([g.detach().clone() for g in grads])
+        return self.opt.update(grads, state, trainable)
+
+
+def _sha(leaves):
+    """sha256 of the leaves' bytes in order (copied to the host)."""
+    import hashlib
+
+    import torch
+
+    h = hashlib.sha256()
+    for t in leaves:
+        h.update(t.detach().contiguous().view(-1).view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _grad_gate(dist, one, ref):
+    """Leg B's bf16 gate over the leaves (BF16_FACTOR, BF16_SLACK): -> the worst of
+    max |d - r| / (3 max |o - r| + 2^-8 max |r| + 1e-7) and of the same in rms, each at
+    most 1 to pass, and for the record the worst rms |d - o| / rms |o|, rms |o - r| /
+    rms |r| and rms |d - r| / rms |r| over the leaves whose |r| reaches 1e-7."""
+    worst_max = worst_rms = worst_do = worst_o32 = worst_d32 = 0.0
+    for d, o, r in zip(dist, one, ref):
+        d, o, r = d.float(), o.float(), r.float()
+
+        def rms(t):
+            return t.square().mean().sqrt().item()
+
+        worst_max = max(worst_max, (d - r).abs().max().item() / (
+            BF16_FACTOR * (o - r).abs().max().item() + BF16_SLACK * r.abs().max().item() + 1e-7))
+        worst_rms = max(worst_rms, rms(d - r) / (BF16_FACTOR * rms(o - r) + BF16_SLACK * rms(r)
+                                                 + 1e-7))
+        if r.abs().max() > 1e-7:  # the attention key biases are zero in exact arithmetic
+            worst_do = max(worst_do, rms(d - o) / rms(o))
+            worst_o32 = max(worst_o32, rms(o - r) / rms(r))
+            worst_d32 = max(worst_d32, rms(d - r) / rms(r))
+    return worst_max, worst_rms, worst_do, worst_o32, worst_d32
+
+
+def _flagship(seed):
+    """The flagship's weights as phase 4 draws them from ``seed``, and phase 6's training
+    configuration."""
+    import torch
+    from radzero_torch.models.configuration import (
+        AlignConfig, LossConfig, RadZeroConfig, TextConfig, ViTConfig,
+    )
+    from radzero_torch.models.radzero import init_radzero
+
+    params = init_radzero(torch.Generator(device="cuda").manual_seed(seed),
+                          RadZeroConfig(vision=ViTConfig(), text=TextConfig(),
+                                        align=AlignConfig(), loss=LossConfig()))
+    return params, _train_cfg()
+
+
+def _train_cfg():
+    """Phase 6's default training configuration."""
+    from radzero_torch.models.configuration import (
+        AlignConfig, LossConfig, RadZeroConfig, TextConfig, ViTConfig,
+    )
+
+    return RadZeroConfig(vision=ViTConfig(), align=AlignConfig(), text=TextConfig(),
+                         loss=LossConfig(train_impl="fused"))
+
+
+def _dedup(batch, world, slots, seed):
+    """``batch`` in the dedup layout the loader writes for ``world`` ranks: each rank's
+    first ``slots`` sentences are its unique block, and ``row_gather`` (offset by
+    rank * slots) draws each of its rows from that block (the first ``slots`` rows once
+    each, the rest with repeats)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed + 11)
+    s_rank = batch["input_ids"].shape[0] // world
+    ids, masks, gather = [], [], []
+    for r in range(world):
+        rows = slice(r * s_rank, r * s_rank + slots)
+        ids.append(batch["input_ids"][rows])
+        masks.append(batch["attention_mask"][rows])
+        local = np.concatenate([np.arange(slots), rng.integers(0, slots, s_rank - slots)])
+        gather.append(torch.as_tensor(local + r * slots, device=batch["input_ids"].device))
+    return {**batch, "input_ids": torch.cat(ids), "attention_mask": torch.cat(masks),
+            "row_gather": torch.cat(gather)}
+
+
+def _share(batch, r, world):
+    """Rank r's share of a global batch: each array's r-th of world equal row blocks
+    (images; sentences or unique sentences; group_map and row_gather stay global)."""
+    return {k: v[r * (len(v) // world):(r + 1) * (len(v) // world)] for k, v in batch.items()}
+
+
+def _run_group(cmd, log_path, timeout_s, **kw):
+    """Run ``cmd`` in a session of its own with its output in ``log_path``; kill the
+    whole session at ``timeout_s``. -> exit code (None when killed)."""
+    import os
+    import signal
+
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT,
+                                start_new_session=True, **kw)
+        try:
+            return proc.wait(timeout=timeout_s)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+            return None
+
+
+def cli_under_torchrun(tmp, argv, env, losses):
+    """11, leg D, run on phase 9's data: python -m torch.distributed.run --standalone
+    --nproc_per_node 1 -m radzero_torch.cli.run with phase 9's arguments and --inference
+    false: NCCL, a world of one, the trainer's group. -> its seconds, exit code, the loss
+    fields of its log_history and whether they equal phase 9's in-process run's."""
+    name = "cli_torchrun"
+    t0 = time.perf_counter()
+    rc = _run_group([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                     "--nproc_per_node", "1", "-m", "radzero_torch.cli.run", *argv, "--name",
+                     name, "--inference", "false"], tmp / "torchrun.log", 400,
+                    cwd=str(REPO), env=env)
+    seconds = time.perf_counter() - t0
+    log = (tmp / "torchrun.log").read_text()
+    if rc != 0:
+        return {"seconds": seconds, "rc": rc, "log": log[-4000:]}
+    got = _log_rows(tmp / "out" / "pt" / "anonymous" / name)[0]
+    return {"seconds": seconds, "rc": rc, "same": got == losses, "n": len(got)}
+
+
+def _rank_train(group, r, seed, params, cfg):
+    """Leg B on one of P ranks: the bf16 steps of the plain and the dedup layout (512 / 2P
+    unique sentences a rank) at 64 x 512 over the ranks, then one fp32
+    gradient of each at P images x 8P sentences (one image a rank). Rank 0 also computes
+    the one-process gradients at the same parameters on the whole batch."""
+    import torch
+    from radzero_torch.parallel import sync, world
+    from radzero_torch.train.optim import (
+        build_optimizer, merge_params, partition_params, tree_leaves,
+    )
+    from radzero_torch.train.step import make_train_step
+
+    vocab, p = cfg.text.vocab_size, world(group)
+    full = train_batch(seed, TB, TN, vocab, torch.bfloat16)
+    out = {}
+    for name, batch in (("plain", full), ("dedup", _dedup(full, p, TN // (2 * p), seed))):
+        trainable, frozen = partition_params(params, DIST_MODULES)
+        trainable = _clone(trainable)
+        opt, _ = build_optimizer(learning_rate=1e-4, warmup_steps=1, total_steps=6)
+        rec = _Recording(opt)
+        state = opt.init(trainable)
+        step = make_train_step(cfg, rec, dtype=torch.bfloat16, group=group)
+        mine = _share(batch, r, p)
+        batch32 = {k: v.float() if v.is_floating_point() else v for k, v in batch.items()}
+        rows = []
+        for _ in range(DIST_STEPS):
+            row = {}
+            if r == 0:  # one process at the same parameters: bf16 and fp32
+                merged = merge_params(trainable, frozen)
+                ref_loss, one = _grads(merged, DIST_MODULES, cfg, batch, torch.bfloat16)
+                ref32 = _grads(merged, DIST_MODULES, cfg, batch32, torch.float32)[1]
+                row["ref_loss"] = ref_loss.item()
+            sync("step", group)  # the other ranks do not time their wait for rank 0
+            reset_counters()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            trainable, state, losses = step(trainable, frozen, state, mine)
+            torch.cuda.synchronize()
+            row["step_s"] = time.perf_counter() - t0
+            row["launches"] = read_counters()
+            row["losses"] = {k: v.item() for k, v in losses.items()}
+            row["params_sha"] = _sha(tree_leaves(trainable))
+            if r == 0:
+                row["gate"] = _grad_gate(rec.grads[-1], one, ref32)
+                del one, ref32
+            rec.grads.clear()
+            rows.append(row)
+        out[name] = rows
+        del trainable, state, step, rec
+        torch.cuda.empty_cache()
+    small = train_batch(seed + 7, p, 8 * p, vocab, torch.float32)
+    for name, batch in (("plain_fp32", small), ("dedup_fp32", _dedup(small, p, 6, seed))):
+        loss, grads = _grads(params, DIST_MODULES, cfg, _share(batch, r, p), torch.float32,
+                             group=group)
+        row = {"loss": loss.item(), "grads_sha": _sha(grads)}
+        if r == 0:
+            ref_loss, ref = _grads(params, DIST_MODULES, cfg, batch, torch.float32)
+            row["ref_loss"] = ref_loss.item()
+            row["worst"] = max(((a - b).abs().max() / (b.abs().max() + 1e-30)).item()
+                               for a, b in zip(grads, ref) if b.abs().max() > 1e-7)
+            row["within"] = all(bool(((a - b).abs() <= 2e-4 * b.abs().max() + 1e-7).all())
+                                for a, b in zip(grads, ref))
+        out[name] = row
+    return out
+
+
+def _leg_b_gates(trains, expect, label):
+    """Leg B's gates over every rank's ``_rank_train`` result (rank 0 first): the ranks'
+    losses and parameters bit-equal after every step and their fp32 gradients alike, rank
+    0's loss and gradient against one process (the bf16 gate, phase 6's fp32 gate), each
+    rank's launches ``expect``; prints each step."""
+    r0, p = trains[0], len(trains)
+    for name in ("plain", "dedup"):
+        for i, a in enumerate(r0[name]):
+            others = [t[name][i] for t in trains[1:]]
+            same = all(b["params_sha"] == a["params_sha"] and b["losses"] == a["losses"]
+                       for b in others)
+            worst_max, worst_rms, worst_do, worst_o32, worst_d32 = a["gate"]
+            print(f"  {label}, {name}, step {i}: loss {a['losses']['loss']:.7f} (one process "
+                  f"{a['ref_loss']:.7f}); gradient leaves against one process in fp32, as a "
+                  f"share of the bf16 gate (1 passes): worst max {worst_max:.3f}, worst rms "
+                  f"{worst_rms:.3f}; worst rms error of a leaf, of its rms: {worst_do:.3e} "
+                  f"against one process in bf16, {worst_d32:.3e} against fp32 (one process "
+                  f"in bf16: {worst_o32:.3e}); the {p} ranks' parameters "
+                  f"{'bit-equal' if same else 'DIFFERENT'}; step "
+                  + " / ".join(f"{t[name][i]['step_s']:.3f}" for t in trains) + " s")
+            if not same:
+                fail(f"distributed, {label}, {name}: the ranks differ after step {i}")
+            if abs(a["losses"]["loss"] - a["ref_loss"]) > 2.0 ** -8 * abs(a["ref_loss"]):
+                fail(f"distributed, {label}, {name}: loss {a['losses']['loss']} against the "
+                     f"one-process {a['ref_loss']}")
+            if worst_max > 1.0 or worst_rms > 1.0:
+                fail(f"distributed, {label}, {name}: a gradient leaf fails the bf16 gate "
+                     f"({worst_max}, {worst_rms})")
+            for t in trains:
+                if t[name][i]["launches"] != expect:
+                    fail(f"distributed, {label}, {name}: launches {t[name][i]['launches']}, "
+                         f"the default step's {expect}")
+    for name in ("plain_fp32", "dedup_fp32"):
+        a = r0[name]
+        print(f"  {label}, {name} ({p} images x {8 * p} sentences, one image a rank): loss "
+              f"{a['loss']:.7f} (one process {a['ref_loss']:.7f}), worst gradient leaf error "
+              f"{a['worst']:.3e} of its largest entry (gate 2e-4)")
+        if any(t[name]["grads_sha"] != a["grads_sha"] or t[name]["loss"] != a["loss"]
+               for t in trains[1:]):
+            fail(f"distributed, {label}, {name}: the ranks' gradients differ")
+        if abs(a["loss"] - a["ref_loss"]) > 1e-5 * abs(a["ref_loss"]) + 1e-6 or not a["within"]:
+            fail(f"distributed, {label}, {name}: the gradient disagrees with one process")
+    steps = sorted(x["step_s"] for x in r0["plain"][1:])
+    print(f"  {label}: {p} ranks x {TB // p} images x {TN // p} sentences, median step "
+          f"{steps[len(steps) // 2]:.3f} s (steps 1-{len(r0['plain']) - 1}, rank 0)")
+
+
+def _eval_parts(cfg, params):
+    """Phase 5a's scorer (fp32, batch 64, the fused towers) on ``params``."""
+    import torch
+    from radzero_torch.data.processing import BlipStyleImageProcessor
+    from radzero_torch.data.tokenizer import WhitespaceHashTokenizer
+    from radzero_torch.eval.scorer import ZeroShotScorer
+
+    tok = WhitespaceHashTokenizer(vocab_size=cfg.text.vocab_size, max_length=64)
+    proc = BlipStyleImageProcessor(size=cfg.vision.img_size)
+    return ZeroShotScorer(params, cfg, proc, tok, device="cuda", batch_size=64,
+                          dtype=torch.float32)
+
+
+def _run_tasks(inference, scorer, out_dir):
+    t0 = time.perf_counter()
+    for task in DIST_TASKS:
+        getattr(inference, task)(scorer, str(Path(out_dir) / task))
+    return time.perf_counter() - t0
+
+
+def dist_rank(argv) -> int:
+    """chip_smoke.py --dist-rank RANK WORLD INIT OUT SEED EVAL_ROOT: a rank of legs B and
+    C, which phase 11 starts; the results go to OUT/rank{RANK}.json."""
+    r, world, init, out, seed, root = (int(argv[0]), int(argv[1]), argv[2], Path(argv[3]),
+                                       int(argv[4]), argv[5])
+    sys.path.insert(0, str(REPO))
+    import torch
+    from radzero_torch.eval.distributed import DistributedInference
+    from radzero_torch.models.configuration import RadZeroConfig
+    from radzero_torch.ops import _build
+    from radzero_torch.parallel import init_distributed
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    _build.build()
+    _build.load()
+    t0 = time.perf_counter()
+    group = init_distributed(backend="gloo", init_method=init, rank=r, world_size=world,
+                             timeout_s=600)
+    try:
+        res = {"init_s": time.perf_counter() - t0}
+        params, cfg = _flagship(seed)
+        res["params_sha"] = _sha(list(_leaves(params)))
+        res["train"] = _rank_train(group, r, seed, params, cfg)
+        torch.cuda.empty_cache()
+        inference = DistributedInference(DIST_CLS, DIST_DET, DIST_SEG, root, batch_size=64,
+                                         merge_timeout_s=600)
+        res["run_id"] = inference.run_id
+        res["eval_s"] = _run_tasks(inference, _eval_parts(RadZeroConfig(), params), out / "dist")
+        (out / f"rank{r}.json").write_text(json.dumps(res))
+    finally:
+        torch.distributed.destroy_process_group()
+    return 0
+
+
+def phase_distributed(seed, card, params, training, history, torchrun_leg):
+    """11, distribution: legs A-C here, leg D's result from phase 9 (see the module
+    docstring). Returns the launches of one distributed step on one rank (leg B)."""
+    import os
+    import signal
+    import tempfile
+
+    import torch
+    from radzero_torch.eval.inference import Inference
+    from radzero_torch.models.configuration import RadZeroConfig
+    from radzero_torch.parallel import init_distributed
+    from radzero_torch.tools import synthetic_eval_data as sd
+    from radzero_torch.train.optim import build_optimizer, partition_params, tree_leaves
+    from radzero_torch.train.step import make_train_step
+
+    t_phase = time.perf_counter()
+    cfg = _train_cfg()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        # leg A: NCCL, a world of one, against the step without a group
+        print(f"distributed (phase 11): leg A, NCCL as a world of one in this process, "
+              f"{DIST_STEPS} default steps at {TB} x {TN} x {T_LEN} in bf16 beside {DIST_STEPS} "
+              f"without a group")
+        t0 = time.perf_counter()
+        group = init_distributed(backend="nccl", init_method=f"file://{tmp / 'nccl_store'}",
+                                 rank=0, world_size=1, timeout_s=300)
+        try:
+            batch = train_batch(seed, TB, TN, cfg.text.vocab_size, torch.bfloat16)
+            runs = []
+            for g in (None, group):
+                trainable, frozen = partition_params(params, DIST_MODULES)
+                trainable = _clone(trainable)
+                opt, _ = build_optimizer(learning_rate=1e-4, warmup_steps=1, total_steps=6)
+                rec = _Recording(opt)
+                runs.append([trainable, frozen, opt.init(trainable), rec,
+                             make_train_step(cfg, rec, dtype=torch.bfloat16, group=g)])
+            for i in range(DIST_STEPS):
+                out = []
+                for run in runs:
+                    trainable, frozen, state, rec, step = run
+                    reset_counters()
+                    run[0], run[2], losses = step(trainable, frozen, state, batch)
+                    torch.cuda.synchronize()
+                    out.append((losses, read_counters()))
+                (la, _), (lb, launches) = out
+                same = (sorted(la) == sorted(lb) and all(torch.equal(la[k], lb[k]) for k in la)
+                        and all(torch.equal(x, y) for x, y in zip(runs[0][3].grads[-1],
+                                                                   runs[1][3].grads[-1]))
+                        and all(torch.equal(x, y) for x, y in zip(tree_leaves(runs[0][0]),
+                                                                   tree_leaves(runs[1][0]))))
+                print(f"  leg A, step {i}: loss {lb['loss'].item():.7f} (phase 6: "
+                      f"{history[i]['loss']:.7f}), the world of one "
+                      f"{'bit-equal' if same else 'DIFFERENT'} to the step without a group "
+                      f"in losses, {len(runs[1][3].grads[-1])} gradient leaves and parameters")
+                if not same:
+                    fail(f"distributed, leg A: step {i} differs from the step without a group")
+                if la["loss"].item() != history[i]["loss"]:
+                    fail(f"distributed, leg A: step {i}'s loss {la['loss'].item()} is not phase "
+                         f"6's {history[i]['loss']}")
+                if launches != training:
+                    fail(f"distributed, leg A: launches {launches}, phase 6's step {training}")
+                for run in runs:
+                    run[3].grads.clear()
+            del runs
+        finally:
+            torch.distributed.destroy_process_group()
+        torch.cuda.empty_cache()
+        leg_a_s = time.perf_counter() - t0
+        print(f"  leg A: {DIST_STEPS} steps bit-equal to the step without a group and to "
+              f"phase 6's losses, launches those of phase 6's step; {leg_a_s:.1f} s")
+
+        # leg C's eval root and its serial run in this process
+        t0 = time.perf_counter()
+        root = tmp / "data"
+        sizes = sd.chest_sizes(DIST_EVAL_N, seed)
+        sd.build_images(str(root), n=DIST_EVAL_N, seed=seed, sizes=sizes, compress_level=1,
+                        threads=8)
+        sd.build_chexpert(str(root), n=DIST_EVAL_N)
+        sd.build_chestxdet10(str(root), n=DIST_EVAL_N, scale=max(1, min(w for _, w in sizes)
+                                                                 // 60))
+        sd.build_mscxr(str(root), n=DIST_EVAL_N, sizes=sizes)
+        sd.build_rsna(str(root), n=DIST_EVAL_N, scale=max(1, min(w for _, w in sizes) // 60))
+        eval_params, _ = _flagship(seed)
+        serial_s = _run_tasks(Inference(DIST_CLS, DIST_DET, DIST_SEG, str(root), batch_size=64),
+                              _eval_parts(RadZeroConfig(), eval_params), tmp / "serial")
+        params_sha = _sha(list(_leaves(eval_params)))
+        del eval_params
+        torch.cuda.empty_cache()
+        data_s = time.perf_counter() - t0 - serial_s
+
+        # legs B and C: two ranks on the card under gloo
+        t0 = time.perf_counter()
+        env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+        env["PYTHONPATH"] = str(REPO)
+        procs = []
+        for r in range(DIST_WORLD):
+            procs.append(subprocess.Popen(
+                [sys.executable, str(REPO / "chip_smoke.py"), "--dist-rank", str(r),
+                 str(DIST_WORLD), f"file://{tmp / 'gloo_store'}", str(tmp), str(seed),
+                 str(root)], cwd=str(REPO), env=env, stdout=open(tmp / f"rank{r}.log", "w"),
+                stderr=subprocess.STDOUT, start_new_session=True))
+        deadline = time.monotonic() + 600
+        try:
+            for p in procs:
+                p.wait(timeout=max(deadline - time.monotonic(), 1.0))
+        except subprocess.TimeoutExpired:
+            pass
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    os.killpg(p.pid, signal.SIGKILL)
+                    p.wait()
+        ranks_s = time.perf_counter() - t0
+        codes = [p.returncode for p in procs]
+        if any(codes):
+            for r in range(DIST_WORLD):
+                print(f"--- rank {r} (exit {codes[r]}) ---\n"
+                      f"{(tmp / f'rank{r}.log').read_text()[-6000:]}", file=sys.stderr)
+            fail(f"distributed: the ranks of legs B and C exited {codes}")
+        res = [json.loads((tmp / f"rank{r}.json").read_text()) for r in range(DIST_WORLD)]
+        if any(x["params_sha"] != params_sha for x in res):
+            fail("distributed: a rank's weights from the seed are not this process's")
+
+        # leg B's gates
+        _leg_b_gates([x["train"] for x in res], training, "leg B")
+        print(f"  leg B: {DIST_WORLD} processes under gloo on ONE card (collectives through "
+              f"the host; no interconnect measured, nothing claimed); the ranks' init "
+              f"{res[0]['init_s']:.1f} s")
+
+        # leg C's gate
+        diff = [t for t in DIST_TASKS
+                if (tmp / "dist" / t / "result.json").read_bytes()
+                != (tmp / "serial" / t / "result.json").read_bytes()]
+        if diff or res[0]["run_id"] != res[1]["run_id"] or res[0]["run_id"] is None:
+            fail(f"distributed, leg C: result.json of {diff} differs from the serial run, or "
+                 f"the ranks' run ids {res[0]['run_id']} / {res[1]['run_id']}")
+        print(f"  leg C: DistributedInference over 2 ranks (cls {DIST_CLS}, det {DIST_DET}, seg "
+              f"{DIST_SEG}, {DIST_EVAL_N} studies each, fp32, batch 64): the 3 merged "
+              f"result.json byte-identical to the serial Inference's; run id "
+              f"{res[0]['run_id']} broadcast; eval {res[0]['eval_s']:.1f} / "
+              f"{res[1]['eval_s']:.1f} s on the ranks against {serial_s:.1f} s serial; data "
+              f"written in {data_s:.1f} s")
+        launches = res[0]["train"]["plain"][-1]["launches"]
+
+    # leg D, run by phase 9 on its data
+    d = torchrun_leg
+    if d["rc"] != 0 or not d["same"]:
+        print(d.get("log", d), file=sys.stderr)
+        fail(f"distributed, leg D: torchrun's CLI run exited {d['rc']} or its losses differ "
+             "from phase 9's in-process run")
+    print(f"  leg D: python -m torch.distributed.run --nproc_per_node 1 -m radzero_torch.cli.run "
+          f"(NCCL, a world of one, 1 epoch of 5 steps): {d['n']} log_history records equal to "
+          f"phase 9's in-process run; {d['seconds']:.1f} s")
+    print(f"  phase 11 (distributed) {time.perf_counter() - t_phase:.1f} s (legs B and C's ranks "
+          f"{ranks_s:.1f} s) on {card}")
+    return launches
+
+
 def _keyed_paths(tree, prefix=""):
     """(path, leaf) of a dict / list tree."""
     if isinstance(tree, dict):
@@ -4536,6 +5053,8 @@ def _leaves(tree):
 def main() -> int:
     if sys.argv[1:2] == ["--cold-probe"]:
         return cold_probe(sys.argv[2:])
+    if sys.argv[1:2] == ["--dist-rank"]:
+        return dist_rank(sys.argv[2:])
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
@@ -4581,13 +5100,15 @@ def main() -> int:
     exported = phase_export(args.seed, card, params, lambda imgs: live_engine_probs(params, imgs))
     scoring = phase_scorer(args.seed, card, params)
     evaluation = phase_eval(args.seed, card, params)
-    training, flash_step, bare_step_s = phase_training(args.seed, card, params, args.profile)
+    training, flash_step, bare_step_s, history = phase_training(args.seed, card, params,
+                                                                args.profile)
     remat_step = phase_remat(args.seed, card, params)
     phase_lora(args.seed, card, params)
     trainer_step = phase_trainer(args.seed, card, params, bare_step_s)
     checkpoint = phase_checkpoint(args.seed, card)
-    cli, cli_checkpoint = phase_cli(args.seed, card)
+    cli, cli_checkpoint, torchrun_leg = phase_cli(args.seed, card, after=cli_under_torchrun)
     viz = phase_viz(args.seed, card, cli_checkpoint)
+    distributed = phase_distributed(args.seed, card, params, training, history, torchrun_leg)
 
     meta = {
         "K1": ("fused_preattn", "radzero_torch/ops/csrc/gemm_sm90.cu",
@@ -4626,8 +5147,9 @@ def main() -> int:
     # launches: the serving burst's count, the HTTP burst's, one run of each exported
     # program, the scorer run's, the eval suite's, one default training step's, one
     # flash training step's, one remat step's (align "save_attn"), one trainer step's,
-    # the converted checkpoint's 4 requests, the in-process training CLI run's and the
-    # in-process visualization CLI runs'; each path was
+    # the converted checkpoint's 4 requests, the in-process training CLI run's, the
+    # in-process visualization CLI runs' and one distributed training step's on one rank
+    # of phase 11's leg B; each path was
     # driven with every count at 0 and read right after
     from radzero_torch.ops import registry
 
@@ -4636,7 +5158,7 @@ def main() -> int:
          "registered_op": f"radzero::{name}" if name in registry.calls else None,
          "launches": serving[name] + server[name] + exported[name] + scoring[name]
          + evaluation[name] + training[name] + flash_step[name] + remat_step[name]
-         + trainer_step[name] + checkpoint[name] + cli[name] + viz[name],
+         + trainer_step[name] + checkpoint[name] + cli[name] + viz[name] + distributed[name],
          "launches_serving": serving[name], "launches_server": server[name],
          "launches_export": exported[name], "launches_scorer": scoring[name],
          "launches_eval": evaluation[name],
@@ -4645,7 +5167,8 @@ def main() -> int:
          "launches_remat_step": remat_step[name],
          "launches_trainer_step": trainer_step[name],
          "launches_checkpoint": checkpoint[name], "launches_cli": cli[name],
-         "launches_viz": viz[name], **rows[k]}
+         "launches_viz": viz[name], "launches_distributed_step": distributed[name],
+         **rows[k]}
         for k, (name, src, rep) in meta.items()
     ]
     k11 = next(k for k in kernels if k["name"] == "vlcabs_train_bwd_dq")

@@ -11,11 +11,22 @@ Usage:
 
 The flags are the JAX CLI's, plus ``--device`` (default ``cuda``; the
 tests pass ``cpu``). Without a CUDA device, ``--device cuda`` raises: the
-run never falls back to the CPU. The port runs one card: ``train.mesh``
-must be ``{data: -1}`` or ``{data: 1}``, and the JAX CLI's multi-process
-``DistributedInference`` has no counterpart yet (ROADMAP.md, modules still
-to port, item 6). The JAX compilation cache has no counterpart either; the
-kernels are built once per checkout (``ops/_build.py``).
+run never falls back to the CPU. The JAX compilation cache has no
+counterpart; the kernels are built once per checkout (``ops/_build.py``).
+
+Data-parallel over several cards, one process a card, under torchrun:
+
+    python -m torch.distributed.run --nproc_per_node N -m radzero_torch.cli.run ...
+
+Each rank binds ``cuda:LOCAL_RANK``, joins the process group (NCCL on the
+card, gloo with ``--device cpu``), checks ``train.mesh`` against the world
+(``{data: -1}`` absorbs it, ``{data: N}`` must equal it), reads its shard
+of the records (``per_device_train_batch_size`` images a rank) and trains
+with the trainer's ``group``; rank 0 writes the snapshot, the checkpoints
+and ``log_history.jsonl``. With more than one rank the zero-shot suite runs
+through ``DistributedInference`` (datasets sharded over the ranks, rank 0
+merging ``result.json``). NCCL takes one rank a card: on one card it runs
+only as a world of one.
 
 ``model.pretrained_ckpt`` names a directory that
 ``python -m radzero_torch.tools.convert_checkpoint`` wrote (its
@@ -38,10 +49,12 @@ from radzero_torch.data.mimic import load_datasets
 from radzero_torch.data.pipeline import PackSpec, TrainLoader, pil_image_loader
 from radzero_torch.data.processing import build_image_processor
 from radzero_torch.data.tokenizer import load_tokenizer
+from radzero_torch.eval.distributed import DistributedInference
 from radzero_torch.eval.inference import Inference
 from radzero_torch.eval.scorer import ZeroShotScorer
 from radzero_torch.models.configuration import radzero_config_from_dict
 from radzero_torch.models.radzero import init_radzero
+from radzero_torch.parallel.dist import check_mesh, init_distributed, local_rank, rank, world
 from radzero_torch.train.trainer import RadZeroTrainer, TrainerArgs
 from radzero_torch.utils.experiment import code_snapshot, output_directory_setting
 from radzero_torch.utils.logging import load_logger
@@ -63,15 +76,6 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--device", default="cuda",
                    help="cuda (the default; raises without a card) or cpu")
     return p.parse_args(argv)
-
-
-def check_mesh(mesh: dict) -> None:
-    """The port runs one card: every mesh axis must be -1 (all devices) or 1."""
-    bad = {k: v for k, v in (mesh or {}).items() if v not in (-1, 1)}
-    if bad:
-        raise NotImplementedError(
-            f"train.mesh {mesh}: the port runs one card (data -1 or 1); data parallelism "
-            "over several cards is ROADMAP.md, modules still to port, item 6")
 
 
 def build_everything(cfg: dict, seed: int = 42, device="cuda"):
@@ -164,11 +168,25 @@ def tower_cache_from(cfg: dict, output_dir: str, n_records: int):
 def main(argv: Optional[Sequence[str]] = None) -> int:
     args = parse_args(argv)
     device = resolve_device(args.device)
+    if device.type == "cuda" and "LOCAL_RANK" in os.environ:  # one card a rank
+        device = torch.device("cuda", local_rank())
+        torch.cuda.set_device(device)
+    # under torchrun: the process group; else None, a world of one
+    group = init_distributed(backend="nccl" if device.type == "cuda" else "gloo")
+    try:
+        return _main(args, device, group)
+    finally:
+        if group is not None:
+            torch.distributed.destroy_process_group()
+
+
+def _main(args: argparse.Namespace, device: torch.device, group) -> int:
     cfg = Config(args).config
-    check_mesh(cfg["train"].get("mesh", {"data": -1}))
+    check_mesh(cfg["train"].get("mesh", {"data": -1}), world(group))
     logger = load_logger()
     output_dir = output_directory_setting(cfg, logger)
-    code_snapshot(cfg, output_dir)
+    if rank(group) == 0:
+        code_snapshot(cfg, output_dir)
     debug_flags(nans=bool(cfg["train"].get("debug_nans", False)),
                 deterministic=bool(cfg["train"].get("full_determinism", False)))
 
@@ -181,20 +199,23 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         datasets = load_datasets(cfg["dataset"], train=True)
         loader = pil_image_loader(image_processor)
         tower_cache = tower_cache_from(cfg, output_dir, len(datasets["train"]))
+        # each rank reads its shard of the records, per_device_*_batch_size a step
+        shard = {} if group is None else dict(process_index=rank(group),
+                                              process_count=world(group))
         train_loader = TrainLoader(
             datasets["train"], loader, tokenizer, cfg["train"]["per_device_train_batch_size"],
             spec, seed=seed, with_indices=tower_cache is not None,
             # train.echo: data echoing, each decoded batch yields `echo`
             # optimizer steps (TrainLoader docstring)
-            echo=int(cfg["train"].get("echo", 1)),
+            echo=int(cfg["train"].get("echo", 1)), **shard,
         )
         eval_loader = TrainLoader(
             datasets["eval"], loader, tokenizer, cfg["train"]["per_device_eval_batch_size"],
-            spec, shuffle=False,
+            spec, shuffle=False, **shard,
         )
         trainer = RadZeroTrainer(
             model_cfg, trainer_args(cfg, output_dir, loss_ratio), train_loader, eval_loader,
-            params=params, device=device, tower_cache=tower_cache,
+            params=params, device=device, tower_cache=tower_cache, group=group,
         )
         resume = cfg["args"].get("resume_from_checkpoint")
         if resume is None:
@@ -207,8 +228,10 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         inf = cfg["inference"]
         scorer = ZeroShotScorer(params, model_cfg, image_processor, tokenizer, device=device,
                                 batch_size=inf["batch_size"], dtype=torch.float32)
-        inference = Inference(inf["cls_dataset"], inf["det_dataset"], inf["seg_dataset"],
-                              cfg["dataset"]["data_root"], batch_size=inf["batch_size"])
+        # several ranks shard the dataset registry and rank 0 merges result.json
+        facade = DistributedInference if world(group) > 1 else Inference
+        inference = facade(inf["cls_dataset"], inf["det_dataset"], inf["seg_dataset"],
+                           cfg["dataset"]["data_root"], batch_size=inf["batch_size"])
         save_dir = os.path.join(output_dir, "inference")
         inference.classification(scorer, os.path.join(save_dir, "classification"),
                                  compute_metric=cfg["args"].get("compute_metric", True))

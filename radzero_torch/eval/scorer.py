@@ -5,8 +5,11 @@ Wraps :func:`radzero_torch.models.radzero.compute_logits` in a threaded
 host pipeline: host threads decode and resize chunk i+1 while the card runs
 chunk i, and results are fetched one step behind through pinned buffers.
 Eager PyTorch has no shape to compile for, so there is no jit cache and the
-last partial batch is not padded. ``mesh`` has no counterpart yet (one
-card).
+last partial batch is not padded. The JAX scorer's ``mesh`` (one
+process's batch sharded over its local devices) has no counterpart, by
+decision (ROADMAP.md item 10): PyTorch's idiom is a process a card, and
+several cards evaluate through ``eval/distributed.py``'s
+``DistributedInference``, each rank scoring its share of the datasets.
 
 fp32 is the reference-parity eval protocol and runs with TF32 off (the
 counterpart of ``jax.default_matmul_precision("highest")``), set and

@@ -4,6 +4,10 @@ radzero_tpu/losses/clip.py), plain torch ops.
 CLIP:   symmetric InfoNCE over ``scale * img @ txt.T`` with diagonal labels.
 SigLIP: pairwise log-sigmoid loss, positives on the diagonal (init scale
         log(10), bias -10).
+
+With ``group`` (a process group) both gather the image and text features
+of every rank (:func:`radzero_torch.parallel.collectives.all_gather_rows`)
+and run over the global batch: open_clip's ``local_loss=False``.
 """
 
 from __future__ import annotations
@@ -13,6 +17,14 @@ import math
 import torch
 import torch.nn.functional as F
 
+from radzero_torch.parallel.collectives import all_gather_rows
+
+
+def _global(image_features, text_features, group):
+    if group is None:
+        return image_features, text_features
+    return all_gather_rows(image_features, group), all_gather_rows(text_features, group)
+
 
 def init_clip_loss(init_logit_scale: float = math.log(1 / 0.07), device=None) -> dict:
     return {"log_logit_scale": torch.tensor([init_logit_scale], dtype=torch.float32,
@@ -20,8 +32,9 @@ def init_clip_loss(init_logit_scale: float = math.log(1 / 0.07), device=None) ->
 
 
 def clip_loss(params: dict, image_features: torch.Tensor,
-              text_features: torch.Tensor) -> torch.Tensor:
+              text_features: torch.Tensor, group=None) -> torch.Tensor:
     """Symmetric InfoNCE; features are l2-normalised (B, D)."""
+    image_features, text_features = _global(image_features, text_features, group)
     scale = torch.exp(params["log_logit_scale"][0])
     logits = scale * image_features @ text_features.T  # (B, B)
     li = -torch.diagonal(F.log_softmax(logits, dim=-1)).mean()
@@ -38,7 +51,8 @@ def init_siglip_loss(init_logit_scale: float = math.log(10.0),
 
 
 def siglip_loss(params: dict, image_features: torch.Tensor,
-                text_features: torch.Tensor) -> torch.Tensor:
+                text_features: torch.Tensor, group=None) -> torch.Tensor:
+    image_features, text_features = _global(image_features, text_features, group)
     scale = torch.exp(params["log_logit_scale"][0])
     logits = scale * image_features @ text_features.T + params["logit_bias"][0]
     b = logits.shape[0]

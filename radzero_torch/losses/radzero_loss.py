@@ -5,6 +5,14 @@ tokens and text features), the 2*hidden text slice, the log-parameterised
 temperatures, VL-CABS, and the MP-NCE loss over its t2i logits.
 :func:`radzero_loss` is the whole head; :func:`radzero_similarity` is what
 zero-shot scoring takes from it (logits and score maps, no loss).
+
+With ``group`` (a process group) the head sees the global batch: VL-CABS
+gathers the queries and the logit columns
+(:func:`radzero_torch.ops.vlcabs.vlcabs_similarity`), and MP-NCE runs on
+the global (S, B) logits with every rank's ``group_map`` and ``row_mask``
+gathered in rank order. The loader's ``group_map`` is global already
+(``data/pipeline.py``: offset by ``process_index * batch_size``), so every
+rank computes the same loss.
 """
 
 from __future__ import annotations
@@ -18,6 +26,7 @@ from radzero_torch.losses.mpnce import multi_positive_nce_loss
 from radzero_torch.models.configuration import LossConfig
 from radzero_torch.ops.layers import layer_norm
 from radzero_torch.ops.vlcabs import vlcabs_similarity
+from radzero_torch.parallel.collectives import gather_rows
 
 _SHARED_LN_EPS = 1e-5  # torch nn.LayerNorm default
 
@@ -63,10 +72,12 @@ def radzero_loss(
     need_scores: bool = False,
     compute_loss: bool = True,
     impl: str = "xla",
+    group=None,
 ) -> Dict[str, torch.Tensor]:
     """-> {"t2i_logits": (S, B), "similarity_scores": (B, S, L_attn) when
     asked for, "losses": {"t2i_loss", "loss"} when ``compute_loss``}.
-    ``impl`` is :func:`radzero_torch.ops.vlcabs.vlcabs_similarity`'s."""
+    ``impl`` is :func:`radzero_torch.ops.vlcabs.vlcabs_similarity`'s; with
+    ``group`` S and B are the global counts."""
     text = _select_text_features(cfg, text_features_raw, text_features_normed)
     if cfg.use_layer_norm:
         vision_tokens = layer_norm(vision_tokens, params["layer_norm"], _SHARED_LN_EPS)
@@ -76,11 +87,14 @@ def radzero_loss(
 
     logits, scores = vlcabs_similarity(
         text, attn_tokens, sim_op=cfg.sim_op, temperature=attn_temp,
-        need_scores=need_scores, impl=impl)
+        need_scores=need_scores, impl=impl, group=group)
     outputs = {"t2i_logits": logits}
     if scores is not None:
         outputs["similarity_scores"] = scores
     if compute_loss:
+        if group is not None:
+            group_map, row_mask = (None if t is None else gather_rows(t, group)
+                                   for t in (group_map, row_mask))
         t2i_loss = multi_positive_nce_loss(
             logits, group_map, temperature=loss_temp, row_sum=cfg.mpnce_row_sum,
             col_sum=cfg.mpnce_col_sum, row_mask=row_mask)

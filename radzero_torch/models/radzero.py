@@ -45,6 +45,7 @@ from radzero_torch.models.configuration import RadZeroConfig
 from radzero_torch.models.mpnet import init_mpnet, masked_mean_pool, mpnet_forward
 from radzero_torch.models.vit import init_vit, layer_impl, vit_forward
 from radzero_torch.ops.layers import l2_normalize, linear
+from radzero_torch.parallel.collectives import all_gather_rows
 
 
 def init_radzero(g: torch.Generator, cfg: RadZeroConfig,
@@ -161,8 +162,10 @@ def forward_train(
     dtype=torch.float32,
     remat: bool = False,
     stop_vision_gradient: bool = False,
+    group=None,
 ) -> Dict[str, torch.Tensor]:
-    """One training forward over the flattened global batch.
+    """One training forward over the flattened global batch, or, with
+    ``group`` (a process group), over this rank's share of it.
 
     batch keys:
         pixel_values          (B, H, W, 3), or ``tower_tokens`` (B, L, D), a
@@ -194,6 +197,13 @@ def forward_train(
     ``cfg.loss.train_impl`` ("fused" with ``sim_op="cos"``: kernels
     K10-K12, else eager ops). ``remat`` goes to both towers and the align
     layers (:func:`forward_vision`, :func:`forward_text`).
+
+    ``group``: the batch is this rank's share, ``group_map`` (and
+    ``row_gather``) in global indices as the loader writes them. The towers
+    run on the share; the loss heads gather what the global loss needs
+    (``radzero_loss``, ``clip_loss``, ``siglip_loss``), so every rank
+    returns the same losses. With ``row_gather`` the unique block's
+    features are gathered first, then indexed.
     -> {"losses": {...}, **forward_vision outputs}."""
     loss_ratio = loss_ratio or {name: 1.0 for name in params["loss_fns"]}
     # the tower runs on K1-K3: frozen it keeps no tape; trainable, it
@@ -211,12 +221,14 @@ def forward_train(
             text = forward_text(params, cfg, batch["input_ids"], batch["attention_mask"],
                                 dtype=dtype, remat=remat)
             if "row_gather" in batch:
+                if group is not None:  # the loader's indices point into every rank's block
+                    text = {k: all_gather_rows(v, group) for k, v in text.items()}
                 text = {k: v[batch["row_gather"]] for k, v in text.items()}
             fused = cfg.loss.train_impl == "fused" and cfg.loss.sim_op == "cos"
             out = radzero_loss(
                 lparams, cfg.loss, text["text_features_wo_l2_norm"], text["text_features"],
                 batch["group_map"], batch["row_mask"], vision["vision_tokens"],
-                impl="fused_train" if fused else "xla")
+                impl="fused_train" if fused else "xla", group=group)
             losses["t2i_loss"] = out["losses"]["t2i_loss"]
             losses["radzero_loss"] = loop_loss = out["losses"]["loss"]
         elif name in ("OpenClipLoss", "OpenSigLipLoss"):
@@ -225,7 +237,7 @@ def forward_train(
             fn, key = ((clip_loss, "clip_loss") if name == "OpenClipLoss"
                        else (siglip_loss, "siglip_loss"))
             losses[key] = loop_loss = fn(lparams, vision["image_features"],
-                                         text["text_features"])
+                                         text["text_features"], group=group)
         else:
             raise NotImplementedError(name)
         total = total + loop_loss.float() * loss_ratio.get(name, 1.0)

@@ -11,8 +11,13 @@ Per (image b, query n), tokens t_b (L x D), query q_n:
 
 Returns logits (N, B) and the scores (B, N, L) or None.
 
-The JAX function's ``mesh`` / ``shard_map`` branch belongs to the
-distribution slice and is not ported.
+``group`` is the counterpart of the JAX function's ``mesh`` / ``shard_map``
+branch (``in_specs=(P(), P("data"), P())``, ``out_specs=P(None, "data")``):
+the text queries are gathered to the global N, each rank runs the chain or
+the kernels on its own B_r images, and the (N, B_r) logit columns are
+gathered to (N, B). Vision tokens never leave their rank. The gathers'
+backward sums over the ranks, so a rank's dq from its own columns becomes
+the global dq (the ``psum`` of the JAX transpose); no kernel changes.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ import torch
 
 from radzero_torch.ops.layers import l2_normalize
 from radzero_torch.ops.vlcabs_fused import vlcabs_fused, vlcabs_fused_train
+from radzero_torch.parallel.collectives import all_gather_rows
 
 
 def vlcabs_similarity(
@@ -33,6 +39,7 @@ def vlcabs_similarity(
     temperature: Optional[torch.Tensor] = None,
     need_scores: bool = False,
     impl: str = "xla",
+    group=None,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """``impl``:
         xla          eager torch ops: differentiable by autograd, any sim_op
@@ -41,9 +48,23 @@ def vlcabs_similarity(
                      differentiable, the (B, N, L) scores never reach device
                      memory (cos only; no score maps on this path)
 
-    ``dot`` always takes the eager chain: there is no kernel for it."""
+    ``dot`` always takes the eager chain: there is no kernel for it.
+
+    ``group`` (a process group, or None): ``queries`` are this rank's rows
+    and ``tokens`` its images; the logits come back (N, B) over every
+    rank's queries and images. Score maps stay with their images, so
+    ``need_scores`` with a group raises."""
     if impl not in ("xla", "fused", "fused_train"):
         raise ValueError(f"unknown VL-CABS impl {impl!r}")
+    if group is not None:
+        if need_scores:
+            raise ValueError("need_scores with a process group: the maps stay on the rank "
+                             "that holds the image")
+        logits, _ = vlcabs_similarity(all_gather_rows(queries, group), tokens, sim_op=sim_op,
+                                      temperature=temperature, impl=impl)
+        out = all_gather_rows(logits.T.contiguous(), group).T
+        # the layout of the one-process logits, so that the loss reduces in the same order
+        return (out.contiguous() if logits.is_contiguous() else out), None
     cdt = tokens.dtype
     if impl != "xla" and sim_op == "cos":
         if temperature is None:

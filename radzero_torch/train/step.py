@@ -5,6 +5,17 @@ subtree. The trainable leaves are the fp32 master weights; the forward
 casts them to the compute ``dtype`` where it uses them, and autograd
 carries the gradient back through the cast into fp32. Every sub-loss is
 returned per step, with ``grad_norm``, the global norm before clipping.
+
+With ``group`` (a process group) the step is data-parallel, the
+counterpart of the JAX step over a data mesh: each rank runs the forward
+and backward on its share of the batch, the loss meets the global batch
+through its gathers, and the gradients are averaged over the ranks
+(:func:`radzero_torch.parallel.collectives.average_gradients`) before the
+clip and the update, so every rank holds the same parameters bit for bit.
+The factor: every rank computes the same global loss, and each gather's
+backward sums over the ranks, so a rank's own contribution to a gradient
+arrives P times; the average over P ranks of these is the one-process
+gradient of the global batch.
 """
 
 from __future__ import annotations
@@ -15,6 +26,7 @@ import torch
 
 from radzero_torch.models.configuration import RadZeroConfig
 from radzero_torch.models.radzero import forward_train
+from radzero_torch.parallel.collectives import average_gradients
 from radzero_torch.train.optim import (
     AdamW,
     global_norm,
@@ -32,6 +44,7 @@ def make_train_step(
     remat: bool = False,
     stop_vision_gradient: Optional[bool] = None,
     device="cuda",
+    group=None,
 ) -> Callable:
     """Build ``train_step(trainable, frozen, opt_state, batch) ->
     (trainable, opt_state, losses)``. ``trainable`` is updated in place
@@ -43,7 +56,8 @@ def make_train_step(
     tower sits in the frozen subtree it runs without a tape. ``remat``
     (``TrainerArgs.gradient_checkpointing``) goes to ``forward_train``: the
     backward reruns parts of the forward (``models/vit.py``,
-    ``models/mpnet.py``) and gives the same gradients bit for bit."""
+    ``models/mpnet.py``) and gives the same gradients bit for bit.
+    ``group``: ``batch`` is this rank's share (see the module docstring)."""
 
     dev = torch.device(device)
 
@@ -60,13 +74,15 @@ def make_train_step(
             with torch.enable_grad():
                 out = forward_train(merge_params(trainable, frozen), cfg, batch,
                                     loss_ratio=loss_ratio, dtype=dtype, remat=remat,
-                                    stop_vision_gradient=stop)
+                                    stop_vision_gradient=stop, group=group)
                 losses = out["losses"]
                 grads = torch.autograd.grad(losses["loss"], leaves, allow_unused=True)
         finally:
             for p in leaves:
                 p.requires_grad_(False)
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
+        if group is not None:
+            grads = average_gradients(grads, group)
         # a flat list in the order of tree_leaves is a gradient tree too
         opt_state = optimizer.update(grads, opt_state, trainable)
         losses = {k: v.detach() for k, v in losses.items()}
@@ -82,16 +98,20 @@ def make_eval_step(
     loss_ratio: Optional[Dict[str, float]] = None,
     dtype=torch.bfloat16,
     device="cuda",
+    group=None,
 ) -> Callable:
     """Build ``eval_step(params, batch) -> losses``: the training forward
-    without a tape, on ``device``."""
+    without a tape, on ``device``. With ``group`` it gathers as the train
+    step does, so every rank returns the same global losses (model
+    selection and early stopping then agree on every rank)."""
     dev = torch.device(device)
 
     @torch.no_grad()
     def eval_step(params, batch):
         _check_device(tree_leaves(params), dev)
         batch = {k: v.to(dev, non_blocking=True) for k, v in batch.items()}
-        out = forward_train(params, cfg, batch, loss_ratio=loss_ratio, dtype=dtype)
+        out = forward_train(params, cfg, batch, loss_ratio=loss_ratio, dtype=dtype,
+                            group=group)
         return out["losses"]
 
     return eval_step

@@ -16,11 +16,19 @@ steps, with the reference HF-Trainer fork's real customisations
 
 Where it departs from the JAX trainer:
 
-- ``device=`` (the card unless the caller asks for the CPU) takes the
-  place of ``mesh=``: one device, no sharding. Every impl the config
+- ``device=`` (the card unless the caller asks for the CPU) and
+  ``group=`` take the place of ``mesh=``: one process a card, the step
+  data-parallel over ``group`` (``train/step.py``), the loader sharded by
+  the caller (``process_index`` / ``process_count``). Rank 0 alone writes
+  checkpoints, prunes them and writes ``log_history.jsonl``, with a
+  barrier before and after each save; every rank resumes from and
+  restores the same checkpoints, and every rank's eval loss is the global
+  one, so selection and early stopping agree. Every impl the config
   names runs on every device, so there is no ``resolve_backend_impls``
   downgrade, and the frozen tower always runs on the fused K1-K3 layer
   (``forward_train``), so there is no flash-to-fused substitution.
+- ``train_samples_per_second`` counts the samples of every rank (this
+  rank's times the world), as the JAX trainer's global batch does.
 - Batches are uploaded by ``data/pipeline.py``'s ``to_device``: each host
   array is copied into pinned memory on the host thread (a memcpy of the
   batch, chiefly its 206 MB of fp32 pixels at batch 64; its time on the
@@ -60,6 +68,7 @@ import torch
 from radzero_torch.data.pipeline import to_device
 from radzero_torch.models.configuration import RadZeroConfig
 from radzero_torch.models.radzero import init_radzero
+from radzero_torch.parallel.dist import rank, sync, world
 from radzero_torch.train.checkpoint import (
     checkpoint_dir,
     get_last_checkpoint,
@@ -127,6 +136,7 @@ class RadZeroTrainer:
         device="cuda",
         metrics_callback: Optional[Callable[[Dict[str, Any]], None]] = None,
         tower_cache=None,
+        group=None,
     ):
         """``tower_cache``: an optional ``train.tower_cache.TowerCache``.
         The frozen vision tower's output tokens are computed once per
@@ -134,7 +144,12 @@ class RadZeroTrainer:
         ``record_indices``, and fed back as ``tower_tokens`` on later
         epochs — the train step then never runs the tower. Requires the
         tower frozen (it is, under the reference policy) and the train
-        loader constructed ``with_indices=True``."""
+        loader constructed ``with_indices=True``.
+
+        ``group``: a process group for data-parallel training (each rank
+        passes its own loader shard and the same ``params``), or None."""
+        self.group = group
+        self.is_main = rank(group) == 0
         self.device = torch.device(device)
         if self.device.type == "cuda" and self.device.index is None:
             self.device = torch.device("cuda", torch.cuda.current_device())
@@ -206,10 +221,10 @@ class RadZeroTrainer:
         dtype = torch.bfloat16 if args.bf16 else torch.float32
         self.train_step = make_train_step(
             model_cfg, self.optimizer, loss_ratio=args.loss_ratio, dtype=dtype,
-            remat=args.gradient_checkpointing, device=self.device,
+            remat=args.gradient_checkpointing, device=self.device, group=group,
         )
         self.eval_step = make_eval_step(model_cfg, loss_ratio=args.loss_ratio, dtype=dtype,
-                                        device=self.device)
+                                        device=self.device, group=group)
         self.state = TrainerState(
             patience_left=args.early_stopping_patience,
         )
@@ -297,6 +312,8 @@ class RadZeroTrainer:
 
     def _persist_log(self, record: Dict[str, Any]) -> None:
         self.state.log_history.append(record)
+        if not self.is_main:
+            return
         logger.info(
             " ".join(
                 f"{k}={v:.6g}" if isinstance(v, (int, float)) else f"{k}={v}"
@@ -409,7 +426,7 @@ class RadZeroTrainer:
             epoch_metrics: Dict[str, Any] = {
                 "step": self.state.step,
                 "epoch": epoch + 1,
-                "train_samples_per_second": n_samples / max(dt, 1e-9),
+                "train_samples_per_second": n_samples * world(self.group) / max(dt, 1e-9),
             }
             # With data echoing each decoded batch is consumed ``echo``
             # times, so samples/s above is the DEVICE rate (inflated by
@@ -418,7 +435,7 @@ class RadZeroTrainer:
             echo = getattr(self.train_loader, "echo", 1)
             if echo > 1:
                 epoch_metrics["train_decoded_samples_per_second"] = (
-                    n_samples / echo / max(dt, 1e-9)
+                    n_samples * world(self.group) / echo / max(dt, 1e-9)
                 )
 
             eval_metrics = self.evaluate()
@@ -458,14 +475,17 @@ class RadZeroTrainer:
                 "patience_left": self.state.patience_left,
                 "metrics": epoch_metrics,
             }
-            save_checkpoint(
-                args.output_dir,
-                self.state.step,
-                self._ckpt_state(),
-                meta,
-                save_total_limit=args.save_total_limit,
-                best_path=self.state.best_checkpoint,
-            )
+            sync("save", self.group)
+            if self.is_main:
+                save_checkpoint(
+                    args.output_dir,
+                    self.state.step,
+                    self._ckpt_state(),
+                    meta,
+                    save_total_limit=args.save_total_limit,
+                    best_path=self.state.best_checkpoint,
+                )
+            sync("saved", self.group)  # the files exist before any rank reads them
             if stop_early:
                 break
 

@@ -12,8 +12,8 @@
   the JAX CLI builds, field by field, with the datasets, loaders and
   trainer of both CLIs replaced by recorders. The JAX CLI itself is not run
   again here (tests/test_cli_end_to_end.py runs it);
-- ``--device cuda`` without a card raises, and a mesh over several devices
-  raises.
+- ``--device cuda`` without a card raises, and a mesh whose data axis is
+  not the world of processes raises.
 """
 
 import dataclasses
@@ -192,7 +192,8 @@ def test_cli_refuses_a_missing_card_and_a_mesh(tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tcli.main(["--inference", "false", "--train", "false"])
-    with pytest.raises(NotImplementedError, match="item 6"):
-        tcli.check_mesh({"data": 4})
-    tcli.check_mesh({"data": -1})
-    tcli.check_mesh({"data": 1})
+    # one process: a data axis of 4 is not the world (torchrun sets the world)
+    with pytest.raises(ValueError, match="world"):
+        tcli.check_mesh({"data": 4}, 1)
+    assert tcli.check_mesh({"data": -1}, 1) == 1
+    assert tcli.check_mesh({"data": 1}, 1) == 1

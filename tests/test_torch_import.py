@@ -41,7 +41,7 @@ GROUPS = {
                 "radzero_torch.eval.api"],
     "eval": ["radzero_torch.eval." + m for m in
              ("registry", "metrics", "_table", "mergers", "geometry", "classification",
-              "grounding", "segmentation", "inference")]
+              "grounding", "segmentation", "inference", "distributed")]
     + ["radzero_torch.tools", "radzero_torch.tools.synthetic_eval_data"],
     "checkpoint": ["radzero_torch.utils.safetensors_io", "radzero_torch.tools.convert_checkpoint",
                    "radzero_torch.tools.run_real_checkpoint", "radzero_torch.data.tokenizer"],
@@ -53,6 +53,8 @@ GROUPS = {
     "preprocess": ["radzero_torch.preprocess." + m for m in
                    ("sections", "findings", "llm_client", "keyphrases", "dicom_map", "mscxr")]
     + ["radzero_torch.preprocess", "radzero_torch.utils.multiproc"],
+    "parallel": ["radzero_torch.parallel", "radzero_torch.parallel.dist",
+                 "radzero_torch.parallel.collectives"],
     "viz": ["radzero_torch.viz"] + ["radzero_torch.viz." + m for m in
                                     ("colormaps", "overlays", "segmap", "qualitative", "studies")],
 }
