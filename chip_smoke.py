@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive radzero_torch once on one NVIDIA GPU: serving, training, a checkpoint, the tools.
+"""Drive radzero_torch once on one NVIDIA GPU: serving, training, checkpoints, tools, encoders.
 
     python3 chip_smoke.py [--seed 0] [--profile]
 
@@ -246,6 +246,33 @@ Phases, in order; any failure exits non-zero:
    (NCCL, a world of one), its log_history losses equal to phase 9's
    in-process run's. Wall times beside the card line; leg B's step on one
    shared card measures no interconnect.
+
+12. the alternate encoders (models/encoders.py; no new kernel: the towers run
+   on plain torch ops, as the JAX towers on plain XLA), ~10-25 s: leg A, SAM
+   ViT-B (facebook/sam-vit-base's widths at 1024 px: 64 x 64 patches, windows
+   of 14 padded 64 -> 70, global layers 2, 5, 8, 11; 4097 tokens with the
+   pooled slot) with the flagship's 2 align layers and MPNet behind
+   ServingEngine(max_batch=8, channels=1) in bf16: 8 requests x 14 prompts,
+   64 x 64 maps, launches a batch K1-K3 2, K4 12, K5 1, the logits and maps
+   against the eager route (phase 4's bf16 gate), the engine's answers against
+   compute_logits; K1-K3 at 8 x 4097 and 8 x 197 rows, K4 at 4096, K5 at 4096
+   and 196 patches against their plain twins at phase 3's TOL in fp32 and bf16,
+   with times and bounds; leg B, BiomedCLIP's ViT-B/16 (timm layout: patch
+   bias, no pre-LN, final LN; 224 px, 197 tokens) with a BERT at
+   Bio_ClinicalBERT's widths (768, 12 x 12, 3072, vocab 28996) through
+   ZeroShotScorer (16 studies at batch 8, bf16; launches K1-K3 2, K5 1 a batch,
+   no K4), bf16 against the eager route and fp32 (batch 2) against it at the
+   repo's gate; leg C, CLIP ViT-B/16 at 512 px (position table resampled from
+   224), SigLIP-B/16 and MAE ViT-B/16 at 224 px, the CLIP text tower (512, 12 x
+   8, 77 tokens) and SAM's neck, one input each: the card's fp32 against the
+   CPU's fp32 run of the same function (CLIP / SigLIP / MAE / text rtol 1e-4,
+   atol 3e-5; the neck 1e-4 / 1e-5) and the card's bf16 against its fp32
+   (ALT_BF16_RMS, ALT_BF16_MAX); leg D, one training step with the SAM tower
+   frozen at 8 images x 64 sentences x 32 tokens in bf16, from make_tower_fn's
+   tokens bit-equal (loss and every gradient leaf) to the step running the
+   tower, launches those of the default step but the tower's (K1-K3 2, K4 12,
+   K6-K8 2, K9 12, K10-K12 1). Each leg's wall time and peak memory, and legs A
+   and B's card ms a batch, beside the card line.
 
 --profile also prints the kernels of one training step by device time
 (torch.profiler; the 40 longest, K15 / K16's by name, and the fixed-order
@@ -739,20 +766,12 @@ def bounds(dtype_bytes=2):
     vl = TB * TN * L * D  # one VL-CABS product is 2 * vl operations
     stat = TB * TN * (D + 1) * 4  # the forward's g and row max, fp32
 
-    def tower(b):  # K1-K3 at b images -> (operations, bytes) each
-        m = b * L
-        return ((2 * m * D * 3 * D, (m * D + D * 3 * D + 3 * D + 2 * D + m * 3 * D) * e),
-                (4 * b * H * L * L * (D // H), (b * L * 3 * D + b * L * D) * e),
-                (2 * m * D * (D + 2 * F), (3 * m * D + D * D + 2 * D * F + 6 * D + F) * e))
-
-    work = dict(zip(("K1", "K2", "K3"), tower(B)))
-    work.update(zip(("K1 train", "K2 train", "K3 train"), tower(TB)))
+    work = dict(zip(("K1", "K2", "K3"), tower_work(B, L, e)))
+    work.update(zip(("K1 train", "K2 train", "K3 train"), tower_work(TB, L, e)))
     work |= {  # key: (operations, bytes)
-        "K4": (2 * M_TEXT * D * (D + 2 * F),
-               (3 * M_TEXT * D + D * D + 2 * D * F + 6 * D + F) * e),
-        "K4 16384": (2 * TN * T_LEN * D * (D + 2 * F),
-                     (3 * TN * T_LEN * D + D * D + 2 * D * F + 6 * D + F) * e),
-        "K5": (4 * B * N * L * D, (B * L * D + N * D) * e + (B * N * L + N * B) * 4),
+        "K4": k4_work(M_TEXT, e),
+        "K4 16384": k4_work(TN * T_LEN, e),
+        "K5": k5_work(B, L, e),
         # K10: s and g. K12 reads the forward's statistics, g (B, N, D) and the row
         # max (B, N) in fp32: s, de, dc^T.qn, e^T.dg
         "K10": (4 * vl, (TB * L * D + TN * D) * e + TN * TB * 4),
@@ -786,9 +805,36 @@ def bounds(dtype_bytes=2):
                             (5 * m * D + 2 * (D * D + 2 * D * F) + 2 * (6 * D + F)) * e)
     out = {}
     for k, (ops, nbytes) in work.items():
-        t_ops, t_bytes = ops / PEAK_FLOPS["bf16"] * 1e3, nbytes / PEAK_BYTES * 1e3
-        out[k] = (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes")
+        out[k] = bound_of(ops, nbytes)
     return out
+
+
+def bound_of(ops, nbytes):
+    """-> (bound_ms, bound_by): the larger of operations / peak bf16 rate and
+    bytes / memory rate."""
+    t_ops, t_bytes = ops / PEAK_FLOPS["bf16"] * 1e3, nbytes / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def tower_work(b, l, e=2):
+    """K1-K3 at b images x l tokens -> (operations, bytes) each: K1 reads x, W, the
+    LN and bias vectors and writes qkv; K2 reads qkv and writes the output; K3 reads
+    x and a, the weights, writes the output."""
+    m = b * l
+    return ((2 * m * D * 3 * D, (m * D + D * 3 * D + 3 * D + 2 * D + m * 3 * D) * e),
+            (4 * b * H * l * l * (D // H), (b * l * 3 * D + b * l * D) * e),
+            (2 * m * D * (D + 2 * F), (3 * m * D + D * D + 2 * D * F + 6 * D + F) * e))
+
+
+def k4_work(m, e=2):
+    """K4 at m text rows -> (operations, bytes)."""
+    return 2 * m * D * (D + 2 * F), (3 * m * D + D * D + 2 * D * F + 6 * D + F) * e
+
+
+def k5_work(b, l, e=2):
+    """K5 at b images x l tokens x the N prompts -> (operations, bytes): reads tokens and
+    queries, writes the fp32 maps and logits."""
+    return 4 * b * N * l * D, (b * l * D + N * D) * e + (b * N * l + N * b) * 4
 
 
 def check_no_spills(log):
@@ -2575,8 +2621,8 @@ def expected(**launches):
     return {c.__name__: 0 for c in _counters()} | launches
 
 
-def train_batch(seed, n_images, n_sentences, vocab_size, pixel_dtype):
-    """One seeded batch on the card: 518 x 518 images, n_sentences / n_images
+def train_batch(seed, n_images, n_sentences, vocab_size, pixel_dtype, size=518):
+    """One seeded batch on the card: size x size images, n_sentences / n_images
     sentences each of 6..32 tokens in T_LEN slots (<s> ... </s>, pad 1)."""
     import numpy as np
     import torch
@@ -2584,8 +2630,8 @@ def train_batch(seed, n_images, n_sentences, vocab_size, pixel_dtype):
     from radzero_torch.ops.layers import normalize_pixels
 
     rng = np.random.default_rng(seed + 1)
-    u8 = torch.as_tensor(rng.integers(0, 256, (n_images, 518, 518, 1), dtype=np.uint8),
-                         device="cuda").expand(n_images, 518, 518, 3)
+    u8 = torch.as_tensor(rng.integers(0, 256, (n_images, size, size, 1), dtype=np.uint8),
+                         device="cuda").expand(n_images, size, size, 3)
     ids = np.full((n_sentences, T_LEN), 1, np.int64)
     mask = np.zeros((n_sentences, T_LEN), np.int64)
     for i in range(n_sentences):
@@ -5031,6 +5077,427 @@ def profile_step(fn):
         print(f"    {ms:8.2f} ms {100 * ms / total:5.1f}%  x{count:<4d} {name[:150]}")
 
 
+# phase 12: the alternate encoders. Leg A serves SAM ViT-B (facebook/sam-vit-base's
+# widths at 1024 px: 64 x 64 patches, 4097 tokens with the pooled slot) with the
+# flagship's align layers and MPNet; leg B scores BiomedCLIP's ViT-B/16 (timm layout,
+# 224 px, 197 tokens) with Bio_ClinicalBERT's widths; leg C runs CLIP ViT-B/16 at
+# 512 px, SigLIP-B/16 and MAE ViT-B/16 at 224 px, the CLIP text tower and SAM's neck
+# alone; leg D takes one training step with the SAM tower frozen.
+ALT_B = 8                  # legs A and D: images (SAM's global layers hold 8 x 12 x 4096^2 scores)
+ALT_SCORER_N = 16          # leg B: studies, two scorer batches of 8
+ALT_SENTENCES = 64         # leg D: sentences of T_LEN tokens, 8 a study
+# leg C, the card's bf16 against its fp32 (the rounding model, PERF.md §6): bf16
+# keeps 8 significant bits, so every rounded operand is off by up to 2^-9 of itself;
+# a layer rounds ~8 operands (LN output, q / k / v, softmax weights, attention output,
+# fc1, activation, fc2, the residual) whose errors add about in quadrature over 12
+# residual layers: sqrt(12 x 8) 2^-9 ~ 2^-5.7 of the activations' rms, which the
+# final LN (or none) keeps relative. Gate: rms(bf16 - fp32) <= 2^-4 rms(fp32) and
+# max|bf16 - fp32| <= 2^-3 max|fp32|, twice and ~5 times the model's expectation; a
+# wrong activation, a dropped residual or a transposed weight gives ~0.3-1 in both
+ALT_BF16_RMS, ALT_BF16_MAX = 2.0**-4, 2.0**-3
+
+
+def _fill_sam_tables(vm, g, std=0.02):
+    """SAM's absolute grid and relative tables are zero at init (HF's and the JAX
+    package's init): draw them from ``g`` so the position paths do work."""
+    import torch
+
+    vm["pos_embed"] = torch.randn(vm["pos_embed"].shape, generator=g, device=g.device) * std
+    for p in vm["layers"]:
+        for k in ("rel_pos_h", "rel_pos_w"):
+            p[k] = torch.randn(p[k].shape, generator=g, device=g.device) * std
+
+
+def _bf16_gate(label, out16, out32):
+    """Leg C's bf16 gate (ALT_BF16_RMS, ALT_BF16_MAX) -> the worst share of it."""
+    d = out16.float() - out32.float()
+    rms = (d.square().mean().sqrt() / out32.float().square().mean().sqrt()).item()
+    mx = (d.abs().max() / out32.float().abs().max()).item()
+    share = max(rms / ALT_BF16_RMS, mx / ALT_BF16_MAX)
+    print(f"  {label:34s} bf16 vs fp32 on the card: rms {rms:.3e} of rms(fp32) (gate "
+          f"{ALT_BF16_RMS:.4g}), max {mx:.3e} of max|fp32| (gate {ALT_BF16_MAX:.4g}); "
+          f"{100 * share:.0f}% of the gate {'ok' if share <= 1.0 else 'FAIL'}")
+    if share > 1.0 or not bool(out16.float().isfinite().all()):
+        fail(f"{label}: bf16 disagrees with fp32 beyond the rounding gate")
+    return share
+
+
+def _busy(busy):
+    """device_idle's (busy ms, wall ms) of one call, as words."""
+    if busy is None:
+        return "torch.profiler recorded no device kernel"
+    return (f"one more call under torch.profiler: the card busy {busy[0]:.2f} of {busy[1]:.2f} "
+            f"ms, idle share {100 * (1 - busy[0] / busy[1]):.1f}%")
+
+
+def _cpu_gate(label, card32, cpu32, rtol, atol):
+    """The card's fp32 (TF32 off) against the CPU's fp32 run of the same function."""
+    import torch
+
+    a, b = card32.float().cpu(), cpu32.float()
+    err = (a - b).abs()
+    used = (err / (atol + rtol * b.abs())).max().item()
+    print(f"  {label:34s} fp32 card vs CPU: max_abs_err {err.max().item():.3e} (|ref| <= "
+          f"{b.abs().max().item():.3g}; rtol {rtol:g}, atol {atol:g}: {100 * used:.0f}% of it) "
+          f"{'ok' if used <= 1.0 else 'FAIL'}")
+    if a.shape != b.shape or used > 1.0 or not torch.isfinite(a).all():
+        fail(f"{label}: the card's fp32 disagrees with the CPU's")
+    return err.max().item()
+
+
+def _alt_kernel_rows(seed):
+    """K1-K3 at 8 x 4097 rows (SAM) and 8 x 197 (ViT-B/16 at 224 px), K4 at 4096 rows,
+    K5 at 4096 and 196 patches (8 images x 14 prompts) against their plain twins at
+    phase 3's TOL in fp32 (TF32 off) and bf16; bf16 kernel and twin times by CUDA
+    events and the bound, and at K2's shapes one library attention call's time
+    beside the kernel's device time -> {shape key: row}."""
+    import torch
+    import torch.nn.functional as Fn
+    from radzero_torch.ops import fused_layer as fl
+    from radzero_torch.ops import vlcabs_fused as vf
+
+    l_sam, l_vit = 1 + 64 * 64, 1 + 14 * 14
+    # key: (kernel, plain twin, TOL key, rows or (images, tokens), (operations, bytes) in bf16)
+    cases = {
+        "K1 8x4097": (fl.fused_preattn, fl.fused_preattn_plain, "K1", ALT_B * l_sam,
+                      tower_work(ALT_B, l_sam)[0]),
+        "K2 8x4097": (fl.flash_attention_packed, fl.flash_attention_packed_plain, "K2",
+                      (ALT_B, l_sam), tower_work(ALT_B, l_sam)[1]),
+        "K3 8x4097": (fl.fused_postattn, fl.fused_postattn_plain, "K3", ALT_B * l_sam,
+                      tower_work(ALT_B, l_sam)[2]),
+        "K4 4096": (fl.fused_mpnet_post, fl.fused_mpnet_post_plain, "K4", 4096, k4_work(4096)),
+        "K5 4096": (vf.vlcabs_fused, vf.vlcabs_fused_plain, "K5", (ALT_B, l_sam),
+                    k5_work(ALT_B, l_sam)),
+        "K1 8x197": (fl.fused_preattn, fl.fused_preattn_plain, "K1", ALT_B * l_vit,
+                     tower_work(ALT_B, l_vit)[0]),
+        "K2 8x197": (fl.flash_attention_packed, fl.flash_attention_packed_plain, "K2",
+                     (ALT_B, l_vit), tower_work(ALT_B, l_vit)[1]),
+        "K3 8x197": (fl.fused_postattn, fl.fused_postattn_plain, "K3", ALT_B * l_vit,
+                     tower_work(ALT_B, l_vit)[2]),
+        "K5 196": (vf.vlcabs_fused, vf.vlcabs_fused_plain, "K5", (ALT_B, l_vit),
+                   k5_work(ALT_B, l_vit)),
+    }
+    rows = {}
+    for dtype, dname in ((torch.float32, "fp32"), (torch.bfloat16, "bf16")):
+        gen = torch.Generator(device="cuda").manual_seed(seed + 12)
+
+        def rn(*shape):
+            return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+        def unit(n):
+            q = torch.randn((n, D), generator=gen, device="cuda")
+            return (q / q.norm(dim=-1, keepdim=True)).to(dtype)
+
+        print(f"  kernels at the alternate towers' shapes vs plain twins, {dname}:")
+        for key, (kern, plain, tol, shape, work) in cases.items():
+            if tol in ("K1", "K3", "K4"):
+                args, kw = layer_inputs(tol, dtype, gen, shape), {}
+            elif tol == "K2":
+                args, kw = (rn(*shape, 3 * D),), {"n_heads": H}
+            else:
+                args, kw = (unit(N), rn(*shape, D), torch.tensor(0.07, device="cuda")), {}
+            out, ref = kern(*args, **kw), plain(*args, **kw)
+            torch.cuda.synchronize()
+            if tol == "K5":
+                err = max(compare(f"{key} logits", dname, out[0], ref[0], tol="K5 logits"),
+                          compare(f"{key} maps", dname, out[1], ref[1], tol="K5 maps"))
+            else:
+                err = compare(key, dname, out, ref, tol=tol)
+            del out, ref
+            row = rows.setdefault(key, {})
+            row[f"max_abs_err_{dname}"] = err
+            if dname == "bf16":
+                ms = median_ms(lambda: kern(*args, **kw), reps=10)
+                plain_ms = median_ms(lambda: plain(*args, **kw), reps=3, warmup=1)
+                bound_ms, bound_by = bound_of(*work)
+                row.update(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                           bound_by=bound_by, library_ms=None)
+                print(f"  {key:14s} bf16: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms; bound "
+                      f"{bound_ms:.4f} ms by {bound_by} ({100 * bound_ms / ms:.1f}% of it)")
+                if tol == "K2":
+                    # K2's yardstick as phase 3 times it, called nowhere in the port: one
+                    # library attention call on the unpacked heads of the same input
+                    b, n = shape
+                    q, k_, v = (args[0][..., i * D:(i + 1) * D].reshape(b, n, H, D // H)
+                                .transpose(1, 2) for i in range(3))
+                    lib = median_ms(lambda: Fn.scaled_dot_product_attention(q, k_, v), reps=10)
+                    # a device time is None where torch.profiler recorded no kernel
+                    lib_dev, dev = (sum(ran.values()) if ran else None for ran in (
+                        device_kernels(lambda: Fn.scaled_dot_product_attention(q, k_, v)),
+                        device_kernels(lambda: kern(*args, **kw))))
+                    row.update(library_ms=lib, library_device_ms=lib_dev, device_ms=dev)
+                    shown = ["not recorded" if t is None else f"{t:.4f} ms" for t in (lib_dev, dev)]
+                    print(f"  {key:14s} yardstick: F.scaled_dot_product_attention {lib:.4f} ms "
+                          f"(median of 10), {shown[0]} a call on the device against the "
+                          f"kernel's {shown[1]}")
+                    del q, k_, v
+            del args
+            torch.cuda.empty_cache()
+    return rows
+
+
+def phase_encoders(seed, card):
+    """12: the alternate encoders at their published widths (legs A-D above) -> (the
+    launches of leg A's batch, leg B's scorer run and leg D's step, the rows of the
+    kernels at the new shapes). The weights come from seeded generators through the
+    port's init_* (SAM's zero position tables drawn too)."""
+    import numpy as np
+    import torch
+    from radzero_torch.data.processing import BlipStyleImageProcessor
+    from radzero_torch.data.tokenizer import WhitespaceHashTokenizer
+    from radzero_torch.eval.scorer import ZeroShotScorer
+    from radzero_torch.eval.serving import ServingEngine, cast_params
+    from radzero_torch.models import clip_text, clip_vit, mae_vit, sam_vit
+    from radzero_torch.models.configuration import (
+        AlignConfig, LossConfig, RadZeroConfig, TextConfig,
+    )
+    from radzero_torch.models.radzero import compute_logits, init_radzero
+    from radzero_torch.ops.layers import normalize_pixels
+    from radzero_torch.train.tower_cache import make_tower_fn
+
+    t_phase = time.perf_counter()
+    prompts = [f"There is {c}" for c in CHEXPERT]
+    rng = np.random.default_rng(seed + 12)
+
+    # --- leg A: SAM ViT-B + MPNet behind ServingEngine, bf16 ---------------------------
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg_a = RadZeroConfig(vision=sam_vit.SamViTConfig(), text=TextConfig(), align=AlignConfig(),
+                          loss=LossConfig())
+    cfg_a_eager = dataclasses.replace(cfg_a, text=TextConfig(fuse_post=False))
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    params_a = init_radzero(g, cfg_a)
+    _fill_sam_tables(params_a["vision_model"], g)
+    side, grid = cfg_a.vision.img_size, cfg_a.vision.patch_grid
+    n_align, n_text = cfg_a.align.num_hidden_layers, cfg_a.text.num_hidden_layers
+    print(f"encoders, leg A: SAM ViT-B (768, 12 x 12, MLP 3072, patch 16, {side} px, window "
+          f"{cfg_a.vision.window_size}, global {cfg_a.vision.global_attn_indexes}; "
+          f"{grid * grid + 1} tokens), 2 align layers, MPNet 12 x 768, "
+          f"{sum(t.numel() for t in _leaves(params_a)) / 1e6:.1f} M parameters from seed {seed}; "
+          f"ServingEngine(max_batch=8, channels=1), bf16, {ALT_B} requests x 14 prompts")
+    tok = WhitespaceHashTokenizer(vocab_size=cfg_a.text.vocab_size, max_length=64)
+    images = rng.integers(0, 256, (ALT_B, side, side), dtype=np.uint8)
+    engine = ServingEngine(params_a, cfg_a, tok, device="cuda", max_batch=ALT_B, channels=1,
+                           max_delay_ms=50.0)
+    try:
+        engine.register_prompt_set("chexpert", prompts)
+        engine.warmup()
+        reset_counters()
+        engine.batch_sizes.clear()
+        futs = [engine.submit(images[i], "chexpert", want_maps="patch") for i in range(ALT_B)]
+        results = [f.result(timeout=600) for f in futs]
+        launches_a = read_counters()
+        batches = list(engine.batch_sizes)
+        held = engine.params
+    finally:
+        engine.close()
+    nb = len(batches)
+    expect_a = expected(fused_preattn=n_align * nb, flash_attention_packed=n_align * nb,
+                        fused_postattn=n_align * nb, fused_mpnet_post=n_text * nb,
+                        vlcabs_fused=nb)
+    print(f"  {ALT_B} requests answered in batches {batches}; launches {launches_a}")
+    if sum(batches) != ALT_B or launches_a != expect_a:
+        fail(f"leg A: expected {ALT_B} requests and launches {expect_a} (K1-K3 2, K4 12, K5 1 "
+             f"a batch)")
+    for i, r in enumerate(results):
+        p, m = r["probs"], r["similarity_maps"]
+        if p.shape != (N,) or not np.all((p > 0) & (p < 1)):
+            fail(f"leg A request {i}: probs {p}")
+        if m is None or m.shape != (N, grid, grid) or not np.all(np.isfinite(m)):
+            fail(f"leg A request {i}: maps {None if m is None else m.shape}")
+    ids, mask = (torch.as_tensor(a, dtype=torch.long, device="cuda") for a in tok(prompts))
+    u8 = torch.as_tensor(images[:, :, :, None], device="cuda").expand(ALT_B, side, side, 3)
+    pv = normalize_pixels(u8, engine.image_spec.mean, engine.image_spec.std, dtype=torch.bfloat16)
+    with torch.inference_mode():
+        kern = compute_logits(held, cfg_a, pv, ids, mask, dtype=torch.bfloat16)
+        ref = compute_logits(held, cfg_a_eager, pv, ids, mask, dtype=torch.bfloat16, eager=True)
+        if kern["similarity_scores"].shape != (ALT_B, N, grid * grid):
+            fail(f"leg A: maps {tuple(kern['similarity_scores'].shape)}")
+        logits_gate("leg A SAM+MPNet", "bf16", kern, ref)
+        same = np.abs(np.stack([r["probs"] for r in results])
+                      - torch.sigmoid(kern["logits"].float()).cpu().numpy()).max()
+        print(f"  engine probs vs sigmoid(kernel-route logits): max_abs_err {same:.3e}")
+        if same > 1e-5:
+            fail("leg A: the engine's answers differ from compute_logits")
+        run_a = lambda: compute_logits(held, cfg_a, pv, ids, mask, dtype=torch.bfloat16)  # noqa: E731
+        ms_a, busy_a = median_ms(run_a, reps=5, warmup=1), device_idle(run_a)
+    del kern, ref, pv, u8, held
+    wall_a, peak_a = time.perf_counter() - t0, torch.cuda.max_memory_allocated()
+    print(f"  leg A: the card {ms_a:.2f} ms a batch of 8 x 14 (median of 5; {_busy(busy_a)}); "
+          f"{wall_a:.1f} s, peak memory {peak_a / 2**30:.2f} GiB on {card}")
+    torch.cuda.empty_cache()
+    rows = _alt_kernel_rows(seed)
+
+    # --- leg B: BiomedCLIP vision + Bio_ClinicalBERT text through ZeroShotScorer ---------
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg_b = RadZeroConfig(
+        vision=clip_vit.ClipViTConfig(model_type="biomedclip", img_size=224, hidden_act="gelu",
+                                      final_layernorm=True, layer_norm_eps=1e-6),
+        text=TextConfig(model_type="bioclinicalmpbert", vocab_size=28996,
+                        max_position_embeddings=512),
+        align=AlignConfig(), loss=LossConfig())
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    params_b = init_radzero(g, cfg_b)
+    vm = params_b["vision_model"]  # the timm layout convert_timm_vit gives: a patch bias, no pre-LN
+    del vm["pre_ln"]
+    vm["patch_embed"]["bias"] = torch.randn(D, generator=g, device="cuda") * 0.02
+    proc = BlipStyleImageProcessor(size=224)
+    tok_b = WhitespaceHashTokenizer(vocab_size=28996, max_length=64)
+    studies = [rng.integers(0, 256, (480 + 16 * i, 400), dtype=np.uint8)
+               for i in range(ALT_SCORER_N)]
+    print(f"encoders, leg B: BiomedCLIP ViT-B/16 (timm layout, 224 px, 197 tokens) + "
+          f"Bio_ClinicalBERT-sized BERT (768, 12 x 12, 3072, vocab 28996), 2 align layers, "
+          f"{sum(t.numel() for t in _leaves(params_b)) / 1e6:.1f} M parameters; ZeroShotScorer, "
+          f"{ALT_SCORER_N} studies at batch 8 x 14 prompts with maps")
+    scorer = ZeroShotScorer(params_b, cfg_b, proc, tok_b, batch_size=8, dtype=torch.bfloat16)
+    scorer.score(studies[:8], lambda x: x, prompts, need_scores=True)  # warm
+    reset_counters()
+    t1 = time.perf_counter()
+    logits, maps = scorer.score(studies, lambda x: x, prompts, need_scores=True)
+    score_s = time.perf_counter() - t1
+    launches_b = read_counters()
+    expect_b = expected(fused_preattn=2 * n_align, flash_attention_packed=2 * n_align,
+                        fused_postattn=2 * n_align, vlcabs_fused=2)
+    print(f"  launches of the run (2 batches) {launches_b}; {ALT_SCORER_N / score_s:.2f} images/s")
+    if launches_b != expect_b:
+        fail(f"leg B: expected launches {expect_b} (K1-K3 2, K5 1 a batch, no K4)")
+    if (logits.shape != (ALT_SCORER_N, N) or maps.shape != (ALT_SCORER_N, N, 196)
+            or not (np.isfinite(logits).all() and np.isfinite(maps).all())):
+        fail(f"leg B: shapes {logits.shape}, {maps.shape} or non-finite")
+    ids_b, mask_b = scorer.encode_prompts(prompts)
+    pv = torch.as_tensor(proc(studies[:8])["pixel_values"]).to("cuda", torch.bfloat16)
+    with torch.inference_mode():
+        kern = compute_logits(scorer.params, cfg_b, pv, ids_b, mask_b, dtype=torch.bfloat16)
+        ref = compute_logits(scorer.params, cfg_b, pv, ids_b, mask_b, dtype=torch.bfloat16,
+                             eager=True)
+        logits_gate("leg B BiomedCLIP+BERT", "bf16", kern, ref)
+        run_b = lambda: compute_logits(scorer.params, cfg_b, pv, ids_b, mask_b,  # noqa: E731
+                                       dtype=torch.bfloat16)
+        ms_b, busy_b = median_ms(run_b, reps=10), device_idle(run_b)
+    del scorer, kern, ref, pv
+    scorer = ZeroShotScorer(params_b, cfg_b, proc, tok_b, batch_size=2, dtype=torch.float32)
+    logits, maps = scorer.score(studies[:2], lambda x: x, prompts, need_scores=True)
+    pv = torch.as_tensor(proc(studies[:2])["pixel_values"], device="cuda")
+    with torch.inference_mode():
+        ref = compute_logits(params_b, cfg_b, pv, ids_b, mask_b, dtype=torch.float32, eager=True)
+    logits_gate("leg B scorer fp32", "fp32", {"logits": torch.from_numpy(logits),
+                                               "similarity_scores": torch.from_numpy(maps)},
+                {k: v.cpu() for k, v in ref.items()})
+    del scorer, ref, pv
+    wall_b, peak_b = time.perf_counter() - t0, torch.cuda.max_memory_allocated()
+    print(f"  leg B: the card {ms_b:.2f} ms a batch of 8 x 14 (median of 10; {_busy(busy_b)}); "
+          f"{wall_b:.1f} s, peak memory {peak_b / 2**30:.2f} GiB on {card}")
+
+    # --- leg C: each remaining tower alone, one input, card fp32 / bf16 against the CPU ---
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    print("encoders, leg C: each remaining tower alone at its published widths, one input; the "
+          "card's fp32 (TF32 off) against the CPU's fp32 at the CPU tests' tolerance, the card's "
+          "bf16 against its fp32 under the rounding gate")
+    siglip = clip_vit.ClipViTConfig(model_type="siglip", img_size=224,
+                                    hidden_act="gelu_pytorch_tanh", use_class_token=False,
+                                    final_layernorm=True, layer_norm_eps=1e-6)
+    towers = [
+        ("CLIP ViT-B/16 at 512 px (1025 tokens)", clip_vit.ClipViTConfig(img_size=512),
+         clip_vit.init_clip_vit, clip_vit.clip_vit_forward, 512),
+        ("SigLIP-B/16 at 224 px (196 tokens)", siglip, clip_vit.init_clip_vit,
+         clip_vit.clip_vit_forward, 224),
+        ("MAE ViT-B/16 at 224 px (197 tokens)", mae_vit.MAEViTConfig(), mae_vit.init_mae_vit,
+         mae_vit.mae_vision_tokens, 224),
+    ]
+    shares = {}
+    for label, tcfg, init, fwd, size in towers:
+        g = torch.Generator(device="cuda").manual_seed(seed + 2)
+        p32 = init(g, tcfg)
+        x = torch.randn((1, size, size, 3), generator=g, device="cuda")
+        with torch.no_grad():
+            out32 = fwd(p32, tcfg, x)
+            cpu32 = fwd(cast_params(p32, torch.float32, "cpu"), tcfg, x.cpu())
+            out16 = fwd(cast_params(p32, torch.bfloat16, "cuda"), tcfg, x, dtype=torch.bfloat16)
+        _cpu_gate(label, out32, cpu32, 1e-4, 3e-5)
+        shares[label] = _bf16_gate(label, out16, out32)
+    ctc = clip_text.ClipTextConfig()
+    g = torch.Generator(device="cuda").manual_seed(seed + 3)
+    p32 = clip_text.init_clip_text(g, ctc)
+    lens = (77, 12)
+    ids = torch.randint(0, ctc.eos_token_id, (2, ctc.max_position_embeddings), generator=g,
+                        device="cuda")
+    mask = torch.zeros_like(ids)
+    for i, n in enumerate(lens):
+        ids[i, n - 1], mask[i, :n] = ctc.eos_token_id, 1
+    with torch.no_grad():
+        h32, pool32 = clip_text.clip_text_forward(p32, ctc, ids, mask)
+        hc, poolc = clip_text.clip_text_forward(cast_params(p32, torch.float32, "cpu"), ctc,
+                                                ids.cpu(), mask.cpu())
+        h16, pool16 = clip_text.clip_text_forward(cast_params(p32, torch.bfloat16, "cuda"), ctc,
+                                                  ids, mask, dtype=torch.bfloat16)
+    label = "CLIP text (512, 12 x 8, 77 tokens)"
+    _cpu_gate(label, h32, hc, 1e-4, 3e-5)
+    _cpu_gate(label + " EOS", pool32, poolc, 1e-4, 3e-5)
+    shares[label] = _bf16_gate(label, h16, h32)
+    g = torch.Generator(device="cuda").manual_seed(seed + 4)
+    fmap = torch.randn((1, grid, grid, D), generator=g, device="cuda")
+    neck = {"neck": params_a["vision_model"]["neck"]}
+    with torch.no_grad():
+        n32 = sam_vit.sam_neck(neck, cfg_a.vision, fmap)
+        nc = sam_vit.sam_neck(cast_params(neck, torch.float32, "cpu"), cfg_a.vision, fmap.cpu())
+        n16 = sam_vit.sam_neck(cast_params(neck, torch.bfloat16, "cuda"), cfg_a.vision,
+                               fmap.to(torch.bfloat16))
+    label = "SAM neck (768 -> 256, 64 x 64)"
+    _cpu_gate(label, n32, nc, 1e-4, 1e-5)
+    shares[label] = _bf16_gate(label, n16, n32)
+    wall_c, peak_c = time.perf_counter() - t0, torch.cuda.max_memory_allocated()
+    print(f"  leg C: {wall_c:.1f} s, peak memory {peak_c / 2**30:.2f} GiB on {card}")
+
+    # --- leg D: one training step with the SAM tower frozen, in-step and from the cache ---
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg_d = dataclasses.replace(cfg_a, loss=LossConfig(train_impl="fused"))
+    modules = ("align_transformer", "text_model", "loss_fns")
+    batch = train_batch(seed, ALT_B, ALT_SENTENCES, cfg_d.text.vocab_size, torch.bfloat16,
+                        size=side)
+    print(f"encoders, leg D: one training step, SAM tower frozen, {ALT_B} images x "
+          f"{ALT_SENTENCES} sentences x {T_LEN} tokens, bf16, the tower in the step and from "
+          f"make_tower_fn's tokens")
+    expect_d = expected(fused_preattn=n_align, flash_attention_packed=n_align,
+                        fused_postattn=n_align, fused_mpnet_post=n_text,
+                        fused_preattn_bwd=n_align, flash_attention_packed_bwd=n_align,
+                        fused_postattn_bwd=n_align, fused_mpnet_post_bwd=n_text,
+                        vlcabs_train_forward=1, vlcabs_train_bwd_dq=1, vlcabs_train_bwd_dtn=1)
+    steps = []
+    tokens = make_tower_fn(cfg_d, dtype=torch.bfloat16)(params_a["vision_model"],
+                                                        batch["pixel_values"])
+    cached = {k: v for k, v in batch.items() if k != "pixel_values"} | {"tower_tokens": tokens}
+    for label, b in (("tower in the step", batch), ("tower tokens from the cache", cached)):
+        reset_counters()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        loss, grads = _grads(params_a, modules, cfg_d, b, torch.bfloat16)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t1
+        launches = read_counters()
+        print(f"  {label}: loss {loss.item():.6f}, {len(grads)} gradient leaves, {sec:.3f} s, "
+              f"launches {launches}")
+        if launches != expect_d or not math.isfinite(loss.item()):
+            fail(f"leg D {label}: expected launches {expect_d} and a finite loss")
+        steps.append((loss, grads, launches))
+    la, ga, launches_d = steps[0]
+    lb, gb, _ = steps[1]
+    if not (torch.equal(la, lb) and all(torch.equal(x, y) for x, y in zip(ga, gb))):
+        fail("leg D: the step from the cached tokens differs from the step with the tower")
+    print(f"  the cached step is bit-equal to the in-step tower's: loss and {len(ga)} gradient "
+          f"leaves")
+    del steps, batch, cached, tokens, params_a, params_b
+    wall_d, peak_d = time.perf_counter() - t0, torch.cuda.max_memory_allocated()
+    torch.cuda.empty_cache()
+    print(f"  leg D: {wall_d:.1f} s, peak memory {peak_d / 2**30:.2f} GiB on {card}")
+    print(f"encoders: phase 12 in {time.perf_counter() - t_phase:.1f} s; worst share of the "
+          f"bf16 gate {max(shares.values()):.3f} ({max(shares, key=shares.get)})")
+    return {"alt_serving": launches_a, "alt_scorer": launches_b,
+            "alt_training_step": launches_d}, rows
+
+
 def _clone(tree):
     if isinstance(tree, dict):
         return {k: _clone(v) for k, v in tree.items()}
@@ -5109,6 +5576,7 @@ def main() -> int:
     cli, cli_checkpoint, torchrun_leg = phase_cli(args.seed, card, after=cli_under_torchrun)
     viz = phase_viz(args.seed, card, cli_checkpoint)
     distributed = phase_distributed(args.seed, card, params, training, history, torchrun_leg)
+    alt, alt_rows = phase_encoders(args.seed, card)
 
     meta = {
         "K1": ("fused_preattn", "radzero_torch/ops/csrc/gemm_sm90.cu",
@@ -5148,8 +5616,9 @@ def main() -> int:
     # program, the scorer run's, the eval suite's, one default training step's, one
     # flash training step's, one remat step's (align "save_attn"), one trainer step's,
     # the converted checkpoint's 4 requests, the in-process training CLI run's, the
-    # in-process visualization CLI runs' and one distributed training step's on one rank
-    # of phase 11's leg B; each path was
+    # in-process visualization CLI runs', one distributed training step's on one rank
+    # of phase 11's leg B, and phase 12's: SAM's serving batch (leg A), the BiomedCLIP +
+    # BERT scorer run (leg B) and the SAM-tower training step (leg D); each path was
     # driven with every count at 0 and read right after
     from radzero_torch.ops import registry
 
@@ -5158,7 +5627,8 @@ def main() -> int:
          "registered_op": f"radzero::{name}" if name in registry.calls else None,
          "launches": serving[name] + server[name] + exported[name] + scoring[name]
          + evaluation[name] + training[name] + flash_step[name] + remat_step[name]
-         + trainer_step[name] + checkpoint[name] + cli[name] + viz[name] + distributed[name],
+         + trainer_step[name] + checkpoint[name] + cli[name] + viz[name] + distributed[name]
+         + sum(a[name] for a in alt.values()),
          "launches_serving": serving[name], "launches_server": server[name],
          "launches_export": exported[name], "launches_scorer": scoring[name],
          "launches_eval": evaluation[name],
@@ -5168,9 +5638,15 @@ def main() -> int:
          "launches_trainer_step": trainer_step[name],
          "launches_checkpoint": checkpoint[name], "launches_cli": cli[name],
          "launches_viz": viz[name], "launches_distributed_step": distributed[name],
+         **{f"launches_{path}": a[name] for path, a in alt.items()},
          **rows[k]}
         for k, (name, src, rep) in meta.items()
     ]
+    for kern in kernels:  # K1-K5 at the alternate towers' shapes (phase 12)
+        k = next(key for key, m in meta.items() if m[0] == kern["name"])
+        shapes = {key.split()[1]: row for key, row in alt_rows.items() if key.split()[0] == k}
+        if shapes:
+            kern["alt_shapes"] = shapes
     k11 = next(k for k in kernels if k["name"] == "vlcabs_train_bwd_dq")
     k11["backward_k11_k12"] = rows["K11+K12"]  # vlcabs_train_bwd: K11 and K12 at once
     idle = [k["name"] for k in kernels if k["launches"] == 0]

@@ -46,7 +46,7 @@ import torch
 from radzero_torch.eval.geometry import upsample_similarity_map
 from radzero_torch.models.configuration import RadZeroConfig
 from radzero_torch.models.radzero import compute_logits
-from radzero_torch.models.vit import interpolate_pos_embed
+from radzero_torch.models.encoders import vision_params_at_grid
 from radzero_torch.ops.layers import normalize_pixels
 
 # BlipImageProcessor defaults (OpenAI CLIP statistics), as radzero_tpu.data.processing
@@ -85,15 +85,17 @@ def cast_params(tree, dtype, device):
 
 
 def serving_params(params: dict, cfg: RadZeroConfig, dtype, device, size: int) -> dict:
-    """``params`` cast to ``dtype`` on ``device``, with the position
-    embeddings resampled to the grid of ``size`` px once (the same fp32
-    bicubic on the cast weights that every forward would run; the tower
-    passes an embedding already at its grid through). The engine and an
+    """``params`` cast to ``dtype`` on ``device``, with the tower's position
+    tables resampled to the grid of ``size`` px once (the same fp32 resample
+    on the cast weights that every forward would run; the tower passes a
+    table already at its grid through): DINOv2's and CLIP / SigLIP's
+    embeddings, SAM's absolute grid and global layers' relative tables; MAE's
+    sin-cos table is computed and has nothing to resample
+    (``models/encoders.py`` ``vision_params_at_grid``). The engine and an
     exported program (eval/export.py) hold the same tree."""
     params = cast_params(params, dtype, device)
-    vm = params["vision_model"]
-    grid = size // cfg.vision.patch_size
-    vm["pos_embed"] = interpolate_pos_embed(vm["pos_embed"], (grid, grid))
+    params["vision_model"] = vision_params_at_grid(params["vision_model"], cfg.vision,
+                                                   size // cfg.vision.patch_size)
     return params
 
 

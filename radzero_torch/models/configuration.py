@@ -19,6 +19,17 @@ always runs the fused layer (trainable, it differentiates through K6-K8).
 in training alike, ``LossConfig.train_impl`` ("fused": the VL-CABS training
 kernels K10-K12; else eager ops) in training.
 
+The vision block dispatches on ``model_type`` as the JAX package's does:
+dinov2 / raddino get :class:`ViTConfig`; sam, m3ae / mae and the CLIP
+family (clip, clip_vision_model, xrayclip, biomedclip, siglip,
+siglip_vision_model) get their towers' config classes
+(``models/sam_vit.py``, ``mae_vit.py``, ``clip_vit.py``), which have no
+``attn_impl``: those towers run on plain torch ops, and ``fused_towers``
+moves only the align layers. ``TextConfig.model_type`` is mpnet, a BERT type
+(bert, bioclinicalmpbert, biomedclip: widths from this config,
+``models/bert.py``) or a CLIP text type, whose weights are built but which
+``forward_text`` refuses, as the JAX composite does.
+
 Remat, in training only (``forward_train(..., remat=True)``, which
 ``TrainerArgs.gradient_checkpointing`` sets), with the JAX meanings:
 ``ViTConfig.remat_policy`` / ``AlignConfig.remat_policy`` pick what a
@@ -196,15 +207,34 @@ def _filter_kwargs(cls, d: dict) -> dict:
     return {k: v for k, v in d.items() if k in names}
 
 
-def _vision_config_from_dict(vc: dict) -> ViTConfig:
+def _vision_config_from_dict(vc: dict):
+    """Dispatch the vision block on ``model_type`` as the JAX package does
+    (radzero_tpu/models/configuration.py:317-343): dinov2 / raddino get
+    ViTConfig; sam, m3ae / mae and the CLIP family get their towers' config
+    classes (``models/sam_vit.py``, ``mae_vit.py``, ``clip_vit.py``)."""
+    from radzero_torch.models.encoders import CLIP_TYPES, MAE_TYPES
+
     mt = vc.get("model_type", "dinov2")
     if mt in ("dinov2", "raddino"):
         vc.setdefault("img_size", 518)
         return ViTConfig(**_filter_kwargs(ViTConfig, vc))
-    raise NotImplementedError(
-        f"vision model_type {mt!r} is not ported yet (alternate encoders "
-        "are ROADMAP.md, modules still to port, item 9)"
-    )
+    if mt == "sam":
+        from radzero_torch.models.sam_vit import SamViTConfig
+
+        if "global_attn_indexes" in vc:
+            vc["global_attn_indexes"] = tuple(vc["global_attn_indexes"])
+        return SamViTConfig(**_filter_kwargs(SamViTConfig, vc))
+    if mt in MAE_TYPES:
+        from radzero_torch.models.mae_vit import MAEViTConfig
+
+        return MAEViTConfig(**_filter_kwargs(MAEViTConfig, vc))
+    if mt in CLIP_TYPES:
+        from radzero_torch.models.clip_vit import ClipViTConfig
+
+        return ClipViTConfig(**_filter_kwargs(ClipViTConfig, vc))
+    # an unknown type: the JAX package refuses it with the same message
+    # (radzero_tpu/models/configuration.py:343)
+    raise NotImplementedError(f"vision model_type {mt!r}")
 
 
 def radzero_config_from_dict(model_config: dict) -> RadZeroConfig:

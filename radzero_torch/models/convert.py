@@ -19,8 +19,11 @@ Weight-layout conventions translated:
 Source name schemas: HF ``Dinov2Model`` / ``Dinov2Encoder`` (the
 reference's vision tower + align transformer,
 exp/cxr_pt/model/vision_encoders.py:23-43, align_transformers.py:23-45)
-and HF ``MPNetModel`` (text tower, text_encoders.py:8-28). SAM's
-converter waits for the SAM tower (ROADMAP.md, item 9).
+and HF ``MPNetModel`` (text tower, text_encoders.py:8-28), and HF
+``SamVisionEncoder`` (:func:`convert_sam`, the SAM tower). The other
+alternate towers' converters sit beside their towers, as in the JAX
+package: ``models/clip_vit.py`` (HF CLIP / SigLIP vision, timm ViT) and
+``models/bert.py`` (HF BERT).
 
 :func:`to_hf_state_dict` is the inverse for a RadZero tree: it writes the
 HF names a snapshot holds (tests and ``chip_smoke.py`` make snapshots
@@ -163,6 +166,58 @@ def convert_radzero_checkpoint(
         sig["log_logit_scale"] = sd["loss_fns.OpenSigLipLoss.logit_scale"].copy()
         sig["logit_bias"] = sd["loss_fns.OpenSigLipLoss.logit_bias"].copy()
         params["loss_fns"]["OpenSigLipLoss"] = sig
+    return params
+
+
+def convert_sam(sd: dict, num_layers: int) -> dict:
+    """HF ``SamVisionEncoder`` state_dict -> the JAX layout of the SAM tower
+    (``models/sam_vit.py``), which the bridge keeps as it is.
+
+    Accepts either bare vision-encoder names or a full ``SamModel``
+    state_dict (``vision_encoder.`` prefix stripped). Layers stay a
+    LIST (window/global layers carry different rel-pos table shapes, so
+    no leading-axis stack)."""
+    if any(k.startswith("vision_encoder.") for k in sd):
+        sd = _strip_prefix(sd, "vision_encoder.")
+    w = sd["patch_embed.projection.weight"]  # (D, C, P, P)
+    params: dict = {
+        "patch_embed": {
+            "kernel": w.transpose(2, 3, 1, 0).reshape(-1, w.shape[0]).copy(),
+            "bias": sd["patch_embed.projection.bias"].copy(),
+        }
+    }
+    if "pos_embed" in sd:
+        params["pos_embed"] = sd["pos_embed"].copy()  # (1, G, G, D)
+
+    layers = []
+    for i in range(num_layers):
+        p = f"layers.{i}"
+        layer = {
+            "ln1": _ln(sd, f"{p}.layer_norm1"),
+            "qkv": {"kernel": sd[f"{p}.attn.qkv.weight"].T.copy()},
+            "proj": _lin(sd, f"{p}.attn.proj"),
+            "ln2": _ln(sd, f"{p}.layer_norm2"),
+            "mlp": {
+                "fc1": _lin(sd, f"{p}.mlp.lin1"),
+                "fc2": _lin(sd, f"{p}.mlp.lin2"),
+            },
+        }
+        if f"{p}.attn.qkv.bias" in sd:
+            layer["qkv"]["bias"] = sd[f"{p}.attn.qkv.bias"].copy()
+        if f"{p}.attn.rel_pos_h" in sd:
+            layer["rel_pos_h"] = sd[f"{p}.attn.rel_pos_h"].copy()
+            layer["rel_pos_w"] = sd[f"{p}.attn.rel_pos_w"].copy()
+        layers.append(layer)
+    params["layers"] = layers
+
+    params["neck"] = {
+        # conv1 1x1 (out, D, 1, 1) -> (D, out) matmul kernel
+        "conv1": sd["neck.conv1.weight"][:, :, 0, 0].T.copy(),
+        "ln1": _ln(sd, "neck.layer_norm1"),
+        # conv2 3x3 (out, in, kh, kw) OIHW -> HWIO
+        "conv2": sd["neck.conv2.weight"].transpose(2, 3, 1, 0).copy(),
+        "ln2": _ln(sd, "neck.layer_norm2"),
+    }
     return params
 
 

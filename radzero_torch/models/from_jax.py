@@ -10,8 +10,12 @@ Layouts:
 - dense kernels stay (d_in, d_out): the port computes ``x @ kernel``;
 - the patch embedding keeps its (ph, pw, c)-flattened rows;
 - stacked layers (leading layer axis) become a list of per-layer dicts;
-- ViT and align layers get their q/k/v kernels packed once, here, into
-  ``attn.qkv`` = [q | k | v] (D, 3D), the operand of kernel K1;
+  the SAM tower's layers, a list already (their relative tables differ in
+  shape), stay as they are;
+- DINOv2 tower and align layers get their q/k/v kernels packed once, here,
+  into ``attn.qkv`` = [q | k | v] (D, 3D), the operand of kernel K1; the
+  alternate towers (CLIP / SigLIP, MAE, BERT, CLIP text) keep q / k / v
+  apart, as their plain-op layers read them;
 - MPNet ``rel_bias`` stays (buckets, heads); the loss head keeps
   ``log_loss_temperature`` and the shared LN.
 
@@ -48,17 +52,23 @@ def _vit_layer(p: dict) -> dict:
     return {**p, "attn": {"qkv": qkv, "o": a["o"]}}
 
 
+def _layers(stacked) -> list:
+    """A tower's layers as a list: SAM's list as it is, a stacked tree
+    unstacked, DINOv2 layers (LayerScale) with q / k / v packed."""
+    if isinstance(stacked, list):
+        return stacked
+    layers = _unstack(stacked)
+    return [_vit_layer(p) for p in layers] if "ls1" in layers[0] else layers
+
+
 def params_from_jax(tree: dict) -> dict:
     """Convert the JAX tree to CPU tensors of the same dtypes (the serving
     engine casts and moves them once)."""
     out = {}
     for key, sub in tree.items():
-        if key == "vision_model":
-            sub = {**sub, "layers": [_vit_layer(p) for p in _unstack(sub["layers"])]}
-        elif key == "align_transformer" and "layers" in sub:
-            sub = {**sub, "layers": [_vit_layer(p) for p in _unstack(sub["layers"])]}
-        elif key == "text_model":
-            sub = {**sub, "layers": _unstack(sub["layers"])}
+        if key in ("vision_model", "text_model") or (
+                key == "align_transformer" and "layers" in sub):
+            sub = {**sub, "layers": _layers(sub["layers"])}
         out[key] = sub
     return _convert(out)
 

@@ -1,6 +1,10 @@
 """The composite RadZero model (port of radzero_tpu/models/radzero.py):
 DINOv2 tower -> align adapter -> VL-CABS head, plus the MPNet tower, under
-one dict of parameters whose top-level keys mirror the JAX tree.
+one dict of parameters whose top-level keys mirror the JAX tree. The
+towers dispatch on ``model_type`` through the encoder registry
+(``models/encoders.py``): the alternate vision towers (CLIP / SigLIP /
+BiomedCLIP, SAM, MAE) and the BERT text tower run on plain torch ops, and
+the align layers, MPNet and VL-CABS on the kernels below at their shapes.
 
 Two entry points: :func:`compute_logits`, zero-shot scoring (the
 ``radzero`` logits type, and the ``cls_alignment`` / ``global_alignment``
@@ -41,9 +45,11 @@ from radzero_torch.losses.radzero_loss import (
     temperatures,
 )
 from radzero_torch.models.align import build_align_adapter
+from radzero_torch.models.bert import bert_config_from_text, bert_forward
 from radzero_torch.models.configuration import RadZeroConfig
-from radzero_torch.models.mpnet import init_mpnet, masked_mean_pool, mpnet_forward
-from radzero_torch.models.vit import init_vit, layer_impl, vit_forward
+from radzero_torch.models.encoders import BERT_TYPES, build_text_encoder, build_vision_encoder
+from radzero_torch.models.mpnet import masked_mean_pool, mpnet_forward
+from radzero_torch.models.vit import layer_impl, vit_forward
 from radzero_torch.ops.layers import l2_normalize, linear
 from radzero_torch.parallel.collectives import all_gather_rows
 
@@ -52,16 +58,20 @@ def init_radzero(g: torch.Generator, cfg: RadZeroConfig,
                  loss_apply: Sequence[str] = ("RadZeroLoss",)) -> dict:
     """Weights at the real shapes from ``g`` (fp32, on ``g.device``), in
     the layout :func:`radzero_torch.models.from_jax.params_from_jax`
-    produces."""
-    if getattr(cfg.vision, "model_type", "dinov2") not in ("dinov2", "raddino"):
-        raise NotImplementedError(f"vision model_type {cfg.vision.model_type!r}")
-    if cfg.text.model_type != "mpnet":
-        raise NotImplementedError(f"text model_type {cfg.text.model_type!r}")
+    produces. The towers come from the encoder registry
+    (``models/encoders.py``) by ``model_type``; a BERT-family text tower
+    takes its widths from ``cfg.text`` (``bert_config_from_text``). The
+    ``clip_text`` family is built but refused by :func:`forward_text`, as in
+    the JAX package."""
     align_init, _ = build_align_adapter(cfg.align.model_type)
+    vision_init, _ = build_vision_encoder(getattr(cfg.vision, "model_type", "dinov2"))
+    text_type = getattr(cfg.text, "model_type", "mpnet")
+    text_init, _ = build_text_encoder(text_type)
     params = {
-        "vision_model": init_vit(g, cfg.vision),
+        "vision_model": vision_init(g, cfg.vision),
         "align_transformer": align_init(g, cfg.align),
-        "text_model": init_mpnet(g, cfg.text),
+        "text_model": text_init(g, bert_config_from_text(cfg.text)
+                                if text_type in BERT_TYPES else cfg.text),
     }
     if cfg.text.use_text_projection:
         d_in, d_out = cfg.text.hidden_size, 2 * cfg.align.hidden_size
@@ -90,7 +100,11 @@ def forward_vision(params: dict, cfg: RadZeroConfig, pixel_values: Optional[torc
                    remat: bool = False) -> Dict[str, torch.Tensor]:
     """Tower + align adapter + pooled image features, (B, H, W, 3) NHWC.
 
-    ``fused_towers`` (the default, the counterpart of the JAX package's
+    The tower dispatches on ``cfg.vision.model_type`` through the encoder
+    registry (``models/encoders.py``): dinov2 / raddino run ``models/vit.py``
+    on the layer named below; the alternate towers (CLIP / SigLIP /
+    BiomedCLIP, SAM, MAE) run on plain torch ops whatever the flags say, as
+    the JAX package runs them on plain XLA. ``fused_towers`` (the default, the counterpart of the JAX package's
     ``with_fused_towers``) runs the tower and the align adapter on the fused
     K1-K3 layer whatever the config says; False runs the layers that
     ``cfg.vision.attn_impl`` and ``cfg.align.attn_impl`` name ("flash", the
@@ -104,19 +118,22 @@ def forward_vision(params: dict, cfg: RadZeroConfig, pixel_values: Optional[torc
     tower. ``remat`` reruns parts of a trainable tower and of the
     align layers in the backward (see :func:`radzero_torch.models.vit.
     vit_encoder`)."""
-    if getattr(cfg.vision, "model_type", "dinov2") not in ("dinov2", "raddino"):
-        raise NotImplementedError(f"vision model_type {cfg.vision.model_type!r}")
-
     def impl_of(attn_impl):
         return "eager" if eager else "fused" if fused_towers else layer_impl(attn_impl)
 
+    model_type = getattr(cfg.vision, "model_type", "dinov2")
     if tower_tokens is not None:
         tokens = tower_tokens.to(dtype)
     else:
         with torch.set_grad_enabled(torch.is_grad_enabled() and not stop_tower_gradient):
-            tokens = vit_forward(params["vision_model"], cfg.vision, pixel_values,
-                                 dtype=dtype, impl=impl_of(cfg.vision.attn_impl),
-                                 remat=remat)
+            if model_type in ("dinov2", "raddino"):
+                tokens = vit_forward(params["vision_model"], cfg.vision, pixel_values,
+                                     dtype=dtype, impl=impl_of(cfg.vision.attn_impl),
+                                     remat=remat)
+            else:
+                _, vision_apply = build_vision_encoder(model_type)
+                tokens = vision_apply(params["vision_model"], cfg.vision, pixel_values,
+                                      dtype=dtype)
     _, align_apply = build_align_adapter(cfg.align.model_type)
     tokens = align_apply(params["align_transformer"], cfg.align, tokens,
                          impl=align_impl or impl_of(cfg.align.attn_impl), remat=remat)
@@ -132,21 +149,38 @@ def forward_vision(params: dict, cfg: RadZeroConfig, pixel_values: Optional[torc
 
 def forward_text(params: dict, cfg: RadZeroConfig, input_ids, attention_mask, *,
                  dtype=torch.float32, remat: bool = False) -> Dict[str, torch.Tensor]:
-    """MPNet + optional projector (on token embeddings) + pooling; ``remat``
-    (``cfg.text.remat`` in its place when not None) reruns each MPNet layer
-    in the backward."""
-    if cfg.text.model_type != "mpnet":
-        raise NotImplementedError(f"text model_type {cfg.text.model_type!r}")
+    """Text tower + optional projector + pooling, by ``cfg.text.model_type``
+    (radzero_tpu/models/radzero.py:194-245): MPNet (``remat``, or
+    ``cfg.text.remat`` in its place when not None, reruns each layer in the
+    backward) with the projector on the token embeddings before pooling
+    (ref modeling.py:139-140); the BERT family (bert, bioclinicalmpbert,
+    biomedclip) with the projector on the pooled features (ref
+    modeling.py:202-203). Any other type, the CLIP text towers included,
+    raises NotImplementedError, as the JAX composite does
+    (radzero_tpu/models/radzero.py:240-241)."""
+    text_type = getattr(cfg.text, "model_type", "mpnet")
     if cfg.text.remat is not None:
         remat = cfg.text.remat
-    hidden = mpnet_forward(params["text_model"], cfg.text, input_ids, attention_mask,
-                           dtype=dtype, remat=remat)
-    if cfg.text.use_text_projection:
-        hidden = linear(hidden, params["text_projector"])
-    if cfg.text.use_cls_token:
-        text_features = hidden[:, 0, :]
+    if text_type == "mpnet":
+        hidden = mpnet_forward(params["text_model"], cfg.text, input_ids, attention_mask,
+                               dtype=dtype, remat=remat)
+        if cfg.text.use_text_projection:
+            hidden = linear(hidden, params["text_projector"])
+        if cfg.text.use_cls_token:
+            text_features = hidden[:, 0, :]
+        else:
+            text_features = masked_mean_pool(hidden, attention_mask)
+    elif text_type in BERT_TYPES:
+        hidden = bert_forward(params["text_model"], bert_config_from_text(cfg.text), input_ids,
+                              attention_mask, dtype=dtype)
+        if cfg.text.use_cls_token:
+            text_features = hidden[:, 0, :]
+        else:
+            text_features = masked_mean_pool(hidden, attention_mask)
+        if cfg.text.use_text_projection:
+            text_features = linear(text_features, params["text_projector"])
     else:
-        text_features = masked_mean_pool(hidden, attention_mask)
+        raise NotImplementedError(f"text model_type {text_type!r} in composite model")
     return {
         "text_features_wo_l2_norm": text_features,
         "text_features": l2_normalize(text_features),

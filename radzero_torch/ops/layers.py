@@ -74,6 +74,13 @@ def merge_heads(x: torch.Tensor) -> torch.Tensor:
     return x.reshape(b, l, h * hd)
 
 
+def self_attention(h: torch.Tensor, p: dict, heads: int, bias=None) -> torch.Tensor:
+    """Multi-head self-attention over ``p``'s q / k / v / o linears: the eager
+    attention of the BERT, CLIP, MAE and CLIP text layers."""
+    q, k, v = (split_heads(linear(h, p[n]), heads) for n in "qkv")
+    return linear(merge_heads(attention(q, k, v, bias=bias)), p["o"])
+
+
 def attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -92,5 +99,6 @@ def attention(
     scores = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
     if bias is not None:
         scores = scores + bias.to(scores.dtype)
+        del bias  # a large bias (SAM's global layers) need not outlive the sum
     probs = torch.softmax(scores.float(), dim=-1).to(q.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)

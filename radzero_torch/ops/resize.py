@@ -1,10 +1,12 @@
-"""Separable 2-D resizes (port of the parts of radzero_tpu/ops/resize.py
-the slice uses).
+"""Resizes (port of the parts of radzero_tpu/ops/resize.py
+the port uses).
 
 The JAX package builds torch-parity interpolation matrices so that the
 TPU can resize with matmuls; the port calls ``F.interpolate`` itself,
 in fp32 with ``align_corners=False`` and no antialiasing, which are the
-semantics those matrices reproduce.
+semantics those matrices reproduce: bicubic for the position grids
+(DINOv2, CLIP and SAM's absolute grid), bilinear for the maps, and linear
+for SAM's relative-position tables.
 """
 
 from __future__ import annotations
@@ -27,3 +29,11 @@ def bilinear_resize_2d(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
 
 def bicubic_resize_2d(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     return _resize_2d(x, out_h, out_w, "bicubic")
+
+
+def linear_resize_1d(x: torch.Tensor, out_len: int) -> torch.Tensor:
+    """Resize the last axis of ``x`` (any leading dims) in fp32, linearly."""
+    lead = x.shape[:-1]
+    flat = x.float().reshape(-1, 1, x.shape[-1])
+    out = F.interpolate(flat, size=out_len, mode="linear", align_corners=False)
+    return out.reshape(*lead, out_len)

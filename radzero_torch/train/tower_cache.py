@@ -226,17 +226,21 @@ class TowerCache:
 
 
 def make_tower_fn(cfg, *, dtype) -> Callable:
-    """``tower(vision_params, pixel_values) -> tokens`` (B, 1370, D) at the
-    real length: the tower ``forward_vision`` runs inside the train step
-    (``models/radzero.py``: the fused K1-K3 layer, final LN, at the step's
-    ``dtype``), under ``torch.no_grad()``, so cached tokens are drop-in
-    replacements for the in-step tower's."""
-    if getattr(cfg.vision, "model_type", "dinov2") not in ("dinov2", "raddino"):
-        raise NotImplementedError(f"vision model_type {cfg.vision.model_type!r}")
-    from radzero_torch.models.vit import vit_forward
+    """``tower(vision_params, pixel_values) -> tokens`` (B, L, D) at the real
+    length (1370 for the flagship): the tower ``forward_vision`` runs inside
+    the train step (``models/radzero.py``: for dinov2 / raddino the fused
+    K1-K3 layer and final LN, for the alternate towers their registry entry
+    on plain torch ops, as radzero_tpu/train/tower_cache.py:270-285), at the
+    step's ``dtype``, under ``torch.no_grad()``, so cached tokens are
+    drop-in replacements for the in-step tower's."""
+    from radzero_torch.models.encoders import build_vision_encoder
+
+    model_type = getattr(cfg.vision, "model_type", "dinov2")
+    _, apply = build_vision_encoder(model_type)
+    kw = {"impl": "fused"} if model_type in ("dinov2", "raddino") else {}
 
     @torch.no_grad()
     def tower(vision_params, pixel_values):
-        return vit_forward(vision_params, cfg.vision, pixel_values, dtype=dtype, impl="fused")
+        return apply(vision_params, cfg.vision, pixel_values, dtype=dtype, **kw)
 
     return tower

@@ -21,7 +21,9 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GROUPS = {
     "package": ["radzero_torch"],
     "models": ["radzero_torch.models." + m for m in
-               ("configuration", "from_jax", "vit", "align", "mpnet", "radzero", "convert")],
+               ("configuration", "from_jax", "vit", "align", "mpnet", "radzero", "convert",
+                "encoders", "bert", "clip_vit", "clip_text", "mae_vit", "sam_vit")]
+    + ["radzero_torch.utils.registry"],
     "ops": ["radzero_torch.ops." + m for m in
             ("_build", "_checks", "layers", "resize", "fused_layer", "flash_attention", "vlcabs",
              "vlcabs_fused", "ablate_sm90", "registry")],

@@ -4,11 +4,24 @@ port through its own build in radzero_torch/build/, so every entry point
 must give the same bits on the same arrays and JPEG bytes, ``fast_scale``
 included. The tests of tests/test_native_preproc.py are mirrored on the
 port's bindings, and the processors with ``use_native=True`` are held to
-the JAX processors with ``use_native=True``. Skips where libjpeg's
-headers or a compiler are missing.
+the JAX processors with ``use_native=True``.
+
+Both libraries are loaded once per module, by an autouse fixture, not at
+collection: under pytest-xdist every worker collects every file, and the
+JAX package builds its library in place with ``make -C native``, so six
+workers loading it at once could read a half-written file (and its loader
+keeps a first failure for the rest of the process). The fixture holds an
+exclusive ``fcntl`` lock on ``radzero_torch/build/native.lock`` around both
+first loads, and retries the JAX one after a failure another process's
+build may have caused. It skips only where a compiler or libjpeg's headers
+are missing, and says which; a build that fails with both present fails.
 """
 
+import fcntl
 import io
+import shutil
+import subprocess
+import time
 
 import numpy as np
 import pytest
@@ -20,10 +33,42 @@ from radzero_torch.data import native
 
 from radzero_tpu.data import native as jax_native
 
-pytestmark = pytest.mark.skipif(
-    not (native.available() and jax_native.available()),
-    reason="native library unavailable (no compiler or libjpeg headers)",
-)
+
+def _missing_toolchain():
+    """Why the libraries cannot be built here, or None: no compiler, or no
+    jpeglib.h on its include path."""
+    if shutil.which(native.CXX) is None:
+        return f"no C++ compiler ({native.CXX!r} is not on PATH)"
+    probe = subprocess.run([native.CXX, "-E", "-x", "c++", "-"], input="#include <jpeglib.h>\n",
+                           capture_output=True, text=True)
+    if probe.returncode != 0:
+        return "libjpeg's headers are missing (jpeglib.h is not on the include path)"
+    return None
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _libraries():
+    native.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(native.BUILD_DIR / "native.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            ours = native.available()
+            theirs = jax_native.available()
+            for _ in range(3):
+                if theirs:
+                    break
+                # a first load that met another process's make mid-write: try again
+                time.sleep(1.0)
+                jax_native._tried, jax_native._lib = False, None
+                theirs = jax_native.available()
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+    if not (ours and theirs):
+        why = _missing_toolchain()
+        if why is not None:
+            pytest.skip(f"native library unavailable: {why}")
+        pytest.fail(f"native library failed to build or load (port {ours}, JAX {theirs}): "
+                    f"{native.build_log.strip()[-400:]}")
 
 MEAN, STD = (0.48, 0.45, 0.41), (0.27, 0.26, 0.28)
 
