@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive radzero_torch once on one NVIDIA GPU: serving, training, checkpoints, tools, encoders.
+"""Drive radzero_torch once on one NVIDIA GPU: serving, training, checkpoints, tools, encoders, TP.
 
     python3 chip_smoke.py [--seed 0] [--profile]
 
@@ -274,6 +274,26 @@ Phases, in order; any failure exits non-zero:
    K6-K8 2, K9 12, K10-K12 1). Each leg's wall time and peak memory, and legs A
    and B's card ms a batch, beside the card line.
 
+13. the model axis (parallel/tensor_parallel.py, tp=; runs last), ~50-70 s: a, the
+   row kernel of K3 / K4 over a model group (csrc/tp_rows.cu, tp_rows_kernel) in its
+   four places (x + ls1 (acc + bo) with LN2; y32 + ls2 (acc + b2); x + (acc + bo)
+   with LN written rounded and in fp32; LN(y32 + (acc + b2))) at 8 x 1370 x 768
+   against its twin at seeds 0-3, fp32 (TF32 off, 2^-17 of max |ref|) and bf16 (one
+   bf16 step), with times, bounds and its device kernel by name; rank 0's share of
+   K3 and K4 over two ranks (the sum the identity) at phase 3's TOL, by name, beside
+   their three products on cuBLAS; b, one process on the flagship at full depth,
+   compute_logits (8 images x 20 prompts) and forward_train's loss (8 x 64
+   sentences) in fp32 and bf16, and a model group of one under NCCL
+   (mesh_groups(1, 1)) bit-equal to no group; c, two processes on the card under
+   gloo (chip_smoke.py --tp-rank), mesh_groups(1, 2), each with its share
+   (shard_params): both ranks' outputs bit-equal, fp32 within
+   tp_fp32_gate of one process, bf16 no farther from one process's
+   fp32 than twice one process's own bf16 miss (TP_BF16_FACTOR; the loss also
+   TP_LOSS_SLACK of itself), each call's launches those of one process with K3 /
+   K4 over the group and the row kernel twice each, rank 0's device kernels by
+   name, and the gloo all-reduce of the tower's partial through the host (no
+   interconnect measured, nothing claimed).
+
 --profile also prints the kernels of one training step by device time
 (torch.profiler; the 40 longest, K15 / K16's by name, and the fixed-order
 reduces' launches and time). A line with {"kernels": [...]} reports every kernel
@@ -319,7 +339,8 @@ REDUCE1 = "reduce_chunks_kernel"      # the first level of the two-level reduce 
 # chunks of 8 columns a lane; the LayerNorm backward holds 2 or 4 column sums
 LN_ROWS, LN_BWD = "ln_rows_kernel<__nv_bfloat16, ", "ln_bwd_rows_kernel<__nv_bfloat16, "
 COLSUM = "scale_colsum_kernel<__nv_bfloat16, "  # then whether it sums g * m
-ROW_PASSES = ("ln_rows_kernel", "ln_bwd_rows_kernel", "scale_colsum_kernel", REDUCE1)
+ROW_PASSES = ("ln_rows_kernel", "ln_bwd_rows_kernel", "scale_colsum_kernel", REDUCE1,
+              "tp_rows_kernel")
 
 
 def _sm90(epi, mode):  # an instantiation of gemm_sm90_kernel<epilogue of gemm.cuh, layout>
@@ -526,12 +547,16 @@ def compare(name, dtype_name, out, ref, tol=None, quiet=False):
     return err.max().item()
 
 
-def device_kernels(fn, calls=5, tries=3):
+def device_kernels(fn, calls=5, tries=6, pad=0.05):
     """{device kernel name: its device ms a call} over ``calls`` calls of ``fn``
-    under torch.profiler. A session that recorded no device activity at all
-    (CUPTI now and then delivers none, though the calls ran) is profiled
-    again, up to ``tries`` sessions; what a session does record is returned
-    as it is."""
+    under torch.profiler. A short session has lost some or all of its kernels
+    though they ran (the profiler keeps only the device activity whose CUPTI
+    time stamps fall inside the session, and those can sit off the host's
+    clock). So the calls run ``pad``
+    seconds after the session opens and the session closes ``pad`` seconds
+    after they end; a session that recorded nothing, or a kernel a number of
+    times that is no multiple of ``calls``, is profiled again with twice the
+    pad, up to ``tries`` sessions. The last session is returned as it is."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -539,14 +564,18 @@ def device_kernels(fn, calls=5, tries=3):
     for attempt in range(tries):
         torch.cuda.synchronize()  # no earlier launch still in flight when the session opens
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            time.sleep(pad)
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
-        ran = {e.key: e.self_device_time_total / 1e3 / calls
-               for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
-        if ran:
+            time.sleep(pad)
+        events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        ran = {e.key: e.self_device_time_total / 1e3 / calls for e in events}
+        if ran and all(e.count % calls == 0 for e in events):
             break
-        print(f"  torch.profiler recorded no device kernel in session {attempt + 1} of {tries}")
+        print(f"  torch.profiler recorded {'part of the' if ran else 'no'} device activity in "
+              f"session {attempt + 1} of {tries} ({pad:g} s pads)")
+        pad *= 2
     return ran
 
 
@@ -864,7 +893,8 @@ def check_no_spills(log):
           f"K12's and K5 / K10's second phases), {VLC_PHASE1} (K12's first phase), "
           f"{VLC_SCORES} (K5 / K10's first phase), "
           f"{', '.join(SMALL_BIAS)} (K15 / K16 in bf16 at L <= 64), "
-          f"{', '.join(ROW_PASSES)} (the chains' row passes and two-level reduce): no spills")
+          f"{', '.join(ROW_PASSES)} (the chains' row passes, the two-level reduce, the row "
+          f"kernel of K3 / K4 over a model axis): no spills")
 
 
 def phase_kernels(seed):
@@ -1816,7 +1846,8 @@ WRAPPERS = (fl.fused_preattn, fl.flash_attention_packed, fl.fused_postattn, fl.f
             vf.vlcabs_fused, fl.fused_preattn_bwd, fl.flash_attention_packed_bwd,
             fl.fused_postattn_bwd, fl.fused_mpnet_post_bwd, vf.vlcabs_train_forward,
             vf.vlcabs_train_bwd_dq, vf.vlcabs_train_bwd_dtn, fa.flash_attention,
-            fa.flash_attention_bwd, fa.flash_attention_bias, fa.flash_attention_bias_bwd)
+            fa.flash_attention_bwd, fa.flash_attention_bias, fa.flash_attention_bias_bwd,
+            fl.fused_postattn_tp, fl.fused_mpnet_post_tp, fl.tp_rows)
 t0 = time.time()
 runner, meta = load_zero_shot(bundle)
 t_load = time.time() - t0
@@ -2604,7 +2635,8 @@ def _counters():
             vf.vlcabs_fused, fl.fused_preattn_bwd, fl.flash_attention_packed_bwd,
             fl.fused_postattn_bwd, fl.fused_mpnet_post_bwd, vf.vlcabs_train_forward,
             vf.vlcabs_train_bwd_dq, vf.vlcabs_train_bwd_dtn, fa.flash_attention,
-            fa.flash_attention_bwd, fa.flash_attention_bias, fa.flash_attention_bias_bwd)
+            fa.flash_attention_bwd, fa.flash_attention_bias, fa.flash_attention_bias_bwd,
+            fl.fused_postattn_tp, fl.fused_mpnet_post_tp, fl.tp_rows)
 
 
 def reset_counters():
@@ -3592,12 +3624,12 @@ def phase_checkpoint(seed, card):
                 pv = normalize_pixels(u8[:nb], spec.mean, spec.std, dtype=dtype)
                 seen = []
 
-                def record(x, p, c):
-                    seen.append(orig_indices(x, p, c))
+                def record(x, p, c, tp=None):
+                    seen.append(orig_indices(x, p, c, tp=tp))
                     return seen[-1]
 
-                def forced(x, p, c):  # the kernel route's rows, into the eager route
-                    seen.append(orig_indices(x, p, c))
+                def forced(x, p, c, tp=None):  # the kernel route's rows, into the eager route
+                    seen.append(orig_indices(x, p, c, tp=tp))
                     return seen[0]
 
                 try:
@@ -5498,6 +5530,495 @@ def phase_encoders(seed, card):
             "alt_training_step": launches_d}, rows
 
 
+# ---------------------------------------------------------------------------
+# 13. the model axis: the forward over a model group of two
+# ---------------------------------------------------------------------------
+
+TP_WORLD = 2              # ranks of the model group: processes sharing the one card under gloo
+TP_IMAGES, TP_PROMPTS = 8, 20  # compute_logits over the group
+TP_SENTENCES = 64         # forward_train's loss: 8 images x 8 sentences of T_LEN slots
+TP_SEEDS = (0, 1, 2, 3)   # the row kernel against its twin
+# The row kernel against its twin: u is the twin's value, rounded op for op; the
+# LayerNorm sums the row in another order, which moves an output by a few fp32 ulps of
+# the row's scale: 2^-17 of max |ref| (and 2^-17 of the entry) for every fp32 output. A
+# bf16 output is such an fp32 value rounded once, so it may land one bf16 step (2^-7 of
+# the entry) from the twin's.
+TOL[("tp_rows", "fp32")] = (2.0 ** -17, 2.0 ** -17, "scaled")
+TOL[("tp_rows", "bf16")] = (2.0 ** -17, 2.0 ** -7, "scaled")
+# bf16 over the group against one process's fp32: no farther than TP_BF16_FACTOR times
+# one process's own bf16 miss, per output (its largest entry); the loss, one number,
+# also gets TP_LOSS_SLACK of itself, since one draw of a rounding can miss by nothing
+TP_BF16_FACTOR, TP_LOSS_SLACK = 2.0, 2.0 ** -8
+
+
+def tp_fp32_gate(cfg) -> float:
+    """The largest miss, as a share of an output's largest magnitude, that a
+    forward over a model axis in fp32 may show against one process on the
+    same weights. The two differ only in the order of the fp32 sums the split
+    leaves to the all-reduce: a sum of k products taken in another order
+    moves by about sqrt(k) 2^-24 of its terms' size. Each of the L layers in
+    series (the tower's, the align layers' and the text tower's) adds at most
+    its largest such sum's (k = the MLP width F), and a factor of 4 covers
+    the LayerNorms' gain and the VL-CABS head: 4 L sqrt(F) 2^-24 (3.4e-4 at
+    the flagship's 26 layers and F = 3072). tests/test_torch_tensor_parallel.py
+    holds the CPU's forward to it as well."""
+    layers = cfg.vision.num_hidden_layers + cfg.text.num_hidden_layers
+    widths = [cfg.vision.intermediate_size, cfg.text.intermediate_size]
+    if cfg.align.model_type == "align_transformer":
+        layers += cfg.align.num_hidden_layers
+        widths.append(cfg.align.as_vit().intermediate_size)
+    elif cfg.align.model_type == "mlp":  # its fc2 is row-parallel
+        from radzero_torch.models.align import MLP_HIDDEN
+
+        layers += 1
+        widths.append(MLP_HIDDEN)
+    return 4.0 * layers * max(widths) ** 0.5 * 2.0 ** -24
+
+
+TP_ROWS = "tp_rows_kernel"  # the row kernel (csrc/tp_rows.cu)
+ROUTES["tp_rows"] = {"bf16": (TP_ROWS + "<__nv_bfloat16, __nv_bfloat16, 3, true>",),
+                     "fp32": (TP_ROWS + "<float, float, 3, true>",)}
+ROUTES["K3 tp"] = {"bf16": (_sm90(8, 0), TP_ROWS + "<__nv_bfloat16, __nv_bfloat16, 3, true>",
+                            _sm90(2, 0), TP_ROWS + "<__nv_bfloat16, float, 3, false>"),
+                   "fp32": ("gemm_f32_kernel<false, 8>", TP_ROWS + "<float, float, 3, true>",
+                            "gemm_f32_kernel<false, 2>", TP_ROWS + "<float, float, 3, false>")}
+ROUTES["K4 tp"] = {"bf16": (_sm90(8, 0), TP_ROWS + "<__nv_bfloat16, __nv_bfloat16, 3, true>",
+                            _sm90(2, 0), TP_ROWS + "<__nv_bfloat16, float, 3, true>"),
+                   "fp32": ("gemm_f32_kernel<false, 8>", TP_ROWS + "<float, float, 3, true>",
+                            "gemm_f32_kernel<false, 2>")}
+# the row kernel's four places: (residual, LayerScale, LayerNorm, keep u, keep LN(u) in fp32)
+TP_FORMS = {"K3 begin": ("x", True, True, True, False),
+            "K3 end": ("y32", True, False, False, False),
+            "K4 begin": ("x", False, True, False, True),
+            "K4 end": ("y32", False, True, False, False)}
+
+
+def _serve_cfg():
+    """The flagship's configuration as _flagship initialises it (compute_logits)."""
+    from radzero_torch.models.configuration import (
+        AlignConfig, LossConfig, RadZeroConfig, TextConfig, ViTConfig,
+    )
+
+    return RadZeroConfig(vision=ViTConfig(), text=TextConfig(), align=AlignConfig(),
+                         loss=LossConfig())
+
+
+def tp_inputs(seed, vocab_size):
+    """Phase 13's inputs from ``seed``: pixels of 8 images in fp32 and bf16, 20 prompts
+    of T_LEN slots, and forward_train's batch of 8 images x 64 sentences in both."""
+    import torch
+
+    dts = (("fp32", torch.float32), ("bf16", torch.bfloat16))
+    prompts = train_batch(seed + 7, 4, TP_PROMPTS, vocab_size, torch.float32, size=14)
+    return {"pv": {dn: train_batch(seed, TP_IMAGES, TP_IMAGES, vocab_size, dt)["pixel_values"]
+                   for dn, dt in dts},
+            "ids": prompts["input_ids"], "mask": prompts["attention_mask"],
+            "batch": {dn: train_batch(seed, TP_IMAGES, TP_SENTENCES, vocab_size, dt)
+                      for dn, dt in dts}}
+
+
+def _tp_form(inp, name, dtype):
+    """The arguments of the row kernel in its place ``name``."""
+    base, ls, ln, keep_u, keep_ln32 = TP_FORMS[name]
+    return (inp[base], inp["acc"], inp["bias"]), {
+        "ls": inp["ls"] if ls else None, "ln": (inp["lns"], inp["lnb"]) if ln else None,
+        "dtype": dtype, "eps": 1e-6 if name[:2] == "K3" else 1e-12, "keep_u": keep_u,
+        "keep_ln32": keep_ln32 and dtype != inp["acc"].dtype}
+
+
+def _tp_split(k, ops, size=TP_WORLD):
+    """Rank 0's share of K3 / K4's operands (``k``) over ``size`` ranks: attn_out and
+    wo by the heads, w1 / b1 by the MLP's columns, w2 by its rows; the rest whole."""
+    ops = list(ops)
+    i = 7 if k == "K3" else 6  # w1's place; b1 and w2 follow
+    dl, fl_ = D // size, F // size
+    ops[1], ops[2] = ops[1][:, :dl].contiguous(), ops[2][:dl].contiguous()
+    ops[i], ops[i + 1] = ops[i][:, :fl_].contiguous(), ops[i + 1][:fl_].contiguous()
+    ops[i + 2] = ops[i + 2][:fl_].contiguous()
+    return ops
+
+
+def tp_kernel_rows(seed):
+    """13a: the row kernel against its twin in its four places at 8 x 1370 rows x 768,
+    fp32 (TF32 off) and bf16, seeds TP_SEEDS; its device kernels by name, times and
+    bounds; then rank 0's share of K3 and K4 over two ranks (the sum over the ranks the
+    identity) against their twins at phase 3's TOL, by name, timed beside their three
+    products on cuBLAS. -> {"tp_rows": row, "K3 tp": row, "K4 tp": row}."""
+    import torch
+    from radzero_torch.ops import fused_layer as fl
+
+    m = B * L
+    dts = ((torch.float32, "fp32"), (torch.bfloat16, "bf16"))
+    rows = {}
+
+    def row_inputs(dtype, s):
+        gen = torch.Generator(device="cuda").manual_seed(s)
+
+        def rn(*shape, std=1.0, mean=0.0):
+            return torch.randn(shape, generator=gen, device="cuda") * std + mean
+
+        return {"x": rn(m, D).to(dtype), "y32": rn(m, D), "acc": rn(m, D),
+                "bias": rn(D, std=0.02).to(dtype), "ls": rn(D, std=0.1, mean=1.0).to(dtype),
+                "lns": rn(D, std=0.1, mean=1.0).to(dtype), "lnb": rn(D, std=0.1).to(dtype)}
+
+    print(f"tensor parallel (phase 13), a: the row kernel ({TP_ROWS}, csrc/tp_rows.cu) against "
+          f"its twin at {m} x {D}, seeds {TP_SEEDS}")
+    forms = {}
+    for dtype, dname in dts:
+        for name in TP_FORMS:
+            worst = (0.0, 0.0)
+            for s in TP_SEEDS:
+                args, kw = _tp_form(row_inputs(dtype, s), name, dtype)
+                outs, refs = fl.tp_rows(*args, **kw), fl.tp_rows_plain(*args, **kw)
+                torch.cuda.synchronize()
+                for i, (out, ref) in enumerate(zip(outs, refs)):
+                    if (out is None) != (ref is None):
+                        fail(f"tp_rows {name} {dname}: output {i} is {out} against {ref}")
+                    if out is None:
+                        continue
+                    err, used = compare(f"tp_rows {name}", dname if i == 0 else "fp32", out, ref,
+                                        tol="tp_rows", quiet=True)
+                    worst = max(worst, (used, err))
+            args, kw = _tp_form(row_inputs(dtype, seed), name, dtype)
+            ms = median_ms(lambda: fl.tp_rows(*args, **kw))
+            plain_ms = median_ms(lambda: fl.tp_rows_plain(*args, **kw))
+            outs = fl.tp_rows(*args, **kw)
+            nbytes = (sum(t.numel() * t.element_size() for t in args)
+                      + sum(t.numel() * t.element_size() for t in (kw["ls"],) + (kw["ln"] or ())
+                            if t is not None)
+                      + sum(t.numel() * t.element_size() for t in outs if t is not None))
+            bound_ms, bound_by = bound_of(0, nbytes)
+            forms[(name, dname)] = {"max_abs_err": worst[1], "worst_share": worst[0], "ms": ms,
+                                    "plain_ms": plain_ms, "bound_ms": bound_ms,
+                                    "bound_by": bound_by}
+            print(f"  tp_rows {name:8s} {dname}: worst entry at {100 * worst[0]:.0f}% of its "
+                  f"tolerance (max_abs_err {worst[1]:.3e}) over {len(TP_SEEDS)} seeds; kernel "
+                  f"{ms:.4f} ms, the twin's torch ops {plain_ms:.4f} ms (median of 20), bound "
+                  f"{bound_ms:.4f} ms by {bound_by} ({nbytes / 1e6:.1f} MB): "
+                  f"{100 * bound_ms / ms:.1f}%")
+        args, kw = _tp_form(row_inputs(dtype, seed), "K3 begin", dtype)
+        dev_ms = check_route("tp_rows", dname, lambda: fl.tp_rows(*args, **kw), "tp_rows")
+        forms[("K3 begin", dname)]["device_ms"] = dev_ms
+    head = forms[("K3 begin", "bf16")]
+    rows["tp_rows"] = {**{k: head[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                               "bound_by", "device_ms")},
+                       "library_ms": None, "torch_ops_ms": head["plain_ms"],
+                       "forms": {f"{name} {dname}": v for (name, dname), v in forms.items()}}
+
+    print(f"  rank 0's share of K3 / K4 over {TP_WORLD} ranks (D/P {D // TP_WORLD}, F/P "
+          f"{F // TP_WORLD}), the sum over the ranks the identity, against their twins:")
+    for k, chain, plain, rows_k in (("K3", fl.postattn_tp_chain, fl.fused_postattn_tp_plain, m),
+                                    ("K4", fl.mpnet_post_tp_chain, fl.fused_mpnet_post_tp_plain,
+                                     TP_PROMPTS * 64)):
+        for dtype, dname in dts:
+            gen = torch.Generator(device="cuda").manual_seed(seed)
+            ops = _tp_split(k, layer_inputs(k, dtype, gen, rows_k))
+            out, ref = chain(*ops, reduce=lambda t: t), plain(*ops, reduce=lambda t: t)
+            torch.cuda.synchronize()
+            err = compare(f"{k} tp", dname, out, ref, tol=k)
+            del out, ref
+            ms = median_ms(lambda: chain(*ops, reduce=lambda t: t))
+            plain_ms = median_ms(lambda: plain(*ops, reduce=lambda t: t))
+            dev_ms = check_route(f"{k} tp", dname, lambda: chain(*ops, reduce=lambda t: t),
+                                 f"{k} tp")
+            if dname != "bf16":
+                continue
+            dl, fl_ = D // TP_WORLD, F // TP_WORLD
+            a, wo, w1, w2 = ops[1], ops[2], ops[7 if k == "K3" else 6], ops[9 if k == "K3" else 8]
+            hln = torch.randn((rows_k, D), device="cuda").to(dtype)
+            h = torch.randn((rows_k, fl_), device="cuda").to(dtype)
+            cublas = median_ms(lambda: (a @ wo, hln @ w1, h @ w2))
+            e = 2
+            nbytes = (rows_k * D + rows_k * dl + dl * D + D * fl_ + fl_ * D + fl_ + 6 * D
+                      + rows_k * D) * e
+            bound_ms, bound_by = bound_of(2 * rows_k * (dl * D + D * fl_ + fl_ * D), nbytes)
+            rows[f"{k} tp"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                               "device_ms": dev_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                               "library_ms": None, "cublas_products_ms": cublas,
+                               "rows": rows_k}
+            print(f"  {k} tp      {dname}: kernel chain {ms:.4f} ms, twin {plain_ms:.4f} ms "
+                  f"(median of 20), its three products on cuBLAS {cublas:.4f} ms; bound "
+                  f"{bound_ms:.4f} ms by {bound_by}: {100 * bound_ms / ms:.1f}% (rank 0's share, "
+                  f"{rows_k} rows)")
+            del hln, h
+        del ops
+    torch.cuda.empty_cache()
+    return rows
+
+
+def tp_expected(one):
+    """The launches of a call over a model group of two, from the same call's in one
+    process: K3 and K4 row-parallel, the row kernel twice in each, the rest the same."""
+    out = dict(one)
+    out["fused_postattn_tp"], out["fused_postattn"] = one["fused_postattn"], 0
+    out["fused_mpnet_post_tp"], out["fused_mpnet_post"] = one["fused_mpnet_post"], 0
+    out["tp_rows"] = 2 * (one["fused_postattn"] + one["fused_mpnet_post"])
+    return out
+
+
+def tp_rank(argv) -> int:
+    """chip_smoke.py --tp-rank RANK WORLD INIT OUT SEED: a rank of phase 13's model
+    group; its outputs, launches and times go to OUT/rank{RANK}.pt."""
+    r, world, init, out, seed = (int(argv[0]), int(argv[1]), argv[2], Path(argv[3]),
+                                 int(argv[4]))
+    sys.path.insert(0, str(REPO))
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from radzero_torch.eval.serving import cast_params
+    from radzero_torch.models.radzero import compute_logits, forward_train
+    from radzero_torch.ops import _build
+    from radzero_torch.parallel import (
+        all_reduce_sum, init_distributed, mesh_groups, shard_params,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    _build.build()
+    _build.load()
+    t0 = time.perf_counter()
+    init_distributed(backend="gloo", init_method=init, rank=r, world_size=world, timeout_s=600)
+    try:
+        dgroup, tp = mesh_groups(1, world)
+        res = {"init_s": time.perf_counter() - t0}
+        params, tcfg = _flagship(seed)
+        cfg = _serve_cfg()
+        res["params_sha"] = _sha(list(_leaves(params)))
+        shares = {dn: shard_params(cast_params(params, dt, "cuda"), r, world)
+                  for dn, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16))}
+        res["share_bytes"] = sum(t.numel() * t.element_size() for t in _leaves(shares["fp32"]))
+        del params
+        torch.cuda.empty_cache()
+        inp = tp_inputs(seed, cfg.text.vocab_size)
+        total = None
+        with torch.no_grad():
+            for dname, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+                for what in ("logits", "loss"):
+                    reset_counters()
+                    t1 = time.perf_counter()
+                    if what == "logits":
+                        o = compute_logits(shares[dname], cfg, inp["pv"][dname], inp["ids"],
+                                           inp["mask"], dtype=dtype, tp=tp)
+                        got = {"logits": o["logits"], "maps": o["similarity_scores"]}
+                    else:
+                        got = {"loss": forward_train(shares[dname], tcfg, inp["batch"][dname],
+                                                     dtype=dtype, group=dgroup,
+                                                     tp=tp)["losses"]["loss"].reshape(1)}
+                    torch.cuda.synchronize()
+                    res[f"{what}_s_{dname}"] = time.perf_counter() - t1
+                    launches = read_counters()
+                    res[f"launches_{what}_{dname}"] = launches
+                    total = launches if total is None else {
+                        k: total[k] + v for k, v in launches.items()}
+                    res.update({f"{k}_{dname}": v.float().cpu() for k, v in got.items()})
+            res["launches"] = total
+            for attempt in range(6):  # both ranks profile until rank 0's session recorded
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    time.sleep(0.05 * 2 ** attempt)  # pads, as device_kernels sets them
+                    compute_logits(shares["bf16"], cfg, inp["pv"]["bf16"], inp["ids"],
+                                   inp["mask"], dtype=torch.bfloat16, tp=tp)
+                    torch.cuda.synchronize()
+                    time.sleep(0.05 * 2 ** attempt)
+                res["device_kernels"] = sorted({e.key for e in prof.key_averages()
+                                                if e.device_type == DeviceType.CUDA})
+                again = torch.tensor([int(r == 0 and not res["device_kernels"])])
+                torch.distributed.all_reduce(again)
+                if not again.item():
+                    break
+            part = torch.randn((B * L, D), device="cuda")  # the tower's fp32 partial product
+            all_reduce_sum(part, tp)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            for _ in range(5):
+                all_reduce_sum(part, tp)
+            torch.cuda.synchronize()
+            res["all_reduce_ms"] = (time.perf_counter() - t1) / 5 * 1e3
+        torch.save(res, out / f"rank{r}.pt")
+    finally:
+        torch.distributed.destroy_process_group()
+    return 0
+
+
+def _tp_bf16_share(tp16, one16, one32, slack=0.0):
+    """-> (the group's bf16 miss, one process's own, the share of the gate used):
+    max |tp16 - one32| against TP_BF16_FACTOR max |one16 - one32| + slack max |one32|."""
+    miss = (tp16 - one32).abs().max().item()
+    own = (one16 - one32).abs().max().item()
+    limit = TP_BF16_FACTOR * own + slack * one32.abs().max().item()
+    return miss, own, miss / limit if limit > 0 else (0.0 if miss == 0 else math.inf)
+
+
+def phase_tensor_parallel(seed, card):
+    """13, the model axis (see the module docstring). -> (rank 0's launches over the
+    phase's four calls, the rows of the row kernel and of K3 / K4 over the group)."""
+    import os
+    import signal
+    import tempfile
+
+    import torch
+    from radzero_torch.eval.serving import cast_params
+    from radzero_torch.models.radzero import compute_logits, forward_train
+    from radzero_torch.parallel import init_distributed, mesh_groups
+
+    t_phase = time.perf_counter()
+    rows = tp_kernel_rows(seed)
+    dts = (("fp32", torch.float32), ("bf16", torch.bfloat16))
+
+    # 13b: one process, then a model group of one under NCCL
+    print(f"tensor parallel (phase 13), b: one process, the flagship at full depth: "
+          f"compute_logits ({TP_IMAGES} images x {TP_PROMPTS} prompts) and forward_train's "
+          f"loss ({TP_IMAGES} x {TP_SENTENCES} sentences), fp32 and bf16")
+    params, tcfg = _flagship(seed)
+    cfg = _serve_cfg()
+    sha = _sha(list(_leaves(params)))
+    trees = {dn: cast_params(params, dt, "cuda") for dn, dt in dts}
+    inp = tp_inputs(seed, cfg.text.vocab_size)
+
+    def run(dname, tp=None):
+        dtype = dict(dts)[dname]
+        o = compute_logits(trees[dname], cfg, inp["pv"][dname], inp["ids"], inp["mask"],
+                           dtype=dtype, tp=tp)
+        launches_logits = read_counters()
+        loss = forward_train(trees[dname], tcfg, inp["batch"][dname], dtype=dtype,
+                             tp=tp)["losses"]["loss"]
+        return {"logits": o["logits"].float(), "maps": o["similarity_scores"].float(),
+                "loss": loss.float().reshape(1)}, launches_logits
+
+    one, one_launches = {}, {}
+    with torch.no_grad():
+        for dname, _ in dts:
+            reset_counters()
+            got, launches_logits = run(dname)
+            torch.cuda.synchronize()
+            one_launches[("logits", dname)] = launches_logits
+            one_launches[("loss", dname)] = {k: v - launches_logits[k]
+                                             for k, v in read_counters().items()}
+            one.update({(k, dname): v for k, v in got.items()})
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp:
+            init_distributed(backend="nccl", init_method=f"file://{tmp}/nccl_store", rank=0,
+                             world_size=1, timeout_s=300)
+            try:
+                _, tp1 = mesh_groups(1, 1)
+                same = {dname: all(torch.equal(v, one[(k, dname)])
+                                   for k, v in run(dname, tp1)[0].items()) for dname, _ in dts}
+            finally:
+                torch.distributed.destroy_process_group()
+    if not all(same.values()):
+        fail(f"tensor parallel: a model group of one under NCCL differs from no group: {same}")
+    print(f"  a model group of one under NCCL (mesh_groups(1, 1)): logits, maps and loss "
+          f"bit-equal to no group in fp32 and bf16; {time.perf_counter() - t0:.1f} s")
+    del trees, params
+    torch.cuda.empty_cache()
+
+    # 13c: two ranks on the card under gloo, {data: 1, model: 2}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+        env["PYTHONPATH"] = str(REPO)
+        procs = [subprocess.Popen(
+            [sys.executable, str(REPO / "chip_smoke.py"), "--tp-rank", str(r), str(TP_WORLD),
+             f"file://{tmp / 'gloo_store'}", str(tmp), str(seed)], cwd=str(REPO), env=env,
+            stdout=open(tmp / f"rank{r}.log", "w"), stderr=subprocess.STDOUT,
+            start_new_session=True) for r in range(TP_WORLD)]
+        deadline = time.monotonic() + 600
+        try:
+            for p in procs:
+                p.wait(timeout=max(deadline - time.monotonic(), 1.0))
+        except subprocess.TimeoutExpired:
+            pass
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    os.killpg(p.pid, signal.SIGKILL)
+                    p.wait()
+        codes = [p.returncode for p in procs]
+        if any(codes):
+            for r in range(TP_WORLD):
+                print(f"--- rank {r} (exit {codes[r]}) ---\n"
+                      f"{(tmp / f'rank{r}.log').read_text()[-6000:]}", file=sys.stderr)
+            fail(f"tensor parallel: the ranks exited {codes}")
+        res = [torch.load(tmp / f"rank{r}.pt", weights_only=False) for r in range(TP_WORLD)]
+    ranks_s = time.perf_counter() - t0
+    print(f"tensor parallel (phase 13), c: {TP_WORLD} processes on ONE card under gloo, "
+          f"mesh_groups(1, {TP_WORLD}) ({{data: 1, model: {TP_WORLD}}}), each with its share "
+          f"({res[0]['share_bytes'] / 2**30:.2f} GiB of fp32 weights); init "
+          f"{res[0]['init_s']:.1f} s")
+    if any(x["params_sha"] != sha for x in res):
+        fail("tensor parallel: a rank's weights from the seed are not this process's")
+    keys = [(k, dname) for dname, _ in dts for k in ("logits", "maps", "loss")]
+    for r, x in enumerate(res[1:], 1):
+        if not all(torch.equal(x[f"{k}_{dname}"], res[0][f"{k}_{dname}"]) for k, dname in keys):
+            fail(f"tensor parallel: rank {r}'s outputs differ from rank 0's")
+    gate = tp_fp32_gate(cfg)
+    for k in ("logits", "maps", "loss"):
+        got, ref = res[0][f"{k}_fp32"], one[(k, "fp32")].cpu()
+        if got.shape != ref.shape or not torch.isfinite(got).all():
+            fail(f"tensor parallel: fp32 {k} {tuple(got.shape)} against {tuple(ref.shape)}, "
+                 "or not finite")
+        miss = (got - ref).abs().max().item()
+        share = miss / (gate * ref.abs().max().item())
+        print(f"  fp32 {k:6s} over the group against one process: max miss {miss:.3e}, "
+              f"{100 * share:.1f}% of the gate ({gate:.3e} of max |ref| "
+              f"{ref.abs().max().item():.3g}; tp_fp32_gate) "
+              f"{'ok' if share <= 1 else 'FAIL'}")
+        if share > 1:
+            fail(f"tensor parallel: fp32 {k} misses one process by {miss:.3e}")
+    for k in ("logits", "maps", "loss"):
+        miss, own, share = _tp_bf16_share(res[0][f"{k}_bf16"], one[(k, "bf16")].cpu(),
+                                          one[(k, "fp32")].cpu(),
+                                          TP_LOSS_SLACK if k == "loss" else 0.0)
+        print(f"  bf16 {k:6s} over the group against one process's fp32: max miss {miss:.3e}, "
+              f"one process's own bf16 miss {own:.3e}: {100 * share:.1f}% of the gate "
+              f"({TP_BF16_FACTOR:g}x{' + 2^-8 of the loss' if k == 'loss' else ''}) "
+              f"{'ok' if share <= 1 else 'FAIL'}")
+        if share > 1:
+            fail(f"tensor parallel: bf16 {k} misses by {miss:.3e} against {own:.3e}")
+    for dname, _ in dts:
+        for what in ("logits", "loss"):
+            want = tp_expected(one_launches[(what, dname)])
+            for r, x in enumerate(res):
+                if x[f"launches_{what}_{dname}"] != want:
+                    fail(f"tensor parallel: rank {r}'s {what} {dname} launched "
+                         f"{x[f'launches_{what}_{dname}']}, expected {want}")
+    w = tp_expected(one_launches[("logits", "bf16")])
+    print(f"  launches a rank, each call as expected from one process's: compute_logits "
+          f"K1 {w['fused_preattn']}, K2 {w['flash_attention_packed']}, K3 over the group "
+          f"{w['fused_postattn_tp']}, K4 over the group {w['fused_mpnet_post_tp']}, the row "
+          f"kernel {w['tp_rows']}, K5 {w['vlcabs_fused']}; the loss as its one-process call with "
+          f"K3 / K4 over the group")
+    ran = res[0]["device_kernels"]
+    if not ran:
+        fail("tensor parallel: torch.profiler recorded no device kernel of rank 0's bf16 "
+             "compute_logits in six sessions")
+    want = (TP_ROWS, _sm90(8, 0), _sm90(2, 0), _sm90(0, 0), HOPPER_FWD, LN_PASS)
+    missing = [k for k in want if not any(k in name for name in ran)]
+    banned = [name for name in ran if "gemm_f32_kernel" in name
+              or any(_sm90(e, 0) in name for e in (1, 3, 4, 5))]
+    if missing or banned:
+        fail(f"tensor parallel: bf16 compute_logits over the group ran {ran}: missing "
+             f"{missing}, not expected {banned}")
+    print(f"  the device kernels of one bf16 compute_logits on rank 0: {len(ran)} names, "
+          f"among them {', '.join(want)}; no gemm_f32_kernel and no epilogue of the unsplit K3 "
+          f"or K4 (<1, 0>, <3, 0>, <4, 0>, <5, 0>)")
+    for dname, _ in dts:
+        print(f"  {dname}: compute_logits {res[0][f'logits_s_{dname}']:.2f} / "
+              f"{res[1][f'logits_s_{dname}']:.2f} s, the loss {res[0][f'loss_s_{dname}']:.2f} / "
+              f"{res[1][f'loss_s_{dname}']:.2f} s on ranks 0 / 1 (gloo through the host; "
+              "nothing claimed)")
+    print(f"  gloo all_reduce_sum of the tower's fp32 partial ({B * L} x {D}, "
+          f"{B * L * D * 4 / 1e6:.1f} MB) through the host: {res[0]['all_reduce_ms']:.1f} ms "
+          f"(rank 0, mean of 5), {2 * (cfg.vision.num_hidden_layers + cfg.align.num_hidden_layers)}"
+          f" a tower pass; one card, no interconnect measured, nothing claimed")
+    print(f"  phase 13 (tensor parallel) {time.perf_counter() - t_phase:.1f} s (ranks "
+          f"{ranks_s:.1f} s) on {card}")
+    return res[0]["launches"], rows
+
+
 def _clone(tree):
     if isinstance(tree, dict):
         return {k: _clone(v) for k, v in tree.items()}
@@ -5522,6 +6043,8 @@ def main() -> int:
         return cold_probe(sys.argv[2:])
     if sys.argv[1:2] == ["--dist-rank"]:
         return dist_rank(sys.argv[2:])
+    if sys.argv[1:2] == ["--tp-rank"]:
+        return tp_rank(sys.argv[2:])
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
@@ -5577,6 +6100,7 @@ def main() -> int:
     viz = phase_viz(args.seed, card, cli_checkpoint)
     distributed = phase_distributed(args.seed, card, params, training, history, torchrun_leg)
     alt, alt_rows = phase_encoders(args.seed, card)
+    tensor_parallel, tp_rows_ = phase_tensor_parallel(args.seed, card)
 
     meta = {
         "K1": ("fused_preattn", "radzero_torch/ops/csrc/gemm_sm90.cu",
@@ -5617,9 +6141,11 @@ def main() -> int:
     # flash training step's, one remat step's (align "save_attn"), one trainer step's,
     # the converted checkpoint's 4 requests, the in-process training CLI run's, the
     # in-process visualization CLI runs', one distributed training step's on one rank
-    # of phase 11's leg B, and phase 12's: SAM's serving batch (leg A), the BiomedCLIP +
-    # BERT scorer run (leg B) and the SAM-tower training step (leg D); each path was
-    # driven with every count at 0 and read right after
+    # of phase 11's leg B, phase 12's: SAM's serving batch (leg A), the BiomedCLIP +
+    # BERT scorer run (leg B) and the SAM-tower training step (leg D), and phase 13's
+    # four calls over the model group on rank 0 (compute_logits and forward_train's
+    # loss in fp32 and bf16); each path was driven with every count at 0 and read right
+    # after
     from radzero_torch.ops import registry
 
     kernels = [
@@ -5628,7 +6154,7 @@ def main() -> int:
          "launches": serving[name] + server[name] + exported[name] + scoring[name]
          + evaluation[name] + training[name] + flash_step[name] + remat_step[name]
          + trainer_step[name] + checkpoint[name] + cli[name] + viz[name] + distributed[name]
-         + sum(a[name] for a in alt.values()),
+         + sum(a[name] for a in alt.values()) + tensor_parallel[name],
          "launches_serving": serving[name], "launches_server": server[name],
          "launches_export": exported[name], "launches_scorer": scoring[name],
          "launches_eval": evaluation[name],
@@ -5639,6 +6165,7 @@ def main() -> int:
          "launches_checkpoint": checkpoint[name], "launches_cli": cli[name],
          "launches_viz": viz[name], "launches_distributed_step": distributed[name],
          **{f"launches_{path}": a[name] for path, a in alt.items()},
+         "launches_tensor_parallel": tensor_parallel[name],
          **rows[k]}
         for k, (name, src, rep) in meta.items()
     ]
@@ -5649,6 +6176,19 @@ def main() -> int:
             kern["alt_shapes"] = shapes
     k11 = next(k for k in kernels if k["name"] == "vlcabs_train_bwd_dq")
     k11["backward_k11_k12"] = rows["K11+K12"]  # vlcabs_train_bwd: K11 and K12 at once
+    # phase 13's kernels: K3 and K4 row-parallel over the model group (the JAX rules'
+    # split of fused_layer.py:913 and :760), whose chains end each all-reduce with the
+    # row kernel; their launches are rank 0's over the phase's four calls
+    for name, key, src, rep in (
+            ("fused_postattn_tp", "K3 tp", "radzero_torch/ops/csrc/gemm_sm90.cu",
+             "radzero_tpu/ops/fused_layer.py:913"),
+            ("fused_mpnet_post_tp", "K4 tp", "radzero_torch/ops/csrc/gemm_sm90.cu",
+             "radzero_tpu/ops/fused_layer.py:760"),
+            ("tp_rows", "tp_rows", "radzero_torch/ops/csrc/tp_rows.cu",
+             "radzero_tpu/ops/fused_layer.py:913")):
+        kernels.append({"name": name, "route": "cuda", "source": src, "replaces": rep,
+                        "registered_op": None, "launches": tensor_parallel[name],
+                        "launches_tensor_parallel": tensor_parallel[name], **tp_rows_[key]})
     idle = [k["name"] for k in kernels if k["launches"] == 0]
     if idle:
         fail(f"kernels never launched on a main path: {idle}")

@@ -10,6 +10,12 @@ runs under ``AlignConfig.remat_policy`` (``models/vit.py`` ``vit_encoder``);
 -> D (align_transformers.py:65-83, dropout inactive at eval). The last two
 are plain ``linear`` products, as in the JAX package, which runs them
 outside any Pallas kernel; their kernels are (d_in, d_out).
+
+``tp`` (a model group; the parameters this rank's share under
+``parallel/tensor_parallel.py``'s rules) runs ``align_transformer``'s layers
+row-parallel (``models/vit.py``), and ``mlp``'s fc1 / fc2 as the JAX rules
+split them: fc1 column-parallel, fc2 row-parallel with one all-reduce.
+``linear`` and ``identity`` hold no split weight. Forward only.
 """
 
 from __future__ import annotations
@@ -18,7 +24,8 @@ import torch
 
 from radzero_torch.models.configuration import AlignConfig
 from radzero_torch.models.vit import _init_linear, init_vit_layers, vit_encoder
-from radzero_torch.ops.layers import layer_norm, linear
+from radzero_torch.ops.layers import layer_norm, linear, row_linear
+from radzero_torch.parallel.tensor_parallel import active
 
 MLP_HIDDEN = 1024
 
@@ -31,10 +38,11 @@ def _align_transformer_init(g: torch.Generator, cfg: AlignConfig) -> dict:
     return params
 
 
-def _align_transformer_apply(params, cfg: AlignConfig, tokens, *, impl="fused", remat=False):
+def _align_transformer_apply(params, cfg: AlignConfig, tokens, *, impl="fused", remat=False,
+                             tp=None):
     if cfg.remat is not None:
         remat = cfg.remat
-    tokens = vit_encoder(params["layers"], cfg.as_vit(), tokens, impl=impl, remat=remat)
+    tokens = vit_encoder(params["layers"], cfg.as_vit(), tokens, impl=impl, remat=remat, tp=tp)
     if cfg.use_layer_norm:
         tokens = layer_norm(tokens, params["layer_norm"], cfg.layer_norm_eps)
     return tokens
@@ -44,7 +52,7 @@ def _identity_init(g, cfg) -> dict:
     return {}
 
 
-def _identity_apply(params, cfg, tokens, *, impl="fused", remat=False):
+def _identity_apply(params, cfg, tokens, *, impl="fused", remat=False, tp=None):
     return tokens
 
 
@@ -52,7 +60,7 @@ def _linear_init(g, cfg: AlignConfig) -> dict:
     return {"linear": _init_linear(g, cfg.hidden_size, cfg.hidden_size)}
 
 
-def _linear_apply(params, cfg, tokens, *, impl="fused", remat=False):
+def _linear_apply(params, cfg, tokens, *, impl="fused", remat=False, tp=None):
     return linear(tokens, params["linear"])
 
 
@@ -62,10 +70,11 @@ def _mlp_init(g, cfg: AlignConfig) -> dict:
     return {f"fc{i}": _init_linear(g, dims[i], dims[i + 1]) for i in range(4)}
 
 
-def _mlp_apply(params, cfg, tokens, *, impl="fused", remat=False):
+def _mlp_apply(params, cfg, tokens, *, impl="fused", remat=False, tp=None):
+    tp = active(tp)
     x = tokens
-    for i in range(3):
-        x = torch.relu(linear(x, params[f"fc{i}"]))
+    for i in range(3):  # fc1's columns and fc2's rows split over tp
+        x = torch.relu(row_linear(x, params[f"fc{i}"], tp if i == 2 else None))
     return linear(x, params["fc3"])
 
 
@@ -78,9 +87,9 @@ _ADAPTERS = {
 
 
 def build_align_adapter(model_type: str):
-    """-> (init(generator, cfg), apply(params, cfg, tokens, *, impl, remat));
+    """-> (init(generator, cfg), apply(params, cfg, tokens, *, impl, remat, tp));
     ``impl`` and ``remat`` are read by ``align_transformer`` and ignored by
-    the others."""
+    the others; ``tp`` by ``align_transformer`` and ``mlp``."""
     if model_type not in _ADAPTERS:
         raise ValueError(f"unknown align adapter {model_type!r}; expected one of "
                          f"{sorted(_ADAPTERS)}")

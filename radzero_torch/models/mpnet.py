@@ -27,6 +27,15 @@ the layer's input alone, and the backward runs the layer's forward again
 (K4, and K15 under ``attn_impl="flash"``) before its own backward. The
 bucket table, the bias ``rel`` and the key mask are made once, outside the
 checkpointed layers.
+
+``mpnet_forward(..., tp=)`` runs over a model group, with the parameters
+this rank's share (``parallel/tensor_parallel.py``): the attention on the
+rank's heads (q / k / v column-parallel, ``rel`` cut to those heads), the
+post-attention chain row-parallel (K4's
+:func:`radzero_torch.ops.fused_layer.fused_mpnet_post_tp`, or the eager
+chain with :func:`radzero_torch.ops.layers.row_linear`), and a split
+embedding table looked up where the rank holds the id, then all-reduced.
+Forward only: under gradients it raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -41,15 +50,21 @@ from torch.utils.checkpoint import checkpoint
 
 from radzero_torch.models.configuration import TextConfig
 from radzero_torch.ops.flash_attention import flash_attention_bias
-from radzero_torch.ops.fused_layer import fused_mpnet_post
+from radzero_torch.ops.fused_layer import fused_mpnet_post, fused_mpnet_post_tp
 from radzero_torch.ops.layers import (
     attention,
     gelu,
     layer_norm,
     linear,
     merge_heads,
+    row_linear,
     split_heads,
 )
+from radzero_torch.parallel.collectives import all_reduce_sum
+from radzero_torch.parallel.tensor_parallel import (
+    active, local_heads, refuse_grad, tp_rank, tp_size,
+)
+from radzero_torch.train.optim import tree_leaves
 
 
 @functools.lru_cache(maxsize=64)
@@ -139,10 +154,11 @@ def create_position_ids(input_ids: torch.Tensor, padding_idx: int) -> torch.Tens
     return torch.cumsum(mask, dim=1) * mask + padding_idx
 
 
-def mpnet_layer(x, p, rel, neg, cfg: TextConfig):
-    """``rel``: (H, L, L) fp32 relative-position bias shared by the batch;
-    ``neg``: (S, L) additive key mask (0 real / -big pad)."""
-    h = cfg.num_attention_heads
+def mpnet_layer(x, p, rel, neg, cfg: TextConfig, tp=None):
+    """``rel``: (H, L, L) fp32 relative-position bias shared by the batch (over
+    a model group ``tp``, this rank's heads' rows); ``neg``: (S, L) additive
+    key mask (0 real / -big pad)."""
+    h = rel.shape[0]
     q, k, v = (split_heads(linear(x, p["attn"][n]), h) for n in ("q", "k", "v"))
     if cfg.attn_impl == "flash":
         a = merge_heads(flash_attention_bias(q, k, v, rel, neg, cfg.head_dim**-0.5))
@@ -152,34 +168,59 @@ def mpnet_layer(x, p, rel, neg, cfg: TextConfig):
     if cfg.fuse_post:
         s, l, d = x.shape
         cdt = x.dtype
-        out = fused_mpnet_post(
-            x.reshape(s * l, d).contiguous(), a.reshape(s * l, d).contiguous(),
+        ops = (
+            x.reshape(s * l, d).contiguous(), a.reshape(s * l, -1).contiguous(),
             p["attn"]["o"]["kernel"].to(cdt), p["attn"]["o"]["bias"].to(cdt),
             p["ln_attn"]["scale"].to(cdt), p["ln_attn"]["bias"].to(cdt),
             p["mlp"]["fc1"]["kernel"].to(cdt), p["mlp"]["fc1"]["bias"].to(cdt),
             p["mlp"]["fc2"]["kernel"].to(cdt), p["mlp"]["fc2"]["bias"].to(cdt),
             p["ln_out"]["scale"].to(cdt), p["ln_out"]["bias"].to(cdt),
-            eps=cfg.layer_norm_eps,
         )
+        if tp is None:
+            out = fused_mpnet_post(*ops, eps=cfg.layer_norm_eps)
+        else:
+            out = fused_mpnet_post_tp(*ops, tp=tp, eps=cfg.layer_norm_eps)
         return out.reshape(s, l, d)
-    a = linear(a, p["attn"]["o"])
+    a = row_linear(a, p["attn"]["o"], tp)
     x = layer_norm(x + a, p["ln_attn"], cfg.layer_norm_eps)
-    m = linear(gelu(linear(x, p["mlp"]["fc1"])), p["mlp"]["fc2"])
+    m = row_linear(gelu(linear(x, p["mlp"]["fc1"])), p["mlp"]["fc2"], tp)
     return layer_norm(x + m, p["ln_out"], cfg.layer_norm_eps)
 
 
+def embed_rows(table, ids, rows: int, tp=None):
+    """``table[ids]`` of a table of ``rows`` rows that is whole on this rank,
+    or split on its rows over the model group ``tp`` (a shorter ``table``):
+    each rank looks up the ids it holds, zero rows elsewhere, and an
+    all-reduce adds the ranks' rows, which gives the rows' own bits."""
+    if tp is None or table.shape[0] == rows:
+        return table[ids]
+    n = table.shape[0]
+    local = ids - tp_rank(tp) * n
+    held = (local >= 0) & (local < n)
+    found = table[local.clamp(0, n - 1)]
+    return all_reduce_sum(torch.where(held[..., None], found, torch.zeros_like(found)), tp)
+
+
 def mpnet_forward(params: dict, cfg: TextConfig, input_ids, attention_mask, *,
-                  dtype=torch.float32, remat: bool = False) -> torch.Tensor:
+                  dtype=torch.float32, remat: bool = False, tp=None) -> torch.Tensor:
     """(S, L) int ids + (S, L) mask -> (S, L, D) last hidden state; ``remat``
-    reruns each layer in the backward (read only with gradients on)."""
+    reruns each layer in the backward (read only with gradients on); ``tp``,
+    a model group, runs the layers over it (see the module docstring)."""
+    tp = active(tp)
+    if tp is not None:
+        refuse_grad("MPNet over a model group", *tree_leaves(params))
     emb = params["embeddings"]
     pos_ids = create_position_ids(input_ids, cfg.pad_token_id)
-    x = emb["word"][input_ids] + emb["position"][pos_ids]
+    x = (embed_rows(emb["word"], input_ids, cfg.vocab_size, tp)
+         + embed_rows(emb["position"], pos_ids, cfg.max_position_embeddings, tp))
     x = layer_norm(x.to(dtype), emb["ln"], cfg.layer_norm_eps)
 
     buckets = bucket_ids(input_ids.shape[1], cfg.relative_attention_num_buckets,
                          input_ids.device)
     rel = params["rel_bias"].float()[buckets].permute(2, 0, 1)  # (H, L, L)
+    if tp is not None:  # this rank's heads
+        h = local_heads(cfg.num_attention_heads, tp_size(tp))
+        rel = rel[tp_rank(tp) * h:(tp_rank(tp) + 1) * h]
     if dtype != torch.float32:
         rel = rel.to(dtype).float()
 
@@ -189,10 +230,10 @@ def mpnet_forward(params: dict, cfg: TextConfig, input_ids, attention_mask, *,
     remat = remat and torch.is_grad_enabled()
     for p in params["layers"]:
         if remat:
-            x = checkpoint(mpnet_layer, x, p, rel, neg, cfg, use_reentrant=False,
+            x = checkpoint(mpnet_layer, x, p, rel, neg, cfg, tp, use_reentrant=False,
                            preserve_rng_state=False)
         else:
-            x = mpnet_layer(x, p, rel, neg, cfg)
+            x = mpnet_layer(x, p, rel, neg, cfg, tp)
     return x
 
 

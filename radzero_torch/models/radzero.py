@@ -24,6 +24,17 @@ trainable tower, of the align layers and of MPNet in the backward, with
 ``AlignConfig.remat`` / ``TextConfig.remat`` overriding it where they are
 not None and the DINOv2 layers under their ``remat_policy``
 (``models/vit.py``); a frozen tower keeps no tape either way.
+
+``tp=`` (a model group, :func:`radzero_torch.parallel.dist.mesh_groups`)
+runs :func:`compute_logits` and :func:`forward_train`'s forward over it, with
+``params`` this rank's share
+(:func:`radzero_torch.parallel.tensor_parallel.shard_params`): the DINOv2
+tower, the align layers and MPNet split by heads and MLP columns, K3 and K4
+row-parallel; VL-CABS, the loss heads and the LayerNorms run replicated on
+every rank of the group, and every rank returns the same outputs. ``group=``
+keeps its meaning, the data group. Forward only: under gradients, and with
+an alternate tower, a group of more than one rank raises
+NotImplementedError. A group of one runs today's path, bit for bit.
 """
 
 from __future__ import annotations
@@ -52,6 +63,7 @@ from radzero_torch.models.mpnet import masked_mean_pool, mpnet_forward
 from radzero_torch.models.vit import layer_impl, vit_forward
 from radzero_torch.ops.layers import l2_normalize, linear
 from radzero_torch.parallel.collectives import all_gather_rows
+from radzero_torch.parallel.tensor_parallel import FORWARD_ONLY, active
 
 
 def init_radzero(g: torch.Generator, cfg: RadZeroConfig,
@@ -97,7 +109,7 @@ def forward_vision(params: dict, cfg: RadZeroConfig, pixel_values: Optional[torc
                    align_impl: Optional[str] = None,
                    stop_tower_gradient: bool = False,
                    tower_tokens: Optional[torch.Tensor] = None,
-                   remat: bool = False) -> Dict[str, torch.Tensor]:
+                   remat: bool = False, tp=None) -> Dict[str, torch.Tensor]:
     """Tower + align adapter + pooled image features, (B, H, W, 3) NHWC.
 
     The tower dispatches on ``cfg.vision.model_type`` through the encoder
@@ -117,11 +129,15 @@ def forward_vision(params: dict, cfg: RadZeroConfig, pixel_values: Optional[torc
     (B, L, D), a precomputed tower output at the real length L, skips the
     tower. ``remat`` reruns parts of a trainable tower and of the
     align layers in the backward (see :func:`radzero_torch.models.vit.
-    vit_encoder`)."""
+    vit_encoder`). ``tp``: the model group (see the module docstring)."""
     def impl_of(attn_impl):
         return "eager" if eager else "fused" if fused_towers else layer_impl(attn_impl)
 
+    tp = active(tp)
     model_type = getattr(cfg.vision, "model_type", "dinov2")
+    if tp is not None and tower_tokens is None and model_type not in ("dinov2", "raddino"):
+        raise NotImplementedError(f"vision model_type {model_type!r} over a model group: "
+                                  f"{FORWARD_ONLY}")
     if tower_tokens is not None:
         tokens = tower_tokens.to(dtype)
     else:
@@ -129,14 +145,14 @@ def forward_vision(params: dict, cfg: RadZeroConfig, pixel_values: Optional[torc
             if model_type in ("dinov2", "raddino"):
                 tokens = vit_forward(params["vision_model"], cfg.vision, pixel_values,
                                      dtype=dtype, impl=impl_of(cfg.vision.attn_impl),
-                                     remat=remat)
+                                     remat=remat, tp=tp)
             else:
                 _, vision_apply = build_vision_encoder(model_type)
                 tokens = vision_apply(params["vision_model"], cfg.vision, pixel_values,
                                       dtype=dtype)
     _, align_apply = build_align_adapter(cfg.align.model_type)
     tokens = align_apply(params["align_transformer"], cfg.align, tokens,
-                         impl=align_impl or impl_of(cfg.align.attn_impl), remat=remat)
+                         impl=align_impl or impl_of(cfg.align.attn_impl), remat=remat, tp=tp)
     cls_token, patch_tokens = tokens[:, 0], tokens[:, 1:]
     image_features = l2_normalize(torch.cat([cls_token, patch_tokens.mean(dim=1)], dim=-1))
     return {
@@ -148,7 +164,7 @@ def forward_vision(params: dict, cfg: RadZeroConfig, pixel_values: Optional[torc
 
 
 def forward_text(params: dict, cfg: RadZeroConfig, input_ids, attention_mask, *,
-                 dtype=torch.float32, remat: bool = False) -> Dict[str, torch.Tensor]:
+                 dtype=torch.float32, remat: bool = False, tp=None) -> Dict[str, torch.Tensor]:
     """Text tower + optional projector + pooling, by ``cfg.text.model_type``
     (radzero_tpu/models/radzero.py:194-245): MPNet (``remat``, or
     ``cfg.text.remat`` in its place when not None, reruns each layer in the
@@ -157,13 +173,18 @@ def forward_text(params: dict, cfg: RadZeroConfig, input_ids, attention_mask, *,
     biomedclip) with the projector on the pooled features (ref
     modeling.py:202-203). Any other type, the CLIP text towers included,
     raises NotImplementedError, as the JAX composite does
-    (radzero_tpu/models/radzero.py:240-241)."""
+    (radzero_tpu/models/radzero.py:240-241). ``tp``: the model group, MPNet
+    only (see the module docstring)."""
+    tp = active(tp)
     text_type = getattr(cfg.text, "model_type", "mpnet")
+    if tp is not None and text_type != "mpnet":
+        raise NotImplementedError(f"text model_type {text_type!r} over a model group: "
+                                  f"{FORWARD_ONLY}")
     if cfg.text.remat is not None:
         remat = cfg.text.remat
     if text_type == "mpnet":
         hidden = mpnet_forward(params["text_model"], cfg.text, input_ids, attention_mask,
-                               dtype=dtype, remat=remat)
+                               dtype=dtype, remat=remat, tp=tp)
         if cfg.text.use_text_projection:
             hidden = linear(hidden, params["text_projector"])
         if cfg.text.use_cls_token:
@@ -197,9 +218,12 @@ def forward_train(
     remat: bool = False,
     stop_vision_gradient: bool = False,
     group=None,
+    tp=None,
 ) -> Dict[str, torch.Tensor]:
     """One training forward over the flattened global batch, or, with
-    ``group`` (a process group), over this rank's share of it.
+    ``group`` (a process group), over this rank's share of it; with ``tp``
+    (a model group; forward only, so call it without gradients) over the
+    model axis as well, ``params`` this rank's share.
 
     batch keys:
         pixel_values          (B, H, W, 3), or ``tower_tokens`` (B, L, D), a
@@ -246,14 +270,14 @@ def forward_train(
         params, cfg, batch.get("pixel_values"), dtype=dtype,
         align_impl=layer_impl(cfg.align.attn_impl),
         stop_tower_gradient=stop_vision_gradient, tower_tokens=batch.get("tower_tokens"),
-        remat=remat)
+        remat=remat, tp=tp)
 
     losses: Dict[str, torch.Tensor] = {}
     total = torch.zeros((), dtype=torch.float32, device=vision["vision_tokens"].device)
     for name, lparams in params["loss_fns"].items():
         if name == "RadZeroLoss":
             text = forward_text(params, cfg, batch["input_ids"], batch["attention_mask"],
-                                dtype=dtype, remat=remat)
+                                dtype=dtype, remat=remat, tp=tp)
             if "row_gather" in batch:
                 if group is not None:  # the loader's indices point into every rank's block
                     text = {k: all_gather_rows(v, group) for k, v in text.items()}
@@ -267,7 +291,7 @@ def forward_train(
             losses["radzero_loss"] = loop_loss = out["losses"]["loss"]
         elif name in ("OpenClipLoss", "OpenSigLipLoss"):
             text = forward_text(params, cfg, batch["random_input_ids"],
-                                batch["random_attention_mask"], dtype=dtype, remat=remat)
+                                batch["random_attention_mask"], dtype=dtype, remat=remat, tp=tp)
             fn, key = ((clip_loss, "clip_loss") if name == "OpenClipLoss"
                        else (siglip_loss, "siglip_loss"))
             losses[key] = loop_loss = fn(lparams, vision["image_features"],
@@ -289,6 +313,7 @@ def compute_logits(
     dtype=torch.float32,
     eager: bool = False,
     fused_towers: bool = True,
+    tp=None,
 ) -> Dict[str, torch.Tensor]:
     """Zero-shot scoring, ``radzero`` branch:
 
@@ -303,13 +328,16 @@ def compute_logits(
     layers and VL-CABS, for checking the kernels on the card.
 
     ``cfg.compute_logits_type`` "cls_alignment" / "global_alignment" run
-    the same towers and no VL-CABS (:func:`_compute_logits_alignment`)."""
+    the same towers and no VL-CABS (:func:`_compute_logits_alignment`).
+    ``tp``: a model group, ``params`` this rank's share (see the module
+    docstring); every rank of the group returns the same outputs."""
     if cfg.compute_logits_type != "radzero":
         return _compute_logits_alignment(params, cfg, pixel_values, input_ids, attention_mask,
-                                         dtype=dtype, eager=eager, fused_towers=fused_towers)
+                                         dtype=dtype, eager=eager, fused_towers=fused_towers,
+                                         tp=tp)
     vision = forward_vision(params, cfg, pixel_values, dtype=dtype, eager=eager,
-                            fused_towers=fused_towers)
-    text = forward_text(params, cfg, input_ids, attention_mask, dtype=dtype)
+                            fused_towers=fused_towers, tp=tp)
+    text = forward_text(params, cfg, input_ids, attention_mask, dtype=dtype, tp=tp)
     lparams = params["loss_fns"]["RadZeroLoss"]
     out = radzero_similarity(
         lparams, cfg.loss, text["text_features_wo_l2_norm"], text["text_features"],
@@ -323,7 +351,7 @@ def compute_logits(
 
 
 def _compute_logits_alignment(params, cfg, pixel_values, input_ids, attention_mask, *,
-                              dtype, eager, fused_towers):
+                              dtype, eager, fused_towers, tp=None):
     """The alternates of modeling.py:330-353, as radzero_tpu's:
 
     - ``cls_alignment``: logits (B, N) = CLS token . text features, no maps;
@@ -332,9 +360,9 @@ def _compute_logits_alignment(params, cfg, pixel_values, input_ids, attention_ma
       patch tokens . the text features' second half, so the text tower
       needs ``use_text_projection`` (width 2 x hidden)."""
     vision = forward_vision(params, cfg, pixel_values, dtype=dtype, eager=eager,
-                            fused_towers=fused_towers)
+                            fused_towers=fused_towers, tp=tp)
     key_features = forward_text(params, cfg, input_ids, attention_mask,
-                                dtype=dtype)["text_features"]
+                                dtype=dtype, tp=tp)["text_features"]
     if cfg.compute_logits_type == "cls_alignment":
         return {"logits": vision["image_cls_token"] @ key_features.T}
     if cfg.compute_logits_type == "global_alignment":

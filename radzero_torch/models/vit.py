@@ -72,6 +72,7 @@ from radzero_torch.ops.fused_layer import (
     flash_attention_packed_bwd,
     flash_attention_packed_lse,
     fused_postattn,
+    fused_postattn_tp,
     fused_preattn,
 )
 from radzero_torch.ops.layers import (
@@ -80,9 +81,12 @@ from radzero_torch.ops.layers import (
     layer_norm,
     linear,
     merge_heads,
+    row_linear,
     split_heads,
 )
 from radzero_torch.ops.resize import bicubic_resize_2d
+from radzero_torch.parallel.collectives import all_reduce_sum
+from radzero_torch.parallel.tensor_parallel import active, local_heads, refuse_grad, tp_size
 
 
 # ---------------------------------------------------------------------------
@@ -196,19 +200,30 @@ def _layer_tree(leaves) -> dict:
     return p
 
 
-def dinov2_layer_fused(x: torch.Tensor, p: dict, cfg: ViTConfig) -> torch.Tensor:
+def _n_heads(cfg: ViTConfig, tp) -> int:
+    """The heads a layer runs: all of them, or this rank's share over ``tp``."""
+    return local_heads(cfg.num_attention_heads, tp_size(tp))
+
+
+def dinov2_layer_fused(x: torch.Tensor, p: dict, cfg: ViTConfig, tp=None) -> torch.Tensor:
     """One layer through K1 (LN1 + packed QKV), K2 (attention) and K3
     (o-proj + residual + LN2 + MLP + residual). Weights are cast to the
     activation dtype (a no-op for a tree already in that dtype); under
     gradients the kernels' Functions keep only (x, qkv, attn_out) and the
     cast weights, and autograd carries the weight gradients back through
-    the cast."""
+    the cast. Over a model group ``tp`` (``p`` this rank's share), K1 and K2
+    run on the rank's heads ([q_r | k_r | v_r], 3D/P columns) and K3 is the
+    row-parallel :func:`radzero_torch.ops.fused_layer.fused_postattn_tp`."""
     b, l, d = x.shape
     x2 = x.reshape(b * l, d)
     w = [t.to(x.dtype) for t in _layer_leaves(p)]
-    qkv = fused_preattn(x2, *w[:_N_PRE], eps=cfg.layer_norm_eps).reshape(b, l, 3 * d)
-    attn_out = flash_attention_packed(qkv, cfg.num_attention_heads)
-    out = fused_postattn(x2, attn_out.reshape(b * l, d), *w[_N_PRE:], eps=cfg.layer_norm_eps)
+    qkv = fused_preattn(x2, *w[:_N_PRE], eps=cfg.layer_norm_eps).reshape(b, l, -1)
+    attn_out = flash_attention_packed(qkv, _n_heads(cfg, tp))
+    a2 = attn_out.reshape(b * l, -1)
+    if tp is None:
+        out = fused_postattn(x2, a2, *w[_N_PRE:], eps=cfg.layer_norm_eps)
+    else:
+        out = fused_postattn_tp(x2, a2, *w[_N_PRE:], tp=tp, eps=cfg.layer_norm_eps)
     return out.reshape(b, l, d)
 
 
@@ -225,48 +240,51 @@ def _pre(x, p, cfg: ViTConfig) -> torch.Tensor:
     return linear(layer_norm(x, p["ln1"], cfg.layer_norm_eps), p["attn"]["qkv"])
 
 
-def _post(x, attn, p, cfg: ViTConfig) -> torch.Tensor:
-    """o-proj, LayerScale residual, LN2, MLP, LayerScale residual."""
-    x = x + linear(attn, p["attn"]["o"]) * p["ls1"].to(x.dtype)
+def _post(x, attn, p, cfg: ViTConfig, tp=None) -> torch.Tensor:
+    """o-proj, LayerScale residual, LN2, MLP, LayerScale residual; over a
+    model group ``tp`` the o-proj and fc2 are row-parallel
+    (:func:`radzero_torch.ops.layers.row_linear`)."""
+    x = x + row_linear(attn, p["attn"]["o"], tp) * p["ls1"].to(x.dtype)
     m = layer_norm(x, p["ln2"], cfg.layer_norm_eps)
-    m = linear(gelu(linear(m, p["mlp"]["fc1"])), p["mlp"]["fc2"])
+    m = row_linear(gelu(linear(m, p["mlp"]["fc1"])), p["mlp"]["fc2"], tp)
     return x + m * p["ls2"].to(x.dtype)
 
 
-def _eager_layer(x, p, cfg: ViTConfig, attn_fn) -> torch.Tensor:
+def _eager_layer(x, p, cfg: ViTConfig, attn_fn, tp=None) -> torch.Tensor:
     """Eager LN1, packed QKV linear, ``attn_fn(qkv) -> (B, L, D)``, eager rest."""
-    return _post(x, attn_fn(_pre(x, p, cfg)), p, cfg)
+    return _post(x, attn_fn(_pre(x, p, cfg)), p, cfg, tp)
 
 
-def _heads(qkv, cfg: ViTConfig) -> list:
-    """The (B, L, H, hd) q, k, v thirds of the packed projection (views, no copy)."""
-    d, h = cfg.hidden_size, cfg.num_attention_heads
+def _heads(qkv, h: int) -> list:
+    """The (B, L, h, hd) q, k, v thirds of the packed projection of h heads
+    (views, no copy)."""
+    d = qkv.shape[-1] // 3
     return [split_heads(qkv[..., i * d : (i + 1) * d], h) for i in range(3)]
 
 
-def _over_heads(cfg: ViTConfig, attn):
-    """``attn_fn`` for :func:`_eager_layer`: ``attn(q, k, v)`` over the (B, L, H,
+def _over_heads(h: int, attn):
+    """``attn_fn`` for :func:`_eager_layer`: ``attn(q, k, v)`` over the (B, L, h,
     hd) thirds of the packed projection, heads merged."""
-    return lambda qkv: merge_heads(attn(*_heads(qkv, cfg)))
+    return lambda qkv: merge_heads(attn(*_heads(qkv, h)))
 
 
-def dinov2_layer(x: torch.Tensor, p: dict, cfg: ViTConfig) -> torch.Tensor:
+def dinov2_layer(x: torch.Tensor, p: dict, cfg: ViTConfig, tp=None) -> torch.Tensor:
     """Eager reference layer (the JAX ``attn_impl="xla"`` path)."""
-    return _eager_layer(x, p, cfg, _over_heads(cfg, attention))
+    return _eager_layer(x, p, cfg, _over_heads(_n_heads(cfg, tp), attention), tp)
 
 
-def dinov2_layer_packed(x: torch.Tensor, p: dict, cfg: ViTConfig) -> torch.Tensor:
+def dinov2_layer_packed(x: torch.Tensor, p: dict, cfg: ViTConfig, tp=None) -> torch.Tensor:
     """The JAX ``attn_impl="packed"`` layer: eager ops around the packed
     attention kernel K2, whose backward is K7."""
-    return _eager_layer(x, p, cfg,
-                        lambda qkv: flash_attention_packed(qkv, cfg.num_attention_heads))
+    h = _n_heads(cfg, tp)
+    return _eager_layer(x, p, cfg, lambda qkv: flash_attention_packed(qkv, h), tp)
 
 
-def dinov2_layer_flash(x: torch.Tensor, p: dict, cfg: ViTConfig) -> torch.Tensor:
+def dinov2_layer_flash(x: torch.Tensor, p: dict, cfg: ViTConfig, tp=None) -> torch.Tensor:
     """The JAX ``attn_impl="flash"`` layer: eager ops around the attention
     kernel K13 over (B, L, H, hd) heads, whose backward is K14; the kernel
     reads q, k and v by stride."""
-    return _eager_layer(x, p, cfg, _over_heads(cfg, flash_attention))
+    return _eager_layer(x, p, cfg, _over_heads(_n_heads(cfg, tp), flash_attention), tp)
 
 
 _LAYERS = {"fused": dinov2_layer_fused, "packed": dinov2_layer_packed,
@@ -313,19 +331,20 @@ def _packed_again(qkv, a, kept, cfg):
 
 def _flash_keep(qkv, cfg):
     if hopper(qkv):
-        out, lse = flash_attention_lse(*_heads(qkv, cfg))
+        out, lse = flash_attention_lse(*_heads(qkv, cfg.num_attention_heads))
         return merge_heads(out), (lse,)
-    return merge_heads(flash_attention(*_heads(qkv, cfg))), ()
+    return merge_heads(flash_attention(*_heads(qkv, cfg.num_attention_heads))), ()
 
 
 def _flash_again(qkv, a, kept, cfg):
-    q = _heads(qkv, cfg)[0]
-    stats = {"out": a.reshape(q.shape), "lse": kept[0]} if kept else {}
+    heads = _heads(qkv, cfg.num_attention_heads)
+    shape = heads[0].shape
+    stats = {"out": a.reshape(shape), "lse": kept[0]} if kept else {}
 
     def bwd(g, q, k, v):  # K14
         return flash_attention_bwd(q, k, v, g, **stats)
 
-    return merge_heads(_Kept.apply(a.reshape(q.shape), bwd, *_heads(qkv, cfg)))
+    return merge_heads(_Kept.apply(a.reshape(shape), bwd, *heads))
 
 
 class _SaveAttn(torch.autograd.Function):
@@ -395,14 +414,24 @@ def layer_impl(attn_impl: str) -> str:
 
 
 def vit_encoder(layers: List[dict], cfg: ViTConfig, x: torch.Tensor, *, impl: str = "fused",
-                remat: bool = False):
+                remat: bool = False, tp=None):
     """``impl`` names the layer: "fused", "packed", "flash" or "eager".
     ``remat`` (read only with gradients on) runs each layer under
     ``cfg.remat_policy``: None, a non-reentrant ``torch.utils.checkpoint``
     around the layer; "save_attn", the layer's ``_SAVE_ATTN`` twin, and on
     the eager layer (whose attention backward needs the softmax again) the
-    checkpoint, as None."""
+    checkpoint, as None. ``tp``, a model group (``layers`` this rank's share,
+    :func:`radzero_torch.parallel.tensor_parallel.shard_params`), runs every
+    layer on the rank's heads with the row-parallel o-proj and MLP; forward
+    only, so under gradients it raises NotImplementedError."""
     layer = _LAYERS[impl]
+    tp = active(tp)
+    if tp is not None:
+        refuse_grad("a DINOv2 layer over a model group", x,
+                    *(t for p in layers for t in _layer_leaves(p)))
+        for p in layers:
+            x = layer(x, p, cfg, tp)
+        return x
     if remat and torch.is_grad_enabled():
         if cfg.remat_policy == "save_attn" and impl in _SAVE_ATTN:
             layer = _SAVE_ATTN[impl]
@@ -414,19 +443,23 @@ def vit_encoder(layers: List[dict], cfg: ViTConfig, x: torch.Tensor, *, impl: st
     return x
 
 
-def token_filter_indices(x: torch.Tensor, layer_p: dict, cfg: ViTConfig) -> torch.Tensor:
+def token_filter_indices(x: torch.Tensor, layer_p: dict, cfg: ViTConfig, tp=None) -> torch.Tensor:
     """(B, 1 + keep) int64 rows to keep: CLS, then the ``keep = round((L - 1)
     (1 - ratio))`` patches of highest head-mean CLS.K score under ``layer_p``'s
-    LN1, q and k (times hd^-1/2 / nh), in ascending order."""
-    b, l, d = x.shape
+    LN1, q and k (times hd^-1/2 / nh), in ascending order. Over a model
+    group ``tp`` each rank sums its heads' scores and an all-reduce adds the
+    ranks' sums, so every rank keeps the same rows."""
+    b, l, _ = x.shape
     nh, hd = cfg.num_attention_heads, cfg.head_dim
+    nl = local_heads(nh, tp_size(tp))
+    d = nl * hd
     keep = max(1, int(round((l - 1) * (1.0 - cfg.token_filter_ratio))))
     h = layer_norm(x, layer_p["ln1"], cfg.layer_norm_eps)
     qkv = layer_p["attn"]["qkv"]
     q_cls = linear(h[:, :1], {"kernel": qkv["kernel"][:, :d], "bias": qkv["bias"][:d]})
     keys = linear(h, {"kernel": qkv["kernel"][:, d:2 * d], "bias": qkv["bias"][d:2 * d]})
-    scores = torch.einsum("bhd,blhd->bl", q_cls.reshape(b, nh, hd), keys.reshape(b, l, nh, hd))
-    scores = scores * (hd**-0.5) / nh
+    scores = torch.einsum("bhd,blhd->bl", q_cls.reshape(b, nl, hd), keys.reshape(b, l, nl, hd))
+    scores = all_reduce_sum(scores, tp) * (hd**-0.5) / nh
     idx = torch.topk(scores[:, 1:], keep, dim=1).indices + 1
     idx = torch.sort(idx, dim=1).values
     return torch.cat([idx.new_zeros(b, 1), idx], dim=1)
@@ -440,28 +473,32 @@ def vit_forward(
     dtype=torch.float32,
     impl: str = "fused",
     remat: bool = False,
+    tp=None,
 ) -> torch.Tensor:
     """(B, H, W, C) NHWC -> (B, 1 + h*w, D) tokens, final LN applied when
-    ``cfg.use_final_layernorm``. ``impl`` and ``remat`` name the layer and
-    its remat (see :func:`vit_encoder`). With ``cfg.token_filter_ratio > 0``
-    the rows the filter drops come out as zeros."""
+    ``cfg.use_final_layernorm``. ``impl``, ``remat`` and ``tp`` name the
+    layer, its remat and the model group (see :func:`vit_encoder`). With
+    ``cfg.token_filter_ratio > 0`` the rows the filter drops come out as
+    zeros."""
+    tp = active(tp)
     x = vit_embed(params, cfg, pixel_values, dtype)
     if cfg.token_filter_ratio > 0.0:
         k = cfg.token_filter_layer
         if not 0 <= k < cfg.num_hidden_layers:
             raise ValueError(f"token_filter_layer={k} out of range for "
                              f"num_hidden_layers={cfg.num_hidden_layers}")
-        x = vit_encoder(params["layers"][:k], cfg, x, impl=impl, remat=remat)
+        x = vit_encoder(params["layers"][:k], cfg, x, impl=impl, remat=remat, tp=tp)
         b, l, d = x.shape
-        rows = token_filter_indices(x, params["layers"][k], cfg)[..., None].expand(-1, -1, d)
+        rows = token_filter_indices(x, params["layers"][k], cfg, tp=tp)
+        rows = rows[..., None].expand(-1, -1, d)
         y = vit_encoder(params["layers"][k:], cfg, torch.gather(x, 1, rows), impl=impl,
-                        remat=remat)
+                        remat=remat, tp=tp)
         if cfg.use_final_layernorm:
             y = layer_norm(y, params["final_ln"], cfg.layer_norm_eps)
         # after the final LN, so a dropped row is an exact zero (LN of a zero
         # row would be the LN bias)
         return y.new_zeros(b, l, d).scatter(1, rows, y)
-    x = vit_encoder(params["layers"], cfg, x, impl=impl, remat=remat)
+    x = vit_encoder(params["layers"], cfg, x, impl=impl, remat=remat, tp=tp)
     if cfg.use_final_layernorm:
         x = layer_norm(x, params["final_ln"], cfg.layer_norm_eps)
     return x

@@ -108,6 +108,9 @@ SIGNATURES = {
     "rz_flash_attention_bias_bwd": [_P] * 12 + [_I] + [_L] * 6 + [_I] * 5 + [_F, _I, _P],
     # dtype
     "rz_bwd_gemm_row_tile": [_I],
+    # base, base_f32, acc, bias, ls, ln_s, ln_b, out_t, out_u, out_f, M, D, eps, dtype,
+    # stream
+    "rz_tp_rows": [_P, _I] + [_P] * 8 + [_I, _I, _F, _I, _P],
 }
 
 _lock = threading.Lock()

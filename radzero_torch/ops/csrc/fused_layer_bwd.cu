@@ -76,14 +76,14 @@
 // rows in chunks to bound the scratch.
 #include "gemm.cuh"
 #include "gemm_sm90.cuh"
+#include "rows.cuh"
 
 namespace rz {
 namespace bw {
 
 constexpr int RT = 256;     // threads of the reduces and of the LayerNorm row passes
-constexpr int VEC = 8;      // columns a lane loads at once: 16 bytes of bf16, 32 of fp32
-constexpr int MAX_NC = 4;   // 8-column chunks a lane holds of a row
-constexpr int MAX_D = 32 * VEC * MAX_NC;  // widest row of the LayerNorm row passes
+using rows::chunk_col, rows::load8, rows::MAX_D, rows::MAX_NC, rows::row_stats,
+    rows::store8, rows::VEC, rows::warp_sum;  // the LayerNorm row passes' (rows.cuh)
 constexpr int CT = 384;     // most threads of scale_colsum_kernel, a thread 8 columns
 
 // the column sums of ln_bwd_rows_kernel (bit s: c_s) and of scale_colsum_kernel
@@ -173,71 +173,10 @@ transpose_kernel(const float* __restrict__ w, float* __restrict__ wt, int K, int
 // row passes
 // ---------------------------------------------------------------------------
 
-// 8 neighbouring values from p (16-byte aligned) as fp32, and back
-__device__ __forceinline__ void load8(const float* p, float (&v)[VEC]) {
-  const float4 a = *reinterpret_cast<const float4*>(p);
-  const float4 b = *reinterpret_cast<const float4*>(p + 4);
-  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
-}
-
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&v)[VEC]) {
-  const uint4 raw = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int i = 0; i < VEC / 2; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    v[2 * i] = f.x;
-    v[2 * i + 1] = f.y;
-  }
-}
-
-__device__ __forceinline__ void store8(float* p, const float (&v)[VEC]) {
-  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-  *reinterpret_cast<float4*>(p + 4) = make_float4(v[4], v[5], v[6], v[7]);
-}
-
-__device__ __forceinline__ void store8(__nv_bfloat16* p, const float (&v)[VEC]) {
-  uint4 raw;
-  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int i = 0; i < VEC / 2; ++i) h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
-  *reinterpret_cast<uint4*>(p) = raw;
-}
-
-// A warp holds a row: lane l its 8-column chunks l, l + 32, l + 64, ...; the
-// first column of chunk j (a chunk at or past D is not held)
-__device__ __forceinline__ int chunk_col(int j, int lane) { return (j * 32 + lane) * VEC; }
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// mean and rstd of the row a warp holds (two passes over the registers, fp32);
-// ln_rows_kernel and ln_bwd_rows_kernel both call it, so the statistics
-// ln_rows_kernel stores equal those the backward would compute, bit for bit
-template <int NC>
-__device__ __forceinline__ void row_stats(const float (&x)[NC][VEC], int D, float eps, int lane,
-                                          float& mean, float& rstd) {
-  float s = 0.f, v = 0.f;
-#pragma unroll
-  for (int j = 0; j < NC; ++j)
-    if (chunk_col(j, lane) < D)
-#pragma unroll
-      for (int k = 0; k < VEC; ++k) s += x[j][k];
-  mean = warp_sum(s) / D;
-#pragma unroll
-  for (int j = 0; j < NC; ++j)
-    if (chunk_col(j, lane) < D)
-#pragma unroll
-      for (int k = 0; k < VEC; ++k) {
-        const float d = x[j][k] - mean;
-        v = __fmaf_rn(d, d, v);
-      }
-  rstd = rsqrtf(warp_sum(v) / D + eps);
-}
+// load8 / store8, chunk_col, warp_sum and row_stats are rows.cuh's; ln_rows_kernel
+// and ln_bwd_rows_kernel both take the statistics from row_stats, so the
+// statistics ln_rows_kernel stores equal those the backward would compute, bit
+// for bit
 
 // LN(u) * scale + bias per row, a warp a row -> out_t (operand type) and / or
 // out_f (fp32); stats (M,) (mean, rstd) of each row, or null
@@ -484,6 +423,7 @@ scale_colsum_kernel(const T* __restrict__ g, const float* __restrict__ m,
 cudaError_t bwd_gemm_f32(const GemmArgs& g, int epi, cudaStream_t s) {
   switch (epi) {
     case EPI_BIAS: return launch_gemm<false, EPI_BIAS>(g, s);
+    case EPI_GELU: return launch_gemm<false, EPI_GELU>(g, s);  // K3 / K4's fc1 under a model axis
     case EPI_ADD_F32: return launch_gemm<false, EPI_ADD_F32>(g, s);
     case EPI_ADDF_F32: return launch_gemm<false, EPI_ADDF_F32>(g, s);
     case EPI_PROJ2: return launch_gemm<false, EPI_PROJ2>(g, s);

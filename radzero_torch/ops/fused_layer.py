@@ -8,6 +8,11 @@
   out = y + ls2 * (gelu(ln2(y) @ W1 + b1) @ W2 + b2)
 - :func:`fused_mpnet_post` (K4): y = ln(x + a @ Wo + bo);
   out = ln(y + gelu(y @ W1 + b1) @ W2 + b2)   (post-LN, eps 1e-12)
+- :func:`fused_postattn_tp` / :func:`fused_mpnet_post_tp`: K3 and K4
+  row-parallel over a model group (``tp=``, the JAX tensor-parallel rules):
+  the split o-proj and fc2 give fp32 partials that an all-reduce completes,
+  and the row kernel :func:`tp_rows` (``csrc/tp_rows.cu``) runs the bias,
+  LayerScale, residual and LayerNorm after each sum; forward only
 
 Each wrapper runs its plain twin (``*_plain``, same module) when handed a
 CPU tensor and launches its CUDA kernel (``csrc/fused_layer.cu``, whose K1,
@@ -72,12 +77,14 @@ from radzero_torch.ops.flash_attention import (
     flash_attention_bwd_plain, flash_attention_bwd_stats_plain, flash_attention_lse_plain,
     flash_attention_plain, hopper, stats_operands,
 )
+from radzero_torch.parallel.collectives import all_reduce_sum
+from radzero_torch.parallel.tensor_parallel import refuse_grad
 
 _LOG2E = 1.4426950408889634
 _INV_SQRT_2PI = 0.3989422804014327
 # epilogue codes of csrc/gemm.cuh
-_EPI_BIAS, _EPI_ADD_F32, _EPI_ADDF_F32, _EPI_PROJ2, _EPI_GELU_H1, _EPI_F32, _EPI_DGELU = (
-    0, 4, 5, 6, 7, 8, 9)
+(_EPI_BIAS, _EPI_GELU, _EPI_ADD_F32, _EPI_ADDF_F32, _EPI_PROJ2, _EPI_GELU_H1, _EPI_F32,
+ _EPI_DGELU) = (0, 2, 4, 5, 6, 7, 8, 9)
 _SPLIT_BLOCKS = 4 * 132  # blocks a row-split fp32 weight-gradient product aims at
 # the bf16 dW product's cost model (_Chain.wgrad): a 128 x 128 tile's k-step of 64
 # rows at ~600 TFLOP/s shared by the card's SMs (about what K1's product reaches on
@@ -385,6 +392,193 @@ def _fused_mpnet_post_fwd(x, attn_out, wo, bo, lnsa, lnba, w1, b1, w2, b2,
 
 
 fused_mpnet_post.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K3 and K4 over a model axis: row-parallel o-proj and fc2, the row kernel
+# ---------------------------------------------------------------------------
+
+def tp_rows_plain(base, acc, bias, *, ls=None, ln=None, dtype, eps=1e-6, keep_u=False,
+                  keep_ln32=False):
+    """u = base + ls * (acc + bias) (without ``ls``: base + (acc + bias)) in
+    fp32 -> (LN(u) under ``ln`` = (scale, bias), else u, in ``dtype``; u in
+    fp32 with ``keep_u``, else None; LN(u) in fp32 with ``keep_ln32``, else
+    None)."""
+    v = acc.float() + bias.float()
+    u = base.float() + (v if ls is None else ls.float() * v)
+    y = u if ln is None else _ln32(u, *ln, eps)
+    return y.to(dtype), u if keep_u else None, y if keep_ln32 else None
+
+
+def tp_rows(base, acc, bias, *, ls=None, ln=None, dtype, eps=1e-6, keep_u=False,
+            keep_ln32=False):
+    """The row kernel after the all-reduce of a row-parallel product
+    (``csrc/tp_rows.cu`` ``tp_rows_kernel``; no TPU kernel of its own: the
+    epilogue that K3's and K4's split o-proj and fc2 cannot run before the
+    sum): ``base`` (M, D) in ``dtype`` or fp32, ``acc`` (M, D) fp32, the
+    (D,) vectors in ``dtype`` -> what :func:`tp_rows_plain` returns. One
+    launch, one count; D % 8 == 0 and D <= 1024."""
+    if not on_cuda(acc):
+        return tp_rows_plain(base, acc, bias, ls=ls, ln=ln, dtype=dtype, eps=eps, keep_u=keep_u,
+                             keep_ln32=keep_ln32)
+    m, d = acc.shape
+    named = {"bias": ((d,), bias)}
+    if ls is not None:
+        named["ls"] = ((d,), ls)
+    if ln is not None:
+        named |= {"ln_scale": ((d,), ln[0]), "ln_bias": ((d,), ln[1])}
+    code = check_operands("tp_rows", bias, **named)
+    for name, t, types in (("base", base, (dtype, torch.float32)), ("acc", acc, (torch.float32,))):
+        if t.dtype not in types or t.device != acc.device or tuple(t.shape) != (m, d):
+            raise ValueError(f"tp_rows: {name} is {t.dtype} {tuple(t.shape)} on {t.device}, "
+                             f"expected one of {types} ({m}, {d}) on {acc.device}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"tp_rows: {name} must be contiguous and 16-byte aligned")
+    if bias.dtype != dtype or d % 8 or d > 1024:
+        raise ValueError(f"tp_rows: needs {dtype} vectors and D % 8 == 0, D <= 1024; got "
+                         f"{bias.dtype}, {d}")
+    if keep_ln32 and ln is None:
+        raise ValueError("tp_rows: keep_ln32 needs ln")
+    out = torch.empty((m, d), dtype=dtype, device=acc.device)
+    u32 = torch.empty((m, d), dtype=torch.float32, device=acc.device) if keep_u else None
+    y32 = torch.empty((m, d), dtype=torch.float32, device=acc.device) if keep_ln32 else None
+    p = _Chain._ptr
+    err = _build.load().rz_tp_rows(
+        base.data_ptr(), int(base.dtype == torch.float32), acc.data_ptr(), bias.data_ptr(),
+        p(ls), p(None if ln is None else ln[0]), p(None if ln is None else ln[1]),
+        out.data_ptr(), p(u32), p(y32), m, d, float(eps), code, _build.stream_ptr(acc))
+    _build.check(err, "tp_rows")
+    tp_rows.launches += 1
+    return out, u32, y32
+
+
+tp_rows.launches = 0
+
+
+def fused_postattn_tp_plain(x, attn_out, wo, bo, ls1, ln_scale, ln_bias, w1, b1, w2, b2, ls2, *,
+                            reduce, eps=1e-6):
+    """K3's plain twin over a model axis; ``reduce`` sums a partial product
+    over the ranks (the identity on one rank's share alone)."""
+    cdt = x.dtype
+    acc = reduce(attn_out.float() @ wo.float())
+    hln, y32, _ = tp_rows_plain(x, acc, bo, ls=ls1, ln=(ln_scale, ln_bias), dtype=cdt, eps=eps,
+                                keep_u=True)
+    h = torch.nn.functional.gelu(hln.float() @ w1.float() + b1.float()).to(cdt)
+    acc = reduce(h.float() @ w2.float())
+    return tp_rows_plain(y32, acc, b2, ls=ls2, dtype=cdt)[0]
+
+
+def fused_postattn_tp(x, attn_out, wo, bo, ls1, ln_scale, ln_bias, w1, b1, w2, b2, ls2, *, tp,
+                      eps=1e-6):
+    """K3 row-parallel over the model group ``tp`` (the JAX rules' split):
+    ``attn_out`` (N, D/P) holds this rank's heads, ``wo`` (D/P, D) their
+    rows, ``w1`` (D, F/P) / ``b1`` (F/P,) this rank's MLP columns and ``w2``
+    (F/P, D) their rows; x, ``bo``, the LayerScales, LN2 and ``b2`` are
+    whole. Each rank returns the whole (N, D) output. On the card, one count:
+    the o-proj partial (gemm_sm90_kernel ``EPI_F32`` in bf16,
+    gemm_f32_kernel in fp32) into fp32, :func:`all_reduce_sum`, the row
+    kernel (y32 = x + ls1 (acc + bo) and LN2), fc1 + GELU, the fc2 partial,
+    the all-reduce, the row kernel's end form (y32 + ls2 (acc + b2)). The
+    biases of the split products are added once, after the sum. Forward
+    only: under gradients it raises NotImplementedError."""
+    ops = (x, attn_out, wo, bo, ls1, ln_scale, ln_bias, w1, b1, w2, b2, ls2)
+    refuse_grad("fused_postattn_tp", *ops)
+    return postattn_tp_chain(*ops, reduce=lambda t: all_reduce_sum(t, tp), eps=eps)
+
+
+def postattn_tp_chain(x, attn_out, wo, bo, ls1, ln_scale, ln_bias, w1, b1, w2, b2, ls2, *,
+                      reduce, eps=1e-6):
+    """:func:`fused_postattn_tp` with the sum over the ranks given as
+    ``reduce``: the twin for a CPU tensor, the chain of launches on the card."""
+    if not on_cuda(x):
+        return fused_postattn_tp_plain(x, attn_out, wo, bo, ls1, ln_scale, ln_bias, w1, b1, w2,
+                                       b2, ls2, reduce=reduce, eps=eps)
+    n, d = x.shape
+    dl, fl = wo.shape[0], w1.shape[1]
+    code = check_operands(
+        "fused_postattn_tp", x,
+        attn_out=((n, dl), attn_out), wo=((dl, d), wo), bo=((d,), bo), ls1=((d,), ls1),
+        ln_scale=((d,), ln_scale), ln_bias=((d,), ln_bias), w1=((d, fl), w1),
+        b1=((fl,), b1), w2=((fl, d), w2), b2=((d,), b2), ls2=((d,), ls2),
+    )
+    if d % 64 or dl % 32 or fl % 64:
+        raise ValueError(f"fused_postattn_tp: needs D % 64, D/P % 32 and F/P % 64 == 0, got "
+                         f"{d}, {dl}, {fl}")
+    k = _Chain("fused_postattn_tp", x, code)
+    acc = reduce(k.gemm(attn_out, wo, _EPI_F32, k.f32(n, d)))
+    hln, y32, _ = tp_rows(x, acc, bo, ls=ls1, ln=(ln_scale, ln_bias), dtype=x.dtype, eps=eps,
+                          keep_u=True)
+    h = k.gemm(hln, w1, _EPI_GELU, k.t(n, fl), bias=b1)
+    del hln
+    acc = reduce(k.gemm(h, w2, _EPI_F32, k.f32(n, d)))
+    out = tp_rows(y32, acc, b2, ls=ls2, dtype=x.dtype)[0]
+    fused_postattn_tp.launches += 1
+    return out
+
+
+fused_postattn_tp.launches = 0
+
+
+def fused_mpnet_post_tp_plain(x, attn_out, wo, bo, lnsa, lnba, w1, b1, w2, b2, lnso, lnbo, *,
+                              reduce, eps=1e-12):
+    """K4's plain twin over a model axis; ``reduce`` as in
+    :func:`fused_postattn_tp_plain`."""
+    cdt = x.dtype
+    acc = reduce(attn_out.float() @ wo.float())
+    yln, _, y32 = tp_rows_plain(x, acc, bo, ln=(lnsa, lnba), dtype=cdt, eps=eps, keep_ln32=True)
+    h = torch.nn.functional.gelu(yln.float() @ w1.float() + b1.float()).to(cdt)
+    acc = reduce(h.float() @ w2.float())
+    return tp_rows_plain(y32, acc, b2, ln=(lnso, lnbo), dtype=cdt, eps=eps)[0]
+
+
+def fused_mpnet_post_tp(x, attn_out, wo, bo, lnsa, lnba, w1, b1, w2, b2, lnso, lnbo, *, tp,
+                        eps=1e-12):
+    """K4 row-parallel over the model group ``tp``, split as
+    :func:`fused_postattn_tp`'s operands are. On the card, one count: the
+    o-proj partial into fp32, the all-reduce, the row kernel (u = x + (acc +
+    bo), y = LN(u) written rounded, fc1's operand, and in fp32, the
+    residual, from one fp32 value), fc1 + GELU, the fc2 partial, the
+    all-reduce, the row kernel's end form (LN(y32 + (acc + b2))). Forward
+    only."""
+    ops = (x, attn_out, wo, bo, lnsa, lnba, w1, b1, w2, b2, lnso, lnbo)
+    refuse_grad("fused_mpnet_post_tp", *ops)
+    return mpnet_post_tp_chain(*ops, reduce=lambda t: all_reduce_sum(t, tp), eps=eps)
+
+
+def mpnet_post_tp_chain(x, attn_out, wo, bo, lnsa, lnba, w1, b1, w2, b2, lnso, lnbo, *, reduce,
+                        eps=1e-12):
+    """:func:`fused_mpnet_post_tp` with the sum over the ranks given as
+    ``reduce``."""
+    if not on_cuda(x):
+        return fused_mpnet_post_tp_plain(x, attn_out, wo, bo, lnsa, lnba, w1, b1, w2, b2, lnso,
+                                         lnbo, reduce=reduce, eps=eps)
+    m, d = x.shape
+    dl, fl = wo.shape[0], w1.shape[1]
+    code = check_operands(
+        "fused_mpnet_post_tp", x,
+        attn_out=((m, dl), attn_out), wo=((dl, d), wo), bo=((d,), bo),
+        lnsa=((d,), lnsa), lnba=((d,), lnba), w1=((d, fl), w1), b1=((fl,), b1),
+        w2=((fl, d), w2), b2=((d,), b2), lnso=((d,), lnso), lnbo=((d,), lnbo),
+    )
+    if d % 64 or dl % 32 or fl % 64:
+        raise ValueError(f"fused_mpnet_post_tp: needs D % 64, D/P % 32 and F/P % 64 == 0, got "
+                         f"{d}, {dl}, {fl}")
+    k = _Chain("fused_mpnet_post_tp", x, code)
+    bf16 = x.dtype == torch.bfloat16
+    acc = reduce(k.gemm(attn_out, wo, _EPI_F32, k.f32(m, d)))
+    yln, _, y32 = tp_rows(x, acc, bo, ln=(lnsa, lnba), dtype=x.dtype, eps=eps, keep_ln32=bf16)
+    h = k.gemm(yln, w1, _EPI_GELU, k.t(m, fl), bias=b1)
+    if bf16:
+        del yln
+    else:  # fp32: one buffer is fc1's operand and the residual
+        y32 = yln
+    acc = reduce(k.gemm(h, w2, _EPI_F32, k.f32(m, d)))
+    out = tp_rows(y32, acc, b2, ln=(lnso, lnbo), dtype=x.dtype, eps=eps)[0]
+    fused_mpnet_post_tp.launches += 1
+    return out
+
+
+fused_mpnet_post_tp.launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -2,6 +2,8 @@
 
 - ``layer_norm``: fp32 statistics, biased variance, eps inside the rsqrt;
   the result is cast back to the input dtype
+- ``row_linear``: a row-parallel ``linear`` over a model group (the
+  partial products all-reduced, then the bias)
 - ``gelu``: exact erf GELU
 - ``attention``: eager softmax attention with an fp32 softmax
 - ``l2_normalize``: ``x / max(||x||, eps)`` with eps 1e-12
@@ -13,6 +15,8 @@ import functools
 from typing import Optional, Sequence
 
 import torch
+
+from radzero_torch.parallel.collectives import all_reduce_sum
 
 
 def layer_norm(x: torch.Tensor, params: dict, eps: float) -> torch.Tensor:
@@ -27,6 +31,19 @@ def layer_norm(x: torch.Tensor, params: dict, eps: float) -> torch.Tensor:
 def linear(x: torch.Tensor, params: dict) -> torch.Tensor:
     """``x @ kernel + bias`` with the kernel in the JAX (d_in, d_out) layout."""
     y = x @ params["kernel"].to(x.dtype)
+    if params.get("bias") is not None:
+        y = y + params["bias"].to(x.dtype)
+    return y
+
+
+def row_linear(x: torch.Tensor, params: dict, tp) -> torch.Tensor:
+    """:func:`linear` of a row-parallel weight over the model group ``tp``:
+    ``x`` holds this rank's input columns and the kernel its rows; the
+    partial products are summed over the ranks (fp32, rounded once), then
+    the whole bias is added. Without a group, :func:`linear`."""
+    if tp is None:
+        return linear(x, params)
+    y = all_reduce_sum(x @ params["kernel"].to(x.dtype), tp)
     if params.get("bias") is not None:
         y = y + params["bias"].to(x.dtype)
     return y

@@ -1,9 +1,12 @@
-"""Data-parallel training and eval over processes, one a card (counterpart
-of radzero_tpu/parallel): the process group (:mod:`.dist`) and the
-collectives the loss and the step run (:mod:`.collectives`)."""
+"""Data-parallel training and eval over processes, one a card, and the
+forward over a model axis (counterpart of radzero_tpu/parallel): the process
+groups (:mod:`.dist`), the collectives the loss, the step and the
+row-parallel layers run (:mod:`.collectives`), and the tensor-parallel rules
+(:mod:`.tensor_parallel`)."""
 
 from radzero_torch.parallel.collectives import (
     all_gather_rows,
+    all_reduce_sum,
     average_gradients,
     gather_rows,
 )
@@ -11,8 +14,15 @@ from radzero_torch.parallel.dist import (
     check_mesh,
     init_distributed,
     local_rank,
+    mesh_groups,
+    mesh_shape,
     process_offset,
     rank,
     sync,
     world,
+)
+from radzero_torch.parallel.tensor_parallel import (
+    param_specs,
+    shard_params,
+    unshard_params,
 )

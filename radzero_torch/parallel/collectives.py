@@ -1,4 +1,4 @@
-"""The collectives of data-parallel training: a differentiable row gather,
+"""The collectives of data- and tensor-parallel runs: a differentiable row gather,
 a plain one, and the gradient average.
 
 - :func:`all_gather_rows` concatenates every rank's rows in rank order
@@ -12,6 +12,9 @@ a plain one, and the gradient average.
 - :func:`average_gradients` averages the trainable gradients over the
   ranks with one all-reduce over a flat fp32 buffer, in the order of the
   list it is given (``tree_leaves``), not one call a leaf.
+- :func:`all_reduce_sum` is the sum over a model group that completes a
+  row-parallel product (the o-proj and fc2 partials of K3 and K4 under
+  ``tp=``, MPNet's split embedding lookups); forward only.
 
 Every rank passes tensors of the same shape and dtype. 16-bit floats are
 summed in fp32 and rounded once. The backend decides the route, and nothing
@@ -28,6 +31,8 @@ from typing import List, Sequence
 
 import torch
 import torch.distributed as dist
+
+from radzero_torch.parallel.tensor_parallel import refuse_grad
 
 _WIDEN = (torch.float16, torch.bfloat16)
 
@@ -97,3 +102,20 @@ def average_gradients(grads: Sequence[torch.Tensor], group) -> List[torch.Tensor
     for part, g in zip(torch.split(flat, [g.numel() for g in grads]), grads):
         out.append(part.view(g.shape).to(g.dtype))
     return out
+
+
+def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum over the ranks of ``group`` of each rank's ``x`` (the same
+    shape and dtype on every rank), as a new tensor on ``x``'s device in
+    ``x``'s dtype; 16-bit floats are summed in fp32 and rounded once. Every
+    rank gets the same bits. None is the identity. No autograd: an ``x``
+    that autograd tracks raises, since the model axis has no backward yet."""
+    if group is None:
+        return x
+    refuse_grad("all_reduce_sum", x)
+    acc = x.detach().to(torch.float32) if x.dtype in _WIDEN else x.detach()
+    buf = _host(acc, group).contiguous()
+    if buf.data_ptr() == x.data_ptr():  # all_reduce works in place: never on the caller's tensor
+        buf = buf.clone()
+    dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group)
+    return buf.to(device=x.device, dtype=x.dtype)

@@ -17,27 +17,33 @@ through the gathers of :mod:`radzero_torch.parallel.collectives`.
   group, and returns None.
 - :func:`world`, :func:`rank`, :func:`process_offset` (the global image
   offset of this rank's share, ``multihost.py:70-72``), :func:`sync` (a
-  barrier) and :func:`check_mesh` (``train.mesh`` against the world,
-  ``mesh.py:28-46``).
+  barrier), :func:`mesh_shape` and :func:`check_mesh` (``train.mesh``
+  against the world, ``mesh.py:28-46``).
+- :func:`mesh_groups` lays the ranks out on a (data, model) grid in
+  row-major order, as ``create_mesh`` lays out devices: global rank
+  ``d * model + m``. It returns this rank's data group (the ranks that hold
+  the same parameters and different rows: ``group=``) and its model group
+  (the ranks that share one copy of the parameters and the same rows:
+  ``tp=``, with :mod:`radzero_torch.parallel.tensor_parallel`).
 
 Every function that takes ``group=`` treats None as "not distributed":
 no collective runs. A world of one with a real group runs every
 collective, each of which is then the identity on the bits.
 
-Not ported: ``sharding_rules.py`` (tensor sharding of parameters; the port
-replicates them on every rank, ROADMAP.md item 10) and
-``local_batch_to_global``, which has no counterpart: nothing assembles a
-global batch, the loss gathers what it needs.
+Not ported: ``local_batch_to_global``, which has no counterpart: nothing
+assembles a global batch, the loss gathers what it needs.
 """
 
 from __future__ import annotations
 
 import datetime
 import os
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.distributed as dist
+
+from radzero_torch.parallel.tensor_parallel import FORWARD_ONLY
 
 _TORCHRUN_VARS = ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")
 
@@ -107,20 +113,57 @@ def sync(name: str = "barrier", group=None) -> None:
             dist.barrier(group)
 
 
-def check_mesh(mesh: Optional[Dict[str, int]], world_size: int) -> int:
-    """``train.mesh`` against the ranks: ``{data: -1}`` absorbs the world,
-    ``{data: N}`` must equal it; returns the data-parallel size. Another
-    axis larger than 1 raises: parameters are replicated on every rank
-    (no tensor sharding, ROADMAP.md item 10)."""
+def mesh_shape(mesh: Optional[Dict[str, int]], world_size: int) -> Tuple[int, int]:
+    """``train.mesh`` against the ranks -> (data, model): ``model`` (default
+    1) must divide the world, ``data`` -1 absorbs the rest and otherwise
+    must make data x model the world. Another axis raises."""
     axes = dict(mesh or {"data": -1})
-    other = sorted(k for k, v in axes.items() if k != "data" and v != 1)
+    other = sorted(k for k, v in axes.items() if k not in ("data", "model") and v != 1)
     if other:
-        raise NotImplementedError(f"train.mesh {axes}: only the data axis is sharded; "
-                                  f"{other} must be 1")
-    data = axes.get("data", 1)
+        raise NotImplementedError(f"train.mesh {axes}: the axes are data and model; {other} "
+                                  "must be 1")
+    model, data = axes.get("model", 1), axes.get("data", 1)
+    if model < 1 or world_size % model:
+        raise ValueError(f"train.mesh {axes}: model {model} does not divide the world of "
+                         f"{world_size} processes (one a card)")
     if data == -1:
-        return world_size
-    if data != world_size:
-        raise ValueError(f"train.mesh {axes}: data {data} != the world of {world_size} "
-                         "processes (one a card)")
+        data = world_size // model
+    if data * model != world_size:
+        raise ValueError(f"train.mesh {axes}: data {data} x model {model} != the world of "
+                         f"{world_size} processes (one a card)")
+    return data, model
+
+
+def check_mesh(mesh: Optional[Dict[str, int]], world_size: int) -> int:
+    """``train.mesh`` as the trainer and ``cli/run.py`` take it: ``{data:
+    -1}`` absorbs the world, ``{data: N}`` must equal it; returns the
+    data-parallel size (:func:`mesh_shape`). A ``model`` axis larger than 1
+    raises NotImplementedError: the port runs it in the forward only
+    (:func:`mesh_groups`, ``compute_logits`` / ``forward_train``'s loss with
+    ``tp=``), and training over it is ROADMAP.md item 11."""
+    data, model = mesh_shape(mesh, world_size)
+    if model > 1:
+        raise NotImplementedError(f"train.mesh {mesh}: training over a model axis of "
+                                  f"{model}: {FORWARD_ONLY}")
     return data
+
+
+def mesh_groups(data: int, model: int):
+    """This rank's (data group, model group) of the (data, model) grid over
+    the default group's ranks, row-major: global rank ``d * model + m``,
+    data group ``{d' * model + m}``, model group ``{d * model + m'}``. Every
+    rank must call it, in the same order as its other ``new_group`` calls."""
+    size, me = dist.get_world_size(), dist.get_rank()
+    if data * model != size:
+        raise ValueError(f"a {data} x {model} grid needs {data * model} ranks, not {size}")
+    d, m = divmod(me, model)
+    data_group = model_group = None
+    for mm in range(model):
+        g = dist.new_group([dd * model + mm for dd in range(data)])
+        if mm == m:
+            data_group = g
+    for dd in range(data):
+        g = dist.new_group([dd * model + mm for mm in range(model)])
+        if dd == d:
+            model_group = g
+    return data_group, model_group
