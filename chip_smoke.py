@@ -274,7 +274,7 @@ Phases, in order; any failure exits non-zero:
    K6-K8 2, K9 12, K10-K12 1). Each leg's wall time and peak memory, and legs A
    and B's card ms a batch, beside the card line.
 
-13. the model axis (parallel/tensor_parallel.py, tp=; runs last), ~50-70 s: a, the
+13. the model axis (parallel/tensor_parallel.py, tp=; runs last), ~2-3 minutes: a, the
    row kernel of K3 / K4 over a model group (csrc/tp_rows.cu, tp_rows_kernel) in its
    four places (x + ls1 (acc + bo) with LN2; y32 + ls2 (acc + b2); x + (acc + bo)
    with LN written rounded and in fp32; LN(y32 + (acc + b2))) at 8 x 1370 x 768
@@ -292,7 +292,21 @@ Phases, in order; any failure exits non-zero:
    TP_LOSS_SLACK of itself), each call's launches those of one process with K3 /
    K4 over the group and the row kernel twice each, rank 0's device kernels by
    name, and the gloo all-reduce of the tower's partial through the host (no
-   interconnect measured, nothing claimed).
+   interconnect measured, nothing claimed); d, training over the group: in a, rank
+   0's share of K6, K8 and K9 split at their all-reduces (the sum the identity) at
+   phase 3's training shapes against their twins at phase 3's TOL, their bf16 device
+   kernels by name, times and bounds, beside the unsplit chains; in b, a bf16 step's
+   gradients under NCCL's group of one bit-equal to no group; in c's ranks, K6 / K8 /
+   K9 over the group against their twins with the same gloo all-reduce at seeds 0-3,
+   forward_train's gradient tree over the group (gathered whole) against one
+   process's (fp32 within tp_grad_gate, bf16 within TP_BF16_FACTOR of one process's
+   own bf16 miss, leaf by leaf), and under remat (align "save_attn", MPNet's recompute,
+   the flagship's gradient_checkpointing) bit-equal to each rank's own without,
+   TP_STEPS make_train_step steps in fp32 and bf16 (both ranks' losses and replicated
+   leaves bit-equal, the losses against one process's) and one remat step a dtype (its
+   update bit-equal to the first step's), each step's launches as tp_step_expected
+   derives them, rank 0's device kernels of a bf16 step and a bf16 remat step by name,
+   the step's wall time, its all-reduces' share and the SM clock.
 
 --profile also prints the kernels of one training step by device time
 (torch.profiler; the 40 longest, K15 / K16's by name, and the fixed-order
@@ -554,9 +568,11 @@ def device_kernels(fn, calls=5, tries=6, pad=0.05):
     time stamps fall inside the session, and those can sit off the host's
     clock). So the calls run ``pad``
     seconds after the session opens and the session closes ``pad`` seconds
-    after they end; a session that recorded nothing, or a kernel a number of
-    times that is no multiple of ``calls``, is profiled again with twice the
-    pad, up to ``tries`` sessions. The last session is returned as it is."""
+    after they end; a session that recorded nothing is profiled again with
+    twice the pad, one that recorded a kernel a number of times that is no
+    multiple of ``calls`` again at the same pad (longer pads recover such a
+    session no more often: about one retry in five at every pad from 0.05 to
+    1.6 s), up to ``tries`` sessions. The last session is returned as it is."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -575,7 +591,8 @@ def device_kernels(fn, calls=5, tries=6, pad=0.05):
             break
         print(f"  torch.profiler recorded {'part of the' if ran else 'no'} device activity in "
               f"session {attempt + 1} of {tries} ({pad:g} s pads)")
-        pad *= 2
+        if not ran:
+            pad *= 2
     return ran
 
 
@@ -1847,7 +1864,8 @@ WRAPPERS = (fl.fused_preattn, fl.flash_attention_packed, fl.fused_postattn, fl.f
             fl.fused_postattn_bwd, fl.fused_mpnet_post_bwd, vf.vlcabs_train_forward,
             vf.vlcabs_train_bwd_dq, vf.vlcabs_train_bwd_dtn, fa.flash_attention,
             fa.flash_attention_bwd, fa.flash_attention_bias, fa.flash_attention_bias_bwd,
-            fl.fused_postattn_tp, fl.fused_mpnet_post_tp, fl.tp_rows)
+            fl.fused_postattn_tp, fl.fused_mpnet_post_tp, fl.tp_rows, fl.fused_preattn_bwd_tp,
+            fl.fused_postattn_bwd_tp, fl.fused_mpnet_post_bwd_tp)
 t0 = time.time()
 runner, meta = load_zero_shot(bundle)
 t_load = time.time() - t0
@@ -2636,7 +2654,8 @@ def _counters():
             fl.fused_postattn_bwd, fl.fused_mpnet_post_bwd, vf.vlcabs_train_forward,
             vf.vlcabs_train_bwd_dq, vf.vlcabs_train_bwd_dtn, fa.flash_attention,
             fa.flash_attention_bwd, fa.flash_attention_bias, fa.flash_attention_bias_bwd,
-            fl.fused_postattn_tp, fl.fused_mpnet_post_tp, fl.tp_rows)
+            fl.fused_postattn_tp, fl.fused_mpnet_post_tp, fl.tp_rows, fl.fused_preattn_bwd_tp,
+            fl.fused_postattn_bwd_tp, fl.fused_mpnet_post_bwd_tp)
 
 
 def reset_counters():
@@ -3656,9 +3675,10 @@ def phase_checkpoint(seed, card):
     return launches
 
 
-def _grads(params, modules, c, batch, dtype, *, remat=False, stop=True, group=None):
+def _grads(params, modules, c, batch, dtype, *, remat=False, stop=True, group=None, tp=None):
     """(loss, every gradient leaf of the ``modules`` subtree) of forward_train; with
-    ``group`` this rank's share of the batch, the leaves averaged over the ranks."""
+    ``group`` this rank's share of the batch, the leaves averaged over the ranks; with
+    ``tp`` (a model group) ``params`` this rank's share, and so its gradients."""
     import torch
     from radzero_torch.models.radzero import forward_train
     from radzero_torch.parallel import average_gradients
@@ -3670,7 +3690,7 @@ def _grads(params, modules, c, batch, dtype, *, remat=False, stop=True, group=No
         p.requires_grad_(True)
     try:
         out = forward_train(merge_params(trainable, frozen), c, batch, dtype=dtype, remat=remat,
-                            stop_vision_gradient=stop, group=group)
+                            stop_vision_gradient=stop, group=group, tp=tp)
         grads = torch.autograd.grad(out["losses"]["loss"], leaves, allow_unused=True)
     finally:
         for p in leaves:
@@ -5531,7 +5551,7 @@ def phase_encoders(seed, card):
 
 
 # ---------------------------------------------------------------------------
-# 13. the model axis: the forward over a model group of two
+# 13. the model axis: the forward and training over a model group of two
 # ---------------------------------------------------------------------------
 
 TP_WORLD = 2              # ranks of the model group: processes sharing the one card under gloo
@@ -5546,8 +5566,9 @@ TP_SEEDS = (0, 1, 2, 3)   # the row kernel against its twin
 TOL[("tp_rows", "fp32")] = (2.0 ** -17, 2.0 ** -17, "scaled")
 TOL[("tp_rows", "bf16")] = (2.0 ** -17, 2.0 ** -7, "scaled")
 # bf16 over the group against one process's fp32: no farther than TP_BF16_FACTOR times
-# one process's own bf16 miss, per output (its largest entry); the loss, one number,
-# also gets TP_LOSS_SLACK of itself, since one draw of a rounding can miss by nothing
+# one process's own bf16 miss, per output (its largest entry) and per gradient leaf; a
+# scalar loss, one number, also gets TP_LOSS_SLACK of itself, since one draw of a
+# rounding can miss by nothing
 TP_BF16_FACTOR, TP_LOSS_SLACK = 2.0, 2.0 ** -8
 
 
@@ -5575,6 +5596,19 @@ def tp_fp32_gate(cfg) -> float:
     return 4.0 * layers * max(widths) ** 0.5 * 2.0 ** -24
 
 
+def tp_grad_gate(cfg) -> float:
+    """The largest miss, as a share of a gradient leaf's largest magnitude,
+    that fp32 gradients over a model axis may show against one process on the
+    same weights and batch. The forward's reordered sums reach the loss and
+    so the cotangent (tp_fp32_gate), and the backward reorders as many sums
+    again, in series through the same L layers: each split chain's partial
+    d(LN input) (K6, K8, K9 and the eager layers' column-parallel inputs)
+    sums k <= F products a rank in another order. Twice the forward's gate:
+    8 L sqrt(F) 2^-24 (6.8e-4 at the flagship). tests/test_torch_tp_train.py
+    holds the CPU's gradient trees to it as well."""
+    return 2.0 * tp_fp32_gate(cfg)
+
+
 TP_ROWS = "tp_rows_kernel"  # the row kernel (csrc/tp_rows.cu)
 ROUTES["tp_rows"] = {"bf16": (TP_ROWS + "<__nv_bfloat16, __nv_bfloat16, 3, true>",),
                      "fp32": (TP_ROWS + "<float, float, 3, true>",)}
@@ -5591,6 +5625,23 @@ TP_FORMS = {"K3 begin": ("x", True, True, True, False),
             "K3 end": ("y32", True, False, False, False),
             "K4 begin": ("x", False, True, False, True),
             "K4 end": ("y32", False, True, False, False)}
+# K6, K8 and K9 over the model axis in bf16 (rank 0's share, the sum the identity): K6's
+# chain is the unsplit one's with the sum before LN1's backward rows; K8 and K9 rerun
+# the row kernel's begin form on the kept o-proj sum in place of the forward's o-proj,
+# dhln and dyln's partials are fp32 products (<8, 1>), and K9 adds dv to the summed
+# partial in the row kernel (no bias, fp32 out)
+ROUTES["K6 tp"] = {"bf16": ROUTES["K6"]["bf16"]}
+ROUTES["K8 tp"] = {"bf16": (TP_ROWS + "<__nv_bfloat16, __nv_bfloat16, 3, true>", _sm90(7, 0),
+                            COLSUM + "true>", _sm90(8, 2), _sm90(9, 1), _sm90(8, 1),
+                            LN_BWD + "float, float, 3, 4>", _sm90(0, 1), REDUCE1, REDUCE)}
+ROUTES["K9 tp"] = {"bf16": (TP_ROWS + "<__nv_bfloat16, __nv_bfloat16, 3, true>", _sm90(7, 0),
+                            LN_BWD + "float, __nv_bfloat16, 3, 4>", _sm90(8, 2), _sm90(9, 1),
+                            _sm90(8, 1), TP_ROWS + "<__nv_bfloat16, float, 3, false>",
+                            LN_BWD + "float, float, 3, 4>", _sm90(0, 1), REDUCE1, REDUCE)}
+TP_STEPS = 3  # leg d: make_train_step steps over the group, fp32 and bf16
+# the gemm_sm90_kernel instantiations that only the unsplit K3 / K4 / K8 / K9 launch: a
+# training step over the group must run none of them
+TP_UNSPLIT_ONLY = tuple(_sm90(e, m) for e, m in ((1, 0), (3, 0), (4, 0), (5, 0), (6, 0), (5, 1)))
 
 
 def _serve_cfg():
@@ -5626,15 +5677,16 @@ def _tp_form(inp, name, dtype):
         "keep_ln32": keep_ln32 and dtype != inp["acc"].dtype}
 
 
-def _tp_split(k, ops, size=TP_WORLD):
-    """Rank 0's share of K3 / K4's operands (``k``) over ``size`` ranks: attn_out and
+def _tp_split(k, ops, size=TP_WORLD, r=0):
+    """Rank r's share of K3 / K4's operands (``k``) over ``size`` ranks: attn_out and
     wo by the heads, w1 / b1 by the MLP's columns, w2 by its rows; the rest whole."""
     ops = list(ops)
     i = 7 if k == "K3" else 6  # w1's place; b1 and w2 follow
     dl, fl_ = D // size, F // size
-    ops[1], ops[2] = ops[1][:, :dl].contiguous(), ops[2][:dl].contiguous()
-    ops[i], ops[i + 1] = ops[i][:, :fl_].contiguous(), ops[i + 1][:fl_].contiguous()
-    ops[i + 2] = ops[i + 2][:fl_].contiguous()
+    a, f = slice(r * dl, (r + 1) * dl), slice(r * fl_, (r + 1) * fl_)
+    ops[1], ops[2] = ops[1][:, a].contiguous(), ops[2][a].contiguous()
+    ops[i], ops[i + 1] = ops[i][:, f].contiguous(), ops[i + 1][f].contiguous()
+    ops[i + 2] = ops[i + 2][f].contiguous()
     return ops
 
 
@@ -5746,6 +5798,162 @@ def tp_kernel_rows(seed):
     return rows
 
 
+def _tp_bwd_case(k, dtype, gen, m, r=0, size=TP_WORLD):
+    """Rank r's operands of K6 / K8 / K9 over ``size`` ranks at m rows, drawn whole from
+    ``gen`` (every rank draws the same) and split by the JAX rules (K6: its
+    [q_r | k_r | v_r] columns of w_qkv, b_qkv and the cotangent; K8 / K9: K3 / K4's
+    split), with the whole cotangent of K8 / K9."""
+    import torch
+
+    def rn(*shape, std=1.0, mean=0.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * std + mean).to(dtype)
+
+    if k == "K6":
+        dl = D // size
+        cols = torch.cat([torch.arange(i * D + r * dl, i * D + (r + 1) * dl) for i in range(3)])
+        cols = cols.to("cuda")
+        x, s_, b_, w, bq = (rn(m, D), rn(D, std=0.1, mean=1.0), rn(D, std=0.1),
+                            rn(D, 3 * D, std=0.02), rn(3 * D, std=0.02))
+        g = rn(m, 3 * D)
+        return (x, s_, b_, w[:, cols].contiguous(), bq[cols].contiguous()), \
+            g[:, cols].contiguous()
+    ops = layer_inputs("K3" if k == "K8" else "K4", dtype, gen, m)
+    return tuple(_tp_split("K3" if k == "K8" else "K4", ops, size, r)), rn(m, D)
+
+
+def _tp_bwd_fns(k, ops, g, reduce):
+    """-> (the chain's call, its twin's call) of K6 / K8 / K9 over the axis on one
+    rank's operands, the sum over the ranks ``reduce``; K8 / K9 read the forward
+    chain's kept sums (computed here, once, as the row-parallel Function keeps them)."""
+    from radzero_torch.ops import fused_layer as fl
+
+    if k == "K6":
+        return (lambda: fl.fused_preattn_bwd_tp(*ops, g, reduce=reduce),
+                lambda: fl.fused_preattn_bwd_tp_plain(*ops, g, reduce=reduce))
+    chain, kern, plain, eps = ((fl.postattn_tp_chain, fl.fused_postattn_bwd_tp,
+                                fl.fused_postattn_bwd_tp_plain, 1e-6) if k == "K8" else
+                               (fl.mpnet_post_tp_chain, fl.fused_mpnet_post_bwd_tp,
+                                fl.fused_mpnet_post_bwd_tp_plain, 1e-12))
+    kept = chain(*ops, reduce=reduce, eps=eps, keep=True)[1]
+    return (lambda: kern(*ops, g, reduce=reduce, kept=kept, eps=eps),
+            lambda: plain(*ops, g, reduce=reduce, kept=kept, eps=eps))
+
+
+def tp_bwd_work(k, m, size=TP_WORLD, e=2):
+    """(operations, bytes) of rank 0's share of K6 / K8 / K9 over ``size`` ranks at m
+    rows. K6: dh = g W^T and dW = h^T g on the rank's 3D/P columns; reads x, g, W and
+    the vectors, writes dx, dW, db and the LN sums. K8 / K9: fc1 again and five backward
+    products on the rank's F/P columns and D/P heads (2 m D (5 F/P + 2 D/P)); reads x,
+    the rank's attention output, g, the two kept fp32 sums and the weights, writes dx,
+    da, the weight gradients and the vectors."""
+    dl, fl_ = D // size, F // size
+    if k == "K6":
+        return (4 * m * D * 3 * dl,
+                (2 * m * D + m * 3 * dl + 2 * D * 3 * dl + 3 * dl + 4 * D) * e)
+    return (2 * m * D * (5 * fl_ + 2 * dl),
+            (3 * m * D + 2 * m * dl + 2 * (dl * D + 2 * D * fl_) + 2 * (6 * D + fl_)) * e
+            + 2 * m * D * 4)
+
+
+def tp_bwd_products(k, ops, g):
+    """The yardstick, called nowhere in the port: a function that runs the products of
+    rank 0's share of K6 / K8 / K9 over the axis on cuBLAS (torch.matmul, bf16) at the
+    same shapes. K6: dh = g W^T, dW = h^T g. K8 / K9: fc1, dW2, dh1, dW1, dhln, da, dWo."""
+    if k == "K6":
+        x, w = ops[0], ops[3]
+        return lambda: (g @ w.T, x.T @ g)
+    a, wo = ops[1], ops[2]
+    w1, w2 = (ops[7], ops[9]) if k == "K8" else (ops[6], ops[8])
+    x = ops[0]
+    h = x @ w1  # stand-ins of the chain's rounded operands at their shapes
+
+    def run():
+        gl = x @ w1
+        return (gl.T @ g, g @ w2.T, x.T @ h, h @ w1.T, g @ wo.T, a.T @ g)
+
+    return run
+
+
+def tp_bwd_rows(seed):
+    """13a, the backward: rank 0's share of K6, K8 and K9 over two ranks (the sum the
+    identity) at phase 3's training shapes (64 images, 16 384 text rows) against their
+    twins at phase 3's TOL in fp32 and bf16, the bf16 chains' device kernels by name,
+    times by CUDA events, bounds, and the unsplit chains' times on the same rows.
+    -> {"K6 tp bwd": row, "K8 tp bwd": row, "K9 tp bwd": row}."""
+    import torch
+    from radzero_torch.ops import fused_layer as fl
+
+    rows = {}
+    same = lambda t: t  # noqa: E731 - rank 0's share alone: the sum over one rank
+    print(f"tensor parallel (phase 13), a: the backward, rank 0's share of K6 / K8 / K9 over "
+          f"{TP_WORLD} ranks (D/P {D // TP_WORLD}, F/P {F // TP_WORLD}), the sum the "
+          "identity, against their twins:")
+    for k, m in (("K6", TB * L), ("K8", TB * L), ("K9", TN * T_LEN)):
+        for dtype, dname in ((torch.float32, "fp32"), (torch.bfloat16, "bf16")):
+            gen = torch.Generator(device="cuda").manual_seed(seed)
+            ops, g = _tp_bwd_case(k, dtype, gen, m)
+            kern, twin = _tp_bwd_fns(k, ops, g, same)
+            out, ref = kern(), twin()
+            torch.cuda.synchronize()
+            worst = [compare(f"{k} tp {name}", dname, a, b, tol=k, quiet=True)
+                     for name, a, b in zip(BWD_OUTPUTS[k], out, ref)]
+            if not all(torch.equal(a, b) for a, b in zip(out, kern())):
+                fail(f"{k} over the axis {dname}: a second backward gives other bits")
+            del out, ref
+            err = max(w[0] for w in worst)
+            i = max(range(len(worst)), key=lambda j: worst[j][1])
+            ms = median_ms(kern, reps=5, warmup=1)
+            plain_ms = median_ms(twin, reps=3, warmup=1)
+            dev_ms = None
+            if dname == "bf16":
+                dev_ms = check_route(f"{k} tp", dname, kern, f"{k} tp")
+            print(f"  {k} tp bwd {dname}: {len(worst)} gradients, max_abs_err {err:.3e}; worst "
+                  f"{BWD_OUTPUTS[k][i]} at {100 * worst[i][1]:.0f}% of its tolerance; chain "
+                  f"{ms:.4f} ms, twin {plain_ms:.4f} ms (CUDA events, median)"
+                  f"{'' if dev_ms is None else f', {dev_ms:.4f} ms of device time'}")
+            if dname != "bf16":
+                continue
+            full = {"K6": fl.fused_preattn_bwd, "K8": fl.fused_postattn_bwd,
+                    "K9": fl.fused_mpnet_post_bwd}[k]
+            whole, gw = _tp_bwd_case(k, dtype, torch.Generator(device="cuda").manual_seed(seed),
+                                     m, size=1)
+            unsplit_ms = median_ms(lambda: full(*whole, gw), reps=5, warmup=1)
+            del whole, gw
+            cublas = median_ms(tp_bwd_products(k, ops, g), reps=5, warmup=1)
+            bound_ms, bound_by = bound_of(*tp_bwd_work(k, m))
+            rows[f"{k} tp bwd"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                                   "device_ms": dev_ms, "bound_ms": bound_ms,
+                                   "bound_by": bound_by, "library_ms": None,
+                                   "cublas_products_ms": cublas, "unsplit_ms": unsplit_ms,
+                                   "rows": m}
+            print(f"  {k} tp bwd bf16: bound {bound_ms:.4f} ms by {bound_by}: "
+                  f"{100 * bound_ms / dev_ms:.1f}% of the device time; its products on cuBLAS "
+                  f"{cublas:.4f} ms; the unsplit {k} on the whole operands {unsplit_ms:.4f} ms "
+                  f"(rank 0's share, {m} rows)")
+            del ops, g, kern, twin
+            torch.cuda.empty_cache()
+    return rows
+
+
+def tp_step_expected(one):
+    """The launches of one training step on a rank of a model group of two, from one
+    process's (default_step_launches): the forward's as tp_expected maps them, K6, K8
+    and K9 over the axis in place of the unsplit backwards, and the row kernel once
+    more in each K8 (the begin form on the kept sum) and twice in each K9 (the begin
+    form, and dv plus the summed partial)."""
+    out = tp_expected(one)
+    for name in ("fused_preattn_bwd", "fused_postattn_bwd", "fused_mpnet_post_bwd"):
+        out[name + "_tp"], out[name] = one[name], 0
+    out["tp_rows"] += one["fused_postattn_bwd"] + 2 * one["fused_mpnet_post_bwd"]
+    return out
+
+
+def sm_clock() -> str:
+    """The card's SM clock now, as nvidia-smi reads it."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader"],
+                          capture_output=True, text=True).stdout.strip()
+
+
 def tp_expected(one):
     """The launches of a call over a model group of two, from the same call's in one
     process: K3 and K4 row-parallel, the row kernel twice in each, the rest the same."""
@@ -5756,9 +5964,227 @@ def tp_expected(one):
     return out
 
 
+def _tp_bwd_gates(r, world, tp):
+    """13d on a rank: K6, K8 and K9 over the group against their twins with the same
+    gloo all-reduce as ``reduce``, at the training step's shapes (TP_IMAGES images,
+    TP_SENTENCES x T_LEN text rows), fp32 and bf16, seeds TP_SEEDS -> {(k, dname):
+    (max_abs_err, worst share of TOL)}; fails on a miss."""
+    import torch
+    from radzero_torch.parallel import all_reduce_sum
+
+    def reduce(t):
+        return all_reduce_sum(t, tp)
+
+    out = {}
+    for k, m in (("K6", TP_IMAGES * L), ("K8", TP_IMAGES * L), ("K9", TP_SENTENCES * T_LEN)):
+        for dtype, dname in ((torch.float32, "fp32"), (torch.bfloat16, "bf16")):
+            worst = (0.0, 0.0)
+            for s in TP_SEEDS:
+                ops, g = _tp_bwd_case(k, dtype, torch.Generator(device="cuda").manual_seed(s), m,
+                                      r, world)
+                kern, twin = _tp_bwd_fns(k, ops, g, reduce)
+                got, ref = kern(), twin()
+                for name, a, b in zip(BWD_OUTPUTS[k], got, ref):
+                    err, used = compare(f"{k} tp {name} rank {r} seed {s}", dname, a, b, tol=k,
+                                        quiet=True)
+                    worst = max(worst, (used, err))
+                del ops, g, kern, twin, got, ref
+            out[(k, dname)] = (worst[1], worst[0])
+    torch.cuda.empty_cache()
+    return out
+
+
+class _ReduceTimer:
+    """Times every all-reduce of the model group (the gloo sum through the host) while
+    it is on: the card is synchronised before each, so a sum's time is its own."""
+
+    def __init__(self):
+        from radzero_torch.parallel import collectives
+
+        self.mod, self.inner, self.s, self.n = collectives, collectives._reduce, 0.0, 0
+
+    def __enter__(self):
+        import torch
+
+        def timed(x, group):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = self.inner(x, group)
+            self.s += time.perf_counter() - t0
+            self.n += 1
+            return out
+
+        self.mod._reduce = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._reduce = self.inner
+
+
+def _leaf_paths(tree, prefix=""):
+    """The dotted path of every leaf, in tree_leaves order (dict keys sorted)."""
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree) for p in _leaf_paths(tree[k], f"{prefix}{k}.")]
+    if isinstance(tree, list):
+        return [p for i, v in enumerate(tree) for p in _leaf_paths(v, f"{prefix}{i}.")]
+    return [prefix[:-1]]
+
+
+def _tp_step_kernels(r, step, args):
+    """Rank 0's device kernels of one step (both ranks step, as often as rank 0's
+    session needs to record one: the collectives must match)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for attempt in range(6):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            time.sleep(0.05 * 2 ** attempt)
+            step(*args)
+            torch.cuda.synchronize()
+            time.sleep(0.05 * 2 ** attempt)
+        ran = sorted({e.key for e in prof.key_averages() if e.device_type == DeviceType.CUDA})
+        again = torch.tensor([int(r == 0 and not ran)])
+        torch.distributed.all_reduce(again)
+        if not again.item():
+            return ran
+    return ran
+
+
+def _tp_train_leg(r, world, seed, params, tp, res):
+    """13d on a rank: the bwd gates, then forward_train's gradient tree over the group
+    in fp32 and bf16 (gathered whole on every rank; rank 0 holds it against one process's
+    at the same weights, leaf by leaf) and under remat (the flagship's
+    gradient_checkpointing: align "save_attn", MPNet's recompute) against the same rank's
+    without, then TP_STEPS make_train_step steps in each dtype (rank 0 also one
+    process's steps), the launches of each step, the wall time of each step and, for one
+    more bf16 step, the all-reduces' share of it, one remat step in each dtype from the
+    same start as the first, and rank 0's device kernels of a bf16 step without and with
+    remat."""
+    import torch
+
+    from radzero_torch.parallel import param_specs, shard_params, split_leaves
+    from radzero_torch.parallel.tensor_parallel import gather_whole
+    from radzero_torch.train.optim import build_optimizer, partition_params
+    from radzero_torch.train.step import make_train_step
+    from radzero_torch.utils.tree import tree_leaves, tree_unflatten
+
+    t0 = time.perf_counter()
+    res["bwd_gates"] = _tp_bwd_gates(r, world, tp)
+    res["bwd_gates_s"] = time.perf_counter() - t0
+    tcfg = _train_cfg()
+    specs = param_specs(params, world)
+    tspecs = {k: specs[k] for k in DIST_MODULES}
+    split = split_leaves(tspecs)
+    share = shard_params(params, r, world)
+    like = partition_params(share, DIST_MODULES)[0]
+    names = _leaf_paths(like)
+    dts = (("fp32", torch.float32), ("bf16", torch.bfloat16))
+    batches = {dn: train_batch(seed + 3, TP_IMAGES, TP_SENTENCES, tcfg.text.vocab_size, dt)
+               for dn, dt in dts}
+    one32 = None
+    for dname, dtype in dts:  # the gradient tree over the group against one process's
+        loss, grads = _grads(share, DIST_MODULES, tcfg, batches[dname], dtype, tp=tp)
+        rloss, rgrads = _grads(share, DIST_MODULES, tcfg, batches[dname], dtype, tp=tp,
+                               remat=True)
+        res[f"remat_grads_same_{dname}"] = torch.equal(loss, rloss) and all(
+            torch.equal(a, b) for a, b in zip(grads, rgrads))
+        del rgrads
+        whole = tree_leaves(gather_whole(tree_unflatten(grads, like), tspecs, tp))
+        res[f"grad_loss_{dname}"] = loss.float().cpu()
+        res[f"grads_sha_{dname}"] = _sha(whole)
+        if r == 0:
+            one_loss, one = _grads(params, DIST_MODULES, tcfg, batches[dname], dtype)
+            res[f"one_grad_loss_{dname}"] = one_loss.float().cpu()
+            if dname == "fp32":
+                gate = tp_grad_gate(tcfg)
+                res["grad_gate_fp32"] = max(
+                    ((a - b).abs().max() / (gate * b.abs().max() + 1e-7)).item()
+                    for a, b in zip(whole, one))
+                one32 = one
+            else:  # per leaf: TP_BF16_FACTOR x one process's own bf16 miss + 1e-7
+                used = [((a.float() - c).abs().max() / (
+                    TP_BF16_FACTOR * (b.float() - c).abs().max() + 1e-7)).item()
+                    for a, b, c in zip(whole, one, one32)]
+                res["grad_gate_bf16"] = max(used)
+                res["grad_bf16_worst"] = sorted(zip(used, names), reverse=True)[:3]
+                one32 = None
+            del one
+        del grads, whole
+        torch.cuda.empty_cache()
+
+    def fresh():
+        trainable, frozen = partition_params(share, DIST_MODULES)
+        trainable = _clone(trainable)
+        opt, _ = build_optimizer(learning_rate=1e-4, warmup_steps=1, total_steps=6)
+        return trainable, frozen, opt, opt.init(trainable)
+
+    for dname, dtype in dts:  # steps over the group; rank 0 also one process's
+        for who in (("group", "one") if r == 0 else ("group",)):
+            src = share if who == "group" else params
+            trainable, frozen = partition_params(src, DIST_MODULES)
+            trainable = _clone(trainable)
+            opt, _ = build_optimizer(learning_rate=1e-4, warmup_steps=1, total_steps=6)
+            state = opt.init(trainable)
+            step = make_train_step(tcfg, opt, dtype=dtype,
+                                   **({"tp": tp, "specs": specs} if who == "group" else {}))
+            rows = []
+            for i in range(TP_STEPS + (dname == "bf16" and who == "group")):
+                timer = None
+                if who == "group" and dname == "bf16" and i == TP_STEPS:  # the all-reduces' share
+                    timer = _ReduceTimer()
+                    timer.__enter__()
+                reset_counters()
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                trainable, state, losses = step(trainable, frozen, state, batches[dname])
+                torch.cuda.synchronize()
+                row = {"s": time.perf_counter() - t1, "launches": read_counters(),
+                       "losses": {k: v.item() for k, v in losses.items()}, "clock": sm_clock()}
+                if timer is not None:
+                    timer.__exit__()
+                    row.update(reduce_s=timer.s, reduces=timer.n)
+                if who == "group" and i == 0:  # the moments hold the gradients at lr 0
+                    row["sha"] = _sha(tree_leaves(trainable) + state["mu"] + state["nu"])
+                rows.append(row)
+            res[f"steps_{who}_{dname}"] = rows
+            if who == "group":
+                leaves = tree_leaves(trainable)
+                res[f"replicated_sha_{dname}"] = _sha([t for t, sp in zip(leaves, split)
+                                                       if not sp])
+            del trainable, frozen, state, step, opt
+            torch.cuda.empty_cache()
+    for dname, dtype in dts:  # one remat step over the group from the first step's start
+        trainable, frozen, opt, state = fresh()
+        step = make_train_step(tcfg, opt, dtype=dtype, remat=True, tp=tp, specs=specs)
+        reset_counters()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        trainable, state, losses = step(trainable, frozen, state, batches[dname])
+        torch.cuda.synchronize()
+        res[f"remat_step_{dname}"] = {
+            "s": time.perf_counter() - t1, "launches": read_counters(),
+            "losses": {k: v.item() for k, v in losses.items()},
+            "sha": _sha(tree_leaves(trainable) + state["mu"] + state["nu"])}
+        if dname == "bf16":  # rank 0's device kernels of a remat step
+            res["remat_step_kernels"] = _tp_step_kernels(
+                r, step, (trainable, frozen, state, batches[dname]))
+        del trainable, frozen, state, step, opt
+        torch.cuda.empty_cache()
+    # rank 0's device kernels of one bf16 step over the group (both ranks step)
+    trainable, frozen, opt, state = fresh()
+    step = make_train_step(tcfg, opt, dtype=torch.bfloat16, tp=tp, specs=specs)
+    step(trainable, frozen, state, batches["bf16"])
+    res["step_kernels"] = _tp_step_kernels(r, step, (trainable, frozen, state, batches["bf16"]))
+    del trainable, frozen, state, step
+    torch.cuda.empty_cache()
+
+
 def tp_rank(argv) -> int:
     """chip_smoke.py --tp-rank RANK WORLD INIT OUT SEED: a rank of phase 13's model
-    group; its outputs, launches and times go to OUT/rank{RANK}.pt."""
+    group, the forward (13c) and then training over the group (13d, _tp_train_leg);
+    its outputs, launches and times go to OUT/rank{RANK}.pt."""
     r, world, init, out, seed = (int(argv[0]), int(argv[1]), argv[2], Path(argv[3]),
                                  int(argv[4]))
     sys.path.insert(0, str(REPO))
@@ -5789,8 +6215,6 @@ def tp_rank(argv) -> int:
         shares = {dn: shard_params(cast_params(params, dt, "cuda"), r, world)
                   for dn, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16))}
         res["share_bytes"] = sum(t.numel() * t.element_size() for t in _leaves(shares["fp32"]))
-        del params
-        torch.cuda.empty_cache()
         inp = tp_inputs(seed, cfg.text.vocab_size)
         total = None
         with torch.no_grad():
@@ -5836,6 +6260,11 @@ def tp_rank(argv) -> int:
                 all_reduce_sum(part, tp)
             torch.cuda.synchronize()
             res["all_reduce_ms"] = (time.perf_counter() - t1) / 5 * 1e3
+        del shares, part
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        _tp_train_leg(r, world, seed, params, tp, res)
+        res["train_leg_s"] = time.perf_counter() - t1
         torch.save(res, out / f"rank{r}.pt")
     finally:
         torch.distributed.destroy_process_group()
@@ -5865,6 +6294,7 @@ def phase_tensor_parallel(seed, card):
 
     t_phase = time.perf_counter()
     rows = tp_kernel_rows(seed)
+    rows |= tp_bwd_rows(seed)
     dts = (("fp32", torch.float32), ("bf16", torch.bfloat16))
 
     # 13b: one process, then a model group of one under NCCL
@@ -5905,12 +6335,21 @@ def phase_tensor_parallel(seed, card):
                 _, tp1 = mesh_groups(1, 1)
                 same = {dname: all(torch.equal(v, one[(k, dname)])
                                    for k, v in run(dname, tp1)[0].items()) for dname, _ in dts}
+                with torch.enable_grad():  # 13d: a bf16 training step's gradients
+                    batch = train_batch(seed + 3, TP_IMAGES, TP_SENTENCES, tcfg.text.vocab_size,
+                                        torch.bfloat16)
+                    a = _grads(params, DIST_MODULES, tcfg, batch, torch.bfloat16, tp=tp1)
+                    b = _grads(params, DIST_MODULES, tcfg, batch, torch.bfloat16)
+                same["grads bf16"] = torch.equal(a[0], b[0]) and all(
+                    torch.equal(x, y) for x, y in zip(a[1], b[1]))
+                del a, b, batch
             finally:
                 torch.distributed.destroy_process_group()
     if not all(same.values()):
         fail(f"tensor parallel: a model group of one under NCCL differs from no group: {same}")
     print(f"  a model group of one under NCCL (mesh_groups(1, 1)): logits, maps and loss "
-          f"bit-equal to no group in fp32 and bf16; {time.perf_counter() - t0:.1f} s")
+          f"bit-equal to no group in fp32 and bf16, and a bf16 training step's loss and "
+          f"gradient tree (13d); {time.perf_counter() - t0:.1f} s")
     del trees, params
     torch.cuda.empty_cache()
 
@@ -5926,11 +6365,12 @@ def phase_tensor_parallel(seed, card):
             stdout=open(tmp / f"rank{r}.log", "w"), stderr=subprocess.STDOUT,
             start_new_session=True) for r in range(TP_WORLD)]
         deadline = time.monotonic() + 600
-        try:
-            for p in procs:
-                p.wait(timeout=max(deadline - time.monotonic(), 1.0))
-        except subprocess.TimeoutExpired:
-            pass
+        try:  # until every rank exits, one fails (the others would wait in a collective) or the deadline
+            while time.monotonic() < deadline:
+                codes = [p.poll() for p in procs]
+                if None not in codes or any(c not in (None, 0) for c in codes):
+                    break
+                time.sleep(0.5)
         finally:
             for p in procs:
                 if p.poll() is None:
@@ -6014,9 +6454,157 @@ def phase_tensor_parallel(seed, card):
           f"{B * L * D * 4 / 1e6:.1f} MB) through the host: {res[0]['all_reduce_ms']:.1f} ms "
           f"(rank 0, mean of 5), {2 * (cfg.vision.num_hidden_layers + cfg.align.num_hidden_layers)}"
           f" a tower pass; one card, no interconnect measured, nothing claimed")
+    steps = tp_train_gates(res, tcfg)
     print(f"  phase 13 (tensor parallel) {time.perf_counter() - t_phase:.1f} s (ranks "
-          f"{ranks_s:.1f} s) on {card}")
-    return res[0]["launches"], rows
+          f"{ranks_s:.1f} s, of them 13d {res[0]['train_leg_s']:.1f} s) on {card}")
+    return {k: v + steps[k] for k, v in res[0]["launches"].items()}, rows
+
+
+def tp_train_gates(res, tcfg):
+    """13d's gates over the ranks' results (rank 0 first): the bwd chains' gloo gates
+    (each rank failed on a miss already), the gradient tree over the group against one
+    process (fp32 within tp_grad_gate, bf16 within TP_BF16_FACTOR of one process's own
+    miss, leaf by leaf) and the same on both ranks, remat's gradients bit-equal to each
+    rank's own without, the steps' losses the same on both ranks and against one
+    process's, the replicated leaves bit-equal after the steps, each step's launches as
+    tp_step_expected derives them (a remat step's with K1 on the align layers and MPNet's
+    recompute), the remat step's update bit-equal to the first step's, and rank 0's
+    device kernels of a bf16 step without and with remat. -> rank 0's launches over its
+    group steps."""
+    import torch
+
+    print(f"tensor parallel (phase 13), d: training over the group, {TP_WORLD} gloo ranks on "
+          f"the card, the flagship at full width and depth ({TP_IMAGES} images x "
+          f"{TP_SENTENCES} sentences of {T_LEN} slots a step)")
+    r0 = res[0]
+    for (k, dname), (err, used) in sorted(r0["bwd_gates"].items()):
+        worst = max(x["bwd_gates"][(k, dname)][1] for x in res)
+        print(f"  {k} over the axis {dname}, each rank's chain against its twin with the same "
+              f"gloo all-reduce, seeds {TP_SEEDS}: worst entry at {100 * worst:.0f}% of phase "
+              f"3's TOL (rank 0's max_abs_err {err:.3e}) ok")
+    for x in res[1:]:
+        for dname in ("fp32", "bf16"):
+            if (x[f"grads_sha_{dname}"] != r0[f"grads_sha_{dname}"]
+                    or not torch.equal(x[f"grad_loss_{dname}"], r0[f"grad_loss_{dname}"])):
+                fail(f"tensor parallel: the ranks' {dname} loss or gathered gradients differ")
+    gate = tp_grad_gate(tcfg)
+    for dname, share, what in (("fp32", r0["grad_gate_fp32"], f"tp_grad_gate {gate:.3e} of "
+                                "each leaf's max |one process| + 1e-7"),
+                               ("bf16", r0["grad_gate_bf16"], f"{TP_BF16_FACTOR:g}x one "
+                                "process's own bf16 miss of the leaf + 1e-7")):
+        worst = ("; the worst leaves " + ", ".join(f"{name} {100 * u:.1f}%"
+                                                    for u, name in r0["grad_bf16_worst"])
+                 if dname == "bf16" else "")
+        print(f"  {dname} gradient tree over the group against one process (loss "
+              f"{r0[f'grad_loss_{dname}'].item():.6f} / {r0[f'one_grad_loss_{dname}'].item():.6f}"
+              f"): worst leaf at {100 * share:.1f}% of its gate ({what}){worst} "
+              f"{'ok' if share <= 1 else 'FAIL'}")
+        if share > 1:
+            fail(f"tensor parallel: the {dname} gradient tree over the group misses one process")
+    for x in res:
+        for dname in ("fp32", "bf16"):
+            if not x[f"remat_grads_same_{dname}"]:
+                fail(f"tensor parallel: the {dname} loss or a gradient leaf under remat differs "
+                     "from the same rank's without remat")
+    print("  under remat (align \"save_attn\": K8 over the group, K1 again, K7 from the kept "
+          "output and lse, K6 over the group; MPNet's recompute), each rank's fp32 and bf16 "
+          "loss and gradient shares bit-equal to its own without remat ok")
+    expect = tp_step_expected(default_step_launches(tcfg))
+    total = {k: 0 for k in expect}
+    for dname in ("fp32", "bf16"):
+        rows = r0[f"steps_group_{dname}"]
+        for x in res[1:]:
+            if [row["losses"] for row in x[f"steps_group_{dname}"]] != [row["losses"]
+                                                                        for row in rows]:
+                fail(f"tensor parallel: the ranks' {dname} step losses differ")
+            if x[f"replicated_sha_{dname}"] != r0[f"replicated_sha_{dname}"]:
+                fail(f"tensor parallel: a replicated leaf differs across the ranks after the "
+                     f"{dname} steps")
+        for x in res:
+            for i, row in enumerate(x[f"steps_group_{dname}"]):
+                if row["launches"] != expect:
+                    fail(f"tensor parallel: {dname} step {i} launched {row['launches']}, "
+                         f"expected {expect}")
+        for row in rows:
+            total = {k: v + row["launches"][k] for k, v in total.items()}
+        one = r0[f"steps_one_{dname}"]
+        for i, (row, ref) in enumerate(zip(rows, one)):
+            for name, v in row["losses"].items():
+                r = ref["losses"][name]
+                if dname == "fp32":
+                    ok = abs(v - r) <= 5e-4 * abs(r) + 1e-6
+                else:  # against one process's fp32 step at the same count
+                    r32 = r0["steps_one_fp32"][i]["losses"][name]
+                    ok = abs(v - r32) <= TP_BF16_FACTOR * abs(r - r32) + TP_LOSS_SLACK * abs(r32)
+                if not ok:
+                    fail(f"tensor parallel: {dname} step {i} {name} {v} against one process's "
+                         f"{r}")
+        print(f"  {dname}: {TP_STEPS} steps over the group, losses "
+              + ", ".join(f"{row['losses']['loss']:.6f}" for row in rows[:TP_STEPS])
+              + " (one process " + ", ".join(f"{row['losses']['loss']:.6f}"
+                                             for row in one[:TP_STEPS])
+              + f"), grad_norm {rows[0]['losses']['grad_norm']:.4f} / "
+              f"{one[0]['losses']['grad_norm']:.4f}; both ranks the same losses and the same "
+              f"replicated leaves; {'rtol 5e-4' if dname == 'fp32' else 'the bf16 gate'} ok; "
+              f"step wall time " + ", ".join(f"{row['s']:.2f}" for row in rows)
+              + f" s on rank 0 (one process " + ", ".join(f"{row['s']:.3f}" for row in one)
+              + " s), SM clock " + ", ".join(row["clock"] for row in rows))
+    n_align, n_text = tcfg.align.num_hidden_layers, tcfg.text.num_hidden_layers
+    expect_remat = tp_step_expected({k: v + {"fused_preattn": n_align,
+                                             "fused_mpnet_post": n_text}.get(k, 0)
+                                     for k, v in default_step_launches(tcfg).items()})
+    for dname in ("fp32", "bf16"):
+        ref = r0[f"steps_group_{dname}"][0]
+        for x in res:
+            row = x[f"remat_step_{dname}"]
+            if row["launches"] != expect_remat:
+                fail(f"tensor parallel: the {dname} remat step launched {row['launches']}, "
+                     f"expected {expect_remat}")
+            if row["losses"] != x[f"steps_group_{dname}"][0]["losses"] or (
+                    row["sha"] != x[f"steps_group_{dname}"][0]["sha"]):
+                fail(f"tensor parallel: the {dname} remat step's losses, parameters or "
+                     "moments differ from the first step's without remat")
+        total = {k: v + r0[f"remat_step_{dname}"]["launches"][k] for k, v in total.items()}
+        print(f"  {dname}: one remat step over the group from the first step's start: loss "
+              f"{ref['losses']['loss']:.6f}, grad_norm {ref['losses']['grad_norm']:.4f}, the "
+              f"parameters and both moments bit-equal to the step without remat on each rank; "
+              f"{r0[f'remat_step_{dname}']['s']:.2f} s on rank 0 (without remat "
+              f"{ref['s']:.2f} s)")
+    print(f"  launches a remat step on each rank: a step's and K1 {n_align} more (align "
+          f"\"save_attn\"), K4 over the group {n_text} more and the row kernel {2 * n_text} "
+          f"more (MPNet's recompute): K1 {expect_remat['fused_preattn']}, K4 over the group "
+          f"{expect_remat['fused_mpnet_post_tp']}, the row kernel {expect_remat['tp_rows']} ok")
+    timed = r0["steps_group_bf16"][-1]
+    print(f"  one more bf16 step with its all-reduces timed: {timed['s']:.2f} s, of it "
+          f"{timed['reduce_s']:.2f} s ({100 * timed['reduce_s'] / timed['s']:.0f}%) in "
+          f"{timed['reduces']} gloo all-reduces through the host (the card synchronised "
+          "before each; one card, no interconnect, nothing claimed)")
+    print(f"  launches a step on each rank as derived from one process's (tp_step_expected): "
+          f"K1 {expect['fused_preattn']}, K2 {expect['flash_attention_packed']}, K3 over the "
+          f"group {expect['fused_postattn_tp']}, K4 over the group "
+          f"{expect['fused_mpnet_post_tp']}, K6 over the group "
+          f"{expect['fused_preattn_bwd_tp']}, K7 {expect['flash_attention_packed_bwd']}, K8 "
+          f"over the group {expect['fused_postattn_bwd_tp']}, K9 over the group "
+          f"{expect['fused_mpnet_post_bwd_tp']}, the row kernel {expect['tp_rows']}, "
+          f"K10-K12 {expect['vlcabs_train_forward']} each; no unsplit K3, K4, K6, K8 or K9")
+    want = (TP_ROWS + "<__nv_bfloat16, __nv_bfloat16, 3, true>",
+            TP_ROWS + "<__nv_bfloat16, float, 3, false>", _sm90(8, 1), _sm90(8, 2), _sm90(7, 0),
+            HOPPER_BWD[0], VLC_PHASE1)
+    for what, key in (("bf16 step", "step_kernels"), ("bf16 remat step", "remat_step_kernels")):
+        ran = r0[key]
+        if not ran:
+            fail(f"tensor parallel: torch.profiler recorded no device kernel of rank 0's {what}")
+        missing = [k for k in want if not any(k in name for name in ran)]
+        banned = [name for name in ran if "gemm_f32_kernel" in name
+                  or any(b in name for b in TP_UNSPLIT_ONLY)]
+        if missing or banned:
+            fail(f"tensor parallel: rank 0's {what} ran {ran}: missing {missing}, not "
+                 f"expected {banned}")
+        print(f"  the device kernels of one {what} on rank 0: {len(ran)} names, among them "
+              f"the row kernel's begin form and K9's dv + sum form, the fp32 partial products "
+              f"<8, 1>, K7; none of the unsplit chains' epilogues {', '.join(TP_UNSPLIT_ONLY)} "
+              "and no gemm_f32_kernel")
+    return total
 
 
 def _clone(tree):
@@ -6144,8 +6732,8 @@ def main() -> int:
     # of phase 11's leg B, phase 12's: SAM's serving batch (leg A), the BiomedCLIP +
     # BERT scorer run (leg B) and the SAM-tower training step (leg D), and phase 13's
     # four calls over the model group on rank 0 (compute_logits and forward_train's
-    # loss in fp32 and bf16); each path was driven with every count at 0 and read right
-    # after
+    # loss in fp32 and bf16) and its training steps over the group (leg d); each path
+    # was driven with every count at 0 and read right after
     from radzero_torch.ops import registry
 
     kernels = [
@@ -6178,14 +6766,22 @@ def main() -> int:
     k11["backward_k11_k12"] = rows["K11+K12"]  # vlcabs_train_bwd: K11 and K12 at once
     # phase 13's kernels: K3 and K4 row-parallel over the model group (the JAX rules'
     # split of fused_layer.py:913 and :760), whose chains end each all-reduce with the
-    # row kernel; their launches are rank 0's over the phase's four calls
+    # row kernel, and K6, K8 and K9 split at their all-reduces; their launches are rank
+    # 0's over the phase's four forward calls and its training steps over the group
     for name, key, src, rep in (
             ("fused_postattn_tp", "K3 tp", "radzero_torch/ops/csrc/gemm_sm90.cu",
              "radzero_tpu/ops/fused_layer.py:913"),
             ("fused_mpnet_post_tp", "K4 tp", "radzero_torch/ops/csrc/gemm_sm90.cu",
              "radzero_tpu/ops/fused_layer.py:760"),
             ("tp_rows", "tp_rows", "radzero_torch/ops/csrc/tp_rows.cu",
-             "radzero_tpu/ops/fused_layer.py:913")):
+             "radzero_tpu/ops/fused_layer.py:913"),
+            # the backwards split at their all-reduces (13d's steps; 13a's rows)
+            ("fused_preattn_bwd_tp", "K6 tp bwd", "radzero_torch/ops/csrc/gemm_sm90.cu",
+             "radzero_tpu/ops/fused_layer.py:390"),
+            ("fused_postattn_bwd_tp", "K8 tp bwd", "radzero_torch/ops/csrc/gemm_sm90.cu",
+             "radzero_tpu/ops/fused_layer.py:568"),
+            ("fused_mpnet_post_bwd_tp", "K9 tp bwd", "radzero_torch/ops/csrc/gemm_sm90.cu",
+             "radzero_tpu/ops/fused_layer.py:820")):
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": rep,
                         "registered_op": None, "launches": tensor_parallel[name],
                         "launches_tensor_parallel": tensor_parallel[name], **tp_rows_[key]})

@@ -28,6 +28,17 @@ through ``DistributedInference`` (datasets sharded over the ranks, rank 0
 merging ``result.json``). NCCL takes one rank a card: on one card it runs
 only as a world of one.
 
+``train.mesh: {data: D, model: M}`` (M > 1, D x M the world) trains on a
+(data x model) grid (``parallel/dist.py`` ``mesh_groups``, global rank ``d *
+M + m``): the loader shards the records by data rank over the D data ranks,
+a data rank takes ``per_device_train_batch_size * M`` images a step (so the
+global batch is the JAX CLI's ``per_device_train_batch_size *
+mesh.devices.size``, radzero_tpu/cli/run.py:168), the M ranks of a model
+group read the same batches, and the trainer splits the model over the
+group (``RadZeroTrainer(group=data group, tp=model group)``). The
+checkpoints hold the whole tree; the zero-shot suite runs on the whole tree
+gathered after training.
+
 ``model.pretrained_ckpt`` names a directory that
 ``python -m radzero_torch.tools.convert_checkpoint`` wrote (its
 ``state.pt``), read onto the tree the config initialises, as the JAX CLI
@@ -54,7 +65,9 @@ from radzero_torch.eval.inference import Inference
 from radzero_torch.eval.scorer import ZeroShotScorer
 from radzero_torch.models.configuration import radzero_config_from_dict
 from radzero_torch.models.radzero import init_radzero
-from radzero_torch.parallel.dist import check_mesh, init_distributed, local_rank, rank, world
+from radzero_torch.parallel.dist import (
+    check_mesh, init_distributed, local_rank, mesh_groups, rank, world,
+)
 from radzero_torch.train.trainer import RadZeroTrainer, TrainerArgs
 from radzero_torch.utils.experiment import code_snapshot, output_directory_setting
 from radzero_torch.utils.logging import load_logger
@@ -182,7 +195,11 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
 
 def _main(args: argparse.Namespace, device: torch.device, group) -> int:
     cfg = Config(args).config
-    check_mesh(cfg["train"].get("mesh", {"data": -1}), world(group))
+    data = check_mesh(cfg["train"].get("mesh", {"data": -1}), world(group))
+    model = world(group) // data
+    dgroup, tp = group, None  # the data group and the model group of the grid
+    if model > 1:
+        dgroup, tp = mesh_groups(data, model)
     logger = load_logger()
     output_dir = output_directory_setting(cfg, logger)
     if rank(group) == 0:
@@ -199,29 +216,30 @@ def _main(args: argparse.Namespace, device: torch.device, group) -> int:
         datasets = load_datasets(cfg["dataset"], train=True)
         loader = pil_image_loader(image_processor)
         tower_cache = tower_cache_from(cfg, output_dir, len(datasets["train"]))
-        # each rank reads its shard of the records, per_device_*_batch_size a step
-        shard = {} if group is None else dict(process_index=rank(group),
-                                              process_count=world(group))
+        # each data rank reads its shard of the records, per_device_*_batch_size a
+        # card a step: the model group's M cards share one batch
+        shard = {} if data == 1 else dict(process_index=rank(dgroup), process_count=data)
         train_loader = TrainLoader(
-            datasets["train"], loader, tokenizer, cfg["train"]["per_device_train_batch_size"],
+            datasets["train"], loader, tokenizer,
+            cfg["train"]["per_device_train_batch_size"] * model,
             spec, seed=seed, with_indices=tower_cache is not None,
             # train.echo: data echoing, each decoded batch yields `echo`
             # optimizer steps (TrainLoader docstring)
             echo=int(cfg["train"].get("echo", 1)), **shard,
         )
         eval_loader = TrainLoader(
-            datasets["eval"], loader, tokenizer, cfg["train"]["per_device_eval_batch_size"],
-            spec, shuffle=False, **shard,
+            datasets["eval"], loader, tokenizer,
+            cfg["train"]["per_device_eval_batch_size"] * model, spec, shuffle=False, **shard,
         )
         trainer = RadZeroTrainer(
             model_cfg, trainer_args(cfg, output_dir, loss_ratio), train_loader, eval_loader,
-            params=params, device=device, tower_cache=tower_cache, group=group,
+            params=params, device=device, tower_cache=tower_cache, group=dgroup, tp=tp,
         )
         resume = cfg["args"].get("resume_from_checkpoint")
         if resume is None:
             resume = cfg["experiment"].get("resume_from_checkpoint", False)
         trainer.train(resume_from_checkpoint=resume or None)
-        params = trainer.params
+        params = trainer.params if tp is None else trainer.whole_params()
 
     # post-train zero-shot suite from the best model, fp32 (ref run.py:123-169)
     if cfg["args"]["inference"]:

@@ -14,8 +14,10 @@ outside any Pallas kernel; their kernels are (d_in, d_out).
 ``tp`` (a model group; the parameters this rank's share under
 ``parallel/tensor_parallel.py``'s rules) runs ``align_transformer``'s layers
 row-parallel (``models/vit.py``), and ``mlp``'s fc1 / fc2 as the JAX rules
-split them: fc1 column-parallel, fc2 row-parallel with one all-reduce.
-``linear`` and ``identity`` hold no split weight. Forward only.
+split them: fc1 column-parallel (its input through ``copy_to_model``, so
+its gradient is summed over the ranks), fc2 row-parallel with one
+all-reduce. ``linear`` and ``identity`` hold no split weight. Forward and
+backward.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ import torch
 
 from radzero_torch.models.configuration import AlignConfig
 from radzero_torch.models.vit import _init_linear, init_vit_layers, vit_encoder
-from radzero_torch.ops.layers import layer_norm, linear, row_linear
+from radzero_torch.ops.layers import column_linear, layer_norm, linear, row_linear
 from radzero_torch.parallel.tensor_parallel import active
 
 MLP_HIDDEN = 1024
@@ -72,9 +74,9 @@ def _mlp_init(g, cfg: AlignConfig) -> dict:
 
 def _mlp_apply(params, cfg, tokens, *, impl="fused", remat=False, tp=None):
     tp = active(tp)
-    x = tokens
-    for i in range(3):  # fc1's columns and fc2's rows split over tp
-        x = torch.relu(row_linear(x, params[f"fc{i}"], tp if i == 2 else None))
+    x = torch.relu(linear(tokens, params["fc0"]))
+    x = torch.relu(column_linear(x, params["fc1"], tp))  # fc1's columns split over tp
+    x = torch.relu(row_linear(x, params["fc2"], tp))     # and fc2's rows
     return linear(x, params["fc3"])
 
 

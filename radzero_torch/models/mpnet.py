@@ -35,7 +35,13 @@ post-attention chain row-parallel (K4's
 :func:`radzero_torch.ops.fused_layer.fused_mpnet_post_tp`, or the eager
 chain with :func:`radzero_torch.ops.layers.row_linear`), and a split
 embedding table looked up where the rank holds the id, then all-reduced.
-Forward only: under gradients it raises NotImplementedError.
+Under gradients: q / k / v take the layer input through ``copy_to_model``
+(its gradient summed over the ranks), K4's backward is K9 split at its
+all-reduce (:func:`radzero_torch.ops.fused_layer.fused_mpnet_post_bwd_tp`),
+the all-reduce of the embedding rows hands each rank the gradient of the
+rows it holds, and ``rel_bias``, replicated but read by each rank for its
+own heads only, passes through ``copy_to_model`` so its gradient is the
+sum of the ranks'.
 """
 
 from __future__ import annotations
@@ -53,6 +59,7 @@ from radzero_torch.ops.flash_attention import flash_attention_bias
 from radzero_torch.ops.fused_layer import fused_mpnet_post, fused_mpnet_post_tp
 from radzero_torch.ops.layers import (
     attention,
+    column_linear,
     gelu,
     layer_norm,
     linear,
@@ -60,11 +67,8 @@ from radzero_torch.ops.layers import (
     row_linear,
     split_heads,
 )
-from radzero_torch.parallel.collectives import all_reduce_sum
-from radzero_torch.parallel.tensor_parallel import (
-    active, local_heads, refuse_grad, tp_rank, tp_size,
-)
-from radzero_torch.train.optim import tree_leaves
+from radzero_torch.parallel.collectives import all_reduce_sum, copy_to_model
+from radzero_torch.parallel.tensor_parallel import active, local_heads, tp_rank, tp_size
 
 
 @functools.lru_cache(maxsize=64)
@@ -159,7 +163,8 @@ def mpnet_layer(x, p, rel, neg, cfg: TextConfig, tp=None):
     a model group ``tp``, this rank's heads' rows); ``neg``: (S, L) additive
     key mask (0 real / -big pad)."""
     h = rel.shape[0]
-    q, k, v = (split_heads(linear(x, p["attn"][n]), h) for n in ("q", "k", "v"))
+    xin = copy_to_model(x, tp)  # q / k / v are column-parallel over tp
+    q, k, v = (split_heads(linear(xin, p["attn"][n]), h) for n in ("q", "k", "v"))
     if cfg.attn_impl == "flash":
         a = merge_heads(flash_attention_bias(q, k, v, rel, neg, cfg.head_dim**-0.5))
     else:
@@ -183,7 +188,7 @@ def mpnet_layer(x, p, rel, neg, cfg: TextConfig, tp=None):
         return out.reshape(s, l, d)
     a = row_linear(a, p["attn"]["o"], tp)
     x = layer_norm(x + a, p["ln_attn"], cfg.layer_norm_eps)
-    m = row_linear(gelu(linear(x, p["mlp"]["fc1"])), p["mlp"]["fc2"], tp)
+    m = row_linear(gelu(column_linear(x, p["mlp"]["fc1"], tp)), p["mlp"]["fc2"], tp)
     return layer_norm(x + m, p["ln_out"], cfg.layer_norm_eps)
 
 
@@ -191,7 +196,9 @@ def embed_rows(table, ids, rows: int, tp=None):
     """``table[ids]`` of a table of ``rows`` rows that is whole on this rank,
     or split on its rows over the model group ``tp`` (a shorter ``table``):
     each rank looks up the ids it holds, zero rows elsewhere, and an
-    all-reduce adds the ranks' rows, which gives the rows' own bits."""
+    all-reduce adds the ranks' rows, which gives the rows' own bits. Under
+    gradients the all-reduce's backward is the identity, so each rank's
+    table gets the gradient of the rows it holds."""
     if tp is None or table.shape[0] == rows:
         return table[ids]
     n = table.shape[0]
@@ -207,8 +214,6 @@ def mpnet_forward(params: dict, cfg: TextConfig, input_ids, attention_mask, *,
     reruns each layer in the backward (read only with gradients on); ``tp``,
     a model group, runs the layers over it (see the module docstring)."""
     tp = active(tp)
-    if tp is not None:
-        refuse_grad("MPNet over a model group", *tree_leaves(params))
     emb = params["embeddings"]
     pos_ids = create_position_ids(input_ids, cfg.pad_token_id)
     x = (embed_rows(emb["word"], input_ids, cfg.vocab_size, tp)
@@ -217,7 +222,8 @@ def mpnet_forward(params: dict, cfg: TextConfig, input_ids, attention_mask, *,
 
     buckets = bucket_ids(input_ids.shape[1], cfg.relative_attention_num_buckets,
                          input_ids.device)
-    rel = params["rel_bias"].float()[buckets].permute(2, 0, 1)  # (H, L, L)
+    # replicated, but each rank reads its heads alone: its gradient is summed over tp
+    rel = copy_to_model(params["rel_bias"], tp).float()[buckets].permute(2, 0, 1)  # (H, L, L)
     if tp is not None:  # this rank's heads
         h = local_heads(cfg.num_attention_heads, tp_size(tp))
         rel = rel[tp_rank(tp) * h:(tp_rank(tp) + 1) * h]

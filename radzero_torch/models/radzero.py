@@ -32,8 +32,11 @@ runs :func:`compute_logits` and :func:`forward_train`'s forward over it, with
 tower, the align layers and MPNet split by heads and MLP columns, K3 and K4
 row-parallel; VL-CABS, the loss heads and the LayerNorms run replicated on
 every rank of the group, and every rank returns the same outputs. ``group=``
-keeps its meaning, the data group. Forward only: under gradients, and with
-an alternate tower, a group of more than one rank raises
+keeps its meaning, the data group. Under gradients the backward splits at
+the same all-reduces (K6, K8 and K9 over the axis, ``copy_to_model`` at the
+column-parallel inputs): every replicated leaf's gradient is whole and
+bit-equal on every rank of the group, every split leaf's is the rank's
+share. An alternate tower over a group of more than one rank raises
 NotImplementedError. A group of one runs today's path, bit for bit.
 """
 
@@ -63,7 +66,7 @@ from radzero_torch.models.mpnet import masked_mean_pool, mpnet_forward
 from radzero_torch.models.vit import layer_impl, vit_forward
 from radzero_torch.ops.layers import l2_normalize, linear
 from radzero_torch.parallel.collectives import all_gather_rows
-from radzero_torch.parallel.tensor_parallel import FORWARD_ONLY, active
+from radzero_torch.parallel.tensor_parallel import active, refuse
 
 
 def init_radzero(g: torch.Generator, cfg: RadZeroConfig,
@@ -136,8 +139,7 @@ def forward_vision(params: dict, cfg: RadZeroConfig, pixel_values: Optional[torc
     tp = active(tp)
     model_type = getattr(cfg.vision, "model_type", "dinov2")
     if tp is not None and tower_tokens is None and model_type not in ("dinov2", "raddino"):
-        raise NotImplementedError(f"vision model_type {model_type!r} over a model group: "
-                                  f"{FORWARD_ONLY}")
+        refuse(f"vision model_type {model_type!r}")
     if tower_tokens is not None:
         tokens = tower_tokens.to(dtype)
     else:
@@ -178,8 +180,7 @@ def forward_text(params: dict, cfg: RadZeroConfig, input_ids, attention_mask, *,
     tp = active(tp)
     text_type = getattr(cfg.text, "model_type", "mpnet")
     if tp is not None and text_type != "mpnet":
-        raise NotImplementedError(f"text model_type {text_type!r} over a model group: "
-                                  f"{FORWARD_ONLY}")
+        refuse(f"text model_type {text_type!r}")
     if cfg.text.remat is not None:
         remat = cfg.text.remat
     if text_type == "mpnet":
@@ -222,8 +223,8 @@ def forward_train(
 ) -> Dict[str, torch.Tensor]:
     """One training forward over the flattened global batch, or, with
     ``group`` (a process group), over this rank's share of it; with ``tp``
-    (a model group; forward only, so call it without gradients) over the
-    model axis as well, ``params`` this rank's share.
+    (a model group) over the model axis as well, ``params`` this rank's
+    share, differentiable (see the module docstring).
 
     batch keys:
         pixel_values          (B, H, W, 3), or ``tower_tokens`` (B, L, D), a

@@ -74,9 +74,11 @@ from radzero_torch.ops.fused_layer import (
     fused_postattn,
     fused_postattn_tp,
     fused_preattn,
+    fused_preattn_tp,
 )
 from radzero_torch.ops.layers import (
     attention,
+    column_linear,
     gelu,
     layer_norm,
     linear,
@@ -86,7 +88,8 @@ from radzero_torch.ops.layers import (
 )
 from radzero_torch.ops.resize import bicubic_resize_2d
 from radzero_torch.parallel.collectives import all_reduce_sum
-from radzero_torch.parallel.tensor_parallel import active, local_heads, refuse_grad, tp_size
+from radzero_torch.ops._checks import tracked
+from radzero_torch.parallel.tensor_parallel import active, local_heads, refuse, tp_size
 
 
 # ---------------------------------------------------------------------------
@@ -213,11 +216,17 @@ def dinov2_layer_fused(x: torch.Tensor, p: dict, cfg: ViTConfig, tp=None) -> tor
     cast weights, and autograd carries the weight gradients back through
     the cast. Over a model group ``tp`` (``p`` this rank's share), K1 and K2
     run on the rank's heads ([q_r | k_r | v_r], 3D/P columns) and K3 is the
-    row-parallel :func:`radzero_torch.ops.fused_layer.fused_postattn_tp`."""
+    row-parallel :func:`radzero_torch.ops.fused_layer.fused_postattn_tp`;
+    under gradients their backwards are K6 and K8 split at their
+    all-reduces and K7 on the rank's heads."""
     b, l, d = x.shape
     x2 = x.reshape(b * l, d)
     w = [t.to(x.dtype) for t in _layer_leaves(p)]
-    qkv = fused_preattn(x2, *w[:_N_PRE], eps=cfg.layer_norm_eps).reshape(b, l, -1)
+    if tp is None:
+        qkv = fused_preattn(x2, *w[:_N_PRE], eps=cfg.layer_norm_eps)
+    else:
+        qkv = fused_preattn_tp(x2, *w[:_N_PRE], tp=tp, eps=cfg.layer_norm_eps)
+    qkv = qkv.reshape(b, l, -1)
     attn_out = flash_attention_packed(qkv, _n_heads(cfg, tp))
     a2 = attn_out.reshape(b * l, -1)
     if tp is None:
@@ -227,32 +236,37 @@ def dinov2_layer_fused(x: torch.Tensor, p: dict, cfg: ViTConfig, tp=None) -> tor
     return out.reshape(b, l, d)
 
 
-def dinov2_layer_fused_save_attn(x: torch.Tensor, p: dict, cfg: ViTConfig) -> torch.Tensor:
+def dinov2_layer_fused_save_attn(x: torch.Tensor, p: dict, cfg: ViTConfig,
+                                 tp=None) -> torch.Tensor:
     """:func:`dinov2_layer_fused` under ``remat_policy="save_attn"``: keeps
     x, the attention output, in bf16 on the card K2's ``lse``, and the cast
-    weights; drops qkv. The backward reruns K1 for qkv, then K8, K7 and K6."""
+    weights; drops qkv. The backward reruns K1 for qkv, then K8, K7 and K6.
+    Over a model group ``tp`` the layer's K3 also keeps its two fp32 sums,
+    and the backward runs K8 and K6 split at their all-reduces."""
     w = [t.to(x.dtype) for t in _layer_leaves(p)]
-    return fl.fused_layer_save_attn(x, cfg.num_attention_heads, *w, eps=cfg.layer_norm_eps)
+    return fl.fused_layer_save_attn(x, _n_heads(cfg, tp), *w, eps=cfg.layer_norm_eps, tp=tp)
 
 
-def _pre(x, p, cfg: ViTConfig) -> torch.Tensor:
-    """LN1 and the packed QKV linear."""
-    return linear(layer_norm(x, p["ln1"], cfg.layer_norm_eps), p["attn"]["qkv"])
+def _pre(x, p, cfg: ViTConfig, tp=None) -> torch.Tensor:
+    """LN1 and the packed QKV linear, column-parallel over a model group
+    ``tp`` (:func:`radzero_torch.ops.layers.column_linear`: LN1's input
+    gradient reads the sum of the ranks')."""
+    return column_linear(layer_norm(x, p["ln1"], cfg.layer_norm_eps), p["attn"]["qkv"], tp)
 
 
 def _post(x, attn, p, cfg: ViTConfig, tp=None) -> torch.Tensor:
     """o-proj, LayerScale residual, LN2, MLP, LayerScale residual; over a
     model group ``tp`` the o-proj and fc2 are row-parallel
-    (:func:`radzero_torch.ops.layers.row_linear`)."""
+    (:func:`radzero_torch.ops.layers.row_linear`) and fc1 column-parallel."""
     x = x + row_linear(attn, p["attn"]["o"], tp) * p["ls1"].to(x.dtype)
     m = layer_norm(x, p["ln2"], cfg.layer_norm_eps)
-    m = row_linear(gelu(linear(m, p["mlp"]["fc1"])), p["mlp"]["fc2"], tp)
+    m = row_linear(gelu(column_linear(m, p["mlp"]["fc1"], tp)), p["mlp"]["fc2"], tp)
     return x + m * p["ls2"].to(x.dtype)
 
 
 def _eager_layer(x, p, cfg: ViTConfig, attn_fn, tp=None) -> torch.Tensor:
     """Eager LN1, packed QKV linear, ``attn_fn(qkv) -> (B, L, D)``, eager rest."""
-    return _post(x, attn_fn(_pre(x, p, cfg)), p, cfg, tp)
+    return _post(x, attn_fn(_pre(x, p, cfg, tp)), p, cfg, tp)
 
 
 def _heads(qkv, h: int) -> list:
@@ -381,9 +395,14 @@ class _SaveAttn(torch.autograd.Function):
         return (grads[0], None, None) + needed(ctx, (None,) * 3 + grads[1:])[3:]
 
 
-def _save_attn_layer(route, doc):
-    def layer(x: torch.Tensor, p: dict, cfg: ViTConfig) -> torch.Tensor:
-        return _SaveAttn.apply(x, cfg, route, *_layer_leaves(p))
+def _save_attn_layer(impl, route, doc):
+    def layer(x: torch.Tensor, p: dict, cfg: ViTConfig, tp=None) -> torch.Tensor:
+        leaves = _layer_leaves(p)
+        if tp is not None:
+            if tracked(x, *leaves):
+                refuse(f'remat_policy="save_attn" on the {impl} layer')
+            return _LAYERS[impl](x, p, cfg, tp)
+        return _SaveAttn.apply(x, cfg, route, *leaves)
 
     layer.__doc__ = doc
     return layer
@@ -391,11 +410,11 @@ def _save_attn_layer(route, doc):
 
 _SAVE_ATTN = {
     "fused": dinov2_layer_fused_save_attn,
-    "packed": _save_attn_layer((_packed_keep, _packed_again), """:func:`dinov2_layer_packed`
+    "packed": _save_attn_layer("packed", (_packed_keep, _packed_again), """:func:`dinov2_layer_packed`
     under ``remat_policy="save_attn"``: keeps x, the attention output and, in bf16 on
     the card, K2's ``lse``; the backward reruns the eager post-attention chain, LN1 and
     the qkv product, and runs K7 without rerunning K2."""),
-    "flash": _save_attn_layer((_flash_keep, _flash_again), """:func:`dinov2_layer_flash`
+    "flash": _save_attn_layer("flash", (_flash_keep, _flash_again), """:func:`dinov2_layer_flash`
     under ``remat_policy="save_attn"``: keeps x, the attention output and, in bf16 on
     the card, K13's ``lse``; the backward reruns the eager post-attention chain, LN1 and
     the qkv product, and runs K14 without rerunning K13."""),
@@ -422,16 +441,14 @@ def vit_encoder(layers: List[dict], cfg: ViTConfig, x: torch.Tensor, *, impl: st
     the eager layer (whose attention backward needs the softmax again) the
     checkpoint, as None. ``tp``, a model group (``layers`` this rank's share,
     :func:`radzero_torch.parallel.tensor_parallel.shard_params`), runs every
-    layer on the rank's heads with the row-parallel o-proj and MLP; forward
-    only, so under gradients it raises NotImplementedError."""
+    layer on the rank's heads with the row-parallel o-proj and MLP, and
+    under gradients their backwards split at the all-reduces. Remat under
+    ``tp``: the None policy's checkpoint reruns the layer, collectives
+    included, in the same order on every rank; "save_attn" on the fused
+    layer keeps K3's two sums besides; "save_attn" on the packed and flash
+    layers raises NotImplementedError (ROADMAP.md item 11)."""
     layer = _LAYERS[impl]
     tp = active(tp)
-    if tp is not None:
-        refuse_grad("a DINOv2 layer over a model group", x,
-                    *(t for p in layers for t in _layer_leaves(p)))
-        for p in layers:
-            x = layer(x, p, cfg, tp)
-        return x
     if remat and torch.is_grad_enabled():
         if cfg.remat_policy == "save_attn" and impl in _SAVE_ATTN:
             layer = _SAVE_ATTN[impl]
@@ -439,7 +456,7 @@ def vit_encoder(layers: List[dict], cfg: ViTConfig, x: torch.Tensor, *, impl: st
             layer = functools.partial(checkpoint, layer, use_reentrant=False,
                                       preserve_rng_state=False)
     for p in layers:
-        x = layer(x, p, cfg)
+        x = layer(x, p, cfg, tp)
     return x
 
 

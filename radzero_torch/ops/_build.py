@@ -110,7 +110,7 @@ SIGNATURES = {
     "rz_bwd_gemm_row_tile": [_I],
     # base, base_f32, acc, bias, ls, ln_s, ln_b, out_t, out_u, out_f, M, D, eps, dtype,
     # stream
-    "rz_tp_rows": [_P, _I] + [_P] * 8 + [_I, _I, _F, _I, _P],
+    "rz_tp_rows": [_P, _I] + [_P] * 9 + [_I, _I, _F, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -12,7 +12,7 @@
   row-parallel over a model group (``tp=``, the JAX tensor-parallel rules):
   the split o-proj and fc2 give fp32 partials that an all-reduce completes,
   and the row kernel :func:`tp_rows` (``csrc/tp_rows.cu``) runs the bias,
-  LayerScale, residual and LayerNorm after each sum; forward only
+  LayerScale, residual and LayerNorm after each sum
 
 Each wrapper runs its plain twin (``*_plain``, same module) when handed a
 CPU tensor and launches its CUDA kernel (``csrc/fused_layer.cu``, whose K1,
@@ -33,13 +33,26 @@ keep no tape):
 
 - :func:`fused_preattn_bwd` (K6), :func:`flash_attention_packed_bwd` (K7),
   :func:`fused_postattn_bwd` (K8), :func:`fused_mpnet_post_bwd` (K9), each
-  with its plain twin ``*_bwd_plain`` and a ``.launches`` counter.
+  with its plain twin ``*_bwd_plain`` and a ``.launches`` counter;
+- over a model group, split at their all-reduces:
+  :func:`fused_preattn_bwd_tp` (K6, the backward of :func:`fused_preattn_tp`,
+  K1 on a rank's heads), :func:`fused_postattn_bwd_tp` (K8) and
+  :func:`fused_mpnet_post_bwd_tp` (K9), the backwards of the row-parallel K3
+  and K4, each with its twin ``*_bwd_tp_plain(..., reduce=)`` and a
+  counter. The cotangent of a layer's output is whole and the same on every
+  rank (the forward's all-reduces give every rank the same bits); each
+  chain runs one all-reduce, of an fp32 partial d(LN input) before the
+  LayerNorm's backward rows, so the gradients of x and of the replicated
+  operands come back whole and bit-equal on every rank, and a split
+  operand's gradient is the rank's share. K3 and K4's Functions keep the
+  forward's two fp32 sums for it (:class:`_RowParallelTp`).
 
 :func:`fused_layer_save_attn` runs K1-K3 as one Function that keeps the
 layer's input and the attention output and reruns K1 in its backward (the
 ``save_attn`` remat policy of a trainable tower).
 
-The four kernels' Functions keep the inputs only, but for K2 in bf16 on the card, which
+The four kernels' Functions keep the inputs only (the row-parallel K3 and K4
+also their two sums), but for K2 in bf16 on the card, which
 also keeps its output and the row statistic ``lse`` its Hopper forward
 writes (the Hopper backward of K7 reads P and delta = rowsum(dO O) from
 them, :func:`flash_attention_packed_lse`). The backward recomputes the
@@ -71,14 +84,13 @@ import torch
 
 from radzero_torch.ops import _build
 from radzero_torch.ops._checks import (
-    check_operands, exported, forbid_grad, needed, on_cuda, tracked,
+    DTYPE_CODES, check_operands, exported, forbid_grad, needed, on_cuda, tracked,
 )
 from radzero_torch.ops.flash_attention import (
     flash_attention_bwd_plain, flash_attention_bwd_stats_plain, flash_attention_lse_plain,
     flash_attention_plain, hopper, stats_operands,
 )
 from radzero_torch.parallel.collectives import all_reduce_sum
-from radzero_torch.parallel.tensor_parallel import refuse_grad
 
 _LOG2E = 1.4426950408889634
 _INV_SQRT_2PI = 0.3989422804014327
@@ -156,7 +168,7 @@ def fused_preattn(x, ln_scale, ln_bias, w_qkv, b_qkv, *, eps=1e-6):
     if (op := exported("fused_preattn")) is not None:
         return op(x, ln_scale, ln_bias, w_qkv, b_qkv, eps)
     if tracked(x, ln_scale, ln_bias, w_qkv, b_qkv):
-        return _FusedPreattn.apply(x, ln_scale, ln_bias, w_qkv, b_qkv, eps)
+        return _FusedPreattn.apply(x, ln_scale, ln_bias, w_qkv, b_qkv, eps, None)
     return _fused_preattn_fwd(x, ln_scale, ln_bias, w_qkv, b_qkv, eps=eps)
 
 
@@ -186,6 +198,17 @@ def _fused_preattn_fwd(x, ln_scale, ln_bias, w_qkv, b_qkv, *, eps):
 
 
 fused_preattn.launches = 0
+
+
+def fused_preattn_tp(x, ln_scale, ln_bias, w_qkv, b_qkv, *, tp, eps=1e-6):
+    """K1 on this rank's heads over the model group ``tp``: ``w_qkv`` (D,
+    3D/P) / ``b_qkv`` its [q_r | k_r | v_r] columns, x and LN1 whole. The
+    forward is :func:`fused_preattn`'s (no collective); under gradients the
+    backward is :func:`fused_preattn_bwd_tp` (K6 over the axis, one
+    all-reduce), so x's gradient comes back whole on every rank."""
+    if tracked(x, ln_scale, ln_bias, w_qkv, b_qkv):
+        return _FusedPreattn.apply(x, ln_scale, ln_bias, w_qkv, b_qkv, eps, tp)
+    return _fused_preattn_fwd(x, ln_scale, ln_bias, w_qkv, b_qkv, eps=eps)
 
 
 # ---------------------------------------------------------------------------
@@ -399,73 +422,89 @@ fused_mpnet_post.launches = 0
 # ---------------------------------------------------------------------------
 
 def tp_rows_plain(base, acc, bias, *, ls=None, ln=None, dtype, eps=1e-6, keep_u=False,
-                  keep_ln32=False):
-    """u = base + ls * (acc + bias) (without ``ls``: base + (acc + bias)) in
-    fp32 -> (LN(u) under ``ln`` = (scale, bias), else u, in ``dtype``; u in
-    fp32 with ``keep_u``, else None; LN(u) in fp32 with ``keep_ln32``, else
-    None)."""
-    v = acc.float() + bias.float()
+                  keep_ln32=False, keep_v=False, want_out=True):
+    """v = acc + bias (without ``bias``: acc) and u = base + ls * v (without
+    ``ls``: base + v) in fp32 -> (LN(u) under ``ln`` = (scale, bias), else u,
+    in ``dtype``, or None without ``want_out``; u in fp32 with ``keep_u``,
+    else None; LN(u) in fp32 with ``keep_ln32``, else None; v in fp32 with
+    ``keep_v``, else None)."""
+    v = acc.float() if bias is None else acc.float() + bias.float()
     u = base.float() + (v if ls is None else ls.float() * v)
     y = u if ln is None else _ln32(u, *ln, eps)
-    return y.to(dtype), u if keep_u else None, y if keep_ln32 else None
+    return (y.to(dtype) if want_out else None, u if keep_u else None, y if keep_ln32 else None,
+            v if keep_v else None)
 
 
 def tp_rows(base, acc, bias, *, ls=None, ln=None, dtype, eps=1e-6, keep_u=False,
-            keep_ln32=False):
+            keep_ln32=False, keep_v=False, want_out=True):
     """The row kernel after the all-reduce of a row-parallel product
     (``csrc/tp_rows.cu`` ``tp_rows_kernel``; no TPU kernel of its own: the
     epilogue that K3's and K4's split o-proj and fc2 cannot run before the
-    sum): ``base`` (M, D) in ``dtype`` or fp32, ``acc`` (M, D) fp32, the
-    (D,) vectors in ``dtype`` -> what :func:`tp_rows_plain` returns. One
-    launch, one count; D % 8 == 0 and D <= 1024."""
+    sum, and the rows that K8's and K9's split backwards rerun on the sums
+    the forward kept): ``base`` (M, D) in ``dtype`` or fp32, ``acc`` (M, D)
+    fp32, the (D,) vectors in ``dtype`` (``bias`` may be None) -> what
+    :func:`tp_rows_plain` returns. One launch, one count; D % 8 == 0 and D
+    <= 1024."""
     if not on_cuda(acc):
         return tp_rows_plain(base, acc, bias, ls=ls, ln=ln, dtype=dtype, eps=eps, keep_u=keep_u,
-                             keep_ln32=keep_ln32)
+                             keep_ln32=keep_ln32, keep_v=keep_v, want_out=want_out)
     m, d = acc.shape
-    named = {"bias": ((d,), bias)}
-    if ls is not None:
-        named["ls"] = ((d,), ls)
-    if ln is not None:
-        named |= {"ln_scale": ((d,), ln[0]), "ln_bias": ((d,), ln[1])}
-    code = check_operands("tp_rows", bias, **named)
+    if dtype not in DTYPE_CODES:
+        raise TypeError(f"tp_rows: dtype must be float32 or bfloat16, got {dtype}")
+    vecs = {"bias": bias, "ls": ls, **({} if ln is None else {"ln_scale": ln[0], "ln_bias": ln[1]})}
+    for name, t in vecs.items():
+        if t is None:
+            continue
+        if t.dtype != dtype or t.device != acc.device or tuple(t.shape) != (d,):
+            raise ValueError(f"tp_rows: {name} is {t.dtype} {tuple(t.shape)} on {t.device}, "
+                             f"expected {dtype} ({d},) on {acc.device}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"tp_rows: {name} must be contiguous and 16-byte aligned")
     for name, t, types in (("base", base, (dtype, torch.float32)), ("acc", acc, (torch.float32,))):
         if t.dtype not in types or t.device != acc.device or tuple(t.shape) != (m, d):
             raise ValueError(f"tp_rows: {name} is {t.dtype} {tuple(t.shape)} on {t.device}, "
                              f"expected one of {types} ({m}, {d}) on {acc.device}")
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"tp_rows: {name} must be contiguous and 16-byte aligned")
-    if bias.dtype != dtype or d % 8 or d > 1024:
-        raise ValueError(f"tp_rows: needs {dtype} vectors and D % 8 == 0, D <= 1024; got "
-                         f"{bias.dtype}, {d}")
+    if d % 8 or d > 1024:
+        raise ValueError(f"tp_rows: needs D % 8 == 0 and D <= 1024, got {d}")
     if keep_ln32 and ln is None:
         raise ValueError("tp_rows: keep_ln32 needs ln")
-    out = torch.empty((m, d), dtype=dtype, device=acc.device)
-    u32 = torch.empty((m, d), dtype=torch.float32, device=acc.device) if keep_u else None
-    y32 = torch.empty((m, d), dtype=torch.float32, device=acc.device) if keep_ln32 else None
+    out = torch.empty((m, d), dtype=dtype, device=acc.device) if want_out else None
+    u32, y32, v32 = (torch.empty((m, d), dtype=torch.float32, device=acc.device) if keep else None
+                     for keep in (keep_u, keep_ln32, keep_v))
     p = _Chain._ptr
     err = _build.load().rz_tp_rows(
-        base.data_ptr(), int(base.dtype == torch.float32), acc.data_ptr(), bias.data_ptr(),
-        p(ls), p(None if ln is None else ln[0]), p(None if ln is None else ln[1]),
-        out.data_ptr(), p(u32), p(y32), m, d, float(eps), code, _build.stream_ptr(acc))
+        base.data_ptr(), int(base.dtype == torch.float32), acc.data_ptr(), p(bias), p(ls),
+        p(None if ln is None else ln[0]), p(None if ln is None else ln[1]), p(out), p(u32),
+        p(y32), p(v32), m, d, float(eps), DTYPE_CODES[dtype], _build.stream_ptr(acc))
     _build.check(err, "tp_rows")
     tp_rows.launches += 1
-    return out, u32, y32
+    return out, u32, y32, v32
 
 
 tp_rows.launches = 0
 
 
+def _reducer(tp):
+    """The sum over the model group ``tp`` as a chain's ``reduce``."""
+    return lambda t: all_reduce_sum(t, tp)
+
+
 def fused_postattn_tp_plain(x, attn_out, wo, bo, ls1, ln_scale, ln_bias, w1, b1, w2, b2, ls2, *,
-                            reduce, eps=1e-6):
+                            reduce, eps=1e-6, keep=False):
     """K3's plain twin over a model axis; ``reduce`` sums a partial product
-    over the ranks (the identity on one rank's share alone)."""
+    over the ranks (the identity on one rank's share alone). ``keep`` ->
+    (out, kept): kept = (the o-proj sum, m = the fc2 sum + b2), fp32, what
+    :func:`fused_postattn_bwd_tp` reads in place of the forward's products."""
     cdt = x.dtype
-    acc = reduce(attn_out.float() @ wo.float())
-    hln, y32, _ = tp_rows_plain(x, acc, bo, ls=ls1, ln=(ln_scale, ln_bias), dtype=cdt, eps=eps,
-                                keep_u=True)
+    acc1 = reduce(attn_out.float() @ wo.float())
+    hln, y32, _, _ = tp_rows_plain(x, acc1, bo, ls=ls1, ln=(ln_scale, ln_bias), dtype=cdt,
+                                   eps=eps, keep_u=True)
     h = torch.nn.functional.gelu(hln.float() @ w1.float() + b1.float()).to(cdt)
     acc = reduce(h.float() @ w2.float())
-    return tp_rows_plain(y32, acc, b2, ls=ls2, dtype=cdt)[0]
+    out, _, _, m32 = tp_rows_plain(y32, acc, b2, ls=ls2, dtype=cdt, keep_v=keep)
+    return (out, (acc1, m32)) if keep else out
 
 
 def fused_postattn_tp(x, attn_out, wo, bo, ls1, ln_scale, ln_bias, w1, b1, w2, b2, ls2, *, tp,
@@ -479,20 +518,25 @@ def fused_postattn_tp(x, attn_out, wo, bo, ls1, ln_scale, ln_bias, w1, b1, w2, b
     gemm_f32_kernel in fp32) into fp32, :func:`all_reduce_sum`, the row
     kernel (y32 = x + ls1 (acc + bo) and LN2), fc1 + GELU, the fc2 partial,
     the all-reduce, the row kernel's end form (y32 + ls2 (acc + b2)). The
-    biases of the split products are added once, after the sum. Forward
-    only: under gradients it raises NotImplementedError."""
+    biases of the split products are added once, after the sum.
+    Differentiable: under gradients it keeps the two sums (see
+    :func:`postattn_tp_chain`) and its backward is
+    :func:`fused_postattn_bwd_tp` (K8 over the axis)."""
     ops = (x, attn_out, wo, bo, ls1, ln_scale, ln_bias, w1, b1, w2, b2, ls2)
-    refuse_grad("fused_postattn_tp", *ops)
-    return postattn_tp_chain(*ops, reduce=lambda t: all_reduce_sum(t, tp), eps=eps)
+    if tracked(*ops):
+        return _RowParallelTp.apply(postattn_tp_chain, fused_postattn_bwd_tp, eps, tp, *ops)
+    return postattn_tp_chain(*ops, reduce=_reducer(tp), eps=eps)
 
 
 def postattn_tp_chain(x, attn_out, wo, bo, ls1, ln_scale, ln_bias, w1, b1, w2, b2, ls2, *,
-                      reduce, eps=1e-6):
+                      reduce, eps=1e-6, keep=False):
     """:func:`fused_postattn_tp` with the sum over the ranks given as
-    ``reduce``: the twin for a CPU tensor, the chain of launches on the card."""
+    ``reduce``: the twin for a CPU tensor, the chain of launches on the card.
+    ``keep`` -> (out, kept) as :func:`fused_postattn_tp_plain`: the end row
+    kernel also writes m = acc + b2 in fp32."""
     if not on_cuda(x):
         return fused_postattn_tp_plain(x, attn_out, wo, bo, ls1, ln_scale, ln_bias, w1, b1, w2,
-                                       b2, ls2, reduce=reduce, eps=eps)
+                                       b2, ls2, reduce=reduce, eps=eps, keep=keep)
     n, d = x.shape
     dl, fl = wo.shape[0], w1.shape[1]
     code = check_operands(
@@ -505,30 +549,33 @@ def postattn_tp_chain(x, attn_out, wo, bo, ls1, ln_scale, ln_bias, w1, b1, w2, b
         raise ValueError(f"fused_postattn_tp: needs D % 64, D/P % 32 and F/P % 64 == 0, got "
                          f"{d}, {dl}, {fl}")
     k = _Chain("fused_postattn_tp", x, code)
-    acc = reduce(k.gemm(attn_out, wo, _EPI_F32, k.f32(n, d)))
-    hln, y32, _ = tp_rows(x, acc, bo, ls=ls1, ln=(ln_scale, ln_bias), dtype=x.dtype, eps=eps,
-                          keep_u=True)
+    acc1 = reduce(k.gemm(attn_out, wo, _EPI_F32, k.f32(n, d)))
+    hln, y32, _, _ = tp_rows(x, acc1, bo, ls=ls1, ln=(ln_scale, ln_bias), dtype=x.dtype, eps=eps,
+                             keep_u=True)
     h = k.gemm(hln, w1, _EPI_GELU, k.t(n, fl), bias=b1)
     del hln
     acc = reduce(k.gemm(h, w2, _EPI_F32, k.f32(n, d)))
-    out = tp_rows(y32, acc, b2, ls=ls2, dtype=x.dtype)[0]
+    out, _, _, m32 = tp_rows(y32, acc, b2, ls=ls2, dtype=x.dtype, keep_v=keep)
     fused_postattn_tp.launches += 1
-    return out
+    return (out, (acc1, m32)) if keep else out
 
 
 fused_postattn_tp.launches = 0
 
 
 def fused_mpnet_post_tp_plain(x, attn_out, wo, bo, lnsa, lnba, w1, b1, w2, b2, lnso, lnbo, *,
-                              reduce, eps=1e-12):
+                              reduce, eps=1e-12, keep=False):
     """K4's plain twin over a model axis; ``reduce`` as in
-    :func:`fused_postattn_tp_plain`."""
+    :func:`fused_postattn_tp_plain`. ``keep`` -> (out, kept): kept = (the
+    o-proj sum, v = y + the fc2 sum + b2, the output LN's input), fp32."""
     cdt = x.dtype
-    acc = reduce(attn_out.float() @ wo.float())
-    yln, _, y32 = tp_rows_plain(x, acc, bo, ln=(lnsa, lnba), dtype=cdt, eps=eps, keep_ln32=True)
+    acc1 = reduce(attn_out.float() @ wo.float())
+    yln, _, y32, _ = tp_rows_plain(x, acc1, bo, ln=(lnsa, lnba), dtype=cdt, eps=eps,
+                                   keep_ln32=True)
     h = torch.nn.functional.gelu(yln.float() @ w1.float() + b1.float()).to(cdt)
     acc = reduce(h.float() @ w2.float())
-    return tp_rows_plain(y32, acc, b2, ln=(lnso, lnbo), dtype=cdt, eps=eps)[0]
+    out, v32, _, _ = tp_rows_plain(y32, acc, b2, ln=(lnso, lnbo), dtype=cdt, eps=eps, keep_u=keep)
+    return (out, (acc1, v32)) if keep else out
 
 
 def fused_mpnet_post_tp(x, attn_out, wo, bo, lnsa, lnba, w1, b1, w2, b2, lnso, lnbo, *, tp,
@@ -538,20 +585,24 @@ def fused_mpnet_post_tp(x, attn_out, wo, bo, lnsa, lnba, w1, b1, w2, b2, lnso, l
     o-proj partial into fp32, the all-reduce, the row kernel (u = x + (acc +
     bo), y = LN(u) written rounded, fc1's operand, and in fp32, the
     residual, from one fp32 value), fc1 + GELU, the fc2 partial, the
-    all-reduce, the row kernel's end form (LN(y32 + (acc + b2))). Forward
-    only."""
+    all-reduce, the row kernel's end form (LN(y32 + (acc + b2))).
+    Differentiable: the backward is :func:`fused_mpnet_post_bwd_tp` (K9 over
+    the axis)."""
     ops = (x, attn_out, wo, bo, lnsa, lnba, w1, b1, w2, b2, lnso, lnbo)
-    refuse_grad("fused_mpnet_post_tp", *ops)
-    return mpnet_post_tp_chain(*ops, reduce=lambda t: all_reduce_sum(t, tp), eps=eps)
+    if tracked(*ops):
+        return _RowParallelTp.apply(mpnet_post_tp_chain, fused_mpnet_post_bwd_tp, eps, tp,
+                                   *ops)
+    return mpnet_post_tp_chain(*ops, reduce=_reducer(tp), eps=eps)
 
 
 def mpnet_post_tp_chain(x, attn_out, wo, bo, lnsa, lnba, w1, b1, w2, b2, lnso, lnbo, *, reduce,
-                        eps=1e-12):
+                        eps=1e-12, keep=False):
     """:func:`fused_mpnet_post_tp` with the sum over the ranks given as
-    ``reduce``."""
+    ``reduce``; ``keep`` as in :func:`fused_mpnet_post_tp_plain` (the end row
+    kernel also writes v in fp32)."""
     if not on_cuda(x):
         return fused_mpnet_post_tp_plain(x, attn_out, wo, bo, lnsa, lnba, w1, b1, w2, b2, lnso,
-                                         lnbo, reduce=reduce, eps=eps)
+                                         lnbo, reduce=reduce, eps=eps, keep=keep)
     m, d = x.shape
     dl, fl = wo.shape[0], w1.shape[1]
     code = check_operands(
@@ -565,17 +616,18 @@ def mpnet_post_tp_chain(x, attn_out, wo, bo, lnsa, lnba, w1, b1, w2, b2, lnso, l
                          f"{d}, {dl}, {fl}")
     k = _Chain("fused_mpnet_post_tp", x, code)
     bf16 = x.dtype == torch.bfloat16
-    acc = reduce(k.gemm(attn_out, wo, _EPI_F32, k.f32(m, d)))
-    yln, _, y32 = tp_rows(x, acc, bo, ln=(lnsa, lnba), dtype=x.dtype, eps=eps, keep_ln32=bf16)
+    acc1 = reduce(k.gemm(attn_out, wo, _EPI_F32, k.f32(m, d)))
+    yln, _, y32, _ = tp_rows(x, acc1, bo, ln=(lnsa, lnba), dtype=x.dtype, eps=eps,
+                             keep_ln32=bf16)
     h = k.gemm(yln, w1, _EPI_GELU, k.t(m, fl), bias=b1)
     if bf16:
         del yln
     else:  # fp32: one buffer is fc1's operand and the residual
         y32 = yln
     acc = reduce(k.gemm(h, w2, _EPI_F32, k.f32(m, d)))
-    out = tp_rows(y32, acc, b2, ln=(lnso, lnbo), dtype=x.dtype, eps=eps)[0]
+    out, v32, _, _ = tp_rows(y32, acc, b2, ln=(lnso, lnbo), dtype=x.dtype, eps=eps, keep_u=keep)
     fused_mpnet_post_tp.launches += 1
-    return out
+    return (out, (acc1, v32)) if keep else out
 
 
 fused_mpnet_post_tp.launches = 0
@@ -607,13 +659,25 @@ def _gelu_parts(h1):
     return phi, phi + h1 * pdf
 
 
+def _same(t):
+    """The sum over one rank: the identity."""
+    return t
+
+
 def fused_preattn_bwd_plain(x, ln_scale, ln_bias, w_qkv, b_qkv, g, *, eps=1e-6):
+    return fused_preattn_bwd_tp_plain(x, ln_scale, ln_bias, w_qkv, b_qkv, g, reduce=_same, eps=eps)
+
+
+def fused_preattn_bwd_tp_plain(x, ln_scale, ln_bias, w_qkv, b_qkv, g, *, reduce, eps=1e-6):
+    """K6's twin over a model axis: ``w_qkv`` / ``b_qkv`` / ``g`` this rank's
+    [q_r | k_r | v_r] columns; dh = g @ w_qkv^T is a partial that ``reduce``
+    sums before LN1's backward, so dx, d ln_scale and d ln_bias are whole."""
     cdt = x.dtype
     scale = ln_scale.float()
     xn, rstd = _ln_parts(x.float(), eps)
     h = xn * scale + ln_bias.float()
     g32 = g.float()
-    dh = g32 @ w_qkv.float().T
+    dh = reduce(g32 @ w_qkv.float().T)
     dw = h.to(cdt).float().T @ g32
     dx = _ln_input_grad(dh, xn, rstd, scale)
     return (dx.to(cdt), (dh * xn).sum(0).to(ln_scale.dtype), dh.sum(0).to(ln_bias.dtype),
@@ -638,18 +702,31 @@ def flash_attention_packed_bwd_stats_plain(qkv, n_heads: int, dout, out, lse):
 
 def fused_postattn_bwd_plain(x, attn_out, wo, bo, ls1, ln_scale, ln_bias,
                              w1, b1, w2, b2, ls2, g, *, eps=1e-6):
+    return fused_postattn_bwd_tp_plain(x, attn_out, wo, bo, ls1, ln_scale, ln_bias, w1, b1, w2,
+                                       b2, ls2, g, reduce=_same, eps=eps)
+
+
+def fused_postattn_bwd_tp_plain(x, attn_out, wo, bo, ls1, ln_scale, ln_bias, w1, b1, w2, b2, ls2,
+                                g, *, reduce, kept=None, eps=1e-6):
+    """K8's twin over a model axis, the operands split as
+    :func:`fused_postattn_tp`'s; ``g`` whole. Without ``kept`` it sums the
+    forward's two partial products again through ``reduce``; with ``kept``
+    (:func:`fused_postattn_tp_plain`'s) it reads them. d ls2, dm and db2 come
+    from the whole g; dW2, dh1, db1 and dW1 are the rank's; dhln is a
+    partial that ``reduce`` sums before LN2's backward rows, which give dy,
+    dproj, d LN2, dbo and d ls1 whole; da and dWo are the rank's."""
     cdt = x.dtype
     a32, wo32, w1_32, w2_32 = attn_out.float(), wo.float(), w1.float(), w2.float()
     ls1_32, ls2_32, lnscale = ls1.float(), ls2.float(), ln_scale.float()
     # forward recompute
-    proj = a32 @ wo32 + bo.float()
+    proj = (reduce(a32 @ wo32) if kept is None else kept[0]) + bo.float()
     y32 = x.float() + ls1_32 * proj
     yn, rstd = _ln_parts(y32, eps)
     hlnc = (yn * lnscale + ln_bias.float()).to(cdt).float()
     h1 = hlnc @ w1_32 + b1.float()
     phi, dgelu = _gelu_parts(h1)
     glc = (h1 * phi).to(cdt).float()
-    m = glc @ w2_32 + b2.float()
+    m = reduce(glc @ w2_32) + b2.float() if kept is None else kept[1]
     # backward
     g32 = g.float()
     dls2 = (g32 * m).sum(0)
@@ -659,7 +736,7 @@ def fused_postattn_bwd_plain(x, attn_out, wo, bo, ls1, ln_scale, ln_bias,
     dh1 = (dmc @ w2_32.T) * dgelu
     dh1c = dh1.to(cdt).float()
     dw1 = hlnc.T @ dh1c
-    dhln = dh1c @ w1_32.T
+    dhln = reduce(dh1c @ w1_32.T)
     dy = g32 + _ln_input_grad(dhln, yn, rstd, lnscale)
     dproj = dy * ls1_32
     dprojc = dproj.to(cdt).float()
@@ -685,20 +762,53 @@ def fused_mpnet_post_bwd_plain(x, attn_out, wo, bo, lnsa, lnba, w1, b1, w2, b2,
     phi, dgelu = _gelu_parts(h1)
     glc = (h1 * phi).to(cdt).float()
     v = yln + glc @ w2_32 + b2.float()
+    return _mpnet_post_grads(x, attn_out, wo, bo, lnsa, lnba, w1, b1, w2, b2, lnso, lnbo, g,
+                             u, v, ylnc, h1, glc, reduce=_same, eps=eps)
+
+
+def fused_mpnet_post_bwd_tp_plain(x, attn_out, wo, bo, lnsa, lnba, w1, b1, w2, b2, lnso, lnbo, g,
+                                  *, reduce, kept=None, eps=1e-12):
+    """K9's twin over a model axis, the operands split as
+    :func:`fused_mpnet_post_tp`'s; ``g`` whole; ``kept`` as in
+    :func:`fused_postattn_bwd_tp_plain` (:func:`fused_mpnet_post_tp_plain`'s).
+    The output LN's backward rows from the whole g give dv, d LN_out and
+    db2 whole; dW2, dh1, db1 and dW1 are the rank's; dyln = dv + the sum of
+    the ranks' dh1 @ W1^T; the first LN's rows give du, d LN_attn and dbo
+    whole; da and dWo are the rank's."""
+    cdt = x.dtype
+    a32, w1_32, w2_32 = attn_out.float(), w1.float(), w2.float()
+    u = x.float() + ((reduce(a32 @ wo.float()) if kept is None else kept[0]) + bo.float())
+    un, _ = _ln_parts(u, eps)
+    yln = un * lnsa.float() + lnba.float()
+    ylnc = yln.to(cdt).float()
+    h1 = ylnc @ w1_32 + b1.float()
+    phi, _ = _gelu_parts(h1)
+    glc = (h1 * phi).to(cdt).float()
+    v = yln + (reduce(glc @ w2_32) + b2.float()) if kept is None else kept[1]
+    return _mpnet_post_grads(x, attn_out, wo, bo, lnsa, lnba, w1, b1, w2, b2, lnso, lnbo, g,
+                             u, v, ylnc, h1, glc, reduce=reduce, eps=eps)
+
+
+def _mpnet_post_grads(x, attn_out, wo, bo, lnsa, lnba, w1, b1, w2, b2, lnso, lnbo, g, u, v, ylnc,
+                      h1, glc, *, reduce, eps):
+    """K9's backward from the forward's u and v (fp32), the rounded y, the
+    pre-GELU h1 and the rounded GELU output; ``reduce`` sums dh1 @ W1^T."""
+    cdt = x.dtype
+    un, rstd1 = _ln_parts(u, eps)
     vn, rstd2 = _ln_parts(v, eps)
-    # backward
+    _, dgelu = _gelu_parts(h1)
     g32 = g.float()
-    dv = _ln_input_grad(g32, vn, rstd2, lnso32)
+    dv = _ln_input_grad(g32, vn, rstd2, lnso.float())
     dmc = dv.to(cdt).float()
     dw2 = glc.T @ dmc
-    dh1 = (dmc @ w2_32.T) * dgelu
+    dh1 = (dmc @ w2.float().T) * dgelu
     dh1c = dh1.to(cdt).float()
     dw1 = ylnc.T @ dh1c
-    dyln = dv + dh1c @ w1_32.T
-    du = _ln_input_grad(dyln, un, rstd1, lnsa32)
+    dyln = dv + reduce(dh1c @ w1.float().T)
+    du = _ln_input_grad(dyln, un, rstd1, lnsa.float())
     dprojc = du.to(cdt).float()
-    da = dprojc @ wo32.T
-    dwo = a32.T @ dprojc
+    da = dprojc @ wo.float().T
+    dwo = attn_out.float().T @ dprojc
     return (du.to(cdt), da.to(cdt), dwo.to(wo.dtype), du.sum(0).to(bo.dtype),
             (dyln * un).sum(0).to(lnsa.dtype), dyln.sum(0).to(lnba.dtype),
             dw1.to(w1.dtype), dh1.sum(0).to(b1.dtype), dw2.to(w2.dtype),
@@ -881,24 +991,48 @@ def fused_preattn_bwd(x, ln_scale, ln_bias, w_qkv, b_qkv, g, *, eps=1e-6):
     and dh only, each with its fixed-order reduce; one count."""
     if not on_cuda(x):
         return fused_preattn_bwd_plain(x, ln_scale, ln_bias, w_qkv, b_qkv, g, eps=eps)
+    grads = _preattn_bwd_chain("fused_preattn_bwd", x, ln_scale, ln_bias, w_qkv, b_qkv, g,
+                               reduce=_same, eps=eps)
+    fused_preattn_bwd.launches += 1
+    return grads
+
+
+def fused_preattn_bwd_tp(x, ln_scale, ln_bias, w_qkv, b_qkv, g, *, reduce, eps=1e-6):
+    """K6 over a model axis: the backward of K1 on a rank's [q_r | k_r | v_r]
+    columns (``w_qkv`` (D, 3D/P), ``b_qkv``, ``g`` (N, 3D/P)). dW and db are
+    the rank's; dh = g @ w_qkv^T is an fp32 partial that ``reduce`` (the
+    all-reduce over the model group) sums before LN1's backward rows, which
+    then give dx, d ln_scale and d ln_bias whole and bit-equal on every
+    rank. On the card K6's chain with the sum between the dh product and the
+    LN rows; one count."""
+    if not on_cuda(x):
+        return fused_preattn_bwd_tp_plain(x, ln_scale, ln_bias, w_qkv, b_qkv, g, reduce=reduce,
+                                          eps=eps)
+    grads = _preattn_bwd_chain("fused_preattn_bwd_tp", x, ln_scale, ln_bias, w_qkv, b_qkv, g,
+                               reduce=reduce, eps=eps)
+    fused_preattn_bwd_tp.launches += 1
+    return grads
+
+
+def _preattn_bwd_chain(name, x, ln_scale, ln_bias, w_qkv, b_qkv, g, *, reduce, eps):
     n, d = x.shape
     d3 = w_qkv.shape[1]
     code = check_operands(
-        "fused_preattn_bwd", x, ln_scale=((d,), ln_scale), ln_bias=((d,), ln_bias),
+        name, x, ln_scale=((d,), ln_scale), ln_bias=((d,), ln_bias),
         w_qkv=((d, d3), w_qkv), b_qkv=((d3,), b_qkv), g=((n, d3), g))
     if d % 64 or d3 % 64:
-        raise ValueError(f"fused_preattn_bwd: needs D % 64 == 0 and 3D % 64 == 0, got {d}, {d3}")
-    k = _Chain("fused_preattn_bwd", x, code)
+        raise ValueError(f"{name}: needs D % 64 == 0 and 3D % 64 == 0, got {d}, {d3}")
+    k = _Chain(name, x, code)
     hc, _, stats = k.ln_rows(x, ln_scale, ln_bias, eps, want_stats=True)
     dw = k.wgrad(hc, g)
     del hc
-    dh = k.gemm_t(g, w_qkv, _EPI_F32, k.f32(n, d))
+    dh = reduce(k.gemm_t(g, w_qkv, _EPI_F32, k.f32(n, d)))
     _, (db,) = k.scale_colsum(g, None, None, sums=_SUM_G_LS, want_out=False)
     dx, _, _, (dls, dlb) = k.ln_bwd(x, dh, ln_scale, eps, stats=stats, sums=_SUM_DH_XN | _SUM_DH)
-    fused_preattn_bwd.launches += 1
     return dx, dls, dlb, dw, db
 
 
+fused_preattn_bwd_tp.launches = 0
 fused_preattn_bwd.launches = 0
 
 
@@ -1035,23 +1169,151 @@ def fused_mpnet_post_bwd(x, attn_out, wo, bo, lnsa, lnba, w1, b1, w2, b2,
 fused_mpnet_post_bwd.launches = 0
 
 
+def _kept_operands(name, x, kept):
+    """Check the forward's kept fp32 sums against x's rows and device."""
+    for i, t in enumerate(kept):
+        if (t.dtype != torch.float32 or t.device != x.device or t.shape != x.shape
+                or not t.is_contiguous() or t.data_ptr() % 16):
+            raise ValueError(f"{name}: kept[{i}] is {t.dtype} {tuple(t.shape)} on {t.device}, "
+                             f"expected contiguous float32 {tuple(x.shape)} on {x.device}")
+
+
+def fused_postattn_bwd_tp(x, attn_out, wo, bo, ls1, ln_scale, ln_bias, w1, b1, w2, b2, ls2, g, *,
+                          reduce, kept, eps=1e-6):
+    """K8 over a model axis: the backward of the row-parallel K3
+    (:func:`fused_postattn_tp`), operands split as its are, the cotangent g
+    (N, D) whole and the same on every rank -> the twelve gradients, the
+    rank's share of each split operand's and the whole gradient of the
+    rest. ``kept`` is the forward's (o-proj sum, m = fc2 sum + b2), fp32,
+    as :func:`postattn_tp_chain` keeps them. On the card,
+    one count and one ``reduce``: the row kernel's begin form again on the
+    o-proj sum (LN2's input y and its LN, bit-equal to the forward's, and
+    proj = sum + bo), fc1 keeping the pre-GELU h1, dm = g ls2 with the column
+    sums of g m and dm, dW2, dh1 with the GELU derivative and db1, dW1, the
+    partial dhln = dh1 W1^T summed over the ranks, LN2's backward rows with
+    add = g and the sums of d LN2, dbo and d ls1, da and dWo. Every product
+    runs gemm_sm90_kernel in bf16 and gemm_f32_kernel / wgrad_f32_kernel in
+    fp32, the rows and sums csrc/fused_layer_bwd.cu's entry points."""
+    ops = (x, attn_out, wo, bo, ls1, ln_scale, ln_bias, w1, b1, w2, b2, ls2)
+    if not on_cuda(x):
+        return fused_postattn_bwd_tp_plain(*ops, g, reduce=reduce, kept=kept, eps=eps)
+    n, d = x.shape
+    dl, fl = wo.shape[0], w1.shape[1]
+    code = check_operands(
+        "fused_postattn_bwd_tp", x,
+        attn_out=((n, dl), attn_out), wo=((dl, d), wo), bo=((d,), bo), ls1=((d,), ls1),
+        ln_scale=((d,), ln_scale), ln_bias=((d,), ln_bias), w1=((d, fl), w1),
+        b1=((fl,), b1), w2=((fl, d), w2), b2=((d,), b2), ls2=((d,), ls2), g=((n, d), g),
+    )
+    _kept_operands("fused_postattn_bwd_tp", x, kept)
+    if d % 64 or dl % 32 or fl % 64:
+        raise ValueError(f"fused_postattn_bwd_tp: needs D % 64, D/P % 32 and F/P % 64 == 0, got "
+                         f"{d}, {dl}, {fl}")
+    acc1, m32 = kept
+    k = _Chain("fused_postattn_bwd_tp", x, code)
+    hln, y32, _, proj32 = tp_rows(x, acc1, bo, ls=ls1, ln=(ln_scale, ln_bias), dtype=x.dtype,
+                                  eps=eps, keep_u=True, keep_v=True)
+    h1 = k.f32(n, fl)
+    gl = k.gemm(hln, w1, _EPI_GELU_H1, k.t(n, fl), bias=b1, out2=h1)
+    dm, (dls2, db2) = k.scale_colsum(g, m32, ls2, sums=_SUM_G_M | _SUM_G_LS)
+    dw2 = k.wgrad(gl, dm)
+    del gl
+    dh1, db1 = k.dgelu_gemm(dm, w2, h1)
+    del h1, dm
+    dw1 = k.wgrad(hln, dh1)
+    del hln
+    dhln = reduce(k.gemm_t(dh1, w1, _EPI_F32, k.f32(n, d)))
+    del dh1
+    dx, dproj, _, (dlns, dlnb, dbo, dls1) = k.ln_bwd(
+        y32, dhln, ln_scale, eps, sums=_SUM_DH_XN | _SUM_DH | _SUM_D_LS | _SUM_D_PROJ,
+        add=g, ls=ls1, proj=proj32, want_out2=True)
+    da = k.gemm_t(dproj, wo, _EPI_BIAS, k.t(n, dl))
+    dwo = k.wgrad(attn_out, dproj)
+    fused_postattn_bwd_tp.launches += 1
+    return dx, da, dwo, dbo, dls1, dlns, dlnb, dw1, db1, dw2, db2, dls2
+
+
+fused_postattn_bwd_tp.launches = 0
+
+
+def fused_mpnet_post_bwd_tp(x, attn_out, wo, bo, lnsa, lnba, w1, b1, w2, b2, lnso, lnbo, g, *,
+                            reduce, kept, eps=1e-12):
+    """K9 over a model axis: the backward of the row-parallel K4
+    (:func:`fused_mpnet_post_tp`), as :func:`fused_postattn_bwd_tp` is K8's;
+    ``kept`` the forward's (o-proj sum, v = y + fc2 sum + b2). On the card,
+    one count and one ``reduce``: the row kernel's begin form again (u in
+    fp32, y rounded, fc1's operand), fc1 keeping h1, the output LN's
+    backward rows on v (dv rounded and in fp32, the sums of d LN_out and
+    db2), dW2, dh1 and db1, dW1, the partial dh1 W1^T summed over the ranks
+    and added to dv by the row kernel (no bias, fp32 out), the first LN's
+    backward rows on u (du, the sums of d LN_attn and dbo), da and dWo."""
+    ops = (x, attn_out, wo, bo, lnsa, lnba, w1, b1, w2, b2, lnso, lnbo)
+    if not on_cuda(x):
+        return fused_mpnet_post_bwd_tp_plain(*ops, g, reduce=reduce, kept=kept, eps=eps)
+    m, d = x.shape
+    dl, fl = wo.shape[0], w1.shape[1]
+    code = check_operands(
+        "fused_mpnet_post_bwd_tp", x,
+        attn_out=((m, dl), attn_out), wo=((dl, d), wo), bo=((d,), bo),
+        lnsa=((d,), lnsa), lnba=((d,), lnba), w1=((d, fl), w1), b1=((fl,), b1),
+        w2=((fl, d), w2), b2=((d,), b2), lnso=((d,), lnso), lnbo=((d,), lnbo), g=((m, d), g),
+    )
+    _kept_operands("fused_mpnet_post_bwd_tp", x, kept)
+    if d % 64 or dl % 32 or fl % 64:
+        raise ValueError(f"fused_mpnet_post_bwd_tp: needs D % 64, D/P % 32 and F/P % 64 == 0, "
+                         f"got {d}, {dl}, {fl}")
+    acc1, v32 = kept
+    k = _Chain("fused_mpnet_post_bwd_tp", x, code)
+    yln, u32, _, _ = tp_rows(x, acc1, bo, ln=(lnsa, lnba), dtype=x.dtype, eps=eps, keep_u=True)
+    h1 = k.f32(m, fl)
+    gl = k.gemm(yln, w1, _EPI_GELU_H1, k.t(m, fl), bias=b1, out2=h1)
+    dm, _, dv32, (dlnso, dlnbo, db2) = k.ln_bwd(v32, g, lnso, eps, want_f32=True,
+                                                sums=_SUM_DH_XN | _SUM_DH | _SUM_D_LS)
+    dw2 = k.wgrad(gl, dm)
+    del gl
+    dh1, db1 = k.dgelu_gemm(dm, w2, h1)
+    del h1, dm
+    dw1 = k.wgrad(yln, dh1)
+    del yln
+    part = reduce(k.gemm_t(dh1, w1, _EPI_F32, k.f32(m, d)))
+    del dh1
+    dyln = tp_rows(dv32, part, None, dtype=x.dtype, keep_u=True, want_out=False)[1]
+    del part, dv32
+    du, _, _, (dlnsa, dlnba, dbo) = k.ln_bwd(u32, dyln, lnsa, eps,
+                                             sums=_SUM_DH_XN | _SUM_DH | _SUM_D_LS)
+    da = k.gemm_t(du, wo, _EPI_BIAS, k.t(m, dl))
+    dwo = k.wgrad(attn_out, du)
+    fused_mpnet_post_bwd_tp.launches += 1
+    return du, da, dwo, dbo, dlnsa, dlnba, dw1, db1, dw2, db2, dlnso, dlnbo
+
+
+fused_mpnet_post_bwd_tp.launches = 0
+
+
 # ---------------------------------------------------------------------------
 # autograd: forward K1-K4, backward K6-K9; the inputs are the only residuals
 # ---------------------------------------------------------------------------
 
 class _FusedPreattn(torch.autograd.Function):
+    """K1 with K6 as its backward; over a model group ``tp`` (K1 on the rank's
+    heads) K6 split at its all-reduce."""
+
     @staticmethod
-    def forward(ctx, x, ln_scale, ln_bias, w_qkv, b_qkv, eps):
+    def forward(ctx, x, ln_scale, ln_bias, w_qkv, b_qkv, eps, tp):
         ops = tuple(t.contiguous() for t in (x, ln_scale, ln_bias, w_qkv, b_qkv))
         ctx.save_for_backward(*ops)
-        ctx.eps = eps
+        ctx.eps, ctx.tp = eps, tp
         return _fused_preattn_fwd(*ops, eps=eps)
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, g):
-        grads = fused_preattn_bwd(*ctx.saved_tensors, g.contiguous(), eps=ctx.eps)
-        return needed(ctx, grads) + (None,)
+        ops, g = ctx.saved_tensors, g.contiguous()
+        if ctx.tp is None:
+            grads = fused_preattn_bwd(*ops, g, eps=ctx.eps)
+        else:
+            grads = fused_preattn_bwd_tp(*ops, g, reduce=_reducer(ctx.tp), eps=ctx.eps)
+        return needed(ctx, grads) + (None, None)
 
 
 class _FlashAttentionPacked(torch.autograd.Function):
@@ -1090,8 +1352,32 @@ class _FusedPostattn(torch.autograd.Function):
         return needed(ctx, grads) + (None,)
 
 
+class _RowParallelTp(torch.autograd.Function):
+    """K3 or K4 row-parallel (``chain``) with K8 or K9 over the axis (``bwd``)
+    as its backward. It keeps the operands and the forward's two fp32 sums
+    (``kept``: two (N, D) fp32 tensors a call, 2 x 50 MB at MPNet's 16 384
+    rows of 768), so the backward runs no forward product and one
+    all-reduce, not three."""
+
+    @staticmethod
+    def forward(ctx, chain, bwd, eps, tp, *ops):
+        ops = tuple(t.contiguous() for t in ops)
+        out, kept = chain(*ops, reduce=_reducer(tp), eps=eps, keep=True)
+        ctx.save_for_backward(*ops, *kept)
+        ctx.bwd, ctx.eps, ctx.tp = bwd, eps, tp
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        *ops, acc1, last = ctx.saved_tensors
+        grads = ctx.bwd(*ops, g.contiguous(), reduce=_reducer(ctx.tp), kept=(acc1, last),
+                        eps=ctx.eps)
+        return (None,) * 4 + needed(ctx, (None,) * 4 + grads)[4:]
+
+
 def fused_layer_save_attn(x, n_heads: int, ln1_scale, ln1_bias, w_qkv, b_qkv, wo, bo, ls1,
-                          ln2_scale, ln2_bias, w1, b1, w2, b2, ls2, *, eps=1e-6):
+                          ln2_scale, ln2_bias, w1, b1, w2, b2, ls2, *, eps=1e-6, tp=None):
     """(B, L, D) -> (B, L, D): one DINOv2 layer, K1, K2 and K3 in a row,
     that keeps for its backward x, the attention output and, in bf16 on the
     card, K2's ``lse`` (besides the weights), and drops qkv: the layer under
@@ -1099,52 +1385,79 @@ def fused_layer_save_attn(x, n_heads: int, ln1_scale, ln1_bias, w_qkv, b_qkv, wo
     runs K8, K1 again for qkv, K7 from the kept output (and ``lse``), then
     K6, and adds x's two gradients in one sum. The same kernels on the same
     values as :func:`fused_preattn`, :func:`flash_attention_packed` and
-    :func:`fused_postattn` composed, so the same bits."""
+    :func:`fused_postattn` composed, so the same bits.
+
+    ``tp``, a model group (``n_heads`` and the weights this rank's share):
+    K1 and K2 on the rank's heads and K3 row-parallel
+    (:func:`fused_postattn_tp`), which also keeps its two fp32 sums; the
+    backward runs K8 over the axis, K1 again on the rank's heads, K7, and K6
+    over the axis (one all-reduce each), the same as
+    :func:`fused_preattn_tp`, K2 and :func:`fused_postattn_tp` composed."""
     w = (ln1_scale, ln1_bias, w_qkv, b_qkv, wo, bo, ls1, ln2_scale, ln2_bias, w1, b1, w2, b2,
          ls2)
     b, l, d = x.shape
     if tracked(x, *w):
-        out = _FusedLayerSaveAttn.apply(x.reshape(b * l, d), b, n_heads, eps, *w)
+        out = _FusedLayerSaveAttn.apply(x.reshape(b * l, d), b, n_heads, eps, tp, *w)
     else:
-        qkv = _fused_preattn_fwd(x.reshape(b * l, d), *w[:4], eps=eps).reshape(b, l, 3 * d)
+        qkv = _fused_preattn_fwd(x.reshape(b * l, d), *w[:4], eps=eps).reshape(b, l, -1)
         a = _flash_attention_packed_fwd(qkv, n_heads)
-        out = _fused_postattn_fwd(x.reshape(b * l, d), a.reshape(b * l, d), *w[4:], eps=eps)
+        a2 = a.reshape(b * l, -1)
+        if tp is None:
+            out = _fused_postattn_fwd(x.reshape(b * l, d), a2, *w[4:], eps=eps)
+        else:
+            out = postattn_tp_chain(x.reshape(b * l, d), a2, *w[4:], reduce=_reducer(tp),
+                                    eps=eps)
     return out.reshape(b, l, d)
 
 
 class _FusedLayerSaveAttn(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x2, b, n_heads, eps, *w):
+    def forward(ctx, x2, b, n_heads, eps, tp, *w):
         x2, w = x2.contiguous(), tuple(t.contiguous() for t in w)
-        n, d = x2.shape
-        qkv = _fused_preattn_fwd(x2, *w[:4], eps=eps).reshape(b, n // b, 3 * d)
+        n = x2.shape[0]
+        qkv = _fused_preattn_fwd(x2, *w[:4], eps=eps).reshape(b, n // b, -1)
         if hopper(qkv):
             a, lse = _flash_attention_packed_fwd(qkv, n_heads, with_lse=True)
             stats = (lse,)
         else:
             a, stats = _flash_attention_packed_fwd(qkv, n_heads), ()
         del qkv
-        a2 = a.reshape(n, d)
-        ctx.save_for_backward(x2, a2, *w, *stats)
-        ctx.b, ctx.n_heads, ctx.eps = b, n_heads, eps
-        return _fused_postattn_fwd(x2, a2, *w[4:], eps=eps)
+        a2 = a.reshape(n, -1)
+        if tp is None:
+            out, kept = _fused_postattn_fwd(x2, a2, *w[4:], eps=eps), ()
+        else:
+            out, kept = postattn_tp_chain(x2, a2, *w[4:], reduce=_reducer(tp), eps=eps, keep=True)
+        ctx.save_for_backward(x2, a2, *w, *kept, *stats)
+        ctx.b, ctx.n_heads, ctx.eps, ctx.tp = b, n_heads, eps, tp
+        return out
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, g):
         x2, a2, *rest = ctx.saved_tensors
-        w, stats = rest[:14], rest[14:]
-        b, eps = ctx.b, ctx.eps
-        n, d = x2.shape
-        post = fused_postattn_bwd(x2, a2, *w[4:], g.contiguous(), eps=eps)  # K8
-        qkv = _fused_preattn_fwd(x2, *w[:4], eps=eps).reshape(b, n // b, 3 * d)  # K1
-        kept = {"out": a2.reshape(b, n // b, d), "lse": stats[0]} if stats else {}
-        dqkv = flash_attention_packed_bwd(qkv, ctx.n_heads, post[1].reshape(b, n // b, d),
+        w, rest = rest[:14], rest[14:]
+        b, eps, tp = ctx.b, ctx.eps, ctx.tp
+        n, dl = a2.shape
+        g = g.contiguous()
+        if tp is None:
+            post = fused_postattn_bwd(x2, a2, *w[4:], g, eps=eps)  # K8
+            stats = rest
+        else:  # K8 over the axis, from the forward's two sums
+            post = fused_postattn_bwd_tp(x2, a2, *w[4:], g, reduce=_reducer(tp),
+                                         kept=tuple(rest[:2]), eps=eps)
+            stats = rest[2:]
+        qkv = _fused_preattn_fwd(x2, *w[:4], eps=eps).reshape(b, n // b, 3 * dl)  # K1
+        kept = {"out": a2.reshape(b, n // b, dl), "lse": stats[0]} if stats else {}
+        dqkv = flash_attention_packed_bwd(qkv, ctx.n_heads, post[1].reshape(b, n // b, dl),
                                           **kept)  # K7
         del qkv
-        pre = fused_preattn_bwd(x2, *w[:4], dqkv.reshape(n, 3 * d), eps=eps)  # K6
+        if tp is None:
+            pre = fused_preattn_bwd(x2, *w[:4], dqkv.reshape(n, 3 * dl), eps=eps)  # K6
+        else:
+            pre = fused_preattn_bwd_tp(x2, *w[:4], dqkv.reshape(n, 3 * dl), reduce=_reducer(tp),
+                                       eps=eps)  # K6 over the axis
         dx = post[0] + pre[0] if ctx.needs_input_grad[0] else None
-        return (dx, None, None, None) + needed(ctx, (None,) * 4 + pre[1:] + post[2:])[4:]
+        return (dx, None, None, None, None) + needed(ctx, (None,) * 5 + pre[1:] + post[2:])[5:]
 
 
 class _FusedMpnetPost(torch.autograd.Function):

@@ -4,6 +4,8 @@
   the result is cast back to the input dtype
 - ``row_linear``: a row-parallel ``linear`` over a model group (the
   partial products all-reduced, then the bias)
+- ``column_linear``: a column-parallel ``linear`` over a model group (the
+  input through ``copy_to_model``, whose backward sums its gradient)
 - ``gelu``: exact erf GELU
 - ``attention``: eager softmax attention with an fp32 softmax
 - ``l2_normalize``: ``x / max(||x||, eps)`` with eps 1e-12
@@ -16,7 +18,7 @@ from typing import Optional, Sequence
 
 import torch
 
-from radzero_torch.parallel.collectives import all_reduce_sum
+from radzero_torch.parallel.collectives import all_reduce_sum, copy_to_model
 
 
 def layer_norm(x: torch.Tensor, params: dict, eps: float) -> torch.Tensor:
@@ -47,6 +49,16 @@ def row_linear(x: torch.Tensor, params: dict, tp) -> torch.Tensor:
     if params.get("bias") is not None:
         y = y + params["bias"].to(x.dtype)
     return y
+
+
+def column_linear(x: torch.Tensor, params: dict, tp) -> torch.Tensor:
+    """:func:`linear` of a column-parallel weight over the model group ``tp``:
+    ``x`` is whole on every rank and the kernel and bias hold this rank's
+    output columns. The product is local; under gradients ``x`` passes
+    through :func:`radzero_torch.parallel.collectives.copy_to_model`, so its
+    gradient is the sum of the ranks' partials. Without a group,
+    :func:`linear`."""
+    return linear(copy_to_model(x, tp), params)
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:

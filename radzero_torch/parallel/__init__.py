@@ -1,5 +1,5 @@
-"""Data-parallel training and eval over processes, one a card, and the
-forward over a model axis (counterpart of radzero_tpu/parallel): the process
+"""Data-parallel training and eval over processes, one a card, and
+training over a model axis (counterpart of radzero_tpu/parallel): the process
 groups (:mod:`.dist`), the collectives the loss, the step and the
 row-parallel layers run (:mod:`.collectives`), and the tensor-parallel rules
 (:mod:`.tensor_parallel`)."""
@@ -8,6 +8,7 @@ from radzero_torch.parallel.collectives import (
     all_gather_rows,
     all_reduce_sum,
     average_gradients,
+    copy_to_model,
     gather_rows,
 )
 from radzero_torch.parallel.dist import (
@@ -23,6 +24,7 @@ from radzero_torch.parallel.dist import (
 )
 from radzero_torch.parallel.tensor_parallel import (
     param_specs,
+    split_leaves,
     shard_params,
     unshard_params,
 )

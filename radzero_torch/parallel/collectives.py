@@ -14,7 +14,15 @@ a plain one, and the gradient average.
   list it is given (``tree_leaves``), not one call a leaf.
 - :func:`all_reduce_sum` is the sum over a model group that completes a
   row-parallel product (the o-proj and fc2 partials of K3 and K4 under
-  ``tp=``, MPNet's split embedding lookups); forward only.
+  ``tp=``, MPNet's split embedding lookups). Under autograd its backward is
+  the identity on each rank's share: what follows the sum is replicated, so
+  every rank's cotangent of the sum is the same, and it is the cotangent of
+  each rank's partial.
+- :func:`copy_to_model` is its transpose, at the input of a column-parallel
+  region outside a fused chain (the eager layers' q / k / v and fc1, MPNet's
+  q / k / v, the ``mlp`` adapter's fc1, a replicated leaf that each rank
+  reads only in part): the identity forward, and the sum over the model
+  group of the ranks' gradients backward.
 
 Every rank passes tensors of the same shape and dtype. 16-bit floats are
 summed in fp32 and rounded once. The backend decides the route, and nothing
@@ -31,8 +39,6 @@ from typing import List, Sequence
 
 import torch
 import torch.distributed as dist
-
-from radzero_torch.parallel.tensor_parallel import refuse_grad
 
 _WIDEN = (torch.float16, torch.bfloat16)
 
@@ -104,18 +110,58 @@ def average_gradients(grads: Sequence[torch.Tensor], group) -> List[torch.Tensor
     return out
 
 
-def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
-    """The sum over the ranks of ``group`` of each rank's ``x`` (the same
-    shape and dtype on every rank), as a new tensor on ``x``'s device in
-    ``x``'s dtype; 16-bit floats are summed in fp32 and rounded once. Every
-    rank gets the same bits. None is the identity. No autograd: an ``x``
-    that autograd tracks raises, since the model axis has no backward yet."""
-    if group is None:
-        return x
-    refuse_grad("all_reduce_sum", x)
+def _reduce(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum over ``group`` of each rank's ``x`` as a new tensor in ``x``'s
+    dtype on its device (16-bit floats summed in fp32, rounded once)."""
     acc = x.detach().to(torch.float32) if x.dtype in _WIDEN else x.detach()
     buf = _host(acc, group).contiguous()
     if buf.data_ptr() == x.data_ptr():  # all_reduce works in place: never on the caller's tensor
         buf = buf.clone()
     dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group)
     return buf.to(device=x.device, dtype=x.dtype)
+
+
+class _AllReduceSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return _reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce(g, ctx.group), None
+
+
+def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum over the ranks of ``group`` of each rank's ``x`` (the same
+    shape and dtype on every rank), as a new tensor on ``x``'s device in
+    ``x``'s dtype; 16-bit floats are summed in fp32 and rounded once. Every
+    rank gets the same bits. None is the identity. Differentiable: the
+    gradient of each rank's ``x`` is the gradient of the sum, unchanged
+    (the computation after the sum runs alike on every rank)."""
+    if group is None:
+        return x
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _AllReduceSum.apply(x, group)
+    return _reduce(x, group)
+
+
+def copy_to_model(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` itself, replicated over the model group ``group``, as the input
+    of a computation each rank runs on its share of the weights: the
+    backward sums the ranks' gradients of ``x`` (fp32 for 16-bit floats,
+    rounded once), so every rank gets the whole gradient, bit for bit the
+    same. None, or ``x`` that needs no gradient, is ``x``."""
+    if group is None or not (torch.is_grad_enabled() and x.requires_grad):
+        return x
+    return _CopyToModel.apply(x, group)

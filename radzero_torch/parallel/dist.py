@@ -18,7 +18,7 @@ through the gathers of :mod:`radzero_torch.parallel.collectives`.
 - :func:`world`, :func:`rank`, :func:`process_offset` (the global image
   offset of this rank's share, ``multihost.py:70-72``), :func:`sync` (a
   barrier), :func:`mesh_shape` and :func:`check_mesh` (``train.mesh``
-  against the world, ``mesh.py:28-46``).
+  against the world, ``mesh.py:28-46``: a data and a model axis).
 - :func:`mesh_groups` lays the ranks out on a (data, model) grid in
   row-major order, as ``create_mesh`` lays out devices: global rank
   ``d * model + m``. It returns this rank's data group (the ranks that hold
@@ -42,8 +42,6 @@ from typing import Dict, Optional, Tuple
 
 import torch
 import torch.distributed as dist
-
-from radzero_torch.parallel.tensor_parallel import FORWARD_ONLY
 
 _TORCHRUN_VARS = ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")
 
@@ -136,16 +134,11 @@ def mesh_shape(mesh: Optional[Dict[str, int]], world_size: int) -> Tuple[int, in
 
 def check_mesh(mesh: Optional[Dict[str, int]], world_size: int) -> int:
     """``train.mesh`` as the trainer and ``cli/run.py`` take it: ``{data:
-    -1}`` absorbs the world, ``{data: N}`` must equal it; returns the
-    data-parallel size (:func:`mesh_shape`). A ``model`` axis larger than 1
-    raises NotImplementedError: the port runs it in the forward only
-    (:func:`mesh_groups`, ``compute_logits`` / ``forward_train``'s loss with
-    ``tp=``), and training over it is ROADMAP.md item 11."""
-    data, model = mesh_shape(mesh, world_size)
-    if model > 1:
-        raise NotImplementedError(f"train.mesh {mesh}: training over a model axis of "
-                                  f"{model}: {FORWARD_ONLY}")
-    return data
+    -1}`` absorbs the world, ``{data: N}`` must equal it, and a ``model``
+    axis must divide it (:func:`mesh_shape`, whose (data, model) the CLI
+    reads); returns the data-parallel size. Any other axis above 1
+    raises."""
+    return mesh_shape(mesh, world_size)[0]
 
 
 def mesh_groups(data: int, model: int):

@@ -26,8 +26,11 @@ from each third, not one contiguous third of the columns.
 Every rank of a model group runs the same layers on the same rows with its
 share (:func:`shard_params`); ``models/vit.py`` and ``models/mpnet.py`` read
 the group as ``tp=`` and run the row-parallel K3 and K4 of
-``ops/fused_layer.py``. :func:`unshard_params` puts the shares back
-together.
+``ops/fused_layer.py``, and under gradients their backwards K6, K8 and K9
+split at their all-reduces. :func:`unshard_params` puts the shares back
+together, :func:`gather_whole` does so across the ranks, and
+:func:`split_leaves` tells which leaves of a tree are split (their
+gradients are shares; a replicated leaf's gradient is whole on every rank).
 """
 
 from __future__ import annotations
@@ -37,20 +40,22 @@ from typing import Any, List, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
+from radzero_torch.parallel.collectives import gather_rows
+from radzero_torch.utils.tree import tree_leaves
+
 MODEL = "model"
 _COLUMN, _ROW = (None, MODEL), (MODEL, None)
 # what a model group of more than one rank refuses, and where its work is queued
-FORWARD_ONLY = ("the model axis runs the forward only; its backward (K6-K9 split at their "
-                "all-reduces, the trainer's and the CLI's model axis, the alternate towers) "
-                "is ROADMAP.md item 11")
+NOT_SPLIT = ("the model axis runs the DINOv2 and raddino towers, the align adapters, MPNet "
+             "and the loss heads, forward and backward; the alternate towers, remat's "
+             "save_attn on the packed and flash layers, LoRA and the tower cache over it are "
+             "ROADMAP.md item 11")
 
 
-def refuse_grad(name: str, *tensors) -> None:
-    """Raise NotImplementedError when autograd would record an op on any of
-    ``tensors``: a layer over a model group has no backward yet, and nothing
+def refuse(what: str) -> None:
+    """Raise NotImplementedError for ``what`` over a model group: nothing
     falls back to replicated compute."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise NotImplementedError(f"{name} under gradients: {FORWARD_ONLY}")
+    raise NotImplementedError(f"{what} over a model group: {NOT_SPLIT}")
 
 
 def _rule(joined: str):
@@ -141,6 +146,32 @@ def unshard_params(shards: List[dict], specs: dict) -> dict:
         return torch.cat(leaves, dim=dim)
 
     return _map(join, specs)
+
+
+def split_leaves(specs) -> List[bool]:
+    """Whether each leaf of a :func:`param_specs` tree is split, in the order
+    of :func:`radzero_torch.utils.tree.tree_leaves` (dict keys sorted)."""
+    return [bool(spec) for spec in tree_leaves(specs)]
+
+
+def gather_whole(share: dict, specs: dict, tp) -> dict:
+    """The whole tree from this rank's ``share`` and the other ranks' of the
+    model group ``tp``: each split leaf's shares gathered in rank order and
+    joined (:func:`unshard_params`), each replicated leaf as it is. Every
+    rank of the group must call it; every rank gets the whole tree."""
+    size = tp_size(tp)
+    if size == 1:
+        return share
+
+    def gather(path, spec):
+        leaf = _at(share, path)
+        if not spec:
+            return [leaf] * size
+        return list(gather_rows(leaf.reshape(1, -1), tp).reshape((size,) + tuple(leaf.shape)))
+
+    parts = _map(gather, specs)
+    shards = [_map(lambda path, _: _at(parts, path)[r], specs) for r in range(size)]
+    return unshard_params(shards, specs)
 
 
 def _at(tree: Any, path: Sequence):

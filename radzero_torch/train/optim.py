@@ -2,7 +2,9 @@
 
 AdamW (b1 0.9, b2 0.999, eps 1e-8) with a linear-warmup cosine schedule,
 global-norm gradient clipping and no weight decay on biases and LayerNorm
-parameters, over the port's trees of tensors (nested dicts and lists).
+parameters, over the port's trees of tensors (nested dicts and lists), or
+over a rank's shares of them on a model axis (the clip then reads the whole
+tree's norm, :func:`global_norm`).
 The arithmetic is that of the optax chain the JAX package builds
 (``clip_by_global_norm`` -> ``adamw`` -> ``MultiSteps``), written out,
 because ``torch.optim.AdamW`` with ``clip_grad_norm_`` differs from it:
@@ -31,6 +33,9 @@ import math
 from typing import Callable, List, Sequence, Tuple
 
 import torch
+
+from radzero_torch.parallel.collectives import all_reduce_sum
+from radzero_torch.utils.tree import tree_leaves
 
 _LN_KEYS = {"ln", "ln1", "ln2", "ln_attn", "ln_out", "layer_norm", "final_ln"}
 
@@ -61,15 +66,6 @@ def decay_mask(params):
     return walk(params)
 
 
-def tree_leaves(tree) -> list:
-    """Leaves of a nested dict / list tree, dict keys in sorted order."""
-    if isinstance(tree, dict):
-        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
-    if isinstance(tree, list):
-        return [leaf for v in tree for leaf in tree_leaves(v)]
-    return [tree]
-
-
 def warmup_cosine_schedule(learning_rate: float, warmup_steps: int,
                            total_steps: int) -> Callable[[int], float]:
     """Linear warmup from 0 over ``warmup_steps`` updates, then cosine decay
@@ -86,10 +82,23 @@ def warmup_cosine_schedule(learning_rate: float, warmup_steps: int,
     return schedule
 
 
-def global_norm(grads) -> torch.Tensor:
-    """sqrt of the sum of squares over every leaf, fp32."""
+def global_norm(grads, tp=None, split=None) -> torch.Tensor:
+    """sqrt of the sum of squares over every leaf, fp32. Over a model group
+    ``tp``, where ``grads`` holds this rank's share of each leaf that
+    ``split`` (bools in leaf order,
+    :func:`radzero_torch.parallel.tensor_parallel.split_leaves`) marks and
+    the whole of the rest: the split leaves' squares summed on each rank and
+    all-reduced over the group, then the replicated leaves' added once, so
+    every rank gets the whole tree's norm, bit for bit the same."""
     leaves = tree_leaves(grads)
-    return torch.sqrt(sum(g.float().square().sum() for g in leaves))
+    if tp is None:
+        return torch.sqrt(sum(g.float().square().sum() for g in leaves))
+    if len(split) != len(leaves):
+        raise ValueError(f"{len(split)} split flags for {len(leaves)} gradient leaves")
+    zero = leaves[0].new_zeros((), dtype=torch.float32)
+    shares = sum((g.float().square().sum() for g, s in zip(leaves, split) if s), zero)
+    whole = sum((g.float().square().sum() for g, s in zip(leaves, split) if not s), zero)
+    return torch.sqrt(all_reduce_sum(shares, tp) + whole)
 
 
 class AdamW:
@@ -122,7 +131,10 @@ class AdamW:
         return state
 
     @torch.no_grad()
-    def update(self, grads, state: dict, trainable) -> dict:
+    def update(self, grads, state: dict, trainable, *, tp=None, split=None) -> dict:
+        """``tp`` / ``split``: ``trainable`` and ``grads`` are this rank's
+        shares over a model group; the clip reads the whole tree's norm
+        (:func:`global_norm`)."""
         params = tree_leaves(trainable)
         g_leaves: List[torch.Tensor] = tree_leaves(grads)
         decay = tree_leaves(decay_mask(trainable))
@@ -137,7 +149,7 @@ class AdamW:
             for acc in state["acc_grads"]:
                 acc.zero_()
 
-        norm = global_norm(g_leaves)
+        norm = global_norm(g_leaves, tp, split)
         below = norm < self.max_grad_norm  # stays on the device: no host read
         g_leaves = [torch.where(below, g, (g / norm.to(g.dtype)) * self.max_grad_norm)
                     for g in g_leaves]

@@ -27,8 +27,21 @@ Where it departs from the JAX trainer:
   names runs on every device, so there is no ``resolve_backend_impls``
   downgrade, and the frozen tower always runs on the fused K1-K3 layer
   (``forward_train``), so there is no flash-to-fused substitution.
-- ``train_samples_per_second`` counts the samples of every rank (this
-  rank's times the world), as the JAX trainer's global batch does.
+- ``train_samples_per_second`` counts the samples of every data rank (this
+  rank's times the data group's size), as the JAX trainer's global batch
+  does.
+- ``tp=`` (a model group, with ``group`` the data group of the same grid,
+  :func:`radzero_torch.parallel.dist.mesh_groups`) trains over a model axis:
+  the trainer keeps this rank's share of the weights and of the optimizer's
+  moments (``shard_params`` of the whole tree it is given or builds), the
+  ranks of a model group read the same batches, and the step splits at the
+  model axis's all-reduces (``train/step.py``). Checkpoints hold the whole
+  tree, in a one-process run's layout: the shares are gathered over the
+  model group and joined (``gather_whole``), and global rank 0 writes. A
+  resume, and the best model at the end, read the whole tree and take this
+  rank's share. :attr:`params` is this rank's share; :meth:`whole_params`
+  gathers the whole tree. The tower cache over a model group raises
+  NotImplementedError (ROADMAP.md item 11).
 - Batches are uploaded by ``data/pipeline.py``'s ``to_device``: each host
   array is copied into pinned memory on the host thread (a memcpy of the
   batch, chiefly its 206 MB of fp32 pixels at batch 64; its time on the
@@ -68,6 +81,7 @@ import torch
 from radzero_torch.data.pipeline import to_device
 from radzero_torch.models.configuration import RadZeroConfig
 from radzero_torch.models.radzero import init_radzero
+from radzero_torch.parallel import tensor_parallel as tpar
 from radzero_torch.parallel.dist import rank, sync, world
 from radzero_torch.train.checkpoint import (
     checkpoint_dir,
@@ -79,6 +93,7 @@ from radzero_torch.train.checkpoint import (
 from radzero_torch.train.optim import build_optimizer, merge_params, partition_params
 from radzero_torch.train.step import make_eval_step, make_train_step
 from radzero_torch.utils.logging import logger
+from radzero_torch.utils.tree import tree_leaves, tree_unflatten
 
 
 @dataclass
@@ -137,6 +152,7 @@ class RadZeroTrainer:
         metrics_callback: Optional[Callable[[Dict[str, Any]], None]] = None,
         tower_cache=None,
         group=None,
+        tp=None,
     ):
         """``tower_cache``: an optional ``train.tower_cache.TowerCache``.
         The frozen vision tower's output tokens are computed once per
@@ -147,9 +163,13 @@ class RadZeroTrainer:
         loader constructed ``with_indices=True``.
 
         ``group``: a process group for data-parallel training (each rank
-        passes its own loader shard and the same ``params``), or None."""
+        passes its own loader shard and the same ``params``), or None.
+        ``tp``: a model group (see the module docstring); ``group`` is then
+        the data group, and the ranks of a model group pass the same loader
+        shard and the same whole ``params``."""
         self.group = group
-        self.is_main = rank(group) == 0
+        self.tp = tpar.active(tp)
+        self.is_main = rank(group) == 0 and tpar.tp_rank(self.tp) == 0
         self.device = torch.device(device)
         if self.device.type == "cuda" and self.device.index is None:
             self.device = torch.device("cuda", torch.cuda.current_device())
@@ -162,6 +182,11 @@ class RadZeroTrainer:
         if params is None:
             g = torch.Generator(device=self.device).manual_seed(args.seed)
             params = init_radzero(g, model_cfg)
+        self.specs = None
+        if self.tp is not None:
+            size = tpar.tp_size(self.tp)
+            self.specs = tpar.param_specs(params, size)
+            params = tpar.shard_params(params, tpar.tp_rank(self.tp), size)
         trainable, frozen = partition_params(params, args.module_to_update)
         self.trainable = _to(trainable, self.device, copy=True)
         self.frozen = _to(frozen, self.device, copy=False)
@@ -169,6 +194,8 @@ class RadZeroTrainer:
         self.tower_cache = tower_cache
         self._tower_fn = None
         if tower_cache is not None:
+            if self.tp is not None:
+                tpar.refuse("the tower cache")
             if "vision_model" in args.module_to_update:
                 raise ValueError(
                     "tower_cache requires a frozen vision tower: cached "
@@ -221,10 +248,11 @@ class RadZeroTrainer:
         dtype = torch.bfloat16 if args.bf16 else torch.float32
         self.train_step = make_train_step(
             model_cfg, self.optimizer, loss_ratio=args.loss_ratio, dtype=dtype,
-            remat=args.gradient_checkpointing, device=self.device, group=group,
+            remat=args.gradient_checkpointing, device=self.device, group=group, tp=self.tp,
+            specs=self.specs,
         )
         self.eval_step = make_eval_step(model_cfg, loss_ratio=args.loss_ratio, dtype=dtype,
-                                        device=self.device, group=group)
+                                        device=self.device, group=group, tp=self.tp)
         self.state = TrainerState(
             patience_left=args.early_stopping_patience,
         )
@@ -238,6 +266,56 @@ class RadZeroTrainer:
 
     def _ckpt_state(self) -> dict:
         return {"trainable": self.trainable, "opt_state": self.opt_state}
+
+    def _sync(self, name: str) -> None:
+        """A barrier over the whole grid: the data group, then the model group."""
+        sync(name, self.group)
+        sync(name, self.tp)
+
+    @staticmethod
+    def _moments(state: dict, fn, like) -> dict:
+        """``state`` (the optimizer's) with ``fn`` applied to each per-leaf list
+        (``mu``, ``nu``, ``acc_grads``) as a tree shaped like ``like``."""
+        out = dict(state)
+        for key in ("mu", "nu", "acc_grads"):
+            if key in out:
+                out[key] = tree_leaves(fn(tree_unflatten(out[key], like)))
+        return out
+
+    def _whole_state(self) -> dict:
+        """The checkpoint state of the whole tree: over a model group, every
+        split leaf's shares gathered and joined (a collective of the group)."""
+        if self.tp is None:
+            return self._ckpt_state()
+        specs = {k: self.specs[k] for k in self.trainable}
+
+        def whole(tree):
+            return tpar.gather_whole(tree, specs, self.tp)
+
+        return {"trainable": whole(self.trainable),
+                "opt_state": self._moments(self.opt_state, whole, self.trainable)}
+
+    def _restore(self, path: str) -> dict:
+        """A checkpoint of the whole tree as this rank's state: over a model
+        group, read onto the whole tree's shapes, then this rank's share."""
+        if self.tp is None:
+            return restore_checkpoint(path, self._ckpt_state())
+        whole = restore_checkpoint(path, self._whole_state())
+        r, size = tpar.tp_rank(self.tp), tpar.tp_size(self.tp)
+
+        def share(tree):
+            return tpar.shard_params(tree, r, size)
+
+        return {"trainable": share(whole["trainable"]),
+                "opt_state": self._moments(whole["opt_state"], share, whole["trainable"])}
+
+    def whole_params(self) -> dict:
+        """The whole parameter tree (trainable and frozen): over a model group
+        the shares gathered and joined, a collective of the group; else
+        :attr:`params`."""
+        if self.tp is None:
+            return self.params
+        return tpar.gather_whole(self.params, self.specs, self.tp)
 
     def _put_batch(self, batch: Dict[str, Any]) -> dict:
         return to_device(batch, self.device, self._copy_stream)
@@ -280,7 +358,7 @@ class RadZeroTrainer:
         if not path:
             return
         logger.info(f"resuming from checkpoint {path}")
-        restored = restore_checkpoint(path, self._ckpt_state())
+        restored = self._restore(path)
         self.trainable = restored["trainable"]
         self.opt_state = restored["opt_state"]
         meta = load_trainer_state(path)
@@ -475,23 +553,26 @@ class RadZeroTrainer:
                 "patience_left": self.state.patience_left,
                 "metrics": epoch_metrics,
             }
-            sync("save", self.group)
+            self._sync("save")
+            # the first data rank's model group gathers the whole tree
+            state = self._whole_state() if rank(self.group) == 0 else None
             if self.is_main:
                 save_checkpoint(
                     args.output_dir,
                     self.state.step,
-                    self._ckpt_state(),
+                    state,
                     meta,
                     save_total_limit=args.save_total_limit,
                     best_path=self.state.best_checkpoint,
                 )
-            sync("saved", self.group)  # the files exist before any rank reads them
+            del state
+            self._sync("saved")  # the files exist before any rank reads them
             if stop_early:
                 break
 
         if args.load_best_model_at_end and self.state.best_checkpoint:
             logger.info(f"loading best model from {self.state.best_checkpoint}")
-            restored = restore_checkpoint(self.state.best_checkpoint, self._ckpt_state())
+            restored = self._restore(self.state.best_checkpoint)
             self.trainable = restored["trainable"]
         return self.state
 

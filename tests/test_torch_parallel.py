@@ -8,7 +8,8 @@ CPU, two gloo ranks, against one-process references and the JAX package.
   the mean over the ranks by one all-reduce, the same bits on both ranks;
 - ``init_distributed``: no environment is a world of one; an incomplete
   launcher environment, partial arguments and an explicit rendezvous that
-  no peer joins raise; ``check_mesh`` against the world;
+  no peer joins raise; ``check_mesh`` against the world (a data and a model
+  axis);
 - ``vlcabs_similarity(group=)``, impls ``xla`` and ``fused_train`` (the
   K10-K12 twins), against the JAX ``shard_map`` path on a 2-device CPU
   mesh (``tests/test_parallel_train.py``): logits at 1e-5; dq and dt
@@ -249,8 +250,9 @@ def test_check_mesh():
         pdist.check_mesh({"data": 4}, 2)
     with pytest.raises(ValueError, match="world"):
         pdist.check_mesh({"data": 2}, 1)
-    with pytest.raises(NotImplementedError, match="model"):
-        pdist.check_mesh({"data": -1, "model": 2}, 2)
+    assert pdist.check_mesh({"data": -1, "model": 2}, 2) == 1  # a model axis: data absorbs the rest
+    with pytest.raises(NotImplementedError, match="data and model"):
+        pdist.check_mesh({"data": -1, "pipe": 2}, 2)
 
 
 @pytest.mark.parametrize("impl", ["xla", "fused_train"])

@@ -21,9 +21,11 @@ on the CPU, fp32, against the JAX package's tensor-parallel rules and mesh.
   and the token filter over ``tp=2``;
 - ``forward_train(remat=True)`` with grad mode on over both grids, at the
   gates of the no_grad call;
-- under gradients, and with an alternate tower, a model group of two raises
-  NotImplementedError naming ROADMAP.md item 11; a model group of one gives
-  the bits of no group.
+- what a model group of two still refuses raises NotImplementedError naming
+  ROADMAP.md item 11: the alternate towers, and remat's ``save_attn`` on the
+  packed and flash align layers under gradients (training over the axis is
+  tests/test_torch_tp_train.py's); a model group of one gives the bits of no
+  group.
 
 The ranks are fresh interpreters running this file (``run_ranks`` of
 ``tests/test_torch_parallel.py``); they import no JAX.
@@ -154,8 +156,13 @@ def _grid_rank(group, out, inputs_path):
         share = tpar.shard_params(inputs["params"], m, model)
         clip = dataclasses.replace(cfg, vision=dataclasses.replace(cfg.vision, model_type="clip"))
         bert = dataclasses.replace(cfg, text=dataclasses.replace(cfg.text, model_type="bert"))
+        packed, flash = (dataclasses.replace(cfg, align=dataclasses.replace(cfg.align, attn_impl=a))
+                         for a in ("packed", "flash"))
         for name, fn in (
-            ("grad", lambda: forward_train(_require(share), cfg, batch, group=dgroup, tp=tp)),
+            ("save_attn_packed", lambda: forward_train(_require(share), packed, batch,
+                                                       group=dgroup, tp=tp, remat=True)),
+            ("save_attn_flash", lambda: forward_train(_require(share), flash, batch,
+                                                      group=dgroup, tp=tp, remat=True)),
             ("alt_vision", lambda: forward_vision(share, clip, batch["pixel_values"], tp=tp)),
             ("alt_text", lambda: forward_text(share, bert, ids, mask, tp=tp)),
         ):
@@ -434,11 +441,11 @@ def test_row_kernel_twin_forms():
     def ln(u):
         return torch.nn.functional.layer_norm(u, (D,), s, c, eps=1e-6)
 
-    out, u, y = fl.tp_rows(x, acc, b, ls=ls, ln=(s, c), dtype=torch.float32, keep_u=True)
+    out, u, y, _ = fl.tp_rows(x, acc, b, ls=ls, ln=(s, c), dtype=torch.float32, keep_u=True)
     np.testing.assert_allclose(u.numpy(), (x + ls * (acc + b)).numpy(), rtol=1e-6, atol=1e-6)
     np.testing.assert_allclose(out.numpy(), ln(u).numpy(), rtol=1e-5, atol=1e-5)
     assert y is None
-    out, u, y = fl.tp_rows(x, acc, b, ln=(s, c), dtype=torch.bfloat16, keep_ln32=True)
+    out, u, y, _ = fl.tp_rows(x, acc, b, ln=(s, c), dtype=torch.bfloat16, keep_ln32=True)
     np.testing.assert_allclose(y.numpy(), ln(x + (acc + b)).numpy(), rtol=1e-5, atol=1e-5)
     assert torch.equal(out, y.to(torch.bfloat16)) and u is None
     out = fl.tp_rows(x, acc, b, ls=ls, dtype=torch.bfloat16)[0]
@@ -524,8 +531,10 @@ def test_branch_logits_over_the_model_axis(grids, branch):
 
 
 def test_gradients_and_alternate_towers_refuse(grids):
+    """Under gradients, remat's save_attn on the packed and flash align layers,
+    and the alternate towers, over a model group of two."""
     for res in grids["1x2"][3]:
-        for name in ("grad", "alt_vision", "alt_text"):
+        for name in ("save_attn_packed", "save_attn_flash", "alt_vision", "alt_text"):
             assert res[f"refused_{name}"] is not None and "ROADMAP.md item 11" in res[
                 f"refused_{name}"], (name, res[f"refused_{name}"])
 
@@ -535,15 +544,22 @@ def test_model_group_of_one_is_no_group(grids):
 
 
 def test_refusals_without_ranks():
-    """Without a group to run on: the gradient refusal of the row-parallel
-    wrappers, and check_mesh's model axis."""
+    """Without a group to run on (a stand-in for one): the refusal of save_attn
+    on the packed layer under gradients, before any collective; check_mesh
+    and mesh_shape take a model axis."""
+    from radzero_torch.models import vit as tvit
     from radzero_torch.parallel.dist import check_mesh, mesh_shape
 
-    ops = [t.requires_grad_(True) for t in _layer_ops("K3", np.random.default_rng(1))]
+    cfg = tconf.ViTConfig(**VIT)
+    rng = np.random.default_rng(1)
+    p = tvit.init_vit_layers(torch.Generator().manual_seed(0), cfg)[0]
+    x = torch.from_numpy(rng.standard_normal((2, 5, D)).astype(np.float32)).requires_grad_(True)
     with pytest.raises(NotImplementedError, match="ROADMAP.md item 11"):
-        fl.fused_postattn_tp(*ops, tp=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item 11"):
-        check_mesh({"data": 1, "model": 2}, 2)
+        tvit._SAVE_ATTN["packed"](x, p, cfg, object())
+    assert check_mesh({"data": 1, "model": 2}, 2) == 1
+    assert check_mesh({"data": -1, "model": 2}, 4) == 2
+    with pytest.raises(NotImplementedError, match="data and model"):
+        check_mesh({"data": 1, "pipe": 2}, 2)
     assert mesh_shape({"data": -1, "model": 2}, 4) == (2, 2)
     assert mesh_shape({"data": 2, "model": 2}, 4) == (2, 2)
     with pytest.raises(ValueError, match="divide"):
