@@ -278,7 +278,7 @@ Phases, in order; any failure exits non-zero:
    row kernel of K3 / K4 over a model group (csrc/tp_rows.cu, tp_rows_kernel) in its
    four places (x + ls1 (acc + bo) with LN2; y32 + ls2 (acc + b2); x + (acc + bo)
    with LN written rounded and in fp32; LN(y32 + (acc + b2))) at 8 x 1370 x 768
-   against its twin at seeds 0-3, fp32 (TF32 off, 2^-17 of max |ref|) and bf16 (one
+   against its twin at seeds 0-1, fp32 (TF32 off, 2^-17 of max |ref|) and bf16 (one
    bf16 step), with times, bounds and its device kernel by name; rank 0's share of
    K3 and K4 over two ranks (the sum the identity) at phase 3's TOL, by name, beside
    their three products on cuBLAS; b, one process on the flagship at full depth,
@@ -297,7 +297,7 @@ Phases, in order; any failure exits non-zero:
    phase 3's training shapes against their twins at phase 3's TOL, their bf16 device
    kernels by name, times and bounds, beside the unsplit chains; in b, a bf16 step's
    gradients under NCCL's group of one bit-equal to no group; in c's ranks, K6 / K8 /
-   K9 over the group against their twins with the same gloo all-reduce at seeds 0-3,
+   K9 over the group against their twins with the same gloo all-reduce at seeds 0-1,
    forward_train's gradient tree over the group (gathered whole) against one
    process's (fp32 within tp_grad_gate, bf16 within TP_BF16_FACTOR of one process's
    own bf16 miss, leaf by leaf), and under remat (align "save_attn", MPNet's recompute,
@@ -306,7 +306,27 @@ Phases, in order; any failure exits non-zero:
    leaves bit-equal, the losses against one process's) and one remat step a dtype (its
    update bit-equal to the first step's), each step's launches as tp_step_expected
    derives them, rank 0's device kernels of a bf16 step and a bf16 remat step by name,
-   the step's wall time, its all-reduces' share and the SM clock.
+   the step's wall time, its all-reduces' share and the SM clock; e, the model axis's
+   last paths (chip_smoke.py --tp-paths-rank, two gloo ranks of {data: 1, model: 2}),
+   fp32 and bf16: e1, SAM ViT-B at 1024 px (8 images x 14 prompts; its MLP split, its
+   attention whole) through compute_logits; e2, BiomedCLIP's ViT-B/16 at 224 px with a
+   Bio_ClinicalBERT-sized BERT trainable, the gradient tree gathered whole and 3 steps;
+   e3, the flagship under remat with its align layers on "packed" and on "flash"
+   (save_attn), 3 steps each at 2 images x 16 sentences, the first bit-equal to the step
+   without remat; e4, RadZeroTrainer on the flagship with the tower cache (device
+   backing), 2 epochs of 4 records, cached bit-equal to uncached; each against one
+   process run in rank 0's own process (fp32 within tp_fp32_gate / tp_grad_gate, bf16
+   within TP_BF16_FACTOR of one process's own miss, leaf by leaf; the step losses at rtol
+   5e-4 in fp32), both ranks' outputs, losses and replicated leaves bit-equal, every
+   call's and step's launches as derived from one process's (tp_expected,
+   tp_step_expected; e4's cached run the uncached run's less the tower's in its cached
+   steps), each path's wall time, all-reduce share and SM clock; a model group of one
+   under NCCL bit-equal to no group on e1 and e2; rank 0's share of K3 / K4 over the
+   group at 8 x 4097 and 8 x 197 rows against their twins, device ms and bounds; e5,
+   python -m radzero_torch.tools.flagship_width_dryrun --data 1 --model 2 (its own gloo
+   ranks): two sharded steps and an eval batch at the flagship's widths against its
+   one-process control (drift <= 5e-4 of the loss, logits MAE <= 2e-4).
+   --tp-paths-seeds 0,1,2,3 runs leg e alone at those seeds after the build.
 
 --profile also prints the kernels of one training step by device time
 (torch.profiler; the 40 longest, K15 / K16's by name, and the fixed-order
@@ -5557,7 +5577,7 @@ def phase_encoders(seed, card):
 TP_WORLD = 2              # ranks of the model group: processes sharing the one card under gloo
 TP_IMAGES, TP_PROMPTS = 8, 20  # compute_logits over the group
 TP_SENTENCES = 64         # forward_train's loss: 8 images x 8 sentences of T_LEN slots
-TP_SEEDS = (0, 1, 2, 3)   # the row kernel against its twin
+TP_SEEDS = (0, 1)         # the row kernel and 13d's split chains against their twins
 # The row kernel against its twin: u is the twin's value, rounded op for op; the
 # LayerNorm sums the row in another order, which moves an output by a few fp32 ulps of
 # the row's scale: 2^-17 of max |ref| (and 2^-17 of the entry) for every fp32 output. A
@@ -5584,7 +5604,8 @@ def tp_fp32_gate(cfg) -> float:
     the flagship's 26 layers and F = 3072). tests/test_torch_tensor_parallel.py
     holds the CPU's forward to it as well."""
     layers = cfg.vision.num_hidden_layers + cfg.text.num_hidden_layers
-    widths = [cfg.vision.intermediate_size, cfg.text.intermediate_size]
+    vision_f = getattr(cfg.vision, "intermediate_size", None) or cfg.vision.mlp_dim  # SAM's
+    widths = [vision_f, cfg.text.intermediate_size]
     if cfg.align.model_type == "align_transformer":
         layers += cfg.align.num_hidden_layers
         widths.append(cfg.align.as_vit().intermediate_size)
@@ -6282,9 +6303,9 @@ def _tp_bf16_share(tp16, one16, one32, slack=0.0):
 
 def phase_tensor_parallel(seed, card):
     """13, the model axis (see the module docstring). -> (rank 0's launches over the
-    phase's four calls, the rows of the row kernel and of K3 / K4 over the group)."""
-    import os
-    import signal
+    phase's four calls and its steps over the group, the rows of the row kernel and of
+    K3 / K4 over the group, rank 0's launches over leg e's paths, K3 / K4 over the
+    group at the alternate towers' lengths)."""
     import tempfile
 
     import torch
@@ -6355,35 +6376,9 @@ def phase_tensor_parallel(seed, card):
 
     # 13c: two ranks on the card under gloo, {data: 1, model: 2}
     t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as tmp:
-        tmp = Path(tmp)
-        env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-        env["PYTHONPATH"] = str(REPO)
-        procs = [subprocess.Popen(
-            [sys.executable, str(REPO / "chip_smoke.py"), "--tp-rank", str(r), str(TP_WORLD),
-             f"file://{tmp / 'gloo_store'}", str(tmp), str(seed)], cwd=str(REPO), env=env,
-            stdout=open(tmp / f"rank{r}.log", "w"), stderr=subprocess.STDOUT,
-            start_new_session=True) for r in range(TP_WORLD)]
-        deadline = time.monotonic() + 600
-        try:  # until every rank exits, one fails (the others would wait in a collective) or the deadline
-            while time.monotonic() < deadline:
-                codes = [p.poll() for p in procs]
-                if None not in codes or any(c not in (None, 0) for c in codes):
-                    break
-                time.sleep(0.5)
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    os.killpg(p.pid, signal.SIGKILL)
-                    p.wait()
-        codes = [p.returncode for p in procs]
-        if any(codes):
-            for r in range(TP_WORLD):
-                print(f"--- rank {r} (exit {codes[r]}) ---\n"
-                      f"{(tmp / f'rank{r}.log').read_text()[-6000:]}", file=sys.stderr)
-            fail(f"tensor parallel: the ranks exited {codes}")
-        res = [torch.load(tmp / f"rank{r}.pt", weights_only=False) for r in range(TP_WORLD)]
+    res = _spawn_ranks("--tp-rank", TP_WORLD, [seed], 600)
     ranks_s = time.perf_counter() - t0
+    launches = res[0]["launches"]
     print(f"tensor parallel (phase 13), c: {TP_WORLD} processes on ONE card under gloo, "
           f"mesh_groups(1, {TP_WORLD}) ({{data: 1, model: {TP_WORLD}}}), each with its share "
           f"({res[0]['share_bytes'] / 2**30:.2f} GiB of fp32 weights); init "
@@ -6455,9 +6450,11 @@ def phase_tensor_parallel(seed, card):
           f"(rank 0, mean of 5), {2 * (cfg.vision.num_hidden_layers + cfg.align.num_hidden_layers)}"
           f" a tower pass; one card, no interconnect measured, nothing claimed")
     steps = tp_train_gates(res, tcfg)
-    print(f"  phase 13 (tensor parallel) {time.perf_counter() - t_phase:.1f} s (ranks "
-          f"{ranks_s:.1f} s, of them 13d {res[0]['train_leg_s']:.1f} s) on {card}")
-    return {k: v + steps[k] for k, v in res[0]["launches"].items()}, rows
+    del res
+    paths, alt_rows = tp_paths((seed,), card)
+    print(f"  phase 13 (tensor parallel) {time.perf_counter() - t_phase:.1f} s (ranks of c / d "
+          f"{ranks_s:.1f} s) on {card}")
+    return {k: v + steps[k] for k, v in launches.items()}, rows, paths, alt_rows
 
 
 def tp_train_gates(res, tcfg):
@@ -6607,6 +6604,769 @@ def tp_train_gates(res, tcfg):
     return total
 
 
+# ---------------------------------------------------------------------------
+# 13e. the model axis's last paths: the alternate towers split by the JAX rules,
+# save_attn on the packed and flash align layers, the tower cache, the dry run
+# ---------------------------------------------------------------------------
+
+E_IMAGES, E_PROMPTS = 8, 14    # e1: SAM's serving batch (4097 tokens an image); e2's images
+E_SENTENCES = 64               # e2: sentences of T_LEN slots, 8 an image
+# e3 / e4: the flagship's steps at 2 images x 16 sentences, so that the tower's 24 sums
+# a step move 8.4 MB each through the host, not 33.7 (leg d runs 8 x 64)
+E_FLAG_IMAGES, E_FLAG_SENTENCES = 2, 16
+E_STEPS = 3
+E_RECORDS, E_BATCH = 4, 2      # e4: records of 518 px, 2 a step: 2 steps an epoch
+E_DRY_BATCH = 4                # e5: images a dry-run step (16 sentences of 32 tokens)
+DTS = (("fp32", "float32"), ("bf16", "bfloat16"))
+
+
+def _dt(name):
+    import torch
+
+    return getattr(torch, dict(DTS)[name])
+
+
+def tp_path_cfgs():
+    """Leg e's configurations: SAM ViT-B at 1024 px with the flagship's align layers and
+    MPNet (phase 12's leg A); BiomedCLIP's ViT-B/16 at 224 px with a Bio_ClinicalBERT-
+    sized BERT (phase 12's leg B), the loss on K10-K12; phase 6's training
+    configuration with its align layers on "packed" and on "flash"."""
+    from radzero_torch.models import clip_vit, sam_vit
+    from radzero_torch.models.configuration import (
+        AlignConfig, LossConfig, RadZeroConfig, TextConfig,
+    )
+
+    flag = _train_cfg()
+    return {
+        "sam": RadZeroConfig(vision=sam_vit.SamViTConfig(), text=TextConfig(),
+                             align=AlignConfig(), loss=LossConfig()),
+        "biomedclip": RadZeroConfig(
+            vision=clip_vit.ClipViTConfig(model_type="biomedclip", img_size=224,
+                                          hidden_act="gelu", final_layernorm=True,
+                                          layer_norm_eps=1e-6),
+            text=TextConfig(model_type="bioclinicalmpbert", vocab_size=28996,
+                            max_position_embeddings=512),
+            align=AlignConfig(), loss=LossConfig(train_impl="fused")),
+        **{impl: dataclasses.replace(flag, align=dataclasses.replace(flag.align,
+                                                                     attn_impl=impl))
+           for impl in ("packed", "flash")},
+    }
+
+
+def tp_path_params(name, seed):
+    """Leg e's weights from ``seed`` on the card, fp32: SAM's and BiomedCLIP's as
+    phase 12 draws them (SAM's position tables filled; BiomedCLIP in the timm layout,
+    a patch bias and no pre-LN), the flagship's as phase 4 draws them."""
+    import torch
+    from radzero_torch.models.radzero import init_radzero
+
+    if name in ("packed", "flash"):
+        return _flagship(seed)[0]
+    g = torch.Generator(device="cuda").manual_seed(seed + (0 if name == "sam" else 1))
+    params = init_radzero(g, tp_path_cfgs()[name])
+    vm = params["vision_model"]
+    if name == "sam":
+        _fill_sam_tables(vm, g)
+    else:
+        del vm["pre_ln"]
+        vm["patch_embed"]["bias"] = torch.randn(D, generator=g, device="cuda") * 0.02
+    return params
+
+
+def sam_inputs(seed, vocab_size):
+    """e1's inputs from ``seed``: E_IMAGES images at 1024 px in fp32 and bf16 and
+    E_PROMPTS prompts of T_LEN slots."""
+    import torch
+
+    pv = train_batch(seed, E_IMAGES, E_IMAGES, vocab_size, torch.float32,
+                     size=1024)["pixel_values"]
+    p = train_batch(seed + 7, 2, E_PROMPTS, vocab_size, torch.float32, size=14)
+    return {"pv": {"fp32": pv, "bf16": pv.to(torch.bfloat16)}, "ids": p["input_ids"],
+            "mask": p["attention_mask"]}
+
+
+def _sam_forward(params, cfg, inp, dname, tp=None):
+    """e1: compute_logits over the SAM composite -> logits and maps in fp32 on the host."""
+    from radzero_torch.models.radzero import compute_logits
+
+    o = compute_logits(params, cfg, inp["pv"][dname], inp["ids"], inp["mask"],
+                       dtype=_dt(dname), tp=tp)
+    return {"logits": o["logits"].float().cpu(), "maps": o["similarity_scores"].float().cpu()}
+
+
+def _timed(fn):
+    """-> (fn's result, {wall s, launches, the model group's all-reduces and their s,
+    the SM clock}): the counts at 0 before, read after; the card synchronised."""
+    import torch
+
+    with _ReduceTimer() as timer:
+        reset_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        row = {"s": time.perf_counter() - t0, "launches": read_counters(), "reduce_s": timer.s,
+               "reduces": timer.n, "clock": sm_clock()}
+    return out, row
+
+
+def _e_steps(cfg, params, batch, dtype, n, modules=DIST_MODULES, *, tp=None, specs=None,
+             remat=False):
+    """n make_train_step steps from ``params`` (this rank's share over ``tp``, with the
+    whole tree's ``specs``) at lr 0 for the first update -> (a row a step: _timed's,
+    the losses, after the first the sha of the parameters and both moments and its
+    first moment; the trainable leaves at the end)."""
+    import torch
+    from radzero_torch.train.optim import build_optimizer, partition_params
+    from radzero_torch.train.step import make_train_step
+    from radzero_torch.utils.tree import tree_leaves
+
+    trainable, frozen = partition_params(params, modules)
+    trainable = _clone(trainable)
+    opt, _ = build_optimizer(learning_rate=1e-4, warmup_steps=1, total_steps=6)
+    state = opt.init(trainable)
+    step = make_train_step(cfg, opt, dtype=dtype, remat=remat,
+                           **({"tp": tp, "specs": specs} if tp is not None else {}))
+    rows = []
+    for i in range(n):
+        (trainable, state, losses), row = _timed(
+            lambda: step(trainable, frozen, state, batch))
+        row["losses"] = {k: v.item() for k, v in losses.items()}
+        if i == 0:
+            row["sha"] = _sha(tree_leaves(trainable) + state["mu"] + state["nu"])
+            row["mu"] = [m.clone() for m in state["mu"]]
+        rows.append(row)
+    return rows, trainable
+
+
+def _leaf_shares(whole, one, one32, dname, gate, names):
+    """Per leaf: fp32, |whole - one| / (gate max |one| + 1e-7); bf16, phase 11's leg B
+    gate (_grad_gate: |whole - one32| against BF16_FACTOR |one - one32| + BF16_SLACK
+    |one32| + 1e-7, in max and in rms) -> (the worst share, the three worst leaves as
+    (share, name), in bf16 also the worst max |whole - one32| / (TP_BF16_FACTOR max
+    |one - one32| + 1e-7), leg d's per-leaf statistic, printed beside it)."""
+    if dname == "fp32":
+        used = [((a - b).abs().max() / (gate * b.abs().max() + 1e-7)).item()
+                for a, b in zip(whole, one)]
+        tight = None
+    else:
+        used = [max(_grad_gate([a], [b], [c])[:2]) for a, b, c in zip(whole, one, one32)]
+        tight = max(((a.float() - c).abs().max() / (
+            TP_BF16_FACTOR * (b.float() - c).abs().max() + 1e-7)).item()
+            for a, b, c in zip(whole, one, one32))
+    worst = sorted(zip(used, names), reverse=True)[:3]
+    return worst[0][0], worst, tight
+
+
+def _e_records(seed):
+    """e4's records: E_RECORDS images of 518 px (normalised, fp32) and two sentences each."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed + 40)
+    images = [rng.standard_normal((518, 518, 3)).astype(np.float32) for _ in range(E_RECORDS)]
+    recs = [{"key_phrases": [f"there is finding {i}", f"no other finding {i} seen"], "image": i}
+            for i in range(E_RECORDS)]
+    return recs, (lambda rec: images[rec["image"]])
+
+
+def _e_trainer(out, name, cfg, params, dname, seed, cache=None, tp=None):
+    """e4's RadZeroTrainer: 2 epochs of E_RECORDS / E_BATCH steps, the align layers
+    and the loss head trained, one eval batch an epoch."""
+    from radzero_torch.data.pipeline import PackSpec, TrainLoader
+    from radzero_torch.data.tokenizer import WhitespaceHashTokenizer
+    from radzero_torch.train.trainer import RadZeroTrainer, TrainerArgs
+
+    recs, image_loader = _e_records(seed)
+    tok = WhitespaceHashTokenizer(vocab_size=cfg.text.vocab_size, max_length=T_LEN)
+    spec = PackSpec(max_sentences_per_image=2, max_text_tokens=T_LEN)
+    args = TrainerArgs(output_dir=str(out / name), learning_rate=1e-4, num_train_epochs=2,
+                       warmup_steps=1, logging_steps=1, bf16=dname == "bf16", seed=seed,
+                       save_total_limit=1, module_to_update=("align_transformer", "loss_fns"))
+    return RadZeroTrainer(
+        cfg, args, TrainLoader(recs, image_loader, tok, E_BATCH, spec, seed=seed,
+                               num_threads=2, with_indices=True),
+        TrainLoader(recs[:E_BATCH], image_loader, tok, E_BATCH, spec, seed=seed,
+                    shuffle=False, num_threads=2),
+        params=params, device="cuda", tower_cache=cache, tp=tp)
+
+
+def _e_train(trainer):
+    """-> {the step losses, the final trainable leaves' sha, _timed's row of the run,
+    the cache's statistics}."""
+    from radzero_torch.utils.tree import tree_leaves
+
+    _, row = _timed(trainer.train)
+    cache = trainer.tower_cache
+    return {"losses": [h["loss"] for h in trainer.state.log_history if "lr" in h],
+            "sha": _sha(tree_leaves(trainer.trainable)), **row,
+            "stats": None if cache is None else cache.stats()}
+
+
+def _tp_paths_seed(r, world, seed, tp, out):
+    """e1-e4 on rank r of the model group ``tp`` at ``seed`` -> their results (rank 0
+    also one process's, run in its own process at the same weights and inputs)."""
+    import torch
+    from radzero_torch.eval.serving import cast_params
+    from radzero_torch.parallel import param_specs, shard_params, split_leaves
+    from radzero_torch.parallel.tensor_parallel import gather_whole
+    from radzero_torch.train.optim import partition_params
+    from radzero_torch.train.tower_cache import TowerCache
+    from radzero_torch.utils.tree import tree_leaves, tree_unflatten
+
+    cfgs, res = tp_path_cfgs(), {}
+    # e1: SAM's serving forward
+    params = tp_path_params("sam", seed)
+    res["sam_sha"] = _sha(list(_leaves(params)))
+    inp = sam_inputs(seed, cfgs["sam"].text.vocab_size)
+    for dname, _ in DTS:
+        share = shard_params(cast_params(params, _dt(dname), "cuda"), r, world)
+        with torch.no_grad():
+            got, row = _timed(lambda: _sam_forward(share, cfgs["sam"], inp, dname, tp))
+        res[f"e1_{dname}"] = {**got, **row, "peak": torch.cuda.max_memory_allocated()}
+        del share
+        torch.cuda.empty_cache()
+    del params, inp
+    torch.cuda.empty_cache()
+
+    # e2: BiomedCLIP + BERT, BERT trainable: the gradient tree, then E_STEPS steps
+    cfg = cfgs["biomedclip"]
+    params = tp_path_params("biomedclip", seed)
+    specs = param_specs(params, world)
+    tspecs = {k: specs[k] for k in DIST_MODULES}
+    split = split_leaves(tspecs)
+    share = shard_params(params, r, world)
+    like = partition_params(share, DIST_MODULES)[0]
+    one32 = None
+    for dname, _ in DTS:
+        batch = train_batch(seed + 3, E_IMAGES, E_SENTENCES, cfg.text.vocab_size, _dt(dname),
+                            size=224)
+        (loss, grads), row = _timed(lambda: _grads(share, DIST_MODULES, cfg, batch, _dt(dname),
+                                                   tp=tp))
+        whole = tree_leaves(gather_whole(tree_unflatten(grads, like), tspecs, tp))
+        res[f"e2_grad_{dname}"] = {"loss": loss.float().cpu(), "sha": _sha(whole), **row}
+        if r == 0:
+            one_loss, one = _grads(params, DIST_MODULES, cfg, batch, _dt(dname))
+            res[f"e2_grad_{dname}"]["one_loss"] = one_loss.float().cpu()
+            g = res[f"e2_grad_{dname}"]
+            g["share"], g["worst"], g["tight"] = _leaf_shares(
+                whole, one, one32, dname, tp_grad_gate(cfg), _leaf_paths(like))
+            one32 = one if dname == "fp32" else None
+            del one
+        del grads, whole
+        rows, trainable = _e_steps(cfg, share, batch, _dt(dname), E_STEPS, tp=tp, specs=specs)
+        res[f"e2_steps_{dname}"] = [{k: v for k, v in row.items() if k != "mu"}
+                                    for row in rows]
+        res[f"e2_replicated_{dname}"] = _sha([t for t, s in zip(tree_leaves(trainable), split)
+                                              if not s])
+        if r == 0:
+            rows, _ = _e_steps(cfg, params, batch, _dt(dname), E_STEPS)
+            res[f"e2_one_{dname}"] = [{k: v for k, v in row.items() if k != "mu"}
+                                      for row in rows]
+        del rows, trainable, batch
+        torch.cuda.empty_cache()
+    del params, share, like, one32
+    torch.cuda.empty_cache()
+
+    # e3: the flagship under remat ("save_attn") on the packed and flash align layers
+    params = tp_path_params("packed", seed)
+    res["flag_sha"] = _sha(list(_leaves(params)))
+    specs = param_specs(params, world)
+    aspecs = {"align_transformer": specs["align_transformer"]}
+    share = shard_params(params, r, world)
+    like = partition_params(share, DIST_MODULES)[0]
+    names = sorted(like)  # tree_leaves' order of the subtrees
+    n_before = sum(len(tree_leaves(like[k])) for k in names[:names.index("align_transformer")])
+    n_align = len(tree_leaves(like["align_transformer"]))
+    for impl in ("packed", "flash"):
+        cfg = cfgs[impl]
+        one32 = None
+        for dname, _ in DTS:
+            batch = train_batch(seed + 3, E_FLAG_IMAGES, E_FLAG_SENTENCES, cfg.text.vocab_size,
+                                _dt(dname))
+            plain, _ = _e_steps(cfg, share, batch, _dt(dname), 1, tp=tp, specs=specs)
+            rows, trainable = _e_steps(cfg, share, batch, _dt(dname), E_STEPS, tp=tp,
+                                       specs=specs, remat=True)
+            mu = rows[0].pop("mu")[n_before:n_before + n_align]
+            whole = tree_leaves(gather_whole(
+                {"align_transformer": tree_unflatten(mu, like["align_transformer"])}, aspecs,
+                tp))
+            key = f"e3_{impl}_{dname}"
+            res[key] = {"rows": [{k: v for k, v in row.items() if k != "mu"} for row in rows],
+                        "plain_sha": plain[0]["sha"], "plain": {k: v for k, v in plain[0].items()
+                                                                if k != "mu"}}
+            if r == 0:
+                one, _ = _e_steps(cfg, params, batch, _dt(dname), E_STEPS, remat=True)
+                one_mu = one[0].pop("mu")[n_before:n_before + n_align]
+                res[key]["one"] = [{k: v for k, v in row.items() if k != "mu"} for row in one]
+                res[key]["mu_share"], res[key]["mu_worst"], res[key]["mu_tight"] = _leaf_shares(
+                    whole, one_mu, one32, dname, tp_grad_gate(cfg),
+                    _leaf_paths(like["align_transformer"]))
+                one32 = one_mu if dname == "fp32" else None
+            del plain, rows, trainable, mu, whole, batch
+            torch.cuda.empty_cache()
+
+    # e4: RadZeroTrainer with the tower cache (device backing), uncached then cached
+    cfg = _train_cfg()
+    for dname, _ in DTS:
+        runs = {}
+        for name, cache in (("uncached", None), ("cached", TowerCache("device",
+                                                                      n_records=E_RECORDS))):
+            runs[name] = _e_train(_e_trainer(out / f"s{seed}_{dname}", name, cfg, params,
+                                             dname, seed, cache, tp))
+        if r == 0:
+            runs["one"] = _e_train(_e_trainer(out / f"s{seed}_{dname}", "one", cfg, params,
+                                              dname, seed))
+        res[f"e4_{dname}"] = runs
+        torch.cuda.empty_cache()
+    del params, share
+    torch.cuda.empty_cache()
+    return res
+
+
+def tp_paths_rank(argv) -> int:
+    """chip_smoke.py --tp-paths-rank RANK WORLD INIT OUT SEEDS: a rank of leg e's model
+    group, e1-e4 at each of SEEDS (comma-separated); results to OUT/rank{RANK}.pt."""
+    r, world, init, out = int(argv[0]), int(argv[1]), argv[2], Path(argv[3])
+    seeds = [int(s) for s in argv[4].split(",")]
+    sys.path.insert(0, str(REPO))
+    import torch
+    from radzero_torch.ops import _build
+    from radzero_torch.parallel import init_distributed, mesh_groups
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    _build.build()
+    _build.load()
+    init_distributed(backend="gloo", init_method=init, rank=r, world_size=world, timeout_s=900)
+    try:
+        _, tp = mesh_groups(1, world)
+        res = {}
+        for s in seeds:
+            t0 = time.perf_counter()
+            res[s] = _tp_paths_seed(r, world, s, tp, out)
+            res[s]["seconds"] = time.perf_counter() - t0
+        torch.save(res, out / f"rank{r}.pt")
+    finally:
+        torch.distributed.destroy_process_group()
+    return 0
+
+
+def _spawn_ranks(flag, world, args, timeout_s):
+    """Run ``chip_smoke.py flag RANK WORLD INIT OUT *args`` once a rank on the card under
+    gloo; fail with every rank's log when one fails or the ranks outlive ``timeout_s``.
+    -> the ranks' OUT/rank{r}.pt."""
+    import os
+    import signal
+    import tempfile
+
+    import torch
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+        env["PYTHONPATH"] = str(REPO)
+        procs = [subprocess.Popen(
+            [sys.executable, str(REPO / "chip_smoke.py"), flag, str(r), str(world),
+             f"file://{tmp / 'gloo_store'}", str(tmp), *map(str, args)], cwd=str(REPO), env=env,
+            stdout=open(tmp / f"rank{r}.log", "w"), stderr=subprocess.STDOUT,
+            start_new_session=True) for r in range(world)]
+        deadline = time.monotonic() + timeout_s
+        try:
+            while time.monotonic() < deadline:
+                codes = [p.poll() for p in procs]
+                if None not in codes or any(c not in (None, 0) for c in codes):
+                    break
+                time.sleep(0.5)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    os.killpg(p.pid, signal.SIGKILL)
+                    p.wait()
+        codes = [p.returncode for p in procs]
+        if any(codes):
+            for r in range(world):
+                print(f"--- rank {r} (exit {codes[r]}) ---\n"
+                      f"{(tmp / f'rank{r}.log').read_text()[-6000:]}", file=sys.stderr)
+            fail(f"{flag}: the ranks exited {codes}")
+        return [torch.load(tmp / f"rank{r}.pt", weights_only=False) for r in range(world)]
+
+
+def tp_alt_rows(seed):
+    """Rank 0's share of K3 and K4 over two ranks (the sum the identity) at the
+    alternate towers' lengths, 8 x 4097 (SAM at 1024 px) and 8 x 197 (ViT-B/16 at 224
+    px) rows, bf16: against their twins at phase 3's TOL, CUDA-event and device ms,
+    bounds -> {"K3 tp": {"8x4097": row, "8x197": row}, "K4 tp": {...}}."""
+    import torch
+    from radzero_torch.ops import fused_layer as fl
+
+    out = {"K3 tp": {}, "K4 tp": {}}
+    dl, fl_ = D // TP_WORLD, F // TP_WORLD
+    print(f"tensor parallel (phase 13), e: rank 0's share of K3 / K4 over {TP_WORLD} ranks at "
+          f"the alternate towers' lengths, bf16, the sum the identity:")
+    for k, chain, plain in (("K3", fl.postattn_tp_chain, fl.fused_postattn_tp_plain),
+                            ("K4", fl.mpnet_post_tp_chain, fl.fused_mpnet_post_tp_plain)):
+        for tokens in (4097, 197):
+            rows_k = E_IMAGES * tokens
+            gen = torch.Generator(device="cuda").manual_seed(seed)
+            ops = _tp_split(k, layer_inputs(k, torch.bfloat16, gen, rows_k))
+            got, ref = chain(*ops, reduce=lambda t: t), plain(*ops, reduce=lambda t: t)
+            torch.cuda.synchronize()
+            err = compare(f"{k} tp", "bf16", got, ref, tol=k, quiet=True)[0]
+            del got, ref
+            ms = median_ms(lambda: chain(*ops, reduce=lambda t: t))
+            plain_ms = median_ms(lambda: plain(*ops, reduce=lambda t: t))
+            dev_ms = check_route(f"{k} tp", "bf16", lambda: chain(*ops, reduce=lambda t: t),
+                                 f"{k} tp")
+            nbytes = (rows_k * D + rows_k * dl + dl * D + D * fl_ + fl_ * D + fl_ + 6 * D
+                      + rows_k * D) * 2
+            bound_ms, bound_by = bound_of(2 * rows_k * (dl * D + D * fl_ + fl_ * D), nbytes)
+            out[f"{k} tp"][f"8x{tokens}"] = {
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "device_ms": dev_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by, "rows": rows_k}
+            print(f"  {k} tp at 8 x {tokens} ({rows_k} rows): max_abs_err {err:.3e} against "
+                  f"the twin (within TOL), chain {ms:.4f} ms by events, {dev_ms:.4f} ms on the "
+                  f"device, twin {plain_ms:.4f} ms; bound {bound_ms:.4f} ms by {bound_by}: "
+                  f"{100 * bound_ms / dev_ms:.1f}% of the device time")
+            del ops
+    torch.cuda.empty_cache()
+    return out
+
+
+# leg e's bf16 gradient trees: phase 11's leg B gate, leaf by leaf, with leg d's tighter
+# per-leaf statistic (TP_BF16_FACTOR x one process's own max miss alone) printed beside it.
+# That statistic alone crossed 1 on e2's tree (BiomedCLIP + BERT on plain ops: its sums
+# and roundings differ from one process's in every layer) while the fp32 tree sat at ~1%
+# of tp_grad_gate (PERF.md section 6): two draws of bf16 noise whose maxima, on a
+# leaf that sums over every row, can sit twice apart
+_LEG_B_GATE = (f"{BF16_FACTOR:g}x one process's own bf16 miss + 2^-8 of the leaf, in max and "
+               "in rms, leaf by leaf (phase 11's leg B gate)")
+
+
+def _share_line(label, share, what, worst=(), tight=None):
+    leaves = ("; the worst leaves " + ", ".join(f"{name} {100 * u:.1f}%" for u, name in worst)
+              if worst else "")
+    if tight is not None:
+        leaves += (f"; leaf by leaf against {TP_BF16_FACTOR:g}x one process's own max miss "
+                   f"alone (leg d's form) {100 * tight:.1f}%")
+    print(f"  {label}: worst at {100 * share:.1f}% of {what}{leaves} "
+          f"{'ok' if share <= 1 else 'FAIL'}")
+    if share > 1:
+        fail(f"tensor parallel, e: {label} misses one process ({100 * share:.1f}% of {what})")
+
+
+# leg e's bf16 steps are gated while their parameters are the start's: the first two (the
+# first update runs at lr 0). After a real update Adam moves every entry by about lr
+# whatever its gradient's size, so an entry whose gradient is bf16 noise (a LayerScale
+# of 1e-5 takes a step ten times itself) moves by a sign that the noise draws: one
+# process's bf16 and the group's part by more than their gradients do (PERF.md section
+# 6: e2's third step at seed 1, grad_norm 2.0423 against one process's 1.9999).
+# Those steps are printed; fp32 is gated at every step.
+E_BF16_ROWS = 2
+
+
+def _loss_gate(label, group, one, one32, dname):
+    """The step losses over the group against one process's: fp32 at rtol 5e-4 (the dry
+    run's) at every step, bf16 within TP_BF16_FACTOR of one process's own miss +
+    TP_LOSS_SLACK at the first E_BF16_ROWS steps."""
+    for i, (row, ref) in enumerate(zip(group, one)):
+        if dname == "bf16" and i >= E_BF16_ROWS:
+            continue
+        for name, v in row["losses"].items():
+            r = ref["losses"][name]
+            if dname == "fp32":
+                ok = abs(v - r) <= 5e-4 * abs(r) + 1e-6
+            else:
+                r32 = one32[i]["losses"][name]
+                ok = abs(v - r32) <= TP_BF16_FACTOR * abs(r - r32) + TP_LOSS_SLACK * abs(r32)
+            if not ok:
+                fail(f"tensor parallel, e: {label} {dname} step {i} {name} {v} against one "
+                     f"process's {r}")
+
+
+def _row_words(row):
+    return (f"{row['s']:.2f} s, {row['reduces']} gloo all-reduces {row['reduce_s']:.2f} s "
+            f"({100 * row['reduce_s'] / row['s']:.0f}%), SM clock {row['clock']}")
+
+
+# one pass of the flagship's frozen tower over a model group of two (12 layers)
+TOWER_TP_LAUNCHES = {"fused_preattn": 12, "flash_attention_packed": 12, "fused_postattn_tp": 12,
+                     "tp_rows": 24}
+
+
+def tp_paths(seeds, card):
+    """13e: leg e at each of ``seeds`` (see the module docstring) -> (rank 0's launches
+    over e1-e4 at the first seed, the rows of K3 / K4 over the group at the alternate
+    towers' lengths)."""
+    import json as json_
+    import os
+    import tempfile
+
+    import torch
+    from radzero_torch.eval.serving import cast_params
+    from radzero_torch.parallel import init_distributed, mesh_groups
+
+    t_leg = time.perf_counter()
+    alt_rows = tp_alt_rows(seeds[0])
+    cfgs = tp_path_cfgs()
+    cfg = cfgs["sam"]
+    print(f"tensor parallel (phase 13), e: the model axis's last paths, {TP_WORLD} gloo ranks "
+          f"on the card, {{data: 1, model: {TP_WORLD}}}, seeds {list(seeds)}: e1 SAM ViT-B at "
+          f"1024 px ({E_IMAGES} images x {E_PROMPTS} prompts, compute_logits, frozen); e2 "
+          f"BiomedCLIP ViT-B/16 at 224 px + BERT 12 x 768 (vocab 28996) trainable, "
+          f"{E_IMAGES} x {E_SENTENCES} sentences, the gradient tree and {E_STEPS} steps; e3 the "
+          f"flagship under remat save_attn, align on packed and on flash, {E_FLAG_IMAGES} x "
+          f"{E_FLAG_SENTENCES}, {E_STEPS} steps; e4 RadZeroTrainer with the tower cache "
+          f"(device), {E_RECORDS} records x 2 epochs; e5 the dry run")
+    # one process's e1, and a model group of one under NCCL bit-equal to no group
+    one = {}
+    for s in seeds:
+        params = tp_path_params("sam", s)
+        inp = sam_inputs(s, cfg.text.vocab_size)
+        one[s] = {"sha": _sha(list(_leaves(params)))}
+        with torch.no_grad():
+            for dname, _ in DTS:
+                tree = cast_params(params, _dt(dname), "cuda")
+                one[s][dname], one[s][f"row_{dname}"] = _timed(
+                    lambda: _sam_forward(tree, cfg, inp, dname))
+                if s == seeds[0] and dname == "bf16":
+                    with tempfile.TemporaryDirectory() as tmp:
+                        init_distributed(backend="nccl", init_method=f"file://{tmp}/store",
+                                         rank=0, world_size=1, timeout_s=300)
+                        try:
+                            _, tp1 = mesh_groups(1, 1)
+                            again = _sam_forward(tree, cfg, inp, dname, tp1)
+                            bcfg = cfgs["biomedclip"]
+                            bparams = tp_path_params("biomedclip", s)
+                            batch = train_batch(s + 3, E_IMAGES, E_SENTENCES,
+                                                bcfg.text.vocab_size, torch.bfloat16, size=224)
+                            with torch.enable_grad():
+                                a = _grads(bparams, DIST_MODULES, bcfg, batch, torch.bfloat16,
+                                           tp=tp1)
+                                b = _grads(bparams, DIST_MODULES, bcfg, batch, torch.bfloat16)
+                            del bparams, batch
+                        finally:
+                            torch.distributed.destroy_process_group()
+                    same = (all(torch.equal(again[k], one[s][dname][k]) for k in again)
+                            and torch.equal(a[0], b[0])
+                            and all(torch.equal(x, y) for x, y in zip(a[1], b[1])))
+                    if not same:
+                        fail("tensor parallel, e: a model group of one under NCCL differs from "
+                             "no group (SAM's logits and maps, or the BERT path's gradients)")
+                    print("  a model group of one under NCCL: SAM's bf16 logits and maps, and "
+                          "the BiomedCLIP + BERT path's bf16 loss and gradient tree, bit-equal "
+                          "to no group")
+                    del a, b
+                del tree
+                torch.cuda.empty_cache()
+        del params, inp
+        torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    res = _spawn_ranks("--tp-paths-rank", TP_WORLD, [",".join(map(str, seeds))],
+                       900 * len(seeds))
+    ranks_s = time.perf_counter() - t0
+    total = None
+    for s in seeds:
+        r0 = res[0][s]
+        for x in res[1:]:
+            x = x[s]
+            same = [k for k in ("sam_sha", "flag_sha") if x[k] != r0[k]]
+            if same:
+                fail(f"tensor parallel, e: the ranks' weights differ ({same})")
+        print(f"  seed {s}: the ranks ran e1-e4 in {r0['seconds']:.1f} s")
+        launches = _tp_paths_gates(s, res, one[s], cfgs)
+        if total is None:
+            total = launches
+    # e5: the dry run's command line, its own gloo ranks on the card
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "dryrun.json"
+        env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+        env["PYTHONPATH"] = str(REPO)
+        cmd = [sys.executable, "-m", "radzero_torch.tools.flagship_width_dryrun", "--data", "1",
+               "--model", str(TP_WORLD), "--steps", "2", "--batch", str(E_DRY_BATCH), "--seed",
+               str(seeds[0]), "--json", str(path)]
+        code = _run_group(cmd, Path(tmp) / "dryrun.log", 600, cwd=str(REPO), env=env)
+        if code != 0 or not path.exists():
+            print((Path(tmp) / "dryrun.log").read_text()[-6000:], file=sys.stderr)
+            fail(f"tensor parallel, e5: the dry run exited {code}")
+        rec = json_.loads(path.read_text())
+    print(f"  e5 python -m radzero_torch.tools.flagship_width_dryrun --data 1 --model "
+          f"{TP_WORLD} --steps 2 --batch {E_DRY_BATCH}: mesh {rec['mesh']}, {rec['params_m']} M "
+          f"parameters, {rec['tp_sharded_leaves']} split leaves, losses "
+          f"{rec['losses_sharded']} against the control's {rec['losses_control']} (drift "
+          f"{rec['max_loss_drift']:.3e}, {rec['max_loss_drift_rel']:.3e} of the loss; gate 5e-4)"
+          f", eval logits MAE {rec['sharded_eval_logits_mae']:.3e} (gate 2e-4), sharded steps "
+          f"{rec['sharded_step_s']:.1f} s; {time.perf_counter() - t0:.1f} s ok")
+    print(f"  leg e {time.perf_counter() - t_leg:.1f} s (ranks {ranks_s:.1f} s) on {card}")
+    return total, alt_rows
+
+
+def _tp_paths_gates(s, res, one, cfgs):
+    """Leg e's gates at seed s over the ranks' results (rank 0 first) -> rank 0's
+    launches over e1-e4."""
+    import torch
+
+    r0 = res[0][s]
+    ranks = [x[s] for x in res]
+    # e1
+    for x in ranks:
+        if x["sam_sha"] != one["sha"]:
+            fail("tensor parallel, e1: a rank's SAM weights are not this process's")
+    gate = tp_fp32_gate(cfgs["sam"])
+    n_align, n_text = 2, 12
+    want = tp_expected(expected(fused_preattn=n_align, flash_attention_packed=n_align,
+                                fused_postattn=n_align, fused_mpnet_post=n_text,
+                                vlcabs_fused=1))
+    for dname, _ in DTS:
+        for x in ranks:
+            for k in ("logits", "maps"):
+                if not torch.equal(x[f"e1_{dname}"][k], r0[f"e1_{dname}"][k]):
+                    fail(f"tensor parallel, e1: the ranks' {dname} {k} differ")
+            if x[f"e1_{dname}"]["launches"] != want:
+                fail(f"tensor parallel, e1: {dname} launched {x[f'e1_{dname}']['launches']}, "
+                     f"expected {want}")
+        if one[f"row_{dname}"]["launches"] != expected(
+                fused_preattn=n_align, flash_attention_packed=n_align, fused_postattn=n_align,
+                fused_mpnet_post=n_text, vlcabs_fused=1):
+            fail(f"tensor parallel, e1: one process launched {one[f'row_{dname}']}")
+        for k in ("logits", "maps"):
+            got, ref = r0[f"e1_{dname}"][k], one[dname][k]
+            if got.shape != ref.shape or not torch.isfinite(got).all():
+                fail(f"tensor parallel, e1: {dname} {k} {tuple(got.shape)} or not finite")
+            if dname == "fp32":
+                share = (got - ref).abs().max().item() / (gate * ref.abs().max().item())
+                what = f"tp_fp32_gate ({gate:.3e} of max |one process|)"
+            else:
+                share = _tp_bf16_share(got, ref, one["fp32"][k])[2]
+                what = f"{TP_BF16_FACTOR:g}x one process's own bf16 miss"
+            _share_line(f"e1 SAM {dname} {k} over the group against one process", share, what)
+        row = r0[f"e1_{dname}"]
+        print(f"  e1 SAM {dname}: {_row_words(row)}; one process {one[f'row_{dname}']['s']:.2f}"
+              f" s; peak {row['peak'] / 2**30:.1f} GiB a rank")
+    print(f"  e1 launches a rank: K1 {want['fused_preattn']}, K2 "
+          f"{want['flash_attention_packed']}, K3 over the group {want['fused_postattn_tp']}, K4 "
+          f"over the group {want['fused_mpnet_post_tp']}, the row kernel {want['tp_rows']}, K5 "
+          f"{want['vlcabs_fused']}; SAM's tower none (plain torch ops) ok")
+    total = {k: v for k, v in r0["e1_bf16"]["launches"].items()}
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] += v
+
+    add(r0["e1_fp32"]["launches"])
+    # e2
+    cfg = cfgs["biomedclip"]
+    for dname, _ in DTS:
+        g = r0[f"e2_grad_{dname}"]
+        for x in ranks[1:]:
+            if x[f"e2_grad_{dname}"]["sha"] != g["sha"] or not torch.equal(
+                    x[f"e2_grad_{dname}"]["loss"], g["loss"]):
+                fail(f"tensor parallel, e2: the ranks' {dname} loss or gathered gradients differ")
+        _share_line(f"e2 BiomedCLIP + BERT {dname} gradient tree over the group against one "
+                    f"process (loss {g['loss'].item():.6f} / {g['one_loss'].item():.6f})",
+                    g["share"], "tp_grad_gate" if dname == "fp32" else _LEG_B_GATE, g["worst"],
+                    g["tight"])
+        rows, onerows = r0[f"e2_steps_{dname}"], r0[f"e2_one_{dname}"]
+        for x in ranks[1:]:
+            if [r["losses"] for r in x[f"e2_steps_{dname}"]] != [r["losses"] for r in rows]:
+                fail(f"tensor parallel, e2: the ranks' {dname} step losses differ")
+            if x[f"e2_replicated_{dname}"] != r0[f"e2_replicated_{dname}"]:
+                fail(f"tensor parallel, e2: a replicated leaf differs after the {dname} steps")
+        _loss_gate("e2", rows, onerows, r0["e2_one_fp32"], dname)
+        want = tp_step_expected(onerows[0]["launches"])
+        for x in ranks:
+            for i, row in enumerate(x[f"e2_steps_{dname}"]):
+                if row["launches"] != want:
+                    fail(f"tensor parallel, e2: {dname} step {i} launched {row['launches']}, "
+                         f"expected {want}")
+        for row in rows:
+            add(row["launches"])
+        print(f"  e2 {dname}: {E_STEPS} steps over the group, losses "
+              + ", ".join(f"{r['losses']['loss']:.6f}" for r in rows) + " (one process "
+              + ", ".join(f"{r['losses']['loss']:.6f}" for r in onerows) + f"), grad_norm "
+              f"{rows[0]['losses']['grad_norm']:.4f} / {onerows[0]['losses']['grad_norm']:.4f}; "
+              f"the ranks' losses and replicated leaves bit-equal; a step "
+              + "; ".join(_row_words(r) for r in rows) + f" (one process "
+              + ", ".join(f"{r['s']:.3f}" for r in onerows) + " s)")
+    print(f"  e2 launches a step a rank: K1 {want['fused_preattn']}, K2 "
+          f"{want['flash_attention_packed']}, K3 over the group {want['fused_postattn_tp']}, K6 "
+          f"over the group {want['fused_preattn_bwd_tp']}, K7 "
+          f"{want['flash_attention_packed_bwd']}, K8 over the group "
+          f"{want['fused_postattn_bwd_tp']}, the row kernel {want['tp_rows']}, K10-K12 "
+          f"{want['vlcabs_train_forward']} each; no K4 / K9 (BERT on plain ops) ok")
+    # e3
+    for impl in ("packed", "flash"):
+        for dname, _ in DTS:
+            e = r0[f"e3_{impl}_{dname}"]
+            for x in ranks:
+                xe = x[f"e3_{impl}_{dname}"]
+                if xe["rows"][0]["sha"] != xe["plain_sha"]:
+                    fail(f"tensor parallel, e3: the {impl} {dname} save_attn step's parameters "
+                         "or moments differ from the step without remat")
+                if [r["losses"] for r in xe["rows"]] != [r["losses"] for r in e["rows"]]:
+                    fail(f"tensor parallel, e3: the ranks' {impl} {dname} losses differ")
+                want = tp_step_expected(e["one"][0]["launches"])
+                for i, row in enumerate(xe["rows"]):
+                    if row["launches"] != want:
+                        fail(f"tensor parallel, e3: {impl} {dname} step {i} launched "
+                             f"{row['launches']}, expected {want}")
+            _loss_gate(f"e3 {impl}", e["rows"], e["one"], r0[f"e3_{impl}_fp32"]["one"], dname)
+            _share_line(f"e3 {impl} {dname} the align layers' gradients (the first moment at "
+                        "lr 0) over the group against one process", e["mu_share"],
+                        "tp_grad_gate" if dname == "fp32" else _LEG_B_GATE, e["mu_worst"],
+                        e["mu_tight"])
+            for row in e["rows"]:
+                add(row["launches"])
+            w = want
+            print(f"  e3 {impl} {dname}: {E_STEPS} remat steps over the group, losses "
+                  + ", ".join(f"{r['losses']['loss']:.6f}" for r in e["rows"])
+                  + " (one process " + ", ".join(f"{r['losses']['loss']:.6f}" for r in e["one"])
+                  + "); the first step's parameters and moments bit-equal to the step without "
+                  "remat on each rank; a step " + "; ".join(_row_words(r) for r in e["rows"])
+                  + f"; without remat {e['plain']['s']:.2f} s; launches a step a rank K1 "
+                  f"{w['fused_preattn']}, K2 {w['flash_attention_packed']}, K13 "
+                  f"{w['flash_attention']}, K7 {w['flash_attention_packed_bwd']}, K14 "
+                  f"{w['flash_attention_bwd']}, K3 over the group {w['fused_postattn_tp']}, K4 "
+                  f"over the group {w['fused_mpnet_post_tp']}, K9 over the group "
+                  f"{w['fused_mpnet_post_bwd_tp']}, the row kernel {w['tp_rows']}, no K6 / K8 "
+                  "ok")
+    # e4
+    tower = TOWER_TP_LAUNCHES
+    for dname, _ in DTS:
+        runs = r0[f"e4_{dname}"]
+        for x in ranks:
+            xr = x[f"e4_{dname}"]
+            if xr["cached"]["losses"] != xr["uncached"]["losses"] or (
+                    xr["cached"]["sha"] != xr["uncached"]["sha"]):
+                fail(f"tensor parallel, e4: the {dname} cached run differs from the uncached")
+            if xr["cached"]["stats"] != runs["cached"]["stats"]:
+                fail(f"tensor parallel, e4: the ranks' {dname} cache statistics differ")
+            hits = xr["cached"]["stats"]["hits"]
+            want = {k: v - hits * tower.get(k, 0)
+                    for k, v in xr["uncached"]["launches"].items()}
+            if xr["cached"]["launches"] != want or hits == 0:
+                fail(f"tensor parallel, e4: the {dname} cached run launched "
+                     f"{xr['cached']['launches']}, expected the uncached run's less the "
+                     f"tower's in its {hits} cached steps: {want}")
+        _loss_gate("e4", [{"losses": {"loss": v}} for v in runs["uncached"]["losses"]],
+                   [{"losses": {"loss": v}} for v in runs["one"]["losses"]],
+                   [{"losses": {"loss": v}} for v in r0["e4_fp32"]["one"]["losses"]], dname)
+        add(runs["cached"]["launches"])
+        st = runs["cached"]["stats"]
+        print(f"  e4 {dname}: RadZeroTrainer, 2 epochs: cached run bit-equal to the uncached "
+              f"one on each rank (losses " + ", ".join(f"{v:.6f}" for v in
+                                                        runs["cached"]["losses"])
+              + f"; one process " + ", ".join(f"{v:.6f}" for v in runs["one"]["losses"])
+              + f"), {st['hits']} hits / {st['misses']} misses on each rank, the device backing "
+              f"{st['bytes'] / 1e6:.2f} MB a card ({st['cached_records']} records); the cached "
+              f"run launched the uncached run's less the tower's in its {st['hits']} cached "
+              f"steps; uncached {_row_words(runs['uncached'])}; cached "
+              f"{_row_words(runs['cached'])} ok")
+    return total
+
+
 def _clone(tree):
     if isinstance(tree, dict):
         return {k: _clone(v) for k, v in tree.items()}
@@ -6633,10 +7393,15 @@ def main() -> int:
         return dist_rank(sys.argv[2:])
     if sys.argv[1:2] == ["--tp-rank"]:
         return tp_rank(sys.argv[2:])
+    if sys.argv[1:2] == ["--tp-paths-rank"]:
+        return tp_paths_rank(sys.argv[2:])
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
                     help="also print one training step's kernels by device time")
+    ap.add_argument("--tp-paths-seeds", default=None,
+                    help="run only phase 13's leg e at these comma-separated seeds (after the "
+                         "build) and print no result line")
     args = ap.parse_args()
     if not (REPO / "radzero_torch" / "ops" / "csrc").is_dir():
         print("FAIL: radzero_torch is not beside this script", file=sys.stderr)
@@ -6671,6 +7436,10 @@ def main() -> int:
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print(f"  ptxas {line.strip()}")
     check_no_spills(_build.build_log)
+    if args.tp_paths_seeds is not None:  # leg e alone: no result line
+        tp_paths(tuple(int(v) for v in args.tp_paths_seeds.split(",")), card)
+        print("phase 13's leg e alone (--tp-paths-seeds): every gate held; no result line")
+        return 0
 
     rows = phase_kernels(args.seed)
     serving, params = phase_slice(args.seed, card)
@@ -6688,7 +7457,7 @@ def main() -> int:
     viz = phase_viz(args.seed, card, cli_checkpoint)
     distributed = phase_distributed(args.seed, card, params, training, history, torchrun_leg)
     alt, alt_rows = phase_encoders(args.seed, card)
-    tensor_parallel, tp_rows_ = phase_tensor_parallel(args.seed, card)
+    tensor_parallel, tp_rows_, tp_paths_, tp_alt_rows_ = phase_tensor_parallel(args.seed, card)
 
     meta = {
         "K1": ("fused_preattn", "radzero_torch/ops/csrc/gemm_sm90.cu",
@@ -6742,7 +7511,7 @@ def main() -> int:
          "launches": serving[name] + server[name] + exported[name] + scoring[name]
          + evaluation[name] + training[name] + flash_step[name] + remat_step[name]
          + trainer_step[name] + checkpoint[name] + cli[name] + viz[name] + distributed[name]
-         + sum(a[name] for a in alt.values()) + tensor_parallel[name],
+         + sum(a[name] for a in alt.values()) + tensor_parallel[name] + tp_paths_[name],
          "launches_serving": serving[name], "launches_server": server[name],
          "launches_export": exported[name], "launches_scorer": scoring[name],
          "launches_eval": evaluation[name],
@@ -6753,7 +7522,7 @@ def main() -> int:
          "launches_checkpoint": checkpoint[name], "launches_cli": cli[name],
          "launches_viz": viz[name], "launches_distributed_step": distributed[name],
          **{f"launches_{path}": a[name] for path, a in alt.items()},
-         "launches_tensor_parallel": tensor_parallel[name],
+         "launches_tensor_parallel": tensor_parallel[name], "launches_tp_paths": tp_paths_[name],
          **rows[k]}
         for k, (name, src, rep) in meta.items()
     ]
@@ -6783,8 +7552,12 @@ def main() -> int:
             ("fused_mpnet_post_bwd_tp", "K9 tp bwd", "radzero_torch/ops/csrc/gemm_sm90.cu",
              "radzero_tpu/ops/fused_layer.py:820")):
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": rep,
-                        "registered_op": None, "launches": tensor_parallel[name],
-                        "launches_tensor_parallel": tensor_parallel[name], **tp_rows_[key]})
+                        "registered_op": None,
+                        "launches": tensor_parallel[name] + tp_paths_[name],
+                        "launches_tensor_parallel": tensor_parallel[name],
+                        "launches_tp_paths": tp_paths_[name], **tp_rows_[key]})
+        if key in tp_alt_rows_:  # rank 0's share at 8 x 4097 and 8 x 197 rows (leg e)
+            kernels[-1]["alt_shapes"] = tp_alt_rows_[key]
     idle = [k["name"] for k in kernels if k["launches"] == 0]
     if idle:
         fail(f"kernels never launched on a main path: {idle}")

@@ -35,9 +35,11 @@ a data rank takes ``per_device_train_batch_size * M`` images a step (so the
 global batch is the JAX CLI's ``per_device_train_batch_size *
 mesh.devices.size``, radzero_tpu/cli/run.py:168), the M ranks of a model
 group read the same batches, and the trainer splits the model over the
-group (``RadZeroTrainer(group=data group, tp=model group)``). The
+group (``RadZeroTrainer(group=data group, tp=model group)``), whatever the
+towers (``model_type``) and with ``train.tower_cache`` too. The
 checkpoints hold the whole tree; the zero-shot suite runs on the whole tree
-gathered after training.
+gathered after training. With several processes a ``memmap`` tower cache
+takes one directory a process, ``rank{global rank}`` under its path.
 
 ``model.pretrained_ckpt`` names a directory that
 ``python -m radzero_torch.tools.convert_checkpoint`` wrote (its
@@ -158,9 +160,14 @@ def trainer_args(cfg: dict, output_dir: str, loss_ratio: dict) -> TrainerArgs:
     )
 
 
-def tower_cache_from(cfg: dict, output_dir: str, n_records: int):
+def tower_cache_from(cfg: dict, output_dir: str, n_records: int, rank: int = 0,
+                     world: int = 1):
     """``train.tower_cache``: "ram" | "memmap" | "device", or a dict with
-    ``backing`` (and ``path`` for memmap); None when unset."""
+    ``backing`` (and ``path`` for memmap); None when unset. Every process
+    keeps its own cache: in a world of more than one process (``rank`` of
+    ``world``, global) a memmap cache lives in ``rank{rank}`` under the path,
+    since the ranks of a model group put the same records and data ranks
+    others, and two processes must never recreate or write one file."""
     tc_cfg = cfg["train"].get("tower_cache")
     if not tc_cfg:
         return None
@@ -170,8 +177,10 @@ def tower_cache_from(cfg: dict, output_dir: str, n_records: int):
         tc_cfg = {"backing": tc_cfg}
     backing = tc_cfg.get("backing", "ram")
     if backing == "memmap":
-        return TowerCache("memmap", path=tc_cfg.get("path") or os.path.join(
-            output_dir, "tower_cache"), n_records=n_records)
+        path = tc_cfg.get("path") or os.path.join(output_dir, "tower_cache")
+        if world > 1:
+            path = os.path.join(path, f"rank{rank}")
+        return TowerCache("memmap", path=path, n_records=n_records)
     if backing == "device":
         return TowerCache("device", n_records=n_records)
     # TowerCache validates the string: a YAML typo raises here
@@ -215,7 +224,8 @@ def _main(args: argparse.Namespace, device: torch.device, group) -> int:
     if cfg["args"]["train"]:
         datasets = load_datasets(cfg["dataset"], train=True)
         loader = pil_image_loader(image_processor)
-        tower_cache = tower_cache_from(cfg, output_dir, len(datasets["train"]))
+        tower_cache = tower_cache_from(cfg, output_dir, len(datasets["train"]), rank(group),
+                                       world(group))
         # each data rank reads its shard of the records, per_device_*_batch_size a
         # card a step: the model group's M cards share one batch
         shard = {} if data == 1 else dict(process_index=rank(dgroup), process_count=data)

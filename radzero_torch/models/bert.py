@@ -14,6 +14,15 @@ token-type embeddings with LayerNorm(eps 1e-12); post-LN encoder blocks
 Parameters are the JAX layout with the layers unstacked: one dict per
 layer in a list, q / k / v kept apart. Plain torch ops: the JAX tower
 runs no Pallas kernel.
+
+Over a model group ``tp`` (the parameters this rank's share,
+``parallel/tensor_parallel.py``) each layer runs the rank's heads, q / k / v
+and fc1 column-parallel, o and fc2 row-parallel; the word and position
+tables split on their rows where the axis divides them, each rank looking
+up the ids it holds and an all-reduce adding the rows (``embed_rows``,
+whose backward hands each rank the gradient of its rows); ``token_type``
+and the LayerNorms stay whole. The mask bias is per key, so it broadcasts
+over the rank's heads as it is.
 """
 
 from __future__ import annotations
@@ -26,7 +35,10 @@ import torch
 
 from radzero_torch.models.convert import _lin, _ln, _stack
 from radzero_torch.models.vit import _init_linear, _init_ln, _normal
-from radzero_torch.ops.layers import gelu, layer_norm, linear, self_attention
+from radzero_torch.ops.layers import (
+    column_linear, embed_rows, gelu, layer_norm, row_linear, self_attention,
+)
+from radzero_torch.parallel.tensor_parallel import active
 
 
 @dataclass(frozen=True)
@@ -82,10 +94,10 @@ def init_bert(g: torch.Generator, cfg: BertConfig) -> dict:
     }
 
 
-def _bert_layer(x, p, mask_bias, cfg: BertConfig):
-    a = self_attention(x, p["attn"], cfg.num_attention_heads, mask_bias)
+def _bert_layer(x, p, mask_bias, cfg: BertConfig, tp=None):
+    a = self_attention(x, p["attn"], cfg.num_attention_heads, mask_bias, tp)
     x = layer_norm(x + a, p["ln_attn"], cfg.layer_norm_eps)
-    m = linear(gelu(linear(x, p["mlp"]["fc1"])), p["mlp"]["fc2"])
+    m = row_linear(gelu(column_linear(x, p["mlp"]["fc1"], tp)), p["mlp"]["fc2"], tp)
     return layer_norm(x + m, p["ln_out"], cfg.layer_norm_eps)
 
 
@@ -98,21 +110,26 @@ def bert_forward(
     *,
     dtype=torch.float32,
     output_hidden_states: bool = False,
+    tp=None,
 ):
-    """-> last hidden (S, L, D) [and all hidden states (n_layers+1, S, L, D)]."""
+    """-> last hidden (S, L, D) [and all hidden states (n_layers+1, S, L, D)];
+    ``tp``: a model group (see the module docstring)."""
+    tp = active(tp)
     emb = params["embeddings"]
     s, l = input_ids.shape
     if token_type_ids is None:
         token_type_ids = torch.zeros_like(input_ids)
     pos_ids = torch.arange(l, device=input_ids.device)[None, :]
-    x = emb["word"][input_ids] + emb["position"][pos_ids] + emb["token_type"][token_type_ids]
+    x = (embed_rows(emb["word"], input_ids, cfg.vocab_size, tp)
+         + embed_rows(emb["position"], pos_ids, cfg.max_position_embeddings, tp)
+         + emb["token_type"][token_type_ids])
     x = layer_norm(x.to(dtype), emb["ln"], cfg.layer_norm_eps)
 
     neg = torch.finfo(torch.float32).min
     bias = ((1.0 - attention_mask.float())[:, None, None, :] * neg).to(dtype)
     hiddens = [x]
     for p in params["layers"]:
-        x = _bert_layer(x, p, bias, cfg)
+        x = _bert_layer(x, p, bias, cfg, tp)
         hiddens.append(x)
     if output_hidden_states:
         return x, torch.stack(hiddens)

@@ -21,6 +21,11 @@ which 16 does not divide, so configs name 224 or 512.
 
 Parameters are the JAX layout with the layers unstacked (a list), q / k /
 v kept apart; plain torch ops, as the JAX tower runs no Pallas kernel.
+Over a model group ``tp`` (the parameters this rank's share,
+``parallel/tensor_parallel.py``) each layer runs the rank's heads, q / k / v
+and fc1 column-parallel and o and fc2 row-parallel, as the JAX rules split
+them; the patch and position embeddings, the class token and the pre / post
+LayerNorms stay whole, and every rank returns the same tokens.
 """
 
 from __future__ import annotations
@@ -33,7 +38,8 @@ import torch
 from radzero_torch.models.bert import init_qkvo
 from radzero_torch.models.convert import _lin, _ln, _stack
 from radzero_torch.models.vit import _init_linear, _init_ln, _normal, interpolate_pos_embed, patchify
-from radzero_torch.ops.layers import layer_norm, linear, self_attention
+from radzero_torch.ops.layers import column_linear, layer_norm, linear, row_linear, self_attention
+from radzero_torch.parallel.tensor_parallel import active
 
 
 @dataclass(frozen=True)
@@ -89,11 +95,14 @@ def init_clip_vit(g: torch.Generator, cfg: ClipViTConfig) -> dict:
     return params
 
 
-def prenorm_layer(x, p, heads: int, eps: float, act_name: str, bias=None):
-    """x + attn(ln1(x)); then + mlp(ln2(x)) with ``act_name`` between fc1 and fc2."""
-    x = x + self_attention(layer_norm(x, p["ln1"], eps), p["attn"], heads, bias)
+def prenorm_layer(x, p, heads: int, eps: float, act_name: str, bias=None, tp=None):
+    """x + attn(ln1(x)); then + mlp(ln2(x)) with ``act_name`` between fc1 and
+    fc2. Over a model group ``tp`` the attention runs the rank's heads, fc1 is
+    column-parallel and fc2 row-parallel (its whole bias added after the sum)."""
+    x = x + self_attention(layer_norm(x, p["ln1"], eps), p["attn"], heads, bias, tp)
     h = layer_norm(x, p["ln2"], eps)
-    return x + linear(act(linear(h, p["mlp"]["fc1"]), act_name), p["mlp"]["fc2"])
+    return x + row_linear(act(column_linear(h, p["mlp"]["fc1"], tp), act_name),
+                          p["mlp"]["fc2"], tp)
 
 
 def clip_pos_embed(params: dict, cfg: ClipViTConfig, grid) -> torch.Tensor:
@@ -107,8 +116,10 @@ def clip_pos_embed(params: dict, cfg: ClipViTConfig, grid) -> torch.Tensor:
 
 
 def clip_vit_forward(params: dict, cfg: ClipViTConfig, pixel_values: torch.Tensor, *,
-                     dtype=torch.float32) -> torch.Tensor:
-    """(B, H, W, C) NHWC -> (B, [1+]h*w, D) last hidden state."""
+                     dtype=torch.float32, tp=None) -> torch.Tensor:
+    """(B, H, W, C) NHWC -> (B, [1+]h*w, D) last hidden state; ``tp``: a model
+    group (see the module docstring)."""
+    tp = active(tp)
     b, hh, ww, _ = pixel_values.shape
     grid = (hh // cfg.patch_size, ww // cfg.patch_size)
     x = patchify(pixel_values.to(dtype), cfg.patch_size) @ params["patch_embed"]["kernel"].to(dtype)
@@ -121,7 +132,8 @@ def clip_vit_forward(params: dict, cfg: ClipViTConfig, pixel_values: torch.Tenso
     if "pre_ln" in params:
         x = layer_norm(x, params["pre_ln"], cfg.layer_norm_eps)
     for p in params["layers"]:
-        x = prenorm_layer(x, p, cfg.num_attention_heads, cfg.layer_norm_eps, cfg.hidden_act)
+        x = prenorm_layer(x, p, cfg.num_attention_heads, cfg.layer_norm_eps, cfg.hidden_act,
+                          tp=tp)
     if cfg.final_layernorm and "post_ln" in params:
         x = layer_norm(x, params["post_ln"], cfg.layer_norm_eps)
     return x

@@ -9,7 +9,9 @@ standard recipe: patch-16 embedding, CLS token, *fixed 2-D sin-cos*
 position embeddings, pre-LN blocks without LayerScale, final LayerNorm;
 global latent = normalised CLS, local latents = patch tokens. The sin-cos
 table is computed (numpy, float64, cast to fp32), so the tower has no
-position parameters to resample.
+position parameters to resample. Over a model group ``tp`` the layers split
+as the CLIP tower's (``models/clip_vit.py``); the patch embedding, the class
+token and the final LayerNorm stay whole.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import torch
 from radzero_torch.models.clip_vit import init_prenorm_layers, prenorm_layer
 from radzero_torch.models.vit import _init_linear, _init_ln, _normal, patchify
 from radzero_torch.ops.layers import layer_norm, linear
+from radzero_torch.parallel.tensor_parallel import active
 
 
 @dataclass(frozen=True)
@@ -69,8 +72,10 @@ def init_mae_vit(g: torch.Generator, cfg: MAEViTConfig) -> dict:
 
 
 def mae_vit_forward(params: dict, cfg: MAEViTConfig, pixel_values: torch.Tensor, *,
-                    dtype=torch.float32) -> Tuple[torch.Tensor, torch.Tensor]:
-    """-> (global (B, D), local (B, h*w, D)) — the MRM output contract."""
+                    dtype=torch.float32, tp=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """-> (global (B, D), local (B, h*w, D)) — the MRM output contract; ``tp``:
+    a model group (see the module docstring)."""
+    tp = active(tp)
     b, hh, ww, _ = pixel_values.shape
     gh, gw = hh // cfg.patch_size, ww // cfg.patch_size
     x = linear(patchify(pixel_values.to(dtype), cfg.patch_size), params["patch_embed"])
@@ -79,13 +84,14 @@ def mae_vit_forward(params: dict, cfg: MAEViTConfig, pixel_values: torch.Tensor,
     pos = torch.from_numpy(sincos_pos_embed_2d(cfg.hidden_size, gh, gw))
     x = x + pos.to(device=x.device, dtype=dtype)
     for p in params["layers"]:
-        x = prenorm_layer(x, p, cfg.num_attention_heads, cfg.layer_norm_eps, "gelu")
+        x = prenorm_layer(x, p, cfg.num_attention_heads, cfg.layer_norm_eps, "gelu", tp=tp)
     x = layer_norm(x, params["final_ln"], cfg.layer_norm_eps)
     return x[:, 0], x[:, 1:]
 
 
-def mae_vision_tokens(params, cfg, pixel_values, *, dtype=torch.float32) -> torch.Tensor:
+def mae_vision_tokens(params, cfg, pixel_values, *, dtype=torch.float32,
+                      tp=None) -> torch.Tensor:
     """Vision-token layout the composite model consumes: concat of the
     global latent and patch latents (ref modeling.py:100-106)."""
-    g, l = mae_vit_forward(params, cfg, pixel_values, dtype=dtype)
+    g, l = mae_vit_forward(params, cfg, pixel_values, dtype=dtype, tp=tp)
     return torch.cat([g[:, None], l], dim=1)

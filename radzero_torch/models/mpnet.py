@@ -60,6 +60,7 @@ from radzero_torch.ops.fused_layer import fused_mpnet_post, fused_mpnet_post_tp
 from radzero_torch.ops.layers import (
     attention,
     column_linear,
+    embed_rows,
     gelu,
     layer_norm,
     linear,
@@ -67,7 +68,7 @@ from radzero_torch.ops.layers import (
     row_linear,
     split_heads,
 )
-from radzero_torch.parallel.collectives import all_reduce_sum, copy_to_model
+from radzero_torch.parallel.collectives import copy_to_model
 from radzero_torch.parallel.tensor_parallel import active, local_heads, tp_rank, tp_size
 
 
@@ -190,22 +191,6 @@ def mpnet_layer(x, p, rel, neg, cfg: TextConfig, tp=None):
     x = layer_norm(x + a, p["ln_attn"], cfg.layer_norm_eps)
     m = row_linear(gelu(column_linear(x, p["mlp"]["fc1"], tp)), p["mlp"]["fc2"], tp)
     return layer_norm(x + m, p["ln_out"], cfg.layer_norm_eps)
-
-
-def embed_rows(table, ids, rows: int, tp=None):
-    """``table[ids]`` of a table of ``rows`` rows that is whole on this rank,
-    or split on its rows over the model group ``tp`` (a shorter ``table``):
-    each rank looks up the ids it holds, zero rows elsewhere, and an
-    all-reduce adds the ranks' rows, which gives the rows' own bits. Under
-    gradients the all-reduce's backward is the identity, so each rank's
-    table gets the gradient of the rows it holds."""
-    if tp is None or table.shape[0] == rows:
-        return table[ids]
-    n = table.shape[0]
-    local = ids - tp_rank(tp) * n
-    held = (local >= 0) & (local < n)
-    found = table[local.clamp(0, n - 1)]
-    return all_reduce_sum(torch.where(held[..., None], found, torch.zeros_like(found)), tp)
 
 
 def mpnet_forward(params: dict, cfg: TextConfig, input_ids, attention_mask, *,

@@ -36,8 +36,11 @@ keeps its meaning, the data group. Under gradients the backward splits at
 the same all-reduces (K6, K8 and K9 over the axis, ``copy_to_model`` at the
 column-parallel inputs): every replicated leaf's gradient is whole and
 bit-equal on every rank of the group, every split leaf's is the rank's
-share. An alternate tower over a group of more than one rank raises
-NotImplementedError. A group of one runs today's path, bit for bit.
+share. The alternate towers split as the JAX rules split their trees
+(``parallel/tensor_parallel.py``): CLIP / SigLIP / BiomedCLIP, MAE and BERT
+by heads and MLP columns (BERT's word and position rows too), SAM by its
+MLP alone, on the same plain torch ops. A group of one runs today's path,
+bit for bit.
 """
 
 from __future__ import annotations
@@ -66,7 +69,7 @@ from radzero_torch.models.mpnet import masked_mean_pool, mpnet_forward
 from radzero_torch.models.vit import layer_impl, vit_forward
 from radzero_torch.ops.layers import l2_normalize, linear
 from radzero_torch.parallel.collectives import all_gather_rows
-from radzero_torch.parallel.tensor_parallel import active, refuse
+from radzero_torch.parallel.tensor_parallel import active
 
 
 def init_radzero(g: torch.Generator, cfg: RadZeroConfig,
@@ -138,8 +141,6 @@ def forward_vision(params: dict, cfg: RadZeroConfig, pixel_values: Optional[torc
 
     tp = active(tp)
     model_type = getattr(cfg.vision, "model_type", "dinov2")
-    if tp is not None and tower_tokens is None and model_type not in ("dinov2", "raddino"):
-        refuse(f"vision model_type {model_type!r}")
     if tower_tokens is not None:
         tokens = tower_tokens.to(dtype)
     else:
@@ -151,7 +152,7 @@ def forward_vision(params: dict, cfg: RadZeroConfig, pixel_values: Optional[torc
             else:
                 _, vision_apply = build_vision_encoder(model_type)
                 tokens = vision_apply(params["vision_model"], cfg.vision, pixel_values,
-                                      dtype=dtype)
+                                      dtype=dtype, tp=tp)
     _, align_apply = build_align_adapter(cfg.align.model_type)
     tokens = align_apply(params["align_transformer"], cfg.align, tokens,
                          impl=align_impl or impl_of(cfg.align.attn_impl), remat=remat, tp=tp)
@@ -175,12 +176,10 @@ def forward_text(params: dict, cfg: RadZeroConfig, input_ids, attention_mask, *,
     biomedclip) with the projector on the pooled features (ref
     modeling.py:202-203). Any other type, the CLIP text towers included,
     raises NotImplementedError, as the JAX composite does
-    (radzero_tpu/models/radzero.py:240-241). ``tp``: the model group, MPNet
-    only (see the module docstring)."""
+    (radzero_tpu/models/radzero.py:240-241), over a model group as without
+    one. ``tp``: the model group (see the module docstring)."""
     tp = active(tp)
     text_type = getattr(cfg.text, "model_type", "mpnet")
-    if tp is not None and text_type != "mpnet":
-        refuse(f"text model_type {text_type!r}")
     if cfg.text.remat is not None:
         remat = cfg.text.remat
     if text_type == "mpnet":
@@ -194,7 +193,7 @@ def forward_text(params: dict, cfg: RadZeroConfig, input_ids, attention_mask, *,
             text_features = masked_mean_pool(hidden, attention_mask)
     elif text_type in BERT_TYPES:
         hidden = bert_forward(params["text_model"], bert_config_from_text(cfg.text), input_ids,
-                              attention_mask, dtype=dtype)
+                              attention_mask, dtype=dtype, tp=tp)
         if cfg.text.use_cls_token:
             text_features = hidden[:, 0, :]
         else:

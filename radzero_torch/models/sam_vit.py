@@ -39,6 +39,14 @@ The neck is exposed separately (:func:`sam_neck`).
 
 Parameters: the JAX layout as it is, layers in a LIST (window and global
 layers carry rel-pos tables of different shapes).
+
+Over a model group ``tp`` (the parameters this rank's share,
+``parallel/tensor_parallel.py``) only the MLP splits, as the JAX rules split
+this tree: fc1 column-parallel, fc2 row-parallel (the partials all-reduced,
+then fc2's whole bias). The packed ``qkv`` and ``proj`` sit at
+``layers/i/qkv`` and ``layers/i/proj``, where the rules' ``attn/`` patterns
+do not reach, so the attention, its decomposed relative-position bias and
+its windows run whole on every rank, as does the neck.
 """
 
 from __future__ import annotations
@@ -50,7 +58,8 @@ import torch
 import torch.nn.functional as F
 
 from radzero_torch.models.vit import _init_linear, _init_ln, _normal, patchify
-from radzero_torch.ops.layers import attention, gelu, layer_norm, linear
+from radzero_torch.ops.layers import attention, column_linear, gelu, layer_norm, linear, row_linear
+from radzero_torch.parallel.tensor_parallel import active
 from radzero_torch.ops.resize import bicubic_resize_2d, linear_resize_1d
 
 
@@ -203,8 +212,10 @@ def _sam_attention(x: torch.Tensor, p: dict, cfg: SamViTConfig) -> torch.Tensor:
     return linear(out.reshape(bn, h, w, d), p["proj"])
 
 
-def sam_layer(x: torch.Tensor, p: dict, cfg: SamViTConfig, window: int) -> torch.Tensor:
-    """One ViT-det block on the (B, H, W, D) map (HF SamVisionLayer)."""
+def sam_layer(x: torch.Tensor, p: dict, cfg: SamViTConfig, window: int,
+              tp=None) -> torch.Tensor:
+    """One ViT-det block on the (B, H, W, D) map (HF SamVisionLayer); over a
+    model group ``tp`` the MLP alone splits (see the module docstring)."""
     h = layer_norm(x, p["ln1"], cfg.layer_norm_eps)
     if window > 0:
         orig_hw = h.shape[1], h.shape[2]
@@ -214,7 +225,7 @@ def sam_layer(x: torch.Tensor, p: dict, cfg: SamViTConfig, window: int) -> torch
         h = _sam_attention(h, p, cfg)
     x = x + h
     m = layer_norm(x, p["ln2"], cfg.layer_norm_eps)
-    return x + linear(gelu(linear(m, p["mlp"]["fc1"])), p["mlp"]["fc2"])
+    return x + row_linear(gelu(column_linear(m, p["mlp"]["fc1"], tp)), p["mlp"]["fc2"], tp)
 
 
 def _interpolate_abs_pos(pos: torch.Tensor, grid_hw) -> torch.Tensor:
@@ -230,9 +241,10 @@ def _interpolate_abs_pos(pos: torch.Tensor, grid_hw) -> torch.Tensor:
 
 
 def sam_trunk(params: dict, cfg: SamViTConfig, pixel_values: torch.Tensor, *,
-              dtype=torch.float32) -> torch.Tensor:
+              dtype=torch.float32, tp=None) -> torch.Tensor:
     """Patch embed + abs pos + all blocks -> (B, h, w, D) feature map
-    (HF SamVisionEncoder up to, excluding, the neck)."""
+    (HF SamVisionEncoder up to, excluding, the neck); ``tp``: a model group."""
+    tp = active(tp)
     b, hh, ww, _ = pixel_values.shape
     h, w = hh // cfg.patch_size, ww // cfg.patch_size
     x = linear(patchify(pixel_values.to(dtype), cfg.patch_size), params["patch_embed"])
@@ -240,7 +252,7 @@ def sam_trunk(params: dict, cfg: SamViTConfig, pixel_values: torch.Tensor, *,
     if cfg.use_abs_pos:
         x = x + _interpolate_abs_pos(params["pos_embed"], (h, w)).to(dtype)
     for i, p in enumerate(params["layers"]):
-        x = sam_layer(x, p, cfg, cfg.layer_window(i))
+        x = sam_layer(x, p, cfg, cfg.layer_window(i), tp)
     return x
 
 
@@ -256,13 +268,13 @@ def sam_neck(params: dict, cfg: SamViTConfig, fmap: torch.Tensor) -> torch.Tenso
 
 
 def sam_vit_forward(params: dict, cfg: SamViTConfig, pixel_values: torch.Tensor, *,
-                    dtype=torch.float32) -> torch.Tensor:
+                    dtype=torch.float32, tp=None) -> torch.Tensor:
     """Composite-model entry: (B, H, W, C) -> (B, 1 + h*w, D) tokens.
 
     Slot 0 is the mean-pooled trunk feature (SAM has no CLS token; the
     align stage and RadZeroLoss expect a pooled prefix slot — the convention
     the m3ae tower uses for its global latent)."""
-    fmap = sam_trunk(params, cfg, pixel_values, dtype=dtype)
+    fmap = sam_trunk(params, cfg, pixel_values, dtype=dtype, tp=tp)
     b, h, w, d = fmap.shape
     tokens = fmap.reshape(b, h * w, d)
     return torch.cat([tokens.mean(dim=1, keepdim=True), tokens], dim=1)

@@ -88,8 +88,7 @@ from radzero_torch.ops.layers import (
 )
 from radzero_torch.ops.resize import bicubic_resize_2d
 from radzero_torch.parallel.collectives import all_reduce_sum
-from radzero_torch.ops._checks import tracked
-from radzero_torch.parallel.tensor_parallel import active, local_heads, refuse, tp_size
+from radzero_torch.parallel.tensor_parallel import active, local_heads, tp_size
 
 
 # ---------------------------------------------------------------------------
@@ -306,9 +305,10 @@ _LAYERS = {"fused": dinov2_layer_fused, "packed": dinov2_layer_packed,
 
 
 # remat_policy="save_attn" on the packed and flash layers. A route is (keep,
-# again): keep(qkv, cfg) -> (attention output, what its backward reads besides
-# its operands); again(qkv, attn, kept, cfg) -> the kept attention output in
-# the backward's graph, behind a node whose backward is the attention's own.
+# again): keep(qkv, h) -> (attention output over h heads, what its backward
+# reads besides its operands); again(qkv, attn, kept, h) -> the kept attention
+# output in the backward's graph, behind a node whose backward is the
+# attention's own. h is the heads the layer runs: all of them, or a rank's.
 
 class _Kept(torch.autograd.Function):
     """Returns the kept attention output; its backward is ``bwd(g, *operands)``,
@@ -326,32 +326,31 @@ class _Kept(torch.autograd.Function):
         return (None, None) + tuple(ctx.bwd(g, *ctx.saved_tensors))
 
 
-def _packed_keep(qkv, cfg):
+def _packed_keep(qkv, h):
     if hopper(qkv):
-        a, lse = flash_attention_packed_lse(qkv, cfg.num_attention_heads)
+        a, lse = flash_attention_packed_lse(qkv, h)
         return a, (lse,)
-    return flash_attention_packed(qkv, cfg.num_attention_heads), ()
+    return flash_attention_packed(qkv, h), ()
 
 
-def _packed_again(qkv, a, kept, cfg):
+def _packed_again(qkv, a, kept, h):
     stats = {"out": a, "lse": kept[0]} if kept else {}
 
     def bwd(g, qkv):  # K7
-        return (flash_attention_packed_bwd(qkv, cfg.num_attention_heads, g.contiguous(),
-                                           **stats),)
+        return (flash_attention_packed_bwd(qkv, h, g.contiguous(), **stats),)
 
     return _Kept.apply(a, bwd, qkv.contiguous())
 
 
-def _flash_keep(qkv, cfg):
+def _flash_keep(qkv, h):
     if hopper(qkv):
-        out, lse = flash_attention_lse(*_heads(qkv, cfg.num_attention_heads))
+        out, lse = flash_attention_lse(*_heads(qkv, h))
         return merge_heads(out), (lse,)
-    return merge_heads(flash_attention(*_heads(qkv, cfg.num_attention_heads))), ()
+    return merge_heads(flash_attention(*_heads(qkv, h))), ()
 
 
-def _flash_again(qkv, a, kept, cfg):
-    heads = _heads(qkv, cfg.num_attention_heads)
+def _flash_again(qkv, a, kept, h):
+    heads = _heads(qkv, h)
     shape = heads[0].shape
     stats = {"out": a.reshape(shape), "lse": kept[0]} if kept else {}
 
@@ -368,41 +367,53 @@ class _SaveAttn(torch.autograd.Function):
     attention's, and differentiates it in one pass: the same nodes in the
     same order as the layer's own graph, so the same bits, x's four
     gradients (residual, LN1's mean and its two centrings) added in the
-    same order."""
+    same order.
+
+    Over a model group ``tp`` (the weights this rank's share) the attention
+    runs the rank's heads and the rebuilt graph is the layer's over the
+    group: its forward reruns the o-proj's and fc2's all-reduces
+    (``row_linear``), two a layer, and its backward runs the qkv's and fc1's
+    (``copy_to_model``'s sums), two more. Every rank of the group rebuilds
+    the same graph from the same kept tensors and differentiates it in the
+    same order, so every rank issues these four collectives in the same
+    order (gloo pairs them by order; NCCL would mix payloads otherwise).
+    The sums are rerun, not kept: the Function keeps what it keeps without
+    a group (x, the attention output, the statistics; no (rows, D) fp32
+    sum), and pays two more all-reduces a layer in the backward; a sum of
+    the same partials gives the same bits, so the gradients are the
+    layer's without remat, bit for bit. (The fused layer's
+    ``fused_layer_save_attn`` keeps its two fp32 sums instead.)"""
 
     @staticmethod
-    def forward(ctx, x, cfg, route, *w):
+    def forward(ctx, x, cfg, route, tp, *w):
         p = _layer_tree(w)
-        a, kept = route[0](_pre(x, p, cfg), cfg)
+        h = _n_heads(cfg, tp)
+        a, kept = route[0](_pre(x, p, cfg, tp), h)
         ctx.save_for_backward(x, a, *w, *kept)
-        ctx.cfg, ctx.route = cfg, route
-        return _post(x, a, p, cfg)
+        ctx.cfg, ctx.route, ctx.tp = cfg, route, tp
+        return _post(x, a, p, cfg, tp)
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, g):
         x, a, *rest = ctx.saved_tensors
         w, kept = rest[:len(_LEAVES)], rest[len(_LEAVES):]
-        cfg, want_x = ctx.cfg, ctx.needs_input_grad[0]
+        cfg, tp, want_x = ctx.cfg, ctx.tp, ctx.needs_input_grad[0]
         with torch.enable_grad():
             xd = x.detach().requires_grad_(want_x)
             wd = [t.detach().requires_grad_() for t in w]
             p = _layer_tree(wd)
-            out = _post(xd, ctx.route[1](_pre(xd, p, cfg), a, kept, cfg), p, cfg)
+            qkv = _pre(xd, p, cfg, tp)
+            out = _post(xd, ctx.route[1](qkv, a, kept, _n_heads(cfg, tp)), p, cfg, tp)
             grads = torch.autograd.grad(out, ([xd] if want_x else []) + wd, g)
         if not want_x:
             grads = (None,) + grads
-        return (grads[0], None, None) + needed(ctx, (None,) * 3 + grads[1:])[3:]
+        return (grads[0], None, None, None) + needed(ctx, (None,) * 4 + grads[1:])[4:]
 
 
-def _save_attn_layer(impl, route, doc):
+def _save_attn_layer(route, doc):
     def layer(x: torch.Tensor, p: dict, cfg: ViTConfig, tp=None) -> torch.Tensor:
-        leaves = _layer_leaves(p)
-        if tp is not None:
-            if tracked(x, *leaves):
-                refuse(f'remat_policy="save_attn" on the {impl} layer')
-            return _LAYERS[impl](x, p, cfg, tp)
-        return _SaveAttn.apply(x, cfg, route, *leaves)
+        return _SaveAttn.apply(x, cfg, route, tp, *_layer_leaves(p))
 
     layer.__doc__ = doc
     return layer
@@ -410,14 +421,16 @@ def _save_attn_layer(impl, route, doc):
 
 _SAVE_ATTN = {
     "fused": dinov2_layer_fused_save_attn,
-    "packed": _save_attn_layer("packed", (_packed_keep, _packed_again), """:func:`dinov2_layer_packed`
+    "packed": _save_attn_layer((_packed_keep, _packed_again), """:func:`dinov2_layer_packed`
     under ``remat_policy="save_attn"``: keeps x, the attention output and, in bf16 on
     the card, K2's ``lse``; the backward reruns the eager post-attention chain, LN1 and
-    the qkv product, and runs K7 without rerunning K2."""),
-    "flash": _save_attn_layer("flash", (_flash_keep, _flash_again), """:func:`dinov2_layer_flash`
+    the qkv product, and runs K7 without rerunning K2. Over a model group ``tp``, K2
+    and K7 on the rank's heads, the rebuilt chain's sums rerun (see ``_SaveAttn``)."""),
+    "flash": _save_attn_layer((_flash_keep, _flash_again), """:func:`dinov2_layer_flash`
     under ``remat_policy="save_attn"``: keeps x, the attention output and, in bf16 on
     the card, K13's ``lse``; the backward reruns the eager post-attention chain, LN1 and
-    the qkv product, and runs K14 without rerunning K13."""),
+    the qkv product, and runs K14 without rerunning K13. Over a model group ``tp``, K13
+    and K14 on the rank's heads, the rebuilt chain's sums rerun (see ``_SaveAttn``)."""),
 }
 _IMPL_OF = {"xla": "eager", "packed": "packed", "flash": "flash", "fused": "fused",
             "fused_vjp": "fused"}
@@ -446,7 +459,7 @@ def vit_encoder(layers: List[dict], cfg: ViTConfig, x: torch.Tensor, *, impl: st
     ``tp``: the None policy's checkpoint reruns the layer, collectives
     included, in the same order on every rank; "save_attn" on the fused
     layer keeps K3's two sums besides; "save_attn" on the packed and flash
-    layers raises NotImplementedError (ROADMAP.md item 11)."""
+    layers reruns their chain's sums in the backward (``_SaveAttn``)."""
     layer = _LAYERS[impl]
     tp = active(tp)
     if remat and torch.is_grad_enabled():

@@ -6,6 +6,8 @@
   partial products all-reduced, then the bias)
 - ``column_linear``: a column-parallel ``linear`` over a model group (the
   input through ``copy_to_model``, whose backward sums its gradient)
+- ``embed_rows``: a table lookup, the table whole or split on its rows
+  over a model group (the rows all-reduced)
 - ``gelu``: exact erf GELU
 - ``attention``: eager softmax attention with an fp32 softmax
 - ``l2_normalize``: ``x / max(||x||, eps)`` with eps 1e-12
@@ -19,6 +21,7 @@ from typing import Optional, Sequence
 import torch
 
 from radzero_torch.parallel.collectives import all_reduce_sum, copy_to_model
+from radzero_torch.parallel.tensor_parallel import local_heads, tp_rank, tp_size
 
 
 def layer_norm(x: torch.Tensor, params: dict, eps: float) -> torch.Tensor:
@@ -59,6 +62,23 @@ def column_linear(x: torch.Tensor, params: dict, tp) -> torch.Tensor:
     gradient is the sum of the ranks' partials. Without a group,
     :func:`linear`."""
     return linear(copy_to_model(x, tp), params)
+
+
+def embed_rows(table, ids, rows: int, tp=None):
+    """``table[ids]`` of a table of ``rows`` rows that is whole on this rank,
+    or split on its rows over the model group ``tp`` (a shorter ``table``):
+    each rank looks up the ids it holds, zero rows elsewhere, and an
+    all-reduce adds the ranks' rows, which gives the rows' own bits. Under
+    gradients the all-reduce's backward is the identity, so each rank's
+    table gets the gradient of the rows it holds. MPNet's and BERT's word
+    and position tables."""
+    if tp is None or table.shape[0] == rows:
+        return table[ids]
+    n = table.shape[0]
+    local = ids - tp_rank(tp) * n
+    held = (local >= 0) & (local < n)
+    found = table[local.clamp(0, n - 1)]
+    return all_reduce_sum(torch.where(held[..., None], found, torch.zeros_like(found)), tp)
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
@@ -103,11 +123,20 @@ def merge_heads(x: torch.Tensor) -> torch.Tensor:
     return x.reshape(b, l, h * hd)
 
 
-def self_attention(h: torch.Tensor, p: dict, heads: int, bias=None) -> torch.Tensor:
-    """Multi-head self-attention over ``p``'s q / k / v / o linears: the eager
-    attention of the BERT, CLIP, MAE and CLIP text layers."""
+def self_attention(h: torch.Tensor, p: dict, heads: int, bias=None, tp=None) -> torch.Tensor:
+    """Multi-head self-attention of ``heads`` heads over ``p``'s q / k / v / o
+    linears: the eager attention of the BERT, CLIP, MAE and CLIP text layers.
+    Over a model group ``tp`` (``p`` this rank's share) q, k and v are
+    column-parallel on the rank's heads, ``h`` passing through
+    ``copy_to_model`` once for the three, and o is row-parallel
+    (:func:`row_linear`: the partial products summed, then o's whole bias).
+    ``bias`` broadcasts against the (B, H, Lq, Lk) scores of the rank's
+    heads: a bias per key (BERT's mask, the causal mask) as it is, a bias
+    per head only as the rank's heads' slice."""
+    heads = local_heads(heads, tp_size(tp))
+    h = copy_to_model(h, tp)
     q, k, v = (split_heads(linear(h, p[n]), heads) for n in "qkv")
-    return linear(merge_heads(attention(q, k, v, bias=bias)), p["o"])
+    return row_linear(merge_heads(attention(q, k, v, bias=bias)), p["o"], tp)
 
 
 def attention(

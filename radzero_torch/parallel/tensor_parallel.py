@@ -10,13 +10,20 @@ JAX ``PartitionSpec()``):
   (column-parallel; a rank holds its heads, or its slice of the MLP);
 - o and fc2 kernels: the input dimension (row-parallel; a rank's product is
   a partial sum that an all-reduce completes, and their biases stay whole);
-- MPNet's word and position embeddings: the rows (a rank looks up the ids
-  it holds and an all-reduce adds the rows);
+- the word and position embeddings of MPNet and BERT: the rows (a rank
+  looks up the ids it holds and an all-reduce adds the rows);
 - a dimension the axis does not divide: replicated, as the JAX rules fall
   back (at the flagship width and ``model = 2`` the word table's 30527 rows
   stay whole and the position table's 514 split);
 - everything else (LayerNorms, LayerScale, the patch embedding, MPNet's
   relative bias, the loss head): replicated.
+
+The rules read paths, not towers, so they split the alternate towers as the
+JAX rules do: the CLIP / SigLIP / BiomedCLIP and MAE layers' ``attn/{q, k,
+v, o}`` and ``mlp/{fc1, fc2}``; BERT's the same and its word and position
+rows (``token_type`` stays whole); SAM's ``mlp/{fc1, fc2}`` alone, since its
+packed ``qkv`` and ``proj`` sit at ``layers/i/qkv`` with no ``attn/`` in the
+path and stay whole.
 
 The DINOv2 tower and the align layers keep q / k / v packed in one
 ``attn.qkv`` of shape (D, 3D) (``models/from_jax.py``). Its spec is the
@@ -28,9 +35,11 @@ share (:func:`shard_params`); ``models/vit.py`` and ``models/mpnet.py`` read
 the group as ``tp=`` and run the row-parallel K3 and K4 of
 ``ops/fused_layer.py``, and under gradients their backwards K6, K8 and K9
 split at their all-reduces. :func:`unshard_params` puts the shares back
-together, :func:`gather_whole` does so across the ranks, and
-:func:`split_leaves` tells which leaves of a tree are split (their
-gradients are shares; a replicated leaf's gradient is whole on every rank).
+together, :func:`gather_whole` does so across the ranks,
+:func:`share_of` takes a rank's share of any whole tensor by a leaf's spec
+(LoRA's merged deltas, ``train/lora.py``), and :func:`split_leaves` tells
+which leaves of a tree are split (their gradients are shares; a replicated
+leaf's gradient is whole on every rank).
 """
 
 from __future__ import annotations
@@ -45,17 +54,10 @@ from radzero_torch.utils.tree import tree_leaves
 
 MODEL = "model"
 _COLUMN, _ROW = (None, MODEL), (MODEL, None)
-# what a model group of more than one rank refuses, and where its work is queued
-NOT_SPLIT = ("the model axis runs the DINOv2 and raddino towers, the align adapters, MPNet "
-             "and the loss heads, forward and backward; the alternate towers, remat's "
-             "save_attn on the packed and flash layers, LoRA and the tower cache over it are "
-             "ROADMAP.md item 11")
-
-
-def refuse(what: str) -> None:
-    """Raise NotImplementedError for ``what`` over a model group: nothing
-    falls back to replicated compute."""
-    raise NotImplementedError(f"{what} over a model group: {NOT_SPLIT}")
+# what the model axis has not run yet, and where its work is queued: no path of
+# the JAX package is refused over a model group
+NOT_SPLIT = ("every path of the JAX package runs over a model group; NCCL over four cards "
+             "has not run yet (ROADMAP.md item 11)")
 
 
 def _rule(joined: str):
@@ -110,18 +112,28 @@ def param_specs(params: dict, size: int) -> dict:
     return _map(lambda path, leaf: spec_for(path, leaf, size), params)
 
 
-def _share(path, leaf, rank, size):
-    spec = spec_for(path, leaf, size)
+def share_of(t: torch.Tensor, spec: Tuple, rank: int, size: int,
+             packed: bool = False) -> torch.Tensor:
+    """Rank ``rank``'s share of the whole tensor ``t`` over ``size`` ranks by
+    the spec ``spec`` (:func:`spec_for`): ``t`` itself when the spec is
+    replicated; else the rank's slice of the split dimension, and for a
+    ``packed`` [q | k | v] leaf its heads' columns from each third,
+    ``[q_r | k_r | v_r]``. Differentiable (slices and a concatenation); a
+    contiguous copy."""
     if not spec:
-        return leaf
+        return t
     dim = spec.index(MODEL)
-    if _packed(path):
-        d = leaf.shape[dim] // 3
+    if packed:
+        d = t.shape[dim] // 3
         w = d // size
-        parts = [leaf.narrow(dim, i * d + rank * w, w) for i in range(3)]
+        parts = [t.narrow(dim, i * d + rank * w, w) for i in range(3)]
         return torch.cat(parts, dim=dim).contiguous()
-    w = leaf.shape[dim] // size
-    return leaf.narrow(dim, rank * w, w).contiguous()
+    w = t.shape[dim] // size
+    return t.narrow(dim, rank * w, w).contiguous()
+
+
+def _share(path, leaf, rank, size):
+    return share_of(leaf, spec_for(path, leaf, size), rank, size, _packed(path))
 
 
 def shard_params(params: dict, rank: int, size: int) -> dict:

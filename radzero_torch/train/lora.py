@@ -20,6 +20,19 @@ the forward under autograd, so differentiating through it trains only the
 adapters; no model code changes. peft's adapter dropout is not replicated
 (merging folds the adapter into the kernel), as in the JAX package.
 
+Over a model group (``merge_lora(share, lora, tp=, specs=)``, the JAX
+package's ``merge_lora`` then ``shard_params``) every rank computes each
+adapter's whole delta, the adapters being replicated, and adds the rank's
+share of it to its kernel share by the kernel's spec
+(:func:`radzero_torch.parallel.tensor_parallel.share_of`: columns for q / k
+/ v and fc1, ``[q_r | k_r | v_r]`` thirds for DINOv2's packed qkv, rows for
+o and fc2). A delta that goes into a split kernel passes through
+``copy_to_model`` first: each rank's gradient of the whole delta is nonzero
+only on its share, and the summed backward makes it whole, so A's and B's
+gradients are whole and bit-equal on every rank and the replicated adapters
+stay equal after each update. A delta into a replicated kernel goes in
+whole, its gradient already whole on every rank.
+
 Like the JAX module this is a library: neither the trainer nor the CLI
 wires it in.
 """
@@ -31,6 +44,8 @@ from typing import Dict, Iterator, List, Tuple
 
 import torch
 
+from radzero_torch.parallel.collectives import copy_to_model
+from radzero_torch.parallel.tensor_parallel import active, share_of, tp_rank, tp_size
 from radzero_torch.train.checkpoint import _onto
 from radzero_torch.utils.json_io import load_json, save_json
 
@@ -93,31 +108,49 @@ def _add_columns(kernel: torch.Tensor, delta: torch.Tensor, third: int) -> torch
                       kernel[:, hi:]], dim=1)
 
 
-def _merge_into(node: dict, rest: List[str], delta: torch.Tensor) -> None:
-    """Add ``delta`` to the kernel at ``rest`` under ``node`` (a dict the
-    merge owns), packed thirds included."""
+def _share(delta: torch.Tensor, spec, tp) -> torch.Tensor:
+    """This rank's part of the whole ``delta`` of a kernel whose spec is
+    ``spec`` over the model group ``tp`` (``delta`` itself without one, or
+    for a replicated kernel)."""
+    if tp is None or not spec:
+        return delta
+    return share_of(copy_to_model(delta, tp), spec, tp_rank(tp), tp_size(tp))
+
+
+def _merge_into(node: dict, rest: List[str], delta: torch.Tensor, specs, tp) -> None:
+    """Add ``delta`` (or this rank's share of it over ``tp``, by the spec tree
+    ``specs`` that mirrors ``node``) to the kernel at ``rest`` under ``node``
+    (a dict the merge owns), packed thirds included."""
+    sub = None if specs is None else specs[rest[0]]
     if isinstance(node.get(rest[0]), list):
         for i, layer in enumerate(node[rest[0]]):
-            _merge_into(layer, rest[1:], delta[i])
+            _merge_into(layer, rest[1:], delta[i], None if sub is None else sub[i], tp)
         return
     if len(rest) == 3 and rest[1] in _PACKED and "qkv" in node.get(rest[0], {}):
         qkv = node[rest[0]]["qkv"]
-        qkv["kernel"] = _add_columns(qkv["kernel"], delta, _PACKED[rest[1]])
+        spec = None if sub is None else sub["qkv"]["kernel"]
+        qkv["kernel"] = _add_columns(qkv["kernel"], _share(delta, spec, tp), _PACKED[rest[1]])
         return
     if len(rest) == 1:
-        node[rest[0]] = node[rest[0]] + delta.to(node[rest[0]].dtype)
+        node[rest[0]] = node[rest[0]] + _share(delta, sub, tp).to(node[rest[0]].dtype)
         return
-    _merge_into(node[rest[0]], rest[1:], delta)
+    _merge_into(node[rest[0]], rest[1:], delta, sub, tp)
 
 
-def merge_lora(params: dict, lora: dict) -> dict:
+def merge_lora(params: dict, lora: dict, tp=None, specs=None) -> dict:
     """``params`` with each targeted kernel replaced by kernel + (alpha / r)
-    A @ B (a new tree; ``params`` and its tensors are left as they are)."""
+    A @ B (a new tree; ``params`` and its tensors are left as they are).
+    ``tp``: a model group, ``params`` this rank's share and ``specs`` the
+    :func:`radzero_torch.parallel.tensor_parallel.param_specs` of the whole
+    tree over it (see the module docstring)."""
+    tp = active(tp)
+    if tp is not None and specs is None:
+        raise ValueError("merge_lora(tp=...) needs specs=param_specs(whole tree, model size)")
     scaling = lora["alpha"] / lora["r"]
     out = _copy_tree(params)
     for joined, ab in lora["adapters"].items():
         delta = torch.einsum("...ir,...ro->...io", ab["a"], ab["b"]) * scaling
-        _merge_into(out, joined.split("/"), delta)
+        _merge_into(out, joined.split("/"), delta, specs if tp is not None else None, tp)
     return out
 
 

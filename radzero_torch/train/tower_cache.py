@@ -23,6 +23,15 @@ inside the step (K1-K3 under ``no_grad``) at the step's dtype, and every
 backing stores the tokens bit for bit (bf16 through an int16 view on
 disk, since numpy has no bfloat16), so cached epochs compute what
 uncached ones do.
+
+Over a model group (``make_tower_fn(tp=)``) the tower runs on the rank's
+share, as the step would run it (the DINOv2 layers' row-parallel K3, an
+alternate tower's registry entry with ``tp``); its tokens are whole and
+bit-equal on every rank of the group, and each process keeps its own
+cache: a ``device`` backing holds one copy a rank (n_records x 2.10 MB of
+bf16 flagship tokens on every card of the group), and ``memmap`` caches
+take one directory a process (``cli/run.py`` puts the global rank in the
+path), so no two processes write or recreate the same files.
 """
 
 from __future__ import annotations
@@ -225,14 +234,15 @@ class TowerCache:
         }
 
 
-def make_tower_fn(cfg, *, dtype) -> Callable:
+def make_tower_fn(cfg, *, dtype, tp=None) -> Callable:
     """``tower(vision_params, pixel_values) -> tokens`` (B, L, D) at the real
     length (1370 for the flagship): the tower ``forward_vision`` runs inside
     the train step (``models/radzero.py``: for dinov2 / raddino the fused
     K1-K3 layer and final LN, for the alternate towers their registry entry
     on plain torch ops, as radzero_tpu/train/tower_cache.py:270-285), at the
     step's ``dtype``, under ``torch.no_grad()``, so cached tokens are
-    drop-in replacements for the in-step tower's."""
+    drop-in replacements for the in-step tower's. ``tp``: a model group,
+    ``vision_params`` this rank's share (see the module docstring)."""
     from radzero_torch.models.encoders import build_vision_encoder
 
     model_type = getattr(cfg.vision, "model_type", "dinov2")
@@ -241,6 +251,6 @@ def make_tower_fn(cfg, *, dtype) -> Callable:
 
     @torch.no_grad()
     def tower(vision_params, pixel_values):
-        return apply(vision_params, cfg.vision, pixel_values, dtype=dtype, **kw)
+        return apply(vision_params, cfg.vision, pixel_values, dtype=dtype, tp=tp, **kw)
 
     return tower

@@ -40,8 +40,9 @@ Where it departs from the JAX trainer:
   model group and joined (``gather_whole``), and global rank 0 writes. A
   resume, and the best model at the end, read the whole tree and take this
   rank's share. :attr:`params` is this rank's share; :meth:`whole_params`
-  gathers the whole tree. The tower cache over a model group raises
-  NotImplementedError (ROADMAP.md item 11).
+  gathers the whole tree. The tower cache runs over a model group too: the
+  tower on the rank's share (``make_tower_fn(tp=)``), its tokens whole and
+  bit-equal across the group, one cache a process.
 - Batches are uploaded by ``data/pipeline.py``'s ``to_device``: each host
   array is copied into pinned memory on the host thread (a memcpy of the
   batch, chiefly its 206 MB of fp32 pixels at batch 64; its time on the
@@ -194,8 +195,6 @@ class RadZeroTrainer:
         self.tower_cache = tower_cache
         self._tower_fn = None
         if tower_cache is not None:
-            if self.tp is not None:
-                tpar.refuse("the tower cache")
             if "vision_model" in args.module_to_update:
                 raise ValueError(
                     "tower_cache requires a frozen vision tower: cached "
@@ -229,7 +228,7 @@ class RadZeroTrainer:
             from radzero_torch.train.tower_cache import make_tower_fn
 
             self._tower_fn = make_tower_fn(
-                model_cfg, dtype=torch.bfloat16 if args.bf16 else torch.float32
+                model_cfg, dtype=torch.bfloat16 if args.bf16 else torch.float32, tp=self.tp
             )
 
         steps_per_epoch = max(len(train_loader), 1)

@@ -21,16 +21,19 @@ on the CPU, fp32, against the JAX package's tensor-parallel rules and mesh.
   and the token filter over ``tp=2``;
 - ``forward_train(remat=True)`` with grad mode on over both grids, at the
   gates of the no_grad call;
-- what a model group of two still refuses raises NotImplementedError naming
-  ROADMAP.md item 11: the alternate towers, and remat's ``save_attn`` on the
-  packed and flash align layers under gradients (training over the axis is
-  tests/test_torch_tp_train.py's); a model group of one gives the bits of no
-  group.
+- what a model group of two once refused now runs: remat's ``save_attn``
+  on the packed and flash align layers under gradients (their losses at the
+  loss gates above), a CLIP vision tower and a BERT text tower (their
+  outputs within the fp32 gate of the port's one process; training over the
+  axis is tests/test_torch_tp_train.py's and tests/test_torch_tp_paths.py's);
+  the CLIP text tower still raises, as without a group; a model group of one
+  gives the bits of no group.
 
 The ranks are fresh interpreters running this file (``run_ranks`` of
 ``tests/test_torch_parallel.py``); they import no JAX.
 """
 
+import contextlib
 import dataclasses
 import importlib.util
 import os
@@ -44,6 +47,7 @@ import torch
 from radzero_torch.models import configuration as tconf
 from radzero_torch.ops import fused_layer as fl
 from radzero_torch.parallel import tensor_parallel as tpar
+from radzero_torch.utils.tree import tree_leaves
 
 from test_torch_parallel import rank_main, run_ranks
 
@@ -154,20 +158,27 @@ def _grid_rank(group, out, inputs_path):
     if data == 1:
         cfg = _cfg(tconf, vocab)
         share = tpar.shard_params(inputs["params"], m, model)
-        clip = dataclasses.replace(cfg, vision=dataclasses.replace(cfg.vision, model_type="clip"))
-        bert = dataclasses.replace(cfg, text=dataclasses.replace(cfg.text, model_type="bert"))
+        clip, bert = _alt_cfgs(cfg)
+        clip_share, bert_share = (tpar.shard_params(_alt_params(c), m, model)
+                                  for c in (clip, bert))
         packed, flash = (dataclasses.replace(cfg, align=dataclasses.replace(cfg.align, attn_impl=a))
                          for a in ("packed", "flash"))
         for name, fn in (
             ("save_attn_packed", lambda: forward_train(_require(share), packed, batch,
-                                                       group=dgroup, tp=tp, remat=True)),
+                                                       group=dgroup, tp=tp,
+                                                       remat=True)["losses"]["loss"].detach()),
             ("save_attn_flash", lambda: forward_train(_require(share), flash, batch,
-                                                      group=dgroup, tp=tp, remat=True)),
-            ("alt_vision", lambda: forward_vision(share, clip, batch["pixel_values"], tp=tp)),
-            ("alt_text", lambda: forward_text(share, bert, ids, mask, tp=tp)),
+                                                      group=dgroup, tp=tp,
+                                                      remat=True)["losses"]["loss"].detach()),
+            ("alt_vision", lambda: forward_vision(clip_share, clip, batch["pixel_values"],
+                                                  tp=tp)["vision_tokens"]),
+            ("alt_text", lambda: forward_text(bert_share, bert, ids, mask,
+                                              tp=tp)["text_features"]),
+            ("clip_text", lambda: forward_text(bert_share, _clip_text(bert), ids, mask, tp=tp)),
         ):
             try:
-                fn()
+                with torch.no_grad() if name.startswith("alt") else contextlib.nullcontext():
+                    res[name] = fn()
                 res[f"refused_{name}"] = None
             except NotImplementedError as e:
                 res[f"refused_{name}"] = str(e)
@@ -184,6 +195,28 @@ def _grid_rank(group, out, inputs_path):
 def _require(tree):
     """A copy of ``tree`` whose leaves require gradients."""
     return tpar._map(lambda _, t: t.clone().requires_grad_(True), tree)
+
+
+def _alt_cfgs(cfg):
+    """``cfg`` with a CLIP vision tower, and with a BERT text tower, at its widths."""
+    from radzero_torch.models.clip_vit import ClipViTConfig
+
+    clip = dataclasses.replace(cfg, vision=ClipViTConfig(
+        hidden_size=D, num_hidden_layers=2, num_attention_heads=H, intermediate_size=F,
+        patch_size=14, pretrain_img_size=42, img_size=56))
+    bert = dataclasses.replace(cfg, text=dataclasses.replace(cfg.text, model_type="bert"))
+    return clip, bert
+
+
+def _alt_params(cfg):
+    """The port's weights for ``cfg`` from a seed (the same on every rank)."""
+    from radzero_torch.models.radzero import init_radzero
+
+    return init_radzero(torch.Generator().manual_seed(3), cfg)
+
+
+def _clip_text(cfg):
+    return dataclasses.replace(cfg, text=dataclasses.replace(cfg.text, model_type="clip_text"))
 
 
 MODES = {"1x2": _grid_rank, "2x2": _grid_rank}
@@ -531,31 +564,73 @@ def test_branch_logits_over_the_model_axis(grids, branch):
 
 
 def test_gradients_and_alternate_towers_refuse(grids):
-    """Under gradients, remat's save_attn on the packed and flash align layers,
-    and the alternate towers, over a model group of two."""
-    for res in grids["1x2"][3]:
+    """What a model group of two once refused now returns: under gradients,
+    remat's save_attn on the packed and flash align layers (the loss at rtol
+    3e-5 of the JAX loss on the mesh and within the fp32 gate of the port's
+    one process), a CLIP vision tower's tokens and a BERT text tower's
+    features (within the fp32 gate of the port's one process), the same bits
+    on both ranks; the CLIP text tower still raises, as it does without a
+    group (and in the JAX composite)."""
+    from radzero_torch.models.radzero import forward_text, forward_vision
+
+    tree, inputs, _, ranks = grids["1x2"]
+    vocab = VOCABS["1x2"]
+    cfg = _cfg(tconf, vocab)
+    ref = _jax_loss(tree, vocab)
+    one = _one_process(inputs["params"], cfg, vocab, "fused", "loss")
+    clip, bert = _alt_cfgs(cfg)
+    pv, ids, mask = (torch.from_numpy(a) for a in _prompts(vocab))
+    batch = _to_torch(inputs["batch"])
+    with torch.no_grad():
+        one_vision = forward_vision(_alt_params(clip), clip, batch["pixel_values"])
+        one_text = forward_text(_alt_params(bert), bert, ids.long(), mask.long())
+    for res in ranks:
         for name in ("save_attn_packed", "save_attn_flash", "alt_vision", "alt_text"):
-            assert res[f"refused_{name}"] is not None and "ROADMAP.md item 11" in res[
-                f"refused_{name}"], (name, res[f"refused_{name}"])
+            assert res[f"refused_{name}"] is None, (name, res[f"refused_{name}"])
+            assert torch.equal(res[name], ranks[0][name]), name
+        for name in ("save_attn_packed", "save_attn_flash"):
+            np.testing.assert_allclose(res[name].item(), ref, rtol=3e-5)
+            _within_gate(res[name].item(), one.item(), _fp32_gate(cfg))
+        _within_gate(res["alt_vision"].numpy(), one_vision["vision_tokens"].numpy(),
+                     _fp32_gate(clip))
+        _within_gate(res["alt_text"].numpy(), one_text["text_features"].numpy(),
+                     _fp32_gate(bert))
+        assert "in composite model" in res["refused_clip_text"]
+    with pytest.raises(NotImplementedError, match="in composite model"):
+        forward_text(_alt_params(bert), _clip_text(bert), ids.long(), mask.long())
 
 
 def test_model_group_of_one_is_no_group(grids):
     assert all(res["size1_equal"] for res in grids["1x2"][3])
 
 
-def test_refusals_without_ranks():
-    """Without a group to run on (a stand-in for one): the refusal of save_attn
-    on the packed layer under gradients, before any collective; check_mesh
+def test_refusals_without_ranks(tmp_path):
+    """save_attn on the packed layer under gradients, handed a model group (a
+    gloo group of this one process here), now runs: its output and its
+    gradients are the same layer's without a group, bit for bit; check_mesh
     and mesh_shape take a model axis."""
     from radzero_torch.models import vit as tvit
-    from radzero_torch.parallel.dist import check_mesh, mesh_shape
+    from radzero_torch.parallel.dist import check_mesh, init_distributed, mesh_shape
 
     cfg = tconf.ViTConfig(**VIT)
     rng = np.random.default_rng(1)
     p = tvit.init_vit_layers(torch.Generator().manual_seed(0), cfg)[0]
-    x = torch.from_numpy(rng.standard_normal((2, 5, D)).astype(np.float32)).requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item 11"):
-        tvit._SAVE_ATTN["packed"](x, p, cfg, object())
+    x0 = torch.from_numpy(rng.standard_normal((2, 5, D)).astype(np.float32))
+    g = torch.from_numpy(rng.standard_normal((2, 5, D)).astype(np.float32))
+
+    def run(tp):
+        x, w = x0.clone().requires_grad_(True), _require(p)
+        out = tvit._SAVE_ATTN["packed"](x, w, cfg, tp)
+        return [out.detach()] + list(torch.autograd.grad(out, [x] + tree_leaves(w), g))
+
+    group = init_distributed(backend="gloo", init_method=f"file://{tmp_path}/store", rank=0,
+                             world_size=1, timeout_s=60)
+    try:
+        got = run(group)
+    finally:
+        torch.distributed.destroy_process_group()
+    want = run(None)
+    assert len(got) == len(want) and all(torch.equal(a, b) for a, b in zip(got, want))
     assert check_mesh({"data": 1, "model": 2}, 2) == 1
     assert check_mesh({"data": -1, "model": 2}, 4) == 2
     with pytest.raises(NotImplementedError, match="data and model"):
