@@ -278,11 +278,11 @@ Phases, in order; any failure exits non-zero:
    row kernel of K3 / K4 over a model group (csrc/tp_rows.cu, tp_rows_kernel) in its
    four places (x + ls1 (acc + bo) with LN2; y32 + ls2 (acc + b2); x + (acc + bo)
    with LN written rounded and in fp32; LN(y32 + (acc + b2))) at 8 x 1370 x 768
-   against its twin at seeds 0-1, fp32 (TF32 off, 2^-17 of max |ref|) and bf16 (one
+   against its twin at seed 0 (TP_SEEDS), fp32 (TF32 off, 2^-17 of max |ref|) and bf16 (one
    bf16 step), with times, bounds and its device kernel by name; rank 0's share of
    K3 and K4 over two ranks (the sum the identity) at phase 3's TOL, by name, beside
    their three products on cuBLAS; b, one process on the flagship at full depth,
-   compute_logits (8 images x 20 prompts) and forward_train's loss (8 x 64
+   compute_logits (TP_IMAGES: 4 images x 20 prompts) and forward_train's loss (4 x 32
    sentences) in fp32 and bf16, and a model group of one under NCCL
    (mesh_groups(1, 1)) bit-equal to no group; c, two processes on the card under
    gloo (chip_smoke.py --tp-rank), mesh_groups(1, 2), each with its share
@@ -297,7 +297,7 @@ Phases, in order; any failure exits non-zero:
    phase 3's training shapes against their twins at phase 3's TOL, their bf16 device
    kernels by name, times and bounds, beside the unsplit chains; in b, a bf16 step's
    gradients under NCCL's group of one bit-equal to no group; in c's ranks, K6 / K8 /
-   K9 over the group against their twins with the same gloo all-reduce at seeds 0-1,
+   K9 over the group against their twins with the same gloo all-reduce at TP_SEEDS,
    forward_train's gradient tree over the group (gathered whole) against one
    process's (fp32 within tp_grad_gate, bf16 within TP_BF16_FACTOR of one process's
    own bf16 miss, leaf by leaf), and under remat (align "save_attn", MPNet's recompute,
@@ -327,6 +327,30 @@ Phases, in order; any failure exits non-zero:
    ranks): two sharded steps and an eval batch at the flagship's widths against its
    one-process control (drift <= 5e-4 of the loss, logits MAE <= 2e-4).
    --tp-paths-seeds 0,1,2,3 runs leg e alone at those seeds after the build.
+14. the training-run tools (radzero_torch/tools; phase_tools, runs last), each at a cut
+   size printed on its own line: a, the sanity harness (sanity_train: D 64 at 1 head, the
+   kernels' head width, 150 fp32 steps at batch 32, the eval's 64 examples) from
+   SANITY_DRAWS draws of the initial weights (the CPU's generator), each held against the
+   same draw on the CPU (chip_smoke.py --sanity-cpu, the plain twins, the same batches):
+   the first SANITY_WITNESS_STEPS losses at rtol 5e-4, the eval logits and maps of the
+   card's weights against the CPU's compute_logits at its gate; then the learning gates
+   (SANITY_GATES: each draw's loss falls, the mean retrieval and pointing above chance) and
+   each draw's steps' and eval's launches; b, the token filter study (token_filter_study:
+   the table at ratios 0 / 0.25 / 0.5, each ratio's eval logits against the CPU's of the
+   same weights, the flagship tower at 64 x 518 in bf16 at ratio 0 bit-equal to the
+   unfiltered tower, the rows each ratio keeps, images/s by CUDA events); the bf16 step's
+   gradient against fp32, leaf by leaf, at MISS_SHAPE (tests/jax_bf16_miss.py measures the
+   JAX package's there on the CPU); c, the soak (soak_train's legs through its command
+   line, leg_command, at 320 records of 518 px, batch 64: a 15-step control, a leg killed
+   by os._exit(17) at step 7 and its resume, each a process of its own, the NaN and
+   temperature guards, resume_delta's gate: the resumed losses within rtol 1e-5 of the
+   control's; the loss's trend printed, gated only at full length; each leg's launches from
+   its own record) and the selection leg (run_selection: 128 / 64 records, 8 epochs,
+   patience 2, its assertions with the 20-epoch floor at the budget, and its eval loss
+   falling); d, one --one trial of probe_tower_cache_capacity at 1024 records in a process
+   of its own. The flagship tower is timed first; then the CPU's sanity draws, the soak's
+   legs and the capacity trial run as processes (Popen, each waited for once) beside a,
+   b's table, the bf16 miss and the selection leg.
 
 --profile also prints the kernels of one training step by device time
 (torch.profiler; the 40 longest, K15 / K16's by name, and the fixed-order
@@ -1877,15 +1901,9 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 from radzero_torch.eval.export import load_zero_shot
-from radzero_torch.ops import flash_attention as fa, fused_layer as fl, registry, vlcabs_fused as vf
+from radzero_torch.ops import counted_wrappers, registry
 
-WRAPPERS = (fl.fused_preattn, fl.flash_attention_packed, fl.fused_postattn, fl.fused_mpnet_post,
-            vf.vlcabs_fused, fl.fused_preattn_bwd, fl.flash_attention_packed_bwd,
-            fl.fused_postattn_bwd, fl.fused_mpnet_post_bwd, vf.vlcabs_train_forward,
-            vf.vlcabs_train_bwd_dq, vf.vlcabs_train_bwd_dtn, fa.flash_attention,
-            fa.flash_attention_bwd, fa.flash_attention_bias, fa.flash_attention_bias_bwd,
-            fl.fused_postattn_tp, fl.fused_mpnet_post_tp, fl.tp_rows, fl.fused_preattn_bwd_tp,
-            fl.fused_postattn_bwd_tp, fl.fused_mpnet_post_bwd_tp)
+WRAPPERS = counted_wrappers()
 t0 = time.time()
 runner, meta = load_zero_shot(bundle)
 t_load = time.time() - t0
@@ -2665,17 +2683,9 @@ def scorer_host_stages(scorer, proc, images, prompts, batch_s, card_ms, card):
 
 
 def _counters():
-    from radzero_torch.ops import flash_attention as fa
-    from radzero_torch.ops import fused_layer as fl
-    from radzero_torch.ops import vlcabs_fused as vf
+    from radzero_torch.ops import counted_wrappers
 
-    return (fl.fused_preattn, fl.flash_attention_packed, fl.fused_postattn, fl.fused_mpnet_post,
-            vf.vlcabs_fused, fl.fused_preattn_bwd, fl.flash_attention_packed_bwd,
-            fl.fused_postattn_bwd, fl.fused_mpnet_post_bwd, vf.vlcabs_train_forward,
-            vf.vlcabs_train_bwd_dq, vf.vlcabs_train_bwd_dtn, fa.flash_attention,
-            fa.flash_attention_bwd, fa.flash_attention_bias, fa.flash_attention_bias_bwd,
-            fl.fused_postattn_tp, fl.fused_mpnet_post_tp, fl.tp_rows, fl.fused_preattn_bwd_tp,
-            fl.fused_postattn_bwd_tp, fl.fused_mpnet_post_bwd_tp)
+    return counted_wrappers()
 
 
 def reset_counters():
@@ -5575,9 +5585,11 @@ def phase_encoders(seed, card):
 # ---------------------------------------------------------------------------
 
 TP_WORLD = 2              # ranks of the model group: processes sharing the one card under gloo
-TP_IMAGES, TP_PROMPTS = 8, 20  # compute_logits over the group
-TP_SENTENCES = 64         # forward_train's loss: 8 images x 8 sentences of T_LEN slots
-TP_SEEDS = (0, 1)         # the row kernel and 13d's split chains against their twins
+# compute_logits and the steps over the group: 4 images (8 before the training-run tools'
+# phase joined the script; the gloo sums through the host take time in proportion)
+TP_IMAGES, TP_PROMPTS = 4, 20
+TP_SENTENCES = 32         # forward_train's loss: 4 images x 8 sentences of T_LEN slots
+TP_SEEDS = (0,)           # the row kernel and 13d's split chains against their twins
 # The row kernel against its twin: u is the twin's value, rounded op for op; the
 # LayerNorm sums the row in another order, which moves an output by a few fp32 ulps of
 # the row's scale: 2^-17 of max |ref| (and 2^-17 of the entry) for every fp32 output. A
@@ -5676,8 +5688,9 @@ def _serve_cfg():
 
 
 def tp_inputs(seed, vocab_size):
-    """Phase 13's inputs from ``seed``: pixels of 8 images in fp32 and bf16, 20 prompts
-    of T_LEN slots, and forward_train's batch of 8 images x 64 sentences in both."""
+    """Phase 13's inputs from ``seed``: pixels of TP_IMAGES images in fp32 and bf16, 20
+    prompts of T_LEN slots, and forward_train's batch of TP_IMAGES images x TP_SENTENCES
+    sentences in both."""
     import torch
 
     dts = (("fp32", torch.float32), ("bf16", torch.bfloat16))
@@ -6612,7 +6625,7 @@ def tp_train_gates(res, tcfg):
 E_IMAGES, E_PROMPTS = 8, 14    # e1: SAM's serving batch (4097 tokens an image); e2's images
 E_SENTENCES = 64               # e2: sentences of T_LEN slots, 8 an image
 # e3 / e4: the flagship's steps at 2 images x 16 sentences, so that the tower's 24 sums
-# a step move 8.4 MB each through the host, not 33.7 (leg d runs 8 x 64)
+# a step move 8.4 MB each through the host, not 16.8 (leg d runs 4 x 32)
 E_FLAG_IMAGES, E_FLAG_SENTENCES = 2, 16
 E_STEPS = 3
 E_RECORDS, E_BATCH = 4, 2      # e4: records of 518 px, 2 a step: 2 steps an epoch
@@ -7367,6 +7380,507 @@ def _tp_paths_gates(s, res, one, cfgs):
     return total
 
 
+# phase 14: the training-run tools (radzero_torch/tools), each at a cut size
+TOOLS_SANITY = {"steps": 150, "batch": 32, "lr": 3e-4, "heads": 1}
+TOOLS_RATIOS = (0.0, 0.25, 0.5)
+TOOLS_SOAK = {"records": 320, "img": 518, "batch": 64, "steps": 15, "kill_at": 7}
+TOOLS_SELECTION = {"n_train": 128, "n_eval": 64, "epochs": 8, "patience": 2}
+TOOLS_CAPACITY = 1024
+# the sanity harness's learning gates at --heads 1 (PERF.md §6), held once each draw on the
+# card has matched the CPU's from the same weights: every draw's last loss below its first,
+# and each accuracy's mean over SANITY_DRAWS draws of the initial weights (seeds 0..3 on the
+# CPU's generator; seed 0 is the tool's own run) above chance. One draw is no test: over
+# eight draws at 1 head on the CPU, retrieval read 0.156-0.375 and pointing 0.19-0.91
+SANITY_GATES = {"retrieval_accuracy": 0.25, "pointing_accuracy": 0.25}
+SANITY_DRAWS = 4
+# the shape of the bf16 gradient's miss (tests/jax_bf16_miss.py runs the JAX side on the
+# CPU at the same shape and batch): the flagship's widths and depths at 224 px, 8 images x
+# 8 sentences x 32 tokens
+MISS_SHAPE = {"images": 8, "sentences": 8, "tokens": 32, "img": 224}
+
+
+def miss_batch(seed, vocab_size=30527, shape=MISS_SHAPE):
+    """The seeded numpy batch of the bf16 miss on both sides: pixels N(0, 0.5),
+    sentences of 6..tokens ids (<s> ... </s>, pad 1), ``sentences`` an image."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed + 1)
+    b, spi, t, img = shape["images"], shape["sentences"], shape["tokens"], shape["img"]
+    s = b * spi
+    ids = np.full((s, t), 1, np.int32)
+    mask = np.zeros((s, t), np.int32)
+    for i in range(s):
+        k = int(rng.integers(6, t + 1))
+        ids[i, :k] = rng.integers(3, vocab_size, k)
+        ids[i, 0], ids[i, k - 1] = 0, 2
+        mask[i, :k] = 1
+    return {
+        "pixel_values": (rng.standard_normal((b, img, img, 3)) * 0.5).astype(np.float32),
+        "input_ids": ids,
+        "attention_mask": mask,
+        "group_map": np.repeat(np.arange(b, dtype=np.int32), spi),
+        "row_mask": np.ones(s, np.float32),
+    }
+
+
+def grad_misses(g16, g32):
+    """{path: rms(g16 - g32) / rms(g32)} over two gradient trees of numpy arrays in
+    the port's layout, for the leaves whose fp32 gradient reaches 1e-7 (the
+    attention key biases' gradient is zero in exact arithmetic: its fp32 value is
+    rounding noise, as in ``_grad_gate``)."""
+    import numpy as np
+
+    ref = dict(_keyed_paths(g32))
+    out = {}
+    for path, o in _keyed_paths(g16):
+        r = np.asarray(ref[path], np.float64)
+        o = np.asarray(o, np.float64)
+        if np.abs(r).max() > 1e-7:
+            out[path] = float(np.sqrt(np.mean((o - r) ** 2)) / np.sqrt(np.mean(r * r)))
+    return out
+
+
+def miss_summary(miss, top=8):
+    """The worst leaves, and the worst and median over MPNet's bias and LayerNorm
+    leaves, over the rest of MPNet, and over the align layers."""
+    import numpy as np
+
+    def group(pred):
+        vals = [v for p, v in miss.items() if pred(p)]
+        return {"n": len(vals), "max": max(vals), "median": float(np.median(vals))}
+
+    def mpnet_bias_ln(p):
+        return p.startswith("/text_model") and (p.endswith("/bias") or "/ln" in p
+                                               or "layer_norm" in p)
+
+    return {
+        "worst": sorted(miss.items(), key=lambda kv: -kv[1])[:top],
+        "mpnet_bias_ln": group(mpnet_bias_ln),
+        "mpnet_other": group(lambda p: p.startswith("/text_model") and not mpnet_bias_ln(p)),
+        "align": group(lambda p: p.startswith("/align_transformer")),
+        "all_median": float(np.median(list(miss.values()))),
+    }
+
+
+def _times(launches, k):
+    return {name: n * k for name, n in launches.items()}
+
+
+def _plus(*launches):
+    return {name: sum(a[name] for a in launches) for name in launches[0]}
+
+
+def tower_launches(vision_cfg):
+    """One frozen tower call (make_tower_fn, or vit_forward on the fused route)."""
+    n = vision_cfg.num_hidden_layers
+    return expected(fused_preattn=n, flash_attention_packed=n, fused_postattn=n)
+
+
+def logits_launches(cfg):
+    """One compute_logits call: K1-K3 in the tower and the align layers, K4, K5."""
+    n = cfg.vision.num_hidden_layers + cfg.align.num_hidden_layers
+    return expected(fused_preattn=n, flash_attention_packed=n, fused_postattn=n,
+                    fused_mpnet_post=cfg.text.num_hidden_layers, vlcabs_fused=1)
+
+
+def cached_remat_step_launches(cfg):
+    """One step of the trainer's cached configuration (tower_tokens, remat, the align
+    layers without it): the align layers' K1-K3 and K6-K8, MPNet's K4 twice (its
+    rerun) and K9, K10-K12 once."""
+    na, nt = cfg.align.num_hidden_layers, cfg.text.num_hidden_layers
+    return expected(fused_preattn=na, flash_attention_packed=na, fused_postattn=na,
+                    fused_mpnet_post=2 * nt, fused_preattn_bwd=na,
+                    flash_attention_packed_bwd=na, fused_postattn_bwd=na,
+                    fused_mpnet_post_bwd=nt, vlcabs_train_forward=1, vlcabs_train_bwd_dq=1,
+                    vlcabs_train_bwd_dtn=1)
+
+
+def eval_step_launches(cfg):
+    """One eval step (forward_train without a tape, the tower on its pixels): K1-K3 in the
+    tower and the align layers, K4, K10."""
+    n = cfg.vision.num_hidden_layers + cfg.align.num_hidden_layers
+    return expected(fused_preattn=n, flash_attention_packed=n, fused_postattn=n,
+                    fused_mpnet_post=cfg.text.num_hidden_layers, vlcabs_train_forward=1)
+
+
+def check_launches(label, got, want):
+    """Every kernel's launches on a leg by wrapper name against what the leg must run."""
+    got = {name: got.get(name, 0) for name in want}
+    ran = {k: v for k, v in got.items() if v}
+    print(f"  {label} launches: {ran}")
+    if got != want:
+        wrong = {k: (got[k], want[k]) for k in want if got[k] != want[k]}
+        fail(f"{label}: launches (got, expected) {wrong}")
+    return got
+
+
+def _gate(ok, msg):
+    if not ok:
+        fail(msg)
+
+
+# the sanity harness's witness: the card's draws against the CPU's (the plain twins) from
+# the same weights and batches, at the suite's gates: the first steps' losses at the CPU tests'
+# step gate, the eval logits and maps of the card's trained weights at compute_logits'
+SANITY_WITNESS_STEPS, STEP_RTOL = 5, 5e-4
+LOGITS_RTOL, LOGITS_ATOL, MAP_MAE = 1e-3, 2e-4, 1e-3
+SANITY_CPU_THREADS = 1  # the CPU child's threads: beside the card's legs and the soak's
+# processes, more threads only wait on each other
+
+
+def sanity_cpu(argv) -> int:
+    """chip_smoke.py --sanity-cpu OUT: the sanity harness's SANITY_DRAWS draws on the
+    CPU (the wrappers' plain twins), which phase 14 starts beside its legs on the
+    card; each draw's losses a step and accuracies go to OUT as JSON."""
+    sys.path.insert(0, str(REPO))
+    import numpy as np
+    import torch
+    from radzero_torch.tools import sanity_train as st
+
+    t0 = time.perf_counter()
+    torch.set_num_threads(SANITY_CPU_THREADS)
+    cfg, tok, draws = st.sanity_config(TOOLS_SANITY["heads"]), st.tokenizer(), []
+    for k in range(SANITY_DRAWS):
+        rng = np.random.default_rng(0)
+        trainable, frozen, hist = st.train(
+            cfg, st.init_params(cfg, "cpu", seed=k), rng, tok, steps=TOOLS_SANITY["steps"],
+            batch=TOOLS_SANITY["batch"], lr=TOOLS_SANITY["lr"], device="cpu")
+        imgs, labels = st.eval_set(rng)
+        retrieval, pointing, _, _ = st.score({**trainable, **frozen}, cfg, imgs, labels, tok,
+                                             "cpu")
+        draws.append({"losses": hist, "retrieval_accuracy": retrieval,
+                      "pointing_accuracy": pointing})
+    with open(argv[0], "w") as f:
+        json.dump({"draws": draws, "wall_s": time.perf_counter() - t0}, f)
+    return 0
+
+
+def _on_cpu(tree):
+    from radzero_torch.utils.tree import tree_leaves, tree_unflatten
+
+    return tree_unflatten([leaf.cpu() for leaf in tree_leaves(tree)], tree)
+
+
+def _logits_witness(label, params, cfg, imgs, labels, tok, logits, maps, quadrants):
+    """The card's eval logits and maps against the CPU's compute_logits (the plain
+    twins) of the same weights, at the compute_logits gate -> the CPU's accuracies."""
+    import numpy as np
+    from radzero_torch.tools import sanity_train as st
+
+    retrieval, pointing, lc, mc = st.score(_on_cpu(params), cfg, imgs, labels, tok, "cpu",
+                                           quadrants)
+    err, mae = float(np.abs(logits - lc).max()), float(np.abs(maps - mc).mean())
+    _gate(np.allclose(logits, lc, rtol=LOGITS_RTOL, atol=LOGITS_ATOL) and mae < MAP_MAE,
+          f"{label}: the card's eval logits / maps differ from the CPU's of the same weights "
+          f"(logits max_abs_err {err:.3e}, map MAE {mae:.3e})")
+    return err, mae, retrieval, pointing
+
+
+def _child(cmd, log, err=subprocess.STDOUT, env=None):
+    """Start ``cmd`` from the repo's root, its standard output into the file ``log``."""
+    with open(log, "w") as out:
+        return subprocess.Popen(cmd, cwd=REPO, stdout=out, stderr=err, env=env)
+
+
+def _wait(proc, log, label, rc=0, timeout=600):
+    """Wait for a child of :func:`_child`; fail with its log's tail unless it exited ``rc``."""
+    try:
+        got = proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        got = "killed at its time limit"
+    if got != rc:
+        with open(log) as f:
+            print(f.read()[-4000:], file=sys.stderr)
+        fail(f"{label}: exited {got}, expected {rc}")
+
+
+def phase_tools(seed, card):
+    """Phase 14: the port's training-run tools at cut sizes -> each leg's launches.
+    Processes of their own, started with Popen and waited for once: the sanity
+    harness's CPU draws (the witness of the card's), the soak's legs (through the
+    tool's command line) and the capacity trial (``--one``), each counting its own
+    launches, beside this process's legs (the sanity draws and the token filter
+    on the card, the bf16 miss, the selection leg); the flagship tower is timed first,
+    with the card to itself."""
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from radzero_torch.models.radzero import init_radzero
+    from radzero_torch.models.vit import vit_forward
+    from radzero_torch.tools import probe_tower_cache_capacity as cap
+    from radzero_torch.tools import sanity_train as st
+    from radzero_torch.tools import soak_train as soak
+    from radzero_torch.tools import token_filter_study as tfs
+    from radzero_torch.utils.tree import tree_unflatten
+
+    t_phase = time.perf_counter()
+    print(f"14. training-run tools ({card}); cuts: sanity {TOOLS_SANITY} (the JAX tool's 150 "
+          f"steps, 1 head for the kernels' head width 64) at {SANITY_DRAWS} draws of the "
+          f"weights, each against the CPU's from the same weights; token filter ratios "
+          f"{TOOLS_RATIOS} (150 steps), the flagship tower at 64 x 518 bf16; soak {TOOLS_SOAK} "
+          f"(cut from 2000 records and 500 steps: 5 steps an epoch), selection "
+          f"{TOOLS_SELECTION} (cut from 512 / 128 records, 24 epochs, patience 6; the 20-epoch "
+          f"floor becomes the budget); capacity one --one trial at {TOOLS_CAPACITY} records "
+          f"(cut from the search); the bf16 miss at {MISS_SHAPE}")
+    legs = {}
+
+    # (b) the flagship tower first, with the card to itself
+    t0 = time.perf_counter()
+    fcfg, fparams, pv = tfs.flagship_tower("cuda", seed=seed)
+    with torch.no_grad():
+        plain = vit_forward(fparams, fcfg, pv, dtype=torch.bfloat16, impl="fused")
+    reset_counters()
+    at0 = tfs.tower_at(fcfg, fparams, pv, 0.0)
+    legs["token_filter_tower"] = check_launches("14b flagship tower at ratio 0",
+                                                read_counters(), tower_launches(fcfg))
+    _gate(torch.equal(at0, plain), "14b: the tower at ratio 0 differs from the unfiltered one")
+    print("  14b ratio 0: bit-equal to the unfiltered tower")
+    speed = {}
+    for ratio in TOOLS_RATIOS:
+        out = tfs.tower_at(fcfg, fparams, pv, ratio)
+        kept = int((out.abs().amax(-1) > 0).sum(1).max())
+        keep = 1 + max(1, int(round((fcfg.seq_len - 1) * (1.0 - ratio))))
+        _gate(torch.isfinite(out).all().item() and kept == keep,
+              f"14b: ratio {ratio} kept {kept} rows, {keep} expected")
+        speed[ratio] = round(tfs.imgs_per_sec(fcfg, fparams, pv, ratio), 1)
+    print(f"  14b the flagship tower, {time.perf_counter() - t0:.1f} s: images/s by ratio {speed}")
+    del plain, at0, pv, fparams, out
+    torch.cuda.empty_cache()
+
+    tmp = tempfile.mkdtemp()
+    children = []
+
+    def start(label, cmd, log, **kw):
+        children.append(_child(cmd, f"{tmp}/{log}", **kw))
+        return children[-1], f"{tmp}/{log}", label
+
+    try:
+        # the children: the sanity harness on the CPU, the soak's control and killed legs
+        t_soak = time.perf_counter()
+        soak_out = f"{tmp}/soak"
+        print(f"  14c disk free under {tmp}: {shutil.disk_usage(tmp).free / 1e9:.1f} GB")
+        for leg in soak.LEGS:
+            os.makedirs(soak.leg_dir(soak_out, leg), exist_ok=True)
+        shape = {"device": "cuda", "n_records": TOOLS_SOAK["records"], "img": TOOLS_SOAK["img"],
+                 "batch": TOOLS_SOAK["batch"]}
+        cpu_draws = start("14a the sanity draws on the CPU",
+                          [sys.executable, str(REPO / "chip_smoke.py"), "--sanity-cpu",
+                           f"{tmp}/sanity_cpu.json"], "sanity_cpu.log",
+                          env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+        soak_legs = {leg: start(f"14c soak {leg} leg", soak.leg_command(
+            leg, soak_out, TOOLS_SOAK["steps"], TOOLS_SOAK["kill_at"], **shape), f"{leg}.log")
+            for leg in ("control", "killed")}
+
+        # (a) the sanity harness on the card, at SANITY_DRAWS draws of the initial weights
+        t0 = time.perf_counter()
+        cfg = st.sanity_config(TOOLS_SANITY["heads"])
+        tok, draws = st.tokenizer(), []
+        for k in range(SANITY_DRAWS):
+            rng = np.random.default_rng(0)
+            reset_counters()
+            trainable, frozen, hist = st.train(
+                cfg, st.init_params(cfg, "cuda", seed=k), rng, tok,
+                steps=TOOLS_SANITY["steps"], batch=TOOLS_SANITY["batch"], lr=TOOLS_SANITY["lr"],
+                device="cuda")
+            legs[f"sanity_train_{k}"] = check_launches(
+                f"14a sanity draw {k}, 150 steps", read_counters(),
+                _times(default_step_launches(cfg), TOOLS_SANITY["steps"]))
+            imgs, labels = st.eval_set(rng)
+            reset_counters()
+            params = {**trainable, **frozen}
+            retrieval, pointing, logits, maps = st.score(params, cfg, imgs, labels, tok, "cuda")
+            legs[f"sanity_eval_{k}"] = check_launches(f"14a sanity draw {k} eval",
+                                                      read_counters(), logits_launches(cfg))
+            _gate(np.isfinite(hist).all() and logits.shape == (64, 4)
+                  and maps.shape == (64, 4, 16) and np.isfinite(logits).all()
+                  and np.isfinite(maps).all(), f"14a draw {k}: non-finite output")
+            err, mae, _, _ = _logits_witness(f"14a draw {k}", params, cfg, imgs, labels, tok,
+                                             logits, maps, st.QUADRANTS)
+            draws.append({"losses": hist, "retrieval_accuracy": retrieval,
+                          "pointing_accuracy": pointing, "logits_err": err, "map_mae": mae})
+        print(f"  14a sanity on the card, {time.perf_counter() - t0:.1f} s")
+
+        # the soak's killed leg has died by now: its resume, and the capacity trial
+        _wait(*soak_legs["killed"], rc=soak.LEG_RC["killed"])
+        soak_legs["resumed"] = start("14c soak resumed leg", soak.leg_command(
+            "resumed", soak_out, TOOLS_SOAK["steps"], TOOLS_SOAK["kill_at"], **shape),
+            "resumed.log")
+        with open(f"{tmp}/capacity.err", "w") as err_log:
+            capacity = start("14d capacity trial", cap.trial_command(TOOLS_CAPACITY),
+                             "capacity.out", err=err_log)
+
+        # (b) the token filter study's table, its eval logits against the CPU's
+        t0 = time.perf_counter()
+        reset_counters()
+        table, outs, tparams = tfs.accuracy_table(
+            st.init_params(cfg, "cuda"), cfg, TOOLS_RATIOS, "cuda", steps=TOOLS_SANITY["steps"],
+            batch=TOOLS_SANITY["batch"])
+        legs["token_filter_table"] = check_launches(
+            "14b token filter table", read_counters(),
+            _plus(_times(default_step_launches(cfg), TOOLS_SANITY["steps"]),
+                  _times(logits_launches(cfg), len(TOOLS_RATIOS))))
+        rng = np.random.default_rng(0)  # the table's eval set, drawn as accuracy_table draws it
+        for _ in range(TOOLS_SANITY["steps"]):
+            st.batch_of(rng, tok, TOOLS_SANITY["batch"], tfs.make_example)
+        imgs, labels = st.eval_set(rng, make=tfs.make_example)
+        for ratio in TOOLS_RATIOS:
+            _gate(all(np.isfinite(a).all() for a in outs[ratio]),
+                  f"14b: ratio {ratio} non-finite")
+            err, mae, retrieval, pointing = _logits_witness(
+                f"14b ratio {ratio}", tparams, tfs.filtered(cfg, ratio, 1), imgs, labels, tok,
+                *outs[ratio], tfs.QUADRANTS)
+            row = table[f"ratio_{ratio}"]
+            print(f"  14b ratio {ratio}: the card's eval logits against the CPU's of the same "
+                  f"weights max_abs_err {err:.3e}, map MAE {mae:.3e}; retrieval / pointing "
+                  f"{row['retrieval_accuracy']} / {row['pointing_accuracy']} (the CPU's from "
+                  f"these weights {retrieval} / {pointing})")
+            row["flagship_tower_imgs_per_sec"] = speed[ratio]
+        print(f"  14b token filter, {time.perf_counter() - t0:.1f} s: {json.dumps(table)}")
+        del tparams
+
+        # the bf16 step's miss of its fp32 gradient, leaf by leaf (tests/jax_bf16_miss.py:
+        # the JAX package's at the same shape and batch)
+        t0 = time.perf_counter()
+        mcfg = dataclasses.replace(_train_cfg(), vision=dataclasses.replace(
+            _train_cfg().vision, img_size=MISS_SHAPE["img"]))
+        mparams = init_radzero(torch.Generator(device="cuda").manual_seed(seed), mcfg)
+        batch = {k: torch.as_tensor(v, device="cuda").long() if v.dtype == np.int32
+                 else torch.as_tensor(v, device="cuda")
+                 for k, v in miss_batch(seed, mcfg.text.vocab_size).items()}
+        modules = ("align_transformer", "text_model", "loss_fns")
+        reset_counters()
+        trees = {}
+        for dname, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+            _, grads = _grads(mparams, modules, mcfg, batch, dtype)
+            trees[dname] = tree_unflatten([g.float().cpu().numpy() for g in grads],
+                                          {k: mparams[k] for k in modules})
+        # a gradient of forward_train launches what phase 6's default step does
+        legs["bf16_miss"] = check_launches("14 bf16 miss, two gradients", read_counters(),
+                                           _times(default_step_launches(mcfg), 2))
+        summary = miss_summary(grad_misses(trees["bf16"], trees["fp32"]))
+        print(f"  14 bf16 gradient's miss of fp32 at {MISS_SHAPE}, port on the card, "
+              f"{time.perf_counter() - t0:.1f} s: {json.dumps(summary)}")
+        del mparams, batch, trees
+        torch.cuda.empty_cache()
+
+        # (c) the selection leg, in this process; its eval loss must fall on the learnable data
+        steps_epoch = TOOLS_SOAK["records"] // TOOLS_SOAK["batch"]
+        tcfg = soak.model_config()
+        step = cached_remat_step_launches(tcfg)
+        t0 = time.perf_counter()
+        reset_counters()
+        try:
+            sel = soak.run_selection(f"{tmp}/selection", epochs=TOOLS_SELECTION["epochs"],
+                                     device="cuda", n_train=TOOLS_SELECTION["n_train"],
+                                     n_eval=TOOLS_SELECTION["n_eval"],
+                                     patience=TOOLS_SELECTION["patience"])
+        except AssertionError as e:
+            fail(f"14c selection: {e}")
+        per_epoch = TOOLS_SELECTION["n_train"] // TOOLS_SOAK["batch"]
+        evals = TOOLS_SELECTION["n_eval"] // TOOLS_SOAK["batch"]
+        legs["soak_selection"] = check_launches(
+            f"14c selection ({sel['epochs_run']} epochs)", read_counters(),
+            _plus(_times(step, per_epoch * sel["epochs_run"]),
+                  _times(tower_launches(tcfg.vision), per_epoch),
+                  _times(eval_step_launches(tcfg), evals * sel["epochs_run"])))
+        curve = sel["eval_loss_curve"]
+        print(f"  14c selection, {time.perf_counter() - t0:.1f} s: {json.dumps(sel)}; gate: the "
+              f"last eval loss below the first ({curve[0]} -> {curve[-1]})")
+        _gate(curve[-1] < curve[0], f"14c selection: the eval loss did not fall {curve}")
+
+        # (a) the witness: each card draw against the CPU's from the same weights and batches,
+        # then the learning gates
+        _wait(*cpu_draws)
+        with open(f"{tmp}/sanity_cpu.json") as f:
+            cpu = json.load(f)
+        print(f"  14a the CPU's draws (a child process, {SANITY_CPU_THREADS} thread) took "
+              f"{cpu['wall_s']:.1f} s beside the card's legs")
+        cpu = cpu["draws"]
+        n = SANITY_WITNESS_STEPS
+        for k, (c, p) in enumerate(zip(draws, cpu)):
+            a, b = np.asarray(c["losses"]), np.asarray(p["losses"])
+            rel = np.abs(a - b) / np.abs(b)
+            print(f"  14a sanity draw {k}: card {json.dumps(_sanity_rec(c))}; CPU (the plain "
+                  f"twins, the same weights and batches) {json.dumps(_sanity_rec(p))}; the "
+                  f"losses' max rel delta {rel[:n].max():.3e} over the first {n} steps (gate "
+                  f"{STEP_RTOL:g}), {rel.max():.3e} over all {len(a)}; the card's eval logits "
+                  f"against the CPU's of the card's weights: max_abs_err {c['logits_err']:.3e}, "
+                  f"map MAE {c['map_mae']:.3e} (the compute_logits gate)")
+            _gate(np.allclose(a[:n], b[:n], rtol=STEP_RTOL, atol=0.0),
+                  f"14a draw {k}: the first {n} losses differ from the CPU's (max rel delta "
+                  f"{rel[:n].max():.3e})")
+        for k, c in enumerate(draws):
+            _gate(c["losses"][-1] < c["losses"][0],
+                  f"14a draw {k}: the loss did not fall ({c['losses'][0]} -> {c['losses'][-1]})")
+        means = {key: float(np.mean([d[key] for d in draws])) for key in SANITY_GATES}
+        cpu_means = {key: float(np.mean([d[key] for d in cpu])) for key in SANITY_GATES}
+        print(f"  14a sanity: means over {SANITY_DRAWS} draws, card {json.dumps(means)}, CPU "
+              f"{json.dumps(cpu_means)}; gates, after the witness: each draw's loss falls, each "
+              f"mean on the card above {json.dumps(SANITY_GATES)}")
+        for key, floor in SANITY_GATES.items():
+            _gate(means[key] > floor, f"14a: the mean {key} {means[key]} is not above {floor}")
+
+        # (c) the soak's gates: its legs' exits and assemble's resume gate; its loss-trend
+        # gate needs the full length (on the noise data the epoch-mean loss stays flat for
+        # ~220 steps, PERF.md §6), so 15 steps print the trend and the selection leg's eval
+        # loss above is the card's falling-loss gate
+        for leg in ("control", "resumed"):
+            _wait(*soak_legs[leg], rc=soak.LEG_RC[leg])
+        try:
+            max_rel, control = soak.resume_delta(soak_out, TOOLS_SOAK["kill_at"])
+        except AssertionError as e:
+            fail(f"14c soak: {e}")
+        losses = [control[k]["loss"] for k in sorted(control)]
+        records = soak.leg_records(soak_out)
+        walls = {k: (round(v["wall_s"], 1), v["first_step_wall_s"]) for k, v in records.items()}
+        print(f"  14c soak, {time.perf_counter() - t_soak:.1f} s from its start: resume max rel "
+              f"delta {max_rel!r} (gate 1e-5) over {len(losses)} steps; the control's loss "
+              f"{losses[0]!r} -> {losses[-1]!r}; guards green; each leg's wall s and its first "
+              f"step's (with the set-up) {walls}")
+        _gate(np.isfinite(losses).all(), "14c soak: a non-finite loss")
+        for leg, steps in (("control", TOOLS_SOAK["steps"]), ("killed", TOOLS_SOAK["kill_at"]),
+                           ("resumed", TOOLS_SOAK["steps"] - steps_epoch)):
+            legs[f"soak_{leg}"] = check_launches(
+                f"14c soak {leg} leg ({steps} steps)", records[leg]["launches"],
+                _plus(_times(step, steps), _times(tower_launches(tcfg.vision), steps_epoch)))
+
+        proc, log, label = capacity
+        proc.wait(timeout=600)
+        with open(log) as f:
+            trial = cap.trial_record(f.read(), proc.returncode, TOOLS_CAPACITY)
+        if not trial["ok"]:
+            with open(f"{tmp}/capacity.err") as f:
+                print(f.read()[-4000:], file=sys.stderr)
+            fail(f"14d: the capacity trial at {TOOLS_CAPACITY} records failed: {trial}")
+        legs["capacity_trial"] = check_launches(
+            "14d capacity trial", trial["launches"],
+            _plus(tower_launches(tcfg.vision), cached_remat_step_launches(tcfg)))
+        print(f"  14d capacity trial, {time.perf_counter() - t_soak:.1f} s from the soak's start: "
+              f"{TOOLS_CAPACITY} records, store {trial['store_bytes'] / 1e9:.2f} GB, peak "
+              f"{trial['peak_bytes'] / 2**30:.2f} GiB, free at its start "
+              f"{trial['free_bytes_at_start'] / 2**30:.2f} GiB (beside this process and the "
+              f"soak's resumed leg), loss {trial['loss']:.4f}")
+    finally:
+        for proc in children:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"  phase 14: {time.perf_counter() - t_phase:.1f} s")
+    return legs
+
+
+def _sanity_rec(d):
+    return {"first_loss": round(d["losses"][0], 4), "last_loss": round(d["losses"][-1], 4),
+            "retrieval_accuracy": d["retrieval_accuracy"],
+            "pointing_accuracy": d["pointing_accuracy"]}
+
+
 def _clone(tree):
     if isinstance(tree, dict):
         return {k: _clone(v) for k, v in tree.items()}
@@ -7395,6 +7909,8 @@ def main() -> int:
         return tp_rank(sys.argv[2:])
     if sys.argv[1:2] == ["--tp-paths-rank"]:
         return tp_paths_rank(sys.argv[2:])
+    if sys.argv[1:2] == ["--sanity-cpu"]:
+        return sanity_cpu(sys.argv[2:])
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
@@ -7458,6 +7974,7 @@ def main() -> int:
     distributed = phase_distributed(args.seed, card, params, training, history, torchrun_leg)
     alt, alt_rows = phase_encoders(args.seed, card)
     tensor_parallel, tp_rows_, tp_paths_, tp_alt_rows_ = phase_tensor_parallel(args.seed, card)
+    tools = phase_tools(args.seed, card)
 
     meta = {
         "K1": ("fused_preattn", "radzero_torch/ops/csrc/gemm_sm90.cu",
@@ -7501,8 +8018,11 @@ def main() -> int:
     # of phase 11's leg B, phase 12's: SAM's serving batch (leg A), the BiomedCLIP +
     # BERT scorer run (leg B) and the SAM-tower training step (leg D), and phase 13's
     # four calls over the model group on rank 0 (compute_logits and forward_train's
-    # loss in fp32 and bf16) and its training steps over the group (leg d); each path
-    # was driven with every count at 0 and read right after
+    # loss in fp32 and bf16) and its training steps over the group (leg d), and phase
+    # 14's legs (launches_tools: the sanity harness's steps and eval, the token filter's
+    # table and flagship tower, the bf16 miss's two gradients, the soak's three processes
+    # and its selection leg, the capacity trial's process); each path was driven with
+    # every count at 0 and read right after
     from radzero_torch.ops import registry
 
     kernels = [
@@ -7511,7 +8031,8 @@ def main() -> int:
          "launches": serving[name] + server[name] + exported[name] + scoring[name]
          + evaluation[name] + training[name] + flash_step[name] + remat_step[name]
          + trainer_step[name] + checkpoint[name] + cli[name] + viz[name] + distributed[name]
-         + sum(a[name] for a in alt.values()) + tensor_parallel[name] + tp_paths_[name],
+         + sum(a[name] for a in alt.values()) + tensor_parallel[name] + tp_paths_[name]
+         + sum(leg[name] for leg in tools.values()),
          "launches_serving": serving[name], "launches_server": server[name],
          "launches_export": exported[name], "launches_scorer": scoring[name],
          "launches_eval": evaluation[name],
@@ -7523,6 +8044,7 @@ def main() -> int:
          "launches_viz": viz[name], "launches_distributed_step": distributed[name],
          **{f"launches_{path}": a[name] for path, a in alt.items()},
          "launches_tensor_parallel": tensor_parallel[name], "launches_tp_paths": tp_paths_[name],
+         "launches_tools": {leg: n[name] for leg, n in tools.items()},
          **rows[k]}
         for k, (name, src, rep) in meta.items()
     ]

@@ -48,6 +48,9 @@ GROUPS = {
     "checkpoint": ["radzero_torch.utils.safetensors_io", "radzero_torch.tools.convert_checkpoint",
                    "radzero_torch.tools.run_real_checkpoint", "radzero_torch.data.tokenizer"],
     "smoke": ["chip_smoke"],
+    "training_tools": ["radzero_torch.tools." + m for m in
+                       ("dedup_calibration", "sanity_train", "token_filter_study", "soak_train",
+                        "probe_tower_cache_capacity")],
     "config": ["radzero_torch.config", "radzero_torch.config.config",
                "radzero_torch.utils.experiment", "radzero_torch.train.lora"],
     "cli": ["radzero_torch.cli", "radzero_torch.cli.run", "radzero_torch.cli.preprocess",
