@@ -116,10 +116,10 @@ Phases, in order; any failure exits non-zero:
 5a. the eval harness: Inference(cls=[OpenI, PadChest, ChestXray14, Chexpert,
    ChestXDet10], det=[ChestXDet10, MS-CXR], seg=[SIIM, RSNA]) on
    ZeroShotScorer(batch_size=64, fp32) at the flagship configuration, over a
-   synthetic eval root in a temporary directory (32 studies a dataset:
+   synthetic eval root in a temporary directory (EVAL_N, 24 studies a dataset:
    grayscale PNGs of 2000-3000 px, SIIM as 1024 x 1024 8-bit DICOMs); no task
    None and no logged error, every metric finite and in [0, 1], MS-CXR 1.0,
-   32 x P similarities a CSV, the launches of the 9 batches, a second run's
+   24 x P similarities a CSV, the launches of the 9 batches, a second run's
    result.json files byte-identical, Chexpert's similarities against
    compute_logits(eager=True) with the repo's gate, every upsampled map on
    the card against the CPU within 1e-5 (grounding points equal but for
@@ -248,7 +248,7 @@ Phases, in order; any failure exits non-zero:
    shared card measures no interconnect.
 
 12. the alternate encoders (models/encoders.py; no new kernel: the towers run
-   on plain torch ops, as the JAX towers on plain XLA), ~10-25 s: leg A, SAM
+   on plain torch ops, as the JAX towers on plain XLA), ~40-45 s: leg A, SAM
    ViT-B (facebook/sam-vit-base's widths at 1024 px: 64 x 64 patches, windows
    of 14 padded 64 -> 70, global layers 2, 5, 8, 11; 4097 tokens with the
    pooled slot) with the flagship's 2 align layers and MPNet behind
@@ -271,8 +271,18 @@ Phases, in order; any failure exits non-zero:
    frozen at 8 images x 64 sentences x 32 tokens in bf16, from make_tower_fn's
    tokens bit-equal (loss and every gradient leaf) to the step running the
    tower, launches those of the default step but the tower's (K1-K3 2, K4 12,
-   K6-K8 2, K9 12, K10-K12 1). Each leg's wall time and peak memory, and legs A
-   and B's card ms a batch, beside the card line.
+   K6-K8 2, K9 12, K10-K12 1). Leg B's bundle: export_zero_shot in bf16 at 8 x
+   14 x 64, loaded by load_zero_shot in this process, its logits and maps
+   bit-equal to the live compute_logits, its radzero:: op calls and launches
+   the live call's (K1-K3 2, K5 1); its export seconds and bytes. Leg D's remat
+   step (forward_train(remat=True)) bit-equal to the step without remat, its
+   launches the step's with K1 +2 and K4 +12 (phase 6's formula); LoRA on
+   LORA_TARGETS (the JAX rule: the align layers' and MPNet's q and v, none
+   under SAM's vision_model/layers), the merged loss at init bit-equal to the
+   base, the adapter gradients in fp32 at 2 images against the eager route
+   under phase 6's per-leaf gate, with the step's launches, and a second bf16
+   backward with the same bits. Each leg's wall time and peak memory, and legs
+   A and B's card ms a batch, beside the card line.
 
 13. the model axis (parallel/tensor_parallel.py, tp=; runs last), ~2-3 minutes: a, the
    row kernel of K3 / K4 over a model group (csrc/tp_rows.cu, tp_rows_kernel) in its
@@ -311,9 +321,10 @@ Phases, in order; any failure exits non-zero:
    fp32 and bf16: e1, SAM ViT-B at 1024 px (8 images x 14 prompts; its MLP split, its
    attention whole) through compute_logits; e2, BiomedCLIP's ViT-B/16 at 224 px with a
    Bio_ClinicalBERT-sized BERT trainable, the gradient tree gathered whole and 3 steps;
-   e3, the flagship under remat with its align layers on "packed" and on "flash"
+   e3, the flagship at E_FLAG_LAYERS (6) layers of its vision tower and of MPNet, at
+   its widths, under remat with its align layers on "packed" and on "flash"
    (save_attn), 3 steps each at 2 images x 16 sentences, the first bit-equal to the step
-   without remat; e4, RadZeroTrainer on the flagship with the tower cache (device
+   without remat; e4, RadZeroTrainer on that flagship with the tower cache (device
    backing), 2 epochs of 4 records, cached bit-equal to uncached; each against one
    process run in rank 0's own process (fp32 within tp_fp32_gate / tp_grad_gate, bf16
    within TP_BF16_FACTOR of one process's own miss, leaf by leaf; the step losses at rtol
@@ -2323,7 +2334,10 @@ def phase_scorer(seed, card, params):
     return launches
 
 
-EVAL_N = 32                       # studies a dataset, one scorer batch (64 doubles the phase)
+# studies a dataset, one scorer batch: 32 until phase 12's bundle, remat and LoRA legs
+# joined the script (64 doubles the phase); 24 is the synthetic sets' least (at 16 the
+# reference's long-tail split of OpenI has no tail class, and classification fails)
+EVAL_N = 24
 EVAL_CLS = ["OpenI", "PadChest", "ChestXray14", "Chexpert", "ChestXDet10"]
 EVAL_DET = ["ChestXDet10", "MS-CXR"]
 EVAL_SEG = ["SIIM", "RSNA"]
@@ -3842,6 +3856,43 @@ def phase_remat(seed, card, params):
 LORA_TARGETS = ["attn/q", "attn/v"]  # tests/test_lora.py's
 
 
+def adapter_grads(params, lora, loss_of):
+    """(loss, the gradient of each adapter's a and b in the adapters' order) of
+    ``loss_of`` on ``params`` merged with ``lora`` (radzero_torch/train/lora.py)."""
+    import torch
+    from radzero_torch.train.lora import lora_trainable, merge_lora, with_trainable
+
+    tr = lora_trainable(lora)
+    leaves = [t for ab in tr["adapters"].values() for t in (ab["a"], ab["b"])]
+    for t in leaves:
+        t.requires_grad_(True)
+    try:
+        loss = loss_of(merge_lora(params, with_trainable(lora, tr)))
+        grads = torch.autograd.grad(loss, leaves)
+    finally:
+        for t in leaves:
+            t.requires_grad_(False)
+    return loss.detach(), list(grads)
+
+
+def lora_leaf_gate(label, lora, got, ref):
+    """Phase 6's per-leaf gate on adapter gradients: the kernel route's ``got``
+    against the eager route's ``ref``, max |got - ref| <= 2e-4 max |ref| + 1e-7 on
+    each a and b -> the worst share of the gate by module."""
+    import torch
+
+    names = [f"{k.split('/')[0]} {k.split('/')[-2]}.{n}"
+             for k in lora["adapters"] for n in ("a", "b")]
+    worst = {}
+    for name, x, y in zip(names, got, ref):
+        share = ((x - y).abs().max() / (2e-4 * y.abs().max() + 1e-7)).item()
+        worst[name.split()[0]] = max(worst.get(name.split()[0], 0.0), share)
+        if share > 1.0 or not bool(torch.isfinite(x).all()):
+            fail(f"{label}: adapter gradient {name} of the kernel route disagrees with the "
+                 f"eager route ({100 * share:.0f}% of the gate)")
+    return worst
+
+
 def phase_lora(seed, card, params):
     """6, the LoRA leg at full width: r 8, alpha 32 on attn/q and attn/v of the three
     towers (radzero_torch/train/lora.py). At init the merged forward is bit-equal to the
@@ -3858,9 +3909,7 @@ def phase_lora(seed, card, params):
     )
     from radzero_torch.models.radzero import forward_train
     from radzero_torch.models.vit import vit_forward
-    from radzero_torch.train.lora import (
-        init_lora, load_adapter, lora_trainable, merge_lora, save_adapter, with_trainable,
-    )
+    from radzero_torch.train.lora import init_lora, load_adapter, merge_lora, save_adapter
 
     t_phase = time.perf_counter()
     cfg = RadZeroConfig(vision=ViTConfig(), align=AlignConfig(), text=TextConfig(),
@@ -3888,22 +3937,10 @@ def phase_lora(seed, card, params):
     for ab in lora["adapters"].values():  # B off zero: A's gradient is not zero either
         ab["b"].copy_(0.01 * torch.randn(ab["b"].shape, generator=gen, device="cuda"))
 
-    def adapter_grads(loss_of):
-        tr = lora_trainable(lora)
-        leaves = [t for ab in tr["adapters"].values() for t in (ab["a"], ab["b"])]
-        for t in leaves:
-            t.requires_grad_(True)
-        try:
-            loss = loss_of(merge_lora(params, with_trainable(lora, tr)))
-            grads = torch.autograd.grad(loss, leaves)
-        finally:
-            for t in leaves:
-                t.requires_grad_(False)
-        return loss.detach(), list(grads)
-
     small = train_batch(seed + 7, 2, 16, cfg.text.vocab_size, torch.float32)
     reset_counters()
-    lk, gk = adapter_grads(lambda p: forward_train(p, cfg, small)["losses"]["loss"])
+    lk, gk = adapter_grads(params, lora,
+                           lambda p: forward_train(p, cfg, small)["losses"]["loss"])
     counts = read_counters()
     n_tower, n_align = cfg.vision.num_hidden_layers, cfg.align.num_hidden_layers
     want = {"fused_preattn_bwd": n_tower + n_align,
@@ -3920,16 +3957,8 @@ def phase_lora(seed, card, params):
         tokens = vit_forward(p["vision_model"], cfg.vision, small["pixel_values"], impl="eager")
         return forward_train(p, cfg_eager, {**small, "tower_tokens": tokens})["losses"]["loss"]
 
-    le, ge = adapter_grads(eager_loss)
-    names = [f"{k.split('/')[0]} {k.split('/')[-2]}.{n}"
-             for k in lora["adapters"] for n in ("a", "b")]
-    worst = {}
-    for name, x, y in zip(names, gk, ge):
-        share = ((x - y).abs().max() / (2e-4 * y.abs().max() + 1e-7)).item()
-        worst[name.split()[0]] = max(worst.get(name.split()[0], 0.0), share)
-        if share > 1.0 or not bool(torch.isfinite(x).all()):
-            fail(f"lora: adapter gradient {name} of the kernel route disagrees with the eager "
-                 f"route ({100 * share:.0f}% of the gate)")
+    le, ge = adapter_grads(params, lora, eager_loss)
+    worst = lora_leaf_gate("lora", lora, gk, ge)
     print(f"  fp32, 2 images: loss kernels {lk.item():.7f} vs eager {le.item():.7f}; worst "
           f"adapter gradient entry by tower, share of the gate 2e-4 max|g| + 1e-7: "
           + ", ".join(f"{k} {100 * v:.1f}%" for k, v in worst.items()))
@@ -3939,7 +3968,7 @@ def phase_lora(seed, card, params):
     def bf16_loss(p):
         return forward_train(p, cfg, batch8, dtype=torch.bfloat16)["losses"]["loss"]
 
-    first, second = adapter_grads(bf16_loss), adapter_grads(bf16_loss)
+    first, second = (adapter_grads(params, lora, bf16_loss) for _ in range(2))
     same = torch.equal(first[0], second[0]) and all(
         torch.equal(x, y) for x, y in zip(first[1], second[1]))
     print(f"  bf16, 8 images: loss {first[0].item():.5f}, a second backward "
@@ -5320,21 +5349,28 @@ def _alt_kernel_rows(seed):
 
 def phase_encoders(seed, card):
     """12: the alternate encoders at their published widths (legs A-D above) -> (the
-    launches of leg A's batch, leg B's scorer run and leg D's step, the rows of the
-    kernels at the new shapes). The weights come from seeded generators through the
-    port's init_* (SAM's zero position tables drawn too)."""
+    launches of leg A's batch, leg B's scorer run and its bundle's program run, leg D's
+    step, remat step and LoRA steps, the rows of the kernels at the new shapes). The
+    weights come from seeded generators through the port's init_* (SAM's zero position
+    tables drawn too)."""
+    import os
+    import tempfile
+
     import numpy as np
     import torch
     from radzero_torch.data.processing import BlipStyleImageProcessor
     from radzero_torch.data.tokenizer import WhitespaceHashTokenizer
+    from radzero_torch.eval.export import export_zero_shot, load_zero_shot
     from radzero_torch.eval.scorer import ZeroShotScorer
-    from radzero_torch.eval.serving import ServingEngine, cast_params
+    from radzero_torch.eval.serving import ServingEngine, cast_params, serving_params
     from radzero_torch.models import clip_text, clip_vit, mae_vit, sam_vit
     from radzero_torch.models.configuration import (
         AlignConfig, LossConfig, RadZeroConfig, TextConfig,
     )
-    from radzero_torch.models.radzero import compute_logits, init_radzero
+    from radzero_torch.models.radzero import compute_logits, forward_train, init_radzero
+    from radzero_torch.ops import registry
     from radzero_torch.ops.layers import normalize_pixels
+    from radzero_torch.train.lora import init_lora, merge_lora
     from radzero_torch.train.tower_cache import make_tower_fn
 
     t_phase = time.perf_counter()
@@ -5457,7 +5493,54 @@ def phase_encoders(seed, card):
         run_b = lambda: compute_logits(scorer.params, cfg_b, pv, ids_b, mask_b,  # noqa: E731
                                        dtype=torch.bfloat16)
         ms_b, busy_b = median_ms(run_b, reps=10), device_idle(run_b)
-    del scorer, kern, ref, pv
+    del scorer, kern, ref
+
+    # leg B's bundle (phase 4b's check at this pair of towers): export_zero_shot in bf16 at
+    # 8 x 14, loaded by load_zero_shot in this process; the program's logits and maps
+    # bit-equal to the live compute_logits on the same inputs, its radzero:: op calls and
+    # its launches the live call's (K1-K3 2, K5 1, no K4: BERT runs plain ops)
+    t_bundle = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        bundle = os.path.join(tmp, "bundle")
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        export_zero_shot(params_b, cfg_b, bundle, batch_size=8, n_prompts=N,
+                         max_tokens=ids_b.shape[1], dtype=torch.bfloat16, device="cuda")
+        export_s = time.perf_counter() - t1
+        nbytes = sum(os.path.getsize(os.path.join(bundle, f)) for f in os.listdir(bundle))
+        runner, _ = load_zero_shot(bundle)
+        live_params = serving_params(params_b, cfg_b, torch.bfloat16, torch.device("cuda"),
+                                     cfg_b.vision.img_size)
+        with torch.inference_mode():
+            reset_counters()
+            live = compute_logits(live_params, cfg_b, pv, ids_b, mask_b, dtype=torch.bfloat16)
+            torch.cuda.synchronize()
+            live_launches = read_counters()
+        reset_counters()
+        registry.reset_calls()
+        logits_p, maps_p = runner(pv, ids_b, mask_b)
+        torch.cuda.synchronize()
+        launches_export = read_counters()
+        calls = {k: v for k, v in registry.calls.items() if v}
+        same = (torch.equal(logits_p, live["logits"])
+                and torch.equal(maps_p, live["similarity_scores"]))
+        err = (logits_p.float() - live["logits"].float()).abs().max().item()
+        del runner, live_params, live, logits_p, maps_p
+    expect_export = expected(fused_preattn=n_align, flash_attention_packed=n_align,
+                             fused_postattn=n_align, vlcabs_fused=1)
+    print(f"  leg B bundle: export {export_s:.2f} s, {nbytes} bytes ({nbytes / 2**20:.1f} MiB) "
+          f"on {card}; the loaded program's logits and maps against the live compute_logits "
+          f"bf16: {'bit-equal' if same else f'DIFFER (logits max_abs_err {err:.3e})'}; "
+          f"launches of one run {launches_export}, radzero:: op calls {calls}")
+    if not same:
+        fail("leg B: the loaded bundle is not bit-equal to the live compute_logits")
+    if launches_export != expect_export or live_launches != expect_export:
+        fail(f"leg B bundle: launches {launches_export}, the live call's {live_launches}, "
+             f"expected {expect_export} (K1-K3 2, K5 1, no K4)")
+    if calls != {k: v for k, v in expect_export.items() if v}:
+        fail(f"leg B bundle: radzero:: op calls {calls} against the launches {expect_export}")
+    del pv
+    print(f"  leg B bundle: {time.perf_counter() - t_bundle:.1f} s in all on {card}")
     scorer = ZeroShotScorer(params_b, cfg_b, proc, tok_b, batch_size=2, dtype=torch.float32)
     logits, maps = scorer.score(studies[:2], lambda x: x, prompts, need_scores=True)
     pv = torch.as_tensor(proc(studies[:2])["pixel_values"], device="cuda")
@@ -5570,14 +5653,91 @@ def phase_encoders(seed, card):
         fail("leg D: the step from the cached tokens differs from the step with the tower")
     print(f"  the cached step is bit-equal to the in-step tower's: loss and {len(ga)} gradient "
           f"leaves")
+
+    t_new = time.perf_counter()
+    # (a) remat: the step under forward_train(remat=True), the align layers at their
+    # default "save_attn" (K1 reruns a layer) and MPNet's checkpointed layers (K4 reruns
+    # a layer): phase 6's formula, the frozen SAM tower on plain ops reruns nothing
+    reset_counters()
+    t1 = time.perf_counter()
+    remat = _grads(params_a, modules, cfg_d, batch, torch.bfloat16, remat=True)
+    torch.cuda.synchronize()
+    remat_s = time.perf_counter() - t1
+    launches_remat = read_counters()
+    expect_remat = expected(**{k: v + {"fused_preattn": n_align,
+                                       "fused_mpnet_post": n_text}.get(k, 0)
+                               for k, v in expect_d.items()})
+    _same_bits("leg D remat step vs the step without remat", (la, ga), remat)
+    print(f"  remat step {remat_s:.3f} s, launches {launches_remat}")
+    if launches_remat != expect_remat:
+        fail(f"leg D remat: expected launches {expect_remat} (the step's, K1 +{n_align} and "
+             f"K4 +{n_text} rerun)")
+    del remat
+
+    # (b) LoRA on LORA_TARGETS: the JAX rule walks dicts only, and keeps SAM's layers a
+    # list, so the adapters are the align layers' and MPNet's q and v, none under
+    # vision_model/layers. At init (B = 0) the merged loss is the base loss bit for bit;
+    # with B off zero, the adapter gradients in fp32 at 2 images against the eager route
+    # under phase 6's per-leaf gate; in bf16 at 8 images a second backward's bits
+    gen = torch.Generator(device="cuda").manual_seed(seed + 51)
+    lora = init_lora(gen, params_a, LORA_TARGETS, r=8, alpha=32)
+    want_keys = {f"{m}/layers/attn/{t}/kernel" for m in ("align_transformer", "text_model")
+                 for t in ("q", "v")}
+    print(f"  LoRA r 8, alpha 32 on {LORA_TARGETS}: adapters {sorted(lora['adapters'])}")
+    if set(lora["adapters"]) != want_keys:
+        fail(f"leg D LoRA: adapters {sorted(lora['adapters'])}, the JAX rule gives "
+             f"{sorted(want_keys)} (none under vision_model/layers)")
+
+    def lora_loss(c, b, dtype):
+        return lambda p: forward_train(p, c, b, dtype=dtype,
+                                       stop_vision_gradient=True)["losses"]["loss"]
+
+    with torch.no_grad():
+        base = lora_loss(cfg_d, batch, torch.bfloat16)(params_a)
+        merged = lora_loss(cfg_d, batch, torch.bfloat16)(merge_lora(params_a, lora))
+    print(f"  LoRA at init, bf16, {ALT_B} images: merged loss {merged.item():.7f} vs base "
+          f"{base.item():.7f}, {'bit-equal' if torch.equal(base, merged) else 'DIFFERENT'}")
+    if not torch.equal(base, merged):
+        fail("leg D LoRA: the merged step at init differs from the base step")
+    for ab in lora["adapters"].values():  # B off zero: A's gradient is not zero either
+        ab["b"].copy_(0.01 * torch.randn(ab["b"].shape, generator=gen, device="cuda"))
+    small = train_batch(seed + 7, 2, 16, cfg_d.text.vocab_size, torch.float32, size=side)
+    cfg_d_eager = dataclasses.replace(cfg_d, align=AlignConfig(attn_impl="xla"),
+                                      text=TextConfig(fuse_post=False),
+                                      loss=LossConfig(train_impl="xla"))
+    reset_counters()
+    lk, gk = adapter_grads(params_a, lora, lora_loss(cfg_d, small, torch.float32))
+    launches_lora = read_counters()
+    expect_lora = expect_d  # the merge changes weights, not the kernels that run
+    le, ge = adapter_grads(params_a, lora, lora_loss(cfg_d_eager, small, torch.float32))
+    worst = lora_leaf_gate("leg D LoRA", lora, gk, ge)
+    print(f"  LoRA fp32, 2 images: loss kernels {lk.item():.7f} vs eager {le.item():.7f}; "
+          f"worst adapter gradient entry by module, share of the gate 2e-4 max|g| + 1e-7: "
+          + ", ".join(f"{k} {100 * v:.1f}%" for k, v in worst.items())
+          + f"; the kernel route's launches {launches_lora}")
+    if abs(lk.item() - le.item()) > 1e-5 * abs(le.item()) + 1e-6:
+        fail("leg D LoRA: the kernel route's loss disagrees with the eager route's")
+    if launches_lora != expect_lora:
+        fail(f"leg D LoRA: the fp32 step's launches {launches_lora}, expected {expect_lora}")
+    first, second = (adapter_grads(params_a, lora, lora_loss(cfg_d, batch, torch.bfloat16))
+                     for _ in range(2))
+    same = torch.equal(first[0], second[0]) and all(
+        torch.equal(x, y) for x, y in zip(first[1], second[1]))
+    print(f"  LoRA bf16, {ALT_B} images: loss {first[0].item():.5f}, a second backward "
+          f"{'bit-equal' if same else 'DIFFERENT'}")
+    if not math.isfinite(first[0].item()) or not same:
+        fail("leg D LoRA: bf16 loss not finite, or a second backward gave other bits")
+    del lora, first, second, gk, ge, small
+    print(f"  leg D remat and LoRA: {time.perf_counter() - t_new:.1f} s in all on {card}")
     del steps, batch, cached, tokens, params_a, params_b
     wall_d, peak_d = time.perf_counter() - t0, torch.cuda.max_memory_allocated()
     torch.cuda.empty_cache()
     print(f"  leg D: {wall_d:.1f} s, peak memory {peak_d / 2**30:.2f} GiB on {card}")
     print(f"encoders: phase 12 in {time.perf_counter() - t_phase:.1f} s; worst share of the "
           f"bf16 gate {max(shares.values()):.3f} ({max(shares, key=shares.get)})")
-    return {"alt_serving": launches_a, "alt_scorer": launches_b,
-            "alt_training_step": launches_d}, rows
+    return {"alt_serving": launches_a, "alt_scorer": launches_b, "alt_export": launches_export,
+            "alt_training_step": launches_d, "alt_remat_step": launches_remat,
+            "alt_lora_step": launches_lora}, rows
 
 
 # ---------------------------------------------------------------------------
@@ -6624,9 +6784,12 @@ def tp_train_gates(res, tcfg):
 
 E_IMAGES, E_PROMPTS = 8, 14    # e1: SAM's serving batch (4097 tokens an image); e2's images
 E_SENTENCES = 64               # e2: sentences of T_LEN slots, 8 an image
-# e3 / e4: the flagship's steps at 2 images x 16 sentences, so that the tower's 24 sums
-# a step move 8.4 MB each through the host, not 16.8 (leg d runs 4 x 32)
+# e3 / e4: the flagship's steps at 2 images x 16 sentences, so that the tower's sums
+# a step move 8.4 MB each through the host, not 16.8 (leg d runs 4 x 32), and at
+# E_FLAG_LAYERS layers of its vision tower and of MPNet, each at the flagship's widths
+# (legs b-d hold the full depth; 12 until phase 12's bundle, remat and LoRA legs)
 E_FLAG_IMAGES, E_FLAG_SENTENCES = 2, 16
+E_FLAG_LAYERS = 6
 E_STEPS = 3
 E_RECORDS, E_BATCH = 4, 2      # e4: records of 518 px, 2 a step: 2 steps an epoch
 E_DRY_BATCH = 4                # e5: images a dry-run step (16 sentences of 32 tokens)
@@ -6639,17 +6802,25 @@ def _dt(name):
     return getattr(torch, dict(DTS)[name])
 
 
+def e_flag_cfg(cfg):
+    """``cfg`` with its vision tower and MPNet cut to E_FLAG_LAYERS layers (e3 / e4)."""
+    return dataclasses.replace(
+        cfg, vision=dataclasses.replace(cfg.vision, num_hidden_layers=E_FLAG_LAYERS),
+        text=dataclasses.replace(cfg.text, num_hidden_layers=E_FLAG_LAYERS))
+
+
 def tp_path_cfgs():
     """Leg e's configurations: SAM ViT-B at 1024 px with the flagship's align layers and
     MPNet (phase 12's leg A); BiomedCLIP's ViT-B/16 at 224 px with a Bio_ClinicalBERT-
     sized BERT (phase 12's leg B), the loss on K10-K12; phase 6's training
-    configuration with its align layers on "packed" and on "flash"."""
+    configuration at E_FLAG_LAYERS layers a tower with its align layers on "packed" and
+    on "flash"."""
     from radzero_torch.models import clip_vit, sam_vit
     from radzero_torch.models.configuration import (
         AlignConfig, LossConfig, RadZeroConfig, TextConfig,
     )
 
-    flag = _train_cfg()
+    flag = e_flag_cfg(_train_cfg())
     return {
         "sam": RadZeroConfig(vision=sam_vit.SamViTConfig(), text=TextConfig(),
                              align=AlignConfig(), loss=LossConfig()),
@@ -6669,12 +6840,16 @@ def tp_path_cfgs():
 def tp_path_params(name, seed):
     """Leg e's weights from ``seed`` on the card, fp32: SAM's and BiomedCLIP's as
     phase 12 draws them (SAM's position tables filled; BiomedCLIP in the timm layout,
-    a patch bias and no pre-LN), the flagship's as phase 4 draws them."""
+    a patch bias and no pre-LN), the flagship's as phase 4 draws them, its vision tower
+    and MPNet cut to their first E_FLAG_LAYERS layers."""
     import torch
     from radzero_torch.models.radzero import init_radzero
 
     if name in ("packed", "flash"):
-        return _flagship(seed)[0]
+        params = _flagship(seed)[0]
+        for tower in ("vision_model", "text_model"):
+            params[tower]["layers"] = params[tower]["layers"][:E_FLAG_LAYERS]
+        return params
     g = torch.Generator(device="cuda").manual_seed(seed + (0 if name == "sam" else 1))
     params = init_radzero(g, tp_path_cfgs()[name])
     vm = params["vision_model"]
@@ -6919,7 +7094,7 @@ def _tp_paths_seed(r, world, seed, tp, out):
             torch.cuda.empty_cache()
 
     # e4: RadZeroTrainer with the tower cache (device backing), uncached then cached
-    cfg = _train_cfg()
+    cfg = e_flag_cfg(_train_cfg())
     for dname, _ in DTS:
         runs = {}
         for name, cache in (("uncached", None), ("cached", TowerCache("device",
@@ -7102,9 +7277,9 @@ def _row_words(row):
             f"({100 * row['reduce_s'] / row['s']:.0f}%), SM clock {row['clock']}")
 
 
-# one pass of the flagship's frozen tower over a model group of two (12 layers)
-TOWER_TP_LAUNCHES = {"fused_preattn": 12, "flash_attention_packed": 12, "fused_postattn_tp": 12,
-                     "tp_rows": 24}
+# one pass of e4's frozen tower over a model group of two (E_FLAG_LAYERS layers)
+TOWER_TP_LAUNCHES = {"fused_preattn": E_FLAG_LAYERS, "flash_attention_packed": E_FLAG_LAYERS,
+                     "fused_postattn_tp": E_FLAG_LAYERS, "tp_rows": 2 * E_FLAG_LAYERS}
 
 
 def tp_paths(seeds, card):
@@ -7128,9 +7303,10 @@ def tp_paths(seeds, card):
           f"1024 px ({E_IMAGES} images x {E_PROMPTS} prompts, compute_logits, frozen); e2 "
           f"BiomedCLIP ViT-B/16 at 224 px + BERT 12 x 768 (vocab 28996) trainable, "
           f"{E_IMAGES} x {E_SENTENCES} sentences, the gradient tree and {E_STEPS} steps; e3 the "
-          f"flagship under remat save_attn, align on packed and on flash, {E_FLAG_IMAGES} x "
-          f"{E_FLAG_SENTENCES}, {E_STEPS} steps; e4 RadZeroTrainer with the tower cache "
-          f"(device), {E_RECORDS} records x 2 epochs; e5 the dry run")
+          f"flagship at {E_FLAG_LAYERS} layers a tower under remat save_attn, align on packed "
+          f"and on flash, {E_FLAG_IMAGES} x {E_FLAG_SENTENCES}, {E_STEPS} steps; e4 "
+          f"RadZeroTrainer with the tower cache (device) at the same depth, {E_RECORDS} "
+          f"records x 2 epochs; e5 the dry run")
     # one process's e1, and a model group of one under NCCL bit-equal to no group
     one = {}
     for s in seeds:
@@ -8016,7 +8192,8 @@ def main() -> int:
     # the converted checkpoint's 4 requests, the in-process training CLI run's, the
     # in-process visualization CLI runs', one distributed training step's on one rank
     # of phase 11's leg B, phase 12's: SAM's serving batch (leg A), the BiomedCLIP +
-    # BERT scorer run (leg B) and the SAM-tower training step (leg D), and phase 13's
+    # BERT scorer run and one run of its bundle's program (leg B), and the SAM-tower
+    # training step, its remat step and its fp32 LoRA step (leg D), and phase 13's
     # four calls over the model group on rank 0 (compute_logits and forward_train's
     # loss in fp32 and bf16) and its training steps over the group (leg d), and phase
     # 14's legs (launches_tools: the sanity harness's steps and eval, the token filter's

@@ -12,10 +12,17 @@ keys and shapes, so an adapter tree and :func:`radzero_torch.models.
 from_jax.lora_from_jax` correspond one to one. A ~ N(0, 1) / r and B = 0,
 so training starts at the base model exactly, as peft's init does.
 
-The port keeps a DINOv2 layer's q, k and v as one packed ``attn.qkv``
-kernel (D, 3D) (``models/from_jax.py``): :func:`merge_lora` adds a ``q`` /
-``k`` / ``v`` adapter's delta into columns [0:D], [D:2D] or [2D:3D] of each
-layer's packed kernel. MPNet keeps q, k and v apart. Merging runs before
+The walk over the kernels is the JAX package's: a tower's layers, one
+stacked dict in the JAX tree and a list of layers here, are one stacked
+kernel a path; SAM's layers, which the JAX tree keeps as a list (a tower
+with a ``neck``), the JAX walk never enters (it walks dicts only), so they
+get no adapter here either. The port keeps a DINOv2-style layer's (one with
+``ls1``: the tower and the align layers) q, k and v as one packed
+``attn.qkv`` kernel (D, 3D) (``models/from_jax.py``): :func:`merge_lora`
+adds a ``q`` / ``k`` / ``v`` adapter's delta into columns [0:D], [D:2D] or
+[2D:3D] of each layer's packed kernel. A ``qkv`` the JAX tree packs itself
+(SAM's) is never split. MPNet and the alternate towers keep q, k and v
+apart. Merging runs before
 the forward under autograd, so differentiating through it trains only the
 adapters; no model code changes. peft's adapter dropout is not replicated
 (merging folds the adapter into the kernel), as in the JAX package.
@@ -53,18 +60,29 @@ ADAPTERS_FILE = "adapters.pt"
 _PACKED = {"q": 0, "k": 1, "v": 2}
 
 
-def _iter_kernels(tree: dict, path: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple[str, ...],
-                                                                          tuple]]:
-    """(JAX path, JAX shape) of every kernel, in the tree's order; a list of
-    layers is one stacked kernel a path, and a packed qkv is q, k and v."""
+def _jax_list(tree: dict, key: str) -> bool:
+    """Whether ``tree[key]``, a list of layers here, is a list in the JAX tree
+    too: SAM's layers (their relative tables differ in shape), in the tower
+    that holds a ``neck``. Every other list is one stacked JAX dict."""
+    return key == "layers" and "neck" in tree
+
+
+def _iter_kernels(tree: dict, path: Tuple[str, ...] = (), packed: bool = False
+                  ) -> Iterator[Tuple[Tuple[str, ...], tuple]]:
+    """(JAX path, JAX shape) of every kernel the JAX ``init_lora`` walks, in the
+    tree's order: a list of layers is one stacked kernel a path, SAM's list is
+    not walked, and in a layer the port packed (``packed``: one with ``ls1``)
+    ``attn/qkv`` is q, k and v."""
     for k, v in tree.items():
         if isinstance(v, list):
-            for sub, shape in _iter_kernels(v[0], ()):
+            if _jax_list(tree, k):
+                continue
+            for sub, shape in _iter_kernels(v[0], (), "ls1" in v[0]):
                 yield path + (k,) + sub, (len(v),) + shape
         elif isinstance(v, dict):
-            yield from _iter_kernels(v, path + (k,))
+            yield from _iter_kernels(v, path + (k,), packed)
         elif k == "kernel":
-            if path[-1:] == ("qkv",):
+            if packed and path[-2:] == ("attn", "qkv"):
                 d_in, d3 = v.shape
                 for name in _PACKED:
                     yield path[:-1] + (name, k), (d_in, d3 // 3)
@@ -123,10 +141,14 @@ def _merge_into(node: dict, rest: List[str], delta: torch.Tensor, specs, tp) -> 
     (a dict the merge owns), packed thirds included."""
     sub = None if specs is None else specs[rest[0]]
     if isinstance(node.get(rest[0]), list):
+        if _jax_list(node, rest[0]):
+            raise KeyError(f"{rest[0]}: a list in the JAX tree too (SAM's layers), which "
+                           "init_lora leaves without adapters")
         for i, layer in enumerate(node[rest[0]]):
             _merge_into(layer, rest[1:], delta[i], None if sub is None else sub[i], tp)
         return
-    if len(rest) == 3 and rest[1] in _PACKED and "qkv" in node.get(rest[0], {}):
+    if (len(rest) == 3 and rest[:1] == ["attn"] and rest[1] in _PACKED and "ls1" in node
+            and "qkv" in node["attn"]):
         qkv = node[rest[0]]["qkv"]
         spec = None if sub is None else sub["qkv"]["kernel"]
         qkv["kernel"] = _add_columns(qkv["kernel"], _share(delta, spec, tp), _PACKED[rest[1]])

@@ -189,6 +189,7 @@ def _grid_rank(group, out, inputs_path):
             a = compute_logits(inputs["params"], cfg, pv, ids.long(), mask.long(), tp=tp1)
             b = compute_logits(inputs["params"], cfg, pv, ids.long(), mask.long())
         res["size1_equal"] = all(torch.equal(a[k], b[k]) for k in a)
+        res["size1_diff"] = {k: (a[k] - b[k]).abs().max().item() for k in a}
     torch.save(res, os.path.join(out, f"rank{r}.pt"))
 
 
@@ -324,11 +325,27 @@ def _fp32_gate(cfg):
     return mod.tp_fp32_gate(cfg)
 
 
-def _within_gate(got, ref, gate):
+def _within_gate(got, ref, gate, label=""):
     """|got - ref| <= gate * max |ref| over every entry."""
     got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
     miss = np.abs(got - ref).max()
-    assert miss <= gate * np.abs(ref).max(), (miss, gate * np.abs(ref).max())
+    assert miss <= gate * np.abs(ref).max(), (
+        f"{label}: max |got - ref| {miss:.3e} above the gate {gate:.3e} x max |ref| "
+        f"{np.abs(ref).max():.3e} = {gate * np.abs(ref).max():.3e}")
+
+
+def _max_diff(a, b) -> str:
+    """The largest |a - b| of two results, as words (bit-equality's miss)."""
+    a, b = (np.asarray(t.detach().float() if torch.is_tensor(t) else t, np.float64)
+            for t in (a, b))
+    if a.shape != b.shape:
+        return f"shapes {a.shape} and {b.shape}"
+    return f"max |a - b| {np.abs(a - b).max():.3e}"
+
+
+def _map_mae(got, ref, label):
+    mae = np.abs(got - ref).mean()
+    assert mae < 1e-3, f"{label}: map MAE {mae:.3e} against the JAX mesh (gate 1e-3)"
 
 
 @pytest.mark.parametrize("vocab", sorted(VOCABS.values()))
@@ -532,14 +549,17 @@ def test_compute_logits_matches_jax_and_one_process(grids, route):
     ref = _jax_logits(tree, vocab)
     one = _one_process(inputs["params"], _cfg(tconf, vocab, route), vocab, route, "logits")
     gate = _fp32_gate(_cfg(tconf, vocab, route))
-    for res in ranks:
-        got = {k: v.numpy() for k, v in res[f"logits_{route}"].items()}
+    for r, res in enumerate(ranks):
+        key = f"logits_{route}"
+        got = {k: v.numpy() for k, v in res[key].items()}
         assert got["logits"].shape == (2, N_PROMPTS) and got["similarity_scores"].shape == (
-            2, N_PROMPTS, 16)
-        np.testing.assert_allclose(got["logits"], ref["logits"], rtol=1e-3, atol=2e-4)
-        assert np.abs(got["similarity_scores"] - ref["similarity_scores"]).mean() < 1e-3
+            2, N_PROMPTS, 16), (f"rank {r} {key}", {k: v.shape for k, v in got.items()})
+        np.testing.assert_allclose(got["logits"], ref["logits"], rtol=1e-3, atol=2e-4,
+                                   err_msg=f"rank {r} {key}['logits'] vs the JAX mesh")
+        _map_mae(got["similarity_scores"], ref["similarity_scores"],
+                 f"rank {r} {key}['similarity_scores']")
         for k in got:
-            _within_gate(got[k], one[k].numpy(), gate)
+            _within_gate(got[k], one[k].numpy(), gate, f"rank {r} {key}[{k!r}] vs one process")
 
 
 @pytest.mark.parametrize("branch", ["mlp", "token_filter"])
@@ -554,13 +574,18 @@ def test_branch_logits_over_the_model_axis(grids, branch):
     one = _one_process(inputs[branch], _cfg(tconf, vocab, branch=branch), vocab, "fused",
                        "logits")
     gate = _fp32_gate(_cfg(tconf, vocab, branch=branch))
-    for res in ranks:
-        got = {k: v.numpy() for k, v in res[f"logits_{branch}"].items()}
-        np.testing.assert_allclose(got["logits"], ref["logits"], rtol=1e-3, atol=2e-4)
-        assert np.abs(got["similarity_scores"] - ref["similarity_scores"]).mean() < 1e-3
+    for r, res in enumerate(ranks):
+        key = f"logits_{branch}"
+        got = {k: v.numpy() for k, v in res[key].items()}
+        np.testing.assert_allclose(got["logits"], ref["logits"], rtol=1e-3, atol=2e-4,
+                                   err_msg=f"rank {r} {key}['logits'] vs the JAX mesh")
+        _map_mae(got["similarity_scores"], ref["similarity_scores"],
+                 f"rank {r} {key}['similarity_scores']")
         for k in got:
-            _within_gate(got[k], one[k].numpy(), gate)
-            assert np.array_equal(got[k], ranks[0][f"logits_{branch}"][k].numpy())
+            _within_gate(got[k], one[k].numpy(), gate, f"rank {r} {key}[{k!r}] vs one process")
+            first = ranks[0][key][k].numpy()
+            assert np.array_equal(got[k], first), (
+                f"rank {r} {key}[{k!r}] vs rank 0: {_max_diff(got[k], first)}")
 
 
 def test_gradients_and_alternate_towers_refuse(grids):
@@ -584,24 +609,36 @@ def test_gradients_and_alternate_towers_refuse(grids):
     with torch.no_grad():
         one_vision = forward_vision(_alt_params(clip), clip, batch["pixel_values"])
         one_text = forward_text(_alt_params(bert), bert, ids.long(), mask.long())
-    for res in ranks:
+    for r, res in enumerate(ranks):
         for name in ("save_attn_packed", "save_attn_flash", "alt_vision", "alt_text"):
-            assert res[f"refused_{name}"] is None, (name, res[f"refused_{name}"])
-            assert torch.equal(res[name], ranks[0][name]), name
+            assert res[f"refused_{name}"] is None, (f"rank {r} refused_{name}",
+                                                    res[f"refused_{name}"])
+            assert torch.equal(res[name], ranks[0][name]), (
+                f"rank {r} {name} vs rank 0: {_max_diff(res[name], ranks[0][name])}")
         for name in ("save_attn_packed", "save_attn_flash"):
-            np.testing.assert_allclose(res[name].item(), ref, rtol=3e-5)
-            _within_gate(res[name].item(), one.item(), _fp32_gate(cfg))
+            np.testing.assert_allclose(res[name].item(), ref, rtol=3e-5,
+                                       err_msg=f"rank {r} {name} vs the JAX mesh")
+            _within_gate(res[name].item(), one.item(), _fp32_gate(cfg),
+                         f"rank {r} {name} vs one process")
         _within_gate(res["alt_vision"].numpy(), one_vision["vision_tokens"].numpy(),
-                     _fp32_gate(clip))
+                     _fp32_gate(clip), f"rank {r} alt_vision vs one process")
         _within_gate(res["alt_text"].numpy(), one_text["text_features"].numpy(),
-                     _fp32_gate(bert))
-        assert "in composite model" in res["refused_clip_text"]
+                     _fp32_gate(bert), f"rank {r} alt_text vs one process")
+        assert "in composite model" in res["refused_clip_text"], (
+            f"rank {r} refused_clip_text", res["refused_clip_text"])
     with pytest.raises(NotImplementedError, match="in composite model"):
         forward_text(_alt_params(bert), _clip_text(bert), ids.long(), mask.long())
 
 
 def test_model_group_of_one_is_no_group(grids):
-    assert all(res["size1_equal"] for res in grids["1x2"][3])
+    """compute_logits over a model group of one (the (2, 1) grid over the two
+    ranks) gives the bits of no group, on each rank: each key's largest
+    difference is named."""
+    for r, res in enumerate(grids["1x2"][3]):
+        worst = max(res["size1_diff"], key=res["size1_diff"].get)
+        assert res["size1_equal"], (
+            f"rank {r}: compute_logits(tp=group of one) vs no group, per key max |a - b| "
+            f"{res['size1_diff']}; the largest at {worst!r}")
 
 
 def test_refusals_without_ranks(tmp_path):
